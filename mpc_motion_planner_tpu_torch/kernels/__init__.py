@@ -1,0 +1,26 @@
+"""Hand-written CUDA kernels of the port and their launch counts.
+
+Kernel sources live in ``../csrc``; each wrapper module builds its kernel
+lazily (:mod:`.build`), so importing this package needs neither ``nvcc`` nor
+a GPU.
+"""
+
+from __future__ import annotations
+
+from . import banded_factor, constraints, structured_admm
+
+KERNELS = {
+    "constraints": constraints.KERNEL,
+    "banded_factor": banded_factor.KERNEL,
+    "structured_admm": structured_admm.KERNEL,
+}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+    banded_factor.REPAIRS.count = 0
+
+
+def launch_counts() -> dict:
+    return {name: k.launches for name, k in KERNELS.items()}

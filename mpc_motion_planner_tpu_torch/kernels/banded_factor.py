@@ -1,0 +1,86 @@
+"""Kernel 2: block-banded Cholesky + arrow factorization of the ADMM KKT
+matrix, one problem per thread block.
+
+Replaces ``mpc_motion_planner_tpu/ops/pallas/banded_factor.py``
+``factor_banded_pallas`` (``pl.pallas_call`` at :262, body
+``_factor_kernel`` :117).
+
+What bounds it on this card: the sequential node recursion. Per problem
+the 19-step recursion does ~2 MFLOP (Schur updates, a 21-column Cholesky,
+a triangular inverse and up to three sub-diagonal products per node) and
+moves ~268 KB (the band in, the factors out), so at B=2048 the launch
+moves ~0.55 GB, little for the card's memory, while each step depends on
+the previous one (PERF.md has the measured time). The design puts one
+problem in one 256-thread block, keeps the whole factor of the problem in
+shared memory (134 KB, so the recursion re-reads nothing from device
+memory), parallelizes each step over the 441 entries of a 21x21 block, and
+writes the factors out once at the end. The TPU kernel's numerical guards are kept as semantics: the 1e-20
+pivot floor, the ±1e8 clamp on every computed entry, and the ``ok`` flag
+(pivot or Schur scalar at or below 1e-20, or any entry at or above 0.99e8).
+
+The plain version is ``ops.qp_structured.factor_banded``; problems whose
+``ok`` is false are refactored by it (with its jitter retry), as the JAX
+package does, and counted in ``REPAIRS``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..ops.qp_structured import factor_banded
+from .build import CudaKernel, check_cuda_tensor, ptr
+
+N, BW, BLK = 19, 3, 21  # nodes, band width, block size (csrc/banded_factor.cu)
+
+KERNEL = CudaKernel(
+    "banded_factor", "banded_factor.cu", "mpc_banded_factor",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p],
+)
+
+
+class RepairCount:
+    """Problems whose kernel-2 factor was replaced by the plain one."""
+
+    count = 0
+
+
+REPAIRS = RepairCount()
+
+
+def factor_banded_kernel(Mband, p_col, m_pp):
+    """Launch kernel 2 on CUDA float32 tensors Mband (B, 19, 4, 21, 21),
+    p_col (B, 19, 21), m_pp (B,). Returns {"Ldi", "Lsub", "u", "s", "ok"}
+    in the layouts of :func:`factor_banded`."""
+    B = Mband.shape[0]
+    check_cuda_tensor("Mband", Mband, (B, N, BW + 1, BLK, BLK))
+    check_cuda_tensor("p_col", p_col, (B, N, BLK))
+    check_cuda_tensor("m_pp", m_pp, (B,))
+    new = lambda *shape, dtype=torch.float32: torch.empty(*shape, dtype=dtype, device=Mband.device)
+    Ldi, Lsub = new(B, N, BLK, BLK), new(B, N, BW, BLK, BLK)
+    u, s, ok = new(B, N, BLK), new(B), new(B, dtype=torch.int32)
+    KERNEL.launch(
+        ptr(Mband), ptr(p_col), ptr(m_pp), ptr(Ldi), ptr(Lsub), ptr(u), ptr(s),
+        ptr(ok), B,
+    )
+    return {"Ldi": Ldi, "Lsub": Lsub, "u": u, "s": s, "ok": ok != 0}
+
+
+def factor(Mband, p_col, m_pp, bw: int):
+    """Route: the plain factorization for CPU tensors; for CUDA tensors
+    kernel 2, with the problems it flags refactored by the plain version."""
+    if Mband.device.type == "cpu":
+        return factor_banded(Mband, p_col, m_pp, bw)
+    if Mband.device.type != "cuda":
+        raise ValueError(f"no factor path for device {Mband.device}")
+    if bw != BW:
+        raise NotImplementedError(f"kernel 2 is built for band width {BW}")
+    fac = factor_banded_kernel(Mband, p_col, m_pp)
+    bad = (~fac["ok"]).nonzero()[:, 0]
+    if bad.numel():
+        fix = factor_banded(Mband[bad], p_col[bad], m_pp[bad], bw)
+        for k in ("Ldi", "Lsub", "u", "s"):
+            fac[k][bad] = fix[k]
+        REPAIRS.count += int(bad.numel())
+    return fac

@@ -1,0 +1,126 @@
+"""Build the hand-written CUDA kernels with nvcc and load them with ctypes.
+
+Each kernel source in ``csrc/`` is compiled at first use into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds) under ``build/torch_kernels/`` at the root of the checkout. The
+file name carries a hash of the sources and flags, so an edited source is
+rebuilt and a current one is loaded as it is. Nothing here runs at import.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and deliberately no
+``--use_fast_math``: the parity tolerances rest on accurate ``sinf``,
+``cosf``, ``sqrtf`` and division.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        shutil.which("nvcc") or "",
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+class CudaKernel:
+    """One kernel library: lazy build, ctypes binding and a launch count.
+
+    ``launches`` is incremented by the wrapper each time it launches the
+    kernel, and nowhere else; ``build_log`` holds nvcc's report (registers,
+    shared memory, spills) of the last build."""
+
+    def __init__(self, name: str, source: str, entry: str, argtypes):
+        self.name = name
+        self.source = source
+        self.entry = entry
+        self.argtypes = argtypes
+        self.launches = 0
+        self.build_log = ""
+        self._fn = None
+
+    def sources(self):
+        return [CSRC / self.source, *sorted(CSRC.glob("*.cuh"))]
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in self.sources():
+            h.update(src.read_bytes())
+        return BUILD_DIR / f"{self.name}_{h.hexdigest()[:16]}.so"
+
+    def build(self) -> Path:
+        """Compile the library if it is missing or stale; return its path."""
+        out = self.library_path()
+        if out.exists():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / self.source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed for {self.source} ({proc.returncode}):\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+        self.build_log = proc.stderr
+        return out
+
+    def function(self):
+        """The bound C entry point; builds the library on first use."""
+        if self._fn is None:
+            lib = ctypes.CDLL(str(self.build()))
+            fn = getattr(lib, self.entry)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, *args):
+        """Call the entry point on PyTorch's current stream; raise if the
+        launch was refused. Counts the launch."""
+        import torch
+
+        stream = torch.cuda.current_stream().cuda_stream
+        err = self.function()(*args, ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err}")
+        self.launches += 1
+
+
+def check_cuda_tensor(name: str, t, shape, dtype=None):
+    """Raise unless ``t`` is a contiguous CUDA tensor of the given shape
+    (and dtype, float32 by default)."""
+    import torch
+
+    dtype = dtype or torch.float32
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,138 @@
+"""Kernel 3: the structured boxADMM loop, one QP per thread block, plus the
+host part of the solve around it.
+
+Replaces ``mpc_motion_planner_tpu/ops/pallas/structured_admm.py``
+``solve_box_qp_structured_pallas`` (``pl.pallas_call`` at :830, body
+``_structured_kernel`` :142) and the host part of its ``_solve_impl``
+(:584-688): the float32 cast, Ruiz scaling, the ±1e20 bound stand-ins, the
+soft-row thresholds, the factorization (kernel 2) with its ok-flag repair,
+and the un-scaling.
+
+What bounds it on this card: the per-iteration dependency chain. Each
+iteration is ~157k flops per problem, 85% of them in the two banded
+triangular sweeps, which are 38 dependent 21x21 block steps. The factors
+are 134 KB per problem, so reading them from device memory would move
+275 MB per iteration at B=2048. Design: one problem per 256-thread block runs the whole iteration budget in
+one launch with its factors, operator data and iterates resident in shared
+memory (~190 KB, one block per SM), so the loop touches device memory only
+to load and to store. The element-wise parts and the matrix-free A / A'
+applies use all threads; the sweeps run in one warp (lane r owns row r of
+a block, so a block step needs only ``__syncwarp``). Each block stops at
+its own ``done``: the TPU kernel's lane-group exit, chunk schedules and
+compaction existed because 128 problems shared a program, and are not
+needed here; the iteration budgets, the check rule, the done codes and the
+iteration counts are kept.
+
+The plain version is ``ops.qp_structured.solve_box_qp_structured`` (the
+same semantics in batched PyTorch); :func:`solve_box_qp_structured` takes
+it for CPU tensors only and launches the kernels or raises for CUDA ones.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..ops import qp_structured
+from ..ops.qp import QPSettings, QPSolution
+from ..ops.structure import StructuredA
+from . import banded_factor
+from .build import CudaKernel, check_cuda_tensor, ptr
+
+N, NG, BLK, BW, NV, NEQ, NM = 19, 8, 21, 3, 400, 336, 488
+
+KERNEL = CudaKernel(
+    "structured_admm", "structured_admm.cu", "mpc_structured_admm",
+    [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_float] * 4
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+)
+
+
+def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings: QPSettings):
+    """Launch kernel 3 on scaled float32 CUDA data; returns the scaled
+    (x, zc, zx, yc, yx, done, iters, rp, rd) like ``admm_plain``."""
+    B = qp.x.shape[0]
+    f32 = torch.float32
+    shapes = {
+        "Ldi": (B, N, BLK, BLK), "Lsub": (B, N, BW, BLK, BLK), "u": (B, N, BLK),
+        "s": (B,), "J": (B, N, NG, BLK), "f_rows": (B, NEQ), "p": (B,),
+    }
+    data = {"Ldi": fac["Ldi"], "Lsub": fac["Lsub"], "u": fac["u"], "s": fac["s"],
+            "J": sa.J, "f_rows": sa.f_rows, "p": sa.p}
+    zdata = {"qs": qp.qs, "Ps": qp.Ps, "rx": qp.rx, "lxs": qp.lxs, "uxs": qp.uxs,
+             "thx": qp.thx, "D": qp.D, "x0": qp.x, "zx0": qp.zx, "yx0": qp.yx}
+    mdata = {"rc": qp.rc, "lcs": qp.lcs, "ucs": qp.ucs, "E": qp.E, "thr": qp.thr,
+             "zc0": qp.zc, "yc0": qp.yc}
+    shapes.update({k: (B, NV) for k in zdata})
+    shapes.update({k: (B, NM) for k in mdata})
+    inputs = {k: v.contiguous() for d in (data, zdata, mdata) for k, v in d.items()}
+    for k, v in inputs.items():
+        check_cuda_tensor(k, v, shapes[k])
+
+    new = lambda n, dtype=f32: torch.empty(B, n, dtype=dtype, device=qp.x.device)
+    x, zx, yx = new(NV), new(NV), new(NV)
+    zc, yc = new(NM), new(NM)
+    rp, rd = new(1)[:, 0], new(1)[:, 0]
+    done, iters = new(1, torch.int32)[:, 0], new(1, torch.int32)[:, 0]
+    outs = [x, zc, zx, yc, yx, rp, rd, done, iters]
+    # pointer block in the order of struct Ptrs (csrc/structured_admm.cu)
+    ptrs = (ctypes.c_void_p * 33)(
+        *(t.data_ptr() for t in list(inputs.values()) + outs)
+    )
+    Dm = ocp.coll.diff_matrix.detach().to("cpu", torch.float32).contiguous()
+    cap = settings.max_iter + settings.rescue_iters
+    KERNEL.launch(
+        ptrs, ptr(Dm), settings.sigma, settings.alpha, settings.eps_abs,
+        settings.eps_rel, cap, settings.check_every, B,
+    )
+    return x, zc, zx, yc, yx, done, iters, rp, rd
+
+
+def _check_geometry(ocp):
+    dims = (ocp.num_nodes, ocp.ng, ocp.nx + ocp.nu, ocp.coll.order, ocp.num_var,
+            ocp.num_eq, ocp.num_eq + ocp.num_ineq)
+    if dims != (N, NG, BLK, BW, NV, NEQ, NM) or ocp.coll.num_segments != 6:
+        raise NotImplementedError(
+            f"kernels 2 and 3 are built for the 19-node Panda transcription, got {dims}"
+        )
+
+
+def solve_box_qp_structured_cuda(
+    ocp, sa: StructuredA, P_diag, q, lc, uc, lx, ux, settings: QPSettings,
+    x0=None, yc0=None, yx0=None, soft_c=None, soft_x=None,
+) -> QPSolution:
+    """The structured QP on the card: float32 data, kernel 2 for the
+    factorization (flagged problems refactored by the plain version) and
+    kernel 3 for the ADMM loop. Returns float32 results."""
+    settings.check_ported()
+    _check_geometry(ocp)
+    f32 = torch.float32
+    cast = lambda a: None if a is None else a.to(f32)
+    sa = sa.to(dtype=f32)
+    qp = qp_structured.scale_qp(
+        ocp, sa, *(cast(a) for a in (P_diag, q, lc, uc, lx, ux)), settings,
+        *(cast(a) for a in (x0, yc0, yx0, soft_c, soft_x)),
+    )
+    fac = banded_factor.factor(qp.Mband, qp.p_col, qp.m_pp, ocp.coll.order)
+    return qp_structured.unscale_solution(qp, *admm_kernel(ocp, sa, qp, fac, settings))
+
+
+def solve_box_qp_structured(ocp, sa: StructuredA, P_diag, q, lc, uc, lx, ux,
+                            settings: QPSettings = QPSettings(), **kw) -> QPSolution:
+    """Route: the plain structured solve for CPU tensors (caller's dtype),
+    kernels 2 and 3 for CUDA tensors (float32, cast back to the caller's
+    dtype)."""
+    if q.device.type == "cpu":
+        return qp_structured.solve_box_qp_structured(
+            ocp, sa, P_diag, q, lc, uc, lx, ux, settings, **kw
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"no QP path for device {q.device}")
+    sol = solve_box_qp_structured_cuda(ocp, sa, P_diag, q, lc, uc, lx, ux, settings, **kw)
+    if q.dtype == torch.float32:
+        return sol
+    return QPSolution(**{
+        k: (v.to(q.dtype) if v.is_floating_point() else v)
+        for k, v in vars(sol).items()
+    })

@@ -1,0 +1,232 @@
+"""Minimum-time OCP transcription to a fixed-shape NLP (PyTorch).
+
+Counterpart of ``mpc_motion_planner_tpu/ocp.py``: NX=14 (q, qdot), NU=7
+(qddot), one parameter (final time p), NG=8 (7 RNEA torques + tool height)
+on the 19-node Chebyshev–Gauss–Lobatto spline. Decision vector layout
+(VAR = 400):
+
+    z = [X_0, ..., X_18, U_0, ..., U_18, p],   X_k = [q_k, qdot_k]
+
+Every function takes a leading batch dimension. The per-node constraint
+values and Jacobians of a batch go through kernel 1
+(:mod:`.kernels.constraints`) for CUDA tensors and through the plain
+version here for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .kernels import constraints as constraints_kernel
+from .models.robot import Frame, RobotModel
+from .ops import kinematics, rnea
+from .ops.collocation import Collocation, derivative_at_nodes, make_collocation
+
+
+@dataclass(frozen=True)
+class TranscribedOCP:
+    """Static transcription of the minimum-time OCP for one robot."""
+
+    model: RobotModel
+    coll: Collocation
+    tool_frame: Frame
+
+    @property
+    def nq(self) -> int:
+        return self.model.nq
+
+    @property
+    def nx(self) -> int:
+        return 2 * self.model.nq
+
+    @property
+    def nu(self) -> int:
+        return self.model.nq
+
+    @property
+    def ng(self) -> int:
+        return self.model.nq + 1
+
+    @property
+    def num_nodes(self) -> int:
+        return self.coll.num_nodes
+
+    @property
+    def num_var(self) -> int:
+        return self.num_nodes * (self.nx + self.nu) + 1
+
+    @property
+    def num_eq(self) -> int:
+        return self.coll.num_segments * (self.coll.order + 1) * self.nx
+
+    @property
+    def num_ineq(self) -> int:
+        return self.num_nodes * self.ng
+
+    def segment_index(self, device) -> torch.Tensor:
+        return torch.as_tensor(self.coll.segment_indices(), device=device)
+
+    # ---------------- packing ----------------
+
+    def pack(self, X, U, p):
+        """(B, nodes, nx), (B, nodes, nu), (B,) -> (B, num_var)."""
+        B = X.shape[0]
+        return torch.cat([X.reshape(B, -1), U.reshape(B, -1), p.reshape(B, 1)], dim=-1)
+
+    def unpack(self, z):
+        n, nx, nu = self.num_nodes, self.nx, self.nu
+        X = z[..., : n * nx].reshape(*z.shape[:-1], n, nx)
+        U = z[..., n * nx : n * (nx + nu)].reshape(*z.shape[:-1], n, nu)
+        return X, U, z[..., -1]
+
+    # ---------------- NLP callbacks ----------------
+
+    def cost(self, z):
+        """Mayer term = p (pure minimum time)."""
+        return z[..., -1]
+
+    def cost_gradient(self, z):
+        g = torch.zeros_like(z)
+        g[..., -1] = 1.0
+        return g
+
+    def dynamics(self, x, u):
+        """Unscaled f(x, u) = [qdot; u]; dx/dtau = p * f."""
+        return torch.cat([x[..., self.nq :], u], dim=-1)
+
+    def eq_residual(self, z):
+        """Collocation defects at every segment-local node, (B, num_eq)."""
+        X, U, p = self.unpack(z)
+        dX = derivative_at_nodes(self.coll, X)  # (B, S, K, nx)
+        f = self.dynamics(X, U)[:, self.segment_index(z.device)]
+        return (dX - p[:, None, None, None] * f).reshape(z.shape[0], -1)
+
+    def eq_residual_quadratic(self, z, d):
+        """Exact expansion c(z + a d) = c0 + a c1 + a^2 c2 of the bilinear
+        defects along a step direction. Returns (c0, c1, c2), (B, num_eq)."""
+        B = z.shape[0]
+        X, U, p = self.unpack(z)
+        dX_d, dU_d, dp = self.unpack(d)
+        idx = self.segment_index(z.device)
+        f_z = self.dynamics(X, U)[:, idx]
+        f_d = self.dynamics(dX_d, dU_d)[:, idx]
+        p, dp = p[:, None, None, None], dp[:, None, None, None]
+        c0 = derivative_at_nodes(self.coll, X) - p * f_z
+        c1 = derivative_at_nodes(self.coll, dX_d) - p * f_d - dp * f_z
+        c2 = -dp * f_d
+        return c0.reshape(B, -1), c1.reshape(B, -1), c2.reshape(B, -1)
+
+    def node_constraints(self, x, u):
+        """Per-node inequality g = [tau (nq), tool height], (..., ng)."""
+        nq = self.nq
+        tau = rnea.rnea(self.model, x[..., :nq], x[..., nq:], u)
+        height = kinematics.frame_height(self.model, x[..., :nq], self.tool_frame)
+        return torch.cat([tau, height[..., None]], dim=-1)
+
+    def ineq_residual(self, z):
+        """(B, num_ineq) node-major stacked g values (plain path)."""
+        X, U, _ = self.unpack(z)
+        return self.node_constraints(X, U).reshape(z.shape[0], -1)
+
+    def node_jacobians(self, X, U):
+        """Exact Jacobians dg/d[x, u] of per-node inputs X (..., nx), U
+        (..., nu): (..., ng, nx+nu), by forward-mode differentiation of the
+        plain constraint function."""
+        nx = self.nx
+        xu = torch.cat([X, U], dim=-1)
+
+        def g_of(v):
+            return self.node_constraints(v[:nx], v[nx:])
+
+        J = torch.func.vmap(torch.func.jacfwd(g_of))(xu.reshape(-1, xu.shape[-1]))
+        return J.reshape(*xu.shape[:-1], self.ng, xu.shape[-1])
+
+    def node_constraint_jacobians(self, z):
+        """Exact per-node Jacobians at z, (B, nodes, ng, nx+nu)."""
+        X, U, _ = self.unpack(z)
+        return self.node_jacobians(X, U)
+
+    # ---- batched constraint evaluation: kernel 1 on CUDA ----
+
+    def ineq_residual_batch(self, z):
+        """(B, num_var) -> (B, num_ineq)."""
+        X, U, _ = self.unpack(z)
+        g = constraints_kernel.node_constraints(self, X, U, with_jac=False)
+        return g.reshape(z.shape[0], -1)
+
+    def linearize_constraints_batch(self, z):
+        """(B, num_var) -> (g (B, num_ineq), J (B, nodes, ng, nx+nu))."""
+        X, U, _ = self.unpack(z)
+        g, J = constraints_kernel.node_constraints(self, X, U, with_jac=True)
+        return g.reshape(z.shape[0], -1), J
+
+
+def make_ocp(
+    model: RobotModel,
+    tool_frame_name: str = "panda_tool",
+    order: int = 3,
+    num_segments: int = 6,
+) -> TranscribedOCP:
+    """The OCP in the model's dtype and on its device."""
+    coll = make_collocation(
+        order, num_segments, dtype=model.mass.dtype, device=model.mass.device
+    )
+    return TranscribedOCP(model=model, coll=coll, tool_frame=model.frame(tool_frame_name))
+
+
+# ---------------- bounds assembly ----------------
+
+
+@dataclass(frozen=True)
+class NLPBounds:
+    """Variable and constraint boxes for one batched solve."""
+
+    lb_var: torch.Tensor  # (B, num_var)
+    ub_var: torch.Tensor
+    lb_ineq: torch.Tensor  # (B, num_ineq)
+    ub_ineq: torch.Tensor
+
+
+def assemble_bounds(
+    ocp: TranscribedOCP,
+    current_state,
+    target_state,
+    state_lb,
+    state_ub,
+    control_lb,
+    control_ub,
+    param_lb,
+    param_ub,
+    ineq_lb,
+    ineq_ub,
+    target_eps: float = 1e-2,
+) -> NLPBounds:
+    """Interior nodes get the state box, node 0 is pinned to the current
+    state, node N-1 gets target +- eps; all nodes share the control box and
+    the nonlinear-constraint box. current/target_state (B, nx)."""
+    n = ocp.num_nodes
+    B = current_state.shape[0]
+    dt, dev = current_state.dtype, current_state.device
+
+    lbX = state_lb.expand(B, n, -1).clone()
+    ubX = state_ub.expand(B, n, -1).clone()
+    lbX[:, 0] = current_state
+    ubX[:, 0] = current_state
+    lbX[:, n - 1] = target_state - target_eps
+    ubX[:, n - 1] = target_state + target_eps
+
+    lbU = control_lb.expand(B, n, -1)
+    ubU = control_ub.expand(B, n, -1)
+    pl = torch.full((B, 1), float(param_lb), dtype=dt, device=dev)
+    pu = torch.full((B, 1), float(param_ub), dtype=dt, device=dev)
+
+    lb = torch.cat([lbX.reshape(B, -1), lbU.reshape(B, -1), pl], dim=-1)
+    ub = torch.cat([ubX.reshape(B, -1), ubU.reshape(B, -1), pu], dim=-1)
+    return NLPBounds(
+        lb_var=lb,
+        ub_var=ub,
+        lb_ineq=ineq_lb.repeat(n).expand(B, -1),
+        ub_ineq=ineq_ub.repeat(n).expand(B, -1),
+    )

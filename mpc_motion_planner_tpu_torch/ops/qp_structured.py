@@ -1,0 +1,533 @@
+"""Structured (matrix-free) boxADMM for the transcribed OCP QPs (PyTorch).
+
+Counterpart of ``mpc_motion_planner_tpu/ops/qp_structured.py``: structured
+Ruiz equilibration, assembly of the node-major block-banded KKT matrix
+M = D A' diag(w) A D + diag(sig) with its arrow column for the time
+parameter, the node-level block-banded Cholesky with its jitter retry, and
+the ADMM loop.
+
+The loop here is the plain version of kernel 3 and follows the fused
+kernel's semantics (``ops/pallas/structured_admm.py`` ``_structured_kernel``)
+exactly: rho fixed, the flush-to-zero/±1e15 clamp on every updated
+iterate, the ±1e20 stand-ins for infinite bounds, residual checks every
+``check_every`` iterations and at the cap, a NaN-safe freeze at magnitude
+1e12 (done=2), and per-problem counts of active iterations. Each problem
+stops on its own ``done``. The functions take the caller's dtype, so the
+CPU tests run it at float64.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .qp import _HARD, QPSettings, QPSolution, _rho_pattern, _soft_prox
+from .structure import StructuredA, _static_indices, apply_A, apply_AT
+
+_PIV_FLOOR = 1e-20  # kernel 2's Cholesky pivot floor
+_SAT = 0.99e8  # kernel 2's saturation flag level
+_BIG = 1e12  # divergence freeze level
+
+
+def _node_cover(order: int, num_segments: int):
+    """Per-node covering segments (sA, locA) and, for shared boundary
+    nodes, (sB, locB)."""
+    _, first, second, valid2 = _static_indices(order, num_segments)
+    K = order + 1
+    return first // K, first % K, second // K, second % K, valid2
+
+
+def split_node_major(ocp, v):
+    """(B, num_var) z-layout -> ((B, nodes, nx+nu), (B,) p)."""
+    nodes, nx, nu = ocp.num_nodes, ocp.nx, ocp.nu
+    B = v.shape[0]
+    X = v[:, : nodes * nx].reshape(B, nodes, nx)
+    U = v[:, nodes * nx : nodes * (nx + nu)].reshape(B, nodes, nu)
+    return torch.cat([X, U], dim=-1), v[:, nodes * (nx + nu)]
+
+
+def join_node_major(ocp, vb, vp):
+    """Inverse of :func:`split_node_major`."""
+    nx, nu = ocp.nx, ocp.nu
+    B = vb.shape[0]
+    return torch.cat(
+        [vb[..., :nx].reshape(B, -1), vb[..., nx : nx + nu].reshape(B, -1), vp[:, None]],
+        dim=-1,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Structured Ruiz equilibration
+# ---------------------------------------------------------------------------
+
+
+def ruiz_structured(ocp, sa: StructuredA, iters: int):
+    """Inf-norm Ruiz scaling of A from its sparsity structure. Returns
+    (D (B, n), E (B, m))."""
+    order, S, nodes = ocp.coll.order, ocp.coll.num_segments, ocp.num_nodes
+    nx, nu, ng, nq = ocp.nx, ocp.nu, ocp.ng, ocp.nq
+    K, blk = order + 1, nx + nu
+    B = sa.p.shape[0]
+    dt, dev = sa.f_rows.dtype, sa.f_rows.device
+
+    seg_idx, *_ = _static_indices(order, S)
+    idx = torch.as_tensor(seg_idx, device=dev)
+    sA, lA, sB, lB, has2 = _node_cover(order, S)
+    sA, lA, sB, lB = (torch.as_tensor(a, device=dev) for a in (sA, lA, sB, lB))
+    h2 = torch.as_tensor(has2, dtype=dt, device=dev)[None, :, None]
+
+    absDm = ocp.coll.diff_matrix.to(dt).abs()  # (K, K)
+    p = sa.p.abs()
+    absf = sa.f_rows.abs().reshape(B, S, K, nx)
+    absJ = sa.J.abs()
+
+    d_nodes = torch.ones(B, nodes, blk, dtype=dt, device=dev)
+    d_p = torch.ones(B, dtype=dt, device=dev)
+    e_eq = torch.ones(B, S, K, nx, dtype=dt, device=dev)
+    e_g = torch.ones(B, nodes, ng, dtype=dt, device=dev)
+
+    def scale(norm):
+        return torch.where(
+            norm > 1e-10, 1.0 / torch.sqrt(torch.clamp(norm, min=1e-10)),
+            torch.ones_like(norm),
+        )
+
+    node_ar = torch.arange(nodes, device=dev)
+    for _ in range(iters):
+        # ---- row inf-norms of E A D ----
+        d_seg = d_nodes[:, idx, :nx]  # (B, S, K, nx)
+        m_diff = (absDm[None, None, :, :, None] * d_seg[:, :, None, :, :]).amax(dim=3)
+        d_v = d_nodes[:, idx, nq : nq + nx]
+        r_eq = e_eq * torch.maximum(
+            torch.maximum(m_diff, p[:, None, None, None] * d_v),
+            absf * d_p[:, None, None, None],
+        )
+        r_g = e_g * (absJ * d_nodes[:, :, None, :]).amax(dim=-1)
+
+        # ---- column inf-norms of E A D ----
+        def eq_col_contrib(s_, l_):
+            e_cov = e_eq[:, s_]  # (B, nodes, K, nx)
+            cD = (absDm.T[l_][None, :, :, None] * e_cov).amax(dim=2)
+            e_row = e_cov[:, node_ar, l_]  # (B, nodes, nx)
+            return cD, p[:, None, None] * e_row
+
+        cDA, cVA = eq_col_contrib(sA, lA)
+        cDB, cVB = eq_col_contrib(sB, lB)
+        cD = torch.maximum(cDA, h2 * cDB)
+        cV = torch.maximum(cVA, h2 * cVB)
+
+        c_nodes = torch.zeros(B, nodes, blk, dtype=dt, device=dev)
+        c_nodes[..., :nx] = cD
+        c_nodes[..., nq : nq + nx] = torch.maximum(c_nodes[..., nq : nq + nx], cV)
+        cJ = (absJ * e_g[..., None]).amax(dim=2)
+        c_nodes = torch.maximum(c_nodes, cJ) * d_nodes
+        c_p = d_p * (absf * e_eq).amax(dim=(1, 2, 3))
+
+        d_nodes = d_nodes * scale(c_nodes)
+        d_p = d_p * scale(c_p)
+        e_eq = e_eq * scale(r_eq)
+        e_g = e_g * scale(r_g)
+
+    D = join_node_major(ocp, d_nodes, d_p)
+    E = torch.cat([e_eq.reshape(B, -1), e_g.reshape(B, -1)], dim=-1)
+    return D, E
+
+
+# ---------------------------------------------------------------------------
+# Block-banded + arrow assembly / factorization / solve
+# ---------------------------------------------------------------------------
+
+
+def _place(v, rows, cols, blk):
+    """Embed per-dim values v (..., L) into (..., blk, blk) blocks."""
+    out = v.new_zeros(*v.shape[:-1], blk, blk)
+    out[..., rows, cols] = v
+    return out
+
+
+def assemble_banded_M(ocp, sa: StructuredA, w_eq, w_g, D, sig):
+    """Banded blocks of M = D A' diag(w) A D + diag(sig) in node-major
+    ordering, plus the p arrow column.
+
+    w_eq (B, S, K, nx), w_g (B, nodes, ng): row weights E^2 rho. D, sig
+    (B, n) in z-layout. Returns (Mband (B, nodes, bw+1, blk, blk) with
+    Mband[b, k, d] = M[node k+d, node k] (d=0 blocks full-symmetric),
+    p_col (B, nodes, blk), m_pp (B,))."""
+    order, S, nodes = ocp.coll.order, ocp.coll.num_segments, ocp.num_nodes
+    nx, nu, nq = ocp.nx, ocp.nu, ocp.nq
+    K, blk, bw = order + 1, nx + nu, order
+    B = sa.p.shape[0]
+    dt, dev = w_eq.dtype, w_eq.device
+
+    Dm = ocp.coll.diff_matrix.to(dt)
+    p = sa.p
+    f_eq = sa.f_rows.reshape(B, S, K, nx)
+    xdim = torch.arange(nx, device=dev)
+    vdim = xdim + nq
+
+    d_nodes, d_p = split_node_major(ocp, D)
+    sig_nodes, sig_p = split_node_major(ocp, sig)
+
+    Mband = torch.zeros(B, nodes, bw + 1, blk, blk, dtype=dt, device=dev)
+
+    def ncols(l):
+        return torch.arange(S, device=dev) * order + l
+
+    # (a) X-X: sum_k w[b,s,k,i] Dm[k,j] Dm[k,l]  (diagonal in i)
+    T1 = torch.einsum("bski,kj,kl->bsjli", w_eq, Dm, Dm)
+    for j in range(K):
+        for l in range(j + 1):
+            Mband[:, ncols(l), j - l] += _place(T1[:, :, j, l, :], xdim, xdim, blk)
+
+    # (b) X-V cross: row (s,k,i) couples X(node j, i) with V(node k, i+nq)
+    T2 = -p[:, None, None, None, None] * w_eq[:, :, :, None, :] * Dm[None, None, :, :, None]
+    for k in range(K):
+        for j in range(K):
+            val = T2[:, :, k, j, :]
+            if j > k:
+                Mband[:, ncols(k), j - k] += _place(val, xdim, vdim, blk)
+            elif j < k:
+                Mband[:, ncols(j), k - j] += _place(val, vdim, xdim, blk)
+            else:
+                Mband[:, ncols(k), 0] += (
+                    _place(val, xdim, vdim, blk) + _place(val, vdim, xdim, blk)
+                )
+
+    # (c) V-V: p^2 w on the V diagonal
+    T3 = (p**2)[:, None, None, None] * w_eq
+    for k in range(K):
+        Mband[:, ncols(k), 0] += _place(T3[:, :, k, :], vdim, vdim, blk)
+
+    # (d) inequality rows: per-node J' diag(w_g) J
+    Mband[:, :, 0] += torch.einsum("bngc,bng,bnge->bnce", sa.J, w_g, sa.J)
+
+    # ---- column scaling by D (rows of block d live on node k+d) ----
+    d_shift = torch.nn.functional.pad(d_nodes, (0, 0, 0, bw))
+    for d in range(bw + 1):
+        Mband[:, :, d] *= d_shift[:, d : d + nodes, :, None] * d_nodes[:, :, None, :]
+
+    # ---- p arrow ----
+    wf = w_eq * f_eq
+    pc_X = -torch.einsum("bski,kj->bsji", wf, Dm)
+    pc_V = p[:, None, None, None] * wf
+    p_col = torch.zeros(B, nodes, blk, dtype=dt, device=dev)
+    for j in range(K):
+        p_col[:, ncols(j), :nx] += pc_X[:, :, j, :]
+    for k in range(K):
+        p_col[:, ncols(k), nq : nq + nx] += pc_V[:, :, k, :]
+    p_col = p_col * d_p[:, None, None] * d_nodes
+    m_pp = (wf * f_eq).sum(dim=(1, 2, 3)) * d_p**2
+
+    # ---- scaled diagonal ----
+    Mband[:, :, 0].diagonal(dim1=-2, dim2=-1).add_(sig_nodes)
+    return Mband, p_col, m_pp + sig_p
+
+
+def _mv(M, v):
+    return (M @ v[..., None])[..., 0]
+
+
+def _mtv(M, v):
+    return (M.transpose(-1, -2) @ v[..., None])[..., 0]
+
+
+def banded_cholesky(Mband, bw: int):
+    """Node-level block-banded Cholesky M = L L'.
+
+    Returns (Ldi (B, N, blk, blk) inverses of the diagonal factors,
+    Lsub (B, N, bw, blk, blk) with Lsub[b, k, d-1] = L[k+d, k] (zero past
+    the matrix end), chol_ok (B,) every Cholesky succeeded with pivots above
+    the floor)."""
+    B, N, _, blk, _ = Mband.shape
+    zeros = Mband.new_zeros(B, blk, blk)
+    eye = torch.eye(blk, dtype=Mband.dtype, device=Mband.device).expand(B, blk, blk)
+    chol_ok = torch.ones(B, dtype=torch.bool, device=Mband.device)
+    Lcols = [[None] * bw for _ in range(N)]  # Lcols[k][d-1] = L[k+d, k]
+    Ldi = []
+    for k in range(N):
+        S = Mband[:, k, 0]
+        for j in range(max(0, k - bw), k):
+            Ljk = Lcols[j][k - j - 1]
+            S = S - Ljk @ Ljk.transpose(-1, -2)
+        Lkk, info = torch.linalg.cholesky_ex(S)
+        piv = torch.diagonal(Lkk, dim1=-2, dim2=-1)
+        chol_ok &= (info == 0) & ((piv * piv).amin(-1) > _PIV_FLOOR)
+        Linv = torch.linalg.solve_triangular(Lkk, eye, upper=False)
+        Ldi.append(Linv)
+        for d in range(1, bw + 1):
+            if k + d >= N:
+                Lcols[k][d - 1] = zeros
+                continue
+            C = Mband[:, k, d]
+            for j in range(max(0, k + d - bw), k):
+                C = C - Lcols[j][k + d - j - 1] @ Lcols[j][k - j - 1].transpose(-1, -2)
+            Lcols[k][d - 1] = C @ Linv.transpose(-1, -2)
+    Lsub = torch.stack([torch.stack(col, dim=1) for col in Lcols], dim=1)
+    return torch.stack(Ldi, dim=1), Lsub, chol_ok
+
+
+def banded_solve(Ldi, Lsub, r):
+    """Solve (L L') x = r for node-major r (B, N, blk)."""
+    N = r.shape[1]
+    bw = Lsub.shape[2]
+    ys = []
+    for k in range(N):
+        acc = r[:, k]
+        for d in range(1, min(bw, k) + 1):
+            acc = acc - _mv(Lsub[:, k - d, d - 1], ys[k - d])
+        ys.append(_mv(Ldi[:, k], acc))
+    xs = [None] * N
+    for k in range(N - 1, -1, -1):
+        acc = ys[k]
+        for d in range(1, min(bw, N - 1 - k) + 1):
+            acc = acc - _mtv(Lsub[:, k, d - 1], xs[k + d])
+        xs[k] = _mtv(Ldi[:, k], acc)
+    return torch.stack(xs, dim=1)
+
+
+def factor_banded(Mband, p_col, m_pp, bw: int):
+    """Block-banded Cholesky + rank-1 arrow Schur complement (the plain
+    version of kernel 2), with the diagonal jitter retry for problems whose
+    factorization broke down.
+
+    Returns {"Ldi", "Lsub", "u" (B, N, blk), "s" (B,), "ok" (B,)}. ``ok`` is
+    kernel 2's flag on the un-jittered factorization: every pivot above
+    1e-20, s above 1e-20, and no factor entry at or above 0.99e8."""
+
+    def run(Mb):
+        Ldi, Lsub, chol_ok = banded_cholesky(Mb, bw)
+        u = banded_solve(Ldi, Lsub, p_col)
+        s = m_pp - (u * p_col).sum(dim=(1, 2))
+        return {"Ldi": Ldi, "Lsub": Lsub, "u": u, "s": s}, chol_ok
+
+    fac, chol_ok = run(Mband)
+    finite = (
+        torch.isfinite(fac["Ldi"]).all(dim=(1, 2, 3)) & torch.isfinite(fac["s"]) & chol_ok
+    )
+    sat = torch.stack([
+        fac["Ldi"].abs().amax(dim=(1, 2, 3)),
+        fac["Lsub"].abs().amax(dim=(1, 2, 3, 4)),
+        fac["u"].abs().amax(dim=(1, 2)),
+        fac["s"].abs(),
+    ]).amax(0)
+    ok = finite & (fac["s"] > _PIV_FLOOR) & (sat < _SAT)
+    if not bool(finite.all()):
+        Mb = Mband.clone()
+        Mb[:, :, 0].diagonal(dim1=-2, dim2=-1).mul_(1.0 + 1e-4)
+        fac2, _ = run(Mb)
+        fac = {
+            k: torch.where(finite.reshape(-1, *([1] * (a.ndim - 1))), a, fac2[k])
+            for k, a in fac.items()
+        }
+    fac["ok"] = ok
+    return fac
+
+
+def solve_arrow_banded(ocp, fac, rhs):
+    """Solve M x = rhs (z-layout) with the banded + arrow factors."""
+    r_b, r_p = split_node_major(ocp, rhs)
+    t = banded_solve(fac["Ldi"], fac["Lsub"], r_b)
+    z_p = (r_p - (fac["u"] * r_b).sum(dim=(1, 2))) / fac["s"]
+    z_b = t - fac["u"] * z_p[:, None, None]
+    return join_node_major(ocp, z_b, z_p)
+
+
+# ---------------------------------------------------------------------------
+# Problem scaling shared by the plain loop and kernel 3's host part
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ScaledQP:
+    """Ruiz-scaled problem data, ADMM weights and initial iterates.
+
+    z-layout (B, n): D, Ps, qs, lxs, uxs, rx, thx, x, zx, yx.
+    m-layout (B, m): E, lcs, ucs, rc, thr, zc, yc.
+    Banded KKT system: Mband, p_col, m_pp."""
+
+    D: torch.Tensor
+    E: torch.Tensor
+    Ps: torch.Tensor
+    qs: torch.Tensor
+    lcs: torch.Tensor
+    ucs: torch.Tensor
+    lxs: torch.Tensor
+    uxs: torch.Tensor
+    rc: torch.Tensor
+    rx: torch.Tensor
+    thr: torch.Tensor
+    thx: torch.Tensor
+    Mband: torch.Tensor
+    p_col: torch.Tensor
+    m_pp: torch.Tensor
+    x: torch.Tensor
+    zc: torch.Tensor
+    zx: torch.Tensor
+    yc: torch.Tensor
+    yx: torch.Tensor
+
+
+def scale_qp(ocp, sa, P_diag, q, lc, uc, lx, ux, settings: QPSettings,
+             x0=None, yc0=None, yx0=None, soft_c=None, soft_x=None) -> ScaledQP:
+    """Ruiz scaling, ±1e20 stand-ins for infinite bounds, soft-row
+    thresholds, the banded KKT assembly and the scaled initial iterates —
+    in the dtype of ``q``."""
+    B, n = q.shape
+    m = lc.shape[1]
+    dt, dev = q.dtype, q.device
+    K, nx, nodes = ocp.coll.order + 1, ocp.nx, ocp.num_nodes
+
+    if settings.ruiz_iters > 0:
+        D, E = ruiz_structured(ocp, sa, settings.ruiz_iters)
+    else:
+        D = torch.ones(B, n, dtype=dt, device=dev)
+        E = torch.ones(B, m, dtype=dt, device=dev)
+
+    Ps = D * P_diag * D
+    qs = D * q
+    finite = lambda a: torch.clamp(a, -_HARD, _HARD)
+    lcs, ucs = finite(E * lc), finite(E * uc)
+    lxs, uxs = finite(lx / D), finite(ux / D)
+
+    rc = settings.rho * _rho_pattern(lc, uc, settings)
+    rx = settings.rho * _rho_pattern(lx, ux, settings)
+    hard_m = torch.full((B, m), _HARD, dtype=dt, device=dev)
+    hard_n = torch.full((B, n), _HARD, dtype=dt, device=dev)
+    soft_s = hard_m if soft_c is None else torch.where(soft_c > 0, soft_c / E, hard_m)
+    soft_xs = hard_n if soft_x is None else torch.where(soft_x > 0, soft_x * D, hard_n)
+    # cap the numerator before the divide so hard rows give exactly _HARD
+    thr = torch.minimum(soft_s, _HARD * rc) / rc
+    thx = torch.minimum(soft_xs, _HARD * rx) / rx
+
+    w = E * E * rc
+    Mband, p_col, m_pp = assemble_banded_M(
+        ocp, sa,
+        w[:, : ocp.num_eq].reshape(B, -1, K, nx),
+        w[:, ocp.num_eq :].reshape(B, nodes, -1),
+        D, Ps + settings.sigma + rx,
+    )
+
+    x = torch.zeros(B, n, dtype=dt, device=dev) if x0 is None else x0 / D
+    yc = torch.zeros(B, m, dtype=dt, device=dev) if yc0 is None else yc0 / E
+    yx = torch.zeros(B, n, dtype=dt, device=dev) if yx0 is None else yx0 * D
+    zc = torch.clamp(E * apply_A(ocp, sa, D * x), lcs, ucs)
+    zx = torch.clamp(x, lxs, uxs)
+    return ScaledQP(D, E, Ps, qs, lcs, ucs, lxs, uxs, rc, rx, thr, thx,
+                    Mband, p_col, m_pp, x, zc, zx, yc, yx)
+
+
+def unscale_solution(qp: ScaledQP, x, zc, zx, yc, yx, done, iters, rp, rd) -> QPSolution:
+    """QP solution from the scaled ADMM state (as the loops return it)."""
+    return QPSolution(
+        x=qp.D * x,
+        y_constraints=qp.E * yc,
+        y_box=yx / qp.D,
+        converged=done == 1,
+        iterations=iters,
+        prim_residual=rp,
+        dual_residual=rd,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The plain structured ADMM loop (kernel 3's plain version)
+# ---------------------------------------------------------------------------
+
+
+def _ftz(v):
+    v = torch.where(v.abs() < 1e-30, torch.zeros_like(v), v)
+    return torch.clamp(v, -1e15, 1e15)
+
+
+def _soft_update(za, y, r, lo, hi, t):
+    return _ftz(_soft_prox(za + y / r, lo, hi, t))
+
+
+def admm_residuals(ocp, sa, qp: ScaledQP, settings, x, zc, zx, yc, yx):
+    """OSQP-style residuals and the convergence flag, per problem."""
+    D, E = qp.D, qp.E
+    amax = lambda a: a.abs().amax(dim=-1)
+    Ax = E * apply_A(ocp, sa, D * x)
+    r_prim = torch.maximum(amax((Ax - zc) / E), amax(D * (x - zx)))
+    Aty = D * apply_AT(ocp, sa, E * yc)
+    r_dual = amax((qp.Ps * x + qp.qs + Aty + yx) / D)
+    scale_p = torch.maximum(
+        torch.maximum(amax(Ax / E), amax(zc / E)),
+        torch.maximum(amax(D * x), amax(D * zx)),
+    )
+    scale_d = torch.maximum(
+        torch.maximum(amax(qp.Ps * x / D), amax(qp.qs / D)),
+        torch.maximum(amax(Aty / D), amax(yx / D)),
+    )
+    eps_p = settings.eps_abs + settings.eps_rel * scale_p
+    eps_d = settings.eps_abs + settings.eps_rel * scale_d
+    return (r_prim <= eps_p) & (r_dual <= eps_d), r_prim, r_dual
+
+
+def admm_plain(ocp, sa, qp: ScaledQP, fac, settings: QPSettings):
+    """The fixed-rho ADMM loop with kernel 3's semantics. Returns the scaled
+    (x, zc, zx, yc, yx, done (int32), iters (int32), rp, rd)."""
+    D, E = qp.D, qp.E
+    alpha, sigma = settings.alpha, settings.sigma
+    cap = settings.max_iter + settings.rescue_iters
+    x, zc, zx, yc, yx = qp.x, qp.zc, qp.zx, qp.yc, qp.yx
+    B = x.shape[0]
+    done = torch.zeros(B, dtype=torch.int32, device=x.device)
+    iters = torch.zeros(B, dtype=torch.int32, device=x.device)
+    rp = x.new_zeros(B)
+    rd = x.new_zeros(B)
+
+    for k in range(1, cap + 1):
+        rhs = sigma * x - qp.qs + qp.rx * zx - yx + D * apply_AT(
+            ocp, sa, E * (qp.rc * zc - yc)
+        )
+        xt = solve_arrow_banded(ocp, fac, rhs)
+        zt_c = E * apply_A(ocp, sa, D * xt)
+
+        x_new = _ftz(alpha * xt + (1 - alpha) * x)
+        zc_arg = alpha * zt_c + (1 - alpha) * zc
+        zc_new = _soft_update(zc_arg, yc, qp.rc, qp.lcs, qp.ucs, qp.thr)
+        yc_new = _ftz(yc + qp.rc * (zc_arg - zc_new))
+        zx_arg = alpha * xt + (1 - alpha) * zx
+        zx_new = _soft_update(zx_arg, yx, qp.rx, qp.lxs, qp.uxs, qp.thx)
+        yx_new = _ftz(yx + qp.rx * (zx_arg - zx_new))
+
+        active = done == 0
+        a = active[:, None]
+        x = torch.where(a, x_new, x)
+        zc = torch.where(a, zc_new, zc)
+        zx = torch.where(a, zx_new, zx)
+        yc = torch.where(a, yc_new, yc)
+        yx = torch.where(a, yx_new, yx)
+        iters = iters + active.to(torch.int32)
+
+        if k % settings.check_every == 0 or k >= cap:
+            mag = torch.stack(
+                [x.abs().amax(-1), yc.abs().amax(-1), yx.abs().amax(-1)]
+            ).amax(0)
+            big = ~(mag <= _BIG)
+            conv, rp_new, rd_new = admm_residuals(ocp, sa, qp, settings, x, zc, zx, yc, yx)
+            rp = torch.where(active, rp_new, rp)
+            rd = torch.where(active, rd_new, rd)
+            done = torch.where(
+                active & big, torch.full_like(done, 2),
+                torch.where(active & conv, torch.ones_like(done), done),
+            )
+            if bool((done != 0).all()):
+                break
+    return x, zc, zx, yc, yx, done, iters, rp, rd
+
+
+def solve_box_qp_structured(
+    ocp, sa: StructuredA, P_diag, q, lc, uc, lx, ux,
+    settings: QPSettings = QPSettings(),
+    x0=None, yc0=None, yx0=None, soft_c=None, soft_x=None,
+) -> QPSolution:
+    """The plain structured QP solve in the caller's dtype (kernel 2 and 3's
+    plain versions end to end). P must be diagonal (B, n)."""
+    settings.check_ported()
+    qp = scale_qp(ocp, sa, P_diag, q, lc, uc, lx, ux, settings, x0, yc0, yx0,
+                  soft_c, soft_x)
+    fac = factor_banded(qp.Mband, qp.p_col, qp.m_pp, ocp.coll.order)
+    return unscale_solution(qp, *admm_plain(ocp, sa, qp, fac, settings))

@@ -1,0 +1,169 @@
+"""PyTorch port: the structured QP (Ruiz scaling, banded KKT assembly, the
+plain version of kernel 2 and the plain version of kernel 3) against the
+JAX package on real planner QPs (float64)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mpc_motion_planner_tpu.ops import qp_structured as jqs
+from mpc_motion_planner_tpu.ops import structure as jstructure
+from mpc_motion_planner_tpu.ops.qp import QPSettings as JQPSettings
+from mpc_motion_planner_tpu.planner import Margins as JMargins
+from mpc_motion_planner_tpu.planner import MotionPlanner as JPlanner
+from mpc_motion_planner_tpu_torch.ocp import make_ocp
+from mpc_motion_planner_tpu_torch.models.panda import make_panda_model
+from mpc_motion_planner_tpu_torch.ops import qp_structured as tqs
+from mpc_motion_planner_tpu_torch.ops.qp import QPSettings
+from mpc_motion_planner_tpu_torch.ops.structure import StructuredA
+
+torch.set_num_threads(1)
+
+B = 4
+
+
+def _soft_x(ocp, w=10.0):
+    nodes, nx, nu = ocp.num_nodes, ocp.nx, ocp.nu
+    wx = np.zeros(ocp.num_var)
+    wx[nx : (nodes - 1) * nx] = w
+    wx[nodes * nx : nodes * (nx + nu)] = w
+    return np.broadcast_to(wx, (B, ocp.num_var)).copy()
+
+
+@pytest.fixture(scope="module")
+def qp_data():
+    """Real SQP-subproblem QPs from warm-started planner states, built as
+    the JAX package's own structured-QP tests build them; numpy leaves."""
+    planner = JPlanner(margins=JMargins(0.8, 0.8, 0.6, 0.9, 0.1))
+    k1, k2 = jax.random.split(jax.random.PRNGKey(3))
+    cur = jnp.concatenate(planner.sample_random_state(k1, batch_shape=(B,)), -1)
+    tgt = jnp.concatenate(planner.sample_random_state(k2, batch_shape=(B,)), -1)
+    ocp = planner.ocp
+    bounds = planner.nlp_bounds(cur, tgt)
+    z0 = planner.warm_start_vector(planner.plan_warm_start(cur, tgt))
+    c_eq = jax.vmap(ocp.eq_residual)(z0)
+    g = jax.jit(jax.vmap(ocp.ineq_residual))(z0)
+    lb_g = jnp.broadcast_to(bounds.lb_ineq, (B, ocp.num_ineq))
+    ub_g = jnp.broadcast_to(bounds.ub_ineq, (B, ocp.num_ineq))
+    J = jax.jit(jax.vmap(ocp.node_constraint_jacobians))(z0)
+    sa = jstructure.build_structured_A(ocp, z0, J=J)
+    m = ocp.num_eq + ocp.num_ineq
+    soft_c = np.zeros((B, m))
+    soft_c[:, ocp.num_eq :] = 10.0
+    data = dict(
+        p=sa.p, f_rows=sa.f_rows, J=sa.J,
+        P=np.full((B, ocp.num_var), 0.01),
+        q=jax.vmap(ocp.cost_gradient)(z0),
+        lc=jnp.concatenate([-c_eq, lb_g - g], axis=-1),
+        uc=jnp.concatenate([-c_eq, ub_g - g], axis=-1),
+        lx=jnp.broadcast_to(bounds.lb_var, z0.shape) - z0,
+        ux=jnp.broadcast_to(bounds.ub_var, z0.shape) - z0,
+        soft_c=soft_c,
+        soft_x=_soft_x(ocp),
+    )
+    return ocp, {k: np.array(v) for k, v in data.items()}
+
+
+@pytest.fixture(scope="module")
+def port_ocp():
+    return make_ocp(make_panda_model())
+
+
+def _sa(d):
+    return (
+        jstructure.StructuredA(*(jnp.asarray(d[k]) for k in ("p", "f_rows", "J"))),
+        StructuredA(*(torch.as_tensor(d[k]) for k in ("p", "f_rows", "J"))),
+    )
+
+
+def _close(got, ref, tol=1e-9):
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("iters", [2, 6])
+def test_ruiz_structured_matches_jax(qp_data, port_ocp, iters):
+    jo, d = qp_data
+    sa_j, sa_t = _sa(d)
+    D_ref, E_ref = jqs.ruiz_structured(jo, sa_j, iters)
+    D, E = tqs.ruiz_structured(port_ocp, sa_t, iters)
+    _close(D, D_ref)
+    _close(E, E_ref)
+
+
+def _kkt(qp_data, port_ocp, seed):
+    jo, d = qp_data
+    sa_j, sa_t = _sa(d)
+    rng = np.random.default_rng(seed)
+    n, m = jo.num_var, jo.num_eq + jo.num_ineq
+    D = rng.uniform(0.5, 2.0, (B, n))
+    w = rng.uniform(0.1, 3.0, (B, m))
+    sig = rng.uniform(0.5, 1.5, (B, n))
+    K, nx = jo.coll.order + 1, jo.nx
+    w_eq, w_g = w[:, : jo.num_eq].reshape(B, -1, K, nx), w[:, jo.num_eq :].reshape(B, jo.num_nodes, -1)
+    ref = jqs.assemble_banded_M(jo, sa_j, *(jnp.asarray(a) for a in (w_eq, w_g, D, sig)))
+    got = tqs.assemble_banded_M(port_ocp, sa_t, *(torch.as_tensor(a) for a in (w_eq, w_g, D, sig)))
+    return ref, got
+
+
+def test_assemble_banded_M_matches_jax(qp_data, port_ocp):
+    ref, got = _kkt(qp_data, port_ocp, 5)
+    for g, r in zip(got, ref):
+        _close(g, r)
+
+
+def test_factor_banded_matches_jax(qp_data, port_ocp):
+    """The plain version of kernel 2 against the JAX node-level factor, and
+    its ok flag on a deliberately indefinite block."""
+    (Mb_j, pc_j, mpp_j), (Mb, pc, mpp) = _kkt(qp_data, port_ocp, 21)
+    bw = port_ocp.coll.order
+    ref = jqs.factor_banded(Mb_j, pc_j, mpp_j, bw)
+    got = tqs.factor_banded(Mb, pc, mpp, bw)
+    for k in ("Ldi", "Lsub", "u", "s"):
+        _close(got[k], ref[k])
+    assert bool(got["ok"].all())
+
+    bad = Mb.clone()
+    bad[1, 0, 0, 0, 0] = -1.0
+    got_bad = tqs.factor_banded(bad, pc, mpp, bw)
+    assert got_bad["ok"].tolist() == [True, False, True, True]
+    for k in ("Ldi", "Lsub", "u", "s"):  # good problems keep their factors
+        _close(got_bad[k][[0, 2, 3]], np.asarray(ref[k])[[0, 2, 3]])
+
+
+@pytest.mark.parametrize("soft", ["hard", "rows", "rows+box"])
+def test_plain_admm_matches_jax(qp_data, port_ocp, soft):
+    """The plain structured ADMM (kernel 3's plain version) against the JAX
+    structured solver: the repo's bars for a different factorization of the
+    same algorithm."""
+    jo, d = qp_data
+    sa_j, sa_t = _sa(d)
+    soft_c = d["soft_c"] if soft != "hard" else None
+    soft_x = d["soft_x"] if soft == "rows+box" else None
+    args = [d[k] for k in ("P", "q", "lc", "uc", "lx", "ux")]
+    as_j = lambda a: None if a is None else jnp.asarray(a)
+    as_t = lambda a: None if a is None else torch.as_tensor(a)
+    ref = jqs.solve_box_qp_structured(
+        jo, sa_j, *map(as_j, args),
+        JQPSettings(max_iter=700, kkt_refine=0, rho_update_every=0),
+        soft_c=as_j(soft_c), soft_x=as_j(soft_x),
+    )
+    got = tqs.solve_box_qp_structured(
+        port_ocp, sa_t, *map(as_t, args), QPSettings(max_iter=700),
+        soft_c=as_t(soft_c), soft_x=as_t(soft_x),
+    )
+    assert got.converged.tolist() == np.asarray(ref.converged).tolist()
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(
+        got.iterations.numpy(), np.asarray(ref.iterations), rtol=0, atol=26
+    )
+
+
+def test_unported_settings_raise(qp_data, port_ocp):
+    _, d = qp_data
+    _, sa_t = _sa(d)
+    args = [torch.as_tensor(d[k]) for k in ("P", "q", "lc", "uc", "lx", "ux")]
+    for settings in (QPSettings(rho_update_every=100), QPSettings(kkt_refine=1)):
+        with pytest.raises(NotImplementedError):
+            tqs.solve_box_qp_structured(port_ocp, sa_t, *args, settings)
