@@ -1,12 +1,22 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch/CUDA port (``mpc_motion_planner_tpu_torch``).
 
-Builds the three hand-written CUDA kernels from ``csrc/``, holds each against
-its plain PyTorch version on the card, drives ``MotionPlanner.solve`` on the
-headline workload (B=2048 chained benchmark states, 7-DoF Panda, 19 nodes,
-400 variables, 488 constraint rows) through the kernels, checks the result
-against the JAX reference fixture, and times each kernel against its plain
-version. Needs one CUDA GPU and ``nvcc``; imports no JAX.
+Builds the four hand-written CUDA kernels from ``csrc/`` (one nvcc each, all
+started together), holds each against its plain PyTorch version on the
+card, and drives ``MotionPlanner.solve`` through them on the headline
+workload (the JAX headline's own B=2048 chained benchmark states, 7-DoF
+Panda, 19 nodes, 400 variables, 488 constraint rows) on both QP paths:
+
+* the structured path (the shipping configuration, kernels 1-3), checked
+  against the JAX structured fixture ``torch_port_slice_b64.npz``;
+* the dense path (the headline's ``BENCH_QP_BACKEND=pallas``
+  configuration, kernels 1 and 4), checked against the JAX dense fixture
+  ``torch_port_dense_b64.npz`` (the JAX ``pallas`` backend at float32, its
+  kernel in Pallas interpret mode; see
+  ``tests/fixtures/make_torch_headline_fixtures.py``).
+
+Then it times each kernel against its plain version. Needs one CUDA GPU and
+``nvcc``; imports no JAX.
 
     python3 chip_smoke.py
 
@@ -18,6 +28,7 @@ Any failed check raises, and the script exits non-zero without that line.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -29,16 +40,25 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_slice_b64.npz")
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+STATES = os.path.join(FIXTURES, "headline_states_b2048.npz")
+FIXTURE = os.path.join(FIXTURES, "torch_port_slice_b64.npz")
+DENSE_FIXTURE = os.path.join(FIXTURES, "torch_port_dense_b64.npz")
 MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
 B_MAIN = 2048  # the headline batch
 B_FACTOR = 256  # kernel-2 comparison batch
-B_ADMM = 64  # kernel-3 comparison batch
+B_ADMM = 64  # kernel-3 and kernel-4 comparison batch
+B_ODD = 61  # a batch that is no round number
+# the JAX package's record on these states (BENCH_r05.json, structured_pallas)
+JAX_RECORD = {"qp_conv": 0.9978, "tol_hit": 1.0, "median_violation": 0.487,
+              "p90_violation": 5.37, "terminal_err_max": 0.010}
 REPLACES = {
     "constraints": "mpc_motion_planner_tpu/ops/pallas/constraints_kernel.py:345",
     "banded_factor": "mpc_motion_planner_tpu/ops/pallas/banded_factor.py:262",
     "structured_admm": "mpc_motion_planner_tpu/ops/pallas/structured_admm.py:830",
+    "admm_dense": "mpc_motion_planner_tpu/ops/pallas/admm_kernel.py:416",
 }
+HBM_TBPS = 3.35  # H100 SXM device-memory bandwidth (NVIDIA data sheet)
 
 
 def log(msg: str) -> None:
@@ -78,17 +98,94 @@ def time_pair(plain, kernel, reps=3):
     return float(np.mean(times["plain"])), float(np.mean(times["kernel"])), times
 
 
+def iteration_agreement(got, ref, B, what):
+    """The float32 parity bars of two ADMM solves of the same QPs (phase 4's
+    rule, reasons in PERF.md): converged agrees on all but B/32 (2 at B=64),
+    and the iteration counts of problems both converged are within 25 for
+    all but B/8 with a median gap of 0. Returns a summary string."""
+    agree = int((got.converged == ref.converged).sum())
+    both = got.converged & ref.converged
+    gaps = (got.iterations - ref.iterations).abs()[both]
+    n_within = int((gaps <= 25).sum())
+    med_gap = int(gaps.median()) if both.any() else 0
+    check(agree >= B - max(2, B // 32), f"{what}: convergence agrees on only {agree}/{B}")
+    check(n_within >= int(both.sum()) - B // 8 and med_gap == 0,
+          f"{what}: iteration counts {n_within}/{int(both.sum())} within 25, median gap {med_gap}")
+    return (f"converged agree {agree}/{B} (kernel {int(got.converged.sum())}, plain "
+            f"{int(ref.converged.sum())}), iteration counts within 25 on "
+            f"{n_within}/{int(both.sum())} (bar: all but {B // 8}), median gap {med_gap}, "
+            f"max gap {int(gaps.max()) if both.any() else 0}")
+
+
+def hard_row_ratio(x, Ax, lc, uc, lx, ux, soft_c, soft_x, settings, converged):
+    """For converged problems: the largest hard box-row violation, and the
+    largest hard-row violation over the primal tolerance that convergence
+    implies, eps_abs + eps_rel * max(|Ax|, |x|)."""
+    viol_c = torch.clamp(Ax - uc, min=0) + torch.clamp(lc - Ax, min=0)
+    viol_x = torch.clamp(x - ux, min=0) + torch.clamp(lx - x, min=0)
+    viol_box = (viol_x * (soft_x == 0)).amax(-1)
+    viol_hard = torch.maximum((viol_c * (soft_c == 0)).amax(-1), viol_box)
+    eps_p = settings.eps_abs + settings.eps_rel * torch.maximum(
+        Ax.abs().amax(-1), x.abs().amax(-1))
+    if not converged.any():
+        return 0.0, 0.0
+    return float(viol_box[converged].max()), float((viol_hard / eps_p)[converged].max())
+
+
+def quality(planner, sol, tgt):
+    """tol_hit, qp_conv (and per step), median / p90 violation, terminal
+    error max of a batched solve."""
+    tol = planner.target_eps + planner.qp_settings.eps_abs
+    err = (sol.x_at(1.0) - tgt).abs().amax(-1)
+    viol = sol.violation.double().cpu().numpy()
+    return {
+        "tol_hit": float((err <= tol).double().mean()),
+        "qp_conv": float(sol.qp_converged.double().mean()),
+        "qp_conv_steps": [round(float(c), 4) for c in sol.qp_converged.double().mean(0)],
+        "median_violation": float(np.median(viol)),
+        "p90_violation": float(np.percentile(viol, 90)),
+        "terminal_err_max": float(err.max()),
+        "qp_iterations_median": sol.qp_iterations.float().median(0).values.tolist(),
+    }
+
+
+def fixture_agreement(planner, path, dev):
+    """Solve a JAX fixture's states; count the problems whose final time is
+    within 1e-3 relative, whose qp_converged is the same and whose terminal
+    error is within the target box. Returns (count, batch, summary)."""
+    fx = np.load(path)
+    cur = torch.as_tensor(fx["current"], device=dev)
+    tgt = torch.as_tensor(fx["target"], device=dev)
+    sol = planner.solve(cur, tgt)
+    tol = planner.target_eps + planner.qp_settings.eps_abs
+    tf_ref = torch.as_tensor(fx["final_time"], device=dev)
+    tf_rel = (sol.final_time - tf_ref).abs() / tf_ref.abs()
+    conv_same = (sol.qp_converged == torch.as_tensor(fx["qp_converged"], device=dev)).all(-1)
+    err = (sol.x_at(1.0) - tgt).abs().amax(-1)
+    n_good = int(((tf_rel <= 1e-3) & conv_same & (err <= tol)).sum())
+    zgap = (sol.z - torch.as_tensor(fx["z"], device=dev)).abs().amax(-1)
+    vgap = (sol.violation - torch.as_tensor(fx["violation"], device=dev)).abs()
+    return n_good, cur.shape[0], (
+        f"{n_good}/{cur.shape[0]} agree (final_time within 1e-3 relative, same qp_converged, "
+        f"terminal error <= {tol}); largest gaps: final_time rel {float(tf_rel.max()):.2e}, "
+        f"z max-abs {float(zgap.max()):.3e}, violation {float(vgap.max()):.3e}, "
+        f"qp_converged mismatches {int((~conv_same).sum())}, terminal error "
+        f"{float(err.max()):.5f}"
+    )
+
+
 def run(dev: torch.device) -> None:
     """All phases on ``dev``; raises on the first failed check."""
     from mpc_motion_planner_tpu_torch import config, kernels
-    from mpc_motion_planner_tpu_torch.bench.harness import chain_states
+    from mpc_motion_planner_tpu_torch.kernels import admm_dense as k4
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import constraints as k1
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.ocp import make_ocp
+    from mpc_motion_planner_tpu_torch.ops import qp as dense_qp
     from mpc_motion_planner_tpu_torch.ops import qp_structured
     from mpc_motion_planner_tpu_torch.ops.sqp import (
-        hessian_regularization_diag, qp_subproblem, soft_weights,
+        SQPSettings, hessian_regularization_diag, qp_subproblem, soft_weights,
     )
     from mpc_motion_planner_tpu_torch.ops.structure import apply_A
     from mpc_motion_planner_tpu_torch.planner import Margins, MotionPlanner
@@ -108,19 +205,28 @@ def run(dev: torch.device) -> None:
     log(f"phase 0 device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda} | precision {flags}")
 
-    # ---- phase 1: build ----
+    # ---- phase 1: build, one nvcc per source, all started together ----
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(kernels.KERNELS)) as pool:
+        paths = dict(zip(kernels.KERNELS, pool.map(lambda k: k.build(), kernels.KERNELS.values())))
     for name, k in kernels.KERNELS.items():
-        t0 = time.perf_counter()
-        path = k.build()
-        dt = time.perf_counter() - t0
         info = [ln.strip() for ln in k.build_log.splitlines()
                 if "registers" in ln or "spill" in ln]
-        log(f"phase 1 build: {name} in {dt:.1f} s -> {os.path.relpath(path, ROOT)} | "
-            + " | ".join(info))
+        log(f"phase 1 build: {name} -> {os.path.relpath(paths[name], ROOT)} | " + " | ".join(info))
+    log(f"phase 1 build: {len(paths)} kernels in {time.perf_counter() - t0:.1f} s")
 
-    planner = MotionPlanner(margins=Margins(*MARGINS), dtype=f32, device=dev)
+    shipping = config.SHIPPING_QP_SETTINGS
+    planner = MotionPlanner(
+        margins=Margins(*MARGINS), dtype=f32, device=dev, qp_settings=shipping,
+        sqp_settings=SQPSettings(
+            qp_step_schedules=config.shipping_sqp_schedules(shipping.backend)),
+    )
     ocp = planner.ocp
     ocp64 = make_ocp(planner.model.to(dtype=torch.float64))
+    states = np.load(STATES)
+    cur_all = torch.as_tensor(states["current"], device=dev)
+    tgt_all = torch.as_tensor(states["target"], device=dev)
+    check(cur_all.shape == (B_MAIN, 14), f"headline states {tuple(cur_all.shape)}")
 
     # ---- phase 2: kernel 1 against its plain version ----
     gen = torch.Generator().manual_seed(1)
@@ -149,21 +255,27 @@ def run(dev: torch.device) -> None:
             f"(max abs err {e:.3e}; tol values 2e-5/2e-5, Jacobian rtol 2e-4 atol 5e-5)")
     results["constraints"]["max_abs_err"] = err1
 
-    # ---- shared: the step-0 QPs of chained benchmark states ----
-    def first_qp(cur, tgt):
+    # ---- shared: step-0 QPs, of torch.Generator chained states (phases 3,
+    # 4, as since they were written) or of the headline states ----
+    from mpc_motion_planner_tpu_torch.bench.harness import chain_states
+
+    cur_gen, tgt_gen = chain_states(planner, torch.Generator().manual_seed(0), B_FACTOR)
+
+    def first_qp(B, dense=False, settings=shipping, headline=True):
+        cur, tgt = (cur_all[:B], tgt_all[:B]) if headline else (cur_gen[:B], tgt_gen[:B])
         z0 = planner.warm_start_vector(planner.plan_warm_start(cur, tgt))
         bounds = planner.nlp_bounds(cur, tgt)
-        _, _, sa, (h, lc, uc, lx, ux) = qp_subproblem(ocp, bounds, z0)
-        B = cur.shape[0]
+        _, _, lin, (h, lc, uc, lx, ux) = qp_subproblem(ocp, bounds, z0, dense)
         P = hessian_regularization_diag(ocp, B, f32, dev, planner.sqp_settings.reg_eps)
         soft_c, soft_x = soft_weights(ocp, planner.sqp_settings, B, f32, dev)
-        return z0, sa, (P, h, lc, uc, lx, ux), soft_c, soft_x
+        if dense:
+            args = (P, h, lin, lc, uc, lx, ux)
+            return args, dense_qp.scale_dense_qp(*args, settings, soft_c=soft_c, soft_x=soft_x), \
+                soft_c, soft_x
+        return z0, lin, (P, h, lc, uc, lx, ux), soft_c, soft_x
 
-    cur_f, tgt_f = chain_states(planner, torch.Generator().manual_seed(0), B_FACTOR)
-    _, sa_f, args_f, sc_f, sx_f = first_qp(cur_f, tgt_f)
-    settings = planner.qp_settings
-    qp_f = qp_structured.scale_qp(ocp, sa_f, *args_f, settings,
-                                   soft_c=sc_f, soft_x=sx_f)
+    _, sa_f, args_f, sc_f, sx_f = first_qp(B_FACTOR, headline=False)
+    qp_f = qp_structured.scale_qp(ocp, sa_f, *args_f, shipping, soft_c=sc_f, soft_x=sx_f)
 
     # ---- phase 3: kernel 2 against factor_banded ----
     fk = k2.factor_banded_kernel(qp_f.Mband, qp_f.p_col, qp_f.m_pp)
@@ -184,6 +296,7 @@ def run(dev: torch.device) -> None:
     log(f"phase 3 kernel 2 B={B_FACTOR}: ok flags identical ({int(fk['ok'].sum())}/{B_FACTOR} ok), "
         f"max-norm relative error " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
         + " (tol 1e-3); indefinite problem flagged")
+    del qp_f, fk, fp, bad, fb
 
     # ---- phase 4: kernel 3 against the plain loop on real QPs ----
     B4 = B_ADMM
@@ -193,9 +306,9 @@ def run(dev: torch.device) -> None:
     # (a) the loop alone, one check window on identical data and factors:
     # each float32 loop against a float64 run of the plain loop; the kernel
     # may not stray further from it than the plain float32 loop does
-    qp4 = qp_structured.scale_qp(ocp, sa4, *args4, settings, **kw)
+    qp4 = qp_structured.scale_qp(ocp, sa4, *args4, shipping, **kw)
     fac4 = k2.factor_banded_kernel(qp4.Mband, qp4.p_col, qp4.m_pp)
-    s_win = dataclasses.replace(settings, max_iter=settings.check_every)
+    s_win = dataclasses.replace(shipping, max_iter=shipping.check_every)
     x_k = k3.admm_kernel(ocp, sa4, qp4, fac4, s_win)[0]
     x_p = qp_structured.admm_plain(ocp, sa4, qp4, fac4, s_win)[0]
     qp4_64 = qp_structured.ScaledQP(
@@ -207,140 +320,304 @@ def run(dev: torch.device) -> None:
     check(e_k <= 2 * e_p + 1e-6,
           f"kernel 3 strays from float64 by {e_k:.3e}, the plain float32 loop by {e_p:.3e}")
     # (b) the whole QP solve, kernels 2 + 3 against the plain path
-    ref = qp_structured.solve_box_qp_structured(ocp, sa4, *args4, settings, **kw)
-    got = k3.solve_box_qp_structured_cuda(ocp, sa4, *args4, settings, **kw)
+    ref = qp_structured.solve_box_qp_structured(ocp, sa4, *args4, shipping, **kw)
+    got = k3.solve_box_qp_structured_cuda(ocp, sa4, *args4, shipping, **kw)
     torch.cuda.synchronize()
-    agree = int((got.converged == ref.converged).sum())
-    both = got.converged & ref.converged
-    gaps = (got.iterations - ref.iterations).abs()[both]
-    n_within = int((gaps <= 25).sum())
-    med_gap = int(gaps.median()) if both.any() else 0
-    check(agree >= B4 - 2, f"kernel 3 convergence agrees on only {agree}/{B4}")
-    check(n_within >= int(both.sum()) - B4 // 8 and med_gap == 0,
-          f"kernel 3 iteration counts: {n_within}/{int(both.sum())} within 25, median gap {med_gap}")
+    agreement = iteration_agreement(got, ref, B4, "kernel 3")
     # hard rows of converged problems: the hard box rows within the JAX
     # package's bar (5e-3, tests/test_qp_structured.py), and every hard row
-    # within the primal tolerance that convergence implies, eps_abs +
-    # eps_rel * max(|Ax|, |x|), with 1% for float32 rounding
+    # within the primal tolerance that convergence implies, with 1% for
+    # float32 rounding
     _, lc, uc, lx, ux = args4[1:]
-    Ax = apply_A(ocp, sa4, got.x)
-    viol_c = torch.clamp(Ax - uc, min=0) + torch.clamp(lc - Ax, min=0)
-    viol_x = torch.clamp(got.x - ux, min=0) + torch.clamp(lx - got.x, min=0)
-    viol_box = (viol_x * (kw["soft_x"] == 0)).amax(-1)
-    viol_hard = torch.maximum((viol_c * (kw["soft_c"] == 0)).amax(-1), viol_box)
-    eps_p = settings.eps_abs + settings.eps_rel * torch.maximum(
-        Ax.abs().amax(-1), got.x.abs().amax(-1))
-    conv = got.converged
-    box_viol = float(viol_box[conv].max()) if conv.any() else 0.0
-    hard_ratio = float((viol_hard / eps_p)[conv].max()) if conv.any() else 0.0
+    box_viol, hard_ratio = hard_row_ratio(
+        got.x, apply_A(ocp, sa4, got.x), lc, uc, lx, ux, kw["soft_c"], kw["soft_x"],
+        shipping, got.converged)
+    box_viol_p, hard_ratio_p = hard_row_ratio(
+        ref.x, apply_A(ocp, sa4, ref.x), lc, uc, lx, ux, kw["soft_c"], kw["soft_x"],
+        shipping, ref.converged)
     check(box_viol < 5e-3, f"kernel 3 converged problems violate hard box rows by {box_viol}")
     check(hard_ratio <= 1.01,
           f"kernel 3 converged problems violate hard rows by {hard_ratio:.3f}x the tolerance")
     results["structured_admm"]["max_abs_err"] = max_abs(x_k, x_p)
     log(f"phase 4 kernel 3 B={B4}: after {s_win.max_iter} iterations max |x - x_float64| "
         f"kernel {e_k:.3e}, plain {e_p:.3e} (bar: kernel <= 2x plain), max |x_kernel - x_plain| "
-        f"{max_abs(x_k, x_p):.3e}; full solve: converged agree {agree}/{B4} (kernel "
-        f"{int(got.converged.sum())}, plain {int(ref.converged.sum())}), iteration counts "
-        f"within 25 on {n_within}/{int(both.sum())} (bar: all but {B4 // 8}), median gap "
-        f"{med_gap}, max gap {int(gaps.max()) if both.any() else 0}, hard box-row violation "
-        f"{box_viol:.2e} (tol 5e-3), hard-row violation {hard_ratio:.3f}x the primal "
-        f"tolerance (bar 1.01)")
+        f"{max_abs(x_k, x_p):.3e}; full solve: {agreement}, hard box-row violation "
+        f"{box_viol:.2e} (tol 5e-3; plain {box_viol_p:.2e}), hard-row violation "
+        f"{hard_ratio:.3f}x the primal tolerance (bar 1.01; plain {hard_ratio_p:.3f}x)")
+    del sa_f, args_f, sc_f, sx_f
 
-    # ---- phase 5: the main path at B=2048 ----
-    cur, tgt = chain_states(planner, torch.Generator().manual_seed(0), B_MAIN)
+    # ---- phase 5: the structured main path at B=2048 ----
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sol = planner.solve(cur, tgt)
+    sol = planner.solve(cur_all, tgt_all)
     torch.cuda.synchronize()
     t_cold = time.perf_counter() - t0
     counts = kernels.launch_counts()
     repairs = k2.REPAIRS.count
-    check(counts == {"constraints": 5, "banded_factor": 2, "structured_admm": 2},
-          f"main path launch counts {counts}")
-    for name, n in counts.items():
-        results[name]["launches"] = n
+    check(counts == {"constraints": 5, "banded_factor": 2, "structured_admm": 2, "admm_dense": 0},
+          f"structured path launch counts {counts}")
+    for name in ("constraints", "banded_factor", "structured_admm"):
+        results[name]["launches"] = counts[name]
     finite = all(bool(torch.isfinite(t).all()) for t in (sol.z, sol.violation, sol.lam_c, sol.lam_x))
-    check(finite, "main path produced non-finite outputs")
-    tol = planner.target_eps + settings.eps_abs
-    err_sim = (sol.x_at(1.0) - tgt).abs().amax(-1)
-    viol = sol.violation.double().cpu().numpy()
-    tol_hit = float((err_sim <= tol).double().mean())
-    qp_conv = float(sol.qp_converged.double().mean())
-    check(tol_hit >= 0.99, f"tol_hit_rate {tol_hit}")
-    check(qp_conv >= 0.98, f"qp_conv_rate {qp_conv}")
+    check(finite, "structured path produced non-finite outputs")
+    q5 = quality(planner, sol, tgt_all)
+    check(q5["tol_hit"] >= 0.99, f"tol_hit_rate {q5['tol_hit']}")
+    check(q5["qp_conv"] >= 0.98, f"qp_conv_rate {q5['qp_conv']}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    planner.solve(cur, tgt)
+    planner.solve(cur_all, tgt_all)
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
-    log(f"phase 5 main path B={B_MAIN}: launches {counts}, ok-flag repairs {repairs}, "
-        f"tol_hit_rate {tol_hit:.4f}, qp_conv_rate {qp_conv:.4f} "
-        f"(step 0 {float(sol.qp_converged[:, 0].double().mean()):.4f}, "
-        f"step 1 {float(sol.qp_converged[:, 1].double().mean()):.4f}), "
-        f"median violation {float(np.median(viol)):.4f}, p90 violation "
-        f"{float(np.percentile(viol, 90)):.4f}, terminal error max {float(err_sim.max()):.5f} "
-        f"(tol {tol}), qp iterations median {sol.qp_iterations.float().median(0).values.tolist()}")
+    log(f"phase 5 structured path B={B_MAIN} (headline states): launches {counts}, ok-flag "
+        f"repairs {repairs}, quality {json.dumps(q5)}; JAX record on these states "
+        f"{json.dumps(JAX_RECORD)}")
     log(f"phase 5 timing: cold solve {t_cold:.3f} s, warm solve {t_warm:.3f} s = "
         f"{B_MAIN / t_warm:.1f} solves/s on {smi}")
+    del sol
 
-    # ---- phase 6: the JAX fixture ----
-    fx = np.load(FIXTURE)
-    fcur = torch.as_tensor(fx["current"], device=dev)
-    ftgt = torch.as_tensor(fx["target"], device=dev)
-    fsol = planner.solve(fcur, ftgt)
-    tf_ref = torch.as_tensor(fx["final_time"], device=dev)
-    tf_rel = (fsol.final_time - tf_ref).abs() / tf_ref.abs()
-    conv_same = (fsol.qp_converged == torch.as_tensor(fx["qp_converged"], device=dev)).all(-1)
-    ferr = (fsol.x_at(1.0) - ftgt).abs().amax(-1)
-    good = (tf_rel <= 1e-3) & conv_same & (ferr <= tol)
-    n_good = int(good.sum())
-    check(n_good >= 60, f"only {n_good}/64 fixture problems agree with the JAX reference")
-    zgap = (fsol.z - torch.as_tensor(fx["z"], device=dev)).abs().amax(-1)
-    vgap = (fsol.violation - torch.as_tensor(fx["violation"], device=dev)).abs()
-    log(f"phase 6 JAX fixture: {n_good}/64 agree (final_time within 1e-3 relative, same "
-        f"qp_converged, terminal error <= {tol}); largest gaps: final_time rel "
-        f"{float(tf_rel.max()):.2e}, z max-abs {float(zgap.max()):.3e}, violation "
-        f"{float(vgap.max()):.3e}, qp_converged mismatches {int((~conv_same).sum())}, "
-        f"terminal error {float(ferr.max()):.5f}")
+    # ---- phase 6: the JAX structured fixture ----
+    n_good, n_fx, summary = fixture_agreement(planner, FIXTURE, dev)
+    check(n_good >= n_fx - 4, f"only {n_good}/{n_fx} fixture problems agree with the JAX reference")
+    log(f"phase 6 JAX structured fixture: {summary}")
 
-    # ---- phase 7: each kernel against its plain version at main-path shapes ----
-    z0, sa, args, sc, sx = first_qp(cur, tgt)
+    # ---- phase 7: kernel 4 against its plain version ----
+    dense_cfg = dense_qp.QPSettings(
+        backend="pallas", kkt_refine=1, rho_update_every=0, kkt_factor="lu", ruiz_iters=2,
+        rho=0.1, alpha=1.6, max_iter=700, check_every=25,
+    )
+    args7, dq7, sc7, sx7 = first_qp(B_ADMM, dense=True, settings=dense_cfg)
+    rho7 = torch.full((B_ADMM,), dense_cfg.rho, dtype=f32, device=dev)
+    ops7 = dense_qp.pallas_operands(dq7, rho7, dq7.factor(rho7, dense_cfg))
+    st7 = dense_qp.pallas_state(dq7)
+    ckw = dict(check_every=dense_cfg.check_every, eps_abs=dense_cfg.eps_abs,
+               eps_rel=dense_cfg.eps_rel, sigma=dense_cfg.sigma, alpha=dense_cfg.alpha,
+               kkt_refine=dense_cfg.kkt_refine)
+    to64 = lambda d: {k: (v.double() if v.is_floating_point() else v) for k, v in d.items()}
+
+    def window(ops, st, what):
+        """One check window: the kernel may stray from a float64 run of the
+        plain chunk no further than 2x the plain float32 chunk does; done
+        and used agree."""
+        n_it = dense_cfg.check_every
+        sk, uk = k4.admm_dense_kernel(ops, st, chunk_iters=n_it, **ckw)
+        sp, up = k4.admm_dense_plain(ops, st, chunk_iters=n_it, **ckw)
+        s64, _ = k4.admm_dense_plain(to64(ops), to64(st), chunk_iters=n_it, **ckw)
+        torch.cuda.synchronize()
+        e_k, e_p = max_abs(sk["x"], s64["x"]), max_abs(sp["x"], s64["x"])
+        check(e_k <= 2 * e_p + 1e-6,
+              f"kernel 4 {what}: strays from float64 by {e_k:.3e}, the plain float32 chunk "
+              f"by {e_p:.3e}")
+        check(torch.equal(sk["done"], sp["done"]) and torch.equal(uk, up),
+              f"kernel 4 {what}: done/used differ from the plain chunk")
+        return e_k, e_p, max_abs(sk["x"], sp["x"])
+
+    # (a) one check window on identical scaled data and M^-1
+    e_k, e_p, e_kp = window(ops7, st7, f"B={B_ADMM}")
+    results["admm_dense"]["max_abs_err"] = e_kp
+    log(f"phase 7a kernel 4 B={B_ADMM}: after {dense_cfg.check_every} iterations max "
+        f"|x - x_float64| kernel {e_k:.3e}, plain {e_p:.3e} (bar: kernel <= 2x plain), max "
+        f"|x_kernel - x_plain| {e_kp:.3e}, done/used identical")
+    # (b) the full 700-iteration chunk, through the host part of the backend
+    _, _, _, lc7, uc7, lx7, ux7 = args7
+    A7 = args7[2]
+
+    def dense_pair(settings):
+        got = dense_qp.solve_pallas(dq7, settings, chunk_fn=k4.admm_dense_kernel)
+        ref = dense_qp.solve_pallas(dq7, settings, chunk_fn=k4.admm_dense_plain)
+        torch.cuda.synchronize()
+        return got, ref
+
+    got, ref = dense_pair(dense_cfg)
+    agreement = iteration_agreement(got, ref, B_ADMM, "kernel 4 full chunk")
+    box_viol, hard_ratio = hard_row_ratio(
+        got.x, torch.einsum("bmn,bn->bm", A7, got.x), lc7, uc7, lx7, ux7, sc7, sx7,
+        dense_cfg, got.converged)
+    check(hard_ratio <= 1.01,
+          f"kernel 4 converged problems violate hard rows by {hard_ratio:.3f}x the tolerance")
+    log(f"phase 7b kernel 4 B={B_ADMM}, one {dense_cfg.max_iter}-iteration chunk: {agreement}, "
+        f"hard box-row violation {box_viol:.2e}, hard-row violation {hard_ratio:.3f}x the "
+        f"primal tolerance (bar 1.01)")
+    # (c) adaptive rho: 100-iteration chunks with refactoring between them
+    adaptive = dataclasses.replace(dense_cfg, rho_update_every=100)
+    got, ref = dense_pair(adaptive)
+    agree = int((got.converged == ref.converged).sum())
+    check(agree >= B_ADMM - 2, f"kernel 4 adaptive rho: converged agrees on only {agree}/{B_ADMM}")
+    log(f"phase 7c kernel 4 B={B_ADMM}, adaptive rho every 100: converged agree {agree}/{B_ADMM} "
+        f"(kernel {int(got.converged.sum())}, plain {int(ref.converged.sum())}), iterations "
+        f"median kernel {float(got.iterations.float().median())}, plain "
+        f"{float(ref.iterations.float().median())}")
+    # (d) a problem built to diverge: A = 0 and M^-1 = 20 I make zx grow by
+    # 2.6x per iteration under the huge hard box, until the freeze
+    ops_d = {k: v.clone() for k, v in ops7.items()}
+    ops_d["A"][0] = 0.0
+    ops_d["M_inv"][0] = 20.0 * torch.eye(ops_d["M_inv"].shape[-1], device=dev)
+    ops_d["q"][0] = -1.0
+    ops_d["lx"][0], ops_d["ux"][0], ops_d["sx"][0] = -1e20, 1e20, 1e20
+    sk, uk = k4.admm_dense_kernel(ops_d, st7, chunk_iters=100, **ckw)
+    sp, up = k4.admm_dense_plain(ops_d, st7, chunk_iters=100, **ckw)
+    # the same chunk without the diverging problem: the other problems'
+    # results may not change (each problem is independent)
+    sk0, uk0 = k4.admm_dense_kernel(ops7, st7, chunk_iters=100, **ckw)
+    torch.cuda.synchronize()
+    check(int(sk["done"][0]) == 2 and int(sp["done"][0]) == 2,
+          f"kernel 4 diverging problem: done kernel {int(sk['done'][0])}, plain {int(sp['done'][0])}")
+    check(int(uk[0]) == int(up[0]), f"kernel 4 froze at {int(uk[0])}, plain at {int(up[0])}")
+    check(not bool((sk["done"][1:] == 2).any()), "kernel 4 froze a problem that does not diverge")
+    check(torch.equal(sk["done"][1:], sk0["done"][1:]) and torch.equal(uk[1:], uk0[1:])
+          and torch.equal(sk["x"][1:], sk0["x"][1:]), "kernel 4 freeze leaked across problems")
+    # the freeze's shared index axis at the path's n, m: after one iteration
+    # with A = 0, M^-1 = I, alpha = 1, sigma = 0 and q = -X, x = X, yx = 0 and
+    # yc keeps its value (hard equality rows at 0). Problem 0: x_0 = yc_0 =
+    # 0.6e12, only their sum crosses 1e12; 1: the same values at different
+    # indices; 2: yc at a row index past n; 3: NaN in yx
+    m7, n7 = ops7["A"].shape[1:]
+    vec = lambda k, v: torch.full((4, k), v, dtype=f32, device=dev)
+    X_t, yc_t, yx_t = vec(n7, 0.0), vec(m7, 0.0), vec(n7, 0.0)
+    X_t[0, 0], yc_t[0, 0] = 0.6e12, 0.6e12
+    X_t[1, 0], yc_t[1, 1] = 0.6e12, 0.6e12
+    yc_t[2, m7 - 1] = 2e12
+    yx_t[3, 1] = float("nan")
+    ops_s = {
+        "M_inv": torch.eye(n7, device=dev).expand(4, n7, n7).contiguous(),
+        "A": torch.zeros(4, m7, n7, device=dev), "P": vec(n7, 0.0), "q": -X_t,
+        "lx": vec(n7, -1e20), "ux": vec(n7, 1e20), "rx": vec(n7, 0.1), "D": vec(n7, 1.0),
+        "sx": vec(n7, 1e20), "lc": vec(m7, 0.0), "uc": vec(m7, 0.0), "rc": vec(m7, 100.0),
+        "E": vec(m7, 1.0), "sc": vec(m7, 1e20),
+    }
+    st_s = {"x": vec(n7, 0.0), "zc": vec(m7, 0.0), "zx": vec(n7, 0.0), "yc": yc_t, "yx": yx_t,
+            "done": torch.zeros(4, dtype=torch.int32, device=dev)}
+    skw = dict(chunk_iters=1, check_every=1, eps_abs=1e-3, eps_rel=1e-3, sigma=0.0, alpha=1.0,
+               kkt_refine=0)
+    done_k = k4.admm_dense_kernel(ops_s, st_s, **skw)[0]["done"].tolist()
+    done_p = k4.admm_dense_plain(ops_s, st_s, **skw)[0]["done"].tolist()
+    check(done_k == done_p == [2, 0, 2, 2],
+          f"kernel 4 shared-axis freeze: done kernel {done_k}, plain {done_p}, want [2, 0, 2, 2]")
+    log(f"phase 7d kernel 4: the diverging problem froze with done=2 after {int(uk[0])} "
+        f"iterations in the kernel and {int(up[0])} in the plain chunk; no other problem "
+        f"froze, and their done codes, counts and x are bitwise those of the chunk without "
+        f"the diverging problem; shared-axis freeze at n={n7}, m={m7} (sum of x_0 and yc_0, "
+        f"same values apart, yc past n, NaN): done kernel {done_k}, plain {done_p}")
+    # (e) a batch that is no round number
+    _, dq_odd, _, _ = first_qp(B_ODD, dense=True, settings=dense_cfg)
+    rho_odd = torch.full((B_ODD,), dense_cfg.rho, dtype=f32, device=dev)
+    e_k, e_p, e_kp = window(dense_qp.pallas_operands(dq_odd, rho_odd, dq_odd.factor(rho_odd, dense_cfg)),
+                            dense_qp.pallas_state(dq_odd), f"B={B_ODD}")
+    log(f"phase 7e kernel 4 B={B_ODD}: after {dense_cfg.check_every} iterations max "
+        f"|x - x_float64| kernel {e_k:.3e}, plain {e_p:.3e}, max |x_kernel - x_plain| "
+        f"{e_kp:.3e}, done/used identical")
+    del dq7, ops7, st7, ops_d, dq_odd
+
+    # ---- phase 8: the dense path at B=2048 ----
+    dense_planner = MotionPlanner(
+        margins=Margins(*MARGINS), dtype=f32, device=dev, qp_settings=dense_cfg,
+        sqp_settings=SQPSettings(),
+    )
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = dense_planner.solve(cur_all, tgt_all)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check(counts == {"constraints": 5, "banded_factor": 0, "structured_admm": 0, "admm_dense": 2},
+          f"dense path launch counts {counts}")
+    results["admm_dense"]["launches"] = counts["admm_dense"]
+    finite = all(bool(torch.isfinite(t).all()) for t in (sol.z, sol.violation, sol.lam_c, sol.lam_x))
+    check(finite, "dense path produced non-finite outputs")
+    q8 = quality(dense_planner, sol, tgt_all)
+    check(q8["tol_hit"] >= 0.99, f"dense path tol_hit_rate {q8['tol_hit']}")
+    del sol
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense_planner.solve(cur_all, tgt_all)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    log(f"phase 8 dense path B={B_MAIN} (headline states, backend pallas, kkt_refine 1): launches "
+        f"{counts}, quality {json.dumps(q8)}")
+    log(f"phase 8 timing: cold solve {t_cold:.3f} s, warm solve {t_warm:.3f} s = "
+        f"{B_MAIN / t_warm:.1f} solves/s on {smi}")
+
+    # ---- phase 9: the JAX dense fixture ----
+    n_good, n_fx, summary = fixture_agreement(dense_planner, DENSE_FIXTURE, dev)
+    check(n_good >= n_fx - 4,
+          f"only {n_good}/{n_fx} dense fixture problems agree with the JAX reference")
+    log(f"phase 9 JAX dense fixture: {summary}")
+
+    # ---- phase 10: each kernel against its plain version at main-path
+    # shapes, timed, and the outputs of the last timed calls compared ----
+    out = {}
+
+    def keep(key, fn):
+        def call():
+            out[key] = fn()
+        return call
+
+    z0, sa, args, sc, sx = first_qp(B_MAIN)
     X, U, _ = ocp.unpack(z0)
     p_ms, k_ms, raw = time_pair(
-        lambda: k1.node_constraints_plain(ocp, X, U, True),
-        lambda: k1.node_constraints_kernel(ocp, X, U, True),
+        keep("plain", lambda: k1.node_constraints_plain(ocp, X, U, True)),
+        keep("kernel", lambda: k1.node_constraints_kernel(ocp, X, U, True)),
     )
+    (g_k, J_k), (g_p, J_p) = out["kernel"], out["plain"]
+    check(torch.allclose(g_k, g_p, rtol=2e-5, atol=2e-5)
+          and torch.allclose(J_k, J_p, rtol=2e-4, atol=5e-5),
+          f"kernel 1 differs on the step-0 iterates: values {max_abs(g_k, g_p)}, "
+          f"Jacobian {max_abs(J_k, J_p)}")
     results["constraints"].update(ms=k_ms, plain_ms=p_ms)
-    log(f"phase 7 kernel 1 with Jacobian F={X.shape[0] * X.shape[1]}: kernel {k_ms:.3f} ms, "
-        f"plain {p_ms:.3f} ms (runs {raw})")
+    log(f"phase 10 kernel 1 with Jacobian F={X.shape[0] * X.shape[1]}: kernel {k_ms:.3f} ms, "
+        f"plain {p_ms:.3f} ms (runs {raw}); on the step-0 iterates max abs err values "
+        f"{max_abs(g_k, g_p):.3e}, Jacobian {max_abs(J_k, J_p):.3e} (phase 2's tolerances)")
+    del g_k, J_k, g_p, J_p
+    out.clear()
     Xl = X.repeat(10, 1, 1)
     Ul = U.repeat(10, 1, 1)
     p_ms, k_ms, raw = time_pair(
         lambda: k1.node_constraints_plain(ocp, Xl, Ul, False),
         lambda: k1.node_constraints_kernel(ocp, Xl, Ul, False),
     )
-    log(f"phase 7 kernel 1 values only F={Xl.shape[0] * Xl.shape[1]}: kernel {k_ms:.3f} ms, "
+    log(f"phase 10 kernel 1 values only F={Xl.shape[0] * Xl.shape[1]}: kernel {k_ms:.3f} ms, "
         f"plain {p_ms:.3f} ms (runs {raw})")
-    qp = qp_structured.scale_qp(ocp, sa, *args, settings, soft_c=sc, soft_x=sx)
+    del Xl, Ul
+    qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
     p_ms, k_ms, raw = time_pair(
-        lambda: qp_structured.factor_banded(qp.Mband, qp.p_col, qp.m_pp, 3),
-        lambda: k2.factor_banded_kernel(qp.Mband, qp.p_col, qp.m_pp),
+        keep("plain", lambda: qp_structured.factor_banded(qp.Mband, qp.p_col, qp.m_pp, 3)),
+        keep("kernel", lambda: k2.factor_banded_kernel(qp.Mband, qp.p_col, qp.m_pp)),
     )
+    fk, fp = out["kernel"], out["plain"]
+    check(torch.equal(fk["ok"], fp["ok"]), f"kernel 2 ok flags differ at B={B_MAIN}")
+    errs = {k: rel_err(fk[k], fp[k]) for k in ("Ldi", "Lsub", "u", "s")}
+    check(max(errs.values()) <= 1e-3, f"kernel 2 differs at B={B_MAIN}: {errs}")
     results["banded_factor"].update(ms=k_ms, plain_ms=p_ms)
-    log(f"phase 7 kernel 2 B={B_MAIN}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (runs {raw})")
+    log(f"phase 10 kernel 2 B={B_MAIN}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (runs {raw}); "
+        f"ok flags identical ({int(fk['ok'].sum())}/{B_MAIN} ok), max-norm relative error "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()) + " (tol 1e-3)")
+    del fk, fp
+    out.clear()
     fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, 3)
     p_ms, k_ms, raw = time_pair(
-        lambda: qp_structured.admm_plain(ocp, sa, qp, fac, settings),
-        lambda: k3.admm_kernel(ocp, sa, qp, fac, settings),
+        keep("plain", lambda: qp_structured.admm_plain(ocp, sa, qp, fac, shipping)),
+        keep("kernel", lambda: k3.admm_kernel(ocp, sa, qp, fac, shipping)),
         reps=1,
     )
+    got, ref = (qp_structured.unscale_solution(qp, *out[k]) for k in ("kernel", "plain"))
+    out.clear()
+    agreement = iteration_agreement(got, ref, B_MAIN, f"kernel 3 B={B_MAIN}")
+    _, lc, uc, lx, ux = args[1:]
+    ratios = [hard_row_ratio(s.x, apply_A(ocp, sa, s.x), lc, uc, lx, ux, sc, sx, shipping,
+                             s.converged) for s in (got, ref)]
+    check(ratios[0][1] <= 1.01,
+          f"kernel 3 B={B_MAIN}: converged problems violate hard rows by "
+          f"{ratios[0][1]:.3f}x the tolerance")
     results["structured_admm"].update(ms=k_ms, plain_ms=p_ms)
-    log(f"phase 7 kernel 3 B={B_MAIN}, step-0 QP, budget {settings.max_iter}: kernel "
-        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (runs {raw})")
+    log(f"phase 10 kernel 3 B={B_MAIN}, step-0 QP, budget {shipping.max_iter}: kernel "
+        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (runs {raw}); {agreement}; hard box-row "
+        f"violation kernel {ratios[0][0]:.2e}, plain {ratios[1][0]:.2e}; hard-row violation "
+        f"{ratios[0][1]:.3f}x the primal tolerance (bar 1.01; plain {ratios[1][1]:.3f}x)")
+    del got, ref
     # at a cap of one check window every problem runs exactly that many
     # iterations, which gives the loop's cost per iteration
-    s_win = dataclasses.replace(settings, max_iter=settings.check_every)
+    s_win = dataclasses.replace(shipping, max_iter=shipping.check_every)
     p_ms, k_ms, raw = time_pair(
         lambda: qp_structured.admm_plain(ocp, sa, qp, fac, s_win),
         lambda: k3.admm_kernel(ocp, sa, qp, fac, s_win),
@@ -348,9 +625,65 @@ def run(dev: torch.device) -> None:
     )
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     waves = -(-B_MAIN // sms)  # one block per SM: its shared memory takes the SM
-    log(f"phase 7 kernel 3 B={B_MAIN}, exactly {s_win.max_iter} iterations: kernel "
+    log(f"phase 10 kernel 3 B={B_MAIN}, exactly {s_win.max_iter} iterations: kernel "
         f"{k_ms:.3f} ms = {1e3 * k_ms / s_win.max_iter / waves:.2f} us per iteration per "
         f"block ({waves} waves of {sms} blocks), plain {p_ms:.3f} ms (runs {raw})")
+    del z0, sa, args, qp, fac
+
+    args10, dq, sc10, sx10 = first_qp(B_MAIN, dense=True, settings=dense_cfg)
+    rho = torch.full((B_MAIN,), dense_cfg.rho, dtype=f32, device=dev)
+    ops = dense_qp.pallas_operands(dq, rho, dq.factor(rho, dense_cfg))
+    st = dense_qp.pallas_state(dq)
+    D10 = dq.D
+    del dq
+    p_ms, k_ms, raw = time_pair(
+        keep("plain", lambda: k4.admm_dense_plain(
+            ops, st, chunk_iters=dense_cfg.max_iter, **ckw)),
+        keep("kernel", lambda: k4.admm_dense_kernel(
+            ops, st, chunk_iters=dense_cfg.max_iter, **ckw)),
+        reps=1,
+    )
+    # the chunk's done codes and counts as a solution: 1 converged, 2 frozen
+    got, ref = (dense_qp.QPSolution(
+        x=D10 * s["x"], y_constraints=s["yc"], y_box=s["yx"], converged=s["done"] == 1,
+        iterations=u, prim_residual=None, dual_residual=None)
+        for s, u in (out["kernel"], out["plain"]))
+    done_k, done_p = out["kernel"][0]["done"], out["plain"][0]["done"]
+    out.clear()
+    agreement = iteration_agreement(got, ref, B_MAIN, f"kernel 4 B={B_MAIN}")
+    check(torch.equal(done_k == 2, done_p == 2),
+          f"kernel 4 B={B_MAIN}: frozen problems kernel {int((done_k == 2).sum())}, plain "
+          f"{int((done_p == 2).sum())}, not the same ones")
+    _, _, A10, lc, uc, lx, ux = args10
+    ratios = [hard_row_ratio(s.x, torch.einsum("bmn,bn->bm", A10, s.x), lc, uc, lx, ux,
+                             sc10, sx10, dense_cfg, s.converged) for s in (got, ref)]
+    check(ratios[0][1] <= 1.01,
+          f"kernel 4 B={B_MAIN}: converged problems violate hard rows by "
+          f"{ratios[0][1]:.3f}x the tolerance")
+    results["admm_dense"].update(ms=k_ms, plain_ms=p_ms)
+    log(f"phase 10 kernel 4 B={B_MAIN}, step-0 dense QP, one {dense_cfg.max_iter}-iteration "
+        f"chunk: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (runs {raw}); {agreement}; done "
+        f"codes identical on {int((done_k == done_p).sum())}/{B_MAIN}, frozen kernel "
+        f"{int((done_k == 2).sum())}, plain {int((done_p == 2).sum())} (the same problems); "
+        f"hard box-row violation kernel {ratios[0][0]:.2e}, plain {ratios[1][0]:.2e}; "
+        f"hard-row violation {ratios[0][1]:.3f}x the primal tolerance (bar 1.01; plain "
+        f"{ratios[1][1]:.3f}x)")
+    del got, ref, args10, A10
+    n_it = dense_cfg.check_every
+    p_ms, k_ms, raw = time_pair(
+        lambda: k4.admm_dense_plain(ops, st, chunk_iters=n_it, **ckw),
+        lambda: k4.admm_dense_kernel(ops, st, chunk_iters=n_it, **ckw),
+        reps=1,
+    )
+    m, n = ops["A"].shape[1:]
+    # bytes of A and M^-1 read per problem: (2 + 2 kkt_refine) passes over A
+    # and (1 + kkt_refine) over M^-1 per iteration, 2 passes over A at the check
+    it_bytes = 4 * ((2 + 2 * dense_cfg.kkt_refine) * m * n + (1 + dense_cfg.kkt_refine) * n * n)
+    total = B_MAIN * (n_it * it_bytes + 4 * 2 * m * n)
+    log(f"phase 10 kernel 4 B={B_MAIN}, exactly {n_it} iterations: kernel {k_ms:.3f} ms = "
+        f"{1e3 * k_ms / n_it:.1f} us per iteration, {total / (k_ms * 1e-3) / 1e9:.0f} GB/s "
+        f"effective ({it_bytes / 1e6:.2f} MB per problem-iteration; card {HBM_TBPS} TB/s); "
+        f"plain {p_ms:.3f} ms = {total / (p_ms * 1e-3) / 1e9:.0f} GB/s (runs {raw})")
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

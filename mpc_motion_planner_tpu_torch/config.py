@@ -1,9 +1,22 @@
 """Shipping solver configuration of the PyTorch port.
 
-The QP is always the structured solver; whether its hot parts run as the
-hand-written CUDA kernels or as their plain PyTorch versions follows the
-device of the tensors (CUDA: kernels; CPU: plain), so there is no backend
-switch. The per-step ADMM budgets are the JAX package's shipping ones.
+Counterpart of ``mpc_motion_planner_tpu/config.py``. Two things choose how
+a QP is solved, independently:
+
+* ``QPSettings.backend`` chooses the algorithm: "structured" and
+  "structured_pallas" the structured solver (matrix-free operator, banded
+  KKT factor), "pallas" the dense solver in float32 chunks, "xla" the
+  dense solver's portable loop (the JAX package's default).
+* The device of the tensors chooses kernel or plain: for CUDA tensors each
+  wrapper launches its hand-written kernel (kernels 2 and 3 for the
+  structured backends, kernel 4 for "pallas", kernel 1 for the constraint
+  rows of every backend); for CPU tensors it runs the kernel's plain
+  PyTorch version. The "xla" loop is plain PyTorch on every device, as the
+  JAX package's "xla" backend has no Pallas kernel.
+
+``MotionPlanner()`` takes the JAX package's defaults (dense "xla" QP with
+adaptive rho, 700/700 iterations); the shipping configuration below is
+what the headline runs and is passed explicitly.
 """
 
 from __future__ import annotations
@@ -13,14 +26,27 @@ import torch
 from .ops.qp import QPSettings
 
 # Per-SQP-step ADMM budgets (SQPSettings.qp_step_schedules): 700 iterations
-# in SQP step 0 and 500 in step 1, as the JAX package ships them.
+# in SQP step 0 and 500 in step 1, as the JAX package ships them for its
+# structured_pallas backend.
 SHIPPING_SQP_SCHEDULES = "200,500;150,350"
 
 # The headline QP settings (the JAX headline benchmark's configuration).
 SHIPPING_QP_SETTINGS = QPSettings(
-    max_iter=700, check_every=25, rho=0.1, alpha=1.6, ruiz_iters=2,
-    rho_update_every=0, kkt_refine=0,
+    backend="structured_pallas", max_iter=700, check_every=25, rho=0.1, alpha=1.6,
+    ruiz_iters=2, rho_update_every=0, kkt_refine=0,
 )
+
+
+def shipping_backend(device_type: str) -> str:
+    """QP backend for a device type ("cuda", "cpu"): the structured solver
+    on both; "structured_pallas" names the one whose hot loop is a kernel."""
+    return "structured_pallas" if device_type == "cuda" else "structured"
+
+
+def shipping_sqp_schedules(backend: str) -> str:
+    """Per-step budgets: the shipping ones for "structured_pallas", the
+    uniform 2 x max_iter budget for every other backend."""
+    return SHIPPING_SQP_SCHEDULES if backend == "structured_pallas" else ""
 
 
 def full_precision() -> dict:

@@ -7,12 +7,13 @@ a GPU.
 
 from __future__ import annotations
 
-from . import banded_factor, constraints, structured_admm
+from . import admm_dense, banded_factor, constraints, structured_admm
 
 KERNELS = {
     "constraints": constraints.KERNEL,
     "banded_factor": banded_factor.KERNEL,
     "structured_admm": structured_admm.KERNEL,
+    "admm_dense": admm_dense.KERNEL,
 }
 
 

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import weakref
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -124,3 +125,29 @@ def check_cuda_tensor(name: str, t, shape, dtype=None):
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+class HostConstants:
+    """Host-side constants derived from objects (a robot model and frame, a
+    collocation), made once per (objects, device) and reused while those
+    objects live, so a launch does not copy them back from the card.
+
+    Keyed by object identity: the port's models and collocations are frozen
+    dataclasses whose tensors it never changes in place."""
+
+    def __init__(self):
+        self._entries = {}
+
+    def get(self, objs, device, make):
+        """The value for ``objs`` on ``device``, from ``make()`` on a miss."""
+        key = (tuple(id(o) for o in objs), str(device))
+        hit = self._entries.get(key)
+        if hit is not None and all(ref() is o for ref, o in zip(hit[0], objs)):
+            return hit[1]
+        # forget entries whose objects are gone (their ids may be reused)
+        self._entries = {
+            k: v for k, v in self._entries.items() if all(ref() is not None for ref in v[0])
+        }
+        value = make()
+        self._entries[key] = (tuple(weakref.ref(o) for o in objs), value)
+        return value

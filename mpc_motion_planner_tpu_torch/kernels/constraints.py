@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..models.robot import PRISMATIC, Frame, RobotModel
-from .build import CudaKernel, check_cuda_tensor, ptr
+from .build import CudaKernel, HostConstants, check_cuda_tensor, ptr
 
 NJ = 7  # the kernel's chain length (csrc/constraints.cu)
 JOINT_FLOATS = 46  # R0 9, t 3, axis 3, K 9, K2 9, mass 1, mc 3, Io 9
@@ -41,6 +41,9 @@ KERNEL = CudaKernel(
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 )
+
+# bake_model results per (model, frame, device)
+BAKED = HostConstants()
 
 
 def bake_model(model: RobotModel, frame: Frame):
@@ -90,7 +93,9 @@ def node_constraints_kernel(ocp, X, U, with_jac: bool):
     """Launch kernel 1 on CUDA tensors X (B, nodes, nx), U (B, nodes, nu)."""
     B, nodes = X.shape[0], X.shape[1]
     n_in, ng = ocp.nx + ocp.nu, ocp.ng
-    consts, tool_parent = bake_model(ocp.model, ocp.tool_frame)
+    consts, tool_parent = BAKED.get(
+        (ocp.model, ocp.tool_frame), X.device, lambda: bake_model(ocp.model, ocp.tool_frame)
+    )
     xu = torch.cat([X, U], dim=-1).reshape(B * nodes, n_in).to(torch.float32).contiguous()
     F = xu.shape[0]
     check_cuda_tensor("xu", xu, (F, 3 * NJ))

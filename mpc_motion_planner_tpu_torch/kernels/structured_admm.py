@@ -38,7 +38,7 @@ from ..ops import qp_structured
 from ..ops.qp import QPSettings, QPSolution
 from ..ops.structure import StructuredA
 from . import banded_factor
-from .build import CudaKernel, check_cuda_tensor, ptr
+from .build import CudaKernel, HostConstants, check_cuda_tensor, ptr
 
 N, NG, BLK, BW, NV, NEQ, NM = 19, 8, 21, 3, 400, 336, 488
 
@@ -47,6 +47,9 @@ KERNEL = CudaKernel(
     [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_float] * 4
     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 )
+
+# the float32 differentiation matrix on the host, per (collocation, device)
+DIFF_MATRIX = HostConstants()
 
 
 def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings: QPSettings):
@@ -80,7 +83,10 @@ def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings:
     ptrs = (ctypes.c_void_p * 33)(
         *(t.data_ptr() for t in list(inputs.values()) + outs)
     )
-    Dm = ocp.coll.diff_matrix.detach().to("cpu", torch.float32).contiguous()
+    Dm = DIFF_MATRIX.get(
+        (ocp.coll,), qp.x.device,
+        lambda: ocp.coll.diff_matrix.detach().to("cpu", torch.float32).contiguous(),
+    )
     cap = settings.max_iter + settings.rescue_iters
     KERNEL.launch(
         ptrs, ptr(Dm), settings.sigma, settings.alpha, settings.eps_abs,
@@ -105,7 +111,7 @@ def solve_box_qp_structured_cuda(
     """The structured QP on the card: float32 data, kernel 2 for the
     factorization (flagged problems refactored by the plain version) and
     kernel 3 for the ADMM loop. Returns float32 results."""
-    settings.check_ported()
+    settings.check_structured()
     _check_geometry(ocp)
     f32 = torch.float32
     cast = lambda a: None if a is None else a.to(f32)

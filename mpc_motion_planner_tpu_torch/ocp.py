@@ -11,12 +11,19 @@ Every function takes a leading batch dimension. The per-node constraint
 values and Jacobians of a batch go through kernel 1
 (:mod:`.kernels.constraints`) for CUDA tensors and through the plain
 version here for CPU tensors.
+
+The dense linearization (:meth:`TranscribedOCP.constraint_matrix`, for the
+dense QP backends) is A_eq = E_D + p C_dyn - f_rows e_p' with the constant
+patterns E_D (differentiation matrix) and C_dyn (dynamics coupling), and
+A_ineq scattered from the per-node Jacobians.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 
+import numpy as np
 import torch
 
 from .kernels import constraints as constraints_kernel
@@ -32,6 +39,13 @@ class TranscribedOCP:
     model: RobotModel
     coll: Collocation
     tool_frame: Frame
+    # constant Jacobian patterns (num_eq, num_var) of the defects
+    eq_diff_pattern: torch.Tensor  # E_D: differentiation-matrix block
+    eq_dyn_pattern: torch.Tensor  # C_dyn: -(df/dx, df/du) coupling, scaled by p
+    # the reference's d tau/d p linearization column (torque rows: dtau/dv
+    # qdot + dtau/da qddot) instead of the exact zero; dense backends only,
+    # as in the JAX package (the structured operator keeps the zero)
+    tau_p_column: bool = False
 
     @property
     def nq(self) -> int:
@@ -162,18 +176,115 @@ class TranscribedOCP:
         g, J = constraints_kernel.node_constraints(self, X, U, with_jac=True)
         return g.reshape(z.shape[0], -1), J
 
+    # ---- dense linearization (dense QP backends) ----
+
+    def _eq_jacobian_into(self, A, z):
+        X, U, p = self.unpack(z)
+        A.copy_(self.eq_diff_pattern.expand_as(A))
+        A.addcmul_(p[:, None, None], self.eq_dyn_pattern)
+        idx = self.segment_index(z.device).reshape(-1)
+        A[:, :, -1] -= self.dynamics(X, U)[:, idx].reshape(z.shape[0], -1)
+
+    def _ineq_jacobian_into(self, A, z, J):
+        rows, cols = (torch.as_tensor(a, device=z.device) for a in _ineq_scatter_indices(
+            self.num_nodes, self.ng, self.nx, self.nu))
+        A[:, rows, cols] = J.reshape(z.shape[0], -1)
+        if self.tau_p_column:
+            X, U, _ = self.unpack(z)
+            nq = self.nq
+            q = X[..., :nq]
+            _, dtau = torch.func.jvp(
+                lambda v, a: rnea.rnea(self.model, q, v, a), (X[..., nq:], U), (X[..., nq:], U)
+            )  # (B, nodes, nq)
+            trows = (torch.arange(self.num_nodes, device=z.device)[:, None] * self.ng
+                     + torch.arange(nq, device=z.device)[None, :]).reshape(-1)
+            A[:, trows, -1] = dtau.reshape(z.shape[0], -1)
+
+    def eq_jacobian(self, z):
+        """Dense (B, num_eq, num_var) defect Jacobian (exact)."""
+        A = z.new_empty(z.shape[0], self.num_eq, self.num_var)
+        self._eq_jacobian_into(A, z)
+        return A
+
+    def ineq_jacobian(self, z, J=None):
+        """Dense (B, num_ineq, num_var) constraint Jacobian (exact; dg/dp = 0
+        unless ``tau_p_column``). J: optionally the precomputed per-node
+        Jacobians (B, nodes, ng, nx+nu)."""
+        A = z.new_zeros(z.shape[0], self.num_ineq, self.num_var)
+        self._ineq_jacobian_into(A, z, self.node_constraint_jacobians(z) if J is None else J)
+        return A
+
+    def constraint_matrix(self, z, J=None):
+        """Stacked (B, num_eq + num_ineq, num_var) linearization, built in
+        one buffer by scatter. J: as for :meth:`ineq_jacobian`."""
+        A = z.new_zeros(z.shape[0], self.num_eq + self.num_ineq, self.num_var)
+        self._eq_jacobian_into(A[:, : self.num_eq], z)
+        self._ineq_jacobian_into(
+            A[:, self.num_eq :], z, self.node_constraint_jacobians(z) if J is None else J
+        )
+        return A
+
+
+def _build_constant_patterns(coll: Collocation, nx: int, nu: int):
+    """Host-side E_D and C_dyn (float64 numpy), as the JAX package builds
+    them."""
+    S, order = coll.num_segments, coll.order
+    nodes = order * S + 1
+    num_eq = S * (order + 1) * nx
+    num_var = nodes * (nx + nu) + 1
+    D = coll.diff_matrix.detach().cpu().double().numpy()
+    seg_idx = coll.segment_indices()
+
+    E = np.zeros((num_eq, num_var))
+    C = np.zeros((num_eq, num_var))
+    nq = nx // 2
+    u_base = nodes * nx
+    for s in range(S):
+        for k in range(order + 1):
+            node_k = int(seg_idx[s, k])
+            for i in range(nx):
+                r = (s * (order + 1) + k) * nx + i
+                for j in range(order + 1):
+                    E[r, int(seg_idx[s, j]) * nx + i] += D[k, j]
+                # -p * df/d(x,u): f_i = x_{i+nq} for i < nq else u_{i-nq}
+                if i < nq:
+                    C[r, node_k * nx + i + nq] += -1.0
+                else:
+                    C[r, u_base + node_k * nu + (i - nq)] += -1.0
+    return E, C
+
+
+@lru_cache(maxsize=None)
+def _ineq_scatter_indices(nodes: int, ng: int, nx: int, nu: int):
+    """Flat (rows, cols) mapping (nodes, ng, nx+nu) -> dense A_ineq."""
+    node = np.arange(nodes)[:, None, None]
+    c = np.arange(ng)[None, :, None]
+    d = np.arange(nx + nu)[None, None, :]
+    rows = np.broadcast_to(node * ng + c, (nodes, ng, nx + nu))
+    cols = np.broadcast_to(
+        np.where(d < nx, node * nx + d, nodes * nx + node * nu + (d - nx)),
+        (nodes, ng, nx + nu),
+    )
+    return rows.reshape(-1), cols.reshape(-1)
+
 
 def make_ocp(
     model: RobotModel,
     tool_frame_name: str = "panda_tool",
     order: int = 3,
     num_segments: int = 6,
+    tau_p_column: bool = False,
 ) -> TranscribedOCP:
     """The OCP in the model's dtype and on its device."""
-    coll = make_collocation(
-        order, num_segments, dtype=model.mass.dtype, device=model.mass.device
+    dt, dev = model.mass.dtype, model.mass.device
+    coll = make_collocation(order, num_segments, dtype=dt, device=dev)
+    E, C = _build_constant_patterns(coll, 2 * model.nq, model.nq)
+    return TranscribedOCP(
+        model=model, coll=coll, tool_frame=model.frame(tool_frame_name),
+        eq_diff_pattern=torch.as_tensor(E, dtype=dt, device=dev),
+        eq_dyn_pattern=torch.as_tensor(C, dtype=dt, device=dev),
+        tau_p_column=tau_p_column,
     )
-    return TranscribedOCP(model=model, coll=coll, tool_frame=model.frame(tool_frame_name))
 
 
 # ---------------- bounds assembly ----------------

@@ -526,7 +526,7 @@ def solve_box_qp_structured(
 ) -> QPSolution:
     """The plain structured QP solve in the caller's dtype (kernel 2 and 3's
     plain versions end to end). P must be diagonal (B, n)."""
-    settings.check_ported()
+    settings.check_structured()
     qp = scale_qp(ocp, sa, P_diag, q, lc, uc, lx, ux, settings, x0, yc0, yx0,
                   soft_c, soft_x)
     fac = factor_banded(qp.Mband, qp.p_col, qp.m_pp, ocp.coll.order)

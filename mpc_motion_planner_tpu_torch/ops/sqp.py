@@ -1,11 +1,14 @@
 """Batched SQP solver for the transcribed minimum-time NLP (PyTorch).
 
-Counterpart of ``mpc_motion_planner_tpu/ops/sqp.py`` on the structured QP
-path: full relinearization every SQP iteration, the constant Gershgorin
-diagonal of the (zero) Lagrangian Hessian, l1-elastic nonlinear rows and
-interior variable box, the vectorized l1-merit backtracking line search,
-and per-step ADMM budgets. The per-node constraint evaluations go through
-kernel 1 and the QP through kernels 2 and 3 when the tensors are on CUDA.
+Counterpart of ``mpc_motion_planner_tpu/ops/sqp.py``: full
+relinearization every SQP iteration, the Gershgorin regularization of the
+Lagrangian Hessian (the constant diagonal of the planner's zero Hessian, or
+a dense ``hessian_fn`` callback), l1-elastic nonlinear rows and interior
+variable box, the vectorized l1-merit backtracking line search, and
+per-step ADMM budgets. ``QPSettings.backend`` picks the QP algorithm (see
+``config.py``): the structured solver, or the dense solver over
+``TranscribedOCP.constraint_matrix``. The per-node constraint evaluations
+go through kernel 1 when the tensors are on CUDA.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 
 from ..kernels.structured_admm import solve_box_qp_structured
 from ..ocp import NLPBounds, TranscribedOCP
-from .qp import QPSettings
+from .qp import DENSE_BACKENDS, STRUCTURED_BACKENDS, QPSettings, solve_box_qp
 from .structure import build_structured_A
 
 
@@ -72,6 +75,17 @@ def hessian_regularization_diag(ocp: TranscribedOCP, B: int, dtype, device, eps)
     """Gershgorin shift specialized to the planner's H == 0: the constant
     eps diagonal."""
     return torch.full((B, ocp.num_var), eps, dtype=dtype, device=device)
+
+
+def gershgorin_regularize(H, eps=0.01):
+    """Gershgorin-disc regularization of a batched symmetric Lagrangian
+    Hessian (B, n, n): every row i with a_ii - r_i <= 0 (r_i = sum_j |H_ij|
+    - |a_ii|) has its diagonal shifted by (r_i - a_ii) + eps, so all discs
+    lie in the positive half-plane."""
+    aii = torch.diagonal(H, dim1=-2, dim2=-1)
+    ri = H.abs().sum(-1) - aii.abs()
+    shift = torch.where(aii - ri <= 0, (ri - aii) + eps, torch.zeros_like(aii))
+    return H + torch.diag_embed(shift)
 
 
 def _box_violation(v, lb, ub):
@@ -143,15 +157,16 @@ def soft_weights(ocp: TranscribedOCP, settings: SQPSettings, B: int, dtype, devi
     return soft_c, soft_x
 
 
-def qp_subproblem(ocp: TranscribedOCP, bounds: NLPBounds, z):
+def qp_subproblem(ocp: TranscribedOCP, bounds: NLPBounds, z, dense: bool = False):
     """Full relinearization at z: the defects c_eq, the constraint values g,
-    the structured operator and the QP data (h, lc, uc, lx, ux) of the step."""
+    the linearization (the structured operator, or with ``dense`` the dense
+    (B, m, n) matrix) and the QP data (h, lc, uc, lx, ux) of the step."""
     c_eq = ocp.eq_residual(z)
     g, J = ocp.linearize_constraints_batch(z)
-    sa = build_structured_A(ocp, z, J=J)
+    lin = ocp.constraint_matrix(z, J=J) if dense else build_structured_A(ocp, z, J=J)
     lc = torch.cat([-c_eq, bounds.lb_ineq - g], dim=-1)
     uc = torch.cat([-c_eq, bounds.ub_ineq - g], dim=-1)
-    return c_eq, g, sa, (ocp.cost_gradient(z), lc, uc, bounds.lb_var - z, bounds.ub_var - z)
+    return c_eq, g, lin, (ocp.cost_gradient(z), lc, uc, bounds.lb_var - z, bounds.ub_var - z)
 
 
 def sqp_solve(
@@ -162,9 +177,21 @@ def sqp_solve(
     qp_settings: QPSettings = QPSettings(),
     lam_c0=None,
     lam_x0=None,
+    hessian_fn=None,
 ) -> SQPResult:
     """Run ``settings.max_iter`` SQP iterations from the warm start z0
-    (B, num_var); bounds are batched (B, ...)."""
+    (B, num_var); bounds are batched (B, ...).
+
+    hessian_fn: optional Lagrangian-Hessian callback ``(z (B, n), lam_c
+    (B, m)) -> (B, n, n)``; its Gershgorin-regularized dense Hessian goes to
+    the QP, which needs the "xla" backend. None (the planner's zero
+    Hessian) gives the constant ``reg_eps`` diagonal."""
+    backend = qp_settings.backend
+    if backend not in DENSE_BACKENDS + STRUCTURED_BACKENDS:
+        raise ValueError(f"unknown QP backend {backend!r}")
+    dense = backend in DENSE_BACKENDS
+    if hessian_fn is not None and backend != "xla":
+        raise ValueError("a dense hessian_fn needs the 'xla' QP backend")
     B = z0.shape[0]
     dt, dev = z0.dtype, z0.device
     n = ocp.num_var
@@ -178,11 +205,14 @@ def sqp_solve(
 
     qp_iters, qp_conv, alphas_log = [], [], []
     for qs in step_qp_settings(settings, qp_settings):
-        c_eq, g, sa, (h, lc, uc, lx, ux) = qp_subproblem(ocp, bounds, z)
-        qp = solve_box_qp_structured(
-            ocp, sa, P_diag, h, lc, uc, lx, ux, qs,
-            yc0=lam_c, yx0=lam_x, soft_c=soft_c, soft_x=soft_x,
-        )
+        c_eq, g, lin, (h, lc, uc, lx, ux) = qp_subproblem(ocp, bounds, z, dense)
+        if hessian_fn is not None:
+            P_diag = gershgorin_regularize(hessian_fn(z, lam_c), settings.reg_eps)
+        kw = dict(yc0=lam_c, yx0=lam_x, soft_c=soft_c, soft_x=soft_x)
+        if dense:
+            qp = solve_box_qp(P_diag, h, lin, lc, uc, lx, ux, qs, **kw)
+        else:
+            qp = solve_box_qp_structured(ocp, lin, P_diag, h, lc, uc, lx, ux, qs, **kw)
         d = qp.x
         mu = torch.maximum(
             qp.y_constraints.abs().amax(-1), qp.y_box.abs().amax(-1)

@@ -13,7 +13,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from .config import SHIPPING_QP_SETTINGS, SHIPPING_SQP_SCHEDULES
 from .models.panda import TOOL_FRAME, PandaLimits, make_panda_limits, make_panda_model
 from .models.robot import RobotModel
 from .ocp import NLPBounds, TranscribedOCP, assemble_bounds, make_ocp
@@ -79,7 +78,9 @@ class Solution:
 
 
 class MotionPlanner:
-    """User-facing planner; tensors live on ``device`` in ``dtype``."""
+    """User-facing planner; tensors live on ``device`` in ``dtype``. The
+    settings default to the JAX package's (the dense "xla" QP); the
+    shipping ones are in ``config.py``."""
 
     def __init__(
         self,
@@ -87,8 +88,8 @@ class MotionPlanner:
         limits: Optional[PandaLimits] = None,
         tool_frame: str = TOOL_FRAME,
         margins: Margins = Margins(),
-        sqp_settings: SQPSettings = SQPSettings(qp_step_schedules=SHIPPING_SQP_SCHEDULES),
-        qp_settings: QPSettings = SHIPPING_QP_SETTINGS,
+        sqp_settings: SQPSettings = SQPSettings(),
+        qp_settings: QPSettings = QPSettings(),
         target_eps: float = 1e-2,
         time_bounds: Tuple[float, float] = (0.0, 10.0),
         dtype=torch.float64,

@@ -1,6 +1,6 @@
 """PyTorch port: OCP transcription, bounds, the structured constraint
-operator, the OTG warm start and the benchmark velocity mapping against the
-JAX package (float64)."""
+operator, the dense linearization, the OTG warm start and the benchmark
+velocity mapping against the JAX package (float64)."""
 
 import jax
 import jax.numpy as jnp
@@ -8,11 +8,13 @@ import numpy as np
 import pytest
 import torch
 
+from mpc_motion_planner_tpu import ocp as jocp
 from mpc_motion_planner_tpu.bench import harness as jharness
 from mpc_motion_planner_tpu.ops import otg as jotg
 from mpc_motion_planner_tpu.ops import structure as jstructure
 from mpc_motion_planner_tpu.planner import Margins as JMargins
 from mpc_motion_planner_tpu.planner import MotionPlanner as JPlanner
+from mpc_motion_planner_tpu_torch import ocp as tocp
 from mpc_motion_planner_tpu_torch.bench import harness as tharness
 from mpc_motion_planner_tpu_torch.ops import otg as totg
 from mpc_motion_planner_tpu_torch.ops import structure as tstructure
@@ -82,6 +84,27 @@ def test_structured_operator_matches_jax(planners):
            jstructure.apply_AT(jo, sa_j, jnp.asarray(w)))
     A = tstructure.materialize(to, sa_t)
     _close(torch.einsum("bmn,bn->bm", A, torch.as_tensor(v)), Av.numpy())
+
+
+@pytest.mark.parametrize("tau_p_column", [False, True], ids=["exact", "tau_p_column"])
+def test_constraint_matrix_matches_jax(planners, tau_p_column):
+    """The dense (B, 488, 400) linearization of the dense QP backends, and
+    its defect and inequality blocks, with the reference's d tau/d p column
+    off and on."""
+    jp, tp = planners
+    jo = jocp.make_ocp(jp.model, tau_p_column=tau_p_column)
+    to = tocp.make_ocp(tp.model, tau_p_column=tau_p_column)
+    z = _z(jo, 11)
+    zt = torch.as_tensor(z)
+    A = to.constraint_matrix(zt)
+    assert A.shape == (B, to.num_eq + to.num_ineq, to.num_var)
+    _close(A, jax.vmap(jo.constraint_matrix)(jnp.asarray(z)))
+    _close(to.eq_jacobian(zt), jax.vmap(jo.eq_jacobian)(jnp.asarray(z)))
+    _close(to.ineq_jacobian(zt), jax.vmap(jo.ineq_jacobian)(jnp.asarray(z)))
+    # the same matrix from precomputed node Jacobians (the SQP's route)
+    _, J = to.linearize_constraints_batch(zt)
+    assert torch.equal(to.constraint_matrix(zt, J=J), A)
+    assert bool((A[:, to.num_eq:, -1] != 0).any()) == tau_p_column
 
 
 def test_otg_matches_jax(planners):

@@ -150,7 +150,8 @@ def test_plain_admm_matches_jax(qp_data, port_ocp, soft):
         soft_c=as_j(soft_c), soft_x=as_j(soft_x),
     )
     got = tqs.solve_box_qp_structured(
-        port_ocp, sa_t, *map(as_t, args), QPSettings(max_iter=700),
+        port_ocp, sa_t, *map(as_t, args),
+        QPSettings(backend="structured", max_iter=700, rho_update_every=0),
         soft_c=as_t(soft_c), soft_x=as_t(soft_x),
     )
     assert got.converged.tolist() == np.asarray(ref.converged).tolist()
@@ -164,6 +165,7 @@ def test_unported_settings_raise(qp_data, port_ocp):
     _, d = qp_data
     _, sa_t = _sa(d)
     args = [torch.as_tensor(d[k]) for k in ("P", "q", "lc", "uc", "lx", "ux")]
-    for settings in (QPSettings(rho_update_every=100), QPSettings(kkt_refine=1)):
-        with pytest.raises(NotImplementedError):
+    for settings in (QPSettings(rho_update_every=100),
+                     QPSettings(rho_update_every=0, kkt_refine=1)):
+        with pytest.raises(NotImplementedError, match="structured solver"):
             tqs.solve_box_qp_structured(port_ocp, sa_t, *args, settings)

@@ -1,20 +1,30 @@
 """PyTorch port: how the kernel wrappers route. CPU tensors take the plain
 versions and count no launch; the kernel entry points refuse anything but
-contiguous float32 CUDA tensors; other devices and other problem shapes
-raise instead of falling back."""
+contiguous float32 CUDA tensors; other devices, other problem shapes and
+unknown QP backends raise instead of falling back; the host-side constants
+of a launch are cached per model."""
+
+import dataclasses
 
 import pytest
 import torch
 
 from mpc_motion_planner_tpu_torch import kernels
+from mpc_motion_planner_tpu_torch.config import SHIPPING_QP_SETTINGS
+from mpc_motion_planner_tpu_torch.kernels import admm_dense as k4
 from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
 from mpc_motion_planner_tpu_torch.kernels import constraints as k1
 from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
-from mpc_motion_planner_tpu_torch.kernels.build import BUILD_DIR, check_cuda_tensor
+from mpc_motion_planner_tpu_torch.kernels.build import BUILD_DIR, HostConstants, check_cuda_tensor
 from mpc_motion_planner_tpu_torch.models.panda import make_panda_model
 from mpc_motion_planner_tpu_torch.ocp import make_ocp
 from mpc_motion_planner_tpu_torch.ops import qp_structured
-from mpc_motion_planner_tpu_torch.ops.sqp import hessian_regularization_diag, qp_subproblem
+from mpc_motion_planner_tpu_torch.ops.qp import (
+    QPSettings, pallas_operands, pallas_state, scale_dense_qp, solve_box_qp,
+)
+from mpc_motion_planner_tpu_torch.ops.sqp import (
+    SQPSettings, hessian_regularization_diag, qp_subproblem, sqp_solve,
+)
 from mpc_motion_planner_tpu_torch.planner import Margins, MotionPlanner
 
 torch.set_num_threads(1)
@@ -71,6 +81,86 @@ def test_factor_routes_cpu_to_plain():
         assert torch.equal(got[k], ref[k]), k
 
 
+def _dense_chunk_inputs(B=2, n=6, m=4, seed=2):
+    """Kernel 4's operands and state for small random float32 QPs."""
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.rand(*shape, generator=g)
+    P, q, A = rnd(B, n) + 0.5, rnd(B, n) - 0.5, rnd(B, m, n) - 0.5
+    lc, uc = -rnd(B, m) - 0.5, rnd(B, m) + 0.5
+    lx, ux = torch.full((B, n), -2.0), torch.full((B, n), 2.0)
+    settings = QPSettings(backend="pallas")
+    qp = scale_dense_qp(P, q, A, lc, uc, lx, ux, settings)
+    rho = torch.full((B,), settings.rho)
+    return pallas_operands(qp, rho, qp.factor(rho, settings)), pallas_state(qp)
+
+
+DENSE_KW = dict(chunk_iters=30, check_every=10, eps_abs=1e-3, eps_rel=1e-3, sigma=1e-6,
+                alpha=1.6, kkt_refine=1)
+
+
+def test_dense_chunk_routes_cpu_to_plain():
+    ops, state = _dense_chunk_inputs()
+    got, used = k4.admm_dense_chunk(ops, state, **DENSE_KW)
+    ref, ref_used = k4.admm_dense_plain(ops, state, **DENSE_KW)
+    assert torch.equal(used, ref_used) and bool((used > 0).all())
+    for k in k4.STATE + ("done",):
+        assert torch.equal(got[k], ref[k]), k
+    # the caller's state is left as it was
+    assert torch.equal(state["done"], torch.zeros_like(state["done"]))
+
+
+def test_dense_chunk_kernel_refuses_cpu_tensors():
+    ops, state = _dense_chunk_inputs()
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        k4.admm_dense_kernel(ops, state, **DENSE_KW)
+
+
+def test_unknown_qp_backends_raise(ocp):
+    B, n, m = 1, ocp.num_var, ocp.num_eq + ocp.num_ineq
+    z = torch.zeros(B, n)
+    with pytest.raises(ValueError, match="unknown QP backend"):
+        sqp_solve(ocp, None, z, SQPSettings(), QPSettings(backend="osqp"))
+    zeros = lambda *s: torch.zeros(*s, dtype=torch.float64)
+    args = (zeros(B, n), zeros(B, n), zeros(B, m, n), zeros(B, m), zeros(B, m), zeros(B, n),
+            zeros(B, n))
+    for backend in ("osqp", "structured"):
+        with pytest.raises(ValueError, match="dense backends"):
+            solve_box_qp(*args, QPSettings(backend=backend))
+    with pytest.raises(ValueError, match="kkt_factor"):
+        solve_box_qp(*args, QPSettings(kkt_factor="qr"))
+
+
+def test_structured_backends_refuse_what_is_not_ported():
+    for settings in (QPSettings(backend="structured"),  # adaptive rho by default
+                     QPSettings(backend="structured", rho_update_every=0, kkt_refine=1)):
+        with pytest.raises(NotImplementedError, match="structured solver"):
+            settings.check_structured()
+    QPSettings(backend="structured", rho_update_every=0).check_structured()
+
+
+def test_host_constants_are_cached_per_model():
+    """bake_model runs once per (model, frame, device); a second model with
+    other inertial data gets its own constants."""
+    m1 = make_panda_model()
+    m2 = dataclasses.replace(m1, mass=2.0 * m1.mass)
+    frame = m1.frame("panda_tool")
+    cache = HostConstants()
+    calls = []
+
+    def bake(m):
+        calls.append(m)
+        return k1.bake_model(m, frame)
+
+    c1, _ = cache.get((m1, frame), "cuda:0", lambda: bake(m1))
+    assert cache.get((m1, frame), "cuda:0", lambda: bake(m1))[0] is c1
+    c2, _ = cache.get((m2, frame), "cuda:0", lambda: bake(m2))
+    assert len(calls) == 2 and not (c1 == c2).all()
+    assert (c2 == k1.bake_model(m2, frame)[0]).all()
+    # another device is another entry
+    cache.get((m1, frame), "cuda:1", lambda: bake(m1))
+    assert len(calls) == 3
+
+
 def test_other_devices_raise(ocp):
     device = "meta"
     X, U = (t.to(device) for t in _xu(B=1))
@@ -82,6 +172,9 @@ def test_other_devices_raise(ocp):
     q = torch.zeros(1, ocp.num_var, device=device)
     with pytest.raises(ValueError, match="no QP path"):
         k3.solve_box_qp_structured(ocp, None, None, q, None, None, None, None)
+    ops, state = _dense_chunk_inputs()
+    with pytest.raises(ValueError, match="no dense ADMM path"):
+        k4.admm_dense_chunk({k: v.to(device) for k, v in ops.items()}, state, **DENSE_KW)
 
 
 def test_kernel_entry_points_refuse_cpu_tensors(ocp):
@@ -105,7 +198,7 @@ def test_kernel3_refuses_cpu_tensors():
     _, _, sa, args = qp_subproblem(planner.ocp, planner.nlp_bounds(cur, tgt), z0)
     P = hessian_regularization_diag(planner.ocp, 1, torch.float32, "cpu", 0.01)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
-        k3.solve_box_qp_structured_cuda(planner.ocp, sa, P, *args, planner.qp_settings)
+        k3.solve_box_qp_structured_cuda(planner.ocp, sa, P, *args, SHIPPING_QP_SETTINGS)
 
 
 def test_check_cuda_tensor_reports_what_is_wrong():
@@ -129,4 +222,4 @@ def test_kernel_libraries_are_named_by_source_hash():
         assert path.parent == BUILD_DIR
         assert path.name.startswith(name + "_") and path.suffix == ".so"
         assert path == kernels.KERNELS[name].library_path()  # stable
-    assert len(set(paths.values())) == 3
+    assert len(set(paths.values())) == len(kernels.KERNELS) == 4
