@@ -59,6 +59,17 @@ REPLACES = {
     "admm_dense": "mpc_motion_planner_tpu/ops/pallas/admm_kernel.py:416",
 }
 HBM_TBPS = 3.35  # H100 SXM device-memory bandwidth (NVIDIA data sheet)
+FP32_TFLOPS = 67.0  # H100 SXM float32 rate outside the tensor cores (same sheet)
+# Operations of each kernel's function, from its source:
+# kernel 1: two Newton-Euler sweeps and the tool FK are ~1.5 kflop per value
+# pass (kernels/constraints.py); each of the 21 tangents costs two more
+K1_VALUE_FLOPS = 1.5e3
+K1_JAC_FLOPS = K1_VALUE_FLOPS * (1 + 2 * 21)
+# kernel 3, per problem-iteration: the sweeps 2 x (19 x 231 + 51 x 441)
+# multiply-adds (triangular Ldi, 51 sub-diagonal blocks) = 107.5 kflop, A and
+# A' 2 x (336 x 6 + 152 x 21) = 20.8 kflop, the arrow 3.2 kflop, ~29 flop for
+# each of the 888 element-wise updates
+K3_ITER_FLOPS = 157e3
 
 
 def log(msg: str) -> None:
@@ -77,6 +88,43 @@ def max_abs(a, b) -> float:
 def rel_err(a, b) -> float:
     """max |a - b| / max |b| (factor entries span many magnitudes)."""
     return max_abs(a, b) / max(float(b.double().abs().max()), 1e-30)
+
+
+def bound(flops: float, nbytes: float):
+    """The least time in ms the card could take: the larger of the
+    operations over its float32 rate and the bytes (each input read once,
+    each output written once) over its memory rate; and which of the two."""
+    t_ops, t_bytes = flops / (FP32_TFLOPS * 1e9), nbytes / (HBM_TBPS * 1e9)
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def banded_factor_flops(nodes=19, bw=3, blk=21) -> float:
+    """Operations of one block-banded Cholesky with inverse diagonal blocks
+    and the arrow solve (csrc/banded_factor.cu): per node the Schur update
+    (one blk^3 product per band neighbour), a Cholesky and a triangular
+    inverse (blk^3 / 3 each), and per live sub-diagonal block its band
+    products and the product with the triangular inverse (blk^3 / 2)."""
+    macs = 0.0
+    for k in range(nodes):
+        macs += min(bw, k) * blk**3 + 2 * blk**3 / 6
+        for d in range(1, bw + 1):
+            if k + d < nodes:
+                macs += min(k, bw - d) * blk**3 + blk**3 / 2
+    macs += 2 * (nodes * blk * (blk + 1) / 2 + (3 * nodes - 6) * blk**2)  # the arrow's sweeps
+    return 2 * macs
+
+
+def report_bound(entry, flops, nbytes, what):
+    """Store a kernel's bound beside its measured time; return the text."""
+    ms, by = bound(flops, nbytes)
+    entry.update(bound_ms=ms, bound_by=by, library_ms=None)
+    return (f"bound {ms:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP at {FP32_TFLOPS} TFLOP/s, "
+            f"{nbytes / 1e6:.1f} MB at {HBM_TBPS} TB/s; {what}), share reached "
+            f"{100 * ms / entry['ms']:.1f}%; no single PyTorch call computes this function")
 
 
 def time_pair(plain, kernel, reps=3):
@@ -319,6 +367,16 @@ def run(dev: torch.device) -> None:
     e_k, e_p = max_abs(x_k, x_64), max_abs(x_p, x_64)
     check(e_k <= 2 * e_p + 1e-6,
           f"kernel 3 strays from float64 by {e_k:.3e}, the plain float32 loop by {e_p:.3e}")
+    # the sweeps' order of sums (look-ahead terms first) as plain PyTorch,
+    # against the plain banded solve on these factors at float32: 1e-4 of
+    # the largest entry, the rounding of 38 block steps amplified by the
+    # factors of real QPs
+    rhs4 = torch.randn(B4, ocp.num_var, generator=torch.Generator().manual_seed(4)).to(dev)
+    m_plain = qp_structured.solve_arrow_banded(ocp, fac4, rhs4)
+    m_ahead = qp_structured.solve_arrow_banded(ocp, fac4, rhs4,
+                                               qp_structured.banded_solve_lookahead)
+    e_order = max_abs(m_ahead, m_plain) / float(m_plain.abs().max())
+    check(e_order <= 1e-4, f"look-ahead order of the sweeps differs by {e_order:.3e} relative")
     # (b) the whole QP solve, kernels 2 + 3 against the plain path
     ref = qp_structured.solve_box_qp_structured(ocp, sa4, *args4, shipping, **kw)
     got = k3.solve_box_qp_structured_cuda(ocp, sa4, *args4, shipping, **kw)
@@ -341,7 +399,8 @@ def run(dev: torch.device) -> None:
     results["structured_admm"]["max_abs_err"] = max_abs(x_k, x_p)
     log(f"phase 4 kernel 3 B={B4}: after {s_win.max_iter} iterations max |x - x_float64| "
         f"kernel {e_k:.3e}, plain {e_p:.3e} (bar: kernel <= 2x plain), max |x_kernel - x_plain| "
-        f"{max_abs(x_k, x_p):.3e}; full solve: {agreement}, hard box-row violation "
+        f"{max_abs(x_k, x_p):.3e}; M^-1 rhs in the sweeps' order against the plain order "
+        f"{e_order:.2e} relative (tol 1e-4); full solve: {agreement}, hard box-row violation "
         f"{box_viol:.2e} (tol 5e-3; plain {box_viol_p:.2e}), hard-row violation "
         f"{hard_ratio:.3f}x the primal tolerance (bar 1.01; plain {hard_ratio_p:.3f}x)")
     del sa_f, args_f, sc_f, sx_f
@@ -565,8 +624,11 @@ def run(dev: torch.device) -> None:
           f"kernel 1 differs on the step-0 iterates: values {max_abs(g_k, g_p)}, "
           f"Jacobian {max_abs(J_k, J_p)}")
     results["constraints"].update(ms=k_ms, plain_ms=p_ms)
-    log(f"phase 10 kernel 1 with Jacobian F={X.shape[0] * X.shape[1]}: kernel {k_ms:.3f} ms, "
-        f"plain {p_ms:.3f} ms (runs {raw}); on the step-0 iterates max abs err values "
+    F = X.shape[0] * X.shape[1]
+    text = report_bound(results["constraints"], F * K1_JAC_FLOPS,
+                        tensor_bytes(X, U, g_k, J_k), "value pass and 21 tangents")
+    log(f"phase 10 kernel 1 with Jacobian F={F}: kernel {k_ms:.3f} ms, "
+        f"plain {p_ms:.3f} ms (runs {raw}); {text}; on the step-0 iterates max abs err values "
         f"{max_abs(g_k, g_p):.3e}, Jacobian {max_abs(J_k, J_p):.3e} (phase 2's tolerances)")
     del g_k, J_k, g_p, J_p
     out.clear()
@@ -576,8 +638,10 @@ def run(dev: torch.device) -> None:
         lambda: k1.node_constraints_plain(ocp, Xl, Ul, False),
         lambda: k1.node_constraints_kernel(ocp, Xl, Ul, False),
     )
-    log(f"phase 10 kernel 1 values only F={Xl.shape[0] * Xl.shape[1]}: kernel {k_ms:.3f} ms, "
-        f"plain {p_ms:.3f} ms (runs {raw})")
+    F = Xl.shape[0] * Xl.shape[1]
+    b_ms, b_by = bound(F * K1_VALUE_FLOPS, tensor_bytes(Xl, Ul) + F * 8 * 4)
+    log(f"phase 10 kernel 1 values only F={F}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
+        f"(runs {raw}); bound {b_ms:.4f} ms by {b_by}, share reached {100 * b_ms / k_ms:.1f}%")
     del Xl, Ul
     qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
     p_ms, k_ms, raw = time_pair(
@@ -589,7 +653,11 @@ def run(dev: torch.device) -> None:
     errs = {k: rel_err(fk[k], fp[k]) for k in ("Ldi", "Lsub", "u", "s")}
     check(max(errs.values()) <= 1e-3, f"kernel 2 differs at B={B_MAIN}: {errs}")
     results["banded_factor"].update(ms=k_ms, plain_ms=p_ms)
+    text = report_bound(
+        results["banded_factor"], B_MAIN * banded_factor_flops(),
+        tensor_bytes(qp.Mband, qp.p_col, qp.m_pp, *fk.values()), "band in, factors out")
     log(f"phase 10 kernel 2 B={B_MAIN}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (runs {raw}); "
+        f"{text}; "
         f"ok flags identical ({int(fk['ok'].sum())}/{B_MAIN} ok), max-norm relative error "
         + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()) + " (tol 1e-3)")
     del fk, fp
@@ -601,6 +669,11 @@ def run(dev: torch.device) -> None:
         reps=1,
     )
     got, ref = (qp_structured.unscale_solution(qp, *out[k]) for k in ("kernel", "plain"))
+    k3_bytes = tensor_bytes(
+        fac["Ldi"], fac["Lsub"], fac["u"], fac["s"], sa.J, sa.f_rows, sa.p,
+        qp.qs, qp.Ps, qp.rx, qp.lxs, qp.uxs, qp.thx, qp.D, qp.x, qp.zx, qp.yx,
+        qp.rc, qp.lcs, qp.ucs, qp.E, qp.thr, qp.zc, qp.yc, *out["kernel"])
+    k3_iters = int(out["kernel"][6].sum())
     out.clear()
     agreement = iteration_agreement(got, ref, B_MAIN, f"kernel 3 B={B_MAIN}")
     _, lc, uc, lx, ux = args[1:]
@@ -610,8 +683,10 @@ def run(dev: torch.device) -> None:
           f"kernel 3 B={B_MAIN}: converged problems violate hard rows by "
           f"{ratios[0][1]:.3f}x the tolerance")
     results["structured_admm"].update(ms=k_ms, plain_ms=p_ms)
+    text = report_bound(results["structured_admm"], k3_iters * K3_ITER_FLOPS, k3_bytes,
+                        f"{k3_iters} problem-iterations as the kernel counted them")
     log(f"phase 10 kernel 3 B={B_MAIN}, step-0 QP, budget {shipping.max_iter}: kernel "
-        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (runs {raw}); {agreement}; hard box-row "
+        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (runs {raw}); {text}; {agreement}; hard box-row "
         f"violation kernel {ratios[0][0]:.2e}, plain {ratios[1][0]:.2e}; hard-row violation "
         f"{ratios[0][1]:.3f}x the primal tolerance (bar 1.01; plain {ratios[1][1]:.3f}x)")
     del got, ref
@@ -624,10 +699,13 @@ def run(dev: torch.device) -> None:
         reps=1,
     )
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    waves = -(-B_MAIN // sms)  # one block per SM: its shared memory takes the SM
+    per_sm = k3.blocks_per_sm()  # from the launch's occupancy
+    waves = -(-B_MAIN // (sms * per_sm))
+    b_ms, b_by = bound(B_MAIN * s_win.max_iter * K3_ITER_FLOPS, k3_bytes)
     log(f"phase 10 kernel 3 B={B_MAIN}, exactly {s_win.max_iter} iterations: kernel "
         f"{k_ms:.3f} ms = {1e3 * k_ms / s_win.max_iter / waves:.2f} us per iteration per "
-        f"block ({waves} waves of {sms} blocks), plain {p_ms:.3f} ms (runs {raw})")
+        f"block ({waves} waves of {sms} x {per_sm} blocks), plain {p_ms:.3f} ms (runs {raw}); "
+        f"bound {b_ms:.4f} ms by {b_by}, share reached {100 * b_ms / k_ms:.1f}%")
     del z0, sa, args, qp, fac
 
     args10, dq, sc10, sx10 = first_qp(B_MAIN, dense=True, settings=dense_cfg)
@@ -649,6 +727,9 @@ def run(dev: torch.device) -> None:
         iterations=u, prim_residual=None, dual_residual=None)
         for s, u in (out["kernel"], out["plain"]))
     done_k, done_p = out["kernel"][0]["done"], out["plain"][0]["done"]
+    k4_iters = int(out["kernel"][1].sum())
+    k4_bytes = tensor_bytes(*ops.values(), *st.values(), *out["kernel"][0].values(),
+                            out["kernel"][1])
     out.clear()
     agreement = iteration_agreement(got, ref, B_MAIN, f"kernel 4 B={B_MAIN}")
     check(torch.equal(done_k == 2, done_p == 2),
@@ -661,8 +742,15 @@ def run(dev: torch.device) -> None:
           f"kernel 4 B={B_MAIN}: converged problems violate hard rows by "
           f"{ratios[0][1]:.3f}x the tolerance")
     results["admm_dense"].update(ms=k_ms, plain_ms=p_ms)
+    m, n = ops["A"].shape[1:]
+    # per problem-iteration: (2 + 2 kkt_refine) products with A and
+    # (1 + kkt_refine) with M^-1, 2 flops per entry
+    k4_iter_flops = 2 * ((2 + 2 * dense_cfg.kkt_refine) * m * n + (1 + dense_cfg.kkt_refine) * n * n)
+    text = report_bound(results["admm_dense"], k4_iters * k4_iter_flops, k4_bytes,
+                        f"{k4_iters} problem-iterations as the kernel counted them, A and "
+                        f"M^-1 read once as a resident design would")
     log(f"phase 10 kernel 4 B={B_MAIN}, step-0 dense QP, one {dense_cfg.max_iter}-iteration "
-        f"chunk: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (runs {raw}); {agreement}; done "
+        f"chunk: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (runs {raw}); {text}; {agreement}; done "
         f"codes identical on {int((done_k == done_p).sum())}/{B_MAIN}, frozen kernel "
         f"{int((done_k == 2).sum())}, plain {int((done_p == 2).sum())} (the same problems); "
         f"hard box-row violation kernel {ratios[0][0]:.2e}, plain {ratios[1][0]:.2e}; "
@@ -675,7 +763,6 @@ def run(dev: torch.device) -> None:
         lambda: k4.admm_dense_kernel(ops, st, chunk_iters=n_it, **ckw),
         reps=1,
     )
-    m, n = ops["A"].shape[1:]
     # bytes of A and M^-1 read per problem: (2 + 2 kkt_refine) passes over A
     # and (1 + kkt_refine) over M^-1 per iteration, 2 passes over A at the check
     it_bytes = 4 * ((2 + 2 * dense_cfg.kkt_refine) * m * n + (1 + dense_cfg.kkt_refine) * n * n)

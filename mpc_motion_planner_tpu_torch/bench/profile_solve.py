@@ -1,0 +1,140 @@
+"""Where a warm B=2048 solve spends its time on one GPU.
+
+Solves the headline states (``tests/fixtures/headline_states_b2048.npz``)
+with the shipping structured configuration (or ``--dense``: the headline's
+dense ``pallas`` configuration): one cold solve, ``--warm`` warm solves on
+the host clock, then one solve under ``torch.profiler``. From the trace's
+device events (kernels, copies, memsets) it takes the device-busy time as
+the union of their intervals, the idle share against the median warm solve,
+and the device time of each hand-written kernel by name. Wall times are
+taken before the profiler starts, which slows later solves.
+
+    python -m mpc_motion_planner_tpu_torch.bench.profile_solve [--dense] [--warm 5]
+
+Prints one JSON object, then the card's name and power limit. Needs one
+CUDA GPU and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from .. import config, kernels
+from ..ops.qp import QPSettings
+from ..ops.sqp import SQPSettings
+from ..planner import Margins, MotionPlanner
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+STATES = os.path.join(ROOT, "tests", "fixtures", "headline_states_b2048.npz")
+MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# substrings of the hand-written kernels' names in the trace
+KERNEL_NAMES = {
+    "constraints": "constraints",
+    "banded_factor": "banded_factor_kernel",
+    "structured_admm": "structured_admm_kernel",
+    "admm_dense": "admm_dense",
+}
+
+
+def union_ms(intervals) -> float:
+    """Total length in ms of the union of (start, end) intervals in us."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total / 1e3
+
+
+def device_events(trace_path):
+    """(name, start_us, end_us) of every device event of a chrome trace."""
+    with open(trace_path) as fh:
+        trace = json.load(fh)
+    return [(e.get("name", ""), e["ts"], e["ts"] + e.get("dur", 0))
+            for e in trace["traceEvents"]
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES]
+
+
+def make_planner(dense: bool, dev) -> MotionPlanner:
+    if dense:
+        qp = QPSettings(backend="pallas", kkt_refine=1, rho_update_every=0, kkt_factor="lu",
+                        ruiz_iters=2, rho=0.1, alpha=1.6, max_iter=700, check_every=25)
+        sqp = SQPSettings()
+    else:
+        qp = config.SHIPPING_QP_SETTINGS
+        sqp = SQPSettings(qp_step_schedules=config.shipping_sqp_schedules(qp.backend))
+    return MotionPlanner(margins=Margins(*MARGINS), dtype=torch.float32, device=dev,
+                         qp_settings=qp, sqp_settings=sqp)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dense", action="store_true", help="the dense pallas configuration")
+    ap.add_argument("--warm", type=int, default=5, help="warm solves on the host clock")
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_solve: needs a CUDA GPU", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    config.full_precision()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    planner = make_planner(a.dense, dev)
+    states = np.load(STATES)
+    cur = torch.as_tensor(states["current"], device=dev)
+    tgt = torch.as_tensor(states["target"], device=dev)
+
+    def solve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = planner.solve(cur, tgt)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), sol
+
+    cold_ms, _ = solve()
+    warm = [solve()[0] for _ in range(a.warm)]
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            traced_ms, sol = solve()
+        prof.export_chrome_trace(path)
+        events = device_events(path)
+    if not events:
+        print("profile_solve: the trace holds no device event", file=sys.stderr)
+        return 1
+    busy = union_ms((s, e) for _, s, e in events)
+    by_kernel = {
+        key: {"ms": sum(e - s for n, s, e in events if sub in n) / 1e3,
+              "events": sum(1 for n, _, _ in events if sub in n)}
+        for key, sub in KERNEL_NAMES.items()
+    }
+    median = float(np.median(warm))
+    print(json.dumps({
+        "path": "dense" if a.dense else "structured", "batch": int(cur.shape[0]),
+        "cold_solve_ms": cold_ms, "warm_solve_ms": warm, "warm_solve_ms_median": median,
+        "solves_per_s": 1e3 * cur.shape[0] / median,
+        "traced_solve_ms": traced_ms, "device_busy_ms": busy, "device_events": len(events),
+        "idle_share": 1.0 - busy / median, "launches": kernels.launch_counts(),
+        "kernel_device_ms": by_kernel,
+        "qp_conv_rate": float(sol.qp_converged.double().mean()),
+    }), flush=True)
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -50,21 +50,23 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Sum of v over the block, returned to every thread. red: >= WARPS floats.
+// Sum of v over a block of NW warps, returned to every thread. red: >= NW
+// floats.
+template <int NW = WARPS>
 __device__ __forceinline__ float block_sum(float v, float* red) {
   v = warp_sum(v);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float t = 0.f;
 #pragma unroll
-  for (int w = 0; w < WARPS; ++w) t += red[w];
+  for (int w = 0; w < NW; ++w) t += red[w];
   __syncthreads();
   return t;
 }
 
-// Element-wise max over the block of NVAL values, returned to every thread.
-// red: >= WARPS * NVAL floats.
-template <int NVAL>
+// Element-wise max over a block of NW warps of NVAL values, returned to
+// every thread. red: >= NW * NVAL floats.
+template <int NVAL, int NW = WARPS>
 __device__ __forceinline__ void block_max(float (&v)[NVAL], float* red) {
 #pragma unroll
   for (int i = 0; i < NVAL; ++i) {
@@ -76,7 +78,7 @@ __device__ __forceinline__ void block_max(float (&v)[NVAL], float* red) {
   for (int i = 0; i < NVAL; ++i) {
     float m = red[i];
 #pragma unroll
-    for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red[w * NVAL + i]);
+    for (int w = 1; w < NW; ++w) m = fmaxf(m, red[w * NVAL + i]);
     v[i] = m;
   }
   __syncthreads();

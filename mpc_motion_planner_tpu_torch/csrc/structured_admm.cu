@@ -14,15 +14,63 @@
 // A and A' are applied matrix-free from the differentiation matrix Dm, the
 // time parameter p, the dynamics values f_rows and the node Jacobians J.
 //
-// Layouts (see kernels/structured_admm.py): z-layout (B,400), m-layout
-// (B,488), Ldi (B,19,21,21), Lsub (B,19,3,21,21), u (B,19,21), J
-// (B,19,8,21), f_rows (B,336).
+// What bounds it on an H100: latency, not operations or bytes. The factors
+// of one problem (134 KB) fill most of an SM's shared memory, so one block
+// runs per SM, and the time of a launch is (problems / SMs) x iterations x
+// the latency of one iteration. An iteration is a chain of dependent steps:
+// the 38 block steps of the two banded sweeps, each two 21x21
+// matrix-vector products deep, between two element-wise phases. A warp runs
+// its instructions in order, a shared-memory access takes ~30 cycles to
+// return and ~4 to send off, and two warps meet in tens of cycles, so the
+// chain is made of such round trips; its arithmetic (~157 kflop per
+// iteration) and the launch's device memory traffic (one load, one store)
+// are far from the card's limits.
+//
+// What the design does about it:
+// * Lane r of a chain warp owns row r of a block step. Only the distance-1
+//   term L[k,k-1] y_{k-1} and the Ldi_k product are on the chain. The
+//   distance-2 and distance-3 terms of a step are formed a step ahead by
+//   two helper warps from the y (or x) the chain has just published, and
+//   the chain subtracts them as two ready vectors.
+// * Two chain warps take the steps in turn. While one computes, the other
+//   loads the two blocks of its next step into registers, so no block load
+//   is on the chain: a step reads two 21-vectors (the published result of
+//   the step before, and its own intermediate vector passed through shared
+//   memory) with six 16-byte loads each, fenced so that they are sent off
+//   back to back and their latency is paid once.
+// * All sweep warps meet once per block step at a named barrier; the other
+//   warps of the block do not take part.
+// * A fifth warp reduces u.rhs and the p row of rhs during the forward
+//   sweep, so the arrow correction z_p is known before the backward sweep
+//   delivers its first node; it then turns each delivered node x_k into
+//   xt_k and D xt_k while the chain goes on.
+// * All z-layout vectors live in shared memory in node-major order
+//   (element n*21 + c, then p), permuted on load and store only, so the
+//   sweeps, A and A' address them without per-element index arithmetic.
+//   Each of the 512 threads owns one z element and one constraint row for
+//   the whole launch and computes their places in A and A' once.
+// * rhs's element-wise part and E (rc zc - yc) are formed in the update
+//   phase of the iteration before, by the thread that owns the element. An
+//   iteration without a check has three block-wide barriers.
+//
+// Global layouts (see kernels/structured_admm.py): z-layout (B,400),
+// m-layout (B,488), Ldi (B,19,21,21), Lsub (B,19,3,21,21), u (B,19,21), J
+// (B,19,8,21), f_rows (B,336). Ldi is lower triangular and stored full: a
+// chain warp runs one multiply-add per column for all rows at once, so
+// the zero half costs no time, and shared memory is not what limits the
+// block.
 
 #include "common.cuh"
 
 using namespace mpc;
 
 namespace {
+
+constexpr int NT = 512;                  // threads: one per z element and per row
+constexpr int NWARP = NT / 32;
+constexpr int NB = N * BLK;              // 399 banded variables; element NB is p
+constexpr int VPAD = 24;                 // a node's 21 values in a 16-byte aligned row
+static_assert(NT >= NM && NT >= NV, "one thread per z element and per row");
 
 struct Params {
   float Dm[KL * KL];  // Dm[k*4 + j]
@@ -44,24 +92,33 @@ struct Ptrs {
 constexpr int NPTRS = 33;
 static_assert(sizeof(Ptrs) == NPTRS * sizeof(void*), "pointer block layout");
 
+// z vectors are node-major here: element e = n*21 + c for e < NB, then p.
 struct Smem {
   float Ldi[N * BLK2];
   float Lsub[N * BW * BLK2];
-  float u[N * BLK];
+  float u[NB];
   float J[N * NG * BLK];
   float fseg[NEQ];
   float qs[NV], Ps[NV], rx[NV], lxs[NV], uxs[NV], thx[NV], D[NV];
   float rc[NM], lcs[NM], ucs[NM], E[NM], thr[NM];
   float x[NV], zx[NV], yx[NV];
   float zc[NM], yc[NM];
-  float va[NV], vb[NV];  // z-layout scratch
-  float wa[NM], wb[NM];  // m-layout scratch
-  float nm1[N * BLK], nm2[N * BLK];  // node-major scratch for the sweeps
-  float tmp[32];
-  float red[WARPS * 8];
+  float t0[NV];                      // sigma x - qs + rx zx - yx
+  float wa[NM];                      // E (rc zc - yc)
+  float rhs[NV];
+  // results of the forward and the backward sweep, node n at n*VPAD
+  alignas(16) float ys[N * VPAD];
+  alignas(16) float xs[N * VPAD];
+  alignas(16) float tb[VPAD];        // the chain's intermediate vector
+  float a2[NB], a3[NB];              // distance-2 and -3 terms of the step ahead
+  float xt[NV], dx[NV];              // M^-1 rhs and D xt
+  float wb[NM], wc[NM];              // scratch of the check
+  float red[NWARP * 4];
+  float Dm[KL * KL];
   float p, s;
   int done;
 };
+static_assert(sizeof(Smem) <= 232448, "shared memory of one block");
 
 __device__ __forceinline__ float ftz(float v) {
   return clampf(fabsf(v) < 1e-30f ? 0.f : v, -1e15f, 1e15f);
@@ -74,176 +131,303 @@ __device__ __forceinline__ float soft_update(float za, float y, float r, float l
   return ftz(v - clampf(v - box, -t, t));
 }
 
-// out = A_raw v (m-layout) for z-layout v
-__device__ void apply_A(const Smem& sm, const Params& P, const float* v, float* out) {
-  for (int i = threadIdx.x; i < NM; i += THREADS) {
-    float val;
-    if (i < NEQ) {
-      int row = i / NX, ci = i % NX;
-      int s = row / KL, k = row % KL;
-      float dx = 0.f;
-#pragma unroll
-      for (int j = 0; j < KL; ++j) dx += P.Dm[k * KL + j] * v[((KL - 1) * s + j) * NX + ci];
-      int n = (KL - 1) * s + k;
-      float flin = ci < NQ ? v[n * NX + ci + NQ] : v[UOFF + n * NU + (ci - NQ)];
-      val = dx - sm.p * flin - sm.fseg[i] * v[NV - 1];
-    } else {
-      int g = i - NEQ, n = g / NG, r = g % NG;
-      const float* Jr = sm.J + (n * NG + r) * BLK;
-      float acc = 0.f;
-#pragma unroll 7
-      for (int c = 0; c < BLK; ++c) acc += Jr[c] * v[zidx(n, c)];
-      val = acc;
-    }
-    out[i] = val;
-  }
+// ---- 21-vectors in registers ----
+
+// A padded row (VPAD floats, 16-byte aligned) into registers, the same for
+// every lane. A warp runs its instructions in order, so a product placed
+// between two loads stalls the second load for the latency of the first; the
+// fence keeps the compiler from sinking the six loads to their first uses,
+// so they are sent off back to back and their latency is paid once.
+__device__ __forceinline__ void load_vec(float (&v)[VPAD], const float* p) {
+  static_assert(VPAD == 24, "six 16-byte loads");
+  asm volatile(
+      "ld.shared.v4.f32 {%0, %1, %2, %3}, [%24+0];\n"
+      "ld.shared.v4.f32 {%4, %5, %6, %7}, [%24+16];\n"
+      "ld.shared.v4.f32 {%8, %9, %10, %11}, [%24+32];\n"
+      "ld.shared.v4.f32 {%12, %13, %14, %15}, [%24+48];\n"
+      "ld.shared.v4.f32 {%16, %17, %18, %19}, [%24+64];\n"
+      "ld.shared.v4.f32 {%20, %21, %22, %23}, [%24+80];\n"
+      : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]), "=f"(v[4]), "=f"(v[5]), "=f"(v[6]),
+        "=f"(v[7]), "=f"(v[8]), "=f"(v[9]), "=f"(v[10]), "=f"(v[11]), "=f"(v[12]), "=f"(v[13]),
+        "=f"(v[14]), "=f"(v[15]), "=f"(v[16]), "=f"(v[17]), "=f"(v[18]), "=f"(v[19]),
+        "=f"(v[20]), "=f"(v[21]), "=f"(v[22]), "=f"(v[23])
+      : "r"((unsigned)__cvta_generic_to_shared(p))
+      : "memory");
+  asm volatile("membar.cta;" ::: "memory");
 }
 
-// out = A_raw' w (z-layout) for m-layout w. Ends with a __syncthreads.
-__device__ void apply_AT(Smem& sm, const Params& P, const float* w, float* out) {
-  for (int j = threadIdx.x; j < NV - 1; j += THREADS) {
-    int n, c;
-    if (j < UOFF) { n = j / NX; c = j % NX; }
-    else { n = (j - UOFF) / NU; c = NX + (j - UOFF) % NU; }
-    // covering (segment, local node) pairs of node n
-    int ns = 1, s0, l0, s1 = 0, l1 = 0;
-    if (n == 0) { s0 = 0; l0 = 0; }
-    else if (n == N - 1) { s0 = SEG - 1; l0 = KL - 1; }
-    else if (n % 3 == 0) { s0 = n / 3 - 1; l0 = KL - 1; s1 = n / 3; l1 = 0; ns = 2; }
-    else { s0 = n / 3; l0 = n % 3; }
-    float val = 0.f;
-    for (int q = 0; q < ns; ++q) {
-      int s = q ? s1 : s0, l = q ? l1 : l0;
-      const float* we = w + s * KL * NX;
-      if (c < NX) {
+// sum_i M[i] v[i] in three partial sums
+__device__ __forceinline__ float dot21(const float (&M)[BLK], const float (&v)[VPAD]) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < BLK; i += 3) {
+    s0 += M[i] * v[i];
+    s1 += M[i + 1] * v[i + 1];
+    s2 += M[i + 2] * v[i + 2];
+  }
+  return (s0 + s1) + s2;
+}
+
+// ---- A and A' on node-major vectors, places computed once per thread ----
+
+// One z element's place in A': its component c, its index z in the
+// z-layout, the covering (segment, local node) pairs as (56 s, l), and its
+// node's J and g offsets.
+struct ZElem {
+  int c, z, ncov, sb0, l0, sb1, l1, jb, gb;
+};
+
+__device__ __forceinline__ ZElem make_zelem(int e) {
+  ZElem z;
+  z.c = z.ncov = z.sb0 = z.l0 = z.sb1 = z.l1 = z.jb = z.gb = 0;
+  z.z = e;
+  if (e >= NB) return z;
+  const int n = e / BLK;
+  z.c = e % BLK;
+  z.z = zidx(n, z.c);
+  z.ncov = 1;
+  if (n == 0) { z.sb0 = 0; z.l0 = 0; }
+  else if (n == N - 1) { z.sb0 = (SEG - 1) * KL * NX; z.l0 = KL - 1; }
+  else if (n % 3 == 0) {
+    z.sb0 = (n / 3 - 1) * KL * NX; z.l0 = KL - 1;
+    z.sb1 = (n / 3) * KL * NX; z.l1 = 0;
+    z.ncov = 2;
+  } else { z.sb0 = (n / 3) * KL * NX; z.l0 = n % 3; }
+  z.jb = n * NG * BLK + z.c;
+  z.gb = NEQ + n * NG;
+  return z;
+}
+
+// (A' w)[e] for e < NB
+__device__ __forceinline__ float at_elem(const Smem& sm, const float* w, const ZElem& z) {
+  float val = 0.f;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    if (q < z.ncov) {
+      const int sb = q ? z.sb1 : z.sb0, l = q ? z.l1 : z.l0;
+      if (z.c < NX) {
         float t = 0.f;
 #pragma unroll
-        for (int k = 0; k < KL; ++k) t += P.Dm[k * KL + l] * we[k * NX + c];
+        for (int k = 0; k < KL; ++k) t += sm.Dm[k * KL + l] * w[sb + k * NX + z.c];
         val += t;
-        if (c >= NQ) val -= sm.p * we[l * NX + (c - NQ)];
-      } else {
-        val -= sm.p * we[l * NX + NQ + (c - NX)];
       }
+      if (z.c >= NQ) val -= sm.p * w[sb + l * NX + z.c - NQ];
     }
-    const float* wg = w + NEQ + n * NG;
-    float acc = 0.f;
+  }
+  float acc = 0.f;
 #pragma unroll
-    for (int r = 0; r < NG; ++r) acc += sm.J[(n * NG + r) * BLK + c] * wg[r];
-    out[j] = val + acc;
-  }
-  float part = 0.f;
-  for (int e = threadIdx.x; e < NEQ; e += THREADS) part += sm.fseg[e] * w[e];
-  float tot = block_sum(part, sm.red);
-  if (threadIdx.x == 0) out[NV - 1] = -tot;
-  __syncthreads();
+  for (int r = 0; r < NG; ++r) acc += sm.J[z.jb + r * BLK] * w[z.gb + r];
+  return val + acc;
 }
 
-// out = M^-1 rhs (z-layout, out != rhs). Ends with a __syncthreads.
-__device__ void solve_arrow(Smem& sm, const float* rhs, float* out) {
-  float part = 0.f;
-  for (int e = threadIdx.x; e < N * BLK; e += THREADS) {
-    float r = rhs[zidx(e / BLK, e % BLK)];
-    sm.nm1[e] = r;
-    part += sm.u[e] * r;
+// One constraint row's place in A: a defect row (base = the element of its
+// segment's first node and component, k its local node) or a
+// node-constraint row (base = its J row, k = its node's first element).
+struct MRow {
+  int base, k;
+};
+
+__device__ __forceinline__ MRow make_mrow(int i) {
+  MRow r;
+  r.base = r.k = 0;
+  if (i < NEQ) {
+    r.base = (KL - 1) * (i / (KL * NX)) * BLK + i % NX;
+    r.k = (i % (KL * NX)) / NX;
+  } else if (i < NM) {
+    r.base = (i - NEQ) * BLK;
+    r.k = ((i - NEQ) / NG) * BLK;
   }
-  float ur = block_sum(part, sm.red);  // syncs: nm1 is complete
-  if (threadIdx.x < 32) {
-    const int r = threadIdx.x;
-    // forward: y_k = Ldi_k (rb_k - sum_d L[k,k-d] y_{k-d}) into nm2
-    for (int k = 0; k < N; ++k) {
-      float acc = r < BLK ? sm.nm1[k * BLK + r] : 0.f;
-      for (int d = 1; d <= min(BW, k); ++d) {
-        const float* L = sm.Lsub + ((k - d) * BW + d - 1) * BLK2 + r * BLK;
-        const float* y = sm.nm2 + (k - d) * BLK;
-        float s = 0.f;
-        if (r < BLK)
-#pragma unroll 7
-          for (int c = 0; c < BLK; ++c) s += L[c] * y[c];
-        acc -= s;
-      }
-      sm.tmp[r] = acc;
-      __syncwarp();
-      if (r < BLK) {
-        const float* Ld = sm.Ldi + k * BLK2 + r * BLK;
-        float s = 0.f;
-#pragma unroll 7
-        for (int c = 0; c < BLK; ++c) s += Ld[c] * sm.tmp[c];
-        sm.nm2[k * BLK + r] = s;
-      }
-      __syncwarp();
+  return r;
+}
+
+// (A v)[i] for a node-major v, i < NM
+__device__ __forceinline__ float a_row(const Smem& sm, const float* v, int i, const MRow& r) {
+  if (i < NEQ) {
+    float dxv = 0.f;
+#pragma unroll
+    for (int j = 0; j < KL; ++j) dxv += sm.Dm[r.k * KL + j] * v[r.base + j * BLK];
+    return dxv - sm.p * v[r.base + r.k * BLK + NQ] - sm.fseg[i] * v[NB];
+  }
+  const float* Jr = sm.J + r.base;
+  const float* vn = v + r.k;
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int c = 0; c < BLK; c += 3) {
+    s0 += Jr[c] * vn[c];
+    s1 += Jr[c + 1] * vn[c + 1];
+    s2 += Jr[c + 2] * vn[c + 2];
+  }
+  return (s0 + s1) + s2;
+}
+
+// ---- the sweeps: two chain warps, two helper warps, finishing warp ----
+
+constexpr int CHAIN_WARPS = 2;  // chain warps that take the block steps in turn
+constexpr int SWEEP_WARPS = CHAIN_WARPS + 3;  // chain, two helpers, finisher
+static_assert(NWARP >= SWEEP_WARPS, "too few warps for the sweeps");
+constexpr int BAR_FWD = 1, BAR_BWD = 2;
+// the finishing warp joins the barriers of the backward sweep only
+constexpr int FWD_THREADS = 32 * (SWEEP_WARPS - 1), BWD_THREADS = 32 * SWEEP_WARPS;
+
+template <bool FWD>
+__device__ __forceinline__ void sweep_barrier() {
+  if (FWD) asm volatile("bar.sync %0, %1;" ::"n"(BAR_FWD), "n"(FWD_THREADS) : "memory");
+  else asm volatile("bar.sync %0, %1;" ::"n"(BAR_BWD), "n"(BWD_THREADS) : "memory");
+}
+
+__device__ __forceinline__ void warp_barrier() {
+  asm volatile("bar.warp.sync 0xffffffff;" ::: "memory");
+}
+
+// Row rr of a block (forward) or column rr (backward, the transposed product)
+template <bool FWD>
+__device__ __forceinline__ void load_block(float (&M)[BLK], const float* blk, int rr) {
+#pragma unroll
+  for (int i = 0; i < BLK; ++i) M[i] = FWD ? blk[rr * BLK + i] : blk[i * BLK + rr];
+}
+
+// Step t of a sweep works on node k: forward k = t, backward k = N-1-t.
+template <bool FWD>
+__device__ __forceinline__ int node_of(int t) { return FWD ? t : N - 1 - t; }
+
+// The chain's blocks and right-hand side of step t, into registers.
+template <bool FWD>
+__device__ __forceinline__ void chain_fetch(const Smem& sm, int t, int rr, float (&L)[BLK],
+                                            float (&Dg)[BLK], float& v) {
+  const int k = node_of<FWD>(t);
+  if (t >= 1) load_block<FWD>(L, sm.Lsub + ((FWD ? k - 1 : k) * BW) * BLK2, rr);
+  load_block<FWD>(Dg, sm.Ldi + k * BLK2, rr);
+  v = FWD ? sm.rhs[k * BLK + rr] : sm.ys[k * VPAD + rr];
+}
+
+// y_k = Ldi_k (r_k - L[k,k-1] y_{k-1} - a2_k - a3_k) for k = 0..N-1
+// (forward), and the same with transposed blocks and x_{k+1} for k = N-1..0
+// (backward). Lane r owns row r. The chain warps take the steps in turn:
+// the warp whose turn it is reads the vector of the step before as it was
+// published, passes its own intermediate vector through tb and publishes
+// the step's result; the others fetch the blocks of their next step
+// meanwhile.
+template <bool FWD>
+__device__ __forceinline__ void chain_sweep(Smem& sm, int lane, int turn) {
+  const int rr = min(lane, BLK - 1);
+  float* pub = FWD ? sm.ys : sm.xs;
+  float L[BLK], Dg[BLK], vec[VPAD], v;
+  chain_fetch<FWD>(sm, turn, rr, L, Dg, v);
+  for (int t = 0; t < N; ++t) {
+    if (t % CHAIN_WARPS != turn) {
+      sweep_barrier<FWD>();
+      continue;
     }
-    // backward: x_k = Ldi_k' (y_k - sum_d L[k+d,k]' x_{k+d}) into nm1
-    for (int k = N - 1; k >= 0; --k) {
-      float acc = r < BLK ? sm.nm2[k * BLK + r] : 0.f;
-      for (int d = 1; d <= min(BW, N - 1 - k); ++d) {
-        const float* L = sm.Lsub + (k * BW + d - 1) * BLK2 + r;
-        const float* x = sm.nm1 + (k + d) * BLK;
-        float s = 0.f;
-        if (r < BLK)
-#pragma unroll 7
-          for (int c = 0; c < BLK; ++c) s += L[c * BLK] * x[c];
-        acc -= s;
-      }
-      sm.tmp[r] = acc;
-      __syncwarp();
-      if (r < BLK) {
-        const float* Ld = sm.Ldi + k * BLK2 + r;
-        float s = 0.f;
-#pragma unroll 7
-        for (int c = 0; c < BLK; ++c) s += Ld[c * BLK] * sm.tmp[c];
-        sm.nm1[k * BLK + r] = s;
-      }
-      __syncwarp();
+    const int k = node_of<FWD>(t);
+    float acc = v;
+    if (t >= 1) {
+      // the ready terms are loaded ahead of the vector's fence
+      const float a2 = t >= 2 ? sm.a2[k * BLK + rr] : 0.f;
+      const float a3 = t >= 3 ? sm.a3[k * BLK + rr] : 0.f;
+      load_vec(vec, pub + node_of<FWD>(t - 1) * VPAD);
+      // distances 1, 2, 3 in turn, the order of the plain solve
+      acc = ((v - dot21(L, vec)) - a2) - a3;
+    }
+    if (lane < BLK) sm.tb[lane] = acc;
+    warp_barrier();
+    load_vec(vec, sm.tb);
+    const float out = dot21(Dg, vec);
+    if (lane < BLK) pub[k * VPAD + lane] = out;
+    sweep_barrier<FWD>();
+    if (t + CHAIN_WARPS < N) chain_fetch<FWD>(sm, t + CHAIN_WARPS, rr, L, Dg, v);
+  }
+}
+
+// After the chain publishes node k at step t, the helper of distance DIST
+// forms that node's term of the step DIST ahead: L[k+DIST,k] y_k (forward),
+// L[k,k-DIST]' x_k (backward).
+template <bool FWD, int DIST>
+__device__ __forceinline__ void helper_sweep(Smem& sm, int lane) {
+  const int rr = min(lane, BLK - 1);
+  float* out = DIST == 2 ? sm.a2 : sm.a3;
+  const float* pub = FWD ? sm.ys : sm.xs;
+  float M[BLK], vec[VPAD];
+  for (int t = 0; t < N; ++t) {
+    const int k = node_of<FWD>(t);
+    const bool live = t + DIST < N;
+    if (live) load_block<FWD>(M, sm.Lsub + ((FWD ? k : k - DIST) * BW + DIST - 1) * BLK2, rr);
+    sweep_barrier<FWD>();
+    if (live) {
+      load_vec(vec, pub + k * VPAD);
+      float s = dot21(M, vec);
+      if (lane < BLK) out[node_of<FWD>(t + DIST) * BLK + lane] = s;
     }
   }
-  __syncthreads();
-  float zp = (rhs[NV - 1] - ur) / sm.s;
-  for (int e = threadIdx.x; e < N * BLK; e += THREADS)
-    out[zidx(e / BLK, e % BLK)] = sm.nm1[e] - sm.u[e] * zp;
-  if (threadIdx.x == 0) out[NV - 1] = zp;
-  __syncthreads();
+}
+
+// The arrow: z_p = (rhs_p - u.rhs) / s with rhs_p = t0_p - D_p (f.wa), found
+// while the forward sweep runs; then xt_k = x_k - u_k z_p and D xt_k for
+// each node the backward sweep delivers.
+__device__ __forceinline__ void finish_sweep(Smem& sm, int lane) {
+  float pu = 0.f, pf = 0.f;
+  for (int e = lane; e < NB; e += 32) pu += sm.u[e] * sm.rhs[e];
+  for (int i = lane; i < NEQ; i += 32) pf += sm.fseg[i] * sm.wa[i];
+  pu = warp_sum(pu);
+  pf = warp_sum(pf);
+  const float zp = ((sm.t0[NB] - sm.D[NB] * pf) - pu) / sm.s;
+  if (lane == 0) {
+    sm.xt[NB] = zp;
+    sm.dx[NB] = sm.D[NB] * zp;
+  }
+  for (int t = 0; t < N; ++t) {
+    sweep_barrier<false>();
+    if (lane < BLK) {
+      const int k = node_of<false>(t), e = k * BLK + lane;
+      float v = sm.xs[k * VPAD + lane] - sm.u[e] * zp;
+      sm.xt[e] = v;
+      sm.dx[e] = sm.D[e] * v;
+    }
+  }
 }
 
 template <int LEN>
-__device__ __forceinline__ void load(float* dst, const float* src) {
-  for (int e = threadIdx.x; e < LEN; e += THREADS) dst[e] = src[e];
+__device__ __forceinline__ void copy(float* dst, const float* src) {
+  for (int e = threadIdx.x; e < LEN; e += NT) dst[e] = src[e];
 }
 
-template <int LEN>
-__device__ __forceinline__ void store(float* dst, const float* src) {
-  for (int e = threadIdx.x; e < LEN; e += THREADS) dst[e] = src[e];
-}
-
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(NT)
 structured_admm_kernel(Params P, Ptrs g) {
-  extern __shared__ float smem_raw[];
+  extern __shared__ float4 smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t zo = (size_t)b * NV, mo = (size_t)b * NM;
+  // this thread's z element and constraint row, for the whole launch
+  const bool has_z = tid < NV, has_row = tid < NM;
+  const ZElem ze = make_zelem(tid);
+  const MRow mr = make_mrow(tid);
 
-  load<N * BLK2>(sm.Ldi, g.Ldi + (size_t)b * N * BLK2);
-  load<N * BW * BLK2>(sm.Lsub, g.Lsub + (size_t)b * N * BW * BLK2);
-  load<N * BLK>(sm.u, g.u + (size_t)b * N * BLK);
-  load<N * NG * BLK>(sm.J, g.J + (size_t)b * N * NG * BLK);
-  load<NEQ>(sm.fseg, g.f_rows + (size_t)b * NEQ);
-  load<NV>(sm.qs, g.qs + zo);
-  load<NV>(sm.Ps, g.Ps + zo);
-  load<NV>(sm.rx, g.rx + zo);
-  load<NV>(sm.lxs, g.lxs + zo);
-  load<NV>(sm.uxs, g.uxs + zo);
-  load<NV>(sm.thx, g.thx + zo);
-  load<NV>(sm.D, g.D + zo);
-  load<NV>(sm.x, g.x0 + zo);
-  load<NV>(sm.zx, g.zx0 + zo);
-  load<NV>(sm.yx, g.yx0 + zo);
-  load<NM>(sm.rc, g.rc + mo);
-  load<NM>(sm.lcs, g.lcs + mo);
-  load<NM>(sm.ucs, g.ucs + mo);
-  load<NM>(sm.E, g.E + mo);
-  load<NM>(sm.thr, g.thr + mo);
-  load<NM>(sm.zc, g.zc0 + mo);
-  load<NM>(sm.yc, g.yc0 + mo);
+  copy<N * BLK2>(sm.Ldi, g.Ldi + (size_t)b * N * BLK2);
+  copy<N * BW * BLK2>(sm.Lsub, g.Lsub + (size_t)b * N * BW * BLK2);
+  copy<NB>(sm.u, g.u + (size_t)b * NB);
+  copy<N * NG * BLK>(sm.J, g.J + (size_t)b * N * NG * BLK);
+  copy<NEQ>(sm.fseg, g.f_rows + (size_t)b * NEQ);
+  if (has_z) {
+    const size_t j = zo + ze.z;
+    sm.qs[tid] = g.qs[j];
+    sm.Ps[tid] = g.Ps[j];
+    sm.rx[tid] = g.rx[j];
+    sm.lxs[tid] = g.lxs[j];
+    sm.uxs[tid] = g.uxs[j];
+    sm.thx[tid] = g.thx[j];
+    sm.D[tid] = g.D[j];
+    sm.x[tid] = g.x0[j];
+    sm.zx[tid] = g.zx0[j];
+    sm.yx[tid] = g.yx0[j];
+  }
+  copy<NM>(sm.rc, g.rc + mo);
+  copy<NM>(sm.lcs, g.lcs + mo);
+  copy<NM>(sm.ucs, g.ucs + mo);
+  copy<NM>(sm.E, g.E + mo);
+  copy<NM>(sm.thr, g.thr + mo);
+  copy<NM>(sm.zc, g.zc0 + mo);
+  copy<NM>(sm.yc, g.yc0 + mo);
+  if (tid < KL * KL) sm.Dm[tid] = P.Dm[tid];
   if (tid == 0) {
     sm.p = g.p[b];
     sm.s = g.s[b];
@@ -252,68 +436,90 @@ structured_admm_kernel(Params P, Ptrs g) {
   __syncthreads();
 
   const float alpha = P.alpha, sigma = P.sigma;
+  if (has_z) sm.t0[tid] = sigma * sm.x[tid] - sm.qs[tid] + sm.rx[tid] * sm.zx[tid] - sm.yx[tid];
+  if (has_row) sm.wa[tid] = sm.E[tid] * (sm.rc[tid] * sm.zc[tid] - sm.yc[tid]);
+  __syncthreads();
+
   float rp = 0.f, rd = 0.f;
   int k = 0;
   while (k < P.cap && sm.done == 0) {
-    // ---- rhs = sigma x - qs + rx zx - yx + D A'(E (rc zc - yc)) ----
-    for (int i = tid; i < NM; i += THREADS) sm.wa[i] = sm.E[i] * (sm.rc[i] * sm.zc[i] - sm.yc[i]);
-    __syncthreads();
-    apply_AT(sm, P, sm.wa, sm.va);
-    for (int j = tid; j < NV; j += THREADS)
-      sm.va[j] = sigma * sm.x[j] - sm.qs[j] + sm.rx[j] * sm.zx[j] - sm.yx[j] + sm.D[j] * sm.va[j];
+    // ---- rhs = t0 + D A' wa (the p row is the finishing warp's) ----
+    if (tid < NB) sm.rhs[tid] = sm.t0[tid] + sm.D[tid] * at_elem(sm, sm.wa, ze);
     __syncthreads();
 
-    // ---- xt = M^-1 rhs (vb); zt = E A (D xt) (wb) ----
-    solve_arrow(sm, sm.va, sm.vb);
-    for (int j = tid; j < NV; j += THREADS) sm.va[j] = sm.D[j] * sm.vb[j];
-    __syncthreads();
-    apply_A(sm, P, sm.va, sm.wb);
-    __syncthreads();
-
-    // ---- relaxed prox and dual updates ----
-    for (int j = tid; j < NV; j += THREADS) {
-      float xt = sm.vb[j];
-      sm.x[j] = ftz(alpha * xt + (1.f - alpha) * sm.x[j]);
-      float za = alpha * xt + (1.f - alpha) * sm.zx[j];
-      float zn = soft_update(za, sm.yx[j], sm.rx[j], sm.lxs[j], sm.uxs[j], sm.thx[j]);
-      sm.yx[j] = ftz(sm.yx[j] + sm.rx[j] * (za - zn));
-      sm.zx[j] = zn;
+    // ---- xt = M^-1 rhs and dx = D xt ----
+    if (warp < CHAIN_WARPS) {
+      chain_sweep<true>(sm, lane, warp);
+      chain_sweep<false>(sm, lane, warp);
+    } else if (warp == CHAIN_WARPS) {
+      helper_sweep<true, 2>(sm, lane);
+      helper_sweep<false, 2>(sm, lane);
+    } else if (warp == CHAIN_WARPS + 1) {
+      helper_sweep<true, 3>(sm, lane);
+      helper_sweep<false, 3>(sm, lane);
+    } else if (warp == CHAIN_WARPS + 2) {
+      finish_sweep(sm, lane);
     }
-    for (int i = tid; i < NM; i += THREADS) {
-      float za = alpha * sm.E[i] * sm.wb[i] + (1.f - alpha) * sm.zc[i];
+    __syncthreads();
+
+    // ---- zt = E A dx; relaxed prox and dual updates; next t0 and wa ----
+    if (has_row) {
+      const int i = tid;
+      float za = alpha * sm.E[i] * a_row(sm, sm.dx, i, mr) + (1.f - alpha) * sm.zc[i];
       float zn = soft_update(za, sm.yc[i], sm.rc[i], sm.lcs[i], sm.ucs[i], sm.thr[i]);
-      sm.yc[i] = ftz(sm.yc[i] + sm.rc[i] * (za - zn));
+      float yn = ftz(sm.yc[i] + sm.rc[i] * (za - zn));
+      sm.yc[i] = yn;
       sm.zc[i] = zn;
+      sm.wa[i] = sm.E[i] * (sm.rc[i] * zn - yn);
     }
-    __syncthreads();
+    if (has_z) {
+      const int e = tid;
+      float xt = sm.xt[e];
+      float xn = ftz(alpha * xt + (1.f - alpha) * sm.x[e]);
+      float za = alpha * xt + (1.f - alpha) * sm.zx[e];
+      float zn = soft_update(za, sm.yx[e], sm.rx[e], sm.lxs[e], sm.uxs[e], sm.thx[e]);
+      float yn = ftz(sm.yx[e] + sm.rx[e] * (za - zn));
+      sm.x[e] = xn;
+      sm.zx[e] = zn;
+      sm.yx[e] = yn;
+      sm.t0[e] = sigma * xn - sm.qs[e] + sm.rx[e] * zn - yn;
+    }
     ++k;
+    __syncthreads();
 
     if (k % P.check_every == 0 || k >= P.cap) {
       // ---- divergence freeze (NaN-safe) and OSQP residuals ----
       bool big = false;
-      for (int j = tid; j < NV; j += THREADS) {
-        big |= !(fabsf(sm.x[j]) <= 1e12f) || !(fabsf(sm.yx[j]) <= 1e12f);
-        sm.va[j] = sm.D[j] * sm.x[j];
+      float part = 0.f;
+      if (has_z) {
+        big |= !(fabsf(sm.x[tid]) <= 1e12f) || !(fabsf(sm.yx[tid]) <= 1e12f);
+        sm.dx[tid] = sm.D[tid] * sm.x[tid];
       }
-      for (int i = tid; i < NM; i += THREADS) {
-        big |= !(fabsf(sm.yc[i]) <= 1e12f);
-        sm.wa[i] = sm.E[i] * sm.yc[i];
+      if (has_row) {
+        big |= !(fabsf(sm.yc[tid]) <= 1e12f);
+        float w = sm.E[tid] * sm.yc[tid];
+        sm.wb[tid] = w;
+        if (tid < NEQ) part = sm.fseg[tid] * w;
       }
+      float tot = block_sum<NWARP>(part, sm.red);  // syncs: dx and wb are complete
+      if (has_row) sm.wc[tid] = a_row(sm, sm.dx, tid, mr);  // A D x
+      if (tid < NB) sm.xt[tid] = at_elem(sm, sm.wb, ze);    // A' E yc
+      else if (tid == NB) sm.xt[tid] = -tot;
       __syncthreads();
-      apply_A(sm, P, sm.va, sm.wb);       // A D x
-      apply_AT(sm, P, sm.wa, sm.vb);      // A' E yc (ends with a sync)
       // m[0] r_prim, m[1] r_dual, m[2] scale_p, m[3] scale_d
       float m[4] = {0.f, 0.f, 0.f, 0.f};
       bool nan = false;
-      for (int i = tid; i < NM; i += THREADS) {
-        float e = sm.E[i], ax = e * sm.wb[i];
+      if (has_row) {
+        const int i = tid;
+        float e = sm.E[i], ax = e * sm.wc[i];
         float t0 = fabsf((ax - sm.zc[i]) / e), t1 = fabsf(ax / e), t2 = fabsf(sm.zc[i] / e);
         nan |= isnan(t0) || isnan(t1) || isnan(t2);
         m[0] = fmaxf(m[0], t0);
         m[2] = fmaxf(m[2], fmaxf(t1, t2));
       }
-      for (int j = tid; j < NV; j += THREADS) {
-        float d = sm.D[j], x = sm.x[j], aty = d * sm.vb[j];
+      if (has_z) {
+        const int j = tid;
+        float d = sm.D[j], x = sm.x[j], aty = d * sm.xt[j];
         float t0 = fabsf(d * (x - sm.zx[j]));
         float t1 = fabsf((sm.Ps[j] * x + sm.qs[j] + aty + sm.yx[j]) / d);
         float t2 = fmaxf(fabsf(d * x), fabsf(d * sm.zx[j]));
@@ -325,7 +531,7 @@ structured_admm_kernel(Params P, Ptrs g) {
         m[2] = fmaxf(m[2], t2);
         m[3] = fmaxf(m[3], t3);
       }
-      block_max<4>(m, sm.red);
+      block_max<4, NWARP>(m, sm.red);
       bool any_big = block_any(big);
       bool any_nan = block_any(nan);
       rp = m[0];
@@ -337,11 +543,16 @@ structured_admm_kernel(Params P, Ptrs g) {
     }
   }
 
-  store<NV>(g.x + zo, sm.x);
-  store<NV>(g.zx + zo, sm.zx);
-  store<NV>(g.yx + zo, sm.yx);
-  store<NM>(g.zc + mo, sm.zc);
-  store<NM>(g.yc + mo, sm.yc);
+  if (has_z) {
+    const size_t j = zo + ze.z;
+    g.x[j] = sm.x[tid];
+    g.zx[j] = sm.zx[tid];
+    g.yx[j] = sm.yx[tid];
+  }
+  if (has_row) {
+    g.zc[mo + tid] = sm.zc[tid];
+    g.yc[mo + tid] = sm.yc[tid];
+  }
   if (tid == 0) {
     g.done[b] = sm.done;
     g.iters[b] = k;
@@ -351,6 +562,17 @@ structured_admm_kernel(Params P, Ptrs g) {
 }
 
 }  // namespace
+
+// Blocks of the kernel that one SM holds at a time (negative: a CUDA error).
+extern "C" int mpc_structured_admm_blocks_per_sm() {
+  const int smem = (int)sizeof(Smem);
+  cudaError_t err = cudaFuncSetAttribute(structured_admm_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, structured_admm_kernel, NT, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
 
 // ptrs: the NPTRS pointers of struct Ptrs, in its order; Dm: 16 floats.
 extern "C" int mpc_structured_admm(void* const* ptrs, const float* Dm, float sigma, float alpha,
@@ -371,6 +593,6 @@ extern "C" int mpc_structured_admm(void* const* ptrs, const float* Dm, float sig
   cudaError_t err = cudaFuncSetAttribute(structured_admm_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  structured_admm_kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(P, g);
+  structured_admm_kernel<<<B, NT, smem, static_cast<cudaStream_t>(stream)>>>(P, g);
   return (int)cudaGetLastError();
 }

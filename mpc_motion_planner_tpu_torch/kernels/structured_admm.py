@@ -8,20 +8,31 @@ Replaces ``mpc_motion_planner_tpu/ops/pallas/structured_admm.py``
 soft-row thresholds, the factorization (kernel 2) with its ok-flag repair,
 and the un-scaling.
 
-What bounds it on this card: the per-iteration dependency chain. Each
-iteration is ~157k flops per problem, 85% of them in the two banded
-triangular sweeps, which are 38 dependent 21x21 block steps. The factors
-are 134 KB per problem, so reading them from device memory would move
-275 MB per iteration at B=2048. Design: one problem per 256-thread block runs the whole iteration budget in
-one launch with its factors, operator data and iterates resident in shared
-memory (~190 KB, one block per SM), so the loop touches device memory only
-to load and to store. The element-wise parts and the matrix-free A / A'
-applies use all threads; the sweeps run in one warp (lane r owns row r of
-a block, so a block step needs only ``__syncwarp``). Each block stops at
-its own ``done``: the TPU kernel's lane-group exit, chunk schedules and
-compaction existed because 128 problems shared a program, and are not
-needed here; the iteration budgets, the check rule, the done codes and the
-iteration counts are kept.
+What bounds it on this card: latency. Each iteration is ~157k flops per
+problem, 85% of them in the two banded triangular sweeps, and the factors
+are 134 KB per problem: reading them from device memory would move 275 MB
+per iteration at B=2048, so one problem per 512-thread block runs the whole
+iteration budget in one launch with its factors, operator data and iterates
+resident in shared memory (~198 KB, one block per SM) and touches device
+memory only to load and to store. With one block per SM, a launch takes
+(problems / SMs) x iterations x the latency of one iteration, and an
+iteration is a chain of 38 dependent block steps, each two 21x21
+matrix-vector products deep. Design (``csrc/structured_admm.cu`` has the
+details): only the distance-1 term and the ``Ldi`` product of a block step
+are on the chain; the distance-2 and -3 terms are formed a step ahead by
+two helper warps; two chain warps take the steps in turn so that the blocks
+of a step are in registers before its turn comes; a fifth warp finds the
+arrow correction during the forward sweep and finishes each node the
+backward sweep delivers; the z-layout vectors are node-major in shared
+memory, each thread owns one z element and one constraint row and computes
+their places in A and A' once; an iteration without a check has three
+block-wide barriers. A block step subtracts its terms in the plain solve's
+order (distances 1, 2, 3) and takes every 21-long row sum in three partial
+sums; ``ops.qp_structured.banded_solve_lookahead`` states the schedule and
+the order in plain PyTorch. Each block stops at its own ``done``: the TPU kernel's
+lane-group exit, chunk schedules and compaction existed because 128
+problems shared a program, and are not needed here; the iteration budgets,
+the check rule, the done codes and the iteration counts are kept.
 
 The plain version is ``ops.qp_structured.solve_box_qp_structured`` (the
 same semantics in batched PyTorch); :func:`solve_box_qp_structured` takes
@@ -93,6 +104,17 @@ def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings:
         settings.eps_rel, cap, settings.check_every, B,
     )
     return x, zc, zx, yc, yx, done, iters, rp, rd
+
+
+def blocks_per_sm() -> int:
+    """How many blocks of kernel 3 one SM holds at a time, from the CUDA
+    occupancy calculator (1: the block's shared memory takes the SM)."""
+    fn = ctypes.CDLL(str(KERNEL.build())).mpc_structured_admm_blocks_per_sm
+    fn.restype = ctypes.c_int
+    blocks = fn()
+    if blocks <= 0:
+        raise RuntimeError(f"kernel 3 occupancy query failed: CUDA error {-blocks}")
+    return blocks
 
 
 def _check_geometry(ocp):

@@ -286,6 +286,52 @@ def banded_solve(Ldi, Lsub, r):
     return torch.stack(xs, dim=1)
 
 
+def _mv_thirds(M, v):
+    """M v with each row's sum taken as kernel 3 takes it: three partial
+    sums over the columns i = j, j + 3, ..., added as (s0 + s1) + s2."""
+    s = [_mv(M[..., j::3], v[..., j::3]) for j in range(3)]
+    return (s[0] + s[1]) + s[2]
+
+
+def banded_solve_lookahead(Ldi, Lsub, r, thirds: bool = True):
+    """:func:`banded_solve` in kernel 3's schedule and order of sums, for
+    tests and the GPU smoke check.
+
+    As soon as a sweep knows the vector of node k it forms that node's
+    terms of the steps two and three ahead, ``L[k+d,k] y_k`` (forward) and
+    ``L[k,k-d]' x_k`` (backward), d = 2..bw; a step then subtracts the
+    distance-1 term, which alone waits for the step before, and the ready
+    terms in the order of their distance. That is the order of
+    :func:`banded_solve`, so with ``thirds=False`` the two agree bitwise;
+    with ``thirds`` every 21-long row sum is taken in three partial sums as
+    the kernel takes it."""
+    N = r.shape[1]
+    bw = Lsub.shape[2]
+    mv = _mv_thirds if thirds else _mv
+
+    def sweep(rhs, forward):
+        mul = mv if forward else (lambda M, v: mv(M.transpose(-1, -2), v))
+        out = [None] * N
+        ahead = {}  # (d, node) -> the term of distance d that node will subtract
+        for t in range(N):
+            k = t if forward else N - 1 - t
+            acc = rhs[k]
+            if t >= 1:
+                prev = k - 1 if forward else k + 1
+                acc = acc - mul(Lsub[:, min(k, prev), 0], out[prev])
+            for d in range(2, min(bw, t) + 1):
+                acc = acc - ahead.pop((d, k))
+            out[k] = mul(Ldi[:, k], acc)
+            for d in range(2, bw + 1):
+                if t + d < N:
+                    j = k + d if forward else k - d
+                    ahead[d, j] = mul(Lsub[:, min(k, j), d - 1], out[k])
+        return out
+
+    ys = sweep([r[:, k] for k in range(N)], True)
+    return torch.stack(sweep(ys, False), dim=1)
+
+
 def factor_banded(Mband, p_col, m_pp, bw: int):
     """Block-banded Cholesky + rank-1 arrow Schur complement (the plain
     version of kernel 2), with the diagonal jitter retry for problems whose
@@ -324,10 +370,11 @@ def factor_banded(Mband, p_col, m_pp, bw: int):
     return fac
 
 
-def solve_arrow_banded(ocp, fac, rhs):
-    """Solve M x = rhs (z-layout) with the banded + arrow factors."""
+def solve_arrow_banded(ocp, fac, rhs, solve=banded_solve):
+    """Solve M x = rhs (z-layout) with the banded + arrow factors;
+    ``solve`` is :func:`banded_solve` or :func:`banded_solve_lookahead`."""
     r_b, r_p = split_node_major(ocp, rhs)
-    t = banded_solve(fac["Ldi"], fac["Lsub"], r_b)
+    t = solve(fac["Ldi"], fac["Lsub"], r_b)
     z_p = (r_p - (fac["u"] * r_b).sum(dim=(1, 2))) / fac["s"]
     z_b = t - fac["u"] * z_p[:, None, None]
     return join_node_major(ocp, z_b, z_p)

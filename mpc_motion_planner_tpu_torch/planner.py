@@ -79,8 +79,9 @@ class Solution:
 
 class MotionPlanner:
     """User-facing planner; tensors live on ``device`` in ``dtype``. The
-    settings default to the JAX package's (the dense "xla" QP); the
-    shipping ones are in ``config.py``."""
+    device defaults to the GPU: without one, torch raises unless the caller
+    passes ``device="cpu"``. The settings default to the JAX package's (the
+    dense "xla" QP); the shipping ones are in ``config.py``."""
 
     def __init__(
         self,
@@ -93,7 +94,7 @@ class MotionPlanner:
         target_eps: float = 1e-2,
         time_bounds: Tuple[float, float] = (0.0, 10.0),
         dtype=torch.float64,
-        device="cpu",
+        device="cuda",
     ):
         self.device = torch.device(device)
         self.dtype = dtype

@@ -28,7 +28,7 @@ B = 3
 
 @pytest.fixture(scope="module")
 def planners():
-    return JPlanner(margins=JMargins(*MARGINS)), MotionPlanner(margins=Margins(*MARGINS))
+    return JPlanner(margins=JMargins(*MARGINS)), MotionPlanner(margins=Margins(*MARGINS), device="cpu")
 
 
 def _z(ocp, seed):

@@ -72,6 +72,7 @@ def slice_solves():
         margins=Margins(*MARGINS),
         qp_settings=QPSettings(backend="structured", rho_update_every=0, kkt_refine=0),
         sqp_settings=SQPSettings(qp_step_schedules=SHIPPING_SQP_SCHEDULES),
+        device="cpu",
     )
     kernels.reset_launch_counts()
     got = tp.solve(torch.as_tensor(cur), torch.as_tensor(tgt))
@@ -126,7 +127,8 @@ def dense_solves():
     ):
         jp = JPlanner(margins=JMargins(*MARGINS), qp_settings=JQPSettings(**dt), dtype=jdt)
         ref = jp.solve(jnp.asarray(cur, jdt), jnp.asarray(tgt, jdt))
-        tp = MotionPlanner(margins=Margins(*MARGINS), qp_settings=QPSettings(**dt), dtype=tdt)
+        tp = MotionPlanner(margins=Margins(*MARGINS), qp_settings=QPSettings(**dt), dtype=tdt,
+                           device="cpu")
         kernels.reset_launch_counts()
         got = tp.solve(torch.as_tensor(cur, dtype=tdt), torch.as_tensor(tgt, dtype=tdt))
         out[name] = (ref, got, kernels.launch_counts())
@@ -169,7 +171,7 @@ def test_sqp_with_hessian_fn_matches_jax():
         JSQPSettings(max_iter=1), JQPSettings(**qp),
         hessian_fn=lambda z, lam: jnp.broadcast_to(jnp.asarray(H), (z.shape[0], n, n)),
     )
-    tp = MotionPlanner(margins=Margins(*MARGINS))
+    tp = MotionPlanner(margins=Margins(*MARGINS), device="cpu")
     tcur, ttgt = torch.as_tensor(cur), torch.as_tensor(tgt)
     got = tsqp.sqp_solve(
         tp.ocp, tp.nlp_bounds(tcur, ttgt), tp.warm_start_vector(tp.plan_warm_start(tcur, ttgt)),
@@ -219,6 +221,19 @@ def test_planner_defaults_match_jax():
         assert port[name].default == ref[name].default, name
 
 
+def test_planner_default_device_is_cuda():
+    """The planner runs on the card unless the caller asks for the CPU: the
+    signature's default is "cuda", and without a card the constructor raises
+    torch's own error instead of building a CPU planner."""
+    assert inspect.signature(MotionPlanner.__init__).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert MotionPlanner().device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            MotionPlanner()
+    assert MotionPlanner(device="cpu").limits.max_position.device.type == "cpu"
+
+
 _GUARD = textwrap.dedent(
     """
     import importlib, pkgutil, sys
@@ -235,7 +250,7 @@ _GUARD = textwrap.dedent(
     from mpc_motion_planner_tpu_torch.planner import MotionPlanner
     kernels.reset_launch_counts()
     planner = MotionPlanner(qp_settings=QPSettings(max_iter=50),
-                            sqp_settings=SQPSettings(qp_step_schedules="25;25"))
+                            sqp_settings=SQPSettings(qp_step_schedules="25;25"), device="cpu")
     cur = torch.zeros(1, 14, dtype=torch.float64)
     cur[0, :7] = (planner.limits.max_position + planner.limits.min_position) / 2
     tgt = cur.clone()
@@ -245,7 +260,8 @@ _GUARD = textwrap.dedent(
     assert bool((sol.qp_iterations <= 25).all())
     for backend in ("pallas", "structured_pallas"):
         planner = MotionPlanner(
-            qp_settings=QPSettings(backend=backend, max_iter=25, rho_update_every=0))
+            qp_settings=QPSettings(backend=backend, max_iter=25, rho_update_every=0),
+            device="cpu")
         assert bool(torch.isfinite(planner.solve(cur, tgt).z).all())
     counts = kernels.launch_counts()
     assert set(counts.values()) == {0}, counts

@@ -132,6 +132,75 @@ def test_factor_banded_matches_jax(qp_data, port_ocp):
         _close(got_bad[k][[0, 2, 3]], np.asarray(ref[k])[[0, 2, 3]])
 
 
+# Tolerances relative to the largest entry of the solution. float64: the two
+# orders differ by rounding only, 1e-10. float32: 1e-5, twenty times the
+# 5e-7 these factors give either order against the float64 solve (38 block
+# steps of 21-term sums, each rounded at 6e-8).
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-10), (torch.float32, 1e-5)],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("seed", [21, 22])
+def test_lookahead_solve_matches_plain_solve(qp_data, port_ocp, dtype, tol, seed):
+    """M^-1 rhs in kernel 3's schedule and order of sums (distance-2 and -3
+    terms formed a step ahead, row sums in three partial sums) against the
+    plain banded solve, on seeded right-hand sides and the KKT factors of
+    real QPs; and against the JAX package's own solve at float64."""
+    (Mb_j, pc_j, mpp_j), (Mb, pc, mpp) = _kkt(qp_data, port_ocp, seed)
+    bw = port_ocp.coll.order
+    fac64 = tqs.factor_banded(Mb, pc, mpp, bw)
+    fac = {k: v.to(dtype) for k, v in fac64.items() if k != "ok"}
+    rhs = torch.as_tensor(np.random.default_rng(seed).standard_normal((B, port_ocp.num_var)))
+    plain = tqs.solve_arrow_banded(port_ocp, fac, rhs.to(dtype))
+    ahead = tqs.solve_arrow_banded(port_ocp, fac, rhs.to(dtype), tqs.banded_solve_lookahead)
+    assert ahead.dtype == dtype and ahead.shape == plain.shape
+    scale = float(plain.abs().max())
+    assert float((ahead - plain).abs().max()) <= tol * scale
+    exact = tqs.solve_arrow_banded(port_ocp, fac64, rhs)
+    # neither order is further from the float64 solve than the tolerance
+    for got in (plain, ahead):
+        assert float((got.double() - exact).abs().max()) <= tol * scale
+    if dtype == torch.float64:
+        ref = jqs.solve_arrow_banded(qp_data[0], jqs.factor_banded(Mb_j, pc_j, mpp_j, bw),
+                                     jnp.asarray(rhs.numpy()))
+        np.testing.assert_allclose(ahead.numpy(), np.asarray(ref), rtol=0, atol=1e-9 * scale)
+
+
+def test_lookahead_schedule_alone_changes_no_bit(qp_data, port_ocp):
+    """Forming the distance-2 and -3 terms a step ahead keeps the order in
+    which a step subtracts them, so without the partial row sums the
+    look-ahead solve equals the plain solve bitwise (float32 and float64)."""
+    _, (Mb, pc, mpp) = _kkt(qp_data, port_ocp, 23)
+    fac = tqs.factor_banded(Mb, pc, mpp, port_ocp.coll.order)
+    r = torch.as_tensor(np.random.default_rng(23).standard_normal((B, port_ocp.num_nodes, 21)))
+    for dt in (torch.float64, torch.float32):
+        Ldi, Lsub = fac["Ldi"].to(dt), fac["Lsub"].to(dt)
+        assert torch.equal(tqs.banded_solve_lookahead(Ldi, Lsub, r.to(dt), thirds=False),
+                           tqs.banded_solve(Ldi, Lsub, r.to(dt)))
+
+
+@pytest.mark.parametrize("bw", [1, 2, 3])
+def test_lookahead_solve_matches_dense_solve(bw):
+    """Against an independent reference: the banded factor written out as a
+    dense lower-triangular L, and (L L') x = r solved by torch.linalg, for
+    every band width up to the kernel's (float64, 1e-9 relative: seeded
+    well-conditioned factors, unit-dominant diagonal blocks)."""
+    rng = np.random.default_rng(7 + bw)
+    N, blk = 6, 5
+    Lkk = np.tril(rng.uniform(-0.3, 0.3, (B, N, blk, blk)), -1) + np.eye(blk)
+    Lsub = rng.uniform(-0.3, 0.3, (B, N, bw, blk, blk))
+    L = np.zeros((B, N * blk, N * blk))
+    for k in range(N):
+        L[:, k * blk:(k + 1) * blk, k * blk:(k + 1) * blk] = Lkk[:, k]
+        for d in range(1, bw + 1):
+            if k + d < N:
+                L[:, (k + d) * blk:(k + d + 1) * blk, k * blk:(k + 1) * blk] = Lsub[:, k, d - 1]
+    r = rng.standard_normal((B, N, blk))
+    ref = np.linalg.solve(L @ L.transpose(0, 2, 1), r.reshape(B, -1, 1)).reshape(B, N, blk)
+    Ldi = torch.as_tensor(np.linalg.inv(Lkk))
+    for solve in (tqs.banded_solve, tqs.banded_solve_lookahead):
+        got = solve(Ldi, torch.as_tensor(Lsub), torch.as_tensor(r))
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-9 * np.abs(ref).max())
+
+
 @pytest.mark.parametrize("soft", ["hard", "rows", "rows+box"])
 def test_plain_admm_matches_jax(qp_data, port_ocp, soft):
     """The plain structured ADMM (kernel 3's plain version) against the JAX

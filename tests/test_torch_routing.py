@@ -189,7 +189,8 @@ def test_kernel_entry_points_refuse_cpu_tensors(ocp):
 def test_kernel3_refuses_cpu_tensors():
     """The host part of the card's QP solve runs on CPU data up to the
     launch (scaling, the routed factorization), then kernel 3 refuses it."""
-    planner = MotionPlanner(margins=Margins(0.8, 0.8, 0.6, 0.9, 0.1), dtype=torch.float32)
+    planner = MotionPlanner(margins=Margins(0.8, 0.8, 0.6, 0.9, 0.1), dtype=torch.float32,
+                            device="cpu")
     cur = torch.zeros(1, 14)
     cur[0, :7] = (planner.limits.max_position + planner.limits.min_position) / 2
     tgt = cur.clone()
