@@ -15,7 +15,9 @@ Panda, 19 nodes, 400 variables, 488 constraint rows) on both QP paths:
   kernel in Pallas interpret mode; see
   ``tests/fixtures/make_torch_headline_fixtures.py``).
 
-Then it times each kernel against its plain version. Needs one CUDA GPU and
+Then it times each kernel against its plain version. Kernel 2 runs several
+problems per SM and kernel 4 one problem per thread-block cluster; phases 3
+and 7 print the occupancy each reaches. Needs one CUDA GPU and
 ``nvcc``; imports no JAX.
 
     python3 chip_smoke.py
@@ -178,6 +180,28 @@ def hard_row_ratio(x, Ax, lc, uc, lx, ux, soft_c, soft_x, settings, converged):
     if not converged.any():
         return 0.0, 0.0
     return float(viol_box[converged].max()), float((viol_hard / eps_p)[converged].max())
+
+
+def random_dense_chunk(B, n, m, seed, dev):
+    """Operands and state of kernel 4 for B random QPs of any (n, m): a
+    diagonal P, a dense A, M^-1 = (P + sigma + rx + A' rc A)^-1, soft
+    thresholds on every third row."""
+    gen = torch.Generator().manual_seed(seed)
+    randn = lambda *shape: torch.randn(*shape, generator=gen)
+    rand = lambda *shape: torch.rand(*shape, generator=gen)
+    A = randn(B, m, n) / n ** 0.5
+    rc, rx, P = torch.full((B, m), 0.1), torch.full((B, n), 0.1), rand(B, n) + 0.1
+    M = torch.diag_embed(P + 1e-6 + rx) + torch.einsum("bmi,bm,bmj->bij", A, rc, A)
+    ops = {"M_inv": torch.linalg.inv(M.double()).float(), "A": A, "P": P, "q": randn(B, n),
+           "lx": torch.full((B, n), -3.0), "ux": torch.full((B, n), 3.0), "rx": rx,
+           "D": rand(B, n) + 0.5, "sx": torch.full((B, n), 1e20), "lc": -rand(B, m),
+           "uc": rand(B, m), "rc": rc, "E": rand(B, m) + 0.5, "sc": torch.full((B, m), 1e20)}
+    ops["sc"][:, ::3] = 0.3
+    st = {"x": 0.1 * randn(B, n), "zc": 0.1 * randn(B, m), "zx": 0.1 * randn(B, n),
+          "yc": 0.1 * randn(B, m), "yx": 0.1 * randn(B, n),
+          "done": torch.zeros(B, dtype=torch.int32)}
+    on_dev = lambda d: {k: v.to(dev).contiguous() for k, v in d.items()}
+    return on_dev(ops), on_dev(st)
 
 
 def quality(planner, sol, tgt):
@@ -344,7 +368,36 @@ def run(dev: torch.device) -> None:
     log(f"phase 3 kernel 2 B={B_FACTOR}: ok flags identical ({int(fk['ok'].sum())}/{B_FACTOR} ok), "
         f"max-norm relative error " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
         + " (tol 1e-3); indefinite problem flagged")
-    del qp_f, fk, fp, bad, fb
+    # more problems than the card holds at once, several per SM: copies of
+    # the B_FACTOR problems in turn, one of them made indefinite. Every copy
+    # must come out bitwise as its original did in the small batch, and as it
+    # does alone in a launch of its own
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm2 = k2.blocks_per_sm()
+    check(per_sm2 > 1, f"kernel 2 holds {per_sm2} problem per SM")
+    B_wave = sms * per_sm2 + B_ODD
+    src = torch.arange(B_wave, device=dev) % B_FACTOR
+    Mb_w = qp_f.Mband[src].contiguous()
+    i_bad = sms * per_sm2 // 2 + 1
+    Mb_w[i_bad, 0, 0, 0, 0] = -1.0
+    fw = k2.factor_banded_kernel(Mb_w, qp_f.p_col[src].contiguous(), qp_f.m_pp[src].contiguous())
+    torch.cuda.synchronize()
+    others = torch.arange(B_wave, device=dev) != i_bad
+    check(not bool(fw["ok"][i_bad]), "kernel 2 did not flag the indefinite problem of the large batch")
+    for k in ("Ldi", "Lsub", "u", "s", "ok"):
+        check(torch.equal(fw[k][others], fk[k][src][others]),
+              f"kernel 2 {k}: a problem inside a batch of {B_wave} differs from itself in a "
+              f"batch of {B_FACTOR}")
+    for i in (0, i_bad - 1, i_bad + 1, B_wave - 1):
+        j = int(src[i])
+        alone = k2.factor_banded_kernel(qp_f.Mband[j:j + 1], qp_f.p_col[j:j + 1], qp_f.m_pp[j:j + 1])
+        check(all(torch.equal(alone[k][0], fw[k][i]) for k in ("Ldi", "Lsub", "u", "s", "ok")),
+              f"kernel 2: problem {i} of the large batch differs from the same problem alone")
+    log(f"phase 3 kernel 2 occupancy: {per_sm2} problems per SM ({sms} SMs, {sms * per_sm2} at a "
+        f"time); B={B_wave} (more than one wave, one problem indefinite): the indefinite "
+        f"problem is flagged, every other problem is bitwise what it is in the batch of "
+        f"{B_FACTOR}, and four of them bitwise what they are alone")
+    del qp_f, fk, fp, bad, fb, fw, Mb_w
 
     # ---- phase 4: kernel 3 against the plain loop on real QPs ----
     B4 = B_ADMM
@@ -565,7 +618,30 @@ def run(dev: torch.device) -> None:
     log(f"phase 7e kernel 4 B={B_ODD}: after {dense_cfg.check_every} iterations max "
         f"|x - x_float64| kernel {e_k:.3e}, plain {e_p:.3e}, max |x_kernel - x_plain| "
         f"{e_kp:.3e}, done/used identical")
-    del dq7, ops7, st7, ops_d, dq_odd
+    # (f) an (n, m) that the cluster's 8 blocks do not divide: the slices of
+    # M^-1 have 4, ..., 4, 3, 0 rows, those of A 3, ..., 3, 0, and a row is
+    # no multiple of 16 bytes
+    n_f, m_f = 27, 21
+    ops_f, st_f = random_dense_chunk(B_ODD, n_f, m_f, 7, dev)
+    fkw = dict(ckw, chunk_iters=50, check_every=10)
+    sk, uk = k4.admm_dense_kernel(ops_f, st_f, **fkw)
+    sp, up = k4.admm_dense_plain(ops_f, st_f, **fkw)
+    s64, _ = k4.admm_dense_plain(to64(ops_f), to64(st_f), **fkw)
+    torch.cuda.synchronize()
+    e_k, e_p = max_abs(sk["x"], s64["x"]), max_abs(sp["x"], s64["x"])
+    check(e_k <= 2 * e_p + 1e-6, f"kernel 4 n={n_f}, m={m_f}: strays from float64 by {e_k:.3e}, "
+          f"the plain float32 chunk by {e_p:.3e}")
+    check(torch.equal(sk["done"], sp["done"]) and torch.equal(uk, up),
+          f"kernel 4 n={n_f}, m={m_f}: done/used differ from the plain chunk")
+    log(f"phase 7f kernel 4 B={B_ODD}, n={n_f}, m={m_f} (ragged slices): after up to 50 "
+        f"iterations max |x - x_float64| kernel {e_k:.3e}, plain {e_p:.3e}, done/used identical "
+        f"({int((sk['done'] == 1).sum())} converged)")
+    occ4 = k4.cluster_occupancy(n7, m7)
+    check(occ4["max_active_clusters"] >= 1, f"kernel 4 cluster occupancy {occ4}")
+    log(f"phase 7 kernel 4 occupancy at n={n7}, m={m7}: clusters of {occ4['cluster_size']} blocks, "
+        f"{occ4['smem_bytes']} B of dynamic shared memory per block, "
+        f"cudaOccupancyMaxActiveClusters = {occ4['max_active_clusters']}")
+    del dq7, ops7, st7, ops_d, dq_odd, ops_f, st_f
 
     # ---- phase 8: the dense path at B=2048 ----
     dense_planner = MotionPlanner(
@@ -656,8 +732,8 @@ def run(dev: torch.device) -> None:
     text = report_bound(
         results["banded_factor"], B_MAIN * banded_factor_flops(),
         tensor_bytes(qp.Mband, qp.p_col, qp.m_pp, *fk.values()), "band in, factors out")
-    log(f"phase 10 kernel 2 B={B_MAIN}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (runs {raw}); "
-        f"{text}; "
+    log(f"phase 10 kernel 2 B={B_MAIN}: kernel {k_ms:.3f} ms ({per_sm2} problems per SM), "
+        f"plain {p_ms:.3f} ms (runs {raw}); {text}; "
         f"ok flags identical ({int(fk['ok'].sum())}/{B_MAIN} ok), max-norm relative error "
         + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()) + " (tol 1e-3)")
     del fk, fp
@@ -748,7 +824,7 @@ def run(dev: torch.device) -> None:
     k4_iter_flops = 2 * ((2 + 2 * dense_cfg.kkt_refine) * m * n + (1 + dense_cfg.kkt_refine) * n * n)
     text = report_bound(results["admm_dense"], k4_iters * k4_iter_flops, k4_bytes,
                         f"{k4_iters} problem-iterations as the kernel counted them, A and "
-                        f"M^-1 read once as a resident design would")
+                        f"M^-1 read once, as the cluster-resident kernel reads them")
     log(f"phase 10 kernel 4 B={B_MAIN}, step-0 dense QP, one {dense_cfg.max_iter}-iteration "
         f"chunk: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (runs {raw}); {text}; {agreement}; done "
         f"codes identical on {int((done_k == done_p).sum())}/{B_MAIN}, frozen kernel "
@@ -763,14 +839,19 @@ def run(dev: torch.device) -> None:
         lambda: k4.admm_dense_kernel(ops, st, chunk_iters=n_it, **ckw),
         reps=1,
     )
-    # bytes of A and M^-1 read per problem: (2 + 2 kkt_refine) passes over A
-    # and (1 + kkt_refine) over M^-1 per iteration, 2 passes over A at the check
+    # per problem-iteration the passes over A and M^-1 touch (2 + 2 kkt_refine)
+    # m n + (1 + kkt_refine) n n entries: from shared memory in the kernel,
+    # from device memory in the plain chunk
     it_bytes = 4 * ((2 + 2 * dense_cfg.kkt_refine) * m * n + (1 + dense_cfg.kkt_refine) * n * n)
     total = B_MAIN * (n_it * it_bytes + 4 * 2 * m * n)
+    waves = -(-B_MAIN // occ4["max_active_clusters"])
+    b_ms, b_by = bound(B_MAIN * n_it * k4_iter_flops, k4_bytes)
     log(f"phase 10 kernel 4 B={B_MAIN}, exactly {n_it} iterations: kernel {k_ms:.3f} ms = "
-        f"{1e3 * k_ms / n_it:.1f} us per iteration, {total / (k_ms * 1e-3) / 1e9:.0f} GB/s "
-        f"effective ({it_bytes / 1e6:.2f} MB per problem-iteration; card {HBM_TBPS} TB/s); "
-        f"plain {p_ms:.3f} ms = {total / (p_ms * 1e-3) / 1e9:.0f} GB/s (runs {raw})")
+        f"{1e3 * k_ms / n_it / waves:.2f} us per iteration per cluster ({waves} waves of "
+        f"{occ4['max_active_clusters']} clusters; {it_bytes / 1e6:.2f} MB of matrix passes per "
+        f"problem-iteration, out of shared memory), plain {p_ms:.3f} ms = "
+        f"{total / (p_ms * 1e-3) / 1e9:.0f} GB/s from device memory (runs {raw}); bound "
+        f"{b_ms:.4f} ms by {b_by}, share reached {100 * b_ms / k_ms:.1f}%")
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

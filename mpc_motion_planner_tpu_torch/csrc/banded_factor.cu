@@ -1,5 +1,6 @@
 // Kernel 2: block-banded Cholesky + arrow factorization of the node-major
-// ADMM KKT matrix M = A'WA + diag(sigma), one problem per thread block.
+// ADMM KKT matrix M = A'WA + diag(sigma), one problem per 128-thread block,
+// several blocks per SM.
 //
 // Replaces mpc_motion_planner_tpu/ops/pallas/banded_factor.py
 // factor_banded_pallas (_factor_kernel :117, _chol_lane :83,
@@ -8,14 +9,37 @@
 // Cholesky with the 1e-20 pivot floor, the forward-substitution inverse of
 // L[k,k], the sub-diagonal blocks L[k+d,k] = (M[k+d,k] - sum ...) L[k,k]^-T,
 // then the banded solve for the arrow column u and the Schur scalar s.
-// Every computed entry is clamped to +-1e8, and ok is cleared by a pivot or
-// s at or below 1e-20 or by any factor entry at or above 0.99e8.
+// Every computed entry is clamped to +-1e8 (after each block product, not
+// once at the end), and ok is cleared by a pivot or s at or below 1e-20 or
+// by any factor entry at or above 0.99e8.
+//
+// What bounds it: the latency of a 19-step dependent recursion (~2 MFLOP
+// and 268 KB per problem are little for the card). So the design keeps a
+// problem small enough for several to share an SM and hide each other's
+// waits, and takes the sequential parts out of block-wide barrier loops:
+//  * node k reads only L[., j] for j >= k - 3, so shared memory holds a
+//    ring of the last three nodes' sub-diagonal blocks (~34 KB a block in
+//    all instead of the whole 134 KB factor). Ldi[k] and Lsub[k] go to
+//    device memory as soon as they are final, and the saturation scan
+//    happens as they are written;
+//  * the 21 x 21 Cholesky and the triangular inverse run in one warp with
+//    row r (then column c) of the block in lane r's registers, the pivot
+//    column passed through shared memory: no block-wide barrier inside.
+//    Meanwhile the other three warps form what node k + 1 needs from older
+//    nodes (the j < k products of its S and of its first sub-diagonal
+//    block) and the arrow column's forward-substitution sum for node k;
+//  * a node is three phases and three barriers: (A) that; (B) the three
+//    products with Ldi[k]' and ys[k]; (C) the j = k products of node k + 1;
+//  * only the backward sweep for u reads factors again, newest first, four
+//    nodes at a time out of L2 where the block has just written them.
+// Each entry is formed by the TPU kernel's operations in their order (every
+// block product subtracted and clamped on its own, the Cholesky column by
+// column), whatever phase forms it, so the guards flag the same problems.
 //
 // Layout (see kernels/banded_factor.py): Mband (B,19,4,21,21) with
 // Mband[b,k,d] = M[k+d,k]; outputs Ldi (B,19,21,21) = L[k,k]^-1,
 // Lsub (B,19,3,21,21) with Lsub[b,k,d-1] = L[k+d,k], u (B,19,21), s (B,),
-// ok (B,) int. The whole factor of a problem (134 KB) stays in shared
-// memory during the recursion and is written out once at the end.
+// ok (B,) int.
 
 #include "common.cuh"
 
@@ -23,28 +47,44 @@ using namespace mpc;
 
 namespace {
 
+constexpr int NT = 128;  // threads per block
+constexpr int NWARP = NT / 32;
+constexpr int PER_SM = 6;  // blocks per SM the registers are capped for
+constexpr int LKS = 24;    // stride of a column of L[k,k] (16-byte loads)
+constexpr int CH = 4;      // nodes staged per step of the backward sweep
 constexpr float MAG = 1e8f;
 constexpr float SAT = 0.99f * MAG;
 constexpr float PIV_FLOOR = 1e-20f;
 
 __device__ __forceinline__ float fz(float v) { return clampf(v, -MAG, MAG); }
 
+struct Forward {
+  float LkT[BLK * LKS];      // L[k,k], column j at LkT[j * LKS]
+  float ring[BW][BW][BLK2];  // ring[j % 3][d - 1] = L[j+d, j] of the last three nodes
+  float S[2][BLK2];          // Schur complement of node k and, in the making, of k + 1
+  float C1[2][BLK2];         // M[k+1,k] less its band products; the same for k + 1
+  float C2[BLK2], C3[BLK2];  // the same for M[k+2,k], M[k+3,k]
+  float Linv[BLK2];          // Ldi[k]
+};
+
+struct Backward {
+  float blk[CH][BW + 1][BLK2];  // per staged node: Ldi, then its three Lsub blocks
+};
+
 struct Smem {
-  float Ldi[N * BLK2];
-  float Lsub[N * BW * BLK2];
-  float S[BLK2];     // Schur complement / Cholesky work block
-  float Lk[BLK2];    // L[k,k]
-  float C[BLK2];     // sub-diagonal work block
-  float col[BLK];
+  union {
+    Forward f;
+    Backward b;
+  };
   float ys[N * BLK];
   float us[N * BLK];
   float tmp[32];
-  float red[WARPS];
+  float red[NWARP];
   int ok;
 };
 
-// out[a,b] -= sum_c X[a,c] Y[b,c] for every entry owned by this thread,
-// clamped after each product (the TPU kernel's _fz(S - _matmul_nt(...)))
+// v - sum_c X[a,c] Y[b,c], clamped after the product (the TPU kernel's
+// _fz(S - _matmul_nt(...)))
 __device__ __forceinline__ float sub_nt(float v, const float* X, const float* Y, int a, int b) {
   float acc = 0.f;
 #pragma unroll 7
@@ -52,154 +92,228 @@ __device__ __forceinline__ float sub_nt(float v, const float* X, const float* Y,
   return fz(v - acc);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Entries c0.. of a 24-float column in shared memory, as 16-byte loads of
+// the quads that hold them.
+template <int C0>
+__device__ __forceinline__ void load_column(const float* col, float (&out)[LKS]) {
+#pragma unroll
+  for (int q = C0 / 4; q < LKS / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(col)[q];
+    out[4 * q] = v.x;
+    out[4 * q + 1] = v.y;
+    out[4 * q + 2] = v.z;
+    out[4 * q + 3] = v.w;
+  }
+}
+
+// Column J of the Cholesky factor and the rank-1 update of the columns to
+// its right, lane r on row r; then column J + 1.
+template <int J>
+__device__ __forceinline__ void chol_column(float (&Sr)[BLK], float* LkT, int r, bool& ok) {
+  const float d2 = __shfl_sync(0xffffffffu, Sr[J], J);
+  const float d = sqrtf(d2 > PIV_FLOOR ? d2 : PIV_FLOOR);
+  const float v = (r < BLK && r >= J) ? fz(Sr[J] / d) : 0.f;
+  if (r < LKS) LkT[J * LKS + r] = v;
+  ok = ok && d2 > PIV_FLOOR;
+  __syncwarp();
+  if constexpr (J + 1 < BLK) {
+    float col[LKS];
+    load_column<J + 1>(LkT + J * LKS, col);
+#pragma unroll
+    for (int c = J + 1; c < BLK; ++c) Sr[c] = fz(Sr[c] - v * col[c]);
+    chol_column<J + 1>(Sr, LkT, r, ok);
+  }
+}
+
+// Row Q of the inverse by forward substitution, lane c on column c, and its
+// term of the sums of the rows below; then row Q + 1.
+template <int Q>
+__device__ __forceinline__ void inverse_column(float (&acc)[BLK], const float* LkT, float* Linv,
+                                               int c) {
+  float col[LKS];
+  load_column<Q>(LkT + Q * LKS, col);
+  const float x = fz(((Q == c ? 1.f : 0.f) - acc[Q]) / col[Q]);
+  if (c < BLK) Linv[Q * BLK + c] = x;
+  if constexpr (Q + 1 < BLK) {
+#pragma unroll
+    for (int i = Q + 1; i < BLK; ++i) acc[i] += col[i] * x;
+    inverse_column<Q + 1>(acc, LkT, Linv, c);
+  }
+}
+
+// One warp: the Cholesky factor of S into LkT, then its inverse into Linv.
+// Returns false on every lane if a pivot was at or below the floor.
+__device__ __forceinline__ bool chol_inverse(const float* S, float* LkT, float* Linv, int lane) {
+  float Sr[BLK];
+#pragma unroll
+  for (int c = 0; c < BLK; ++c) Sr[c] = lane < BLK ? S[lane * BLK + c] : 0.f;
+  bool ok = true;
+  chol_column<0>(Sr, LkT, lane, ok);
+  float acc[BLK];
+#pragma unroll
+  for (int i = 0; i < BLK; ++i) acc[i] = 0.f;
+  inverse_column<0>(acc, LkT, Linv, lane);
+  return ok;
+}
+
+// Ldi, Lsub and the pointers that the block writes and later reads back are
+// not __restrict__: the backward sweep must see the forward loop's stores.
+__global__ void __launch_bounds__(NT, PER_SM)
 banded_factor_kernel(const float* __restrict__ Mband, const float* __restrict__ p_col,
-                     const float* __restrict__ m_pp, float* __restrict__ Ldi_out,
-                     float* __restrict__ Lsub_out, float* __restrict__ u_out,
-                     float* __restrict__ s_out, int* __restrict__ ok_out) {
-  extern __shared__ float smem_raw[];
+                     const float* __restrict__ m_pp, float* Ldi_out, float* Lsub_out,
+                     float* __restrict__ u_out, float* __restrict__ s_out,
+                     int* __restrict__ ok_out) {
+  extern __shared__ float4 smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  Forward& f = sm.f;
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* Mb = Mband + (size_t)b * N * (BW + 1) * BLK2;
   const float* pc = p_col + (size_t)b * N * BLK;
+  float* Ldi_b = Ldi_out + (size_t)b * N * BLK2;
+  float* Lsub_b = Lsub_out + (size_t)b * N * BW * BLK2;
+  // M[i, j] for i - j <= 3, and L[i, j] for the last three nodes j
+  auto Mblk = [&](int i, int j) { return Mb + (j * (BW + 1) + (i - j)) * BLK2; };
+  auto L = [&](int i, int j) -> float* { return f.ring[j % BW][i - j - 1]; };
+  bool sat = false;
+
   if (tid == 0) sm.ok = 1;
-
-  for (int k = 0; k < N; ++k) {
-    // ---- S = M[k,k] - sum_j L[k,j] L[k,j]' ----
-    for (int e = tid; e < BLK2; e += THREADS) {
-      int a = e / BLK, c = e % BLK;
-      float v = Mb[(k * (BW + 1)) * BLK2 + e];
-      for (int j = max(0, k - BW); j < k; ++j) {
-        const float* Ljk = sm.Lsub + (j * BW + (k - j - 1)) * BLK2;
-        v = sub_nt(v, Ljk, Ljk, a, c);
-      }
-      sm.S[e] = v;
-    }
-    __syncthreads();
-
-    // ---- Cholesky of S, column by column ----
-    for (int j = 0; j < BLK; ++j) {
-      float d2 = sm.S[j * BLK + j];
-      if (tid < BLK) {
-        float d = sqrtf(d2 > PIV_FLOOR ? d2 : PIV_FLOOR);
-        float v = tid >= j ? fz(sm.S[tid * BLK + j] / d) : 0.f;
-        sm.col[tid] = v;
-        sm.Lk[tid * BLK + j] = v;
-      }
-      if (tid == 0 && !(d2 > PIV_FLOOR)) sm.ok = 0;
-      __syncthreads();
-      for (int e = tid; e < BLK2; e += THREADS) {
-        int a = e / BLK, c = e % BLK;
-        sm.S[e] = fz(sm.S[e] - sm.col[a] * sm.col[c]);
-      }
-      __syncthreads();
-    }
-
-    // ---- Ldi[k] = L[k,k]^-1 by forward substitution, one column per thread ----
-    float* Linv = sm.Ldi + k * BLK2;
-    if (tid < BLK) {
-      const int c = tid;
-      for (int i = 0; i < BLK; ++i) {
-        float s = 0.f;
-        for (int q = 0; q < i; ++q) s += sm.Lk[i * BLK + q] * Linv[q * BLK + c];
-        float acc = (i == c ? 1.f : 0.f) - s;
-        Linv[i * BLK + c] = fz(acc / sm.Lk[i * BLK + i]);
-      }
-    }
-    __syncthreads();
-
-    // ---- L[k+d,k] = (M[k+d,k] - sum_j L[k+d,j] L[k,j]') L[k,k]^-T ----
-    for (int d = 1; d <= BW; ++d) {
-      float* out = sm.Lsub + (k * BW + d - 1) * BLK2;
-      if (k + d >= N) {
-        for (int e = tid; e < BLK2; e += THREADS) out[e] = 0.f;
-        continue;
-      }
-      for (int e = tid; e < BLK2; e += THREADS) {
-        int a = e / BLK, c = e % BLK;
-        float v = Mb[(k * (BW + 1) + d) * BLK2 + e];
-        for (int j = max(0, k + d - BW); j < k; ++j)
-          v = sub_nt(v, sm.Lsub + (j * BW + (k + d - j - 1)) * BLK2,
-                     sm.Lsub + (j * BW + (k - j - 1)) * BLK2, a, c);
-        sm.C[e] = v;
-      }
-      __syncthreads();
-      for (int e = tid; e < BLK2; e += THREADS) {
-        int a = e / BLK, c = e % BLK;
-        float acc = 0.f;
-#pragma unroll 7
-        for (int q = 0; q < BLK; ++q) acc += sm.C[a * BLK + q] * Linv[c * BLK + q];
-        out[e] = fz(acc);
-      }
-      __syncthreads();
-    }
-  }
-
-  // ---- banded solve (L L') u = p_col in warp 0, lane r owns row r ----
-  if (tid < 32) {
-    const int r = tid;
-    for (int k = 0; k < N; ++k) {
-      float acc = r < BLK ? pc[k * BLK + r] : 0.f;
-      for (int d = 1; d <= min(BW, k); ++d) {
-        const float* L = sm.Lsub + ((k - d) * BW + d - 1) * BLK2;
-        const float* y = sm.ys + (k - d) * BLK;
-        float s = 0.f;
-        if (r < BLK)
-          for (int c = 0; c < BLK; ++c) s += L[r * BLK + c] * y[c];
-        acc -= s;
-      }
-      sm.tmp[r] = acc;
-      __syncwarp();
-      if (r < BLK) {
-        float s = 0.f;
-        for (int c = 0; c < BLK; ++c) s += sm.Ldi[k * BLK2 + r * BLK + c] * sm.tmp[c];
-        sm.ys[k * BLK + r] = fz(s);
-      }
-      __syncwarp();
-    }
-    for (int k = N - 1; k >= 0; --k) {
-      float acc = r < BLK ? sm.ys[k * BLK + r] : 0.f;
-      for (int d = 1; d <= min(BW, N - 1 - k); ++d) {
-        const float* L = sm.Lsub + (k * BW + d - 1) * BLK2;
-        const float* x = sm.us + (k + d) * BLK;
-        float s = 0.f;
-        if (r < BLK)
-          for (int c = 0; c < BLK; ++c) s += L[c * BLK + r] * x[c];
-        acc -= s;
-      }
-      sm.tmp[r] = acc;
-      __syncwarp();
-      if (r < BLK) {
-        float s = 0.f;
-        for (int c = 0; c < BLK; ++c) s += sm.Ldi[k * BLK2 + c * BLK + r] * sm.tmp[c];
-        sm.us[k * BLK + r] = fz(s);
-      }
-      __syncwarp();
-    }
+  for (int e = tid; e < BLK2; e += NT) {
+    f.S[0][e] = Mblk(0, 0)[e];
+    f.C1[0][e] = Mblk(1, 0)[e];
+    f.C2[e] = Mblk(2, 0)[e];
+    f.C3[e] = Mblk(3, 0)[e];
   }
   __syncthreads();
 
-  // ---- s = m_pp - u . p_col, the flags, and the writes ----
-  float part = 0.f;
-  for (int e = tid; e < N * BLK; e += THREADS) part += sm.us[e] * pc[e];
-  float s = fz(m_pp[b] - block_sum(part, sm.red));
+  for (int k = 0; k < N; ++k) {
+    const int cur = k & 1, nxt = cur ^ 1;
+    // ---- phase A: warp 0 factors S and inverts L[k,k]; the others form
+    // what needs no L[., k]: the arrow column's sum and node k + 1's older
+    // products ----
+    if (warp == 0) {
+      if (!chol_inverse(f.S[cur], f.LkT, f.Linv, lane) && lane == 0) sm.ok = 0;
+    } else {
+      if (warp == 1) {
+        const int r = lane;
+        float acc = r < BLK ? pc[k * BLK + r] : 0.f;
+        for (int d = 1; d <= min(BW, k); ++d) {
+          const float* Lkd = L(k, k - d);
+          const float* y = sm.ys + (k - d) * BLK;
+          float s = 0.f;
+          if (r < BLK)
+            for (int c = 0; c < BLK; ++c) s += Lkd[r * BLK + c] * y[c];
+          acc -= s;
+        }
+        sm.tmp[r] = acc;
+      }
+      if (k + 1 < N) {
+        for (int e = tid - 32; e < BLK2; e += NT - 32) {
+          const int a = e / BLK, c = e % BLK;
+          float v = Mblk(k + 1, k + 1)[e];
+          for (int j = max(0, k - 2); j < k; ++j) v = sub_nt(v, L(k + 1, j), L(k + 1, j), a, c);
+          f.S[nxt][e] = v;
+          if (k + 2 < N) {
+            v = Mblk(k + 2, k + 1)[e];
+            if (k >= 1) v = sub_nt(v, L(k + 2, k - 1), L(k + 1, k - 1), a, c);
+            f.C1[nxt][e] = v;
+          }
+        }
+      }
+    }
+    __syncthreads();
 
-  bool sat = !(fabsf(s) < SAT);
-  float* Ldi_b = Ldi_out + (size_t)b * N * BLK2;
-  for (int e = tid; e < N * BLK2; e += THREADS) {
-    float v = sm.Ldi[e];
-    sat |= !(fabsf(v) < SAT);
-    Ldi_b[e] = v;
+    // ---- phase B: L[k+d,k] = C_d Ldi[k]' into the ring and out, Ldi[k]
+    // out, ys[k] = Ldi[k] (p[k] - sum) ----
+    if (warp == NWARP - 1 && lane < BLK) {
+      float s = 0.f;
+      for (int c = 0; c < BLK; ++c) s += f.Linv[lane * BLK + c] * sm.tmp[c];
+      sm.ys[k * BLK + lane] = fz(s);
+    }
+    for (int d = 1; d <= BW; ++d) {
+      float* out = f.ring[k % BW][d - 1];
+      float* gout = Lsub_b + (k * BW + d - 1) * BLK2;
+      const float* C = d == 1 ? f.C1[cur] : (d == 2 ? f.C2 : f.C3);
+      for (int e = tid; e < BLK2; e += NT) {
+        float v = 0.f;
+        if (k + d < N) {
+          const int a = e / BLK, c = e % BLK;
+          float acc = 0.f;
+#pragma unroll 7
+          for (int q = 0; q < BLK; ++q) acc += C[a * BLK + q] * f.Linv[c * BLK + q];
+          v = fz(acc);
+        }
+        out[e] = v;
+        gout[e] = v;
+        sat |= !(fabsf(v) < SAT);
+      }
+    }
+    for (int e = tid; e < BLK2; e += NT) {
+      const float v = f.Linv[e];
+      Ldi_b[k * BLK2 + e] = v;
+      sat |= !(fabsf(v) < SAT);
+    }
+    __syncthreads();
+
+    // ---- phase C: node k + 1's products with L[., k] ----
+    if (k + 1 < N) {
+      for (int e = tid; e < BLK2; e += NT) {
+        const int a = e / BLK, c = e % BLK;
+        f.S[nxt][e] = sub_nt(f.S[nxt][e], L(k + 1, k), L(k + 1, k), a, c);
+        if (k + 2 < N) f.C1[nxt][e] = sub_nt(f.C1[nxt][e], L(k + 2, k), L(k + 1, k), a, c);
+        if (k + 3 < N) f.C2[e] = sub_nt(Mblk(k + 3, k + 1)[e], L(k + 3, k), L(k + 1, k), a, c);
+        if (k + 4 < N) f.C3[e] = Mblk(k + 4, k + 1)[e];
+      }
+    }
+    __syncthreads();
   }
-  float* Lsub_b = Lsub_out + (size_t)b * N * BW * BLK2;
-  for (int e = tid; e < N * BW * BLK2; e += THREADS) {
-    float v = sm.Lsub[e];
-    sat |= !(fabsf(v) < SAT);
-    Lsub_b[e] = v;
+
+  // ---- backward sweep L' u = ys, newest node first: the block stages CH
+  // nodes' factors from where it wrote them, warp 0 takes their steps with
+  // lane r owning row r ----
+  __threadfence_block();
+  for (int top = N - 1; top >= 0; top -= CH) {
+    const int cnt = min(CH, top + 1);
+    for (int i = 0; i < cnt; ++i) {
+      const int k = top - i;
+      for (int e = tid; e < BLK2; e += NT) sm.b.blk[i][0][e] = Ldi_b[k * BLK2 + e];
+      for (int e = tid; e < BW * BLK2; e += NT) sm.b.blk[i][1][e] = Lsub_b[k * BW * BLK2 + e];
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int r = lane;
+      for (int i = 0; i < cnt; ++i) {
+        const int k = top - i;
+        float acc = r < BLK ? sm.ys[k * BLK + r] : 0.f;
+        for (int d = 1; d <= min(BW, N - 1 - k); ++d) {
+          const float* Ld = sm.b.blk[i][d];
+          const float* x = sm.us + (k + d) * BLK;
+          float s = 0.f;
+          if (r < BLK)
+            for (int c = 0; c < BLK; ++c) s += Ld[c * BLK + r] * x[c];
+          acc -= s;
+        }
+        sm.tmp[r] = acc;
+        __syncwarp();
+        if (r < BLK) {
+          float s = 0.f;
+          for (int c = 0; c < BLK; ++c) s += sm.b.blk[i][0][c * BLK + r] * sm.tmp[c];
+          sm.us[k * BLK + r] = fz(s);
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();
   }
+
+  // ---- s = m_pp - u . p_col, the flags, and the last writes ----
+  float part = 0.f;
+  for (int e = tid; e < N * BLK; e += NT) part += sm.us[e] * pc[e];
+  float s = fz(m_pp[b] - block_sum<NWARP>(part, sm.red));
+
+  sat |= !(fabsf(s) < SAT);
   float* u_b = u_out + (size_t)b * N * BLK;
-  for (int e = tid; e < N * BLK; e += THREADS) {
+  for (int e = tid; e < N * BLK; e += NT) {
     float v = sm.us[e];
     sat |= !(fabsf(v) < SAT);
     u_b[e] = v;
@@ -211,17 +325,31 @@ banded_factor_kernel(const float* __restrict__ Mband, const float* __restrict__ 
   }
 }
 
+cudaError_t allow_shared_memory() {
+  return cudaFuncSetAttribute(banded_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sizeof(Smem));
+}
+
 }  // namespace
 
 extern "C" int mpc_banded_factor(const float* Mband, const float* p_col, const float* m_pp,
                                  float* Ldi, float* Lsub, float* u, float* s, int* ok, int B,
                                  void* stream) {
   if (B <= 0) return 0;
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(banded_factor_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = allow_shared_memory();
   if (err != cudaSuccess) return (int)err;
-  banded_factor_kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  banded_factor_kernel<<<B, NT, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
       Mband, p_col, m_pp, Ldi, Lsub, u, s, ok);
   return (int)cudaGetLastError();
+}
+
+// How many blocks (problems) of the kernel one SM holds at a time, from the
+// CUDA occupancy calculator; a CUDA error as a negative number.
+extern "C" int mpc_banded_factor_blocks_per_sm() {
+  cudaError_t err = allow_shared_memory();
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, banded_factor_kernel, NT,
+                                                      sizeof(Smem));
+  return err != cudaSuccess ? -(int)err : blocks;
 }

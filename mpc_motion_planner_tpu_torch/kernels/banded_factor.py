@@ -1,20 +1,28 @@
 """Kernel 2: block-banded Cholesky + arrow factorization of the ADMM KKT
-matrix, one problem per thread block.
+matrix, one problem per 128-thread block, several blocks per SM.
 
 Replaces ``mpc_motion_planner_tpu/ops/pallas/banded_factor.py``
 ``factor_banded_pallas`` (``pl.pallas_call`` at :262, body
 ``_factor_kernel`` :117).
 
-What bounds it on this card: the sequential node recursion. Per problem
-the 19-step recursion does ~2 MFLOP (Schur updates, a 21-column Cholesky,
-a triangular inverse and up to three sub-diagonal products per node) and
-moves ~268 KB (the band in, the factors out), so at B=2048 the launch
-moves ~0.55 GB, little for the card's memory, while each step depends on
-the previous one (PERF.md has the measured time). The design puts one
-problem in one 256-thread block, keeps the whole factor of the problem in
-shared memory (134 KB, so the recursion re-reads nothing from device
-memory), parallelizes each step over the 441 entries of a 21x21 block, and
-writes the factors out once at the end. The TPU kernel's numerical guards are kept as semantics: the 1e-20
+What bounds it on this card: the latency of the sequential node recursion.
+Per problem the 19-step recursion does ~2 MFLOP (Schur updates, a 21-column
+Cholesky, a triangular inverse and up to three sub-diagonal products per
+node) and moves ~268 KB (the band in, the factors out), little for the
+card, while each step depends on the one before (PERF.md has the measured
+times). The design therefore makes a problem small enough for several to
+share an SM and hide each other's waits: node k reads only the factors of
+nodes k-3..k-1, so shared memory holds a ring of the last three nodes'
+sub-diagonal blocks (~34 KB per problem instead of the whole 134 KB factor)
+and every block of the factor goes to device memory as soon as it is final,
+the saturation scan with it. The 21x21 Cholesky and the triangular inverse
+run in one warp with a row (then a column) per lane in registers and no
+block-wide barrier, while the other warps form the products of node k+1
+that do not need node k and the arrow column's forward-substitution sum,
+which is folded into the node loop. Only the backward sweep for ``u`` reads
+factors again, newest first, out of L2.
+:func:`ops.qp_structured.factor_banded_ring` states this schedule in plain
+PyTorch. The TPU kernel's numerical guards are kept as semantics: the 1e-20
 pivot floor, the ±1e8 clamp on every computed entry, and the ``ok`` flag
 (pivot or Schur scalar at or below 1e-20, or any entry at or above 0.99e8).
 
@@ -65,6 +73,17 @@ def factor_banded_kernel(Mband, p_col, m_pp):
         ptr(ok), B,
     )
     return {"Ldi": Ldi, "Lsub": Lsub, "u": u, "s": s, "ok": ok != 0}
+
+
+def blocks_per_sm() -> int:
+    """How many blocks (problems) of kernel 2 one SM holds at a time, from
+    the CUDA occupancy calculator."""
+    fn = ctypes.CDLL(str(KERNEL.build())).mpc_banded_factor_blocks_per_sm
+    fn.restype = ctypes.c_int
+    blocks = fn()
+    if blocks <= 0:
+        raise RuntimeError(f"kernel 2 occupancy query failed: CUDA error {-blocks}")
+    return blocks
 
 
 def factor(Mband, p_col, m_pp, bw: int):

@@ -370,6 +370,71 @@ def factor_banded(Mband, p_col, m_pp, bw: int):
     return fac
 
 
+def factor_banded_ring(Mband, p_col, m_pp, bw: int):
+    """:func:`factor_banded` without the jitter retry, in kernel 2's
+    schedule, for tests: a ring that holds the sub-diagonal blocks of the
+    last ``bw`` nodes only; per node (A) the Cholesky and inverse of S while
+    node k+1's products with nodes before k and the arrow column's
+    forward-substitution sum are formed, (B) the products with ``Ldi[k]'``
+    and ``ys[k]``, each block written out and scanned for saturation as it
+    becomes final, (C) node k+1's products with node k; then the backward
+    sweep from the written factors. Every block subtracts its products in
+    :func:`banded_cholesky`'s order."""
+    B, N, _, blk, _ = Mband.shape
+    T = lambda M: M.transpose(-1, -2)
+    eye = torch.eye(blk, dtype=Mband.dtype, device=Mband.device).expand(B, blk, blk)
+    ring = {}  # (j % bw, d - 1) -> L[j+d, j] of the last bw nodes j
+    L = lambda i, j: ring[j % bw, i - j - 1]
+    Ldi_out, Lsub_out, ys = [], [], []
+    chol_ok = torch.ones(B, dtype=torch.bool, device=Mband.device)
+    sat = Mband.new_zeros(B)
+    S = Mband[:, 0, 0]
+    C = {d: Mband[:, 0, d] for d in range(1, bw + 1)}  # M[k+d,k] less its band products
+    for k in range(N):
+        # (A) factor S; meanwhile what needs no L[., k]
+        Lkk, info = torch.linalg.cholesky_ex(S)
+        piv = torch.diagonal(Lkk, dim1=-2, dim2=-1)
+        chol_ok &= (info == 0) & ((piv * piv).amin(-1) > _PIV_FLOOR)
+        Linv = torch.linalg.solve_triangular(Lkk, eye, upper=False)
+        acc = p_col[:, k]
+        for d in range(1, min(bw, k) + 1):
+            acc = acc - _mv(L(k, k - d), ys[k - d])
+        if k + 1 < N:
+            S = Mband[:, k + 1, 0]
+            for j in range(max(0, k + 1 - bw), k):
+                S = S - L(k + 1, j) @ T(L(k + 1, j))
+            nxt = {d: Mband[:, k + 1, d] for d in range(1, bw + 1) if k + 1 + d < N}
+            for d in nxt:
+                for j in range(max(0, k + 1 + d - bw), k):
+                    nxt[d] = nxt[d] - L(k + 1 + d, j) @ T(L(k + 1, j))
+        # (B) the node's blocks become final and leave
+        for d in range(1, bw + 1):
+            ring[k % bw, d - 1] = C[d] @ T(Linv) if k + d < N else torch.zeros_like(Linv)
+        written = torch.stack([ring[k % bw, d] for d in range(bw)], dim=1)
+        Ldi_out.append(Linv)
+        Lsub_out.append(written)
+        sat = torch.maximum(sat, torch.maximum(Linv.abs().amax(dim=(1, 2)),
+                                               written.abs().amax(dim=(1, 2, 3))))
+        ys.append(_mv(Linv, acc))
+        # (C) node k+1's products with node k
+        if k + 1 < N:
+            S = S - L(k + 1, k) @ T(L(k + 1, k))
+            C = {d: nxt[d] - L(k + 1 + d, k) @ T(L(k + 1, k)) if d < bw else nxt[d] for d in nxt}
+    Ldi, Lsub = torch.stack(Ldi_out, dim=1), torch.stack(Lsub_out, dim=1)
+    xs = [None] * N
+    for k in range(N - 1, -1, -1):  # from the written factors, newest first
+        acc = ys[k]
+        for d in range(1, min(bw, N - 1 - k) + 1):
+            acc = acc - _mtv(Lsub[:, k, d - 1], xs[k + d])
+        xs[k] = _mtv(Ldi[:, k], acc)
+    u = torch.stack(xs, dim=1)
+    s = m_pp - (u * p_col).sum(dim=(1, 2))
+    sat = torch.maximum(sat, torch.maximum(u.abs().amax(dim=(1, 2)), s.abs()))
+    finite = torch.isfinite(Ldi).all(dim=(1, 2, 3)) & torch.isfinite(s) & chol_ok
+    return {"Ldi": Ldi, "Lsub": Lsub, "u": u, "s": s,
+            "ok": finite & (s > _PIV_FLOOR) & (sat < _SAT)}
+
+
 def solve_arrow_banded(ocp, fac, rhs, solve=banded_solve):
     """Solve M x = rhs (z-layout) with the banded + arrow factors;
     ``solve`` is :func:`banded_solve` or :func:`banded_solve_lookahead`."""

@@ -4,8 +4,9 @@ The "xla" backend (the portable dense loop) against JAX "xla" at float64;
 the "pallas" backend (its host part, with kernel 4's plain version on the
 CPU) against JAX "pallas" at float32 with the Pallas kernel in interpret
 mode; kernel 4's plain version against the Pallas kernel, and its
-divergence freeze over the shared variable/row axis;
-``gershgorin_regularize``."""
+divergence freeze over the shared variable/row axis; kernel 4's partition
+over a cluster of 8 blocks stated in plain PyTorch against both, and the
+wrapper's refusal of sizes that do not fit; ``gershgorin_regularize``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,11 +26,11 @@ from mpc_motion_planner_tpu_torch.ops.qp import (
 torch.set_num_threads(1)
 
 
-def _qps(seed=0, dense_P=False):
+def _qps(seed=0, dense_P=False, n=24, m=18):
     """B=5 random box QPs (n=24, m=18, 4 equality rows) as the JAX
     package's dense-QP tests build them, with soft weights on some rows."""
     rng = np.random.default_rng(seed)
-    B, n, m = 5, 24, 18
+    B = 5
     P = rng.uniform(0.1, 1.0, (B, n))
     if dense_P:
         G = rng.standard_normal((B, n, n))
@@ -148,6 +149,85 @@ def test_dense_chunk_matches_jax_chunk(kkt_refine):
     scale["yx"] = scale["zx"] * float(ops["rx"].max())
     for k in k4.STATE:
         np.testing.assert_allclose(got[k].numpy(), ref[k], rtol=0, atol=scale[k], err_msg=k)
+
+
+def _chunk_inputs(dtype, kkt_refine, n, m):
+    args, soft_kw = _qps(n=n, m=m)
+    settings = QPSettings(backend="pallas", kkt_refine=kkt_refine)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    qp = scale_dense_qp(*map(t, args), settings, **{k: t(v) for k, v in soft_kw.items()})
+    rho = torch.full((5,), settings.rho)
+    kw = dict(chunk_iters=3, check_every=1, eps_abs=1e-3, eps_rel=1e-3, sigma=1e-6,
+              alpha=1.6, kkt_refine=kkt_refine)
+    # the backend's operands are float32; the loop runs in the dtype it is given
+    cast = lambda d: {k: (v.to(dtype) if v.is_floating_point() else v) for k, v in d.items()}
+    return cast(pallas_operands(qp, rho, qp.factor(rho, settings))), cast(pallas_state(qp)), kw
+
+
+@pytest.mark.parametrize("rows, sizes", [
+    (488, [61] * 8), (400, [50] * 8), (27, [4] * 6 + [3, 0]), (21, [3] * 7 + [0]), (3, [1] * 3 + [0] * 5),
+])
+def test_row_slices_cover_the_rows_with_a_ragged_end(rows, sizes):
+    slices = k4.row_slices(rows)
+    assert [sl.stop - sl.start for sl in slices] == sizes
+    assert np.concatenate([np.arange(rows)[sl] for sl in slices]).tolist() == list(range(rows))
+
+
+# n = 27 and m = 21 are no multiples of the 8 blocks: the slices of M^-1 are
+# 4, ..., 4, 3, 0 rows, those of A 3, ..., 3, 0. float64: the partition only
+# reorders sums, 1e-12. float32: the tolerance of the chunk against the
+# Pallas kernel below, for the same reason (two orders of float32 sums
+# through M^-1).
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-12), (torch.float32, 1e-4)],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("kkt_refine", [0, 1])
+def test_partitioned_chunk_matches_plain_chunk(dtype, tol, kkt_refine):
+    """Kernel 4's partition (A and M^-1 in 8 row slices, A'u as the sum of
+    the slices' partial sums, xt gathered from the slices) through the plain
+    chunk's loop: the same done codes, counts and state."""
+    ops, state, kw = _chunk_inputs(dtype, kkt_refine, n=27, m=21)
+    ref, ref_used = k4.admm_dense_plain(ops, state, **kw)
+    got, used = k4.admm_dense_partitioned(ops, state, **kw)
+    assert got["done"].tolist() == ref["done"].tolist()
+    assert used.tolist() == ref_used.tolist()
+    scale = {k: tol * max(1.0, float(ref[k].abs().max())) for k in ("x", "zc", "zx")}
+    scale["yc"] = scale["zc"] * float(ops["rc"].max())
+    scale["yx"] = scale["zx"] * float(ops["rx"].max())
+    for k in k4.STATE:
+        np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(), rtol=0, atol=scale[k],
+                                   err_msg=k)
+
+
+def test_partitioned_chunk_matches_jax_chunk():
+    """The partition against the Pallas kernel (interpret mode) at float32,
+    with the tolerances of test_dense_chunk_matches_jax_chunk."""
+    ops, state, kw = _chunk_inputs(torch.float32, 1, n=27, m=21)
+    ref, ref_used = _jax_chunk(ops, state, **kw)
+    got, used = k4.admm_dense_partitioned(ops, state, **kw)
+    assert got["done"].tolist() == ref["done"].tolist()
+    assert used.tolist() == ref_used.tolist()
+    scale = {k: 1e-4 * max(1.0, float(np.abs(ref[k]).max())) for k in ("x", "zc", "zx")}
+    scale["yc"] = scale["zc"] * float(ops["rc"].max())
+    scale["yx"] = scale["zx"] * float(ops["rx"].max())
+    for k in k4.STATE:
+        np.testing.assert_allclose(got[k].numpy(), ref[k], rtol=0, atol=scale[k], err_msg=k)
+
+
+def test_kernel4_refuses_sizes_that_do_not_fit():
+    """The cluster's shared memory holds the path's (400, 488) with room to
+    spare and not (512, 488); the wrapper raises on the size check before it
+    looks at the tensors."""
+    assert k4.cluster_shared_bytes(400, 488) == 4 * ((61 + 50 + 15 + 8 + 8) * 400 + 9 * 64)
+    k4.check_fits(400, 488)
+    k4.check_fits(27, 21)
+    with pytest.raises(ValueError, match="shared memory"):
+        k4.check_fits(512, 488)
+    with pytest.raises(ValueError, match="at most 512"):
+        k4.check_fits(516, 8)
+    ops = {"A": torch.zeros(1, 488, 512)}
+    with pytest.raises(ValueError, match="shared memory"):
+        k4.admm_dense_kernel(ops, {}, chunk_iters=1, check_every=1, eps_abs=1e-3,
+                             eps_rel=1e-3, sigma=1e-6, alpha=1.6, kkt_refine=1)
 
 
 def test_pallas_backend_refuses_dense_P():

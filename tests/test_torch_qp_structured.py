@@ -132,6 +132,48 @@ def test_factor_banded_matches_jax(qp_data, port_ocp):
         _close(got_bad[k][[0, 2, 3]], np.asarray(ref[k])[[0, 2, 3]])
 
 
+def _bad(Mb):
+    bad = Mb.clone()
+    bad[1, 0, 0, 0, 0] = -1.0  # an indefinite first block: the guards flag problem 1
+    return bad
+
+
+# Relative to the largest entry of each factor. float64: kernel 2's schedule
+# keeps banded_cholesky's order of products and differs in nothing but where
+# a block waits, 1e-10. float32: 1e-5, as for the sweeps below.
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-10), (torch.float32, 1e-5)],
+                         ids=["float64", "float32"])
+def test_ring_schedule_factor_matches_factor_banded(qp_data, port_ocp, dtype, tol):
+    """Kernel 2's schedule in plain PyTorch (a ring of three nodes, the arrow
+    column's forward substitution inside the node loop, the backward sweep
+    from the written factors) against factor_banded, on a batch with a
+    problem the guards flag: identical ok, and the factors of the ok
+    problems."""
+    _, (Mb, pc, mpp) = _kkt(qp_data, port_ocp, 21)
+    Mb, pc, mpp = _bad(Mb).to(dtype), pc.to(dtype), mpp.to(dtype)
+    bw = port_ocp.coll.order
+    ref = tqs.factor_banded(Mb, pc, mpp, bw)
+    got = tqs.factor_banded_ring(Mb, pc, mpp, bw)
+    assert got["ok"].tolist() == ref["ok"].tolist() == [True, False, True, True]
+    for k in ("Ldi", "Lsub", "u", "s"):
+        g, r = got[k][ref["ok"]], ref[k][ref["ok"]]
+        assert float((g - r).abs().max()) <= tol * float(r.abs().max()), k
+
+
+def test_ring_schedule_factor_matches_jax(qp_data, port_ocp):
+    """The same schedule against the JAX node-level factor, the reference of
+    the JAX package's Pallas factor kernel in its own CPU tests (the kernel
+    in interpret mode takes minutes to compile), as
+    test_factor_banded_matches_jax holds the plain version."""
+    (Mb_j, pc_j, mpp_j), (Mb, pc, mpp) = _kkt(qp_data, port_ocp, 21)
+    bw = port_ocp.coll.order
+    ref = jqs.factor_banded(Mb_j, pc_j, mpp_j, bw)
+    got = tqs.factor_banded_ring(Mb, pc, mpp, bw)
+    for k in ("Ldi", "Lsub", "u", "s"):
+        _close(got[k], ref[k])
+    assert bool(got["ok"].all())
+
+
 # Tolerances relative to the largest entry of the solution. float64: the two
 # orders differ by rounding only, 1e-10. float32: 1e-5, twenty times the
 # 5e-7 these factors give either order against the float64 solve (38 block
