@@ -15,10 +15,14 @@ Panda, 19 nodes, 400 variables, 488 constraint rows) on both QP paths:
   kernel in Pallas interpret mode; see
   ``tests/fixtures/make_torch_headline_fixtures.py``).
 
-Then it times each kernel against its plain version. Kernel 2 runs several
-problems per SM and kernel 4 one problem per thread-block cluster; phases 3
-and 7 print the occupancy each reaches. Needs one CUDA GPU and
-``nvcc``; imports no JAX.
+Kernel 3 is also held against the plain loop with KKT refinement, under
+adaptive rho (dispatches of 100 iterations with kernel 2 refactoring between
+them), with the rescue budget and on a batch that is no round number (phase
+4), and drives a solve at the structured backend's default settings and a
+hot restart (phases 5b, 5c). Then the script times each kernel against its
+plain version. Kernel 2 runs several problems per SM and kernel 4 one
+problem per thread-block cluster; phases 3 and 7 print the occupancy each
+reaches. Needs one CUDA GPU and ``nvcc``; imports no JAX.
 
     python3 chip_smoke.py
 
@@ -72,6 +76,9 @@ K1_JAC_FLOPS = K1_VALUE_FLOPS * (1 + 2 * 21)
 # A' 2 x (336 x 6 + 152 x 21) = 20.8 kflop, the arrow 3.2 kflop, ~29 flop for
 # each of the 888 element-wise updates
 K3_ITER_FLOPS = 157e3
+# a refinement step runs the sweeps, A, A' and the arrow once more (131.5
+# kflop) and ~3 flop for each of the 888 rows and elements
+K3_REFINE_FLOPS = 134e3
 
 
 def log(msg: str) -> None:
@@ -146,6 +153,24 @@ def time_pair(plain, kernel, reps=3):
         torch.cuda.synchronize()
         times[name].append(start.elapsed_time(end) / reps)
     return float(np.mean(times["plain"])), float(np.mean(times["kernel"])), times
+
+
+def time_kernel(fn, reps=3, behind=None):
+    """Mean ms per call of ``fn`` with CUDA events, after one warm-up call.
+    ``behind`` keeps the card busy for longer than the host needs to enqueue
+    the calls, so that they queue up and the events time the device alone:
+    for a kernel that is shorter than its wrapper's host time."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if behind is not None:
+        torch.cuda.synchronize()
+        behind()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def iteration_agreement(got, ref, B, what):
@@ -456,6 +481,100 @@ def run(dev: torch.device) -> None:
         f"{e_order:.2e} relative (tol 1e-4); full solve: {agreement}, hard box-row violation "
         f"{box_viol:.2e} (tol 5e-3; plain {box_viol_p:.2e}), hard-row violation "
         f"{hard_ratio:.3f}x the primal tolerance (bar 1.01; plain {hard_ratio_p:.3f}x)")
+    # (c) one refinement step on every KKT solve, fixed rho, one launch: a
+    # check window against float64 as in (a), then the whole solve as in (b)
+    s_ref = dataclasses.replace(shipping, kkt_refine=1)
+    s_win = dataclasses.replace(s_ref, max_iter=shipping.check_every)
+    x_k = k3.admm_kernel(ocp, sa4, qp4, fac4, s_win)[0]
+    x_p = qp_structured.admm_plain(ocp, sa4, qp4, fac4, s_win)[0]
+    x_64 = qp_structured.admm_plain(ocp64, sa4.to(dtype=torch.float64), qp4_64, fac4_64,
+                                    s_win)[0]
+    e_k, e_p = max_abs(x_k, x_64), max_abs(x_p, x_64)
+    check(e_k <= 2 * e_p + 1e-6, f"kernel 3 with kkt_refine=1 strays from float64 by {e_k:.3e}, "
+          f"the plain float32 loop by {e_p:.3e}")
+    n3 = k3.KERNEL.launches
+    got = k3.solve_box_qp_structured_cuda(ocp, sa4, *args4, s_ref, **kw)
+    check(k3.KERNEL.launches == n3 + 1, "kernel 3 with kkt_refine=1 took more than one launch")
+    ref = qp_structured.solve_box_qp_structured(ocp, sa4, *args4, s_ref, **kw)
+    torch.cuda.synchronize()
+    agreement = iteration_agreement(got, ref, B4, "kernel 3 kkt_refine=1")
+    box_viol, hard_ratio = hard_row_ratio(
+        got.x, apply_A(ocp, sa4, got.x), lc, uc, lx, ux, kw["soft_c"], kw["soft_x"],
+        s_ref, got.converged)
+    check(box_viol < 5e-3, f"kernel 3 kkt_refine=1: hard box rows violated by {box_viol}")
+    check(hard_ratio <= 1.01, f"kernel 3 kkt_refine=1: hard rows at {hard_ratio:.3f}x the tolerance")
+    log(f"phase 4c kernel 3 B={B4}, kkt_refine=1, fixed rho, one launch: after "
+        f"{s_win.max_iter} iterations max |x - x_float64| kernel {e_k:.3e}, plain {e_p:.3e} (bar: "
+        f"kernel <= 2x plain); full solve: {agreement}, hard box-row violation {box_viol:.2e} "
+        f"(tol 5e-3), hard-row violation {hard_ratio:.3f}x the primal tolerance (bar 1.01)")
+    # (d) adaptive rho: dispatches of 100 iterations, kernel 3 and kernel 2
+    # against the plain loop and the plain factor in the same host loop
+    s_ada = dataclasses.replace(shipping, rho_update_every=100)
+    n3, n2 = k3.KERNEL.launches, k2.KERNEL.launches
+    st_k, qp_k, nref_k = qp_structured.admm_chunked(ocp, sa4, qp4, s_ada, k2.factor, k3.admm_kernel)
+    n3, n2 = k3.KERNEL.launches - n3, k2.KERNEL.launches - n2
+    st_p, qp_p, nref_p = qp_structured.admm_chunked(
+        ocp, sa4, qp4, s_ada, qp_structured.factor_banded, qp_structured.admm_plain)
+    torch.cuda.synchronize()
+    got, ref = (qp_structured.unscale_solution(q_, *s_) for q_, s_ in ((qp_k, st_k), (qp_p, st_p)))
+    agreement = iteration_agreement(got, ref, B4, "kernel 3 adaptive rho")
+    check(n3 == len(qp_structured.chunk_sizes(s_ada)) and n2 == 1 + nref_k,
+          f"adaptive rho: {n3} launches of kernel 3, {n2} of kernel 2, {nref_k} refactorizations")
+    check(nref_k == nref_p and nref_k > 0,
+          f"adaptive rho: {nref_k} refactorizations with the kernels, {nref_p} plain")
+    # a problem's rho follows its residual ratio at each boundary, so it is
+    # compared on the problems whose checks fired in the same windows: rho
+    # moved on the same ones, and to the same value as far as two float32
+    # loops' residuals near convergence agree (a ratio acts only beyond 5x)
+    same = got.iterations == ref.iterations
+    moved_k, moved_p = qp_k.rho != qp4.rho, qp_p.rho != qp4.rho
+    n_moved = int((moved_k == moved_p)[same].sum())
+    rho_gap = ((qp_k.rho - qp_p.rho).abs() / qp_p.rho)[same & moved_k & moved_p]
+    n_rho = int((rho_gap <= 0.25).sum())
+    check(n_moved >= int(same.sum()) - B4 // 8,
+          f"adaptive rho: rho moved on the same problems for only {n_moved}/{int(same.sum())}")
+    check(n_rho >= rho_gap.numel() - B4 // 8,
+          f"adaptive rho: final rho within 25% on only {n_rho}/{rho_gap.numel()} problems")
+    box_viol, hard_ratio = hard_row_ratio(
+        got.x, apply_A(ocp, sa4, got.x), lc, uc, lx, ux, kw["soft_c"], kw["soft_x"],
+        s_ada, got.converged)
+    check(hard_ratio <= 1.01, f"kernel 3 adaptive rho: hard rows at {hard_ratio:.3f}x the tolerance")
+    log(f"phase 4d kernels 2 + 3 B={B4}, rho_update_every=100, budget {s_ada.max_iter}: {n3} "
+        f"launches of kernel 3, {n2} of kernel 2, refactorizations kernel {nref_k}, plain "
+        f"{nref_p}; {agreement}; of the {int(same.sum())} problems whose iteration counts are "
+        f"equal rho moved or stayed alike on {n_moved}, and where it moved the final rho is "
+        f"within 25% on {n_rho}/{rho_gap.numel()} (bars: all but {B4 // 8}; median gap "
+        f"{float(rho_gap.median()) if rho_gap.numel() else 0.0:.2e}, largest "
+        f"{float(rho_gap.max()) if rho_gap.numel() else 0.0:.2e}), range kernel "
+        f"{float(qp_k.rho.min()):.3g}..{float(qp_k.rho.max()):.3g}, plain "
+        f"{float(qp_p.rho.min()):.3g}..{float(qp_p.rho.max()):.3g}; hard box-row violation "
+        f"{box_viol:.2e}, hard-row violation {hard_ratio:.3f}x the primal tolerance (bar 1.01)")
+    # (e) the rescue budget on a batch that is no round number: a budget cut
+    # to 100 leaves stragglers, which alone use the 200 rescue iterations
+    Bo = B_ODD
+    sa_o = qp_structured.StructuredA(sa4.p[:Bo], sa4.f_rows[:Bo], sa4.J[:Bo])
+    args_o = tuple(a[:Bo] for a in args4)
+    kw_o = {k: v[:Bo] for k, v in kw.items()}
+    s_cut = dataclasses.replace(shipping, max_iter=100)
+    s_res = dataclasses.replace(s_cut, rescue_iters=200)
+    cut = k3.solve_box_qp_structured_cuda(ocp, sa_o, *args_o, s_cut, **kw_o)
+    got = k3.solve_box_qp_structured_cuda(ocp, sa_o, *args_o, s_res, **kw_o)
+    ref = qp_structured.solve_box_qp_structured(ocp, sa_o, *args_o, s_res, **kw_o)
+    torch.cuda.synchronize()
+    agreement = iteration_agreement(got, ref, Bo, "kernel 3 rescue")
+    n_strag = int((~cut.converged).sum())
+    n_rescued = int((got.converged & ~cut.converged).sum())
+    check(0 < n_strag < Bo, f"rescue: {n_strag}/{Bo} stragglers at budget 100")
+    check(int(got.iterations.max()) <= 300 and int(got.iterations[~cut.converged].min()) > 100,
+          "rescue: stragglers did not run past the budget, or ran past the rescue budget")
+    check(torch.equal(got.x[cut.converged], cut.x[cut.converged])
+          and torch.equal(got.iterations[cut.converged], cut.iterations[cut.converged]),
+          "rescue: a problem converged inside the budget changed")
+    check(n_rescued > 0, "rescue: no straggler converged in 200 more iterations")
+    log(f"phase 4e kernel 3 B={Bo}, budget 100 + rescue 200: {n_strag} stragglers at budget "
+        f"100, {n_rescued} of them converge in the rescue iterations (most iterations "
+        f"{int(got.iterations.max())}), the other {Bo - n_strag} problems bitwise as without "
+        f"rescue; {agreement}")
     del sa_f, args_f, sc_f, sx_f
 
     # ---- phase 5: the structured main path at B=2048 ----
@@ -487,6 +606,63 @@ def run(dev: torch.device) -> None:
     log(f"phase 5 timing: cold solve {t_cold:.3f} s, warm solve {t_warm:.3f} s = "
         f"{B_MAIN / t_warm:.1f} solves/s on {smi}")
     del sol
+
+    # ---- phase 5b: the structured path at its default settings (adaptive
+    # rho every 100 iterations, budgets 700/700) on the same states ----
+    default_qp = dense_qp.QPSettings(backend="structured")
+    default_planner = MotionPlanner(margins=Margins(*MARGINS), dtype=f32, device=dev,
+                                    qp_settings=default_qp, sqp_settings=SQPSettings())
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = default_planner.solve(cur_all, tgt_all)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    counts_b, refactors = kernels.launch_counts(), k3.REFACTORS.count
+    n_chunks = len(qp_structured.chunk_sizes(default_qp))
+    check(counts_b == {"constraints": 5, "banded_factor": 2 + refactors,
+                       "structured_admm": 2 * n_chunks, "admm_dense": 0},
+          f"default structured path launch counts {counts_b}, {refactors} refactorizations")
+    check(refactors > 0, "default structured path never refactored")
+    finite = all(bool(torch.isfinite(t).all()) for t in (sol.z, sol.violation, sol.lam_c, sol.lam_x))
+    check(finite, "default structured path produced non-finite outputs")
+    q5b = quality(default_planner, sol, tgt_all)
+    check(q5b["tol_hit"] >= 0.99, f"default structured path tol_hit_rate {q5b['tol_hit']}")
+    del sol
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    default_planner.solve(cur_all, tgt_all)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    log(f"phase 5b structured path at QPSettings(backend='structured') defaults B={B_MAIN}: "
+        f"launches {counts_b}, refactorizations {refactors}, ok-flag repairs {k2.REPAIRS.count}, "
+        f"quality {json.dumps(q5b)}; qp_conv_rate {q5b['qp_conv']:.5f} beside the shipping "
+        f"configuration's {q5['qp_conv']:.5f}")
+    log(f"phase 5b timing: cold solve {t_cold:.3f} s, warm solve {t_warm:.3f} s = "
+        f"{B_MAIN / t_warm:.1f} solves/s on {smi}")
+
+    # ---- phase 5c: a hot restart on the shipping path: a cold solve, then a
+    # solve seeded with its iterate and duals towards targets whose joint
+    # positions moved by 0.01 rad, through the port's example ----
+    from mpc_motion_planner_tpu_torch.examples import hot_restart
+
+    cold_row, hot_row = hot_restart.receding_chain(
+        planner, cur_all, tgt_all, steps=2, fraction=0.0, hot=True, target_shift=0.01)
+    cold, hot = cold_row["solution"], hot_row["solution"]
+    check(cold.warm_start is not None and hot.warm_start is None,
+          "the hot restart planned an OTG trajectory")
+    it_cold, it_hot = (float(s_.qp_iterations.sum(-1).float().median()) for s_ in (cold, hot))
+    check(it_hot < it_cold, f"hot restart: median QP iterations {it_hot} against the cold solve's "
+          f"{it_cold}")
+    q5c = quality(planner, hot, hot_row["target"])
+    check(q5c["tol_hit"] >= 0.99, f"hot restart tol_hit_rate {q5c['tol_hit']}")
+    log(f"phase 5c hot restart B={B_MAIN} (structured shipping path, targets moved by 0.01 rad): "
+        f"QP iterations per solve, median over the batch: cold {it_cold:.0f}, restart "
+        f"{it_hot:.0f}; per SQP step cold {cold.qp_iterations.float().median(0).values.tolist()}, "
+        f"restart {hot.qp_iterations.float().median(0).values.tolist()}; wall cold "
+        f"{cold_row['wall_ms']:.1f} ms, restart {hot_row['wall_ms']:.1f} ms; restart quality "
+        f"{json.dumps(q5c)}")
+    del cold, hot, cold_row, hot_row
 
     # ---- phase 6: the JAX structured fixture ----
     n_good, n_fx, summary = fixture_agreement(planner, FIXTURE, dev)
@@ -699,26 +875,34 @@ def run(dev: torch.device) -> None:
           and torch.allclose(J_k, J_p, rtol=2e-4, atol=5e-5),
           f"kernel 1 differs on the step-0 iterates: values {max_abs(g_k, g_p)}, "
           f"Jacobian {max_abs(J_k, J_p)}")
-    results["constraints"].update(ms=k_ms, plain_ms=p_ms)
+    # the launch is shorter than the wrapper's host time, so the kernel's
+    # own time is taken with the launches queued behind a long product
+    big = torch.ones(8192, 8192, device=dev)
+    busy = lambda: big @ big
+    d_ms = time_kernel(lambda: k1.node_constraints_kernel(ocp, X, U, True), reps=20, behind=busy)
+    results["constraints"].update(ms=d_ms, plain_ms=p_ms)
     F = X.shape[0] * X.shape[1]
     text = report_bound(results["constraints"], F * K1_JAC_FLOPS,
                         tensor_bytes(X, U, g_k, J_k), "value pass and 21 tangents")
-    log(f"phase 10 kernel 1 with Jacobian F={F}: kernel {k_ms:.3f} ms, "
+    log(f"phase 10 kernel 1 with Jacobian F={F}: kernel {d_ms:.4f} ms on the device's clock "
+        f"({k_ms:.3f} ms per wrapper call on an idle card, host time included), "
         f"plain {p_ms:.3f} ms (runs {raw}); {text}; on the step-0 iterates max abs err values "
         f"{max_abs(g_k, g_p):.3e}, Jacobian {max_abs(J_k, J_p):.3e} (phase 2's tolerances)")
     del g_k, J_k, g_p, J_p
     out.clear()
-    Xl = X.repeat(10, 1, 1)
-    Ul = U.repeat(10, 1, 1)
+    Xl, Ul, _ = ocp.unpack(z0.repeat(10, 1))  # views of the iterates, as the line search's
     p_ms, k_ms, raw = time_pair(
         lambda: k1.node_constraints_plain(ocp, Xl, Ul, False),
         lambda: k1.node_constraints_kernel(ocp, Xl, Ul, False),
     )
+    d_ms = time_kernel(lambda: k1.node_constraints_kernel(ocp, Xl, Ul, False), reps=20,
+                       behind=busy)
     F = Xl.shape[0] * Xl.shape[1]
     b_ms, b_by = bound(F * K1_VALUE_FLOPS, tensor_bytes(Xl, Ul) + F * 8 * 4)
-    log(f"phase 10 kernel 1 values only F={F}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-        f"(runs {raw}); bound {b_ms:.4f} ms by {b_by}, share reached {100 * b_ms / k_ms:.1f}%")
-    del Xl, Ul
+    log(f"phase 10 kernel 1 values only F={F}: kernel {d_ms:.4f} ms on the device's clock "
+        f"({k_ms:.3f} ms per wrapper call on an idle card), plain {p_ms:.3f} ms (runs {raw}); "
+        f"bound {b_ms:.4f} ms by {b_by}, share reached {100 * b_ms / d_ms:.1f}%")
+    del Xl, Ul, big
     qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
     p_ms, k_ms, raw = time_pair(
         keep("plain", lambda: qp_structured.factor_banded(qp.Mband, qp.p_col, qp.m_pp, 3)),
@@ -782,6 +966,21 @@ def run(dev: torch.device) -> None:
         f"{k_ms:.3f} ms = {1e3 * k_ms / s_win.max_iter / waves:.2f} us per iteration per "
         f"block ({waves} waves of {sms} x {per_sm} blocks), plain {p_ms:.3f} ms (runs {raw}); "
         f"bound {b_ms:.4f} ms by {b_by}, share reached {100 * b_ms / k_ms:.1f}%")
+    # the same two launches with one refinement step on every KKT solve
+    s_ref = dataclasses.replace(shipping, kkt_refine=1)
+    for what, s_ in ((f"budget {s_ref.max_iter}", s_ref),
+                     (f"exactly {s_win.max_iter} iterations",
+                      dataclasses.replace(s_ref, max_iter=s_win.max_iter))):
+        k_ms = time_kernel(keep("kernel", lambda: k3.admm_kernel(ocp, sa, qp, fac, s_)))
+        n_it = int(out["kernel"][6].sum())
+        conv = float((out["kernel"][5] == 1).double().mean())
+        out.clear()
+        b_ms, b_by = bound(n_it * (K3_ITER_FLOPS + K3_REFINE_FLOPS), k3_bytes)
+        log(f"phase 10 kernel 3 B={B_MAIN}, kkt_refine=1, {what}: kernel {k_ms:.3f} ms, "
+            f"{n_it} problem-iterations of {(K3_ITER_FLOPS + K3_REFINE_FLOPS) / 1e3:.0f} kflop "
+            f"({1e3 * k_ms * sms * per_sm / n_it:.2f} us per iteration per block at full "
+            f"occupancy), converged {conv:.4f}; bound {b_ms:.4f} ms by {b_by}, share reached "
+            f"{100 * b_ms / k_ms:.1f}%")
     del z0, sa, args, qp, fac
 
     args10, dq, sc10, sx10 = first_qp(B_MAIN, dense=True, settings=dense_cfg)

@@ -1,11 +1,17 @@
 """Time one hand-written kernel against other builds of it on one GPU, in
 turns.
 
-Builds the package's source of kernel 2, 3 or 4 and any number of variants
+Builds the package's source of kernel 1, 2, 3 or 4 and any number of variants
 (another source with the same C entry point, for example the file of an
 earlier commit), runs each on the step-0 QPs of the headline states, and
 prints one JSON line per variant:
 
+* kernel 1 (``csrc/constraints.cu``): its time with the Jacobian on the
+  step-0 iterates (F = 19 B evaluations) and values only on ten copies of
+  them (the line search's launch), through the wrapper on an idle card
+  (host time included) and for the launch alone on the device's clock
+  (queued behind a long product); the largest difference of g and J from
+  the plain path's.
 * kernel 2 (``csrc/banded_factor.cu``): its time; whether its ``ok`` flags
   are those of the plain ``factor_banded``; the max-norm relative error of
   ``Ldi``, ``Lsub``, ``u``, ``s`` against it.
@@ -29,12 +35,20 @@ earlier commit:
     git show <commit>:mpc_motion_planner_tpu_torch/csrc/admm_dense.cu > build/variants/old.cu
     git show <commit>:mpc_motion_planner_tpu_torch/csrc/common.cuh > build/variants/common.cuh
 
+Two C interfaces have changed since the kernels were first written, and a
+variant that still has the earlier one is recognised by its source and
+called through it: kernel 1 before it read its inputs in place (one
+concatenated ``xu`` array; the earlier wrapper's ``torch.cat`` copy is then
+part of the wrapper's time), and kernel 3 before it took the ADMM state and
+``kkt_refine`` (it starts from the initial state, as every call here does).
+
 Needs one CUDA GPU and ``nvcc``.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import os
@@ -48,6 +62,7 @@ from .. import config
 from ..kernels import admm_dense as k4
 from ..kernels import banded_factor as k2
 from ..kernels import build
+from ..kernels import constraints as k1
 from ..kernels import structured_admm as k3
 from ..ocp import make_ocp
 from ..ops import qp as dense_qp
@@ -58,7 +73,7 @@ from ..planner import Margins, MotionPlanner
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 STATES = os.path.join(ROOT, "tests", "fixtures", "headline_states_b2048.npz")
 MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
-MODULES = {2: k2, 3: k3, 4: k4}
+MODULES = {1: k1, 2: k2, 3: k3, 4: k4}
 # the dense path's configuration on the headline (chip_smoke.py phase 7)
 DENSE = dense_qp.QPSettings(
     backend="pallas", kkt_refine=1, rho_update_every=0, kkt_factor="lu", ruiz_iters=2,
@@ -108,15 +123,79 @@ def run_with(module, kernel, fn, *args, **kw):
         module.KERNEL = saved
 
 
-def time_in_turns(kernels, call, reps):
+class EarlierAdmmKernel(build.CudaKernel):
+    """A build of kernel 3 with the interface it had before it took the ADMM
+    state and ``kkt_refine``: 33 pointers, no refinement argument."""
+
+    STATE_IN = slice(24, 28)  # rp0, rd0, done0, iters0 in struct Ptrs
+
+    def __init__(self, name, source):
+        super().__init__(name, source, k3.KERNEL.entry,
+                         [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_float] * 4
+                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+    def launch(self, ptrs, Dm, sigma, alpha, eps_abs, eps_rel, cap, check_every, kkt_refine, B):
+        if kkt_refine:
+            raise ValueError("this build of kernel 3 has no KKT refinement")
+        keep = list(ptrs)
+        del keep[self.STATE_IN]
+        super().launch((ctypes.c_void_p * len(keep))(*keep), Dm, sigma, alpha, eps_abs,
+                       eps_rel, cap, check_every, B)
+
+
+class EarlierConstraintsKernel(build.CudaKernel):
+    """A build of kernel 1 with the interface it had before it read its
+    inputs in place: one contiguous (F, 21) array of [q, qdot, u]."""
+
+    def __init__(self, name, source):
+        super().__init__(name, source, k1.KERNEL.entry,
+                         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def earlier_constraints(kernel, ocp, X, U, with_jac, xu=None):
+    """Kernel 1's wrapper as it was with that interface: ``torch.cat`` of X
+    and U into ``xu`` (skipped if ``xu`` is given: the launch alone)."""
+    B, nodes = X.shape[0], X.shape[1]
+    consts, tool_parent = k1.BAKED.get(
+        (ocp.model, ocp.tool_frame), X.device, lambda: k1.bake_model(ocp.model, ocp.tool_frame))
+    if xu is None:
+        xu = torch.cat([X, U], dim=-1).reshape(B * nodes, 21).to(torch.float32).contiguous()
+    F = xu.shape[0]
+    g = torch.empty(F, 8, dtype=torch.float32, device=xu.device)
+    J = torch.empty(F, 8, 21, dtype=torch.float32, device=xu.device) if with_jac else None
+    kernel.launch(consts.ctypes.data_as(ctypes.c_void_p), tool_parent, build.ptr(xu), build.ptr(g),
+                  build.ptr(J) if with_jac else None, F, int(with_jac))
+    g = g.reshape(B, nodes, 8)
+    return (g, J.reshape(B, nodes, 8, 21)) if with_jac else g
+
+
+def variant_kernel(number, name, path):
+    """The build of a variant source, through the interface its source has."""
+    text = open(path).read()
+    label = f"{MODULES[number].KERNEL.name}_{name}"
+    if number == 1 and "x_stride" not in text:
+        return EarlierConstraintsKernel(label, path)
+    if number == 3 and "kkt_refine" not in text:
+        return EarlierAdmmKernel(label, path)
+    k = MODULES[number].KERNEL
+    return build.CudaKernel(label, path, k.entry, k.argtypes)
+
+
+def time_in_turns(kernels, call, reps, behind=None):
     """ms per call of ``call(kernel)`` for each build, first to last and
     last to first, after one warm-up call each. Returns (times, the warm-up
-    calls' outputs)."""
+    calls' outputs). ``behind``: a function that keeps the card busy for
+    longer than the host needs to enqueue ``reps`` calls; the calls then
+    queue up behind it and the events time the device alone, which matters
+    for a kernel shorter than its wrapper's host time."""
     out = {name: call(k) for name, k in kernels.items()}
     torch.cuda.synchronize()
     times = {name: [] for name in kernels}
     for name in list(kernels) + list(kernels)[::-1]:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if behind is not None:
+            behind()
         start.record()
         for _ in range(reps):
             call(kernels[name])
@@ -124,6 +203,47 @@ def time_in_turns(kernels, call, reps):
         torch.cuda.synchronize()
         times[name].append(start.elapsed_time(end) / reps)
     return times, out
+
+
+def ab_constraints(kernels, planner, cur, tgt, reps):
+    """Kernel 1 on the step-0 iterates: with the Jacobian (the linearization's
+    launch) and values only on ten copies (the line search's launch)."""
+    ocp = planner.ocp
+    z0 = planner.warm_start_vector(planner.plan_warm_start(cur, tgt))
+    zl = z0.repeat(10, 1)
+    results = {name: {} for name in kernels}
+    big = torch.ones(8192, 8192, device=z0.device)
+    busy = lambda: big @ big  # tens of ms of float32 product
+    for label, z, with_jac in (("jacobian", z0, True), ("values", zl, False)):
+        X, U, _ = ocp.unpack(z)
+        xu = torch.cat([X, U], dim=-1).reshape(-1, 21).contiguous()
+        plain = k1.node_constraints_plain(ocp, X, U, with_jac)
+
+        def wrapper(k):
+            if isinstance(k, EarlierConstraintsKernel):
+                return earlier_constraints(k, ocp, X, U, with_jac)
+            return run_with(k1, k, k1.node_constraints_kernel, ocp, X, U, with_jac)
+
+        def launch(k):
+            if isinstance(k, EarlierConstraintsKernel):
+                return earlier_constraints(k, ocp, X, U, with_jac, xu=xu)
+            return wrapper(k)  # reads X and U in place: nothing but the launch
+
+        # wrapper: on an idle card, the host's time included; device: the
+        # launch alone, queued behind a long product
+        for what, call, behind in (("wrapper", wrapper, None), ("device", launch, busy)):
+            times, out = time_in_turns(kernels, call, reps, behind)
+            for name in kernels:
+                r = results[name]
+                r[f"{label}_{what}_ms"] = float(np.mean(times[name]))
+                r[f"{label}_{what}_ms_runs"] = times[name]
+                got = out[name] if with_jac else (out[name],)
+                ref = plain if with_jac else (plain,)
+                r[f"{label}_evaluations"] = X.shape[0] * X.shape[1]
+                r[f"{label}_max_abs_err_g"] = max_abs(got[0], ref[0])
+                if with_jac:
+                    r["jacobian_max_abs_err_J"] = max_abs(got[1], ref[1])
+    return results
 
 
 def ab_factor(kernels, planner, cur, tgt, reps):
@@ -197,8 +317,7 @@ def main(argv=None) -> int:
     kernels = {"package": module.KERNEL}
     for spec in a.variants:
         name, _, path = spec.partition("=")
-        kernels[name] = build.CudaKernel(f"{module.KERNEL.name}_{name}", os.path.abspath(path),
-                                         module.KERNEL.entry, module.KERNEL.argtypes)
+        kernels[name] = variant_kernel(a.kernel, name, os.path.abspath(path))
     for name, k in kernels.items():
         k.function()
         info = [ln.strip() for ln in k.build_log.splitlines()
@@ -216,7 +335,10 @@ def main(argv=None) -> int:
     tgt = torch.as_tensor(states["target"][: a.batch], device=dev)
     to64 = lambda d: {k: (v.double() if v.is_floating_point() else v) for k, v in d.items()}
 
-    if a.kernel == 2:
+    if a.kernel == 1:
+        results = ab_constraints(kernels, planner, cur, tgt, a.reps)
+        shape = {}
+    elif a.kernel == 2:
         results = ab_factor(kernels, planner, cur, tgt, a.reps)
         shape = {}
     elif a.kernel == 3:

@@ -2,14 +2,16 @@
 
 Solves the headline states (``tests/fixtures/headline_states_b2048.npz``)
 with the shipping structured configuration (or ``--dense``: the headline's
-dense ``pallas`` configuration): one cold solve, ``--warm`` warm solves on
+dense ``pallas`` configuration; or ``--default``: the structured backend at
+its default settings, adaptive rho every 100 iterations and budgets
+700/700): one cold solve, ``--warm`` warm solves on
 the host clock, then one solve under ``torch.profiler``. From the trace's
 device events (kernels, copies, memsets) it takes the device-busy time as
 the union of their intervals, the idle share against the median warm solve,
 and the device time of each hand-written kernel by name. Wall times are
 taken before the profiler starts, which slows later solves.
 
-    python -m mpc_motion_planner_tpu_torch.bench.profile_solve [--dense] [--warm 5]
+    python -m mpc_motion_planner_tpu_torch.bench.profile_solve [--dense | --default] [--warm 5]
 
 Prints one JSON object, then the card's name and power limit. Needs one
 CUDA GPU and ``nvcc``.
@@ -65,11 +67,15 @@ def device_events(trace_path):
             if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES]
 
 
-def make_planner(dense: bool, dev) -> MotionPlanner:
-    if dense:
+def make_planner(which: str, dev) -> MotionPlanner:
+    """The planner of a path: "structured" (shipping), "dense" or
+    "structured_default"."""
+    if which == "dense":
         qp = QPSettings(backend="pallas", kkt_refine=1, rho_update_every=0, kkt_factor="lu",
                         ruiz_iters=2, rho=0.1, alpha=1.6, max_iter=700, check_every=25)
         sqp = SQPSettings()
+    elif which == "structured_default":
+        qp, sqp = QPSettings(backend="structured"), SQPSettings()
     else:
         qp = config.SHIPPING_QP_SETTINGS
         sqp = SQPSettings(qp_step_schedules=config.shipping_sqp_schedules(qp.backend))
@@ -79,7 +85,10 @@ def make_planner(dense: bool, dev) -> MotionPlanner:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--dense", action="store_true", help="the dense pallas configuration")
+    group = ap.add_mutually_exclusive_group()
+    group.add_argument("--dense", action="store_true", help="the dense pallas configuration")
+    group.add_argument("--default", action="store_true",
+                       help="the structured backend at its default settings (adaptive rho)")
     ap.add_argument("--warm", type=int, default=5, help="warm solves on the host clock")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -91,7 +100,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    planner = make_planner(a.dense, dev)
+    which = "dense" if a.dense else "structured_default" if a.default else "structured"
+    planner = make_planner(which, dev)
     states = np.load(STATES)
     cur = torch.as_tensor(states["current"], device=dev)
     tgt = torch.as_tensor(states["target"], device=dev)
@@ -124,11 +134,12 @@ def main(argv=None) -> int:
     }
     median = float(np.median(warm))
     print(json.dumps({
-        "path": "dense" if a.dense else "structured", "batch": int(cur.shape[0]),
+        "path": which, "batch": int(cur.shape[0]),
         "cold_solve_ms": cold_ms, "warm_solve_ms": warm, "warm_solve_ms_median": median,
         "solves_per_s": 1e3 * cur.shape[0] / median,
         "traced_solve_ms": traced_ms, "device_busy_ms": busy, "device_events": len(events),
         "idle_share": 1.0 - busy / median, "launches": kernels.launch_counts(),
+        "refactorizations": kernels.structured_admm.REFACTORS.count,
         "kernel_device_ms": by_kernel,
         "qp_conv_rate": float(sol.qp_converged.double().mean()),
     }), flush=True)

@@ -7,13 +7,47 @@
 // sweeps over the 7 revolute joints in link coordinates, gravity through the
 // base acceleration, and the tool height from the world FK.
 //
-// Design (see kernels/constraints.py): the value launch runs one thread per
-// evaluation in float; the Jacobian launch runs one thread per (evaluation,
-// input direction j) in single-tangent dual numbers seeded on input j, and
-// writes column j of the evaluation's Jacobian (direction 0 also writes g).
-// The forward sweep keeps per joint only sin/cos of q and the body wrench;
-// the backward sweep rebuilds the joint rotation from them, which keeps the
-// dual-number version inside the register file.
+// What bounds it on an H100: instructions. An evaluation reads 21 floats and
+// writes 8 or 176, while a value pass is ~1.5 kflop in chains of dependent
+// 3-vector operations, and a tangent costs twice a value.
+//
+// What the design does about it:
+// * Jacobian launch: one thread per (evaluation, joint j), a block of 7 warps
+//   over a tile of 32 evaluations, warp j holding joint j of all 32. The
+//   thread carries the value and the three tangents along q_j, qdot_j and
+//   u_j (type D3), so an evaluation's value pass runs 7 times, not 21, and
+//   writes columns j, 7 + j and 14 + j of the Jacobian. j is uniform in a
+//   warp, so the branches on it cost nothing: joints before j run the
+//   forward sweep in plain floats (their tangents are zero), joint j alone
+//   has a rotation with a tangent, joints after j multiply tangents by float
+//   rotations; the backward sweep does the same in reverse. Warp 0's pass is
+//   the dearest (tangents from joint 0 on), but four warps that take joints p
+//   and 6 - p in turn, for equal work, were 10% slower than these seven.
+// * The joint loops are not unrolled: three short bodies (float, D3 x D3, D3
+//   x float) stay in the instruction cache, where seven warps on seven paths
+//   through 21 unrolled bodies would not. The per-joint quantities the
+//   backward sweep needs (sin, cos, the body wrench and its tangents) are
+//   then indexed by the loop and live in local memory, interleaved by thread
+//   and touched only where a thread's j makes it write them; the robot
+//   constants, which travel by value in the parameter struct, are read there
+//   by a joint index (through the constant cache: a copy in shared memory
+//   was 9% slower).
+// * Value launch: one thread per evaluation, 128 per block, the same float
+//   joint steps with the joint loops unrolled: the constants are then
+//   operands at fixed places of the parameter struct, and the per-joint
+//   quantities stay in registers. The pass is ~2.7k instructions per
+//   evaluation and bound by instruction throughput, so a thread loads its
+//   own 21 inputs and stores its 8 outputs as two 16-byte words: staging
+//   them through shared memory for coalescing cost 18% more time than it
+//   saved.
+// * Inputs are read where they lie (q, qdot in X and u in U, by base pointer
+//   and batch stride, so views of z need no copy). The Jacobian launch
+//   stages them with coalesced loads into shared memory, where the 7 warps
+//   of an evaluation share them, and g and J leave through shared-memory
+//   tiles (a tile row padded to an odd stride) in 16-byte coalesced stores:
+//   a thread's 24 entries of J lie 28 bytes apart.
+// * sincosf stays at full precision: the torques reach ~100 Nm and the
+//   comparison with the plain path holds them to 2e-5.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -22,8 +56,10 @@
 namespace {
 
 constexpr int NJ = 7;
+constexpr int NQX = 2 * NJ;  // [q, qdot] per evaluation in X
 constexpr int NIN = 3 * NJ;  // [q, qdot, u]
 constexpr int NG = NJ + 1;
+constexpr int JROW = NG * NIN;  // 168 floats of Jacobian per evaluation
 
 struct Joint {
   float R0[9], t[3], axis[3], K[9], K2[9], mass, mc[3], Io[9];
@@ -37,42 +73,42 @@ struct Robot {
   int tool_parent;
 };
 
-struct Dual {
-  float v, d;
+// Where the inputs lie: evaluation f = b * nodes + n reads q, qdot at
+// x + b * x_stride + n * 14 and u at u + b * u_stride + n * 7.
+struct Inputs {
+  const float *x, *u;
+  long long x_stride, u_stride;
+  int nodes;
 };
-__device__ __forceinline__ Dual operator+(Dual a, Dual b) { return {a.v + b.v, a.d + b.d}; }
-__device__ __forceinline__ Dual operator-(Dual a, Dual b) { return {a.v - b.v, a.d - b.d}; }
-__device__ __forceinline__ Dual operator-(Dual a) { return {-a.v, -a.d}; }
-__device__ __forceinline__ Dual operator*(Dual a, Dual b) { return {a.v * b.v, a.v * b.d + a.d * b.v}; }
-__device__ __forceinline__ Dual operator*(float s, Dual a) { return {s * a.v, s * a.d}; }
-__device__ __forceinline__ Dual operator*(Dual a, float s) { return {s * a.v, s * a.d}; }
-__device__ __forceinline__ Dual operator+(Dual a, float s) { return {a.v + s, a.d}; }
-__device__ __forceinline__ Dual operator+(float s, Dual a) { return {a.v + s, a.d}; }
-__device__ __forceinline__ Dual operator-(float s, Dual a) { return {s - a.v, -a.d}; }
-__device__ __forceinline__ void sincos_t(Dual x, Dual* s, Dual* c) {
-  float sv, cv;
-  sincosf(x.v, &sv, &cv);
-  *s = {sv, cv * x.d};
-  *c = {cv, -sv * x.d};
-}
-__device__ __forceinline__ void sincos_t(float x, float* s, float* c) { sincosf(x, s, c); }
-__device__ __forceinline__ float value_of(float x) { return x; }
-__device__ __forceinline__ float value_of(Dual x) { return x.v; }
-__device__ __forceinline__ float tangent_of(Dual x) { return x.d; }
 
-template <typename T> __device__ __forceinline__ T zero_t() { return T{}; }
-
-// y = M v for a 3x3 matrix of T, row-major
-template <typename T, typename M>
-__device__ __forceinline__ void mv(const M* m, const T* v, T* y) {
-#pragma unroll
-  for (int a = 0; a < 3; ++a) y[a] = m[3 * a] * v[0] + m[3 * a + 1] * v[1] + m[3 * a + 2] * v[2];
+// A value and its tangents along q_j, qdot_j and u_j.
+struct D3 {
+  float v, a, b, c;
+};
+__device__ __forceinline__ D3 operator+(D3 x, D3 y) { return {x.v + y.v, x.a + y.a, x.b + y.b, x.c + y.c}; }
+__device__ __forceinline__ D3 operator-(D3 x, D3 y) { return {x.v - y.v, x.a - y.a, x.b - y.b, x.c - y.c}; }
+__device__ __forceinline__ D3 operator-(D3 x) { return {-x.v, -x.a, -x.b, -x.c}; }
+__device__ __forceinline__ D3 operator*(D3 x, D3 y) {
+  return {x.v * y.v, x.v * y.a + x.a * y.v, x.v * y.b + x.b * y.v, x.v * y.c + x.c * y.v};
 }
-// y = M^T v
-template <typename T, typename M>
-__device__ __forceinline__ void mtv(const M* m, const T* v, T* y) {
+__device__ __forceinline__ D3 operator*(float s, D3 x) { return {s * x.v, s * x.a, s * x.b, s * x.c}; }
+__device__ __forceinline__ D3 operator*(D3 x, float s) { return {s * x.v, s * x.a, s * x.b, s * x.c}; }
+__device__ __forceinline__ D3 operator+(D3 x, float s) { return {x.v + s, x.a, x.b, x.c}; }
+__device__ __forceinline__ D3 operator+(float s, D3 x) { return {x.v + s, x.a, x.b, x.c}; }
+__device__ __forceinline__ D3 operator-(float s, D3 x) { return {s - x.v, -x.a, -x.b, -x.c}; }
+__device__ __forceinline__ D3 lift(float x) { return {x, 0.f, 0.f, 0.f}; }
+
+// y = M^T v for a row-major 3x3 M
+template <typename T, typename M, typename V>
+__device__ __forceinline__ void mtv(const M* m, const V* v, T* y) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) y[a] = m[a] * v[0] + m[3 + a] * v[1] + m[6 + a] * v[2];
+}
+// y = M v
+template <typename T, typename M, typename V>
+__device__ __forceinline__ void mv(const M* m, const V* v, T* y) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) y[a] = m[3 * a] * v[0] + m[3 * a + 1] * v[1] + m[3 * a + 2] * v[2];
 }
 template <typename T, typename A, typename B>
 __device__ __forceinline__ void cross(const A* a, const B* b, T* c) {
@@ -98,177 +134,392 @@ __device__ __forceinline__ void joint_rotation(const Joint& J, T s, T c, T* R) {
       R[3 * a + b] = J.R0[3 * a] * Ra[b] + J.R0[3 * a + 1] * Ra[3 + b] + J.R0[3 * a + 2] * Ra[6 + b];
 }
 
-// g = [tau; height] for one evaluation with inputs xu = [q, qdot, u].
+// The link state the forward sweep carries from joint to joint: the spatial
+// velocity and acceleration in link coordinates, and row 2 of the world
+// rotation with z of the origin (all the tool height needs).
 template <typename T>
-__device__ void eval_constraints(const Robot& C, const T* xu, T* g) {
-  T vw[3], vv[3], aw[3], av[3];
+struct Link {
+  T vw[3], vv[3], aw[3], av[3], Rw2[3], pz;
+};
+
+__device__ __forceinline__ void base_link(const Robot& C, Link<float>& L) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    vw[a] = vv[a] = aw[a] = zero_t<T>();
-    av[a] = zero_t<T>() + (-C.gravity[a]);
+    L.vw[a] = L.vv[a] = L.aw[a] = 0.f;
+    L.av[a] = -C.gravity[a];
+    L.Rw2[a] = a == 2 ? 1.f : 0.f;
   }
-  T sq[NJ], cq[NJ];
-  T fbw[NJ][3], fbv[NJ][3];  // body wrench per joint
-  // world FK: only the third row of the rotation and z of the origin matter
-  T Rw2[3] = {zero_t<T>(), zero_t<T>(), zero_t<T>() + 1.0f};
-  T pz = zero_t<T>();
-  T height = zero_t<T>();
+  L.pz = 0.f;
+}
 
+__device__ __forceinline__ void lift_link(const Link<float>& F, Link<D3>& L) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    L.vw[a] = lift(F.vw[a]);
+    L.vv[a] = lift(F.vv[a]);
+    L.aw[a] = lift(F.aw[a]);
+    L.av[a] = lift(F.av[a]);
+    L.Rw2[a] = lift(F.Rw2[a]);
+  }
+  L.pz = lift(F.pz);
+}
+
+// One joint of the forward sweep: the link state moves from the parent to
+// this joint's link (rotation R of type TR, joint rate and acceleration of
+// type TQ), the body wrench fb = I a + v x* (I v) comes out, and the world
+// FK advances. Returns the tool height if the tool hangs on this link.
+template <typename TS, typename TR, typename TQ>
+__device__ __forceinline__ void forward_joint(const Joint& J, const TR* R, TQ qd, TQ u,
+                                              Link<TS>& L, TS* fbw, TS* fbv) {
+  TS tmp[3], rxw[3], vw_j[3], vv_j[3];
+  // v' = E v_w, E (v_v - r x v_w) with E = R^T
+  cross(J.t, L.vw, rxw);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) tmp[a] = L.vv[a] - rxw[a];
+  mtv(R, L.vw, vw_j);
+  mtv(R, tmp, vv_j);
+  TQ swqd[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    swqd[a] = J.axis[a] * qd;
+    L.vw[a] = vw_j[a] + swqd[a];
+    L.vv[a] = vv_j[a];
+  }
+  TS aw_j[3], av_j[3], cw[3], cv[3];
+  cross(J.t, L.aw, rxw);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) tmp[a] = L.av[a] - rxw[a];
+  mtv(R, L.aw, aw_j);
+  mtv(R, tmp, av_j);
+  cross(L.vw, swqd, cw);
+  cross(L.vv, swqd, cv);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    L.aw[a] = aw_j[a] + J.axis[a] * u + cw[a];
+    L.av[a] = av_j[a] + cv[a];
+  }
+
+  // body wrench: I a + v x* (I v) with I = (mass, mc, Io)
+  TS Iw[3], Iv[3], hw[3], hv[3], t1[3], t2[3];
+  mv(J.Io, L.aw, Iw);
+  cross(J.mc, L.av, t1);
+  cross(J.mc, L.aw, t2);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    Iw[a] = Iw[a] + t1[a];
+    Iv[a] = L.av[a] * J.mass - t2[a];
+  }
+  mv(J.Io, L.vw, hw);
+  cross(J.mc, L.vv, t1);
+  cross(J.mc, L.vw, t2);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    hw[a] = hw[a] + t1[a];
+    hv[a] = L.vv[a] * J.mass - t2[a];
+  }
+  TS b1[3], b2[3], b3[3];
+  cross(L.vw, hw, b1);
+  cross(L.vv, hv, b2);
+  cross(L.vw, hv, b3);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    fbw[a] = Iw[a] + (b1[a] + b2[a]);
+    fbv[a] = Iv[a] + b3[a];
+  }
+
+  // world FK (row 2): pz += Rw2 . t; Rw2 = Rw2 R_pi
+  L.pz = L.pz + (L.Rw2[0] * J.t[0] + L.Rw2[1] * J.t[1] + L.Rw2[2] * J.t[2]);
+  TS nr[3];
+#pragma unroll
+  for (int b = 0; b < 3; ++b) nr[b] = L.Rw2[0] * R[b] + L.Rw2[1] * R[3 + b] + L.Rw2[2] * R[6 + b];
+#pragma unroll
+  for (int b = 0; b < 3; ++b) L.Rw2[b] = nr[b];
+}
+
+template <typename T>
+__device__ __forceinline__ T tool_height(const Robot& C, const Link<T>& L) {
+  return L.pz + (L.Rw2[0] * C.tool_t[0] + L.Rw2[1] * C.tool_t[1] + L.Rw2[2] * C.tool_t[2]);
+}
+
+// One joint of the backward sweep, after the joint's torque is taken: the
+// accumulated wrench goes back to the parent, fv' = R fv, fw' = R fw + t x fv'.
+template <typename T, typename TR>
+__device__ __forceinline__ void backward_joint(const Joint& J, const TR* R, T* fw, T* fv) {
+  T nfv[3], nfw[3], txf[3];
+  mv(R, fv, nfv);
+  mv(R, fw, nfw);
+  cross(J.t, nfv, txf);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    fv[a] = nfv[a];
+    fw[a] = nfw[a] + txf[a];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T axis_dot(const Joint& J, const T* fw) {
+  return J.axis[0] * fw[0] + J.axis[1] * fw[1] + J.axis[2] * fw[2];
+}
+
+// ---- the Jacobian launch's tiles ----
+
+// The inputs of evaluations f0 .. f0 + TILE - 1 into xs[e * NIN + c], zeros
+// past F: each evaluation's places in X and U are found once (off: 2 * TILE
+// entries of scratch), then two runs of coalesced loads, one over X and one
+// over U. A thread sends off all its loads before it stores the first value:
+// a store to shared memory between two loads would make the second wait for
+// the first (the compiler cannot tell that the two never overlap).
+template <int NT, int TILE>
+__device__ __forceinline__ void load_inputs(float* xs, long long* off, const Inputs& in, int f0,
+                                            int F) {
+  static_assert(NT >= TILE, "one thread per evaluation finds its places");
+  static_assert(TILE * NJ % NT == 0, "whole rounds of loads");
+  constexpr int UR = TILE * NJ / NT, XR = 2 * UR;  // rounds over U and over X
+  if (threadIdx.x < TILE) {
+    const int f = min(f0 + (int)threadIdx.x, F - 1), b = f / in.nodes, n = f - b * in.nodes;
+    off[threadIdx.x] = b * in.x_stride + n * NQX;
+    off[TILE + threadIdx.x] = b * in.u_stride + n * NJ;
+  }
+  __syncthreads();
+  float vx[XR], vu[UR];
+#pragma unroll
+  for (int k = 0; k < XR; ++k) {
+    const int idx = threadIdx.x + k * NT, e = idx / NQX, c = idx % NQX;
+    vx[k] = f0 + e < F ? __ldg(in.x + off[e] + c) : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < UR; ++k) {
+    const int idx = threadIdx.x + k * NT, e = idx / NJ, c = idx % NJ;
+    vu[k] = f0 + e < F ? __ldg(in.u + off[TILE + e] + c) : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < XR; ++k) {
+    const int idx = threadIdx.x + k * NT;
+    xs[idx / NQX * NIN + idx % NQX] = vx[k];
+  }
+#pragma unroll
+  for (int k = 0; k < UR; ++k) {
+    const int idx = threadIdx.x + k * NT;
+    xs[idx / NJ * NIN + NQX + idx % NJ] = vu[k];
+  }
+}
+
+// A tile of n evaluations with ROW floats each (ROW a multiple of 4), kept
+// at a row stride of STRIDE floats, to out[0 .. n * ROW) in 16-byte stores.
+template <int NT, int ROW, int STRIDE>
+__device__ __forceinline__ void store_tile(const float* tile, float* out, int n) {
+  static_assert(ROW % 4 == 0, "rows of whole float4");
+  float4* out4 = reinterpret_cast<float4*>(out);
+  for (int q = threadIdx.x; q < n * (ROW / 4); q += NT) {
+    const float* src = tile + (q / (ROW / 4)) * STRIDE + (q % (ROW / 4)) * 4;
+    out4[q] = make_float4(src[0], src[1], src[2], src[3]);
+  }
+}
+
+// ---- the value launch: one thread per evaluation ----
+
+constexpr int VT = 128;  // threads and evaluations per block
+
+// The joint loops are unrolled here: the body is short in plain floats, the
+// robot constants are then operands at fixed places in the parameter struct
+// (no load), and sin, cos and the body wrench of every joint stay in
+// registers for the backward sweep.
+__global__ void __launch_bounds__(VT)
+constraints_value_kernel(const Robot C, Inputs in, float* __restrict__ g, int F) {
+  const int f = blockIdx.x * VT + threadIdx.x;
+  if (f >= F) return;
+  const int b = f / in.nodes, n = f - b * in.nodes;
+  const float* __restrict__ px = in.x + b * in.x_stride + n * NQX;
+  const float* __restrict__ pu = in.u + b * in.u_stride + n * NJ;
+  float xu[NIN];
+#pragma unroll
+  for (int c = 0; c < NQX; ++c) xu[c] = __ldg(px + c);
+#pragma unroll
+  for (int c = 0; c < NJ; ++c) xu[NQX + c] = __ldg(pu + c);
+  Link<float> L;
+  base_link(C, L);
+  float height = 0.f;
+  float sq[NJ], cq[NJ], fbw[NJ][3], fbv[NJ][3];
 #pragma unroll
   for (int i = 0; i < NJ; ++i) {
     const Joint& J = C.j[i];
-    sincos_t(xu[i], &sq[i], &cq[i]);
-    T R[9];
-    joint_rotation(J, sq[i], cq[i], R);  // E = R^T
-
-    T tmp[3], rxw[3];
-    // v' = E v_w, E (v_v - r x v_w)
-    cross(J.t, vw, rxw);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) tmp[a] = vv[a] - rxw[a];
-    T vw_j[3], vv_j[3];
-    mtv(R, vw, vw_j);
-    mtv(R, tmp, vv_j);
-    T qd = xu[NJ + i];
-    T swqd[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      swqd[a] = J.axis[a] * qd;
-      vw[a] = vw_j[a] + swqd[a];
-      vv[a] = vv_j[a];
-    }
-    cross(J.t, aw, rxw);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) tmp[a] = av[a] - rxw[a];
-    T aw_j[3], av_j[3];
-    mtv(R, aw, aw_j);
-    mtv(R, tmp, av_j);
-    T cw[3], cv[3];
-    cross(vw, swqd, cw);
-    cross(vv, swqd, cv);
-    T u = xu[2 * NJ + i];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      aw[a] = aw_j[a] + J.axis[a] * u + cw[a];
-      av[a] = av_j[a] + cv[a];
-    }
-
-    // body wrench: I a + v x* (I v) with I = (mass, mc, Io)
-    T Iw[3], Iv[3], hw[3], hv[3], t1[3], t2[3];
-    mv(J.Io, aw, Iw);
-    cross(J.mc, av, t1);
-    cross(J.mc, aw, t2);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      Iw[a] = Iw[a] + t1[a];
-      Iv[a] = av[a] * J.mass - t2[a];
-    }
-    mv(J.Io, vw, hw);
-    cross(J.mc, vv, t1);
-    cross(J.mc, vw, t2);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      hw[a] = hw[a] + t1[a];
-      hv[a] = vv[a] * J.mass - t2[a];
-    }
-    T b1[3], b2[3], b3[3];
-    cross(vw, hw, b1);
-    cross(vv, hv, b2);
-    cross(vw, hv, b3);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      fbw[i][a] = Iw[a] + (b1[a] + b2[a]);
-      fbv[i][a] = Iv[a] + b3[a];
-    }
-
-    // world FK (row 2): pz += Rw2 . t; Rw2 = Rw2 R_pi
-    pz = pz + (Rw2[0] * J.t[0] + Rw2[1] * J.t[1] + Rw2[2] * J.t[2]);
-    T nr[3];
-#pragma unroll
-    for (int b = 0; b < 3; ++b) nr[b] = Rw2[0] * R[b] + Rw2[1] * R[3 + b] + Rw2[2] * R[6 + b];
-#pragma unroll
-    for (int b = 0; b < 3; ++b) Rw2[b] = nr[b];
-    if (i == C.tool_parent)
-      height = pz + (Rw2[0] * C.tool_t[0] + Rw2[1] * C.tool_t[1] + Rw2[2] * C.tool_t[2]);
+    float R[9];
+    sincosf(xu[i], &sq[i], &cq[i]);
+    joint_rotation(J, sq[i], cq[i], R);
+    forward_joint(J, R, xu[NJ + i], xu[2 * NJ + i], L, fbw[i], fbv[i]);
+    if (i == C.tool_parent) height = tool_height(C, L);
   }
-
-  T fw[3], fv[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) fw[a] = fv[a] = zero_t<T>();
+  float fw[3] = {0.f, 0.f, 0.f}, fv[3] = {0.f, 0.f, 0.f};
+  float out[NG];
 #pragma unroll
   for (int i = NJ - 1; i >= 0; --i) {
     const Joint& J = C.j[i];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      fw[a] = fw[a] + fbw[i][a];
-      fv[a] = fv[a] + fbv[i][a];
+      fw[a] += fbw[i][a];
+      fv[a] += fbv[i][a];
     }
-    g[i] = J.axis[0] * fw[0] + J.axis[1] * fw[1] + J.axis[2] * fw[2];
-    // back to the parent: fv' = R fv, fw' = R fw + t x fv'
-    T R[9];
+    out[i] = axis_dot(J, fw);
+    float R[9];
     joint_rotation(J, sq[i], cq[i], R);
-    T nfv[3], nfw[3], txf[3];
-    mv(R, fv, nfv);
-    mv(R, fw, nfw);
-    cross(J.t, nfv, txf);
+    backward_joint(J, R, fw, fv);
+  }
+  out[NJ] = height;
+  float4* g4 = reinterpret_cast<float4*>(g + (size_t)f * NG);
+  g4[0] = make_float4(out[0], out[1], out[2], out[3]);
+  g4[1] = make_float4(out[4], out[5], out[6], out[7]);
+}
+
+// ---- the Jacobian launch: one thread per (evaluation, joint) ----
+
+constexpr int JE = 32;              // evaluations per block: one per lane
+constexpr int JT = JE * NJ;         // 224 threads: warp j holds joint j
+constexpr int JSTRIDE = JROW + 1;   // tile row of J, padded to an odd stride
+constexpr int GSTRIDE = NG + 1;     // and of g
+
+__global__ void __launch_bounds__(JT, 2)
+constraints_jac_kernel(const __grid_constant__ Robot C, Inputs in, float* __restrict__ g,
+                       float* __restrict__ Jac, int F) {
+  __shared__ float xs[JE * NIN];
+  __shared__ long long off[2 * JE];
+  __shared__ float tj[JE * JSTRIDE];
+  __shared__ float tg[JE * GSTRIDE];
+  const int tid = threadIdx.x, e = tid & 31, j = tid >> 5;
+  const int f0 = blockIdx.x * JE;
+  load_inputs<JT, JE>(xs, off, in, f0, F);
+  __syncthreads();
+
+  const float* xu = xs + e * NIN;
+  // what the backward sweep needs of every joint: sin and cos of q, the body
+  // wrench, and from joint j on its tangents
+  float sq[NJ], cq[NJ], fbf[NJ][6];
+  D3 fbd[NJ][6];
+  D3 height = lift(0.f);
+
+  // joints before j: no tangent yet
+  Link<float> Lf;
+  base_link(C, Lf);
+#pragma unroll 1
+  for (int i = 0; i < j; ++i) {
+    const Joint& J = C.j[i];
+    float s, c, R[9], fbw[3], fbv[3];
+    sincosf(xu[i], &s, &c);
+    joint_rotation(J, s, c, R);
+    forward_joint(J, R, xu[NJ + i], xu[2 * NJ + i], Lf, fbw, fbv);
+    if (i == C.tool_parent) height = lift(tool_height(C, Lf));
+    sq[i] = s;
+    cq[i] = c;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      fv[a] = nfv[a];
-      fw[a] = nfw[a] + txf[a];
+      fbf[i][a] = fbw[a];
+      fbf[i][3 + a] = fbv[a];
     }
   }
-  g[NJ] = height;
-}
-
-__global__ void constraints_value_kernel(Robot C, const float* __restrict__ xu,
-                                         float* __restrict__ g, int F) {
-  int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= F) return;
-  float in[NIN], out[NG];
-#pragma unroll
-  for (int c = 0; c < NIN; ++c) in[c] = xu[(size_t)f * NIN + c];
-  eval_constraints<float>(C, in, out);
-#pragma unroll
-  for (int r = 0; r < NG; ++r) g[(size_t)f * NG + r] = out[r];
-}
-
-__global__ void constraints_jac_kernel(Robot C, const float* __restrict__ xu,
-                                       float* __restrict__ g, float* __restrict__ Jac, int F) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)F * NIN) return;
-  int f = (int)(t / NIN);
-  int j = (int)(t % NIN);
-  Dual in[NIN], out[NG];
-#pragma unroll
-  for (int c = 0; c < NIN; ++c) in[c] = {xu[(size_t)f * NIN + c], c == j ? 1.0f : 0.0f};
-  eval_constraints<Dual>(C, in, out);
-#pragma unroll
-  for (int r = 0; r < NG; ++r) Jac[((size_t)f * NG + r) * NIN + j] = out[r].d;
-  if (j == 0) {
-#pragma unroll
-    for (int r = 0; r < NG; ++r) g[(size_t)f * NG + r] = out[r].v;
+  // joint j: the tangents enter through its rotation, rate and acceleration
+  Link<D3> L;
+  lift_link(Lf, L);
+  {
+    const Joint& J = C.j[j];
+    float s, c;
+    sincosf(xu[j], &s, &c);
+    sq[j] = s;
+    cq[j] = c;
+    const D3 sd = {s, c, 0.f, 0.f}, cd = {c, -s, 0.f, 0.f};
+    const D3 qd = {xu[NJ + j], 0.f, 1.f, 0.f}, u = {xu[2 * NJ + j], 0.f, 0.f, 1.f};
+    D3 R[9];
+    joint_rotation(J, sd, cd, R);
+    forward_joint(J, R, qd, u, L, &fbd[j][0], &fbd[j][3]);
+    if (j == C.tool_parent) height = tool_height(C, L);
   }
+  // joints after j: tangents through float rotations
+#pragma unroll 1
+  for (int i = j + 1; i < NJ; ++i) {
+    const Joint& J = C.j[i];
+    float s, c, R[9];
+    sincosf(xu[i], &s, &c);
+    joint_rotation(J, s, c, R);
+    forward_joint(J, R, xu[NJ + i], xu[2 * NJ + i], L, &fbd[i][0], &fbd[i][3]);
+    if (i == C.tool_parent) height = tool_height(C, L);
+    sq[i] = s;
+    cq[i] = c;
+  }
+
+  // row r of this thread's three Jacobian columns, and of g from joint 0's warp
+  float* trow = tj + e * JSTRIDE + j;
+  float* grow = tg + e * GSTRIDE;
+  auto put = [&](int r, D3 val) {
+    trow[r * NIN] = val.a;
+    trow[r * NIN + NJ] = val.b;
+    trow[r * NIN + 2 * NJ] = val.c;
+    if (j == 0) grow[r] = val.v;
+  };
+
+  D3 fw[3] = {lift(0.f), lift(0.f), lift(0.f)}, fv[3] = {lift(0.f), lift(0.f), lift(0.f)};
+#pragma unroll 1
+  for (int i = NJ - 1; i > j; --i) {
+    const Joint& J = C.j[i];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      fw[a] = fw[a] + fbd[i][a];
+      fv[a] = fv[a] + fbd[i][3 + a];
+    }
+    put(i, axis_dot(J, fw));
+    float R[9];
+    joint_rotation(J, sq[i], cq[i], R);
+    backward_joint(J, R, fw, fv);
+  }
+  {
+    const Joint& J = C.j[j];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      fw[a] = fw[a] + fbd[j][a];
+      fv[a] = fv[a] + fbd[j][3 + a];
+    }
+    put(j, axis_dot(J, fw));
+    const D3 sd = {sq[j], cq[j], 0.f, 0.f}, cd = {cq[j], -sq[j], 0.f, 0.f};
+    D3 R[9];
+    joint_rotation(J, sd, cd, R);
+    backward_joint(J, R, fw, fv);
+  }
+#pragma unroll 1
+  for (int i = j - 1; i >= 0; --i) {
+    const Joint& J = C.j[i];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      fw[a] = fw[a] + fbf[i][a];
+      fv[a] = fv[a] + fbf[i][3 + a];
+    }
+    put(i, axis_dot(J, fw));
+    float R[9];
+    joint_rotation(J, sq[i], cq[i], R);
+    backward_joint(J, R, fw, fv);
+  }
+  put(NJ, height);
+  __syncthreads();
+  const int n = min(JE, F - f0);
+  store_tile<JT, JROW, JSTRIDE>(tj, Jac + (size_t)f0 * JROW, n);
+  store_tile<JT, NG, GSTRIDE>(tg, g + (size_t)f0 * NG, n);
 }
 
 }  // namespace
 
 // consts: NJ * 46 floats of joint blocks, then gravity (3) and the tool
-// translation (3), as kernels/constraints.py bake_model lays them out.
-extern "C" int mpc_constraints(const float* consts, int tool_parent, const float* xu,
+// translation (3), as kernels/constraints.py bake_model lays them out. x, u:
+// the inputs where they lie (struct Inputs); g (F, 8) and jac (F, 8, 21) are
+// contiguous and 16-byte aligned.
+extern "C" int mpc_constraints(const float* consts, int tool_parent, const float* x,
+                               const float* u, long long x_stride, long long u_stride, int nodes,
                                float* g, float* jac, int F, int with_jac, void* stream) {
   Robot C;
   memcpy(&C, consts, sizeof(float) * (NJ * 46 + 6));
   C.tool_parent = tool_parent;
   if (F <= 0) return 0;
+  Inputs in = {x, u, x_stride, u_stride, nodes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 128;
   if (with_jac) {
-    long long total = (long long)F * NIN;
-    int blocks = (int)((total + threads - 1) / threads);
-    constraints_jac_kernel<<<blocks, threads, 0, s>>>(C, xu, g, jac, F);
+    constraints_jac_kernel<<<(F + JE - 1) / JE, JT, 0, s>>>(C, in, g, jac, F);
   } else {
-    int blocks = (F + threads - 1) / threads;
-    constraints_value_kernel<<<blocks, threads, 0, s>>>(C, xu, g, F);
+    constraints_value_kernel<<<(F + VT - 1) / VT, VT, 0, s>>>(C, in, g, F);
   }
   return (int)cudaGetLastError();
 }

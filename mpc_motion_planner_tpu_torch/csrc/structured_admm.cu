@@ -1,14 +1,20 @@
-// Kernel 3: the whole fixed-rho boxADMM loop of one structured QP per
-// thread block, with every per-problem operand resident in shared memory.
+// Kernel 3: one dispatch of the fixed-rho boxADMM loop of one structured QP
+// per thread block, with every per-problem operand resident in shared
+// memory. The ADMM state (iterates, done, iteration count, residuals) comes
+// in and goes out, so the host can run the budget in dispatches with a rho
+// update and a refactorization between them; a block whose problem is done
+// on entry passes its state through and leaves.
 //
 // Replaces mpc_motion_planner_tpu/ops/pallas/structured_admm.py
 // solve_box_qp_structured_pallas (_structured_kernel :142). Each iteration:
 //   rhs = sigma x - qs + rx zx - yx + D A'(E (rc zc - yc))
 //   xt  = M^-1 rhs            (banded forward/backward sweeps + arrow)
+//   kkt_refine times: xt += M^-1 (rhs - M xt), with
+//     M xt = (Ps + sigma + rx) xt + D A'(E rc E A (D xt))
 //   zt  = E A (D xt)
 //   x   = ftz(a xt + (1-a) x)
 //   zc, yc, zx, yx: soft-l1 prox z-updates and dual updates, with ftz
-// and every check_every iterations (and at the cap) the OSQP residual test
+// and every check_every iterations (and at the dispatch's last) the OSQP residual test
 // and the NaN-safe divergence freeze at 1e12 (done = 2). A block stops at
 // its own done, so a problem's iteration count is its active iterations.
 // A and A' are applied matrix-free from the differentiation matrix Dm, the
@@ -52,6 +58,12 @@
 // * rhs's element-wise part and E (rc zc - yc) are formed in the update
 //   phase of the iteration before, by the thread that owns the element. An
 //   iteration without a check has three block-wide barriers.
+// * A refinement step is a second pass through phases the iteration already
+//   has: the rows of A on D xt, the elements of A' on the weighted rows, and
+//   the sweeps on the residual, whose finishing warp adds the correction to
+//   xt. The saved rhs and the weighted rows lie in the check's scratch
+//   vectors, which are free between checks. The kernel is compiled twice, and
+//   without refinement the loop has none of this in its instruction stream.
 //
 // Global layouts (see kernels/structured_admm.py): z-layout (B,400),
 // m-layout (B,488), Ldi (B,19,21,21), Lsub (B,19,3,21,21), u (B,19,21), J
@@ -75,7 +87,7 @@ static_assert(NT >= NM && NT >= NV, "one thread per z element and per row");
 struct Params {
   float Dm[KL * KL];  // Dm[k*4 + j]
   float sigma, alpha, eps_abs, eps_rel;
-  int cap, check_every;
+  int cap, check_every, kkt_refine;
 };
 
 struct Ptrs {
@@ -85,11 +97,14 @@ struct Ptrs {
   const float *qs, *Ps, *rx, *lxs, *uxs, *thx, *D, *x0, *zx0, *yx0;
   // m-layout data
   const float *rc, *lcs, *ucs, *E, *thr, *zc0, *yc0;
+  // the rest of the state on entry
+  const float *rp0, *rd0;
+  const int *done0, *iters0;
   // outputs
   float *x, *zc, *zx, *yc, *yx, *rp, *rd;
   int *done, *iters;
 };
-constexpr int NPTRS = 33;
+constexpr int NPTRS = 37;
 static_assert(sizeof(Ptrs) == NPTRS * sizeof(void*), "pointer block layout");
 
 // z vectors are node-major here: element e = n*21 + c for e < NB, then p.
@@ -112,7 +127,9 @@ struct Smem {
   alignas(16) float tb[VPAD];        // the chain's intermediate vector
   float a2[NB], a3[NB];              // distance-2 and -3 terms of the step ahead
   float xt[NV], dx[NV];              // M^-1 rhs and D xt
-  float wb[NM], wc[NM];              // scratch of the check
+  // scratch of the check; between checks a refinement step keeps its
+  // weighted rows in wb and the iteration's rhs in wc
+  float wb[NM], wc[NM];
   float red[NWARP * 4];
   float Dm[KL * KL];
   float p, s;
@@ -362,26 +379,56 @@ __device__ __forceinline__ void helper_sweep(Smem& sm, int lane) {
 
 // The arrow: z_p = (rhs_p - u.rhs) / s with rhs_p = t0_p - D_p (f.wa), found
 // while the forward sweep runs; then xt_k = x_k - u_k z_p and D xt_k for
-// each node the backward sweep delivers.
-__device__ __forceinline__ void finish_sweep(Smem& sm, int lane) {
+// each node the backward sweep delivers. With REFINE the p row of rhs is
+// saved beside the others. CORRECTION is the pass of a refinement step: the
+// sweeps run on the residual rhs - M xt, whose p row is
+// rhs_p - ((Ps + sigma + rx)_p xt_p - D_p (f.wb)), and what they deliver is
+// added to xt.
+template <bool REFINE, bool CORRECTION>
+__device__ __forceinline__ void finish_sweep(Smem& sm, int lane, float sigma) {
+  const float* w = CORRECTION ? sm.wb : sm.wa;
   float pu = 0.f, pf = 0.f;
   for (int e = lane; e < NB; e += 32) pu += sm.u[e] * sm.rhs[e];
-  for (int i = lane; i < NEQ; i += 32) pf += sm.fseg[i] * sm.wa[i];
+  for (int i = lane; i < NEQ; i += 32) pf += sm.fseg[i] * w[i];
   pu = warp_sum(pu);
   pf = warp_sum(pf);
-  const float zp = ((sm.t0[NB] - sm.D[NB] * pf) - pu) / sm.s;
+  const float rhs_p =
+      CORRECTION ? sm.wc[NB] - ((sm.Ps[NB] + sigma + sm.rx[NB]) * sm.xt[NB] - sm.D[NB] * pf)
+                 : sm.t0[NB] - sm.D[NB] * pf;
+  const float zp = (rhs_p - pu) / sm.s;
+  if (CORRECTION) warp_barrier();  // every lane has read xt_p
   if (lane == 0) {
-    sm.xt[NB] = zp;
-    sm.dx[NB] = sm.D[NB] * zp;
+    const float v = CORRECTION ? sm.xt[NB] + zp : zp;
+    sm.xt[NB] = v;
+    sm.dx[NB] = sm.D[NB] * v;
+    if (REFINE && !CORRECTION) sm.wc[NB] = rhs_p;
   }
   for (int t = 0; t < N; ++t) {
     sweep_barrier<false>();
     if (lane < BLK) {
       const int k = node_of<false>(t), e = k * BLK + lane;
       float v = sm.xs[k * VPAD + lane] - sm.u[e] * zp;
+      if (CORRECTION) v += sm.xt[e];
       sm.xt[e] = v;
       sm.dx[e] = sm.D[e] * v;
     }
+  }
+}
+
+// xt = M^-1 rhs and dx = D xt (CORRECTION: xt += M^-1 rhs), by the sweep warps
+template <bool REFINE, bool CORRECTION>
+__device__ __forceinline__ void solve_sweeps(Smem& sm, int warp, int lane, float sigma) {
+  if (warp < CHAIN_WARPS) {
+    chain_sweep<true>(sm, lane, warp);
+    chain_sweep<false>(sm, lane, warp);
+  } else if (warp == CHAIN_WARPS) {
+    helper_sweep<true, 2>(sm, lane);
+    helper_sweep<false, 2>(sm, lane);
+  } else if (warp == CHAIN_WARPS + 1) {
+    helper_sweep<true, 3>(sm, lane);
+    helper_sweep<false, 3>(sm, lane);
+  } else if (warp == CHAIN_WARPS + 2) {
+    finish_sweep<REFINE, CORRECTION>(sm, lane, sigma);
   }
 }
 
@@ -390,6 +437,7 @@ __device__ __forceinline__ void copy(float* dst, const float* src) {
   for (int e = threadIdx.x; e < LEN; e += NT) dst[e] = src[e];
 }
 
+template <bool REFINE>
 __global__ void __launch_bounds__(NT)
 structured_admm_kernel(Params P, Ptrs g) {
   extern __shared__ float4 smem_raw[];
@@ -399,6 +447,25 @@ structured_admm_kernel(Params P, Ptrs g) {
   const size_t zo = (size_t)b * NV, mo = (size_t)b * NM;
   // this thread's z element and constraint row, for the whole launch
   const bool has_z = tid < NV, has_row = tid < NM;
+  if (g.done0[b] != 0) {
+    // done on entry: the state passes through
+    if (has_z) {
+      g.x[zo + tid] = g.x0[zo + tid];
+      g.zx[zo + tid] = g.zx0[zo + tid];
+      g.yx[zo + tid] = g.yx0[zo + tid];
+    }
+    if (has_row) {
+      g.zc[mo + tid] = g.zc0[mo + tid];
+      g.yc[mo + tid] = g.yc0[mo + tid];
+    }
+    if (tid == 0) {
+      g.done[b] = g.done0[b];
+      g.iters[b] = g.iters0[b];
+      g.rp[b] = g.rp0[b];
+      g.rd[b] = g.rd0[b];
+    }
+    return;
+  }
   const ZElem ze = make_zelem(tid);
   const MRow mr = make_mrow(tid);
 
@@ -440,7 +507,7 @@ structured_admm_kernel(Params P, Ptrs g) {
   if (has_row) sm.wa[tid] = sm.E[tid] * (sm.rc[tid] * sm.zc[tid] - sm.yc[tid]);
   __syncthreads();
 
-  float rp = 0.f, rd = 0.f;
+  float rp = g.rp0[b], rd = g.rd0[b];
   int k = 0;
   while (k < P.cap && sm.done == 0) {
     // ---- rhs = t0 + D A' wa (the p row is the finishing warp's) ----
@@ -448,19 +515,24 @@ structured_admm_kernel(Params P, Ptrs g) {
     __syncthreads();
 
     // ---- xt = M^-1 rhs and dx = D xt ----
-    if (warp < CHAIN_WARPS) {
-      chain_sweep<true>(sm, lane, warp);
-      chain_sweep<false>(sm, lane, warp);
-    } else if (warp == CHAIN_WARPS) {
-      helper_sweep<true, 2>(sm, lane);
-      helper_sweep<false, 2>(sm, lane);
-    } else if (warp == CHAIN_WARPS + 1) {
-      helper_sweep<true, 3>(sm, lane);
-      helper_sweep<false, 3>(sm, lane);
-    } else if (warp == CHAIN_WARPS + 2) {
-      finish_sweep(sm, lane);
-    }
+    solve_sweeps<REFINE, false>(sm, warp, lane, sigma);
     __syncthreads();
+
+    if (REFINE) {
+      for (int r = 0; r < P.kkt_refine; ++r) {
+        // ---- xt += M^-1 (rhs - M xt) ----
+        if (has_row)
+          sm.wb[tid] = sm.E[tid] * (sm.rc[tid] * (sm.E[tid] * a_row(sm, sm.dx, tid, mr)));
+        if (r == 0 && tid < NB) sm.wc[tid] = sm.rhs[tid];
+        __syncthreads();
+        if (tid < NB)
+          sm.rhs[tid] = sm.wc[tid] - ((sm.Ps[tid] + sigma + sm.rx[tid]) * sm.xt[tid] +
+                                      sm.D[tid] * at_elem(sm, sm.wb, ze));
+        __syncthreads();
+        solve_sweeps<REFINE, true>(sm, warp, lane, sigma);
+        __syncthreads();
+      }
+    }
 
     // ---- zt = E A dx; relaxed prox and dual updates; next t0 and wa ----
     if (has_row) {
@@ -555,7 +627,7 @@ structured_admm_kernel(Params P, Ptrs g) {
   }
   if (tid == 0) {
     g.done[b] = sm.done;
-    g.iters[b] = k;
+    g.iters[b] = g.iters0[b] + k;
     g.rp[b] = rp;
     g.rd[b] = rd;
   }
@@ -566,18 +638,20 @@ structured_admm_kernel(Params P, Ptrs g) {
 // Blocks of the kernel that one SM holds at a time (negative: a CUDA error).
 extern "C" int mpc_structured_admm_blocks_per_sm() {
   const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(structured_admm_kernel,
+  cudaError_t err = cudaFuncSetAttribute(structured_admm_kernel<false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int blocks = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, structured_admm_kernel, NT, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, structured_admm_kernel<false>, NT,
+                                                        smem);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-// ptrs: the NPTRS pointers of struct Ptrs, in its order; Dm: 16 floats.
+// ptrs: the NPTRS pointers of struct Ptrs, in its order; Dm: 16 floats; cap:
+// the iterations of this dispatch.
 extern "C" int mpc_structured_admm(void* const* ptrs, const float* Dm, float sigma, float alpha,
                                    float eps_abs, float eps_rel, int cap, int check_every,
-                                   int B, void* stream) {
+                                   int kkt_refine, int B, void* stream) {
   if (B <= 0) return 0;
   Params P;
   for (int i = 0; i < KL * KL; ++i) P.Dm[i] = Dm[i];
@@ -587,12 +661,14 @@ extern "C" int mpc_structured_admm(void* const* ptrs, const float* Dm, float sig
   P.eps_rel = eps_rel;
   P.cap = cap;
   P.check_every = check_every;
+  P.kkt_refine = kkt_refine;
   Ptrs g;
   memcpy(&g, ptrs, sizeof(Ptrs));
   const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(structured_admm_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = kkt_refine > 0 ? structured_admm_kernel<true> : structured_admm_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  structured_admm_kernel<<<B, NT, smem, static_cast<cudaStream_t>(stream)>>>(P, g);
+  kernel<<<B, NT, smem, static_cast<cudaStream_t>(stream)>>>(P, g);
   return (int)cudaGetLastError();
 }

@@ -21,6 +21,7 @@ def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
     banded_factor.REPAIRS.count = 0
+    structured_admm.REFACTORS.count = 0
 
 
 def launch_counts() -> dict:

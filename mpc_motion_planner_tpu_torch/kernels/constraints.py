@@ -5,16 +5,24 @@ Replaces ``mpc_motion_planner_tpu/ops/pallas/constraints_kernel.py``
 ``fused_node_constraints`` (``pl.pallas_call`` at :345, math in
 ``lane_constraints`` :180, constants from ``bake_model`` :56).
 
-What bounds it on this card: arithmetic and registers. Each evaluation
-reads 21 floats and writes 8 (value pass) or 176 (with the Jacobian), so
-even the 389,120-evaluation line-search launch moves ~45 MB; the two
-Newton-Euler sweeps plus the tool FK are ~1.5k flops per value pass. The
-TPU kernel ran 21 tangents side by side in vector registers; a 21-wide dual
-number per CUDA thread would spill. So the Jacobian launch uses one thread
-per (evaluation, input direction): each thread runs the value pass once in
-single-tangent dual numbers seeded on its direction and writes one column
-of the Jacobian (recomputing the value 21 times is cheaper than spilling).
-The value-only launch runs one thread per evaluation in plain floats. The
+What bounds it on this card: instructions. Each evaluation reads 21 floats
+and writes 8 (value pass) or 176 (with the Jacobian), so even the
+389,120-evaluation line-search launch moves ~45 MB; the two Newton-Euler
+sweeps plus the tool FK are ~1.5k flops per value pass in chains of
+dependent 3-vector operations, and a tangent costs twice a value. The TPU
+kernel ran 21 tangents side by side in vector registers; here the Jacobian
+launch runs one thread per (evaluation, joint j) that carries the value and
+the three tangents along ``q_j``, ``qdot_j`` and ``u_j``: 7 value passes per
+evaluation instead of one per input direction, a warp holds one j, joints
+before j run in plain floats (their tangents are zero), only joint j's
+rotation has a tangent, and every later rotation multiplies tangents as a
+float matrix. :func:`node_jacobians_by_joint` states this split in plain
+PyTorch. The value launch runs one thread per evaluation. Both read ``q,
+qdot`` and ``u`` where they lie (``X`` and ``U`` may be views of the NLP
+iterate ``z``: a batch stride and node-major rows, no ``cat`` copy). The
+Jacobian launch stages them with coalesced loads into shared memory and
+writes ``g`` and ``J`` through shared-memory tiles in 16-byte stores; the
+value launch, bound by its instructions, loads and stores per thread. The
 robot constants travel by value in the kernel's parameter struct (1.3 KB),
 so a new model needs no rebuild.
 
@@ -31,15 +39,16 @@ import numpy as np
 import torch
 
 from ..models.robot import PRISMATIC, Frame, RobotModel
-from .build import CudaKernel, HostConstants, check_cuda_tensor, ptr
+from .build import CudaKernel, HostConstants, ptr
 
 NJ = 7  # the kernel's chain length (csrc/constraints.cu)
 JOINT_FLOATS = 46  # R0 9, t 3, axis 3, K 9, K2 9, mass 1, mc 3, Io 9
 
 KERNEL = CudaKernel(
     "constraints", "constraints.cu", "mpc_constraints",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p],
 )
 
 # bake_model results per (model, frame, device)
@@ -89,21 +98,64 @@ def node_constraints_plain(ocp, X, U, with_jac: bool):
     return g, ocp.node_jacobians(X, U)
 
 
+def node_jacobians_by_joint(ocp, X, U):
+    """Kernel 1's work split in plain PyTorch, for tests: the Jacobian
+    (..., ng, nx+nu) assembled from one pass per joint j that carries the
+    three tangents along ``q_j``, ``qdot_j`` and ``u_j`` (columns j, nq + j
+    and 2 nq + j) beside the value; in pass j only joint j's own angle, rate
+    and acceleration carry a tangent."""
+    nq, nx = ocp.nq, ocp.nx
+    xu = torch.cat([X, U], dim=-1)
+    flat = xu.reshape(-1, xu.shape[-1])
+    seeds = torch.eye(xu.shape[-1], dtype=xu.dtype, device=xu.device)
+
+    def g_of(v):
+        return ocp.node_constraints(v[:nx], v[nx:])
+
+    def three_tangents(v, j):
+        cols = [torch.func.jvp(g_of, (v,), (seeds[c],))[1] for c in (j, nq + j, 2 * nq + j)]
+        return torch.stack(cols, dim=-1)  # (ng, 3)
+
+    J = flat.new_zeros(flat.shape[0], ocp.ng, xu.shape[-1])
+    for j in range(nq):
+        cols = torch.func.vmap(lambda v: three_tangents(v, j))(flat)
+        for slot in range(3):
+            J[:, :, slot * nq + j] = cols[:, :, slot]
+    return J.reshape(*xu.shape[:-1], ocp.ng, xu.shape[-1])
+
+
+def _rows_in_place(t, width: int):
+    """``t`` (B, nodes, width) as float32 with node-major rows (strides
+    (batch stride, width, 1)), copied only if it is not that already."""
+    t = t.to(torch.float32)
+    if t.stride(2) != 1 or t.stride(1) != width:
+        t = t.contiguous()
+    return t
+
+
 def node_constraints_kernel(ocp, X, U, with_jac: bool):
-    """Launch kernel 1 on CUDA tensors X (B, nodes, nx), U (B, nodes, nu)."""
+    """Launch kernel 1 on CUDA tensors X (B, nodes, nx), U (B, nodes, nu),
+    read where they lie when they are float32 with node-major rows (views of
+    ``z`` are); float64 input is cast once."""
     B, nodes = X.shape[0], X.shape[1]
     n_in, ng = ocp.nx + ocp.nu, ocp.ng
+    if (ocp.nx, ocp.nu) != (2 * NJ, NJ) or tuple(U.shape[:2]) != (B, nodes):
+        raise ValueError(f"kernel 1 takes X (B, nodes, {2 * NJ}) and U (B, nodes, {NJ}), got "
+                         f"{tuple(X.shape)} and {tuple(U.shape)}")
     consts, tool_parent = BAKED.get(
         (ocp.model, ocp.tool_frame), X.device, lambda: bake_model(ocp.model, ocp.tool_frame)
     )
-    xu = torch.cat([X, U], dim=-1).reshape(B * nodes, n_in).to(torch.float32).contiguous()
-    F = xu.shape[0]
-    check_cuda_tensor("xu", xu, (F, 3 * NJ))
-    g = torch.empty(F, ng, dtype=torch.float32, device=xu.device)
-    J = (torch.empty(F, ng, n_in, dtype=torch.float32, device=xu.device)
+    for name, t in (("X", X), ("U", U)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    x, u = _rows_in_place(X, 2 * NJ), _rows_in_place(U, NJ)
+    F = B * nodes
+    g = torch.empty(F, ng, dtype=torch.float32, device=x.device)
+    J = (torch.empty(F, ng, n_in, dtype=torch.float32, device=x.device)
          if with_jac else None)
     KERNEL.launch(
-        consts.ctypes.data_as(ctypes.c_void_p), tool_parent, ptr(xu), ptr(g),
+        consts.ctypes.data_as(ctypes.c_void_p), tool_parent, ptr(x), ptr(u),
+        x.stride(0) if B > 1 else 0, u.stride(0) if B > 1 else 0, nodes, ptr(g),
         ptr(J) if with_jac else None, F, int(with_jac),
     )
     g = g.reshape(B, nodes, ng).to(X.dtype)

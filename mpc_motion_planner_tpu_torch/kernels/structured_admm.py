@@ -3,10 +3,13 @@ host part of the solve around it.
 
 Replaces ``mpc_motion_planner_tpu/ops/pallas/structured_admm.py``
 ``solve_box_qp_structured_pallas`` (``pl.pallas_call`` at :830, body
-``_structured_kernel`` :142) and the host part of its ``_solve_impl``
-(:584-688): the float32 cast, Ruiz scaling, the ±1e20 bound stand-ins, the
-soft-row thresholds, the factorization (kernel 2) with its ok-flag repair,
-and the un-scaling.
+``_structured_kernel`` :142, with its ``kkt_refine`` steps) and the host
+part of its ``_solve_impl`` (:584-1062): the float32 cast, Ruiz scaling,
+the ±1e20 bound stand-ins, the soft-row thresholds, the factorization
+(kernel 2) with its ok-flag repair, the dispatches of ``rho_update_every``
+iterations with the rho update and the refactorization between them
+(``ops.qp_structured.admm_chunked``, here with kernels 2 and 3), and the
+un-scaling.
 
 What bounds it on this card: latency. Each iteration is ~157k flops per
 problem, 85% of them in the two banded triangular sweeps, and the factors
@@ -29,10 +32,11 @@ their places in A and A' once; an iteration without a check has three
 block-wide barriers. A block step subtracts its terms in the plain solve's
 order (distances 1, 2, 3) and takes every 21-long row sum in three partial
 sums; ``ops.qp_structured.banded_solve_lookahead`` states the schedule and
-the order in plain PyTorch. Each block stops at its own ``done``: the TPU kernel's
-lane-group exit, chunk schedules and compaction existed because 128
-problems shared a program, and are not needed here; the iteration budgets,
-the check rule, the done codes and the iteration counts are kept.
+the order in plain PyTorch. Each block stops at its own ``done``, and one that
+is done on entry leaves at once: the TPU kernel's lane-group exit,
+early-exit chunk schedules and compaction existed because 128 problems
+shared a program, and are not needed here; the iteration budgets, the
+check rule, the done codes and the iteration counts are kept.
 
 The plain version is ``ops.qp_structured.solve_box_qp_structured`` (the
 same semantics in batched PyTorch); :func:`solve_box_qp_structured` takes
@@ -56,18 +60,33 @@ N, NG, BLK, BW, NV, NEQ, NM = 19, 8, 21, 3, 400, 336, 488
 KERNEL = CudaKernel(
     "structured_admm", "structured_admm.cu", "mpc_structured_admm",
     [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_float] * 4
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 )
+
+
+class RefactorCount:
+    """Refactorizations of the KKT system after a rho update (one per
+    dispatch boundary at which some problem wanted another rho)."""
+
+    count = 0
+
+
+REFACTORS = RefactorCount()
 
 # the float32 differentiation matrix on the host, per (collocation, device)
 DIFF_MATRIX = HostConstants()
 
 
-def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings: QPSettings):
-    """Launch kernel 3 on scaled float32 CUDA data; returns the scaled
+def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings: QPSettings,
+                state=None, chunk_iters=None):
+    """Launch kernel 3 on scaled float32 CUDA data: one dispatch of
+    ``chunk_iters`` iterations (default: the whole budget) from ``state``
+    (default: the initial state of ``qp``). Takes and returns the scaled
     (x, zc, zx, yc, yx, done, iters, rp, rd) like ``admm_plain``."""
     B = qp.x.shape[0]
     f32 = torch.float32
+    x0, zc0, zx0, yc0, yx0, done0, iters0, rp0, rd0 = (
+        qp_structured.initial_state(qp) if state is None else state)
     shapes = {
         "Ldi": (B, N, BLK, BLK), "Lsub": (B, N, BW, BLK, BLK), "u": (B, N, BLK),
         "s": (B,), "J": (B, N, NG, BLK), "f_rows": (B, NEQ), "p": (B,),
@@ -75,14 +94,16 @@ def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings:
     data = {"Ldi": fac["Ldi"], "Lsub": fac["Lsub"], "u": fac["u"], "s": fac["s"],
             "J": sa.J, "f_rows": sa.f_rows, "p": sa.p}
     zdata = {"qs": qp.qs, "Ps": qp.Ps, "rx": qp.rx, "lxs": qp.lxs, "uxs": qp.uxs,
-             "thx": qp.thx, "D": qp.D, "x0": qp.x, "zx0": qp.zx, "yx0": qp.yx}
+             "thx": qp.thx, "D": qp.D, "x0": x0, "zx0": zx0, "yx0": yx0}
     mdata = {"rc": qp.rc, "lcs": qp.lcs, "ucs": qp.ucs, "E": qp.E, "thr": qp.thr,
-             "zc0": qp.zc, "yc0": qp.yc}
+             "zc0": zc0, "yc0": yc0}
+    sdata = {"rp0": rp0, "rd0": rd0, "done0": done0, "iters0": iters0}
     shapes.update({k: (B, NV) for k in zdata})
     shapes.update({k: (B, NM) for k in mdata})
-    inputs = {k: v.contiguous() for d in (data, zdata, mdata) for k, v in d.items()}
+    shapes.update({k: (B,) for k in sdata})
+    inputs = {k: v.contiguous() for d in (data, zdata, mdata, sdata) for k, v in d.items()}
     for k, v in inputs.items():
-        check_cuda_tensor(k, v, shapes[k])
+        check_cuda_tensor(k, v, shapes[k], torch.int32 if k in ("done0", "iters0") else f32)
 
     new = lambda n, dtype=f32: torch.empty(B, n, dtype=dtype, device=qp.x.device)
     x, zx, yx = new(NV), new(NV), new(NV)
@@ -91,17 +112,17 @@ def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings:
     done, iters = new(1, torch.int32)[:, 0], new(1, torch.int32)[:, 0]
     outs = [x, zc, zx, yc, yx, rp, rd, done, iters]
     # pointer block in the order of struct Ptrs (csrc/structured_admm.cu)
-    ptrs = (ctypes.c_void_p * 33)(
+    ptrs = (ctypes.c_void_p * 37)(
         *(t.data_ptr() for t in list(inputs.values()) + outs)
     )
     Dm = DIFF_MATRIX.get(
         (ocp.coll,), qp.x.device,
         lambda: ocp.coll.diff_matrix.detach().to("cpu", torch.float32).contiguous(),
     )
-    cap = settings.max_iter + settings.rescue_iters
+    cap = settings.max_iter + settings.rescue_iters if chunk_iters is None else chunk_iters
     KERNEL.launch(
         ptrs, ptr(Dm), settings.sigma, settings.alpha, settings.eps_abs,
-        settings.eps_rel, cap, settings.check_every, B,
+        settings.eps_rel, cap, settings.check_every, settings.kkt_refine, B,
     )
     return x, zc, zx, yc, yx, done, iters, rp, rd
 
@@ -130,9 +151,11 @@ def solve_box_qp_structured_cuda(
     ocp, sa: StructuredA, P_diag, q, lc, uc, lx, ux, settings: QPSettings,
     x0=None, yc0=None, yx0=None, soft_c=None, soft_x=None,
 ) -> QPSolution:
-    """The structured QP on the card: float32 data, kernel 2 for the
+    """The structured QP on the card: float32 data, kernel 2 for every
     factorization (flagged problems refactored by the plain version) and
-    kernel 3 for the ADMM loop. Returns float32 results."""
+    kernel 3 for every dispatch of the ADMM loop; the rho update between
+    dispatches is PyTorch on the card with one host synchronisation, and its
+    refactorizations are counted in ``REFACTORS``. Returns float32 results."""
     settings.check_structured()
     _check_geometry(ocp)
     f32 = torch.float32
@@ -142,8 +165,10 @@ def solve_box_qp_structured_cuda(
         ocp, sa, *(cast(a) for a in (P_diag, q, lc, uc, lx, ux)), settings,
         *(cast(a) for a in (x0, yc0, yx0, soft_c, soft_x)),
     )
-    fac = banded_factor.factor(qp.Mband, qp.p_col, qp.m_pp, ocp.coll.order)
-    return qp_structured.unscale_solution(qp, *admm_kernel(ocp, sa, qp, fac, settings))
+    state, qp, refactors = qp_structured.admm_chunked(
+        ocp, sa, qp, settings, banded_factor.factor, admm_kernel)
+    REFACTORS.count += refactors
+    return qp_structured.unscale_solution(qp, *state)
 
 
 def solve_box_qp_structured(ocp, sa: StructuredA, P_diag, q, lc, uc, lx, ux,

@@ -125,6 +125,21 @@ def derivative_at_nodes(coll: Collocation, node_values):
     return torch.einsum("kj,bsjd->bskd", coll.diff_matrix, seg)
 
 
+def _barycentric(coll: Collocation, t):
+    """Segment index (T,) and normalized barycentric weights (T, order+1)
+    of global times t (T,) in [0, 1]."""
+    S = coll.num_segments
+    seg = torch.clamp(torch.floor(t * S).long(), 0, S - 1)
+    s_local = t * S - seg.to(t.dtype)
+    diff = s_local[:, None] - coll.local_nodes  # (T, o+1)
+    exact = diff.abs() < 1e-12
+    any_exact = exact.any(dim=-1, keepdim=True)
+    safe_diff = torch.where(exact, torch.ones_like(diff), diff)
+    w = coll.bary_weights / safe_diff
+    w = torch.where(any_exact, exact.to(w.dtype), w)
+    return seg, w / w.sum(-1, keepdim=True)
+
+
 def interpolate(coll: Collocation, node_values, t):
     """Barycentric evaluation at global time(s) ``t`` in [0, 1].
 
@@ -132,19 +147,15 @@ def interpolate(coll: Collocation, node_values, t):
     (B, d) or (B, T, d). Queries outside [0, 1] are clamped."""
     t = torch.as_tensor(t, dtype=node_values.dtype, device=node_values.device)
     scalar = t.ndim == 0
-    t = t.reshape(-1).clamp(0.0, 1.0)
-    S = coll.num_segments
-    seg = torch.clamp(torch.floor(t * S).long(), 0, S - 1)
-    s_local = t * S - seg.to(t.dtype)
-
-    seg_vals = segment_values(coll, node_values)  # (B, S, o+1, d)
-    vals = seg_vals[:, seg]  # (B, T, o+1, d)
-
-    diff = s_local[:, None] - coll.local_nodes  # (T, o+1)
-    exact = diff.abs() < 1e-12
-    any_exact = exact.any(dim=-1, keepdim=True)
-    safe_diff = torch.where(exact, torch.ones_like(diff), diff)
-    w = coll.bary_weights / safe_diff
-    w = torch.where(any_exact, exact.to(w.dtype), w)
-    out = torch.einsum("tj,btjd->btd", w, vals) / w.sum(-1)[None, :, None]
+    seg, w = _barycentric(coll, t.reshape(-1).clamp(0.0, 1.0))
+    vals = segment_values(coll, node_values)[:, seg]  # (B, T, o+1, d)
+    out = torch.einsum("tj,btjd->btd", w, vals)
     return out[:, 0] if scalar else out
+
+
+def interpolate_each(coll: Collocation, node_values, t):
+    """:func:`interpolate` with one time per batch entry: node_values
+    (B, num_nodes, d), t (B,) -> (B, d)."""
+    seg, w = _barycentric(coll, t.clamp(0.0, 1.0))
+    vals = segment_values(coll, node_values)[torch.arange(t.shape[0], device=t.device), seg]
+    return torch.einsum("bj,bjd->bd", w, vals)

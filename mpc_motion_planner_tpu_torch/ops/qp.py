@@ -50,8 +50,7 @@ class QPSettings:
     # Ruiz equilibration sweeps (0 disables)
     ruiz_iters: int = 2
     # OSQP-style adaptive rho: per-problem rescale every rho_update_every
-    # iterations by sqrt(prim/dual residual ratio) (0 disables); dense
-    # backends only
+    # iterations by sqrt(prim/dual residual ratio) (0 disables)
     rho_update_every: int = 100
     rho_min: float = 1e-6
     rho_max: float = 1e6
@@ -61,19 +60,17 @@ class QPSettings:
     rescue_iters: int = 0
     # explicit KKT inverse of the dense backends: "lu" or "cholesky"
     kkt_factor: str = "lu"
-    # iterative-refinement steps on each x-update's KKT solve; dense
-    # backends only
+    # iterative-refinement steps on each x-update's KKT solve
     kkt_refine: int = 0
 
     def check_structured(self) -> None:
-        """Raise for what the structured solver does not run."""
-        if self.rho_update_every > 0:
-            raise NotImplementedError(
-                "adaptive rho (rho_update_every > 0) is not ported to the structured solver"
-            )
-        if self.kkt_refine > 0:
-            raise NotImplementedError(
-                "KKT refinement (kkt_refine > 0) is not ported to the structured solver"
+        """Raise for what the structured solver does not run: it updates rho
+        between dispatches of ``rho_update_every`` iterations, so a residual
+        check must fall on every rho update."""
+        if self.rho_update_every > 0 and self.rho_update_every % self.check_every != 0:
+            raise ValueError(
+                f"check_every ({self.check_every}) must divide rho_update_every "
+                f"({self.rho_update_every}) on the structured backends"
             )
 
 

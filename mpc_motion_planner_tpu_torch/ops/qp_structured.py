@@ -8,16 +8,22 @@ the ADMM loop.
 
 The loop here is the plain version of kernel 3 and follows the fused
 kernel's semantics (``ops/pallas/structured_admm.py`` ``_structured_kernel``)
-exactly: rho fixed, the flush-to-zero/±1e15 clamp on every updated
-iterate, the ±1e20 stand-ins for infinite bounds, residual checks every
-``check_every`` iterations and at the cap, a NaN-safe freeze at magnitude
-1e12 (done=2), and per-problem counts of active iterations. Each problem
-stops on its own ``done``. The functions take the caller's dtype, so the
-CPU tests run it at float64.
+exactly: rho fixed within a dispatch, ``kkt_refine`` steps of iterative
+refinement on every KKT solve, the flush-to-zero/±1e15 clamp on every
+updated iterate, the ±1e20 stand-ins for infinite bounds, residual checks
+every ``check_every`` iterations and at the end of a dispatch, a NaN-safe
+freeze at magnitude 1e12 (done=2), and per-problem counts of active
+iterations. Each problem stops on its own ``done``. Adaptive rho runs as
+the fused kernel's host loop runs it (:func:`admm_chunked`): dispatches of
+``rho_update_every`` iterations with the per-problem rho rescaled by the
+residual ratio, and everything that depends on rho rebuilt and refactored,
+between them. The functions take the caller's dtype, so the CPU tests run
+it at float64.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -454,9 +460,11 @@ def solve_arrow_banded(ocp, fac, rhs, solve=banded_solve):
 class ScaledQP:
     """Ruiz-scaled problem data, ADMM weights and initial iterates.
 
-    z-layout (B, n): D, Ps, qs, lxs, uxs, rx, thx, x, zx, yx.
-    m-layout (B, m): E, lcs, ucs, rc, thr, zc, yc.
-    Banded KKT system: Mband, p_col, m_pp."""
+    z-layout (B, n): D, Ps, qs, lxs, uxs, pat_x, soft_xs, rx, thx, x, zx, yx.
+    m-layout (B, m): E, lcs, ucs, pat_c, soft_s, rc, thr, zc, yc.
+    Per problem (B,): rho. Banded KKT system: Mband, p_col, m_pp.
+    What depends on rho (rc, rx, thr, thx and the KKT system) is rebuilt by
+    :func:`with_rho`."""
 
     D: torch.Tensor
     E: torch.Tensor
@@ -466,6 +474,11 @@ class ScaledQP:
     ucs: torch.Tensor
     lxs: torch.Tensor
     uxs: torch.Tensor
+    pat_c: torch.Tensor
+    pat_x: torch.Tensor
+    soft_s: torch.Tensor
+    soft_xs: torch.Tensor
+    rho: torch.Tensor
     rc: torch.Tensor
     rx: torch.Tensor
     thr: torch.Tensor
@@ -480,15 +493,42 @@ class ScaledQP:
     yx: torch.Tensor
 
 
+def _rho_dependent(ocp, sa, D, E, Ps, pat_c, pat_x, soft_s, soft_xs, rho, sigma):
+    """The ADMM weights, soft thresholds and banded KKT system of a
+    per-problem rho (B,), as ScaledQP fields."""
+    B = rho.shape[0]
+    K, nx, nodes = ocp.coll.order + 1, ocp.nx, ocp.num_nodes
+    rc = rho[:, None] * pat_c
+    rx = rho[:, None] * pat_x
+    # cap the numerator before the divide so hard rows give exactly _HARD
+    thr = torch.minimum(soft_s, _HARD * rc) / rc
+    thx = torch.minimum(soft_xs, _HARD * rx) / rx
+    w = E * E * rc
+    Mband, p_col, m_pp = assemble_banded_M(
+        ocp, sa,
+        w[:, : ocp.num_eq].reshape(B, -1, K, nx),
+        w[:, ocp.num_eq :].reshape(B, nodes, -1),
+        D, Ps + sigma + rx,
+    )
+    return dict(rho=rho, rc=rc, rx=rx, thr=thr, thx=thx, Mband=Mband, p_col=p_col, m_pp=m_pp)
+
+
+def with_rho(ocp, sa, qp: ScaledQP, rho, settings: QPSettings) -> ScaledQP:
+    """``qp`` at another per-problem rho (B,): the scaling, bounds and
+    iterates stay, everything that depends on rho is rebuilt."""
+    return dataclasses.replace(qp, **_rho_dependent(
+        ocp, sa, qp.D, qp.E, qp.Ps, qp.pat_c, qp.pat_x, qp.soft_s, qp.soft_xs, rho,
+        settings.sigma))
+
+
 def scale_qp(ocp, sa, P_diag, q, lc, uc, lx, ux, settings: QPSettings,
              x0=None, yc0=None, yx0=None, soft_c=None, soft_x=None) -> ScaledQP:
     """Ruiz scaling, ±1e20 stand-ins for infinite bounds, soft-row
-    thresholds, the banded KKT assembly and the scaled initial iterates —
-    in the dtype of ``q``."""
+    thresholds, the banded KKT assembly at ``settings.rho`` and the scaled
+    initial iterates — in the dtype of ``q``."""
     B, n = q.shape
     m = lc.shape[1]
     dt, dev = q.dtype, q.device
-    K, nx, nodes = ocp.coll.order + 1, ocp.nx, ocp.num_nodes
 
     if settings.ruiz_iters > 0:
         D, E = ruiz_structured(ocp, sa, settings.ruiz_iters)
@@ -502,31 +542,25 @@ def scale_qp(ocp, sa, P_diag, q, lc, uc, lx, ux, settings: QPSettings,
     lcs, ucs = finite(E * lc), finite(E * uc)
     lxs, uxs = finite(lx / D), finite(ux / D)
 
-    rc = settings.rho * _rho_pattern(lc, uc, settings)
-    rx = settings.rho * _rho_pattern(lx, ux, settings)
+    pat_c = _rho_pattern(lc, uc, settings)
+    pat_x = _rho_pattern(lx, ux, settings)
     hard_m = torch.full((B, m), _HARD, dtype=dt, device=dev)
     hard_n = torch.full((B, n), _HARD, dtype=dt, device=dev)
     soft_s = hard_m if soft_c is None else torch.where(soft_c > 0, soft_c / E, hard_m)
     soft_xs = hard_n if soft_x is None else torch.where(soft_x > 0, soft_x * D, hard_n)
-    # cap the numerator before the divide so hard rows give exactly _HARD
-    thr = torch.minimum(soft_s, _HARD * rc) / rc
-    thx = torch.minimum(soft_xs, _HARD * rx) / rx
-
-    w = E * E * rc
-    Mband, p_col, m_pp = assemble_banded_M(
-        ocp, sa,
-        w[:, : ocp.num_eq].reshape(B, -1, K, nx),
-        w[:, ocp.num_eq :].reshape(B, nodes, -1),
-        D, Ps + settings.sigma + rx,
-    )
+    rho = torch.full((B,), settings.rho, dtype=dt, device=dev)
 
     x = torch.zeros(B, n, dtype=dt, device=dev) if x0 is None else x0 / D
     yc = torch.zeros(B, m, dtype=dt, device=dev) if yc0 is None else yc0 / E
     yx = torch.zeros(B, n, dtype=dt, device=dev) if yx0 is None else yx0 * D
     zc = torch.clamp(E * apply_A(ocp, sa, D * x), lcs, ucs)
     zx = torch.clamp(x, lxs, uxs)
-    return ScaledQP(D, E, Ps, qs, lcs, ucs, lxs, uxs, rc, rx, thr, thx,
-                    Mband, p_col, m_pp, x, zc, zx, yc, yx)
+    return ScaledQP(
+        D=D, E=E, Ps=Ps, qs=qs, lcs=lcs, ucs=ucs, lxs=lxs, uxs=uxs, pat_c=pat_c,
+        pat_x=pat_x, soft_s=soft_s, soft_xs=soft_xs, x=x, zc=zc, zx=zx, yc=yc, yx=yx,
+        **_rho_dependent(ocp, sa, D, E, Ps, pat_c, pat_x, soft_s, soft_xs, rho,
+                         settings.sigma),
+    )
 
 
 def unscale_solution(qp: ScaledQP, x, zc, zx, yc, yx, done, iters, rp, rd) -> QPSolution:
@@ -556,8 +590,9 @@ def _soft_update(za, y, r, lo, hi, t):
     return _ftz(_soft_prox(za + y / r, lo, hi, t))
 
 
-def admm_residuals(ocp, sa, qp: ScaledQP, settings, x, zc, zx, yc, yx):
-    """OSQP-style residuals and the convergence flag, per problem."""
+def _residual_terms(ocp, sa, qp: ScaledQP, x, zc, zx, yc, yx):
+    """OSQP primal and dual residuals and their scales, in unscaled units:
+    (r_prim, r_dual, scale_p, scale_d), each (B,)."""
     D, E = qp.D, qp.E
     amax = lambda a: a.abs().amax(dim=-1)
     Ax = E * apply_A(ocp, sa, D * x)
@@ -572,30 +607,61 @@ def admm_residuals(ocp, sa, qp: ScaledQP, settings, x, zc, zx, yc, yx):
         torch.maximum(amax(qp.Ps * x / D), amax(qp.qs / D)),
         torch.maximum(amax(Aty / D), amax(yx / D)),
     )
+    return r_prim, r_dual, scale_p, scale_d
+
+
+def admm_residuals(ocp, sa, qp: ScaledQP, settings, x, zc, zx, yc, yx):
+    """OSQP-style residuals and the convergence flag, per problem."""
+    r_prim, r_dual, scale_p, scale_d = _residual_terms(ocp, sa, qp, x, zc, zx, yc, yx)
     eps_p = settings.eps_abs + settings.eps_rel * scale_p
     eps_d = settings.eps_abs + settings.eps_rel * scale_d
     return (r_prim <= eps_p) & (r_dual <= eps_d), r_prim, r_dual
 
 
-def admm_plain(ocp, sa, qp: ScaledQP, fac, settings: QPSettings):
-    """The fixed-rho ADMM loop with kernel 3's semantics. Returns the scaled
-    (x, zc, zx, yc, yx, done (int32), iters (int32), rp, rd)."""
+def residual_ratio(ocp, sa, qp: ScaledQP, x, zc, zx, yc, yx):
+    """sqrt of the scaled primal over the scaled dual residual, per problem:
+    the factor by which the rho update rescales rho."""
+    r_prim, r_dual, scale_p, scale_d = _residual_terms(ocp, sa, qp, x, zc, zx, yc, yx)
+    floor = lambda a: torch.clamp(a, min=1e-12)
+    return torch.sqrt((r_prim / floor(scale_p)) / floor(r_dual / floor(scale_d)))
+
+
+def initial_state(qp: ScaledQP):
+    """The ADMM state before the first iteration: the scaled iterates of
+    ``qp``, no problem done, no iteration counted, residuals 0."""
+    B, dev = qp.x.shape[0], qp.x.device
+    zeros = lambda dtype: torch.zeros(B, dtype=dtype, device=dev)
+    return (qp.x, qp.zc, qp.zx, qp.yc, qp.yx, zeros(torch.int32), zeros(torch.int32),
+            zeros(qp.x.dtype), zeros(qp.x.dtype))
+
+
+def admm_plain(ocp, sa, qp: ScaledQP, fac, settings: QPSettings, state=None,
+               chunk_iters=None):
+    """One dispatch of the ADMM loop with kernel 3's semantics, rho fixed:
+    ``chunk_iters`` iterations (default: the whole budget, ``max_iter +
+    rescue_iters``) from ``state`` (default: :func:`initial_state`), with
+    the residual check every ``check_every`` iterations of the dispatch and
+    at its last. A problem whose ``done`` is set on entry is left as it is;
+    ``iters`` adds the dispatch's active iterations, and ``rp``/``rd`` change
+    only for problems active in it. Takes and returns the scaled (x, zc, zx,
+    yc, yx, done (int32), iters (int32), rp, rd)."""
     D, E = qp.D, qp.E
     alpha, sigma = settings.alpha, settings.sigma
-    cap = settings.max_iter + settings.rescue_iters
-    x, zc, zx, yc, yx = qp.x, qp.zc, qp.zx, qp.yc, qp.yx
-    B = x.shape[0]
-    done = torch.zeros(B, dtype=torch.int32, device=x.device)
-    iters = torch.zeros(B, dtype=torch.int32, device=x.device)
-    rp = x.new_zeros(B)
-    rd = x.new_zeros(B)
+    cap = settings.max_iter + settings.rescue_iters if chunk_iters is None else chunk_iters
+    x, zc, zx, yc, yx, done, iters, rp, rd = initial_state(qp) if state is None else state
+    matA = lambda v: E * apply_A(ocp, sa, D * v)
+    matAT = lambda w: D * apply_AT(ocp, sa, E * w)
+    sig = qp.Ps + sigma + qp.rx
 
+    if bool((done != 0).all()):
+        return x, zc, zx, yc, yx, done, iters, rp, rd
     for k in range(1, cap + 1):
-        rhs = sigma * x - qp.qs + qp.rx * zx - yx + D * apply_AT(
-            ocp, sa, E * (qp.rc * zc - yc)
-        )
+        rhs = sigma * x - qp.qs + qp.rx * zx - yx + matAT(qp.rc * zc - yc)
         xt = solve_arrow_banded(ocp, fac, rhs)
-        zt_c = E * apply_A(ocp, sa, D * xt)
+        for _ in range(settings.kkt_refine):
+            Mxt = sig * xt + matAT(qp.rc * matA(xt))
+            xt = xt + solve_arrow_banded(ocp, fac, rhs - Mxt)
+        zt_c = matA(xt)
 
         x_new = _ftz(alpha * xt + (1 - alpha) * x)
         zc_arg = alpha * zt_c + (1 - alpha) * zc
@@ -631,6 +697,51 @@ def admm_plain(ocp, sa, qp: ScaledQP, fac, settings: QPSettings):
     return x, zc, zx, yc, yx, done, iters, rp, rd
 
 
+def chunk_sizes(settings: QPSettings):
+    """Iterations per dispatch: the whole budget ``max_iter + rescue_iters``
+    in one when rho is fixed, else in chunks of ``rho_update_every`` (the
+    last one shorter where it does not divide the budget)."""
+    cap = settings.max_iter + settings.rescue_iters
+    every = settings.rho_update_every
+    if every <= 0:
+        return [cap]
+    return [min(every, cap - c) for c in range(0, cap, every)]
+
+
+def admm_chunked(ocp, sa, qp: ScaledQP, settings: QPSettings, factor, admm):
+    """The ADMM loop as the fused kernel's host part runs it: one dispatch
+    of ``admm`` per entry of :func:`chunk_sizes` on the factors of
+    ``factor(Mband, p_col, m_pp, bw)``, and between two dispatches the
+    OSQP rho update: a problem that is not done and whose residual ratio is
+    above 5 or below 0.2 gets ``rho = clip(rho * ratio, rho_min, rho_max)``,
+    and if any problem wants that (one host synchronisation per chunk),
+    everything that depends on rho is rebuilt (:func:`with_rho`) and
+    refactored for the batch. ``admm`` is :func:`admm_plain` or kernel 3's
+    wrapper, ``factor`` :func:`factor_banded` or kernel 2's.
+
+    Returns (state as :func:`admm_plain` returns it, the final ScaledQP,
+    whose ``rho`` is each problem's last rho, and the number of
+    refactorizations after the first)."""
+    bw = ocp.coll.order
+    fac = factor(qp.Mband, qp.p_col, qp.m_pp, bw)
+    sizes = chunk_sizes(settings)
+    state = initial_state(qp)
+    refactors = 0
+    for c, chunk_iters in enumerate(sizes):
+        state = admm(ocp, sa, qp, fac, settings, state, chunk_iters)
+        if c == len(sizes) - 1:
+            break
+        ratio = residual_ratio(ocp, sa, qp, *state[:5])
+        want = (state[5] == 0) & ((ratio > 5.0) | (ratio < 0.2))
+        if bool(want.any()):
+            rho = torch.where(
+                want, torch.clamp(qp.rho * ratio, settings.rho_min, settings.rho_max), qp.rho)
+            qp = with_rho(ocp, sa, qp, rho, settings)
+            fac = factor(qp.Mband, qp.p_col, qp.m_pp, bw)
+            refactors += 1
+    return state, qp, refactors
+
+
 def solve_box_qp_structured(
     ocp, sa: StructuredA, P_diag, q, lc, uc, lx, ux,
     settings: QPSettings = QPSettings(),
@@ -641,5 +752,5 @@ def solve_box_qp_structured(
     settings.check_structured()
     qp = scale_qp(ocp, sa, P_diag, q, lc, uc, lx, ux, settings, x0, yc0, yx0,
                   soft_c, soft_x)
-    fac = factor_banded(qp.Mband, qp.p_col, qp.m_pp, ocp.coll.order)
-    return unscale_solution(qp, *admm_plain(ocp, sa, qp, fac, settings))
+    state, qp, _ = admm_chunked(ocp, sa, qp, settings, factor_banded, admm_plain)
+    return unscale_solution(qp, *state)

@@ -1,12 +1,18 @@
-"""Recursive Newton-Euler inverse dynamics (PyTorch).
+"""Recursive Newton-Euler inverse dynamics, its derivatives, the mass
+matrix and the energies (PyTorch).
 
-Counterpart of ``mpc_motion_planner_tpu/ops/rnea.py`` ``rnea``: two sweeps
-over the chain in link coordinates, gravity through the base acceleration,
-URDF damping/friction not applied (pinocchio semantics). Takes arbitrary
-leading batch dimensions on ``q``, ``qdot`` and ``qddot``.
+Counterpart of ``mpc_motion_planner_tpu/ops/rnea.py``: two sweeps over the
+chain in link coordinates, gravity through the base acceleration, URDF
+damping/friction not applied (pinocchio semantics). ``rnea``,
+``nonlinear_effects`` and the energies take arbitrary leading batch
+dimensions on ``q``, ``qdot`` and ``qddot``; ``rnea_derivatives`` and
+``crba`` take one configuration (nq,), as their JAX counterparts do, and
+batch under ``torch.func.vmap``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -85,3 +91,55 @@ def rnea(model: RobotModel, q, qdot, qddot) -> torch.Tensor:
             fs[par[i]] = (fs[par[i]][0] + pw, fs[par[i]][1] + pv)
 
     return torch.stack(taus, dim=-1)
+
+
+def rnea_derivatives(model: RobotModel, q, qdot, qddot):
+    """Exact partials (dtau/dq, dtau/dqdot, dtau/dqddot), each (nq, nq), by
+    forward-mode differentiation; dtau/dqddot is the mass matrix."""
+    return torch.func.jacfwd(lambda *a: rnea(model, *a), argnums=(0, 1, 2))(q, qdot, qddot)
+
+
+def crba(model: RobotModel, q) -> torch.Tensor:
+    """Joint-space mass matrix M(q), (nq, nq), symmetrized: dtau/dqddot at
+    zero velocity and zero gravity, which is the composite-rigid-body mass
+    matrix since tau is linear in qddot."""
+    zero_g = dataclasses.replace(model, gravity=torch.zeros_like(model.gravity))
+    z = torch.zeros_like(q)
+    M = torch.func.jacfwd(lambda a: rnea(zero_g, q, z, a))(z)
+    return 0.5 * (M + M.transpose(-1, -2))
+
+
+def nonlinear_effects(model: RobotModel, q, qdot) -> torch.Tensor:
+    """Coriolis + centrifugal + gravity torques: tau(q, qdot, 0)."""
+    return rnea(model, q, qdot, torch.zeros_like(q))
+
+
+def kinetic_energy(model: RobotModel, q, qdot):
+    """Total kinetic energy (...,), from the forward velocity sweep only: an
+    oracle for RNEA that shares none of its backward sweep."""
+    batch = q.shape[:-1]
+    zero3 = torch.zeros(*batch, 3, dtype=q.dtype, device=q.device)
+    par = model.parent_indices()
+    vs = []
+    ke = torch.zeros(batch, dtype=q.dtype, device=q.device)
+    for i in range(model.nq):
+        E, r = _joint_transform(model, i, q[..., i])
+        s_w, s_v = _joint_motion(model, i)
+        vp = vs[par[i]] if par[i] >= 0 else (zero3, zero3)
+        v_w, v_v = spatial.transform_motion(E, r, *vp)
+        v_w = v_w + s_w * qdot[..., i, None]
+        v_v = v_v + s_v * qdot[..., i, None]
+        vs.append((v_w, v_v))
+        hw, hv = spatial.inertia_apply(model.mass[i], model.com[i], model.inertia[i], v_w, v_v)
+        ke = ke + 0.5 * ((v_w * hw).sum(-1) + (v_v * hv).sum(-1))
+    return ke
+
+
+def potential_energy(model: RobotModel, q):
+    """Total gravitational potential energy (...,), from the world heights
+    of the centres of mass."""
+    from . import kinematics
+
+    R, p = kinematics.fk(model, q)
+    com_world = p + torch.einsum("...nij,nj->...ni", R, model.com)
+    return -(model.mass * torch.einsum("...ni,i->...n", com_world, model.gravity)).sum(-1)

@@ -65,6 +65,51 @@ def inverse(R, p):
     return Rt, -_mv(Rt, p)
 
 
+def log3(R):
+    """SO(3) logarithm -> rotation vector (theta * unit_axis), (..., 3).
+
+    Stable near theta = 0 (Taylor) and usable up to theta close to pi (the
+    IK loop's error magnitudes stay well below pi)."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.acos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0))
+    # vee of the antisymmetric part, w = 2 sin(theta) * axis
+    w = torch.stack(
+        [
+            R[..., 2, 1] - R[..., 1, 2],
+            R[..., 0, 2] - R[..., 2, 0],
+            R[..., 1, 0] - R[..., 0, 1],
+        ],
+        dim=-1,
+    )
+    small = theta < 1e-6
+    safe_sin = torch.where(small, torch.ones_like(theta), torch.sin(theta))
+    scale = torch.where(small, 0.5 + theta**2 / 12.0, theta / (2.0 * safe_sin))
+    return w * scale[..., None]
+
+
+def _v_inv(w):
+    """Inverse of the SO(3) left-Jacobian V(w) of the SE(3) log:
+    V^-1 = I - 0.5 [w] + (1/t^2)(1 - t sin t / (2 (1 - cos t))) [w]^2."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2)
+    W = skew(w)
+    small = theta < 1e-6
+    safe_t = torch.where(small, torch.ones_like(theta), theta)
+    coeff = torch.where(
+        small,
+        1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - safe_t * torch.sin(safe_t) / (2.0 * (1.0 - torch.cos(safe_t)))) / safe_t**2,
+    )
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    return eye - 0.5 * W + coeff[..., None, None] * (W @ W)
+
+
+def log6(R, p):
+    """SE(3) logarithm -> (linear, angular) 6-vector, pinocchio ordering."""
+    w = log3(R)
+    return torch.cat([_mv(_v_inv(w), p), w], dim=-1)
+
+
 def cross_motion(w1, v1, w2, v2):
     """Spatial cross product of motion vectors: (w1,v1) x (w2,v2)."""
     return _cross(w1, w2), _cross(w1, v2) + _cross(v1, w2)

@@ -2,6 +2,8 @@
 plain version of kernel 2 and the plain version of kernel 3) against the
 JAX package on real planner QPs (float64)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -273,10 +275,161 @@ def test_plain_admm_matches_jax(qp_data, port_ocp, soft):
 
 
 def test_unported_settings_raise(qp_data, port_ocp):
+    """The one refusal left is the fused kernel's own: a rho update falls on
+    a dispatch boundary, so check_every must divide rho_update_every."""
     _, d = qp_data
     _, sa_t = _sa(d)
     args = [torch.as_tensor(d[k]) for k in ("P", "q", "lc", "uc", "lx", "ux")]
-    for settings in (QPSettings(rho_update_every=100),
-                     QPSettings(rho_update_every=0, kkt_refine=1)):
-        with pytest.raises(NotImplementedError, match="structured solver"):
-            tqs.solve_box_qp_structured(port_ocp, sa_t, *args, settings)
+    with pytest.raises(ValueError, match="must divide rho_update_every"):
+        tqs.solve_box_qp_structured(
+            port_ocp, sa_t, *args, QPSettings(check_every=30, rho_update_every=100))
+    for ok in (QPSettings(), QPSettings(rho_update_every=0, kkt_refine=1),
+               QPSettings(check_every=30, rho_update_every=0)):
+        ok.check_structured()
+
+
+def _solve_pair(qp_data, port_ocp, settings_kw, dtype=np.float64):
+    """The same soft-row QPs through the JAX ``structured`` backend and the
+    port's plain structured solve, at ``dtype``."""
+    jo, d = qp_data
+    cast = lambda a: np.asarray(a, dtype)
+    sa_j = jstructure.StructuredA(*(jnp.asarray(cast(d[k])) for k in ("p", "f_rows", "J")))
+    sa_t = StructuredA(*(torch.as_tensor(cast(d[k])) for k in ("p", "f_rows", "J")))
+    args = [cast(d[k]) for k in ("P", "q", "lc", "uc", "lx", "ux")]
+    soft_c = cast(d["soft_c"])
+    ref = jqs.solve_box_qp_structured(
+        jo, sa_j, *map(jnp.asarray, args), JQPSettings(**settings_kw),
+        soft_c=jnp.asarray(soft_c))
+    got = tqs.solve_box_qp_structured(
+        port_ocp, sa_t, *map(torch.as_tensor, args),
+        QPSettings(backend="structured", **settings_kw), soft_c=torch.as_tensor(soft_c))
+    return ref, got, sa_j, args, soft_c
+
+
+# float64: both run the same iteration with another factorization of the same
+# matrix (group-tridiagonal against node-level), so the iterates differ by the
+# factorizations' rounding; rtol 1e-6 with atol 1e-8 for the entries at 0.
+@pytest.mark.parametrize("settings_kw", [
+    dict(max_iter=700, rho_update_every=0, kkt_refine=1),
+    dict(max_iter=700, rho_update_every=100, kkt_refine=0),
+    dict(max_iter=300, rho_update_every=100, kkt_refine=1),
+], ids=["refine", "adaptive_rho", "adaptive_rho+refine"])
+def test_plain_admm_refine_and_adaptive_rho_match_jax(qp_data, port_ocp, settings_kw):
+    """KKT refinement and the chunked rho update of the plain loop against
+    the JAX ``structured`` backend, which refines in its step and updates rho
+    inside its check: same x, identical converged, and the iteration counts
+    the two loops define alike (the convergence iteration)."""
+    ref, got, *_ = _solve_pair(qp_data, port_ocp, settings_kw)
+    conv = np.asarray(ref.converged)
+    assert got.converged.tolist() == conv.tolist()
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=1e-6, atol=1e-8)
+    np.testing.assert_array_equal(got.iterations.numpy()[conv], np.asarray(ref.iterations)[conv])
+    if settings_kw["rho_update_every"]:
+        # the comparison is of solves whose rho did change
+        settings = QPSettings(backend="structured", **settings_kw)
+        sa_t, qp = _scaled(qp_data, port_ocp, settings)
+        _, qp_end, n_ref = tqs.admm_chunked(port_ocp, sa_t, qp, settings, tqs.factor_banded,
+                                            tqs.admm_plain)
+        assert n_ref > 0 and not torch.equal(qp_end.rho, qp.rho)
+
+
+def test_plain_admm_matches_structured_pallas_interpret(qp_data, port_ocp):
+    """float32, adaptive rho and one refinement step: the plain loop against
+    the JAX fused kernel in interpret mode, held as the JAX package's own
+    test holds that kernel against its portable backend
+    (test_structured_pallas_adaptive_rho_matches_xla_backend): identical
+    converged, hard rows of converged problems within 5e-3, iteration counts
+    within one check window."""
+    from mpc_motion_planner_tpu.ops.pallas.structured_admm import (
+        solve_box_qp_structured_pallas,
+    )
+
+    jo, d = qp_data
+    f32 = np.float32
+    settings_kw = dict(max_iter=300, check_every=25, rho_update_every=100, kkt_refine=1)
+    sa_j = jstructure.StructuredA(*(jnp.asarray(d[k], f32) for k in ("p", "f_rows", "J")))
+    sa_t = StructuredA(*(torch.as_tensor(d[k].astype(f32)) for k in ("p", "f_rows", "J")))
+    args = [d[k].astype(f32) for k in ("P", "q", "lc", "uc", "lx", "ux")]
+    soft_c = d["soft_c"].astype(f32)
+    ref = solve_box_qp_structured_pallas(
+        jo, sa_j, *map(jnp.asarray, args), JQPSettings(**settings_kw),
+        soft_c=jnp.asarray(soft_c), lanes=4)
+    got = tqs.solve_box_qp_structured(
+        port_ocp, sa_t, *map(torch.as_tensor, args),
+        QPSettings(backend="structured_pallas", **settings_kw), soft_c=torch.as_tensor(soft_c))
+    assert got.x.dtype == torch.float32
+    conv = np.asarray(ref.converged)
+    assert got.converged.tolist() == conv.tolist()
+    if conv.any():
+        from mpc_motion_planner_tpu_torch.ops.structure import apply_A
+        Ax = apply_A(port_ocp, sa_t, got.x).numpy()
+        viol = np.maximum(Ax - args[3], 0.0) + np.maximum(args[2] - Ax, 0.0)
+        assert (viol * (soft_c == 0))[conv].max() < 5e-3
+    np.testing.assert_allclose(got.iterations.numpy(), np.asarray(ref.iterations), atol=26)
+
+
+def _scaled(qp_data, port_ocp, settings):
+    _, d = qp_data
+    _, sa_t = _sa(d)
+    args = [torch.as_tensor(d[k]) for k in ("P", "q", "lc", "uc", "lx", "ux")]
+    qp = tqs.scale_qp(port_ocp, sa_t, *args, settings, soft_c=torch.as_tensor(d["soft_c"]))
+    return sa_t, qp
+
+
+@pytest.mark.parametrize("kkt_refine", [0, 1])
+def test_chunked_dispatch_equals_one_dispatch(qp_data, port_ocp, kkt_refine):
+    """Dispatches of 100 iterations that hand the state on equal one dispatch
+    of the whole budget bitwise, rescue iterations included: a dispatch's
+    last iteration falls on a check of the single one, done problems are
+    left alone, iterations add up, residuals refresh only for problems
+    active in the dispatch."""
+    settings = QPSettings(backend="structured", max_iter=300, rescue_iters=50,
+                          rho_update_every=0, kkt_refine=kkt_refine)
+    sa_t, qp = _scaled(qp_data, port_ocp, settings)
+    fac = tqs.factor_banded(qp.Mband, qp.p_col, qp.m_pp, port_ocp.coll.order)
+    one = tqs.admm_plain(port_ocp, sa_t, qp, fac, settings)
+    state = None
+    for chunk in (100, 100, 100, 50):
+        state = tqs.admm_plain(port_ocp, sa_t, qp, fac, settings, state, chunk)
+    for a, b in zip(state, one):
+        assert torch.equal(a, b)
+    assert 0 < int(one[6].min()) and int(one[6].max()) <= 350
+    # all done on entry: nothing moves, not even the counts
+    done = torch.ones_like(one[5])
+    again = tqs.admm_plain(port_ocp, sa_t, qp, fac, settings, one[:5] + (done,) + one[6:], 100)
+    for a, b in zip(again[:5] + again[6:], one[:5] + one[6:]):
+        assert torch.equal(a, b)
+
+
+def test_chunked_loop_without_rho_change_equals_fixed_rho(qp_data, port_ocp):
+    """admm_chunked's chunk sizes, and its whole loop when no rho can change:
+    with rho_min = rho_max = rho every update rebuilds the same system, and
+    with the update thresholds never met nothing is rebuilt; both give the
+    fixed-rho solve bitwise."""
+    assert tqs.chunk_sizes(QPSettings(max_iter=700, rho_update_every=0, rescue_iters=200)) == [900]
+    assert tqs.chunk_sizes(QPSettings(max_iter=250, rho_update_every=100)) == [100, 100, 50]
+    assert tqs.chunk_sizes(QPSettings(max_iter=200, rho_update_every=100, rescue_iters=100)) \
+        == [100, 100, 100]
+    fixed = QPSettings(backend="structured", max_iter=300, rho_update_every=0)
+    sa_t, qp = _scaled(qp_data, port_ocp, fixed)
+    ref, _, n0 = tqs.admm_chunked(port_ocp, sa_t, qp, fixed, tqs.factor_banded, tqs.admm_plain)
+    assert n0 == 0
+    pinned = dataclasses.replace(fixed, rho_update_every=100, rho_min=fixed.rho, rho_max=fixed.rho)
+    got, qp_end, n_ref = tqs.admm_chunked(port_ocp, sa_t, qp, pinned, tqs.factor_banded,
+                                          tqs.admm_plain)
+    assert n_ref > 0 and torch.equal(qp_end.rho, qp.rho)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_rho_update_rebuilds_everything_that_depends_on_rho(qp_data, port_ocp):
+    """with_rho against scale_qp at that rho: weights, soft thresholds and
+    the KKT system; the scaling and the iterates stay."""
+    s1 = QPSettings(backend="structured", rho=0.1)
+    s2 = dataclasses.replace(s1, rho=0.7)
+    sa_t, qp1 = _scaled(qp_data, port_ocp, s1)
+    _, qp2 = _scaled(qp_data, port_ocp, s2)
+    moved = tqs.with_rho(port_ocp, sa_t, qp1, qp2.rho, s1)
+    for f in dataclasses.fields(moved):
+        assert torch.equal(getattr(moved, f.name), getattr(qp2, f.name)), f.name
+    assert not torch.equal(qp1.thr, qp2.thr) and not torch.equal(qp1.Mband, qp2.Mband)

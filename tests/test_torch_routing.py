@@ -41,7 +41,7 @@ def no_launch():
     kernels.reset_launch_counts()
     yield
     assert set(kernels.launch_counts().values()) == {0}
-    assert k2.REPAIRS.count == 0
+    assert k2.REPAIRS.count == 0 and k3.REFACTORS.count == 0
 
 
 def _xu(B=2, nodes=19, seed=0):
@@ -131,11 +131,57 @@ def test_unknown_qp_backends_raise(ocp):
 
 
 def test_structured_backends_refuse_what_is_not_ported():
+    """Adaptive rho and KKT refinement run; what is refused is a check_every
+    that does not divide rho_update_every."""
     for settings in (QPSettings(backend="structured"),  # adaptive rho by default
-                     QPSettings(backend="structured", rho_update_every=0, kkt_refine=1)):
-        with pytest.raises(NotImplementedError, match="structured solver"):
-            settings.check_structured()
-    QPSettings(backend="structured", rho_update_every=0).check_structured()
+                     QPSettings(backend="structured", rho_update_every=0, kkt_refine=1),
+                     QPSettings(backend="structured_pallas", rho_update_every=50)):
+        settings.check_structured()
+    with pytest.raises(ValueError, match="must divide rho_update_every"):
+        QPSettings(backend="structured", rho_update_every=90).check_structured()
+
+
+def test_cuda_solve_chunks_through_kernels_2_and_3(ocp, monkeypatch):
+    """The card's structured solve under adaptive rho: every dispatch goes to
+    kernel 3's wrapper with the state of the one before and every
+    factorization to kernel 2's route, never to admm_plain; refactorizations
+    are counted. The wrappers are stood in for by the plain versions (this
+    machine has no card), admm_plain itself is made to raise."""
+    B = 2
+    planner = MotionPlanner(margins=Margins(0.8, 0.8, 0.6, 0.9, 0.1), dtype=torch.float32,
+                            device="cpu")
+    cur = torch.zeros(B, 14)
+    cur[:, :7] = (planner.limits.max_position + planner.limits.min_position) / 2
+    tgt = cur.clone()
+    tgt[:, :7] += torch.tensor([[0.3], [-0.2]])
+    z0 = planner.warm_start_vector(planner.plan_warm_start(cur, tgt))
+    _, _, sa, args = qp_subproblem(planner.ocp, planner.nlp_bounds(cur, tgt), z0)
+    P = hessian_regularization_diag(planner.ocp, B, torch.float32, "cpu", 0.01)
+    settings = QPSettings(backend="structured_pallas", max_iter=300, kkt_refine=1)
+    ref = qp_structured.solve_box_qp_structured(planner.ocp, sa, P, *args, settings)
+
+    plain, calls = qp_structured.admm_plain, {"admm": [], "factor": 0}
+
+    def fake_kernel(ocp_, sa_, qp, fac, s, state=None, chunk_iters=None):
+        calls["admm"].append((chunk_iters, None if state is None else int(state[6].max())))
+        return plain(ocp_, sa_, qp, fac, s, state, chunk_iters)
+
+    def fake_factor(*a):
+        calls["factor"] += 1
+        return qp_structured.factor_banded(*a)
+
+    def refuse(*a, **k):
+        raise AssertionError("admm_plain reached from the CUDA path")
+
+    monkeypatch.setattr(k3, "admm_kernel", fake_kernel)
+    monkeypatch.setattr(k3.banded_factor, "factor", fake_factor)
+    monkeypatch.setattr(qp_structured, "admm_plain", refuse)
+    got = k3.solve_box_qp_structured_cuda(planner.ocp, sa, P, *args, settings)
+    assert [c for c, _ in calls["admm"]] == [100, 100, 100]
+    assert calls["admm"][0][1] in (None, 0) and calls["admm"][1][1] == 100
+    assert calls["factor"] == 1 + k3.REFACTORS.count
+    assert torch.equal(got.x, ref.x) and torch.equal(got.iterations, ref.iterations)
+    k3.REFACTORS.count = 0
 
 
 def test_host_constants_are_cached_per_model():
@@ -184,6 +230,28 @@ def test_kernel_entry_points_refuse_cpu_tensors(ocp):
     Mband, p_col, m_pp = (t.float() for t in _spd_band())
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         k2.factor_banded_kernel(Mband, p_col, m_pp)
+
+
+def test_kernel1_reads_views_of_the_iterate_in_place(ocp):
+    """X and U as ocp.unpack gives them (views of z: a batch stride of
+    num_var, node-major rows) reach the launch uncopied; anything else is
+    copied once into that layout."""
+    z = torch.rand(3, ocp.num_var, dtype=torch.float32)
+    X, U, _ = ocp.unpack(z)
+    assert X.stride() == (ocp.num_var, 14, 1) and U.stride() == (ocp.num_var, 7, 1)
+    x, u = k1._rows_in_place(X, 14), k1._rows_in_place(U, 7)
+    assert x.data_ptr() == X.data_ptr() and u.data_ptr() == U.data_ptr()
+    assert u.data_ptr() - x.data_ptr() == 4 * ocp.num_nodes * 14
+    # float64 is cast once; rows that are not node-major are laid out anew
+    x64 = k1._rows_in_place(X.double(), 14)
+    assert x64.dtype == torch.float32 and x64.stride()[1:] == (14, 1)
+    assert torch.equal(x64, X)
+    Xt = X.transpose(1, 2).contiguous().transpose(1, 2)
+    xt = k1._rows_in_place(Xt, 14)
+    assert xt.data_ptr() != Xt.data_ptr() and xt.stride() == (19 * 14, 14, 1)
+    assert torch.equal(xt, X)
+    with pytest.raises(ValueError, match="kernel 1 takes X"):
+        k1.node_constraints_kernel(ocp, X, U[:, :5], False)
 
 
 def test_kernel3_refuses_cpu_tensors():
