@@ -22,7 +22,13 @@ them), with the rescue budget and on a batch that is no round number (phase
 hot restart (phases 5b, 5c). Then the script times each kernel against its
 plain version. Kernel 2 runs several problems per SM and kernel 4 one
 problem per thread-block cluster; phases 3 and 7 print the occupancy each
-reaches. Needs one CUDA GPU and ``nvcc``; imports no JAX.
+reaches. Last, it runs the port's three user entry points in this process:
+the headline (``bench/headline.py``) on the structured and the dense path
+(phase 11), the acceptance (``bench/acceptance.py``) on the 1000 states of
+the JAX acceptance artifact ``analysis/benchmark_data_r05.txt.gz``, held
+against the JAX analysis of that artifact (phase 12), and the
+offline-trajectory example with its re-integration check (phase 13).
+Needs one CUDA GPU and ``nvcc``; imports no JAX.
 
     python3 chip_smoke.py
 
@@ -35,11 +41,14 @@ Any failed check raises, and the script exits non-zero without that line.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -56,8 +65,25 @@ B_FACTOR = 256  # kernel-2 comparison batch
 B_ADMM = 64  # kernel-3 and kernel-4 comparison batch
 B_ODD = 61  # a batch that is no round number
 # the JAX package's record on these states (BENCH_r05.json, structured_pallas)
-JAX_RECORD = {"qp_conv": 0.9978, "tol_hit": 1.0, "median_violation": 0.487,
-              "p90_violation": 5.37, "terminal_err_max": 0.010}
+JAX_RECORD = {"qp_conv_rate": 0.9978, "tol_hit_rate": 1.0, "median_violation": 0.487,
+              "p90_violation": 5.37, "terminal_err_inf_max": 0.010}
+# every key of the JAX headline's line (mpc_motion_planner_tpu/bench/headline.py)
+JAX_HEADLINE_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "batch", "batch_wall_s", "amortized_ms_per_solve",
+    "tol_hit_rate", "tol_threshold", "terminal_err_inf_max", "node_terminal_err_max",
+    "median_violation", "p90_violation", "qp_conv_rate", "qp_max_iter", "kkt_refine",
+    "exit_every", "exit_warmup", "exit_schedule", "sqp_schedules", "rescue_iters", "ruiz_iters",
+    "rho", "alpha", "fused_constraints", "qp_backend", "device",
+)
+# the JAX acceptance artifact (1000 chained states, structured_pallas on a
+# TPU) and the JAX package's analysis of it: violation_counts_reference
+ARTIFACT = os.path.join(ROOT, "analysis", "benchmark_data_r05.txt.gz")
+JAX_ACCEPTANCE = {
+    "ruckig": {"position_fails": 0, "velocity_fails": 0, "torqueAccel_fails": 4, "Jerk_fails": 0,
+               "taskVelocity_fails": 222, "collision_fails": 64, "total": 290},
+    "mpc": {"position_fails": 0, "velocity_fails": 0, "torqueAccel_fails": 0, "Jerk_fails": 0,
+            "taskVelocity_fails": 234, "collision_fails": 33, "total": 267},
+}
 REPLACES = {
     "constraints": "mpc_motion_planner_tpu/ops/pallas/constraints_kernel.py:345",
     "banded_factor": "mpc_motion_planner_tpu/ops/pallas/banded_factor.py:262",
@@ -230,20 +256,45 @@ def random_dense_chunk(B, n, m, seed, dev):
 
 
 def quality(planner, sol, tgt):
-    """tol_hit, qp_conv (and per step), median / p90 violation, terminal
-    error max of a batched solve."""
-    tol = planner.target_eps + planner.qp_settings.eps_abs
-    err = (sol.x_at(1.0) - tgt).abs().amax(-1)
-    viol = sol.violation.double().cpu().numpy()
+    """The headline line's quality fields of a batched solve (tol_hit_rate,
+    qp_conv_rate, median / p90 violation, terminal errors), with the
+    converged share and the median QP iterations per SQP step."""
+    from mpc_motion_planner_tpu_torch.bench.headline import quality_fields
+
     return {
-        "tol_hit": float((err <= tol).double().mean()),
-        "qp_conv": float(sol.qp_converged.double().mean()),
+        **quality_fields(planner, sol, tgt),
         "qp_conv_steps": [round(float(c), 4) for c in sol.qp_converged.double().mean(0)],
-        "median_violation": float(np.median(viol)),
-        "p90_violation": float(np.percentile(viol, 90)),
-        "terminal_err_max": float(err.max()),
         "qp_iterations_median": sol.qp_iterations.float().median(0).values.tolist(),
     }
+
+
+@contextlib.contextmanager
+def bench_env(**values):
+    """The process environment with every BENCH_* variable removed but
+    ``values``; restored on exit."""
+    saved = dict(os.environ)
+    for k in [k for k in os.environ if k.startswith("BENCH_")]:
+        del os.environ[k]
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+def run_main(main, argv):
+    """Run an entry point's ``main`` in this process; return its stdout."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    check(rc == 0, f"{main.__module__}.main returned {rc}")
+    return out.getvalue()
+
+
+def json_after(text: str, marker: str):
+    """The JSON object that starts at the first "{" after ``marker``."""
+    return json.JSONDecoder().raw_decode(text, text.index("{", text.index(marker)))[0]
 
 
 def fixture_agreement(planner, path, dev):
@@ -269,6 +320,114 @@ def fixture_agreement(planner, path, dev):
         f"qp_converged mismatches {int((~conv_same).sum())}, terminal error "
         f"{float(err.max()):.5f}"
     )
+
+
+def entry_points(planner) -> None:
+    """Phases 11-13: the port's three user entry points in this process, on
+    the card, each with the launch counts set to 0 just before it and read
+    just after. ``planner`` is the shipping one of phase 5 (its limits and
+    margins are the acceptance's)."""
+    from mpc_motion_planner_tpu_torch import kernels
+    from mpc_motion_planner_tpu_torch.bench import acceptance, analysis, headline
+    from mpc_motion_planner_tpu_torch.examples import offline_trajectory
+    from mpc_motion_planner_tpu_torch.utils.io import read_benchmark_records
+
+    # ---- phase 11: the port's headline entry point on both QP paths: a
+    # cold solve and three warm ones of the headline states ----
+    repeats = 3
+    for backend, per_solve in (
+            ("structured_pallas", {"constraints": 5, "banded_factor": 2, "structured_admm": 2,
+                                   "admm_dense": 0}),
+            ("pallas", {"constraints": 5, "banded_factor": 0, "structured_admm": 0,
+                        "admm_dense": 2})):
+        with bench_env(BENCH_QP_BACKEND=backend, BENCH_BATCH=str(B_MAIN),
+                       BENCH_REPEATS=str(repeats)):
+            kernels.reset_launch_counts()
+            text = run_main(headline.main, [])
+            counts = kernels.launch_counts()
+        lines = text.strip().splitlines()
+        check(len(lines) == 1, f"headline {backend} printed {len(lines)} lines")
+        line = json.loads(lines[0])
+        log(f"phase 11 headline line, {backend}: {lines[0]}")
+        check(counts == {k: n * (1 + repeats) for k, n in per_solve.items()},
+              f"headline {backend}: launch counts {counts} for {1 + repeats} solves")
+        missing = set(JAX_HEADLINE_KEYS) - line.keys()
+        check(not missing and line["package"] == "torch", f"headline line lacks {missing}")
+        check(line["qp_backend"] == backend and line["fused_constraints"] == "on"
+              and line["batch"] == B_MAIN, f"headline {backend}: {line}")
+        check(line["tol_hit_rate"] >= 0.99 and line["terminal_err_inf_max"] <= 0.011,
+              f"headline {backend}: tol_hit_rate {line['tol_hit_rate']}, terminal error "
+              f"{line['terminal_err_inf_max']}")
+        if backend == "structured_pallas":
+            check(line["qp_conv_rate"] >= 0.98, f"headline qp_conv_rate {line['qp_conv_rate']}")
+        log(f"phase 11 headline {backend}: launches per solve "
+            f"{ {k: n // (1 + repeats) for k, n in counts.items()} }, {line['value']:.1f} "
+            f"solves/s (eager solve) on {line['device']}; JAX record on these states "
+            f"{json.dumps(JAX_RECORD)}")
+
+    # ---- phase 12: the port's acceptance entry point on the 1000 states of
+    # the JAX acceptance artifact, against the JAX analysis of it ----
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "records.txt")
+        kernels.reset_launch_counts()
+        text = run_main(acceptance.main, ["--states-from", ARTIFACT, "--n", "1000",
+                                          "--batch", "250", "--out", out])
+        counts = kernels.launch_counts()
+        rec = read_benchmark_records(out)
+    check(rec.shape == (1000, 162) and bool(np.isfinite(rec).all()),
+          f"acceptance records {rec.shape}")
+    check(counts == {"constraints": 20, "banded_factor": 8, "structured_admm": 8,
+                     "admm_dense": 0}, f"acceptance launch counts {counts} for 4 batches")
+    for ln in text.splitlines():
+        if ln.startswith("batch ") or ln.startswith("total:"):
+            log(f"phase 12 acceptance {ln}")
+    conv = json_after(text, "\ntotal:")["qp_conv_rate"]
+    limits = planner.limits
+    check(analysis.violation_counts_reference(read_benchmark_records(ARTIFACT), limits)
+          == JAX_ACCEPTANCE, "the port's analysis of the artifact differs from the JAX tables")
+    port = analysis.violation_counts_reference(rec, limits)
+    acc = analysis.accuracy_stats(rec)
+    for cat, n_jax in JAX_ACCEPTANCE["ruckig"].items():
+        if cat != "total":
+            check(abs(port["ruckig"][cat] - n_jax) <= 2,
+                  f"acceptance ruckig {cat}: {port['ruckig'][cat]} against the JAX {n_jax}")
+    for cat in ("position_fails", "velocity_fails", "torqueAccel_fails", "Jerk_fails"):
+        check(port["mpc"][cat] == 0, f"acceptance mpc {cat}: {port['mpc'][cat]}")
+    for cat in ("taskVelocity_fails", "collision_fails"):
+        n_jax = JAX_ACCEPTANCE["mpc"][cat]
+        check(abs(port["mpc"][cat] - n_jax) <= 0.15 * n_jax,
+              f"acceptance mpc {cat}: {port['mpc'][cat]} against the JAX {n_jax} (bar 15%)")
+    check(acc["mpc"]["within_box_plus_tol"] >= 0.999 and conv >= 0.98,
+          f"acceptance: mpc within_box_plus_tol {acc['mpc']['within_box_plus_tol']}, "
+          f"qp_conv_rate {conv}")
+    for planner_name in ("ruckig", "mpc"):
+        log(f"phase 12 acceptance {planner_name}, reference convention: port "
+            f"{json.dumps(port[planner_name])} | JAX artifact "
+            f"{json.dumps(JAX_ACCEPTANCE[planner_name])}")
+    log(f"phase 12 acceptance: launches {counts}, qp_conv_rate {conv} (JAX artifact 0.997), "
+        f"mpc within_box_plus_tol {acc['mpc']['within_box_plus_tol']} (JAX 1.0), err_inf_max "
+        f"{acc['mpc']['err_inf_max']} (JAX 0.01), ruckig within_target_box "
+        f"{acc['ruckig']['within_target_box']} (JAX 1.0); strict convention "
+        f"{json.dumps(analysis.violation_counts(rec, limits, planner.margins))}")
+
+    # ---- phase 13: the port's offline-trajectory example ----
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "optimal_solution.txt")
+        kernels.reset_launch_counts()
+        run_main(offline_trajectory.main, ["--seed", "3", "--out", out])
+        counts = kernels.launch_counts()
+        data = np.loadtxt(out)
+        v_gap, q_err = offline_trajectory.check_solution_file(out)
+    check(data.shape == (1 + 201 + 201, 29) and bool(np.isfinite(data).all()),
+          f"offline trajectory file {data.shape}")
+    check(counts == {"constraints": 5, "banded_factor": 2, "structured_admm": 2,
+                     "admm_dense": 0}, f"offline trajectory launch counts {counts}")
+    check(v_gap < 5e-3 and q_err <= 0.011,
+          f"offline trajectory: velocity consistency {v_gap}, final position error {q_err}")
+    log(f"phase 13 offline trajectory --seed 3: {data.shape[0]} x {data.shape[1]} file, "
+        f"launches {counts}, velocity consistency {v_gap:.2e} (bar 5e-3), final position "
+        f"error {q_err:.5f} (bar 0.011), final time {data[-1, 0]:.4f} s, warm start "
+        f"{data[201, 0]:.4f} s")
 
 
 def run(dev: torch.device) -> None:
@@ -593,8 +752,8 @@ def run(dev: torch.device) -> None:
     finite = all(bool(torch.isfinite(t).all()) for t in (sol.z, sol.violation, sol.lam_c, sol.lam_x))
     check(finite, "structured path produced non-finite outputs")
     q5 = quality(planner, sol, tgt_all)
-    check(q5["tol_hit"] >= 0.99, f"tol_hit_rate {q5['tol_hit']}")
-    check(q5["qp_conv"] >= 0.98, f"qp_conv_rate {q5['qp_conv']}")
+    check(q5["tol_hit_rate"] >= 0.99, f"tol_hit_rate {q5['tol_hit_rate']}")
+    check(q5["qp_conv_rate"] >= 0.98, f"qp_conv_rate {q5['qp_conv_rate']}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     planner.solve(cur_all, tgt_all)
@@ -627,7 +786,8 @@ def run(dev: torch.device) -> None:
     finite = all(bool(torch.isfinite(t).all()) for t in (sol.z, sol.violation, sol.lam_c, sol.lam_x))
     check(finite, "default structured path produced non-finite outputs")
     q5b = quality(default_planner, sol, tgt_all)
-    check(q5b["tol_hit"] >= 0.99, f"default structured path tol_hit_rate {q5b['tol_hit']}")
+    check(q5b["tol_hit_rate"] >= 0.99,
+          f"default structured path tol_hit_rate {q5b['tol_hit_rate']}")
     del sol
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -636,8 +796,8 @@ def run(dev: torch.device) -> None:
     t_warm = time.perf_counter() - t0
     log(f"phase 5b structured path at QPSettings(backend='structured') defaults B={B_MAIN}: "
         f"launches {counts_b}, refactorizations {refactors}, ok-flag repairs {k2.REPAIRS.count}, "
-        f"quality {json.dumps(q5b)}; qp_conv_rate {q5b['qp_conv']:.5f} beside the shipping "
-        f"configuration's {q5['qp_conv']:.5f}")
+        f"quality {json.dumps(q5b)}; qp_conv_rate {q5b['qp_conv_rate']:.5f} beside the "
+        f"shipping configuration's {q5['qp_conv_rate']:.5f}")
     log(f"phase 5b timing: cold solve {t_cold:.3f} s, warm solve {t_warm:.3f} s = "
         f"{B_MAIN / t_warm:.1f} solves/s on {smi}")
 
@@ -655,7 +815,7 @@ def run(dev: torch.device) -> None:
     check(it_hot < it_cold, f"hot restart: median QP iterations {it_hot} against the cold solve's "
           f"{it_cold}")
     q5c = quality(planner, hot, hot_row["target"])
-    check(q5c["tol_hit"] >= 0.99, f"hot restart tol_hit_rate {q5c['tol_hit']}")
+    check(q5c["tol_hit_rate"] >= 0.99, f"hot restart tol_hit_rate {q5c['tol_hit_rate']}")
     log(f"phase 5c hot restart B={B_MAIN} (structured shipping path, targets moved by 0.01 rad): "
         f"QP iterations per solve, median over the batch: cold {it_cold:.0f}, restart "
         f"{it_hot:.0f}; per SQP step cold {cold.qp_iterations.float().median(0).values.tolist()}, "
@@ -837,7 +997,7 @@ def run(dev: torch.device) -> None:
     finite = all(bool(torch.isfinite(t).all()) for t in (sol.z, sol.violation, sol.lam_c, sol.lam_x))
     check(finite, "dense path produced non-finite outputs")
     q8 = quality(dense_planner, sol, tgt_all)
-    check(q8["tol_hit"] >= 0.99, f"dense path tol_hit_rate {q8['tol_hit']}")
+    check(q8["tol_hit_rate"] >= 0.99, f"dense path tol_hit_rate {q8['tol_hit_rate']}")
     del sol
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1051,6 +1211,9 @@ def run(dev: torch.device) -> None:
         f"problem-iteration, out of shared memory), plain {p_ms:.3f} ms = "
         f"{total / (p_ms * 1e-3) / 1e9:.0f} GB/s from device memory (runs {raw}); bound "
         f"{b_ms:.4f} ms by {b_by}, share reached {100 * b_ms / k_ms:.1f}%")
+
+    del ops, st, D10
+    entry_points(planner)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

@@ -1,6 +1,6 @@
-"""Structure-of-arrays robot model for serial kinematic chains (PyTorch).
+"""Structure-of-arrays robot model for kinematic chains and trees (PyTorch).
 
-Counterpart of ``mpc_motion_planner_tpu/models/robot.py``: a serial chain of
+Counterpart of ``mpc_motion_planner_tpu/models/robot.py``: a chain or tree of
 revolute or prismatic joints with per-link spatial inertias, plus named
 operational frames rigidly attached to a joint. A frozen dataclass of
 tensors; ``.to(device, dtype)`` returns a copy on another device or dtype.
@@ -72,6 +72,17 @@ class RobotModel:
 
     def parent_indices(self) -> Tuple[int, ...]:
         return self.parent or tuple(range(-1, self.nq - 1))
+
+    def ancestor_mask(self, joint: int) -> Tuple[bool, ...]:
+        """mask[i] = joint i is ``joint`` or one of its ancestors: the
+        joints whose motion moves frames attached to ``joint``."""
+        par = self.parent_indices()
+        mask = [False] * self.nq
+        j = joint
+        while j >= 0:
+            mask[j] = True
+            j = par[j]
+        return tuple(mask)
 
     def to(self, device=None, dtype=None) -> "RobotModel":
         moved = {

@@ -52,9 +52,8 @@ def frame_height(model: RobotModel, q, frame: Frame):
 
 
 def frame_jacobian(model: RobotModel, q, frame: Frame) -> torch.Tensor:
-    """LOCAL_WORLD_ALIGNED frame Jacobian, shape (..., 6, nq)."""
-    if not model.is_serial:
-        raise NotImplementedError("branched models are not ported yet")
+    """LOCAL_WORLD_ALIGNED frame Jacobian, shape (..., 6, nq). On a tree
+    the columns of joints that are not ancestors of the frame are zero."""
     R, p = fk(model, q)
     _, pf = spatial.compose(
         R[..., frame.parent_joint, :, :], p[..., frame.parent_joint, :],
@@ -67,6 +66,10 @@ def frame_jacobian(model: RobotModel, q, frame: Frame) -> torch.Tensor:
     )[:, None]
     lin = torch.where(is_prismatic, axes, lin_rev)
     ang = torch.where(is_prismatic, torch.zeros_like(axes), axes)
+    if not model.is_serial:
+        anc = torch.tensor(model.ancestor_mask(frame.parent_joint), device=q.device)[:, None]
+        lin = torch.where(anc, lin, torch.zeros_like(lin))
+        ang = torch.where(anc, ang, torch.zeros_like(ang))
     return torch.cat([lin.transpose(-1, -2), ang.transpose(-1, -2)], dim=-2)
 
 

@@ -2,8 +2,8 @@
 
 Counterpart of ``mpc_motion_planner_tpu/ops/otg.py`` (the warm start):
 per-joint time-optimal third-order profiles under velocity, acceleration
-and jerk limits with nonzero boundary velocities, synchronized across
-joints, evaluable at any time. Closed forms plus fixed-iteration bisection,
+and jerk limits with nonzero boundary velocities and accelerations,
+synchronized across joints, evaluable at any time. Closed forms plus fixed-iteration bisection,
 so every batch runs the same static sequence of tensor operations.
 """
 
@@ -126,26 +126,54 @@ def plan_trajectory(
     max_acceleration,
     max_jerk,
     bisect_iters: int = 64,
+    start_acceleration=None,
+    target_acceleration=None,
 ) -> JerkLimitedTrajectory:
-    """Time-optimal synchronized trajectory with zero boundary
-    accelerations. State arrays are (..., nj); limits broadcast."""
+    """Time-optimal synchronized trajectory. State arrays are (..., nj);
+    limits broadcast. Boundary accelerations default to zero; given ones
+    are met exactly by a prologue jerk phase that takes (v0, a0) to zero
+    acceleration and an epilogue, built in reverse time, that takes zero
+    acceleration to (vf, af), around the zero-acceleration core. The phase
+    tables then hold 9 phases instead of 7."""
     dp = target_position - start_position
     v0, vf = start_velocity, target_velocity
-    vmax = torch.broadcast_to(max_velocity, dp.shape).to(dp.dtype)
-    amax = torch.broadcast_to(max_acceleration, dp.shape).to(dp.dtype)
-    jmax = torch.broadcast_to(max_jerk, dp.shape).to(dp.dtype)
+    like_dp = lambda a: torch.broadcast_to(
+        torch.as_tensor(a, dtype=dp.dtype, device=dp.device), dp.shape)
+    vmax, amax, jmax = like_dp(max_velocity), like_dp(max_acceleration), like_dp(max_jerk)
 
-    _, _, t_min = _min_time_cruise_velocity(dp, v0, vf, vmax, amax, jmax, bisect_iters)
-    duration = t_min.amax(dim=-1)
+    with_acc = start_acceleration is not None or target_acceleration is not None
+    a0 = torch.zeros_like(dp) if start_acceleration is None else like_dp(start_acceleration)
+    af = torch.zeros_like(dp) if target_acceleration is None else like_dp(target_acceleration)
+
+    # prologue: jerk a0 -> 0; epilogue (reverse time): jerk 0 -> af
+    t_pre = a0.abs() / jmax
+    j_pre = -torch.sign(a0) * jmax
+    dv_pre = a0 * t_pre + 0.5 * j_pre * t_pre**2
+    dp_pre = v0 * t_pre + 0.5 * a0 * t_pre**2 + j_pre * t_pre**3 / 6.0
+    v0i = v0 + dv_pre
+
+    t_post = af.abs() / jmax
+    j_post = torch.sign(af) * jmax
+    vfi = vf - 0.5 * j_post * t_post**2
+    dp_post = vfi * t_post + j_post * t_post**3 / 6.0
+
+    dpi = dp - dp_pre - dp_post
+
+    _, _, t_min = _min_time_cruise_velocity(dpi, v0i, vfi, vmax, amax, jmax, bisect_iters)
+    duration = (t_min + t_pre + t_post).amax(dim=-1)
+    inner_T = duration[..., None] - t_pre - t_post
     vp, tb = _cruise_velocity_for_duration(
-        dp, v0, vf, vmax, duration[..., None].expand_as(dp), amax, jmax, bisect_iters
+        dpi, v0i, vfi, vmax, inner_T, amax, jmax, bisect_iters
     )
-    phase_dt, phase_jerk = _build_phases(v0, vp, vf, tb, amax, jmax)
+    phase_dt, phase_jerk = _build_phases(v0i, vp, vfi, tb, amax, jmax)
+    if with_acc:
+        phase_dt = torch.cat([t_pre[..., None], phase_dt, t_post[..., None]], dim=-1)
+        phase_jerk = torch.cat([j_pre[..., None], phase_jerk, j_post[..., None]], dim=-1)
     return JerkLimitedTrajectory(
         duration=duration,
         start_position=start_position,
         start_velocity=start_velocity,
-        start_acceleration=torch.zeros_like(v0),
+        start_acceleration=a0,
         phase_dt=phase_dt,
         phase_jerk=phase_jerk,
     )

@@ -165,8 +165,11 @@ class MotionPlanner:
 
     # ---------------- warm start ----------------
 
-    def plan_warm_start(self, current_state, target_state) -> JerkLimitedTrajectory:
-        """Jerk-limited time-optimal trajectory between the boundary states."""
+    def plan_warm_start(self, current_state, target_state, current_acceleration=None,
+                        target_acceleration=None) -> JerkLimitedTrajectory:
+        """Jerk-limited time-optimal trajectory between the boundary states.
+        Boundary accelerations (..., nq) default to zero and are met
+        exactly when given."""
         nq = self.ocp.nq
         m = self.margins
         return plan_trajectory(
@@ -177,6 +180,8 @@ class MotionPlanner:
             m.velocity * self.limits.max_velocity,
             m.acceleration * self.limits.max_acceleration,
             m.jerk * self.limits.max_jerk,
+            start_acceleration=current_acceleration,
+            target_acceleration=target_acceleration,
         )
 
     def warm_start_vector(self, traj: JerkLimitedTrajectory):

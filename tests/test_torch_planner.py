@@ -244,6 +244,9 @@ _GUARD = textwrap.dedent(
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    for name in ("bench.headline", "bench.acceptance", "bench.analysis", "utils.io",
+                 "models.urdf", "examples.offline_trajectory"):
+        assert pkg.__name__ + "." + name in names, name
     from mpc_motion_planner_tpu_torch import kernels
     from mpc_motion_planner_tpu_torch.ops.qp import QPSettings
     from mpc_motion_planner_tpu_torch.ops.sqp import SQPSettings
