@@ -17,7 +17,10 @@ The states are drawn with the port's ``chain_states`` from a
 taken from an existing record file: its targets (columns 148:162) and the
 chain they imply (the mid-range configuration at rest, then each previous
 target). Runs on the GPU unless ``--device cpu`` is given; float32 unless
-``--x64``.
+``--x64``. On the card every batch is a replay of the captured solve
+(``utils/capture.py``), as the JAX acceptance jits its batch once: one
+capture per batch shape, made before the first batch and not timed (a last
+batch of another size is captured when it comes, and timed).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from .. import config
 from ..ops.qp import QPSettings
 from ..ops.sqp import SQPSettings
 from ..planner import Margins, MotionPlanner
+from ..utils.capture import capture_solve
 from ..utils.io import read_benchmark_records, write_benchmark_records
 from .analysis import (TARGET, accuracy_stats, violation_counts, violation_counts_reference,
                        violation_magnitudes)
@@ -131,13 +135,18 @@ def main(argv=None) -> int:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    t0 = time.perf_counter()
+    solve = capture_solve(planner, current[:a.batch], target[:a.batch])
+    if solve.captured:
+        print(f"capture: {time.perf_counter() - t0:.3f}s for batches of "
+              f"{min(a.batch, n)}", flush=True)
     all_records, soft_duals, convs = [], [], []
     t_total = 0.0
     for i in range(0, n, a.batch):
         cur_b, tgt_b = current[i:i + a.batch], target[i:i + a.batch]
         sync()
         t0 = time.perf_counter()
-        sol = planner.solve(cur_b, tgt_b)
+        sol = solve(cur_b, tgt_b)
         rec, _, _ = benchmark_records(planner, sol, tgt_b)
         sdual = (sol.lam_x.abs() * soft).amax(-1)
         sync()

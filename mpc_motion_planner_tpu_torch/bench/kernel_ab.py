@@ -179,7 +179,9 @@ def variant_kernel(number, name, path):
     if number == 3 and "kkt_refine" not in text:
         return EarlierAdmmKernel(label, path)
     k = MODULES[number].KERNEL
-    return build.CudaKernel(label, path, k.entry, k.argtypes)
+    # sources from before the init entry point set the attributes in every launch
+    init = k.init if k.init is not None and k.init in text else None
+    return build.CudaKernel(label, path, k.entry, k.argtypes, init=init)
 
 
 def time_in_turns(kernels, call, reps, behind=None):

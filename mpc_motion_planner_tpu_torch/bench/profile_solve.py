@@ -1,17 +1,21 @@
-"""Where a warm B=2048 solve spends its time on one GPU.
+"""Where a warm B=2048 solve spends its time on one GPU, captured and eager.
 
 Solves the headline states (``tests/fixtures/headline_states_b2048.npz``)
 with the shipping structured configuration (or ``--dense``: the headline's
-dense ``pallas`` configuration; or ``--default``: the structured backend at
+dense ``pallas`` configuration; ``--default``: the structured backend at
 its default settings, adaptive rho every 100 iterations and budgets
-700/700): one cold solve, ``--warm`` warm solves on
-the host clock, then one solve under ``torch.profiler``. From the trace's
-device events (kernels, copies, memsets) it takes the device-busy time as
-the union of their intervals, the idle share against the median warm solve,
-and the device time of each hand-written kernel by name. Wall times are
-taken before the profiler starts, which slows later solves.
+700/700; ``--xla``: ``MotionPlanner()``'s dense "xla" default). The solve
+is captured into a CUDA graph (``utils/capture.py``; the capture is the
+cold run), then ``--warm`` replays and ``--warm`` eager solves run in turns
+on the host clock, then one replay and one eager solve each under
+``torch.profiler``. From each trace's device events (kernels, copies,
+memsets) it takes the device-busy time as the union of their intervals, the
+idle share against that mode's median wall time, and the device time of
+each hand-written kernel by name. Wall times are taken before the profiler
+starts, which slows later solves.
 
-    python -m mpc_motion_planner_tpu_torch.bench.profile_solve [--dense | --default] [--warm 5]
+    python -m mpc_motion_planner_tpu_torch.bench.profile_solve [--dense | --default | --xla]
+        [--warm 5]
 
 Prints one JSON object, then the card's name and power limit. Needs one
 CUDA GPU and ``nvcc``.
@@ -34,6 +38,7 @@ from .. import config, kernels
 from ..ops.qp import QPSettings
 from ..ops.sqp import SQPSettings
 from ..planner import Margins, MotionPlanner
+from ..utils.capture import capture_solve
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 STATES = os.path.join(ROOT, "tests", "fixtures", "headline_states_b2048.npz")
@@ -68,9 +73,11 @@ def device_events(trace_path):
 
 
 def make_planner(which: str, dev) -> MotionPlanner:
-    """The planner of a path: "structured" (shipping), "dense" or
-    "structured_default"."""
-    if which == "dense":
+    """The planner of a path: "structured" (shipping), "dense",
+    "structured_default" or "xla" (``MotionPlanner()``'s settings)."""
+    if which == "xla":
+        qp, sqp = QPSettings(), SQPSettings()
+    elif which == "dense":
         qp = QPSettings(backend="pallas", kkt_refine=1, rho_update_every=0, kkt_factor="lu",
                         ruiz_iters=2, rho=0.1, alpha=1.6, max_iter=700, check_every=25)
         sqp = SQPSettings()
@@ -83,13 +90,48 @@ def make_planner(which: str, dev) -> MotionPlanner:
                          qp_settings=qp, sqp_settings=sqp)
 
 
+def profiled(fn, cur, tgt):
+    """One call of ``fn`` under ``torch.profiler``: (wall ms, solution,
+    device events)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol = fn(cur, tgt)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        prof.export_chrome_trace(path)
+        return ms, sol, device_events(path)
+
+
+def breakdown(warm, traced_ms, events, launches, refactors, sol, batch) -> dict:
+    """The JSON fields of one mode (captured or eager)."""
+    busy = union_ms((s, e) for _, s, e in events)
+    median = float(np.median(warm))
+    return {
+        "warm_solve_ms": warm, "warm_solve_ms_median": median,
+        "solves_per_s": 1e3 * batch / median, "traced_solve_ms": traced_ms,
+        "device_busy_ms": busy, "device_events": len(events),
+        "idle_share": 1.0 - busy / median, "launches": launches,
+        "refactorizations": refactors,
+        "kernel_device_ms": {
+            key: {"ms": sum(e - s for n, s, e in events if sub in n) / 1e3,
+                  "events": sum(1 for n, _, _ in events if sub in n)}
+            for key, sub in KERNEL_NAMES.items()},
+        "qp_conv_rate": float(sol.qp_converged.double().mean()),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     group = ap.add_mutually_exclusive_group()
     group.add_argument("--dense", action="store_true", help="the dense pallas configuration")
     group.add_argument("--default", action="store_true",
                        help="the structured backend at its default settings (adaptive rho)")
-    ap.add_argument("--warm", type=int, default=5, help="warm solves on the host clock")
+    group.add_argument("--xla", action="store_true", help="MotionPlanner()'s dense xla default")
+    ap.add_argument("--warm", type=int, default=5, help="warm solves of each mode on the host clock")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_solve: needs a CUDA GPU", file=sys.stderr)
@@ -100,49 +142,43 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    which = "dense" if a.dense else "structured_default" if a.default else "structured"
+    which = ("dense" if a.dense else "structured_default" if a.default
+             else "xla" if a.xla else "structured")
     planner = make_planner(which, dev)
     states = np.load(STATES)
     cur = torch.as_tensor(states["current"], device=dev)
     tgt = torch.as_tensor(states["target"], device=dev)
+    B = int(cur.shape[0])
 
-    def solve():
+    t0 = time.perf_counter()
+    captured = capture_solve(planner, cur, tgt)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+
+    def solve(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sol = planner.solve(cur, tgt)
+        fn(cur, tgt)
         torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0), sol
+        return 1e3 * (time.perf_counter() - t0)
 
-    cold_ms, _ = solve()
-    warm = [solve()[0] for _ in range(a.warm)]
-    kernels.reset_launch_counts()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            traced_ms, sol = solve()
-        prof.export_chrome_trace(path)
-        events = device_events(path)
-    if not events:
-        print("profile_solve: the trace holds no device event", file=sys.stderr)
-        return 1
-    busy = union_ms((s, e) for _, s, e in events)
-    by_kernel = {
-        key: {"ms": sum(e - s for n, s, e in events if sub in n) / 1e3,
-              "events": sum(1 for n, _, _ in events if sub in n)}
-        for key, sub in KERNEL_NAMES.items()
-    }
-    median = float(np.median(warm))
-    print(json.dumps({
-        "path": which, "batch": int(cur.shape[0]),
-        "cold_solve_ms": cold_ms, "warm_solve_ms": warm, "warm_solve_ms_median": median,
-        "solves_per_s": 1e3 * cur.shape[0] / median,
-        "traced_solve_ms": traced_ms, "device_busy_ms": busy, "device_events": len(events),
-        "idle_share": 1.0 - busy / median, "launches": kernels.launch_counts(),
-        "refactorizations": kernels.structured_admm.REFACTORS.count,
-        "kernel_device_ms": by_kernel,
-        "qp_conv_rate": float(sol.qp_converged.double().mean()),
-    }), flush=True)
+    modes = {"cuda_graph": captured, "eager": planner.solve}
+    warm = {m: [] for m in modes}
+    for _ in range(a.warm):
+        for m, fn in modes.items():
+            warm[m].append(solve(fn))
+    out = {"path": which, "batch": B, "capture_s": capture_s,
+           "eager_resolves": captured.eager_resolves}
+    for m, fn in modes.items():
+        kernels.reset_launch_counts()
+        ms, sol, events = profiled(fn, cur, tgt)
+        if not events:
+            print(f"profile_solve: the trace of the {m} solve holds no device event",
+                  file=sys.stderr)
+            return 1
+        out[m] = breakdown(warm[m], ms, events, kernels.launch_counts(),
+                           kernels.structured_admm.REFACTORS.count, sol, B)
+    print(json.dumps(out), flush=True)
     print(smi)
     return 0
 

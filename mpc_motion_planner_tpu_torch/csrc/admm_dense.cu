@@ -601,9 +601,6 @@ cudaError_t configure(int n, int m, int B, cudaStream_t stream, cudaLaunchConfig
                       cudaLaunchAttribute* attr) {
   const Geometry geo = geometry(n, m);
   if (n <= 0 || n > NMAX || m <= 0 || geo.smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(kernel_for(n, m),
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
-  if (err != cudaSuccess) return err;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3((unsigned)B * CL);
   cfg->blockDim = dim3(T);
@@ -619,6 +616,19 @@ cudaError_t configure(int n, int m, int B, cudaStream_t stream, cudaLaunchConfig
 }
 
 }  // namespace
+
+// Called once when the library is loaded: both instantiations may use up to
+// SMEM_LIMIT bytes of dynamic shared memory, the most configure() lets a
+// launch ask for (a launch sets nothing, so it can be captured into a CUDA
+// graph as it is).
+extern "C" int mpc_admm_dense_init() {
+  cudaError_t err = cudaFuncSetAttribute(admm_dense_kernel<mpc::NV, mpc::NM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(admm_dense_kernel<0, 0>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  return (int)err;
+}
 
 // ptrs: the NPTRS pointers of struct Ptrs, in its order. Returns
 // cudaErrorInvalidValue (1) for an (n, m) whose slices and vectors do not
@@ -649,7 +659,8 @@ extern "C" int mpc_admm_dense_occupancy(int n, int m, int* cluster_size, int* sm
                                         int* active_clusters) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure(n, m, 1, nullptr, &cfg, &attr);
+  cudaError_t err = (cudaError_t)mpc_admm_dense_init();
+  if (err == cudaSuccess) err = configure(n, m, 1, nullptr, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
   *cluster_size = CL;
   *smem_bytes = (int)cfg.dynamicSmemBytes;

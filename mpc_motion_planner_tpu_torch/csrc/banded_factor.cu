@@ -336,12 +336,14 @@ extern "C" int mpc_banded_factor(const float* Mband, const float* p_col, const f
                                  float* Ldi, float* Lsub, float* u, float* s, int* ok, int B,
                                  void* stream) {
   if (B <= 0) return 0;
-  cudaError_t err = allow_shared_memory();
-  if (err != cudaSuccess) return (int)err;
   banded_factor_kernel<<<B, NT, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
       Mband, p_col, m_pp, Ldi, Lsub, u, s, ok);
   return (int)cudaGetLastError();
 }
+
+// Called once when the library is loaded (a launch sets nothing, so it can
+// be captured into a CUDA graph as it is).
+extern "C" int mpc_banded_factor_init() { return (int)allow_shared_memory(); }
 
 // How many blocks (problems) of the kernel one SM holds at a time, from the
 // CUDA occupancy calculator; a CUDA error as a negative number.

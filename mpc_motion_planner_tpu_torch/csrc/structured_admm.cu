@@ -664,11 +664,20 @@ extern "C" int mpc_structured_admm(void* const* ptrs, const float* Dm, float sig
   P.kkt_refine = kkt_refine;
   Ptrs g;
   memcpy(&g, ptrs, sizeof(Ptrs));
-  const int smem = (int)sizeof(Smem);
   auto kernel = kkt_refine > 0 ? structured_admm_kernel<true> : structured_admm_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<B, NT, smem, static_cast<cudaStream_t>(stream)>>>(P, g);
+  kernel<<<B, NT, (int)sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(P, g);
   return (int)cudaGetLastError();
+}
+
+// Called once when the library is loaded: both instantiations may use the
+// block's shared memory (a launch sets nothing, so it can be captured into a
+// CUDA graph as it is).
+extern "C" int mpc_structured_admm_init() {
+  const int smem = (int)sizeof(Smem);
+  cudaError_t err = cudaFuncSetAttribute(structured_admm_kernel<false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(structured_admm_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return (int)err;
 }

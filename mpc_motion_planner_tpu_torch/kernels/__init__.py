@@ -20,9 +20,17 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
-    banded_factor.REPAIRS.count = 0
-    structured_admm.REFACTORS.count = 0
+    banded_factor.REPAIRS.reset()
+    banded_factor.OVERFLOW.reset()
+    structured_admm.REFACTORS.reset()
 
 
 def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add per-kernel launches that ran outside the wrappers' own count: a
+    captured CUDA graph's launches, at every replay."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n

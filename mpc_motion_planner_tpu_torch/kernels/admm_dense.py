@@ -64,6 +64,7 @@ _BIG = 1e12  # divergence freeze level
 KERNEL = CudaKernel(
     "admm_dense", "admm_dense.cu", "mpc_admm_dense",
     [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [ctypes.c_void_p],
+    init="mpc_admm_dense_init",
 )
 
 CLUSTER = 8  # blocks per cluster: each holds 1/8 of the rows of A and of M^-1

@@ -28,7 +28,16 @@ pivot floor, the ±1e8 clamp on every computed entry, and the ``ok`` flag
 
 The plain version is ``ops.qp_structured.factor_banded``; problems whose
 ``ok`` is false are refactored by it (with its jitter retry), as the JAX
-package does, and counted in ``REPAIRS``.
+package does, and counted in ``REPAIRS``. The repair has a fixed shape, so
+that a CUDA graph can capture it: the first ``repair_capacity(B)`` flagged
+problems are gathered into a batch of that size (padded with unflagged
+ones), refactored, and scattered back under the mask, whether or not any
+problem was flagged. Flagged problems beyond the capacity are counted in
+``OVERFLOW``; an eager solve repairs them in a second, data-dependent pass,
+a captured graph leaves them and adds their number to the count of each
+capture in progress (``CAPTURE_SINKS``), which the captured solve reads
+after each replay and then re-solves the batch eagerly
+(``utils/capture.py``).
 """
 
 from __future__ import annotations
@@ -38,23 +47,30 @@ import ctypes
 import torch
 
 from ..ops.qp_structured import factor_banded
-from .build import CudaKernel, check_cuda_tensor, ptr
+from .build import CudaKernel, DeviceCount, capturing, check_cuda_tensor, ptr
 
 N, BW, BLK = 19, 3, 21  # nodes, band width, block size (csrc/banded_factor.cu)
 
 KERNEL = CudaKernel(
     "banded_factor", "banded_factor.cu", "mpc_banded_factor",
     [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p],
+    init="mpc_banded_factor_init",
 )
 
 
-class RepairCount:
-    """Problems whose kernel-2 factor was replaced by the plain one."""
+# problems that kernel 2 flagged, each refactored by the plain version
+REPAIRS = DeviceCount()
+# flagged problems beyond the repair capacity
+OVERFLOW = DeviceCount()
+# the DeviceCounts of the graph captures in progress: a captured graph adds
+# the flagged problems it leaves unrepaired to each (utils/capture.py)
+CAPTURE_SINKS = []
 
-    count = 0
 
-
-REPAIRS = RepairCount()
+def repair_capacity(batch: int) -> int:
+    """How many flagged problems one factorization repairs in its batch of
+    fixed shape: one in 64, at least one."""
+    return -(-batch // 64)
 
 
 def factor_banded_kernel(Mband, p_col, m_pp):
@@ -86,20 +102,47 @@ def blocks_per_sm() -> int:
     return blocks
 
 
+def repair(fac, Mband, p_col, m_pp, bw: int):
+    """Replace kernel 2's factors of the problems it flagged by the plain
+    version's, in place (``fac`` keeps kernel 2's ``ok``). The first
+    ``repair_capacity(B)`` flagged problems go through one batch of that
+    size, chosen by a stable sort of the flags; the rest, if any, through a
+    second batch in an eager solve, and a capture leaves them (module
+    docstring)."""
+    B = Mband.shape[0]
+    cap = min(B, repair_capacity(B))
+    bad = ~fac["ok"]
+    n_bad = bad.sum()
+    REPAIRS.add(n_bad)
+    idx = torch.argsort((~bad).to(torch.int8), stable=True)[:cap]
+    fix = factor_banded(Mband[idx], p_col[idx], m_pp[idx], bw)
+    flagged = bad[idx]
+    for k in ("Ldi", "Lsub", "u", "s"):
+        a = fac[k]
+        a[idx] = torch.where(flagged.reshape(-1, *[1] * (a.ndim - 1)), fix[k], a[idx])
+    over = torch.clamp(n_bad - cap, min=0)
+    OVERFLOW.add(over)
+    if capturing(Mband.device):
+        for sink in CAPTURE_SINKS:
+            sink.add(over)
+    elif int(over):
+        rest = bad.clone()
+        rest[idx] = False
+        ri = rest.nonzero()[:, 0]
+        fix = factor_banded(Mband[ri], p_col[ri], m_pp[ri], bw)
+        for k in ("Ldi", "Lsub", "u", "s"):
+            fac[k][ri] = fix[k]
+    return fac
+
+
 def factor(Mband, p_col, m_pp, bw: int):
     """Route: the plain factorization for CPU tensors; for CUDA tensors
-    kernel 2, with the problems it flags refactored by the plain version."""
+    kernel 2, with the problems it flags refactored by the plain version
+    (:func:`repair`)."""
     if Mband.device.type == "cpu":
         return factor_banded(Mband, p_col, m_pp, bw)
     if Mband.device.type != "cuda":
         raise ValueError(f"no factor path for device {Mband.device}")
     if bw != BW:
         raise NotImplementedError(f"kernel 2 is built for band width {BW}")
-    fac = factor_banded_kernel(Mband, p_col, m_pp)
-    bad = (~fac["ok"]).nonzero()[:, 0]
-    if bad.numel():
-        fix = factor_banded(Mband[bad], p_col[bad], m_pp[bad], bw)
-        for k in ("Ldi", "Lsub", "u", "s"):
-            fac[k][bad] = fix[k]
-        REPAIRS.count += int(bad.numel())
-    return fac
+    return repair(factor_banded_kernel(Mband, p_col, m_pp), Mband, p_col, m_pp, bw)

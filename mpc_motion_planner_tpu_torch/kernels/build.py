@@ -9,6 +9,11 @@ rebuilt and a current one is loaded as it is. Nothing here runs at import.
 Flags: ``sm_90a`` (Hopper), ``-O3``, and deliberately no
 ``--use_fast_math``: the parity tolerances rest on accurate ``sinf``,
 ``cosf``, ``sqrtf`` and division.
+
+A library may export an ``init`` function, which is called once when it is
+loaded (the kernels' shared-memory attributes are set there, not in every
+launch). The launches themselves are CUDA-graph safe: no allocation, no
+synchronisation, every parameter passed by value.
 """
 
 from __future__ import annotations
@@ -48,11 +53,12 @@ class CudaKernel:
     kernel, and nowhere else; ``build_log`` holds nvcc's report (registers,
     shared memory, spills) of the last build."""
 
-    def __init__(self, name: str, source: str, entry: str, argtypes):
+    def __init__(self, name: str, source: str, entry: str, argtypes, init: str = None):
         self.name = name
         self.source = source
         self.entry = entry
         self.argtypes = argtypes
+        self.init = init
         self.launches = 0
         self.build_log = ""
         self._fn = None
@@ -86,9 +92,16 @@ class CudaKernel:
         return out
 
     def function(self):
-        """The bound C entry point; builds the library on first use."""
+        """The bound C entry point; builds and loads the library on first
+        use, and then calls its ``init`` function once."""
         if self._fn is None:
             lib = ctypes.CDLL(str(self.build()))
+            if self.init is not None:
+                init = getattr(lib, self.init)
+                init.restype = ctypes.c_int
+                err = init()
+                if err != 0:
+                    raise RuntimeError(f"{self.name} library init failed: CUDA error {err}")
             fn = getattr(lib, self.entry)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
@@ -127,10 +140,54 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def capturing(device) -> bool:
+    """Whether work on ``device`` is being captured into a CUDA graph now (on
+    PyTorch's current stream), when nothing may synchronise with the host."""
+    import torch
+
+    return torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+class DeviceCount:
+    """A count that the solve adds to on the device that holds its data, with
+    no host synchronisation: inside a captured CUDA graph too, whose every
+    replay then adds again. Reading it synchronises."""
+
+    def __init__(self):
+        self._acc = {}  # device -> 0-d int64 tensor
+
+    def add(self, n) -> None:
+        """Add a 0-d integer tensor ``n``. The first addition on a device
+        allocates its accumulator, which a graph capture may not: a capture
+        is preceded by a warm-up run."""
+        acc = self._acc.get(n.device)
+        if acc is None:
+            if capturing(n.device):
+                raise RuntimeError("a DeviceCount's first addition on a device inside a graph "
+                                   "capture; run the captured work once before capturing it")
+            import torch
+
+            acc = self._acc[n.device] = torch.zeros((), dtype=torch.int64, device=n.device)
+        acc.add_(n)
+
+    @property
+    def count(self) -> int:
+        return sum(int(a) for a in self._acc.values())
+
+    def reset(self) -> None:
+        """Zero the count in place (a captured graph keeps adding to the same
+        accumulator)."""
+        for a in self._acc.values():
+            a.zero_()
+
+
 class HostConstants:
-    """Host-side constants derived from objects (a robot model and frame, a
+    """Constants derived from objects (a robot model and frame, a
     collocation), made once per (objects, device) and reused while those
-    objects live, so a launch does not copy them back from the card.
+    objects live: host arrays that a launch passes by value, so it does not
+    copy them back from the card, and device tensors that the solve would
+    otherwise copy from host memory at every call (which a CUDA graph
+    capture refuses).
 
     Keyed by object identity: the port's models and collocations are frozen
     dataclasses whose tensors it never changes in place."""

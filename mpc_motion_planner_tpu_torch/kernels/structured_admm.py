@@ -53,7 +53,7 @@ from ..ops import qp_structured
 from ..ops.qp import QPSettings, QPSolution
 from ..ops.structure import StructuredA
 from . import banded_factor
-from .build import CudaKernel, HostConstants, check_cuda_tensor, ptr
+from .build import CudaKernel, DeviceCount, HostConstants, check_cuda_tensor, ptr
 
 N, NG, BLK, BW, NV, NEQ, NM = 19, 8, 21, 3, 400, 336, 488
 
@@ -61,17 +61,14 @@ KERNEL = CudaKernel(
     "structured_admm", "structured_admm.cu", "mpc_structured_admm",
     [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_float] * 4
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    init="mpc_structured_admm_init",
 )
 
 
-class RefactorCount:
-    """Refactorizations of the KKT system after a rho update (one per
-    dispatch boundary at which some problem wanted another rho)."""
-
-    count = 0
-
-
-REFACTORS = RefactorCount()
+# dispatch boundaries at which some problem's rho moved (the KKT system is
+# rebuilt and refactored at every boundary; where no rho moved it comes out
+# bitwise as it was)
+REFACTORS = DeviceCount()
 
 # the float32 differentiation matrix on the host, per (collocation, device)
 DIFF_MATRIX = HostConstants()
@@ -154,8 +151,9 @@ def solve_box_qp_structured_cuda(
     """The structured QP on the card: float32 data, kernel 2 for every
     factorization (flagged problems refactored by the plain version) and
     kernel 3 for every dispatch of the ADMM loop; the rho update between
-    dispatches is PyTorch on the card with one host synchronisation, and its
-    refactorizations are counted in ``REFACTORS``. Returns float32 results."""
+    dispatches is PyTorch on the card, with no host synchronisation, and the
+    boundaries at which some rho moved are counted in ``REFACTORS``. Returns
+    float32 results."""
     settings.check_structured()
     _check_geometry(ocp)
     f32 = torch.float32
@@ -167,7 +165,7 @@ def solve_box_qp_structured_cuda(
     )
     state, qp, refactors = qp_structured.admm_chunked(
         ocp, sa, qp, settings, banded_factor.factor, admm_kernel)
-    REFACTORS.count += refactors
+    REFACTORS.add(refactors)
     return qp_structured.unscale_solution(qp, *state)
 
 

@@ -80,7 +80,7 @@ class TranscribedOCP:
         return self.num_nodes * self.ng
 
     def segment_index(self, device) -> torch.Tensor:
-        return torch.as_tensor(self.coll.segment_indices(), device=device)
+        return self.coll.segment_index(device)
 
     # ---------------- packing ----------------
 
@@ -186,8 +186,8 @@ class TranscribedOCP:
         A[:, :, -1] -= self.dynamics(X, U)[:, idx].reshape(z.shape[0], -1)
 
     def _ineq_jacobian_into(self, A, z, J):
-        rows, cols = (torch.as_tensor(a, device=z.device) for a in _ineq_scatter_indices(
-            self.num_nodes, self.ng, self.nx, self.nu))
+        rows, cols = _ineq_scatter_index_tensors(self.num_nodes, self.ng, self.nx, self.nu,
+                                                 z.device)
         A[:, rows, cols] = J.reshape(z.shape[0], -1)
         if self.tau_p_column:
             X, U, _ = self.unpack(z)
@@ -266,6 +266,13 @@ def _ineq_scatter_indices(nodes: int, ng: int, nx: int, nu: int):
         (nodes, ng, nx + nu),
     )
     return rows.reshape(-1), cols.reshape(-1)
+
+
+@lru_cache(maxsize=None)
+def _ineq_scatter_index_tensors(nodes: int, ng: int, nx: int, nu: int, device: torch.device):
+    """:func:`_ineq_scatter_indices` on ``device``, made once per device."""
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _ineq_scatter_indices(nodes, ng, nx, nu))
 
 
 def make_ocp(

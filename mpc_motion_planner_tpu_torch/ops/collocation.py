@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Mapping
 
 import numpy as np
@@ -75,11 +76,34 @@ class Collocation:
         o, s = self.order, self.num_segments
         return np.arange(s)[:, None] * o + np.arange(o + 1)[None, :]
 
+    def segment_index(self, device) -> torch.Tensor:
+        """:meth:`segment_indices` as a tensor on ``device``, made once per
+        device (a copy from host memory at every solve would also stall a
+        CUDA graph capture)."""
+        return _segment_index(self.order, self.num_segments, torch.device(device))
+
     def to(self, device=None, dtype=None) -> "Collocation":
         return dataclasses.replace(
             self,
             **{f: getattr(self, f).to(device=device, dtype=dtype) for f in _TENSORS},
         )
+
+
+@lru_cache(maxsize=None)
+def _segment_index(order: int, num_segments: int, device: torch.device) -> torch.Tensor:
+    seg = np.arange(num_segments)[:, None] * order + np.arange(order + 1)[None, :]
+    return torch.as_tensor(seg, device=device)
+
+
+def as_tensor_like(a, dtype, device) -> torch.Tensor:
+    """``a`` (a tensor, a Python number or an array) as a tensor of
+    ``dtype`` on ``device``; a number is filled in on the device, not copied
+    from host memory, so that a CUDA graph can capture it."""
+    if torch.is_tensor(a):
+        return a.to(dtype=dtype, device=device)
+    if np.ndim(a) == 0:
+        return torch.full((), float(a), dtype=dtype, device=device)
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
 
 def make_collocation(order: int = 3, num_segments: int = 6, dtype=torch.float64,
@@ -114,8 +138,7 @@ def collocation_from_numpy(leaves: Mapping) -> Collocation:
 
 def segment_values(coll: Collocation, node_values):
     """Gather per-segment node values: (B, num_nodes, d) -> (B, S, order+1, d)."""
-    idx = torch.as_tensor(coll.segment_indices(), device=node_values.device)
-    return node_values[:, idx]
+    return node_values[:, coll.segment_index(node_values.device)]
 
 
 def derivative_at_nodes(coll: Collocation, node_values):
@@ -145,7 +168,7 @@ def interpolate(coll: Collocation, node_values, t):
 
     node_values (B, num_nodes, d); t a scalar or (T,) tensor. Returns
     (B, d) or (B, T, d). Queries outside [0, 1] are clamped."""
-    t = torch.as_tensor(t, dtype=node_values.dtype, device=node_values.device)
+    t = as_tensor_like(t, node_values.dtype, node_values.device)
     scalar = t.ndim == 0
     seg, w = _barycentric(coll, t.reshape(-1).clamp(0.0, 1.0))
     vals = segment_values(coll, node_values)[:, seg]  # (B, T, o+1, d)

@@ -13,6 +13,8 @@ from dataclasses import dataclass
 
 import torch
 
+from .collocation import as_tensor_like
+
 
 @dataclass(frozen=True)
 class JerkLimitedTrajectory:
@@ -30,9 +32,7 @@ class JerkLimitedTrajectory:
         """(position, velocity, acceleration) at time(s) ``t`` (broadcast
         against the batch shape; clamped to the duration)."""
         t = torch.minimum(
-            torch.as_tensor(t, dtype=self.duration.dtype, device=self.duration.device),
-            self.duration,
-        )
+            as_tensor_like(t, self.duration.dtype, self.duration.device), self.duration)
         p, v, a = self.start_position, self.start_velocity, self.start_acceleration
         remaining = t[..., None]
         for k in range(self.phase_dt.shape[-1]):
@@ -137,8 +137,7 @@ def plan_trajectory(
     tables then hold 9 phases instead of 7."""
     dp = target_position - start_position
     v0, vf = start_velocity, target_velocity
-    like_dp = lambda a: torch.broadcast_to(
-        torch.as_tensor(a, dtype=dp.dtype, device=dp.device), dp.shape)
+    like_dp = lambda a: torch.broadcast_to(as_tensor_like(a, dp.dtype, dp.device), dp.shape)
     vmax, amax, jmax = like_dp(max_velocity), like_dp(max_acceleration), like_dp(max_jerk)
 
     with_acc = start_acceleration is not None or target_acceleration is not None

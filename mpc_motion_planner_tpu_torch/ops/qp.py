@@ -24,6 +24,7 @@ The structured backends live in :mod:`.qp_structured` and
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -152,6 +153,30 @@ def _rho_ratio(r_prim, r_dual, scale_p, scale_d):
     )
 
 
+@contextlib.contextmanager
+def _capturable_linalg(device):
+    """For a CUDA ``device``, batched LU and Cholesky through cuSOLVER and
+    cuBLAS instead of PyTorch's default choice for large batches, MAGMA,
+    whose batched LU a CUDA graph cannot capture. Eager and captured solves
+    both take this route, so they compute the same M^-1."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    saved = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(saved)
+
+
+def _inverse(M):
+    """Batched M^-1 by LU, without the singularity check that would
+    synchronise with the host (M is symmetric positive definite here)."""
+    with _capturable_linalg(M.device):
+        return torch.linalg.inv_ex(M)[0]
+
+
 def _ruiz_equilibrate(A, iters: int):
     """Ruiz equilibration: diagonal D (cols) and E (rows) so the scaled
     E A D has rows/cols with ~unit inf-norms. Returns (D, E)."""
@@ -211,17 +236,17 @@ class DenseQP:
         else:
             M = M + torch.diag_embed(Ps + settings.sigma + rx)
         if settings.kkt_factor == "lu":
-            return torch.linalg.inv(M)
-        L, info = torch.linalg.cholesky_ex(M)
-        eye = torch.eye(n, dtype=M.dtype, device=M.device).expand(B, n, n)
-        Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+            return _inverse(M)
+        with _capturable_linalg(M.device):
+            L, info = torch.linalg.cholesky_ex(M)
+            eye = torch.eye(n, dtype=M.dtype, device=M.device).expand(B, n, n)
+            Linv = torch.linalg.solve_triangular(L, eye, upper=False)
         M_chol = Linv.transpose(1, 2) @ Linv
         # Cholesky breakdown at float32 (cond(M) grows with rho_eq_scale):
-        # those problems take the LU inverse
+        # those problems take the LU inverse, computed for the whole batch and
+        # taken under the mask (no host synchronisation)
         bad = (info != 0) | ~torch.isfinite(M_chol).all(dim=(1, 2))
-        if bool(bad.any()):
-            M_chol = torch.where(bad[:, None, None], torch.linalg.inv(M), M_chol)
-        return M_chol
+        return torch.where(bad[:, None, None], _inverse(M), M_chol)
 
 
 def scale_dense_qp(P_diag, q, A, lc, uc, lx, ux, settings: QPSettings,
@@ -321,7 +346,9 @@ def pallas_state(qp: DenseQP):
 def solve_pallas(qp: DenseQP, settings: QPSettings, chunk_fn=None) -> QPSolution:
     """Float32 chunks of kernel 4 (``rho_update_every`` iterations each, or
     one chunk of ``max_iter``) with the OSQP-style rho update and the
-    batched refactorization between chunks; results in the caller's dtype.
+    batched refactorization between chunks, at every boundary and under the
+    per-problem mask (no host synchronisation; where no rho moved, M^-1
+    comes out as it was); results in the caller's dtype.
     ``chunk_fn`` replaces :func:`..kernels.admm_dense.admm_dense_chunk`
     (the GPU check runs the plain version on the card through it)."""
     if chunk_fn is None:
@@ -353,8 +380,7 @@ def solve_pallas(qp: DenseQP, settings: QPSettings, chunk_fn=None) -> QPSolution
             rho_new = torch.where(
                 want, torch.clamp(rho_s * ratio, settings.rho_min, settings.rho_max), rho_s
             )
-            if bool(want.any()):
-                M_inv = qp.factor(rho_new, settings)
+            M_inv = qp.factor(rho_new, settings)
             rho_s = rho_new
 
     zb = torch.zeros(B, dtype=dt, device=qp.x.device)
@@ -377,8 +403,13 @@ def solve_pallas(qp: DenseQP, settings: QPSettings, chunk_fn=None) -> QPSolution
 
 def solve_xla(qp: DenseQP, settings: QPSettings) -> QPSolution:
     """The portable dense loop: no flush-to-zero and no divergence freeze;
-    adaptive rho refactors inside the loop; the residuals of the last
-    check."""
+    adaptive rho refactors inside the loop (at every update, under the
+    per-problem mask); the residuals of the last check. An eager loop stops
+    when every problem is done; a loop captured into a CUDA graph cannot ask
+    and runs its whole budget, with done problems frozen: the same results,
+    with more work."""
+    from ..kernels.build import capturing
+
     As, Ps, qs, D, E = qp.As, qp.Ps, qp.qs, qp.D, qp.E
     lcs, ucs, lxs, uxs = qp.lcs, qp.ucs, qp.lxs, qp.uxs
     x, yc, yx = qp.x, qp.yc, qp.yx
@@ -442,10 +473,9 @@ def solve_xla(qp: DenseQP, settings: QPSettings) -> QPSolution:
                     want, torch.clamp(rho_s * ratio, settings.rho_min, settings.rho_max),
                     rho_s,
                 )
-                if bool(want.any()):
-                    M_inv = qp.factor(rho_new, settings)
+                M_inv = qp.factor(rho_new, settings)
                 rho_s = rho_new
-            if bool(done.all()):
+            if not capturing(x.device) and bool(done.all()):
                 break
 
     return QPSolution(

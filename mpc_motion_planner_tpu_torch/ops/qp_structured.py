@@ -29,17 +29,17 @@ from dataclasses import dataclass
 import torch
 
 from .qp import _HARD, QPSettings, QPSolution, _rho_pattern, _soft_prox
-from .structure import StructuredA, _static_indices, apply_A, apply_AT
+from .structure import StructuredA, apply_A, apply_AT, static_index_tensors
 
 _PIV_FLOOR = 1e-20  # kernel 2's Cholesky pivot floor
 _SAT = 0.99e8  # kernel 2's saturation flag level
 _BIG = 1e12  # divergence freeze level
 
 
-def _node_cover(order: int, num_segments: int):
+def _node_cover(order: int, num_segments: int, device):
     """Per-node covering segments (sA, locA) and, for shared boundary
-    nodes, (sB, locB)."""
-    _, first, second, valid2 = _static_indices(order, num_segments)
+    nodes, (sB, locB), with valid2 (float64), on ``device``."""
+    _, first, second, valid2 = static_index_tensors(order, num_segments, device)
     K = order + 1
     return first // K, first % K, second // K, second % K, valid2
 
@@ -77,11 +77,9 @@ def ruiz_structured(ocp, sa: StructuredA, iters: int):
     B = sa.p.shape[0]
     dt, dev = sa.f_rows.dtype, sa.f_rows.device
 
-    seg_idx, *_ = _static_indices(order, S)
-    idx = torch.as_tensor(seg_idx, device=dev)
-    sA, lA, sB, lB, has2 = _node_cover(order, S)
-    sA, lA, sB, lB = (torch.as_tensor(a, device=dev) for a in (sA, lA, sB, lB))
-    h2 = torch.as_tensor(has2, dtype=dt, device=dev)[None, :, None]
+    idx = ocp.segment_index(dev)
+    sA, lA, sB, lB, has2 = _node_cover(order, S, dev)
+    h2 = has2.to(dt)[None, :, None]
 
     absDm = ocp.coll.diff_matrix.to(dt).abs()  # (K, K)
     p = sa.p.abs()
@@ -341,19 +339,25 @@ def banded_solve_lookahead(Ldi, Lsub, r, thirds: bool = True):
 def factor_banded(Mband, p_col, m_pp, bw: int):
     """Block-banded Cholesky + rank-1 arrow Schur complement (the plain
     version of kernel 2), with the diagonal jitter retry for problems whose
-    factorization broke down.
+    factorization broke down. The retry runs for the whole batch whether or
+    not a problem broke down, in one batch of 2B with the first pass, and its
+    factors are taken under the mask of those that did: the same result as a
+    retry on demand, with no host synchronisation (so a CUDA graph can
+    capture it) and the launches of one pass.
 
     Returns {"Ldi", "Lsub", "u" (B, N, blk), "s" (B,), "ok" (B,)}. ``ok`` is
     kernel 2's flag on the un-jittered factorization: every pivot above
     1e-20, s above 1e-20, and no factor entry at or above 0.99e8."""
-
-    def run(Mb):
-        Ldi, Lsub, chol_ok = banded_cholesky(Mb, bw)
-        u = banded_solve(Ldi, Lsub, p_col)
-        s = m_pp - (u * p_col).sum(dim=(1, 2))
-        return {"Ldi": Ldi, "Lsub": Lsub, "u": u, "s": s}, chol_ok
-
-    fac, chol_ok = run(Mband)
+    B = Mband.shape[0]
+    jittered = Mband.clone()
+    jittered[:, :, 0].diagonal(dim1=-2, dim2=-1).mul_(1.0 + 1e-4)
+    pc = torch.cat([p_col, p_col])
+    Ldi, Lsub, chol_ok = banded_cholesky(torch.cat([Mband, jittered]), bw)
+    u = banded_solve(Ldi, Lsub, pc)
+    both = {"Ldi": Ldi, "Lsub": Lsub, "u": u,
+            "s": torch.cat([m_pp, m_pp]) - (u * pc).sum(dim=(1, 2))}
+    fac, fac2 = ({k: v[half] for k, v in both.items()} for half in (slice(0, B), slice(B, None)))
+    chol_ok = chol_ok[:B]
     finite = (
         torch.isfinite(fac["Ldi"]).all(dim=(1, 2, 3)) & torch.isfinite(fac["s"]) & chol_ok
     )
@@ -364,14 +368,10 @@ def factor_banded(Mband, p_col, m_pp, bw: int):
         fac["s"].abs(),
     ]).amax(0)
     ok = finite & (fac["s"] > _PIV_FLOOR) & (sat < _SAT)
-    if not bool(finite.all()):
-        Mb = Mband.clone()
-        Mb[:, :, 0].diagonal(dim1=-2, dim2=-1).mul_(1.0 + 1e-4)
-        fac2, _ = run(Mb)
-        fac = {
-            k: torch.where(finite.reshape(-1, *([1] * (a.ndim - 1))), a, fac2[k])
-            for k, a in fac.items()
-        }
+    fac = {
+        k: torch.where(finite.reshape(-1, *([1] * (a.ndim - 1))), a, fac2[k])
+        for k, a in fac.items()
+    }
     fac["ok"] = ok
     return fac
 
@@ -448,6 +448,141 @@ def solve_arrow_banded(ocp, fac, rhs, solve=banded_solve):
     t = solve(fac["Ldi"], fac["Lsub"], r_b)
     z_p = (r_p - (fac["u"] * r_b).sum(dim=(1, 2))) / fac["s"]
     z_b = t - fac["u"] * z_p[:, None, None]
+    return join_node_major(ocp, z_b, z_p)
+
+
+# ---------------------------------------------------------------------------
+# The group block-tridiagonal form (a reference form; no solve path uses it)
+# ---------------------------------------------------------------------------
+#
+# The JAX package's portable path factors the band over groups of three
+# nodes as a block-tridiagonal matrix with dense (63 x 63) diagonal
+# inverses. The port solves through the node-level factor everywhere (the
+# form of kernels 2 and 3); this form is kept for parity with the JAX
+# functions at float64. At float32 the JAX form stops short on a few QPs
+# that the node-level factor converges (ROADMAP Queue 3).
+
+_GROUP = 3  # nodes per tridiagonal group (at least the band width)
+
+
+def _tri_lower_inv(L):
+    """Batched inverse of lower-triangular (..., blk, blk)."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand(L.shape)
+    return torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def _to_group_tridiag(Mband, bw: int):
+    """The node-level band as a block-tridiagonal matrix over groups of
+    ``_GROUP`` nodes: (diag (B, G, gb, gb), sub (B, G-1, gb, gb)) with
+    identity padding nodes at the end; the d > 0 node blocks inside a group
+    are mirrored into its upper triangle."""
+    B, N, _, blk, _ = Mband.shape
+    G = -(-N // _GROUP)
+    gb = _GROUP * blk
+    diag = Mband.new_zeros(B, G, gb, gb)
+    sub = Mband.new_zeros(B, G - 1, gb, gb)
+    for k in range(N):
+        gc, lc = divmod(k, _GROUP)
+        for d in range(bw + 1):
+            if k + d >= N:
+                continue
+            gr, lr = divmod(k + d, _GROUP)
+            blkv = Mband[:, k, d]
+            r0, c0 = lr * blk, lc * blk
+            if gr == gc:
+                diag[:, gc, r0:r0 + blk, c0:c0 + blk] += blkv
+                if d > 0:
+                    diag[:, gc, c0:c0 + blk, r0:r0 + blk] += blkv.transpose(-1, -2)
+            else:  # gr == gc + 1 (bw <= _GROUP)
+                sub[:, gc, r0:r0 + blk, c0:c0 + blk] += blkv
+    for k in range(N, G * _GROUP):
+        gc, lc = divmod(k, _GROUP)
+        r0 = lc * blk
+        diag[:, gc, r0:r0 + blk, r0:r0 + blk] += torch.eye(blk, dtype=Mband.dtype,
+                                                           device=Mband.device)
+    return diag, sub
+
+
+def _tridiag_cholesky(diag, sub):
+    """Batched block-tridiagonal Cholesky M = L L'. Returns (Ld_inv
+    (B, G, gb, gb) inverses of the diagonal factors, Lc (B, G-1, gb, gb)
+    = L[g+1, g]). A factorization that breaks down gives NaN, as the JAX
+    Cholesky does."""
+    G = diag.shape[1]
+    Ld_inv, Lc = [], []
+    S = diag[:, 0]
+    for g in range(G):
+        Lgg, info = torch.linalg.cholesky_ex(S)
+        Lgg = torch.where((info == 0)[:, None, None], Lgg, torch.full_like(Lgg, float("nan")))
+        Linv = _tri_lower_inv(Lgg)
+        Ld_inv.append(Linv)
+        if g < G - 1:
+            C = sub[:, g] @ Linv.transpose(-1, -2)  # L[g+1, g]
+            Lc.append(C)
+            S = diag[:, g + 1] - C @ C.transpose(-1, -2)
+    return torch.stack(Ld_inv, 1), torch.stack(Lc, 1)
+
+
+def _tridiag_solve(Ld_inv, Lc, r):
+    """Solve (L L') x = r for group-major r (B, G, gb)."""
+    G = Ld_inv.shape[1]
+    ys = []
+    for g in range(G):
+        acc = r[:, g]
+        if g > 0:
+            acc = acc - _mv(Lc[:, g - 1], ys[g - 1])
+        ys.append(_mv(Ld_inv[:, g], acc))
+    xs = [None] * G
+    for g in range(G - 1, -1, -1):
+        acc = ys[g]
+        if g < G - 1:
+            acc = acc - _mtv(Lc[:, g], xs[g + 1])
+        xs[g] = _mtv(Ld_inv[:, g], acc)
+    return torch.stack(xs, dim=1)
+
+
+def _pad_groups(r_nodes, G: int):
+    """(B, N, blk) node-major -> (B, G, _GROUP * blk) group-major, padded."""
+    B, N, blk = r_nodes.shape
+    r_nodes = torch.nn.functional.pad(r_nodes, (0, 0, 0, G * _GROUP - N))
+    return r_nodes.reshape(B, G, _GROUP * blk)
+
+
+def factor_arrow(Mband, p_col, m_pp, bw: int):
+    """Factor the banded + arrow system in the group block-tridiagonal form
+    with the rank-1 Schur complement of the time parameter. Returns
+    {"Ld_inv", "Lc", "u" (B, G, gb), "s" (B,)} for :func:`solve_arrow`.
+    Problems whose factors are not finite take those of the band with its
+    diagonal scaled by 1 + 1e-4, under the mask, as :func:`factor_banded`
+    does."""
+    blk = Mband.shape[-1]
+
+    def run(Mb):
+        Ld_inv, Lc = _tridiag_cholesky(*_to_group_tridiag(Mb, bw))
+        pc = _pad_groups(p_col, Ld_inv.shape[1])
+        u = _tridiag_solve(Ld_inv, Lc, pc)
+        return {"Ld_inv": Ld_inv, "Lc": Lc, "u": u, "s": m_pp - (u * pc).sum(dim=(1, 2))}
+
+    fac = run(Mband)
+    finite = torch.isfinite(fac["Ld_inv"]).all(dim=(1, 2, 3)) & torch.isfinite(fac["s"])
+    Mb = Mband.clone()
+    dg = torch.arange(blk, device=Mband.device)
+    Mb[:, :, 0, dg, dg] *= 1.0 + 1e-4
+    fac2 = run(Mb)
+    return {k: torch.where(finite.reshape(-1, *([1] * (a.ndim - 1))), a, fac2[k])
+            for k, a in fac.items()}
+
+
+def solve_arrow(ocp, fac, bw: int, rhs):
+    """Solve M x = rhs (z-layout (B, n)) with :func:`factor_arrow`'s
+    factors."""
+    r_b, r_p = split_node_major(ocp, rhs)
+    B, N, blk = r_b.shape
+    G = fac["Ld_inv"].shape[1]
+    rg = _pad_groups(r_b, G)
+    t = _tridiag_solve(fac["Ld_inv"], fac["Lc"], rg)
+    z_p = (r_p - (fac["u"] * rg).sum(dim=(1, 2))) / fac["s"]
+    z_b = (t - fac["u"] * z_p[:, None, None]).reshape(B, G * _GROUP, blk)[:, :N]
     return join_node_major(ocp, z_b, z_p)
 
 
@@ -713,32 +848,33 @@ def admm_chunked(ocp, sa, qp: ScaledQP, settings: QPSettings, factor, admm):
     of ``admm`` per entry of :func:`chunk_sizes` on the factors of
     ``factor(Mband, p_col, m_pp, bw)``, and between two dispatches the
     OSQP rho update: a problem that is not done and whose residual ratio is
-    above 5 or below 0.2 gets ``rho = clip(rho * ratio, rho_min, rho_max)``,
-    and if any problem wants that (one host synchronisation per chunk),
-    everything that depends on rho is rebuilt (:func:`with_rho`) and
-    refactored for the batch. ``admm`` is :func:`admm_plain` or kernel 3's
-    wrapper, ``factor`` :func:`factor_banded` or kernel 2's.
+    above 5 or below 0.2 gets ``rho = clip(rho * ratio, rho_min, rho_max)``.
+    At every boundary everything that depends on rho is rebuilt
+    (:func:`with_rho`) and refactored for the batch under that per-problem
+    mask, with no host synchronisation (so a CUDA graph can capture the
+    loop): where no problem wants another rho the rebuilt band and its
+    factor are bitwise the ones before. ``admm`` is :func:`admm_plain` or
+    kernel 3's wrapper, ``factor`` :func:`factor_banded` or kernel 2's.
 
     Returns (state as :func:`admm_plain` returns it, the final ScaledQP,
-    whose ``rho`` is each problem's last rho, and the number of
-    refactorizations after the first)."""
+    whose ``rho`` is each problem's last rho, and the number of boundaries
+    at which some problem's rho moved, a 0-d int64 tensor on the device)."""
     bw = ocp.coll.order
     fac = factor(qp.Mband, qp.p_col, qp.m_pp, bw)
     sizes = chunk_sizes(settings)
     state = initial_state(qp)
-    refactors = 0
+    refactors = torch.zeros((), dtype=torch.int64, device=qp.x.device)
     for c, chunk_iters in enumerate(sizes):
         state = admm(ocp, sa, qp, fac, settings, state, chunk_iters)
         if c == len(sizes) - 1:
             break
         ratio = residual_ratio(ocp, sa, qp, *state[:5])
         want = (state[5] == 0) & ((ratio > 5.0) | (ratio < 0.2))
-        if bool(want.any()):
-            rho = torch.where(
-                want, torch.clamp(qp.rho * ratio, settings.rho_min, settings.rho_max), qp.rho)
-            qp = with_rho(ocp, sa, qp, rho, settings)
-            fac = factor(qp.Mband, qp.p_col, qp.m_pp, bw)
-            refactors += 1
+        rho = torch.where(
+            want, torch.clamp(qp.rho * ratio, settings.rho_min, settings.rho_max), qp.rho)
+        qp = with_rho(ocp, sa, qp, rho, settings)
+        fac = factor(qp.Mband, qp.p_col, qp.m_pp, bw)
+        refactors = refactors + want.any()
     return state, qp, refactors
 
 

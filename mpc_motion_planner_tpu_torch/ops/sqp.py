@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import List
 
 import torch
@@ -102,6 +103,14 @@ def constraint_violation(ocp: TranscribedOCP, bounds: NLPBounds, z):
     )
 
 
+@lru_cache(maxsize=None)
+def _step_lengths(tau: float, n: int, dtype, device) -> torch.Tensor:
+    """The line search's trial steps tau^0 .. tau^(n-1) on ``device``, made
+    once (a copy from host memory at every solve would stall a CUDA graph
+    capture)."""
+    return torch.tensor([tau**j for j in range(n)], dtype=dtype, device=device)
+
+
 def _line_search(ocp, bounds, z, d, h, mu, settings: SQPSettings, c_eq, g):
     """Vectorized l1-merit backtracking; returns per-problem alpha (B,).
 
@@ -110,9 +119,7 @@ def _line_search(ocp, bounds, z, d, h, mu, settings: SQPSettings, c_eq, g):
     (one kernel-1 launch on CUDA)."""
     L = settings.line_search_max_iter
     B, n = z.shape
-    alphas = torch.tensor(
-        [settings.tau**j for j in range(L)], dtype=z.dtype, device=z.device
-    )
+    alphas = _step_lengths(settings.tau, L, z.dtype, z.device)
 
     viol0 = (
         c_eq.abs().sum(-1)

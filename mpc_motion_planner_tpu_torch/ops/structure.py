@@ -53,13 +53,21 @@ def _static_indices(order: int, num_segments: int):
     return seg_idx, first, second, valid2
 
 
+@lru_cache(maxsize=None)
+def static_index_tensors(order: int, num_segments: int, device: torch.device):
+    """:func:`_static_indices` as tensors on ``device`` (valid2 in float64),
+    made once per device: a solve reads them at every call, and a copy from
+    host memory at every call would also stall a CUDA graph capture."""
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _static_indices(order, num_segments))
+
+
 def build_structured_A(ocp, z, J=None) -> StructuredA:
     """Exact linearization data at the batched iterate z. J: optionally
     the precomputed (B, nodes, ng, nx+nu) per-node Jacobians."""
     X, U, p = ocp.unpack(z)
-    seg_idx, *_ = _static_indices(ocp.coll.order, ocp.coll.num_segments)
     f = ocp.dynamics(X, U)  # (B, nodes, nx)
-    idx = torch.as_tensor(seg_idx.reshape(-1), device=z.device)
+    idx = ocp.segment_index(z.device).reshape(-1)
     f_rows = f[:, idx].reshape(z.shape[0], -1)
     if J is None:
         J = ocp.node_constraint_jacobians(z)
@@ -71,8 +79,7 @@ def apply_A(ocp, sa: StructuredA, v):
     order, S = ocp.coll.order, ocp.coll.num_segments
     B = v.shape[0]
     vX, vU, vp = ocp.unpack(v)
-    seg_idx, *_ = _static_indices(order, S)
-    idx = torch.as_tensor(seg_idx, device=v.device)
+    idx = ocp.segment_index(v.device)
 
     vX_seg = vX[:, idx]  # (B, S, K, nx)
     dX = torch.einsum("kj,bsji->bski", ocp.coll.diff_matrix.to(v.dtype), vX_seg)
@@ -92,10 +99,8 @@ def apply_AT(ocp, sa: StructuredA, w):
     num_eq = ocp.num_eq
     B = w.shape[0]
     K = order + 1
-    _, first, second, valid2 = _static_indices(order, S)
-    i1 = torch.as_tensor(first, device=w.device)
-    i2 = torch.as_tensor(second, device=w.device)
-    v2 = torch.as_tensor(valid2, dtype=w.dtype, device=w.device)
+    _, i1, i2, valid2 = static_index_tensors(order, S, w.device)
+    v2 = valid2.to(w.dtype)
 
     w_eq = w[:, :num_eq].reshape(B, S, K, nx)
     w_g = w[:, num_eq:].reshape(B, nodes, ng)
@@ -126,3 +131,19 @@ def materialize(ocp, sa: StructuredA):
     eye = torch.eye(n, dtype=sa.f_rows.dtype, device=sa.f_rows.device)
     cols = [apply_A(ocp, sa, eye[i].expand(B, n)) for i in range(n)]
     return torch.stack(cols, dim=-1)
+
+
+def operator_norm(ocp, sa: StructuredA, D, E, iters: int = 40, generator=None):
+    """Per-problem 2-norm estimate of the scaled operator E A D, by power
+    iteration on (E A D)' (E A D), matrix-free. The start vector is normal
+    noise from ``generator`` (seed 0 if none is given, drawn on the CPU)."""
+    B, n = sa.p.shape[0], ocp.num_var
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    v = torch.randn(B, n, generator=generator, dtype=sa.f_rows.dtype,
+                    device=generator.device).to(sa.f_rows.device)
+    for _ in range(iters):
+        v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-30)
+        Av = E * apply_A(ocp, sa, D * v)
+        v = D * apply_AT(ocp, sa, E * Av)
+    return torch.sqrt(torch.clamp(torch.linalg.vector_norm(v, dim=-1), min=1e-30))

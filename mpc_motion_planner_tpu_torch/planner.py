@@ -114,6 +114,7 @@ class MotionPlanner:
         self.model = (model or make_panda_model()).to(self.device, dtype)
         self.limits = (limits or make_panda_limits()).to(self.device, dtype)
         self.ocp = make_ocp(self.model, tool_frame)
+        self.tool_frame = tool_frame
         self.margins = margins
         self.sqp_settings = sqp_settings
         self.qp_settings = qp_settings
@@ -147,8 +148,9 @@ class MotionPlanner:
         if min_height is None:
             min_height = self._min_height
         t = self.margins.torque * self.limits.max_torque
-        h = t.new_tensor([self.limits.min_height if min_height is None else min_height])
-        return torch.cat([-t, h]), torch.cat([t, h.new_tensor([float("inf")])])
+        fill = lambda v: torch.full((1,), float(v), dtype=t.dtype, device=t.device)
+        h = fill(self.limits.min_height if min_height is None else min_height)
+        return torch.cat([-t, h]), torch.cat([t, fill(float("inf"))])
 
     def set_min_height(self, min_height: float):
         """Persistently override the end-effector height floor."""

@@ -210,6 +210,10 @@ def test_headline_line_on_cpu(monkeypatch):
     assert line["batch"] == 8 and line["qp_max_iter"] == 700 and line["sqp_schedules"] == ""
     assert line["states"].endswith("headline_states_b2048.npz[:8]")
     assert line["value"] == pytest.approx(8 / line["batch_wall_s"])
+    # on the CPU the solve is eager, and the eager keys are the same solves
+    assert line["solve"] == "eager" and line["eager_batch_wall_s"] == line["batch_wall_s"]
+    assert line["eager_solves_per_s"] == line["value"]
+    assert line["repairs"] == 0 and line["eager_resolves"] == 0
     # the quality fields of a solve of the same 8 states with the same settings
     s = headline.settings_from_env(env)
     planner = headline.make_planner(s, "cpu")

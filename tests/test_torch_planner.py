@@ -245,7 +245,9 @@ _GUARD = textwrap.dedent(
     for name in names:
         importlib.import_module(name)
     for name in ("bench.headline", "bench.acceptance", "bench.analysis", "utils.io",
-                 "models.urdf", "examples.offline_trajectory"):
+                 "models.urdf", "examples.offline_trajectory", "utils.capture",
+                 "utils.profiling", "utils.native", "parallel.mesh", "bench.plots",
+                 "examples.analysis", "examples.baseline_proxy"):
         assert pkg.__name__ + "." + name in names, name
     from mpc_motion_planner_tpu_torch import kernels
     from mpc_motion_planner_tpu_torch.ops.qp import QPSettings

@@ -433,3 +433,97 @@ def test_rho_update_rebuilds_everything_that_depends_on_rho(qp_data, port_ocp):
     for f in dataclasses.fields(moved):
         assert torch.equal(getattr(moved, f.name), getattr(qp2, f.name)), f.name
     assert not torch.equal(qp1.thr, qp2.thr) and not torch.equal(qp1.Mband, qp2.Mband)
+
+
+def _conditional_chunked(ocp, sa, qp, settings):
+    """admm_chunked as it was before the rebuild under a mask: the system
+    rebuilt and refactored only at a boundary where some problem wants
+    another rho (a host synchronisation each). Returns (state, final qp, the
+    boundaries at which it rebuilt, every boundary's want.any())."""
+    bw = ocp.coll.order
+    fac = tqs.factor_banded(qp.Mband, qp.p_col, qp.m_pp, bw)
+    sizes = tqs.chunk_sizes(settings)
+    state = tqs.initial_state(qp)
+    rebuilt, wants = 0, []
+    for c, chunk_iters in enumerate(sizes):
+        state = tqs.admm_plain(ocp, sa, qp, fac, settings, state, chunk_iters)
+        if c == len(sizes) - 1:
+            break
+        ratio = tqs.residual_ratio(ocp, sa, qp, *state[:5])
+        want = (state[5] == 0) & ((ratio > 5.0) | (ratio < 0.2))
+        wants.append(bool(want.any()))
+        if wants[-1]:
+            rho = torch.where(
+                want, torch.clamp(qp.rho * ratio, settings.rho_min, settings.rho_max), qp.rho)
+            qp = tqs.with_rho(ocp, sa, qp, rho, settings)
+            fac = tqs.factor_banded(qp.Mband, qp.p_col, qp.m_pp, bw)
+            rebuilt += 1
+    return state, qp, rebuilt, wants
+
+
+def test_masked_rho_rebuild_equals_conditional_rebuild(qp_data, port_ocp):
+    """The rebuild at every dispatch boundary under the per-problem mask
+    gives the conditional rebuild's state and final ScaledQP bitwise, on a
+    solve in which rho moves at some boundaries and at others no problem
+    wants another rho (there the rebuilt band and factor are the old ones);
+    the count it returns is that of the boundaries where rho moved."""
+    settings = QPSettings(backend="structured", max_iter=700, rho_update_every=100)
+    sa_t, qp = _scaled(qp_data, port_ocp, settings)
+    ref_state, ref_qp, rebuilt, wants = _conditional_chunked(port_ocp, sa_t, qp, settings)
+    assert any(wants) and not all(wants), wants
+    state, qp_end, moved = tqs.admm_chunked(port_ocp, sa_t, qp, settings, tqs.factor_banded,
+                                            tqs.admm_plain)
+    assert int(moved) == rebuilt == sum(wants)
+    for a, b in zip(state, ref_state):
+        assert torch.equal(a, b)
+    for f in dataclasses.fields(qp_end):
+        assert torch.equal(getattr(qp_end, f.name), getattr(ref_qp, f.name)), f.name
+
+
+def test_group_tridiagonal_arrow_form_matches_jax(qp_data, port_ocp):
+    """factor_arrow / solve_arrow (the JAX package's group block-tridiagonal
+    reference form, which no solve of the port uses) against the JAX
+    functions at float64, and against the node-level factor's solve of the
+    same system; a band with a singular first block takes the jittered
+    factors as in JAX."""
+    (Mb_j, pc_j, mpp_j), (Mb, pc, mpp) = _kkt(qp_data, port_ocp, 21)
+    jo, _ = qp_data
+    bw = port_ocp.coll.order
+    rhs = np.random.default_rng(4).normal(size=(B, jo.num_var))
+    ref_fac = jqs.factor_arrow(Mb_j, pc_j, mpp_j, bw)
+    fac = tqs.factor_arrow(Mb, pc, mpp, bw)
+    assert fac.keys() == ref_fac.keys()
+    for k in fac:
+        _close(fac[k], ref_fac[k])
+    x = tqs.solve_arrow(port_ocp, fac, bw, torch.as_tensor(rhs))
+    _close(x, jqs.solve_arrow(jo, ref_fac, bw, jnp.asarray(rhs)))
+    node = tqs.solve_arrow_banded(port_ocp, tqs.factor_banded(Mb, pc, mpp, bw), torch.as_tensor(rhs))
+    _close(x, node.numpy(), tol=1e-8)
+    Mb_bad, Mb_bad_j = Mb.clone(), np.array(Mb_j)
+    Mb_bad[1, 0, 0] = 1.0
+    Mb_bad_j[1, 0, 0] = 1.0
+    fac = tqs.factor_arrow(Mb_bad, pc, mpp, bw)
+    ref_fac = jqs.factor_arrow(jnp.asarray(Mb_bad_j), pc_j, mpp_j, bw)
+    assert not bool(torch.isfinite(fac["Ld_inv"][1]).all())  # beyond the jitter's reach
+    assert bool(torch.isfinite(fac["Ld_inv"][[0, 2, 3]]).all())
+    for k in fac:  # NaN where JAX has NaN
+        _close(fac[k], ref_fac[k])
+
+
+def test_operator_norm_matches_svd(qp_data, port_ocp):
+    """The power-iteration estimate of ||E A D||_2 within 1e-6 relative of
+    the exact norm from a dense float64 SVD (the start vector is the port's
+    own draw, not the JAX random stream)."""
+    from mpc_motion_planner_tpu_torch.ops import structure
+
+    _, d = qp_data
+    _, sa_t = _sa(d)
+    rng = np.random.default_rng(5)
+    D = torch.as_tensor(rng.uniform(0.5, 2.0, (B, port_ocp.num_var)))
+    E = torch.as_tensor(rng.uniform(0.5, 2.0, (B, port_ocp.num_eq + port_ocp.num_ineq)))
+    A = structure.materialize(port_ocp, sa_t)
+    exact = torch.linalg.matrix_norm(E[:, :, None] * A * D[:, None, :], ord=2)
+    # the estimate's error falls by (sigma_2 / sigma_1)^2 per iteration; that
+    # ratio is up to 0.973 here (more with other draws of D and E)
+    est = structure.operator_norm(port_ocp, sa_t, D, E, iters=1000)
+    np.testing.assert_allclose(est.numpy(), exact.numpy(), rtol=1e-6)

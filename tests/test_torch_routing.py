@@ -179,9 +179,11 @@ def test_cuda_solve_chunks_through_kernels_2_and_3(ocp, monkeypatch):
     got = k3.solve_box_qp_structured_cuda(planner.ocp, sa, P, *args, settings)
     assert [c for c, _ in calls["admm"]] == [100, 100, 100]
     assert calls["admm"][0][1] in (None, 0) and calls["admm"][1][1] == 100
-    assert calls["factor"] == 1 + k3.REFACTORS.count
+    # the KKT system is refactored at every boundary; REFACTORS counts those
+    # at which some rho moved
+    assert calls["factor"] == 3 and 0 <= k3.REFACTORS.count <= 2
     assert torch.equal(got.x, ref.x) and torch.equal(got.iterations, ref.iterations)
-    k3.REFACTORS.count = 0
+    k3.REFACTORS.reset()
 
 
 def test_host_constants_are_cached_per_model():

@@ -133,14 +133,14 @@ def test_plan_warm_start_with_accelerations_matches_jax():
 
 
 # ---------------------------------------------------------------------------
-# The C++ OTG oracle (native/otg.cpp, loaded by the JAX package's utils)
+# The C++ OTG oracle (native/otg.cpp, loaded by the port's utils.native)
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
 def native():
     if shutil.which("g++") is None and shutil.which("cmake") is None:
         pytest.skip("no native toolchain")
-    from mpc_motion_planner_tpu.utils import native as n
+    from mpc_motion_planner_tpu_torch.utils import native as n
 
     n.load()
     return n
