@@ -12,22 +12,27 @@ prints one JSON line per variant:
   (host time included) and for the launch alone on the device's clock
   (queued behind a long product); the largest difference of g and J from
   the plain path's.
-* kernel 2 (``csrc/banded_factor.cu``): its time; whether its ``ok`` flags
-  are those of the plain ``factor_banded``; the max-norm relative error of
-  ``Ldi``, ``Lsub``, ``u``, ``s`` against it.
+* kernel 2 (``csrc/banded_factor.cu``): its time; whether its outputs are
+  bitwise the package build's; whether its ``ok`` flags are those of the
+  plain ``factor_banded``; the max-norm relative error of ``Ldi``, ``Lsub``,
+  ``u``, ``s`` against it.
 * kernel 3 (``csrc/structured_admm.cu``) and kernel 4
   (``csrc/admm_dense.cu``): its time at the full iteration budget and at
   exactly one check window; the drift of one check window from a float64
   run of the plain loop next to the plain float32 loop's (the bar of
   ``chip_smoke.py`` phases 4 and 7); the largest difference of its iterates
-  from the package kernel's after one window, and how many iteration counts
-  at the full budget differ from the package kernel's.
+  from the package kernel's after one window, how many iteration counts
+  at the full budget differ from the package kernel's, and whether each
+  launch's outputs are bitwise the package kernel's.
 
 Times are CUDA events around ``--reps`` calls, the variants in turns (first
-to last, then last to first).
+to last, then last to first). ``--segments`` sets the transcription (spline
+segments of order 3: 6 is the 19-node default, 8 gives 25 nodes), as a user
+sets it: ``planner.ocp = make_ocp(model, tool_frame, num_segments=8)``;
+kernels 2 and 3 and their variants are built for it.
 
     python -m mpc_motion_planner_tpu_torch.bench.kernel_ab --kernel 4 \\
-        [--batch 2048] [--reps 3] [name=path.cu ...]
+        [--batch 2048] [--reps 3] [--segments 6] [name=path.cu ...]
 
 A variant's headers are looked up beside its source. To compare with an
 earlier commit:
@@ -132,15 +137,16 @@ class EarlierAdmmKernel(build.CudaKernel):
     def __init__(self, name, source):
         super().__init__(name, source, k3.KERNEL.entry,
                          [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_float] * 4
-                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                         + [ctypes.c_int] * 3 + [ctypes.c_void_p], per_geometry=True)
 
-    def launch(self, ptrs, Dm, sigma, alpha, eps_abs, eps_rel, cap, check_every, kkt_refine, B):
+    def launch(self, ptrs, Dm, sigma, alpha, eps_abs, eps_rel, cap, check_every, kkt_refine, B,
+               geometry=None):
         if kkt_refine:
             raise ValueError("this build of kernel 3 has no KKT refinement")
         keep = list(ptrs)
         del keep[self.STATE_IN]
         super().launch((ctypes.c_void_p * len(keep))(*keep), Dm, sigma, alpha, eps_abs,
-                       eps_rel, cap, check_every, B)
+                       eps_rel, cap, check_every, B, geometry=geometry)
 
 
 class EarlierConstraintsKernel(build.CudaKernel):
@@ -181,7 +187,8 @@ def variant_kernel(number, name, path):
     k = MODULES[number].KERNEL
     # sources from before the init entry point set the attributes in every launch
     init = k.init if k.init is not None and k.init in text else None
-    return build.CudaKernel(label, path, k.entry, k.argtypes, init=init)
+    return build.CudaKernel(label, path, k.entry, k.argtypes, init=init,
+                            per_geometry=k.per_geometry)
 
 
 def time_in_turns(kernels, call, reps, behind=None):
@@ -261,6 +268,7 @@ def ab_factor(kernels, planner, cur, tgt, reps):
     for name, fac in out.items():
         results[name] = {
             "ms": float(np.mean(times[name])), "ms_runs": times[name],
+            "bitwise_package": all(torch.equal(fac[k], out["package"][k]) for k in fac),
             "ok_flags_equal_plain": bool(torch.equal(fac["ok"], plain["ok"])),
             "ok_count": int(fac["ok"].sum()),
             **{f"rel_err_{key}": max_abs(fac[key], plain[key])
@@ -289,6 +297,7 @@ def ab_loop(kernels, run, run_plain, run_float64, inputs, budget, window, reps, 
             r = results[name]
             r[f"{label}_ms"] = float(np.mean(times[name]))
             r[f"{label}_ms_runs"] = times[name]
+            r[f"{label}_bitwise_package"] = all(torch.equal(a, b) for a, b in zip(out[name], ref))
             if label == "window":
                 r["window_max_abs_diff_from_package"] = max_abs(out[name][0], ref[0])
             else:
@@ -303,6 +312,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel", type=int, choices=sorted(MODULES), required=True)
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--segments", type=int, default=6,
+                    help="spline segments of order 3 (6: 19 nodes, 8: 25 nodes)")
     ap.add_argument("variants", nargs="*", help="name=path.cu")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -320,9 +331,10 @@ def main(argv=None) -> int:
     for spec in a.variants:
         name, _, path = spec.partition("=")
         kernels[name] = variant_kernel(a.kernel, name, os.path.abspath(path))
+    geometry = build.Geometry(segments=a.segments)
     for name, k in kernels.items():
-        k.function()
-        info = [ln.strip() for ln in k.build_log.splitlines()
+        k.function(geometry)
+        info = [ln.strip() for ln in k.build_log.get(k.geometry(geometry), "").splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"built {name}: " + " | ".join(info), flush=True)
 
@@ -331,6 +343,8 @@ def main(argv=None) -> int:
         margins=Margins(*MARGINS), dtype=torch.float32, device=dev, qp_settings=shipping,
         sqp_settings=SQPSettings(qp_step_schedules=config.shipping_sqp_schedules(shipping.backend)),
     )
+    if a.segments != 6:
+        planner.ocp = make_ocp(planner.model, planner.tool_frame, num_segments=a.segments)
     ocp = planner.ocp
     states = np.load(STATES)
     cur = torch.as_tensor(states["current"][: a.batch], device=dev)
@@ -346,7 +360,8 @@ def main(argv=None) -> int:
     elif a.kernel == 3:
         at = lambda n: dataclasses.replace(shipping, max_iter=n)
         pick = lambda out: (out[0], out[5], out[6])
-        ocp64 = make_ocp(planner.model.to(dtype=torch.float64))
+        ocp64 = make_ocp(planner.model.to(dtype=torch.float64), planner.tool_frame,
+                         num_segments=a.segments)
 
         def float64(data, n):
             sa, qp, fac = data
@@ -384,8 +399,8 @@ def main(argv=None) -> int:
         shape = {"budget": DENSE.max_iter, "window": DENSE.check_every}
 
     for name, r in results.items():
-        print(json.dumps({"kernel": a.kernel, "variant": name, "batch": a.batch, **shape, **r}),
-              flush=True)
+        print(json.dumps({"kernel": a.kernel, "variant": name, "batch": a.batch,
+                          "nodes": ocp.num_nodes, **shape, **r}), flush=True)
     print(smi)
     return 0
 

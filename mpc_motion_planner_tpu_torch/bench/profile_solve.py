@@ -15,7 +15,11 @@ each hand-written kernel by name. Wall times are taken before the profiler
 starts, which slows later solves.
 
     python -m mpc_motion_planner_tpu_torch.bench.profile_solve [--dense | --default | --xla]
-        [--warm 5]
+        [--warm 5] [--segments 6]
+
+``--segments`` sets the transcription as a user sets it (``planner.ocp =
+make_ocp(model, tool_frame, num_segments=8)``: 25 nodes; default 6, 19
+nodes), and kernels 2 and 3 are built for it.
 
 Prints one JSON object, then the card's name and power limit. Needs one
 CUDA GPU and ``nvcc``.
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import config, kernels
+from ..ocp import make_ocp
 from ..ops.qp import QPSettings
 from ..ops.sqp import SQPSettings
 from ..planner import Margins, MotionPlanner
@@ -72,9 +77,10 @@ def device_events(trace_path):
             if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES]
 
 
-def make_planner(which: str, dev) -> MotionPlanner:
+def make_planner(which: str, dev, segments: int = 6) -> MotionPlanner:
     """The planner of a path: "structured" (shipping), "dense",
-    "structured_default" or "xla" (``MotionPlanner()``'s settings)."""
+    "structured_default" or "xla" (``MotionPlanner()``'s settings), on
+    ``segments`` spline segments of order 3."""
     if which == "xla":
         qp, sqp = QPSettings(), SQPSettings()
     elif which == "dense":
@@ -86,8 +92,11 @@ def make_planner(which: str, dev) -> MotionPlanner:
     else:
         qp = config.SHIPPING_QP_SETTINGS
         sqp = SQPSettings(qp_step_schedules=config.shipping_sqp_schedules(qp.backend))
-    return MotionPlanner(margins=Margins(*MARGINS), dtype=torch.float32, device=dev,
-                         qp_settings=qp, sqp_settings=sqp)
+    planner = MotionPlanner(margins=Margins(*MARGINS), dtype=torch.float32, device=dev,
+                            qp_settings=qp, sqp_settings=sqp)
+    if segments != 6:
+        planner.ocp = make_ocp(planner.model, planner.tool_frame, num_segments=segments)
+    return planner
 
 
 def profiled(fn, cur, tgt):
@@ -132,6 +141,8 @@ def main(argv=None) -> int:
                        help="the structured backend at its default settings (adaptive rho)")
     group.add_argument("--xla", action="store_true", help="MotionPlanner()'s dense xla default")
     ap.add_argument("--warm", type=int, default=5, help="warm solves of each mode on the host clock")
+    ap.add_argument("--segments", type=int, default=6,
+                    help="spline segments of order 3 (6: 19 nodes, 8: 25 nodes)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_solve: needs a CUDA GPU", file=sys.stderr)
@@ -144,7 +155,7 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     which = ("dense" if a.dense else "structured_default" if a.default
              else "xla" if a.xla else "structured")
-    planner = make_planner(which, dev)
+    planner = make_planner(which, dev, a.segments)
     states = np.load(STATES)
     cur = torch.as_tensor(states["current"], device=dev)
     tgt = torch.as_tensor(states["target"], device=dev)
@@ -167,7 +178,7 @@ def main(argv=None) -> int:
     for _ in range(a.warm):
         for m, fn in modes.items():
             warm[m].append(solve(fn))
-    out = {"path": which, "batch": B, "capture_s": capture_s,
+    out = {"path": which, "batch": B, "nodes": planner.ocp.num_nodes, "capture_s": capture_s,
            "eager_resolves": captured.eager_resolves}
     for m, fn in modes.items():
         kernels.reset_launch_counts()

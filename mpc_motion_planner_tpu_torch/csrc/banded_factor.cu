@@ -13,8 +13,9 @@
 // once at the end), and ok is cleared by a pivot or s at or below 1e-20 or
 // by any factor entry at or above 0.99e8.
 //
-// What bounds it: the latency of a 19-step dependent recursion (~2 MFLOP
-// and 268 KB per problem are little for the card). So the design keeps a
+// What bounds it: the latency of an N-step dependent recursion (N = 19
+// nodes: ~2 MFLOP and 268 KB per problem, little for the card; the build
+// sets N, see common.cuh). So the design keeps a
 // problem small enough for several to share an SM and hide each other's
 // waits, and takes the sequential parts out of block-wide barrier loops:
 //  * node k reads only L[., j] for j >= k - 3, so shared memory holds a
@@ -36,10 +37,15 @@
 // block product subtracted and clamped on its own, the Cholesky column by
 // column), whatever phase forms it, so the guards flag the same problems.
 //
-// Layout (see kernels/banded_factor.py): Mband (B,19,4,21,21) with
-// Mband[b,k,d] = M[k+d,k]; outputs Ldi (B,19,21,21) = L[k,k]^-1,
-// Lsub (B,19,3,21,21) with Lsub[b,k,d-1] = L[k+d,k], u (B,19,21), s (B,),
+// Layout (see kernels/banded_factor.py): Mband (B,N,4,21,21) with
+// Mband[b,k,d] = M[k+d,k]; outputs Ldi (B,N,21,21) = L[k,k]^-1,
+// Lsub (B,N,3,21,21) with Lsub[b,k,d-1] = L[k+d,k], u (B,N,21), s (B,),
 // ok (B,) int.
+//
+// The node count enters only loop bounds, strides and the two N x 21
+// vectors ys and us: the working set is per node (the ring and CH staged
+// nodes), so a build per transcription keeps PER_SM problems per SM up to
+// 44 nodes (ys and us are 168 B per node beside the ~30 KB of the rest).
 
 #include "common.cuh"
 
@@ -55,6 +61,9 @@ constexpr int CH = 4;      // nodes staged per step of the backward sweep
 constexpr float MAG = 1e8f;
 constexpr float SAT = 0.99f * MAG;
 constexpr float PIV_FLOOR = 1e-20f;
+// the recursion's three sub-diagonal blocks per node (C1, C2, C3 and the
+// three ring slots) are written out for band width 3: splines of order 3
+static_assert(BW == 3, "kernel 2 is written for band width 3");
 
 __device__ __forceinline__ float fz(float v) { return clampf(v, -MAG, MAG); }
 

@@ -8,23 +8,42 @@
 
 namespace mpc {
 
-// Problem geometry of the Panda transcription: 19 collocation nodes, 6
-// segments of 4 local nodes, 14 states + 7 controls per node, 8 constraint
-// rows per node, band width 3 (kernels/*.py check these before a launch).
-constexpr int N = 19;
-constexpr int SEG = 6;
-constexpr int KL = 4;
-constexpr int NX = 14;
-constexpr int NU = 7;
-constexpr int NQ = 7;
-constexpr int NG = 8;
+// Problem geometry of the transcription a library is built for. The build
+// sets it (kernels/build.py Geometry.flags: -DMPC_SEGMENTS=... and so on);
+// the defaults are the Panda's 19-node transcription: 6 segments of order
+// 3 (4 local nodes each), 14 states + 7 controls per node, 8 constraint
+// rows per node (7 torques and the tool height), band width = order.
+#ifndef MPC_SEGMENTS
+#define MPC_SEGMENTS 6
+#endif
+#ifndef MPC_ORDER
+#define MPC_ORDER 3
+#endif
+#ifndef MPC_NX
+#define MPC_NX 14
+#endif
+#ifndef MPC_NU
+#define MPC_NU 7
+#endif
+#ifndef MPC_NG
+#define MPC_NG 8
+#endif
+constexpr int SEG = MPC_SEGMENTS;
+constexpr int KL = MPC_ORDER + 1;  // local nodes per segment
+constexpr int N = SEG * MPC_ORDER + 1;
+constexpr int NX = MPC_NX;
+constexpr int NU = MPC_NU;
+constexpr int NQ = 7;  // joints: the kernels are written for the 7-DoF Panda
+constexpr int NG = MPC_NG;
+static_assert(NX == 2 * NQ && NU == NQ && NG == NQ + 1,
+              "the kernels are written for a 7-joint model: 14 states, 7 controls, 8 rows");
 constexpr int BLK = NX + NU;       // 21
 constexpr int BLK2 = BLK * BLK;    // 441
-constexpr int BW = 3;
-constexpr int NV = N * BLK + 1;    // 400 variables
-constexpr int NEQ = SEG * KL * NX; // 336 defect rows
-constexpr int NM = NEQ + N * NG;   // 488 constraint rows
-constexpr int UOFF = N * NX;       // 266: start of the controls in z
+constexpr int BW = MPC_ORDER;
+constexpr int NV = N * BLK + 1;    // variables (400 at 19 nodes)
+constexpr int NEQ = SEG * KL * NX; // defect rows (336)
+constexpr int NM = NEQ + N * NG;   // constraint rows (488)
+constexpr int UOFF = N * NX;       // start of the controls in z (266)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 

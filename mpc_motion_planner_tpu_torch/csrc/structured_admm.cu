@@ -65,12 +65,39 @@
 //   vectors, which are free between checks. The kernel is compiled twice, and
 //   without refinement the loop has none of this in its instruction stream.
 //
-// Global layouts (see kernels/structured_admm.py): z-layout (B,400),
-// m-layout (B,488), Ldi (B,19,21,21), Lsub (B,19,3,21,21), u (B,19,21), J
-// (B,19,8,21), f_rows (B,336). Ldi is lower triangular and stored full: a
-// chain warp runs one multiply-add per column for all rows at once, so
-// the zero half costs no time, and shared memory is not what limits the
-// block.
+// Global layouts (see kernels/structured_admm.py), at 19 nodes: z-layout
+// (B,400), m-layout (B,488), Ldi (B,19,21,21), Lsub (B,19,3,21,21), u
+// (B,19,21), J (B,19,8,21), f_rows (B,336).
+//
+// The transcription is set by the build (common.cuh): one library per node
+// count. The block has one thread per z element and per constraint row
+// (NT = max(NV, NM) rounded up to whole warps: 512 at 19 nodes, 672 at 25,
+// 352 at 13), and everything else follows the node count. At 19 and 13
+// nodes shared memory holds every operand as described above (Ldi stored
+// full: a chain warp runs one multiply-add per column for all rows at once,
+// so the zero half costs no time). At 25 nodes that layout needs 262,000 B,
+// 29.6 KB more than a block may have (232,448 B), and the block takes the
+// compact layout, which drops what is never read:
+// * Ldi packed lower triangular (231 of 441 floats per node, 21,000 B
+//   less): an inverse Cholesky factor is exactly zero above its diagonal
+//   (kernel 2's forward substitution and the plain triangular solve both
+//   leave it so), and a chain warp's load puts those zeros back in
+//   registers, so every product is the full layout's, bitwise. The row (or
+//   column) a lane loads lies at rr (rr+1)/2 + i (or i (i+1)/2 + rr), on
+//   21 distinct banks. The loads are the fetch of a step ahead, off the
+//   chain.
+// * Lsub without its last 5 blocks (8,820 B less): L[k+d,k] past the
+//   matrix end is zero and no sweep reads it (the highest block read is
+//   L[N-1,N-2], number 3N-6).
+// That is 232,176 B. Two other ways were weighed: J in device memory read
+// through L1 (16.8 KB) would put an L1 round trip into A and A' every
+// iteration, and a cluster of two blocks holding the factors in
+// distributed shared memory would put one into every block step of the
+// chain; the compact layout costs neither, only index arithmetic in the
+// fetch. Registers: 672 threads are 21 warps, six of them on one of the
+// SM's four schedulers, whose quarter of the register file (16K) then
+// allows 80 registers per thread; ptxas -v reports 72 B of spill stores for
+// the 25-node build, none at 19 nodes (99 registers).
 
 #include "common.cuh"
 
@@ -78,11 +105,19 @@ using namespace mpc;
 
 namespace {
 
-constexpr int NT = 512;                  // threads: one per z element and per row
+// threads: one per z element and per row, in whole warps
+constexpr int NT = ((NM > NV ? NM : NV) + 31) / 32 * 32;
 constexpr int NWARP = NT / 32;
 constexpr int NB = N * BLK;              // 399 banded variables; element NB is p
 constexpr int VPAD = 24;                 // a node's 21 values in a 16-byte aligned row
 static_assert(NT >= NM && NT >= NV, "one thread per z element and per row");
+static_assert(NT <= 1024, "a block has at most 1024 threads");
+// the sweeps' look-ahead (two helper warps for distances 2 and 3) and the
+// node cover of A' are written for band width 3: splines of order 3
+static_assert(BW == 3, "kernel 3 is written for band width 3");
+constexpr int SMEM_LIMIT = 232448;       // dynamic shared memory of one block
+constexpr int TRI = BLK * (BLK + 1) / 2; // a packed lower-triangular block
+constexpr int LSUB_USED = N * BW - 5;    // Lsub blocks up to L[N-1,N-2]
 
 struct Params {
   float Dm[KL * KL];  // Dm[k*4 + j]
@@ -108,9 +143,12 @@ constexpr int NPTRS = 37;
 static_assert(sizeof(Ptrs) == NPTRS * sizeof(void*), "pointer block layout");
 
 // z vectors are node-major here: element e = n*21 + c for e < NB, then p.
-struct Smem {
-  float Ldi[N * BLK2];
-  float Lsub[N * BW * BLK2];
+// COMPACT: Ldi packed lower triangular, Lsub without its unread tail (the
+// header says when).
+template <bool COMPACT>
+struct SmemLayout {
+  float Ldi[N * (COMPACT ? TRI : BLK2)];
+  float Lsub[(COMPACT ? LSUB_USED : N * BW) * BLK2];
   float u[NB];
   float J[N * NG * BLK];
   float fseg[NEQ];
@@ -135,7 +173,10 @@ struct Smem {
   float p, s;
   int done;
 };
-static_assert(sizeof(Smem) <= 232448, "shared memory of one block");
+// the full layout wherever it fits
+constexpr bool COMPACT = sizeof(SmemLayout<false>) > SMEM_LIMIT;
+using Smem = SmemLayout<COMPACT>;
+static_assert(sizeof(Smem) <= SMEM_LIMIT, "shared memory of one block");
 
 __device__ __forceinline__ float ftz(float v) {
   return clampf(fabsf(v) < 1e-30f ? 0.f : v, -1e15f, 1e15f);
@@ -205,11 +246,11 @@ __device__ __forceinline__ ZElem make_zelem(int e) {
   z.ncov = 1;
   if (n == 0) { z.sb0 = 0; z.l0 = 0; }
   else if (n == N - 1) { z.sb0 = (SEG - 1) * KL * NX; z.l0 = KL - 1; }
-  else if (n % 3 == 0) {
-    z.sb0 = (n / 3 - 1) * KL * NX; z.l0 = KL - 1;
-    z.sb1 = (n / 3) * KL * NX; z.l1 = 0;
+  else if (n % BW == 0) {
+    z.sb0 = (n / BW - 1) * KL * NX; z.l0 = KL - 1;
+    z.sb1 = (n / BW) * KL * NX; z.l1 = 0;
     z.ncov = 2;
-  } else { z.sb0 = (n / 3) * KL * NX; z.l0 = n % 3; }
+  } else { z.sb0 = (n / BW) * KL * NX; z.l0 = n % BW; }
   z.jb = n * NG * BLK + z.c;
   z.gb = NEQ + n * NG;
   return z;
@@ -303,6 +344,23 @@ __device__ __forceinline__ void load_block(float (&M)[BLK], const float* blk, in
   for (int i = 0; i < BLK; ++i) M[i] = FWD ? blk[rr * BLK + i] : blk[i * BLK + rr];
 }
 
+// Row rr (forward) or column rr (backward) of Ldi_k. The compact layout
+// stores the lower triangle row by row and the zeros above it are put back
+// here, so the products are those of the full layout.
+template <bool FWD>
+__device__ __forceinline__ void load_ldi(float (&M)[BLK], const Smem& sm, int k, int rr) {
+  if constexpr (COMPACT) {
+    const float* blk = sm.Ldi + k * TRI;
+#pragma unroll
+    for (int i = 0; i < BLK; ++i) {
+      if (FWD) M[i] = i <= rr ? blk[rr * (rr + 1) / 2 + i] : 0.f;
+      else M[i] = i >= rr ? blk[i * (i + 1) / 2 + rr] : 0.f;
+    }
+  } else {
+    load_block<FWD>(M, sm.Ldi + k * BLK2, rr);
+  }
+}
+
 // Step t of a sweep works on node k: forward k = t, backward k = N-1-t.
 template <bool FWD>
 __device__ __forceinline__ int node_of(int t) { return FWD ? t : N - 1 - t; }
@@ -313,7 +371,7 @@ __device__ __forceinline__ void chain_fetch(const Smem& sm, int t, int rr, float
                                             float (&Dg)[BLK], float& v) {
   const int k = node_of<FWD>(t);
   if (t >= 1) load_block<FWD>(L, sm.Lsub + ((FWD ? k - 1 : k) * BW) * BLK2, rr);
-  load_block<FWD>(Dg, sm.Ldi + k * BLK2, rr);
+  load_ldi<FWD>(Dg, sm, k, rr);
   v = FWD ? sm.rhs[k * BLK + rr] : sm.ys[k * VPAD + rr];
 }
 
@@ -469,8 +527,17 @@ structured_admm_kernel(Params P, Ptrs g) {
   const ZElem ze = make_zelem(tid);
   const MRow mr = make_mrow(tid);
 
-  copy<N * BLK2>(sm.Ldi, g.Ldi + (size_t)b * N * BLK2);
-  copy<N * BW * BLK2>(sm.Lsub, g.Lsub + (size_t)b * N * BW * BLK2);
+  if constexpr (COMPACT) {
+    const float* src = g.Ldi + (size_t)b * N * BLK2;
+    for (int e = tid; e < N * BLK2; e += NT) {
+      const int k = e / BLK2, i = (e % BLK2) / BLK, j = e % BLK;
+      if (j <= i) sm.Ldi[k * TRI + i * (i + 1) / 2 + j] = src[e];
+    }
+    copy<LSUB_USED * BLK2>(sm.Lsub, g.Lsub + (size_t)b * N * BW * BLK2);
+  } else {
+    copy<N * BLK2>(sm.Ldi, g.Ldi + (size_t)b * N * BLK2);
+    copy<N * BW * BLK2>(sm.Lsub, g.Lsub + (size_t)b * N * BW * BLK2);
+  }
   copy<NB>(sm.u, g.u + (size_t)b * NB);
   copy<N * NG * BLK>(sm.J, g.J + (size_t)b * N * NG * BLK);
   copy<NEQ>(sm.fseg, g.f_rows + (size_t)b * NEQ);
@@ -634,6 +701,12 @@ structured_admm_kernel(Params P, Ptrs g) {
 }
 
 }  // namespace
+
+// Bytes of shared memory a block takes (the layout the build chose).
+extern "C" int mpc_structured_admm_smem_bytes() { return (int)sizeof(Smem); }
+
+// Threads per block.
+extern "C" int mpc_structured_admm_threads() { return NT; }
 
 // Blocks of the kernel that one SM holds at a time (negative: a CUDA error).
 extern "C" int mpc_structured_admm_blocks_per_sm() {

@@ -5,8 +5,13 @@ Replaces ``mpc_motion_planner_tpu/ops/pallas/banded_factor.py``
 ``factor_banded_pallas`` (``pl.pallas_call`` at :262, body
 ``_factor_kernel`` :117).
 
+The library is built per transcription (``build.Geometry``, read from
+``Mband``'s shape): the node count enters only loop bounds and strides, and
+the working set per problem (:func:`smem_bytes`: 33,580 B at 19 nodes,
+34,588 B at 25) leaves six problems on an SM up to 44 nodes.
+
 What bounds it on this card: the latency of the sequential node recursion.
-Per problem the 19-step recursion does ~2 MFLOP (Schur updates, a 21-column
+Per problem the 19-node recursion does ~2 MFLOP (Schur updates, a 21-column
 Cholesky, a triangular inverse and up to three sub-diagonal products per
 node) and moves ~268 KB (the band in, the factors out), little for the
 card, while each step depends on the one before (PERF.md has the measured
@@ -47,15 +52,16 @@ import ctypes
 import torch
 
 from ..ops.qp_structured import factor_banded
-from .build import CudaKernel, DeviceCount, capturing, check_cuda_tensor, ptr
-
-N, BW, BLK = 19, 3, 21  # nodes, band width, block size (csrc/banded_factor.cu)
+from .build import (
+    SMEM_LIMIT, CudaKernel, DeviceCount, Geometry, capturing, check_cuda_tensor, ptr,
+)
 
 KERNEL = CudaKernel(
     "banded_factor", "banded_factor.cu", "mpc_banded_factor",
     [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p],
-    init="mpc_banded_factor_init",
+    init="mpc_banded_factor_init", per_geometry=True,
 )
+NT, CH, LKS = 128, 4, 24  # threads, staged nodes, column stride (csrc/banded_factor.cu)
 
 
 # problems that kernel 2 flagged, each refactored by the plain version
@@ -73,11 +79,35 @@ def repair_capacity(batch: int) -> int:
     return -(-batch // 64)
 
 
+def smem_bytes(g: Geometry) -> int:
+    """Shared memory of one block of kernel 2 built for ``g``: the larger
+    of the forward loop's blocks and the backward sweep's staged nodes, then
+    ys, us, scratch and the flag (struct Smem of csrc/banded_factor.cu)."""
+    blk, bw = g.blk, g.order
+    blk2 = blk * blk
+    forward = blk * LKS + bw * bw * blk2 + 7 * blk2  # LkT, ring, S[2], C1[2], C2, C3, Linv
+    backward = CH * (bw + 1) * blk2
+    return 4 * (max(forward, backward) + 2 * g.nodes * blk + 32 + NT // 32) + 4
+
+
+def check_fits(g: Geometry) -> None:
+    """Raise ValueError unless kernel 2 is written for ``g`` and a block of
+    it fits the card's shared memory."""
+    g.check_panda("kernel 2")
+    if smem_bytes(g) > SMEM_LIMIT:
+        raise ValueError(f"kernel 2 at {g.nodes} nodes needs {smem_bytes(g)} B of shared "
+                         f"memory per block; a block may have {SMEM_LIMIT} B")
+
+
 def factor_banded_kernel(Mband, p_col, m_pp):
-    """Launch kernel 2 on CUDA float32 tensors Mband (B, 19, 4, 21, 21),
-    p_col (B, 19, 21), m_pp (B,). Returns {"Ldi", "Lsub", "u", "s", "ok"}
-    in the layouts of :func:`factor_banded`."""
+    """Launch kernel 2 on CUDA float32 tensors Mband (B, nodes, 4, 21, 21),
+    p_col (B, nodes, 21), m_pp (B,), with the library of the transcription
+    the band's shape gives. Returns {"Ldi", "Lsub", "u", "s", "ok"} in the
+    layouts of :func:`factor_banded`."""
     B = Mband.shape[0]
+    g = Geometry.of_band(Mband)
+    check_fits(g)
+    N, BW, BLK = g.nodes, g.order, g.blk
     check_cuda_tensor("Mband", Mband, (B, N, BW + 1, BLK, BLK))
     check_cuda_tensor("p_col", p_col, (B, N, BLK))
     check_cuda_tensor("m_pp", m_pp, (B,))
@@ -86,15 +116,16 @@ def factor_banded_kernel(Mband, p_col, m_pp):
     u, s, ok = new(B, N, BLK), new(B), new(B, dtype=torch.int32)
     KERNEL.launch(
         ptr(Mband), ptr(p_col), ptr(m_pp), ptr(Ldi), ptr(Lsub), ptr(u), ptr(s),
-        ptr(ok), B,
+        ptr(ok), B, geometry=g,
     )
     return {"Ldi": Ldi, "Lsub": Lsub, "u": u, "s": s, "ok": ok != 0}
 
 
-def blocks_per_sm() -> int:
-    """How many blocks (problems) of kernel 2 one SM holds at a time, from
-    the CUDA occupancy calculator."""
-    fn = ctypes.CDLL(str(KERNEL.build())).mpc_banded_factor_blocks_per_sm
+def blocks_per_sm(geometry: Geometry = None) -> int:
+    """How many blocks (problems) of kernel 2 built for ``geometry``
+    (default: 19 nodes) one SM holds at a time, from the CUDA occupancy
+    calculator."""
+    fn = KERNEL.library(geometry).mpc_banded_factor_blocks_per_sm
     fn.restype = ctypes.c_int
     blocks = fn()
     if blocks <= 0:
@@ -137,12 +168,12 @@ def repair(fac, Mband, p_col, m_pp, bw: int):
 
 def factor(Mband, p_col, m_pp, bw: int):
     """Route: the plain factorization for CPU tensors; for CUDA tensors
-    kernel 2, with the problems it flags refactored by the plain version
-    (:func:`repair`)."""
+    kernel 2 built for the band's transcription, with the problems it flags
+    refactored by the plain version (:func:`repair`)."""
     if Mband.device.type == "cpu":
         return factor_banded(Mband, p_col, m_pp, bw)
     if Mband.device.type != "cuda":
         raise ValueError(f"no factor path for device {Mband.device}")
-    if bw != BW:
-        raise NotImplementedError(f"kernel 2 is built for band width {BW}")
+    if Mband.shape[2] != bw + 1:
+        raise ValueError(f"band of width {Mband.shape[2] - 1} factored with bw={bw}")
     return repair(factor_banded_kernel(Mband, p_col, m_pp), Mband, p_col, m_pp, bw)

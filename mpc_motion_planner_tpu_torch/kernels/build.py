@@ -10,6 +10,11 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, and deliberately no
 ``--use_fast_math``: the parity tolerances rest on accurate ``sinf``,
 ``cosf``, ``sqrtf`` and division.
 
+Kernels 2 and 3 are compiled for one transcription (:class:`Geometry`):
+its ``-D`` flags set the sizes in ``csrc/common.cuh`` and enter the hash,
+so each geometry has a library of its own, built and loaded at its first
+use. Kernels 1 and 4 do not depend on the node count and have one library.
+
 A library may export an ``init`` function, which is called once when it is
 loaded (the kernels' shared-memory attributes are set there, not in every
 launch). The launches themselves are CUDA-graph safe: no allocation, no
@@ -19,6 +24,7 @@ synchronisation, every parameter passed by value.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -35,6 +41,71 @@ NVCC_FLAGS = (
 )
 
 
+# dynamic shared memory one block may take on an H100 (227 KB)
+SMEM_LIMIT = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """The transcription a library of kernel 2 or 3 is built for: spline
+    segments and order (nodes = segments * order + 1, band width = order),
+    states, controls and constraint rows per node. The defaults are the
+    19-node Panda transcription, ``csrc/common.cuh``'s defaults."""
+
+    segments: int = 6
+    order: int = 3
+    nx: int = 14
+    nu: int = 7
+    ng: int = 8
+
+    @classmethod
+    def of_ocp(cls, ocp) -> "Geometry":
+        return cls(ocp.coll.num_segments, ocp.coll.order, ocp.nx, ocp.nu, ocp.ng)
+
+    @classmethod
+    def of_band(cls, Mband) -> "Geometry":
+        """The geometry of a banded KKT matrix (B, nodes, bw + 1, blk, blk)
+        of a model with blk = 3 nq (2 nq states, nq controls, nq + 1 rows)."""
+        nodes, bw, blk = Mband.shape[1], Mband.shape[2] - 1, Mband.shape[3]
+        if bw < 1 or (nodes - 1) % bw or blk % 3:
+            raise ValueError(f"no transcription has a band of shape {tuple(Mband.shape[1:])}")
+        nq = blk // 3
+        return cls((nodes - 1) // bw, bw, 2 * nq, nq, nq + 1)
+
+    @property
+    def nodes(self) -> int:
+        return self.segments * self.order + 1
+
+    @property
+    def blk(self) -> int:
+        return self.nx + self.nu
+
+    @property
+    def num_var(self) -> int:
+        return self.nodes * self.blk + 1
+
+    @property
+    def num_eq(self) -> int:
+        return self.segments * (self.order + 1) * self.nx
+
+    @property
+    def num_rows(self) -> int:
+        return self.num_eq + self.nodes * self.ng
+
+    def flags(self) -> tuple:
+        """The nvcc flags that set this geometry in ``csrc/common.cuh``."""
+        return (f"-DMPC_SEGMENTS={self.segments}", f"-DMPC_ORDER={self.order}",
+                f"-DMPC_NX={self.nx}", f"-DMPC_NU={self.nu}", f"-DMPC_NG={self.ng}")
+
+    def check_panda(self, kernel: str) -> None:
+        """Raise ValueError unless the kernels are written for this shape:
+        band width 3 and a 7-joint model."""
+        if self.order != 3 or (self.nx, self.nu, self.ng) != (14, 7, 8):
+            raise ValueError(
+                f"{kernel} is written for splines of order 3 and a 7-joint model (nx 14, nu "
+                f"7, ng 8); got {self}")
+
+
 def nvcc_path() -> str:
     for cand in (
         os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
@@ -47,55 +118,85 @@ def nvcc_path() -> str:
 
 
 class CudaKernel:
-    """One kernel library: lazy build, ctypes binding and a launch count.
+    """One kernel source: a lazy build per geometry, ctypes binding and a
+    launch count.
 
-    ``launches`` is incremented by the wrapper each time it launches the
-    kernel, and nowhere else; ``build_log`` holds nvcc's report (registers,
-    shared memory, spills) of the last build."""
+    A kernel with ``per_geometry`` is compiled once for each
+    :class:`Geometry` it is launched with (``None`` is the default
+    geometry); any other ignores the geometry. ``launches`` is one count
+    for the kernel, whatever the geometry, incremented by the wrapper each
+    time it launches the kernel, and nowhere else; ``build_log`` holds
+    nvcc's report (registers, shared memory, spills) of each build, by
+    geometry."""
 
-    def __init__(self, name: str, source: str, entry: str, argtypes, init: str = None):
+    def __init__(self, name: str, source: str, entry: str, argtypes, init: str = None,
+                 per_geometry: bool = False):
         self.name = name
         self.source = source
         self.entry = entry
         self.argtypes = argtypes
         self.init = init
+        self.per_geometry = per_geometry
         self.launches = 0
-        self.build_log = ""
-        self._fn = None
+        self.build_log = {}
+        self._fns = {}  # geometry -> bound entry point
 
     def sources(self):
         return [CSRC / self.source, *sorted(CSRC.glob("*.cuh"))]
 
-    def library_path(self) -> Path:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    def geometry(self, geometry=None):
+        """The geometry a library is built for: None for a kernel that does
+        not depend on it, else ``geometry`` or the default one."""
+        if not self.per_geometry:
+            return None
+        return geometry or Geometry()
+
+    def flags(self, geometry=None) -> tuple:
+        g = self.geometry(geometry)
+        return NVCC_FLAGS + (g.flags() if g is not None else ())
+
+    def library_path(self, geometry=None) -> Path:
+        flags = self.flags(geometry)
+        h = hashlib.sha256(" ".join(flags).encode())
         for src in self.sources():
             h.update(src.read_bytes())
-        return BUILD_DIR / f"{self.name}_{h.hexdigest()[:16]}.so"
+        g = self.geometry(geometry)
+        tag = f"_n{g.nodes}" if g is not None else ""
+        return BUILD_DIR / f"{self.name}{tag}_{h.hexdigest()[:16]}.so"
 
-    def build(self) -> Path:
-        """Compile the library if it is missing or stale; return its path."""
-        out = self.library_path()
+    def build(self, geometry=None) -> Path:
+        """Compile the library of ``geometry`` if it is missing or stale;
+        return its path."""
+        out = self.library_path(geometry)
         if out.exists():
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / self.source)]
+        cmd = [nvcc_path(), *self.flags(geometry), "-o", tmp, str(CSRC / self.source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(
-                f"nvcc failed for {self.source} ({proc.returncode}):\n{proc.stderr}"
+                f"nvcc failed for {self.source} {self.geometry(geometry)} "
+                f"({proc.returncode}):\n{proc.stderr}"
             )
         os.replace(tmp, out)
-        self.build_log = proc.stderr
+        self.build_log[self.geometry(geometry)] = proc.stderr
         return out
 
-    def function(self):
-        """The bound C entry point; builds and loads the library on first
-        use, and then calls its ``init`` function once."""
-        if self._fn is None:
-            lib = ctypes.CDLL(str(self.build()))
+    def library(self, geometry=None):
+        """The loaded library of ``geometry`` (built first if needed)."""
+        return ctypes.CDLL(str(self.build(geometry)))
+
+    def function(self, geometry=None):
+        """The bound C entry point of ``geometry``'s library; builds and
+        loads the library on first use, and then calls its ``init``
+        function once."""
+        g = self.geometry(geometry)
+        fn = self._fns.get(g)
+        if fn is None:
+            lib = self.library(g)
             if self.init is not None:
                 init = getattr(lib, self.init)
                 init.restype = ctypes.c_int
@@ -105,16 +206,17 @@ class CudaKernel:
             fn = getattr(lib, self.entry)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            self._fns[g] = fn
+        return fn
 
-    def launch(self, *args):
-        """Call the entry point on PyTorch's current stream; raise if the
-        launch was refused. Counts the launch."""
+    def launch(self, *args, geometry=None):
+        """Call the entry point of ``geometry``'s library on PyTorch's
+        current stream; raise if the launch was refused. Counts the
+        launch."""
         import torch
 
         stream = torch.cuda.current_stream().cuda_stream
-        err = self.function()(*args, ctypes.c_void_p(stream))
+        err = self.function(geometry)(*args, ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err}")
         self.launches += 1

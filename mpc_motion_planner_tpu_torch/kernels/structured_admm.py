@@ -11,6 +11,14 @@ iterations with the rho update and the refactorization between them
 (``ops.qp_structured.admm_chunked``, here with kernels 2 and 3), and the
 un-scaling.
 
+The library is built per transcription (``build.Geometry`` of the OCP):
+one thread per z element and per constraint row (:func:`threads`), and at
+25 nodes, where the full layout would need 262,000 B, the compact one of
+:func:`smem_bytes` (Ldi packed lower triangular, Lsub without its unread
+tail: 232,176 B). A geometry whose block does not fit raises a ValueError
+that names the bytes; nothing solves it another way. The figures below are
+the 19-node transcription's.
+
 What bounds it on this card: latency. Each iteration is ~157k flops per
 problem, 85% of them in the two banded triangular sweeps, and the factors
 are 134 KB per problem: reading them from device memory would move 275 MB
@@ -53,16 +61,17 @@ from ..ops import qp_structured
 from ..ops.qp import QPSettings, QPSolution
 from ..ops.structure import StructuredA
 from . import banded_factor
-from .build import CudaKernel, DeviceCount, HostConstants, check_cuda_tensor, ptr
-
-N, NG, BLK, BW, NV, NEQ, NM = 19, 8, 21, 3, 400, 336, 488
+from .build import (
+    SMEM_LIMIT, CudaKernel, DeviceCount, Geometry, HostConstants, check_cuda_tensor, ptr,
+)
 
 KERNEL = CudaKernel(
     "structured_admm", "structured_admm.cu", "mpc_structured_admm",
     [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_float] * 4
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    init="mpc_structured_admm_init",
+    init="mpc_structured_admm_init", per_geometry=True,
 )
+VPAD = 24  # a node's 21 values in a 16-byte aligned row (csrc/structured_admm.cu)
 
 
 # dispatch boundaries at which some problem's rho moved (the KKT system is
@@ -74,14 +83,59 @@ REFACTORS = DeviceCount()
 DIFF_MATRIX = HostConstants()
 
 
+def threads(g: Geometry) -> int:
+    """Threads of one block: one per z element and per constraint row, in
+    whole warps."""
+    return -(-max(g.num_var, g.num_rows) // 32) * 32
+
+
+def smem_bytes(g: Geometry, compact: bool = None) -> int:
+    """Shared memory of one block of kernel 3 built for ``g``: the size of
+    struct SmemLayout of csrc/structured_admm.cu, member by member with its
+    alignment, in the full layout where that fits and else in the compact
+    one (or as ``compact`` says)."""
+    if compact is None:
+        compact = smem_bytes(g, False) > SMEM_LIMIT
+    N, blk, nv, neq, nm = g.nodes, g.blk, g.num_var, g.num_eq, g.num_rows
+    nb, blk2, bw, kl = N * blk, blk * blk, g.order, g.order + 1
+    ldi = N * (blk * (blk + 1) // 2 if compact else blk2)
+    lsub = (N * bw - 5 if compact else N * bw) * blk2
+    fields = ([(ldi, 4), (lsub, 4), (nb, 4), (N * g.ng * blk, 4), (neq, 4)]
+              + [(nv, 4)] * 7 + [(nm, 4)] * 5 + [(nv, 4)] * 3 + [(nm, 4)] * 2
+              + [(nv, 4), (nm, 4), (nv, 4)]  # t0, wa, rhs
+              + [(N * VPAD, 16), (N * VPAD, 16), (VPAD, 16)]  # ys, xs, tb
+              + [(nb, 4)] * 2 + [(nv, 4)] * 2 + [(nm, 4)] * 2  # a2, a3, xt, dx, wb, wc
+              + [(threads(g) // 32 * 4, 4), (kl * kl, 4), (1, 4), (1, 4), (1, 4)])
+    off = 0
+    for floats, align in fields:
+        off = -(-off // align) * align + 4 * floats
+    return -(-off // 16) * 16
+
+
+def check_fits(g: Geometry) -> None:
+    """Raise ValueError unless kernel 3 is written for ``g`` and its block
+    fits the card: at most 1024 threads and 232,448 B of shared memory."""
+    g.check_panda("kernel 3")
+    if smem_bytes(g) > SMEM_LIMIT or threads(g) > 1024:
+        raise ValueError(
+            f"kernel 3 at {g.nodes} nodes ({g.num_var} variables, {g.num_rows} rows) needs "
+            f"{smem_bytes(g)} B of shared memory per block even in its compact layout "
+            f"(full: {smem_bytes(g, False)} B) and {threads(g)} threads; a block may have "
+            f"{SMEM_LIMIT} B and 1024 threads")
+
+
 def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings: QPSettings,
                 state=None, chunk_iters=None):
     """Launch kernel 3 on scaled float32 CUDA data: one dispatch of
     ``chunk_iters`` iterations (default: the whole budget) from ``state``
-    (default: the initial state of ``qp``). Takes and returns the scaled
-    (x, zc, zx, yc, yx, done, iters, rp, rd) like ``admm_plain``."""
+    (default: the initial state of ``qp``), with the library of the OCP's
+    transcription. Takes and returns the scaled (x, zc, zx, yc, yx, done,
+    iters, rp, rd) like ``admm_plain``."""
     B = qp.x.shape[0]
     f32 = torch.float32
+    g = Geometry.of_ocp(ocp)
+    check_fits(g)
+    N, NG, BLK, BW, NV, NEQ, NM = g.nodes, g.ng, g.blk, g.order, g.num_var, g.num_eq, g.num_rows
     x0, zc0, zx0, yc0, yx0, done0, iters0, rp0, rd0 = (
         qp_structured.initial_state(qp) if state is None else state)
     shapes = {
@@ -119,29 +173,32 @@ def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings:
     cap = settings.max_iter + settings.rescue_iters if chunk_iters is None else chunk_iters
     KERNEL.launch(
         ptrs, ptr(Dm), settings.sigma, settings.alpha, settings.eps_abs,
-        settings.eps_rel, cap, settings.check_every, settings.kkt_refine, B,
+        settings.eps_rel, cap, settings.check_every, settings.kkt_refine, B, geometry=g,
     )
     return x, zc, zx, yc, yx, done, iters, rp, rd
 
 
-def blocks_per_sm() -> int:
-    """How many blocks of kernel 3 one SM holds at a time, from the CUDA
-    occupancy calculator (1: the block's shared memory takes the SM)."""
-    fn = ctypes.CDLL(str(KERNEL.build())).mpc_structured_admm_blocks_per_sm
-    fn.restype = ctypes.c_int
-    blocks = fn()
-    if blocks <= 0:
-        raise RuntimeError(f"kernel 3 occupancy query failed: CUDA error {-blocks}")
-    return blocks
+def block_layout(geometry: Geometry = None) -> dict:
+    """What the library built for ``geometry`` (default: 19 nodes) says of
+    its block: threads, shared-memory bytes, and how many blocks one SM
+    holds at a time from the CUDA occupancy calculator (1: the block's
+    shared memory takes the SM)."""
+    lib = KERNEL.library(geometry)
+    out = {}
+    for key, name in (("threads", "mpc_structured_admm_threads"),
+                      ("smem_bytes", "mpc_structured_admm_smem_bytes"),
+                      ("blocks_per_sm", "mpc_structured_admm_blocks_per_sm")):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        out[key] = fn()
+    if out["blocks_per_sm"] <= 0:
+        raise RuntimeError(f"kernel 3 occupancy query failed: CUDA error {-out['blocks_per_sm']}")
+    return out
 
 
-def _check_geometry(ocp):
-    dims = (ocp.num_nodes, ocp.ng, ocp.nx + ocp.nu, ocp.coll.order, ocp.num_var,
-            ocp.num_eq, ocp.num_eq + ocp.num_ineq)
-    if dims != (N, NG, BLK, BW, NV, NEQ, NM) or ocp.coll.num_segments != 6:
-        raise NotImplementedError(
-            f"kernels 2 and 3 are built for the 19-node Panda transcription, got {dims}"
-        )
+def blocks_per_sm(geometry: Geometry = None) -> int:
+    """How many blocks of kernel 3 one SM holds at a time."""
+    return block_layout(geometry)["blocks_per_sm"]
 
 
 def solve_box_qp_structured_cuda(
@@ -155,7 +212,7 @@ def solve_box_qp_structured_cuda(
     boundaries at which some rho moved are counted in ``REFACTORS``. Returns
     float32 results."""
     settings.check_structured()
-    _check_geometry(ocp)
+    check_fits(Geometry.of_ocp(ocp))
     f32 = torch.float32
     cast = lambda a: None if a is None else a.to(f32)
     sa = sa.to(dtype=f32)

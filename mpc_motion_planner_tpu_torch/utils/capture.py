@@ -17,7 +17,9 @@ one launch.
   entry does.
 * A capture is keyed by the batch size, the inputs' dtype, which of the
   optional arguments (``z0``, ``lam_c0``, ``lam_x0``) are given, the value
-  of ``min_height`` and the planner's settings; a call with another key
+  of ``min_height``, the planner's settings and the transcription of its
+  OCP (``planner.ocp = make_ocp(..., num_segments=8)`` after a capture
+  captures anew, with the kernels built for it); a call with another key
   captures anew (a hot restart is another capture), as ``jax.jit`` traces
   anew.
 * A call copies the inputs into the graph's own buffers, replays it, and
@@ -44,7 +46,7 @@ import torch
 
 from .. import kernels
 from ..kernels import banded_factor
-from ..kernels.build import DeviceCount
+from ..kernels.build import DeviceCount, Geometry
 from ..ops.otg import JerkLimitedTrajectory
 from ..planner import MotionPlanner, Solution
 
@@ -88,7 +90,7 @@ class CapturedSolve:
         return (args["current_state"].shape[0], args["current_state"].dtype,
                 tuple(k for k in OPTIONAL if k in args), min_height,
                 (p.margins, p.sqp_settings, p.qp_settings, p.target_eps, p.time_bounds,
-                 p._min_height))
+                 p._min_height), Geometry.of_ocp(p.ocp))
 
     def _solve(self, args: dict, min_height):
         return self.planner.solve(min_height=min_height, **args)

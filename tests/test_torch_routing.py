@@ -15,7 +15,9 @@ from mpc_motion_planner_tpu_torch.kernels import admm_dense as k4
 from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
 from mpc_motion_planner_tpu_torch.kernels import constraints as k1
 from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
-from mpc_motion_planner_tpu_torch.kernels.build import BUILD_DIR, HostConstants, check_cuda_tensor
+from mpc_motion_planner_tpu_torch.kernels.build import (
+    BUILD_DIR, Geometry, HostConstants, check_cuda_tensor,
+)
 from mpc_motion_planner_tpu_torch.models.panda import make_panda_model
 from mpc_motion_planner_tpu_torch.ocp import make_ocp
 from mpc_motion_planner_tpu_torch.ops import qp_structured
@@ -281,10 +283,19 @@ def test_check_cuda_tensor_reports_what_is_wrong():
 
 
 def test_kernels_refuse_other_transcriptions():
-    other = make_ocp(make_panda_model(), num_segments=5)
-    with pytest.raises(NotImplementedError, match="19-node"):
-        k3._check_geometry(other)
-    k3._check_geometry(make_ocp(make_panda_model()))
+    """Kernels 2 and 3 are built per transcription of order 3; another
+    order, and a node count whose kernel-3 block does not fit, raise."""
+    model = make_panda_model()
+    for segments in (4, 5, 6, 8):
+        g = Geometry.of_ocp(make_ocp(model, num_segments=segments))
+        k2.check_fits(g)
+        k3.check_fits(g)
+    order2 = Geometry.of_ocp(make_ocp(model, order=2, num_segments=9))
+    for k in (k2, k3):
+        with pytest.raises(ValueError, match="order 3"):
+            k.check_fits(order2)
+    with pytest.raises(ValueError, match="B of shared memory"):
+        k3.check_fits(Geometry.of_ocp(make_ocp(model, num_segments=9)))
 
 
 def test_kernel_libraries_are_named_by_source_hash():
