@@ -44,7 +44,19 @@ Kernels 2 and 3 are built per transcription, and phase 1 builds them for
 built for it against their plain versions, times them at B=2048, drives the
 captured shipping solve of the headline states through them and holds it
 against the JAX fixture at 8 segments ``torch_port_seg8_b64.npz``; then
-kernels 2 and 3 at 13 nodes against their plain versions.
+kernels 2 and 3 at 13 nodes against their plain versions. Kernels 1-3 are
+also built per joint count: phase 20 builds them for 6 and 8 joints (six
+nvcc at once, the seconds printed) and plans the Panda with ``panda_joint7``
+fixed (6 joints, ``tests/fixtures/panda_joint7_fixed.urdf``, the Panda's
+first six limits, the headline states without joint 7): the libraries'
+blocks against the Python reckoning, kernels 1-3 at 6 joints and on a
+seeded 8-joint chain against their plain versions and timed at B=2048, the
+6-joint captured shipping solve (5/2/2/0 launches, bitwise its eager solve,
+quality, times in turns) and the 8-joint chain's eager solve, the JAX
+fixture ``torch_port_panda6_b64.npz`` (64/64), the dense ``pallas`` path at
+6 joints, a 9-joint geometry's ValueError, and ``fused_constraints``: a
+branched model with prismatic fingers raises under "auto" and plans under
+"off", and the 6-joint planner under "off" launches no kernel 1.
 Needs one CUDA GPU and ``nvcc``; imports no JAX.
 
     python3 chip_smoke.py
@@ -130,15 +142,25 @@ K3_ITER_FLOPS = 157e3
 K3_REFINE_FLOPS = 134e3
 
 
-def k3_iter_flops(segments: int) -> float:
-    """K3_ITER_FLOPS at another number of order-3 segments: the sweeps
-    2 x (N x 231 + (3N - 6) x 441) multiply-adds, A and A' 2 x (neq x 6 +
-    8N x 21), the arrow 4 x 21N, ~29 flop per element-wise update (157.3
-    kflop at 19 nodes, 210.6 at 25)."""
-    N = 3 * segments + 1
-    neq, nv, nm = segments * 4 * 14, 21 * N + 1, segments * 4 * 14 + 8 * N
-    macs = 2 * (N * 231 + (3 * N - 6) * 441) + 2 * (neq * 6 + 8 * N * 21) + 4 * 21 * N
+def k3_iter_flops(segments: int, nq: int = 7) -> float:
+    """K3_ITER_FLOPS at another number of order-3 segments and joints (blk =
+    3 nq): the sweeps 2 x (N x blk (blk + 1) / 2 + (3N - 6) x blk^2)
+    multiply-adds, A and A' 2 x (neq x 6 + (nq + 1) N x blk), the arrow 4 x
+    blk N, ~29 flop per element-wise update (157.3 kflop at 19 nodes, 210.6
+    at 25, for the Panda)."""
+    N, blk = 3 * segments + 1, 3 * nq
+    neq = segments * 4 * 2 * nq
+    nv, nm = blk * N + 1, neq + (nq + 1) * N
+    macs = (2 * (N * blk * (blk + 1) // 2 + (3 * N - 6) * blk * blk)
+            + 2 * (neq * 6 + (nq + 1) * N * blk) + 4 * blk * N)
     return 2 * macs + 29 * (nv + nm)
+
+
+def k1_flops(nq: int, with_jac: bool) -> float:
+    """K1_VALUE_FLOPS for a chain of nq joints (the sweeps' work grows with
+    the joints), times 1 + 2 x 3 nq with the Jacobian's tangents."""
+    value = K1_VALUE_FLOPS * nq / 7
+    return value * (1 + 2 * 3 * nq) if with_jac else value
 
 
 def geometries():
@@ -746,7 +768,7 @@ def library_factor(qp, entry, phase) -> None:
         f"relative error " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()) + " (tol 1e-3)")
 
 
-def kernel_checks(planner, first_qp, tag) -> str:
+def kernel_checks(planner, first_qp, tag, states=None) -> str:
     """Kernels 2 and 3 built for ``planner``'s transcription against their
     plain versions on its step-0 QPs of the headline states, with phase 3's
     bars (B_FACTOR problems: identical ok flags, max-norm relative error <=
@@ -755,7 +777,8 @@ def kernel_checks(planner, first_qp, tag) -> str:
     1e-4, the whole QP solve by ``iteration_agreement``, hard box rows of
     converged problems within 5e-3 and every hard row within 1.01x the primal
     tolerance). Returns a summary and max |x_kernel - x_plain| after the
-    check window (phase 4's ``max_abs_err`` of kernel 3)."""
+    check window (phase 4's ``max_abs_err`` of kernel 3). ``states``: the
+    (current, target) states of another robot (default: the headline's)."""
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.ocp import make_ocp
@@ -763,7 +786,7 @@ def kernel_checks(planner, first_qp, tag) -> str:
     from mpc_motion_planner_tpu_torch.ops.structure import apply_A
 
     ocp, shipping = planner.ocp, planner.qp_settings
-    _, sa, args, sc, sx = first_qp(B_FACTOR, pl=planner)
+    _, sa, args, sc, sx = first_qp(B_FACTOR, pl=planner, states=states)
     qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
     fk = k2.factor_banded_kernel(qp.Mband, qp.p_col, qp.m_pp)
     fp = qp_structured.factor_banded(qp.Mband, qp.p_col, qp.m_pp, 3)
@@ -827,6 +850,105 @@ def kernel_checks(planner, first_qp, tag) -> str:
     return summary, max_abs(x_k, x_p)
 
 
+def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, states=None):
+    """Kernels 2 and 3 built for ``pl``'s geometry, timed at B=2048 on its
+    step-0 QPs (of ``states``, default the headline's) against their plain
+    versions (kernel 2 in turns with phase 3's bars, then its library call;
+    kernel 3's plain loop takes seconds, so it runs once between two kernel
+    runs, held by ``iteration_agreement`` and the hard-row bar), with their
+    bounds, and kernel 3 at exactly one check window; into the ``results``
+    entries ``banded_factor_<suffix>`` and ``structured_admm_<suffix>``
+    (``window_err``: kernel 3's ``max_abs_err`` from ``kernel_checks``)."""
+    from mpc_motion_planner_tpu_torch import kernels
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+    from mpc_motion_planner_tpu_torch.ops import qp_structured
+    from mpc_motion_planner_tpu_torch.ops.structure import apply_A
+
+    ocp, shipping = pl.ocp, pl.qp_settings
+    g = Geometry.of_ocp(ocp)
+    tag = suffix.replace("_", " ")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in ("banded_factor", "structured_admm"):
+        k = kernels.KERNELS[name]
+        results[f"{name}_{suffix}"] = {
+            "name": f"{name}_{suffix}", "route": "cuda",
+            "source": f"mpc_motion_planner_tpu_torch/csrc/{k.source}", "replaces": REPLACES[name]}
+    out = {}
+
+    def keep(key, fn):
+        def call():
+            out[key] = fn()
+        return call
+
+    _, sa, args, sc, sx = first_qp(B_MAIN, pl=pl, states=states)
+    qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
+    p_ms, k_ms, raw = time_pair(
+        keep("plain", lambda: qp_structured.factor_banded(qp.Mband, qp.p_col, qp.m_pp, 3)),
+        keep("kernel", lambda: k2.factor_banded_kernel(qp.Mband, qp.p_col, qp.m_pp)),
+    )
+    fk, fp = out.pop("kernel"), out.pop("plain")
+    check(torch.equal(fk["ok"], fp["ok"]), f"{tag}: kernel 2 ok flags differ at B={B_MAIN}")
+    errs = {k: rel_err(fk[k], fp[k]) for k in ("Ldi", "Lsub", "u", "s")}
+    check(max(errs.values()) <= 1e-3, f"{tag}: kernel 2 differs at B={B_MAIN}: {errs}")
+    e2 = results[f"banded_factor_{suffix}"]
+    e2.update(ms=k_ms, plain_ms=p_ms, max_abs_err=max(max_abs(fk[k], fp[k]) for k in errs))
+    text = report_bound(
+        e2, B_MAIN * banded_factor_flops(nodes=g.nodes, blk=g.blk),
+        tensor_bytes(qp.Mband, qp.p_col, qp.m_pp, *fk.values()), "band in, factors out",
+        library="torch.linalg.cholesky_ex of the dense M, below")
+    log(f"{phase} kernel 2 B={B_MAIN}, {tag}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
+        f"(runs {raw}); {text}; ok flags identical ({int(fk['ok'].sum())}/{B_MAIN} ok), max-norm "
+        f"relative error " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()) + " (tol 1e-3)")
+    del fk, fp
+    library_factor(qp, e2, f"{phase} at {tag}:")
+    fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, 3)
+    # the plain loop takes seconds: one comparison call each, then the
+    # kernel, the plain loop and the kernel again, timed
+    out["kernel"] = k3.admm_kernel(ocp, sa, qp, fac, shipping)
+    out["plain"] = qp_structured.admm_plain(ocp, sa, qp, fac, shipping)
+    raw = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain", "kernel"):
+        fn = (lambda: k3.admm_kernel(ocp, sa, qp, fac, shipping)) if name == "kernel" else (
+            lambda: qp_structured.admm_plain(ocp, sa, qp, fac, shipping))
+        raw[name].append(time_kernel(fn, reps=1, warm=False))
+    k_ms, p_ms = float(np.mean(raw["kernel"])), float(np.mean(raw["plain"]))
+    got, ref = (qp_structured.unscale_solution(qp, *out[k]) for k in ("kernel", "plain"))
+    k3_bytes = tensor_bytes(
+        fac["Ldi"], fac["Lsub"], fac["u"], fac["s"], sa.J, sa.f_rows, sa.p,
+        qp.qs, qp.Ps, qp.rx, qp.lxs, qp.uxs, qp.thx, qp.D, qp.x, qp.zx, qp.yx,
+        qp.rc, qp.lcs, qp.ucs, qp.E, qp.thr, qp.zc, qp.yc, *out["kernel"])
+    k3_iters = int(out["kernel"][6].sum())
+    out.clear()
+    agreement = iteration_agreement(got, ref, B_MAIN, f"{tag}: kernel 3 B={B_MAIN}")
+    _, lc, uc, lx, ux = args[1:]
+    ratios = [hard_row_ratio(s_.x, apply_A(ocp, sa, s_.x), lc, uc, lx, ux, sc, sx, shipping,
+                             s_.converged) for s_ in (got, ref)]
+    check(ratios[0][1] <= 1.01, f"{tag}: kernel 3 B={B_MAIN}: hard rows at "
+          f"{ratios[0][1]:.3f}x the tolerance")
+    e3 = results[f"structured_admm_{suffix}"]
+    e3.update(ms=k_ms, plain_ms=p_ms, max_abs_err=window_err)
+    flops = k3_iter_flops(g.segments, g.nq)
+    text = report_bound(e3, k3_iters * flops, k3_bytes,
+                        f"{k3_iters} problem-iterations of {flops / 1e3:.1f} kflop as the kernel "
+                        f"counted them")
+    log(f"{phase} kernel 3 B={B_MAIN}, {tag}, step-0 QP, budget {shipping.max_iter}: kernel "
+        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (runs {raw}); {text}; {agreement}; hard-row "
+        f"violation {ratios[0][1]:.3f}x the primal tolerance (bar 1.01; plain "
+        f"{ratios[1][1]:.3f}x)")
+    del got, ref
+    s_win = dataclasses.replace(shipping, max_iter=shipping.check_every)
+    w_ms = time_kernel(lambda: k3.admm_kernel(ocp, sa, qp, fac, s_win), reps=3)
+    per_sm = k3.blocks_per_sm(g)
+    waves = -(-B_MAIN // (sms * per_sm))
+    b_ms, b_by = bound(B_MAIN * s_win.max_iter * flops, k3_bytes)
+    log(f"{phase} kernel 3 B={B_MAIN}, {tag}, exactly {s_win.max_iter} iterations: kernel "
+        f"{w_ms:.3f} ms = {1e3 * w_ms / s_win.max_iter / waves:.2f} us per iteration per block "
+        f"({waves} waves of {sms} x {per_sm} blocks); bound {b_ms:.4f} ms by {b_by}, share "
+        f"reached {100 * b_ms / w_ms:.1f}%")
+
+
 def transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     """Phase 19: the Panda at 8 spline segments of order 3 (25 nodes, 526
     variables, 648 rows), set as a user sets it (``planner.ocp =
@@ -842,15 +964,11 @@ def transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> N
     from mpc_motion_planner_tpu_torch import kernels
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
-    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
     from mpc_motion_planner_tpu_torch.ocp import make_ocp
-    from mpc_motion_planner_tpu_torch.ops import qp_structured
-    from mpc_motion_planner_tpu_torch.ops.structure import apply_A
     from mpc_motion_planner_tpu_torch.planner import MotionPlanner
     from mpc_motion_planner_tpu_torch.utils.capture import capture_solve
 
     dev = cur_all.device
-    shipping = planner.qp_settings
 
     def with_segments(segments):
         pl = MotionPlanner(margins=planner.margins, dtype=planner.dtype, device=dev,
@@ -876,91 +994,13 @@ def transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> N
 
     pl25 = with_segments(8)
     ocp = pl25.ocp
-    g25 = Geometry.of_ocp(ocp)
     check((ocp.num_nodes, ocp.num_var, ocp.num_eq + ocp.num_ineq) == (25, 526, 648),
           f"8 segments: {ocp.num_nodes} nodes, {ocp.num_var} variables")
     summary, window_err = kernel_checks(pl25, first_qp, "25 nodes")
     log(f"phase 19 at 25 nodes, {summary}")
 
     # ---- kernels 2 and 3 at B=2048, timed, with their bounds ----
-    for name in ("banded_factor", "structured_admm"):
-        k = kernels.KERNELS[name]
-        results[f"{name}_25_nodes"] = {
-            "name": f"{name}_25_nodes", "route": "cuda",
-            "source": f"mpc_motion_planner_tpu_torch/csrc/{k.source}", "replaces": REPLACES[name]}
-    out = {}
-
-    def keep(key, fn):
-        def call():
-            out[key] = fn()
-        return call
-
-    _, sa, args, sc, sx = first_qp(B_MAIN, pl=pl25)
-    qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
-    p_ms, k_ms, raw = time_pair(
-        keep("plain", lambda: qp_structured.factor_banded(qp.Mband, qp.p_col, qp.m_pp, 3)),
-        keep("kernel", lambda: k2.factor_banded_kernel(qp.Mband, qp.p_col, qp.m_pp)),
-    )
-    fk, fp = out.pop("kernel"), out.pop("plain")
-    check(torch.equal(fk["ok"], fp["ok"]), f"25 nodes: kernel 2 ok flags differ at B={B_MAIN}")
-    errs = {k: rel_err(fk[k], fp[k]) for k in ("Ldi", "Lsub", "u", "s")}
-    check(max(errs.values()) <= 1e-3, f"25 nodes: kernel 2 differs at B={B_MAIN}: {errs}")
-    e2 = results["banded_factor_25_nodes"]
-    e2.update(ms=k_ms, plain_ms=p_ms, max_abs_err=max(max_abs(fk[k], fp[k]) for k in errs))
-    text = report_bound(
-        e2, B_MAIN * banded_factor_flops(nodes=g25.nodes),
-        tensor_bytes(qp.Mband, qp.p_col, qp.m_pp, *fk.values()), "band in, factors out",
-        library="torch.linalg.cholesky_ex of the dense M, below")
-    log(f"phase 19 kernel 2 B={B_MAIN}, 25 nodes: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-        f"(runs {raw}); {text}; ok flags identical ({int(fk['ok'].sum())}/{B_MAIN} ok), max-norm "
-        f"relative error " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()) + " (tol 1e-3)")
-    del fk, fp
-    library_factor(qp, e2, "phase 19 at 25 nodes:")
-    fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, 3)
-    # the plain loop at 25 nodes takes seconds: one comparison call each,
-    # then the kernel, the plain loop and the kernel again, timed
-    out["kernel"] = k3.admm_kernel(ocp, sa, qp, fac, shipping)
-    out["plain"] = qp_structured.admm_plain(ocp, sa, qp, fac, shipping)
-    raw = {"kernel": [], "plain": []}
-    for name in ("kernel", "plain", "kernel"):
-        fn = (lambda: k3.admm_kernel(ocp, sa, qp, fac, shipping)) if name == "kernel" else (
-            lambda: qp_structured.admm_plain(ocp, sa, qp, fac, shipping))
-        raw[name].append(time_kernel(fn, reps=1, warm=False))
-    k_ms, p_ms = float(np.mean(raw["kernel"])), float(np.mean(raw["plain"]))
-    got, ref = (qp_structured.unscale_solution(qp, *out[k]) for k in ("kernel", "plain"))
-    k3_bytes = tensor_bytes(
-        fac["Ldi"], fac["Lsub"], fac["u"], fac["s"], sa.J, sa.f_rows, sa.p,
-        qp.qs, qp.Ps, qp.rx, qp.lxs, qp.uxs, qp.thx, qp.D, qp.x, qp.zx, qp.yx,
-        qp.rc, qp.lcs, qp.ucs, qp.E, qp.thr, qp.zc, qp.yc, *out["kernel"])
-    k3_iters = int(out["kernel"][6].sum())
-    out.clear()
-    agreement = iteration_agreement(got, ref, B_MAIN, f"25 nodes: kernel 3 B={B_MAIN}")
-    _, lc, uc, lx, ux = args[1:]
-    ratios = [hard_row_ratio(s_.x, apply_A(ocp, sa, s_.x), lc, uc, lx, ux, sc, sx, shipping,
-                             s_.converged) for s_ in (got, ref)]
-    check(ratios[0][1] <= 1.01, f"25 nodes: kernel 3 B={B_MAIN}: hard rows at "
-          f"{ratios[0][1]:.3f}x the tolerance")
-    e3 = results["structured_admm_25_nodes"]
-    e3.update(ms=k_ms, plain_ms=p_ms, max_abs_err=window_err)
-    flops = k3_iter_flops(g25.segments)
-    text = report_bound(e3, k3_iters * flops, k3_bytes,
-                        f"{k3_iters} problem-iterations of {flops / 1e3:.1f} kflop as the kernel "
-                        f"counted them")
-    log(f"phase 19 kernel 3 B={B_MAIN}, 25 nodes, step-0 QP, budget {shipping.max_iter}: kernel "
-        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (runs {raw}); {text}; {agreement}; hard-row "
-        f"violation {ratios[0][1]:.3f}x the primal tolerance (bar 1.01; plain "
-        f"{ratios[1][1]:.3f}x)")
-    del got, ref
-    s_win = dataclasses.replace(shipping, max_iter=shipping.check_every)
-    w_ms = time_kernel(lambda: k3.admm_kernel(ocp, sa, qp, fac, s_win), reps=3)
-    per_sm = k3.blocks_per_sm(g25)
-    waves = -(-B_MAIN // (sms * per_sm))
-    b_ms, b_by = bound(B_MAIN * s_win.max_iter * flops, k3_bytes)
-    log(f"phase 19 kernel 3 B={B_MAIN}, 25 nodes, exactly {s_win.max_iter} iterations: kernel "
-        f"{w_ms:.3f} ms = {1e3 * w_ms / s_win.max_iter / waves:.2f} us per iteration per block "
-        f"({waves} waves of {sms} x {per_sm} blocks); bound {b_ms:.4f} ms by {b_by}, share "
-        f"reached {100 * b_ms / w_ms:.1f}%")
-    del sa, args, qp, fac
+    time_structured_kernels(pl25, first_qp, results, "25_nodes", "phase 19", window_err)
 
     # ---- the main path at 25 nodes: the captured shipping solve ----
     t0 = time.perf_counter()
@@ -1017,6 +1057,324 @@ def transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> N
     log(f"phase 19 at 13 nodes, {kernel_checks(with_segments(4), first_qp, '13 nodes')[0]}")
 
 
+def fixture_models():
+    """``tests/fixtures/make_panda6_fixture.py``: the URDF writers of the
+    robots other than the Panda (numpy only; its JAX part runs in ``main``
+    alone)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_panda6_fixture", os.path.join(FIXTURES, "make_panda6_fixture.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def limits_of(limits, nq: int, extra=None):
+    """``limits`` cut to the first ``nq`` joints, or with ``extra`` (a dict
+    of per-joint values by field) appended."""
+    from mpc_motion_planner_tpu_torch.models.panda import _LIMIT_TENSORS
+
+    def field(k):
+        v = getattr(limits, k)[:nq]
+        if extra is not None:
+            v = torch.cat([v, torch.as_tensor(extra[k], dtype=v.dtype, device=v.device)])
+        return v
+
+    return dataclasses.replace(limits, **{k: field(k) for k in _LIMIT_TENSORS})
+
+
+def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -> None:
+    """Phase 20: robots other than the 7-joint Panda, with kernels 1-3 built
+    for their joint count. (a) Kernels 1-3 at 6 joints (the Panda with
+    ``panda_joint7`` fixed, ``tests/fixtures/panda_joint7_fixed.urdf``) and at
+    8 (a serial revolute chain drawn from a seed) against their plain
+    versions, with phase 2's, 3's and 4's bars, timed at B=2048 with their
+    bounds. (b) The 6-joint planner's captured shipping solve of the headline
+    states with joint 7's entries dropped (the phase's main path: launches,
+    bitwise its eager solve, quality, replay and eager times in turns), and
+    the 8-joint chain's eager solve. (c) The JAX fixture of the 6-joint
+    model. (d) The dense ``pallas`` path at 6 joints (kernels 1 and 4). (e)
+    Refusals and ``fused_constraints``: a 9-joint geometry raises a
+    ValueError naming its bytes; a branched model with prismatic fingers
+    raises under "auto" and plans under "off"; the 6-joint planner under
+    "off" launches no kernel 1."""
+    from mpc_motion_planner_tpu_torch import kernels
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.kernels import constraints as k1
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+    from mpc_motion_planner_tpu_torch.models.urdf import parse_urdf
+    from mpc_motion_planner_tpu_torch.ocp import make_ocp
+    from mpc_motion_planner_tpu_torch.ops.sqp import SQPSettings
+    from mpc_motion_planner_tpu_torch.planner import MotionPlanner
+    from mpc_motion_planner_tpu_torch.utils.capture import capture_solve
+
+    dev, f32 = cur_all.device, torch.float32
+    fx = fixture_models()
+    g6, g8 = Geometry(nq=6), Geometry(nq=8)
+
+    # ---- build: kernels 1-3 at 6 and 8 joints, one nvcc each, together ----
+    t0 = time.perf_counter()
+    jobs = [(name, kernels.KERNELS[name], g) for g in (g6, g8)
+            for name in ("constraints", "banded_factor", "structured_admm")]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        paths = list(pool.map(lambda job: job[1].build(job[2]), jobs))
+    for (name, k, g), path in zip(jobs, paths):
+        info = [ln.strip() for ln in k.build_log.get(k.geometry(g), "").splitlines()
+                if "registers" in ln or "spill" in ln]
+        log(f"phase 20 build: {name} at {g.nq} joints -> {os.path.relpath(path, ROOT)} | "
+            + " | ".join(info))
+    log(f"phase 20 build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for g in (g6, g8):
+        lay3, lay2 = k3.block_layout(g), k2.block_layout(g)
+        want3 = {"threads": k3.threads(g), "smem_bytes": k3.smem_bytes(g)}
+        want2 = {"smem_bytes": k2.smem_bytes(g), "per_sm": k2.per_sm(g)}
+        check({k: lay3[k] for k in want3} == want3,
+              f"kernel 3 at {g.nq} joints: the library's block {lay3}, the reckoning {want3}")
+        check({k: lay2[k] for k in want2} == want2 and lay2["blocks_per_sm"] >= lay2["per_sm"],
+              f"kernel 2 at {g.nq} joints: the library's block {lay2}, the reckoning {want2}")
+        log(f"phase 20 libraries at {g.nq} joints, 19 nodes ({g.num_var} variables, "
+            f"{g.num_rows} rows): kernel 3 {lay3['threads']} threads, {lay3['smem_bytes']} B "
+            f"({'compact' if lay3['smem_bytes'] < k3.smem_bytes(g, False) else 'full'} layout; "
+            f"full {k3.smem_bytes(g, False)} B), {lay3['blocks_per_sm']} block per SM; kernel 2 "
+            f"{lay2['smem_bytes']} B, registers capped for {lay2['per_sm']} problems per SM, "
+            f"{lay2['blocks_per_sm']} per SM by the occupancy calculator ({sms} SMs); kernel 1 "
+            f"{k1.smem_bytes(g.nq)} B of static shared memory; the reckoning agrees")
+
+    # ---- the robots ----
+    shipping = planner.qp_settings
+    sqp = planner.sqp_settings
+
+    def make(model, limits, tool, qp=shipping, sqp_settings=sqp, fused=None):
+        pl = MotionPlanner(model=model, limits=limits, tool_frame=tool, margins=planner.margins,
+                           qp_settings=qp, sqp_settings=sqp_settings, dtype=f32, device=dev)
+        if fused is not None:
+            pl.ocp = make_ocp(pl.model, tool, fused_constraints=fused)
+        return pl
+
+    model6 = parse_urdf(os.path.join(FIXTURES, "panda_joint7_fixed.urdf"), dtype=f32, device=dev)
+    limits6 = limits_of(planner.limits, 6)
+    pl6 = make(model6, limits6, "panda_tool")
+    keep6 = list(fx.KEEP6)
+    cur6, tgt6 = cur_all[:, keep6].contiguous(), tgt_all[:, keep6].contiguous()
+    check(pl6.ocp.nq == 6 and pl6.ocp.num_var == 343 and pl6.ocp.num_eq + pl6.ocp.num_ineq == 421,
+          f"6-joint OCP: {pl6.ocp.num_var} variables")
+    model8 = parse_urdf(fx.chain_urdf(8, seed=8), dtype=f32, device=dev)
+    last = {k: getattr(planner.limits, k)[-1:].cpu() for k in fx.LIMIT_ARRAYS}
+    pl8 = make(model8, limits_of(planner.limits, 7, last), "tool")
+    pl8.set_min_height(-10.0)  # a random chain: no floor for its tool
+    rng = np.random.default_rng(8)
+    lo, hi = pl8.position_bounds()
+    lo, hi = lo.cpu().numpy(), hi.cpu().numpy()
+
+    def chain_states():
+        q = lo + (hi - lo) * rng.uniform(0.25, 0.75, (B_MAIN, 8))
+        return torch.as_tensor(np.concatenate([q, np.zeros((B_MAIN, 8))], 1), dtype=f32,
+                               device=dev)
+
+    cur8, tgt8 = chain_states(), chain_states()
+
+    # ---- (a) kernel 1 against its plain version, timed ----
+    gen = torch.Generator().manual_seed(20)
+    big = torch.ones(8192, 8192, device=dev)
+    busy = lambda: big @ big
+    for nq, pl in ((6, pl6), (8, pl8)):
+        lo_xu = torch.tensor([-2.5] * nq + [-2.0] * nq + [-10.0] * nq)
+        xu = (lo_xu + 2 * (-lo_xu) * torch.rand(B_MAIN, 19, 3 * nq, generator=gen)).to(dev)
+        X, U = xu[..., :2 * nq].contiguous(), xu[..., 2 * nq:].contiguous()
+        out = {}
+        p_ms, k_ms, raw = time_pair(
+            lambda: out.__setitem__("plain", k1.node_constraints_plain(pl.ocp, X, U, True)),
+            lambda: out.__setitem__("kernel", k1.node_constraints_kernel(pl.ocp, X, U, True)))
+        (g_k, J_k), (g_p, J_p) = out["kernel"], out["plain"]
+        gv_k = k1.node_constraints_kernel(pl.ocp, X, U, False)
+        torch.cuda.synchronize()
+        for got in (g_k, gv_k):
+            check(torch.allclose(got, g_p, rtol=2e-5, atol=2e-5),
+                  f"kernel 1 at {nq} joints: values differ by {max_abs(got, g_p)}")
+        check(torch.allclose(J_k, J_p, rtol=2e-4, atol=5e-5),
+              f"kernel 1 at {nq} joints: Jacobian differs by {max_abs(J_k, J_p)}")
+        d_ms = time_kernel(lambda: k1.node_constraints_kernel(pl.ocp, X, U, True), reps=20,
+                           behind=busy)
+        e = results[f"constraints_{nq}_joints"] = {
+            "name": f"constraints_{nq}_joints", "route": "cuda",
+            "source": "mpc_motion_planner_tpu_torch/csrc/constraints.cu",
+            "replaces": REPLACES["constraints"], "ms": d_ms, "plain_ms": p_ms,
+            "max_abs_err": max(max_abs(g_k, g_p), max_abs(gv_k, g_p), max_abs(J_k, J_p))}
+        F = B_MAIN * 19
+        text = report_bound(e, F * k1_flops(nq, True), tensor_bytes(X, U, g_k, J_k),
+                            f"value pass and {3 * nq} tangents, {k1_flops(nq, False):.0f} flop "
+                            f"a value pass")
+        log(f"phase 20 kernel 1 at {nq} joints, F={F}: kernel {d_ms:.4f} ms on the device's "
+            f"clock ({k_ms:.3f} ms per wrapper call on an idle card), plain {p_ms:.3f} ms (runs "
+            f"{raw}); {text}; max abs err values {max(max_abs(g_k, g_p), max_abs(gv_k, g_p)):.3e}, "
+            f"Jacobian {max_abs(J_k, J_p):.3e} (phase 2's tolerances)")
+        del X, U, xu, out, g_k, J_k, g_p, J_p, gv_k
+    del big
+
+    # ---- (a) kernels 2 and 3 against their plain versions, timed ----
+    for nq, pl, states in ((6, pl6, (cur6, tgt6)), (8, pl8, (cur8, tgt8))):
+        summary, window_err = kernel_checks(pl, first_qp, f"{nq} joints", states)
+        log(f"phase 20 at {nq} joints, {summary}")
+        time_structured_kernels(pl, first_qp, results, f"{nq}_joints", "phase 20", window_err,
+                                states)
+
+    # ---- (b) the 6-joint planner: the captured shipping solve ----
+    t0 = time.perf_counter()
+    solve = capture_solve(pl6, cur6, tgt6)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    check(solve.captured, "6 joints: the solve was not captured")
+    kernels.reset_launch_counts()
+    got = solve(cur6, tgt6)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    repairs = k2.REPAIRS.count
+    check(counts == {"constraints": 5, "banded_factor": 2, "structured_admm": 2, "admm_dense": 0},
+          f"6 joints: launches per replay {counts}")
+    for name in ("constraints", "banded_factor", "structured_admm"):
+        results[f"{name}_6_joints"]["launches"] = counts[name]
+    finite = all(bool(torch.isfinite(t).all()) for t in (got.z, got.violation, got.lam_c, got.lam_x))
+    check(finite and got.z.shape == (B_MAIN, 343), "6 joints: non-finite or misshapen outputs")
+    ref = pl6.solve(cur6, tgt6)
+    ref2 = pl6.solve(cur6, tgt6)
+    held = hold_captured(got, ref, ref2, "6 joints")
+    check(solve.eager_resolves == 0, f"6 joints: {solve.eager_resolves} eager re-solves")
+    q = quality(pl6, got, tgt6)
+    check(q["qp_conv_rate"] >= 0.98 and q["tol_hit_rate"] >= 0.99
+          and q["terminal_err_inf_max"] <= 0.011, f"6 joints: quality {q}")
+    times = {"replay": [], "eager": []}
+    for mode in ("replay", "eager", "eager", "replay", "replay", "eager"):
+        fn = solve if mode == "replay" else pl6.solve
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(cur6, tgt6)
+        torch.cuda.synchronize()
+        times[mode].append(1e3 * (time.perf_counter() - t0))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"phase 20 captured shipping solve at 6 joints, B={B_MAIN} (headline states, joint 7 "
+        f"dropped): capture {t_capture:.2f} s; launches per replay {counts}, kernel-2 flags "
+        f"{repairs}; {held} against the eager solve (7 fields); quality {json.dumps(q)}")
+    log(f"phase 20 timing at 6 joints, median of 3 in turns: replay {med['replay']:.2f} ms = "
+        f"{B_MAIN / med['replay'] * 1e3:.1f} solves/s, eager {med['eager']:.2f} ms = "
+        f"{B_MAIN / med['eager'] * 1e3:.1f} solves/s (replays "
+        f"{[round(t, 2) for t in times['replay']]}, eager {[round(t, 2) for t in times['eager']]}) "
+        f"on {smi}")
+    del solve, got, ref, ref2
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    sol8 = pl8.solve(cur8, tgt8)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(counts == {"constraints": 5, "banded_factor": 2, "structured_admm": 2, "admm_dense": 0},
+          f"8 joints: launches per solve {counts}")
+    for name in ("constraints", "banded_factor", "structured_admm"):
+        results[f"{name}_8_joints"]["launches"] = counts[name]
+    finite = all(bool(torch.isfinite(t).all()) for t in (sol8.z, sol8.violation, sol8.lam_c))
+    check(finite and sol8.z.shape == (B_MAIN, 457), "8 joints: non-finite or misshapen outputs")
+    log(f"phase 20 eager solve of the 8-joint chain, B={B_MAIN} (seeded states): launches "
+        f"{counts}, qp_conv_rate {float(sol8.qp_converged.double().mean()):.4f}, median "
+        f"violation {float(sol8.violation.median()):.4f}")
+    del sol8
+
+    # ---- (c) the JAX fixture of the 6-joint model ----
+    n_good, n_tf, n_fx, summary = fixture_agreement(
+        pl6, os.path.join(FIXTURES, "torch_port_panda6_b64.npz"), dev)
+    check(n_good == n_fx, f"6 joints: {n_good}/{n_fx} fixture problems agree")
+    log(f"phase 20 JAX fixture at 6 joints: {summary}")
+
+    # ---- (d) the dense pallas path at 6 joints (kernel 4 at n=343, m=421) ----
+    dense6 = make(model6, limits6, "panda_tool", qp=dense_cfg, sqp_settings=SQPSettings())
+    kernels.reset_launch_counts()
+    wall = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = dense6.solve(cur6, tgt6)
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        if not wall[1:]:
+            counts = kernels.launch_counts()
+    check(counts == {"constraints": 5, "banded_factor": 0, "structured_admm": 0, "admm_dense": 2},
+          f"6 joints, dense path: launches {counts}")
+    finite = all(bool(torch.isfinite(t).all()) for t in (sol.z, sol.violation, sol.lam_c, sol.lam_x))
+    qd = quality(dense6, sol, tgt6)
+    check(finite and qd["tol_hit_rate"] >= 0.99, f"6 joints, dense path: quality {qd}")
+    log(f"phase 20 dense path at 6 joints, B={B_MAIN} (backend pallas, kkt_refine 1, n=343, "
+        f"m=421): launches {counts}, cold solve {wall[0]:.1f} ms, warm solve {wall[1]:.1f} ms = "
+        f"{B_MAIN / wall[1] * 1e3:.1f} solves/s; quality {json.dumps(qd)}")
+    del sol, dense6
+
+    # ---- (e) refusals and fused_constraints ----
+    g9 = Geometry(nq=9)
+    try:
+        k3.check_fits(g9)
+        refused = None
+    except ValueError as err:
+        refused = str(err)
+    check(refused is not None and f"{k3.smem_bytes(g9)} B" in refused,
+          f"9 joints: kernel 3's fit check says {refused}")
+    pl9 = make(parse_urdf(fx.chain_urdf(9, seed=9), dtype=f32, device=dev),
+               limits_of(planner.limits, 7, {k: v.repeat(2) for k, v in last.items()}), "tool",
+               fused="off")
+    lo9, hi9 = pl9.position_bounds()
+    cur9 = torch.cat([(lo9 + hi9) / 2, torch.zeros_like(lo9)]).expand(4, -1).contiguous()
+    tgt9 = cur9.clone()
+    tgt9[:, :9] += 0.1
+    try:
+        pl9.solve(cur9, tgt9)
+        solved9 = "solved"
+    except ValueError as err:
+        solved9 = str(err)
+    check(f"{k3.smem_bytes(g9)} B" in solved9, f"9 joints on the card: {solved9}")
+    log(f"phase 20 refusal at 9 joints: {refused}; the 9-joint planner's solve on the card "
+        f"raises the same")
+    n_h = B_ADMM
+    hand = parse_urdf(fx.panda_urdf(True, hand=True), dtype=f32, device=dev)
+    fingers = {"min_position": [0.0, 0.0], "max_position": [0.04, 0.04],
+               "max_velocity": [0.2, 0.2], "max_acceleration": [1.0, 1.0],
+               "max_jerk": [50.0, 50.0], "max_torque": [20.0, 20.0]}
+    limits_h = limits_of(planner.limits, 6, fingers)
+
+    def hand_states(base, width):
+        q, v = base[:n_h, :6], base[:n_h, 6:]
+        w = torch.full((n_h, 2), width, dtype=f32, device=dev)
+        return torch.cat([q, w, v, torch.zeros_like(w)], 1)
+
+    cur_h, tgt_h = hand_states(cur6, 0.01), hand_states(tgt6, 0.03)
+    try:
+        make(hand, limits_h, "panda_tool").solve(cur_h, tgt_h)
+        auto = "planned"
+    except NotImplementedError as err:
+        auto = str(err)
+    check(auto != "planned", "the branched model planned under fused_constraints='auto'")
+    pl_h = make(hand, limits_h, "panda_tool", fused="off")
+    kernels.reset_launch_counts()
+    sol_h = pl_h.solve(cur_h, tgt_h)
+    torch.cuda.synchronize()
+    counts_h = kernels.launch_counts()
+    check(counts_h["constraints"] == 0 and counts_h["structured_admm"] == 2
+          and bool(torch.isfinite(sol_h.z).all()) and sol_h.z.shape == (n_h, 457),
+          f"the branched model under 'off': launches {counts_h}")
+    pl6_off = make(model6, limits6, "panda_tool", fused="off")
+    kernels.reset_launch_counts()
+    sol_off = pl6_off.solve(cur6, tgt6)
+    torch.cuda.synchronize()
+    counts_off = kernels.launch_counts()
+    q_off = quality(pl6_off, sol_off, tgt6)
+    check(counts_off == {"constraints": 0, "banded_factor": 2, "structured_admm": 2,
+                         "admm_dense": 0} and q_off["tol_hit_rate"] >= 0.99,
+          f"6 joints under 'off': launches {counts_off}, quality {q_off}")
+    log(f"phase 20 fused_constraints: the branched model (the 6-joint Panda with a hand and two "
+        f"prismatic fingers, 8 joints) under 'auto' raises ({auto}); under 'off' it plans "
+        f"B={n_h} with launches {counts_h}, qp_conv_rate "
+        f"{float(sol_h.qp_converged.double().mean()):.4f}; the 6-joint planner under 'off' "
+        f"launches {counts_off}, qp_conv_rate {q_off['qp_conv_rate']}, tol_hit_rate "
+        f"{q_off['tol_hit_rate']}")
+
+
 def run(dev: torch.device) -> None:
     """All phases on ``dev``; raises on the first failed check."""
     from mpc_motion_planner_tpu_torch import config, kernels
@@ -1052,7 +1410,7 @@ def run(dev: torch.device) -> None:
     # and 3 at 19, 25 and 13 nodes), all started together ----
     t0 = time.perf_counter()
     jobs = [(name, k, g) for name, k in kernels.KERNELS.items()
-            for g in (geometries() if k.per_geometry else (None,))]
+            for g in (geometries() if k.per_geometry == "transcription" else (None,))]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(lambda job: job[1].build(job[2]), jobs))
     for (name, k, g), path in zip(jobs, paths):
@@ -1108,11 +1466,14 @@ def run(dev: torch.device) -> None:
 
     cur_gen, tgt_gen = chain_states(planner, torch.Generator().manual_seed(0), B_FACTOR)
 
-    def first_qp(B, dense=False, settings=shipping, headline=True, pl=None):
+    def first_qp(B, dense=False, settings=shipping, headline=True, pl=None, states=None):
         """The step-0 QPs of ``pl`` (default: the shipping planner, 19
-        nodes) on the first B states."""
+        nodes) on the first B states (``states``: another robot's (current,
+        target))."""
         pl = pl or planner
         cur, tgt = (cur_all[:B], tgt_all[:B]) if headline else (cur_gen[:B], tgt_gen[:B])
+        if states is not None:
+            cur, tgt = states[0][:B], states[1][:B]
         z0 = pl.warm_start_vector(pl.plan_warm_start(cur, tgt))
         bounds = pl.nlp_bounds(cur, tgt)
         _, _, lin, (h, lc, uc, lx, ux) = qp_subproblem(pl.ocp, bounds, z0, dense)
@@ -1821,6 +2182,7 @@ def run(dev: torch.device) -> None:
                     cur_all, tgt_all, first_qp, results, smi)
 
     transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi)
+    robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

@@ -17,6 +17,10 @@ every key of the JAX line, plus ``package`` and ``states``:
 * ``BENCH_QP_BACKEND``: "structured_pallas" (default), "structured",
   "pallas" or "xla"; the device decides kernel or plain (``config.py``).
   A failure raises: there is no fallback to another backend.
+* ``MPC_TPU_FUSED_CONSTRAINTS`` ("auto", "on", "off"), read by the
+  planner's ``make_ocp``: where the constraint rows go ("auto": kernel 1
+  on the card). The line's ``fused_constraints`` says what ran: "on"
+  (kernel 1) or "off" (the plain path).
 * An explicit ``BENCH_QP_MAX_ITER`` or ``BENCH_EXIT_*`` budget wins: unless
   ``BENCH_SQP_SCHEDULES`` is also set, no per-step schedule replaces it.
 * ``BENCH_EXIT_EVERY``/``_WARMUP``/``_SCHEDULE`` and ``BENCH_CHUNK`` say
@@ -212,8 +216,8 @@ def main(argv=None) -> int:
         "ruiz_iters": s["ruiz_iters"],
         "rho": s["rho"],
         "alpha": s["alpha"],
-        # kernel 1 computes the constraint rows wherever the tensors are on CUDA
-        "fused_constraints": "on" if device.type == "cuda" else "off",
+        # what computed the constraint rows: kernel 1 ("on") or the plain path
+        "fused_constraints": "on" if planner.ocp.uses_kernel(device) else "off",
         "qp_backend": s["backend"],
         "device": device_name(device),
         "package": "torch",

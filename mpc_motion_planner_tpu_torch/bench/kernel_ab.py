@@ -10,8 +10,9 @@ prints one JSON line per variant:
   step-0 iterates (F = 19 B evaluations) and values only on ten copies of
   them (the line search's launch), through the wrapper on an idle card
   (host time included) and for the launch alone on the device's clock
-  (queued behind a long product); the largest difference of g and J from
-  the plain path's.
+  (queued behind a long product); whether its outputs are bitwise the
+  package build's; the largest difference of g and J from the plain
+  path's.
 * kernel 2 (``csrc/banded_factor.cu``): its time; whether its outputs are
   bitwise the package build's; whether its ``ok`` flags are those of the
   plain ``factor_banded``; the max-norm relative error of ``Ldi``, ``Lsub``,
@@ -29,10 +30,15 @@ Times are CUDA events around ``--reps`` calls, the variants in turns (first
 to last, then last to first). ``--segments`` sets the transcription (spline
 segments of order 3: 6 is the 19-node default, 8 gives 25 nodes), as a user
 sets it: ``planner.ocp = make_ocp(model, tool_frame, num_segments=8)``;
-kernels 2 and 3 and their variants are built for it.
+kernels 2 and 3 and their variants are built for it. ``--urdf`` takes
+another robot, a Panda with its last joints locked (for example
+``tests/fixtures/panda_joint7_fixed.urdf``, 6 joints; the headline states'
+entries of its joints and the Panda's limits of them, as
+``profile_solve.py`` takes it), and kernels 1-3 are built for its joint
+count.
 
     python -m mpc_motion_planner_tpu_torch.bench.kernel_ab --kernel 4 \\
-        [--batch 2048] [--reps 3] [--segments 6] [name=path.cu ...]
+        [--batch 2048] [--reps 3] [--segments 6] [--urdf path.urdf] [name=path.cu ...]
 
 A variant's headers are looked up beside its source. To compare with an
 earlier commit:
@@ -74,6 +80,7 @@ from ..ops import qp as dense_qp
 from ..ops import qp_structured
 from ..ops.sqp import SQPSettings, hessian_regularization_diag, qp_subproblem, soft_weights
 from ..planner import Margins, MotionPlanner
+from .profile_solve import locked_panda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 STATES = os.path.join(ROOT, "tests", "fixtures", "headline_states_b2048.npz")
@@ -137,7 +144,7 @@ class EarlierAdmmKernel(build.CudaKernel):
     def __init__(self, name, source):
         super().__init__(name, source, k3.KERNEL.entry,
                          [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_float] * 4
-                         + [ctypes.c_int] * 3 + [ctypes.c_void_p], per_geometry=True)
+                         + [ctypes.c_int] * 3 + [ctypes.c_void_p], per_geometry="transcription")
 
     def launch(self, ptrs, Dm, sigma, alpha, eps_abs, eps_rel, cap, check_every, kkt_refine, B,
                geometry=None):
@@ -225,7 +232,7 @@ def ab_constraints(kernels, planner, cur, tgt, reps):
     busy = lambda: big @ big  # tens of ms of float32 product
     for label, z, with_jac in (("jacobian", z0, True), ("values", zl, False)):
         X, U, _ = ocp.unpack(z)
-        xu = torch.cat([X, U], dim=-1).reshape(-1, 21).contiguous()
+        xu = torch.cat([X, U], dim=-1).reshape(-1, 3 * ocp.nq).contiguous()
         plain = k1.node_constraints_plain(ocp, X, U, with_jac)
 
         def wrapper(k):
@@ -248,7 +255,10 @@ def ab_constraints(kernels, planner, cur, tgt, reps):
                 r[f"{label}_{what}_ms_runs"] = times[name]
                 got = out[name] if with_jac else (out[name],)
                 ref = plain if with_jac else (plain,)
+                pkg = out["package"] if with_jac else (out["package"],)
                 r[f"{label}_evaluations"] = X.shape[0] * X.shape[1]
+                r[f"{label}_{what}_bitwise_package"] = all(
+                    torch.equal(a, b) for a, b in zip(got, pkg))
                 r[f"{label}_max_abs_err_g"] = max_abs(got[0], ref[0])
                 if with_jac:
                     r["jacobian_max_abs_err_J"] = max_abs(got[1], ref[1])
@@ -314,6 +324,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--segments", type=int, default=6,
                     help="spline segments of order 3 (6: 19 nodes, 8: 25 nodes)")
+    ap.add_argument("--urdf", help="a Panda with its last joints locked (default: the Panda)")
     ap.add_argument("variants", nargs="*", help="name=path.cu")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -331,7 +342,9 @@ def main(argv=None) -> int:
     for spec in a.variants:
         name, _, path = spec.partition("=")
         kernels[name] = variant_kernel(a.kernel, name, os.path.abspath(path))
-    geometry = build.Geometry(segments=a.segments)
+    model, limits, cols = (locked_panda(a.urdf, torch.float32, dev) if a.urdf
+                           else (None, None, list(range(14))))
+    geometry = build.Geometry(segments=a.segments, nq=len(cols) // 2)
     for name, k in kernels.items():
         k.function(geometry)
         info = [ln.strip() for ln in k.build_log.get(k.geometry(geometry), "").splitlines()
@@ -340,15 +353,16 @@ def main(argv=None) -> int:
 
     shipping = config.SHIPPING_QP_SETTINGS
     planner = MotionPlanner(
-        margins=Margins(*MARGINS), dtype=torch.float32, device=dev, qp_settings=shipping,
+        model=model, limits=limits, margins=Margins(*MARGINS), dtype=torch.float32, device=dev,
+        qp_settings=shipping,
         sqp_settings=SQPSettings(qp_step_schedules=config.shipping_sqp_schedules(shipping.backend)),
     )
     if a.segments != 6:
         planner.ocp = make_ocp(planner.model, planner.tool_frame, num_segments=a.segments)
     ocp = planner.ocp
     states = np.load(STATES)
-    cur = torch.as_tensor(states["current"][: a.batch], device=dev)
-    tgt = torch.as_tensor(states["target"][: a.batch], device=dev)
+    cur = torch.as_tensor(states["current"][: a.batch][:, cols], device=dev)
+    tgt = torch.as_tensor(states["target"][: a.batch][:, cols], device=dev)
     to64 = lambda d: {k: (v.double() if v.is_floating_point() else v) for k, v in d.items()}
 
     if a.kernel == 1:
@@ -400,7 +414,7 @@ def main(argv=None) -> int:
 
     for name, r in results.items():
         print(json.dumps({"kernel": a.kernel, "variant": name, "batch": a.batch,
-                          "nodes": ocp.num_nodes, **shape, **r}), flush=True)
+                          "nodes": ocp.num_nodes, "joints": ocp.nq, **shape, **r}), flush=True)
     print(smi)
     return 0
 

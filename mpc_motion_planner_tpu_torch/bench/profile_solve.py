@@ -15,11 +15,15 @@ each hand-written kernel by name. Wall times are taken before the profiler
 starts, which slows later solves.
 
     python -m mpc_motion_planner_tpu_torch.bench.profile_solve [--dense | --default | --xla]
-        [--warm 5] [--segments 6]
+        [--warm 5] [--segments 6] [--urdf tests/fixtures/panda_joint7_fixed.urdf]
 
 ``--segments`` sets the transcription as a user sets it (``planner.ocp =
 make_ocp(model, tool_frame, num_segments=8)``: 25 nodes; default 6, 19
-nodes), and kernels 2 and 3 are built for it.
+nodes), and kernels 2 and 3 are built for it. ``--urdf`` plans another
+robot: a Panda with its last joints locked (for example
+``tests/fixtures/panda_joint7_fixed.urdf``, 6 joints), with the Panda's
+limits of its first nq joints and the headline states' entries of those
+joints; kernels 1-3 are built for its joint count.
 
 Prints one JSON object, then the card's name and power limit. Needs one
 CUDA GPU and ``nvcc``.
@@ -28,6 +32,7 @@ CUDA GPU and ``nvcc``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -39,6 +44,8 @@ import numpy as np
 import torch
 
 from .. import config, kernels
+from ..models.panda import _LIMIT_TENSORS, make_panda_limits
+from ..models.urdf import parse_urdf
 from ..ocp import make_ocp
 from ..ops.qp import QPSettings
 from ..ops.sqp import SQPSettings
@@ -77,10 +84,24 @@ def device_events(trace_path):
             if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES]
 
 
-def make_planner(which: str, dev, segments: int = 6) -> MotionPlanner:
+def locked_panda(urdf: str, dtype, device):
+    """The robot of ``urdf``, a Panda with its last joints locked (nq <= 7
+    joints): (model, the Panda's limits of its first nq joints, the columns
+    of a 7-joint state that hold q1..q_nq and qdot1..qdot_nq)."""
+    model = parse_urdf(urdf, dtype=dtype, device=device)
+    nq = model.nq
+    if nq > 7:
+        raise ValueError(f"{urdf}: {nq} joints; a Panda with locked joints has at most 7")
+    lim = make_panda_limits(dtype, device)
+    limits = dataclasses.replace(lim, **{k: getattr(lim, k)[:nq] for k in _LIMIT_TENSORS})
+    return model, limits, list(range(nq)) + [7 + i for i in range(nq)]
+
+
+def make_planner(which: str, dev, segments: int = 6, urdf: str = None) -> MotionPlanner:
     """The planner of a path: "structured" (shipping), "dense",
     "structured_default" or "xla" (``MotionPlanner()``'s settings), on
-    ``segments`` spline segments of order 3."""
+    ``segments`` spline segments of order 3, for the Panda or the robot of
+    ``urdf`` (:func:`locked_panda`)."""
     if which == "xla":
         qp, sqp = QPSettings(), SQPSettings()
     elif which == "dense":
@@ -92,8 +113,9 @@ def make_planner(which: str, dev, segments: int = 6) -> MotionPlanner:
     else:
         qp = config.SHIPPING_QP_SETTINGS
         sqp = SQPSettings(qp_step_schedules=config.shipping_sqp_schedules(qp.backend))
-    planner = MotionPlanner(margins=Margins(*MARGINS), dtype=torch.float32, device=dev,
-                            qp_settings=qp, sqp_settings=sqp)
+    model, limits, _ = (locked_panda(urdf, torch.float32, dev) if urdf else (None, None, None))
+    planner = MotionPlanner(model=model, limits=limits, margins=Margins(*MARGINS),
+                            dtype=torch.float32, device=dev, qp_settings=qp, sqp_settings=sqp)
     if segments != 6:
         planner.ocp = make_ocp(planner.model, planner.tool_frame, num_segments=segments)
     return planner
@@ -143,6 +165,7 @@ def main(argv=None) -> int:
     ap.add_argument("--warm", type=int, default=5, help="warm solves of each mode on the host clock")
     ap.add_argument("--segments", type=int, default=6,
                     help="spline segments of order 3 (6: 19 nodes, 8: 25 nodes)")
+    ap.add_argument("--urdf", help="a Panda with its last joints locked (default: the Panda)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_solve: needs a CUDA GPU", file=sys.stderr)
@@ -155,10 +178,11 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     which = ("dense" if a.dense else "structured_default" if a.default
              else "xla" if a.xla else "structured")
-    planner = make_planner(which, dev, a.segments)
+    planner = make_planner(which, dev, a.segments, a.urdf)
+    cols = list(range(planner.ocp.nq)) + [7 + i for i in range(planner.ocp.nq)]
     states = np.load(STATES)
-    cur = torch.as_tensor(states["current"], device=dev)
-    tgt = torch.as_tensor(states["target"], device=dev)
+    cur = torch.as_tensor(states["current"][:, cols], device=dev)
+    tgt = torch.as_tensor(states["target"][:, cols], device=dev)
     B = int(cur.shape[0])
 
     t0 = time.perf_counter()
@@ -178,7 +202,8 @@ def main(argv=None) -> int:
     for _ in range(a.warm):
         for m, fn in modes.items():
             warm[m].append(solve(fn))
-    out = {"path": which, "batch": B, "nodes": planner.ocp.num_nodes, "capture_s": capture_s,
+    out = {"path": which, "batch": B, "nodes": planner.ocp.num_nodes,
+           "joints": planner.ocp.nq, "capture_s": capture_s,
            "eager_resolves": captured.eager_resolves}
     for m, fn in modes.items():
         kernels.reset_launch_counts()

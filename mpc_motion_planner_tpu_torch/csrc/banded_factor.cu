@@ -23,8 +23,10 @@
 //    all instead of the whole 134 KB factor). Ldi[k] and Lsub[k] go to
 //    device memory as soon as they are final, and the saturation scan
 //    happens as they are written;
-//  * the 21 x 21 Cholesky and the triangular inverse run in one warp with
-//    row r (then column c) of the block in lane r's registers, the pivot
+//  * the BLK x BLK Cholesky (21 x 21 for the Panda; BLK = 3 NQ <= 30, so
+//    that one warp holds a row per lane) and the triangular inverse run in
+//    one warp with row r (then column c) of the block in lane r's
+//    registers, the pivot
 //    column passed through shared memory: no block-wide barrier inside.
 //    Meanwhile the other three warps form what node k + 1 needs from older
 //    nodes (the j < k products of its S and of its first sub-diagonal
@@ -37,15 +39,18 @@
 // block product subtracted and clamped on its own, the Cholesky column by
 // column), whatever phase forms it, so the guards flag the same problems.
 //
-// Layout (see kernels/banded_factor.py): Mband (B,N,4,21,21) with
-// Mband[b,k,d] = M[k+d,k]; outputs Ldi (B,N,21,21) = L[k,k]^-1,
-// Lsub (B,N,3,21,21) with Lsub[b,k,d-1] = L[k+d,k], u (B,N,21), s (B,),
-// ok (B,) int.
+// Layout (see kernels/banded_factor.py), BLK = 21 for the Panda: Mband
+// (B,N,4,BLK,BLK) with Mband[b,k,d] = M[k+d,k]; outputs Ldi (B,N,BLK,BLK) =
+// L[k,k]^-1, Lsub (B,N,3,BLK,BLK) with Lsub[b,k,d-1] = L[k+d,k], u
+// (B,N,BLK), s (B,), ok (B,) int.
 //
-// The node count enters only loop bounds, strides and the two N x 21
+// The node count enters only loop bounds, strides and the two N x BLK
 // vectors ys and us: the working set is per node (the ring and CH staged
-// nodes), so a build per transcription keeps PER_SM problems per SM up to
-// 44 nodes (ys and us are 168 B per node beside the ~30 KB of the rest).
+// nodes), so a build per transcription keeps six problems per SM up to 44
+// nodes of the Panda (ys and us are 168 B per node beside the ~30 KB of the
+// rest). The joint count sets BLK: the working set grows with BLK^2 (25,060
+// B at 6 joints, 42,964 B at 8, 19 nodes), and PER_SM, the problems per SM
+// the registers are capped for, follows from it below.
 
 #include "common.cuh"
 
@@ -55,8 +60,7 @@ namespace {
 
 constexpr int NT = 128;  // threads per block
 constexpr int NWARP = NT / 32;
-constexpr int PER_SM = 6;  // blocks per SM the registers are capped for
-constexpr int LKS = 24;    // stride of a column of L[k,k] (16-byte loads)
+constexpr int LKS = (BLK + 3) / 4 * 4;  // stride of a column of L[k,k] (16-byte loads)
 constexpr int CH = 4;      // nodes staged per step of the backward sweep
 constexpr float MAG = 1e8f;
 constexpr float SAT = 0.99f * MAG;
@@ -64,6 +68,7 @@ constexpr float PIV_FLOOR = 1e-20f;
 // the recursion's three sub-diagonal blocks per node (C1, C2, C3 and the
 // three ring slots) are written out for band width 3: splines of order 3
 static_assert(BW == 3, "kernel 2 is written for band width 3");
+static_assert(BLK <= 30 && LKS <= 32, "one warp holds a row of L[k,k] per lane");
 
 __device__ __forceinline__ float fz(float v) { return clampf(v, -MAG, MAG); }
 
@@ -92,16 +97,29 @@ struct Smem {
   int ok;
 };
 
+// Problems per SM the registers are capped for (__launch_bounds__): as many
+// as the SM's shared memory holds (228 KB, 1 KB of it reserved per block),
+// and no more than leave a thread the registers of the warp-wide Cholesky
+// and inverse: a row of the block (BLK), a staged column and the inverse's
+// accumulator row (LKS each) and ~11 for addresses and loop state, in units
+// of 8 (80 for the Panda: 6 problems per SM; 7 at 6 joints, 5 at 8).
+constexpr int SM_SMEM = 233472;
+constexpr int REGS = (2 * LKS + BLK + 11 + 7) / 8 * 8;
+constexpr int BY_SMEM = SM_SMEM / ((int)sizeof(Smem) + 1024);
+constexpr int BY_REGS = 65536 / (NT * REGS);
+constexpr int PER_SM = BY_SMEM < BY_REGS ? BY_SMEM : BY_REGS;
+static_assert(PER_SM >= 1, "one block of kernel 2 fits an SM");
+
 // v - sum_c X[a,c] Y[b,c], clamped after the product (the TPU kernel's
 // _fz(S - _matmul_nt(...)))
 __device__ __forceinline__ float sub_nt(float v, const float* X, const float* Y, int a, int b) {
   float acc = 0.f;
-#pragma unroll 7
+#pragma unroll (NQ)
   for (int c = 0; c < BLK; ++c) acc += X[a * BLK + c] * Y[b * BLK + c];
   return fz(v - acc);
 }
 
-// Entries c0.. of a 24-float column in shared memory, as 16-byte loads of
+// Entries c0.. of an LKS-float column in shared memory, as 16-byte loads of
 // the quads that hold them.
 template <int C0>
 __device__ __forceinline__ void load_column(const float* col, float (&out)[LKS]) {
@@ -248,7 +266,7 @@ banded_factor_kernel(const float* __restrict__ Mband, const float* __restrict__ 
         if (k + d < N) {
           const int a = e / BLK, c = e % BLK;
           float acc = 0.f;
-#pragma unroll 7
+#pragma unroll (NQ)
           for (int q = 0; q < BLK; ++q) acc += C[a * BLK + q] * f.Linv[c * BLK + q];
           v = fz(acc);
         }
@@ -364,3 +382,8 @@ extern "C" int mpc_banded_factor_blocks_per_sm() {
                                                       sizeof(Smem));
   return err != cudaSuccess ? -(int)err : blocks;
 }
+
+// The problems per SM this build's registers are capped for (PER_SM), and
+// the bytes of shared memory a block takes.
+extern "C" int mpc_banded_factor_per_sm() { return PER_SM; }
+extern "C" int mpc_banded_factor_smem_bytes() { return (int)sizeof(Smem); }

@@ -11,36 +11,29 @@ namespace mpc {
 // Problem geometry of the transcription a library is built for. The build
 // sets it (kernels/build.py Geometry.flags: -DMPC_SEGMENTS=... and so on);
 // the defaults are the Panda's 19-node transcription: 6 segments of order
-// 3 (4 local nodes each), 14 states + 7 controls per node, 8 constraint
-// rows per node (7 torques and the tool height), band width = order.
+// 3 (4 local nodes each) and 7 joints. Per node: 2 NQ states (q, qdot), NQ
+// controls (qddot), NQ + 1 constraint rows (the torques and the tool
+// height); band width = order.
 #ifndef MPC_SEGMENTS
 #define MPC_SEGMENTS 6
 #endif
 #ifndef MPC_ORDER
 #define MPC_ORDER 3
 #endif
-#ifndef MPC_NX
-#define MPC_NX 14
-#endif
-#ifndef MPC_NU
-#define MPC_NU 7
-#endif
-#ifndef MPC_NG
-#define MPC_NG 8
+#ifndef MPC_NQ
+#define MPC_NQ 7
 #endif
 constexpr int SEG = MPC_SEGMENTS;
 constexpr int KL = MPC_ORDER + 1;  // local nodes per segment
 constexpr int N = SEG * MPC_ORDER + 1;
-constexpr int NX = MPC_NX;
-constexpr int NU = MPC_NU;
-constexpr int NQ = 7;  // joints: the kernels are written for the 7-DoF Panda
-constexpr int NG = MPC_NG;
-static_assert(NX == 2 * NQ && NU == NQ && NG == NQ + 1,
-              "the kernels are written for a 7-joint model: 14 states, 7 controls, 8 rows");
-constexpr int BLK = NX + NU;       // 21
+constexpr int NQ = MPC_NQ;         // joints
+constexpr int NX = 2 * NQ;
+constexpr int NU = NQ;
+constexpr int NG = NQ + 1;
+constexpr int BLK = NX + NU;       // 3 NQ: 21 for the Panda
 constexpr int BLK2 = BLK * BLK;    // 441
 constexpr int BW = MPC_ORDER;
-constexpr int NV = N * BLK + 1;    // variables (400 at 19 nodes)
+constexpr int NV = N * BLK + 1;    // variables (400 at 19 nodes, 7 joints)
 constexpr int NEQ = SEG * KL * NX; // defect rows (336)
 constexpr int NM = NEQ + N * NG;   // constraint rows (488)
 constexpr int UOFF = N * NX;       // start of the controls in z (266)
@@ -52,7 +45,7 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// z-layout index of component c (0..20: q, qdot, u) of node n
+// z-layout index of component c (0..BLK-1: q, qdot, u) of node n
 __device__ __forceinline__ int zidx(int n, int c) {
   return c < NX ? n * NX + c : UOFF + n * NU + (c - NX);
 }

@@ -1,18 +1,21 @@
-// Kernel 1: per-node constraint values g = [tau (7); tool height] and the
-// exact Jacobian dg/d[q, qdot, u] (8 x 21) for a flat batch of F evaluations.
+// Kernel 1: per-node constraint values g = [tau (NJ); tool height] and the
+// exact Jacobian dg/d[q, qdot, u] ((NJ + 1) x 3 NJ: 8 x 21 for the 7-joint
+// Panda) for a flat batch of F evaluations.
 //
 // Replaces mpc_motion_planner_tpu/ops/pallas/constraints_kernel.py
 // fused_node_constraints (lane_constraints :180, bake_model :56). The math is
 // that of ops/rnea.py rnea + ops/kinematics.py frame_height: two Newton-Euler
-// sweeps over the 7 revolute joints in link coordinates, gravity through the
-// base acceleration, and the tool height from the world FK.
+// sweeps over the NJ revolute joints of a serial chain in link coordinates,
+// gravity through the base acceleration, and the tool height from the world
+// FK. The build sets NJ (-DMPC_NQ, common.cuh; one library per joint count,
+// kernels/build.py); the figures below are the Panda's (NJ = 7).
 //
 // What bounds it on an H100: instructions. An evaluation reads 21 floats and
 // writes 8 or 176, while a value pass is ~1.5 kflop in chains of dependent
 // 3-vector operations, and a tangent costs twice a value.
 //
 // What the design does about it:
-// * Jacobian launch: one thread per (evaluation, joint j), a block of 7 warps
+// * Jacobian launch: one thread per (evaluation, joint j), a block of NJ warps
 //   over a tile of 32 evaluations, warp j holding joint j of all 32. The
 //   thread carries the value and the three tangents along q_j, qdot_j and
 //   u_j (type D3), so an evaluation's value pass runs 7 times, not 21, and
@@ -37,15 +40,23 @@
 //   operands at fixed places of the parameter struct, and the per-joint
 //   quantities stay in registers. The pass is ~2.7k instructions per
 //   evaluation and bound by instruction throughput, so a thread loads its
-//   own 21 inputs and stores its 8 outputs as two 16-byte words: staging
-//   them through shared memory for coalescing cost 18% more time than it
-//   saved.
+//   own 21 inputs and stores its 8 outputs as two 16-byte words (where NG is
+//   not a multiple of 4, as single floats): staging them through shared
+//   memory for coalescing cost 18% more time than it saved.
 // * Inputs are read where they lie (q, qdot in X and u in U, by base pointer
 //   and batch stride, so views of z need no copy). The Jacobian launch
 //   stages them with coalesced loads into shared memory, where the 7 warps
 //   of an evaluation share them, and g and J leave through shared-memory
 //   tiles (a tile row padded to an odd stride) in 16-byte coalesced stores:
-//   a thread's 24 entries of J lie 28 bytes apart.
+//   a thread's 24 entries of J lie 28 bytes apart. A tile of 32 rows starts
+//   16-byte aligned whatever the row length; where a row is no whole number
+//   of 16-byte words (6 joints: 126 floats of J, 7 of g) the tile is stored
+//   as one flat run of words.
+// * The robot travels by value: 46 floats per joint and 7 more, 1,316 B at
+//   NJ = 7 and 1,500 B at NJ = 8, inside the 4 KB a launch's parameters
+//   may take. The Jacobian launch's static shared memory grows with NJ^2
+//   (25,984 B at NJ = 7); kernels/constraints.py refuses a joint count whose
+//   tiles pass 48 KB (11 joints and more).
 // * sincosf stays at full precision: the torques reach ~100 Nm and the
 //   comparison with the plain path holds them to 2e-5.
 
@@ -53,13 +64,15 @@
 #include <math.h>
 #include <string.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int NJ = 7;
+constexpr int NJ = mpc::NQ;
 constexpr int NQX = 2 * NJ;  // [q, qdot] per evaluation in X
 constexpr int NIN = 3 * NJ;  // [q, qdot, u]
 constexpr int NG = NJ + 1;
-constexpr int JROW = NG * NIN;  // 168 floats of Jacobian per evaluation
+constexpr int JROW = NG * NIN;  // floats of Jacobian per evaluation (168 at NJ = 7)
 
 struct Joint {
   float R0[9], t[3], axis[3], K[9], K2[9], mass, mc[3], Io[9];
@@ -74,7 +87,7 @@ struct Robot {
 };
 
 // Where the inputs lie: evaluation f = b * nodes + n reads q, qdot at
-// x + b * x_stride + n * 14 and u at u + b * u_stride + n * 7.
+// x + b * x_stride + n * NQX and u at u + b * u_stride + n * NJ.
 struct Inputs {
   const float *x, *u;
   long long x_stride, u_stride;
@@ -304,15 +317,24 @@ __device__ __forceinline__ void load_inputs(float* xs, long long* off, const Inp
   }
 }
 
-// A tile of n evaluations with ROW floats each (ROW a multiple of 4), kept
-// at a row stride of STRIDE floats, to out[0 .. n * ROW) in 16-byte stores.
+// A tile of n evaluations with ROW floats each, kept at a row stride of
+// STRIDE floats, to out[0 .. n * ROW) (16-byte aligned) in 16-byte stores:
+// row by row where ROW is a multiple of 4, else as one flat run of words
+// (each float found by its row and column) and the last few floats alone.
 template <int NT, int ROW, int STRIDE>
 __device__ __forceinline__ void store_tile(const float* tile, float* out, int n) {
-  static_assert(ROW % 4 == 0, "rows of whole float4");
   float4* out4 = reinterpret_cast<float4*>(out);
-  for (int q = threadIdx.x; q < n * (ROW / 4); q += NT) {
-    const float* src = tile + (q / (ROW / 4)) * STRIDE + (q % (ROW / 4)) * 4;
-    out4[q] = make_float4(src[0], src[1], src[2], src[3]);
+  if constexpr (ROW % 4 == 0) {
+    for (int q = threadIdx.x; q < n * (ROW / 4); q += NT) {
+      const float* src = tile + (q / (ROW / 4)) * STRIDE + (q % (ROW / 4)) * 4;
+      out4[q] = make_float4(src[0], src[1], src[2], src[3]);
+    }
+  } else {
+    auto at = [&](int i) { return tile[(i / ROW) * STRIDE + i % ROW]; };
+    const int total = n * ROW;
+    for (int q = threadIdx.x; q < total / 4; q += NT)
+      out4[q] = make_float4(at(4 * q), at(4 * q + 1), at(4 * q + 2), at(4 * q + 3));
+    for (int i = total / 4 * 4 + threadIdx.x; i < total; i += NT) out[i] = at(i);
   }
 }
 
@@ -365,17 +387,24 @@ constraints_value_kernel(const Robot C, Inputs in, float* __restrict__ g, int F)
     backward_joint(J, R, fw, fv);
   }
   out[NJ] = height;
-  float4* g4 = reinterpret_cast<float4*>(g + (size_t)f * NG);
-  g4[0] = make_float4(out[0], out[1], out[2], out[3]);
-  g4[1] = make_float4(out[4], out[5], out[6], out[7]);
+  if constexpr (NG % 4 == 0) {
+    float4* g4 = reinterpret_cast<float4*>(g + (size_t)f * NG);
+#pragma unroll
+    for (int q = 0; q < NG / 4; ++q)
+      g4[q] = make_float4(out[4 * q], out[4 * q + 1], out[4 * q + 2], out[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < NG; ++r) g[(size_t)f * NG + r] = out[r];
+  }
 }
 
 // ---- the Jacobian launch: one thread per (evaluation, joint) ----
 
 constexpr int JE = 32;              // evaluations per block: one per lane
-constexpr int JT = JE * NJ;         // 224 threads: warp j holds joint j
-constexpr int JSTRIDE = JROW + 1;   // tile row of J, padded to an odd stride
-constexpr int GSTRIDE = NG + 1;     // and of g
+constexpr int JT = JE * NJ;         // 224 threads at NJ = 7: warp j holds joint j
+constexpr int JSTRIDE = JROW + 1;   // tile row of J, padded to an odd stride (JROW is even)
+constexpr int GSTRIDE = NG | 1;     // and of g
+static_assert(JT <= 1024, "a block has at most 1024 threads");
 
 __global__ void __launch_bounds__(JT, 2)
 constraints_jac_kernel(const __grid_constant__ Robot C, Inputs in, float* __restrict__ g,
@@ -505,8 +534,8 @@ constraints_jac_kernel(const __grid_constant__ Robot C, Inputs in, float* __rest
 
 // consts: NJ * 46 floats of joint blocks, then gravity (3) and the tool
 // translation (3), as kernels/constraints.py bake_model lays them out. x, u:
-// the inputs where they lie (struct Inputs); g (F, 8) and jac (F, 8, 21) are
-// contiguous and 16-byte aligned.
+// the inputs where they lie (struct Inputs); g (F, NG) and jac (F, NG, NIN)
+// are contiguous and 16-byte aligned.
 extern "C" int mpc_constraints(const float* consts, int tool_parent, const float* x,
                                const float* u, long long x_stride, long long u_stride, int nodes,
                                float* g, float* jac, int F, int with_jac, void* stream) {

@@ -70,9 +70,13 @@
 // (B,19,21), J (B,19,8,21), f_rows (B,336).
 //
 // The transcription is set by the build (common.cuh): one library per node
-// count. The block has one thread per z element and per constraint row
-// (NT = max(NV, NM) rounded up to whole warps: 512 at 19 nodes, 672 at 25,
-// 352 at 13), and everything else follows the node count. At 19 and 13
+// count and joint count. The figures here are the 7-joint Panda's; a robot
+// of NQ joints has blocks of BLK = 3 NQ rows, node vectors padded to VPAD
+// (BLK rounded up to 4: 20 floats, five loads, at 6 joints; 24 at 7 and 8)
+// and a row per lane, so BLK <= 32. The block has one thread per z element
+// and per constraint row (NT = max(NV, NM) rounded up to whole warps: 512 at
+// 19 nodes, 672 at 25, 352 at 13; 448 at 19 nodes and 6 joints, 576 at 8),
+// and everything else follows the geometry. At 19 and 13
 // nodes shared memory holds every operand as described above (Ldi stored
 // full: a chain warp runs one multiply-add per column for all rows at once,
 // so the zero half costs no time). At 25 nodes that layout needs 262,000 B,
@@ -89,12 +93,13 @@
 // * Lsub without its last 5 blocks (8,820 B less): L[k+d,k] past the
 //   matrix end is zero and no sweep reads it (the highest block read is
 //   L[N-1,N-2], number 3N-6).
-// That is 232,176 B. Two other ways were weighed: J in device memory read
-// through L1 (16.8 KB) would put an L1 round trip into A and A' every
-// iteration, and a cluster of two blocks holding the factors in
-// distributed shared memory would put one into every block step of the
-// chain; the compact layout costs neither, only index arithmetic in the
-// fetch. Registers: 672 threads are 21 warps, six of them on one of the
+// That is 232,176 B (at 19 nodes and 8 joints the compact layout takes
+// 217,936 B, where the full one would need 250,432 B). Two other ways were
+// weighed: J in device memory read through L1 (16.8 KB) would put an L1
+// round trip into A and A' every iteration, and a cluster of two blocks
+// holding the factors in distributed shared memory would put one into every
+// block step of the chain; the compact layout costs neither, only index
+// arithmetic in the fetch. Registers: 672 threads are 21 warps, six of them on one of the
 // SM's four schedulers, whose quarter of the register file (16K) then
 // allows 80 registers per thread; ptxas -v reports 72 B of spill stores for
 // the 25-node build, none at 19 nodes (99 registers).
@@ -109,12 +114,13 @@ namespace {
 constexpr int NT = ((NM > NV ? NM : NV) + 31) / 32 * 32;
 constexpr int NWARP = NT / 32;
 constexpr int NB = N * BLK;              // 399 banded variables; element NB is p
-constexpr int VPAD = 24;                 // a node's 21 values in a 16-byte aligned row
+constexpr int VPAD = (BLK + 3) / 4 * 4;  // a node's BLK values in a 16-byte aligned row
 static_assert(NT >= NM && NT >= NV, "one thread per z element and per row");
 static_assert(NT <= 1024, "a block has at most 1024 threads");
 // the sweeps' look-ahead (two helper warps for distances 2 and 3) and the
 // node cover of A' are written for band width 3: splines of order 3
 static_assert(BW == 3, "kernel 3 is written for band width 3");
+static_assert(BLK % 3 == 0 && VPAD <= 32, "a row per lane, summed in three partial sums");
 constexpr int SMEM_LIMIT = 232448;       // dynamic shared memory of one block
 constexpr int TRI = BLK * (BLK + 1) / 2; // a packed lower-triangular block
 constexpr int LSUB_USED = N * BW - 5;    // Lsub blocks up to L[N-1,N-2]
@@ -189,33 +195,33 @@ __device__ __forceinline__ float soft_update(float za, float y, float r, float l
   return ftz(v - clampf(v - box, -t, t));
 }
 
-// ---- 21-vectors in registers ----
+// ---- BLK-vectors in registers ----
 
 // A padded row (VPAD floats, 16-byte aligned) into registers, the same for
-// every lane. A warp runs its instructions in order, so a product placed
-// between two loads stalls the second load for the latency of the first; the
-// fence keeps the compiler from sinking the six loads to their first uses,
-// so they are sent off back to back and their latency is paid once.
+// every lane: VPAD / 4 16-byte loads (six for the Panda), one asm statement
+// each at a constant offset from one address. A warp runs its instructions
+// in order, so a product placed between two loads stalls the second load
+// for the latency of the first; the fence after the group keeps the
+// compiler from sinking the loads to their first uses, so they are sent off
+// back to back and their latency is paid once.
+template <int Q>
+__device__ __forceinline__ void load_quads(float (&v)[VPAD], unsigned a) {
+  if constexpr (Q < VPAD / 4) {
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4+%5];"
+                 : "=f"(v[4 * Q]), "=f"(v[4 * Q + 1]), "=f"(v[4 * Q + 2]), "=f"(v[4 * Q + 3])
+                 : "r"(a), "n"(16 * Q)
+                 : "memory");
+    load_quads<Q + 1>(v, a);
+  }
+}
+
 __device__ __forceinline__ void load_vec(float (&v)[VPAD], const float* p) {
-  static_assert(VPAD == 24, "six 16-byte loads");
-  asm volatile(
-      "ld.shared.v4.f32 {%0, %1, %2, %3}, [%24+0];\n"
-      "ld.shared.v4.f32 {%4, %5, %6, %7}, [%24+16];\n"
-      "ld.shared.v4.f32 {%8, %9, %10, %11}, [%24+32];\n"
-      "ld.shared.v4.f32 {%12, %13, %14, %15}, [%24+48];\n"
-      "ld.shared.v4.f32 {%16, %17, %18, %19}, [%24+64];\n"
-      "ld.shared.v4.f32 {%20, %21, %22, %23}, [%24+80];\n"
-      : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]), "=f"(v[4]), "=f"(v[5]), "=f"(v[6]),
-        "=f"(v[7]), "=f"(v[8]), "=f"(v[9]), "=f"(v[10]), "=f"(v[11]), "=f"(v[12]), "=f"(v[13]),
-        "=f"(v[14]), "=f"(v[15]), "=f"(v[16]), "=f"(v[17]), "=f"(v[18]), "=f"(v[19]),
-        "=f"(v[20]), "=f"(v[21]), "=f"(v[22]), "=f"(v[23])
-      : "r"((unsigned)__cvta_generic_to_shared(p))
-      : "memory");
+  load_quads<0>(v, (unsigned)__cvta_generic_to_shared(p));
   asm volatile("membar.cta;" ::: "memory");
 }
 
 // sum_i M[i] v[i] in three partial sums
-__device__ __forceinline__ float dot21(const float (&M)[BLK], const float (&v)[VPAD]) {
+__device__ __forceinline__ float dot_row(const float (&M)[BLK], const float (&v)[VPAD]) {
   float s0 = 0.f, s1 = 0.f, s2 = 0.f;
 #pragma unroll
   for (int i = 0; i < BLK; i += 3) {
@@ -401,12 +407,12 @@ __device__ __forceinline__ void chain_sweep(Smem& sm, int lane, int turn) {
       const float a3 = t >= 3 ? sm.a3[k * BLK + rr] : 0.f;
       load_vec(vec, pub + node_of<FWD>(t - 1) * VPAD);
       // distances 1, 2, 3 in turn, the order of the plain solve
-      acc = ((v - dot21(L, vec)) - a2) - a3;
+      acc = ((v - dot_row(L, vec)) - a2) - a3;
     }
     if (lane < BLK) sm.tb[lane] = acc;
     warp_barrier();
     load_vec(vec, sm.tb);
-    const float out = dot21(Dg, vec);
+    const float out = dot_row(Dg, vec);
     if (lane < BLK) pub[k * VPAD + lane] = out;
     sweep_barrier<FWD>();
     if (t + CHAIN_WARPS < N) chain_fetch<FWD>(sm, t + CHAIN_WARPS, rr, L, Dg, v);
@@ -429,7 +435,7 @@ __device__ __forceinline__ void helper_sweep(Smem& sm, int lane) {
     sweep_barrier<FWD>();
     if (live) {
       load_vec(vec, pub + k * VPAD);
-      float s = dot21(M, vec);
+      float s = dot_row(M, vec);
       if (lane < BLK) out[node_of<FWD>(t + DIST) * BLK + lane] = s;
     }
   }

@@ -6,9 +6,14 @@ Replaces ``mpc_motion_planner_tpu/ops/pallas/banded_factor.py``
 ``_factor_kernel`` :117).
 
 The library is built per transcription (``build.Geometry``, read from
-``Mband``'s shape): the node count enters only loop bounds and strides, and
-the working set per problem (:func:`smem_bytes`: 33,580 B at 19 nodes,
-34,588 B at 25) leaves six problems on an SM up to 44 nodes.
+``Mband``'s shape: nodes, band width and blk = 3 nq): the node count enters
+only loop bounds and strides, and the working set per problem
+(:func:`smem_bytes`: 33,580 B at 19 nodes, 34,588 B at 25) leaves six
+problems on an SM up to 44 nodes. The joint count sets the block size blk,
+the column stride (blk rounded up to 4) and the working set (25,060 B at 6
+joints, 42,964 B at 8, 19 nodes), and with them :func:`per_sm`, the
+problems per SM the registers are capped for; one warp holds a row of a
+block per lane, so blk <= 30 (10 joints).
 
 What bounds it on this card: the latency of the sequential node recursion.
 Per problem the 19-node recursion does ~2 MFLOP (Schur updates, a 21-column
@@ -20,7 +25,7 @@ share an SM and hide each other's waits: node k reads only the factors of
 nodes k-3..k-1, so shared memory holds a ring of the last three nodes'
 sub-diagonal blocks (~34 KB per problem instead of the whole 134 KB factor)
 and every block of the factor goes to device memory as soon as it is final,
-the saturation scan with it. The 21x21 Cholesky and the triangular inverse
+the saturation scan with it. The blk x blk Cholesky (21 x 21 for the Panda) and the triangular inverse
 run in one warp with a row (then a column) per lane in registers and no
 block-wide barrier, while the other warps form the products of node k+1
 that do not need node k and the arrow column's forward-substitution sum,
@@ -59,9 +64,10 @@ from .build import (
 KERNEL = CudaKernel(
     "banded_factor", "banded_factor.cu", "mpc_banded_factor",
     [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p],
-    init="mpc_banded_factor_init", per_geometry=True,
+    init="mpc_banded_factor_init", per_geometry="transcription",
 )
-NT, CH, LKS = 128, 4, 24  # threads, staged nodes, column stride (csrc/banded_factor.cu)
+NT, CH = 128, 4  # threads, staged nodes (csrc/banded_factor.cu)
+SM_SMEM = 233472  # an SM's shared memory, 228 KB (1 KB of it reserved per block)
 
 
 # problems that kernel 2 flagged, each refactored by the plain version
@@ -79,29 +85,48 @@ def repair_capacity(batch: int) -> int:
     return -(-batch // 64)
 
 
+def column_stride(g: Geometry) -> int:
+    """LKS: a column of L[k,k] in shared memory, blk rounded up to 4
+    floats for 16-byte loads."""
+    return -(-g.blk // 4) * 4
+
+
 def smem_bytes(g: Geometry) -> int:
     """Shared memory of one block of kernel 2 built for ``g``: the larger
     of the forward loop's blocks and the backward sweep's staged nodes, then
     ys, us, scratch and the flag (struct Smem of csrc/banded_factor.cu)."""
     blk, bw = g.blk, g.order
     blk2 = blk * blk
-    forward = blk * LKS + bw * bw * blk2 + 7 * blk2  # LkT, ring, S[2], C1[2], C2, C3, Linv
+    forward = blk * column_stride(g) + bw * bw * blk2 + 7 * blk2  # LkT, ring, S[2], C1[2], C2, C3, Linv
     backward = CH * (bw + 1) * blk2
     return 4 * (max(forward, backward) + 2 * g.nodes * blk + 32 + NT // 32) + 4
 
 
+def per_sm(g: Geometry) -> int:
+    """PER_SM of csrc/banded_factor.cu: the problems per SM its registers
+    are capped for, as many as the SM's shared memory holds and no more than
+    leave a thread 2 LKS + blk + 11 registers (in units of 8)."""
+    regs = -(-(2 * column_stride(g) + g.blk + 11) // 8) * 8
+    return min(SM_SMEM // (smem_bytes(g) + 1024), 65536 // (NT * regs))
+
+
 def check_fits(g: Geometry) -> None:
-    """Raise ValueError unless kernel 2 is written for ``g`` and a block of
-    it fits the card's shared memory."""
-    g.check_panda("kernel 2")
+    """Raise ValueError unless kernel 2 is written for ``g`` (order 3, a
+    row of a block per lane: blk <= 30) and a block of it fits the card's
+    shared memory."""
+    g.check_order("kernel 2")
+    if g.blk > 30:
+        raise ValueError(f"kernel 2 holds a row of a {g.blk} x {g.blk} block per lane of a "
+                         f"warp, which takes blocks up to 30 x 30 (10 joints); got {g.nq} joints")
     if smem_bytes(g) > SMEM_LIMIT:
-        raise ValueError(f"kernel 2 at {g.nodes} nodes needs {smem_bytes(g)} B of shared "
-                         f"memory per block; a block may have {SMEM_LIMIT} B")
+        raise ValueError(f"kernel 2 at {g.nodes} nodes and {g.nq} joints needs "
+                         f"{smem_bytes(g)} B of shared memory per block; a block may have "
+                         f"{SMEM_LIMIT} B")
 
 
 def factor_banded_kernel(Mband, p_col, m_pp):
-    """Launch kernel 2 on CUDA float32 tensors Mband (B, nodes, 4, 21, 21),
-    p_col (B, nodes, 21), m_pp (B,), with the library of the transcription
+    """Launch kernel 2 on CUDA float32 tensors Mband (B, nodes, 4, blk, blk),
+    p_col (B, nodes, blk), m_pp (B,), with the library of the transcription
     the band's shape gives. Returns {"Ldi", "Lsub", "u", "s", "ok"} in the
     layouts of :func:`factor_banded`."""
     B = Mband.shape[0]
@@ -121,16 +146,26 @@ def factor_banded_kernel(Mband, p_col, m_pp):
     return {"Ldi": Ldi, "Lsub": Lsub, "u": u, "s": s, "ok": ok != 0}
 
 
+def block_layout(geometry: Geometry = None) -> dict:
+    """What the library built for ``geometry`` (default: 19 nodes, 7
+    joints) says of its block: shared-memory bytes, the problems per SM its
+    registers are capped for (``per_sm``) and how many one SM holds at a
+    time from the CUDA occupancy calculator (``blocks_per_sm``)."""
+    lib = KERNEL.library(geometry)
+    out = {}
+    for key in ("smem_bytes", "per_sm", "blocks_per_sm"):
+        fn = getattr(lib, f"mpc_banded_factor_{key}")
+        fn.restype = ctypes.c_int
+        out[key] = fn()
+    if out["blocks_per_sm"] <= 0:
+        raise RuntimeError(f"kernel 2 occupancy query failed: CUDA error {-out['blocks_per_sm']}")
+    return out
+
+
 def blocks_per_sm(geometry: Geometry = None) -> int:
-    """How many blocks (problems) of kernel 2 built for ``geometry``
-    (default: 19 nodes) one SM holds at a time, from the CUDA occupancy
-    calculator."""
-    fn = KERNEL.library(geometry).mpc_banded_factor_blocks_per_sm
-    fn.restype = ctypes.c_int
-    blocks = fn()
-    if blocks <= 0:
-        raise RuntimeError(f"kernel 2 occupancy query failed: CUDA error {-blocks}")
-    return blocks
+    """How many blocks (problems) of kernel 2 built for ``geometry`` one SM
+    holds at a time, from the CUDA occupancy calculator."""
+    return block_layout(geometry)["blocks_per_sm"]
 
 
 def repair(fac, Mband, p_col, m_pp, bw: int):

@@ -11,9 +11,10 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, and deliberately no
 ``cosf``, ``sqrtf`` and division.
 
 Kernels 2 and 3 are compiled for one transcription (:class:`Geometry`):
-its ``-D`` flags set the sizes in ``csrc/common.cuh`` and enter the hash,
-so each geometry has a library of its own, built and loaded at its first
-use. Kernels 1 and 4 do not depend on the node count and have one library.
+its ``-D`` flags set the node count, the spline order and the joint count
+in ``csrc/common.cuh`` and enter the hash, so each geometry has a library of
+its own, built and loaded at its first use. Kernel 1 is compiled for one
+joint count (the ``-DMPC_NQ`` flag alone), kernel 4 once.
 
 A library may export an ``init`` function, which is called once when it is
 loaded (the kernels' shared-memory attributes are set there, not in every
@@ -48,29 +49,40 @@ SMEM_LIMIT = 232448
 @dataclasses.dataclass(frozen=True)
 class Geometry:
     """The transcription a library of kernel 2 or 3 is built for: spline
-    segments and order (nodes = segments * order + 1, band width = order),
-    states, controls and constraint rows per node. The defaults are the
-    19-node Panda transcription, ``csrc/common.cuh``'s defaults."""
+    segments and order (nodes = segments * order + 1, band width = order)
+    and the robot's joint count nq, which gives 2 nq states, nq controls
+    and nq + 1 constraint rows (the torques and the tool height) per node.
+    The defaults are the 19-node Panda transcription, ``csrc/common.cuh``'s
+    defaults. Kernel 1's library depends on ``nq`` alone."""
 
     segments: int = 6
     order: int = 3
-    nx: int = 14
-    nu: int = 7
-    ng: int = 8
+    nq: int = 7
 
     @classmethod
     def of_ocp(cls, ocp) -> "Geometry":
-        return cls(ocp.coll.num_segments, ocp.coll.order, ocp.nx, ocp.nu, ocp.ng)
+        return cls(ocp.coll.num_segments, ocp.coll.order, ocp.nq)
 
     @classmethod
     def of_band(cls, Mband) -> "Geometry":
         """The geometry of a banded KKT matrix (B, nodes, bw + 1, blk, blk)
-        of a model with blk = 3 nq (2 nq states, nq controls, nq + 1 rows)."""
+        of a model with blk = 3 nq (2 nq states, nq controls)."""
         nodes, bw, blk = Mband.shape[1], Mband.shape[2] - 1, Mband.shape[3]
-        if bw < 1 or (nodes - 1) % bw or blk % 3:
+        if bw < 1 or (nodes - 1) % bw or blk % 3 or blk == 0:
             raise ValueError(f"no transcription has a band of shape {tuple(Mband.shape[1:])}")
-        nq = blk // 3
-        return cls((nodes - 1) // bw, bw, 2 * nq, nq, nq + 1)
+        return cls((nodes - 1) // bw, bw, blk // 3)
+
+    @property
+    def nx(self) -> int:
+        return 2 * self.nq
+
+    @property
+    def nu(self) -> int:
+        return self.nq
+
+    @property
+    def ng(self) -> int:
+        return self.nq + 1
 
     @property
     def nodes(self) -> int:
@@ -95,15 +107,14 @@ class Geometry:
     def flags(self) -> tuple:
         """The nvcc flags that set this geometry in ``csrc/common.cuh``."""
         return (f"-DMPC_SEGMENTS={self.segments}", f"-DMPC_ORDER={self.order}",
-                f"-DMPC_NX={self.nx}", f"-DMPC_NU={self.nu}", f"-DMPC_NG={self.ng}")
+                f"-DMPC_NQ={self.nq}")
 
-    def check_panda(self, kernel: str) -> None:
-        """Raise ValueError unless the kernels are written for this shape:
-        band width 3 and a 7-joint model."""
-        if self.order != 3 or (self.nx, self.nu, self.ng) != (14, 7, 8):
-            raise ValueError(
-                f"{kernel} is written for splines of order 3 and a 7-joint model (nx 14, nu "
-                f"7, ng 8); got {self}")
+    def check_order(self, kernel: str) -> None:
+        """Raise ValueError unless the band width is 3 (splines of order 3),
+        the one the kernels are written for."""
+        if self.order != 3:
+            raise ValueError(f"{kernel} is written for splines of order 3 (band width 3); "
+                             f"got order {self.order}")
 
 
 def nvcc_path() -> str:
@@ -121,16 +132,19 @@ class CudaKernel:
     """One kernel source: a lazy build per geometry, ctypes binding and a
     launch count.
 
-    A kernel with ``per_geometry`` is compiled once for each
-    :class:`Geometry` it is launched with (``None`` is the default
-    geometry); any other ignores the geometry. ``launches`` is one count
-    for the kernel, whatever the geometry, incremented by the wrapper each
-    time it launches the kernel, and nowhere else; ``build_log`` holds
-    nvcc's report (registers, shared memory, spills) of each build, by
-    geometry."""
+    ``per_geometry`` says what a library is compiled for: ``"transcription"``
+    (kernels 2 and 3: one library per :class:`Geometry`), ``"joints"``
+    (kernel 1: one per joint count, whatever the transcription) or ``None``
+    (one library); a ``None`` geometry is the default one. ``launches`` is
+    one count for the kernel, whatever the geometry, incremented by the
+    wrapper each time it launches the kernel, and nowhere else;
+    ``build_log`` holds nvcc's report (registers, shared memory, spills) of
+    each build, by geometry."""
 
     def __init__(self, name: str, source: str, entry: str, argtypes, init: str = None,
-                 per_geometry: bool = False):
+                 per_geometry: str = None):
+        if per_geometry not in (None, "joints", "transcription"):
+            raise ValueError(f"per_geometry {per_geometry!r}")
         self.name = name
         self.source = source
         self.entry = entry
@@ -146,14 +160,20 @@ class CudaKernel:
 
     def geometry(self, geometry=None):
         """The geometry a library is built for: None for a kernel that does
-        not depend on it, else ``geometry`` or the default one."""
-        if not self.per_geometry:
+        not depend on it; for a kernel built per joint count the default
+        transcription with ``geometry``'s joint count; else ``geometry`` or
+        the default one."""
+        if self.per_geometry is None:
             return None
-        return geometry or Geometry()
+        g = geometry or Geometry()
+        return Geometry(nq=g.nq) if self.per_geometry == "joints" else g
 
     def flags(self, geometry=None) -> tuple:
         g = self.geometry(geometry)
-        return NVCC_FLAGS + (g.flags() if g is not None else ())
+        if g is None:
+            return NVCC_FLAGS
+        return NVCC_FLAGS + ((f"-DMPC_NQ={g.nq}",) if self.per_geometry == "joints"
+                             else g.flags())
 
     def library_path(self, geometry=None) -> Path:
         flags = self.flags(geometry)
@@ -161,7 +181,8 @@ class CudaKernel:
         for src in self.sources():
             h.update(src.read_bytes())
         g = self.geometry(geometry)
-        tag = f"_n{g.nodes}" if g is not None else ""
+        tag = ("" if g is None else f"_q{g.nq}" if self.per_geometry == "joints"
+               else f"_n{g.nodes}_q{g.nq}")
         return BUILD_DIR / f"{self.name}{tag}_{h.hexdigest()[:16]}.so"
 
     def build(self, geometry=None) -> Path:

@@ -1,5 +1,5 @@
 """Kernel 1: per-node constraint values g = [tau; tool height] and their
-exact 8x21 Jacobians dg/d[q, qdot, u].
+exact (nq + 1) x 3 nq Jacobians dg/d[q, qdot, u] (8 x 21 for the Panda).
 
 Replaces ``mpc_motion_planner_tpu/ops/pallas/constraints_kernel.py``
 ``fused_node_constraints`` (``pl.pallas_call`` at :345, math in
@@ -17,14 +17,18 @@ evaluation instead of one per input direction, a warp holds one j, joints
 before j run in plain floats (their tangents are zero), only joint j's
 rotation has a tangent, and every later rotation multiplies tangents as a
 float matrix. :func:`node_jacobians_by_joint` states this split in plain
-PyTorch. The value launch runs one thread per evaluation. Both read ``q,
+PyTorch. The figures here are the 7-joint Panda's: the library is built for
+the model's joint count (``-DMPC_NQ``, one library per joint count, a block
+of nq warps), for any serial chain of revolute joints whose Jacobian tiles
+fit 48 KB of static shared memory (:func:`check_fits`: up to 10 joints). The value launch runs one thread per evaluation. Both read ``q,
 qdot`` and ``u`` where they lie (``X`` and ``U`` may be views of the NLP
 iterate ``z``: a batch stride and node-major rows, no ``cat`` copy). The
 Jacobian launch stages them with coalesced loads into shared memory and
 writes ``g`` and ``J`` through shared-memory tiles in 16-byte stores; the
 value launch, bound by its instructions, loads and stores per thread. The
-robot constants travel by value in the kernel's parameter struct (1.3 KB),
-so a new model needs no rebuild.
+robot constants travel by value in the kernel's parameter struct (1.3 KB
+at 7 joints, 46 floats per joint), so another model of the same joint count
+needs no rebuild.
 
 The plain version is ``TranscribedOCP.node_constraints`` with
 ``torch.func.jacfwd`` (:func:`node_constraints_plain`); the wrapper takes it
@@ -39,42 +43,65 @@ import numpy as np
 import torch
 
 from ..models.robot import PRISMATIC, Frame, RobotModel
-from .build import CudaKernel, HostConstants, ptr
+from .build import CudaKernel, Geometry, HostConstants, ptr
 
-NJ = 7  # the kernel's chain length (csrc/constraints.cu)
 JOINT_FLOATS = 46  # R0 9, t 3, axis 3, K 9, K2 9, mass 1, mc 3, Io 9
+STATIC_SMEM_LIMIT = 49152  # static shared memory of one block (48 KB)
 
 KERNEL = CudaKernel(
     "constraints", "constraints.cu", "mpc_constraints",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
      ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_void_p],
+    per_geometry="joints",
 )
 
 # bake_model results per (model, frame, device)
 BAKED = HostConstants()
 
 
+def smem_bytes(nq: int) -> int:
+    """Static shared memory of one block of the Jacobian launch built for
+    ``nq`` joints (csrc/constraints.cu): the inputs of 32 evaluations, their
+    offsets, and the J and g tiles at their padded strides."""
+    nin, ng = 3 * nq, nq + 1
+    return 4 * 32 * nin + 8 * 64 + 4 * 32 * (ng * nin + 1) + 4 * 32 * (ng | 1)
+
+
+def check_fits(nq: int) -> None:
+    """Raise ValueError unless the Jacobian launch built for ``nq`` joints
+    fits a block: its tiles in 48 KB of static shared memory (10 joints at
+    most)."""
+    if smem_bytes(nq) > STATIC_SMEM_LIMIT:
+        raise ValueError(f"kernel 1 at {nq} joints needs {smem_bytes(nq)} B of static shared "
+                         f"memory per block; a block may have {STATIC_SMEM_LIMIT} B")
+
+
 def bake_model(model: RobotModel, frame: Frame):
-    """Flatten a revolute serial chain into the kernel's constant block.
+    """Flatten a revolute serial chain of any length into the kernel's
+    constant block.
 
     Returns ``(consts, tool_parent)``: ``consts`` is float32 with, per joint,
     R0, t, axis, K = [axis]x, K2 = K @ K, mass, m*com and the rotational
     inertia about the joint origin, then gravity and the tool translation.
-    Mirrors the JAX ``bake_model``, including its refusals."""
+    Mirrors the JAX ``bake_model``, including its refusals (prismatic joints,
+    branched trees: such a model is planned with ``fused_constraints="off"``,
+    the plain path)."""
     if any(jt == PRISMATIC for jt in model.joint_types):
         raise NotImplementedError(
-            "constraints kernel supports revolute chains only (the Panda)"
+            "constraints kernel supports revolute chains only; prismatic joints use the "
+            "plain path (fused_constraints='off')"
         )
     if not model.is_serial:
-        raise NotImplementedError("constraints kernel supports serial chains only")
-    if model.nq != NJ:
-        raise NotImplementedError(f"constraints kernel is built for {NJ} joints")
+        raise NotImplementedError(
+            "constraints kernel supports serial chains only; branched trees use the plain "
+            "path (fused_constraints='off')")
+    nj = model.nq
     a = lambda t: t.detach().cpu().double().numpy()
     tree_rot, tree_trans, axes = a(model.tree_rotation), a(model.tree_translation), a(model.axis)
     masses, coms, inertias = a(model.mass), a(model.com), a(model.inertia)
     rows = []
-    for i in range(NJ):
+    for i in range(nj):
         ax = axes[i]
         K = np.array([[0.0, -ax[2], ax[1]], [ax[2], 0.0, -ax[0]], [-ax[1], ax[0], 0.0]])
         m, com = float(masses[i]), coms[i]
@@ -86,7 +113,7 @@ def bake_model(model: RobotModel, frame: Frame):
     consts = np.concatenate(
         rows + [a(model.gravity), a(frame.translation)]
     ).astype(np.float32)
-    assert consts.size == NJ * JOINT_FLOATS + 6
+    assert consts.size == nj * JOINT_FLOATS + 6
     return consts, int(frame.parent_joint)
 
 
@@ -138,17 +165,19 @@ def node_constraints_kernel(ocp, X, U, with_jac: bool):
     read where they lie when they are float32 with node-major rows (views of
     ``z`` are); float64 input is cast once."""
     B, nodes = X.shape[0], X.shape[1]
+    nq = ocp.nq
     n_in, ng = ocp.nx + ocp.nu, ocp.ng
-    if (ocp.nx, ocp.nu) != (2 * NJ, NJ) or tuple(U.shape[:2]) != (B, nodes):
-        raise ValueError(f"kernel 1 takes X (B, nodes, {2 * NJ}) and U (B, nodes, {NJ}), got "
+    if (tuple(X.shape[2:]), tuple(U.shape)) != ((2 * nq,), (B, nodes, nq)):
+        raise ValueError(f"kernel 1 takes X (B, nodes, {2 * nq}) and U (B, nodes, {nq}), got "
                          f"{tuple(X.shape)} and {tuple(U.shape)}")
+    check_fits(nq)
     consts, tool_parent = BAKED.get(
         (ocp.model, ocp.tool_frame), X.device, lambda: bake_model(ocp.model, ocp.tool_frame)
     )
     for name, t in (("X", X), ("U", U)):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    x, u = _rows_in_place(X, 2 * NJ), _rows_in_place(U, NJ)
+    x, u = _rows_in_place(X, 2 * nq), _rows_in_place(U, nq)
     F = B * nodes
     g = torch.empty(F, ng, dtype=torch.float32, device=x.device)
     J = (torch.empty(F, ng, n_in, dtype=torch.float32, device=x.device)
@@ -156,7 +185,7 @@ def node_constraints_kernel(ocp, X, U, with_jac: bool):
     KERNEL.launch(
         consts.ctypes.data_as(ctypes.c_void_p), tool_parent, ptr(x), ptr(u),
         x.stride(0) if B > 1 else 0, u.stride(0) if B > 1 else 0, nodes, ptr(g),
-        ptr(J) if with_jac else None, F, int(with_jac),
+        ptr(J) if with_jac else None, F, int(with_jac), geometry=Geometry(nq=nq),
     )
     g = g.reshape(B, nodes, ng).to(X.dtype)
     if not with_jac:

@@ -11,13 +11,15 @@ iterations with the rho update and the refactorization between them
 (``ops.qp_structured.admm_chunked``, here with kernels 2 and 3), and the
 un-scaling.
 
-The library is built per transcription (``build.Geometry`` of the OCP):
-one thread per z element and per constraint row (:func:`threads`), and at
-25 nodes, where the full layout would need 262,000 B, the compact one of
+The library is built per transcription (``build.Geometry`` of the OCP:
+nodes, spline order and the robot's joint count): one thread per z element
+and per constraint row (:func:`threads`), node vectors padded to
+:func:`vpad` floats, and where the full layout does not fit (25 nodes of the
+Panda: 262,000 B; 19 nodes of an 8-joint robot) the compact one of
 :func:`smem_bytes` (Ldi packed lower triangular, Lsub without its unread
-tail: 232,176 B). A geometry whose block does not fit raises a ValueError
-that names the bytes; nothing solves it another way. The figures below are
-the 19-node transcription's.
+tail: 232,176 B at 25 nodes). A geometry whose block does not fit (9 joints
+at 19 nodes) raises a ValueError that names the bytes; nothing solves it
+another way. The figures below are the 19-node Panda transcription's.
 
 What bounds it on this card: latency. Each iteration is ~157k flops per
 problem, 85% of them in the two banded triangular sweeps, and the factors
@@ -69,9 +71,8 @@ KERNEL = CudaKernel(
     "structured_admm", "structured_admm.cu", "mpc_structured_admm",
     [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_float] * 4
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    init="mpc_structured_admm_init", per_geometry=True,
+    init="mpc_structured_admm_init", per_geometry="transcription",
 )
-VPAD = 24  # a node's 21 values in a 16-byte aligned row (csrc/structured_admm.cu)
 
 
 # dispatch boundaries at which some problem's rho moved (the KKT system is
@@ -81,6 +82,12 @@ REFACTORS = DeviceCount()
 
 # the float32 differentiation matrix on the host, per (collocation, device)
 DIFF_MATRIX = HostConstants()
+
+
+def vpad(g: Geometry) -> int:
+    """VPAD: a node's blk values in a 16-byte aligned row, blk rounded up
+    to 4 (24 for the Panda)."""
+    return -(-g.blk // 4) * 4
 
 
 def threads(g: Geometry) -> int:
@@ -96,14 +103,14 @@ def smem_bytes(g: Geometry, compact: bool = None) -> int:
     one (or as ``compact`` says)."""
     if compact is None:
         compact = smem_bytes(g, False) > SMEM_LIMIT
-    N, blk, nv, neq, nm = g.nodes, g.blk, g.num_var, g.num_eq, g.num_rows
+    N, blk, nv, neq, nm, pad = g.nodes, g.blk, g.num_var, g.num_eq, g.num_rows, vpad(g)
     nb, blk2, bw, kl = N * blk, blk * blk, g.order, g.order + 1
     ldi = N * (blk * (blk + 1) // 2 if compact else blk2)
     lsub = (N * bw - 5 if compact else N * bw) * blk2
     fields = ([(ldi, 4), (lsub, 4), (nb, 4), (N * g.ng * blk, 4), (neq, 4)]
               + [(nv, 4)] * 7 + [(nm, 4)] * 5 + [(nv, 4)] * 3 + [(nm, 4)] * 2
               + [(nv, 4), (nm, 4), (nv, 4)]  # t0, wa, rhs
-              + [(N * VPAD, 16), (N * VPAD, 16), (VPAD, 16)]  # ys, xs, tb
+              + [(N * pad, 16), (N * pad, 16), (pad, 16)]  # ys, xs, tb
               + [(nb, 4)] * 2 + [(nv, 4)] * 2 + [(nm, 4)] * 2  # a2, a3, xt, dx, wb, wc
               + [(threads(g) // 32 * 4, 4), (kl * kl, 4), (1, 4), (1, 4), (1, 4)])
     off = 0
@@ -113,12 +120,17 @@ def smem_bytes(g: Geometry, compact: bool = None) -> int:
 
 
 def check_fits(g: Geometry) -> None:
-    """Raise ValueError unless kernel 3 is written for ``g`` and its block
-    fits the card: at most 1024 threads and 232,448 B of shared memory."""
-    g.check_panda("kernel 3")
+    """Raise ValueError unless kernel 3 is written for ``g`` (order 3, a
+    row of a block per lane) and its block fits the card: at most 1024
+    threads and 232,448 B of shared memory."""
+    g.check_order("kernel 3")
+    if vpad(g) > 32:
+        raise ValueError(f"kernel 3 holds a row of a block per lane of a warp, which takes "
+                         f"blocks up to 30 x 30 (10 joints); got {g.nq} joints")
     if smem_bytes(g) > SMEM_LIMIT or threads(g) > 1024:
         raise ValueError(
-            f"kernel 3 at {g.nodes} nodes ({g.num_var} variables, {g.num_rows} rows) needs "
+            f"kernel 3 at {g.nodes} nodes and {g.nq} joints ({g.num_var} variables, "
+            f"{g.num_rows} rows) needs "
             f"{smem_bytes(g)} B of shared memory per block even in its compact layout "
             f"(full: {smem_bytes(g, False)} B) and {threads(g)} threads; a block may have "
             f"{SMEM_LIMIT} B and 1024 threads")

@@ -7,10 +7,16 @@ on the 19-node Chebyshev–Gauss–Lobatto spline. Decision vector layout
 
     z = [X_0, ..., X_18, U_0, ..., U_18, p],   X_k = [q_k, qdot_k]
 
-Every function takes a leading batch dimension. The per-node constraint
-values and Jacobians of a batch go through kernel 1
-(:mod:`.kernels.constraints`) for CUDA tensors and through the plain
-version here for CPU tensors.
+The figures above are the Panda's; the robot is an argument of
+:func:`make_ocp` (nx, nu, ng = 2 nq, nq, nq + 1). Every function takes a
+leading batch dimension. The per-node constraint values and Jacobians of a
+batch go where ``fused_constraints`` says (read once, at construction, from
+``MPC_TPU_FUSED_CONSTRAINTS`` unless given, as in the JAX package):
+"auto" through kernel 1 (:mod:`.kernels.constraints`) for CUDA tensors and
+the plain version here for CPU tensors, "on" through kernel 1 (CPU tensors
+raise), "off" through the plain version on every device, which is how a
+model that kernel 1 refuses (prismatic joints, a branched tree) is planned
+on the card. Under "auto" such a model raises, as on the TPU.
 
 The dense linearization (:meth:`TranscribedOCP.constraint_matrix`, for the
 dense QP backends) is A_eq = E_D + p C_dyn - f_rows e_p' with the constant
@@ -22,6 +28,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
+
+import os
 
 import numpy as np
 import torch
@@ -46,6 +54,9 @@ class TranscribedOCP:
     # qdot + dtau/da qddot) instead of the exact zero; dense backends only,
     # as in the JAX package (the structured operator keeps the zero)
     tau_p_column: bool = False
+    # where the batched constraint rows go: "auto", "on" or "off" (module
+    # docstring)
+    fused_constraints: str = "auto"
 
     @property
     def nq(self) -> int:
@@ -162,18 +173,32 @@ class TranscribedOCP:
         X, U, _ = self.unpack(z)
         return self.node_jacobians(X, U)
 
-    # ---- batched constraint evaluation: kernel 1 on CUDA ----
+    # ---- batched constraint evaluation: kernel 1 or the plain path ----
+
+    def uses_kernel(self, device) -> bool:
+        """Whether the batched constraint rows of tensors on ``device`` go
+        through kernel 1 (``fused_constraints``: "on", or "auto" on CUDA)."""
+        if self.fused_constraints == "auto":
+            return torch.device(device).type == "cuda"
+        return self.fused_constraints == "on"
+
+    def _node_constraints_batch(self, X, U, with_jac: bool):
+        if self.fused_constraints == "off":
+            return constraints_kernel.node_constraints_plain(self, X, U, with_jac)
+        if self.fused_constraints == "on":
+            return constraints_kernel.node_constraints_kernel(self, X, U, with_jac)
+        return constraints_kernel.node_constraints(self, X, U, with_jac)
 
     def ineq_residual_batch(self, z):
         """(B, num_var) -> (B, num_ineq)."""
         X, U, _ = self.unpack(z)
-        g = constraints_kernel.node_constraints(self, X, U, with_jac=False)
+        g = self._node_constraints_batch(X, U, with_jac=False)
         return g.reshape(z.shape[0], -1)
 
     def linearize_constraints_batch(self, z):
         """(B, num_var) -> (g (B, num_ineq), J (B, nodes, ng, nx+nu))."""
         X, U, _ = self.unpack(z)
-        g, J = constraints_kernel.node_constraints(self, X, U, with_jac=True)
+        g, J = self._node_constraints_batch(X, U, with_jac=True)
         return g.reshape(z.shape[0], -1), J
 
     # ---- dense linearization (dense QP backends) ----
@@ -281,8 +306,15 @@ def make_ocp(
     order: int = 3,
     num_segments: int = 6,
     tau_p_column: bool = False,
+    fused_constraints: str = None,
 ) -> TranscribedOCP:
-    """The OCP in the model's dtype and on its device."""
+    """The OCP in the model's dtype and on its device. ``fused_constraints``
+    ("auto", "on" or "off"; module docstring) defaults to the environment's
+    ``MPC_TPU_FUSED_CONSTRAINTS``, read here once, else "auto"."""
+    if fused_constraints is None:
+        fused_constraints = os.environ.get("MPC_TPU_FUSED_CONSTRAINTS", "auto")
+    if fused_constraints not in ("auto", "on", "off"):
+        raise ValueError(f"fused_constraints must be auto/on/off, got {fused_constraints!r}")
     dt, dev = model.mass.dtype, model.mass.device
     coll = make_collocation(order, num_segments, dtype=dt, device=dev)
     E, C = _build_constant_patterns(coll, 2 * model.nq, model.nq)
@@ -290,7 +322,7 @@ def make_ocp(
         model=model, coll=coll, tool_frame=model.frame(tool_frame_name),
         eq_diff_pattern=torch.as_tensor(E, dtype=dt, device=dev),
         eq_dyn_pattern=torch.as_tensor(C, dtype=dt, device=dev),
-        tau_p_column=tau_p_column,
+        tau_p_column=tau_p_column, fused_constraints=fused_constraints,
     )
 
 

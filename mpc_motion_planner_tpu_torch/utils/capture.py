@@ -90,7 +90,7 @@ class CapturedSolve:
         return (args["current_state"].shape[0], args["current_state"].dtype,
                 tuple(k for k in OPTIONAL if k in args), min_height,
                 (p.margins, p.sqp_settings, p.qp_settings, p.target_eps, p.time_bounds,
-                 p._min_height), Geometry.of_ocp(p.ocp))
+                 p._min_height), p.ocp.fused_constraints, Geometry.of_ocp(p.ocp))
 
     def _solve(self, args: dict, min_height):
         return self.planner.solve(min_height=min_height, **args)

@@ -94,7 +94,7 @@ def test_geometry_flags_reproduce_common_cuh_defaults():
     text = (CSRC / "common.cuh").read_text()
     defaults = dict(re.findall(r"#define (MPC_\w+) (\d+)", text))
     flags = dict(f[2:].split("=") for f in Geometry().flags())
-    assert flags == defaults and len(flags) == 5
+    assert flags == defaults and len(flags) == 3
     for segments in (4, 6, 8):
         g = Geometry.of_ocp(make_ocp(_planner().model, num_segments=segments))
         assert g == Geometry(segments=segments)
@@ -108,18 +108,22 @@ def test_geometry_flags_reproduce_common_cuh_defaults():
 
 def test_one_library_per_geometry():
     """Kernels 2 and 3 have a library per geometry, named by the hash of
-    sources and flags (the 19-node one is the default's); kernels 1 and 4
-    have one whatever the geometry. No nvcc is needed to name them."""
+    sources and flags (the 19-node one is the default's); kernel 1 has one
+    per joint count and kernel 4 one whatever the geometry. No nvcc is
+    needed to name them."""
     g19, g25, g13 = Geometry(), Geometry(segments=8), Geometry(segments=4)
     for k in (k2.KERNEL, k3.KERNEL):
         paths = {g: k.library_path(g) for g in (g19, g25, g13)}
         assert len(set(paths.values())) == 3
         assert k.library_path() == paths[g19]
         assert paths[g25].parent == BUILD_DIR and paths[g25].name.startswith(k.name + "_n25_")
-        assert k.flags(g25)[-5:] == g25.flags() and "-DMPC_SEGMENTS=8" in k.flags(g25)
-    for k in (kernels.KERNELS["constraints"], kernels.KERNELS["admm_dense"]):
-        assert k.library_path(g25) == k.library_path() and not any(
-            f.startswith("-DMPC") for f in k.flags(g25))
+        assert k.flags(g25)[-3:] == g25.flags() and "-DMPC_SEGMENTS=8" in k.flags(g25)
+    k1 = kernels.KERNELS["constraints"]
+    assert k1.library_path(g25) == k1.library_path() and k1.flags(g25)[-1] == "-DMPC_NQ=7"
+    assert not any(f.startswith("-DMPC_SEGMENTS") for f in k1.flags(g25))
+    k4 = kernels.KERNELS["admm_dense"]
+    assert k4.library_path(g25) == k4.library_path() and not any(
+        f.startswith("-DMPC") for f in k4.flags(g25))
 
 
 def test_kernel_shared_memory_reckoning():
