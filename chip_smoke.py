@@ -56,7 +56,17 @@ quality, times in turns) and the 8-joint chain's eager solve, the JAX
 fixture ``torch_port_panda6_b64.npz`` (64/64), the dense ``pallas`` path at
 6 joints, a 9-joint geometry's ValueError, and ``fused_constraints``: a
 branched model with prismatic fingers raises under "auto" and plans under
-"off", and the 6-joint planner under "off" launches no kernel 1.
+"off", and the 6-joint planner under "off" launches no kernel 1. Kernels 2
+and 3 are built for the band width too, the spline order: phase 21 builds
+them for orders 2, 4 and 5 (at 9, 4 and 3 segments: 19, 17 and 16 nodes;
+six nvcc at once), checks their blocks against the Python reckoning, holds
+them against their plain versions and times them at B=2048 at each order,
+drives the captured shipping solve of the headline states at 4 segments of
+order 4 (17 nodes, 358 variables, 416 rows; 5/2/2/0 launches, bitwise its
+eager solve, quality, times in turns), holds it against the JAX fixture
+``torch_port_order4_b64.npz`` (64/64), runs the dense ``pallas`` path at
+order 4, and checks that order 4 at 6 segments (25 nodes), whose kernel-3
+block does not fit, raises a ValueError naming its bytes.
 Needs one CUDA GPU and ``nvcc``; imports no JAX.
 
     python3 chip_smoke.py
@@ -93,6 +103,11 @@ SEG8_FIXTURE = os.path.join(FIXTURES, "torch_port_seg8_b64.npz")
 # the transcriptions kernels 2 and 3 are built for: 6, 8 and 4 segments of
 # order 3 (19, 25 and 13 nodes)
 SEGMENTS = (6, 8, 4)
+# and in phase 21, (order, segments): band widths 2, 4 and 5 at 19, 17 and
+# 16 nodes; order 4 x 4 is the phase's main path
+ORDERS = ((2, 9), (4, 4), (5, 3))
+# the JAX structured solve of the first 64 headline states at order 4 x 4
+ORDER4_FIXTURE = os.path.join(FIXTURES, "torch_port_order4_b64.npz")
 MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
 B_MAIN = 2048  # the headline batch
 B_FACTOR = 256  # kernel-2 comparison batch
@@ -142,17 +157,24 @@ K3_ITER_FLOPS = 157e3
 K3_REFINE_FLOPS = 134e3
 
 
-def k3_iter_flops(segments: int, nq: int = 7) -> float:
-    """K3_ITER_FLOPS at another number of order-3 segments and joints (blk =
-    3 nq): the sweeps 2 x (N x blk (blk + 1) / 2 + (3N - 6) x blk^2)
-    multiply-adds, A and A' 2 x (neq x 6 + (nq + 1) N x blk), the arrow 4 x
-    blk N, ~29 flop per element-wise update (157.3 kflop at 19 nodes, 210.6
-    at 25, for the Panda)."""
-    N, blk = 3 * segments + 1, 3 * nq
-    neq = segments * 4 * 2 * nq
+def band_blocks(nodes: int, bw: int) -> int:
+    """Sub-diagonal blocks L[k,k-d] (1 <= d <= bw) of a band of ``nodes``
+    nodes: those a banded sweep reads (3N - 6 at bw = 3)."""
+    return sum(min(bw, k) for k in range(nodes))
+
+
+def k3_iter_flops(segments: int, nq: int = 7, order: int = 3) -> float:
+    """K3_ITER_FLOPS at another transcription (``segments`` spline segments
+    of ``order``, nodes N = order x segments + 1, band width = order) and
+    joint count (blk = 3 nq): the sweeps 2 x (N x blk (blk + 1) / 2 +
+    band_blocks x blk^2) multiply-adds, A and A' 2 x (neq x (order + 3) +
+    (nq + 1) N x blk), the arrow 4 x blk N, ~29 flop per element-wise update
+    (157.3 kflop at 19 nodes, 210.6 at 25, for the Panda at order 3)."""
+    N, blk = order * segments + 1, 3 * nq
+    neq = segments * (order + 1) * 2 * nq
     nv, nm = blk * N + 1, neq + (nq + 1) * N
-    macs = (2 * (N * blk * (blk + 1) // 2 + (3 * N - 6) * blk * blk)
-            + 2 * (neq * 6 + (nq + 1) * N * blk) + 4 * blk * N)
+    macs = (2 * (N * blk * (blk + 1) // 2 + band_blocks(N, order) * blk * blk)
+            + 2 * (neq * (order + 3) + (nq + 1) * N * blk) + 4 * blk * N)
     return 2 * macs + 29 * (nv + nm)
 
 
@@ -212,7 +234,7 @@ def banded_factor_flops(nodes=19, bw=3, blk=21) -> float:
         for d in range(1, bw + 1):
             if k + d < nodes:
                 macs += min(k, bw - d) * blk**3 + blk**3 / 2
-    macs += 2 * (nodes * blk * (blk + 1) / 2 + (3 * nodes - 6) * blk**2)  # the arrow's sweeps
+    macs += 2 * (nodes * blk * (blk + 1) / 2 + band_blocks(nodes, bw) * blk**2)  # the arrow's sweeps
     return 2 * macs
 
 
@@ -731,11 +753,11 @@ def library_factor(qp, entry, phase) -> None:
     <= 1e-3 where both factored)."""
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
 
-    B, N, W = qp.Mband.shape[0], qp.Mband.shape[1], qp.Mband.shape[3]
+    B, N, bw, W = qp.Mband.shape[0], qp.Mband.shape[1], qp.Mband.shape[2] - 1, qp.Mband.shape[3]
     n = N * W + 1
     Md = torch.zeros(B, n, n, device=qp.Mband.device)
     for k in range(N):
-        for d in range(4):
+        for d in range(bw + 1):
             if k + d < N:
                 blk = qp.Mband[:, k, d]
                 Md[:, (k + d) * W:(k + d + 1) * W, k * W:(k + 1) * W] = blk
@@ -754,7 +776,7 @@ def library_factor(qp, entry, phase) -> None:
     Ldi = torch.linalg.solve_triangular(diag, eye, upper=False)
     Lsub = torch.zeros_like(fk["Lsub"])
     for k in range(N):
-        for d in range(1, 4):
+        for d in range(1, bw + 1):
             if k + d < N:
                 Lsub[:, k, d - 1] = L[:, (k + d) * W:(k + d + 1) * W, k * W:(k + 1) * W]
     errs = {"Ldi": rel_err(fk["Ldi"][use], Ldi[use]), "Lsub": rel_err(fk["Lsub"][use], Lsub[use]),
@@ -789,7 +811,7 @@ def kernel_checks(planner, first_qp, tag, states=None) -> str:
     _, sa, args, sc, sx = first_qp(B_FACTOR, pl=planner, states=states)
     qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
     fk = k2.factor_banded_kernel(qp.Mband, qp.p_col, qp.m_pp)
-    fp = qp_structured.factor_banded(qp.Mband, qp.p_col, qp.m_pp, 3)
+    fp = qp_structured.factor_banded(qp.Mband, qp.p_col, qp.m_pp, ocp.coll.order)
     torch.cuda.synchronize()
     check(torch.equal(fk["ok"], fp["ok"]), f"{tag}: kernel 2 ok flags differ from the plain version")
     errs = {k: rel_err(fk[k], fp[k]) for k in ("Ldi", "Lsub", "u", "s")}
@@ -885,7 +907,7 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
     _, sa, args, sc, sx = first_qp(B_MAIN, pl=pl, states=states)
     qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
     p_ms, k_ms, raw = time_pair(
-        keep("plain", lambda: qp_structured.factor_banded(qp.Mband, qp.p_col, qp.m_pp, 3)),
+        keep("plain", lambda: qp_structured.factor_banded(qp.Mband, qp.p_col, qp.m_pp, g.order)),
         keep("kernel", lambda: k2.factor_banded_kernel(qp.Mband, qp.p_col, qp.m_pp)),
     )
     fk, fp = out.pop("kernel"), out.pop("plain")
@@ -895,7 +917,7 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
     e2 = results[f"banded_factor_{suffix}"]
     e2.update(ms=k_ms, plain_ms=p_ms, max_abs_err=max(max_abs(fk[k], fp[k]) for k in errs))
     text = report_bound(
-        e2, B_MAIN * banded_factor_flops(nodes=g.nodes, blk=g.blk),
+        e2, B_MAIN * banded_factor_flops(nodes=g.nodes, bw=g.order, blk=g.blk),
         tensor_bytes(qp.Mband, qp.p_col, qp.m_pp, *fk.values()), "band in, factors out",
         library="torch.linalg.cholesky_ex of the dense M, below")
     log(f"{phase} kernel 2 B={B_MAIN}, {tag}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
@@ -903,15 +925,13 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
         f"relative error " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()) + " (tol 1e-3)")
     del fk, fp
     library_factor(qp, e2, f"{phase} at {tag}:")
-    fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, 3)
-    # the plain loop takes seconds: one comparison call each, then the
-    # kernel, the plain loop and the kernel again, timed
-    out["kernel"] = k3.admm_kernel(ocp, sa, qp, fac, shipping)
-    out["plain"] = qp_structured.admm_plain(ocp, sa, qp, fac, shipping)
+    fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, g.order)
+    # the plain loop takes seconds, so it runs once: the kernel, the plain
+    # loop and the kernel again, timed, and the outputs of those calls held
     raw = {"kernel": [], "plain": []}
     for name in ("kernel", "plain", "kernel"):
-        fn = (lambda: k3.admm_kernel(ocp, sa, qp, fac, shipping)) if name == "kernel" else (
-            lambda: qp_structured.admm_plain(ocp, sa, qp, fac, shipping))
+        fn = keep(name, (lambda: k3.admm_kernel(ocp, sa, qp, fac, shipping)) if name == "kernel"
+                  else (lambda: qp_structured.admm_plain(ocp, sa, qp, fac, shipping)))
         raw[name].append(time_kernel(fn, reps=1, warm=False))
     k_ms, p_ms = float(np.mean(raw["kernel"])), float(np.mean(raw["plain"]))
     got, ref = (qp_structured.unscale_solution(qp, *out[k]) for k in ("kernel", "plain"))
@@ -929,7 +949,7 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
           f"{ratios[0][1]:.3f}x the tolerance")
     e3 = results[f"structured_admm_{suffix}"]
     e3.update(ms=k_ms, plain_ms=p_ms, max_abs_err=window_err)
-    flops = k3_iter_flops(g.segments, g.nq)
+    flops = k3_iter_flops(g.segments, g.nq, g.order)
     text = report_bound(e3, k3_iters * flops, k3_bytes,
                         f"{k3_iters} problem-iterations of {flops / 1e3:.1f} kflop as the kernel "
                         f"counted them")
@@ -949,6 +969,63 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
         f"reached {100 * b_ms / w_ms:.1f}%")
 
 
+def captured_shipping(pl, cur, tgt, tag, suffix, phase, note, results, names, smi) -> None:
+    """A phase's main path: ``pl``'s shipping solve of (cur, tgt) captured
+    at B=2048, with the launches of one replay (5/2/2/0, set as the
+    ``launches`` of the ``results`` entries ``<name>_<suffix>`` of ``names``),
+    finite outputs of the OCP's shape, bitwise its eager solve on the seven
+    fields, no eager re-solve, the quality bars (``qp_conv_rate`` >= 0.98,
+    ``tol_hit_rate`` >= 0.99, terminal error <= 0.011), and replay and eager
+    times, median of 3 in turns."""
+    from mpc_motion_planner_tpu_torch import kernels
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.utils.capture import capture_solve
+
+    t0 = time.perf_counter()
+    solve = capture_solve(pl, cur, tgt)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    check(solve.captured, f"{tag}: the solve was not captured")
+    kernels.reset_launch_counts()
+    got = solve(cur, tgt)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    repairs = k2.REPAIRS.count
+    check(counts == {"constraints": 5, "banded_factor": 2, "structured_admm": 2, "admm_dense": 0},
+          f"{tag}: launches per replay {counts}")
+    for name in names:
+        results[f"{name}_{suffix}"]["launches"] = counts[name]
+    finite = all(bool(torch.isfinite(t).all()) for t in (got.z, got.violation, got.lam_c, got.lam_x))
+    check(finite and got.z.shape == (B_MAIN, pl.ocp.num_var),
+          f"{tag}: non-finite or misshapen outputs")
+    ref = pl.solve(cur, tgt)
+    ref2 = pl.solve(cur, tgt)
+    held = hold_captured(got, ref, ref2, tag)
+    check(solve.eager_resolves == 0, f"{tag}: {solve.eager_resolves} eager re-solves")
+    q = quality(pl, got, tgt)
+    check(q["qp_conv_rate"] >= 0.98 and q["tol_hit_rate"] >= 0.99
+          and q["terminal_err_inf_max"] <= 0.011, f"{tag}: quality {q}")
+    times = {"replay": [], "eager": []}
+    for mode in ("replay", "eager", "eager", "replay", "replay", "eager"):
+        fn = solve if mode == "replay" else pl.solve
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(cur, tgt)
+        torch.cuda.synchronize()
+        times[mode].append(1e3 * (time.perf_counter() - t0))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"{phase} captured shipping solve at {tag}, B={B_MAIN} ({note}): capture "
+        f"{t_capture:.2f} s; launches per replay {counts}, kernel-2 flags {repairs}; {held} "
+        f"against the eager solve (7 fields); quality {json.dumps(q)}")
+    log(f"{phase} timing at {tag}, median of 3 in turns: replay {med['replay']:.2f} ms = "
+        f"{B_MAIN / med['replay'] * 1e3:.1f} solves/s, eager {med['eager']:.2f} ms = "
+        f"{B_MAIN / med['eager'] * 1e3:.1f} solves/s (replays "
+        f"{[round(t, 2) for t in times['replay']]}, eager {[round(t, 2) for t in times['eager']]}) "
+        f"on {smi}")
+    del solve, got, ref, ref2
+    torch.cuda.empty_cache()
+
+
 def transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     """Phase 19: the Panda at 8 spline segments of order 3 (25 nodes, 526
     variables, 648 rows), set as a user sets it (``planner.ocp =
@@ -961,12 +1038,10 @@ def transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> N
     turns, bitwise the eager solve); the JAX fixture at 8 segments. Then
     kernels 2 and 3 built for 4 segments (13 nodes) against their plain
     versions."""
-    from mpc_motion_planner_tpu_torch import kernels
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.ocp import make_ocp
     from mpc_motion_planner_tpu_torch.planner import MotionPlanner
-    from mpc_motion_planner_tpu_torch.utils.capture import capture_solve
 
     dev = cur_all.device
 
@@ -1003,48 +1078,8 @@ def transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> N
     time_structured_kernels(pl25, first_qp, results, "25_nodes", "phase 19", window_err)
 
     # ---- the main path at 25 nodes: the captured shipping solve ----
-    t0 = time.perf_counter()
-    solve = capture_solve(pl25, cur_all, tgt_all)
-    torch.cuda.synchronize()
-    t_capture = time.perf_counter() - t0
-    check(solve.captured, "25 nodes: the solve was not captured")
-    kernels.reset_launch_counts()
-    got = solve(cur_all, tgt_all)
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    repairs = k2.REPAIRS.count
-    check(counts == {"constraints": 5, "banded_factor": 2, "structured_admm": 2, "admm_dense": 0},
-          f"25 nodes: launches per replay {counts}")
-    for name in ("banded_factor", "structured_admm"):
-        results[f"{name}_25_nodes"]["launches"] = counts[name]
-    finite = all(bool(torch.isfinite(t).all()) for t in (got.z, got.violation, got.lam_c, got.lam_x))
-    check(finite and got.z.shape == (B_MAIN, 526), "25 nodes: non-finite or misshapen outputs")
-    ref = pl25.solve(cur_all, tgt_all)
-    ref2 = pl25.solve(cur_all, tgt_all)
-    held = hold_captured(got, ref, ref2, "25 nodes")
-    check(solve.eager_resolves == 0, f"25 nodes: {solve.eager_resolves} eager re-solves")
-    q = quality(pl25, got, tgt_all)
-    check(q["qp_conv_rate"] >= 0.98 and q["tol_hit_rate"] >= 0.99
-          and q["terminal_err_inf_max"] <= 0.011, f"25 nodes: quality {q}")
-    times = {"replay": [], "eager": []}
-    for mode in ("replay", "eager", "eager", "replay", "replay", "eager"):
-        fn = solve if mode == "replay" else pl25.solve
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(cur_all, tgt_all)
-        torch.cuda.synchronize()
-        times[mode].append(1e3 * (time.perf_counter() - t0))
-    med = {k: float(np.median(v)) for k, v in times.items()}
-    log(f"phase 19 captured shipping solve at 25 nodes, B={B_MAIN} (headline states): capture "
-        f"{t_capture:.2f} s; launches per replay {counts}, kernel-2 flags {repairs}; {held} "
-        f"against the eager solve (7 fields); quality {json.dumps(q)}")
-    log(f"phase 19 timing at 25 nodes, median of 3 in turns: replay {med['replay']:.2f} ms = "
-        f"{B_MAIN / med['replay'] * 1e3:.1f} solves/s, eager {med['eager']:.2f} ms = "
-        f"{B_MAIN / med['eager'] * 1e3:.1f} solves/s (replays "
-        f"{[round(t, 2) for t in times['replay']]}, eager {[round(t, 2) for t in times['eager']]}) "
-        f"on {smi}")
-    del solve, got, ref, ref2
-    torch.cuda.empty_cache()
+    captured_shipping(pl25, cur_all, tgt_all, "25 nodes", "25_nodes", "phase 19",
+                      "headline states", results, ("banded_factor", "structured_admm"), smi)
 
     # ---- the JAX fixture at 8 segments, through the kernels ----
     n_good, n_tf, n_fx, summary = fixture_agreement(pl25, SEG8_FIXTURE, dev)
@@ -1108,7 +1143,6 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     from mpc_motion_planner_tpu_torch.ocp import make_ocp
     from mpc_motion_planner_tpu_torch.ops.sqp import SQPSettings
     from mpc_motion_planner_tpu_torch.planner import MotionPlanner
-    from mpc_motion_planner_tpu_torch.utils.capture import capture_solve
 
     dev, f32 = cur_all.device, torch.float32
     fx = fixture_models()
@@ -1222,48 +1256,9 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
                                 states)
 
     # ---- (b) the 6-joint planner: the captured shipping solve ----
-    t0 = time.perf_counter()
-    solve = capture_solve(pl6, cur6, tgt6)
-    torch.cuda.synchronize()
-    t_capture = time.perf_counter() - t0
-    check(solve.captured, "6 joints: the solve was not captured")
-    kernels.reset_launch_counts()
-    got = solve(cur6, tgt6)
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    repairs = k2.REPAIRS.count
-    check(counts == {"constraints": 5, "banded_factor": 2, "structured_admm": 2, "admm_dense": 0},
-          f"6 joints: launches per replay {counts}")
-    for name in ("constraints", "banded_factor", "structured_admm"):
-        results[f"{name}_6_joints"]["launches"] = counts[name]
-    finite = all(bool(torch.isfinite(t).all()) for t in (got.z, got.violation, got.lam_c, got.lam_x))
-    check(finite and got.z.shape == (B_MAIN, 343), "6 joints: non-finite or misshapen outputs")
-    ref = pl6.solve(cur6, tgt6)
-    ref2 = pl6.solve(cur6, tgt6)
-    held = hold_captured(got, ref, ref2, "6 joints")
-    check(solve.eager_resolves == 0, f"6 joints: {solve.eager_resolves} eager re-solves")
-    q = quality(pl6, got, tgt6)
-    check(q["qp_conv_rate"] >= 0.98 and q["tol_hit_rate"] >= 0.99
-          and q["terminal_err_inf_max"] <= 0.011, f"6 joints: quality {q}")
-    times = {"replay": [], "eager": []}
-    for mode in ("replay", "eager", "eager", "replay", "replay", "eager"):
-        fn = solve if mode == "replay" else pl6.solve
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(cur6, tgt6)
-        torch.cuda.synchronize()
-        times[mode].append(1e3 * (time.perf_counter() - t0))
-    med = {k: float(np.median(v)) for k, v in times.items()}
-    log(f"phase 20 captured shipping solve at 6 joints, B={B_MAIN} (headline states, joint 7 "
-        f"dropped): capture {t_capture:.2f} s; launches per replay {counts}, kernel-2 flags "
-        f"{repairs}; {held} against the eager solve (7 fields); quality {json.dumps(q)}")
-    log(f"phase 20 timing at 6 joints, median of 3 in turns: replay {med['replay']:.2f} ms = "
-        f"{B_MAIN / med['replay'] * 1e3:.1f} solves/s, eager {med['eager']:.2f} ms = "
-        f"{B_MAIN / med['eager'] * 1e3:.1f} solves/s (replays "
-        f"{[round(t, 2) for t in times['replay']]}, eager {[round(t, 2) for t in times['eager']]}) "
-        f"on {smi}")
-    del solve, got, ref, ref2
-    torch.cuda.empty_cache()
+    captured_shipping(pl6, cur6, tgt6, "6 joints", "6_joints", "phase 20",
+                      "headline states, joint 7 dropped", results,
+                      ("constraints", "banded_factor", "structured_admm"), smi)
     kernels.reset_launch_counts()
     sol8 = pl8.solve(cur8, tgt8)
     torch.cuda.synchronize()
@@ -1373,6 +1368,149 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
         f"{float(sol_h.qp_converged.double().mean()):.4f}; the 6-joint planner under 'off' "
         f"launches {counts_off}, qp_conv_rate {q_off['qp_conv_rate']}, tol_hit_rate "
         f"{q_off['tol_hit_rate']}")
+
+
+def order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -> None:
+    """Phase 21: splines of other orders, with kernels 2 and 3 built for
+    their band width. (a) The libraries of ORDERS (band widths 2, 4, 5; six
+    nvcc at once) against the Python reckoning of their blocks. (b) At each
+    order, kernels 2 and 3 against their plain versions on the step-0 QPs
+    of the headline states (``kernel_checks``: phase 3's and 4's bars) and
+    timed at B=2048 with their bounds and kernel 2's library call; at orders
+    2 and 5 an eager shipping solve of the headline states gives their
+    launches. (c) The main path: the Panda at 4 segments of order 4 (17
+    nodes, 358 variables, 416 rows), set as a user sets it (``planner.ocp =
+    make_ocp(planner.model, planner.tool_frame, order=4, num_segments=4)``),
+    its captured shipping solve of the headline states. (d) The JAX fixture
+    at order 4 (64/64). (e) The dense ``pallas`` path at order 4 (kernels 1
+    and 4 at n = 358). (f) Order 4 at 6 segments (25 nodes), whose kernel-3
+    block does not fit, raises a ValueError naming its bytes."""
+    from mpc_motion_planner_tpu_torch import kernels
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+    from mpc_motion_planner_tpu_torch.ocp import make_ocp
+    from mpc_motion_planner_tpu_torch.ops.sqp import SQPSettings
+    from mpc_motion_planner_tpu_torch.planner import MotionPlanner
+
+    dev = cur_all.device
+
+    def with_order(order, segments, qp=None, sqp=None):
+        pl = MotionPlanner(margins=planner.margins, dtype=planner.dtype, device=dev,
+                           qp_settings=qp or planner.qp_settings,
+                           sqp_settings=sqp or planner.sqp_settings)
+        pl.ocp = make_ocp(pl.model, pl.tool_frame, order=order, num_segments=segments)
+        return pl
+
+    # ---- (a) build: kernels 2 and 3 at each order, one nvcc each, together ----
+    geoms = [Geometry(segments=segments, order=order) for order, segments in ORDERS]
+    t0 = time.perf_counter()
+    jobs = [(name, kernels.KERNELS[name], g) for g in geoms
+            for name in ("banded_factor", "structured_admm")]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        paths = list(pool.map(lambda job: job[1].build(job[2]), jobs))
+    for (name, k, g), path in zip(jobs, paths):
+        info = [ln.strip() for ln in k.build_log.get(k.geometry(g), "").splitlines()
+                if "registers" in ln or "spill" in ln]
+        log(f"phase 21 build: {name} at order {g.order} -> {os.path.relpath(path, ROOT)} | "
+            + " | ".join(info))
+    log(f"phase 21 build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for g in geoms:
+        lay3, lay2 = k3.block_layout(g), k2.block_layout(g)
+        want3 = {"threads": k3.threads(g), "smem_bytes": k3.smem_bytes(g)}
+        want2 = {"smem_bytes": k2.smem_bytes(g), "per_sm": k2.per_sm(g)}
+        check({k: lay3[k] for k in want3} == want3,
+              f"kernel 3 at order {g.order}: the library's block {lay3}, the reckoning {want3}")
+        check({k: lay2[k] for k in want2} == want2 and lay2["blocks_per_sm"] >= lay2["per_sm"],
+              f"kernel 2 at order {g.order}: the library's block {lay2}, the reckoning {want2}")
+        log(f"phase 21 libraries at order {g.order} x {g.segments} segments ({g.nodes} nodes, "
+            f"{g.num_var} variables, {g.num_rows} rows): kernel 3 {lay3['threads']} threads "
+            f"({k3.sweep_warps(g)} sweep warps), {lay3['smem_bytes']} B "
+            f"({'compact' if lay3['smem_bytes'] < k3.smem_bytes(g, False) else 'full'} layout; "
+            f"full {k3.smem_bytes(g, False)} B), {lay3['blocks_per_sm']} block per SM; kernel 2 "
+            f"{lay2['smem_bytes']} B, registers capped for {lay2['per_sm']} problems per SM, "
+            f"{lay2['blocks_per_sm']} per SM by the occupancy calculator ({sms} SMs); the "
+            f"reckoning agrees")
+
+    # ---- (b) kernels 2 and 3 against their plain versions, timed ----
+    for (order, segments), g in zip(ORDERS, geoms):
+        pl = with_order(order, segments)
+        ocp = pl.ocp
+        check((ocp.num_nodes, ocp.num_var, ocp.num_eq + ocp.num_ineq)
+              == (g.nodes, g.num_var, g.num_rows), f"order {order}: {ocp.num_var} variables")
+        summary, window_err = kernel_checks(pl, first_qp, f"order {order}")
+        log(f"phase 21 at order {order} x {segments} segments ({g.nodes} nodes), {summary}")
+        time_structured_kernels(pl, first_qp, results, f"order{order}", "phase 21", window_err)
+        if order == 4:
+            continue  # its launches are those of the main path, (c)
+        kernels.reset_launch_counts()
+        sol = pl.solve(cur_all, tgt_all)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check(counts == {"constraints": 5, "banded_factor": 2, "structured_admm": 2,
+                         "admm_dense": 0}, f"order {order}: launches per solve {counts}")
+        for name in ("banded_factor", "structured_admm"):
+            results[f"{name}_order{order}"]["launches"] = counts[name]
+        finite = all(bool(torch.isfinite(t).all()) for t in (sol.z, sol.violation, sol.lam_c))
+        check(finite and sol.z.shape == (B_MAIN, g.num_var),
+              f"order {order}: non-finite or misshapen outputs")
+        log(f"phase 21 eager shipping solve at order {order} x {segments} segments, B={B_MAIN} "
+            f"(headline states): launches {counts}, quality {json.dumps(quality(pl, sol, tgt_all))}")
+        del pl, sol
+
+    # ---- (c) the main path: the captured shipping solve at order 4 ----
+    pl4 = with_order(4, 4)
+    captured_shipping(pl4, cur_all, tgt_all, "order 4", "order4", "phase 21",
+                      "headline states, 4 segments of order 4, 17 nodes", results,
+                      ("banded_factor", "structured_admm"), smi)
+
+    # ---- (d) the JAX fixture at order 4, through the kernels ----
+    n_good, n_tf, n_fx, summary = fixture_agreement(pl4, ORDER4_FIXTURE, dev)
+    check(n_good == n_fx, f"order 4: {n_good}/{n_fx} fixture problems agree")
+    log(f"phase 21 JAX fixture at order 4 x 4: {summary}")
+
+    # ---- (e) the dense pallas path at order 4 (kernel 4 at n=358, m=416) ----
+    dense4 = with_order(4, 4, qp=dense_cfg, sqp=SQPSettings())
+    kernels.reset_launch_counts()
+    wall = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = dense4.solve(cur_all, tgt_all)
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        if not wall[1:]:
+            counts = kernels.launch_counts()
+    check(counts == {"constraints": 5, "banded_factor": 0, "structured_admm": 0, "admm_dense": 2},
+          f"order 4, dense path: launches {counts}")
+    finite = all(bool(torch.isfinite(t).all()) for t in (sol.z, sol.violation, sol.lam_c, sol.lam_x))
+    qd = quality(dense4, sol, tgt_all)
+    check(finite and qd["tol_hit_rate"] >= 0.99, f"order 4, dense path: quality {qd}")
+    log(f"phase 21 dense path at order 4, B={B_MAIN} (backend pallas, kkt_refine 1, "
+        f"n={dense4.ocp.num_var}, m={dense4.ocp.num_eq + dense4.ocp.num_ineq}): launches {counts}, "
+        f"cold solve {wall[0]:.1f} ms, warm solve {wall[1]:.1f} ms = "
+        f"{B_MAIN / wall[1] * 1e3:.1f} solves/s; quality {json.dumps(qd)}")
+    del sol, dense4
+
+    # ---- (f) order 4 at 6 segments: kernel 3's block does not fit ----
+    g46 = Geometry(segments=6, order=4)
+    try:
+        k3.check_fits(g46)
+        refused = None
+    except ValueError as err:
+        refused = str(err)
+    check(refused is not None and f"{k3.smem_bytes(g46)} B" in refused,
+          f"order 4 x 6: kernel 3's fit check says {refused}")
+    k2.check_fits(g46)  # kernel 2's working set is per node
+    try:
+        with_order(4, 6).solve(cur_all[:4], tgt_all[:4])
+        solved = "solved"
+    except ValueError as err:
+        solved = str(err)
+    check(f"{k3.smem_bytes(g46)} B" in solved, f"order 4 x 6 on the card: {solved}")
+    log(f"phase 21 refusal at order 4 x 6 segments ({g46.nodes} nodes): {refused}; the "
+        f"planner's solve on the card raises the same")
 
 
 def run(dev: torch.device) -> None:
@@ -2183,6 +2321,7 @@ def run(dev: torch.device) -> None:
 
     transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi)
+    order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

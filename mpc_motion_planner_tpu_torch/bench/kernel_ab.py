@@ -27,10 +27,12 @@ prints one JSON line per variant:
   launch's outputs are bitwise the package kernel's.
 
 Times are CUDA events around ``--reps`` calls, the variants in turns (first
-to last, then last to first). ``--segments`` sets the transcription (spline
-segments of order 3: 6 is the 19-node default, 8 gives 25 nodes), as a user
-sets it: ``planner.ocp = make_ocp(model, tool_frame, num_segments=8)``;
-kernels 2 and 3 and their variants are built for it. ``--urdf`` takes
+to last, then last to first). ``--segments`` and ``--order`` set the
+transcription (spline segments of an order, 6 of order 3 by default: 19
+nodes; 8 segments give 25 nodes, 4 of order 4 give 17), as a user sets it:
+``planner.ocp = make_ocp(model, tool_frame, order=4, num_segments=4)``;
+kernels 2 and 3 and their variants are built for it (a variant from before
+the kernels took other band widths builds for order 3 only). ``--urdf`` takes
 another robot, a Panda with its last joints locked (for example
 ``tests/fixtures/panda_joint7_fixed.urdf``, 6 joints; the headline states'
 entries of its joints and the Panda's limits of them, as
@@ -38,7 +40,8 @@ entries of its joints and the Panda's limits of them, as
 count.
 
     python -m mpc_motion_planner_tpu_torch.bench.kernel_ab --kernel 4 \\
-        [--batch 2048] [--reps 3] [--segments 6] [--urdf path.urdf] [name=path.cu ...]
+        [--batch 2048] [--reps 3] [--segments 6] [--order 3] [--urdf path.urdf] \\
+        [name=path.cu ...]
 
 A variant's headers are looked up beside its source. To compare with an
 earlier commit:
@@ -114,7 +117,7 @@ def structured_qp(planner, cur, tgt, settings):
     """The scaled structured QP of step 0 and its factors."""
     (P, h, sa, lc, uc, lx, ux), soft = step0(planner, cur, tgt, False)
     qp = qp_structured.scale_qp(planner.ocp, sa, P, h, lc, uc, lx, ux, settings, **soft)
-    return sa, qp, k2.factor(qp.Mband, qp.p_col, qp.m_pp, 3)
+    return sa, qp, k2.factor(qp.Mband, qp.p_col, qp.m_pp, planner.ocp.coll.order)
 
 
 def dense_chunk_inputs(planner, cur, tgt):
@@ -271,7 +274,7 @@ def ab_factor(kernels, planner, cur, tgt, reps):
     qp = qp_structured.scale_qp(planner.ocp, sa, P, h, lc, uc, lx, ux,
                                 config.SHIPPING_QP_SETTINGS, **soft)
     data = (qp.Mband, qp.p_col, qp.m_pp)
-    plain = qp_structured.factor_banded(*data, 3)
+    plain = qp_structured.factor_banded(*data, planner.ocp.coll.order)
     times, out = time_in_turns(
         kernels, lambda k: run_with(k2, k, k2.factor_banded_kernel, *data), reps)
     results = {}
@@ -323,7 +326,10 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--segments", type=int, default=6,
-                    help="spline segments of order 3 (6: 19 nodes, 8: 25 nodes)")
+                    help="spline segments (6 of order 3: 19 nodes; 8: 25 nodes)")
+    ap.add_argument("--order", type=int, default=3,
+                    help="spline order, the band width of kernels 2 and 3 (4 x 4 segments: "
+                         "17 nodes)")
     ap.add_argument("--urdf", help="a Panda with its last joints locked (default: the Panda)")
     ap.add_argument("variants", nargs="*", help="name=path.cu")
     a = ap.parse_args(argv)
@@ -344,7 +350,7 @@ def main(argv=None) -> int:
         kernels[name] = variant_kernel(a.kernel, name, os.path.abspath(path))
     model, limits, cols = (locked_panda(a.urdf, torch.float32, dev) if a.urdf
                            else (None, None, list(range(14))))
-    geometry = build.Geometry(segments=a.segments, nq=len(cols) // 2)
+    geometry = build.Geometry(segments=a.segments, order=a.order, nq=len(cols) // 2)
     for name, k in kernels.items():
         k.function(geometry)
         info = [ln.strip() for ln in k.build_log.get(k.geometry(geometry), "").splitlines()
@@ -357,8 +363,9 @@ def main(argv=None) -> int:
         qp_settings=shipping,
         sqp_settings=SQPSettings(qp_step_schedules=config.shipping_sqp_schedules(shipping.backend)),
     )
-    if a.segments != 6:
-        planner.ocp = make_ocp(planner.model, planner.tool_frame, num_segments=a.segments)
+    if (a.segments, a.order) != (6, 3):
+        planner.ocp = make_ocp(planner.model, planner.tool_frame, order=a.order,
+                               num_segments=a.segments)
     ocp = planner.ocp
     states = np.load(STATES)
     cur = torch.as_tensor(states["current"][: a.batch][:, cols], device=dev)
@@ -375,7 +382,7 @@ def main(argv=None) -> int:
         at = lambda n: dataclasses.replace(shipping, max_iter=n)
         pick = lambda out: (out[0], out[5], out[6])
         ocp64 = make_ocp(planner.model.to(dtype=torch.float64), planner.tool_frame,
-                         num_segments=a.segments)
+                         order=a.order, num_segments=a.segments)
 
         def float64(data, n):
             sa, qp, fac = data

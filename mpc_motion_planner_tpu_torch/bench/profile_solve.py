@@ -15,11 +15,12 @@ each hand-written kernel by name. Wall times are taken before the profiler
 starts, which slows later solves.
 
     python -m mpc_motion_planner_tpu_torch.bench.profile_solve [--dense | --default | --xla]
-        [--warm 5] [--segments 6] [--urdf tests/fixtures/panda_joint7_fixed.urdf]
+        [--warm 5] [--segments 6] [--order 3] [--urdf tests/fixtures/panda_joint7_fixed.urdf]
 
-``--segments`` sets the transcription as a user sets it (``planner.ocp =
-make_ocp(model, tool_frame, num_segments=8)``: 25 nodes; default 6, 19
-nodes), and kernels 2 and 3 are built for it. ``--urdf`` plans another
+``--segments`` and ``--order`` set the transcription as a user sets it
+(``planner.ocp = make_ocp(model, tool_frame, order=3, num_segments=8)``: 25
+nodes; ``order=4, num_segments=4``: 17 nodes; default 6 segments of order 3,
+19 nodes), and kernels 2 and 3 are built for it. ``--urdf`` plans another
 robot: a Panda with its last joints locked (for example
 ``tests/fixtures/panda_joint7_fixed.urdf``, 6 joints), with the Panda's
 limits of its first nq joints and the headline states' entries of those
@@ -97,10 +98,11 @@ def locked_panda(urdf: str, dtype, device):
     return model, limits, list(range(nq)) + [7 + i for i in range(nq)]
 
 
-def make_planner(which: str, dev, segments: int = 6, urdf: str = None) -> MotionPlanner:
+def make_planner(which: str, dev, segments: int = 6, urdf: str = None,
+                 order: int = 3) -> MotionPlanner:
     """The planner of a path: "structured" (shipping), "dense",
     "structured_default" or "xla" (``MotionPlanner()``'s settings), on
-    ``segments`` spline segments of order 3, for the Panda or the robot of
+    ``segments`` spline segments of ``order``, for the Panda or the robot of
     ``urdf`` (:func:`locked_panda`)."""
     if which == "xla":
         qp, sqp = QPSettings(), SQPSettings()
@@ -116,8 +118,9 @@ def make_planner(which: str, dev, segments: int = 6, urdf: str = None) -> Motion
     model, limits, _ = (locked_panda(urdf, torch.float32, dev) if urdf else (None, None, None))
     planner = MotionPlanner(model=model, limits=limits, margins=Margins(*MARGINS),
                             dtype=torch.float32, device=dev, qp_settings=qp, sqp_settings=sqp)
-    if segments != 6:
-        planner.ocp = make_ocp(planner.model, planner.tool_frame, num_segments=segments)
+    if (segments, order) != (6, 3):
+        planner.ocp = make_ocp(planner.model, planner.tool_frame, order=order,
+                               num_segments=segments)
     return planner
 
 
@@ -164,7 +167,9 @@ def main(argv=None) -> int:
     group.add_argument("--xla", action="store_true", help="MotionPlanner()'s dense xla default")
     ap.add_argument("--warm", type=int, default=5, help="warm solves of each mode on the host clock")
     ap.add_argument("--segments", type=int, default=6,
-                    help="spline segments of order 3 (6: 19 nodes, 8: 25 nodes)")
+                    help="spline segments (6 of order 3: 19 nodes; 8: 25 nodes)")
+    ap.add_argument("--order", type=int, default=3,
+                    help="spline order (4 x 4 segments: 17 nodes)")
     ap.add_argument("--urdf", help="a Panda with its last joints locked (default: the Panda)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -178,7 +183,7 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     which = ("dense" if a.dense else "structured_default" if a.default
              else "xla" if a.xla else "structured")
-    planner = make_planner(which, dev, a.segments, a.urdf)
+    planner = make_planner(which, dev, a.segments, a.urdf, a.order)
     cols = list(range(planner.ocp.nq)) + [7 + i for i in range(planner.ocp.nq)]
     states = np.load(STATES)
     cur = torch.as_tensor(states["current"][:, cols], device=dev)
@@ -203,7 +208,7 @@ def main(argv=None) -> int:
         for m, fn in modes.items():
             warm[m].append(solve(fn))
     out = {"path": which, "batch": B, "nodes": planner.ocp.num_nodes,
-           "joints": planner.ocp.nq, "capture_s": capture_s,
+           "order": planner.ocp.coll.order, "joints": planner.ocp.nq, "capture_s": capture_s,
            "eager_resolves": captured.eager_resolves}
     for m, fn in modes.items():
         kernels.reset_launch_counts()

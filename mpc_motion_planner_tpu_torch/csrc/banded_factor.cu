@@ -18,11 +18,11 @@
 // sets N, see common.cuh). So the design keeps a
 // problem small enough for several to share an SM and hide each other's
 // waits, and takes the sequential parts out of block-wide barrier loops:
-//  * node k reads only L[., j] for j >= k - 3, so shared memory holds a
-//    ring of the last three nodes' sub-diagonal blocks (~34 KB a block in
-//    all instead of the whole 134 KB factor). Ldi[k] and Lsub[k] go to
-//    device memory as soon as they are final, and the saturation scan
-//    happens as they are written;
+//  * node k reads only L[., j] for j >= k - BW (BW = the band width, the
+//    spline order), so shared memory holds a ring of the last BW nodes'
+//    sub-diagonal blocks (~34 KB a block in all at BW = 3 instead of the
+//    whole 134 KB factor). Ldi[k] and Lsub[k] go to device memory as soon
+//    as they are final, and the saturation scan happens as they are written;
 //  * the BLK x BLK Cholesky (21 x 21 for the Panda; BLK = 3 NQ <= 30, so
 //    that one warp holds a row per lane) and the triangular inverse run in
 //    one warp with row r (then column c) of the block in lane r's
@@ -31,26 +31,31 @@
 //    Meanwhile the other three warps form what node k + 1 needs from older
 //    nodes (the j < k products of its S and of its first sub-diagonal
 //    block) and the arrow column's forward-substitution sum for node k;
-//  * a node is three phases and three barriers: (A) that; (B) the three
-//    products with Ldi[k]' and ys[k]; (C) the j = k products of node k + 1;
+//  * a node is three phases and three barriers: (A) that; (B) the BW
+//    products with Ldi[k]' and ys[k]; (C) the j = k products of node k + 1,
+//    and its sub-diagonal blocks M[k+1+d,k+1], d >= 2, less all their
+//    band products;
 //  * only the backward sweep for u reads factors again, newest first, four
 //    nodes at a time out of L2 where the block has just written them.
 // Each entry is formed by the TPU kernel's operations in their order (every
-// block product subtracted and clamped on its own, the Cholesky column by
-// column), whatever phase forms it, so the guards flag the same problems.
+// block product subtracted and clamped on its own, in the order of j, the
+// Cholesky column by column), whatever phase forms it, so the guards flag
+// the same problems.
 //
 // Layout (see kernels/banded_factor.py), BLK = 21 for the Panda: Mband
-// (B,N,4,BLK,BLK) with Mband[b,k,d] = M[k+d,k]; outputs Ldi (B,N,BLK,BLK) =
-// L[k,k]^-1, Lsub (B,N,3,BLK,BLK) with Lsub[b,k,d-1] = L[k+d,k], u
+// (B,N,BW+1,BLK,BLK) with Mband[b,k,d] = M[k+d,k]; outputs Ldi (B,N,BLK,BLK)
+// = L[k,k]^-1, Lsub (B,N,BW,BLK,BLK) with Lsub[b,k,d-1] = L[k+d,k], u
 // (B,N,BLK), s (B,), ok (B,) int.
 //
 // The node count enters only loop bounds, strides and the two N x BLK
 // vectors ys and us: the working set is per node (the ring and CH staged
 // nodes), so a build per transcription keeps six problems per SM up to 44
-// nodes of the Panda (ys and us are 168 B per node beside the ~30 KB of the
-// rest). The joint count sets BLK: the working set grows with BLK^2 (25,060
-// B at 6 joints, 42,964 B at 8, 19 nodes), and PER_SM, the problems per SM
-// the registers are capped for, follows from it below.
+// nodes of the Panda at BW = 3 (ys and us are 168 B per node beside the
+// ~30 KB of the rest). The joint count sets BLK and the band width the
+// ring: the working set grows with BLK^2 (25,060 B at 6 joints, 42,964 B at
+// 8, 19 nodes) and with BW^2 (24,508 B at BW = 2, 19 nodes; 47,356 B at
+// BW = 4, 17 nodes; 64,828 B at BW = 5, 16 nodes), and PER_SM, the
+// problems per SM the registers are capped for, follows from it below.
 
 #include "common.cuh"
 
@@ -65,24 +70,23 @@ constexpr int CH = 4;      // nodes staged per step of the backward sweep
 constexpr float MAG = 1e8f;
 constexpr float SAT = 0.99f * MAG;
 constexpr float PIV_FLOOR = 1e-20f;
-// the recursion's three sub-diagonal blocks per node (C1, C2, C3 and the
-// three ring slots) are written out for band width 3: splines of order 3
-static_assert(BW == 3, "kernel 2 is written for band width 3");
+static_assert(BW >= 1, "a band has at least one sub-diagonal block");
 static_assert(BLK <= 30 && LKS <= 32, "one warp holds a row of L[k,k] per lane");
 
 __device__ __forceinline__ float fz(float v) { return clampf(v, -MAG, MAG); }
 
 struct Forward {
   float LkT[BLK * LKS];      // L[k,k], column j at LkT[j * LKS]
-  float ring[BW][BW][BLK2];  // ring[j % 3][d - 1] = L[j+d, j] of the last three nodes
+  float ring[BW][BW][BLK2];  // ring[j % BW][d - 1] = L[j+d, j] of the last BW nodes
   float S[2][BLK2];          // Schur complement of node k and, in the making, of k + 1
-  float C1[2][BLK2];         // M[k+1,k] less its band products; the same for k + 1
-  float C2[BLK2], C3[BLK2];  // the same for M[k+2,k], M[k+3,k]
+  // M[k+d,k] less its band products: C[0], C[1] for d = 1 (node k's and, in
+  // the making, node k + 1's), C[d] for d = 2..BW
+  float C[BW + 1][BLK2];
   float Linv[BLK2];          // Ldi[k]
 };
 
 struct Backward {
-  float blk[CH][BW + 1][BLK2];  // per staged node: Ldi, then its three Lsub blocks
+  float blk[CH][BW + 1][BLK2];  // per staged node: Ldi, then its BW Lsub blocks
 };
 
 struct Smem {
@@ -199,7 +203,7 @@ banded_factor_kernel(const float* __restrict__ Mband, const float* __restrict__ 
   const float* pc = p_col + (size_t)b * N * BLK;
   float* Ldi_b = Ldi_out + (size_t)b * N * BLK2;
   float* Lsub_b = Lsub_out + (size_t)b * N * BW * BLK2;
-  // M[i, j] for i - j <= 3, and L[i, j] for the last three nodes j
+  // M[i, j] for i - j <= BW, and L[i, j] for the last BW nodes j
   auto Mblk = [&](int i, int j) { return Mb + (j * (BW + 1) + (i - j)) * BLK2; };
   auto L = [&](int i, int j) -> float* { return f.ring[j % BW][i - j - 1]; };
   bool sat = false;
@@ -207,9 +211,8 @@ banded_factor_kernel(const float* __restrict__ Mband, const float* __restrict__ 
   if (tid == 0) sm.ok = 1;
   for (int e = tid; e < BLK2; e += NT) {
     f.S[0][e] = Mblk(0, 0)[e];
-    f.C1[0][e] = Mblk(1, 0)[e];
-    f.C2[e] = Mblk(2, 0)[e];
-    f.C3[e] = Mblk(3, 0)[e];
+    f.C[0][e] = Mblk(1, 0)[e];
+    for (int d = 2; d <= BW; ++d) f.C[d][e] = Mblk(d, 0)[e];
   }
   __syncthreads();
 
@@ -238,12 +241,14 @@ banded_factor_kernel(const float* __restrict__ Mband, const float* __restrict__ 
         for (int e = tid - 32; e < BLK2; e += NT - 32) {
           const int a = e / BLK, c = e % BLK;
           float v = Mblk(k + 1, k + 1)[e];
-          for (int j = max(0, k - 2); j < k; ++j) v = sub_nt(v, L(k + 1, j), L(k + 1, j), a, c);
+          for (int j = max(0, k + 1 - BW); j < k; ++j)
+            v = sub_nt(v, L(k + 1, j), L(k + 1, j), a, c);
           f.S[nxt][e] = v;
           if (k + 2 < N) {
             v = Mblk(k + 2, k + 1)[e];
-            if (k >= 1) v = sub_nt(v, L(k + 2, k - 1), L(k + 1, k - 1), a, c);
-            f.C1[nxt][e] = v;
+            for (int j = max(0, k + 2 - BW); j < k; ++j)
+              v = sub_nt(v, L(k + 2, j), L(k + 1, j), a, c);
+            f.C[nxt][e] = v;
           }
         }
       }
@@ -260,7 +265,7 @@ banded_factor_kernel(const float* __restrict__ Mband, const float* __restrict__ 
     for (int d = 1; d <= BW; ++d) {
       float* out = f.ring[k % BW][d - 1];
       float* gout = Lsub_b + (k * BW + d - 1) * BLK2;
-      const float* C = d == 1 ? f.C1[cur] : (d == 2 ? f.C2 : f.C3);
+      const float* C = f.C[d == 1 ? cur : d];
       for (int e = tid; e < BLK2; e += NT) {
         float v = 0.f;
         if (k + d < N) {
@@ -282,14 +287,21 @@ banded_factor_kernel(const float* __restrict__ Mband, const float* __restrict__ 
     }
     __syncthreads();
 
-    // ---- phase C: node k + 1's products with L[., k] ----
+    // ---- phase C: node k + 1's products with L[., k]; its blocks M[k+1+d,
+    // k+1] for d >= 2 (every band product, j in order) ----
     if (k + 1 < N) {
       for (int e = tid; e < BLK2; e += NT) {
         const int a = e / BLK, c = e % BLK;
         f.S[nxt][e] = sub_nt(f.S[nxt][e], L(k + 1, k), L(k + 1, k), a, c);
-        if (k + 2 < N) f.C1[nxt][e] = sub_nt(f.C1[nxt][e], L(k + 2, k), L(k + 1, k), a, c);
-        if (k + 3 < N) f.C2[e] = sub_nt(Mblk(k + 3, k + 1)[e], L(k + 3, k), L(k + 1, k), a, c);
-        if (k + 4 < N) f.C3[e] = Mblk(k + 4, k + 1)[e];
+        if (BW >= 2 && k + 2 < N)
+          f.C[nxt][e] = sub_nt(f.C[nxt][e], L(k + 2, k), L(k + 1, k), a, c);
+        for (int d = 2; d <= BW; ++d) {
+          if (k + 1 + d >= N) break;
+          float v = Mblk(k + 1 + d, k + 1)[e];
+          for (int j = max(0, k + 1 + d - BW); j <= k; ++j)
+            v = sub_nt(v, L(k + 1 + d, j), L(k + 1, j), a, c);
+          f.C[d][e] = v;
+        }
       }
     }
     __syncthreads();

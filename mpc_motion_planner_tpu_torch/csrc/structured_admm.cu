@@ -34,10 +34,11 @@
 //
 // What the design does about it:
 // * Lane r of a chain warp owns row r of a block step. Only the distance-1
-//   term L[k,k-1] y_{k-1} and the Ldi_k product are on the chain. The
-//   distance-2 and distance-3 terms of a step are formed a step ahead by
-//   two helper warps from the y (or x) the chain has just published, and
-//   the chain subtracts them as two ready vectors.
+//   term L[k,k-1] y_{k-1} and the Ldi_k product are on the chain. The terms
+//   of distances 2..BW (BW = the band width, the spline order: 3 by
+//   default) are formed ahead by BW - 1 helper warps, one per distance,
+//   from the y (or x) the chain has just published, and the chain
+//   subtracts them as ready vectors, in the order of their distance.
 // * Two chain warps take the steps in turn. While one computes, the other
 //   loads the two blocks of its next step into registers, so no block load
 //   is on the chain: a step reads two 21-vectors (the published result of
@@ -46,15 +47,16 @@
 //   back to back and their latency is paid once.
 // * All sweep warps meet once per block step at a named barrier; the other
 //   warps of the block do not take part.
-// * A fifth warp reduces u.rhs and the p row of rhs during the forward
+// * A finishing warp reduces u.rhs and the p row of rhs during the forward
 //   sweep, so the arrow correction z_p is known before the backward sweep
 //   delivers its first node; it then turns each delivered node x_k into
 //   xt_k and D xt_k while the chain goes on.
 // * All z-layout vectors live in shared memory in node-major order
 //   (element n*21 + c, then p), permuted on load and store only, so the
 //   sweeps, A and A' address them without per-element index arithmetic.
-//   Each of the 512 threads owns one z element and one constraint row for
-//   the whole launch and computes their places in A and A' once.
+//   Each of the 512 threads (at 19 nodes) owns one z element and one
+//   constraint row for the whole launch and computes their places in A and
+//   A' once.
 // * rhs's element-wise part and E (rc zc - yc) are formed in the update
 //   phase of the iteration before, by the thread that owns the element. An
 //   iteration without a check has three block-wide barriers.
@@ -70,18 +72,20 @@
 // (B,19,21), J (B,19,8,21), f_rows (B,336).
 //
 // The transcription is set by the build (common.cuh): one library per node
-// count and joint count. The figures here are the 7-joint Panda's; a robot
-// of NQ joints has blocks of BLK = 3 NQ rows, node vectors padded to VPAD
-// (BLK rounded up to 4: 20 floats, five loads, at 6 joints; 24 at 7 and 8)
-// and a row per lane, so BLK <= 32. The block has one thread per z element
-// and per constraint row (NT = max(NV, NM) rounded up to whole warps: 512 at
-// 19 nodes, 672 at 25, 352 at 13; 448 at 19 nodes and 6 joints, 576 at 8),
-// and everything else follows the geometry. At 19 and 13
-// nodes shared memory holds every operand as described above (Ldi stored
-// full: a chain warp runs one multiply-add per column for all rows at once,
-// so the zero half costs no time). At 25 nodes that layout needs 262,000 B,
-// 29.6 KB more than a block may have (232,448 B), and the block takes the
-// compact layout, which drops what is never read:
+// count, band width and joint count. The figures here are the 7-joint Panda's
+// at order 3; a robot of NQ joints has blocks of BLK = 3 NQ rows, node
+// vectors padded to VPAD (BLK rounded up to 4: 20 floats, five loads, at 6
+// joints; 24 at 7 and 8) and a row per lane, so BLK <= 32. The block has one
+// thread per z element and per constraint row (NT = max(NV, NM) rounded up to
+// whole warps: 512 at 19 nodes, 672 at 25, 352 at 13; 448 at 19 nodes and 6
+// joints, 576 at 8; 544 at order 2 x 9 segments, 416 at order 4 x 4, 384 at
+// order 5 x 3), and everything else follows the geometry: a band width of BW
+// takes BW - 1 helper warps and BW - 1 look-ahead vectors (the sweeps need 2
+// + BW warps). At 19 and 13 nodes shared memory holds every operand as
+// described above (Ldi stored full: a chain warp runs one multiply-add per
+// column for all rows at once, so the zero half costs no time). At 25 nodes
+// that layout needs 262,000 B, 29.6 KB more than a block may have (232,448
+// B), and the block takes the compact layout, which drops what is never read:
 // * Ldi packed lower triangular (231 of 441 floats per node, 21,000 B
 //   less): an inverse Cholesky factor is exactly zero above its diagonal
 //   (kernel 2's forward substitution and the plain triangular solve both
@@ -90,9 +94,9 @@
 //   column) a lane loads lies at rr (rr+1)/2 + i (or i (i+1)/2 + rr), on
 //   21 distinct banks. The loads are the fetch of a step ahead, off the
 //   chain.
-// * Lsub without its last 5 blocks (8,820 B less): L[k+d,k] past the
-//   matrix end is zero and no sweep reads it (the highest block read is
-//   L[N-1,N-2], number 3N-6).
+// * Lsub without its tail (5 blocks at BW = 3, 8,820 B less): L[k+d,k]
+//   past the matrix end is zero and no sweep reads it (the highest block
+//   read is L[N-1,N-2], number (N-2) BW).
 // That is 232,176 B (at 19 nodes and 8 joints the compact layout takes
 // 217,936 B, where the full one would need 250,432 B). Two other ways were
 // weighed: J in device memory read through L1 (16.8 KB) would put an L1
@@ -117,16 +121,16 @@ constexpr int NB = N * BLK;              // 399 banded variables; element NB is 
 constexpr int VPAD = (BLK + 3) / 4 * 4;  // a node's BLK values in a 16-byte aligned row
 static_assert(NT >= NM && NT >= NV, "one thread per z element and per row");
 static_assert(NT <= 1024, "a block has at most 1024 threads");
-// the sweeps' look-ahead (two helper warps for distances 2 and 3) and the
-// node cover of A' are written for band width 3: splines of order 3
-static_assert(BW == 3, "kernel 3 is written for band width 3");
+static_assert(BW >= 1, "a band has at least one sub-diagonal block");
 static_assert(BLK % 3 == 0 && VPAD <= 32, "a row per lane, summed in three partial sums");
 constexpr int SMEM_LIMIT = 232448;       // dynamic shared memory of one block
 constexpr int TRI = BLK * (BLK + 1) / 2; // a packed lower-triangular block
-constexpr int LSUB_USED = N * BW - 5;    // Lsub blocks up to L[N-1,N-2]
+constexpr int LSUB_USED = (N - 2) * BW + 1;  // Lsub blocks up to L[N-1,N-2]
+constexpr int NAHEAD = BW - 1;             // look-ahead distances 2..BW
+constexpr int NAHEAD_BUF = NAHEAD > 0 ? NAHEAD : 1;
 
 struct Params {
-  float Dm[KL * KL];  // Dm[k*4 + j]
+  float Dm[KL * KL];  // Dm[k*KL + j]
   float sigma, alpha, eps_abs, eps_rel;
   int cap, check_every, kkt_refine;
 };
@@ -169,7 +173,7 @@ struct SmemLayout {
   alignas(16) float ys[N * VPAD];
   alignas(16) float xs[N * VPAD];
   alignas(16) float tb[VPAD];        // the chain's intermediate vector
-  float a2[NB], a3[NB];              // distance-2 and -3 terms of the step ahead
+  float ahead[NAHEAD_BUF][NB];       // ahead[d-2]: the distance-d terms of the steps ahead
   float xt[NV], dx[NV];              // M^-1 rhs and D xt
   // scratch of the check; between checks a refinement step keeps its
   // weighted rows in wb and the iteration's rhs in wc
@@ -324,10 +328,10 @@ __device__ __forceinline__ float a_row(const Smem& sm, const float* v, int i, co
   return (s0 + s1) + s2;
 }
 
-// ---- the sweeps: two chain warps, two helper warps, finishing warp ----
+// ---- the sweeps: two chain warps, BW - 1 helper warps, finishing warp ----
 
 constexpr int CHAIN_WARPS = 2;  // chain warps that take the block steps in turn
-constexpr int SWEEP_WARPS = CHAIN_WARPS + 3;  // chain, two helpers, finisher
+constexpr int SWEEP_WARPS = CHAIN_WARPS + NAHEAD + 1;  // chain, helpers, finisher
 static_assert(NWARP >= SWEEP_WARPS, "too few warps for the sweeps");
 constexpr int BAR_FWD = 1, BAR_BWD = 2;
 // the finishing warp joins the barriers of the backward sweep only
@@ -381,13 +385,13 @@ __device__ __forceinline__ void chain_fetch(const Smem& sm, int t, int rr, float
   v = FWD ? sm.rhs[k * BLK + rr] : sm.ys[k * VPAD + rr];
 }
 
-// y_k = Ldi_k (r_k - L[k,k-1] y_{k-1} - a2_k - a3_k) for k = 0..N-1
-// (forward), and the same with transposed blocks and x_{k+1} for k = N-1..0
-// (backward). Lane r owns row r. The chain warps take the steps in turn:
-// the warp whose turn it is reads the vector of the step before as it was
-// published, passes its own intermediate vector through tb and publishes
-// the step's result; the others fetch the blocks of their next step
-// meanwhile.
+// y_k = Ldi_k (r_k - L[k,k-1] y_{k-1} - a_{2,k} - ... - a_{BW,k}) for k =
+// 0..N-1 (forward), with a_{d,k} = L[k,k-d] y_{k-d}, and the same with
+// transposed blocks and x_{k+1}, x_{k+d} for k = N-1..0 (backward). Lane r
+// owns row r. The chain warps take the steps in turn: the warp whose turn it
+// is reads the vector of the step before as it was published, passes its own
+// intermediate vector through tb and publishes the step's result; the others
+// fetch the blocks of their next step meanwhile.
 template <bool FWD>
 __device__ __forceinline__ void chain_sweep(Smem& sm, int lane, int turn) {
   const int rr = min(lane, BLK - 1);
@@ -403,11 +407,14 @@ __device__ __forceinline__ void chain_sweep(Smem& sm, int lane, int turn) {
     float acc = v;
     if (t >= 1) {
       // the ready terms are loaded ahead of the vector's fence
-      const float a2 = t >= 2 ? sm.a2[k * BLK + rr] : 0.f;
-      const float a3 = t >= 3 ? sm.a3[k * BLK + rr] : 0.f;
+      float ah[NAHEAD_BUF];
+#pragma unroll
+      for (int d = 2; d <= BW; ++d) ah[d - 2] = t >= d ? sm.ahead[d - 2][k * BLK + rr] : 0.f;
       load_vec(vec, pub + node_of<FWD>(t - 1) * VPAD);
-      // distances 1, 2, 3 in turn, the order of the plain solve
-      acc = ((v - dot_row(L, vec)) - a2) - a3;
+      // distances 1, 2, ..., BW in turn, the order of the plain solve
+      acc = v - dot_row(L, vec);
+#pragma unroll
+      for (int d = 2; d <= BW; ++d) acc -= ah[d - 2];
     }
     if (lane < BLK) sm.tb[lane] = acc;
     warp_barrier();
@@ -425,7 +432,7 @@ __device__ __forceinline__ void chain_sweep(Smem& sm, int lane, int turn) {
 template <bool FWD, int DIST>
 __device__ __forceinline__ void helper_sweep(Smem& sm, int lane) {
   const int rr = min(lane, BLK - 1);
-  float* out = DIST == 2 ? sm.a2 : sm.a3;
+  float* out = sm.ahead[DIST - 2];
   const float* pub = FWD ? sm.ys : sm.xs;
   float M[BLK], vec[VPAD];
   for (int t = 0; t < N; ++t) {
@@ -479,20 +486,30 @@ __device__ __forceinline__ void finish_sweep(Smem& sm, int lane, float sigma) {
   }
 }
 
+// Warp CHAIN_WARPS + DIST - 2 is the helper of distance DIST (2..BW), the
+// warp after them the finishing warp.
+template <bool REFINE, bool CORRECTION, int DIST>
+__device__ __forceinline__ void helper_or_finish(Smem& sm, int warp, int lane, float sigma) {
+  if constexpr (DIST <= BW) {
+    if (warp == CHAIN_WARPS + DIST - 2) {
+      helper_sweep<true, DIST>(sm, lane);
+      helper_sweep<false, DIST>(sm, lane);
+    } else {
+      helper_or_finish<REFINE, CORRECTION, DIST + 1>(sm, warp, lane, sigma);
+    }
+  } else if (warp == CHAIN_WARPS + NAHEAD) {
+    finish_sweep<REFINE, CORRECTION>(sm, lane, sigma);
+  }
+}
+
 // xt = M^-1 rhs and dx = D xt (CORRECTION: xt += M^-1 rhs), by the sweep warps
 template <bool REFINE, bool CORRECTION>
 __device__ __forceinline__ void solve_sweeps(Smem& sm, int warp, int lane, float sigma) {
   if (warp < CHAIN_WARPS) {
     chain_sweep<true>(sm, lane, warp);
     chain_sweep<false>(sm, lane, warp);
-  } else if (warp == CHAIN_WARPS) {
-    helper_sweep<true, 2>(sm, lane);
-    helper_sweep<false, 2>(sm, lane);
-  } else if (warp == CHAIN_WARPS + 1) {
-    helper_sweep<true, 3>(sm, lane);
-    helper_sweep<false, 3>(sm, lane);
-  } else if (warp == CHAIN_WARPS + 2) {
-    finish_sweep<REFINE, CORRECTION>(sm, lane, sigma);
+  } else {
+    helper_or_finish<REFINE, CORRECTION, 2>(sm, warp, lane, sigma);
   }
 }
 
@@ -726,7 +743,7 @@ extern "C" int mpc_structured_admm_blocks_per_sm() {
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-// ptrs: the NPTRS pointers of struct Ptrs, in its order; Dm: 16 floats; cap:
+// ptrs: the NPTRS pointers of struct Ptrs, in its order; Dm: KL x KL floats; cap:
 // the iterations of this dispatch.
 extern "C" int mpc_structured_admm(void* const* ptrs, const float* Dm, float sigma, float alpha,
                                    float eps_abs, float eps_rel, int cap, int check_every,

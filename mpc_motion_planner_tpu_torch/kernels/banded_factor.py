@@ -13,19 +13,23 @@ problems on an SM up to 44 nodes. The joint count sets the block size blk,
 the column stride (blk rounded up to 4) and the working set (25,060 B at 6
 joints, 42,964 B at 8, 19 nodes), and with them :func:`per_sm`, the
 problems per SM the registers are capped for; one warp holds a row of a
-block per lane, so blk <= 30 (10 joints).
+block per lane, so blk <= 30 (10 joints). The band width (the spline order)
+sets the ring and the pending blocks: bw + 4 blocks of the forward loop
+beside the ring's bw^2 (24,508 B at bw = 2 and 19 nodes, 47,356 B at bw = 4
+and 17 nodes, 4 problems per SM; 64,828 B at bw = 5 and 16 nodes, 3).
 
 What bounds it on this card: the latency of the sequential node recursion.
 Per problem the 19-node recursion does ~2 MFLOP (Schur updates, a 21-column
-Cholesky, a triangular inverse and up to three sub-diagonal products per
+Cholesky, a triangular inverse and up to bw sub-diagonal products per
 node) and moves ~268 KB (the band in, the factors out), little for the
 card, while each step depends on the one before (PERF.md has the measured
 times). The design therefore makes a problem small enough for several to
 share an SM and hide each other's waits: node k reads only the factors of
-nodes k-3..k-1, so shared memory holds a ring of the last three nodes'
-sub-diagonal blocks (~34 KB per problem instead of the whole 134 KB factor)
-and every block of the factor goes to device memory as soon as it is final,
-the saturation scan with it. The blk x blk Cholesky (21 x 21 for the Panda) and the triangular inverse
+nodes k-bw..k-1, so shared memory holds a ring of the last bw nodes'
+sub-diagonal blocks (~34 KB per problem at bw = 3 instead of the whole 134
+KB factor) and every block of the factor goes to device memory as soon as
+it is final, the saturation scan with it. The blk x blk Cholesky (21 x 21
+for the Panda) and the triangular inverse
 run in one warp with a row (then a column) per lane in registers and no
 block-wide barrier, while the other warps form the products of node k+1
 that do not need node k and the arrow column's forward-substitution sum,
@@ -97,7 +101,9 @@ def smem_bytes(g: Geometry) -> int:
     ys, us, scratch and the flag (struct Smem of csrc/banded_factor.cu)."""
     blk, bw = g.blk, g.order
     blk2 = blk * blk
-    forward = blk * column_stride(g) + bw * bw * blk2 + 7 * blk2  # LkT, ring, S[2], C1[2], C2, C3, Linv
+    # LkT, the ring, then bw + 4 blocks: S[2], C[bw + 1] (C[0], C[1] for d = 1,
+    # C[d] for d = 2..bw), Linv
+    forward = blk * column_stride(g) + bw * bw * blk2 + (bw + 4) * blk2
     backward = CH * (bw + 1) * blk2
     return 4 * (max(forward, backward) + 2 * g.nodes * blk + 32 + NT // 32) + 4
 
@@ -111,21 +117,24 @@ def per_sm(g: Geometry) -> int:
 
 
 def check_fits(g: Geometry) -> None:
-    """Raise ValueError unless kernel 2 is written for ``g`` (order 3, a
-    row of a block per lane: blk <= 30) and a block of it fits the card's
-    shared memory."""
-    g.check_order("kernel 2")
+    """Raise ValueError unless kernel 2 is written for ``g`` (a band of at
+    least one sub-diagonal block, a row of a block per lane: blk <= 30) and
+    a block of it fits the card's shared memory, which leaves at least one
+    problem per SM."""
+    if g.order < 1:
+        raise ValueError(f"kernel 2 factors a band of at least one sub-diagonal block; got "
+                         f"band width {g.order}")
     if g.blk > 30:
         raise ValueError(f"kernel 2 holds a row of a {g.blk} x {g.blk} block per lane of a "
                          f"warp, which takes blocks up to 30 x 30 (10 joints); got {g.nq} joints")
     if smem_bytes(g) > SMEM_LIMIT:
-        raise ValueError(f"kernel 2 at {g.nodes} nodes and {g.nq} joints needs "
-                         f"{smem_bytes(g)} B of shared memory per block; a block may have "
-                         f"{SMEM_LIMIT} B")
+        raise ValueError(f"kernel 2 at {g.nodes} nodes, band width {g.order} and {g.nq} joints "
+                         f"needs {smem_bytes(g)} B of shared memory per block; a block may "
+                         f"have {SMEM_LIMIT} B")
 
 
 def factor_banded_kernel(Mband, p_col, m_pp):
-    """Launch kernel 2 on CUDA float32 tensors Mband (B, nodes, 4, blk, blk),
+    """Launch kernel 2 on CUDA float32 tensors Mband (B, nodes, bw + 1, blk, blk),
     p_col (B, nodes, blk), m_pp (B,), with the library of the transcription
     the band's shape gives. Returns {"Ldi", "Lsub", "u", "s", "ok"} in the
     layouts of :func:`factor_banded`."""

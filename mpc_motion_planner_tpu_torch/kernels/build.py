@@ -109,13 +109,6 @@ class Geometry:
         return (f"-DMPC_SEGMENTS={self.segments}", f"-DMPC_ORDER={self.order}",
                 f"-DMPC_NQ={self.nq}")
 
-    def check_order(self, kernel: str) -> None:
-        """Raise ValueError unless the band width is 3 (splines of order 3),
-        the one the kernels are written for."""
-        if self.order != 3:
-            raise ValueError(f"{kernel} is written for splines of order 3 (band width 3); "
-                             f"got order {self.order}")
-
 
 def nvcc_path() -> str:
     for cand in (
@@ -182,7 +175,7 @@ class CudaKernel:
             h.update(src.read_bytes())
         g = self.geometry(geometry)
         tag = ("" if g is None else f"_q{g.nq}" if self.per_geometry == "joints"
-               else f"_n{g.nodes}_q{g.nq}")
+               else f"_n{g.nodes}_o{g.order}_q{g.nq}")
         return BUILD_DIR / f"{self.name}{tag}_{h.hexdigest()[:16]}.so"
 
     def build(self, geometry=None) -> Path:

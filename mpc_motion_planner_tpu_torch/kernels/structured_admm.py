@@ -14,12 +14,14 @@ un-scaling.
 The library is built per transcription (``build.Geometry`` of the OCP:
 nodes, spline order and the robot's joint count): one thread per z element
 and per constraint row (:func:`threads`), node vectors padded to
-:func:`vpad` floats, and where the full layout does not fit (25 nodes of the
-Panda: 262,000 B; 19 nodes of an 8-joint robot) the compact one of
-:func:`smem_bytes` (Ldi packed lower triangular, Lsub without its unread
-tail: 232,176 B at 25 nodes). A geometry whose block does not fit (9 joints
-at 19 nodes) raises a ValueError that names the bytes; nothing solves it
-another way. The figures below are the 19-node Panda transcription's.
+:func:`vpad` floats, one helper warp and one look-ahead vector per distance
+2..bw of the band (bw = the spline order), and where the full layout does
+not fit (25 nodes of the Panda: 262,000 B; 19 nodes of an 8-joint robot;
+order 4 at 21 nodes) the compact one of :func:`smem_bytes` (Ldi packed
+lower triangular, Lsub without its unread tail: 232,176 B at 25 nodes). A
+geometry whose block does not fit (9 joints at 19 nodes, order 4 at 25
+nodes) raises a ValueError that names the bytes; nothing solves it another
+way. The figures below are the 19-node Panda transcription's.
 
 What bounds it on this card: latency. Each iteration is ~157k flops per
 problem, 85% of them in the two banded triangular sweeps, and the factors
@@ -32,15 +34,15 @@ memory only to load and to store. With one block per SM, a launch takes
 iteration is a chain of 38 dependent block steps, each two 21x21
 matrix-vector products deep. Design (``csrc/structured_admm.cu`` has the
 details): only the distance-1 term and the ``Ldi`` product of a block step
-are on the chain; the distance-2 and -3 terms are formed a step ahead by
-two helper warps; two chain warps take the steps in turn so that the blocks
-of a step are in registers before its turn comes; a fifth warp finds the
+are on the chain; the terms of distances 2..bw are formed ahead by bw - 1
+helper warps; two chain warps take the steps in turn so that the blocks
+of a step are in registers before its turn comes; a finishing warp finds the
 arrow correction during the forward sweep and finishes each node the
 backward sweep delivers; the z-layout vectors are node-major in shared
 memory, each thread owns one z element and one constraint row and computes
 their places in A and A' once; an iteration without a check has three
 block-wide barriers. A block step subtracts its terms in the plain solve's
-order (distances 1, 2, 3) and takes every 21-long row sum in three partial
+order (distances 1, 2, ..., bw) and takes every 21-long row sum in three partial
 sums; ``ops.qp_structured.banded_solve_lookahead`` states the schedule and
 the order in plain PyTorch. Each block stops at its own ``done``, and one that
 is done on entry leaves at once: the TPU kernel's lane-group exit,
@@ -106,12 +108,13 @@ def smem_bytes(g: Geometry, compact: bool = None) -> int:
     N, blk, nv, neq, nm, pad = g.nodes, g.blk, g.num_var, g.num_eq, g.num_rows, vpad(g)
     nb, blk2, bw, kl = N * blk, blk * blk, g.order, g.order + 1
     ldi = N * (blk * (blk + 1) // 2 if compact else blk2)
-    lsub = (N * bw - 5 if compact else N * bw) * blk2
+    lsub = ((N - 2) * bw + 1 if compact else N * bw) * blk2  # compact: up to L[N-1,N-2]
     fields = ([(ldi, 4), (lsub, 4), (nb, 4), (N * g.ng * blk, 4), (neq, 4)]
               + [(nv, 4)] * 7 + [(nm, 4)] * 5 + [(nv, 4)] * 3 + [(nm, 4)] * 2
               + [(nv, 4), (nm, 4), (nv, 4)]  # t0, wa, rhs
               + [(N * pad, 16), (N * pad, 16), (pad, 16)]  # ys, xs, tb
-              + [(nb, 4)] * 2 + [(nv, 4)] * 2 + [(nm, 4)] * 2  # a2, a3, xt, dx, wb, wc
+              + [(max(bw - 1, 1) * nb, 4)]  # ahead: distances 2..bw
+              + [(nv, 4)] * 2 + [(nm, 4)] * 2  # xt, dx, wb, wc
               + [(threads(g) // 32 * 4, 4), (kl * kl, 4), (1, 4), (1, 4), (1, 4)])
     off = 0
     for floats, align in fields:
@@ -119,21 +122,35 @@ def smem_bytes(g: Geometry, compact: bool = None) -> int:
     return -(-off // 16) * 16
 
 
+def sweep_warps(g: Geometry) -> int:
+    """Warps the sweeps take: two chain warps, a helper per distance 2..bw
+    and the finishing warp."""
+    return 2 + max(g.order - 1, 0) + 1
+
+
 def check_fits(g: Geometry) -> None:
-    """Raise ValueError unless kernel 3 is written for ``g`` (order 3, a
-    row of a block per lane) and its block fits the card: at most 1024
-    threads and 232,448 B of shared memory."""
-    g.check_order("kernel 3")
+    """Raise ValueError unless kernel 3 is written for ``g`` (a band of at
+    least one sub-diagonal block, a row of a block per lane) and its block
+    fits the card: at most 1024 threads, 232,448 B of shared memory, and
+    warps enough for the sweeps."""
+    if g.order < 1:
+        raise ValueError(f"kernel 3 solves with a band of at least one sub-diagonal block; "
+                         f"got band width {g.order}")
     if vpad(g) > 32:
         raise ValueError(f"kernel 3 holds a row of a block per lane of a warp, which takes "
                          f"blocks up to 30 x 30 (10 joints); got {g.nq} joints")
     if smem_bytes(g) > SMEM_LIMIT or threads(g) > 1024:
         raise ValueError(
-            f"kernel 3 at {g.nodes} nodes and {g.nq} joints ({g.num_var} variables, "
-            f"{g.num_rows} rows) needs "
+            f"kernel 3 at {g.nodes} nodes, order {g.order} and {g.nq} joints ({g.num_var} "
+            f"variables, {g.num_rows} rows) needs "
             f"{smem_bytes(g)} B of shared memory per block even in its compact layout "
             f"(full: {smem_bytes(g, False)} B) and {threads(g)} threads; a block may have "
             f"{SMEM_LIMIT} B and 1024 threads")
+    if threads(g) // 32 < sweep_warps(g):
+        raise ValueError(
+            f"kernel 3 at {g.nodes} nodes and order {g.order} has {threads(g) // 32} warps; its "
+            f"sweeps take {sweep_warps(g)} (two chain warps, {g.order - 1} helpers and the "
+            f"finishing warp)")
 
 
 def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings: QPSettings,

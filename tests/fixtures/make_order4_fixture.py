@@ -1,0 +1,99 @@
+"""Write the JAX reference fixture of the order-4 transcription.
+
+``torch_port_order4_b64.npz`` beside this script: the first 64 headline
+states (``headline_states_b2048.npz``) and what the JAX planner made of them
+with its OCP swapped for 4 spline segments of order 4 (17 nodes, 358
+variables, 416 constraint rows),
+
+    planner.ocp = make_ocp(planner.model, "panda_tool", order=4, num_segments=4)
+
+in the headline slice configuration (structured QP, fixed rho, no KKT
+refinement, per-step ADMM budgets 700/500), solved on the CPU at float64 as
+``make_torch_seg8_fixture.py`` solves the 25-node fixture. ``chip_smoke.py``
+phase 21 holds the port's order-4 kernel path against it on the GPU, which
+has no JAX.
+
+The JAX ``structured`` backend factors the band in groups of
+``qp_structured._GROUP = 3`` nodes (``mpc_motion_planner_tpu/ops/
+qp_structured.py:308``), and its own comment says the group must be at least
+the band width. At order 4 the band is 4 blocks wide, the grouped factor
+misses the blocks that reach past the next group and the solve returns NaN.
+This script raises ``_GROUP`` to the band width as a module attribute before
+it solves (no file of the JAX package is edited); the JAX TPU path factors
+with the node-level ``factor_banded`` and has no group at all.
+
+    JAX_PLATFORMS=cpu python tests/fixtures/make_order4_fixture.py
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+STATES = os.path.join(HERE, "headline_states_b2048.npz")
+OUT = os.path.join(HERE, "torch_port_order4_b64.npz")
+BATCH = 64
+ORDER, SEGMENTS = 4, 4
+
+
+def main():
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+
+    from mpc_motion_planner_tpu.ocp import make_ocp
+    from mpc_motion_planner_tpu.ops import qp_structured
+    from mpc_motion_planner_tpu.ops.qp import QPSettings
+    from mpc_motion_planner_tpu.ops.sqp import SQPSettings
+    from mpc_motion_planner_tpu.planner import Margins, MotionPlanner
+
+    qp_structured._GROUP = max(qp_structured._GROUP, ORDER)  # the band width (docstring)
+    planner = MotionPlanner(
+        margins=Margins(0.8, 0.8, 0.6, 0.9, 0.1),
+        qp_settings=QPSettings(
+            backend="structured", kkt_refine=0, rho_update_every=0,
+            ruiz_iters=2, rho=0.1, alpha=1.6, check_every=25, max_iter=700,
+        ),
+        sqp_settings=SQPSettings(qp_step_schedules="200,500;150,350"),
+        dtype=jnp.float64,
+    )
+    planner.ocp = make_ocp(planner.model, "panda_tool", order=ORDER, num_segments=SEGMENTS,
+                           dtype=jnp.float64)
+    states = np.load(STATES)
+    current = states["current"][:BATCH]
+    target = states["target"][:BATCH]
+
+    @jax.jit
+    def run(cur, tgt):
+        sol = planner.solve(cur, tgt)
+        xT = sol.x_at(jnp.ones((), sol.z.dtype))
+        err = jnp.max(jnp.abs(xT - tgt), axis=-1)
+        return (sol.z, sol.violation, sol.qp_iterations, sol.qp_converged,
+                sol.final_time, err)
+
+    z, viol, iters, conv, tf, err = jax.block_until_ready(
+        run(jnp.asarray(current, jnp.float64), jnp.asarray(target, jnp.float64)))
+    np.savez_compressed(
+        OUT,
+        current=current,
+        target=target,
+        z=np.asarray(z, np.float32),
+        violation=np.asarray(viol, np.float32),
+        qp_iterations=np.asarray(iters, np.int32),
+        qp_converged=np.asarray(conv, bool),
+        final_time=np.asarray(tf, np.float32),
+        terminal_err=np.asarray(err, np.float32),
+    )
+    print(f"wrote {OUT}: z {np.asarray(z).shape}, qp_conv {np.asarray(conv).mean():.4f}, "
+          f"median violation {np.median(np.asarray(viol)):.4f}, "
+          f"terminal err max {np.asarray(err).max():.5f}")
+
+
+if __name__ == "__main__":
+    main()

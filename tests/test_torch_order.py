@@ -1,0 +1,285 @@
+"""PyTorch port, splines of orders other than 3 (band widths other than 3
+in kernels 2 and 3): the geometry of their libraries (kernel 3's block
+reckoned member by member, kernel 2's working set, the refusal of a block
+that does not fit), the plain versions of kernels 2 and 3 at band widths 2,
+4 and 5 against the JAX package's factor (node-level, and its Pallas kernel
+in interpret mode) and against the plain banded solve, the plain structured
+QP at 4 segments of order 4 against the JAX ``structured`` backend, and the
+order-4 JAX fixture that ``chip_smoke.py`` phase 21 holds the card against.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mpc_motion_planner_tpu.models.panda import make_panda_model as jmake_panda_model
+from mpc_motion_planner_tpu.ocp import make_ocp as jmake_ocp
+from mpc_motion_planner_tpu.ops import qp_structured as jqs
+from mpc_motion_planner_tpu.ops import structure as jstructure
+from mpc_motion_planner_tpu.ops.pallas.banded_factor import factor_banded_pallas
+from mpc_motion_planner_tpu.ops.qp import QPSettings as JQPSettings
+from mpc_motion_planner_tpu_torch import config
+from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+from mpc_motion_planner_tpu_torch.kernels.build import SMEM_LIMIT, Geometry
+from mpc_motion_planner_tpu_torch.ocp import make_ocp
+from mpc_motion_planner_tpu_torch.ops import qp_structured as tqs
+from mpc_motion_planner_tpu_torch.ops.qp import QPSettings
+from mpc_motion_planner_tpu_torch.ops.sqp import (
+    SQPSettings, hessian_regularization_diag, qp_subproblem, soft_weights,
+)
+from mpc_motion_planner_tpu_torch.planner import Margins, MotionPlanner
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HEADLINE_STATES = os.path.join(ROOT, "tests", "fixtures", "headline_states_b2048.npz")
+ORDER4_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_order4_b64.npz")
+MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
+B = 2
+
+
+def _planner(order=4, segments=4):
+    planner = MotionPlanner(
+        margins=Margins(*MARGINS), qp_settings=config.SHIPPING_QP_SETTINGS,
+        sqp_settings=SQPSettings(qp_step_schedules=config.SHIPPING_SQP_SCHEDULES),
+        device="cpu")
+    planner.ocp = make_ocp(planner.model, planner.tool_frame, order=order,
+                           num_segments=segments)
+    return planner
+
+
+def _states(n=B):
+    hs = np.load(HEADLINE_STATES)
+    return (torch.as_tensor(hs["current"][:n].astype(np.float64)),
+            torch.as_tensor(hs["target"][:n].astype(np.float64)))
+
+
+def _step0(planner, n=B):
+    """The first SQP step's QP of the first ``n`` headline states (float64)."""
+    ocp = planner.ocp
+    cur, tgt = _states(n)
+    z0 = planner.warm_start_vector(planner.plan_warm_start(cur, tgt))
+    _, _, sa, args = qp_subproblem(ocp, planner.nlp_bounds(cur, tgt), z0)
+    P = hessian_regularization_diag(ocp, n, torch.float64, "cpu", planner.sqp_settings.reg_eps)
+    sc, sx = soft_weights(ocp, planner.sqp_settings, n, torch.float64, "cpu")
+    return sa, (P, *args), sc, sx
+
+
+# (order, segments): nodes, variables, rows; kernel 3's threads, sweep warps
+# and shared memory in the full and the compact layout; kernel 2's bytes and
+# problems per SM. Kernel 3 keeps one look-ahead vector per distance 2..bw,
+# so at order 2 it has one where order 3 has two.
+GEOMETRIES = {
+    (2, 9): (19, 400, 530, 544, 4, 165696, 144448, 24508, 6),
+    (4, 4): (17, 358, 416, 416, 6, 208576, 181952, 47356, 4),
+    (5, 3): (16, 337, 380, 384, 7, 225424, 196112, 64828, 3),
+}
+
+
+@pytest.mark.parametrize("order, segments", list(GEOMETRIES), ids=["order2", "order4", "order5"])
+def test_geometry_of_other_orders(order, segments):
+    """Nodes, variables and rows of the OCP at ``order`` x ``segments``, and
+    the blocks of kernels 2 and 3 built for it: each fits one SM in the full
+    layout, and both fit checks pass."""
+    nodes, nv, nm, threads, warps, full, compact, smem2, per_sm2 = GEOMETRIES[order, segments]
+    ocp = make_ocp(_planner().model, order=order, num_segments=segments)
+    g = Geometry.of_ocp(ocp)
+    assert g == Geometry(segments=segments, order=order)
+    assert (g.nodes, g.num_var, g.num_rows) == (ocp.num_nodes, ocp.num_var,
+                                                 ocp.num_eq + ocp.num_ineq) == (nodes, nv, nm)
+    band = torch.empty(1, nodes, order + 1, 21, 21, device="meta")
+    assert Geometry.of_band(band) == g
+    assert (k3.threads(g), k3.sweep_warps(g)) == (threads, warps)
+    assert (k3.smem_bytes(g, False), k3.smem_bytes(g, True)) == (full, compact)
+    assert k3.smem_bytes(g) == full <= SMEM_LIMIT
+    assert (k2.smem_bytes(g), k2.per_sm(g)) == (smem2, per_sm2)
+    k2.check_fits(g)
+    k3.check_fits(g)
+    assert f"-DMPC_ORDER={order}" in k3.KERNEL.flags(g)
+    assert k3.KERNEL.library_path(g).name.startswith(f"structured_admm_n{nodes}_o{order}_q7_")
+
+
+def test_order4_beyond_one_block_raises_naming_the_bytes():
+    """Order 4 at 6 segments (25 nodes, 640 threads) needs 273,632 B even in
+    kernel 3's compact layout: its fit check and the card's QP solve raise
+    before any build or launch; order 4 at 5 segments (21 nodes) just fits
+    compact; kernel 2 takes both."""
+    g46, g45 = Geometry(segments=6, order=4), Geometry(segments=5, order=4)
+    assert (k3.smem_bytes(g45), k3.smem_bytes(g45, False)) == (227792, 257776)
+    k3.check_fits(g45)
+    with pytest.raises(ValueError, match=r"order 4 .* needs 273632 B of shared memory.*232448 B"):
+        k3.check_fits(g46)
+    planner = _planner(4, 6)
+    sa, args, _, _ = _step0(planner, 1)
+    with pytest.raises(ValueError, match="273632 B"):
+        k3.solve_box_qp_structured_cuda(planner.ocp, sa, *args, config.SHIPPING_QP_SETTINGS)
+    for g in (g45, g46):
+        k2.check_fits(g)
+
+
+@pytest.fixture(scope="module")
+def order4_kkt():
+    """The banded KKT matrices of the step-0 QPs of four headline states at
+    order 4 x 4 (float64; seeded weights, as the 19-node tests build them),
+    in both packages' form."""
+    n = 4
+    planner = _planner()
+    ocp = planner.ocp
+    sa, _, _, _ = _step0(planner, n)
+    rng = np.random.default_rng(31)
+    D = rng.uniform(0.5, 2.0, (n, ocp.num_var))
+    w = rng.uniform(0.1, 3.0, (n, ocp.num_eq + ocp.num_ineq))
+    sig = rng.uniform(0.5, 1.5, (n, ocp.num_var))
+    w_eq = w[:, :ocp.num_eq].reshape(n, -1, 5, ocp.nx)
+    w_g = w[:, ocp.num_eq:].reshape(n, ocp.num_nodes, -1)
+    got = tqs.assemble_banded_M(ocp, sa, *(torch.as_tensor(a) for a in (w_eq, w_g, D, sig)))
+    jo = jmake_ocp(jmake_panda_model(), "panda_tool", order=4, num_segments=4)
+    j = lambda t: jnp.asarray(t.numpy())
+    ref = jqs.assemble_banded_M(jo, jstructure.StructuredA(j(sa.p), j(sa.f_rows), j(sa.J)),
+                                *(jnp.asarray(a) for a in (w_eq, w_g, D, sig)))
+    return got, ref
+
+
+def test_factor_banded_bw4_matches_jax(order4_kkt):
+    """At band width 4 the plain version of kernel 2 and kernel 2's schedule
+    (a ring of four nodes) against the JAX node-level factor, to 1e-9; on a
+    batch with an indefinite first block both flag that problem alone and
+    keep the others' factors."""
+    (Mb, pc, mpp), (Mb_j, pc_j, mpp_j) = order4_kkt
+    assert Mb.shape[1:3] == (17, 5)
+    for g, r in zip((Mb, pc, mpp), (Mb_j, pc_j, mpp_j)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-12, atol=1e-12)
+    ref = {k: np.asarray(v) for k, v in jqs.factor_banded(Mb_j, pc_j, mpp_j, 4).items()}
+    bad = Mb.clone()
+    bad[1, 0, 0, 0, 0] = -1.0
+    for factor in (tqs.factor_banded, tqs.factor_banded_ring):
+        got = factor(Mb, pc, mpp, 4)
+        assert got["ok"].tolist() == [True] * 4
+        for k in ("Ldi", "Lsub", "u", "s"):
+            np.testing.assert_allclose(got[k].numpy(), ref[k], rtol=1e-9, atol=1e-9)
+        got_bad = factor(bad, pc, mpp, 4)
+        assert got_bad["ok"].tolist() == [True, False, True, True]
+        for k in ("Ldi", "Lsub", "u", "s"):
+            np.testing.assert_allclose(got_bad[k][[0, 2, 3]].numpy(), ref[k][[0, 2, 3]],
+                                       rtol=1e-9, atol=1e-9)
+
+
+def _band(N, bw, blk, n, seed):
+    """A seeded block-banded SPD matrix L L' (unit-dominant diagonal blocks)
+    in band storage (n, N, bw + 1, blk, blk), an arrow column and corner."""
+    rng = np.random.default_rng(seed)
+    L = np.zeros((n, N * blk, N * blk))
+    for k in range(N):
+        for d in range(min(bw, N - 1 - k) + 1):
+            b = rng.uniform(-0.3, 0.3, (n, blk, blk))
+            if d == 0:
+                b = np.tril(b, -1) + 1.5 * np.eye(blk)
+            L[:, (k + d) * blk:(k + d + 1) * blk, k * blk:(k + 1) * blk] = b
+    M = L @ L.transpose(0, 2, 1)
+    Mband = np.zeros((n, N, bw + 1, blk, blk))
+    for k in range(N):
+        for d in range(min(bw, N - 1 - k) + 1):
+            Mband[:, k, d] = M[:, (k + d) * blk:(k + d + 1) * blk, k * blk:(k + 1) * blk]
+    return Mband, rng.standard_normal((n, N, blk)), np.full(n, 100.0)
+
+
+def test_factor_banded_bw4_matches_pallas_interpret():
+    """Kernel 2's schedule at band width 4 (float32) against the JAX
+    package's Pallas factor kernel in interpret mode at bw=4, lanes=4, as
+    the JAX package's own CPU test holds that kernel at bw=3 (there on the
+    planner's KKT matrices, whose 17 x 21 x 21 band takes minutes to compile
+    in interpret mode; here on a seeded 9-node band of 6 x 6 blocks, whose
+    problem 1 has an indefinite first block): the same ok flags, and the
+    factors of the ok problems to float32 rounding."""
+    Mband, pc, mpp = _band(9, 4, 6, 4, seed=41)
+    Mband[1, 0, 0, 0, 0] = -1.0
+    fac, ok = factor_banded_pallas(jnp.asarray(Mband), jnp.asarray(pc), jnp.asarray(mpp), 4,
+                                   lanes=4)
+    got = tqs.factor_banded_ring(*(torch.as_tensor(a, dtype=torch.float32)
+                                   for a in (Mband, pc, mpp)), 4)
+    assert np.asarray(ok).tolist() == got["ok"].tolist() == [True, False, True, True]
+    good = [0, 2, 3]
+    ref = {"Ldi": np.asarray(fac["Ldi"]), "Lsub": np.moveaxis(np.asarray(fac["Lsub_t"]), 1, 2),
+           "u": np.asarray(fac["u"]), "s": np.asarray(fac["s"])}
+    for k in ("Ldi", "Lsub", "u", "s"):
+        r = ref[k][good]
+        np.testing.assert_allclose(got[k][good].numpy(), r, rtol=0, atol=2e-5 * np.abs(r).max())
+    assert bool(np.isfinite(ref["Ldi"]).all())
+
+
+@pytest.mark.parametrize("bw", [2, 4, 5])
+def test_lookahead_solve_at_other_band_widths(bw):
+    """Kernel 3's schedule of the sweeps (a helper per distance 2..bw, each
+    term subtracted in the order of its distance) against the plain banded
+    solve at band width ``bw``: bitwise without the partial row sums (float32
+    and float64), and with them within float rounding (1e-12 relative at
+    float64, 1e-5 at float32)."""
+    rng = np.random.default_rng(50 + bw)
+    N, blk = 3 * bw + 1, 6
+    Lkk = np.tril(rng.uniform(-0.3, 0.3, (4, N, blk, blk)), -1) + np.eye(blk)
+    Ldi = torch.as_tensor(np.linalg.inv(Lkk))
+    Lsub = torch.as_tensor(rng.uniform(-0.3, 0.3, (4, N, bw, blk, blk)))
+    r = torch.as_tensor(rng.standard_normal((4, N, blk)))
+    for dt, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        args = (Ldi.to(dt), Lsub.to(dt), r.to(dt))
+        plain = tqs.banded_solve(*args)
+        assert torch.equal(tqs.banded_solve_lookahead(*args, thirds=False), plain)
+        ahead = tqs.banded_solve_lookahead(*args)
+        assert float((ahead - plain).abs().max()) <= tol * float(plain.abs().max())
+
+
+def test_plain_structured_qp_order4_matches_jax(monkeypatch):
+    """The step-0 QPs of the first headline states at 4 segments of order 4,
+    through the port's plain structured solve and the JAX ``structured``
+    backend, fixed rho: the same x to 1e-8 and identical iteration counts.
+
+    The JAX backend factors the band in groups of ``_GROUP = 3`` nodes
+    (``mpc_motion_planner_tpu/ops/qp_structured.py:308``), which must be at
+    least the band width: at order 4 its factor misses blocks and the solve
+    returns NaN. The JAX TPU path factors node by node, as the port does; the
+    group is raised to the band width here, the JAX file unedited."""
+    monkeypatch.setattr(jqs, "_GROUP", 4)
+    planner = _planner()
+    ocp = planner.ocp
+    sa, (P, h, lc, uc, lx, ux), sc, sx = _step0(planner)
+    kw = dict(max_iter=700, rho_update_every=0, kkt_refine=0)
+    got = tqs.solve_box_qp_structured(ocp, sa, P, h, lc, uc, lx, ux,
+                                      QPSettings(backend="structured", **kw),
+                                      soft_c=sc, soft_x=sx)
+    jo = jmake_ocp(jmake_panda_model(), "panda_tool", order=4, num_segments=4)
+    j = lambda t: jnp.asarray(t.numpy())
+    ref = jqs.solve_box_qp_structured(
+        jo, jstructure.StructuredA(j(sa.p), j(sa.f_rows), j(sa.J)),
+        *(j(a) for a in (P, h, lc, uc, lx, ux)), JQPSettings(**kw), soft_c=j(sc), soft_x=j(sx))
+    assert got.x.shape == (B, 358)
+    assert bool(np.isfinite(np.asarray(ref.x)).all())
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=0, atol=1e-8)
+    np.testing.assert_array_equal(got.iterations.numpy(), np.asarray(ref.iterations))
+    assert got.converged.tolist() == np.asarray(ref.converged).tolist()
+
+
+def test_order4_fixture_is_the_jax_solve_of_the_headline_states():
+    """The fixture holds the first 64 headline states and the JAX solve of
+    them at 4 segments of order 4 (``make_order4_fixture.py``, float64); the
+    port's plain solve of its first states matches its final times, iterates
+    and iteration counts to the fixture's float32 rounding, and lands in the
+    target box."""
+    fx = np.load(ORDER4_FIXTURE)
+    hs = np.load(HEADLINE_STATES)
+    for k in ("current", "target"):
+        np.testing.assert_array_equal(fx[k], hs[k][:64])
+    assert fx["z"].shape == (64, 358) and fx["qp_converged"].shape == (64, 2)
+    assert bool(fx["qp_converged"].all())
+    planner = _planner()
+    cur, tgt = (torch.as_tensor(fx[k][:B].astype(np.float64)) for k in ("current", "target"))
+    sol = planner.solve(cur, tgt)
+    np.testing.assert_allclose(sol.final_time.numpy(), fx["final_time"][:B], rtol=1e-6)
+    np.testing.assert_allclose(sol.z.numpy(), fx["z"][:B], rtol=1e-6, atol=1e-6)
+    assert sol.qp_converged.tolist() == fx["qp_converged"][:B].tolist()
+    np.testing.assert_array_equal(sol.qp_iterations.numpy(), fx["qp_iterations"][:B])
+    err = (sol.x_at(1.0) - tgt).abs().amax(-1)
+    assert bool((err <= planner.target_eps + planner.qp_settings.eps_abs).all())

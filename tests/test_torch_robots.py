@@ -193,18 +193,22 @@ def test_geometry_at_other_joint_counts(nq):
 
 def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
     """Kernel 1 takes up to 10 joints (its Jacobian tiles in 48 KB of
-    static shared memory), kernel 2 up to 10 (a row of a block per lane),
-    and neither takes splines of another order; a library kind that is
-    none of the three raises."""
+    static shared memory), kernel 2 up to 10 (a row of a block per lane);
+    kernels 2 and 3 take splines of orders 2, 4 and 5 at 6 joints, and a
+    geometry whose kernel-3 block does not fit raises with its bytes; a
+    library kind that is none of the three raises."""
     k1.check_fits(10)
     with pytest.raises(ValueError, match=r"11 joints needs 57216 B of static shared memory"):
         k1.check_fits(11)
     k2.check_fits(Geometry(nq=10))
     with pytest.raises(ValueError, match="30 x 30"):
         k2.check_fits(Geometry(nq=11))
-    for check in (k2.check_fits, k3.check_fits):
-        with pytest.raises(ValueError, match="order 3"):
-            check(Geometry(order=2, segments=9, nq=6))
+    for order, segments in ((2, 9), (4, 4), (5, 3)):
+        for check in (k2.check_fits, k3.check_fits):
+            check(Geometry(order=order, segments=segments, nq=6))
+    g = Geometry(order=4, segments=5, nq=8)
+    with pytest.raises(ValueError, match=rf"8 joints .* needs {k3.smem_bytes(g)} B of shared"):
+        k3.check_fits(g)
     with pytest.raises(ValueError, match="per_geometry"):
         CudaKernel("x", "x.cu", "x", [], per_geometry="nodes")
 

@@ -283,19 +283,20 @@ def test_check_cuda_tensor_reports_what_is_wrong():
 
 
 def test_kernels_refuse_other_transcriptions():
-    """Kernels 2 and 3 are built per transcription of order 3; another
-    order, and a node count whose kernel-3 block does not fit, raise."""
+    """Kernels 2 and 3 are built per transcription, of any spline order (band
+    width); a transcription whose kernel-3 block does not fit raises with its
+    bytes: order 3 at 9 segments (28 nodes) and order 4 at 6 (25 nodes)."""
     model = make_panda_model()
-    for segments in (4, 5, 6, 8):
-        g = Geometry.of_ocp(make_ocp(model, num_segments=segments))
+    fits = [(3, s) for s in (4, 5, 6, 8)] + [(2, 9), (4, 4), (5, 3)]
+    for order, segments in fits:
+        g = Geometry.of_ocp(make_ocp(model, order=order, num_segments=segments))
         k2.check_fits(g)
         k3.check_fits(g)
-    order2 = Geometry.of_ocp(make_ocp(model, order=2, num_segments=9))
-    for k in (k2, k3):
-        with pytest.raises(ValueError, match="order 3"):
-            k.check_fits(order2)
-    with pytest.raises(ValueError, match="B of shared memory"):
-        k3.check_fits(Geometry.of_ocp(make_ocp(model, num_segments=9)))
+    for order, segments in ((3, 9), (4, 6)):
+        g = Geometry.of_ocp(make_ocp(model, order=order, num_segments=segments))
+        with pytest.raises(ValueError, match=f"needs {k3.smem_bytes(g)} B of shared memory"):
+            k3.check_fits(g)
+        k2.check_fits(g)
 
 
 def test_kernel_libraries_are_named_by_source_hash():
