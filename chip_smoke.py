@@ -54,9 +54,11 @@ seeded 8-joint chain against their plain versions and timed at B=2048, the
 6-joint captured shipping solve (5/2/2/0 launches, bitwise its eager solve,
 quality, times in turns) and the 8-joint chain's eager solve, the JAX
 fixture ``torch_port_panda6_b64.npz`` (64/64), the dense ``pallas`` path at
-6 joints, a 9-joint geometry's ValueError, and ``fused_constraints``: a
-branched model with prismatic fingers raises under "auto" and plans under
-"off", and the 6-joint planner under "off" launches no kernel 1. Kernels 2
+6 joints, the 9-joint chain planned (kernel 3's split layout), 10 joints
+at 25 nodes refused with a ValueError naming kernel 3's bytes, and
+``fused_constraints``: a branched model with prismatic fingers raises under
+"auto" and plans under "off", and the 6-joint planner under "off" launches
+no kernel 1. Kernels 2
 and 3 are built for the band width too, the spline order: phase 21 builds
 them for orders 2, 4 and 5 (at 9, 4 and 3 segments: 19, 17 and 16 nodes;
 six nvcc at once), checks their blocks against the Python reckoning, holds
@@ -65,8 +67,22 @@ drives the captured shipping solve of the headline states at 4 segments of
 order 4 (17 nodes, 358 variables, 416 rows; 5/2/2/0 launches, bitwise its
 eager solve, quality, times in turns), holds it against the JAX fixture
 ``torch_port_order4_b64.npz`` (64/64), runs the dense ``pallas`` path at
-order 4, and checks that order 4 at 6 segments (25 nodes), whose kernel-3
-block does not fit, raises a ValueError naming its bytes.
+order 4, plans order 4 at 6 segments (25 nodes) and checks that order 4
+at 9 segments (37 nodes), whose kernel-3 block fits no layout, raises a
+ValueError naming its bytes before any build. Kernel 3 keeps in shared
+memory only what its chain reads where nothing else fits (the split
+layout: the helper warps' blocks stream from device memory by TMA bulk
+copies), and phase 22 holds it: built in the split layout at 8 segments of
+order 3, where the compact one also fits, it gives every output of the
+compact one bitwise at B=2048 (both timed in turns); then the Panda at 6
+segments of order 4 (25 nodes, 526 variables, 620 rows) is planned as a
+user sets it, with kernels 2 and 3 against their plain versions and timed,
+the captured shipping solve of the headline states (5/2/2/0, bitwise its
+eager solve, quality, times in turns), the JAX fixture
+``torch_port_order4s6_b64.npz`` (64/64), and kernel 4's refusal of n =
+526; last, seeded serial chains of 9 and 10 joints at 19 nodes, kernels 1-3
+against their plain versions and timed, and an eager shipping solve each
+(5/2/2/0).
 Needs one CUDA GPU and ``nvcc``; imports no JAX.
 
     python3 chip_smoke.py
@@ -107,7 +123,9 @@ SEGMENTS = (6, 8, 4)
 # 16 nodes; order 4 x 4 is the phase's main path
 ORDERS = ((2, 9), (4, 4), (5, 3))
 # the JAX structured solve of the first 64 headline states at order 4 x 4
+# and at order 4 x 6 (make_order4_fixture.py)
 ORDER4_FIXTURE = os.path.join(FIXTURES, "torch_port_order4_b64.npz")
+ORDER4S6_FIXTURE = os.path.join(FIXTURES, "torch_port_order4s6_b64.npz")
 MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
 B_MAIN = 2048  # the headline batch
 B_FACTOR = 256  # kernel-2 comparison batch
@@ -1026,6 +1044,51 @@ def captured_shipping(pl, cur, tgt, tag, suffix, phase, note, results, names, sm
     torch.cuda.empty_cache()
 
 
+def build_libraries(jobs, phase):
+    """Build each (name, kernel, geometry) of ``jobs``, one nvcc each, all
+    started together; log each library's registers and spills and the
+    seconds it took."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        paths = list(pool.map(lambda job: job[1].build(job[2]), jobs))
+    for (name, k, g), path in zip(jobs, paths):
+        built = k.geometry(g)
+        info = [ln.strip() for ln in k.build_log.get(built, "").splitlines()
+                if "registers" in ln or "spill" in ln]
+        what = "" if built is None else (
+            f" at {built.nodes} nodes, order {built.order}, {built.nq} joints"
+            + (f", {built.layout} layout" if built.layout else ""))
+        log(f"{phase} build: {name}{what} -> {os.path.relpath(path, ROOT)} | " + " | ".join(info))
+    log(f"{phase} build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
+
+
+def block_summary(g, kernel2=True) -> str:
+    """The blocks of kernel 3 (and kernel 2) built for ``g`` against the
+    Python reckoning: kernel 3's threads and shared memory in its layout,
+    kernel 2's shared memory and problems per SM. Returns a summary."""
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+
+    lay3 = k3.block_layout(g)
+    built = k3.KERNEL.geometry(g)
+    want3 = {"threads": k3.threads(g), "smem_bytes": k3.smem_bytes(built)}
+    check({k: lay3[k] for k in want3} == want3,
+          f"kernel 3 at {built}: the library's block {lay3}, the reckoning {want3}")
+    text = (f"kernel 3 {lay3['threads']} threads ({k3.sweep_warps(g)} sweep warps), "
+            f"{lay3['smem_bytes']} B in the {built.layout} layout (full "
+            f"{k3.smem_bytes(g, 'full')}, compact {k3.smem_bytes(g, 'compact')}, split "
+            f"{k3.smem_bytes(g, 'split')} B), {lay3['blocks_per_sm']} block per SM")
+    if not kernel2:
+        return text + "; the reckoning agrees"
+    lay2 = k2.block_layout(g)
+    want2 = {"smem_bytes": k2.smem_bytes(g), "per_sm": k2.per_sm(g)}
+    check({k: lay2[k] for k in want2} == want2 and lay2["blocks_per_sm"] >= lay2["per_sm"],
+          f"kernel 2 at {g}: the library's block {lay2}, the reckoning {want2}")
+    return (text + f"; kernel 2 {lay2['smem_bytes']} B, registers capped for "
+            f"{lay2['per_sm']} problems per SM, {lay2['blocks_per_sm']} per SM by the occupancy "
+            f"calculator; the reckoning agrees")
+
+
 def transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     """Phase 19: the Panda at 8 spline segments of order 3 (25 nodes, 526
     variables, 648 rows), set as a user sets it (``planner.ocp =
@@ -1062,8 +1125,8 @@ def transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> N
         check(per_sm2 >= 6, f"kernel 2 at {g.nodes} nodes holds {per_sm2} problems per SM")
         log(f"phase 19 libraries at {g.nodes} nodes ({g.num_var} variables, {g.num_rows} rows): "
             f"kernel 3 {lay['threads']} threads, {lay['smem_bytes']} B of shared memory "
-            f"({'compact' if lay['smem_bytes'] < k3.smem_bytes(g, False) else 'full'} layout; "
-            f"full {k3.smem_bytes(g, False)} B, limit 232448 B; the reckoning agrees), "
+            f"({k3.choose_layout(g)} layout; full {k3.smem_bytes(g, 'full')} B, limit 232448 B; "
+            f"the reckoning agrees), "
             f"{lay['blocks_per_sm']} block per SM; kernel 2 {k2.smem_bytes(g)} B, {per_sm2} "
             f"problems per SM ({sms} SMs)")
 
@@ -1119,6 +1182,166 @@ def limits_of(limits, nq: int, extra=None):
     return dataclasses.replace(limits, **{k: field(k) for k in _LIMIT_TENSORS})
 
 
+def robot_planner(planner, model, limits, tool, qp=None, sqp=None, fused=None):
+    """A planner of another robot on ``planner``'s device, margins and
+    settings (or ``qp``, ``sqp``), its OCP made with ``fused``
+    constraints where given."""
+    from mpc_motion_planner_tpu_torch.ocp import make_ocp
+    from mpc_motion_planner_tpu_torch.planner import MotionPlanner
+
+    pl = MotionPlanner(model=model, limits=limits, tool_frame=tool, margins=planner.margins,
+                       qp_settings=qp or planner.qp_settings,
+                       sqp_settings=sqp or planner.sqp_settings, dtype=planner.dtype,
+                       device=planner.device)
+    if fused is not None:
+        pl.ocp = make_ocp(pl.model, tool, fused_constraints=fused)
+    return pl
+
+
+def chain_planner(planner, nq: int, fused=None, segments=None):
+    """A serial revolute chain of ``nq`` joints drawn from the seed nq
+    (``make_panda6_fixture.chain_urdf``), with the Panda's limits and its
+    last joint's repeated past 7, no floor for its tool, at ``segments``
+    spline segments of order 3 where given; and B_MAIN (current, target)
+    states at rest drawn from the seed nq."""
+    from mpc_motion_planner_tpu_torch.models.urdf import parse_urdf
+    from mpc_motion_planner_tpu_torch.ocp import make_ocp
+
+    dev, f32 = planner.device, torch.float32
+    fx = fixture_models()
+    last = {k: getattr(planner.limits, k)[-1:].cpu() for k in fx.LIMIT_ARRAYS}
+    limits = limits_of(planner.limits, 7, {k: v.repeat(nq - 7) for k, v in last.items()})
+    pl = robot_planner(planner, parse_urdf(fx.chain_urdf(nq, seed=nq), dtype=f32, device=dev),
+                       limits, "tool", fused=fused)
+    if segments is not None:
+        pl.ocp = make_ocp(pl.model, "tool", num_segments=segments,
+                          fused_constraints=pl.ocp.fused_constraints)
+    pl.set_min_height(-10.0)  # a random chain: no floor for its tool
+    rng = np.random.default_rng(nq)
+    lo, hi = (b.cpu().numpy() for b in pl.position_bounds())
+
+    def states():
+        q = lo + (hi - lo) * rng.uniform(0.25, 0.75, (B_MAIN, nq))
+        return torch.as_tensor(np.concatenate([q, np.zeros((B_MAIN, nq))], 1), dtype=f32,
+                               device=dev)
+
+    cur = states()
+    return pl, cur, states()
+
+
+def kernel1_check(pl, results, phase, busy) -> None:
+    """Kernel 1 built for ``pl``'s joint count against its plain version on
+    seeded iterates of B_MAIN x 19 nodes, timed in turns and on the device's
+    clock (queued behind ``busy``), into the ``results`` entry
+    ``constraints_<nq>_joints``. The bar is phase 2's tolerances against the
+    plain float32 values; where the plain float32 values themselves are not
+    within those tolerances of a float64 run (10 joints: torques up to 162
+    on these iterates), the kernel is held to float64 instead, no further
+    from it than twice the plain float32 values (kernel 3's one-window
+    rule)."""
+    from mpc_motion_planner_tpu_torch.kernels import constraints as k1
+    from mpc_motion_planner_tpu_torch.ocp import make_ocp
+
+    nq, dev = pl.ocp.nq, pl.device
+    gen = torch.Generator().manual_seed(20)
+    lo_xu = torch.tensor([-2.5] * nq + [-2.0] * nq + [-10.0] * nq)
+    xu = (lo_xu + 2 * (-lo_xu) * torch.rand(B_MAIN, 19, 3 * nq, generator=gen)).to(dev)
+    X, U = xu[..., :2 * nq].contiguous(), xu[..., 2 * nq:].contiguous()
+    out = {}
+    p_ms, k_ms, raw = time_pair(
+        lambda: out.__setitem__("plain", k1.node_constraints_plain(pl.ocp, X, U, True)),
+        lambda: out.__setitem__("kernel", k1.node_constraints_kernel(pl.ocp, X, U, True)))
+    (g_k, J_k), (g_p, J_p) = out["kernel"], out["plain"]
+    gv_k = k1.node_constraints_kernel(pl.ocp, X, U, False)
+    ocp64 = make_ocp(pl.model.to(dtype=torch.float64), pl.tool_frame)
+    g_64, J_64 = k1.node_constraints_plain(ocp64, X.double(), U.double(), True)
+    torch.cuda.synchronize()
+    tol = {"values": (2e-5, 2e-5), "Jacobian": (2e-4, 5e-5)}  # phase 2's (rtol, atol)
+    rules = []
+    for what, got_all, plain, ref in (("values", (g_k, gv_k), g_p, g_64),
+                                      ("Jacobian", (J_k,), J_p, J_64)):
+        rtol, atol = tol[what]
+        if torch.allclose(plain.double(), ref, rtol=rtol, atol=atol):
+            for got in got_all:
+                check(torch.allclose(got, plain, rtol=rtol, atol=atol),
+                      f"kernel 1 at {nq} joints: {what} differ by {max_abs(got, plain)}")
+            rules.append(f"{what}: phase 2's tolerances against the plain version")
+        else:
+            e_p = max_abs(plain, ref)
+            for got in got_all:
+                check(max_abs(got, ref) <= 2 * e_p,
+                      f"kernel 1 at {nq} joints: {what} {max_abs(got, ref):.3e} from float64, "
+                      f"the plain float32 version {e_p:.3e}")
+            rules.append(f"{what}: {max(max_abs(got, ref) for got in got_all):.3e} from float64 "
+                         f"(bar 2x the plain float32 version's {e_p:.3e}, which misses phase "
+                         f"2's tolerances of float64)")
+    d_ms = time_kernel(lambda: k1.node_constraints_kernel(pl.ocp, X, U, True), reps=20,
+                       behind=busy)
+    e = results[f"constraints_{nq}_joints"] = {
+        "name": f"constraints_{nq}_joints", "route": "cuda",
+        "source": "mpc_motion_planner_tpu_torch/csrc/constraints.cu",
+        "replaces": REPLACES["constraints"], "ms": d_ms, "plain_ms": p_ms,
+        "max_abs_err": max(max_abs(g_k, g_p), max_abs(gv_k, g_p), max_abs(J_k, J_p))}
+    F = B_MAIN * 19
+    text = report_bound(e, F * k1_flops(nq, True), tensor_bytes(X, U, g_k, J_k),
+                        f"value pass and {3 * nq} tangents, {k1_flops(nq, False):.0f} flop "
+                        f"a value pass")
+    log(f"{phase} kernel 1 at {nq} joints, F={F}: kernel {d_ms:.4f} ms on the device's "
+        f"clock ({k_ms:.3f} ms per wrapper call on an idle card), plain {p_ms:.3f} ms (runs "
+        f"{raw}); {text}; max abs err values {max(max_abs(g_k, g_p), max_abs(gv_k, g_p)):.3e}, "
+        f"Jacobian {max_abs(J_k, J_p):.3e}; " + "; ".join(rules))
+
+
+def eager_shipping(pl, cur, tgt, tag, suffix, phase, results) -> None:
+    """A phase's main path run eagerly: ``pl``'s shipping solve of (cur,
+    tgt) with the launch counts set to 0 just before it and read just after
+    (5/2/2/0, set as the ``launches`` of the ``results`` entries
+    ``<kernel>_<suffix>`` that exist), finite outputs of the OCP's shape."""
+    from mpc_motion_planner_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    sol = pl.solve(cur, tgt)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(counts == {"constraints": 5, "banded_factor": 2, "structured_admm": 2, "admm_dense": 0},
+          f"{tag}: launches per solve {counts}")
+    for name, n in counts.items():
+        if f"{name}_{suffix}" in results:
+            results[f"{name}_{suffix}"]["launches"] = n
+    finite = all(bool(torch.isfinite(t).all()) for t in (sol.z, sol.violation, sol.lam_c))
+    check(finite and sol.z.shape == (cur.shape[0], pl.ocp.num_var),
+          f"{tag}: non-finite or misshapen outputs")
+    log(f"{phase} eager shipping solve at {tag}, B={cur.shape[0]}: launches {counts}, "
+        f"qp_conv_rate {float(sol.qp_converged.double().mean()):.4f}, median violation "
+        f"{float(sol.violation.median()):.4f}")
+
+
+def refusal(pl, cur, tgt, tag, phase) -> None:
+    """``pl``'s geometry fits no layout of kernel 3: its fit check and the
+    planner's solve on the card raise a ValueError naming its bytes, and
+    its library is never built."""
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    g = Geometry.of_ocp(pl.ocp)
+    try:
+        k3.check_fits(g)
+        refused = None
+    except ValueError as err:
+        refused = str(err)
+    check(refused is not None and f"{k3.smem_bytes(g)} B" in refused,
+          f"{tag}: kernel 3's fit check says {refused}")
+    try:
+        pl.solve(cur, tgt)
+        solved = "solved"
+    except ValueError as err:
+        solved = str(err)
+    check(f"{k3.smem_bytes(g)} B" in solved, f"{tag} on the card: {solved}")
+    check(not k3.KERNEL.library_path(g).exists(), f"{tag}: a kernel-3 library was built")
+    log(f"{phase} refusal at {tag}: {refused}; the planner's solve on the card raises the "
+        f"same, and no kernel-3 library was built for it")
+
+
 def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -> None:
     """Phase 20: robots other than the 7-joint Panda, with kernels 1-3 built
     for their joint count. (a) Kernels 1-3 at 6 joints (the Panda with
@@ -1130,122 +1353,46 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     bitwise its eager solve, quality, replay and eager times in turns), and
     the 8-joint chain's eager solve. (c) The JAX fixture of the 6-joint
     model. (d) The dense ``pallas`` path at 6 joints (kernels 1 and 4). (e)
-    Refusals and ``fused_constraints``: a 9-joint geometry raises a
-    ValueError naming its bytes; a branched model with prismatic fingers
-    raises under "auto" and plans under "off"; the 6-joint planner under
-    "off" launches no kernel 1."""
+    Plans and refusals and ``fused_constraints``: the 9-joint chain (kernel
+    3's split layout) plans under "off"; 10 joints at 25 nodes fit no layout
+    and raise a ValueError naming their bytes; a branched model with
+    prismatic fingers raises under "auto" and plans under "off"; the 6-joint
+    planner under "off" launches no kernel 1. The libraries of 9 and 10
+    joints are built here with the others, for phase 22."""
     from mpc_motion_planner_tpu_torch import kernels
-    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import constraints as k1
-    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
     from mpc_motion_planner_tpu_torch.models.urdf import parse_urdf
-    from mpc_motion_planner_tpu_torch.ocp import make_ocp
     from mpc_motion_planner_tpu_torch.ops.sqp import SQPSettings
-    from mpc_motion_planner_tpu_torch.planner import MotionPlanner
 
     dev, f32 = cur_all.device, torch.float32
     fx = fixture_models()
     g6, g8 = Geometry(nq=6), Geometry(nq=8)
 
-    # ---- build: kernels 1-3 at 6 and 8 joints, one nvcc each, together ----
-    t0 = time.perf_counter()
-    jobs = [(name, kernels.KERNELS[name], g) for g in (g6, g8)
-            for name in ("constraints", "banded_factor", "structured_admm")]
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        paths = list(pool.map(lambda job: job[1].build(job[2]), jobs))
-    for (name, k, g), path in zip(jobs, paths):
-        info = [ln.strip() for ln in k.build_log.get(k.geometry(g), "").splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"phase 20 build: {name} at {g.nq} joints -> {os.path.relpath(path, ROOT)} | "
-            + " | ".join(info))
-    log(f"phase 20 build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
+    # ---- build: kernels 1-3 at 6, 8, 9 and 10 joints, one nvcc each, together ----
+    build_libraries([(name, kernels.KERNELS[name], Geometry(nq=nq)) for nq in (6, 8, 9, 10)
+                     for name in ("constraints", "banded_factor", "structured_admm")],
+                    "phase 20")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for g in (g6, g8):
-        lay3, lay2 = k3.block_layout(g), k2.block_layout(g)
-        want3 = {"threads": k3.threads(g), "smem_bytes": k3.smem_bytes(g)}
-        want2 = {"smem_bytes": k2.smem_bytes(g), "per_sm": k2.per_sm(g)}
-        check({k: lay3[k] for k in want3} == want3,
-              f"kernel 3 at {g.nq} joints: the library's block {lay3}, the reckoning {want3}")
-        check({k: lay2[k] for k in want2} == want2 and lay2["blocks_per_sm"] >= lay2["per_sm"],
-              f"kernel 2 at {g.nq} joints: the library's block {lay2}, the reckoning {want2}")
         log(f"phase 20 libraries at {g.nq} joints, 19 nodes ({g.num_var} variables, "
-            f"{g.num_rows} rows): kernel 3 {lay3['threads']} threads, {lay3['smem_bytes']} B "
-            f"({'compact' if lay3['smem_bytes'] < k3.smem_bytes(g, False) else 'full'} layout; "
-            f"full {k3.smem_bytes(g, False)} B), {lay3['blocks_per_sm']} block per SM; kernel 2 "
-            f"{lay2['smem_bytes']} B, registers capped for {lay2['per_sm']} problems per SM, "
-            f"{lay2['blocks_per_sm']} per SM by the occupancy calculator ({sms} SMs); kernel 1 "
-            f"{k1.smem_bytes(g.nq)} B of static shared memory; the reckoning agrees")
+            f"{g.num_rows} rows): {block_summary(g)} ({sms} SMs); kernel 1 "
+            f"{k1.smem_bytes(g.nq)} B of static shared memory")
 
     # ---- the robots ----
-    shipping = planner.qp_settings
-    sqp = planner.sqp_settings
-
-    def make(model, limits, tool, qp=shipping, sqp_settings=sqp, fused=None):
-        pl = MotionPlanner(model=model, limits=limits, tool_frame=tool, margins=planner.margins,
-                           qp_settings=qp, sqp_settings=sqp_settings, dtype=f32, device=dev)
-        if fused is not None:
-            pl.ocp = make_ocp(pl.model, tool, fused_constraints=fused)
-        return pl
-
     model6 = parse_urdf(os.path.join(FIXTURES, "panda_joint7_fixed.urdf"), dtype=f32, device=dev)
     limits6 = limits_of(planner.limits, 6)
-    pl6 = make(model6, limits6, "panda_tool")
+    pl6 = robot_planner(planner, model6, limits6, "panda_tool")
     keep6 = list(fx.KEEP6)
     cur6, tgt6 = cur_all[:, keep6].contiguous(), tgt_all[:, keep6].contiguous()
     check(pl6.ocp.nq == 6 and pl6.ocp.num_var == 343 and pl6.ocp.num_eq + pl6.ocp.num_ineq == 421,
           f"6-joint OCP: {pl6.ocp.num_var} variables")
-    model8 = parse_urdf(fx.chain_urdf(8, seed=8), dtype=f32, device=dev)
-    last = {k: getattr(planner.limits, k)[-1:].cpu() for k in fx.LIMIT_ARRAYS}
-    pl8 = make(model8, limits_of(planner.limits, 7, last), "tool")
-    pl8.set_min_height(-10.0)  # a random chain: no floor for its tool
-    rng = np.random.default_rng(8)
-    lo, hi = pl8.position_bounds()
-    lo, hi = lo.cpu().numpy(), hi.cpu().numpy()
-
-    def chain_states():
-        q = lo + (hi - lo) * rng.uniform(0.25, 0.75, (B_MAIN, 8))
-        return torch.as_tensor(np.concatenate([q, np.zeros((B_MAIN, 8))], 1), dtype=f32,
-                               device=dev)
-
-    cur8, tgt8 = chain_states(), chain_states()
+    pl8, cur8, tgt8 = chain_planner(planner, 8)
 
     # ---- (a) kernel 1 against its plain version, timed ----
-    gen = torch.Generator().manual_seed(20)
     big = torch.ones(8192, 8192, device=dev)
-    busy = lambda: big @ big
-    for nq, pl in ((6, pl6), (8, pl8)):
-        lo_xu = torch.tensor([-2.5] * nq + [-2.0] * nq + [-10.0] * nq)
-        xu = (lo_xu + 2 * (-lo_xu) * torch.rand(B_MAIN, 19, 3 * nq, generator=gen)).to(dev)
-        X, U = xu[..., :2 * nq].contiguous(), xu[..., 2 * nq:].contiguous()
-        out = {}
-        p_ms, k_ms, raw = time_pair(
-            lambda: out.__setitem__("plain", k1.node_constraints_plain(pl.ocp, X, U, True)),
-            lambda: out.__setitem__("kernel", k1.node_constraints_kernel(pl.ocp, X, U, True)))
-        (g_k, J_k), (g_p, J_p) = out["kernel"], out["plain"]
-        gv_k = k1.node_constraints_kernel(pl.ocp, X, U, False)
-        torch.cuda.synchronize()
-        for got in (g_k, gv_k):
-            check(torch.allclose(got, g_p, rtol=2e-5, atol=2e-5),
-                  f"kernel 1 at {nq} joints: values differ by {max_abs(got, g_p)}")
-        check(torch.allclose(J_k, J_p, rtol=2e-4, atol=5e-5),
-              f"kernel 1 at {nq} joints: Jacobian differs by {max_abs(J_k, J_p)}")
-        d_ms = time_kernel(lambda: k1.node_constraints_kernel(pl.ocp, X, U, True), reps=20,
-                           behind=busy)
-        e = results[f"constraints_{nq}_joints"] = {
-            "name": f"constraints_{nq}_joints", "route": "cuda",
-            "source": "mpc_motion_planner_tpu_torch/csrc/constraints.cu",
-            "replaces": REPLACES["constraints"], "ms": d_ms, "plain_ms": p_ms,
-            "max_abs_err": max(max_abs(g_k, g_p), max_abs(gv_k, g_p), max_abs(J_k, J_p))}
-        F = B_MAIN * 19
-        text = report_bound(e, F * k1_flops(nq, True), tensor_bytes(X, U, g_k, J_k),
-                            f"value pass and {3 * nq} tangents, {k1_flops(nq, False):.0f} flop "
-                            f"a value pass")
-        log(f"phase 20 kernel 1 at {nq} joints, F={F}: kernel {d_ms:.4f} ms on the device's "
-            f"clock ({k_ms:.3f} ms per wrapper call on an idle card), plain {p_ms:.3f} ms (runs "
-            f"{raw}); {text}; max abs err values {max(max_abs(g_k, g_p), max_abs(gv_k, g_p)):.3e}, "
-            f"Jacobian {max_abs(J_k, J_p):.3e} (phase 2's tolerances)")
-        del X, U, xu, out, g_k, J_k, g_p, J_p, gv_k
+    for pl in (pl6, pl8):
+        kernel1_check(pl, results, "phase 20", lambda: big @ big)
     del big
 
     # ---- (a) kernels 2 and 3 against their plain versions, timed ----
@@ -1259,20 +1406,8 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     captured_shipping(pl6, cur6, tgt6, "6 joints", "6_joints", "phase 20",
                       "headline states, joint 7 dropped", results,
                       ("constraints", "banded_factor", "structured_admm"), smi)
-    kernels.reset_launch_counts()
-    sol8 = pl8.solve(cur8, tgt8)
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    check(counts == {"constraints": 5, "banded_factor": 2, "structured_admm": 2, "admm_dense": 0},
-          f"8 joints: launches per solve {counts}")
-    for name in ("constraints", "banded_factor", "structured_admm"):
-        results[f"{name}_8_joints"]["launches"] = counts[name]
-    finite = all(bool(torch.isfinite(t).all()) for t in (sol8.z, sol8.violation, sol8.lam_c))
-    check(finite and sol8.z.shape == (B_MAIN, 457), "8 joints: non-finite or misshapen outputs")
-    log(f"phase 20 eager solve of the 8-joint chain, B={B_MAIN} (seeded states): launches "
-        f"{counts}, qp_conv_rate {float(sol8.qp_converged.double().mean()):.4f}, median "
-        f"violation {float(sol8.violation.median()):.4f}")
-    del sol8
+    eager_shipping(pl8, cur8, tgt8, "the 8-joint chain (seeded states)", "8_joints", "phase 20",
+                   results)
 
     # ---- (c) the JAX fixture of the 6-joint model ----
     n_good, n_tf, n_fx, summary = fixture_agreement(
@@ -1281,7 +1416,8 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     log(f"phase 20 JAX fixture at 6 joints: {summary}")
 
     # ---- (d) the dense pallas path at 6 joints (kernel 4 at n=343, m=421) ----
-    dense6 = make(model6, limits6, "panda_tool", qp=dense_cfg, sqp_settings=SQPSettings())
+    dense6 = robot_planner(planner, model6, limits6, "panda_tool", qp=dense_cfg,
+                           sqp=SQPSettings())
     kernels.reset_launch_counts()
     wall = []
     for _ in range(2):
@@ -1302,30 +1438,19 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
         f"{B_MAIN / wall[1] * 1e3:.1f} solves/s; quality {json.dumps(qd)}")
     del sol, dense6
 
-    # ---- (e) refusals and fused_constraints ----
-    g9 = Geometry(nq=9)
-    try:
-        k3.check_fits(g9)
-        refused = None
-    except ValueError as err:
-        refused = str(err)
-    check(refused is not None and f"{k3.smem_bytes(g9)} B" in refused,
-          f"9 joints: kernel 3's fit check says {refused}")
-    pl9 = make(parse_urdf(fx.chain_urdf(9, seed=9), dtype=f32, device=dev),
-               limits_of(planner.limits, 7, {k: v.repeat(2) for k, v in last.items()}), "tool",
-               fused="off")
-    lo9, hi9 = pl9.position_bounds()
-    cur9 = torch.cat([(lo9 + hi9) / 2, torch.zeros_like(lo9)]).expand(4, -1).contiguous()
-    tgt9 = cur9.clone()
-    tgt9[:, :9] += 0.1
-    try:
-        pl9.solve(cur9, tgt9)
-        solved9 = "solved"
-    except ValueError as err:
-        solved9 = str(err)
-    check(f"{k3.smem_bytes(g9)} B" in solved9, f"9 joints on the card: {solved9}")
-    log(f"phase 20 refusal at 9 joints: {refused}; the 9-joint planner's solve on the card "
-        f"raises the same")
+    # ---- (e) plans, refusals and fused_constraints ----
+    pl9, cur9, tgt9 = chain_planner(planner, 9, fused="off")
+    kernels.reset_launch_counts()
+    sol9 = pl9.solve(cur9[:4], tgt9[:4])
+    torch.cuda.synchronize()
+    counts9 = kernels.launch_counts()
+    check(counts9 == {"constraints": 0, "banded_factor": 2, "structured_admm": 2,
+                      "admm_dense": 0} and bool(torch.isfinite(sol9.z).all())
+          and sol9.z.shape == (4, 514), f"9 joints under 'off': launches {counts9}")
+    log(f"phase 20 the 9-joint chain under 'off' (kernel 3 in its split layout) plans B=4: "
+        f"launches {counts9}, qp_conv_rate {float(sol9.qp_converged.double().mean()):.4f}")
+    pl10, cur10, tgt10 = chain_planner(planner, 10, fused="off", segments=8)
+    refusal(pl10, cur10[:4], tgt10[:4], "10 joints, 25 nodes", "phase 20")
     n_h = B_ADMM
     hand = parse_urdf(fx.panda_urdf(True, hand=True), dtype=f32, device=dev)
     fingers = {"min_position": [0.0, 0.0], "max_position": [0.04, 0.04],
@@ -1340,12 +1465,12 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
 
     cur_h, tgt_h = hand_states(cur6, 0.01), hand_states(tgt6, 0.03)
     try:
-        make(hand, limits_h, "panda_tool").solve(cur_h, tgt_h)
+        robot_planner(planner, hand, limits_h, "panda_tool").solve(cur_h, tgt_h)
         auto = "planned"
     except NotImplementedError as err:
         auto = str(err)
     check(auto != "planned", "the branched model planned under fused_constraints='auto'")
-    pl_h = make(hand, limits_h, "panda_tool", fused="off")
+    pl_h = robot_planner(planner, hand, limits_h, "panda_tool", fused="off")
     kernels.reset_launch_counts()
     sol_h = pl_h.solve(cur_h, tgt_h)
     torch.cuda.synchronize()
@@ -1353,7 +1478,7 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     check(counts_h["constraints"] == 0 and counts_h["structured_admm"] == 2
           and bool(torch.isfinite(sol_h.z).all()) and sol_h.z.shape == (n_h, 457),
           f"the branched model under 'off': launches {counts_h}")
-    pl6_off = make(model6, limits6, "panda_tool", fused="off")
+    pl6_off = robot_planner(planner, model6, limits6, "panda_tool", fused="off")
     kernels.reset_launch_counts()
     sol_off = pl6_off.solve(cur6, tgt6)
     torch.cuda.synchronize()
@@ -1383,10 +1508,12 @@ def order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     make_ocp(planner.model, planner.tool_frame, order=4, num_segments=4)``),
     its captured shipping solve of the headline states. (d) The JAX fixture
     at order 4 (64/64). (e) The dense ``pallas`` path at order 4 (kernels 1
-    and 4 at n = 358). (f) Order 4 at 6 segments (25 nodes), whose kernel-3
-    block does not fit, raises a ValueError naming its bytes."""
+    and 4 at n = 358). (f) Order 4 at 6 segments (25 nodes), which kernel 3
+    takes in its split layout, plans (eagerly, B=4; its libraries are built
+    here with the others, for phase 22); order 4 at 9 segments (37 nodes),
+    whose kernel-3 block fits no layout, raises a ValueError naming its
+    bytes."""
     from mpc_motion_planner_tpu_torch import kernels
-    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
     from mpc_motion_planner_tpu_torch.ocp import make_ocp
@@ -1402,36 +1529,15 @@ def order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
         pl.ocp = make_ocp(pl.model, pl.tool_frame, order=order, num_segments=segments)
         return pl
 
-    # ---- (a) build: kernels 2 and 3 at each order, one nvcc each, together ----
+    # ---- (a) build: kernels 2 and 3 at each order and at order 4 x 6, one
+    # nvcc each, together ----
     geoms = [Geometry(segments=segments, order=order) for order, segments in ORDERS]
-    t0 = time.perf_counter()
-    jobs = [(name, kernels.KERNELS[name], g) for g in geoms
-            for name in ("banded_factor", "structured_admm")]
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        paths = list(pool.map(lambda job: job[1].build(job[2]), jobs))
-    for (name, k, g), path in zip(jobs, paths):
-        info = [ln.strip() for ln in k.build_log.get(k.geometry(g), "").splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"phase 21 build: {name} at order {g.order} -> {os.path.relpath(path, ROOT)} | "
-            + " | ".join(info))
-    log(f"phase 21 build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
+    build_libraries([(name, kernels.KERNELS[name], g) for g in geoms + [Geometry(6, 4)]
+                     for name in ("banded_factor", "structured_admm")], "phase 21")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for g in geoms:
-        lay3, lay2 = k3.block_layout(g), k2.block_layout(g)
-        want3 = {"threads": k3.threads(g), "smem_bytes": k3.smem_bytes(g)}
-        want2 = {"smem_bytes": k2.smem_bytes(g), "per_sm": k2.per_sm(g)}
-        check({k: lay3[k] for k in want3} == want3,
-              f"kernel 3 at order {g.order}: the library's block {lay3}, the reckoning {want3}")
-        check({k: lay2[k] for k in want2} == want2 and lay2["blocks_per_sm"] >= lay2["per_sm"],
-              f"kernel 2 at order {g.order}: the library's block {lay2}, the reckoning {want2}")
         log(f"phase 21 libraries at order {g.order} x {g.segments} segments ({g.nodes} nodes, "
-            f"{g.num_var} variables, {g.num_rows} rows): kernel 3 {lay3['threads']} threads "
-            f"({k3.sweep_warps(g)} sweep warps), {lay3['smem_bytes']} B "
-            f"({'compact' if lay3['smem_bytes'] < k3.smem_bytes(g, False) else 'full'} layout; "
-            f"full {k3.smem_bytes(g, False)} B), {lay3['blocks_per_sm']} block per SM; kernel 2 "
-            f"{lay2['smem_bytes']} B, registers capped for {lay2['per_sm']} problems per SM, "
-            f"{lay2['blocks_per_sm']} per SM by the occupancy calculator ({sms} SMs); the "
-            f"reckoning agrees")
+            f"{g.num_var} variables, {g.num_rows} rows): {block_summary(g)} ({sms} SMs)")
 
     # ---- (b) kernels 2 and 3 against their plain versions, timed ----
     for (order, segments), g in zip(ORDERS, geoms):
@@ -1493,24 +1599,140 @@ def order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
         f"{B_MAIN / wall[1] * 1e3:.1f} solves/s; quality {json.dumps(qd)}")
     del sol, dense4
 
-    # ---- (f) order 4 at 6 segments: kernel 3's block does not fit ----
-    g46 = Geometry(segments=6, order=4)
+    # ---- (f) order 4 at 6 segments plans; order 4 at 9 fits no layout ----
+    pl46 = with_order(4, 6)
+    kernels.reset_launch_counts()
+    sol = pl46.solve(cur_all[:4], tgt_all[:4])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(counts == {"constraints": 5, "banded_factor": 2, "structured_admm": 2, "admm_dense": 0}
+          and bool(torch.isfinite(sol.z).all()) and sol.z.shape == (4, 526),
+          f"order 4 x 6: launches {counts}")
+    log(f"phase 21 order 4 x 6 segments (25 nodes, kernel 3 in its "
+        f"{k3.choose_layout(Geometry.of_ocp(pl46.ocp))} layout) plans B=4: launches {counts}")
+    del pl46, sol
+    refusal(with_order(4, 9), cur_all[:4], tgt_all[:4], "order 4 x 9 segments (37 nodes)",
+            "phase 21")
+
+
+def split_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
+    """Phase 22: kernel 3's split layout, which keeps in shared memory only
+    the operands its chain reads and streams the helper warps' blocks from
+    device memory. (a) Kernel 3 built in the split layout at 8 segments of
+    order 3 (25 nodes), where the compact layout also fits (a layout
+    named in the geometry; planners never do), and the blocks of every split
+    library against the Python reckoning. (b) At 25 nodes the split layout
+    against the compact one on the step-0 QPs of the headline states at
+    B=2048, at the full budget and at one check window: every output
+    bitwise equal, times in turns. (c) The main path: the Panda at 6
+    segments of order 4 (25 nodes, 526 variables, 620 rows), set as a user
+    sets it (``planner.ocp = make_ocp(planner.model, planner.tool_frame,
+    order=4, num_segments=6)``): kernels 2 and 3 against their plain
+    versions (phase 3's and 4's bars), timed at B=2048 with their bounds and
+    kernel 2's library call, the captured shipping solve of the headline
+    states (5/2/2/0, bitwise its eager solve, quality, times in turns), the
+    JAX fixture ``torch_port_order4s6_b64.npz`` (64/64); the dense
+    ``pallas`` path has no kernel at n = 526 (kernel 4's fit check refuses
+    it, as the JAX kernel pads to 512). (d) Seeded serial chains of 9 and 10
+    joints at 19 nodes: kernels 1-3 against their plain versions, timed,
+    and an eager shipping solve at B=2048 (5/2/2/0). The geometries beyond
+    the split are refused in phases 20 (e) and 21 (f)."""
+    from mpc_motion_planner_tpu_torch.kernels import admm_dense as k4
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+    from mpc_motion_planner_tpu_torch.ocp import make_ocp
+    from mpc_motion_planner_tpu_torch.ops import qp_structured
+    from mpc_motion_planner_tpu_torch.planner import MotionPlanner
+
+    dev = cur_all.device
+    shipping = planner.qp_settings
+
+    def with_transcription(order, segments):
+        pl = MotionPlanner(margins=planner.margins, dtype=planner.dtype, device=dev,
+                           qp_settings=shipping, sqp_settings=planner.sqp_settings)
+        pl.ocp = make_ocp(pl.model, pl.tool_frame, order=order, num_segments=segments)
+        return pl
+
+    # ---- (a) the split layout at 25 nodes of order 3, and every split block ----
+    g25 = Geometry(segments=8)
+    g25s = dataclasses.replace(g25, layout="split")
+    build_libraries([("structured_admm", k3.KERNEL, g25s)], "phase 22")
+    check(k3.choose_layout(g25) == "compact", "25 nodes of order 3 take the compact layout")
+    for g in (g25s, Geometry(segments=6, order=4), Geometry(nq=9), Geometry(nq=10)):
+        log(f"phase 22 libraries at {g.nodes} nodes, order {g.order}, {g.nq} joints "
+            f"({g.num_var} variables, {g.num_rows} rows): "
+            f"{block_summary(g, kernel2=g.layout is None)}")
+
+    # ---- (b) split against compact at 25 nodes of order 3, bitwise ----
+    pl25 = with_transcription(3, 8)
+    _, sa, args, sc, sx = first_qp(B_MAIN, pl=pl25)
+    qp = qp_structured.scale_qp(pl25.ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
+    fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, 3)
+    s_win = dataclasses.replace(shipping, max_iter=shipping.check_every)
+    names = ("x", "zc", "zx", "yc", "yx", "done", "iters", "rp", "rd")
+    e25 = results["structured_admm_25_nodes"]
+    for label, settings in (("budget", shipping), ("window", s_win)):
+        out, times = {}, {"compact": [], "split": []}
+        for lay in ("compact", "split", "split", "compact"):
+            def call(lay=lay):
+                out[lay] = k3.admm_kernel(pl25.ocp, sa, qp, fac, settings, layout=lay)
+            times[lay].append(time_kernel(call, reps=3))
+        differ = [n for n, a, b in zip(names, out["compact"], out["split"]) if not torch.equal(a, b)]
+        check(not differ, f"25 nodes, {label}: the split layout differs from the compact one "
+              f"in {differ}")
+        ms = {k: float(np.mean(v)) for k, v in times.items()}
+        waves = -(-B_MAIN // torch.cuda.get_device_properties(0).multi_processor_count)
+        us = {k: 1e3 * v / settings.max_iter / waves for k, v in ms.items()}
+        e25.update({f"split_{label}_ms": ms["split"], f"compact_{label}_ms": ms["compact"],
+                    f"split_{label}_bitwise_compact": True})
+        log(f"phase 22 split against compact at 25 nodes of order 3, B={B_MAIN}, "
+            f"{settings.max_iter} iterations: all {len(names)} outputs bitwise equal "
+            f"({int(out['split'][6].sum())} problem-iterations); compact {ms['compact']:.3f} ms, "
+            f"split {ms['split']:.3f} ms ({100 * (ms['split'] / ms['compact'] - 1):+.2f}%; "
+            f"{us['compact']:.2f} against {us['split']:.2f} us per iteration per block; runs "
+            f"{times}) on {smi}")
+    del pl25, sa, args, sc, sx, qp, fac, out
+
+    # ---- (c) the main path: order 4 x 6 segments ----
+    pl46 = with_transcription(4, 6)
+    ocp = pl46.ocp
+    g46 = Geometry.of_ocp(ocp)
+    check((ocp.num_nodes, ocp.num_var, ocp.num_eq + ocp.num_ineq) == (25, 526, 620)
+          and k3.choose_layout(g46) == "split", f"order 4 x 6: {ocp.num_var} variables")
+    summary, window_err = kernel_checks(pl46, first_qp, "order 4 x 6")
+    log(f"phase 22 at order 4 x 6 segments (25 nodes, split layout), {summary}")
+    time_structured_kernels(pl46, first_qp, results, "order4x6", "phase 22", window_err)
+    captured_shipping(pl46, cur_all, tgt_all, "order 4 x 6", "order4x6", "phase 22",
+                      "headline states, 6 segments of order 4, 25 nodes", results,
+                      ("banded_factor", "structured_admm"), smi)
+    n_good, n_tf, n_fx, summary = fixture_agreement(pl46, ORDER4S6_FIXTURE, dev)
+    check(n_good == n_fx, f"order 4 x 6: {n_good}/{n_fx} fixture problems agree")
+    log(f"phase 22 JAX fixture at order 4 x 6: {summary}")
     try:
-        k3.check_fits(g46)
-        refused = None
+        k4.check_fits(ocp.num_var, ocp.num_eq + ocp.num_ineq)
+        dense = "fits"
     except ValueError as err:
-        refused = str(err)
-    check(refused is not None and f"{k3.smem_bytes(g46)} B" in refused,
-          f"order 4 x 6: kernel 3's fit check says {refused}")
-    k2.check_fits(g46)  # kernel 2's working set is per node
-    try:
-        with_order(4, 6).solve(cur_all[:4], tgt_all[:4])
-        solved = "solved"
-    except ValueError as err:
-        solved = str(err)
-    check(f"{k3.smem_bytes(g46)} B" in solved, f"order 4 x 6 on the card: {solved}")
-    log(f"phase 21 refusal at order 4 x 6 segments ({g46.nodes} nodes): {refused}; the "
-        f"planner's solve on the card raises the same")
+        dense = str(err)
+    check(dense != "fits", "order 4 x 6: kernel 4 took n = 526")
+    log(f"phase 22 dense pallas path at order 4 x 6 (n = {ocp.num_var}): not built; kernel 4's "
+        f"fit check refuses it ({dense}), as the JAX kernel pads to n = 512")
+    del pl46
+
+    # ---- (d) the 9- and 10-joint chains at 19 nodes ----
+    big = torch.ones(8192, 8192, device=dev)
+    for nq in (9, 10):
+        pl, cur, tgt = chain_planner(planner, nq)
+        kernel1_check(pl, results, "phase 22", lambda: big @ big)
+        summary, window_err = kernel_checks(pl, first_qp, f"{nq} joints", (cur, tgt))
+        log(f"phase 22 at {nq} joints (split layout), {summary}")
+        time_structured_kernels(pl, first_qp, results, f"{nq}_joints", "phase 22", window_err,
+                                (cur, tgt))
+        eager_shipping(pl, cur, tgt, f"the {nq}-joint chain (seeded states)", f"{nq}_joints",
+                       "phase 22", results)
+        del pl, cur, tgt
+    del big
+    torch.cuda.empty_cache()
 
 
 def run(dev: torch.device) -> None:
@@ -1546,17 +1768,9 @@ def run(dev: torch.device) -> None:
 
     # ---- phase 1: build, one nvcc per source and transcription (kernels 2
     # and 3 at 19, 25 and 13 nodes), all started together ----
-    t0 = time.perf_counter()
-    jobs = [(name, k, g) for name, k in kernels.KERNELS.items()
-            for g in (geometries() if k.per_geometry == "transcription" else (None,))]
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        paths = list(pool.map(lambda job: job[1].build(job[2]), jobs))
-    for (name, k, g), path in zip(jobs, paths):
-        info = [ln.strip() for ln in k.build_log.get(k.geometry(g), "").splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"phase 1 build: {name} -> {os.path.relpath(path, ROOT)} | " + " | ".join(info))
-    log(f"phase 1 build: {len(paths)} libraries of {len(kernels.KERNELS)} kernels in "
-        f"{time.perf_counter() - t0:.1f} s")
+    build_libraries([(name, k, g) for name, k in kernels.KERNELS.items()
+                     for g in (geometries() if k.per_geometry == "transcription" else (None,))],
+                    "phase 1")
 
     shipping = config.SHIPPING_QP_SETTINGS
     planner = MotionPlanner(
@@ -2322,6 +2536,7 @@ def run(dev: torch.device) -> None:
     transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi)
     order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi)
+    split_phases(planner, cur_all, tgt_all, first_qp, results, smi)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

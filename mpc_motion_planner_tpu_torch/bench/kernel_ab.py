@@ -37,11 +37,17 @@ another robot, a Panda with its last joints locked (for example
 ``tests/fixtures/panda_joint7_fixed.urdf``, 6 joints; the headline states'
 entries of its joints and the Panda's limits of them, as
 ``profile_solve.py`` takes it), and kernels 1-3 are built for its joint
-count.
+count. ``--layout`` (kernel 3) adds the package's source built in that
+shared-memory layout (``full``, ``compact`` or ``split``) as the variant
+``layout_<name>``, beside the package build in the layout its geometry
+takes: ``--segments 8 --layout split`` holds the split layout against the
+compact one where both fit (their outputs must be bitwise equal) and times
+what the split costs; ``--order 4 --segments 6`` is a geometry that takes
+the split layout.
 
     python -m mpc_motion_planner_tpu_torch.bench.kernel_ab --kernel 4 \\
         [--batch 2048] [--reps 3] [--segments 6] [--order 3] [--urdf path.urdf] \\
-        [name=path.cu ...]
+        [--layout split] [name=path.cu ...]
 
 A variant's headers are looked up beside its source. To compare with an
 earlier commit:
@@ -198,7 +204,7 @@ def variant_kernel(number, name, path):
     # sources from before the init entry point set the attributes in every launch
     init = k.init if k.init is not None and k.init in text else None
     return build.CudaKernel(label, path, k.entry, k.argtypes, init=init,
-                            per_geometry=k.per_geometry)
+                            per_geometry=k.per_geometry, layout_of=k.layout_of)
 
 
 def time_in_turns(kernels, call, reps, behind=None):
@@ -331,8 +337,12 @@ def main(argv=None) -> int:
                     help="spline order, the band width of kernels 2 and 3 (4 x 4 segments: "
                          "17 nodes)")
     ap.add_argument("--urdf", help="a Panda with its last joints locked (default: the Panda)")
+    ap.add_argument("--layout", choices=build.LAYOUTS,
+                    help="kernel 3: add the package's source built in this shared-memory layout")
     ap.add_argument("variants", nargs="*", help="name=path.cu")
     a = ap.parse_args(argv)
+    if a.layout and a.kernel != 3:
+        ap.error("--layout is kernel 3's")
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA GPU", file=sys.stderr)
         return 1
@@ -348,14 +358,21 @@ def main(argv=None) -> int:
     for spec in a.variants:
         name, _, path = spec.partition("=")
         kernels[name] = variant_kernel(a.kernel, name, os.path.abspath(path))
+    if a.layout:  # the package's kernel 3, built in that layout at every geometry
+        k = k3.KERNEL
+        kernels[f"layout_{a.layout}"] = build.CudaKernel(
+            k.name, k.source, k.entry, k.argtypes, init=k.init, per_geometry=k.per_geometry,
+            layout_of=lambda g: a.layout)
     model, limits, cols = (locked_panda(a.urdf, torch.float32, dev) if a.urdf
                            else (None, None, list(range(14))))
     geometry = build.Geometry(segments=a.segments, order=a.order, nq=len(cols) // 2)
     for name, k in kernels.items():
         k.function(geometry)
-        info = [ln.strip() for ln in k.build_log.get(k.geometry(geometry), "").splitlines()
+        built = k.geometry(geometry)
+        info = [ln.strip() for ln in k.build_log.get(built, "").splitlines()
                 if "registers" in ln or "spill" in ln]
-        print(f"built {name}: " + " | ".join(info), flush=True)
+        layout = f" ({built.layout} layout)" if built is not None and built.layout else ""
+        print(f"built {name}{layout}: " + " | ".join(info), flush=True)
 
     shipping = config.SHIPPING_QP_SETTINGS
     planner = MotionPlanner(
@@ -420,8 +437,10 @@ def main(argv=None) -> int:
         shape = {"budget": DENSE.max_iter, "window": DENSE.check_every}
 
     for name, r in results.items():
+        layout = {"layout": kernels[name].geometry(geometry).layout} if a.kernel == 3 else {}
         print(json.dumps({"kernel": a.kernel, "variant": name, "batch": a.batch,
-                          "nodes": ocp.num_nodes, "joints": ocp.nq, **shape, **r}), flush=True)
+                          "nodes": ocp.num_nodes, "order": ocp.coll.order, "joints": ocp.nq,
+                          **layout, **shape, **r}), flush=True)
     print(smi)
     return 0
 

@@ -19,8 +19,9 @@ starts, which slows later solves.
 
 ``--segments`` and ``--order`` set the transcription as a user sets it
 (``planner.ocp = make_ocp(model, tool_frame, order=3, num_segments=8)``: 25
-nodes; ``order=4, num_segments=4``: 17 nodes; default 6 segments of order 3,
-19 nodes), and kernels 2 and 3 are built for it. ``--urdf`` plans another
+nodes; ``order=4, num_segments=4``: 17 nodes; ``order=4, num_segments=6``:
+25 nodes, kernel 3 in its split layout; default 6 segments of order 3, 19
+nodes), and kernels 2 and 3 are built for it. ``--urdf`` plans another
 robot: a Panda with its last joints locked (for example
 ``tests/fixtures/panda_joint7_fixed.urdf``, 6 joints), with the Panda's
 limits of its first nq joints and the headline states' entries of those
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from .. import config, kernels
+from ..kernels.build import Geometry
 from ..models.panda import _LIMIT_TENSORS, make_panda_limits
 from ..models.urdf import parse_urdf
 from ..ocp import make_ocp
@@ -169,7 +171,7 @@ def main(argv=None) -> int:
     ap.add_argument("--segments", type=int, default=6,
                     help="spline segments (6 of order 3: 19 nodes; 8: 25 nodes)")
     ap.add_argument("--order", type=int, default=3,
-                    help="spline order (4 x 4 segments: 17 nodes)")
+                    help="spline order (4 x 4 segments: 17 nodes; 4 x 6: 25 nodes)")
     ap.add_argument("--urdf", help="a Panda with its last joints locked (default: the Panda)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -209,7 +211,8 @@ def main(argv=None) -> int:
             warm[m].append(solve(fn))
     out = {"path": which, "batch": B, "nodes": planner.ocp.num_nodes,
            "order": planner.ocp.coll.order, "joints": planner.ocp.nq, "capture_s": capture_s,
-           "eager_resolves": captured.eager_resolves}
+           "eager_resolves": captured.eager_resolves,
+           "k3_layout": kernels.structured_admm.choose_layout(Geometry.of_ocp(planner.ocp))}
     for m, fn in modes.items():
         kernels.reset_launch_counts()
         ms, sol, events = profiled(fn, cur, tgt)

@@ -4,6 +4,7 @@
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstring>
 
 namespace mpc {
@@ -22,6 +23,11 @@ namespace mpc {
 #endif
 #ifndef MPC_NQ
 #define MPC_NQ 7
+#endif
+// Kernel 3's shared-memory layout, which the build picks from the geometry
+// (kernels/structured_admm.py layout): 0 full, 1 compact, 2 split.
+#ifndef MPC_SMEM_LAYOUT
+#define MPC_SMEM_LAYOUT 0
 #endif
 constexpr int SEG = MPC_SEGMENTS;
 constexpr int KL = MPC_ORDER + 1;  // local nodes per segment

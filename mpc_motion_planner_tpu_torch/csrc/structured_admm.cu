@@ -75,38 +75,84 @@
 // count, band width and joint count. The figures here are the 7-joint Panda's
 // at order 3; a robot of NQ joints has blocks of BLK = 3 NQ rows, node
 // vectors padded to VPAD (BLK rounded up to 4: 20 floats, five loads, at 6
-// joints; 24 at 7 and 8) and a row per lane, so BLK <= 32. The block has one
-// thread per z element and per constraint row (NT = max(NV, NM) rounded up to
-// whole warps: 512 at 19 nodes, 672 at 25, 352 at 13; 448 at 19 nodes and 6
-// joints, 576 at 8; 544 at order 2 x 9 segments, 416 at order 4 x 4, 384 at
-// order 5 x 3), and everything else follows the geometry: a band width of BW
-// takes BW - 1 helper warps and BW - 1 look-ahead vectors (the sweeps need 2
-// + BW warps). At 19 and 13 nodes shared memory holds every operand as
-// described above (Ldi stored full: a chain warp runs one multiply-add per
-// column for all rows at once, so the zero half costs no time). At 25 nodes
-// that layout needs 262,000 B, 29.6 KB more than a block may have (232,448
-// B), and the block takes the compact layout, which drops what is never read:
-// * Ldi packed lower triangular (231 of 441 floats per node, 21,000 B
-//   less): an inverse Cholesky factor is exactly zero above its diagonal
-//   (kernel 2's forward substitution and the plain triangular solve both
-//   leave it so), and a chain warp's load puts those zeros back in
-//   registers, so every product is the full layout's, bitwise. The row (or
-//   column) a lane loads lies at rr (rr+1)/2 + i (or i (i+1)/2 + rr), on
-//   21 distinct banks. The loads are the fetch of a step ahead, off the
-//   chain.
-// * Lsub without its tail (5 blocks at BW = 3, 8,820 B less): L[k+d,k]
-//   past the matrix end is zero and no sweep reads it (the highest block
-//   read is L[N-1,N-2], number (N-2) BW).
-// That is 232,176 B (at 19 nodes and 8 joints the compact layout takes
-// 217,936 B, where the full one would need 250,432 B). Two other ways were
-// weighed: J in device memory read through L1 (16.8 KB) would put an L1
-// round trip into A and A' every iteration, and a cluster of two blocks
-// holding the factors in distributed shared memory would put one into every
-// block step of the chain; the compact layout costs neither, only index
-// arithmetic in the fetch. Registers: 672 threads are 21 warps, six of them on one of the
-// SM's four schedulers, whose quarter of the register file (16K) then
-// allows 80 registers per thread; ptxas -v reports 72 B of spill stores for
-// the 25-node build, none at 19 nodes (99 registers).
+// joints; 24 at 7 and 8; 28 at 9; 32 at 10) and a row per lane, so BLK <=
+// 32. The block has one thread per z element and per constraint row (NT =
+// max(NV, NM) rounded up to whole warps: 512 at 19 nodes, 672 at 25, 352 at
+// 13; 448 at 19 nodes and 6 joints, 576 at 8, 640 at 9, 704 at 10; 544 at
+// order 2 x 9 segments, 416 at order 4 x 4, 640 at order 4 x 6, 384 at order
+// 5 x 3), and everything else follows the geometry: a band width of BW takes
+// BW - 1 helper warps and BW - 1 look-ahead vectors (the sweeps need 2 + BW
+// warps).
+//
+// Shared memory: the build picks one of three layouts from the geometry
+// (MPC_SMEM_LAYOUT, kernels/structured_admm.py layout), the first that fits
+// a block (232,448 B). The bytes below are sizeof(Smem), which the Python
+// reckoning (smem_bytes) equals and the library reports
+// (mpc_structured_admm_smem_bytes) on an NVIDIA H100 80GB HBM3 at 700 W.
+// * Full: every operand as described above (Ldi stored full: a chain warp
+//   runs one multiply-add per column for all rows at once, so the zero half
+//   costs no time). 19 and 13 nodes of the Panda, 6 and 7 joints, orders 2,
+//   4 and 5 up to 4 segments.
+// * Compact drops what is never read (25 nodes of the Panda: 262,000 B
+//   full, 29.6 KB too many; 232,176 B compact; 19 nodes and 8 joints,
+//   order 4 x 5):
+//   - Ldi packed lower triangular (231 of 441 floats per node, 21,000 B
+//     less): an inverse Cholesky factor is exactly zero above its diagonal
+//     (kernel 2's forward substitution and the plain triangular solve both
+//     leave it so), and a chain warp's load puts those zeros back in
+//     registers, so every product is the full layout's, bitwise. The row
+//     (or column) a lane loads lies at rr (rr+1)/2 + i (or i (i+1)/2 + rr),
+//     on 21 distinct banks. The loads are the fetch of a step ahead, off
+//     the chain.
+//   - Lsub without its tail (5 blocks at BW = 3, 8,820 B less): L[k+d,k]
+//     past the matrix end is zero and no sweep reads it (the highest block
+//     read is L[N-1,N-2], number (N-2) BW).
+// * Split keeps in shared memory only what the chain reads, and reads the
+//   rest from device memory (through L2) off the chain. Order 4 x 6 (25
+//   nodes: 273,632 B compact, 173,200 B split), 9 and 10 joints at 19 nodes
+//   (267,216 and 321,344 B compact; 185,680 and 220,640 B split), 28 nodes
+//   of order 3 (180,128 B split); 10 joints at 25 nodes of order 3 fit none
+//   (284,880 B split). Ldi is packed as in compact; of Lsub only the N - 1
+//   distance-1 blocks L[k,k-1] stay, which the chain fetches. The blocks of
+//   distances 2..BW (69 of the 93 compact blocks at order 4 x 6, 121.7 KB)
+//   are read only by the helper warps, a full step ahead of the chain. A
+//   node's blocks L[m+2,m] .. L[m+BW,m] lie side by side in the Lsub kernel
+//   2 wrote (a run): the forward sweep reads node m's run at step m, all
+//   helpers at once, and the backward sweep reads it again over BW - 1
+//   steps. A ring of BW runs holds node m's in slot m % BW, filled by one
+//   bulk copy of the tensor memory accelerator (TMA) two steps before the
+//   run's first use; the backward sweep finds the forward's last runs still
+//   there, and the next forward the backward's, so an iteration copies 2 (N
+//   - 2 - BW) runs (38 at 3 x 8 against 90 blocks copied one by one). The
+//   copies complete on one mbarrier per slot, which a helper waits on before
+//   reading its block as compact reads Lsub, so split and compact give the
+//   same results, bitwise, where both fit. A run is no multiple of 16 B and
+//   starts on any 4-byte boundary: the copy runs from the 16-byte boundary
+//   at or before it into a slot aligned the same way (no copy of Lsub).
+//   The copies are issued by a copier (lane 0 of the first warp after the
+//   sweep warps), which takes no part in the sweeps' barriers: it follows
+//   the step count that the helper of distance 2 publishes after each
+//   barrier, since a copy instruction holds the warp that issues it for
+//   hundreds of cycles, and any sweep warp held so holds the chain at the
+//   next barrier. Measured (kernel_ab.py and chip_smoke.py, order 3 x 8,
+//   where compact also fits, NVIDIA H100 80GB HBM3 at 700 W), per
+//   iteration against compact: +62% with 4-byte cp.async pieces by every
+//   helper lane, +47% with 16-byte pieces, +33 to +36% with one bulk copy a
+//   block issued by its helper, the same with one copy a run (a quarter of
+//   the copies) or a producer warp inside the barriers, +20 to +22% with
+//   the copier. The copies' latency and bytes are hidden (rings of 2 to 6
+//   slots, and 16-byte copies in place of whole blocks, time the same);
+//   what is left is the helpers' waits (PERF.md, PR 12).
+// Two other ways were weighed for what does not fit: J in device memory
+// read through L1 (16.8 KB) would put an L1 round trip into A and A' every
+// iteration, and a cluster of two blocks holding the factors in distributed
+// shared memory would put one into every block step of the chain (or, with
+// only the helpers' blocks in the partner, take two SMs per problem: 66
+// problems in flight instead of 132). Registers: 672 threads are 21 warps,
+// six of them on one of the SM's four schedulers, whose quarter of the
+// register file (16K) then allows 80 registers per thread; ptxas -v reports
+// 72 B of spill stores for the 25-node build, none at 19 nodes (99
+// registers).
 
 #include "common.cuh"
 
@@ -128,6 +174,28 @@ constexpr int TRI = BLK * (BLK + 1) / 2; // a packed lower-triangular block
 constexpr int LSUB_USED = (N - 2) * BW + 1;  // Lsub blocks up to L[N-1,N-2]
 constexpr int NAHEAD = BW - 1;             // look-ahead distances 2..BW
 constexpr int NAHEAD_BUF = NAHEAD > 0 ? NAHEAD : 1;
+
+// the shared-memory layouts (the header says which geometry takes which)
+enum Layout { FULL = 0, COMPACT = 1, SPLIT = 2 };
+constexpr int LAYOUT = MPC_SMEM_LAYOUT;
+static_assert(LAYOUT == FULL || LAYOUT == COMPACT || LAYOUT == SPLIT, "a layout of common.cuh");
+constexpr bool PACKED_LDI = LAYOUT != FULL;
+// split: the helpers' blocks of node m, L[m+2,m] .. L[m+BW,m], lie side by
+// side in Lsub (a run); a ring of RING runs holds node m's in slot m % RING,
+// copied from the 16-byte boundary at or before the run, so up to 3 floats
+// more. The ring is filled LEAD steps ahead of a run's first use, and RING =
+// BW + LEAD - 2 is the fewest runs for which no copy overwrites a run still
+// to be read (ring_step).
+constexpr int LEAD = 2;
+constexpr int RING = BW + LEAD - 2;
+constexpr int RUN = NAHEAD * BLK2;
+constexpr int SLOT = (RUN + 6) / 4 * 4;
+// floats of Lsub in shared memory: all blocks; those up to L[N-1,N-2]; or
+// (split) the N - 1 distance-1 blocks, up to 3 floats to a 16-byte boundary,
+// the ring, its barriers (8 bytes each) and the copier's progress count
+constexpr int LSUB_FLOATS = LAYOUT == FULL      ? N * BW * BLK2
+                            : LAYOUT == COMPACT ? LSUB_USED * BLK2
+                                                : (N - 1) * BLK2 + 3 + RING * (SLOT + 2) + 1;
 
 struct Params {
   float Dm[KL * KL];  // Dm[k*KL + j]
@@ -153,12 +221,9 @@ constexpr int NPTRS = 37;
 static_assert(sizeof(Ptrs) == NPTRS * sizeof(void*), "pointer block layout");
 
 // z vectors are node-major here: element e = n*21 + c for e < NB, then p.
-// COMPACT: Ldi packed lower triangular, Lsub without its unread tail (the
-// header says when).
-template <bool COMPACT>
-struct SmemLayout {
-  float Ldi[N * (COMPACT ? TRI : BLK2)];
-  float Lsub[(COMPACT ? LSUB_USED : N * BW) * BLK2];
+struct Smem {
+  float Ldi[N * (PACKED_LDI ? TRI : BLK2)];
+  float Lsub[LSUB_FLOATS];
   float u[NB];
   float J[N * NG * BLK];
   float fseg[NEQ];
@@ -183,10 +248,11 @@ struct SmemLayout {
   float p, s;
   int done;
 };
-// the full layout wherever it fits
-constexpr bool COMPACT = sizeof(SmemLayout<false>) > SMEM_LIMIT;
-using Smem = SmemLayout<COMPACT>;
-static_assert(sizeof(Smem) <= SMEM_LIMIT, "shared memory of one block");
+static_assert(sizeof(Smem) <= SMEM_LIMIT, "shared memory of one block: the build's layout");
+// split: where the ring starts in Lsub, the first 16-byte boundary of the
+// block's shared memory after the distance-1 blocks
+constexpr int LSUB_AT = (int)offsetof(Smem, Lsub) / 4;
+constexpr int RING_AT = (LSUB_AT + (N - 1) * BLK2 + 3) / 4 * 4 - LSUB_AT;
 
 __device__ __forceinline__ float ftz(float v) {
   return clampf(fabsf(v) < 1e-30f ? 0.f : v, -1e15f, 1e15f);
@@ -354,12 +420,12 @@ __device__ __forceinline__ void load_block(float (&M)[BLK], const float* blk, in
   for (int i = 0; i < BLK; ++i) M[i] = FWD ? blk[rr * BLK + i] : blk[i * BLK + rr];
 }
 
-// Row rr (forward) or column rr (backward) of Ldi_k. The compact layout
-// stores the lower triangle row by row and the zeros above it are put back
-// here, so the products are those of the full layout.
+// Row rr (forward) or column rr (backward) of Ldi_k. The compact and split
+// layouts store the lower triangle row by row and the zeros above it are put
+// back here, so the products are those of the full layout.
 template <bool FWD>
 __device__ __forceinline__ void load_ldi(float (&M)[BLK], const Smem& sm, int k, int rr) {
-  if constexpr (COMPACT) {
+  if constexpr (PACKED_LDI) {
     const float* blk = sm.Ldi + k * TRI;
 #pragma unroll
     for (int i = 0; i < BLK; ++i) {
@@ -375,12 +441,18 @@ __device__ __forceinline__ void load_ldi(float (&M)[BLK], const Smem& sm, int k,
 template <bool FWD>
 __device__ __forceinline__ int node_of(int t) { return FWD ? t : N - 1 - t; }
 
+// The distance-1 block L[j+1,j] in shared memory (the split layout keeps
+// those alone).
+__device__ __forceinline__ const float* lsub_d1(const Smem& sm, int j) {
+  return sm.Lsub + (LAYOUT == SPLIT ? j : j * BW) * BLK2;
+}
+
 // The chain's blocks and right-hand side of step t, into registers.
 template <bool FWD>
 __device__ __forceinline__ void chain_fetch(const Smem& sm, int t, int rr, float (&L)[BLK],
                                             float (&Dg)[BLK], float& v) {
   const int k = node_of<FWD>(t);
-  if (t >= 1) load_block<FWD>(L, sm.Lsub + ((FWD ? k - 1 : k) * BW) * BLK2, rr);
+  if (t >= 1) load_block<FWD>(L, lsub_d1(sm, FWD ? k - 1 : k), rr);
   load_ldi<FWD>(Dg, sm, k, rr);
   v = FWD ? sm.rhs[k * BLK + rr] : sm.ys[k * VPAD + rr];
 }
@@ -426,11 +498,154 @@ __device__ __forceinline__ void chain_sweep(Smem& sm, int lane, int turn) {
   }
 }
 
+// ---- the split layout: the helpers' blocks streamed through a ring of node runs ----
+
+// The ring's state, the same in every thread of the helper warps and the
+// copier, which all update it at the same point of each step: the nodes
+// whose runs the ring holds (lo..hi), and per slot the parity of its last
+// copy's barrier phase and where its run starts after its 16-byte boundary.
+// Kept incrementally, since what a helper does in a step lies between two
+// barriers of the sweep.
+struct Ring {
+  const float* lsub;  // the problem's Lsub in device memory (B, N, BW, BLK, BLK)
+  float* slots;       // slot 0
+  unsigned bar;       // the shared address of slot 0's barrier
+  unsigned progress;  // the shared address of the steps the helper of distance 2 finished
+  int lo, hi;         // the nodes whose runs the ring holds
+  unsigned parity;    // bit s: the phase parity of slot s's last copy
+  unsigned phases;    // bits 2s, 2s+1: where slot s's run starts after its boundary
+  int steps;          // the sweep steps done in the launch
+};
+
+// The copier: lane 0 of warp SWEEP_WARPS, which takes no part in the sweeps'
+// barriers, issues the ring's copies; a copy instruction holds the warp
+// that issues it for hundreds of cycles, which no sweep warp can spare.
+constexpr int COPIER = SWEEP_WARPS;
+static_assert(LAYOUT != SPLIT || NWARP > COPIER, "a warp for the copier");
+
+// Copy node m's run into slot m % RING: the copier issues one bulk copy of
+// the tensor memory accelerator, from the 16-byte boundary at or before the
+// run to the one at or after its end (the up to 3 floats past it belong to
+// the next node's distance-1 block), which completes on the slot's barrier;
+// every thread that keeps the state updates it.
+__device__ __forceinline__ void ring_copy(Ring& r, int warp, int lane, int m) {
+  const int s = m % RING;
+  const float* src = r.lsub + (m * BW + 1) * BLK2;
+  const unsigned phase = (unsigned)(__cvta_generic_to_global(src) >> 2) & 3u;
+  if (warp == COPIER && lane == 0) {
+    const unsigned bytes = 16 * ((RUN + phase + 3) / 4), bar = r.bar + 8 * s;
+    // the slot's earlier contents were read by ordinary loads before a barrier
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];" ::"r"((unsigned)__cvta_generic_to_shared(r.slots + s * SLOT)),
+        "l"(__cvta_generic_to_global(src - phase)), "r"(bytes), "r"(bar)
+        : "memory");
+  }
+  r.parity ^= 1u << s;
+  r.phases = (r.phases & ~(3u << 2 * s)) | (phase << 2 * s);
+}
+
+// Wait until slot s's last copy has landed.
+__device__ __forceinline__ void ring_wait(const Ring& r, int s) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}" ::"r"(r.bar + 8 * s),
+      "r"(((r.parity >> s) & 1u) ^ 1u)
+      : "memory");
+}
+
+// Once at the start of a launch, by the helper warps and the copier: the
+// state, the barriers, and the runs of nodes 0..RING-1.
+__device__ __forceinline__ void ring_start(Smem& sm, Ring& r, int warp, int lane) {
+  if ((warp < CHAIN_WARPS || warp >= CHAIN_WARPS + NAHEAD) && warp != COPIER) return;
+  r.slots = sm.Lsub + RING_AT;
+  r.bar = (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT + RING * SLOT);
+  r.progress = r.bar + 8 * RING;
+  r.lo = 0;
+  r.hi = RING - 1;
+  r.parity = r.phases = 0;
+  r.steps = 0;
+  if (warp == COPIER && lane == 0) {
+    asm volatile("st.shared.u32 [%0], 0;" ::"r"(r.progress) : "memory");
+    for (int s = 0; s < RING; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(r.bar + 8 * s) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncwarp();
+  for (int m = 0; m < RING; ++m) ring_copy(r, warp, lane, m);
+}
+
+// Once at the end of a launch, by the copier: each slot's last copy lands
+// before the block's shared memory is gone.
+__device__ __forceinline__ void ring_end(const Ring& r, int warp) {
+  if (warp == COPIER)
+    for (int s = 0; s < RING; ++s) ring_wait(r, s);
+}
+
+// The helper of distance DIST's block at step t: row or column rr of
+// L[m+DIST,m] of node m = t (forward) or N-1-t-DIST (backward).
+template <bool FWD, int DIST>
+__device__ __forceinline__ void ring_take(float (&M)[BLK], const Ring& r, int t, int rr) {
+  const int m = FWD ? t : N - 1 - t - DIST;
+  const int s = m % RING;
+  ring_wait(r, s);
+  load_block<FWD>(M, r.slots + s * SLOT + ((r.phases >> 2 * s) & 3u) + (DIST - 2) * BLK2, rr);
+}
+
+// After step t: the run first needed LEAD steps on, if the ring does not
+// hold it. Forward, node t + LEAD's, which evicts node t + LEAD - RING's,
+// read at step t + LEAD - RING <= t. Backward, node N-1-t-LEAD-BW's (helper
+// BW reads it first), which evicts node N-1-t-LEAD-BW+RING's, last read (by
+// helper 2) at step t + LEAD + BW - 2 - RING = t. The copier issues the copy
+// once the helper of distance 2 has published that it finished step t,
+// after the sweep's barrier of step t, before which every helper's reads of
+// the evicted run came.
+template <bool FWD>
+__device__ __forceinline__ void ring_step(Ring& r, int warp, int lane, int t) {
+  const int m = FWD ? t + LEAD : N - 1 - t - LEAD - BW;
+  const bool copy = FWD ? m <= N - 3 && m > r.hi : m >= 0 && m < r.lo;
+  ++r.steps;
+  if (warp == CHAIN_WARPS && lane == 0)
+    asm volatile("st.release.cta.shared.u32 [%0], %1;" ::"r"(r.progress), "r"(r.steps)
+                 : "memory");
+  if (!copy) return;
+  if (warp == COPIER && lane == 0) {
+    unsigned done;
+    for (;;) {
+      asm volatile("ld.acquire.cta.shared.u32 %0, [%1];"
+                   : "=r"(done)
+                   : "r"(r.progress)
+                   : "memory");
+      if ((int)done >= r.steps) break;
+      __nanosleep(64);
+    }
+  }
+  ring_copy(r, warp, lane, m);
+  if (FWD) {
+    r.hi = m;
+    r.lo = max(r.lo, m - RING + 1);
+  } else {
+    r.lo = m;
+    r.hi = min(r.hi, m + RING - 1);
+  }
+}
+
+// The copier's part of a sweep: the helpers' state, step by step, with the
+// copies.
+template <bool FWD>
+__device__ __forceinline__ void copier_sweep(Ring& r, int warp, int lane) {
+  for (int t = 0; t < N; ++t) ring_step<FWD>(r, warp, lane, t);
+}
+
 // After the chain publishes node k at step t, the helper of distance DIST
 // forms that node's term of the step DIST ahead: L[k+DIST,k] y_k (forward),
 // L[k,k-DIST]' x_k (backward).
 template <bool FWD, int DIST>
-__device__ __forceinline__ void helper_sweep(Smem& sm, int lane) {
+__device__ __forceinline__ void helper_sweep(Smem& sm, Ring& r, int warp, int lane) {
   const int rr = min(lane, BLK - 1);
   float* out = sm.ahead[DIST - 2];
   const float* pub = FWD ? sm.ys : sm.xs;
@@ -438,13 +653,19 @@ __device__ __forceinline__ void helper_sweep(Smem& sm, int lane) {
   for (int t = 0; t < N; ++t) {
     const int k = node_of<FWD>(t);
     const bool live = t + DIST < N;
-    if (live) load_block<FWD>(M, sm.Lsub + ((FWD ? k : k - DIST) * BW + DIST - 1) * BLK2, rr);
+    if (live) {
+      if constexpr (LAYOUT == SPLIT)
+        ring_take<FWD, DIST>(M, r, t, rr);
+      else
+        load_block<FWD>(M, sm.Lsub + ((FWD ? k : k - DIST) * BW + DIST - 1) * BLK2, rr);
+    }
     sweep_barrier<FWD>();
     if (live) {
       load_vec(vec, pub + k * VPAD);
       float s = dot_row(M, vec);
       if (lane < BLK) out[node_of<FWD>(t + DIST) * BLK + lane] = s;
     }
+    if constexpr (LAYOUT == SPLIT) ring_step<FWD>(r, warp, lane, t);
   }
 }
 
@@ -489,13 +710,14 @@ __device__ __forceinline__ void finish_sweep(Smem& sm, int lane, float sigma) {
 // Warp CHAIN_WARPS + DIST - 2 is the helper of distance DIST (2..BW), the
 // warp after them the finishing warp.
 template <bool REFINE, bool CORRECTION, int DIST>
-__device__ __forceinline__ void helper_or_finish(Smem& sm, int warp, int lane, float sigma) {
+__device__ __forceinline__ void helper_or_finish(Smem& sm, Ring& r, int warp, int lane,
+                                                 float sigma) {
   if constexpr (DIST <= BW) {
     if (warp == CHAIN_WARPS + DIST - 2) {
-      helper_sweep<true, DIST>(sm, lane);
-      helper_sweep<false, DIST>(sm, lane);
+      helper_sweep<true, DIST>(sm, r, warp, lane);
+      helper_sweep<false, DIST>(sm, r, warp, lane);
     } else {
-      helper_or_finish<REFINE, CORRECTION, DIST + 1>(sm, warp, lane, sigma);
+      helper_or_finish<REFINE, CORRECTION, DIST + 1>(sm, r, warp, lane, sigma);
     }
   } else if (warp == CHAIN_WARPS + NAHEAD) {
     finish_sweep<REFINE, CORRECTION>(sm, lane, sigma);
@@ -504,12 +726,16 @@ __device__ __forceinline__ void helper_or_finish(Smem& sm, int warp, int lane, f
 
 // xt = M^-1 rhs and dx = D xt (CORRECTION: xt += M^-1 rhs), by the sweep warps
 template <bool REFINE, bool CORRECTION>
-__device__ __forceinline__ void solve_sweeps(Smem& sm, int warp, int lane, float sigma) {
+__device__ __forceinline__ void solve_sweeps(Smem& sm, Ring& r, int warp, int lane,
+                                             float sigma) {
   if (warp < CHAIN_WARPS) {
     chain_sweep<true>(sm, lane, warp);
     chain_sweep<false>(sm, lane, warp);
+  } else if (LAYOUT == SPLIT && warp == COPIER) {
+    copier_sweep<true>(r, warp, lane);
+    copier_sweep<false>(r, warp, lane);
   } else {
-    helper_or_finish<REFINE, CORRECTION, 2>(sm, warp, lane, sigma);
+    helper_or_finish<REFINE, CORRECTION, 2>(sm, r, warp, lane, sigma);
   }
 }
 
@@ -550,16 +776,23 @@ structured_admm_kernel(Params P, Ptrs g) {
   const ZElem ze = make_zelem(tid);
   const MRow mr = make_mrow(tid);
 
-  if constexpr (COMPACT) {
+  Ring ring{g.Lsub + (size_t)b * N * BW * BLK2};
+  if constexpr (LAYOUT == SPLIT) ring_start(sm, ring, warp, lane);
+  if constexpr (PACKED_LDI) {
     const float* src = g.Ldi + (size_t)b * N * BLK2;
     for (int e = tid; e < N * BLK2; e += NT) {
       const int k = e / BLK2, i = (e % BLK2) / BLK, j = e % BLK;
       if (j <= i) sm.Ldi[k * TRI + i * (i + 1) / 2 + j] = src[e];
     }
-    copy<LSUB_USED * BLK2>(sm.Lsub, g.Lsub + (size_t)b * N * BW * BLK2);
   } else {
     copy<N * BLK2>(sm.Ldi, g.Ldi + (size_t)b * N * BLK2);
-    copy<N * BW * BLK2>(sm.Lsub, g.Lsub + (size_t)b * N * BW * BLK2);
+  }
+  if constexpr (LAYOUT == SPLIT) {
+    // the distance-1 blocks L[j+1,j], j < N - 1
+    for (int e = tid; e < (N - 1) * BLK2; e += NT)
+      sm.Lsub[e] = ring.lsub[(e / BLK2) * BW * BLK2 + e % BLK2];
+  } else {
+    copy<LSUB_FLOATS>(sm.Lsub, ring.lsub);
   }
   copy<NB>(sm.u, g.u + (size_t)b * NB);
   copy<N * NG * BLK>(sm.J, g.J + (size_t)b * N * NG * BLK);
@@ -605,7 +838,7 @@ structured_admm_kernel(Params P, Ptrs g) {
     __syncthreads();
 
     // ---- xt = M^-1 rhs and dx = D xt ----
-    solve_sweeps<REFINE, false>(sm, warp, lane, sigma);
+    solve_sweeps<REFINE, false>(sm, ring, warp, lane, sigma);
     __syncthreads();
 
     if (REFINE) {
@@ -619,7 +852,7 @@ structured_admm_kernel(Params P, Ptrs g) {
           sm.rhs[tid] = sm.wc[tid] - ((sm.Ps[tid] + sigma + sm.rx[tid]) * sm.xt[tid] +
                                       sm.D[tid] * at_elem(sm, sm.wb, ze));
         __syncthreads();
-        solve_sweeps<REFINE, true>(sm, warp, lane, sigma);
+        solve_sweeps<REFINE, true>(sm, ring, warp, lane, sigma);
         __syncthreads();
       }
     }
@@ -705,6 +938,7 @@ structured_admm_kernel(Params P, Ptrs g) {
     }
   }
 
+  if constexpr (LAYOUT == SPLIT) ring_end(ring, warp);
   if (has_z) {
     const size_t j = zo + ze.z;
     g.x[j] = sm.x[tid];
@@ -725,7 +959,7 @@ structured_admm_kernel(Params P, Ptrs g) {
 
 }  // namespace
 
-// Bytes of shared memory a block takes (the layout the build chose).
+// Bytes of shared memory a block takes (in the layout of the build).
 extern "C" int mpc_structured_admm_smem_bytes() { return (int)sizeof(Smem); }
 
 // Threads per block.

@@ -13,8 +13,10 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, and deliberately no
 Kernels 2 and 3 are compiled for one transcription (:class:`Geometry`):
 its ``-D`` flags set the node count, the spline order and the joint count
 in ``csrc/common.cuh`` and enter the hash, so each geometry has a library of
-its own, built and loaded at its first use. Kernel 1 is compiled for one
-joint count (the ``-DMPC_NQ`` flag alone), kernel 4 once.
+its own, built and loaded at its first use. Kernel 3's library is also built
+for one shared-memory layout (``-DMPC_SMEM_LAYOUT``), the one its geometry
+takes unless the geometry names another. Kernel 1 is compiled for one joint
+count (the ``-DMPC_NQ`` flag alone), kernel 4 once.
 
 A library may export an ``init`` function, which is called once when it is
 loaded (the kernels' shared-memory attributes are set there, not in every
@@ -45,6 +47,10 @@ NVCC_FLAGS = (
 # dynamic shared memory one block may take on an H100 (227 KB)
 SMEM_LIMIT = 232448
 
+# kernel 3's shared-memory layouts, in the order of their -DMPC_SMEM_LAYOUT
+# values (csrc/common.cuh)
+LAYOUTS = ("full", "compact", "split")
+
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
@@ -53,11 +59,22 @@ class Geometry:
     and the robot's joint count nq, which gives 2 nq states, nq controls
     and nq + 1 constraint rows (the torques and the tool height) per node.
     The defaults are the 19-node Panda transcription, ``csrc/common.cuh``'s
-    defaults. Kernel 1's library depends on ``nq`` alone."""
+    defaults. Kernel 1's library depends on ``nq`` alone.
+
+    ``layout`` is kernel 3's shared-memory layout, one of :data:`LAYOUTS`;
+    None (the default, and what an OCP gives) stands for the one the
+    geometry takes (``kernels/structured_admm.py`` ``choose_layout``). Naming
+    another is for holding and timing one layout against another; kernels
+    1 and 2 ignore it."""
 
     segments: int = 6
     order: int = 3
     nq: int = 7
+    layout: str = None
+
+    def __post_init__(self):
+        if self.layout not in (None, *LAYOUTS):
+            raise ValueError(f"layout {self.layout!r}: expected one of {LAYOUTS} or None")
 
     @classmethod
     def of_ocp(cls, ocp) -> "Geometry":
@@ -105,9 +122,13 @@ class Geometry:
         return self.num_eq + self.nodes * self.ng
 
     def flags(self) -> tuple:
-        """The nvcc flags that set this geometry in ``csrc/common.cuh``."""
-        return (f"-DMPC_SEGMENTS={self.segments}", f"-DMPC_ORDER={self.order}",
-                f"-DMPC_NQ={self.nq}")
+        """The nvcc flags that set this geometry in ``csrc/common.cuh``
+        (the layout's only where it is set)."""
+        flags = (f"-DMPC_SEGMENTS={self.segments}", f"-DMPC_ORDER={self.order}",
+                 f"-DMPC_NQ={self.nq}")
+        if self.layout is None:
+            return flags
+        return flags + (f"-DMPC_SMEM_LAYOUT={LAYOUTS.index(self.layout)}",)
 
 
 def nvcc_path() -> str:
@@ -132,10 +153,14 @@ class CudaKernel:
     one count for the kernel, whatever the geometry, incremented by the
     wrapper each time it launches the kernel, and nowhere else;
     ``build_log`` holds nvcc's report (registers, shared memory, spills) of
-    each build, by geometry."""
+    each build, by geometry.
+
+    ``layout_of`` (kernel 3): the shared-memory layout a geometry that names
+    none is built in, a function of the geometry; without it a library
+    ignores the geometry's layout."""
 
     def __init__(self, name: str, source: str, entry: str, argtypes, init: str = None,
-                 per_geometry: str = None):
+                 per_geometry: str = None, layout_of=None):
         if per_geometry not in (None, "joints", "transcription"):
             raise ValueError(f"per_geometry {per_geometry!r}")
         self.name = name
@@ -144,6 +169,7 @@ class CudaKernel:
         self.argtypes = argtypes
         self.init = init
         self.per_geometry = per_geometry
+        self.layout_of = layout_of
         self.launches = 0
         self.build_log = {}
         self._fns = {}  # geometry -> bound entry point
@@ -155,11 +181,16 @@ class CudaKernel:
         """The geometry a library is built for: None for a kernel that does
         not depend on it; for a kernel built per joint count the default
         transcription with ``geometry``'s joint count; else ``geometry`` or
-        the default one."""
+        the default one, with the layout it names or else ``layout_of``'s
+        (none for a kernel without ``layout_of``)."""
         if self.per_geometry is None:
             return None
         g = geometry or Geometry()
-        return Geometry(nq=g.nq) if self.per_geometry == "joints" else g
+        if self.per_geometry == "joints":
+            return Geometry(nq=g.nq)
+        if self.layout_of is None:
+            return dataclasses.replace(g, layout=None)
+        return g if g.layout is not None else dataclasses.replace(g, layout=self.layout_of(g))
 
     def flags(self, geometry=None) -> tuple:
         g = self.geometry(geometry)
@@ -175,7 +206,7 @@ class CudaKernel:
             h.update(src.read_bytes())
         g = self.geometry(geometry)
         tag = ("" if g is None else f"_q{g.nq}" if self.per_geometry == "joints"
-               else f"_n{g.nodes}_o{g.order}_q{g.nq}")
+               else f"_n{g.nodes}_o{g.order}_q{g.nq}" + (f"_{g.layout}" if g.layout else ""))
         return BUILD_DIR / f"{self.name}{tag}_{h.hexdigest()[:16]}.so"
 
     def build(self, geometry=None) -> Path:

@@ -15,13 +15,19 @@ The library is built per transcription (``build.Geometry`` of the OCP:
 nodes, spline order and the robot's joint count): one thread per z element
 and per constraint row (:func:`threads`), node vectors padded to
 :func:`vpad` floats, one helper warp and one look-ahead vector per distance
-2..bw of the band (bw = the spline order), and where the full layout does
-not fit (25 nodes of the Panda: 262,000 B; 19 nodes of an 8-joint robot;
-order 4 at 21 nodes) the compact one of :func:`smem_bytes` (Ldi packed
-lower triangular, Lsub without its unread tail: 232,176 B at 25 nodes). A
-geometry whose block does not fit (9 joints at 19 nodes, order 4 at 25
-nodes) raises a ValueError that names the bytes; nothing solves it another
-way. The figures below are the 19-node Panda transcription's.
+2..bw of the band (bw = the spline order), and the first of three
+shared-memory layouts (:func:`choose_layout`, :func:`smem_bytes`) that fits a
+block: full; compact where the full one does not fit (Ldi packed lower
+triangular, Lsub without its unread tail: 232,176 B at 25 nodes of the
+Panda, where full takes 262,000 B; 19 nodes of an 8-joint robot; order 4 at
+21 nodes); split where neither fits (compact's Ldi, only the chain's
+distance-1 blocks of Lsub, and a ring of the helper warps' blocks, a node's
+at a time, that a copier warp fills by TMA bulk copies from the Lsub in
+device memory: order 4 at 25 nodes, 9 and 10 joints at 19 nodes, 28 nodes
+of order 3). A geometry that
+fits none (10 joints at 25 nodes of order 3) raises a ValueError that names
+the bytes; nothing solves it another way. The figures below are the 19-node
+Panda transcription's.
 
 What bounds it on this card: latency. Each iteration is ~157k flops per
 problem, 85% of them in the two banded triangular sweeps, and the factors
@@ -58,6 +64,7 @@ it for CPU tensors only and launches the kernels or raises for CUDA ones.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -66,7 +73,8 @@ from ..ops.qp import QPSettings, QPSolution
 from ..ops.structure import StructuredA
 from . import banded_factor
 from .build import (
-    SMEM_LIMIT, CudaKernel, DeviceCount, Geometry, HostConstants, check_cuda_tensor, ptr,
+    LAYOUTS, SMEM_LIMIT, CudaKernel, DeviceCount, Geometry, HostConstants, check_cuda_tensor,
+    ptr,
 )
 
 KERNEL = CudaKernel(
@@ -74,7 +82,21 @@ KERNEL = CudaKernel(
     [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_float] * 4
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     init="mpc_structured_admm_init", per_geometry="transcription",
+    layout_of=lambda g: choose_layout(g),
 )
+
+def ring_runs(g: Geometry) -> int:
+    """Slots of the split layout's ring (RING): a slot holds a node's run of
+    helper blocks, copied 2 steps ahead of its first use, and bw of them
+    are the fewest for which no copy overwrites a run still to be read."""
+    return g.order
+
+
+def ring_slot(g: Geometry) -> int:
+    """Floats of a ring slot (SLOT): a node's run of bw - 1 helper blocks,
+    copied from the 16-byte boundary at or before its start to the one at
+    or after its end."""
+    return ((g.order - 1) * g.blk ** 2 + 6) // 4 * 4
 
 
 # dispatch boundaries at which some problem's rho moved (the KKT system is
@@ -98,17 +120,20 @@ def threads(g: Geometry) -> int:
     return -(-max(g.num_var, g.num_rows) // 32) * 32
 
 
-def smem_bytes(g: Geometry, compact: bool = None) -> int:
+def smem_bytes(g: Geometry, layout: str = None) -> int:
     """Shared memory of one block of kernel 3 built for ``g``: the size of
-    struct SmemLayout of csrc/structured_admm.cu, member by member with its
-    alignment, in the full layout where that fits and else in the compact
-    one (or as ``compact`` says)."""
-    if compact is None:
-        compact = smem_bytes(g, False) > SMEM_LIMIT
+    struct Smem of csrc/structured_admm.cu, member by member with its
+    alignment, in ``layout`` (default: the one ``g`` names, else the one it
+    takes, :func:`choose_layout`)."""
+    layout = layout or g.layout or choose_layout(g)
     N, blk, nv, neq, nm, pad = g.nodes, g.blk, g.num_var, g.num_eq, g.num_rows, vpad(g)
     nb, blk2, bw, kl = N * blk, blk * blk, g.order, g.order + 1
-    ldi = N * (blk * (blk + 1) // 2 if compact else blk2)
-    lsub = ((N - 2) * bw + 1 if compact else N * bw) * blk2  # compact: up to L[N-1,N-2]
+    ldi = N * (blk2 if layout == "full" else blk * (blk + 1) // 2)  # else packed
+    if layout == "split":  # the distance-1 blocks, 3 floats to a 16-byte boundary, the
+        # ring and its barriers (8 bytes each)
+        lsub = (N - 1) * blk2 + 3 + ring_runs(g) * (ring_slot(g) + 2) + 1  # + progress
+    else:  # compact: the blocks up to L[N-1,N-2]
+        lsub = (N * bw if layout == "full" else (N - 2) * bw + 1) * blk2
     fields = ([(ldi, 4), (lsub, 4), (nb, 4), (N * g.ng * blk, 4), (neq, 4)]
               + [(nv, 4)] * 7 + [(nm, 4)] * 5 + [(nv, 4)] * 3 + [(nm, 4)] * 2
               + [(nv, 4), (nm, 4), (nv, 4)]  # t0, wa, rhs
@@ -122,6 +147,13 @@ def smem_bytes(g: Geometry, compact: bool = None) -> int:
     return -(-off // 16) * 16
 
 
+def choose_layout(g: Geometry) -> str:
+    """The shared-memory layout kernel 3 is built in for ``g``: the first of
+    full, compact and split (``LAYOUTS``) whose block fits, else split,
+    which :func:`check_fits` then refuses."""
+    return next((name for name in LAYOUTS if smem_bytes(g, name) <= SMEM_LIMIT), "split")
+
+
 def sweep_warps(g: Geometry) -> int:
     """Warps the sweeps take: two chain warps, a helper per distance 2..bw
     and the finishing warp."""
@@ -131,38 +163,44 @@ def sweep_warps(g: Geometry) -> int:
 def check_fits(g: Geometry) -> None:
     """Raise ValueError unless kernel 3 is written for ``g`` (a band of at
     least one sub-diagonal block, a row of a block per lane) and its block
-    fits the card: at most 1024 threads, 232,448 B of shared memory, and
-    warps enough for the sweeps."""
+    fits the card in the layout ``g`` names, or else in one of the three:
+    at most 1024 threads, 232,448 B of shared memory, and warps enough for
+    the sweeps."""
     if g.order < 1:
         raise ValueError(f"kernel 3 solves with a band of at least one sub-diagonal block; "
                          f"got band width {g.order}")
     if vpad(g) > 32:
         raise ValueError(f"kernel 3 holds a row of a block per lane of a warp, which takes "
                          f"blocks up to 30 x 30 (10 joints); got {g.nq} joints")
-    if smem_bytes(g) > SMEM_LIMIT or threads(g) > 1024:
+    name = g.layout or choose_layout(g)
+    if smem_bytes(g, name) > SMEM_LIMIT or threads(g) > 1024:
+        others = ", ".join(f"{other}: {smem_bytes(g, other)} B" for other in LAYOUTS
+                           if other != name)
         raise ValueError(
             f"kernel 3 at {g.nodes} nodes, order {g.order} and {g.nq} joints ({g.num_var} "
-            f"variables, {g.num_rows} rows) needs "
-            f"{smem_bytes(g)} B of shared memory per block even in its compact layout "
-            f"(full: {smem_bytes(g, False)} B) and {threads(g)} threads; a block may have "
+            f"variables, {g.num_rows} rows) needs {smem_bytes(g, name)} B of shared memory per "
+            f"block in its {name} layout ({others}) and {threads(g)} threads; a block may have "
             f"{SMEM_LIMIT} B and 1024 threads")
-    if threads(g) // 32 < sweep_warps(g):
+    copier = name == "split"  # the warp after the sweep warps copies the ring's runs
+    if threads(g) // 32 < sweep_warps(g) + copier:
         raise ValueError(
             f"kernel 3 at {g.nodes} nodes and order {g.order} has {threads(g) // 32} warps; its "
             f"sweeps take {sweep_warps(g)} (two chain warps, {g.order - 1} helpers and the "
-            f"finishing warp)")
+            f"finishing warp)" + (" and the split layout's copier one more" if copier else ""))
 
 
 def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings: QPSettings,
-                state=None, chunk_iters=None):
+                state=None, chunk_iters=None, layout=None):
     """Launch kernel 3 on scaled float32 CUDA data: one dispatch of
     ``chunk_iters`` iterations (default: the whole budget) from ``state``
     (default: the initial state of ``qp``), with the library of the OCP's
-    transcription. Takes and returns the scaled (x, zc, zx, yc, yx, done,
-    iters, rp, rd) like ``admm_plain``."""
+    transcription in its own shared-memory layout, or in ``layout`` (one
+    of ``LAYOUTS``, for holding and timing a layout against another where
+    both fit). Takes and returns the scaled (x, zc, zx, yc, yx, done, iters,
+    rp, rd) like ``admm_plain``."""
     B = qp.x.shape[0]
     f32 = torch.float32
-    g = Geometry.of_ocp(ocp)
+    g = dataclasses.replace(Geometry.of_ocp(ocp), layout=layout)
     check_fits(g)
     N, NG, BLK, BW, NV, NEQ, NM = g.nodes, g.ng, g.blk, g.order, g.num_var, g.num_eq, g.num_rows
     x0, zc0, zx0, yc0, yx0, done0, iters0, rp0, rd0 = (
@@ -184,6 +222,10 @@ def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings:
     inputs = {k: v.contiguous() for d in (data, zdata, mdata, sdata) for k, v in d.items()}
     for k, v in inputs.items():
         check_cuda_tensor(k, v, shapes[k], torch.int32 if k in ("done0", "iters0") else f32)
+    if KERNEL.geometry(g).layout == "split" and inputs["Lsub"].data_ptr() % 16:
+        # the helpers' bulk copies start at the 16-byte boundary at or before
+        # a block, which must lie inside the tensor
+        inputs["Lsub"] = inputs["Lsub"].clone()
 
     new = lambda n, dtype=f32: torch.empty(B, n, dtype=dtype, device=qp.x.device)
     x, zx, yx = new(NV), new(NV), new(NV)
@@ -208,10 +250,10 @@ def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings:
 
 
 def block_layout(geometry: Geometry = None) -> dict:
-    """What the library built for ``geometry`` (default: 19 nodes) says of
-    its block: threads, shared-memory bytes, and how many blocks one SM
-    holds at a time from the CUDA occupancy calculator (1: the block's
-    shared memory takes the SM)."""
+    """What the library built for ``geometry`` (default: 19 nodes; in the
+    layout it names, else its own) says of its block: threads,
+    shared-memory bytes, and how many blocks one SM holds at a time from the
+    CUDA occupancy calculator (1: the block's shared memory takes the SM)."""
     lib = KERNEL.library(geometry)
     out = {}
     for key, name in (("threads", "mpc_structured_admm_threads"),

@@ -1,17 +1,18 @@
-"""Write the JAX reference fixture of the order-4 transcription.
+"""Write the JAX reference fixture of an order-4 transcription.
 
-``torch_port_order4_b64.npz`` beside this script: the first 64 headline
+``torch_port_order4_b64.npz`` beside this script (``--segments 4``, the
+default) or ``torch_port_order4s<segments>_b64.npz``: the first 64 headline
 states (``headline_states_b2048.npz``) and what the JAX planner made of them
-with its OCP swapped for 4 spline segments of order 4 (17 nodes, 358
-variables, 416 constraint rows),
+with its OCP swapped for that many spline segments of order 4 (4: 17 nodes,
+358 variables, 416 constraint rows; 6: 25 nodes, 526 variables, 620 rows),
 
     planner.ocp = make_ocp(planner.model, "panda_tool", order=4, num_segments=4)
 
 in the headline slice configuration (structured QP, fixed rho, no KKT
 refinement, per-step ADMM budgets 700/500), solved on the CPU at float64 as
 ``make_torch_seg8_fixture.py`` solves the 25-node fixture. ``chip_smoke.py``
-phase 21 holds the port's order-4 kernel path against it on the GPU, which
-has no JAX.
+phases 21 (4 segments) and 22 (6 segments) hold the port's order-4 kernel
+paths against them on the GPU, which has no JAX.
 
 The JAX ``structured`` backend factors the band in groups of
 ``qp_structured._GROUP = 3`` nodes (``mpc_motion_planner_tpu/ops/
@@ -22,11 +23,12 @@ This script raises ``_GROUP`` to the band width as a module attribute before
 it solves (no file of the JAX package is edited); the JAX TPU path factors
 with the node-level ``factor_banded`` and has no group at all.
 
-    JAX_PLATFORMS=cpu python tests/fixtures/make_order4_fixture.py
+    JAX_PLATFORMS=cpu python tests/fixtures/make_order4_fixture.py [--segments 6]
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 
@@ -34,12 +36,20 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 STATES = os.path.join(HERE, "headline_states_b2048.npz")
-OUT = os.path.join(HERE, "torch_port_order4_b64.npz")
 BATCH = 64
-ORDER, SEGMENTS = 4, 4
+ORDER = 4
+
+
+def out_path(segments: int) -> str:
+    return os.path.join(HERE, "torch_port_order4_b64.npz" if segments == 4
+                        else f"torch_port_order4s{segments}_b64.npz")
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--segments", type=int, default=4)
+    segments = ap.parse_args().segments
+    out = out_path(segments)
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
     import jax
@@ -63,7 +73,7 @@ def main():
         sqp_settings=SQPSettings(qp_step_schedules="200,500;150,350"),
         dtype=jnp.float64,
     )
-    planner.ocp = make_ocp(planner.model, "panda_tool", order=ORDER, num_segments=SEGMENTS,
+    planner.ocp = make_ocp(planner.model, "panda_tool", order=ORDER, num_segments=segments,
                            dtype=jnp.float64)
     states = np.load(STATES)
     current = states["current"][:BATCH]
@@ -80,7 +90,7 @@ def main():
     z, viol, iters, conv, tf, err = jax.block_until_ready(
         run(jnp.asarray(current, jnp.float64), jnp.asarray(target, jnp.float64)))
     np.savez_compressed(
-        OUT,
+        out,
         current=current,
         target=target,
         z=np.asarray(z, np.float32),
@@ -90,7 +100,7 @@ def main():
         final_time=np.asarray(tf, np.float32),
         terminal_err=np.asarray(err, np.float32),
     )
-    print(f"wrote {OUT}: z {np.asarray(z).shape}, qp_conv {np.asarray(conv).mean():.4f}, "
+    print(f"wrote {out}: z {np.asarray(z).shape}, qp_conv {np.asarray(conv).mean():.4f}, "
           f"median violation {np.median(np.asarray(viol)):.4f}, "
           f"terminal err max {np.asarray(err).max():.5f}")
 

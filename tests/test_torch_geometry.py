@@ -1,11 +1,13 @@
 """PyTorch port, transcriptions other than the 19-node one: the plain
 structured QP at 8 and 4 spline segments against the JAX ``structured``
 backend (float64); the geometry of a kernel library (its ``-D`` flags, one
-library per geometry, kernel 3's shared memory reckoned member by member,
-a geometry that does not fit raising); the compiled solve's key after the
-planner's OCP is swapped; and the 8-segment JAX fixture that ``chip_smoke.py``
-phase 19 holds the card against."""
+library per geometry and per kernel-3 layout, kernel 3's shared memory
+reckoned member by member in its full, compact and split layouts, the
+layout each geometry takes, a geometry that fits none raising); the
+compiled solve's key after the planner's OCP is swapped; and the 8-segment
+JAX fixture that ``chip_smoke.py`` phase 19 holds the card against."""
 
+import dataclasses
 import os
 import re
 
@@ -22,7 +24,9 @@ from mpc_motion_planner_tpu.ops.qp import QPSettings as JQPSettings
 from mpc_motion_planner_tpu_torch import config, kernels
 from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
 from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
-from mpc_motion_planner_tpu_torch.kernels.build import BUILD_DIR, CSRC, SMEM_LIMIT, Geometry
+from mpc_motion_planner_tpu_torch.kernels.build import (
+    BUILD_DIR, CSRC, LAYOUTS, NVCC_FLAGS, SMEM_LIMIT, Geometry,
+)
 from mpc_motion_planner_tpu_torch.ocp import make_ocp
 from mpc_motion_planner_tpu_torch.ops import qp_structured as tqs
 from mpc_motion_planner_tpu_torch.ops.qp import QPSettings
@@ -88,13 +92,15 @@ def test_plain_structured_qp_matches_jax_at_other_transcriptions(segments):
 
 
 def test_geometry_flags_reproduce_common_cuh_defaults():
-    """The 19-node geometry's -D flags are the defaults common.cuh falls
-    back to, so a build without flags compiles the same code; the geometry
-    of an OCP and of its banded KKT matrix agree."""
+    """The 19-node geometry's -D flags, with the full layout kernel 3 takes
+    there, are the defaults common.cuh falls back to, so a build without
+    flags compiles the same code; the geometry of an OCP and of its banded
+    KKT matrix agree."""
     text = (CSRC / "common.cuh").read_text()
     defaults = dict(re.findall(r"#define (MPC_\w+) (\d+)", text))
-    flags = dict(f[2:].split("=") for f in Geometry().flags())
-    assert flags == defaults and len(flags) == 3
+    flags = dict(f[2:].split("=") for f in k3.KERNEL.geometry(Geometry()).flags())
+    assert flags == defaults and len(flags) == 4 and flags["MPC_SMEM_LAYOUT"] == "0"
+    assert k3.KERNEL.geometry(Geometry()).flags()[:3] == Geometry().flags()
     for segments in (4, 6, 8):
         g = Geometry.of_ocp(make_ocp(_planner().model, num_segments=segments))
         assert g == Geometry(segments=segments)
@@ -117,7 +123,9 @@ def test_one_library_per_geometry():
         assert len(set(paths.values())) == 3
         assert k.library_path() == paths[g19]
         assert paths[g25].parent == BUILD_DIR and paths[g25].name.startswith(k.name + "_n25_")
-        assert k.flags(g25)[-3:] == g25.flags() and "-DMPC_SEGMENTS=8" in k.flags(g25)
+        built = k.geometry(g25)
+        assert k.flags(g25)[len(NVCC_FLAGS):] == built.flags() and built.flags()[:3] == g25.flags()
+        assert "-DMPC_SEGMENTS=8" in k.flags(g25)
     k1 = kernels.KERNELS["constraints"]
     assert k1.library_path(g25) == k1.library_path() and k1.flags(g25)[-1] == "-DMPC_NQ=7"
     assert not any(f.startswith("-DMPC_SEGMENTS") for f in k1.flags(g25))
@@ -128,39 +136,125 @@ def test_one_library_per_geometry():
 
 def test_kernel_shared_memory_reckoning():
     """Kernel 3's block, member by member with the alignment of struct
-    SmemLayout: the full layout at 19 (198,976 B; the members alone sum to
+    Smem: the full layout at 19 (198,976 B; the members alone sum to
     198,960 B) and 13 nodes, the compact one at 25 nodes, where the full one
     would take 262,000 B. Kernel 2 keeps six problems per SM at 25 nodes."""
     g19, g25, g13 = Geometry(), Geometry(segments=8), Geometry(segments=4)
     assert (k3.threads(g19), k3.threads(g25), k3.threads(g13)) == (512, 672, 352)
-    assert k3.smem_bytes(g19) == k3.smem_bytes(g19, False) == 198976
-    assert k3.smem_bytes(g13) == k3.smem_bytes(g13, False) == 135968
-    assert k3.smem_bytes(g25, False) == 262000 > SMEM_LIMIT
-    assert k3.smem_bytes(g25) == k3.smem_bytes(g25, True) == 232176 <= SMEM_LIMIT
+    assert k3.smem_bytes(g19) == k3.smem_bytes(g19, "full") == 198976
+    assert k3.smem_bytes(g13) == k3.smem_bytes(g13, "full") == 135968
+    assert k3.smem_bytes(g25, "full") == 262000 > SMEM_LIMIT
+    assert k3.smem_bytes(g25) == k3.smem_bytes(g25, "compact") == 232176 <= SMEM_LIMIT
     # the packed Ldi and the 5 Lsub blocks never read, give or take the padding
     # before the 16-byte aligned members
-    saved = k3.smem_bytes(g25, False) - k3.smem_bytes(g25, True)
+    saved = k3.smem_bytes(g25, "full") - k3.smem_bytes(g25, "compact")
     assert 0 <= saved - 4 * (25 * 210 + 5 * 441) < 16
     assert (k2.smem_bytes(g19), k2.smem_bytes(g25)) == (33580, 34588)
     assert 6 * (k2.smem_bytes(g25) + 1024) <= 233472  # an SM's 228 KB, 1 KB per block reserved
 
 
 def test_unfit_geometry_raises_naming_the_bytes():
-    """28 nodes do not fit kernel 3's block even in the compact layout: the
-    fit check and the card's QP solve raise and name the bytes, before any
-    build or launch and whatever the data, so nothing falls back to the
-    plain loop."""
-    g28 = Geometry(segments=9)
-    with pytest.raises(ValueError, match=r"261152 B of shared memory.*232448 B"):
-        k3.check_fits(g28)
-    planner = _planner(9)
+    """28 nodes (261,152 B even compact) fit kernel 3's block in the split
+    layout, 180,128 B. 12 segments (37 nodes) fit no layout: the fit check
+    and the card's QP solve raise and name the bytes, before any build or
+    launch and whatever the data, so nothing falls back to the plain loop."""
+    g28, g37 = Geometry(segments=9), Geometry(segments=12)
+    assert k3.smem_bytes(g28, "compact") == 261152 > SMEM_LIMIT
+    assert k3.choose_layout(g28) == "split" and k3.smem_bytes(g28) == 180128
+    k3.check_fits(g28)
+    assert (k3.threads(g37), k3.smem_bytes(g37)) == (992, 235344)
+    with pytest.raises(ValueError, match=r"235344 B of shared memory per block in its split "
+                                         r"layout.*232448 B"):
+        k3.check_fits(g37)
+    planner = _planner(12)
     cur, tgt = _states(1)
     z0 = planner.warm_start_vector(planner.plan_warm_start(cur, tgt))
     _, _, sa, args = qp_subproblem(planner.ocp, planner.nlp_bounds(cur, tgt), z0)
     P = hessian_regularization_diag(planner.ocp, 1, torch.float64, "cpu", 0.01)
-    with pytest.raises(ValueError, match="261152 B"):
+    with pytest.raises(ValueError, match="235344 B"):
         k3.solve_box_qp_structured_cuda(planner.ocp, sa, P, *args, config.SHIPPING_QP_SETTINGS)
-    k2.check_fits(g28)  # kernel 2's working set is per node
+    k2.check_fits(g37)  # kernel 2's working set is per node
+
+
+# (segments, order, joints): kernel 3's threads and its bytes in the full,
+# compact and split layouts; the split's bytes are the compact's less the
+# Lsub blocks of distances 2..bw and plus a ring of bw nodes' helper blocks
+SPLIT_GEOMETRIES = {
+    (6, 4, 7): (640, 306976, 273632, 173200),
+    (6, 3, 9): (640, 308464, 267216, 185680),
+    (6, 3, 10): (704, 372400, 321344, 220640),
+    (9, 3, 7): (736, 293488, 261152, 180128),
+}
+
+
+@pytest.mark.parametrize("segments, order, nq", list(SPLIT_GEOMETRIES),
+                         ids=["order4x6", "9_joints", "10_joints", "28_nodes"])
+def test_split_layout_reckoning(segments, order, nq):
+    """The split layout's block, member by member: Ldi packed as in the
+    compact layout, of Lsub only the N - 1 distance-1 blocks the chain reads
+    and a ring of bw slots, each a node's bw - 1 helper blocks and up to 3
+    floats before them (from a 16-byte boundary), with their barriers and
+    the copier's progress count; where the compact layout does not fit it
+    is the layout the geometry takes, and the fit check passes."""
+    g = Geometry(segments=segments, order=order, nq=nq)
+    threads, full, compact, split = SPLIT_GEOMETRIES[segments, order, nq]
+    assert k3.threads(g) == threads
+    assert tuple(k3.smem_bytes(g, name) for name in LAYOUTS) == (full, compact, split)
+    assert compact > SMEM_LIMIT >= split == k3.smem_bytes(g)
+    assert k3.choose_layout(g) == "split"
+    blk2, N, bw = g.blk ** 2, g.nodes, g.order
+    # a slot: a node's bw - 1 helper blocks from a 16-byte boundary
+    assert k3.ring_slot(g) == -(-((bw - 1) * blk2 + 3) // 4) * 4 and k3.ring_runs(g) == bw
+    kept = (N - 1) * blk2 + 3 + bw * (k3.ring_slot(g) + 2) + 1  # slots, barriers, progress
+    # give or take the padding before the 16-byte aligned members
+    assert abs((compact - split) - 4 * (((N - 2) * bw + 1) * blk2 - kept)) < 16
+    k3.check_fits(g)
+    k3.check_fits(dataclasses.replace(g, layout="split"))
+    for name in ("full", "compact"):
+        with pytest.raises(ValueError, match=rf"needs {k3.smem_bytes(g, name)} B of shared "
+                                             rf"memory per block in its {name} layout"):
+            k3.check_fits(dataclasses.replace(g, layout=name))
+
+
+@pytest.mark.parametrize("segments, order, nq, layout", [
+    (6, 3, 7, "full"), (4, 3, 7, "full"), (6, 3, 6, "full"), (9, 2, 7, "full"),
+    (4, 4, 7, "full"), (3, 5, 7, "full"), (8, 3, 7, "compact"), (6, 3, 8, "compact"),
+    (5, 4, 7, "compact"), (6, 4, 7, "split"), (6, 3, 9, "split"), (6, 3, 10, "split"),
+    (9, 3, 7, "split"), (5, 4, 8, "split"),
+])
+def test_layout_of_each_geometry(segments, order, nq, layout):
+    """Each geometry takes the first of full, compact and split whose block
+    fits, so the default geometries keep the layouts they had (full at 19
+    and 13 nodes, compact at 25), and only a geometry that fits neither
+    takes the split."""
+    g = Geometry(segments=segments, order=order, nq=nq)
+    assert k3.choose_layout(g) == layout
+    fits = [k3.smem_bytes(g, name) <= SMEM_LIMIT for name in LAYOUTS]
+    assert fits.index(True) == LAYOUTS.index(layout)
+    assert k3.KERNEL.geometry(g) == dataclasses.replace(g, layout=layout)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_flags_and_library_per_layout(layout):
+    """A layout is one -D flag into common.cuh (its index in LAYOUTS) and a
+    library of its own, named by it; a geometry that names its layout is
+    built in it whatever the geometry would take (the split at 25 nodes of
+    order 3, where compact also fits, is how the two are held against each
+    other); kernel 2 ignores the layout; an unknown layout raises."""
+    g25 = Geometry(segments=8)
+    g = dataclasses.replace(g25, layout=layout)
+    assert g.flags() == g25.flags() + (f"-DMPC_SMEM_LAYOUT={LAYOUTS.index(layout)}",)
+    assert k3.KERNEL.geometry(g) == g
+    assert k3.KERNEL.flags(g)[len(NVCC_FLAGS):] == g.flags()
+    name = k3.KERNEL.library_path(g).name
+    assert name.startswith(f"structured_admm_n25_o3_q7_{layout}_")
+    others = {k3.KERNEL.library_path(dataclasses.replace(g25, layout=o)) for o in LAYOUTS}
+    assert len(others) == 3
+    assert (k3.KERNEL.library_path(g25) == k3.KERNEL.library_path(g)) == (layout == "compact")
+    assert k2.KERNEL.geometry(g) == g25 and k2.KERNEL.library_path(g) == k2.KERNEL.library_path(g25)
+    assert k3.smem_bytes(g) == k3.smem_bytes(g25, layout)
+    with pytest.raises(ValueError, match="layout 'packed'"):
+        Geometry(layout="packed")
 
 
 @pytest.fixture(scope="module")

@@ -1,11 +1,12 @@
 """PyTorch port, splines of orders other than 3 (band widths other than 3
 in kernels 2 and 3): the geometry of their libraries (kernel 3's block
-reckoned member by member, kernel 2's working set, the refusal of a block
-that does not fit), the plain versions of kernels 2 and 3 at band widths 2,
-4 and 5 against the JAX package's factor (node-level, and its Pallas kernel
-in interpret mode) and against the plain banded solve, the plain structured
-QP at 4 segments of order 4 against the JAX ``structured`` backend, and the
-order-4 JAX fixture that ``chip_smoke.py`` phase 21 holds the card against.
+reckoned member by member, kernel 2's working set, order 4 at 6 segments in
+kernel 3's split layout, the refusal of a block that fits no layout), the
+plain versions of kernels 2 and 3 at band widths 2, 4 and 5 against the JAX
+package's factor (node-level, and its Pallas kernel in interpret mode) and
+against the plain banded solve, the plain structured QP at 4 and 6
+segments of order 4 against the JAX ``structured`` backend, and the order-4
+JAX fixtures that ``chip_smoke.py`` phases 21 and 22 hold the card against.
 """
 
 import os
@@ -37,7 +38,9 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADLINE_STATES = os.path.join(ROOT, "tests", "fixtures", "headline_states_b2048.npz")
-ORDER4_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_order4_b64.npz")
+# the JAX solves of the first 64 headline states at order 4 x 4 and x 6
+ORDER4_FIXTURES = {4: os.path.join(ROOT, "tests", "fixtures", "torch_port_order4_b64.npz"),
+                   6: os.path.join(ROOT, "tests", "fixtures", "torch_port_order4s6_b64.npz")}
 MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
 B = 2
 
@@ -94,7 +97,7 @@ def test_geometry_of_other_orders(order, segments):
     band = torch.empty(1, nodes, order + 1, 21, 21, device="meta")
     assert Geometry.of_band(band) == g
     assert (k3.threads(g), k3.sweep_warps(g)) == (threads, warps)
-    assert (k3.smem_bytes(g, False), k3.smem_bytes(g, True)) == (full, compact)
+    assert (k3.smem_bytes(g, "full"), k3.smem_bytes(g, "compact")) == (full, compact)
     assert k3.smem_bytes(g) == full <= SMEM_LIMIT
     assert (k2.smem_bytes(g), k2.per_sm(g)) == (smem2, per_sm2)
     k2.check_fits(g)
@@ -105,19 +108,25 @@ def test_geometry_of_other_orders(order, segments):
 
 def test_order4_beyond_one_block_raises_naming_the_bytes():
     """Order 4 at 6 segments (25 nodes, 640 threads) needs 273,632 B even in
-    kernel 3's compact layout: its fit check and the card's QP solve raise
-    before any build or launch; order 4 at 5 segments (21 nodes) just fits
-    compact; kernel 2 takes both."""
-    g46, g45 = Geometry(segments=6, order=4), Geometry(segments=5, order=4)
-    assert (k3.smem_bytes(g45), k3.smem_bytes(g45, False)) == (227792, 257776)
-    k3.check_fits(g45)
-    with pytest.raises(ValueError, match=r"order 4 .* needs 273632 B of shared memory.*232448 B"):
-        k3.check_fits(g46)
-    planner = _planner(4, 6)
-    sa, args, _, _ = _step0(planner, 1)
-    with pytest.raises(ValueError, match="273632 B"):
-        k3.solve_box_qp_structured_cuda(planner.ocp, sa, *args, config.SHIPPING_QP_SETTINGS)
+    kernel 3's compact layout and takes the split one, 173,200 B; order 4 at
+    5 segments (21 nodes) still fits compact. Order 4 at 9 segments (37
+    nodes) fits no layout (247,200 B split): its fit check and the card's QP
+    solve raise before any build or launch. Kernel 2 takes all three."""
+    g46, g45, g49 = (Geometry(segments=s, order=4) for s in (6, 5, 9))
+    assert (k3.smem_bytes(g45), k3.smem_bytes(g45, "full")) == (227792, 257776)
+    assert k3.choose_layout(g45) == "compact"
+    assert (k3.threads(g46), k3.smem_bytes(g46, "compact")) == (640, 273632)
+    assert k3.choose_layout(g46) == "split" and k3.smem_bytes(g46) == 173200
     for g in (g45, g46):
+        k3.check_fits(g)
+    with pytest.raises(ValueError, match=r"order 4 .* needs 247200 B of shared memory per block "
+                                         r"in its split layout.*232448 B"):
+        k3.check_fits(g49)
+    planner = _planner(4, 9)
+    sa, args, _, _ = _step0(planner, 1)
+    with pytest.raises(ValueError, match="247200 B"):
+        k3.solve_box_qp_structured_cuda(planner.ocp, sa, *args, config.SHIPPING_QP_SETTINGS)
+    for g in (g45, g46, g49):
         k2.check_fits(g)
 
 
@@ -232,10 +241,12 @@ def test_lookahead_solve_at_other_band_widths(bw):
         assert float((ahead - plain).abs().max()) <= tol * float(plain.abs().max())
 
 
-def test_plain_structured_qp_order4_matches_jax(monkeypatch):
-    """The step-0 QPs of the first headline states at 4 segments of order 4,
-    through the port's plain structured solve and the JAX ``structured``
-    backend, fixed rho: the same x to 1e-8 and identical iteration counts.
+@pytest.mark.parametrize("segments", [4, 6], ids=["17_nodes", "25_nodes"])
+def test_plain_structured_qp_order4_matches_jax(monkeypatch, segments):
+    """The step-0 QPs of the first headline states at ``segments`` segments
+    of order 4, through the port's plain structured solve and the JAX
+    ``structured`` backend, fixed rho: the same x to 1e-8 and identical
+    iteration counts.
 
     The JAX backend factors the band in groups of ``_GROUP = 3`` nodes
     (``mpc_motion_planner_tpu/ops/qp_structured.py:308``), which must be at
@@ -243,38 +254,40 @@ def test_plain_structured_qp_order4_matches_jax(monkeypatch):
     returns NaN. The JAX TPU path factors node by node, as the port does; the
     group is raised to the band width here, the JAX file unedited."""
     monkeypatch.setattr(jqs, "_GROUP", 4)
-    planner = _planner()
+    planner = _planner(4, segments)
     ocp = planner.ocp
     sa, (P, h, lc, uc, lx, ux), sc, sx = _step0(planner)
     kw = dict(max_iter=700, rho_update_every=0, kkt_refine=0)
     got = tqs.solve_box_qp_structured(ocp, sa, P, h, lc, uc, lx, ux,
                                       QPSettings(backend="structured", **kw),
                                       soft_c=sc, soft_x=sx)
-    jo = jmake_ocp(jmake_panda_model(), "panda_tool", order=4, num_segments=4)
+    jo = jmake_ocp(jmake_panda_model(), "panda_tool", order=4, num_segments=segments)
     j = lambda t: jnp.asarray(t.numpy())
     ref = jqs.solve_box_qp_structured(
         jo, jstructure.StructuredA(j(sa.p), j(sa.f_rows), j(sa.J)),
         *(j(a) for a in (P, h, lc, uc, lx, ux)), JQPSettings(**kw), soft_c=j(sc), soft_x=j(sx))
-    assert got.x.shape == (B, 358)
+    assert got.x.shape == (B, 21 * (4 * segments + 1) + 1)
     assert bool(np.isfinite(np.asarray(ref.x)).all())
     np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=0, atol=1e-8)
     np.testing.assert_array_equal(got.iterations.numpy(), np.asarray(ref.iterations))
     assert got.converged.tolist() == np.asarray(ref.converged).tolist()
 
 
-def test_order4_fixture_is_the_jax_solve_of_the_headline_states():
+@pytest.mark.parametrize("segments", [4, 6], ids=["17_nodes", "25_nodes"])
+def test_order4_fixture_is_the_jax_solve_of_the_headline_states(segments):
     """The fixture holds the first 64 headline states and the JAX solve of
-    them at 4 segments of order 4 (``make_order4_fixture.py``, float64); the
-    port's plain solve of its first states matches its final times, iterates
-    and iteration counts to the fixture's float32 rounding, and lands in the
-    target box."""
-    fx = np.load(ORDER4_FIXTURE)
+    them at ``segments`` segments of order 4 (``make_order4_fixture.py``,
+    float64); the port's plain solve of its first states matches its final
+    times, iterates and iteration counts to the fixture's float32 rounding,
+    and lands in the target box."""
+    fx = np.load(ORDER4_FIXTURES[segments])
     hs = np.load(HEADLINE_STATES)
     for k in ("current", "target"):
         np.testing.assert_array_equal(fx[k], hs[k][:64])
-    assert fx["z"].shape == (64, 358) and fx["qp_converged"].shape == (64, 2)
+    nv = 21 * (4 * segments + 1) + 1
+    assert fx["z"].shape == (64, nv) and fx["qp_converged"].shape == (64, 2)
     assert bool(fx["qp_converged"].all())
-    planner = _planner()
+    planner = _planner(4, segments)
     cur, tgt = (torch.as_tensor(fx[k][:B].astype(np.float64)) for k in ("current", "target"))
     sol = planner.solve(cur, tgt)
     np.testing.assert_allclose(sol.final_time.numpy(), fx["final_time"][:B], rtol=1e-6)

@@ -3,9 +3,10 @@
 joints) read by both packages' ``parse_urdf``; kernel 1's constants and its
 per-joint Jacobian split at 6 and 8 joints against the JAX package; the
 port's plain 6-joint solve against the JAX fixture
-``torch_port_panda6_b64.npz``; the kernels' geometry at 6 to 9 joints (9
-does not fit kernel 3's block and raises, naming the bytes); and the
-``fused_constraints`` routing of the constraint rows on the CPU."""
+``torch_port_panda6_b64.npz``; the kernels' geometry at 6 to 10 joints (9
+and 10 take kernel 3's split layout; 10 joints at 25 nodes fit no layout
+and raise, naming the bytes); and the ``fused_constraints`` routing of the
+constraint rows on the CPU."""
 
 import dataclasses
 import os
@@ -158,14 +159,15 @@ def test_plain_6_joint_solve_matches_the_jax_fixture():
     np.testing.assert_allclose(sol.final_time.numpy(), fx["final_time"][:n], rtol=1e-10)
 
 
-@pytest.mark.parametrize("nq", [6, 7, 8, 9])
+@pytest.mark.parametrize("nq", [6, 7, 8, 9, 10])
 def test_geometry_at_other_joint_counts(nq):
     """A geometry's flags carry the joint count, from which common.cuh
     derives the rest (2 nq states, nq controls, nq + 1 rows, blocks of 3
     nq); kernel 1, 2 and 3 libraries are named by it. Kernel 3's block at 19
-    nodes: full layout at 6 and 7 joints, compact at 8, and at 9 joints
-    267,216 B even compact, which raises a ValueError naming the bytes.
-    Kernel 2's problems per SM (shared memory and registers): 7, 6, 5, 4."""
+    nodes: full layout at 6 and 7 joints, compact at 8, and at 9 and 10
+    joints (267,216 and 321,344 B even compact) the split layout, 185,680
+    and 220,640 B. Kernel 2's problems per SM (shared memory and
+    registers): 7, 6, 5, 4, 3."""
     g = Geometry(nq=nq)
     assert g.flags() == ("-DMPC_SEGMENTS=6", "-DMPC_ORDER=3", f"-DMPC_NQ={nq}")
     assert (g.nx, g.nu, g.ng, g.blk) == (2 * nq, nq, nq + 1, 3 * nq)
@@ -174,29 +176,33 @@ def test_geometry_at_other_joint_counts(nq):
     assert Geometry.of_band(band) == g
     for k in (k1.KERNEL, k2.KERNEL, k3.KERNEL):
         assert f"-DMPC_NQ={nq}" in k.flags(g) and f"_q{nq}_" in k.library_path(g).name
-    assert k2.per_sm(g) == {6: 7, 7: 6, 8: 5, 9: 4}[nq]
+    assert k2.per_sm(g) == {6: 7, 7: 6, 8: 5, 9: 4, 10: 3}[nq]
     full, threads = {6: (152800, 448), 7: (198976, 512), 8: (250432, 576),
-                     9: (308464, 640)}[nq]
-    assert k3.smem_bytes(g, False) == full and k3.threads(g) == threads
+                     9: (308464, 640), 10: (372400, 704)}[nq]
+    assert k3.smem_bytes(g, "full") == full and k3.threads(g) == threads
     assert k3.vpad(g) == -(-3 * nq // 4) * 4
     k1.check_fits(nq)
     k2.check_fits(g)
-    if nq <= 8:
-        k3.check_fits(g)
-        assert k3.smem_bytes(g) <= SMEM_LIMIT
-        assert (k3.smem_bytes(g) < full) == (nq == 8)
-    else:
-        assert k3.smem_bytes(g) == 267216
-        with pytest.raises(ValueError, match=r"9 joints .* needs 267216 B of shared memory"):
-            k3.check_fits(g)
+    k3.check_fits(g)
+    assert k3.smem_bytes(g) <= SMEM_LIMIT
+    layout = {6: "full", 7: "full", 8: "compact", 9: "split", 10: "split"}[nq]
+    assert k3.choose_layout(g) == layout and (k3.smem_bytes(g) < full) == (nq >= 8)
+    if nq >= 9:
+        assert (k3.smem_bytes(g, "compact"), k3.smem_bytes(g)) == {
+            9: (267216, 185680), 10: (321344, 220640)}[nq]
+        with pytest.raises(ValueError, match=rf"{nq} joints .* needs {k3.smem_bytes(g, 'compact')} "
+                                             rf"B of shared memory per block in its compact"):
+            k3.check_fits(dataclasses.replace(g, layout="compact"))
 
 
 def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
     """Kernel 1 takes up to 10 joints (its Jacobian tiles in 48 KB of
     static shared memory), kernel 2 up to 10 (a row of a block per lane);
-    kernels 2 and 3 take splines of orders 2, 4 and 5 at 6 joints, and a
-    geometry whose kernel-3 block does not fit raises with its bytes; a
-    library kind that is none of the three raises."""
+    kernels 2 and 3 take splines of orders 2, 4 and 5 at 6 joints and order
+    4 at 5 segments and 8 joints (kernel 3 in its split layout, 183,232 B);
+    10 joints at 25 nodes fit no kernel-3 layout (284,880 B split) and raise
+    with their bytes before any build; a library kind that is none of the
+    three raises."""
     k1.check_fits(10)
     with pytest.raises(ValueError, match=r"11 joints needs 57216 B of static shared memory"):
         k1.check_fits(11)
@@ -207,8 +213,14 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
         for check in (k2.check_fits, k3.check_fits):
             check(Geometry(order=order, segments=segments, nq=6))
     g = Geometry(order=4, segments=5, nq=8)
-    with pytest.raises(ValueError, match=rf"8 joints .* needs {k3.smem_bytes(g)} B of shared"):
+    assert (k3.choose_layout(g), k3.smem_bytes(g)) == ("split", 183232)
+    k3.check_fits(g)
+    g = Geometry(segments=8, nq=10)
+    assert (k3.threads(g), k3.smem_bytes(g)) == (928, 284880)
+    with pytest.raises(ValueError, match=r"25 nodes, order 3 and 10 joints .* needs 284880 B of "
+                                         r"shared memory per block in its split layout"):
         k3.check_fits(g)
+    k2.check_fits(g)
     with pytest.raises(ValueError, match="per_geometry"):
         CudaKernel("x", "x.cu", "x", [], per_geometry="nodes")
 

@@ -284,15 +284,17 @@ def test_check_cuda_tensor_reports_what_is_wrong():
 
 def test_kernels_refuse_other_transcriptions():
     """Kernels 2 and 3 are built per transcription, of any spline order (band
-    width); a transcription whose kernel-3 block does not fit raises with its
-    bytes: order 3 at 9 segments (28 nodes) and order 4 at 6 (25 nodes)."""
+    width); order 3 at 9 segments (28 nodes) and order 4 at 6 (25 nodes) fit
+    kernel 3's split layout; a transcription whose kernel-3 block fits no
+    layout raises with its bytes: order 3 at 12 segments (37 nodes) and order
+    4 at 9 (37 nodes)."""
     model = make_panda_model()
-    fits = [(3, s) for s in (4, 5, 6, 8)] + [(2, 9), (4, 4), (5, 3)]
+    fits = [(3, s) for s in (4, 5, 6, 8, 9)] + [(2, 9), (4, 4), (4, 6), (5, 3)]
     for order, segments in fits:
         g = Geometry.of_ocp(make_ocp(model, order=order, num_segments=segments))
         k2.check_fits(g)
         k3.check_fits(g)
-    for order, segments in ((3, 9), (4, 6)):
+    for order, segments in ((3, 12), (4, 9)):
         g = Geometry.of_ocp(make_ocp(model, order=order, num_segments=segments))
         with pytest.raises(ValueError, match=f"needs {k3.smem_bytes(g)} B of shared memory"):
             k3.check_fits(g)
