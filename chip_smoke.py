@@ -54,8 +54,9 @@ seeded 8-joint chain against their plain versions and timed at B=2048, the
 6-joint captured shipping solve (5/2/2/0 launches, bitwise its eager solve,
 quality, times in turns) and the 8-joint chain's eager solve, the JAX
 fixture ``torch_port_panda6_b64.npz`` (64/64), the dense ``pallas`` path at
-6 joints, the 9-joint chain planned (kernel 3's split layout), 10 joints
-at 25 nodes refused with a ValueError naming kernel 3's bytes, and
+6 joints, the 9-joint chain planned (kernel 3's split layout), the
+10-joint chain at 25 nodes planned (its stream layout), 10 joints at 28
+nodes refused with a ValueError naming kernel 3's threads, and
 ``fused_constraints``: a branched model with prismatic fingers raises under
 "auto" and plans under "off", and the 6-joint planner under "off" launches
 no kernel 1. Kernels 2
@@ -67,9 +68,9 @@ drives the captured shipping solve of the headline states at 4 segments of
 order 4 (17 nodes, 358 variables, 416 rows; 5/2/2/0 launches, bitwise its
 eager solve, quality, times in turns), holds it against the JAX fixture
 ``torch_port_order4_b64.npz`` (64/64), runs the dense ``pallas`` path at
-order 4, plans order 4 at 6 segments (25 nodes) and checks that order 4
-at 9 segments (37 nodes), whose kernel-3 block fits no layout, raises a
-ValueError naming its bytes before any build. Kernel 3 keeps in shared
+order 4, plans order 4 at 6 and 9 segments (25 and 37 nodes) and checks
+that order 4 at 10 segments (41 nodes), whose kernel-3 block would need
+1056 threads, raises a ValueError naming them before any build. Kernel 3 keeps in shared
 memory only what its chain reads where nothing else fits (the split
 layout: the helper warps' blocks stream from device memory by TMA bulk
 copies), and phase 22 holds it: built in the split layout at 8 segments of
@@ -82,7 +83,20 @@ eager solve, quality, times in turns), the JAX fixture
 ``torch_port_order4s6_b64.npz`` (64/64), and kernel 4's refusal of n =
 526; last, seeded serial chains of 9 and 10 joints at 19 nodes, kernels 1-3
 against their plain versions and timed, and an eager shipping solve each
-(5/2/2/0).
+(5/2/2/0). Kernel 3 keeps no block of Lsub in shared memory where the split
+does not fit (the stream layout: the chain's blocks go through the copier's
+ring too), and phase 23 holds it: built in the stream layout at 8 segments
+of order 3 and at 6 of order 4, it gives every output of the compact and
+the split layout bitwise at B=2048 (times in turns); then the Panda at 12
+segments of order 3 (37 nodes, 778 variables, 968 rows, 992 threads) is
+planned as a user sets it, with kernels 2 and 3 against their plain
+versions and timed, the captured shipping solve of the headline states
+(5/2/2/0, bitwise its eager solve, quality, times in turns) and the JAX
+fixture ``torch_port_seg12_b64.npz`` (64/64); order 4 at 9 segments and
+seeded chains of 9 and 10 joints at 25 nodes, kernels 2 and 3 held and
+timed and an eager shipping solve each; every stream library's block
+against the Python reckoning; and 13 segments of order 3 (40 nodes, 1056
+threads) refused naming the threads, before any build.
 Needs one CUDA GPU and ``nvcc``; imports no JAX.
 
     python3 chip_smoke.py
@@ -126,6 +140,8 @@ ORDERS = ((2, 9), (4, 4), (5, 3))
 # and at order 4 x 6 (make_order4_fixture.py)
 ORDER4_FIXTURE = os.path.join(FIXTURES, "torch_port_order4_b64.npz")
 ORDER4S6_FIXTURE = os.path.join(FIXTURES, "torch_port_order4s6_b64.npz")
+# the JAX structured solve of the first 64 headline states at 12 segments
+SEG12_FIXTURE = os.path.join(FIXTURES, "torch_port_seg12_b64.npz")
 MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
 B_MAIN = 2048  # the headline batch
 B_FACTOR = 256  # kernel-2 comparison batch
@@ -308,23 +324,52 @@ def time_kernel(fn, reps=3, behind=None, warm=True):
     return start.elapsed_time(end) / reps
 
 
-def iteration_agreement(got, ref, B, what):
+def iteration_gaps(a, b):
+    """Of the problems both solves converged: how many iteration counts are
+    within 25, how many there are, the median and the largest gap."""
+    both = a.converged & b.converged
+    gaps = (a.iterations - b.iterations).abs()[both]
+    if not both.any():
+        return 0, 0, 0, 0
+    return int((gaps <= 25).sum()), int(both.sum()), int(gaps.median()), int(gaps.max())
+
+
+def iteration_agreement(got, ref, B, what, ref64=None):
     """The float32 parity bars of two ADMM solves of the same QPs (phase 4's
     rule, reasons in PERF.md): converged agrees on all but B/32 (2 at B=64),
     and the iteration counts of problems both converged are within 25 for
-    all but B/8 with a median gap of 0. Returns a summary string."""
+    all but B/8 with a median gap of 0. Where the counts miss that bar and
+    ``ref64`` is given (a function that returns the plain loop's solve of
+    the same QPs at float64), the bar's premise is tested: if the plain
+    float32 solve ``ref`` itself misses it against float64 (two float32
+    orders of the loop part on more problems at 37 nodes, PERF.md §6),
+    the kernel is held to float64 instead, as phase 4 (a) holds one window:
+    no more of its counts more than 25 from float64's than twice the plain
+    float32 solve's, median gap 0. Returns a summary string."""
     agree = int((got.converged == ref.converged).sum())
-    both = got.converged & ref.converged
-    gaps = (got.iterations - ref.iterations).abs()[both]
-    n_within = int((gaps <= 25).sum())
-    med_gap = int(gaps.median()) if both.any() else 0
     check(agree >= B - max(2, B // 32), f"{what}: convergence agrees on only {agree}/{B}")
-    check(n_within >= int(both.sum()) - B // 8 and med_gap == 0,
-          f"{what}: iteration counts {n_within}/{int(both.sum())} within 25, median gap {med_gap}")
-    return (f"converged agree {agree}/{B} (kernel {int(got.converged.sum())}, plain "
+    n_within, n_both, med_gap, max_gap = iteration_gaps(got, ref)
+    text = (f"converged agree {agree}/{B} (kernel {int(got.converged.sum())}, plain "
             f"{int(ref.converged.sum())}), iteration counts within 25 on "
-            f"{n_within}/{int(both.sum())} (bar: all but {B // 8}), median gap {med_gap}, "
-            f"max gap {int(gaps.max()) if both.any() else 0}")
+            f"{n_within}/{n_both} (bar: all but {B // 8}), median gap {med_gap}, "
+            f"max gap {max_gap}")
+    if (n_within >= n_both - B // 8 and med_gap == 0) or ref64 is None:
+        check(n_within >= n_both - B // 8 and med_gap == 0,
+              f"{what}: iteration counts {n_within}/{n_both} within 25, median gap {med_gap}")
+        return text
+    sol64 = ref64()
+    p_within, p_both, p_med, p_max = iteration_gaps(ref, sol64)
+    check(p_within < p_both - B // 8 or p_med != 0,
+          f"{what}: iteration counts {n_within}/{n_both} within 25 of the plain float32 "
+          f"solve's, which is within 25 of float64's on {p_within}/{p_both}")
+    k_within, k_both, k_med, k_max = iteration_gaps(got, sol64)
+    check(k_both - k_within <= 2 * (p_both - p_within) and k_med == 0,
+          f"{what}: iteration counts {k_within}/{k_both} within 25 of float64's, the plain "
+          f"float32 solve's {p_within}/{p_both}, median gap {k_med}")
+    return (text + f"; the plain float32 solve itself within 25 of the plain float64 solve's "
+            f"on {p_within}/{p_both} (median gap {p_med}, max {p_max}), so the kernel is held "
+            f"to float64: within 25 on {k_within}/{k_both} (bar: no more than twice the plain "
+            f"float32 solve's {p_both - p_within} off), median gap {k_med}, max gap {k_max}")
 
 
 def hard_row_ratio(x, Ax, lc, uc, lx, ux, soft_c, soft_x, settings, converged):
@@ -862,7 +907,10 @@ def kernel_checks(planner, first_qp, tag, states=None) -> str:
     ref = qp_structured.solve_box_qp_structured(ocp, sa4, *args4, shipping, **kw)
     got = k3.solve_box_qp_structured_cuda(ocp, sa4, *args4, shipping, **kw)
     torch.cuda.synchronize()
-    agreement = iteration_agreement(got, ref, B4, f"{tag}: kernel 3")
+    agreement = iteration_agreement(
+        got, ref, B4, f"{tag}: kernel 3", lambda: qp_structured.solve_box_qp_structured(
+            ocp64, sa4.to(dtype=torch.float64), *(a.double() for a in args4), shipping,
+            **{k: v.double() for k, v in kw.items()}))
     _, lc, uc, lx, ux = args4[1:]
     (box_viol, hard_ratio), (box_p, hard_p) = (
         hard_row_ratio(s_.x, apply_A(ocp, sa4, s_.x), lc, uc, lx, ux, kw["soft_c"],
@@ -903,6 +951,7 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+    from mpc_motion_planner_tpu_torch.ocp import make_ocp
     from mpc_motion_planner_tpu_torch.ops import qp_structured
     from mpc_motion_planner_tpu_torch.ops.structure import apply_A
 
@@ -959,7 +1008,17 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
         qp.rc, qp.lcs, qp.ucs, qp.E, qp.thr, qp.zc, qp.yc, *out["kernel"])
     k3_iters = int(out["kernel"][6].sum())
     out.clear()
-    agreement = iteration_agreement(got, ref, B_MAIN, f"{tag}: kernel 3 B={B_MAIN}")
+
+    def plain64():
+        ocp64 = make_ocp(pl.model.to(dtype=torch.float64), pl.tool_frame, order=g.order,
+                         num_segments=g.segments)
+        qp64 = qp_structured.ScaledQP(
+            *(getattr(qp, f.name).double() for f in dataclasses.fields(qp)))
+        fac64 = {k: v.double() for k, v in fac.items() if k != "ok"}
+        return qp_structured.unscale_solution(qp64, *qp_structured.admm_plain(
+            ocp64, sa.to(dtype=torch.float64), qp64, fac64, shipping))
+
+    agreement = iteration_agreement(got, ref, B_MAIN, f"{tag}: kernel 3 B={B_MAIN}", plain64)
     _, lc, uc, lx, ux = args[1:]
     ratios = [hard_row_ratio(s_.x, apply_A(ocp, sa, s_.x), lc, uc, lx, ux, sc, sx, shipping,
                              s_.converged) for s_ in (got, ref)]
@@ -1068,6 +1127,7 @@ def block_summary(g, kernel2=True) -> str:
     kernel 2's shared memory and problems per SM. Returns a summary."""
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import LAYOUTS
 
     lay3 = k3.block_layout(g)
     built = k3.KERNEL.geometry(g)
@@ -1075,9 +1135,9 @@ def block_summary(g, kernel2=True) -> str:
     check({k: lay3[k] for k in want3} == want3,
           f"kernel 3 at {built}: the library's block {lay3}, the reckoning {want3}")
     text = (f"kernel 3 {lay3['threads']} threads ({k3.sweep_warps(g)} sweep warps), "
-            f"{lay3['smem_bytes']} B in the {built.layout} layout (full "
-            f"{k3.smem_bytes(g, 'full')}, compact {k3.smem_bytes(g, 'compact')}, split "
-            f"{k3.smem_bytes(g, 'split')} B), {lay3['blocks_per_sm']} block per SM")
+            f"{lay3['smem_bytes']} B in the {built.layout} layout ("
+            + ", ".join(f"{name} {k3.smem_bytes(g, name)}" for name in LAYOUTS)
+            + f" B), {lay3['blocks_per_sm']} block per SM")
     if not kernel2:
         return text + "; the reckoning agrees"
     lay2 = k2.block_layout(g)
@@ -1317,26 +1377,29 @@ def eager_shipping(pl, cur, tgt, tag, suffix, phase, results) -> None:
 
 
 def refusal(pl, cur, tgt, tag, phase) -> None:
-    """``pl``'s geometry fits no layout of kernel 3: its fit check and the
-    planner's solve on the card raise a ValueError naming its bytes, and
-    its library is never built."""
+    """``pl``'s geometry is past kernel 3's limits (more than 1024 threads,
+    or a block that fits no layout): its fit check and the planner's solve
+    on the card raise a ValueError naming the threads or the bytes, and its
+    library is never built."""
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
 
     g = Geometry.of_ocp(pl.ocp)
+    names = (f"{k3.threads(g)} threads" if k3.threads(g) > 1024
+             else f"{k3.smem_bytes(g)} B")
     try:
         k3.check_fits(g)
         refused = None
     except ValueError as err:
         refused = str(err)
-    check(refused is not None and f"{k3.smem_bytes(g)} B" in refused,
+    check(refused is not None and names in refused,
           f"{tag}: kernel 3's fit check says {refused}")
     try:
         pl.solve(cur, tgt)
         solved = "solved"
     except ValueError as err:
         solved = str(err)
-    check(f"{k3.smem_bytes(g)} B" in solved, f"{tag} on the card: {solved}")
+    check(names in solved, f"{tag} on the card: {solved}")
     check(not k3.KERNEL.library_path(g).exists(), f"{tag}: a kernel-3 library was built")
     log(f"{phase} refusal at {tag}: {refused}; the planner's solve on the card raises the "
         f"same, and no kernel-3 library was built for it")
@@ -1361,6 +1424,7 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     joints are built here with the others, for phase 22."""
     from mpc_motion_planner_tpu_torch import kernels
     from mpc_motion_planner_tpu_torch.kernels import constraints as k1
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
     from mpc_motion_planner_tpu_torch.models.urdf import parse_urdf
     from mpc_motion_planner_tpu_torch.ops.sqp import SQPSettings
@@ -1369,10 +1433,12 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     fx = fixture_models()
     g6, g8 = Geometry(nq=6), Geometry(nq=8)
 
-    # ---- build: kernels 1-3 at 6, 8, 9 and 10 joints, one nvcc each, together ----
+    # ---- build: kernels 1-3 at 6, 8, 9 and 10 joints, and kernels 2 and 3 at 9
+    # and 10 joints at 25 nodes, one nvcc each, together ----
     build_libraries([(name, kernels.KERNELS[name], Geometry(nq=nq)) for nq in (6, 8, 9, 10)
-                     for name in ("constraints", "banded_factor", "structured_admm")],
-                    "phase 20")
+                     for name in ("constraints", "banded_factor", "structured_admm")]
+                    + [(name, kernels.KERNELS[name], Geometry(segments=8, nq=nq)) for nq in (9, 10)
+                       for name in ("banded_factor", "structured_admm")], "phase 20")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for g in (g6, g8):
         log(f"phase 20 libraries at {g.nq} joints, 19 nodes ({g.num_var} variables, "
@@ -1450,7 +1516,19 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     log(f"phase 20 the 9-joint chain under 'off' (kernel 3 in its split layout) plans B=4: "
         f"launches {counts9}, qp_conv_rate {float(sol9.qp_converged.double().mean()):.4f}")
     pl10, cur10, tgt10 = chain_planner(planner, 10, fused="off", segments=8)
-    refusal(pl10, cur10[:4], tgt10[:4], "10 joints, 25 nodes", "phase 20")
+    kernels.reset_launch_counts()
+    sol10 = pl10.solve(cur10[:4], tgt10[:4])
+    torch.cuda.synchronize()
+    counts10 = kernels.launch_counts()
+    check(counts10 == {"constraints": 0, "banded_factor": 2, "structured_admm": 2,
+                       "admm_dense": 0} and bool(torch.isfinite(sol10.z).all())
+          and sol10.z.shape == (4, 751), f"10 joints at 25 nodes under 'off': launches {counts10}")
+    log(f"phase 20 the 10-joint chain at 25 nodes under 'off' (kernel 3 in its "
+        f"{k3.choose_layout(Geometry.of_ocp(pl10.ocp))} layout) plans B=4: launches {counts10}, "
+        f"qp_conv_rate {float(sol10.qp_converged.double().mean()):.4f}")
+    del pl10, sol10
+    pl10, cur10, tgt10 = chain_planner(planner, 10, fused="off", segments=9)
+    refusal(pl10, cur10[:4], tgt10[:4], "10 joints, 28 nodes", "phase 20")
     n_h = B_ADMM
     hand = parse_urdf(fx.panda_urdf(True, hand=True), dtype=f32, device=dev)
     fingers = {"min_position": [0.0, 0.0], "max_position": [0.04, 0.04],
@@ -1532,7 +1610,8 @@ def order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     # ---- (a) build: kernels 2 and 3 at each order and at order 4 x 6, one
     # nvcc each, together ----
     geoms = [Geometry(segments=segments, order=order) for order, segments in ORDERS]
-    build_libraries([(name, kernels.KERNELS[name], g) for g in geoms + [Geometry(6, 4)]
+    build_libraries([(name, kernels.KERNELS[name], g)
+                     for g in geoms + [Geometry(6, 4), Geometry(9, 4)]
                      for name in ("banded_factor", "structured_admm")], "phase 21")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for g in geoms:
@@ -1599,20 +1678,75 @@ def order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
         f"{B_MAIN / wall[1] * 1e3:.1f} solves/s; quality {json.dumps(qd)}")
     del sol, dense4
 
-    # ---- (f) order 4 at 6 segments plans; order 4 at 9 fits no layout ----
-    pl46 = with_order(4, 6)
-    kernels.reset_launch_counts()
-    sol = pl46.solve(cur_all[:4], tgt_all[:4])
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    check(counts == {"constraints": 5, "banded_factor": 2, "structured_admm": 2, "admm_dense": 0}
-          and bool(torch.isfinite(sol.z).all()) and sol.z.shape == (4, 526),
-          f"order 4 x 6: launches {counts}")
-    log(f"phase 21 order 4 x 6 segments (25 nodes, kernel 3 in its "
-        f"{k3.choose_layout(Geometry.of_ocp(pl46.ocp))} layout) plans B=4: launches {counts}")
-    del pl46, sol
-    refusal(with_order(4, 9), cur_all[:4], tgt_all[:4], "order 4 x 9 segments (37 nodes)",
+    # ---- (f) order 4 at 6 and 9 segments plan; order 4 at 10 is past the limit ----
+    for segments in (6, 9):
+        pl = with_order(4, segments)
+        kernels.reset_launch_counts()
+        sol = pl.solve(cur_all[:4], tgt_all[:4])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check(counts == {"constraints": 5, "banded_factor": 2, "structured_admm": 2,
+                         "admm_dense": 0} and bool(torch.isfinite(sol.z).all())
+              and sol.z.shape == (4, pl.ocp.num_var), f"order 4 x {segments}: launches {counts}")
+        log(f"phase 21 order 4 x {segments} segments ({pl.ocp.num_nodes} nodes, kernel 3 in its "
+            f"{k3.choose_layout(Geometry.of_ocp(pl.ocp))} layout) plans B=4: launches {counts}")
+        del pl, sol
+    refusal(with_order(4, 10), cur_all[:4], tgt_all[:4], "order 4 x 10 segments (41 nodes)",
             "phase 21")
+
+
+def transcription_planner(planner, order, segments):
+    """A planner of the Panda on ``planner``'s device, margins and settings,
+    its OCP set to ``segments`` spline segments of ``order`` as a user sets
+    it."""
+    from mpc_motion_planner_tpu_torch.ocp import make_ocp
+    from mpc_motion_planner_tpu_torch.planner import MotionPlanner
+
+    pl = MotionPlanner(margins=planner.margins, dtype=planner.dtype, device=planner.device,
+                       qp_settings=planner.qp_settings, sqp_settings=planner.sqp_settings)
+    pl.ocp = make_ocp(pl.model, pl.tool_frame, order=order, num_segments=segments)
+    return pl
+
+
+def hold_layouts(pl, first_qp, base, other, entry, phase, smi) -> None:
+    """Kernel 3 at ``pl``'s geometry built in the layout ``other`` (named in
+    the geometry; planners never do) against the build in ``base``, on the
+    step-0 QPs of the headline states at B=2048, at the full budget and at
+    one check window: all nine outputs bitwise equal, times in turns (base,
+    other, other, base), into ``entry`` as ``<other>_<label>_ms``,
+    ``<base>_<label>_ms`` and ``<other>_<label>_bitwise_<base>``."""
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.ops import qp_structured
+
+    shipping, ocp = pl.qp_settings, pl.ocp
+    tag = f"{ocp.num_nodes} nodes of order {ocp.coll.order}"
+    _, sa, args, sc, sx = first_qp(B_MAIN, pl=pl)
+    qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
+    fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, ocp.coll.order)
+    s_win = dataclasses.replace(shipping, max_iter=shipping.check_every)
+    names = ("x", "zc", "zx", "yc", "yx", "done", "iters", "rp", "rd")
+    for label, settings in (("budget", shipping), ("window", s_win)):
+        out, times = {}, {base: [], other: []}
+        for lay in (base, other, other, base):
+            def call(lay=lay):
+                out[lay] = k3.admm_kernel(ocp, sa, qp, fac, settings, layout=lay)
+            times[lay].append(time_kernel(call, reps=3))
+        differ = [n for n, a, b in zip(names, out[base], out[other]) if not torch.equal(a, b)]
+        check(not differ, f"{tag}, {label}: the {other} layout differs from the {base} one "
+              f"in {differ}")
+        ms = {k: float(np.mean(v)) for k, v in times.items()}
+        waves = -(-B_MAIN // torch.cuda.get_device_properties(0).multi_processor_count)
+        us = {k: 1e3 * v / settings.max_iter / waves for k, v in ms.items()}
+        entry.update({f"{other}_{label}_ms": ms[other], f"{base}_{label}_ms": ms[base],
+                      f"{other}_{label}_bitwise_{base}": True})
+        log(f"{phase} {other} against {base} at {tag}, B={B_MAIN}, {settings.max_iter} "
+            f"iterations: all {len(names)} outputs bitwise equal "
+            f"({int(out[other][6].sum())} problem-iterations); {base} {ms[base]:.3f} ms, "
+            f"{other} {ms[other]:.3f} ms ({100 * (ms[other] / ms[base] - 1):+.2f}%; "
+            f"{us[base]:.2f} against {us[other]:.2f} us per iteration per block; runs "
+            f"{times}) on {smi}")
+    del sa, args, sc, sx, qp, fac, out
 
 
 def split_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
@@ -1636,23 +1770,13 @@ def split_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     it, as the JAX kernel pads to 512). (d) Seeded serial chains of 9 and 10
     joints at 19 nodes: kernels 1-3 against their plain versions, timed,
     and an eager shipping solve at B=2048 (5/2/2/0). The geometries beyond
-    the split are refused in phases 20 (e) and 21 (f)."""
+    the split take the stream layout (phase 23)."""
     from mpc_motion_planner_tpu_torch.kernels import admm_dense as k4
-    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
-    from mpc_motion_planner_tpu_torch.ocp import make_ocp
-    from mpc_motion_planner_tpu_torch.ops import qp_structured
-    from mpc_motion_planner_tpu_torch.planner import MotionPlanner
 
     dev = cur_all.device
-    shipping = planner.qp_settings
-
-    def with_transcription(order, segments):
-        pl = MotionPlanner(margins=planner.margins, dtype=planner.dtype, device=dev,
-                           qp_settings=shipping, sqp_settings=planner.sqp_settings)
-        pl.ocp = make_ocp(pl.model, pl.tool_frame, order=order, num_segments=segments)
-        return pl
+    with_transcription = lambda order, segments: transcription_planner(planner, order, segments)
 
     # ---- (a) the split layout at 25 nodes of order 3, and every split block ----
     g25 = Geometry(segments=8)
@@ -1666,33 +1790,9 @@ def split_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
 
     # ---- (b) split against compact at 25 nodes of order 3, bitwise ----
     pl25 = with_transcription(3, 8)
-    _, sa, args, sc, sx = first_qp(B_MAIN, pl=pl25)
-    qp = qp_structured.scale_qp(pl25.ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
-    fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, 3)
-    s_win = dataclasses.replace(shipping, max_iter=shipping.check_every)
-    names = ("x", "zc", "zx", "yc", "yx", "done", "iters", "rp", "rd")
-    e25 = results["structured_admm_25_nodes"]
-    for label, settings in (("budget", shipping), ("window", s_win)):
-        out, times = {}, {"compact": [], "split": []}
-        for lay in ("compact", "split", "split", "compact"):
-            def call(lay=lay):
-                out[lay] = k3.admm_kernel(pl25.ocp, sa, qp, fac, settings, layout=lay)
-            times[lay].append(time_kernel(call, reps=3))
-        differ = [n for n, a, b in zip(names, out["compact"], out["split"]) if not torch.equal(a, b)]
-        check(not differ, f"25 nodes, {label}: the split layout differs from the compact one "
-              f"in {differ}")
-        ms = {k: float(np.mean(v)) for k, v in times.items()}
-        waves = -(-B_MAIN // torch.cuda.get_device_properties(0).multi_processor_count)
-        us = {k: 1e3 * v / settings.max_iter / waves for k, v in ms.items()}
-        e25.update({f"split_{label}_ms": ms["split"], f"compact_{label}_ms": ms["compact"],
-                    f"split_{label}_bitwise_compact": True})
-        log(f"phase 22 split against compact at 25 nodes of order 3, B={B_MAIN}, "
-            f"{settings.max_iter} iterations: all {len(names)} outputs bitwise equal "
-            f"({int(out['split'][6].sum())} problem-iterations); compact {ms['compact']:.3f} ms, "
-            f"split {ms['split']:.3f} ms ({100 * (ms['split'] / ms['compact'] - 1):+.2f}%; "
-            f"{us['compact']:.2f} against {us['split']:.2f} us per iteration per block; runs "
-            f"{times}) on {smi}")
-    del pl25, sa, args, sc, sx, qp, fac, out
+    hold_layouts(pl25, first_qp, "compact", "split", results["structured_admm_25_nodes"],
+                 "phase 22", smi)
+    del pl25
 
     # ---- (c) the main path: order 4 x 6 segments ----
     pl46 = with_transcription(4, 6)
@@ -1732,6 +1832,121 @@ def split_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
                        "phase 22", results)
         del pl, cur, tgt
     del big
+    torch.cuda.empty_cache()
+
+
+def stream_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
+    """Phase 23: kernel 3's stream layout, which keeps no block of Lsub in
+    shared memory: the chain's distance-1 blocks go through the copier's
+    ring with the helpers' ones, and every geometry up to 1024 threads
+    fits. (a) Built in the stream layout at 8 segments of order 3 (where the
+    compact layout fits) and at 6 of order 4 (where the split does), it
+    gives all nine outputs of those layouts bitwise at B=2048 (times in
+    turns). (b) The main path: the Panda at 12 segments of order 3 (37
+    nodes, 778 variables, 968 rows, 992 threads), set as a user sets it
+    (``planner.ocp = make_ocp(planner.model, planner.tool_frame, order=3,
+    num_segments=12)``): kernels 2 and 3 against their plain versions
+    (phase 3's and 4's bars), timed at B=2048 with their bounds and kernel
+    2's library call, the captured shipping solve of the headline states
+    (5/2/2/0, bitwise its eager solve, quality, times in turns), the JAX
+    fixture ``torch_port_seg12_b64.npz`` (64/64); the dense ``pallas`` path
+    has no kernel at n = 778. (c) The Panda at 9 segments of order 4 and
+    seeded serial chains of 9 and 10 joints at 8 segments of order 3 (37,
+    25, 25 nodes): kernels 2 and 3 against their plain versions, timed, an
+    eager shipping solve each (5/2/2/0). (d) Every stream library's block
+    against the Python reckoning (its registers and spills in the build's
+    lines), and 13 segments of order 3 (40 nodes, 1056 threads) refused
+    naming the threads, before any build."""
+    from mpc_motion_planner_tpu_torch import kernels
+    from mpc_motion_planner_tpu_torch.kernels import admm_dense as k4
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    dev = cur_all.device
+    g38s, g46s = Geometry(8, 3, layout="stream"), Geometry(6, 4, layout="stream")
+    g12, g49 = Geometry(12, 3), Geometry(9, 4)
+    chains = {nq: Geometry(8, 3, nq) for nq in (9, 10)}
+    # ---- build: the stream layout where compact and split fit, and the
+    # geometries that take it, one nvcc each, together ----
+    build_libraries([("structured_admm", k3.KERNEL, g) for g in (g38s, g46s)]
+                    + [(name, kernels.KERNELS[name], g) for g in (g12, g49)
+                       for name in ("banded_factor", "structured_admm")], "phase 23")
+
+    # ---- (a) the stream layout against compact (3 x 8) and split (4 x 6), bitwise ----
+    for (order, segments), base, entry in (((3, 8), "compact", "structured_admm_25_nodes"),
+                                           ((4, 6), "split", "structured_admm_order4x6")):
+        pl = transcription_planner(planner, order, segments)
+        check(k3.choose_layout(Geometry.of_ocp(pl.ocp)) == base,
+              f"order {order} x {segments} takes the {base} layout")
+        hold_layouts(pl, first_qp, base, "stream", results[entry], "phase 23", smi)
+        del pl
+
+    # ---- (b) the main path: 12 segments of order 3 ----
+    pl12 = transcription_planner(planner, 3, 12)
+    ocp = pl12.ocp
+    check((ocp.num_nodes, ocp.num_var, ocp.num_eq + ocp.num_ineq) == (37, 778, 968)
+          and k3.choose_layout(g12) == "stream" and Geometry.of_ocp(ocp) == g12,
+          f"12 segments: {ocp.num_nodes} nodes, {ocp.num_var} variables")
+    log(f"phase 23 libraries at 12 segments of order 3 (37 nodes, 778 variables, 968 rows): "
+        f"{block_summary(g12)}")
+    summary, window_err = kernel_checks(pl12, first_qp, "12 segments")
+    log(f"phase 23 at 12 segments of order 3 (37 nodes, stream layout), {summary}")
+    time_structured_kernels(pl12, first_qp, results, "seg12", "phase 23", window_err)
+    captured_shipping(pl12, cur_all, tgt_all, "12 segments", "seg12", "phase 23",
+                      "headline states, 12 segments of order 3, 37 nodes", results,
+                      ("banded_factor", "structured_admm"), smi)
+    # every final time within 1e-3; the whole agreement (qp_converged too) by
+    # phase 19's bar for float32 against a float64 fixture: at 37 nodes the
+    # port's plain float32 path also leaves one QP unconverged that the JAX
+    # float64 solve converges (PERF.md §4)
+    n_good, n_tf, n_fx, summary = fixture_agreement(pl12, SEG12_FIXTURE, dev)
+    check(n_tf == n_fx and n_good >= n_fx - 4,
+          f"12 segments: {n_good}/{n_fx} fixture problems agree, {n_tf} final times within 1e-3")
+    log(f"phase 23 JAX fixture at 12 segments: {summary}; final times within 1e-3 relative "
+        f"{n_tf}/{n_fx} (bar {n_fx}), all three {n_good}/{n_fx} (bar {n_fx - 4})")
+    try:
+        k4.check_fits(ocp.num_var, ocp.num_eq + ocp.num_ineq)
+        dense = "fits"
+    except ValueError as err:
+        dense = str(err)
+    check(dense != "fits", "12 segments: kernel 4 took n = 778")
+    log(f"phase 23 dense pallas path at 12 segments (n = {ocp.num_var}): not built; kernel 4's "
+        f"fit check refuses it ({dense}), as the JAX kernel pads to n = 512")
+    del pl12, ocp
+
+    # ---- (c) order 4 x 9, and the 9- and 10-joint chains at 25 nodes ----
+    pl49 = transcription_planner(planner, 4, 9)
+    check(Geometry.of_ocp(pl49.ocp) == g49 and k3.choose_layout(g49) == "stream",
+          "order 4 x 9 takes the stream layout")
+    log(f"phase 23 libraries at order 4 x 9 segments (37 nodes, {g49.num_var} variables, "
+        f"{g49.num_rows} rows): {block_summary(g49)}")
+    summary, window_err = kernel_checks(pl49, first_qp, "order 4 x 9")
+    log(f"phase 23 at order 4 x 9 segments (37 nodes, stream layout), {summary}")
+    time_structured_kernels(pl49, first_qp, results, "order4x9", "phase 23", window_err)
+    eager_shipping(pl49, cur_all, tgt_all, "order 4 x 9 (headline states)", "order4x9",
+                   "phase 23", results)
+    del pl49
+    for nq, g in chains.items():
+        pl, cur, tgt = chain_planner(planner, nq, segments=8)
+        check(Geometry.of_ocp(pl.ocp) == g and k3.choose_layout(g) == "stream",
+              f"{nq} joints at 25 nodes take the stream layout")
+        log(f"phase 23 libraries at {nq} joints, 25 nodes ({g.num_var} variables, "
+            f"{g.num_rows} rows): {block_summary(g)}")
+        summary, window_err = kernel_checks(pl, first_qp, f"{nq} joints, 25 nodes", (cur, tgt))
+        log(f"phase 23 at {nq} joints, 25 nodes (stream layout), {summary}")
+        time_structured_kernels(pl, first_qp, results, f"{nq}_joints_25_nodes", "phase 23",
+                                window_err, (cur, tgt))
+        eager_shipping(pl, cur, tgt, f"the {nq}-joint chain at 25 nodes (seeded states)",
+                       f"{nq}_joints_25_nodes", "phase 23", results)
+        del pl, cur, tgt
+
+    # ---- (d) the forced stream blocks, and the limit ----
+    for g in (g38s, g46s):
+        log(f"phase 23 libraries at {g.nodes} nodes, order {g.order} in the stream layout: "
+            f"{block_summary(g, kernel2=False)}")
+    pl13 = transcription_planner(planner, 3, 13)
+    refusal(pl13, cur_all[:4], tgt_all[:4], "13 segments of order 3 (40 nodes)", "phase 23")
+    del pl13
     torch.cuda.empty_cache()
 
 
@@ -2537,6 +2752,7 @@ def run(dev: torch.device) -> None:
     robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi)
     order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi)
     split_phases(planner, cur_all, tgt_all, first_qp, results, smi)
+    stream_phases(planner, cur_all, tgt_all, first_qp, results, smi)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

@@ -38,16 +38,18 @@ another robot, a Panda with its last joints locked (for example
 entries of its joints and the Panda's limits of them, as
 ``profile_solve.py`` takes it), and kernels 1-3 are built for its joint
 count. ``--layout`` (kernel 3) adds the package's source built in that
-shared-memory layout (``full``, ``compact`` or ``split``) as the variant
-``layout_<name>``, beside the package build in the layout its geometry
-takes: ``--segments 8 --layout split`` holds the split layout against the
-compact one where both fit (their outputs must be bitwise equal) and times
-what the split costs; ``--order 4 --segments 6`` is a geometry that takes
-the split layout.
+shared-memory layout (``full``, ``compact``, ``split`` or ``stream``) as the
+variant ``layout_<name>``, beside the package build in the layout its
+geometry takes: ``--segments 8 --layout split`` (or ``stream``) holds the
+split (or stream) layout against the compact one where both fit (their
+outputs must be bitwise equal) and times what it costs; ``--order 4
+--segments 6`` is a geometry that takes the split layout (``--layout
+stream`` there holds the stream against the split), ``--segments 12`` one
+that takes the stream layout (37 nodes, 992 threads).
 
     python -m mpc_motion_planner_tpu_torch.bench.kernel_ab --kernel 4 \\
         [--batch 2048] [--reps 3] [--segments 6] [--order 3] [--urdf path.urdf] \\
-        [--layout split] [name=path.cu ...]
+        [--layout stream] [name=path.cu ...]
 
 A variant's headers are looked up beside its source. To compare with an
 earlier commit:

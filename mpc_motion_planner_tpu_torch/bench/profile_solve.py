@@ -20,8 +20,9 @@ starts, which slows later solves.
 ``--segments`` and ``--order`` set the transcription as a user sets it
 (``planner.ocp = make_ocp(model, tool_frame, order=3, num_segments=8)``: 25
 nodes; ``order=4, num_segments=4``: 17 nodes; ``order=4, num_segments=6``:
-25 nodes, kernel 3 in its split layout; default 6 segments of order 3, 19
-nodes), and kernels 2 and 3 are built for it. ``--urdf`` plans another
+25 nodes, kernel 3 in its split layout; ``num_segments=12``: 37 nodes,
+kernel 3 in its stream layout; default 6 segments of order 3, 19 nodes),
+and kernels 2 and 3 are built for it. ``--urdf`` plans another
 robot: a Panda with its last joints locked (for example
 ``tests/fixtures/panda_joint7_fixed.urdf``, 6 joints), with the Panda's
 limits of its first nq joints and the headline states' entries of those

@@ -25,7 +25,8 @@ namespace mpc {
 #define MPC_NQ 7
 #endif
 // Kernel 3's shared-memory layout, which the build picks from the geometry
-// (kernels/structured_admm.py layout): 0 full, 1 compact, 2 split.
+// (kernels/structured_admm.py choose_layout): 0 full, 1 compact, 2 split,
+// 3 stream.
 #ifndef MPC_SMEM_LAYOUT
 #define MPC_SMEM_LAYOUT 0
 #endif

@@ -78,15 +78,16 @@
 // joints; 24 at 7 and 8; 28 at 9; 32 at 10) and a row per lane, so BLK <=
 // 32. The block has one thread per z element and per constraint row (NT =
 // max(NV, NM) rounded up to whole warps: 512 at 19 nodes, 672 at 25, 352 at
-// 13; 448 at 19 nodes and 6 joints, 576 at 8, 640 at 9, 704 at 10; 544 at
-// order 2 x 9 segments, 416 at order 4 x 4, 640 at order 4 x 6, 384 at order
-// 5 x 3), and everything else follows the geometry: a band width of BW takes
-// BW - 1 helper warps and BW - 1 look-ahead vectors (the sweeps need 2 + BW
-// warps).
+// 13, 992 at 37; 448 at 19 nodes and 6 joints, 576 at 8, 640 at 9, 704 at
+// 10; 832 at 25 nodes and 9 joints, 928 at 10; 544 at order 2 x 9 segments,
+// 416 at order 4 x 4, 640 at order 4 x 6, 928 at order 4 x 9, 384 at order
+// 5 x 3), so NT <= 1024 bounds the geometry (40 nodes of order 3 take 1056);
+// everything else follows the geometry: a band width of BW takes BW - 1
+// helper warps and BW - 1 look-ahead vectors (the sweeps need 2 + BW warps).
 //
-// Shared memory: the build picks one of three layouts from the geometry
-// (MPC_SMEM_LAYOUT, kernels/structured_admm.py layout), the first that fits
-// a block (232,448 B). The bytes below are sizeof(Smem), which the Python
+// Shared memory: the build picks one of four layouts from the geometry
+// (MPC_SMEM_LAYOUT, kernels/structured_admm.py choose_layout), the first
+// that fits a block (232,448 B). The bytes below are sizeof(Smem), which the Python
 // reckoning (smem_bytes) equals and the library reports
 // (mpc_structured_admm_smem_bytes) on an NVIDIA H100 80GB HBM3 at 700 W.
 // * Full: every operand as described above (Ldi stored full: a chain warp
@@ -110,12 +111,12 @@
 // * Split keeps in shared memory only what the chain reads, and reads the
 //   rest from device memory (through L2) off the chain. Order 4 x 6 (25
 //   nodes: 273,632 B compact, 173,200 B split), 9 and 10 joints at 19 nodes
-//   (267,216 and 321,344 B compact; 185,680 and 220,640 B split), 28 nodes
-//   of order 3 (180,128 B split); 10 joints at 25 nodes of order 3 fit none
-//   (284,880 B split). Ldi is packed as in compact; of Lsub only the N - 1
-//   distance-1 blocks L[k,k-1] stay, which the chain fetches. The blocks of
-//   distances 2..BW (69 of the 93 compact blocks at order 4 x 6, 121.7 KB)
-//   are read only by the helper warps, a full step ahead of the chain. A
+//   (267,216 and 321,344 B compact; 185,680 and 220,640 B split), 28 to 34
+//   nodes of order 3 (180,128 B split at 28). Ldi is packed as in compact;
+//   of Lsub only the N - 1 distance-1 blocks L[k,k-1] stay, which the chain
+//   fetches. The blocks of distances 2..BW (69 of the 93 compact blocks at
+//   order 4 x 6, 121.7 KB) are read only by the helper warps, a full step
+//   ahead of the chain. A
 //   node's blocks L[m+2,m] .. L[m+BW,m] lie side by side in the Lsub kernel
 //   2 wrote (a run): the forward sweep reads node m's run at step m, all
 //   helpers at once, and the backward sweep reads it again over BW - 1
@@ -123,7 +124,7 @@
 //   bulk copy of the tensor memory accelerator (TMA) two steps before the
 //   run's first use; the backward sweep finds the forward's last runs still
 //   there, and the next forward the backward's, so an iteration copies 2 (N
-//   - 2 - BW) runs (38 at 3 x 8 against 90 blocks copied one by one). The
+//   - 2 - BW) runs (40 at 3 x 8 against 90 blocks copied one by one). The
 //   copies complete on one mbarrier per slot, which a helper waits on before
 //   reading its block as compact reads Lsub, so split and compact give the
 //   same results, bitwise, where both fit. A run is no multiple of 16 B and
@@ -143,6 +144,26 @@
 //   the copier. The copies' latency and bytes are hidden (rings of 2 to 6
 //   slots, and 16-byte copies in place of whole blocks, time the same);
 //   what is left is the helpers' waits (PERF.md, PR 12).
+// * Stream keeps no block of Lsub in shared memory: the chain's distance-1
+//   blocks go through the same ring, a node's run one block longer
+//   (L[m+1,m] .. L[m+BW,m], from the block before the split's run). 12
+//   segments of order 3 (37 nodes: 235,344 B split, 182,432 B stream),
+//   order 4 x 9 (247,200 and 197,808 B), 9 and 10 joints at 25 nodes
+//   (239,920 and 284,880 B split; 187,440 and 220,112 B stream), order 5 x
+//   7 (213,040 B). The chain fetches node m's block in the forward sweep at
+//   step m, with the helpers, and in the backward one at step N-2-m, one
+//   step after the helper of distance 2, so the ring holds BW + 1 runs;
+//   the copier's schedule and copy count are the split's. The chain issues
+//   no copy and keeps none of the ring's state: the slot, where the run
+//   starts after its boundary and the parity of its copy's barrier phase
+//   follow from the node and the pairs of sweeps done (ring_copy_count),
+//   and it waits in its fetch, between its turns. Measured (kernel_ab.py
+//   and chip_smoke.py phase 23, B=2048, NVIDIA H100 80GB HBM3 at 700 W),
+//   all nine outputs bitwise those of compact (3 x 8) and split (4 x 6),
+//   per iteration: +41% against compact, +10% against split. A first
+//   design, whose chain warps stepped the ring's state as the helpers do,
+//   took +126% and +63%: the state's registers spilled the chain's blocks
+//   (PERF.md §6).
 // Two other ways were weighed for what does not fit: J in device memory
 // read through L1 (16.8 KB) would put an L1 round trip into A and A' every
 // iteration, and a cluster of two blocks holding the factors in distributed
@@ -152,7 +173,16 @@
 // six of them on one of the SM's four schedulers, whose quarter of the
 // register file (16K) then allows 80 registers per thread; ptxas -v reports
 // 72 B of spill stores for the 25-node build, none at 19 nodes (99
-// registers).
+// registers). At 928 to 992 threads (29 to 31 warps, eight on a scheduler)
+// a thread has 64 registers and a chain warp's two block rows and vector
+// (66 floats for 7 joints, 92 for 10) no longer fit. ptxas -v, registers
+// and spill stores of the stream builds (with refinement, without): 37
+// nodes 64, 632 and 380 B; order 4 x 9 64, 720 and 408 B; 25 nodes at 9
+// joints 72 and 32 registers, 1,024 and 2,128 B, at 10 joints 32 and 32,
+// 4,764 and 2,448 B (ptxas allots 32 where 64 are allowed); forced at 3 x 8
+// 80, 116 and 108 B; at 4 x 6 96, 48 and 68 B. The stream at 3 x 8 built
+// for 64 registers (692 B) takes +38% an iteration (kernel_ab.py, PERF.md
+// §6).
 
 #include "common.cuh"
 
@@ -176,26 +206,39 @@ constexpr int NAHEAD = BW - 1;             // look-ahead distances 2..BW
 constexpr int NAHEAD_BUF = NAHEAD > 0 ? NAHEAD : 1;
 
 // the shared-memory layouts (the header says which geometry takes which)
-enum Layout { FULL = 0, COMPACT = 1, SPLIT = 2 };
+enum Layout { FULL = 0, COMPACT = 1, SPLIT = 2, STREAM = 3 };
 constexpr int LAYOUT = MPC_SMEM_LAYOUT;
-static_assert(LAYOUT == FULL || LAYOUT == COMPACT || LAYOUT == SPLIT, "a layout of common.cuh");
+static_assert(LAYOUT >= FULL && LAYOUT <= STREAM, "a layout of common.cuh");
 constexpr bool PACKED_LDI = LAYOUT != FULL;
-// split: the helpers' blocks of node m, L[m+2,m] .. L[m+BW,m], lie side by
-// side in Lsub (a run); a ring of RING runs holds node m's in slot m % RING,
-// copied from the 16-byte boundary at or before the run, so up to 3 floats
-// more. The ring is filled LEAD steps ahead of a run's first use, and RING =
-// BW + LEAD - 2 is the fewest runs for which no copy overwrites a run still
-// to be read (ring_step).
+// split and stream: Lsub goes through a ring of node runs. Node m's blocks
+// L[m+1,m] .. L[m+BW,m] lie side by side in Lsub; its run is the last BW - 1
+// of them (split: the helpers' blocks) or all BW (stream: the chain's block
+// L[m+1,m] too). A ring of RING runs holds node m's in slot m % RING, copied
+// from the 16-byte boundary at or before the run, so up to 3 floats more.
+// The ring is filled LEAD steps ahead of a run's first use, and RING is the
+// fewest runs for which no copy overwrites a run still to be read: BW + LEAD
+// - 2 in the split, one more in the stream, whose chain reads a run one step
+// after the helper of distance 2 in the backward sweep (ring_step).
+constexpr bool RINGED = LAYOUT == SPLIT || LAYOUT == STREAM;
+static_assert(!RINGED || BW >= 2, "the helper of distance 2 paces the ring's copier");
+constexpr int RUN0 = LAYOUT == STREAM ? 0 : 1;  // a run starts at L[m+1+RUN0,m]
 constexpr int LEAD = 2;
-constexpr int RING = BW + LEAD - 2;
-constexpr int RUN = NAHEAD * BLK2;
+constexpr int RING = BW + LEAD - 1 - RUN0;
+constexpr int RUN = (BW - RUN0) * BLK2;
 constexpr int SLOT = (RUN + 6) / 4 * 4;
+constexpr int LAST_RUN = N - 2 - RUN0;  // the last node whose run a sweep reads
+constexpr int RING0 = RING < LAST_RUN + 1 ? RING : LAST_RUN + 1;  // runs copied at the start
+// runs copied in each forward sweep (nodes RING .. LAST_RUN) and in each backward one
+constexpr int NCOPY = LAST_RUN + 1 - RING > 0 ? LAST_RUN + 1 - RING : 0;
+// the distance-1 blocks L[k,k-1] that stay in shared memory (the split's)
+constexpr int D1_FLOATS = LAYOUT == SPLIT ? (N - 1) * BLK2 : 0;
 // floats of Lsub in shared memory: all blocks; those up to L[N-1,N-2]; or
-// (split) the N - 1 distance-1 blocks, up to 3 floats to a 16-byte boundary,
-// the ring, its barriers (8 bytes each) and the copier's progress count
+// (split, stream) the resident distance-1 blocks, up to 3 floats to a
+// 16-byte boundary, the ring, its barriers (8 bytes each) and the copier's
+// progress count
 constexpr int LSUB_FLOATS = LAYOUT == FULL      ? N * BW * BLK2
                             : LAYOUT == COMPACT ? LSUB_USED * BLK2
-                                                : (N - 1) * BLK2 + 3 + RING * (SLOT + 2) + 1;
+                                                : D1_FLOATS + 3 + RING * (SLOT + 2) + 1;
 
 struct Params {
   float Dm[KL * KL];  // Dm[k*KL + j]
@@ -249,10 +292,10 @@ struct Smem {
   int done;
 };
 static_assert(sizeof(Smem) <= SMEM_LIMIT, "shared memory of one block: the build's layout");
-// split: where the ring starts in Lsub, the first 16-byte boundary of the
-// block's shared memory after the distance-1 blocks
+// split and stream: where the ring starts in Lsub, the first 16-byte
+// boundary of the block's shared memory after the resident distance-1 blocks
 constexpr int LSUB_AT = (int)offsetof(Smem, Lsub) / 4;
-constexpr int RING_AT = (LSUB_AT + (N - 1) * BLK2 + 3) / 4 * 4 - LSUB_AT;
+constexpr int RING_AT = (LSUB_AT + D1_FLOATS + 3) / 4 * 4 - LSUB_AT;
 
 __device__ __forceinline__ float ftz(float v) {
   return clampf(fabsf(v) < 1e-30f ? 0.f : v, -1e15f, 1e15f);
@@ -437,75 +480,15 @@ __device__ __forceinline__ void load_ldi(float (&M)[BLK], const Smem& sm, int k,
   }
 }
 
-// Step t of a sweep works on node k: forward k = t, backward k = N-1-t.
-template <bool FWD>
-__device__ __forceinline__ int node_of(int t) { return FWD ? t : N - 1 - t; }
+// ---- the split and stream layouts: Lsub streamed through a ring of node runs ----
 
-// The distance-1 block L[j+1,j] in shared memory (the split layout keeps
-// those alone).
-__device__ __forceinline__ const float* lsub_d1(const Smem& sm, int j) {
-  return sm.Lsub + (LAYOUT == SPLIT ? j : j * BW) * BLK2;
-}
-
-// The chain's blocks and right-hand side of step t, into registers.
-template <bool FWD>
-__device__ __forceinline__ void chain_fetch(const Smem& sm, int t, int rr, float (&L)[BLK],
-                                            float (&Dg)[BLK], float& v) {
-  const int k = node_of<FWD>(t);
-  if (t >= 1) load_block<FWD>(L, lsub_d1(sm, FWD ? k - 1 : k), rr);
-  load_ldi<FWD>(Dg, sm, k, rr);
-  v = FWD ? sm.rhs[k * BLK + rr] : sm.ys[k * VPAD + rr];
-}
-
-// y_k = Ldi_k (r_k - L[k,k-1] y_{k-1} - a_{2,k} - ... - a_{BW,k}) for k =
-// 0..N-1 (forward), with a_{d,k} = L[k,k-d] y_{k-d}, and the same with
-// transposed blocks and x_{k+1}, x_{k+d} for k = N-1..0 (backward). Lane r
-// owns row r. The chain warps take the steps in turn: the warp whose turn it
-// is reads the vector of the step before as it was published, passes its own
-// intermediate vector through tb and publishes the step's result; the others
-// fetch the blocks of their next step meanwhile.
-template <bool FWD>
-__device__ __forceinline__ void chain_sweep(Smem& sm, int lane, int turn) {
-  const int rr = min(lane, BLK - 1);
-  float* pub = FWD ? sm.ys : sm.xs;
-  float L[BLK], Dg[BLK], vec[VPAD], v;
-  chain_fetch<FWD>(sm, turn, rr, L, Dg, v);
-  for (int t = 0; t < N; ++t) {
-    if (t % CHAIN_WARPS != turn) {
-      sweep_barrier<FWD>();
-      continue;
-    }
-    const int k = node_of<FWD>(t);
-    float acc = v;
-    if (t >= 1) {
-      // the ready terms are loaded ahead of the vector's fence
-      float ah[NAHEAD_BUF];
-#pragma unroll
-      for (int d = 2; d <= BW; ++d) ah[d - 2] = t >= d ? sm.ahead[d - 2][k * BLK + rr] : 0.f;
-      load_vec(vec, pub + node_of<FWD>(t - 1) * VPAD);
-      // distances 1, 2, ..., BW in turn, the order of the plain solve
-      acc = v - dot_row(L, vec);
-#pragma unroll
-      for (int d = 2; d <= BW; ++d) acc -= ah[d - 2];
-    }
-    if (lane < BLK) sm.tb[lane] = acc;
-    warp_barrier();
-    load_vec(vec, sm.tb);
-    const float out = dot_row(Dg, vec);
-    if (lane < BLK) pub[k * VPAD + lane] = out;
-    sweep_barrier<FWD>();
-    if (t + CHAIN_WARPS < N) chain_fetch<FWD>(sm, t + CHAIN_WARPS, rr, L, Dg, v);
-  }
-}
-
-// ---- the split layout: the helpers' blocks streamed through a ring of node runs ----
-
-// The ring's state, the same in every thread of the helper warps and the
-// copier, which all update it at the same point of each step: the nodes
-// whose runs the ring holds (lo..hi), and per slot the parity of its last
-// copy's barrier phase and where its run starts after its 16-byte boundary.
-// Kept incrementally, since what a helper does in a step lies between two
-// barriers of the sweep.
+// The ring's state, the same in every thread that keeps it (the helper
+// warps and the copier), which all update it at the same point of each
+// step: the nodes whose
+// runs the ring holds (lo..hi), and per slot the parity of its last copy's
+// barrier phase and where its run starts after its 16-byte boundary. Kept
+// incrementally, since what a warp does in a step lies between two barriers
+// of the sweep.
 struct Ring {
   const float* lsub;  // the problem's Lsub in device memory (B, N, BW, BLK, BLK)
   float* slots;       // slot 0
@@ -515,22 +498,23 @@ struct Ring {
   unsigned parity;    // bit s: the phase parity of slot s's last copy
   unsigned phases;    // bits 2s, 2s+1: where slot s's run starts after its boundary
   int steps;          // the sweep steps done in the launch
+  int pairs;          // the stream layout's chain: the pairs of sweeps done in the launch
 };
 
 // The copier: lane 0 of warp SWEEP_WARPS, which takes no part in the sweeps'
 // barriers, issues the ring's copies; a copy instruction holds the warp
 // that issues it for hundreds of cycles, which no sweep warp can spare.
 constexpr int COPIER = SWEEP_WARPS;
-static_assert(LAYOUT != SPLIT || NWARP > COPIER, "a warp for the copier");
+static_assert(!RINGED || NWARP > COPIER, "a warp for the copier");
 
 // Copy node m's run into slot m % RING: the copier issues one bulk copy of
 // the tensor memory accelerator, from the 16-byte boundary at or before the
 // run to the one at or after its end (the up to 3 floats past it belong to
-// the next node's distance-1 block), which completes on the slot's barrier;
+// the next node's first block), which completes on the slot's barrier;
 // every thread that keeps the state updates it.
 __device__ __forceinline__ void ring_copy(Ring& r, int warp, int lane, int m) {
   const int s = m % RING;
-  const float* src = r.lsub + (m * BW + 1) * BLK2;
+  const float* src = r.lsub + (m * BW + RUN0) * BLK2;
   const unsigned phase = (unsigned)(__cvta_generic_to_global(src) >> 2) & 3u;
   if (warp == COPIER && lane == 0) {
     const unsigned bytes = 16 * ((RUN + phase + 3) / 4), bar = r.bar + 8 * s;
@@ -548,25 +532,39 @@ __device__ __forceinline__ void ring_copy(Ring& r, int warp, int lane, int m) {
   r.phases = (r.phases & ~(3u << 2 * s)) | (phase << 2 * s);
 }
 
-// Wait until slot s's last copy has landed.
-__device__ __forceinline__ void ring_wait(const Ring& r, int s) {
+// Wait until the phase of the barrier at shared address bar whose parity is
+// given has completed.
+__device__ __forceinline__ void barrier_wait(unsigned bar, unsigned parity) {
   asm volatile(
       "{\n.reg .pred p;\nWAIT:\n"
       "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}" ::"r"(r.bar + 8 * s),
-      "r"(((r.parity >> s) & 1u) ^ 1u)
+      "@!p bra WAIT;\n}" ::"r"(bar),
+      "r"(parity)
       : "memory");
 }
 
-// Once at the start of a launch, by the helper warps and the copier: the
-// state, the barriers, and the runs of nodes 0..RING-1.
+// Wait until slot s's last copy has landed.
+__device__ __forceinline__ void ring_wait(const Ring& r, int s) {
+  barrier_wait(r.bar + 8 * s, ((r.parity >> s) & 1u) ^ 1u);
+}
+
+// Block b of node m's run (L[m+1+RUN0+b, m]) once it has landed.
+__device__ __forceinline__ const float* ring_block(const Ring& r, int m, int b) {
+  const int s = m % RING;
+  ring_wait(r, s);
+  return r.slots + s * SLOT + ((r.phases >> 2 * s) & 3u) + b * BLK2;
+}
+
+// Once at the start of a launch, by the warps that keep the ring's state
+// (the helpers and the copier): the state, the barriers, and the runs of
+// nodes 0..RING-1 (those a sweep reads).
 __device__ __forceinline__ void ring_start(Smem& sm, Ring& r, int warp, int lane) {
   if ((warp < CHAIN_WARPS || warp >= CHAIN_WARPS + NAHEAD) && warp != COPIER) return;
   r.slots = sm.Lsub + RING_AT;
   r.bar = (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT + RING * SLOT);
   r.progress = r.bar + 8 * RING;
   r.lo = 0;
-  r.hi = RING - 1;
+  r.hi = RING0 - 1;
   r.parity = r.phases = 0;
   r.steps = 0;
   if (warp == COPIER && lane == 0) {
@@ -576,7 +574,7 @@ __device__ __forceinline__ void ring_start(Smem& sm, Ring& r, int warp, int lane
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncwarp();
-  for (int m = 0; m < RING; ++m) ring_copy(r, warp, lane, m);
+  for (int m = 0; m <= r.hi; ++m) ring_copy(r, warp, lane, m);
 }
 
 // Once at the end of a launch, by the copier: each slot's last copy lands
@@ -586,28 +584,28 @@ __device__ __forceinline__ void ring_end(const Ring& r, int warp) {
     for (int s = 0; s < RING; ++s) ring_wait(r, s);
 }
 
-// The helper of distance DIST's block at step t: row or column rr of
-// L[m+DIST,m] of node m = t (forward) or N-1-t-DIST (backward).
-template <bool FWD, int DIST>
-__device__ __forceinline__ void ring_take(float (&M)[BLK], const Ring& r, int t, int rr) {
-  const int m = FWD ? t : N - 1 - t - DIST;
-  const int s = m % RING;
-  ring_wait(r, s);
-  load_block<FWD>(M, r.slots + s * SLOT + ((r.phases >> 2 * s) & 3u) + (DIST - 2) * BLK2, rr);
-}
-
 // After step t: the run first needed LEAD steps on, if the ring does not
-// hold it. Forward, node t + LEAD's, which evicts node t + LEAD - RING's,
-// read at step t + LEAD - RING <= t. Backward, node N-1-t-LEAD-BW's (helper
-// BW reads it first), which evicts node N-1-t-LEAD-BW+RING's, last read (by
-// helper 2) at step t + LEAD + BW - 2 - RING = t. The copier issues the copy
-// once the helper of distance 2 has published that it finished step t,
-// after the sweep's barrier of step t, before which every helper's reads of
-// the evicted run came.
+// hold it. The reads (windows: step t's reads come after the sweep's barrier
+// of step t - 1 and before that of step t): the helper of distance d reads
+// block L[m+d,m] of node m = t (forward) or N-1-t-d (backward) at step t
+// (ring_take); the stream layout's chain reads L[m+1,m] for its step m + 1
+// (forward) or N-1-m (backward) in the step before, as it fetches ahead
+// (chain_fetch): forward at step m, with the helpers, backward at step
+// N-2-m, one after the helper of distance 2. Forward, node t + LEAD's copy
+// evicts node t + LEAD - RING's, read at step t + LEAD - RING <= t.
+// Backward, node N-1-t-LEAD-BW's (helper BW reads it first) evicts node
+// N-1-t-LEAD-BW+RING's, last read (split: by helper 2) at step t + LEAD + BW
+// - 2 - RING = t, or (stream: by the chain) at step t + LEAD + BW - 1 - RING
+// = t. The copier issues the copy once the helper of distance 2 has
+// published that it finished step t, after the sweep's barrier of step t,
+// before which every read of the evicted run came. An iteration copies 2 (N
+// - 2 - BW) runs in either layout (40 at 25 nodes of order 3), as RING - 1 -
+// RUN0 = BW - 1 holds. kernels/structured_admm.py ring_schedule models this
+// schedule step by step and tests/test_torch_geometry.py holds it.
 template <bool FWD>
 __device__ __forceinline__ void ring_step(Ring& r, int warp, int lane, int t) {
   const int m = FWD ? t + LEAD : N - 1 - t - LEAD - BW;
-  const bool copy = FWD ? m <= N - 3 && m > r.hi : m >= 0 && m < r.lo;
+  const bool copy = FWD ? m <= LAST_RUN && m > r.hi : m >= 0 && m < r.lo;
   ++r.steps;
   if (warp == CHAIN_WARPS && lane == 0)
     asm volatile("st.release.cta.shared.u32 [%0], %1;" ::"r"(r.progress), "r"(r.steps)
@@ -634,11 +632,112 @@ __device__ __forceinline__ void ring_step(Ring& r, int warp, int lane, int t) {
   }
 }
 
-// The copier's part of a sweep: the helpers' state, step by step, with the
+// The copier's part of a sweep: the ring's state, step by step, with the
 // copies.
 template <bool FWD>
 __device__ __forceinline__ void copier_sweep(Ring& r, int warp, int lane) {
   for (int t = 0; t < N; ++t) ring_step<FWD>(r, warp, lane, t);
+}
+
+// The helper of distance DIST's block at step t: row or column rr of
+// L[m+DIST,m] of node m = t (forward) or N-1-t-DIST (backward).
+template <bool FWD, int DIST>
+__device__ __forceinline__ void ring_take(float (&M)[BLK], const Ring& r, int t, int rr) {
+  load_block<FWD>(M, ring_block(r, FWD ? t : N - 1 - t - DIST, DIST - 1 - RUN0), rr);
+}
+
+// Step t of a sweep works on node k: forward k = t, backward k = N-1-t.
+template <bool FWD>
+__device__ __forceinline__ int node_of(int t) { return FWD ? t : N - 1 - t; }
+
+// Every pair of sweeps copies the same runs: forward the nodes RING ..
+// LAST_RUN, backward the NCOPY nodes below those the forward leaves in the
+// ring, after ring_start's nodes 0 .. RING0-1. So the copies into slot s up
+// to the one that holds node m (s = m % RING) at a read follow from m, the
+// sweep and the pairs of sweeps done before it: the slot's first copy, one
+// pair's copies into it (forward nodes s + RING, s + 2 RING, ... <=
+// LAST_RUN; backward nodes s, s + RING, ... < NCOPY) per pair done, and this
+// pair's up to node m's. kernels/structured_admm.py ring_copy_count is the
+// same count, held against ring_schedule.
+template <bool FWD>
+__device__ __forceinline__ int ring_copy_count(int m, int pairs) {
+  const int s = m % RING;
+  const int fwd = LAST_RUN >= s ? (LAST_RUN - s) / RING : 0;
+  const int bwd = s < NCOPY ? (NCOPY - 1 - s) / RING + 1 : 0;
+  const int now = FWD || m >= NCOPY ? m / RING : fwd + (NCOPY - 1 - m) / RING + 1;
+  return (s < RING0) + pairs * (fwd + bwd) + now;
+}
+
+// The distance-1 block L[j+1,j]: in shared memory (the split layout keeps
+// those alone), or (stream) the first block of node j's run, once its copy
+// has landed. The stream layout's chain keeps none of the ring's state (a
+// warp on the chain holds its blocks in registers, which the state would
+// spill): the slot, where the run starts after its boundary, and the parity
+// of the barrier phase of its copy (ring_copy_count) follow from j and the
+// pairs of sweeps done.
+template <bool FWD>
+__device__ __forceinline__ const float* lsub_d1(const Smem& sm, const Ring& r, int j) {
+  if constexpr (LAYOUT == STREAM) {
+    const int s = j % RING;
+    const unsigned bar = (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT + RING * SLOT);
+    barrier_wait(bar + 8 * s, (unsigned)(ring_copy_count<FWD>(j, r.pairs) - 1) & 1u);
+    const float* src = r.lsub + j * BW * BLK2;
+    return sm.Lsub + RING_AT + s * SLOT + ((unsigned)(__cvta_generic_to_global(src) >> 2) & 3u);
+  }
+  return sm.Lsub + (LAYOUT == SPLIT ? j : j * BW) * BLK2;
+}
+
+// The chain's blocks and right-hand side of step t, into registers (its
+// block of Lsub last: in the stream layout it may wait for it).
+template <bool FWD>
+__device__ __forceinline__ void chain_fetch(const Smem& sm, const Ring& r, int t, int rr,
+                                            float (&L)[BLK], float (&Dg)[BLK], float& v) {
+  const int k = node_of<FWD>(t);
+  load_ldi<FWD>(Dg, sm, k, rr);
+  v = FWD ? sm.rhs[k * BLK + rr] : sm.ys[k * VPAD + rr];
+  if (t >= 1) load_block<FWD>(L, lsub_d1<FWD>(sm, r, FWD ? k - 1 : k), rr);
+}
+
+// y_k = Ldi_k (r_k - L[k,k-1] y_{k-1} - a_{2,k} - ... - a_{BW,k}) for k =
+// 0..N-1 (forward), with a_{d,k} = L[k,k-d] y_{k-d}, and the same with
+// transposed blocks and x_{k+1}, x_{k+d} for k = N-1..0 (backward). Lane r
+// owns row r. The chain warps take the steps in turn: the warp whose turn it
+// is reads the vector of the step before as it was published, passes its own
+// intermediate vector through tb and publishes the step's result; the others
+// fetch the blocks of their next step meanwhile.
+template <bool FWD>
+__device__ __forceinline__ void chain_sweep(Smem& sm, Ring& r, int lane, int turn) {
+  const int rr = min(lane, BLK - 1);
+  float* pub = FWD ? sm.ys : sm.xs;
+  float L[BLK], Dg[BLK], vec[VPAD], v;
+  chain_fetch<FWD>(sm, r, turn, rr, L, Dg, v);
+  for (int t = 0; t < N; ++t) {
+    if (t % CHAIN_WARPS != turn) {
+      sweep_barrier<FWD>();
+      continue;
+    }
+    const int k = node_of<FWD>(t);
+    float acc = v;
+    if (t >= 1) {
+      // the ready terms are loaded ahead of the vector's fence
+      float ah[NAHEAD_BUF];
+#pragma unroll
+      for (int d = 2; d <= BW; ++d) ah[d - 2] = t >= d ? sm.ahead[d - 2][k * BLK + rr] : 0.f;
+      load_vec(vec, pub + node_of<FWD>(t - 1) * VPAD);
+      // distances 1, 2, ..., BW in turn, the order of the plain solve
+      acc = v - dot_row(L, vec);
+#pragma unroll
+      for (int d = 2; d <= BW; ++d) acc -= ah[d - 2];
+    }
+    if (lane < BLK) sm.tb[lane] = acc;
+    warp_barrier();
+    load_vec(vec, sm.tb);
+    const float out = dot_row(Dg, vec);
+    if (lane < BLK) pub[k * VPAD + lane] = out;
+    sweep_barrier<FWD>();
+    if (t + CHAIN_WARPS < N) chain_fetch<FWD>(sm, r, t + CHAIN_WARPS, rr, L, Dg, v);
+  }
+  if (!FWD) ++r.pairs;
 }
 
 // After the chain publishes node k at step t, the helper of distance DIST
@@ -654,7 +753,7 @@ __device__ __forceinline__ void helper_sweep(Smem& sm, Ring& r, int warp, int la
     const int k = node_of<FWD>(t);
     const bool live = t + DIST < N;
     if (live) {
-      if constexpr (LAYOUT == SPLIT)
+      if constexpr (RINGED)
         ring_take<FWD, DIST>(M, r, t, rr);
       else
         load_block<FWD>(M, sm.Lsub + ((FWD ? k : k - DIST) * BW + DIST - 1) * BLK2, rr);
@@ -665,7 +764,7 @@ __device__ __forceinline__ void helper_sweep(Smem& sm, Ring& r, int warp, int la
       float s = dot_row(M, vec);
       if (lane < BLK) out[node_of<FWD>(t + DIST) * BLK + lane] = s;
     }
-    if constexpr (LAYOUT == SPLIT) ring_step<FWD>(r, warp, lane, t);
+    if constexpr (RINGED) ring_step<FWD>(r, warp, lane, t);
   }
 }
 
@@ -729,9 +828,9 @@ template <bool REFINE, bool CORRECTION>
 __device__ __forceinline__ void solve_sweeps(Smem& sm, Ring& r, int warp, int lane,
                                              float sigma) {
   if (warp < CHAIN_WARPS) {
-    chain_sweep<true>(sm, lane, warp);
-    chain_sweep<false>(sm, lane, warp);
-  } else if (LAYOUT == SPLIT && warp == COPIER) {
+    chain_sweep<true>(sm, r, lane, warp);
+    chain_sweep<false>(sm, r, lane, warp);
+  } else if (RINGED && warp == COPIER) {
     copier_sweep<true>(r, warp, lane);
     copier_sweep<false>(r, warp, lane);
   } else {
@@ -777,7 +876,7 @@ structured_admm_kernel(Params P, Ptrs g) {
   const MRow mr = make_mrow(tid);
 
   Ring ring{g.Lsub + (size_t)b * N * BW * BLK2};
-  if constexpr (LAYOUT == SPLIT) ring_start(sm, ring, warp, lane);
+  if constexpr (RINGED) ring_start(sm, ring, warp, lane);
   if constexpr (PACKED_LDI) {
     const float* src = g.Ldi + (size_t)b * N * BLK2;
     for (int e = tid; e < N * BLK2; e += NT) {
@@ -789,9 +888,9 @@ structured_admm_kernel(Params P, Ptrs g) {
   }
   if constexpr (LAYOUT == SPLIT) {
     // the distance-1 blocks L[j+1,j], j < N - 1
-    for (int e = tid; e < (N - 1) * BLK2; e += NT)
+    for (int e = tid; e < D1_FLOATS; e += NT)
       sm.Lsub[e] = ring.lsub[(e / BLK2) * BW * BLK2 + e % BLK2];
-  } else {
+  } else if constexpr (!RINGED) {
     copy<LSUB_FLOATS>(sm.Lsub, ring.lsub);
   }
   copy<NB>(sm.u, g.u + (size_t)b * NB);
@@ -938,7 +1037,7 @@ structured_admm_kernel(Params P, Ptrs g) {
     }
   }
 
-  if constexpr (LAYOUT == SPLIT) ring_end(ring, warp);
+  if constexpr (RINGED) ring_end(ring, warp);
   if (has_z) {
     const size_t j = zo + ze.z;
     g.x[j] = sm.x[tid];

@@ -13,9 +13,9 @@ un-scaling.
 
 The library is built per transcription (``build.Geometry`` of the OCP:
 nodes, spline order and the robot's joint count): one thread per z element
-and per constraint row (:func:`threads`), node vectors padded to
-:func:`vpad` floats, one helper warp and one look-ahead vector per distance
-2..bw of the band (bw = the spline order), and the first of three
+and per constraint row (:func:`threads`, at most 1024), node vectors padded
+to :func:`vpad` floats, one helper warp and one look-ahead vector per
+distance 2..bw of the band (bw = the spline order), and the first of four
 shared-memory layouts (:func:`choose_layout`, :func:`smem_bytes`) that fits a
 block: full; compact where the full one does not fit (Ldi packed lower
 triangular, Lsub without its unread tail: 232,176 B at 25 nodes of the
@@ -24,10 +24,14 @@ Panda, where full takes 262,000 B; 19 nodes of an 8-joint robot; order 4 at
 distance-1 blocks of Lsub, and a ring of the helper warps' blocks, a node's
 at a time, that a copier warp fills by TMA bulk copies from the Lsub in
 device memory: order 4 at 25 nodes, 9 and 10 joints at 19 nodes, 28 nodes
-of order 3). A geometry that
-fits none (10 joints at 25 nodes of order 3) raises a ValueError that names
-the bytes; nothing solves it another way. The figures below are the 19-node
-Panda transcription's.
+of order 3); stream where the split does not fit (no block of Lsub in
+shared memory: the chain's distance-1 blocks go through the same ring, a
+node's run one block longer: 37 nodes of order 3 or 4, 9 and 10 joints at
+25 nodes, order 5 at 7 segments). :func:`ring_schedule` models the ring's
+copies and reads step by step. A geometry that fits none, or that needs
+more than 1024 threads (40 nodes of order 3, 10 joints at 28 nodes), raises
+a ValueError that names the bytes or the threads; nothing solves it
+another way. The figures below are the 19-node Panda transcription's.
 
 What bounds it on this card: latency. Each iteration is ~157k flops per
 problem, 85% of them in the two banded triangular sweeps, and the factors
@@ -85,18 +89,77 @@ KERNEL = CudaKernel(
     layout_of=lambda g: choose_layout(g),
 )
 
-def ring_runs(g: Geometry) -> int:
-    """Slots of the split layout's ring (RING): a slot holds a node's run of
-    helper blocks, copied 2 steps ahead of its first use, and bw of them
-    are the fewest for which no copy overwrites a run still to be read."""
-    return g.order
+def ring_runs(g: Geometry, layout: str = "split") -> int:
+    """Slots of the ring (RING) of the split or stream layout: a slot holds a
+    node's run, copied 2 steps ahead of its first use; bw runs (split) or bw
+    + 1 (stream, whose chain reads a run one step after the helpers in the
+    backward sweep) are the fewest for which no copy overwrites a run still
+    to be read (:func:`ring_schedule`)."""
+    return g.order + (layout == "stream")
 
 
-def ring_slot(g: Geometry) -> int:
-    """Floats of a ring slot (SLOT): a node's run of bw - 1 helper blocks,
-    copied from the 16-byte boundary at or before its start to the one at
-    or after its end."""
-    return ((g.order - 1) * g.blk ** 2 + 6) // 4 * 4
+def ring_slot(g: Geometry, layout: str = "split") -> int:
+    """Floats of a ring slot (SLOT): a node's run of bw - 1 helper blocks
+    (split) or of all its bw blocks (stream), copied from the 16-byte
+    boundary at or before its start to the one at or after its end."""
+    return ((g.order - (layout != "stream")) * g.blk ** 2 + 6) // 4 * 4
+
+
+LEAD = 2  # steps between a run's copy and the step it is first read in
+
+
+def ring_schedule(g: Geometry, layout: str = "split", iterations: int = 2):
+    """A model of the ring of the split or stream layout (csrc/
+    structured_admm.cu ``ring_start`` and ``ring_step``) through
+    ``iterations`` pairs of sweeps, forward then backward, step by step.
+    Time is counted in steps of the whole run, n = N x sweep + step: the
+    reads of step n come after the sweeps' barrier of step n - 1 and before
+    that of step n, and the copies issued after step n come after its
+    barrier. Returns ``(copies, reads)``: ``copies`` a list of (n, node,
+    slot), n = None for those of ``ring_start``; ``reads`` a list of (n,
+    node, slot, block, who) with ``who`` "chain" (``chain_fetch``, stream
+    only) or the helper's distance (``ring_take``)."""
+    N, bw = g.nodes, g.order
+    run0 = 0 if layout == "stream" else 1
+    ring, last = ring_runs(g, layout), N - 2 - run0
+    lo, hi = 0, min(ring, last + 1) - 1
+    copies = [(None, m, m % ring) for m in range(hi + 1)]
+    reads = []
+    for sweep in range(2 * iterations):
+        fwd, base = sweep % 2 == 0, N * sweep
+        for t in range(N):
+            for d in range(2, bw + 1):  # ring_take: L[m+d,m] at step t
+                if t + d < N:
+                    m = t if fwd else N - 1 - t - d
+                    reads.append((base + t, m, m % ring, d - 1 - run0, d))
+            if layout == "stream" and t + 1 < N:
+                # chain_fetch of step t + 1 (after the barrier of step t - 1):
+                # L[t+1,t] of node t (forward), L[k+1,k] of node k = N-2-t
+                m = t if fwd else N - 2 - t
+                reads.append((base + t, m, m % ring, 0, "chain"))
+            m = t + LEAD if fwd else N - 1 - t - LEAD - bw  # ring_step
+            if (m <= last and m > hi) if fwd else (0 <= m < lo):
+                copies.append((base + t, m, m % ring))
+                if fwd:
+                    hi, lo = m, max(lo, m - ring + 1)
+                else:
+                    lo, hi = m, min(hi, m + ring - 1)
+    return copies, reads
+
+
+def ring_copy_count(g: Geometry, layout: str, m: int, pairs: int, fwd: bool) -> int:
+    """The copies into node m's slot up to the one that holds node m's run
+    when a sweep (forward if ``fwd``) reads it after ``pairs`` pairs of
+    sweeps (csrc/structured_admm.cu ``ring_copy_count``, from which the
+    stream layout's chain takes the parity of the barrier phase it waits
+    for): every pair copies the same runs, forward the nodes ring .. last,
+    backward the ``ncopy`` nodes below those the forward leaves."""
+    ring, last = ring_runs(g, layout), g.nodes - 2 - (layout != "stream")
+    ring0, ncopy, s = min(ring, last + 1), max(last + 1 - ring, 0), m % ring
+    fwd_copies = (last - s) // ring if last >= s else 0
+    bwd_copies = (ncopy - 1 - s) // ring + 1 if s < ncopy else 0
+    now = m // ring if fwd or m >= ncopy else fwd_copies + (ncopy - 1 - m) // ring + 1
+    return (s < ring0) + pairs * (fwd_copies + bwd_copies) + now
 
 
 # dispatch boundaries at which some problem's rho moved (the KKT system is
@@ -129,9 +192,11 @@ def smem_bytes(g: Geometry, layout: str = None) -> int:
     N, blk, nv, neq, nm, pad = g.nodes, g.blk, g.num_var, g.num_eq, g.num_rows, vpad(g)
     nb, blk2, bw, kl = N * blk, blk * blk, g.order, g.order + 1
     ldi = N * (blk2 if layout == "full" else blk * (blk + 1) // 2)  # else packed
-    if layout == "split":  # the distance-1 blocks, 3 floats to a 16-byte boundary, the
-        # ring and its barriers (8 bytes each)
-        lsub = (N - 1) * blk2 + 3 + ring_runs(g) * (ring_slot(g) + 2) + 1  # + progress
+    if layout in ("split", "stream"):  # the resident distance-1 blocks (split), 3
+        # floats to a 16-byte boundary, the ring, its barriers (8 bytes each)
+        # and the copier's progress count
+        d1 = (N - 1) * blk2 if layout == "split" else 0
+        lsub = d1 + 3 + ring_runs(g, layout) * (ring_slot(g, layout) + 2) + 1
     else:  # compact: the blocks up to L[N-1,N-2]
         lsub = (N * bw if layout == "full" else (N - 2) * bw + 1) * blk2
     fields = ([(ldi, 4), (lsub, 4), (nb, 4), (N * g.ng * blk, 4), (neq, 4)]
@@ -149,9 +214,9 @@ def smem_bytes(g: Geometry, layout: str = None) -> int:
 
 def choose_layout(g: Geometry) -> str:
     """The shared-memory layout kernel 3 is built in for ``g``: the first of
-    full, compact and split (``LAYOUTS``) whose block fits, else split,
-    which :func:`check_fits` then refuses."""
-    return next((name for name in LAYOUTS if smem_bytes(g, name) <= SMEM_LIMIT), "split")
+    full, compact, split and stream (``LAYOUTS``) whose block fits, else
+    stream, which :func:`check_fits` then refuses."""
+    return next((name for name in LAYOUTS if smem_bytes(g, name) <= SMEM_LIMIT), "stream")
 
 
 def sweep_warps(g: Geometry) -> int:
@@ -162,31 +227,38 @@ def sweep_warps(g: Geometry) -> int:
 
 def check_fits(g: Geometry) -> None:
     """Raise ValueError unless kernel 3 is written for ``g`` (a band of at
-    least one sub-diagonal block, a row of a block per lane) and its block
-    fits the card in the layout ``g`` names, or else in one of the three:
-    at most 1024 threads, 232,448 B of shared memory, and warps enough for
-    the sweeps."""
+    least one sub-diagonal block, a row of a block per lane, at most 1024
+    threads: one per z element and per row) and its block fits the card in
+    the layout ``g`` names, or else in one of the four: 232,448 B of shared
+    memory, and warps enough for the sweeps (and the copier of the split
+    and stream layouts, whose ring is paced by the helper of distance 2)."""
     if g.order < 1:
         raise ValueError(f"kernel 3 solves with a band of at least one sub-diagonal block; "
                          f"got band width {g.order}")
     if vpad(g) > 32:
         raise ValueError(f"kernel 3 holds a row of a block per lane of a warp, which takes "
                          f"blocks up to 30 x 30 (10 joints); got {g.nq} joints")
+    what = (f"kernel 3 at {g.nodes} nodes, order {g.order} and {g.nq} joints ({g.num_var} "
+            f"variables, {g.num_rows} rows)")
+    if threads(g) > 1024:
+        raise ValueError(f"{what} needs {threads(g)} threads per block, one per z element and "
+                         f"per row; a block may have 1024")
     name = g.layout or choose_layout(g)
-    if smem_bytes(g, name) > SMEM_LIMIT or threads(g) > 1024:
+    if smem_bytes(g, name) > SMEM_LIMIT:
         others = ", ".join(f"{other}: {smem_bytes(g, other)} B" for other in LAYOUTS
                            if other != name)
         raise ValueError(
-            f"kernel 3 at {g.nodes} nodes, order {g.order} and {g.nq} joints ({g.num_var} "
-            f"variables, {g.num_rows} rows) needs {smem_bytes(g, name)} B of shared memory per "
-            f"block in its {name} layout ({others}) and {threads(g)} threads; a block may have "
-            f"{SMEM_LIMIT} B and 1024 threads")
-    copier = name == "split"  # the warp after the sweep warps copies the ring's runs
+            f"{what} needs {smem_bytes(g, name)} B of shared memory per block in its {name} "
+            f"layout ({others}); a block may have {SMEM_LIMIT} B")
+    copier = name in ("split", "stream")  # the warp after the sweep warps copies the runs
+    if copier and g.order < 2:
+        raise ValueError(f"kernel 3's {name} layout takes a band of at least two sub-diagonal "
+                         f"blocks (the helper of distance 2 paces its copier); got {g.order}")
     if threads(g) // 32 < sweep_warps(g) + copier:
         raise ValueError(
             f"kernel 3 at {g.nodes} nodes and order {g.order} has {threads(g) // 32} warps; its "
             f"sweeps take {sweep_warps(g)} (two chain warps, {g.order - 1} helpers and the "
-            f"finishing warp)" + (" and the split layout's copier one more" if copier else ""))
+            f"finishing warp)" + (f" and the {name} layout's copier one more" if copier else ""))
 
 
 def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings: QPSettings,
@@ -222,8 +294,8 @@ def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings:
     inputs = {k: v.contiguous() for d in (data, zdata, mdata, sdata) for k, v in d.items()}
     for k, v in inputs.items():
         check_cuda_tensor(k, v, shapes[k], torch.int32 if k in ("done0", "iters0") else f32)
-    if KERNEL.geometry(g).layout == "split" and inputs["Lsub"].data_ptr() % 16:
-        # the helpers' bulk copies start at the 16-byte boundary at or before
+    if KERNEL.geometry(g).layout in ("split", "stream") and inputs["Lsub"].data_ptr() % 16:
+        # the ring's bulk copies start at the 16-byte boundary at or before
         # a block, which must lie inside the tensor
         inputs["Lsub"] = inputs["Lsub"].clone()
 

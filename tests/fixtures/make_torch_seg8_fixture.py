@@ -1,23 +1,26 @@
-"""Write the JAX reference fixture of the 25-node transcription.
+"""Write the JAX reference fixture of a transcription of order 3 at another
+segment count.
 
-``torch_port_seg8_b64.npz`` beside this script: the first 64 headline
-states (``headline_states_b2048.npz``) and what the JAX planner made of them
-with its OCP swapped for 8 spline segments of order 3 (25 nodes, 526
-variables, 648 constraint rows),
+``torch_port_seg<segments>_b64.npz`` beside this script: the first 64
+headline states (``headline_states_b2048.npz``) and what the JAX planner
+made of them with its OCP swapped for ``--segments`` spline segments of
+order 3 (8 by default: 25 nodes, 526 variables, 648 constraint rows; 12: 37
+nodes, 778 variables, 968 rows),
 
     planner.ocp = make_ocp(planner.model, "panda_tool", order=3, num_segments=8)
 
 in the headline slice configuration (structured QP, fixed rho, no KKT
 refinement, per-step ADMM budgets 700/500), solved on the CPU at float64 as
 ``make_torch_port_fixture.py`` solves the 19-node fixture. ``chip_smoke.py``
-phase 19 holds the port's 25-node kernel path against it on the GPU, which
-has no JAX.
+phases 19 (8 segments) and 23 (12 segments) hold the port's kernel path
+against it on the GPU, which has no JAX.
 
-    JAX_PLATFORMS=cpu python tests/fixtures/make_torch_seg8_fixture.py
+    JAX_PLATFORMS=cpu python tests/fixtures/make_torch_seg8_fixture.py [--segments 12]
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 
@@ -25,12 +28,14 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 STATES = os.path.join(HERE, "headline_states_b2048.npz")
-OUT = os.path.join(HERE, "torch_port_seg8_b64.npz")
 BATCH = 64
-SEGMENTS = 8
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--segments", type=int, default=8, help="spline segments of order 3")
+    segments = ap.parse_args().segments
+    out = os.path.join(HERE, f"torch_port_seg{segments}_b64.npz")
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
     import jax
@@ -52,7 +57,7 @@ def main():
         sqp_settings=SQPSettings(qp_step_schedules="200,500;150,350"),
         dtype=jnp.float64,
     )
-    planner.ocp = make_ocp(planner.model, "panda_tool", order=3, num_segments=SEGMENTS,
+    planner.ocp = make_ocp(planner.model, "panda_tool", order=3, num_segments=segments,
                            dtype=jnp.float64)
     states = np.load(STATES)
     current = states["current"][:BATCH]
@@ -69,7 +74,7 @@ def main():
     z, viol, iters, conv, tf, err = jax.block_until_ready(
         run(jnp.asarray(current, jnp.float64), jnp.asarray(target, jnp.float64)))
     np.savez_compressed(
-        OUT,
+        out,
         current=current,
         target=target,
         z=np.asarray(z, np.float32),
@@ -79,7 +84,7 @@ def main():
         final_time=np.asarray(tf, np.float32),
         terminal_err=np.asarray(err, np.float32),
     )
-    print(f"wrote {OUT}: z {np.asarray(z).shape}, qp_conv {np.asarray(conv).mean():.4f}, "
+    print(f"wrote {out}: z {np.asarray(z).shape}, qp_conv {np.asarray(conv).mean():.4f}, "
           f"median violation {np.median(np.asarray(viol)):.4f}, "
           f"terminal err max {np.asarray(err).max():.5f}")
 

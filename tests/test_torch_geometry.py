@@ -1,11 +1,13 @@
 """PyTorch port, transcriptions other than the 19-node one: the plain
-structured QP at 8 and 4 spline segments against the JAX ``structured``
+structured QP at 8, 4 and 12 spline segments against the JAX ``structured``
 backend (float64); the geometry of a kernel library (its ``-D`` flags, one
 library per geometry and per kernel-3 layout, kernel 3's shared memory
-reckoned member by member in its full, compact and split layouts, the
-layout each geometry takes, a geometry that fits none raising); the
-compiled solve's key after the planner's OCP is swapped; and the 8-segment
-JAX fixture that ``chip_smoke.py`` phase 19 holds the card against."""
+reckoned member by member in its full, compact, split and stream layouts,
+the layout each geometry takes, the ring of the split and stream layouts
+modelled step by step, a geometry past the limits raising); the compiled
+solve's key after the planner's OCP is swapped; and the 8- and 12-segment
+JAX fixtures that ``chip_smoke.py`` phases 19 and 23 hold the card
+against."""
 
 import dataclasses
 import os
@@ -40,7 +42,8 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADLINE_STATES = os.path.join(ROOT, "tests", "fixtures", "headline_states_b2048.npz")
-SEG8_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_seg8_b64.npz")
+SEG_FIXTURES = {s: os.path.join(ROOT, "tests", "fixtures", f"torch_port_seg{s}_b64.npz")
+                for s in (8, 12)}
 MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
 B = 2
 
@@ -62,7 +65,7 @@ def _states(n=B):
             torch.as_tensor(hs["target"][:n].astype(np.float64)))
 
 
-@pytest.mark.parametrize("segments", [8, 4], ids=["25_nodes", "13_nodes"])
+@pytest.mark.parametrize("segments", [8, 4, 12], ids=["25_nodes", "13_nodes", "37_nodes"])
 def test_plain_structured_qp_matches_jax_at_other_transcriptions(segments):
     """The step-0 QPs of the first headline states at ``segments`` spline
     segments of order 3, through the port's plain structured solve and the
@@ -155,78 +158,163 @@ def test_kernel_shared_memory_reckoning():
 
 def test_unfit_geometry_raises_naming_the_bytes():
     """28 nodes (261,152 B even compact) fit kernel 3's block in the split
-    layout, 180,128 B. 12 segments (37 nodes) fit no layout: the fit check
-    and the card's QP solve raise and name the bytes, before any build or
-    launch and whatever the data, so nothing falls back to the plain loop."""
-    g28, g37 = Geometry(segments=9), Geometry(segments=12)
+    layout, 180,128 B; 12 segments (37 nodes, 235,344 B split) in the stream
+    layout, 182,432 B. 13 segments (40 nodes) need 1056 threads, past a
+    block's 1024, though their stream block would fit: the fit check and
+    the card's QP solve raise and name the threads, before any build or
+    launch and whatever the data, so nothing falls back to the plain
+    loop."""
+    g28, g37, g40 = Geometry(segments=9), Geometry(segments=12), Geometry(segments=13)
     assert k3.smem_bytes(g28, "compact") == 261152 > SMEM_LIMIT
     assert k3.choose_layout(g28) == "split" and k3.smem_bytes(g28) == 180128
     k3.check_fits(g28)
-    assert (k3.threads(g37), k3.smem_bytes(g37)) == (992, 235344)
-    with pytest.raises(ValueError, match=r"235344 B of shared memory per block in its split "
-                                         r"layout.*232448 B"):
-        k3.check_fits(g37)
-    planner = _planner(12)
+    assert (k3.threads(g37), k3.smem_bytes(g37, "split")) == (992, 235344)
+    assert k3.choose_layout(g37) == "stream" and k3.smem_bytes(g37) == 182432
+    k3.check_fits(g37)
+    assert (k3.threads(g40), k3.smem_bytes(g40)) == (1056, 195536)
+    with pytest.raises(ValueError, match=r"40 nodes, order 3 and 7 joints .* needs 1056 threads "
+                                         r"per block.*1024"):
+        k3.check_fits(g40)
+    planner = _planner(13)
     cur, tgt = _states(1)
     z0 = planner.warm_start_vector(planner.plan_warm_start(cur, tgt))
     _, _, sa, args = qp_subproblem(planner.ocp, planner.nlp_bounds(cur, tgt), z0)
     P = hessian_regularization_diag(planner.ocp, 1, torch.float64, "cpu", 0.01)
-    with pytest.raises(ValueError, match="235344 B"):
+    with pytest.raises(ValueError, match="1056 threads"):
         k3.solve_box_qp_structured_cuda(planner.ocp, sa, P, *args, config.SHIPPING_QP_SETTINGS)
-    k2.check_fits(g37)  # kernel 2's working set is per node
+    k2.check_fits(g40)  # kernel 2's working set is per node
 
 
 # (segments, order, joints): kernel 3's threads and its bytes in the full,
-# compact and split layouts; the split's bytes are the compact's less the
-# Lsub blocks of distances 2..bw and plus a ring of bw nodes' helper blocks
-SPLIT_GEOMETRIES = {
-    (6, 4, 7): (640, 306976, 273632, 173200),
-    (6, 3, 9): (640, 308464, 267216, 185680),
-    (6, 3, 10): (704, 372400, 321344, 220640),
-    (9, 3, 7): (736, 293488, 261152, 180128),
+# compact, split and stream layouts. The split's bytes are the compact's less
+# the Lsub blocks of distances 2..bw and plus a ring of bw nodes' helper
+# blocks; the stream's keep no Lsub block and a ring of bw + 1 nodes' runs of
+# bw blocks. The first four take the split layout, the rest the stream.
+RING_GEOMETRIES = {
+    (6, 4, 7): (640, 306976, 273632, 173200, 144992),
+    (6, 3, 9): (640, 308464, 267216, 185680, 150704),
+    (6, 3, 10): (704, 372400, 321344, 220640, 177456),
+    (9, 3, 7): (736, 293488, 261152, 180128, 143088),
+    (12, 3, 7): (992, 388032, 348128, 235344, 182432),
+    (9, 4, 7): (928, 454544, 411120, 247200, 197808),
+    (8, 3, 9): (832, 406128, 356448, 239920, 187440),
+    (8, 3, 10): (928, 490288, 428800, 284880, 220112),
 }
 
 
-@pytest.mark.parametrize("segments, order, nq", list(SPLIT_GEOMETRIES),
-                         ids=["order4x6", "9_joints", "10_joints", "28_nodes"])
+@pytest.mark.parametrize("segments, order, nq", list(RING_GEOMETRIES),
+                         ids=["order4x6", "9_joints", "10_joints", "28_nodes", "37_nodes",
+                              "order4x9", "9_joints_25_nodes", "10_joints_25_nodes"])
 def test_split_layout_reckoning(segments, order, nq):
-    """The split layout's block, member by member: Ldi packed as in the
-    compact layout, of Lsub only the N - 1 distance-1 blocks the chain reads
-    and a ring of bw slots, each a node's bw - 1 helper blocks and up to 3
-    floats before them (from a 16-byte boundary), with their barriers and
-    the copier's progress count; where the compact layout does not fit it
-    is the layout the geometry takes, and the fit check passes."""
+    """The split and stream layouts' blocks, member by member: Ldi packed as
+    in the compact layout; of Lsub in the split only the N - 1 distance-1
+    blocks the chain reads and a ring of bw slots, each a node's bw - 1
+    helper blocks and up to 3 floats before them (from a 16-byte boundary),
+    in the stream no block but a ring of bw + 1 slots, each a node's bw
+    blocks; with their barriers and the copier's progress count. Where the
+    compact layout does not fit, the split is the layout the geometry takes,
+    and where the split does not, the stream; the fit check passes."""
     g = Geometry(segments=segments, order=order, nq=nq)
-    threads, full, compact, split = SPLIT_GEOMETRIES[segments, order, nq]
-    assert k3.threads(g) == threads
-    assert tuple(k3.smem_bytes(g, name) for name in LAYOUTS) == (full, compact, split)
-    assert compact > SMEM_LIMIT >= split == k3.smem_bytes(g)
-    assert k3.choose_layout(g) == "split"
+    threads, full, compact, split, stream = RING_GEOMETRIES[segments, order, nq]
+    layout = "split" if split <= SMEM_LIMIT else "stream"
+    assert k3.threads(g) == threads <= 1024
+    assert tuple(k3.smem_bytes(g, name) for name in LAYOUTS) == (full, compact, split, stream)
+    assert compact > SMEM_LIMIT >= k3.smem_bytes(g, layout) == k3.smem_bytes(g)
+    assert k3.choose_layout(g) == layout and stream < split
     blk2, N, bw = g.blk ** 2, g.nodes, g.order
-    # a slot: a node's bw - 1 helper blocks from a 16-byte boundary
+    # a slot: a node's run of blocks from a 16-byte boundary
     assert k3.ring_slot(g) == -(-((bw - 1) * blk2 + 3) // 4) * 4 and k3.ring_runs(g) == bw
-    kept = (N - 1) * blk2 + 3 + bw * (k3.ring_slot(g) + 2) + 1  # slots, barriers, progress
+    assert k3.ring_slot(g, "stream") == -(-(bw * blk2 + 3) // 4) * 4
+    assert k3.ring_runs(g, "stream") == bw + 1
+    lsub = ((N - 2) * bw + 1) * blk2  # the compact layout's blocks
+    kept = {name: d1 + 3 + k3.ring_runs(g, name) * (k3.ring_slot(g, name) + 2) + 1
+            for name, d1 in (("split", (N - 1) * blk2), ("stream", 0))}
     # give or take the padding before the 16-byte aligned members
-    assert abs((compact - split) - 4 * (((N - 2) * bw + 1) * blk2 - kept)) < 16
+    assert abs((compact - split) - 4 * (lsub - kept["split"])) < 16
+    assert abs((compact - stream) - 4 * (lsub - kept["stream"])) < 16
     k3.check_fits(g)
-    k3.check_fits(dataclasses.replace(g, layout="split"))
-    for name in ("full", "compact"):
+    k3.check_fits(dataclasses.replace(g, layout="stream"))
+    for name in LAYOUTS[:LAYOUTS.index(layout)]:
         with pytest.raises(ValueError, match=rf"needs {k3.smem_bytes(g, name)} B of shared "
                                              rf"memory per block in its {name} layout"):
             k3.check_fits(dataclasses.replace(g, layout=name))
+
+
+@pytest.mark.parametrize("layout", ["split", "stream"])
+def test_ring_schedule_serves_every_read(layout):
+    """The ring of the split and stream layouts, modelled step by step as
+    csrc/structured_admm.cu ring_step runs it (``ring_schedule``), at every
+    geometry of orders 2-5 and 6-10 joints up to 1024 threads, through two
+    iterations: every read, by the chain's fetch (stream) or by a helper,
+    finds its node's run in its slot, copied at least LEAD steps before,
+    and the copies into that slot so far are ``ring_copy_count``'s (the
+    closed form from which the stream layout's chain takes the parity it
+    waits for); no copy overwrites a run before it is read (so each slot's
+    barrier phase is waited on before the next copy into it); an iteration
+    copies 2 (N - 2 - bw) runs, as the source's header says; and a ring of
+    one run fewer fails at 37 nodes."""
+    text = " ".join(ln.strip().lstrip("/ ") for ln in
+                    (CSRC / "structured_admm.cu").read_text().splitlines())
+    assert "An iteration copies 2 (N - 2 - BW) runs" in text and "ring_schedule" in text
+
+    def faults(g, ring):
+        copies, reads = k3.ring_schedule(g, layout)
+        events = sorted([(-1 if n is None else n, 1, m, s, None) for n, m, s in copies]
+                        + [(n, 0, m, s, who) for n, m, s, _, who in reads],
+                        key=lambda e: e[:2])  # a step's reads come before its copies
+        slots, copied, bad, N = {}, {}, [], g.nodes
+        for n, is_copy, m, s, who in events:
+            assert s == m % ring
+            held = slots.get(s)
+            if is_copy:
+                if held is not None and held[2] == 0:
+                    bad.append(f"step {n}: node {m}'s copy overwrites node {held[0]}, unread")
+                slots[s] = [m, n, 0]
+                copied[s] = copied.get(s, 0) + 1
+            elif held is None or held[0] != m:
+                bad.append(f"step {n}: {who} reads node {m}, slot {s} holds {held}")
+            elif held[1] >= 0 and n - held[1] < k3.LEAD:
+                bad.append(f"step {n}: {who} reads node {m}, copied at step {held[1]}")
+            elif copied[s] != k3.ring_copy_count(g, layout, m, n // N // 2, n // N % 2 == 0):
+                bad.append(f"step {n}: {who} reads node {m} after {copied[s]} copies into "
+                           f"its slot")
+            else:
+                held[2] += 1
+        per_iteration = sum(1 for n, _, _ in copies if n is not None and 2 * N <= n < 4 * N)
+        if per_iteration != 2 * max(N - 2 - g.order, 0):
+            bad.append(f"{per_iteration} copies an iteration")
+        return bad
+
+    checked = 0
+    for order in (2, 3, 4, 5):
+        for nq in range(6, 11):
+            for segments in range(1, 60):
+                g = Geometry(segments=segments, order=order, nq=nq)
+                if k3.threads(g) > 1024:
+                    break
+                assert faults(g, k3.ring_runs(g, layout)) == [], (g, layout)
+                checked += 1
+    assert checked > 150
+    g37 = Geometry(segments=12)
+    shorter = k3.ring_runs(g37, layout) - 1
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(k3, "ring_runs", lambda g, lay="split": shorter)
+        assert faults(g37, shorter)
 
 
 @pytest.mark.parametrize("segments, order, nq, layout", [
     (6, 3, 7, "full"), (4, 3, 7, "full"), (6, 3, 6, "full"), (9, 2, 7, "full"),
     (4, 4, 7, "full"), (3, 5, 7, "full"), (8, 3, 7, "compact"), (6, 3, 8, "compact"),
     (5, 4, 7, "compact"), (6, 4, 7, "split"), (6, 3, 9, "split"), (6, 3, 10, "split"),
-    (9, 3, 7, "split"), (5, 4, 8, "split"),
+    (9, 3, 7, "split"), (5, 4, 8, "split"), (11, 3, 7, "split"), (12, 3, 7, "stream"),
+    (9, 4, 7, "stream"), (8, 3, 9, "stream"), (8, 3, 10, "stream"), (7, 5, 7, "stream"),
 ])
 def test_layout_of_each_geometry(segments, order, nq, layout):
-    """Each geometry takes the first of full, compact and split whose block
-    fits, so the default geometries keep the layouts they had (full at 19
-    and 13 nodes, compact at 25), and only a geometry that fits neither
-    takes the split."""
+    """Each geometry takes the first of full, compact, split and stream whose
+    block fits, so the geometries that fit before the stream layout keep the
+    layouts they had (full at 19 and 13 nodes, compact at 25, split at order
+    4 x 6 and 34 nodes), and only a geometry that fits none of the first
+    three takes the stream."""
     g = Geometry(segments=segments, order=order, nq=nq)
     assert k3.choose_layout(g) == layout
     fits = [k3.smem_bytes(g, name) <= SMEM_LIMIT for name in LAYOUTS]
@@ -238,9 +326,10 @@ def test_layout_of_each_geometry(segments, order, nq, layout):
 def test_flags_and_library_per_layout(layout):
     """A layout is one -D flag into common.cuh (its index in LAYOUTS) and a
     library of its own, named by it; a geometry that names its layout is
-    built in it whatever the geometry would take (the split at 25 nodes of
-    order 3, where compact also fits, is how the two are held against each
-    other); kernel 2 ignores the layout; an unknown layout raises."""
+    built in it whatever the geometry would take (the split and the stream
+    at 25 nodes of order 3, where compact also fits, is how they are held
+    against each other); kernel 2 ignores the layout; an unknown layout
+    raises."""
     g25 = Geometry(segments=8)
     g = dataclasses.replace(g25, layout=layout)
     assert g.flags() == g25.flags() + (f"-DMPC_SMEM_LAYOUT={LAYOUTS.index(layout)}",)
@@ -249,7 +338,7 @@ def test_flags_and_library_per_layout(layout):
     name = k3.KERNEL.library_path(g).name
     assert name.startswith(f"structured_admm_n25_o3_q7_{layout}_")
     others = {k3.KERNEL.library_path(dataclasses.replace(g25, layout=o)) for o in LAYOUTS}
-    assert len(others) == 3
+    assert len(others) == len(LAYOUTS) == 4
     assert (k3.KERNEL.library_path(g25) == k3.KERNEL.library_path(g)) == (layout == "compact")
     assert k2.KERNEL.geometry(g) == g25 and k2.KERNEL.library_path(g) == k2.KERNEL.library_path(g25)
     assert k3.smem_bytes(g) == k3.smem_bytes(g25, layout)
@@ -257,47 +346,50 @@ def test_flags_and_library_per_layout(layout):
         Geometry(layout="packed")
 
 
-@pytest.fixture(scope="module")
-def seg8_solve():
-    """The port's planner with its OCP swapped for 8 segments, solved on the
-    CPU at float64 on the first two states of the 8-segment JAX fixture, and
-    the capture key before and after the swap."""
-    fx = np.load(SEG8_FIXTURE)
+@pytest.fixture(scope="module", params=[8, 12], ids=["25_nodes", "37_nodes"])
+def seg8_solve(request):
+    """The port's planner with its OCP swapped for 8 (or 12) segments,
+    solved on the CPU at float64 on the first two states of that segment
+    count's JAX fixture, and the capture key before and after the swap."""
+    segments = request.param
+    fx = np.load(SEG_FIXTURES[segments])
     cur = torch.as_tensor(fx["current"][:B].astype(np.float64))
     tgt = torch.as_tensor(fx["target"][:B].astype(np.float64))
     planner = _planner()
     solve = capture_solve(planner, cur, tgt)
     args = {"current_state": cur, "target_state": tgt}
     key19 = solve._key(args, None)
-    planner.ocp = make_ocp(planner.model, planner.tool_frame, order=3, num_segments=8)
-    key25 = solve._key(args, None)
+    planner.ocp = make_ocp(planner.model, planner.tool_frame, order=3, num_segments=segments)
+    key_new = solve._key(args, None)
     kernels.reset_launch_counts()
     sol = solve(cur, tgt)
     counts = kernels.launch_counts()
-    return fx, planner, sol, key19, key25, counts
+    return fx, planner, sol, key19, key_new, counts
 
 
 def test_capture_key_follows_the_ocp(seg8_solve):
     """A planner whose OCP is swapped after a capture is another key, so
     the 19-node graph is never replayed for it; on the CPU the solve is the
     eager one, on the new transcription."""
-    _, planner, sol, key19, key25, counts = seg8_solve
-    assert key19 != key25 and key19[:-1] == key25[:-1]
-    assert key25[-1] == Geometry(segments=8) and key19[-1] == Geometry()
-    assert sol.z.shape == (B, 526) and sol.lam_c.shape == (B, 648)
+    _, planner, sol, key19, key_new, counts = seg8_solve
+    g = Geometry.of_ocp(planner.ocp)
+    assert key19 != key_new and key19[:-1] == key_new[:-1]
+    assert key_new[-1] == g != Geometry() and key19[-1] == Geometry()
+    assert sol.z.shape == (B, g.num_var) and sol.lam_c.shape == (B, g.num_rows)
+    assert (g.num_var, g.num_rows) in ((526, 648), (778, 968))
     assert set(counts.values()) == {0}
 
 
 def test_seg8_fixture_is_the_jax_solve_of_the_headline_states(seg8_solve):
     """The fixture holds the first 64 headline states and the JAX solve of
-    them at 8 segments (``make_torch_seg8_fixture.py``); the port's plain
-    solve of its first states matches its final times and iterates to the
-    fixture's float32 rounding, and lands in the target box."""
+    them at 8 (or 12) segments (``make_torch_seg8_fixture.py``); the port's
+    plain solve of its first states matches its final times and iterates to
+    the fixture's float32 rounding, and lands in the target box."""
     fx, planner, sol, *_ = seg8_solve
     hs = np.load(HEADLINE_STATES)
     for k in ("current", "target"):
         np.testing.assert_array_equal(fx[k], hs[k][:64])
-    assert fx["z"].shape == (64, 526) and fx["qp_converged"].shape == (64, 2)
+    assert fx["z"].shape == (64, planner.ocp.num_var) and fx["qp_converged"].shape == (64, 2)
     np.testing.assert_allclose(sol.final_time.numpy(), fx["final_time"][:B], rtol=1e-6)
     np.testing.assert_allclose(sol.z.numpy(), fx["z"][:B], rtol=1e-6, atol=1e-6)
     assert sol.qp_converged.tolist() == fx["qp_converged"][:B].tolist()

@@ -4,9 +4,10 @@ joints) read by both packages' ``parse_urdf``; kernel 1's constants and its
 per-joint Jacobian split at 6 and 8 joints against the JAX package; the
 port's plain 6-joint solve against the JAX fixture
 ``torch_port_panda6_b64.npz``; the kernels' geometry at 6 to 10 joints (9
-and 10 take kernel 3's split layout; 10 joints at 25 nodes fit no layout
-and raise, naming the bytes); and the ``fused_constraints`` routing of the
-constraint rows on the CPU."""
+and 10 take kernel 3's split layout at 19 nodes and its stream layout at
+25; 10 joints at 28 nodes need more than 1024 threads and raise, naming
+them); and the ``fused_constraints`` routing of the constraint rows on the
+CPU."""
 
 import dataclasses
 import os
@@ -200,9 +201,10 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
     static shared memory), kernel 2 up to 10 (a row of a block per lane);
     kernels 2 and 3 take splines of orders 2, 4 and 5 at 6 joints and order
     4 at 5 segments and 8 joints (kernel 3 in its split layout, 183,232 B);
-    10 joints at 25 nodes fit no kernel-3 layout (284,880 B split) and raise
-    with their bytes before any build; a library kind that is none of the
-    three raises."""
+    9 and 10 joints at 25 nodes (284,880 B split for 10) take kernel 3's
+    stream layout, 187,440 and 220,112 B; 10 joints at 28 nodes need 1056
+    threads and raise naming them before any build; a library kind that is
+    none of the three raises."""
     k1.check_fits(10)
     with pytest.raises(ValueError, match=r"11 joints needs 57216 B of static shared memory"):
         k1.check_fits(11)
@@ -215,10 +217,18 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
     g = Geometry(order=4, segments=5, nq=8)
     assert (k3.choose_layout(g), k3.smem_bytes(g)) == ("split", 183232)
     k3.check_fits(g)
-    g = Geometry(segments=8, nq=10)
-    assert (k3.threads(g), k3.smem_bytes(g)) == (928, 284880)
-    with pytest.raises(ValueError, match=r"25 nodes, order 3 and 10 joints .* needs 284880 B of "
-                                         r"shared memory per block in its split layout"):
+    for nq, (threads, split, stream) in {9: (832, 239920, 187440),
+                                         10: (928, 284880, 220112)}.items():
+        g = Geometry(segments=8, nq=nq)
+        assert (k3.threads(g), k3.smem_bytes(g, "split"), k3.smem_bytes(g)) == (
+            threads, split, stream)
+        assert k3.choose_layout(g) == "stream"
+        k3.check_fits(g)
+        k2.check_fits(g)
+    g = Geometry(segments=9, nq=10)
+    assert k3.threads(g) == 1056
+    with pytest.raises(ValueError, match=r"28 nodes, order 3 and 10 joints .* needs 1056 "
+                                         r"threads per block"):
         k3.check_fits(g)
     k2.check_fits(g)
     with pytest.raises(ValueError, match="per_geometry"):
