@@ -55,8 +55,7 @@ seeded 8-joint chain against their plain versions and timed at B=2048, the
 quality, times in turns) and the 8-joint chain's eager solve, the JAX
 fixture ``torch_port_panda6_b64.npz`` (64/64), the dense ``pallas`` path at
 6 joints, the 9-joint chain planned (kernel 3's split layout), the
-10-joint chain at 25 nodes planned (its stream layout), 10 joints at 28
-nodes refused with a ValueError naming kernel 3's threads, and
+10-joint chain at 25 nodes planned (its stream layout), and
 ``fused_constraints``: a branched model with prismatic fingers raises under
 "auto" and plans under "off", and the 6-joint planner under "off" launches
 no kernel 1. Kernels 2
@@ -68,12 +67,10 @@ drives the captured shipping solve of the headline states at 4 segments of
 order 4 (17 nodes, 358 variables, 416 rows; 5/2/2/0 launches, bitwise its
 eager solve, quality, times in turns), holds it against the JAX fixture
 ``torch_port_order4_b64.npz`` (64/64), runs the dense ``pallas`` path at
-order 4, plans order 4 at 6 and 9 segments (25 and 37 nodes) and checks
-that order 4 at 10 segments (41 nodes), whose kernel-3 block would need
-1056 threads, raises a ValueError naming them before any build. Kernel 3 keeps in shared
-memory only what its chain reads where nothing else fits (the split
-layout: the helper warps' blocks stream from device memory by TMA bulk
-copies), and phase 22 holds it: built in the split layout at 8 segments of
+order 4 and plans order 4 at 6 and 9 segments (25 and 37 nodes). Kernel 3
+keeps in shared memory only what its chain reads where nothing else fits
+(the split layout: the helper warps' blocks stream from device memory by
+TMA bulk copies), and phase 22 holds it: built in the split layout at 8 segments of
 order 3, where the compact one also fits, it gives every output of the
 compact one bitwise at B=2048 (both timed in turns); then the Panda at 6
 segments of order 4 (25 nodes, 526 variables, 620 rows) is planned as a
@@ -94,9 +91,21 @@ versions and timed, the captured shipping solve of the headline states
 (5/2/2/0, bitwise its eager solve, quality, times in turns) and the JAX
 fixture ``torch_port_seg12_b64.npz`` (64/64); order 4 at 9 segments and
 seeded chains of 9 and 10 joints at 25 nodes, kernels 2 and 3 held and
-timed and an eager shipping solve each; every stream library's block
-against the Python reckoning; and 13 segments of order 3 (40 nodes, 1056
-threads) refused naming the threads, before any build.
+timed and an eager shipping solve each; and every stream library's block
+against the Python reckoning. Past 1024 elements a thread of kernel 3 owns
+two z elements and two rows, and phase 24 holds it: built so at 12 segments
+of order 3, where one element a thread fits, it meets ``iteration_agreement``
+and the hard-row bar against its own build at B=2048 (times in turns, with
+ptxas's registers and spills); then the Panda at 15 segments of order 3 (46
+nodes, 967 variables, 1208 rows, 608 threads) is planned as a user sets it,
+with kernels 2 and 3 against their plain versions and timed, the captured
+shipping solve of the headline states (5/2/2/0, bitwise its eager solve,
+quality, times in turns) and the JAX fixture ``torch_port_seg15_b64.npz``;
+13 segments of order 3, order 4 at 10 segments and a seeded 9-joint chain
+at 10 segments (40, 41, 31 nodes), kernels 2 and 3 held and timed and an
+eager shipping solve each; and the geometries that fit no layout (16
+segments of order 3, order 4 at 11, 10 joints at 9 segments) refused
+naming their bytes, before any build.
 Needs one CUDA GPU and ``nvcc``; imports no JAX.
 
     python3 chip_smoke.py
@@ -142,6 +151,8 @@ ORDER4_FIXTURE = os.path.join(FIXTURES, "torch_port_order4_b64.npz")
 ORDER4S6_FIXTURE = os.path.join(FIXTURES, "torch_port_order4s6_b64.npz")
 # the JAX structured solve of the first 64 headline states at 12 segments
 SEG12_FIXTURE = os.path.join(FIXTURES, "torch_port_seg12_b64.npz")
+# and at 15 segments (46 nodes, kernel 3 at two elements a thread)
+SEG15_FIXTURE = os.path.join(FIXTURES, "torch_port_seg15_b64.npz")
 MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
 B_MAIN = 2048  # the headline batch
 B_FACTOR = 256  # kernel-2 comparison batch
@@ -197,19 +208,21 @@ def band_blocks(nodes: int, bw: int) -> int:
     return sum(min(bw, k) for k in range(nodes))
 
 
-def k3_iter_flops(segments: int, nq: int = 7, order: int = 3) -> float:
+def k3_iter_flops(segments: int, nq: int = 7, order: int = 3, kkt_refine: int = 0) -> float:
     """K3_ITER_FLOPS at another transcription (``segments`` spline segments
     of ``order``, nodes N = order x segments + 1, band width = order) and
     joint count (blk = 3 nq): the sweeps 2 x (N x blk (blk + 1) / 2 +
     band_blocks x blk^2) multiply-adds, A and A' 2 x (neq x (order + 3) +
     (nq + 1) N x blk), the arrow 4 x blk N, ~29 flop per element-wise update
-    (157.3 kflop at 19 nodes, 210.6 at 25, for the Panda at order 3)."""
+    (157.3 kflop at 19 nodes, 210.6 at 25, for the Panda at order 3); each
+    of ``kkt_refine`` refinement steps runs the sweeps, A, A' and the arrow
+    once more, with ~3 flop per element (K3_REFINE_FLOPS at 19 nodes)."""
     N, blk = order * segments + 1, 3 * nq
     neq = segments * (order + 1) * 2 * nq
     nv, nm = blk * N + 1, neq + (nq + 1) * N
     macs = (2 * (N * blk * (blk + 1) // 2 + band_blocks(N, order) * blk * blk)
             + 2 * (neq * (order + 3) + (nq + 1) * N * blk) + 4 * blk * N)
-    return 2 * macs + 29 * (nv + nm)
+    return 2 * macs * (1 + kkt_refine) + (29 + 3 * kkt_refine) * (nv + nm)
 
 
 def k1_flops(nq: int, with_jac: bool) -> float:
@@ -938,6 +951,21 @@ def kernel_checks(planner, first_qp, tag, states=None) -> str:
     return summary, max_abs(x_k, x_p)
 
 
+def plain_float64(pl, sa, qp, fac, settings):
+    """The plain ADMM loop at float64 on the scaled QPs ``qp`` of ``pl``'s
+    transcription and their float32 factors ``fac``, unscaled."""
+    from mpc_motion_planner_tpu_torch.ocp import make_ocp
+    from mpc_motion_planner_tpu_torch.ops import qp_structured
+
+    coll = pl.ocp.coll
+    ocp64 = make_ocp(pl.model.to(dtype=torch.float64), pl.tool_frame, order=coll.order,
+                     num_segments=coll.num_segments)
+    qp64 = qp_structured.ScaledQP(*(getattr(qp, f.name).double() for f in dataclasses.fields(qp)))
+    fac64 = {k: v.double() for k, v in fac.items() if k != "ok"}
+    return qp_structured.unscale_solution(qp64, *qp_structured.admm_plain(
+        ocp64, sa.to(dtype=torch.float64), qp64, fac64, settings))
+
+
 def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, states=None):
     """Kernels 2 and 3 built for ``pl``'s geometry, timed at B=2048 on its
     step-0 QPs (of ``states``, default the headline's) against their plain
@@ -951,7 +979,6 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
-    from mpc_motion_planner_tpu_torch.ocp import make_ocp
     from mpc_motion_planner_tpu_torch.ops import qp_structured
     from mpc_motion_planner_tpu_torch.ops.structure import apply_A
 
@@ -1009,16 +1036,8 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
     k3_iters = int(out["kernel"][6].sum())
     out.clear()
 
-    def plain64():
-        ocp64 = make_ocp(pl.model.to(dtype=torch.float64), pl.tool_frame, order=g.order,
-                         num_segments=g.segments)
-        qp64 = qp_structured.ScaledQP(
-            *(getattr(qp, f.name).double() for f in dataclasses.fields(qp)))
-        fac64 = {k: v.double() for k, v in fac.items() if k != "ok"}
-        return qp_structured.unscale_solution(qp64, *qp_structured.admm_plain(
-            ocp64, sa.to(dtype=torch.float64), qp64, fac64, shipping))
-
-    agreement = iteration_agreement(got, ref, B_MAIN, f"{tag}: kernel 3 B={B_MAIN}", plain64)
+    agreement = iteration_agreement(got, ref, B_MAIN, f"{tag}: kernel 3 B={B_MAIN}",
+                                    lambda: plain_float64(pl, sa, qp, fac, shipping))
     _, lc, uc, lx, ux = args[1:]
     ratios = [hard_row_ratio(s_.x, apply_A(ocp, sa, s_.x), lc, uc, lx, ux, sc, sx, shipping,
                              s_.converged) for s_ in (got, ref)]
@@ -1026,7 +1045,7 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
           f"{ratios[0][1]:.3f}x the tolerance")
     e3 = results[f"structured_admm_{suffix}"]
     e3.update(ms=k_ms, plain_ms=p_ms, max_abs_err=window_err)
-    flops = k3_iter_flops(g.segments, g.nq, g.order)
+    flops = k3_iter_flops(g.segments, g.nq, g.order, shipping.kkt_refine)
     text = report_bound(e3, k3_iters * flops, k3_bytes,
                         f"{k3_iters} problem-iterations of {flops / 1e3:.1f} kflop as the kernel "
                         f"counted them")
@@ -1377,16 +1396,15 @@ def eager_shipping(pl, cur, tgt, tag, suffix, phase, results) -> None:
 
 
 def refusal(pl, cur, tgt, tag, phase) -> None:
-    """``pl``'s geometry is past kernel 3's limits (more than 1024 threads,
-    or a block that fits no layout): its fit check and the planner's solve
-    on the card raise a ValueError naming the threads or the bytes, and its
+    """``pl``'s geometry is past kernel 3's limits (a block that fits no
+    layout, at the elements a thread it takes): its fit check and the
+    planner's solve on the card raise a ValueError naming the bytes, and its
     library is never built."""
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
 
     g = Geometry.of_ocp(pl.ocp)
-    names = (f"{k3.threads(g)} threads" if k3.threads(g) > 1024
-             else f"{k3.smem_bytes(g)} B")
+    names = f"{k3.smem_bytes(g)} B"
     try:
         k3.check_fits(g)
         refused = None
@@ -1416,12 +1434,13 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     bitwise its eager solve, quality, replay and eager times in turns), and
     the 8-joint chain's eager solve. (c) The JAX fixture of the 6-joint
     model. (d) The dense ``pallas`` path at 6 joints (kernels 1 and 4). (e)
-    Plans and refusals and ``fused_constraints``: the 9-joint chain (kernel
-    3's split layout) plans under "off"; 10 joints at 25 nodes fit no layout
-    and raise a ValueError naming their bytes; a branched model with
-    prismatic fingers raises under "auto" and plans under "off"; the 6-joint
-    planner under "off" launches no kernel 1. The libraries of 9 and 10
-    joints are built here with the others, for phase 22."""
+    Plans and ``fused_constraints``: the 9-joint chain (kernel 3's split
+    layout) and the 10-joint chain at 25 nodes (its stream layout) plan
+    under "off"; a branched model with prismatic fingers raises under
+    "auto" and plans under "off"; the 6-joint planner under "off" launches
+    no kernel 1. The libraries of 9 and 10 joints are built here with the
+    others, for phase 22; 10 joints at 28 nodes, which fit no layout, are
+    refused in phase 24."""
     from mpc_motion_planner_tpu_torch import kernels
     from mpc_motion_planner_tpu_torch.kernels import constraints as k1
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
@@ -1527,8 +1546,6 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
         f"{k3.choose_layout(Geometry.of_ocp(pl10.ocp))} layout) plans B=4: launches {counts10}, "
         f"qp_conv_rate {float(sol10.qp_converged.double().mean()):.4f}")
     del pl10, sol10
-    pl10, cur10, tgt10 = chain_planner(planner, 10, fused="off", segments=9)
-    refusal(pl10, cur10[:4], tgt10[:4], "10 joints, 28 nodes", "phase 20")
     n_h = B_ADMM
     hand = parse_urdf(fx.panda_urdf(True, hand=True), dtype=f32, device=dev)
     fingers = {"min_position": [0.0, 0.0], "max_position": [0.04, 0.04],
@@ -1587,10 +1604,10 @@ def order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     its captured shipping solve of the headline states. (d) The JAX fixture
     at order 4 (64/64). (e) The dense ``pallas`` path at order 4 (kernels 1
     and 4 at n = 358). (f) Order 4 at 6 segments (25 nodes), which kernel 3
-    takes in its split layout, plans (eagerly, B=4; its libraries are built
-    here with the others, for phase 22); order 4 at 9 segments (37 nodes),
-    whose kernel-3 block fits no layout, raises a ValueError naming its
-    bytes."""
+    takes in its split layout, and order 4 at 9 segments (37 nodes), its
+    stream layout, plan (eagerly, B=4; their libraries are built here with
+    the others, for phases 22 and 23); order 4 at 11 segments, which fits
+    no layout, is refused in phase 24."""
     from mpc_motion_planner_tpu_torch import kernels
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
@@ -1678,7 +1695,7 @@ def order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
         f"{B_MAIN / wall[1] * 1e3:.1f} solves/s; quality {json.dumps(qd)}")
     del sol, dense4
 
-    # ---- (f) order 4 at 6 and 9 segments plan; order 4 at 10 is past the limit ----
+    # ---- (f) order 4 at 6 and 9 segments plan ----
     for segments in (6, 9):
         pl = with_order(4, segments)
         kernels.reset_launch_counts()
@@ -1691,20 +1708,21 @@ def order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
         log(f"phase 21 order 4 x {segments} segments ({pl.ocp.num_nodes} nodes, kernel 3 in its "
             f"{k3.choose_layout(Geometry.of_ocp(pl.ocp))} layout) plans B=4: launches {counts}")
         del pl, sol
-    refusal(with_order(4, 10), cur_all[:4], tgt_all[:4], "order 4 x 10 segments (41 nodes)",
-            "phase 21")
 
 
 def transcription_planner(planner, order, segments):
-    """A planner of the Panda on ``planner``'s device, margins and settings,
-    its OCP set to ``segments`` spline segments of ``order`` as a user sets
-    it."""
+    """A planner of the Panda on the shipping ``planner``'s device, margins
+    and budgets, its OCP set to ``segments`` spline segments of ``order`` as
+    a user sets it, with the shipping QP settings of its node count
+    (``config.shipping_qp_settings``)."""
+    from mpc_motion_planner_tpu_torch import config
     from mpc_motion_planner_tpu_torch.ocp import make_ocp
     from mpc_motion_planner_tpu_torch.planner import MotionPlanner
 
     pl = MotionPlanner(margins=planner.margins, dtype=planner.dtype, device=planner.device,
                        qp_settings=planner.qp_settings, sqp_settings=planner.sqp_settings)
     pl.ocp = make_ocp(pl.model, pl.tool_frame, order=order, num_segments=segments)
+    pl.qp_settings = config.shipping_qp_settings(pl.ocp.num_nodes)
     return pl
 
 
@@ -1839,8 +1857,9 @@ def stream_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     """Phase 23: kernel 3's stream layout, which keeps no block of Lsub in
     shared memory: the chain's distance-1 blocks go through the copier's
     ring with the helpers' ones, and every geometry up to 1024 threads
-    fits. (a) Built in the stream layout at 8 segments of order 3 (where the
-    compact layout fits) and at 6 of order 4 (where the split does), it
+    fits (and past them at two elements a thread, phase 24). (a) Built in
+    the stream layout at 8 segments of order 3 (where the compact layout
+    fits) and at 6 of order 4 (where the split does), it
     gives all nine outputs of those layouts bitwise at B=2048 (times in
     turns). (b) The main path: the Panda at 12 segments of order 3 (37
     nodes, 778 variables, 968 rows, 992 threads), set as a user sets it
@@ -1855,8 +1874,7 @@ def stream_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     25, 25 nodes): kernels 2 and 3 against their plain versions, timed, an
     eager shipping solve each (5/2/2/0). (d) Every stream library's block
     against the Python reckoning (its registers and spills in the build's
-    lines), and 13 segments of order 3 (40 nodes, 1056 threads) refused
-    naming the threads, before any build."""
+    lines)."""
     from mpc_motion_planner_tpu_torch import kernels
     from mpc_motion_planner_tpu_torch.kernels import admm_dense as k4
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
@@ -1940,13 +1958,185 @@ def stream_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
                        f"{nq}_joints_25_nodes", "phase 23", results)
         del pl, cur, tgt
 
-    # ---- (d) the forced stream blocks, and the limit ----
+    # ---- (d) the forced stream blocks ----
     for g in (g38s, g46s):
         log(f"phase 23 libraries at {g.nodes} nodes, order {g.order} in the stream layout: "
             f"{block_summary(g, kernel2=False)}")
-    pl13 = transcription_planner(planner, 3, 13)
-    refusal(pl13, cur_all[:4], tgt_all[:4], "13 segments of order 3 (40 nodes)", "phase 23")
-    del pl13
+    torch.cuda.empty_cache()
+
+
+def ptxas_report(kernel, g) -> str:
+    """Registers and spill stores of each function of ``kernel``'s library
+    for ``g``, from nvcc's ``-Xptxas -v`` report of its build in this run."""
+    import re
+
+    text = kernel.build_log.get(kernel.geometry(g), "")
+    regs = re.findall(r"Used (\d+) registers", text)
+    spills = re.findall(r"(\d+) bytes spill stores", text)
+    return ", ".join(f"{r} registers, {b} B of spill stores" for r, b in zip(regs, spills))
+
+
+def hold_ept(pl, first_qp, entry, phase, smi) -> None:
+    """Kernel 3 at ``pl``'s geometry built at two z elements and rows a
+    thread (named in the geometry; planners never do) against its own build
+    at one, on the step-0 QPs of the headline states at B=2048: at the full
+    budget held by ``iteration_agreement`` (the sum of the p row's defect
+    part takes another order, so there is no bitwise parent) and the
+    hard-row bar, at exactly one check window by its largest difference;
+    times in turns (1, 2, 2, 1), with the registers and spill stores of
+    both builds; into ``entry`` as ``ept<n>_<label>_ms``."""
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+    from mpc_motion_planner_tpu_torch.ops import qp_structured
+    from mpc_motion_planner_tpu_torch.ops.structure import apply_A
+
+    shipping, ocp = pl.qp_settings, pl.ocp
+    g = Geometry.of_ocp(ocp)
+    tag = f"{ocp.num_nodes} nodes of order {ocp.coll.order}"
+    _, sa, args, sc, sx = first_qp(B_MAIN, pl=pl)
+    qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
+    fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, ocp.coll.order)
+    s_win = dataclasses.replace(shipping, max_iter=shipping.check_every)
+    waves = -(-B_MAIN // torch.cuda.get_device_properties(0).multi_processor_count)
+    builds = {e: dataclasses.replace(g, ept=e) for e in (1, 2)}
+    for e, ge in builds.items():
+        log(f"{phase} kernel 3 at {tag}, {e} element(s) a thread: "
+            f"{block_summary(ge, kernel2=False)}; {ptxas_report(k3.KERNEL, ge)}")
+    for label, settings in (("budget", shipping), ("window", s_win)):
+        out, times = {}, {1: [], 2: []}
+        for e in (1, 2, 2, 1):
+            def call(e=e):
+                out[e] = k3.admm_kernel(ocp, sa, qp, fac, settings, ept=e)
+            times[e].append(time_kernel(call, reps=3))
+        ms = {e: float(np.mean(v)) for e, v in times.items()}
+        us = {e: 1e3 * v / settings.max_iter / waves for e, v in ms.items()}
+        if label == "budget":
+            got, ref = (qp_structured.unscale_solution(qp, *out[e]) for e in (2, 1))
+            held = iteration_agreement(
+                got, ref, B_MAIN, f"{tag}: two elements a thread against one",
+                lambda: plain_float64(pl, sa, qp, fac, shipping))
+            _, lc, uc, lx, ux = args[1:]
+            ratio = hard_row_ratio(got.x, apply_A(ocp, sa, got.x), lc, uc, lx, ux, sc, sx,
+                                   shipping, got.converged)[1]
+            check(ratio <= 1.01, f"{tag}, two elements a thread: hard rows at {ratio:.3f}x the "
+                  f"tolerance")
+            held += f"; hard-row violation {ratio:.3f}x the primal tolerance (bar 1.01)"
+        else:
+            held = f"max |x_2 - x_1| {max_abs(out[2][0], out[1][0]):.3e}"
+        same = [n for n, a, b in zip(("x", "zc", "zx", "yc", "yx", "done", "iters", "rp", "rd"),
+                                     out[1], out[2]) if torch.equal(a, b)]
+        entry.update({f"ept{e}_{label}_ms": ms[e] for e in ms})
+        log(f"{phase} two elements a thread against one at {tag}, B={B_MAIN}, "
+            f"{settings.max_iter} iterations ({int(out[2][6].sum())} and {int(out[1][6].sum())} "
+            f"problem-iterations): {held}; bitwise equal: {same}; one {ms[1]:.3f} ms, two "
+            f"{ms[2]:.3f} ms ({100 * (ms[2] / ms[1] - 1):+.2f}%; {us[1]:.2f} against "
+            f"{us[2]:.2f} us per iteration per block; runs {times}) on {smi}")
+    del sa, args, sc, sx, qp, fac, out
+
+
+def ept_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
+    """Phase 24: kernel 3 past 1024 threads, a thread owning two z elements
+    and two constraint rows (``kernels/structured_admm.py`` ``ept_of``). (a)
+    At 12 segments of order 3, where one element a thread fits, kernel 3
+    built at two (512 threads) against its own build (992): held by
+    ``iteration_agreement`` and the hard-row bar at B=2048, timed in turns
+    at the full budget and at one check window, with ptxas's registers and
+    spill stores; the planners keep one. (b) The main path: the Panda at 15
+    segments of order 3 (46 nodes, 967 variables, 1208 rows, 608 threads,
+    the stream layout), set as a user sets it (``planner.ocp =
+    make_ocp(planner.model, planner.tool_frame, order=3,
+    num_segments=15)``, its QP settings ``config.shipping_qp_settings(46)``:
+    one refinement step on every KKT solve): kernels 2 and 3 against their
+    plain versions (phase 3's and 4's bars), timed at B=2048 with their
+    bounds and kernel 2's library call, the captured shipping solve of the
+    headline states (5/2/2/0, bitwise its eager solve, quality, times in
+    turns) and the JAX fixture ``torch_port_seg15_b64.npz`` by phase 23's
+    rule. (c) 13
+    segments of order 3 (40 nodes), order 4 x 10 (41) and a seeded 9-joint
+    chain at 10 segments (31): kernels 2 and 3 held and timed, an eager
+    shipping solve each (5/2/2/0). (d) The geometries that fit no layout
+    even at two elements a thread, 16 segments of order 3 (49 nodes),
+    order 4 x 11 (45) and 10 joints at 9 segments (28): refused naming
+    their bytes, before any build."""
+    from mpc_motion_planner_tpu_torch import kernels
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    dev = cur_all.device
+    g12, g15, g13, g4a = Geometry(12, 3), Geometry(15, 3), Geometry(13, 3), Geometry(10, 4)
+    g9 = Geometry(10, 3, 9)
+    # ---- build: kernel 3 at 12 x 3 at two elements a thread, and kernels 2
+    # and 3 at the geometries that take two, one nvcc each, together ----
+    build_libraries([("structured_admm", k3.KERNEL, dataclasses.replace(g12, ept=2))]
+                    + [(name, kernels.KERNELS[name], g) for g in (g15, g13, g4a, g9)
+                       for name in ("banded_factor", "structured_admm")], "phase 24")
+
+    # ---- (a) two elements a thread against one at 12 x 3 ----
+    pl12 = transcription_planner(planner, 3, 12)
+    hold_ept(pl12, first_qp, results["structured_admm_seg12"], "phase 24", smi)
+    del pl12
+
+    # ---- (b) the main path: 15 segments of order 3 ----
+    pl15 = transcription_planner(planner, 3, 15)
+    ocp = pl15.ocp
+    check((ocp.num_nodes, ocp.num_var, ocp.num_eq + ocp.num_ineq) == (46, 967, 1208)
+          and Geometry.of_ocp(ocp) == g15 and k3.KERNEL.geometry(g15).layout == "stream"
+          and k3.KERNEL.geometry(g15).ept == 2 and k3.threads(g15) == 608
+          and pl15.qp_settings.kkt_refine == 1,
+          f"15 segments: {ocp.num_nodes} nodes, {ocp.num_var} variables, "
+          f"{k3.KERNEL.geometry(g15)}, kkt_refine {pl15.qp_settings.kkt_refine}")
+    log(f"phase 24 libraries at 15 segments of order 3 (46 nodes, 967 variables, 1208 rows, "
+        f"two elements a thread, kkt_refine 1): {block_summary(g15)}; "
+        f"{ptxas_report(k3.KERNEL, g15)}")
+    summary, window_err = kernel_checks(pl15, first_qp, "15 segments")
+    log(f"phase 24 at 15 segments of order 3 (46 nodes, stream layout, two elements a thread), "
+        f"{summary}")
+    time_structured_kernels(pl15, first_qp, results, "seg15", "phase 24", window_err)
+    captured_shipping(pl15, cur_all, tgt_all, "15 segments", "seg15", "phase 24",
+                      "headline states, 15 segments of order 3, 46 nodes", results,
+                      ("banded_factor", "structured_admm"), smi)
+    # phase 23's rule
+    n_good, n_tf, n_fx, summary = fixture_agreement(pl15, SEG15_FIXTURE, dev)
+    check(n_good >= n_fx - 4 and n_tf == n_fx,
+          f"15 segments: {n_good}/{n_fx} fixture problems agree, {n_tf} final times within 1e-3")
+    log(f"phase 24 JAX fixture at 15 segments: {summary}; final times within 1e-3 relative "
+        f"{n_tf}/{n_fx} (bar {n_fx}), all three {n_good}/{n_fx} (bar {n_fx - 4})")
+    del pl15, ocp
+
+    # ---- (c) 13 x 3, order 4 x 10 and the 9-joint chain at 31 nodes ----
+    for (order, segments), g, suffix in (((3, 13), g13, "seg13"), ((4, 10), g4a, "order4x10")):
+        pl = transcription_planner(planner, order, segments)
+        check(Geometry.of_ocp(pl.ocp) == g and k3.KERNEL.geometry(g).ept == 2,
+              f"order {order} x {segments} takes two elements a thread")
+        tag = f"order {order} x {segments} segments ({g.nodes} nodes)"
+        log(f"phase 24 libraries at {tag}: {block_summary(g)}; {ptxas_report(k3.KERNEL, g)}")
+        summary, window_err = kernel_checks(pl, first_qp, tag)
+        log(f"phase 24 at {tag}, {summary}")
+        time_structured_kernels(pl, first_qp, results, suffix, "phase 24", window_err)
+        eager_shipping(pl, cur_all, tgt_all, f"{tag} (headline states)", suffix, "phase 24",
+                       results)
+        del pl
+    pl, cur, tgt = chain_planner(planner, 9, segments=10)
+    check(Geometry.of_ocp(pl.ocp) == g9 and k3.KERNEL.geometry(g9).ept == 2,
+          "9 joints at 31 nodes take two elements a thread")
+    log(f"phase 24 libraries at 9 joints, 31 nodes ({g9.num_var} variables, {g9.num_rows} rows): "
+        f"{block_summary(g9)}; {ptxas_report(k3.KERNEL, g9)}")
+    summary, window_err = kernel_checks(pl, first_qp, "9 joints, 31 nodes", (cur, tgt))
+    log(f"phase 24 at 9 joints, 31 nodes, {summary}")
+    time_structured_kernels(pl, first_qp, results, "9_joints_31_nodes", "phase 24", window_err,
+                            (cur, tgt))
+    eager_shipping(pl, cur, tgt, "the 9-joint chain at 31 nodes (seeded states)",
+                   "9_joints_31_nodes", "phase 24", results)
+    del pl, cur, tgt
+
+    # ---- (d) past every layout: refused naming the bytes ----
+    for order, segments in ((3, 16), (4, 11)):
+        refusal(transcription_planner(planner, order, segments), cur_all[:4], tgt_all[:4],
+                f"order {order} x {segments} segments ({order * segments + 1} nodes)", "phase 24")
+    pl10, cur10, tgt10 = chain_planner(planner, 10, fused="off", segments=9)
+    refusal(pl10, cur10[:4], tgt10[:4], "10 joints, 28 nodes", "phase 24")
+    del pl10, cur10, tgt10
     torch.cuda.empty_cache()
 
 
@@ -2753,6 +2943,7 @@ def run(dev: torch.device) -> None:
     order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi)
     split_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     stream_phases(planner, cur_all, tgt_all, first_qp, results, smi)
+    ept_phases(planner, cur_all, tgt_all, first_qp, results, smi)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

@@ -30,7 +30,9 @@ Times are CUDA events around ``--reps`` calls, the variants in turns (first
 to last, then last to first). ``--segments`` and ``--order`` set the
 transcription (spline segments of an order, 6 of order 3 by default: 19
 nodes; 8 segments give 25 nodes, 4 of order 4 give 17), as a user sets it:
-``planner.ocp = make_ocp(model, tool_frame, order=4, num_segments=4)``;
+``planner.ocp = make_ocp(model, tool_frame, order=4, num_segments=4)``,
+with the shipping QP settings of its node count
+(``config.shipping_qp_settings``: one KKT refinement step from 43 nodes);
 kernels 2 and 3 and their variants are built for it (a variant from before
 the kernels took other band widths builds for order 3 only). ``--urdf`` takes
 another robot, a Panda with its last joints locked (for example
@@ -45,11 +47,15 @@ split (or stream) layout against the compact one where both fit (their
 outputs must be bitwise equal) and times what it costs; ``--order 4
 --segments 6`` is a geometry that takes the split layout (``--layout
 stream`` there holds the stream against the split), ``--segments 12`` one
-that takes the stream layout (37 nodes, 992 threads).
+that takes the stream layout (37 nodes, 992 threads). ``--ept`` (kernel 3)
+adds the package's source built with that many z elements and rows per
+thread as the variant ``ept_<n>``: ``--segments 12 --ept 2`` holds two
+elements a thread (512 threads) against one (992) where both fit; at
+``--segments 15`` (46 nodes, 608 threads) the geometry's own count is 2.
 
     python -m mpc_motion_planner_tpu_torch.bench.kernel_ab --kernel 4 \\
         [--batch 2048] [--reps 3] [--segments 6] [--order 3] [--urdf path.urdf] \\
-        [--layout stream] [name=path.cu ...]
+        [--layout stream] [--ept 2] [name=path.cu ...]
 
 A variant's headers are looked up beside its source. To compare with an
 earlier commit:
@@ -206,7 +212,7 @@ def variant_kernel(number, name, path):
     # sources from before the init entry point set the attributes in every launch
     init = k.init if k.init is not None and k.init in text else None
     return build.CudaKernel(label, path, k.entry, k.argtypes, init=init,
-                            per_geometry=k.per_geometry, layout_of=k.layout_of)
+                            per_geometry=k.per_geometry, resolve=k.resolve)
 
 
 def time_in_turns(kernels, call, reps, behind=None):
@@ -280,7 +286,7 @@ def ab_factor(kernels, planner, cur, tgt, reps):
     """Kernel 2 on the step-0 KKT matrices."""
     (P, h, sa, lc, uc, lx, ux), soft = step0(planner, cur, tgt, False)
     qp = qp_structured.scale_qp(planner.ocp, sa, P, h, lc, uc, lx, ux,
-                                config.SHIPPING_QP_SETTINGS, **soft)
+                                planner.qp_settings, **soft)
     data = (qp.Mband, qp.p_col, qp.m_pp)
     plain = qp_structured.factor_banded(*data, planner.ocp.coll.order)
     times, out = time_in_turns(
@@ -341,10 +347,13 @@ def main(argv=None) -> int:
     ap.add_argument("--urdf", help="a Panda with its last joints locked (default: the Panda)")
     ap.add_argument("--layout", choices=build.LAYOUTS,
                     help="kernel 3: add the package's source built in this shared-memory layout")
+    ap.add_argument("--ept", type=int,
+                    help="kernel 3: add the package's source built with this many z elements "
+                         "and rows per thread")
     ap.add_argument("variants", nargs="*", help="name=path.cu")
     a = ap.parse_args(argv)
-    if a.layout and a.kernel != 3:
-        ap.error("--layout is kernel 3's")
+    if (a.layout or a.ept) and a.kernel != 3:
+        ap.error("--layout and --ept are kernel 3's")
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA GPU", file=sys.stderr)
         return 1
@@ -360,11 +369,15 @@ def main(argv=None) -> int:
     for spec in a.variants:
         name, _, path = spec.partition("=")
         kernels[name] = variant_kernel(a.kernel, name, os.path.abspath(path))
-    if a.layout:  # the package's kernel 3, built in that layout at every geometry
+    # the package's kernel 3, built in that layout or at that ept at every geometry
+    for label, named in ((f"layout_{a.layout}", {"layout": a.layout}),
+                         (f"ept_{a.ept}", {"ept": a.ept})):
+        if not all(named.values()):
+            continue
         k = k3.KERNEL
-        kernels[f"layout_{a.layout}"] = build.CudaKernel(
+        kernels[label] = build.CudaKernel(
             k.name, k.source, k.entry, k.argtypes, init=k.init, per_geometry=k.per_geometry,
-            layout_of=lambda g: a.layout)
+            resolve=lambda g, named=named: k3.built_geometry(dataclasses.replace(g, **named)))
     model, limits, cols = (locked_panda(a.urdf, torch.float32, dev) if a.urdf
                            else (None, None, list(range(14))))
     geometry = build.Geometry(segments=a.segments, order=a.order, nq=len(cols) // 2)
@@ -373,7 +386,8 @@ def main(argv=None) -> int:
         built = k.geometry(geometry)
         info = [ln.strip() for ln in k.build_log.get(built, "").splitlines()
                 if "registers" in ln or "spill" in ln]
-        layout = f" ({built.layout} layout)" if built is not None and built.layout else ""
+        layout = (f" ({built.layout} layout, {built.ept} per thread)"
+                  if built is not None and built.layout else "")
         print(f"built {name}{layout}: " + " | ".join(info), flush=True)
 
     shipping = config.SHIPPING_QP_SETTINGS
@@ -385,6 +399,7 @@ def main(argv=None) -> int:
     if (a.segments, a.order) != (6, 3):
         planner.ocp = make_ocp(planner.model, planner.tool_frame, order=a.order,
                                num_segments=a.segments)
+        shipping = planner.qp_settings = config.shipping_qp_settings(planner.ocp.num_nodes)
     ocp = planner.ocp
     states = np.load(STATES)
     cur = torch.as_tensor(states["current"][: a.batch][:, cols], device=dev)
@@ -439,7 +454,8 @@ def main(argv=None) -> int:
         shape = {"budget": DENSE.max_iter, "window": DENSE.check_every}
 
     for name, r in results.items():
-        layout = {"layout": kernels[name].geometry(geometry).layout} if a.kernel == 3 else {}
+        built = kernels[name].geometry(geometry)
+        layout = {"layout": built.layout, "ept": built.ept} if a.kernel == 3 else {}
         print(json.dumps({"kernel": a.kernel, "variant": name, "batch": a.batch,
                           "nodes": ocp.num_nodes, "order": ocp.coll.order, "joints": ocp.nq,
                           **layout, **shape, **r}), flush=True)

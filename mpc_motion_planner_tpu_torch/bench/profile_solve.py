@@ -21,7 +21,10 @@ starts, which slows later solves.
 (``planner.ocp = make_ocp(model, tool_frame, order=3, num_segments=8)``: 25
 nodes; ``order=4, num_segments=4``: 17 nodes; ``order=4, num_segments=6``:
 25 nodes, kernel 3 in its split layout; ``num_segments=12``: 37 nodes,
-kernel 3 in its stream layout; default 6 segments of order 3, 19 nodes),
+kernel 3 in its stream layout; ``num_segments=15``: 46 nodes, the stream
+layout with two elements a thread; default 6 segments of order 3, 19 nodes),
+the shipping path with the QP settings of its node count
+(``config.shipping_qp_settings``: one KKT refinement step from 43 nodes),
 and kernels 2 and 3 are built for it. ``--urdf`` plans another
 robot: a Panda with its last joints locked (for example
 ``tests/fixtures/panda_joint7_fixed.urdf``, 6 joints), with the Panda's
@@ -124,6 +127,8 @@ def make_planner(which: str, dev, segments: int = 6, urdf: str = None,
     if (segments, order) != (6, 3):
         planner.ocp = make_ocp(planner.model, planner.tool_frame, order=order,
                                num_segments=segments)
+        if which == "structured":
+            planner.qp_settings = config.shipping_qp_settings(planner.ocp.num_nodes)
     return planner
 
 

@@ -16,10 +16,14 @@ a QP is solved, independently:
 
 ``MotionPlanner()`` takes the JAX package's defaults (dense "xla" QP with
 adaptive rho, 700/700 iterations); the shipping configuration below is
-what the headline runs and is passed explicitly.
+what the headline runs and is passed explicitly. A planner whose OCP is
+swapped for a finer transcription takes ``shipping_qp_settings`` of its
+node count.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -35,6 +39,22 @@ SHIPPING_QP_SETTINGS = QPSettings(
     backend="structured_pallas", max_iter=700, check_every=25, rho=0.1, alpha=1.6,
     ruiz_iters=2, rho_update_every=0, kkt_refine=0,
 )
+
+# Nodes from which the shipping configuration refines every KKT solve once:
+# from there the float32 banded factor's error stalls ADMM short of its
+# tolerance on a growing share of the step-0 QPs (the Panda on the first 64
+# headline states: 40 nodes all converge, 43 nodes 95%, 46 nodes 88%; one
+# refinement step, all at 46 and 49 nodes).
+KKT_REFINE_FROM_NODES = 43
+
+
+def shipping_qp_settings(num_nodes: int) -> QPSettings:
+    """The shipping QP settings for a transcription of ``num_nodes`` nodes:
+    ``SHIPPING_QP_SETTINGS`` with one refinement step on every KKT solve
+    from ``KKT_REFINE_FROM_NODES`` up."""
+    if num_nodes < KKT_REFINE_FROM_NODES:
+        return SHIPPING_QP_SETTINGS
+    return dataclasses.replace(SHIPPING_QP_SETTINGS, kkt_refine=1)
 
 
 def shipping_backend(device_type: str) -> str:

@@ -30,6 +30,12 @@ namespace mpc {
 #ifndef MPC_SMEM_LAYOUT
 #define MPC_SMEM_LAYOUT 0
 #endif
+// Kernel 3's z elements and constraint rows per thread, which the build sets
+// to ceil(max(NV, NM) / 1024) (kernels/structured_admm.py ept_of): 1 up to
+// 1024 threads, 2 past them.
+#ifndef MPC_EPT
+#define MPC_EPT 1
+#endif
 constexpr int SEG = MPC_SEGMENTS;
 constexpr int KL = MPC_ORDER + 1;  // local nodes per segment
 constexpr int N = SEG * MPC_ORDER + 1;

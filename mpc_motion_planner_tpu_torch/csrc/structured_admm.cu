@@ -54,9 +54,10 @@
 // * All z-layout vectors live in shared memory in node-major order
 //   (element n*21 + c, then p), permuted on load and store only, so the
 //   sweeps, A and A' address them without per-element index arithmetic.
-//   Each of the 512 threads (at 19 nodes) owns one z element and one
-//   constraint row for the whole launch and computes their places in A and
-//   A' once.
+//   Each thread owns EPT z elements and EPT constraint rows, t, t + NT, ...
+//   (one of each for the 512 threads at 19 nodes), for the whole launch and
+//   computes their places in A and A' once; an element-wise phase takes a
+//   thread's elements in turn.
 // * rhs's element-wise part and E (rc zc - yc) are formed in the update
 //   phase of the iteration before, by the thread that owns the element. An
 //   iteration without a check has three block-wide barriers.
@@ -76,12 +77,19 @@
 // at order 3; a robot of NQ joints has blocks of BLK = 3 NQ rows, node
 // vectors padded to VPAD (BLK rounded up to 4: 20 floats, five loads, at 6
 // joints; 24 at 7 and 8; 28 at 9; 32 at 10) and a row per lane, so BLK <=
-// 32. The block has one thread per z element and per constraint row (NT =
-// max(NV, NM) rounded up to whole warps: 512 at 19 nodes, 672 at 25, 352 at
-// 13, 992 at 37; 448 at 19 nodes and 6 joints, 576 at 8, 640 at 9, 704 at
-// 10; 832 at 25 nodes and 9 joints, 928 at 10; 544 at order 2 x 9 segments,
-// 416 at order 4 x 4, 640 at order 4 x 6, 928 at order 4 x 9, 384 at order
-// 5 x 3), so NT <= 1024 bounds the geometry (40 nodes of order 3 take 1056);
+// 32. A thread owns EPT z elements and EPT constraint rows (MPC_EPT, which
+// the build sets to ceil(max(NV, NM) / 1024), kernels/structured_admm.py
+// ept_of), so the block has NT = max(NV, NM) / EPT threads rounded up to
+// whole warps. EPT = 1 up to 1024: 512 at 19 nodes, 672 at 25, 352 at 13,
+// 992 at 37; 448 at 19 nodes and 6 joints, 576 at 8, 640 at 9, 704 at 10;
+// 832 at 25 nodes and 9 joints, 928 at 10; 544 at order 2 x 9 segments, 416
+// at order 4 x 4, 640 at order 4 x 6, 928 at order 4 x 9, 384 at order 5 x
+// 3. EPT = 2 past it: 544 at 40 nodes (1,048 rows), 608 at 46, 544 at order
+// 4 x 10 and at 31 nodes and 9 joints. A build may name another EPT (for
+// holding and timing one against another), and the only operation it
+// changes is the order of the sum of the p row's defect part in the check
+// (block_sum of part), which follows the threads' rows. Then the block's
+// shared memory bounds the geometry (49 nodes of order 3 take 234,560 B);
 // everything else follows the geometry: a band width of BW takes BW - 1
 // helper warps and BW - 1 look-ahead vectors (the sweeps need 2 + BW warps).
 //
@@ -182,7 +190,11 @@
 // 4,764 and 2,448 B (ptxas allots 32 where 64 are allowed); forced at 3 x 8
 // 80, 116 and 108 B; at 4 x 6 96, 48 and 68 B. The stream at 3 x 8 built
 // for 64 registers (692 B) takes +38% an iteration (kernel_ab.py, PERF.md
-// §6).
+// §6). At EPT = 2 a thread has more registers and holds two places in A and
+// A': 37 nodes at 512 threads (16 warps, four on a scheduler) 128
+// registers and no spills; at 544 and 608 threads (five warps on a
+// scheduler) 96: 40 and 46 nodes 196 and 160 B of spill stores, order 4 x
+// 10 200 and 164 B, 31 nodes and 9 joints 300 and 288 B.
 
 #include "common.cuh"
 
@@ -190,13 +202,16 @@ using namespace mpc;
 
 namespace {
 
-// threads: one per z element and per row, in whole warps
-constexpr int NT = ((NM > NV ? NM : NV) + 31) / 32 * 32;
+// threads: EPT z elements and EPT rows each (thread t owns elements t, t +
+// NT, ...), in whole warps
+constexpr int EPT = MPC_EPT;
+constexpr int NT = (((NM > NV ? NM : NV) + EPT - 1) / EPT + 31) / 32 * 32;
 constexpr int NWARP = NT / 32;
 constexpr int NB = N * BLK;              // 399 banded variables; element NB is p
 constexpr int VPAD = (BLK + 3) / 4 * 4;  // a node's BLK values in a 16-byte aligned row
-static_assert(NT >= NM && NT >= NV, "one thread per z element and per row");
+static_assert(EPT >= 1 && NT * EPT >= NM && NT * EPT >= NV, "EPT z elements and rows a thread");
 static_assert(NT <= 1024, "a block has at most 1024 threads");
+static_assert(NT >= KL * KL, "a thread per entry of Dm");
 static_assert(BW >= 1, "a band has at least one sub-diagonal block");
 static_assert(BLK % 3 == 0 && VPAD <= 32, "a row per lane, summed in three partial sums");
 constexpr int SMEM_LIMIT = 232448;       // dynamic shared memory of one block
@@ -851,18 +866,22 @@ structured_admm_kernel(Params P, Ptrs g) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t zo = (size_t)b * NV, mo = (size_t)b * NM;
-  // this thread's z element and constraint row, for the whole launch
-  const bool has_z = tid < NV, has_row = tid < NM;
+  // this thread's z elements and constraint rows, tid + q NT for q < EPT,
+  // for the whole launch (an element past NV, or a row past NM, is none)
   if (g.done0[b] != 0) {
     // done on entry: the state passes through
-    if (has_z) {
-      g.x[zo + tid] = g.x0[zo + tid];
-      g.zx[zo + tid] = g.zx0[zo + tid];
-      g.yx[zo + tid] = g.yx0[zo + tid];
-    }
-    if (has_row) {
-      g.zc[mo + tid] = g.zc0[mo + tid];
-      g.yc[mo + tid] = g.yc0[mo + tid];
+#pragma unroll
+    for (int q = 0; q < EPT; ++q) {
+      const int e = tid + q * NT;
+      if (e < NV) {
+        g.x[zo + e] = g.x0[zo + e];
+        g.zx[zo + e] = g.zx0[zo + e];
+        g.yx[zo + e] = g.yx0[zo + e];
+      }
+      if (e < NM) {
+        g.zc[mo + e] = g.zc0[mo + e];
+        g.yc[mo + e] = g.yc0[mo + e];
+      }
     }
     if (tid == 0) {
       g.done[b] = g.done0[b];
@@ -872,8 +891,13 @@ structured_admm_kernel(Params P, Ptrs g) {
     }
     return;
   }
-  const ZElem ze = make_zelem(tid);
-  const MRow mr = make_mrow(tid);
+  ZElem ze[EPT];
+  MRow mr[EPT];
+#pragma unroll
+  for (int q = 0; q < EPT; ++q) {
+    ze[q] = make_zelem(tid + q * NT);
+    mr[q] = make_mrow(tid + q * NT);
+  }
 
   Ring ring{g.Lsub + (size_t)b * N * BW * BLK2};
   if constexpr (RINGED) ring_start(sm, ring, warp, lane);
@@ -896,18 +920,22 @@ structured_admm_kernel(Params P, Ptrs g) {
   copy<NB>(sm.u, g.u + (size_t)b * NB);
   copy<N * NG * BLK>(sm.J, g.J + (size_t)b * N * NG * BLK);
   copy<NEQ>(sm.fseg, g.f_rows + (size_t)b * NEQ);
-  if (has_z) {
-    const size_t j = zo + ze.z;
-    sm.qs[tid] = g.qs[j];
-    sm.Ps[tid] = g.Ps[j];
-    sm.rx[tid] = g.rx[j];
-    sm.lxs[tid] = g.lxs[j];
-    sm.uxs[tid] = g.uxs[j];
-    sm.thx[tid] = g.thx[j];
-    sm.D[tid] = g.D[j];
-    sm.x[tid] = g.x0[j];
-    sm.zx[tid] = g.zx0[j];
-    sm.yx[tid] = g.yx0[j];
+#pragma unroll
+  for (int q = 0; q < EPT; ++q) {
+    const int e = tid + q * NT;
+    if (e < NV) {
+      const size_t j = zo + ze[q].z;
+      sm.qs[e] = g.qs[j];
+      sm.Ps[e] = g.Ps[j];
+      sm.rx[e] = g.rx[j];
+      sm.lxs[e] = g.lxs[j];
+      sm.uxs[e] = g.uxs[j];
+      sm.thx[e] = g.thx[j];
+      sm.D[e] = g.D[j];
+      sm.x[e] = g.x0[j];
+      sm.zx[e] = g.zx0[j];
+      sm.yx[e] = g.yx0[j];
+    }
   }
   copy<NM>(sm.rc, g.rc + mo);
   copy<NM>(sm.lcs, g.lcs + mo);
@@ -925,15 +953,23 @@ structured_admm_kernel(Params P, Ptrs g) {
   __syncthreads();
 
   const float alpha = P.alpha, sigma = P.sigma;
-  if (has_z) sm.t0[tid] = sigma * sm.x[tid] - sm.qs[tid] + sm.rx[tid] * sm.zx[tid] - sm.yx[tid];
-  if (has_row) sm.wa[tid] = sm.E[tid] * (sm.rc[tid] * sm.zc[tid] - sm.yc[tid]);
+#pragma unroll
+  for (int q = 0; q < EPT; ++q) {
+    const int e = tid + q * NT;
+    if (e < NV) sm.t0[e] = sigma * sm.x[e] - sm.qs[e] + sm.rx[e] * sm.zx[e] - sm.yx[e];
+    if (e < NM) sm.wa[e] = sm.E[e] * (sm.rc[e] * sm.zc[e] - sm.yc[e]);
+  }
   __syncthreads();
 
   float rp = g.rp0[b], rd = g.rd0[b];
   int k = 0;
   while (k < P.cap && sm.done == 0) {
     // ---- rhs = t0 + D A' wa (the p row is the finishing warp's) ----
-    if (tid < NB) sm.rhs[tid] = sm.t0[tid] + sm.D[tid] * at_elem(sm, sm.wa, ze);
+#pragma unroll
+    for (int q = 0; q < EPT; ++q) {
+      const int e = tid + q * NT;
+      if (e < NB) sm.rhs[e] = sm.t0[e] + sm.D[e] * at_elem(sm, sm.wa, ze[q]);
+    }
     __syncthreads();
 
     // ---- xt = M^-1 rhs and dx = D xt ----
@@ -943,13 +979,21 @@ structured_admm_kernel(Params P, Ptrs g) {
     if (REFINE) {
       for (int r = 0; r < P.kkt_refine; ++r) {
         // ---- xt += M^-1 (rhs - M xt) ----
-        if (has_row)
-          sm.wb[tid] = sm.E[tid] * (sm.rc[tid] * (sm.E[tid] * a_row(sm, sm.dx, tid, mr)));
-        if (r == 0 && tid < NB) sm.wc[tid] = sm.rhs[tid];
+#pragma unroll
+        for (int q = 0; q < EPT; ++q) {
+          const int e = tid + q * NT;
+          if (e < NM)
+            sm.wb[e] = sm.E[e] * (sm.rc[e] * (sm.E[e] * a_row(sm, sm.dx, e, mr[q])));
+          if (r == 0 && e < NB) sm.wc[e] = sm.rhs[e];
+        }
         __syncthreads();
-        if (tid < NB)
-          sm.rhs[tid] = sm.wc[tid] - ((sm.Ps[tid] + sigma + sm.rx[tid]) * sm.xt[tid] +
-                                      sm.D[tid] * at_elem(sm, sm.wb, ze));
+#pragma unroll
+        for (int q = 0; q < EPT; ++q) {
+          const int e = tid + q * NT;
+          if (e < NB)
+            sm.rhs[e] = sm.wc[e] - ((sm.Ps[e] + sigma + sm.rx[e]) * sm.xt[e] +
+                                    sm.D[e] * at_elem(sm, sm.wb, ze[q]));
+        }
         __syncthreads();
         solve_sweeps<REFINE, true>(sm, ring, warp, lane, sigma);
         __syncthreads();
@@ -957,26 +1001,32 @@ structured_admm_kernel(Params P, Ptrs g) {
     }
 
     // ---- zt = E A dx; relaxed prox and dual updates; next t0 and wa ----
-    if (has_row) {
-      const int i = tid;
-      float za = alpha * sm.E[i] * a_row(sm, sm.dx, i, mr) + (1.f - alpha) * sm.zc[i];
-      float zn = soft_update(za, sm.yc[i], sm.rc[i], sm.lcs[i], sm.ucs[i], sm.thr[i]);
-      float yn = ftz(sm.yc[i] + sm.rc[i] * (za - zn));
-      sm.yc[i] = yn;
-      sm.zc[i] = zn;
-      sm.wa[i] = sm.E[i] * (sm.rc[i] * zn - yn);
+#pragma unroll
+    for (int q = 0; q < EPT; ++q) {
+      const int i = tid + q * NT;
+      if (i < NM) {
+        float za = alpha * sm.E[i] * a_row(sm, sm.dx, i, mr[q]) + (1.f - alpha) * sm.zc[i];
+        float zn = soft_update(za, sm.yc[i], sm.rc[i], sm.lcs[i], sm.ucs[i], sm.thr[i]);
+        float yn = ftz(sm.yc[i] + sm.rc[i] * (za - zn));
+        sm.yc[i] = yn;
+        sm.zc[i] = zn;
+        sm.wa[i] = sm.E[i] * (sm.rc[i] * zn - yn);
+      }
     }
-    if (has_z) {
-      const int e = tid;
-      float xt = sm.xt[e];
-      float xn = ftz(alpha * xt + (1.f - alpha) * sm.x[e]);
-      float za = alpha * xt + (1.f - alpha) * sm.zx[e];
-      float zn = soft_update(za, sm.yx[e], sm.rx[e], sm.lxs[e], sm.uxs[e], sm.thx[e]);
-      float yn = ftz(sm.yx[e] + sm.rx[e] * (za - zn));
-      sm.x[e] = xn;
-      sm.zx[e] = zn;
-      sm.yx[e] = yn;
-      sm.t0[e] = sigma * xn - sm.qs[e] + sm.rx[e] * zn - yn;
+#pragma unroll
+    for (int q = 0; q < EPT; ++q) {
+      const int e = tid + q * NT;
+      if (e < NV) {
+        float xt = sm.xt[e];
+        float xn = ftz(alpha * xt + (1.f - alpha) * sm.x[e]);
+        float za = alpha * xt + (1.f - alpha) * sm.zx[e];
+        float zn = soft_update(za, sm.yx[e], sm.rx[e], sm.lxs[e], sm.uxs[e], sm.thx[e]);
+        float yn = ftz(sm.yx[e] + sm.rx[e] * (za - zn));
+        sm.x[e] = xn;
+        sm.zx[e] = zn;
+        sm.yx[e] = yn;
+        sm.t0[e] = sigma * xn - sm.qs[e] + sm.rx[e] * zn - yn;
+      }
     }
     ++k;
     __syncthreads();
@@ -984,46 +1034,60 @@ structured_admm_kernel(Params P, Ptrs g) {
     if (k % P.check_every == 0 || k >= P.cap) {
       // ---- divergence freeze (NaN-safe) and OSQP residuals ----
       bool big = false;
-      float part = 0.f;
-      if (has_z) {
-        big |= !(fabsf(sm.x[tid]) <= 1e12f) || !(fabsf(sm.yx[tid]) <= 1e12f);
-        sm.dx[tid] = sm.D[tid] * sm.x[tid];
-      }
-      if (has_row) {
-        big |= !(fabsf(sm.yc[tid]) <= 1e12f);
-        float w = sm.E[tid] * sm.yc[tid];
-        sm.wb[tid] = w;
-        if (tid < NEQ) part = sm.fseg[tid] * w;
+      float part = 0.f;  // this thread's defect rows' part of f.(E yc), in the order of q
+#pragma unroll
+      for (int q = 0; q < EPT; ++q) {
+        const int e = tid + q * NT;
+        if (e < NV) {
+          big |= !(fabsf(sm.x[e]) <= 1e12f) || !(fabsf(sm.yx[e]) <= 1e12f);
+          sm.dx[e] = sm.D[e] * sm.x[e];
+        }
+        if (e < NM) {
+          big |= !(fabsf(sm.yc[e]) <= 1e12f);
+          float w = sm.E[e] * sm.yc[e];
+          sm.wb[e] = w;
+          if (e < NEQ) part = q == 0 ? sm.fseg[e] * w : part + sm.fseg[e] * w;
+        }
       }
       float tot = block_sum<NWARP>(part, sm.red);  // syncs: dx and wb are complete
-      if (has_row) sm.wc[tid] = a_row(sm, sm.dx, tid, mr);  // A D x
-      if (tid < NB) sm.xt[tid] = at_elem(sm, sm.wb, ze);    // A' E yc
-      else if (tid == NB) sm.xt[tid] = -tot;
+#pragma unroll
+      for (int q = 0; q < EPT; ++q) {
+        const int e = tid + q * NT;
+        if (e < NM) sm.wc[e] = a_row(sm, sm.dx, e, mr[q]);  // A D x
+        if (e < NB) sm.xt[e] = at_elem(sm, sm.wb, ze[q]);   // A' E yc
+        else if (e == NB) sm.xt[e] = -tot;
+      }
       __syncthreads();
       // m[0] r_prim, m[1] r_dual, m[2] scale_p, m[3] scale_d
       float m[4] = {0.f, 0.f, 0.f, 0.f};
       bool nan = false;
-      if (has_row) {
-        const int i = tid;
-        float e = sm.E[i], ax = e * sm.wc[i];
-        float t0 = fabsf((ax - sm.zc[i]) / e), t1 = fabsf(ax / e), t2 = fabsf(sm.zc[i] / e);
-        nan |= isnan(t0) || isnan(t1) || isnan(t2);
-        m[0] = fmaxf(m[0], t0);
-        m[2] = fmaxf(m[2], fmaxf(t1, t2));
+#pragma unroll
+      for (int q = 0; q < EPT; ++q) {
+        const int i = tid + q * NT;
+        if (i < NM) {
+          float e = sm.E[i], ax = e * sm.wc[i];
+          float t0 = fabsf((ax - sm.zc[i]) / e), t1 = fabsf(ax / e), t2 = fabsf(sm.zc[i] / e);
+          nan |= isnan(t0) || isnan(t1) || isnan(t2);
+          m[0] = fmaxf(m[0], t0);
+          m[2] = fmaxf(m[2], fmaxf(t1, t2));
+        }
       }
-      if (has_z) {
-        const int j = tid;
-        float d = sm.D[j], x = sm.x[j], aty = d * sm.xt[j];
-        float t0 = fabsf(d * (x - sm.zx[j]));
-        float t1 = fabsf((sm.Ps[j] * x + sm.qs[j] + aty + sm.yx[j]) / d);
-        float t2 = fmaxf(fabsf(d * x), fabsf(d * sm.zx[j]));
-        float t3 = fmaxf(fmaxf(fabsf(sm.Ps[j] * x / d), fabsf(sm.qs[j] / d)),
-                         fmaxf(fabsf(aty / d), fabsf(sm.yx[j] / d)));
-        nan |= isnan(t0) || isnan(t1) || isnan(t2) || isnan(t3);
-        m[0] = fmaxf(m[0], t0);
-        m[1] = fmaxf(m[1], t1);
-        m[2] = fmaxf(m[2], t2);
-        m[3] = fmaxf(m[3], t3);
+#pragma unroll
+      for (int q = 0; q < EPT; ++q) {
+        const int j = tid + q * NT;
+        if (j < NV) {
+          float d = sm.D[j], x = sm.x[j], aty = d * sm.xt[j];
+          float t0 = fabsf(d * (x - sm.zx[j]));
+          float t1 = fabsf((sm.Ps[j] * x + sm.qs[j] + aty + sm.yx[j]) / d);
+          float t2 = fmaxf(fabsf(d * x), fabsf(d * sm.zx[j]));
+          float t3 = fmaxf(fmaxf(fabsf(sm.Ps[j] * x / d), fabsf(sm.qs[j] / d)),
+                           fmaxf(fabsf(aty / d), fabsf(sm.yx[j] / d)));
+          nan |= isnan(t0) || isnan(t1) || isnan(t2) || isnan(t3);
+          m[0] = fmaxf(m[0], t0);
+          m[1] = fmaxf(m[1], t1);
+          m[2] = fmaxf(m[2], t2);
+          m[3] = fmaxf(m[3], t3);
+        }
       }
       block_max<4, NWARP>(m, sm.red);
       bool any_big = block_any(big);
@@ -1038,15 +1102,19 @@ structured_admm_kernel(Params P, Ptrs g) {
   }
 
   if constexpr (RINGED) ring_end(ring, warp);
-  if (has_z) {
-    const size_t j = zo + ze.z;
-    g.x[j] = sm.x[tid];
-    g.zx[j] = sm.zx[tid];
-    g.yx[j] = sm.yx[tid];
-  }
-  if (has_row) {
-    g.zc[mo + tid] = sm.zc[tid];
-    g.yc[mo + tid] = sm.yc[tid];
+#pragma unroll
+  for (int q = 0; q < EPT; ++q) {
+    const int e = tid + q * NT;
+    if (e < NV) {
+      const size_t j = zo + ze[q].z;
+      g.x[j] = sm.x[e];
+      g.zx[j] = sm.zx[e];
+      g.yx[j] = sm.yx[e];
+    }
+    if (e < NM) {
+      g.zc[mo + e] = sm.zc[e];
+      g.yc[mo + e] = sm.yc[e];
+    }
   }
   if (tid == 0) {
     g.done[b] = sm.done;

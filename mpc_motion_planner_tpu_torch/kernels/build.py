@@ -14,9 +14,10 @@ Kernels 2 and 3 are compiled for one transcription (:class:`Geometry`):
 its ``-D`` flags set the node count, the spline order and the joint count
 in ``csrc/common.cuh`` and enter the hash, so each geometry has a library of
 its own, built and loaded at its first use. Kernel 3's library is also built
-for one shared-memory layout (``-DMPC_SMEM_LAYOUT``), the one its geometry
-takes unless the geometry names another. Kernel 1 is compiled for one joint
-count (the ``-DMPC_NQ`` flag alone), kernel 4 once.
+for one shared-memory layout (``-DMPC_SMEM_LAYOUT``) and one count of z
+elements and rows per thread (``-DMPC_EPT``), those its geometry takes
+unless the geometry names others. Kernel 1 is compiled for one joint count
+(the ``-DMPC_NQ`` flag alone), kernel 4 once.
 
 A library may export an ``init`` function, which is called once when it is
 loaded (the kernels' shared-memory attributes are set there, not in every
@@ -61,20 +62,24 @@ class Geometry:
     The defaults are the 19-node Panda transcription, ``csrc/common.cuh``'s
     defaults. Kernel 1's library depends on ``nq`` alone.
 
-    ``layout`` is kernel 3's shared-memory layout, one of :data:`LAYOUTS`;
-    None (the default, and what an OCP gives) stands for the one the
-    geometry takes (``kernels/structured_admm.py`` ``choose_layout``). Naming
-    another is for holding and timing one layout against another; kernels
-    1 and 2 ignore it."""
+    ``layout`` is kernel 3's shared-memory layout, one of :data:`LAYOUTS`,
+    and ``ept`` the z elements and constraint rows each of its threads owns;
+    None (the default, and what an OCP gives) stands for the geometry's own
+    (``kernels/structured_admm.py`` ``choose_layout`` and ``ept_of``).
+    Naming another is for holding and timing one build against another;
+    kernels 1 and 2 ignore both."""
 
     segments: int = 6
     order: int = 3
     nq: int = 7
     layout: str = None
+    ept: int = None
 
     def __post_init__(self):
         if self.layout not in (None, *LAYOUTS):
             raise ValueError(f"layout {self.layout!r}: expected one of {LAYOUTS} or None")
+        if self.ept is not None and (not isinstance(self.ept, int) or self.ept < 1):
+            raise ValueError(f"ept {self.ept!r}: expected a positive int or None")
 
     @classmethod
     def of_ocp(cls, ocp) -> "Geometry":
@@ -123,12 +128,14 @@ class Geometry:
 
     def flags(self) -> tuple:
         """The nvcc flags that set this geometry in ``csrc/common.cuh``
-        (the layout's only where it is set)."""
+        (the layout's and ept's only where they are set)."""
         flags = (f"-DMPC_SEGMENTS={self.segments}", f"-DMPC_ORDER={self.order}",
                  f"-DMPC_NQ={self.nq}")
-        if self.layout is None:
-            return flags
-        return flags + (f"-DMPC_SMEM_LAYOUT={LAYOUTS.index(self.layout)}",)
+        if self.layout is not None:
+            flags += (f"-DMPC_SMEM_LAYOUT={LAYOUTS.index(self.layout)}",)
+        if self.ept is not None:
+            flags += (f"-DMPC_EPT={self.ept}",)
+        return flags
 
 
 def nvcc_path() -> str:
@@ -155,12 +162,12 @@ class CudaKernel:
     ``build_log`` holds nvcc's report (registers, shared memory, spills) of
     each build, by geometry.
 
-    ``layout_of`` (kernel 3): the shared-memory layout a geometry that names
-    none is built in, a function of the geometry; without it a library
-    ignores the geometry's layout."""
+    ``resolve`` (kernel 3): the geometry a library is built for, a function
+    of the geometry that fills in the layout and ept it does not name;
+    without it a library ignores the geometry's layout and ept."""
 
     def __init__(self, name: str, source: str, entry: str, argtypes, init: str = None,
-                 per_geometry: str = None, layout_of=None):
+                 per_geometry: str = None, resolve=None):
         if per_geometry not in (None, "joints", "transcription"):
             raise ValueError(f"per_geometry {per_geometry!r}")
         self.name = name
@@ -169,7 +176,7 @@ class CudaKernel:
         self.argtypes = argtypes
         self.init = init
         self.per_geometry = per_geometry
-        self.layout_of = layout_of
+        self.resolve = resolve
         self.launches = 0
         self.build_log = {}
         self._fns = {}  # geometry -> bound entry point
@@ -181,16 +188,16 @@ class CudaKernel:
         """The geometry a library is built for: None for a kernel that does
         not depend on it; for a kernel built per joint count the default
         transcription with ``geometry``'s joint count; else ``geometry`` or
-        the default one, with the layout it names or else ``layout_of``'s
-        (none for a kernel without ``layout_of``)."""
+        the default one, as ``resolve`` completes it (with no layout and no
+        ept for a kernel without ``resolve``)."""
         if self.per_geometry is None:
             return None
         g = geometry or Geometry()
         if self.per_geometry == "joints":
             return Geometry(nq=g.nq)
-        if self.layout_of is None:
-            return dataclasses.replace(g, layout=None)
-        return g if g.layout is not None else dataclasses.replace(g, layout=self.layout_of(g))
+        if self.resolve is None:
+            return dataclasses.replace(g, layout=None, ept=None)
+        return self.resolve(g)
 
     def flags(self, geometry=None) -> tuple:
         g = self.geometry(geometry)
@@ -206,7 +213,8 @@ class CudaKernel:
             h.update(src.read_bytes())
         g = self.geometry(geometry)
         tag = ("" if g is None else f"_q{g.nq}" if self.per_geometry == "joints"
-               else f"_n{g.nodes}_o{g.order}_q{g.nq}" + (f"_{g.layout}" if g.layout else ""))
+               else f"_n{g.nodes}_o{g.order}_q{g.nq}" + (f"_{g.layout}" if g.layout else "")
+               + (f"_e{g.ept}" if g.ept else ""))
         return BUILD_DIR / f"{self.name}{tag}_{h.hexdigest()[:16]}.so"
 
     def build(self, geometry=None) -> Path:

@@ -12,8 +12,9 @@ iterations with the rho update and the refactorization between them
 un-scaling.
 
 The library is built per transcription (``build.Geometry`` of the OCP:
-nodes, spline order and the robot's joint count): one thread per z element
-and per constraint row (:func:`threads`, at most 1024), node vectors padded
+nodes, spline order and the robot's joint count): :func:`ept_of` z
+elements and as many constraint rows per thread (:func:`threads`: one of
+each up to 1024 threads, two past them), node vectors padded
 to :func:`vpad` floats, one helper warp and one look-ahead vector per
 distance 2..bw of the band (bw = the spline order), and the first of four
 shared-memory layouts (:func:`choose_layout`, :func:`smem_bytes`) that fits a
@@ -28,10 +29,12 @@ of order 3); stream where the split does not fit (no block of Lsub in
 shared memory: the chain's distance-1 blocks go through the same ring, a
 node's run one block longer: 37 nodes of order 3 or 4, 9 and 10 joints at
 25 nodes, order 5 at 7 segments). :func:`ring_schedule` models the ring's
-copies and reads step by step. A geometry that fits none, or that needs
-more than 1024 threads (40 nodes of order 3, 10 joints at 28 nodes), raises
-a ValueError that names the bytes or the threads; nothing solves it
-another way. The figures below are the 19-node Panda transcription's.
+copies and reads step by step. Two elements a thread take 40 to 46 nodes of
+order 3 (608 threads at 46), order 4 x 10 and 9 joints at 31 nodes. A
+geometry that fits no layout (49 nodes of order 3: 234,560 B; order 4 x 11;
+10 joints at 28 nodes) raises a ValueError that names the bytes; nothing
+solves it another way. The figures below are the 19-node Panda
+transcription's.
 
 What bounds it on this card: latency. Each iteration is ~157k flops per
 problem, 85% of them in the two banded triangular sweeps, and the factors
@@ -49,11 +52,11 @@ helper warps; two chain warps take the steps in turn so that the blocks
 of a step are in registers before its turn comes; a finishing warp finds the
 arrow correction during the forward sweep and finishes each node the
 backward sweep delivers; the z-layout vectors are node-major in shared
-memory, each thread owns one z element and one constraint row and computes
-their places in A and A' once; an iteration without a check has three
-block-wide barriers. A block step subtracts its terms in the plain solve's
-order (distances 1, 2, ..., bw) and takes every 21-long row sum in three partial
-sums; ``ops.qp_structured.banded_solve_lookahead`` states the schedule and
+memory, each thread owns one z element and one constraint row (two of each
+past 1024) and computes their places in A and A' once; an iteration without
+a check has three block-wide barriers. A block step subtracts its terms in
+the plain solve's order (distances 1, 2, ..., bw) and takes every 21-long
+row sum in three partial sums; ``ops.qp_structured.banded_solve_lookahead`` states the schedule and
 the order in plain PyTorch. Each block stops at its own ``done``, and one that
 is done on entry leaves at once: the TPU kernel's lane-group exit,
 early-exit chunk schedules and compaction existed because 128 problems
@@ -86,7 +89,7 @@ KERNEL = CudaKernel(
     [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_float] * 4
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     init="mpc_structured_admm_init", per_geometry="transcription",
-    layout_of=lambda g: choose_layout(g),
+    resolve=lambda g: built_geometry(g),
 )
 
 def ring_runs(g: Geometry, layout: str = "split") -> int:
@@ -177,10 +180,21 @@ def vpad(g: Geometry) -> int:
     return -(-g.blk // 4) * 4
 
 
+MAX_THREADS = 1024  # threads of one block
+
+
+def ept_of(g: Geometry) -> int:
+    """EPT, the z elements and constraint rows each thread of ``g``'s block
+    owns unless ``g`` names another count: the fewest for which the block
+    has at most 1024 threads (1 up to 1024 elements, 2 past them)."""
+    return -(-max(g.num_var, g.num_rows) // MAX_THREADS)
+
+
 def threads(g: Geometry) -> int:
-    """Threads of one block: one per z element and per constraint row, in
-    whole warps."""
-    return -(-max(g.num_var, g.num_rows) // 32) * 32
+    """Threads of one block: ept z elements and ept constraint rows each
+    (``g.ept`` or else :func:`ept_of`), in whole warps."""
+    ept = g.ept or ept_of(g)
+    return -(-max(g.num_var, g.num_rows) // ept // 32) * 32
 
 
 def smem_bytes(g: Geometry, layout: str = None) -> int:
@@ -212,6 +226,14 @@ def smem_bytes(g: Geometry, layout: str = None) -> int:
     return -(-off // 16) * 16
 
 
+def built_geometry(g: Geometry) -> Geometry:
+    """The geometry kernel 3's library is built for: ``g`` with the ept
+    and the layout it names, or else its own (:func:`ept_of`,
+    :func:`choose_layout`)."""
+    g = g if g.ept is not None else dataclasses.replace(g, ept=ept_of(g))
+    return g if g.layout is not None else dataclasses.replace(g, layout=choose_layout(g))
+
+
 def choose_layout(g: Geometry) -> str:
     """The shared-memory layout kernel 3 is built in for ``g``: the first of
     full, compact, split and stream (``LAYOUTS``) whose block fits, else
@@ -227,11 +249,12 @@ def sweep_warps(g: Geometry) -> int:
 
 def check_fits(g: Geometry) -> None:
     """Raise ValueError unless kernel 3 is written for ``g`` (a band of at
-    least one sub-diagonal block, a row of a block per lane, at most 1024
-    threads: one per z element and per row) and its block fits the card in
-    the layout ``g`` names, or else in one of the four: 232,448 B of shared
-    memory, and warps enough for the sweeps (and the copier of the split
-    and stream layouts, whose ring is paced by the helper of distance 2)."""
+    least one sub-diagonal block, a row of a block per lane) and its block
+    fits the card in the layout ``g`` names, or else in one of the four:
+    232,448 B of shared memory, at most 1024 threads (which only an ept
+    that ``g`` names can pass), and warps enough for the sweeps (and the
+    copier of the split and stream layouts, whose ring is paced by the
+    helper of distance 2)."""
     if g.order < 1:
         raise ValueError(f"kernel 3 solves with a band of at least one sub-diagonal block; "
                          f"got band width {g.order}")
@@ -240,9 +263,9 @@ def check_fits(g: Geometry) -> None:
                          f"blocks up to 30 x 30 (10 joints); got {g.nq} joints")
     what = (f"kernel 3 at {g.nodes} nodes, order {g.order} and {g.nq} joints ({g.num_var} "
             f"variables, {g.num_rows} rows)")
-    if threads(g) > 1024:
-        raise ValueError(f"{what} needs {threads(g)} threads per block, one per z element and "
-                         f"per row; a block may have 1024")
+    if threads(g) > MAX_THREADS:
+        raise ValueError(f"{what} needs {threads(g)} threads per block at {g.ept} z elements "
+                         f"and rows a thread; a block may have {MAX_THREADS}")
     name = g.layout or choose_layout(g)
     if smem_bytes(g, name) > SMEM_LIMIT:
         others = ", ".join(f"{other}: {smem_bytes(g, other)} B" for other in LAYOUTS
@@ -262,17 +285,17 @@ def check_fits(g: Geometry) -> None:
 
 
 def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings: QPSettings,
-                state=None, chunk_iters=None, layout=None):
+                state=None, chunk_iters=None, layout=None, ept=None):
     """Launch kernel 3 on scaled float32 CUDA data: one dispatch of
     ``chunk_iters`` iterations (default: the whole budget) from ``state``
     (default: the initial state of ``qp``), with the library of the OCP's
-    transcription in its own shared-memory layout, or in ``layout`` (one
-    of ``LAYOUTS``, for holding and timing a layout against another where
-    both fit). Takes and returns the scaled (x, zc, zx, yc, yx, done, iters,
-    rp, rd) like ``admm_plain``."""
+    transcription in its own shared-memory layout and elements per thread,
+    or in ``layout`` (one of ``LAYOUTS``) and at ``ept``, for holding and
+    timing one build against another where both fit. Takes and returns the
+    scaled (x, zc, zx, yc, yx, done, iters, rp, rd) like ``admm_plain``."""
     B = qp.x.shape[0]
     f32 = torch.float32
-    g = dataclasses.replace(Geometry.of_ocp(ocp), layout=layout)
+    g = dataclasses.replace(Geometry.of_ocp(ocp), layout=layout, ept=ept)
     check_fits(g)
     N, NG, BLK, BW, NV, NEQ, NM = g.nodes, g.ng, g.blk, g.order, g.num_var, g.num_eq, g.num_rows
     x0, zc0, zx0, yc0, yx0, done0, iters0, rp0, rd0 = (
@@ -323,7 +346,7 @@ def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings:
 
 def block_layout(geometry: Geometry = None) -> dict:
     """What the library built for ``geometry`` (default: 19 nodes; in the
-    layout it names, else its own) says of its block: threads,
+    layout and at the ept it names, else its own) says of its block: threads,
     shared-memory bytes, and how many blocks one SM holds at a time from the
     CUDA occupancy calculator (1: the block's shared memory takes the SM)."""
     lib = KERNEL.library(geometry)

@@ -1,8 +1,8 @@
 """PyTorch port, splines of orders other than 3 (band widths other than 3
 in kernels 2 and 3): the geometry of their libraries (kernel 3's block
 reckoned member by member, kernel 2's working set, order 4 at 6 segments in
-kernel 3's split layout and at 9 in its stream layout, the refusal of a
-block past the limit), the
+kernel 3's split layout and at 9 and 10 in its stream layout, the refusal of
+a block past the limit), the
 plain versions of kernels 2 and 3 at band widths 2, 4 and 5 against the JAX
 package's factor (node-level, and its Pallas kernel in interpret mode) and
 against the plain banded solve, the plain structured QP at 4 and 6
@@ -112,26 +112,31 @@ def test_order4_beyond_one_block_raises_naming_the_bytes():
     kernel 3's compact layout and takes the split one, 173,200 B; order 4 at
     5 segments (21 nodes) still fits compact; order 4 at 9 segments (37
     nodes, 928 threads; 247,200 B split) takes the stream layout, 197,808 B.
-    Order 4 at 10 segments (41 nodes) needs 1056 threads, past a block's
-    1024: its fit check and the card's QP solve raise and name the threads
-    before any build or launch. Kernel 2 takes all four."""
-    g46, g45, g49, g4a = (Geometry(segments=s, order=4) for s in (6, 5, 9, 10))
+    Order 4 at 10 segments (41 nodes, 1028 rows) takes it at two z elements
+    and rows a thread, 544 threads, 215,184 B. Order 4 at 11 segments (45
+    nodes) needs 232,752 B even in the stream layout: its fit check and the
+    card's QP solve raise and name the bytes before any build or launch.
+    Kernel 2 takes all five."""
+    g46, g45, g49, g4a, g4b = (Geometry(segments=s, order=4) for s in (6, 5, 9, 10, 11))
     assert (k3.smem_bytes(g45), k3.smem_bytes(g45, "full")) == (227792, 257776)
     assert k3.choose_layout(g45) == "compact"
     assert (k3.threads(g46), k3.smem_bytes(g46, "compact")) == (640, 273632)
     assert k3.choose_layout(g46) == "split" and k3.smem_bytes(g46) == 173200
     assert (k3.threads(g49), k3.smem_bytes(g49, "split")) == (928, 247200)
     assert k3.choose_layout(g49) == "stream" and k3.smem_bytes(g49) == 197808
-    for g in (g45, g46, g49):
-        k3.check_fits(g)
-    assert k3.threads(g4a) == 1056
-    with pytest.raises(ValueError, match=r"41 nodes, order 4 .* needs 1056 threads per block"):
-        k3.check_fits(g4a)
-    planner = _planner(4, 10)
-    sa, args, _, _ = _step0(planner, 1)
-    with pytest.raises(ValueError, match="1056 threads"):
-        k3.solve_box_qp_structured_cuda(planner.ocp, sa, *args, config.SHIPPING_QP_SETTINGS)
+    assert (k3.ept_of(g4a), k3.threads(g4a), k3.smem_bytes(g4a)) == (2, 544, 215184)
+    assert k3.choose_layout(g4a) == "stream"
     for g in (g45, g46, g49, g4a):
+        k3.check_fits(g)
+    assert (k3.threads(g4b), k3.smem_bytes(g4b)) == (576, 232752)
+    with pytest.raises(ValueError, match=r"45 nodes, order 4 .* needs 232752 B of shared memory "
+                                         r"per block in its stream layout"):
+        k3.check_fits(g4b)
+    planner = _planner(4, 11)
+    sa, args, _, _ = _step0(planner, 1)
+    with pytest.raises(ValueError, match="232752 B"):
+        k3.solve_box_qp_structured_cuda(planner.ocp, sa, *args, config.SHIPPING_QP_SETTINGS)
+    for g in (g45, g46, g49, g4a, g4b):
         k2.check_fits(g)
 
 

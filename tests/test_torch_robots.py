@@ -5,8 +5,8 @@ per-joint Jacobian split at 6 and 8 joints against the JAX package; the
 port's plain 6-joint solve against the JAX fixture
 ``torch_port_panda6_b64.npz``; the kernels' geometry at 6 to 10 joints (9
 and 10 take kernel 3's split layout at 19 nodes and its stream layout at
-25; 10 joints at 28 nodes need more than 1024 threads and raise, naming
-them); and the ``fused_constraints`` routing of the constraint rows on the
+25, 9 joints at 31 nodes at two elements a thread; 10 joints at 28 nodes
+fit no layout and raise, naming the bytes); and the ``fused_constraints`` routing of the constraint rows on the
 CPU."""
 
 import dataclasses
@@ -202,9 +202,11 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
     kernels 2 and 3 take splines of orders 2, 4 and 5 at 6 joints and order
     4 at 5 segments and 8 joints (kernel 3 in its split layout, 183,232 B);
     9 and 10 joints at 25 nodes (284,880 B split for 10) take kernel 3's
-    stream layout, 187,440 and 220,112 B; 10 joints at 28 nodes need 1056
-    threads and raise naming them before any build; a library kind that is
-    none of the three raises."""
+    stream layout, 187,440 and 220,112 B; 9 joints at 31 nodes (1030 rows)
+    take it at two z elements and rows a thread, 544 threads, 223,952 B; 10
+    joints at 28 nodes need 241,184 B even in the stream layout and raise
+    naming them before any build; a library kind that is none of the three
+    raises."""
     k1.check_fits(10)
     with pytest.raises(ValueError, match=r"11 joints needs 57216 B of static shared memory"):
         k1.check_fits(11)
@@ -225,10 +227,15 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
         assert k3.choose_layout(g) == "stream"
         k3.check_fits(g)
         k2.check_fits(g)
+    g = Geometry(segments=10, nq=9)
+    assert (k3.ept_of(g), k3.threads(g), k3.smem_bytes(g)) == (2, 544, 223952)
+    assert k3.choose_layout(g) == "stream"
+    k3.check_fits(g)
+    k2.check_fits(g)
     g = Geometry(segments=9, nq=10)
-    assert k3.threads(g) == 1056
-    with pytest.raises(ValueError, match=r"28 nodes, order 3 and 10 joints .* needs 1056 "
-                                         r"threads per block"):
+    assert (k3.threads(g), k3.smem_bytes(g)) == (544, 241184)
+    with pytest.raises(ValueError, match=r"28 nodes, order 3 and 10 joints .* needs 241184 B "
+                                         r"of shared memory per block in its stream layout"):
         k3.check_fits(g)
     k2.check_fits(g)
     with pytest.raises(ValueError, match="per_geometry"):

@@ -286,18 +286,21 @@ def test_kernels_refuse_other_transcriptions():
     """Kernels 2 and 3 are built per transcription, of any spline order (band
     width); order 3 at 9 segments (28 nodes) and order 4 at 6 (25 nodes) fit
     kernel 3's split layout, order 3 at 12 segments and order 4 at 9 (37
-    nodes) its stream layout; a transcription past kernel 3's 1024 threads
-    raises naming them: order 3 at 13 segments (40 nodes) and order 4 at 10
-    (41 nodes)."""
+    nodes) its stream layout, order 3 at 13 and 15 segments (40 and 46
+    nodes) and order 4 at 10 (41 nodes) its stream layout at two elements a
+    thread; a transcription whose block fits no layout raises naming its
+    bytes: order 3 at 16 segments (49 nodes) and order 4 at 11 (45 nodes)."""
     model = make_panda_model()
-    fits = [(3, s) for s in (4, 5, 6, 8, 9, 12)] + [(2, 9), (4, 4), (4, 6), (4, 9), (5, 3)]
+    fits = ([(3, s) for s in (4, 5, 6, 8, 9, 12, 13, 15)]
+            + [(2, 9), (4, 4), (4, 6), (4, 9), (4, 10), (5, 3)])
     for order, segments in fits:
         g = Geometry.of_ocp(make_ocp(model, order=order, num_segments=segments))
         k2.check_fits(g)
         k3.check_fits(g)
-    for order, segments in ((3, 13), (4, 10)):
+    for order, segments in ((3, 16), (4, 11)):
         g = Geometry.of_ocp(make_ocp(model, order=order, num_segments=segments))
-        with pytest.raises(ValueError, match=f"needs {k3.threads(g)} threads per block"):
+        with pytest.raises(ValueError, match=f"needs {k3.smem_bytes(g)} B of shared memory per "
+                                             f"block in its stream layout"):
             k3.check_fits(g)
         k2.check_fits(g)
 
