@@ -103,9 +103,21 @@ shipping solve of the headline states (5/2/2/0, bitwise its eager solve,
 quality, times in turns) and the JAX fixture ``torch_port_seg15_b64.npz``;
 13 segments of order 3, order 4 at 10 segments and a seeded 9-joint chain
 at 10 segments (40, 41, 31 nodes), kernels 2 and 3 held and timed and an
-eager shipping solve each; and the geometries that fit no layout (16
-segments of order 3, order 4 at 11, 10 joints at 9 segments) refused
-naming their bytes, before any build.
+eager shipping solve each. Where the stream block does not fit one SM,
+kernel 3 keeps out of shared memory the vectors only their owner reads (the
+lean layout), and phase 25 holds it: built so at 15 and 12 segments of
+order 3, where the stream layout fits, it gives every output of the stream
+layout bitwise at B=2048 (times in turns, with ptxas's registers and
+spills); then the Panda at 20 segments of order 3 (61 nodes, 1282
+variables, 1608 rows, 832 threads) is planned as a user sets it, with
+kernels 2 and 3 against their plain versions and timed, the captured
+shipping solve of the headline states (5/2/2/0, bitwise its eager solve,
+quality, times in turns) and the JAX fixture ``torch_port_seg20_b64.npz``;
+24 segments of order 3, order 4 at 16 segments and seeded chains of 10
+joints at 12 segments and 9 joints at 15 (73, 65, 37, 46 nodes), kernels 2
+and 3 held and an eager shipping solve each; and the geometries that fit no
+layout (25 segments of order 3, order 4 at 17, 10 joints at 13 segments)
+refused naming their bytes, before any build.
 Needs one CUDA GPU and ``nvcc``; imports no JAX.
 
     python3 chip_smoke.py
@@ -153,6 +165,8 @@ ORDER4S6_FIXTURE = os.path.join(FIXTURES, "torch_port_order4s6_b64.npz")
 SEG12_FIXTURE = os.path.join(FIXTURES, "torch_port_seg12_b64.npz")
 # and at 15 segments (46 nodes, kernel 3 at two elements a thread)
 SEG15_FIXTURE = os.path.join(FIXTURES, "torch_port_seg15_b64.npz")
+# and at 20 segments (61 nodes, kernel 3 in its lean layout)
+SEG20_FIXTURE = os.path.join(FIXTURES, "torch_port_seg20_b64.npz")
 MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
 B_MAIN = 2048  # the headline batch
 B_FACTOR = 256  # kernel-2 comparison batch
@@ -239,8 +253,12 @@ def geometries():
     return tuple(Geometry(segments=s) for s in SEGMENTS)
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's report, with the seconds since the script started."""
+    print(f"{msg} [{time.perf_counter() - T0:.0f} s]", flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -2055,10 +2073,9 @@ def ept_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     rule. (c) 13
     segments of order 3 (40 nodes), order 4 x 10 (41) and a seeded 9-joint
     chain at 10 segments (31): kernels 2 and 3 held and timed, an eager
-    shipping solve each (5/2/2/0). (d) The geometries that fit no layout
-    even at two elements a thread, 16 segments of order 3 (49 nodes),
-    order 4 x 11 (45) and 10 joints at 9 segments (28): refused naming
-    their bytes, before any build."""
+    shipping solve each (5/2/2/0). The geometries past the stream layout
+    (16 segments of order 3, order 4 x 11, 10 joints at 9 segments) take
+    the lean layout (phase 25)."""
     from mpc_motion_planner_tpu_torch import kernels
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
@@ -2129,13 +2146,116 @@ def ept_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     eager_shipping(pl, cur, tgt, "the 9-joint chain at 31 nodes (seeded states)",
                    "9_joints_31_nodes", "phase 24", results)
     del pl, cur, tgt
+    torch.cuda.empty_cache()
+
+
+def lean_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
+    """Phase 25: kernel 3's lean layout, the stream layout without the 16
+    vectors that only the thread owning an element or row reads (the
+    launch's constants read from device memory where they are used, the
+    iterates in their owner's registers), taken where the stream block does
+    not fit one SM. (a) Built in the lean layout at 15 and 12 segments of
+    order 3 (where the stream layout fits), against the stream build at
+    B=2048, at two elements a thread and at one: all nine outputs bitwise
+    (times in turns, with ptxas's registers and spill stores). (b) The main path: the
+    Panda at 20 segments of order 3 (61 nodes, 1282 variables, 1608 rows,
+    832 threads at two elements a thread), set as a user sets it
+    (``planner.ocp = make_ocp(planner.model, planner.tool_frame, order=3,
+    num_segments=20)``, its QP settings ``config.shipping_qp_settings(61)``:
+    one refinement step on every KKT solve): kernels 2 and 3 against their
+    plain versions (phase 3's and 4's bars), timed at B=2048 with their
+    bounds and kernel 2's library call, the captured shipping solve of the
+    headline states (5/2/2/0, bitwise its eager solve, quality, times in
+    turns) and the JAX fixture ``torch_port_seg20_b64.npz`` by phase 23's
+    rule. (c) The other
+    geometries the lean layout takes: 24 segments of order 3 (73 nodes, 992
+    threads), order 4 x 16 (65 nodes) and seeded chains of 10 joints at 12
+    segments (37 nodes) and 9 joints at 15 (46 nodes), with the shipping QP
+    settings of their node counts: kernels 2 and 3 against their plain
+    versions and an eager shipping solve each (5/2/2/0), with ptxas's
+    registers and spill stores. (d) The geometries that fit no layout, 25
+    segments of order 3 (76 nodes), order 4 x 17 (69) and 10 joints at 13
+    segments (40): refused naming their bytes, before any build."""
+    from mpc_motion_planner_tpu_torch import config, kernels
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    dev = cur_all.device
+    g20 = Geometry(20, 3)
+    held = {"seg15": Geometry(15, 3, layout="lean"), "seg12": Geometry(12, 3, layout="lean")}
+    others = {"seg24": Geometry(24, 3), "order4x16": Geometry(16, 4),
+              "10_joints_37_nodes": Geometry(12, 3, 10), "9_joints_46_nodes": Geometry(15, 3, 9)}
+    # ---- build: kernel 3 in the lean layout where the stream one fits, and
+    # kernels 2 and 3 at the geometries that take it, one nvcc each, together ----
+    build_libraries([("structured_admm", k3.KERNEL, g) for g in held.values()]
+                    + [(name, kernels.KERNELS[name], g) for g in (g20, *others.values())
+                       for name in ("banded_factor", "structured_admm")], "phase 25")
+
+    # ---- (a) the lean layout against the stream one, bitwise ----
+    for suffix, g in held.items():
+        pl = transcription_planner(planner, 3, g.segments)
+        check(k3.KERNEL.geometry(Geometry.of_ocp(pl.ocp)).layout == "stream",
+              f"{g.segments} segments take the stream layout")
+        log(f"phase 25 libraries at {g.nodes} nodes in the lean layout: "
+            f"{block_summary(g, kernel2=False)}; {ptxas_report(k3.KERNEL, g)}")
+        hold_layouts(pl, first_qp, "stream", "lean", results[f"structured_admm_{suffix}"],
+                     "phase 25", smi)
+        del pl
+
+    # ---- (b) the main path: 20 segments of order 3 ----
+    pl20 = transcription_planner(planner, 3, 20)
+    ocp = pl20.ocp
+    built = k3.KERNEL.geometry(g20)
+    check((ocp.num_nodes, ocp.num_var, ocp.num_eq + ocp.num_ineq) == (61, 1282, 1608)
+          and Geometry.of_ocp(ocp) == g20 and (built.layout, built.ept) == ("lean", 2)
+          and k3.threads(g20) == 832 and pl20.qp_settings.kkt_refine == 1,
+          f"20 segments: {ocp.num_nodes} nodes, {ocp.num_var} variables, {built}, "
+          f"kkt_refine {pl20.qp_settings.kkt_refine}")
+    log(f"phase 25 libraries at 20 segments of order 3 (61 nodes, 1282 variables, 1608 rows, "
+        f"two elements a thread, kkt_refine 1): {block_summary(g20)}; "
+        f"{ptxas_report(k3.KERNEL, g20)}")
+    summary, window_err = kernel_checks(pl20, first_qp, "20 segments")
+    log(f"phase 25 at 20 segments of order 3 (61 nodes, lean layout, two elements a thread), "
+        f"{summary}")
+    time_structured_kernels(pl20, first_qp, results, "seg20", "phase 25", window_err)
+    captured_shipping(pl20, cur_all, tgt_all, "20 segments", "seg20", "phase 25",
+                      "headline states, 20 segments of order 3, 61 nodes", results,
+                      ("banded_factor", "structured_admm"), smi)
+    # phase 23's rule
+    n_good, n_tf, n_fx, summary = fixture_agreement(pl20, SEG20_FIXTURE, dev)
+    check(n_good >= n_fx - 4 and n_tf == n_fx,
+          f"20 segments: {n_good}/{n_fx} fixture problems agree, {n_tf} final times within 1e-3")
+    log(f"phase 25 JAX fixture at 20 segments: {summary}; final times within 1e-3 relative "
+        f"{n_tf}/{n_fx} (bar {n_fx}), all three {n_good}/{n_fx} (bar {n_fx - 4})")
+    del pl20, ocp
+
+    # ---- (c) 24 x 3, order 4 x 16, 10 joints at 37 nodes, 9 joints at 46 ----
+    for suffix, g in others.items():
+        if g.nq == 7:
+            pl, cur, tgt, states = transcription_planner(planner, g.order, g.segments), \
+                cur_all, tgt_all, None
+            tag = f"order {g.order} x {g.segments} segments ({g.nodes} nodes)"
+        else:
+            pl, cur, tgt = chain_planner(planner, g.nq, segments=g.segments)
+            pl.qp_settings = config.shipping_qp_settings(pl.ocp.num_nodes)
+            states, tag = (cur, tgt), f"{g.nq} joints, {g.nodes} nodes"
+        built = k3.KERNEL.geometry(g)
+        check(Geometry.of_ocp(pl.ocp) == g and (built.layout, built.ept) == ("lean", 2),
+              f"{tag}: kernel 3 built as {built}")
+        log(f"phase 25 libraries at {tag}, kkt_refine {pl.qp_settings.kkt_refine}: "
+            f"{block_summary(g)}; {ptxas_report(k3.KERNEL, g)}")
+        summary, _ = kernel_checks(pl, first_qp, tag, states)
+        log(f"phase 25 at {tag} (lean layout), {summary}")
+        eager_shipping(pl, cur, tgt, f"{tag} ({'headline' if states is None else 'seeded'} "
+                       f"states)", suffix, "phase 25", results)
+        del pl, cur, tgt, states
 
     # ---- (d) past every layout: refused naming the bytes ----
-    for order, segments in ((3, 16), (4, 11)):
+    for order, segments in ((3, 25), (4, 17)):
         refusal(transcription_planner(planner, order, segments), cur_all[:4], tgt_all[:4],
-                f"order {order} x {segments} segments ({order * segments + 1} nodes)", "phase 24")
-    pl10, cur10, tgt10 = chain_planner(planner, 10, fused="off", segments=9)
-    refusal(pl10, cur10[:4], tgt10[:4], "10 joints, 28 nodes", "phase 24")
+                f"order {order} x {segments} segments ({order * segments + 1} nodes)", "phase 25")
+    pl10, cur10, tgt10 = chain_planner(planner, 10, fused="off", segments=13)
+    refusal(pl10, cur10[:4], tgt10[:4], "10 joints, 40 nodes", "phase 25")
     del pl10, cur10, tgt10
     torch.cuda.empty_cache()
 
@@ -2944,6 +3064,7 @@ def run(dev: torch.device) -> None:
     split_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     stream_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     ept_phases(planner, cur_all, tgt_all, first_qp, results, smi)
+    lean_phases(planner, cur_all, tgt_all, first_qp, results, smi)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

@@ -15,7 +15,7 @@ On the GPU the QPs go through kernels 2 and 3 ("structured_pallas"); with
 ``--device cpu`` through their plain versions ("structured").
 
     python -m mpc_motion_planner_tpu_torch.bench.convergence [--device cpu]
-        [--n 64] [--segments 13 14 15 16] [--kkt-refine 0 1] [--rescue-iters 0]
+        [--n 64] [--segments 13 14 15 16 20] [--kkt-refine 0 1] [--rescue-iters 0]
         [--x64] [--threads 4]
 """
 
@@ -44,7 +44,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--n", type=int, default=64, help="headline states, from the first")
-    ap.add_argument("--segments", type=int, nargs="+", default=[13, 14, 15, 16])
+    ap.add_argument("--segments", type=int, nargs="+", default=[13, 14, 15, 16, 20])
     ap.add_argument("--kkt-refine", type=int, nargs="+", default=[0, 1])
     ap.add_argument("--rescue-iters", type=int, default=0,
                     help="ADMM iterations past each QP's budget")

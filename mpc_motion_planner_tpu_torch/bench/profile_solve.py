@@ -22,7 +22,8 @@ starts, which slows later solves.
 nodes; ``order=4, num_segments=4``: 17 nodes; ``order=4, num_segments=6``:
 25 nodes, kernel 3 in its split layout; ``num_segments=12``: 37 nodes,
 kernel 3 in its stream layout; ``num_segments=15``: 46 nodes, the stream
-layout with two elements a thread; default 6 segments of order 3, 19 nodes),
+layout with two elements a thread; ``num_segments=20``: 61 nodes, the lean
+layout; default 6 segments of order 3, 19 nodes),
 the shipping path with the QP settings of its node count
 (``config.shipping_qp_settings``: one KKT refinement step from 43 nodes),
 and kernels 2 and 3 are built for it. ``--urdf`` plans another
@@ -175,7 +176,7 @@ def main(argv=None) -> int:
     group.add_argument("--xla", action="store_true", help="MotionPlanner()'s dense xla default")
     ap.add_argument("--warm", type=int, default=5, help="warm solves of each mode on the host clock")
     ap.add_argument("--segments", type=int, default=6,
-                    help="spline segments (6 of order 3: 19 nodes; 8: 25 nodes)")
+                    help="spline segments (6 of order 3: 19 nodes; 8: 25 nodes; 20: 61 nodes)")
     ap.add_argument("--order", type=int, default=3,
                     help="spline order (4 x 4 segments: 17 nodes; 4 x 6: 25 nodes)")
     ap.add_argument("--urdf", help="a Panda with its last joints locked (default: the Panda)")

@@ -53,7 +53,8 @@
 //   xt_k and D xt_k while the chain goes on.
 // * All z-layout vectors live in shared memory in node-major order
 //   (element n*21 + c, then p), permuted on load and store only, so the
-//   sweeps, A and A' address them without per-element index arithmetic.
+//   sweeps, A and A' address them without per-element index arithmetic
+//   (the lean layout keeps those only their owner reads elsewhere).
 //   Each thread owns EPT z elements and EPT constraint rows, t, t + NT, ...
 //   (one of each for the 512 threads at 19 nodes), for the whole launch and
 //   computes their places in A and A' once; an element-wise phase takes a
@@ -85,15 +86,16 @@
 // 832 at 25 nodes and 9 joints, 928 at 10; 544 at order 2 x 9 segments, 416
 // at order 4 x 4, 640 at order 4 x 6, 928 at order 4 x 9, 384 at order 5 x
 // 3. EPT = 2 past it: 544 at 40 nodes (1,048 rows), 608 at 46, 544 at order
-// 4 x 10 and at 31 nodes and 9 joints. A build may name another EPT (for
-// holding and timing one against another), and the only operation it
-// changes is the order of the sum of the p row's defect part in the check
-// (block_sum of part), which follows the threads' rows. Then the block's
-// shared memory bounds the geometry (49 nodes of order 3 take 234,560 B);
+// 4 x 10 and at 31 nodes and 9 joints, 832 at 61 nodes, 992 at 73. A build
+// may name another EPT (for holding and timing one against another), and the
+// only operation it changes is the order of the sum of the p row's defect
+// part in the check (block_sum of part), which follows the threads' rows.
+// Then the block's shared memory bounds the geometry (76 nodes of order 3
+// take 238,736 B in the lean layout);
 // everything else follows the geometry: a band width of BW takes BW - 1
 // helper warps and BW - 1 look-ahead vectors (the sweeps need 2 + BW warps).
 //
-// Shared memory: the build picks one of four layouts from the geometry
+// Shared memory: the build picks one of five layouts from the geometry
 // (MPC_SMEM_LAYOUT, kernels/structured_admm.py choose_layout), the first
 // that fits a block (232,448 B). The bytes below are sizeof(Smem), which the Python
 // reckoning (smem_bytes) equals and the library reports
@@ -172,6 +174,22 @@
 //   design, whose chain warps stepped the ring's state as the helpers do,
 //   took +126% and +63%: the state's registers spilled the chain's blocks
 //   (PERF.md §6).
+// * Lean is the stream layout without the 16 vectors that only the thread
+//   owning an element or row reads (OWN_V, OWN_M): the launch's constants
+//   qs, Ps, rx, lxs, uxs, thx (z) and rc, lcs, ucs, E, thr (m) are read from
+//   device memory through the read-only path where they are used, an
+//   element's all at once (z_const, m_const; 8.3 MB for 132 blocks at 61
+//   nodes, inside L2), and the iterates x, zx, yx (z) and zc, yc (m) live in
+//   their owner's registers for the launch (own_iter). That is 4 (9 NV + 7
+//   NM) bytes less: 16 to 24 segments of order 3 (49 to 73 nodes: 234,560 B
+//   stream, 161,488 B lean at 49; 195,824 B at 61; 230,160 B at 73), order 4
+//   x 11 to x 16 (225,648 B at 65 nodes), 9 joints at 34 to 46 nodes, 10
+//   joints at 28 to 37. Nothing the sweeps read moves, so the chain is the
+//   stream's. The only reads across threads of those vectors are the
+//   finishing warp's of the arrow element's Ps and rx, which keep a slot
+//   each (P_AT). The arithmetic is the stream's (the relaxation's FMAs
+//   spelled out as nvcc contracts them there, fma_first), so where both fit
+//   the two give the same results, bitwise.
 // Two other ways were weighed for what does not fit: J in device memory
 // read through L1 (16.8 KB) would put an L1 round trip into A and A' every
 // iteration, and a cluster of two blocks holding the factors in distributed
@@ -194,7 +212,13 @@
 // A': 37 nodes at 512 threads (16 warps, four on a scheduler) 128
 // registers and no spills; at 544 and 608 threads (five warps on a
 // scheduler) 96: 40 and 46 nodes 196 and 160 B of spill stores, order 4 x
-// 10 200 and 164 B, 31 nodes and 9 joints 300 and 288 B.
+// 10 200 and 164 B, 31 nodes and 9 joints 300 and 288 B. The lean layout
+// keeps the 5 iterates of each element in registers: 61 nodes (832 threads)
+// 72 registers, 576 and 436 B; order 4 x 16 (832) 72, 608 and 452 B; 46
+// nodes (608, built only to hold it) 96, 284 and 244 B; 73 nodes (992) 64
+// and 32 registers, 900 and 1,896 B; 9 joints at 46 nodes (800) 72 and 32,
+// 1,236 and 2,384 B; 10 joints at 37 nodes (704) 40 and 40, 4,240 and 2,344
+// B (chip_smoke.py phase 25).
 
 #include "common.cuh"
 
@@ -221,22 +245,24 @@ constexpr int NAHEAD = BW - 1;             // look-ahead distances 2..BW
 constexpr int NAHEAD_BUF = NAHEAD > 0 ? NAHEAD : 1;
 
 // the shared-memory layouts (the header says which geometry takes which)
-enum Layout { FULL = 0, COMPACT = 1, SPLIT = 2, STREAM = 3 };
+enum Layout { FULL = 0, COMPACT = 1, SPLIT = 2, STREAM = 3, LEAN = 4 };
 constexpr int LAYOUT = MPC_SMEM_LAYOUT;
-static_assert(LAYOUT >= FULL && LAYOUT <= STREAM, "a layout of common.cuh");
+static_assert(LAYOUT >= FULL && LAYOUT <= LEAN, "a layout of common.cuh");
 constexpr bool PACKED_LDI = LAYOUT != FULL;
-// split and stream: Lsub goes through a ring of node runs. Node m's blocks
-// L[m+1,m] .. L[m+BW,m] lie side by side in Lsub; its run is the last BW - 1
-// of them (split: the helpers' blocks) or all BW (stream: the chain's block
-// L[m+1,m] too). A ring of RING runs holds node m's in slot m % RING, copied
+// stream and lean: the chain's distance-1 blocks go through the ring too
+constexpr bool STREAMED = LAYOUT == STREAM || LAYOUT == LEAN;
+// split, stream and lean: Lsub goes through a ring of node runs. Node m's
+// blocks L[m+1,m] .. L[m+BW,m] lie side by side in Lsub; its run is the last
+// BW - 1 of them (split: the helpers' blocks) or all BW (stream and lean: the
+// chain's block L[m+1,m] too). A ring of RING runs holds node m's in slot m % RING, copied
 // from the 16-byte boundary at or before the run, so up to 3 floats more.
 // The ring is filled LEAD steps ahead of a run's first use, and RING is the
 // fewest runs for which no copy overwrites a run still to be read: BW + LEAD
 // - 2 in the split, one more in the stream, whose chain reads a run one step
 // after the helper of distance 2 in the backward sweep (ring_step).
-constexpr bool RINGED = LAYOUT == SPLIT || LAYOUT == STREAM;
+constexpr bool RINGED = LAYOUT == SPLIT || STREAMED;
 static_assert(!RINGED || BW >= 2, "the helper of distance 2 paces the ring's copier");
-constexpr int RUN0 = LAYOUT == STREAM ? 0 : 1;  // a run starts at L[m+1+RUN0,m]
+constexpr int RUN0 = STREAMED ? 0 : 1;  // a run starts at L[m+1+RUN0,m]
 constexpr int LEAD = 2;
 constexpr int RING = BW + LEAD - 1 - RUN0;
 constexpr int RUN = (BW - RUN0) * BLK2;
@@ -248,12 +274,21 @@ constexpr int NCOPY = LAST_RUN + 1 - RING > 0 ? LAST_RUN + 1 - RING : 0;
 // the distance-1 blocks L[k,k-1] that stay in shared memory (the split's)
 constexpr int D1_FLOATS = LAYOUT == SPLIT ? (N - 1) * BLK2 : 0;
 // floats of Lsub in shared memory: all blocks; those up to L[N-1,N-2]; or
-// (split, stream) the resident distance-1 blocks, up to 3 floats to a
+// (split, stream, lean) the resident distance-1 blocks, up to 3 floats to a
 // 16-byte boundary, the ring, its barriers (8 bytes each) and the copier's
 // progress count
 constexpr int LSUB_FLOATS = LAYOUT == FULL      ? N * BW * BLK2
                             : LAYOUT == COMPACT ? LSUB_USED * BLK2
                                                 : D1_FLOATS + 3 + RING * (SLOT + 2) + 1;
+// The owner-only vectors: 16 z and m vectors are read and written only by
+// the thread that owns the element or row, the launch's constants qs, Ps,
+// rx, lxs, uxs, thx (z) and rc, lcs, ucs, E, thr (m) and the iterates x, zx,
+// yx (z) and zc, yc (m); only the finishing warp reads two of them across
+// threads, the arrow element's Ps and rx. The lean layout keeps one float of
+// each in shared memory, so that every member stays: the arrow element's Ps
+// and rx (at P_AT), the others unused (z_const, m_const, own_iter).
+constexpr int OWN_V = LAYOUT == LEAN ? 1 : NV, OWN_M = LAYOUT == LEAN ? 1 : NM;
+constexpr int P_AT = LAYOUT == LEAN ? 0 : NB;  // the arrow element's Ps and rx
 
 struct Params {
   float Dm[KL * KL];  // Dm[k*KL + j]
@@ -285,10 +320,10 @@ struct Smem {
   float u[NB];
   float J[N * NG * BLK];
   float fseg[NEQ];
-  float qs[NV], Ps[NV], rx[NV], lxs[NV], uxs[NV], thx[NV], D[NV];
-  float rc[NM], lcs[NM], ucs[NM], E[NM], thr[NM];
-  float x[NV], zx[NV], yx[NV];
-  float zc[NM], yc[NM];
+  float qs[OWN_V], Ps[OWN_V], rx[OWN_V], lxs[OWN_V], uxs[OWN_V], thx[OWN_V], D[NV];
+  float rc[OWN_M], lcs[OWN_M], ucs[OWN_M], E[OWN_M], thr[OWN_M];
+  float x[OWN_V], zx[OWN_V], yx[OWN_V];
+  float zc[OWN_M], yc[OWN_M];
   float t0[NV];                      // sigma x - qs + rx zx - yx
   float wa[NM];                      // E (rc zc - yc)
   float rhs[NV];
@@ -307,7 +342,7 @@ struct Smem {
   int done;
 };
 static_assert(sizeof(Smem) <= SMEM_LIMIT, "shared memory of one block: the build's layout");
-// split and stream: where the ring starts in Lsub, the first 16-byte
+// split, stream and lean: where the ring starts in Lsub, the first 16-byte
 // boundary of the block's shared memory after the resident distance-1 blocks
 constexpr int LSUB_AT = (int)offsetof(Smem, Lsub) / 4;
 constexpr int RING_AT = (LSUB_AT + D1_FLOATS + 3) / 4 * 4 - LSUB_AT;
@@ -321,6 +356,53 @@ __device__ __forceinline__ float soft_update(float za, float y, float r, float l
   float v = za + y / r;
   float box = clampf(v, lo, hi);
   return ftz(v - clampf(v - box, -t, t));
+}
+
+// ---- the owner-only vectors ----
+
+// The launch's constants of a z element (with its soft box lo, hi, th) and
+// of a constraint row. The lean layout reads them from device memory through
+// the read-only path (L2), the others from shared memory. An element-wise
+// phase takes those of all its elements at its start, so that the loads go
+// off together and their latency is paid once; a field it does not use is
+// not loaded.
+struct ZConst {
+  float qs, Ps, rx, lo, hi, th;
+};
+struct MConst {
+  float E, rc, lo, hi, th;
+};
+
+// the thread's z element e, at j = zo + its index in the z-layout
+__device__ __forceinline__ ZConst z_const(const Smem& sm, const Ptrs& g, int e, size_t j) {
+  if constexpr (LAYOUT == LEAN)
+    return {__ldg(g.qs + j), __ldg(g.Ps + j), __ldg(g.rx + j),
+            __ldg(g.lxs + j), __ldg(g.uxs + j), __ldg(g.thx + j)};
+  else
+    return {sm.qs[e], sm.Ps[e], sm.rx[e], sm.lxs[e], sm.uxs[e], sm.thx[e]};
+}
+
+// the thread's row i, at j = mo + i
+__device__ __forceinline__ MConst m_const(const Smem& sm, const Ptrs& g, int i, size_t j) {
+  if constexpr (LAYOUT == LEAN)
+    return {__ldg(g.E + j), __ldg(g.rc + j), __ldg(g.lcs + j), __ldg(g.ucs + j), __ldg(g.thr + j)};
+  else
+    return {sm.E[i], sm.rc[i], sm.lcs[i], sm.ucs[i], sm.thr[i]};
+}
+
+// An iterate of the thread's q-th element or row e: in shared memory, or
+// (lean) in the owner's registers, r[q] (q unrolled).
+__device__ __forceinline__ float& own_iter(float* s, float (&r)[EPT], int q, int e) {
+  if constexpr (LAYOUT == LEAN) return r[q];
+  else return s[e];
+}
+
+// a u + b v as the other layouts' builds contract it, fma(a, u, b v). Where v
+// is a register (the lean layout's iterates) nvcc contracts the other
+// product, fma(b, v, a u), so the lean build spells the FMA out and gives
+// the stream build's results bitwise.
+__device__ __forceinline__ float fma_first(float a, float u, float b, float v) {
+  return __fmaf_rn(a, u, __fmul_rn(b, v));
 }
 
 // ---- BLK-vectors in registers ----
@@ -692,7 +774,7 @@ __device__ __forceinline__ int ring_copy_count(int m, int pairs) {
 // pairs of sweeps done.
 template <bool FWD>
 __device__ __forceinline__ const float* lsub_d1(const Smem& sm, const Ring& r, int j) {
-  if constexpr (LAYOUT == STREAM) {
+  if constexpr (STREAMED) {
     const int s = j % RING;
     const unsigned bar = (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT + RING * SLOT);
     barrier_wait(bar + 8 * s, (unsigned)(ring_copy_count<FWD>(j, r.pairs) - 1) & 1u);
@@ -799,7 +881,7 @@ __device__ __forceinline__ void finish_sweep(Smem& sm, int lane, float sigma) {
   pu = warp_sum(pu);
   pf = warp_sum(pf);
   const float rhs_p =
-      CORRECTION ? sm.wc[NB] - ((sm.Ps[NB] + sigma + sm.rx[NB]) * sm.xt[NB] - sm.D[NB] * pf)
+      CORRECTION ? sm.wc[NB] - ((sm.Ps[P_AT] + sigma + sm.rx[P_AT]) * sm.xt[NB] - sm.D[NB] * pf)
                  : sm.t0[NB] - sm.D[NB] * pf;
   const float zp = (rhs_p - pu) / sm.s;
   if (CORRECTION) warp_barrier();  // every lane has read xt_p
@@ -920,30 +1002,48 @@ structured_admm_kernel(Params P, Ptrs g) {
   copy<NB>(sm.u, g.u + (size_t)b * NB);
   copy<N * NG * BLK>(sm.J, g.J + (size_t)b * N * NG * BLK);
   copy<NEQ>(sm.fseg, g.f_rows + (size_t)b * NEQ);
+  // the lean layout's iterates, in their owner's registers (own_iter)
+  float X[EPT], ZX[EPT], YX[EPT], ZC[EPT], YC[EPT];
 #pragma unroll
   for (int q = 0; q < EPT; ++q) {
     const int e = tid + q * NT;
     if (e < NV) {
       const size_t j = zo + ze[q].z;
-      sm.qs[e] = g.qs[j];
-      sm.Ps[e] = g.Ps[j];
-      sm.rx[e] = g.rx[j];
-      sm.lxs[e] = g.lxs[j];
-      sm.uxs[e] = g.uxs[j];
-      sm.thx[e] = g.thx[j];
+      if constexpr (LAYOUT != LEAN) {
+        sm.qs[e] = g.qs[j];
+        sm.Ps[e] = g.Ps[j];
+        sm.rx[e] = g.rx[j];
+        sm.lxs[e] = g.lxs[j];
+        sm.uxs[e] = g.uxs[j];
+        sm.thx[e] = g.thx[j];
+      } else if (e == NB) {
+        sm.Ps[P_AT] = g.Ps[j];
+        sm.rx[P_AT] = g.rx[j];
+      }
       sm.D[e] = g.D[j];
-      sm.x[e] = g.x0[j];
-      sm.zx[e] = g.zx0[j];
-      sm.yx[e] = g.yx0[j];
+      own_iter(sm.x, X, q, e) = g.x0[j];
+      own_iter(sm.zx, ZX, q, e) = g.zx0[j];
+      own_iter(sm.yx, YX, q, e) = g.yx0[j];
     }
   }
-  copy<NM>(sm.rc, g.rc + mo);
-  copy<NM>(sm.lcs, g.lcs + mo);
-  copy<NM>(sm.ucs, g.ucs + mo);
-  copy<NM>(sm.E, g.E + mo);
-  copy<NM>(sm.thr, g.thr + mo);
-  copy<NM>(sm.zc, g.zc0 + mo);
-  copy<NM>(sm.yc, g.yc0 + mo);
+  if constexpr (LAYOUT != LEAN) {
+    copy<NM>(sm.rc, g.rc + mo);
+    copy<NM>(sm.lcs, g.lcs + mo);
+    copy<NM>(sm.ucs, g.ucs + mo);
+    copy<NM>(sm.E, g.E + mo);
+    copy<NM>(sm.thr, g.thr + mo);
+    copy<NM>(sm.zc, g.zc0 + mo);
+    copy<NM>(sm.yc, g.yc0 + mo);
+  } else {
+#pragma unroll
+    for (int q = 0; q < EPT; ++q) {
+      const int i = tid + q * NT;
+      if (i < NM) {
+        ZC[q] = g.zc0[mo + i];
+        YC[q] = g.yc0[mo + i];
+      }
+    }
+  }
   if (tid < KL * KL) sm.Dm[tid] = P.Dm[tid];
   if (tid == 0) {
     sm.p = g.p[b];
@@ -956,8 +1056,15 @@ structured_admm_kernel(Params P, Ptrs g) {
 #pragma unroll
   for (int q = 0; q < EPT; ++q) {
     const int e = tid + q * NT;
-    if (e < NV) sm.t0[e] = sigma * sm.x[e] - sm.qs[e] + sm.rx[e] * sm.zx[e] - sm.yx[e];
-    if (e < NM) sm.wa[e] = sm.E[e] * (sm.rc[e] * sm.zc[e] - sm.yc[e]);
+    if (e < NV) {
+      const ZConst c = z_const(sm, g, e, zo + ze[q].z);
+      sm.t0[e] = sigma * own_iter(sm.x, X, q, e) - c.qs + c.rx * own_iter(sm.zx, ZX, q, e) -
+                 own_iter(sm.yx, YX, q, e);
+    }
+    if (e < NM) {
+      const MConst c = m_const(sm, g, e, mo + e);
+      sm.wa[e] = c.E * (c.rc * own_iter(sm.zc, ZC, q, e) - own_iter(sm.yc, YC, q, e));
+    }
   }
   __syncthreads();
 
@@ -982,17 +1089,21 @@ structured_admm_kernel(Params P, Ptrs g) {
 #pragma unroll
         for (int q = 0; q < EPT; ++q) {
           const int e = tid + q * NT;
-          if (e < NM)
-            sm.wb[e] = sm.E[e] * (sm.rc[e] * (sm.E[e] * a_row(sm, sm.dx, e, mr[q])));
+          if (e < NM) {
+            const MConst c = m_const(sm, g, e, mo + e);
+            sm.wb[e] = c.E * (c.rc * (c.E * a_row(sm, sm.dx, e, mr[q])));
+          }
           if (r == 0 && e < NB) sm.wc[e] = sm.rhs[e];
         }
         __syncthreads();
 #pragma unroll
         for (int q = 0; q < EPT; ++q) {
           const int e = tid + q * NT;
-          if (e < NB)
-            sm.rhs[e] = sm.wc[e] - ((sm.Ps[e] + sigma + sm.rx[e]) * sm.xt[e] +
+          if (e < NB) {
+            const ZConst c = z_const(sm, g, e, zo + ze[q].z);
+            sm.rhs[e] = sm.wc[e] - ((c.Ps + sigma + c.rx) * sm.xt[e] +
                                     sm.D[e] * at_elem(sm, sm.wb, ze[q]));
+          }
         }
         __syncthreads();
         solve_sweeps<REFINE, true>(sm, ring, warp, lane, sigma);
@@ -1005,27 +1116,44 @@ structured_admm_kernel(Params P, Ptrs g) {
     for (int q = 0; q < EPT; ++q) {
       const int i = tid + q * NT;
       if (i < NM) {
-        float za = alpha * sm.E[i] * a_row(sm, sm.dx, i, mr[q]) + (1.f - alpha) * sm.zc[i];
-        float zn = soft_update(za, sm.yc[i], sm.rc[i], sm.lcs[i], sm.ucs[i], sm.thr[i]);
-        float yn = ftz(sm.yc[i] + sm.rc[i] * (za - zn));
-        sm.yc[i] = yn;
-        sm.zc[i] = zn;
-        sm.wa[i] = sm.E[i] * (sm.rc[i] * zn - yn);
+        const MConst c = m_const(sm, g, i, mo + i);
+        float& zc = own_iter(sm.zc, ZC, q, i);
+        float& yc = own_iter(sm.yc, YC, q, i);
+        float za;
+        if constexpr (LAYOUT == LEAN)
+          za = fma_first(alpha * c.E, a_row(sm, sm.dx, i, mr[q]), 1.f - alpha, zc);
+        else
+          za = alpha * c.E * a_row(sm, sm.dx, i, mr[q]) + (1.f - alpha) * zc;
+        float zn = soft_update(za, yc, c.rc, c.lo, c.hi, c.th);
+        float yn = ftz(yc + c.rc * (za - zn));
+        yc = yn;
+        zc = zn;
+        sm.wa[i] = c.E * (c.rc * zn - yn);
       }
     }
 #pragma unroll
     for (int q = 0; q < EPT; ++q) {
       const int e = tid + q * NT;
       if (e < NV) {
+        const ZConst c = z_const(sm, g, e, zo + ze[q].z);
+        float& x = own_iter(sm.x, X, q, e);
+        float& zx = own_iter(sm.zx, ZX, q, e);
+        float& yx = own_iter(sm.yx, YX, q, e);
         float xt = sm.xt[e];
-        float xn = ftz(alpha * xt + (1.f - alpha) * sm.x[e]);
-        float za = alpha * xt + (1.f - alpha) * sm.zx[e];
-        float zn = soft_update(za, sm.yx[e], sm.rx[e], sm.lxs[e], sm.uxs[e], sm.thx[e]);
-        float yn = ftz(sm.yx[e] + sm.rx[e] * (za - zn));
-        sm.x[e] = xn;
-        sm.zx[e] = zn;
-        sm.yx[e] = yn;
-        sm.t0[e] = sigma * xn - sm.qs[e] + sm.rx[e] * zn - yn;
+        float xn, za;
+        if constexpr (LAYOUT == LEAN) {
+          xn = ftz(fma_first(alpha, xt, 1.f - alpha, x));
+          za = fma_first(alpha, xt, 1.f - alpha, zx);
+        } else {
+          xn = ftz(alpha * xt + (1.f - alpha) * x);
+          za = alpha * xt + (1.f - alpha) * zx;
+        }
+        float zn = soft_update(za, yx, c.rx, c.lo, c.hi, c.th);
+        float yn = ftz(yx + c.rx * (za - zn));
+        x = xn;
+        zx = zn;
+        yx = yn;
+        sm.t0[e] = sigma * xn - c.qs + c.rx * zn - yn;
       }
     }
     ++k;
@@ -1039,12 +1167,14 @@ structured_admm_kernel(Params P, Ptrs g) {
       for (int q = 0; q < EPT; ++q) {
         const int e = tid + q * NT;
         if (e < NV) {
-          big |= !(fabsf(sm.x[e]) <= 1e12f) || !(fabsf(sm.yx[e]) <= 1e12f);
-          sm.dx[e] = sm.D[e] * sm.x[e];
+          const float x = own_iter(sm.x, X, q, e);
+          big |= !(fabsf(x) <= 1e12f) || !(fabsf(own_iter(sm.yx, YX, q, e)) <= 1e12f);
+          sm.dx[e] = sm.D[e] * x;
         }
         if (e < NM) {
-          big |= !(fabsf(sm.yc[e]) <= 1e12f);
-          float w = sm.E[e] * sm.yc[e];
+          const float yc = own_iter(sm.yc, YC, q, e);
+          big |= !(fabsf(yc) <= 1e12f);
+          float w = m_const(sm, g, e, mo + e).E * yc;
           sm.wb[e] = w;
           if (e < NEQ) part = q == 0 ? sm.fseg[e] * w : part + sm.fseg[e] * w;
         }
@@ -1065,8 +1195,9 @@ structured_admm_kernel(Params P, Ptrs g) {
       for (int q = 0; q < EPT; ++q) {
         const int i = tid + q * NT;
         if (i < NM) {
-          float e = sm.E[i], ax = e * sm.wc[i];
-          float t0 = fabsf((ax - sm.zc[i]) / e), t1 = fabsf(ax / e), t2 = fabsf(sm.zc[i] / e);
+          const float zc = own_iter(sm.zc, ZC, q, i);
+          float e = m_const(sm, g, i, mo + i).E, ax = e * sm.wc[i];
+          float t0 = fabsf((ax - zc) / e), t1 = fabsf(ax / e), t2 = fabsf(zc / e);
           nan |= isnan(t0) || isnan(t1) || isnan(t2);
           m[0] = fmaxf(m[0], t0);
           m[2] = fmaxf(m[2], fmaxf(t1, t2));
@@ -1076,12 +1207,14 @@ structured_admm_kernel(Params P, Ptrs g) {
       for (int q = 0; q < EPT; ++q) {
         const int j = tid + q * NT;
         if (j < NV) {
-          float d = sm.D[j], x = sm.x[j], aty = d * sm.xt[j];
-          float t0 = fabsf(d * (x - sm.zx[j]));
-          float t1 = fabsf((sm.Ps[j] * x + sm.qs[j] + aty + sm.yx[j]) / d);
-          float t2 = fmaxf(fabsf(d * x), fabsf(d * sm.zx[j]));
-          float t3 = fmaxf(fmaxf(fabsf(sm.Ps[j] * x / d), fabsf(sm.qs[j] / d)),
-                           fmaxf(fabsf(aty / d), fabsf(sm.yx[j] / d)));
+          const ZConst c = z_const(sm, g, j, zo + ze[q].z);
+          const float zx = own_iter(sm.zx, ZX, q, j), yx = own_iter(sm.yx, YX, q, j);
+          float d = sm.D[j], x = own_iter(sm.x, X, q, j), aty = d * sm.xt[j];
+          float t0 = fabsf(d * (x - zx));
+          float t1 = fabsf((c.Ps * x + c.qs + aty + yx) / d);
+          float t2 = fmaxf(fabsf(d * x), fabsf(d * zx));
+          float t3 = fmaxf(fmaxf(fabsf(c.Ps * x / d), fabsf(c.qs / d)),
+                           fmaxf(fabsf(aty / d), fabsf(yx / d)));
           nan |= isnan(t0) || isnan(t1) || isnan(t2) || isnan(t3);
           m[0] = fmaxf(m[0], t0);
           m[1] = fmaxf(m[1], t1);
@@ -1107,13 +1240,13 @@ structured_admm_kernel(Params P, Ptrs g) {
     const int e = tid + q * NT;
     if (e < NV) {
       const size_t j = zo + ze[q].z;
-      g.x[j] = sm.x[e];
-      g.zx[j] = sm.zx[e];
-      g.yx[j] = sm.yx[e];
+      g.x[j] = own_iter(sm.x, X, q, e);
+      g.zx[j] = own_iter(sm.zx, ZX, q, e);
+      g.yx[j] = own_iter(sm.yx, YX, q, e);
     }
     if (e < NM) {
-      g.zc[mo + e] = sm.zc[e];
-      g.yc[mo + e] = sm.yc[e];
+      g.zc[mo + e] = own_iter(sm.zc, ZC, q, e);
+      g.yc[mo + e] = own_iter(sm.yc, YC, q, e);
     }
   }
   if (tid == 0) {

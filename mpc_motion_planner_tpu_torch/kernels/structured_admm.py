@@ -16,7 +16,7 @@ nodes, spline order and the robot's joint count): :func:`ept_of` z
 elements and as many constraint rows per thread (:func:`threads`: one of
 each up to 1024 threads, two past them), node vectors padded
 to :func:`vpad` floats, one helper warp and one look-ahead vector per
-distance 2..bw of the band (bw = the spline order), and the first of four
+distance 2..bw of the band (bw = the spline order), and the first of five
 shared-memory layouts (:func:`choose_layout`, :func:`smem_bytes`) that fits a
 block: full; compact where the full one does not fit (Ldi packed lower
 triangular, Lsub without its unread tail: 232,176 B at 25 nodes of the
@@ -28,13 +28,18 @@ device memory: order 4 at 25 nodes, 9 and 10 joints at 19 nodes, 28 nodes
 of order 3); stream where the split does not fit (no block of Lsub in
 shared memory: the chain's distance-1 blocks go through the same ring, a
 node's run one block longer: 37 nodes of order 3 or 4, 9 and 10 joints at
-25 nodes, order 5 at 7 segments). :func:`ring_schedule` models the ring's
-copies and reads step by step. Two elements a thread take 40 to 46 nodes of
-order 3 (608 threads at 46), order 4 x 10 and 9 joints at 31 nodes. A
-geometry that fits no layout (49 nodes of order 3: 234,560 B; order 4 x 11;
-10 joints at 28 nodes) raises a ValueError that names the bytes; nothing
-solves it another way. The figures below are the 19-node Panda
-transcription's.
+25 nodes, order 5 at 7 segments); lean where the stream does not fit (the
+stream layout without the 16 vectors that only the thread owning an element
+or row reads: the launch's constants are read from device memory where they
+are used, the iterates live in the owner's registers; 49 to 73 nodes of
+order 3, 195,824 B at 61; order 4 x 11 to x 16, 9 joints at 34 to 46
+nodes, 10 joints at 28 to 37). :func:`ring_schedule` models the ring's
+copies and reads step by step. Two elements a thread take 40 to 73 nodes of
+order 3 (608 threads at 46, 832 at 61), order 4 x 10 to x 16 and 9 joints
+from 31 nodes. A geometry that fits no layout (76 nodes of order 3: 238,736
+B in the lean layout; order 4 x 17; 10 joints at 40 nodes) raises a
+ValueError that names the bytes; nothing solves it another way. The
+figures below are the 19-node Panda transcription's.
 
 What bounds it on this card: latency. Each iteration is ~157k flops per
 problem, 85% of them in the two banded triangular sweeps, and the factors
@@ -92,27 +97,34 @@ KERNEL = CudaKernel(
     resolve=lambda g: built_geometry(g),
 )
 
+# the layouts whose Lsub goes through the copier's ring, and those of them
+# whose chain reads its blocks from the ring too
+RINGED = ("split", "stream", "lean")
+STREAMED = ("stream", "lean")
+
+
 def ring_runs(g: Geometry, layout: str = "split") -> int:
-    """Slots of the ring (RING) of the split or stream layout: a slot holds a
-    node's run, copied 2 steps ahead of its first use; bw runs (split) or bw
-    + 1 (stream, whose chain reads a run one step after the helpers in the
-    backward sweep) are the fewest for which no copy overwrites a run still
-    to be read (:func:`ring_schedule`)."""
-    return g.order + (layout == "stream")
+    """Slots of the ring (RING) of the split, stream or lean layout: a slot
+    holds a node's run, copied 2 steps ahead of its first use; bw runs
+    (split) or bw + 1 (stream and lean, whose chain reads a run one step
+    after the helpers in the backward sweep) are the fewest for which no copy
+    overwrites a run still to be read (:func:`ring_schedule`)."""
+    return g.order + (layout in STREAMED)
 
 
 def ring_slot(g: Geometry, layout: str = "split") -> int:
     """Floats of a ring slot (SLOT): a node's run of bw - 1 helper blocks
-    (split) or of all its bw blocks (stream), copied from the 16-byte
-    boundary at or before its start to the one at or after its end."""
-    return ((g.order - (layout != "stream")) * g.blk ** 2 + 6) // 4 * 4
+    (split) or of all its bw blocks (stream and lean), copied from the
+    16-byte boundary at or before its start to the one at or after its
+    end."""
+    return ((g.order - (layout not in STREAMED)) * g.blk ** 2 + 6) // 4 * 4
 
 
 LEAD = 2  # steps between a run's copy and the step it is first read in
 
 
 def ring_schedule(g: Geometry, layout: str = "split", iterations: int = 2):
-    """A model of the ring of the split or stream layout (csrc/
+    """A model of the ring of the split, stream or lean layout (csrc/
     structured_admm.cu ``ring_start`` and ``ring_step``) through
     ``iterations`` pairs of sweeps, forward then backward, step by step.
     Time is counted in steps of the whole run, n = N x sweep + step: the
@@ -121,9 +133,9 @@ def ring_schedule(g: Geometry, layout: str = "split", iterations: int = 2):
     barrier. Returns ``(copies, reads)``: ``copies`` a list of (n, node,
     slot), n = None for those of ``ring_start``; ``reads`` a list of (n,
     node, slot, block, who) with ``who`` "chain" (``chain_fetch``, stream
-    only) or the helper's distance (``ring_take``)."""
+    and lean only) or the helper's distance (``ring_take``)."""
     N, bw = g.nodes, g.order
-    run0 = 0 if layout == "stream" else 1
+    run0 = 0 if layout in STREAMED else 1
     ring, last = ring_runs(g, layout), N - 2 - run0
     lo, hi = 0, min(ring, last + 1) - 1
     copies = [(None, m, m % ring) for m in range(hi + 1)]
@@ -135,7 +147,7 @@ def ring_schedule(g: Geometry, layout: str = "split", iterations: int = 2):
                 if t + d < N:
                     m = t if fwd else N - 1 - t - d
                     reads.append((base + t, m, m % ring, d - 1 - run0, d))
-            if layout == "stream" and t + 1 < N:
+            if layout in STREAMED and t + 1 < N:
                 # chain_fetch of step t + 1 (after the barrier of step t - 1):
                 # L[t+1,t] of node t (forward), L[k+1,k] of node k = N-2-t
                 m = t if fwd else N - 2 - t
@@ -154,10 +166,11 @@ def ring_copy_count(g: Geometry, layout: str, m: int, pairs: int, fwd: bool) -> 
     """The copies into node m's slot up to the one that holds node m's run
     when a sweep (forward if ``fwd``) reads it after ``pairs`` pairs of
     sweeps (csrc/structured_admm.cu ``ring_copy_count``, from which the
-    stream layout's chain takes the parity of the barrier phase it waits
-    for): every pair copies the same runs, forward the nodes ring .. last,
-    backward the ``ncopy`` nodes below those the forward leaves."""
-    ring, last = ring_runs(g, layout), g.nodes - 2 - (layout != "stream")
+    chain of the stream and lean layouts takes the parity of the barrier
+    phase it waits for): every pair copies the same runs, forward the nodes
+    ring .. last, backward the ``ncopy`` nodes below those the forward
+    leaves."""
+    ring, last = ring_runs(g, layout), g.nodes - 2 - (layout not in STREAMED)
     ring0, ncopy, s = min(ring, last + 1), max(last + 1 - ring, 0), m % ring
     fwd_copies = (last - s) // ring if last >= s else 0
     bwd_copies = (ncopy - 1 - s) // ring + 1 if s < ncopy else 0
@@ -206,15 +219,18 @@ def smem_bytes(g: Geometry, layout: str = None) -> int:
     N, blk, nv, neq, nm, pad = g.nodes, g.blk, g.num_var, g.num_eq, g.num_rows, vpad(g)
     nb, blk2, bw, kl = N * blk, blk * blk, g.order, g.order + 1
     ldi = N * (blk2 if layout == "full" else blk * (blk + 1) // 2)  # else packed
-    if layout in ("split", "stream"):  # the resident distance-1 blocks (split), 3
-        # floats to a 16-byte boundary, the ring, its barriers (8 bytes each)
-        # and the copier's progress count
+    if layout in RINGED:  # the resident distance-1 blocks (split), 3 floats to
+        # a 16-byte boundary, the ring, its barriers (8 bytes each) and the
+        # copier's progress count
         d1 = (N - 1) * blk2 if layout == "split" else 0
         lsub = d1 + 3 + ring_runs(g, layout) * (ring_slot(g, layout) + 2) + 1
     else:  # compact: the blocks up to L[N-1,N-2]
         lsub = (N * bw if layout == "full" else (N - 2) * bw + 1) * blk2
+    # the owner-only vectors (OWN_V, OWN_M): lean keeps one float of each
+    ov, om = (1, 1) if layout == "lean" else (nv, nm)
     fields = ([(ldi, 4), (lsub, 4), (nb, 4), (N * g.ng * blk, 4), (neq, 4)]
-              + [(nv, 4)] * 7 + [(nm, 4)] * 5 + [(nv, 4)] * 3 + [(nm, 4)] * 2
+              + [(ov, 4)] * 6 + [(nv, 4)]  # qs, Ps, rx, lxs, uxs, thx; D
+              + [(om, 4)] * 5 + [(ov, 4)] * 3 + [(om, 4)] * 2
               + [(nv, 4), (nm, 4), (nv, 4)]  # t0, wa, rhs
               + [(N * pad, 16), (N * pad, 16), (pad, 16)]  # ys, xs, tb
               + [(max(bw - 1, 1) * nb, 4)]  # ahead: distances 2..bw
@@ -236,9 +252,9 @@ def built_geometry(g: Geometry) -> Geometry:
 
 def choose_layout(g: Geometry) -> str:
     """The shared-memory layout kernel 3 is built in for ``g``: the first of
-    full, compact, split and stream (``LAYOUTS``) whose block fits, else
-    stream, which :func:`check_fits` then refuses."""
-    return next((name for name in LAYOUTS if smem_bytes(g, name) <= SMEM_LIMIT), "stream")
+    full, compact, split, stream and lean (``LAYOUTS``) whose block fits,
+    else lean, which :func:`check_fits` then refuses."""
+    return next((name for name in LAYOUTS if smem_bytes(g, name) <= SMEM_LIMIT), "lean")
 
 
 def sweep_warps(g: Geometry) -> int:
@@ -250,11 +266,12 @@ def sweep_warps(g: Geometry) -> int:
 def check_fits(g: Geometry) -> None:
     """Raise ValueError unless kernel 3 is written for ``g`` (a band of at
     least one sub-diagonal block, a row of a block per lane) and its block
-    fits the card in the layout ``g`` names, or else in one of the four:
+    fits the card in the layout ``g`` names, or else in one of the five:
     232,448 B of shared memory, at most 1024 threads (which only an ept
     that ``g`` names can pass), and warps enough for the sweeps (and the
-    copier of the split and stream layouts, whose ring is paced by the
-    helper of distance 2)."""
+    copier of the split, stream and lean layouts, whose ring is paced by the
+    helper of distance 2); the error of a block too large names the bytes of
+    every layout."""
     if g.order < 1:
         raise ValueError(f"kernel 3 solves with a band of at least one sub-diagonal block; "
                          f"got band width {g.order}")
@@ -273,7 +290,7 @@ def check_fits(g: Geometry) -> None:
         raise ValueError(
             f"{what} needs {smem_bytes(g, name)} B of shared memory per block in its {name} "
             f"layout ({others}); a block may have {SMEM_LIMIT} B")
-    copier = name in ("split", "stream")  # the warp after the sweep warps copies the runs
+    copier = name in RINGED  # the warp after the sweep warps copies the runs
     if copier and g.order < 2:
         raise ValueError(f"kernel 3's {name} layout takes a band of at least two sub-diagonal "
                          f"blocks (the helper of distance 2 paces its copier); got {g.order}")
@@ -317,7 +334,7 @@ def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings:
     inputs = {k: v.contiguous() for d in (data, zdata, mdata, sdata) for k, v in d.items()}
     for k, v in inputs.items():
         check_cuda_tensor(k, v, shapes[k], torch.int32 if k in ("done0", "iters0") else f32)
-    if KERNEL.geometry(g).layout in ("split", "stream") and inputs["Lsub"].data_ptr() % 16:
+    if KERNEL.geometry(g).layout in RINGED and inputs["Lsub"].data_ptr() % 16:
         # the ring's bulk copies start at the 16-byte boundary at or before
         # a block, which must lie inside the tensor
         inputs["Lsub"] = inputs["Lsub"].clone()

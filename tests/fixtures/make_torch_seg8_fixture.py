@@ -5,17 +5,18 @@ segment count.
 headline states (``headline_states_b2048.npz``) and what the JAX planner
 made of them with its OCP swapped for ``--segments`` spline segments of
 order 3 (8 by default: 25 nodes, 526 variables, 648 constraint rows; 12: 37
-nodes, 778 variables, 968 rows),
+nodes, 778 variables, 968 rows; 15: 46 nodes; 20: 61 nodes, 1282 variables,
+1608 rows),
 
     planner.ocp = make_ocp(planner.model, "panda_tool", order=3, num_segments=8)
 
 in the headline slice configuration (structured QP, fixed rho, no KKT
 refinement, per-step ADMM budgets 700/500), solved on the CPU at float64 as
 ``make_torch_port_fixture.py`` solves the 19-node fixture. ``chip_smoke.py``
-phases 19 (8 segments) and 23 (12 segments) hold the port's kernel path
-against it on the GPU, which has no JAX.
+phases 19 (8 segments), 23 (12), 24 (15) and 25 (20 segments) hold the
+port's kernel path against it on the GPU, which has no JAX.
 
-    JAX_PLATFORMS=cpu python tests/fixtures/make_torch_seg8_fixture.py [--segments 12]
+    JAX_PLATFORMS=cpu python tests/fixtures/make_torch_seg8_fixture.py [--segments 20]
 """
 
 from __future__ import annotations

@@ -1,15 +1,16 @@
 """PyTorch port, transcriptions other than the 19-node one: the plain
-structured QP at 8, 4, 12 and 15 spline segments against the JAX
+structured QP at 8, 4, 12, 15 and 20 spline segments against the JAX
 ``structured`` backend (float64); the geometry of a kernel library (its
 ``-D`` flags, one library per geometry, per kernel-3 layout and per count
 of elements a thread, kernel 3's shared memory reckoned member by member in
-its full, compact, split and stream layouts and at two elements a thread,
-the layout each geometry takes, the ring of the split and stream layouts
-modelled step by step, a geometry past the limits raising); the shipping
-QP settings of each node count and ``bench/convergence.py``; the compiled
-solve's key after the planner's OCP is swapped; and the 8-, 12- and
-15-segment JAX fixtures that ``chip_smoke.py`` phases 19, 23 and 24 hold
-the card against."""
+its full, compact, split, stream and lean layouts and at two elements a
+thread, the layout each geometry takes, the ring of the split, stream and
+lean layouts modelled step by step, a geometry past the limits raising);
+the shipping QP settings of each node count, ``bench/convergence.py`` and
+``bench/agreement.py``'s count;
+the compiled solve's key after the planner's OCP is swapped; and the 8-,
+12-, 15- and 20-segment JAX fixtures that ``chip_smoke.py`` phases 19, 23,
+24 and 25 hold the card against."""
 
 import dataclasses
 import json
@@ -46,7 +47,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADLINE_STATES = os.path.join(ROOT, "tests", "fixtures", "headline_states_b2048.npz")
 SEG_FIXTURES = {s: os.path.join(ROOT, "tests", "fixtures", f"torch_port_seg{s}_b64.npz")
-                for s in (8, 12, 15)}
+                for s in (8, 12, 15, 20)}
 MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
 B = 2
 
@@ -68,8 +69,13 @@ def _states(n=B):
             torch.as_tensor(hs["target"][:n].astype(np.float64)))
 
 
-@pytest.mark.parametrize("segments", [8, 4, 12, 15],
-                         ids=["25_nodes", "13_nodes", "37_nodes", "46_nodes"])
+@pytest.mark.parametrize("segments", [
+    pytest.param(8, id="25_nodes"), pytest.param(4, id="13_nodes"),
+    pytest.param(12, id="37_nodes"), pytest.param(15, id="46_nodes"),
+    # ~28 s on the CPU, most of it the JAX compile of the transcription; the
+    # fixture test holds the plain solve at 61 nodes against JAX in the tier
+    pytest.param(20, id="61_nodes", marks=pytest.mark.slow),
+])
 def test_plain_structured_qp_matches_jax_at_other_transcriptions(segments):
     """The step-0 QPs of the first headline states at ``segments`` spline
     segments of order 3, through the port's plain structured solve and the
@@ -99,11 +105,11 @@ def test_plain_structured_qp_matches_jax_at_other_transcriptions(segments):
 
 
 @pytest.mark.parametrize("order,segments,refine", [(3, 6, 0), (3, 12, 0), (3, 13, 0), (4, 10, 0),
-                                                   (3, 14, 1), (3, 15, 1)])
+                                                   (3, 14, 1), (3, 15, 1), (3, 20, 1)])
 def test_shipping_settings_refine_from_43_nodes(order, segments, refine):
     """The shipping QP settings of a transcription are the headline's, with
-    one KKT refinement step from 43 nodes up (46 at 15 segments); nothing
-    else changes."""
+    one KKT refinement step from 43 nodes up (46 at 15 segments, 61 at 20);
+    nothing else changes."""
     nodes = make_ocp(_planner().model, order=order, num_segments=segments).num_nodes
     assert nodes == order * segments + 1
     s = config.shipping_qp_settings(nodes)
@@ -126,6 +132,25 @@ def test_convergence_sweep_prints_one_line_per_run(capsys):
         assert ln["states"] == 2 and ln["dtype"] == "float32" and ln["qp_conv_rate"] == 1.0
         assert len(ln["converged_per_step"]) == 2
         assert all(0 < i <= 700 for i in ln["iterations_max_per_step"])
+
+
+def test_agreement_counts_iterations_off_float64():
+    """``bench/agreement.py``'s reading: of the problems a solve and the
+    float64 loop both converged, how many are more than 25 iterations off
+    the float64 loop's and the median gap; without a GPU it refuses."""
+    from mpc_motion_planner_tpu_torch.bench import agreement
+    from mpc_motion_planner_tpu_torch.ops.qp import QPSolution
+
+    def sol(converged, iterations):
+        return QPSolution(x=None, y_constraints=None, y_box=None,
+                          converged=torch.tensor(converged), iterations=torch.tensor(iterations),
+                          prim_residual=None, dual_residual=None)
+
+    ref64 = sol([True, True, True, False, True], [100, 200, 300, 700, 50])
+    got = sol([True, True, False, True, True], [125, 250, 300, 100, 50])
+    assert agreement.off_float64(got, ref64) == (3, 1, 25)
+    assert agreement.off_float64(sol([False] * 5, [700] * 5), ref64) == (0, 0, 0)
+    assert not torch.cuda.is_available() and agreement.main([]) == 1
 
 
 def test_geometry_flags_reproduce_common_cuh_defaults():
@@ -197,11 +222,15 @@ def test_unfit_geometry_raises_naming_the_bytes():
     layout, 182,432 B. 13 segments (40 nodes, 1048 rows) fit at two z
     elements and rows a thread, 544 threads, in the stream layout (195,280
     B), and 15 (46 nodes) at 608 threads (221,456 B). 16 segments (49
-    nodes) need 234,560 B even in the stream layout: the fit check and the
-    card's QP solve raise and name the bytes, before any build or launch and
-    whatever the data, so nothing falls back to the plain loop."""
+    nodes, 234,560 B stream) fit in the lean layout (161,488 B), and so do
+    up to 24 (73 nodes, 992 threads, 230,160 B). 25 segments (76 nodes,
+    1024 threads) need 238,736 B even in the lean layout: the fit check and
+    the card's QP solve raise and name the bytes of every layout, before any
+    build or launch and whatever the data, so nothing falls back to the
+    plain loop."""
     g28, g37, g40 = Geometry(segments=9), Geometry(segments=12), Geometry(segments=13)
     g46, g49 = Geometry(segments=15), Geometry(segments=16)
+    g73, g76 = Geometry(segments=24), Geometry(segments=25)
     assert k3.smem_bytes(g28, "compact") == 261152 > SMEM_LIMIT
     assert k3.choose_layout(g28) == "split" and k3.smem_bytes(g28) == 180128
     k3.check_fits(g28)
@@ -213,18 +242,27 @@ def test_unfit_geometry_raises_naming_the_bytes():
     for g in (g40, g46):
         assert k3.choose_layout(g) == "stream"
         k3.check_fits(g)
-    assert (k3.threads(g49), k3.smem_bytes(g49)) == (672, 234560)
+    assert (k3.threads(g49), k3.smem_bytes(g49, "stream")) == (672, 234560)
+    assert (k3.threads(g73), k3.smem_bytes(g73)) == (992, 230160)
+    for g in (g49, g73):
+        assert k3.choose_layout(g) == "lean"
+        k3.check_fits(g)
     with pytest.raises(ValueError, match=r"49 nodes, order 3 and 7 joints .* needs 234560 B of "
                                          r"shared memory per block in its stream layout"):
-        k3.check_fits(g49)
-    planner = _planner(16)
+        k3.check_fits(dataclasses.replace(g49, layout="stream"))
+    assert (k3.threads(g76), k3.smem_bytes(g76)) == (1024, 238736)
+    with pytest.raises(ValueError, match=r"76 nodes, order 3 and 7 joints .* needs 238736 B of "
+                                         r"shared memory per block in its lean layout \(full: "
+                                         r"\d+ B, compact: \d+ B, split: \d+ B, stream: 352384 B\)"):
+        k3.check_fits(g76)
+    planner = _planner(25)
     cur, tgt = _states(1)
     z0 = planner.warm_start_vector(planner.plan_warm_start(cur, tgt))
     _, _, sa, args = qp_subproblem(planner.ocp, planner.nlp_bounds(cur, tgt), z0)
     P = hessian_regularization_diag(planner.ocp, 1, torch.float64, "cpu", 0.01)
-    with pytest.raises(ValueError, match="234560 B"):
+    with pytest.raises(ValueError, match="238736 B"):
         k3.solve_box_qp_structured_cuda(planner.ocp, sa, P, *args, config.SHIPPING_QP_SETTINGS)
-    for g in (g40, g46, g49):
+    for g in (g40, g46, g49, g73, g76):
         k2.check_fits(g)  # kernel 2's working set is per node
 
 
@@ -274,24 +312,26 @@ def test_two_elements_a_thread_reckoning():
 
 
 # (segments, order, joints): kernel 3's threads and its bytes in the full,
-# compact, split and stream layouts. The split's bytes are the compact's less
-# the Lsub blocks of distances 2..bw and plus a ring of bw nodes' helper
-# blocks; the stream's keep no Lsub block and a ring of bw + 1 nodes' runs of
-# bw blocks. The first four take the split layout, the rest the stream.
+# compact, split, stream and lean layouts. The split's bytes are the
+# compact's less the Lsub blocks of distances 2..bw and plus a ring of bw
+# nodes' helper blocks; the stream's keep no Lsub block and a ring of bw + 1
+# nodes' runs of bw blocks; the lean's are the stream's less the 16
+# owner-only vectors but a float of each. The first four take the split
+# layout, the rest the stream.
 RING_GEOMETRIES = {
-    (6, 4, 7): (640, 306976, 273632, 173200, 144992),
-    (6, 3, 9): (640, 308464, 267216, 185680, 150704),
-    (6, 3, 10): (704, 372400, 321344, 220640, 177456),
-    (9, 3, 7): (736, 293488, 261152, 180128, 143088),
-    (12, 3, 7): (992, 388032, 348128, 235344, 182432),
-    (9, 4, 7): (928, 454544, 411120, 247200, 197808),
-    (8, 3, 9): (832, 406128, 356448, 239920, 187440),
-    (8, 3, 10): (928, 490288, 428800, 284880, 220112),
+    (6, 4, 7): (640, 306976, 273632, 173200, 144992, 108752),
+    (6, 3, 9): (640, 308464, 267216, 185680, 150704, 114848),
+    (6, 3, 10): (704, 372400, 321344, 220640, 177456, 137680),
+    (9, 3, 7): (736, 293488, 261152, 180128, 143088, 101568),
+    (12, 3, 7): (992, 388032, 348128, 235344, 182432, 127392),
+    (9, 4, 7): (928, 454544, 411120, 247200, 197808, 143936),
+    (8, 3, 9): (832, 406128, 356448, 239920, 187440, 140048),
+    (8, 3, 10): (928, 490288, 428800, 284880, 220112, 167520),
     # two z elements and rows a thread
-    (13, 3, 7): (544, 419264, 376848, 253488, 195280),
-    (10, 4, 7): (544, 503504, 456720, 271616, 215184),
-    (15, 3, 7): (608, 482240, 434784, 290240, 221456),
-    (10, 3, 9): (544, 503536, 445440, 293920, 223952),
+    (13, 3, 7): (544, 419264, 376848, 253488, 195280, 135728),
+    (10, 4, 7): (544, 503504, 456720, 271616, 215184, 155424),
+    (15, 3, 7): (608, 482240, 434784, 290240, 221456, 152896),
+    (10, 3, 9): (544, 503536, 445440, 293920, 223952, 165008),
 }
 
 
@@ -309,10 +349,11 @@ def test_split_layout_reckoning(segments, order, nq):
     compact layout does not fit, the split is the layout the geometry takes,
     and where the split does not, the stream; the fit check passes."""
     g = Geometry(segments=segments, order=order, nq=nq)
-    threads, full, compact, split, stream = RING_GEOMETRIES[segments, order, nq]
+    threads, full, compact, split, stream, lean = RING_GEOMETRIES[segments, order, nq]
     layout = "split" if split <= SMEM_LIMIT else "stream"
     assert k3.threads(g) == threads <= 1024
-    assert tuple(k3.smem_bytes(g, name) for name in LAYOUTS) == (full, compact, split, stream)
+    assert tuple(k3.smem_bytes(g, name) for name in LAYOUTS) == (
+        full, compact, split, stream, lean)
     assert compact > SMEM_LIMIT >= k3.smem_bytes(g, layout) == k3.smem_bytes(g)
     assert k3.choose_layout(g) == layout and stream < split
     blk2, N, bw = g.blk ** 2, g.nodes, g.order
@@ -326,6 +367,8 @@ def test_split_layout_reckoning(segments, order, nq):
     # give or take the padding before the 16-byte aligned members
     assert abs((compact - split) - 4 * (lsub - kept["split"])) < 16
     assert abs((compact - stream) - 4 * (lsub - kept["stream"])) < 16
+    # the lean layout: the stream's less 16 owner-only vectors but a float of each
+    assert abs((stream - lean) - 4 * (9 * (g.num_var - 1) + 7 * (g.num_rows - 1))) < 16
     k3.check_fits(g)
     k3.check_fits(dataclasses.replace(g, layout="stream"))
     for name in LAYOUTS[:LAYOUTS.index(layout)]:
@@ -334,19 +377,20 @@ def test_split_layout_reckoning(segments, order, nq):
             k3.check_fits(dataclasses.replace(g, layout=name))
 
 
-@pytest.mark.parametrize("layout", ["split", "stream"])
+@pytest.mark.parametrize("layout", ["split", "stream", "lean"])
 def test_ring_schedule_serves_every_read(layout):
-    """The ring of the split and stream layouts, modelled step by step as
-    csrc/structured_admm.cu ring_step runs it (``ring_schedule``), at every
-    geometry of orders 2-5 and 6-10 joints whose stream block fits, through two
-    iterations: every read, by the chain's fetch (stream) or by a helper,
-    finds its node's run in its slot, copied at least LEAD steps before,
-    and the copies into that slot so far are ``ring_copy_count``'s (the
-    closed form from which the stream layout's chain takes the parity it
-    waits for); no copy overwrites a run before it is read (so each slot's
-    barrier phase is waited on before the next copy into it); an iteration
-    copies 2 (N - 2 - bw) runs, as the source's header says; and a ring of
-    one run fewer fails at 37 nodes."""
+    """The ring of the split, stream and lean layouts, modelled step by step
+    as csrc/structured_admm.cu ring_step runs it (``ring_schedule``), at
+    every geometry of orders 2-5 and 6-10 joints whose stream block (lean:
+    whose lean block) fits, through two iterations: every read, by the
+    chain's fetch (stream and lean) or by a helper, finds its node's run in
+    its slot, copied at least LEAD steps before, and the copies into that
+    slot so far are ``ring_copy_count``'s (the closed form from which the
+    chain of the stream and lean layouts takes the parity it waits for); no
+    copy overwrites a run before it is read (so each slot's barrier phase is
+    waited on before the next copy into it); an iteration copies 2 (N - 2 -
+    bw) runs, as the source's header says; and a ring of one run fewer fails
+    at 37 nodes."""
     text = " ".join(ln.strip().lstrip("/ ") for ln in
                     (CSRC / "structured_admm.cu").read_text().splitlines())
     assert "An iteration copies 2 (N - 2 - BW) runs" in text and "ring_schedule" in text
@@ -384,7 +428,7 @@ def test_ring_schedule_serves_every_read(layout):
         for nq in range(6, 11):
             for segments in range(1, 60):
                 g = Geometry(segments=segments, order=order, nq=nq)
-                if k3.smem_bytes(g, "stream") > SMEM_LIMIT:
+                if k3.smem_bytes(g, "lean" if layout == "lean" else "stream") > SMEM_LIMIT:
                     break
                 assert faults(g, k3.ring_runs(g, layout)) == [], (g, layout)
                 checked += 1
@@ -402,18 +446,75 @@ def test_ring_schedule_serves_every_read(layout):
     (5, 4, 7, "compact"), (6, 4, 7, "split"), (6, 3, 9, "split"), (6, 3, 10, "split"),
     (9, 3, 7, "split"), (5, 4, 8, "split"), (11, 3, 7, "split"), (12, 3, 7, "stream"),
     (9, 4, 7, "stream"), (8, 3, 9, "stream"), (8, 3, 10, "stream"), (7, 5, 7, "stream"),
+    # the geometries that take the lean layout in chip_smoke.py phase 25
+    (16, 3, 7, "lean"), (20, 3, 7, "lean"), (24, 3, 7, "lean"), (11, 4, 7, "lean"),
+    (16, 4, 7, "lean"), (9, 3, 10, "lean"), (12, 3, 10, "lean"), (15, 3, 9, "lean"),
 ])
 def test_layout_of_each_geometry(segments, order, nq, layout):
-    """Each geometry takes the first of full, compact, split and stream whose
-    block fits, so the geometries that fit before the stream layout keep the
-    layouts they had (full at 19 and 13 nodes, compact at 25, split at order
-    4 x 6 and 34 nodes), and only a geometry that fits none of the first
-    three takes the stream."""
+    """Each geometry takes the first of full, compact, split, stream and lean
+    whose block fits, so the geometries that fit before the stream layout
+    keep the layouts they had (full at 19 and 13 nodes, compact at 25, split
+    at order 4 x 6 and 34 nodes), and only a geometry that fits none of the
+    first three takes the stream, and only one that fits none of the first
+    four the lean."""
     g = Geometry(segments=segments, order=order, nq=nq)
     assert k3.choose_layout(g) == layout
     fits = [k3.smem_bytes(g, name) <= SMEM_LIMIT for name in LAYOUTS]
     assert fits.index(True) == LAYOUTS.index(layout)
-    assert k3.KERNEL.geometry(g) == dataclasses.replace(g, layout=layout, ept=1)
+    assert k3.KERNEL.geometry(g) == dataclasses.replace(g, layout=layout, ept=k3.ept_of(g))
+
+
+def test_lean_layout_is_taken_last_everywhere():
+    """At every geometry of orders 2-5 and 6-10 joints up to the first that
+    fits no layout, the layout taken is the first that fits, so the lean
+    layout only where the stream does not fit, and a geometry whose stream
+    block fits keeps the layout it had before the lean layout existed."""
+    taken = {name: 0 for name in LAYOUTS}
+    for order in (2, 3, 4, 5):
+        for nq in range(6, 11):
+            for segments in range(1, 60):
+                g = Geometry(segments=segments, order=order, nq=nq)
+                fits = [k3.smem_bytes(g, name) <= SMEM_LIMIT for name in LAYOUTS]
+                if not any(fits):
+                    break
+                layout = k3.choose_layout(g)
+                assert layout == LAYOUTS[fits.index(True)]
+                assert (layout == "lean") == (k3.smem_bytes(g, "stream") > SMEM_LIMIT)
+                taken[layout] += 1
+    assert all(taken.values()) and taken["lean"] > 80
+
+
+@pytest.mark.parametrize("segments", [16, 20, 24], ids=["49_nodes", "61_nodes", "73_nodes"])
+def test_lean_layout_reckoning(segments):
+    """Kernel 3's lean block of the Panda at 16, 20 and 24 segments of
+    order 3, member by member: the stream layout's, with one float of each
+    of the 16 owner-only vectors (the arrow element's Ps and rx, and a slot
+    of each of the others), at two z elements and rows a thread."""
+    g = Geometry(segments=segments)
+    N, blk, nv, neq, nm = g.nodes, 21, g.num_var, g.num_eq, g.num_rows
+    threads = {16: 672, 20: 832, 24: 992}[segments]
+    assert (N, nv, nm) == {16: (49, 1030, 1288), 20: (61, 1282, 1608),
+                           24: (73, 1534, 1928)}[segments]
+    assert (k3.ept_of(g), k3.threads(g)) == (2, threads)
+    slot = -(-(3 * blk * blk + 3) // 4) * 4
+    members = [
+        (N * blk * (blk + 1) // 2, 4),  # Ldi, packed
+        (3 + 4 * (slot + 2) + 1, 4),  # Lsub: the ring of 4 runs, barriers, progress
+        (N * blk, 4), (N * 8 * blk, 4), (neq, 4),  # u, J, fseg
+        *[(1, 4)] * 6, (nv, 4), *[(1, 4)] * 5,  # qs .. thx, D, rc .. thr
+        *[(1, 4)] * 5,  # x, zx, yx, zc, yc
+        (nv, 4), (nm, 4), (nv, 4),  # t0, wa, rhs
+        (N * 24, 16), (N * 24, 16), (24, 16),  # ys, xs, tb
+        (2 * N * blk, 4),  # ahead
+        (nv, 4), (nv, 4), (nm, 4), (nm, 4),  # xt, dx, wb, wc
+        (threads // 32 * 4, 4), (16, 4), (1, 4), (1, 4), (1, 4),  # red, Dm, p, s, done
+    ]
+    off = 0
+    for floats, align in members:
+        off = -(-off // align) * align + 4 * floats
+    lean = {16: 161488, 20: 195824, 24: 230160}[segments]
+    assert -(-off // 16) * 16 == k3.smem_bytes(g) == k3.smem_bytes(g, "lean") == lean
+    assert k3.choose_layout(g) == "lean" and lean <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -432,7 +533,7 @@ def test_flags_and_library_per_layout(layout):
     name = k3.KERNEL.library_path(g).name
     assert name.startswith(f"structured_admm_n25_o3_q7_{layout}_e1_")
     others = {k3.KERNEL.library_path(dataclasses.replace(g25, layout=o)) for o in LAYOUTS}
-    assert len(others) == len(LAYOUTS) == 4
+    assert len(others) == len(LAYOUTS) == 5
     assert (k3.KERNEL.library_path(g25) == k3.KERNEL.library_path(g)) == (layout == "compact")
     assert k2.KERNEL.geometry(g) == g25 and k2.KERNEL.library_path(g) == k2.KERNEL.library_path(g25)
     assert k3.smem_bytes(g) == k3.smem_bytes(g25, layout)
@@ -464,9 +565,10 @@ def test_flags_and_library_per_ept(ept):
         Geometry(ept=-1)
 
 
-@pytest.fixture(scope="module", params=[8, 12, 15], ids=["25_nodes", "37_nodes", "46_nodes"])
+@pytest.fixture(scope="module", params=[8, 12, 15, 20],
+                ids=["25_nodes", "37_nodes", "46_nodes", "61_nodes"])
 def seg8_solve(request):
-    """The port's planner with its OCP swapped for 8 (or 12, 15) segments,
+    """The port's planner with its OCP swapped for 8 (or 12, 15, 20) segments,
     solved on the CPU at float64 on the first two states of that segment
     count's JAX fixture, and the capture key before and after the swap."""
     segments = request.param
@@ -494,13 +596,13 @@ def test_capture_key_follows_the_ocp(seg8_solve):
     assert key19 != key_new and key19[:-1] == key_new[:-1]
     assert key_new[-1] == g != Geometry() and key19[-1] == Geometry()
     assert sol.z.shape == (B, g.num_var) and sol.lam_c.shape == (B, g.num_rows)
-    assert (g.num_var, g.num_rows) in ((526, 648), (778, 968), (967, 1208))
+    assert (g.num_var, g.num_rows) in ((526, 648), (778, 968), (967, 1208), (1282, 1608))
     assert set(counts.values()) == {0}
 
 
 def test_seg8_fixture_is_the_jax_solve_of_the_headline_states(seg8_solve):
     """The fixture holds the first 64 headline states and the JAX solve of
-    them at 8 (or 12, 15) segments (``make_torch_seg8_fixture.py``); the port's
+    them at 8 (or 12, 15, 20) segments (``make_torch_seg8_fixture.py``); the port's
     plain solve of its first states matches its final times and iterates to
     the fixture's float32 rounding, and lands in the target box."""
     fx, planner, sol, *_ = seg8_solve

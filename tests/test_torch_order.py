@@ -1,8 +1,8 @@
 """PyTorch port, splines of orders other than 3 (band widths other than 3
 in kernels 2 and 3): the geometry of their libraries (kernel 3's block
 reckoned member by member, kernel 2's working set, order 4 at 6 segments in
-kernel 3's split layout and at 9 and 10 in its stream layout, the refusal of
-a block past the limit), the
+kernel 3's split layout, at 9 and 10 in its stream layout and at 11 to 16 in
+its lean layout, the refusal of a block past the limit), the
 plain versions of kernels 2 and 3 at band widths 2, 4 and 5 against the JAX
 package's factor (node-level, and its Pallas kernel in interpret mode) and
 against the plain banded solve, the plain structured QP at 4 and 6
@@ -10,6 +10,7 @@ segments of order 4 against the JAX ``structured`` backend, and the order-4
 JAX fixtures that ``chip_smoke.py`` phases 21 and 22 hold the card against.
 """
 
+import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -114,10 +115,13 @@ def test_order4_beyond_one_block_raises_naming_the_bytes():
     nodes, 928 threads; 247,200 B split) takes the stream layout, 197,808 B.
     Order 4 at 10 segments (41 nodes, 1028 rows) takes it at two z elements
     and rows a thread, 544 threads, 215,184 B. Order 4 at 11 segments (45
-    nodes) needs 232,752 B even in the stream layout: its fit check and the
-    card's QP solve raise and name the bytes before any build or launch.
-    Kernel 2 takes all five."""
+    nodes, 232,752 B stream) takes the lean layout, 167,120 B, and so does
+    order 4 at 16 (65 nodes, 832 threads, 225,648 B). Order 4 at 17
+    segments (69 nodes) needs 237,360 B even in the lean layout: its fit
+    check and the card's QP solve raise and name the bytes before any build
+    or launch. Kernel 2 takes all seven."""
     g46, g45, g49, g4a, g4b = (Geometry(segments=s, order=4) for s in (6, 5, 9, 10, 11))
+    g65, g69 = Geometry(segments=16, order=4), Geometry(segments=17, order=4)
     assert (k3.smem_bytes(g45), k3.smem_bytes(g45, "full")) == (227792, 257776)
     assert k3.choose_layout(g45) == "compact"
     assert (k3.threads(g46), k3.smem_bytes(g46, "compact")) == (640, 273632)
@@ -128,15 +132,24 @@ def test_order4_beyond_one_block_raises_naming_the_bytes():
     assert k3.choose_layout(g4a) == "stream"
     for g in (g45, g46, g49, g4a):
         k3.check_fits(g)
-    assert (k3.threads(g4b), k3.smem_bytes(g4b)) == (576, 232752)
+    assert (k3.threads(g4b), k3.smem_bytes(g4b, "stream"), k3.smem_bytes(g4b)) == (
+        576, 232752, 167120)
+    assert (k3.threads(g65), k3.smem_bytes(g65)) == (832, 225648)
+    for g in (g4b, g65):
+        assert k3.choose_layout(g) == "lean"
+        k3.check_fits(g)
     with pytest.raises(ValueError, match=r"45 nodes, order 4 .* needs 232752 B of shared memory "
                                          r"per block in its stream layout"):
-        k3.check_fits(g4b)
-    planner = _planner(4, 11)
+        k3.check_fits(dataclasses.replace(g4b, layout="stream"))
+    assert (k3.threads(g69), k3.smem_bytes(g69)) == (896, 237360)
+    with pytest.raises(ValueError, match=r"69 nodes, order 4 .* needs 237360 B of shared memory "
+                                         r"per block in its lean layout"):
+        k3.check_fits(g69)
+    planner = _planner(4, 17)
     sa, args, _, _ = _step0(planner, 1)
-    with pytest.raises(ValueError, match="232752 B"):
+    with pytest.raises(ValueError, match="237360 B"):
         k3.solve_box_qp_structured_cuda(planner.ocp, sa, *args, config.SHIPPING_QP_SETTINGS)
-    for g in (g45, g46, g49, g4a, g4b):
+    for g in (g45, g46, g49, g4a, g4b, g65, g69):
         k2.check_fits(g)
 
 

@@ -5,9 +5,10 @@ per-joint Jacobian split at 6 and 8 joints against the JAX package; the
 port's plain 6-joint solve against the JAX fixture
 ``torch_port_panda6_b64.npz``; the kernels' geometry at 6 to 10 joints (9
 and 10 take kernel 3's split layout at 19 nodes and its stream layout at
-25, 9 joints at 31 nodes at two elements a thread; 10 joints at 28 nodes
-fit no layout and raise, naming the bytes); and the ``fused_constraints`` routing of the constraint rows on the
-CPU."""
+25, 9 joints at 31 nodes at two elements a thread, 10 joints at 28 and 37
+nodes its lean layout; 10 joints at 40 nodes fit no layout and raise,
+naming the bytes); and the ``fused_constraints`` routing of the constraint
+rows on the CPU."""
 
 import dataclasses
 import os
@@ -204,9 +205,10 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
     9 and 10 joints at 25 nodes (284,880 B split for 10) take kernel 3's
     stream layout, 187,440 and 220,112 B; 9 joints at 31 nodes (1030 rows)
     take it at two z elements and rows a thread, 544 threads, 223,952 B; 10
-    joints at 28 nodes need 241,184 B even in the stream layout and raise
-    naming them before any build; a library kind that is none of the three
-    raises."""
+    joints at 28 nodes (241,184 B stream) take the lean layout, 182,192 B,
+    and so do 10 joints at 37 nodes (704 threads, 226,864 B); 10 joints at
+    40 nodes need 241,760 B even in the lean layout and raise naming them
+    before any build; a library kind that is none of the three raises."""
     k1.check_fits(10)
     with pytest.raises(ValueError, match=r"11 joints needs 57216 B of static shared memory"):
         k1.check_fits(11)
@@ -233,9 +235,20 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
     k3.check_fits(g)
     k2.check_fits(g)
     g = Geometry(segments=9, nq=10)
-    assert (k3.threads(g), k3.smem_bytes(g)) == (544, 241184)
+    assert (k3.threads(g), k3.smem_bytes(g, "stream"), k3.smem_bytes(g)) == (544, 241184, 182192)
     with pytest.raises(ValueError, match=r"28 nodes, order 3 and 10 joints .* needs 241184 B "
                                          r"of shared memory per block in its stream layout"):
+        k3.check_fits(dataclasses.replace(g, layout="stream"))
+    g37 = Geometry(segments=12, nq=10)
+    assert (k3.threads(g37), k3.smem_bytes(g37)) == (704, 226864)
+    for g in (g, g37):
+        assert k3.choose_layout(g) == "lean"
+        k3.check_fits(g)
+        k2.check_fits(g)
+    g = Geometry(segments=13, nq=10)
+    assert (k3.threads(g), k3.smem_bytes(g)) == (768, 241760)
+    with pytest.raises(ValueError, match=r"40 nodes, order 3 and 10 joints .* needs 241760 B "
+                                         r"of shared memory per block in its lean layout"):
         k3.check_fits(g)
     k2.check_fits(g)
     with pytest.raises(ValueError, match="per_geometry"):
