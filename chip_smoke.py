@@ -115,9 +115,23 @@ shipping solve of the headline states (5/2/2/0, bitwise its eager solve,
 quality, times in turns) and the JAX fixture ``torch_port_seg20_b64.npz``;
 24 segments of order 3, order 4 at 16 segments and seeded chains of 10
 joints at 12 segments and 9 joints at 15 (73, 65, 37, 46 nodes), kernels 2
-and 3 held and an eager shipping solve each; and the geometries that fit no
-layout (25 segments of order 3, order 4 at 17, 10 joints at 13 segments)
-refused naming their bytes, before any build.
+and 3 held and an eager shipping solve each. Where the lean block does not
+fit, kernel 3 reads the node constraint Jacobians from device memory where
+its products of A and A' use them (the far layout), and phase 26 holds it:
+built so at 20 and 24 segments of order 3, where the lean layout fits, it
+gives every output of the lean layout bitwise at B=2048 (times in turns,
+with ptxas's registers and spills); then the Panda at 25 segments of order
+3 (76 nodes, 1597 variables, 2008 rows, 1024 threads) is planned as a user
+sets it, with kernels 2 and 3 against their plain versions and timed, the
+captured shipping solve of the headline states (5/2/2/0, bitwise its eager
+solve, quality, times in turns) and the JAX fixture
+``torch_port_seg25_b64.npz``; seeded chains of 9 joints at 16 segments and
+10 joints at 13 and order 4 at 17 segments (49, 40, 69 nodes), kernels 2
+and 3 held and an eager shipping solve each; and the first geometries that
+fit no layout (32 segments of order 3, order 4 at 22, 10 joints at 17
+segments) refused naming their bytes, before any build. The plain kernel-3
+loop of phases 19-26 replays each check window from a CUDA graph
+(``PlainWindows``), which phase 10 holds bitwise against the eager loop.
 Needs one CUDA GPU and ``nvcc``; imports no JAX.
 
     python3 chip_smoke.py
@@ -167,6 +181,8 @@ SEG12_FIXTURE = os.path.join(FIXTURES, "torch_port_seg12_b64.npz")
 SEG15_FIXTURE = os.path.join(FIXTURES, "torch_port_seg15_b64.npz")
 # and at 20 segments (61 nodes, kernel 3 in its lean layout)
 SEG20_FIXTURE = os.path.join(FIXTURES, "torch_port_seg20_b64.npz")
+# and at 25 segments (76 nodes, kernel 3 in its far layout)
+SEG25_FIXTURE = os.path.join(FIXTURES, "torch_port_seg25_b64.npz")
 MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
 B_MAIN = 2048  # the headline batch
 B_FACTOR = 256  # kernel-2 comparison batch
@@ -844,7 +860,8 @@ def library_factor(qp, entry, phase) -> None:
     """Kernel 2's library call, ``torch.linalg.cholesky_ex`` of the dense
     KKT matrix that the band of ``qp`` stands for: timed into ``entry``'s
     ``library_ms``, and its factor held against kernel 2's (relative error
-    <= 1e-3 where both factored)."""
+    <= 1e-3 where both factored). The dense matrices and their factors take
+    42 GB at B=2048 and 76 nodes, which the cache gives back afterwards."""
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
 
     B, N, bw, W = qp.Mband.shape[0], qp.Mband.shape[1], qp.Mband.shape[2] - 1, qp.Mband.shape[3]
@@ -882,6 +899,8 @@ def library_factor(qp, entry, phase) -> None:
         f"({'slower' if lib_ms > entry['ms'] else 'faster'} than the kernel); its factor "
         f"against kernel 2's on {int(use.sum())}/{B} problems (both factored): max-norm "
         f"relative error " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()) + " (tol 1e-3)")
+    del Md, L, diag, Ldi, Lsub
+    torch.cuda.empty_cache()
 
 
 def kernel_checks(planner, first_qp, tag, states=None) -> str:
@@ -890,7 +909,9 @@ def kernel_checks(planner, first_qp, tag, states=None) -> str:
     bars (B_FACTOR problems: identical ok flags, max-norm relative error <=
     1e-3) and phase 4's (B_ADMM problems: one check window no further from
     float64 than 2x the plain float32 loop, the sweeps' order of sums within
-    1e-4, the whole QP solve by ``iteration_agreement``, hard box rows of
+    1e-4, the whole QP solve by ``iteration_agreement`` against the plain
+    solve, its check windows replayed from CUDA graphs
+    (:func:`plain_structured_solve`), hard box rows of
     converged problems within 5e-3 and every hard row within 1.01x the primal
     tolerance). Returns a summary and max |x_kernel - x_plain| after the
     check window (phase 4's ``max_abs_err`` of kernel 3). ``states``: the
@@ -935,12 +956,12 @@ def kernel_checks(planner, first_qp, tag, states=None) -> str:
                                                qp_structured.banded_solve_lookahead)
     e_order = max_abs(m_ahead, m_plain) / float(m_plain.abs().max())
     check(e_order <= 1e-4, f"{tag}: look-ahead order of the sweeps differs by {e_order:.3e}")
-    ref = qp_structured.solve_box_qp_structured(ocp, sa4, *args4, shipping, **kw)
+    ref = plain_structured_solve(ocp, sa4, args4, shipping, **kw)
     got = k3.solve_box_qp_structured_cuda(ocp, sa4, *args4, shipping, **kw)
     torch.cuda.synchronize()
     agreement = iteration_agreement(
-        got, ref, B4, f"{tag}: kernel 3", lambda: qp_structured.solve_box_qp_structured(
-            ocp64, sa4.to(dtype=torch.float64), *(a.double() for a in args4), shipping,
+        got, ref, B4, f"{tag}: kernel 3", lambda: plain_structured_solve(
+            ocp64, sa4.to(dtype=torch.float64), [a.double() for a in args4], shipping,
             **{k: v.double() for k, v in kw.items()}))
     _, lc, uc, lx, ux = args4[1:]
     (box_viol, hard_ratio), (box_p, hard_p) = (
@@ -971,7 +992,8 @@ def kernel_checks(planner, first_qp, tag, states=None) -> str:
 
 def plain_float64(pl, sa, qp, fac, settings):
     """The plain ADMM loop at float64 on the scaled QPs ``qp`` of ``pl``'s
-    transcription and their float32 factors ``fac``, unscaled."""
+    transcription and their float32 factors ``fac``, unscaled, its check
+    windows replayed from a CUDA graph (:class:`PlainWindows`)."""
     from mpc_motion_planner_tpu_torch.ocp import make_ocp
     from mpc_motion_planner_tpu_torch.ops import qp_structured
 
@@ -980,16 +1002,81 @@ def plain_float64(pl, sa, qp, fac, settings):
                      num_segments=coll.num_segments)
     qp64 = qp_structured.ScaledQP(*(getattr(qp, f.name).double() for f in dataclasses.fields(qp)))
     fac64 = {k: v.double() for k, v in fac.items() if k != "ok"}
-    return qp_structured.unscale_solution(qp64, *qp_structured.admm_plain(
-        ocp64, sa.to(dtype=torch.float64), qp64, fac64, settings))
+    return qp_structured.unscale_solution(
+        qp64, *PlainWindows(ocp64, sa.to(dtype=torch.float64), qp64, fac64, settings)())
+
+
+class PlainWindows:
+    """Kernel 3's plain version, one dispatch of ``qp_structured.admm_plain``
+    (``chunk_iters`` iterations from ``state``, default the full budget from
+    the initial state) on the scaled QPs ``qp`` and their factors ``fac``,
+    with each check window (``qp_structured.admm_window``) replayed from one
+    CUDA graph, captured here after one warm-up window: the eager loop's
+    operations on the card without the host's launches, which are the eager
+    loop's time (PERF.md §5), and the host's exit test between windows, as
+    the eager loop has it. A window shorter than ``check_every`` (a dispatch
+    that is no multiple of it) runs eagerly. Calling it returns the scaled
+    (x, zc, zx, yc, yx, done, iters, rp, rd) as ``admm_plain`` does; phase
+    10 holds that bitwise against the eager loop."""
+
+    def __init__(self, ocp, sa, qp, fac, settings, state=None, chunk_iters=None):
+        from mpc_motion_planner_tpu_torch.ops import qp_structured
+
+        cap = settings.max_iter + settings.rescue_iters if chunk_iters is None else chunk_iters
+        self.windows = qp_structured.check_windows(settings, cap)
+        self.width = settings.check_every
+        self.run = lambda state, first, last: qp_structured.admm_window(
+            ocp, sa, qp, fac, settings, state, first, last, cap)
+        self.initial = qp_structured.initial_state(qp) if state is None else state
+        self.state = [t.clone() for t in self.initial]
+        self.graph, t0 = None, time.perf_counter()
+        first, last = self.windows[0]
+        if last - first + 1 == self.width:
+            self.run(self.state, first, last)  # the warm-up, whose outputs are dropped
+            torch.cuda.synchronize()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                for t, new in zip(self.state, self.run(self.state, first, last)):
+                    t.copy_(new)
+            torch.cuda.synchronize()
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self):
+        for t, t0 in zip(self.state, self.initial):
+            t.copy_(t0)
+        for first, last in self.windows:
+            if bool((self.state[5] != 0).all()):
+                break
+            if self.graph is not None and last - first + 1 == self.width:
+                self.graph.replay()
+            else:
+                for t, new in zip(self.state, self.run(self.state, first, last)):
+                    t.copy_(new)
+        return tuple(t.clone() for t in self.state)
+
+
+def plain_structured_solve(ocp, sa, args, settings, soft_c, soft_x):
+    """``qp_structured.solve_box_qp_structured`` of the QPs ``args`` (P, q,
+    lc, uc, lx, ux) in their dtype, each ADMM dispatch run by
+    :class:`PlainWindows`: the same operations, bitwise, in a fraction of the
+    eager loop's time."""
+    from mpc_motion_planner_tpu_torch.ops import qp_structured
+
+    settings.check_structured()
+    qp = qp_structured.scale_qp(ocp, sa, *args, settings, soft_c=soft_c, soft_x=soft_x)
+    state, qp, _ = qp_structured.admm_chunked(
+        ocp, sa, qp, settings, qp_structured.factor_banded,
+        lambda *dispatch: PlainWindows(*dispatch)())
+    return qp_structured.unscale_solution(qp, *state)
 
 
 def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, states=None):
     """Kernels 2 and 3 built for ``pl``'s geometry, timed at B=2048 on its
     step-0 QPs (of ``states``, default the headline's) against their plain
     versions (kernel 2 in turns with phase 3's bars, then its library call;
-    kernel 3's plain loop takes seconds, so it runs once between two kernel
-    runs, held by ``iteration_agreement`` and the hard-row bar), with their
+    kernel 3's plain loop, its check windows replayed from a CUDA graph
+    (:class:`PlainWindows`), runs once between two kernel runs, held by
+    ``iteration_agreement`` and the hard-row bar), with their
     bounds, and kernel 3 at exactly one check window; into the ``results``
     entries ``banded_factor_<suffix>`` and ``structured_admm_<suffix>``
     (``window_err``: kernel 3's ``max_abs_err`` from ``kernel_checks``)."""
@@ -1040,11 +1127,14 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
     fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, g.order)
     # the plain loop takes seconds, so it runs once: the kernel, the plain
     # loop and the kernel again, timed, and the outputs of those calls held
+    plain = PlainWindows(ocp, sa, qp, fac, shipping)
     raw = {"kernel": [], "plain": []}
     for name in ("kernel", "plain", "kernel"):
         fn = keep(name, (lambda: k3.admm_kernel(ocp, sa, qp, fac, shipping)) if name == "kernel"
-                  else (lambda: qp_structured.admm_plain(ocp, sa, qp, fac, shipping)))
+                  else plain)
         raw[name].append(time_kernel(fn, reps=1, warm=False))
+    capture_s = plain.capture_s
+    del plain
     k_ms, p_ms = float(np.mean(raw["kernel"])), float(np.mean(raw["plain"]))
     got, ref = (qp_structured.unscale_solution(qp, *out[k]) for k in ("kernel", "plain"))
     k3_bytes = tensor_bytes(
@@ -1068,7 +1158,8 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
                         f"{k3_iters} problem-iterations of {flops / 1e3:.1f} kflop as the kernel "
                         f"counted them")
     log(f"{phase} kernel 3 B={B_MAIN}, {tag}, step-0 QP, budget {shipping.max_iter}: kernel "
-        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (runs {raw}); {text}; {agreement}; hard-row "
+        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (check windows replayed from a CUDA graph, "
+        f"captured in {capture_s:.2f} s; runs {raw}); {text}; {agreement}; hard-row "
         f"violation {ratios[0][1]:.3f}x the primal tolerance (bar 1.01; plain "
         f"{ratios[1][1]:.3f}x)")
     del got, ref
@@ -1296,34 +1387,22 @@ def robot_planner(planner, model, limits, tool, qp=None, sqp=None, fused=None):
 
 
 def chain_planner(planner, nq: int, fused=None, segments=None):
-    """A serial revolute chain of ``nq`` joints drawn from the seed nq
-    (``make_panda6_fixture.chain_urdf``), with the Panda's limits and its
-    last joint's repeated past 7, no floor for its tool, at ``segments``
-    spline segments of order 3 where given; and B_MAIN (current, target)
-    states at rest drawn from the seed nq."""
-    from mpc_motion_planner_tpu_torch.models.urdf import parse_urdf
+    """A serial revolute chain of ``nq`` joints drawn from the seed nq, with
+    the Panda's limits and its last joint's repeated past 7, and B_MAIN
+    (current, target) states at rest drawn from the seed nq
+    (``bench/convergence.py`` ``chain``), on ``planner``'s device, margins
+    and settings, no floor for its tool, at ``segments`` spline segments of
+    order 3 where given."""
+    from mpc_motion_planner_tpu_torch.bench.convergence import chain
     from mpc_motion_planner_tpu_torch.ocp import make_ocp
 
-    dev, f32 = planner.device, torch.float32
-    fx = fixture_models()
-    last = {k: getattr(planner.limits, k)[-1:].cpu() for k in fx.LIMIT_ARRAYS}
-    limits = limits_of(planner.limits, 7, {k: v.repeat(nq - 7) for k, v in last.items()})
-    pl = robot_planner(planner, parse_urdf(fx.chain_urdf(nq, seed=nq), dtype=f32, device=dev),
-                       limits, "tool", fused=fused)
+    model, limits, tool, cur, tgt = chain(nq, B_MAIN, torch.float32, planner.device)
+    pl = robot_planner(planner, model, limits, tool, fused=fused)
     if segments is not None:
-        pl.ocp = make_ocp(pl.model, "tool", num_segments=segments,
+        pl.ocp = make_ocp(pl.model, tool, num_segments=segments,
                           fused_constraints=pl.ocp.fused_constraints)
     pl.set_min_height(-10.0)  # a random chain: no floor for its tool
-    rng = np.random.default_rng(nq)
-    lo, hi = (b.cpu().numpy() for b in pl.position_bounds())
-
-    def states():
-        q = lo + (hi - lo) * rng.uniform(0.25, 0.75, (B_MAIN, nq))
-        return torch.as_tensor(np.concatenate([q, np.zeros((B_MAIN, nq))], 1), dtype=f32,
-                               device=dev)
-
-    cur = states()
-    return pl, cur, states()
+    return pl, cur, tgt
 
 
 def kernel1_check(pl, results, phase, busy) -> None:
@@ -2173,9 +2252,8 @@ def lean_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     segments (37 nodes) and 9 joints at 15 (46 nodes), with the shipping QP
     settings of their node counts: kernels 2 and 3 against their plain
     versions and an eager shipping solve each (5/2/2/0), with ptxas's
-    registers and spill stores. (d) The geometries that fit no layout, 25
-    segments of order 3 (76 nodes), order 4 x 17 (69) and 10 joints at 13
-    segments (40): refused naming their bytes, before any build."""
+    registers and spill stores. The geometries past the lean layout take
+    the far layout (phase 26)."""
     from mpc_motion_planner_tpu_torch import config, kernels
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
@@ -2249,13 +2327,116 @@ def lean_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
         eager_shipping(pl, cur, tgt, f"{tag} ({'headline' if states is None else 'seeded'} "
                        f"states)", suffix, "phase 25", results)
         del pl, cur, tgt, states
+    torch.cuda.empty_cache()
+
+
+def far_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
+    """Phase 26: kernel 3's far layout, the lean layout without the node
+    constraint Jacobians J (read from device memory where the products of A
+    and A' use them), taken where the lean block does not fit one SM. (a)
+    Built in the far layout at 20 and 24 segments of order 3 (where the lean
+    layout fits), against the lean build at B=2048: all nine outputs bitwise
+    (times in turns, with ptxas's registers and spill stores). (b) The main
+    path: the Panda at 25 segments of order 3 (76 nodes, 1597 variables, 2008
+    rows, 1024 threads at two elements a thread), set as a user sets it
+    (``planner.ocp = make_ocp(planner.model, planner.tool_frame, order=3,
+    num_segments=25)``, its QP settings ``config.shipping_qp_settings(76)``:
+    one refinement step on every KKT solve): kernels 2 and 3 against their
+    plain versions (phase 3's and 4's bars), timed at B=2048 with their
+    bounds and kernel 2's library call, the captured shipping solve of the
+    headline states (5/2/2/0, bitwise its eager solve, quality, times in
+    turns) and the JAX fixture ``torch_port_seg25_b64.npz`` by phase 23's
+    rule. (c) The other geometries the far layout takes: seeded chains of 9
+    joints at 16 segments (49 nodes) and 10 joints at 13 (40 nodes), and
+    order 4 x 17 (69 nodes), with the shipping QP settings of their node
+    counts: kernels 2 and 3 against their plain versions and an eager
+    shipping solve each (5/2/2/0), with ptxas's registers and spill stores.
+    (d) The first geometries that fit no layout, 32 segments of order 3 (97
+    nodes), order 4 x 22 (89) and 10 joints at 17 segments (52): refused
+    naming their bytes, before any build."""
+    from mpc_motion_planner_tpu_torch import config, kernels
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    dev = cur_all.device
+    g25 = Geometry(25, 3)
+    held = {"seg20": Geometry(20, 3, layout="far"), "seg24": Geometry(24, 3, layout="far")}
+    others = {"9_joints_49_nodes": Geometry(16, 3, 9), "10_joints_40_nodes": Geometry(13, 3, 10),
+              "order4x17": Geometry(17, 4)}
+    # ---- build: kernel 3 in the far layout where the lean one fits, and
+    # kernels 2 and 3 at the geometries that take it, one nvcc each, together ----
+    build_libraries([("structured_admm", k3.KERNEL, g) for g in held.values()]
+                    + [(name, kernels.KERNELS[name], g) for g in (g25, *others.values())
+                       for name in ("banded_factor", "structured_admm")], "phase 26")
+
+    # ---- (a) the far layout against the lean one, bitwise ----
+    for suffix, g in held.items():
+        pl = transcription_planner(planner, 3, g.segments)
+        check(k3.KERNEL.geometry(Geometry.of_ocp(pl.ocp)).layout == "lean",
+              f"{g.segments} segments take the lean layout")
+        log(f"phase 26 libraries at {g.nodes} nodes in the far layout: "
+            f"{block_summary(g, kernel2=False)}; {ptxas_report(k3.KERNEL, g)}; the lean build: "
+            f"{ptxas_report(k3.KERNEL, dataclasses.replace(g, layout=None))}")
+        # 24 x 3 has no entry of its own in the kernels line (phase 25 (c)
+        # holds it without timing it): its times are in the log
+        hold_layouts(pl, first_qp, "lean", "far", results.get(f"structured_admm_{suffix}", {}),
+                     "phase 26", smi)
+        del pl
+
+    # ---- (b) the main path: 25 segments of order 3 ----
+    pl25 = transcription_planner(planner, 3, 25)
+    ocp = pl25.ocp
+    built = k3.KERNEL.geometry(g25)
+    check((ocp.num_nodes, ocp.num_var, ocp.num_eq + ocp.num_ineq) == (76, 1597, 2008)
+          and Geometry.of_ocp(ocp) == g25 and (built.layout, built.ept) == ("far", 2)
+          and k3.threads(g25) == 1024 and pl25.qp_settings.kkt_refine == 1,
+          f"25 segments: {ocp.num_nodes} nodes, {ocp.num_var} variables, {built}, "
+          f"kkt_refine {pl25.qp_settings.kkt_refine}")
+    log(f"phase 26 libraries at 25 segments of order 3 (76 nodes, 1597 variables, 2008 rows, "
+        f"two elements a thread, kkt_refine 1): {block_summary(g25)}; "
+        f"{ptxas_report(k3.KERNEL, g25)}")
+    summary, window_err = kernel_checks(pl25, first_qp, "25 segments")
+    log(f"phase 26 at 25 segments of order 3 (76 nodes, far layout, two elements a thread), "
+        f"{summary}")
+    time_structured_kernels(pl25, first_qp, results, "seg25", "phase 26", window_err)
+    captured_shipping(pl25, cur_all, tgt_all, "25 segments", "seg25", "phase 26",
+                      "headline states, 25 segments of order 3, 76 nodes", results,
+                      ("banded_factor", "structured_admm"), smi)
+    # phase 23's rule
+    n_good, n_tf, n_fx, summary = fixture_agreement(pl25, SEG25_FIXTURE, dev)
+    check(n_good >= n_fx - 4 and n_tf == n_fx,
+          f"25 segments: {n_good}/{n_fx} fixture problems agree, {n_tf} final times within 1e-3")
+    log(f"phase 26 JAX fixture at 25 segments: {summary}; final times within 1e-3 relative "
+        f"{n_tf}/{n_fx} (bar {n_fx}), all three {n_good}/{n_fx} (bar {n_fx - 4})")
+    del pl25, ocp
+
+    # ---- (c) 9 joints at 49 nodes, 10 joints at 40, order 4 x 17 ----
+    for suffix, g in others.items():
+        if g.nq == 7:
+            pl, cur, tgt, states = transcription_planner(planner, g.order, g.segments), \
+                cur_all, tgt_all, None
+            tag = f"order {g.order} x {g.segments} segments ({g.nodes} nodes)"
+        else:
+            pl, cur, tgt = chain_planner(planner, g.nq, segments=g.segments)
+            pl.qp_settings = config.shipping_qp_settings(pl.ocp.num_nodes)
+            states, tag = (cur, tgt), f"{g.nq} joints, {g.nodes} nodes"
+        built = k3.KERNEL.geometry(g)
+        check(Geometry.of_ocp(pl.ocp) == g and (built.layout, built.ept) == ("far", 2),
+              f"{tag}: kernel 3 built as {built}")
+        log(f"phase 26 libraries at {tag}, kkt_refine {pl.qp_settings.kkt_refine}: "
+            f"{block_summary(g)}; {ptxas_report(k3.KERNEL, g)}")
+        summary, _ = kernel_checks(pl, first_qp, tag, states)
+        log(f"phase 26 at {tag} (far layout), {summary}")
+        eager_shipping(pl, cur, tgt, f"{tag} ({'headline' if states is None else 'seeded'} "
+                       f"states)", suffix, "phase 26", results)
+        del pl, cur, tgt, states
 
     # ---- (d) past every layout: refused naming the bytes ----
-    for order, segments in ((3, 25), (4, 17)):
+    for order, segments in ((3, 32), (4, 22)):
         refusal(transcription_planner(planner, order, segments), cur_all[:4], tgt_all[:4],
-                f"order {order} x {segments} segments ({order * segments + 1} nodes)", "phase 25")
-    pl10, cur10, tgt10 = chain_planner(planner, 10, fused="off", segments=13)
-    refusal(pl10, cur10[:4], tgt10[:4], "10 joints, 40 nodes", "phase 25")
+                f"order {order} x {segments} segments ({order * segments + 1} nodes)", "phase 26")
+    pl10, cur10, tgt10 = chain_planner(planner, 10, fused="off", segments=17)
+    refusal(pl10, cur10[:4], tgt10[:4], "10 joints, 52 nodes", "phase 26")
     del pl10, cur10, tgt10
     torch.cuda.empty_cache()
 
@@ -2933,6 +3114,19 @@ def run(dev: torch.device) -> None:
         qp.qs, qp.Ps, qp.rx, qp.lxs, qp.uxs, qp.thx, qp.D, qp.x, qp.zx, qp.yx,
         qp.rc, qp.lcs, qp.ucs, qp.E, qp.thr, qp.zc, qp.yc, *out["kernel"])
     k3_iters = int(out["kernel"][6].sum())
+    # the plain loop with its check windows replayed from a CUDA graph, as
+    # phases 19-26 time it: bitwise the eager loop
+    windows = PlainWindows(ocp, sa, qp, fac, shipping)
+    g_ms = time_kernel(keep("graphed", windows), reps=1, warm=False)
+    names = ("x", "zc", "zx", "yc", "yx", "done", "iters", "rp", "rd")
+    differ = [n for n, a, b in zip(names, out["graphed"], out["plain"]) if not torch.equal(a, b)]
+    check(not differ, f"kernel 3's plain loop replayed by check windows differs from the eager "
+          f"loop in {differ}")
+    log(f"phase 10 kernel 3's plain loop B={B_MAIN}, budget {shipping.max_iter}, its "
+        f"{len(windows.windows)} check windows replayed from one CUDA graph (captured in "
+        f"{windows.capture_s:.2f} s, warm-up window included): all nine outputs bitwise the "
+        f"eager loop's; {g_ms:.3f} ms against the eager loop's {p_ms:.3f} ms")
+    del windows
     out.clear()
     agreement = iteration_agreement(got, ref, B_MAIN, f"kernel 3 B={B_MAIN}")
     _, lc, uc, lx, ux = args[1:]
@@ -3065,6 +3259,7 @@ def run(dev: torch.device) -> None:
     stream_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     ept_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     lean_phases(planner, cur_all, tgt_all, first_qp, results, smi)
+    far_phases(planner, cur_all, tgt_all, first_qp, results, smi)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

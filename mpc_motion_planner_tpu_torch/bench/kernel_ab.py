@@ -40,7 +40,7 @@ another robot, a Panda with its last joints locked (for example
 entries of its joints and the Panda's limits of them, as
 ``profile_solve.py`` takes it), and kernels 1-3 are built for its joint
 count. ``--layout`` (kernel 3) adds the package's source built in that
-shared-memory layout (``full``, ``compact``, ``split``, ``stream`` or ``lean``) as the
+shared-memory layout (``full``, ``compact``, ``split``, ``stream``, ``lean`` or ``far``) as the
 variant ``layout_<name>``, beside the package build in the layout its
 geometry takes: ``--segments 8 --layout split`` (or ``stream``) holds the
 split (or stream) layout against the compact one where both fit (their
@@ -49,7 +49,9 @@ outputs must be bitwise equal) and times what it costs; ``--order 4
 stream`` there holds the stream against the split), ``--segments 12`` one
 that takes the stream layout (37 nodes, 992 threads; ``--layout lean`` there
 holds the lean layout against it), ``--segments 20`` one that takes the lean
-layout (61 nodes, 832 threads). ``--ept`` (kernel 3)
+layout (61 nodes, 832 threads; ``--layout far`` there holds the far layout
+against it), ``--segments 25`` one that takes the far layout (76 nodes, 1024
+threads). ``--ept`` (kernel 3)
 adds the package's source built with that many z elements and rows per
 thread as the variant ``ept_<n>``: ``--segments 12 --ept 2`` holds two
 elements a thread (512 threads) against one (992) where both fit; at

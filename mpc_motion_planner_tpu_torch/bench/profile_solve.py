@@ -23,7 +23,8 @@ nodes; ``order=4, num_segments=4``: 17 nodes; ``order=4, num_segments=6``:
 25 nodes, kernel 3 in its split layout; ``num_segments=12``: 37 nodes,
 kernel 3 in its stream layout; ``num_segments=15``: 46 nodes, the stream
 layout with two elements a thread; ``num_segments=20``: 61 nodes, the lean
-layout; default 6 segments of order 3, 19 nodes),
+layout; ``num_segments=25``: 76 nodes, the far layout; default 6 segments
+of order 3, 19 nodes),
 the shipping path with the QP settings of its node count
 (``config.shipping_qp_settings``: one KKT refinement step from 43 nodes),
 and kernels 2 and 3 are built for it. ``--urdf`` plans another

@@ -54,7 +54,7 @@
 // * All z-layout vectors live in shared memory in node-major order
 //   (element n*21 + c, then p), permuted on load and store only, so the
 //   sweeps, A and A' address them without per-element index arithmetic
-//   (the lean layout keeps those only their owner reads elsewhere).
+//   (the lean and far layouts keep those only their owner reads elsewhere).
 //   Each thread owns EPT z elements and EPT constraint rows, t, t + NT, ...
 //   (one of each for the 512 threads at 19 nodes), for the whole launch and
 //   computes their places in A and A' once; an element-wise phase takes a
@@ -86,16 +86,17 @@
 // 832 at 25 nodes and 9 joints, 928 at 10; 544 at order 2 x 9 segments, 416
 // at order 4 x 4, 640 at order 4 x 6, 928 at order 4 x 9, 384 at order 5 x
 // 3. EPT = 2 past it: 544 at 40 nodes (1,048 rows), 608 at 46, 544 at order
-// 4 x 10 and at 31 nodes and 9 joints, 832 at 61 nodes, 992 at 73. A build
+// 4 x 10 and at 31 nodes and 9 joints, 832 at 61 nodes, 992 at 73, 1024 at
+// 76; EPT = 3 past 2048 (768 threads at 85 nodes). A build
 // may name another EPT (for holding and timing one against another), and the
 // only operation it changes is the order of the sum of the p row's defect
 // part in the check (block_sum of part), which follows the threads' rows.
-// Then the block's shared memory bounds the geometry (76 nodes of order 3
-// take 238,736 B in the lean layout);
+// Then the block's shared memory bounds the geometry (97 nodes of order 3
+// take 233,424 B in the far layout);
 // everything else follows the geometry: a band width of BW takes BW - 1
 // helper warps and BW - 1 look-ahead vectors (the sweeps need 2 + BW warps).
 //
-// Shared memory: the build picks one of five layouts from the geometry
+// Shared memory: the build picks one of six layouts from the geometry
 // (MPC_SMEM_LAYOUT, kernels/structured_admm.py choose_layout), the first
 // that fits a block (232,448 B). The bytes below are sizeof(Smem), which the Python
 // reckoning (smem_bytes) equals and the library reports
@@ -190,12 +191,23 @@
 //   each (P_AT). The arithmetic is the stream's (the relaxation's FMAs
 //   spelled out as nvcc contracts them there, fma_first), so where both fit
 //   the two give the same results, bitwise.
-// Two other ways were weighed for what does not fit: J in device memory
-// read through L1 (16.8 KB) would put an L1 round trip into A and A' every
-// iteration, and a cluster of two blocks holding the factors in distributed
-// shared memory would put one into every block step of the chain (or, with
-// only the helpers' blocks in the partner, take two SMs per problem: 66
-// problems in flight instead of 132). Registers: 672 threads are 21 warps,
+// * Far is the lean layout without J, the node constraint Jacobians (N NG
+//   BLK floats, 51,072 B at 76 nodes), the largest member that no sweep
+//   reads: only the element-wise products of A (a_row, a row's BLK terms)
+//   and A' (at_elem, an element's NG terms) read it, and they read it from
+//   the problem's J in device memory through the read-only path where they
+//   use it (jac; 6.7 MB for 132 blocks at 76 nodes, inside L2). 25 to 31
+//   segments of order 3 (76 to 94 nodes: 238,736 B lean, 187,664 B far at
+//   76; 226,864 B at 94), order 4 x 17 to x 21 (191,008 B at 69 nodes), 9
+//   joints at 49 to 61 nodes, 10 joints at 40 to 49. The products are the
+//   lean build's, term by term and in its order, so where both fit the two
+//   give the same results, bitwise.
+// What does not fit even far could go two ways: Ldi through the copier's
+// ring (70,224 B at 76 nodes), or a cluster of two blocks holding the
+// factors in distributed shared memory, which would put a remote round trip
+// into every block step of the chain (or, with only the helpers' blocks in
+// the partner, take two SMs per problem: 66 problems in flight instead of
+// 132). Registers: 672 threads are 21 warps,
 // six of them on one of the SM's four schedulers, whose quarter of the
 // register file (16K) then allows 80 registers per thread; ptxas -v reports
 // 72 B of spill stores for the 25-node build, none at 19 nodes (99
@@ -218,7 +230,11 @@
 // nodes (608, built only to hold it) 96, 284 and 244 B; 73 nodes (992) 64
 // and 32 registers, 900 and 1,896 B; 9 joints at 46 nodes (800) 72 and 32,
 // 1,236 and 2,384 B; 10 joints at 37 nodes (704) 40 and 40, 4,240 and 2,344
-// B (chip_smoke.py phase 25).
+// B (chip_smoke.py phase 25). The far layout spills more at the same
+// registers: 76 nodes (1024 threads) 64 and 32, 1,404 and 2,512 B; 61 nodes
+// (832, built only to hold it) 72, 1,032 and 892 B; order 4 x 17 (896) 72,
+// 1,064 and 908 B; 9 joints at 49 nodes (832) 72 and 32, 1,860 and 3,056 B;
+// 10 joints at 40 nodes (768) 80 and 40, 1,868 and 2,988 B (phase 26).
 
 #include "common.cuh"
 
@@ -245,15 +261,17 @@ constexpr int NAHEAD = BW - 1;             // look-ahead distances 2..BW
 constexpr int NAHEAD_BUF = NAHEAD > 0 ? NAHEAD : 1;
 
 // the shared-memory layouts (the header says which geometry takes which)
-enum Layout { FULL = 0, COMPACT = 1, SPLIT = 2, STREAM = 3, LEAN = 4 };
+enum Layout { FULL = 0, COMPACT = 1, SPLIT = 2, STREAM = 3, LEAN = 4, FAR = 5 };
 constexpr int LAYOUT = MPC_SMEM_LAYOUT;
-static_assert(LAYOUT >= FULL && LAYOUT <= LEAN, "a layout of common.cuh");
+static_assert(LAYOUT >= FULL && LAYOUT <= FAR, "a layout of common.cuh");
 constexpr bool PACKED_LDI = LAYOUT != FULL;
-// stream and lean: the chain's distance-1 blocks go through the ring too
-constexpr bool STREAMED = LAYOUT == STREAM || LAYOUT == LEAN;
-// split, stream and lean: Lsub goes through a ring of node runs. Node m's
-// blocks L[m+1,m] .. L[m+BW,m] lie side by side in Lsub; its run is the last
-// BW - 1 of them (split: the helpers' blocks) or all BW (stream and lean: the
+// lean and far: the owner-only vectors out of shared memory
+constexpr bool OWNERS_OUT = LAYOUT == LEAN || LAYOUT == FAR;
+// stream, lean and far: the chain's distance-1 blocks go through the ring too
+constexpr bool STREAMED = LAYOUT == STREAM || OWNERS_OUT;
+// split, stream, lean and far: Lsub goes through a ring of node runs. Node
+// m's blocks L[m+1,m] .. L[m+BW,m] lie side by side in Lsub; its run is the
+// last BW - 1 of them (split: the helpers' blocks) or all BW (the others: the
 // chain's block L[m+1,m] too). A ring of RING runs holds node m's in slot m % RING, copied
 // from the 16-byte boundary at or before the run, so up to 3 floats more.
 // The ring is filled LEAD steps ahead of a run's first use, and RING is the
@@ -274,7 +292,7 @@ constexpr int NCOPY = LAST_RUN + 1 - RING > 0 ? LAST_RUN + 1 - RING : 0;
 // the distance-1 blocks L[k,k-1] that stay in shared memory (the split's)
 constexpr int D1_FLOATS = LAYOUT == SPLIT ? (N - 1) * BLK2 : 0;
 // floats of Lsub in shared memory: all blocks; those up to L[N-1,N-2]; or
-// (split, stream, lean) the resident distance-1 blocks, up to 3 floats to a
+// (split, stream, lean, far) the resident distance-1 blocks, up to 3 floats to a
 // 16-byte boundary, the ring, its barriers (8 bytes each) and the copier's
 // progress count
 constexpr int LSUB_FLOATS = LAYOUT == FULL      ? N * BW * BLK2
@@ -284,11 +302,16 @@ constexpr int LSUB_FLOATS = LAYOUT == FULL      ? N * BW * BLK2
 // the thread that owns the element or row, the launch's constants qs, Ps,
 // rx, lxs, uxs, thx (z) and rc, lcs, ucs, E, thr (m) and the iterates x, zx,
 // yx (z) and zc, yc (m); only the finishing warp reads two of them across
-// threads, the arrow element's Ps and rx. The lean layout keeps one float of
-// each in shared memory, so that every member stays: the arrow element's Ps
-// and rx (at P_AT), the others unused (z_const, m_const, own_iter).
-constexpr int OWN_V = LAYOUT == LEAN ? 1 : NV, OWN_M = LAYOUT == LEAN ? 1 : NM;
-constexpr int P_AT = LAYOUT == LEAN ? 0 : NB;  // the arrow element's Ps and rx
+// threads, the arrow element's Ps and rx. The lean and far layouts keep one
+// float of each in shared memory, so that every member stays: the arrow
+// element's Ps and rx (at P_AT), the others unused (z_const, m_const,
+// own_iter).
+constexpr int OWN_V = OWNERS_OUT ? 1 : NV, OWN_M = OWNERS_OUT ? 1 : NM;
+constexpr int P_AT = OWNERS_OUT ? 0 : NB;  // the arrow element's Ps and rx
+// The node constraint Jacobians J, read only by the products of A and A'
+// (a_row, at_elem): the far layout keeps one float of them in shared memory
+// and reads them from device memory where they are used (jac).
+constexpr int J_FLOATS = LAYOUT == FAR ? 1 : N * NG * BLK;
 
 struct Params {
   float Dm[KL * KL];  // Dm[k*KL + j]
@@ -318,7 +341,7 @@ struct Smem {
   float Ldi[N * (PACKED_LDI ? TRI : BLK2)];
   float Lsub[LSUB_FLOATS];
   float u[NB];
-  float J[N * NG * BLK];
+  float J[J_FLOATS];
   float fseg[NEQ];
   float qs[OWN_V], Ps[OWN_V], rx[OWN_V], lxs[OWN_V], uxs[OWN_V], thx[OWN_V], D[NV];
   float rc[OWN_M], lcs[OWN_M], ucs[OWN_M], E[OWN_M], thr[OWN_M];
@@ -342,7 +365,7 @@ struct Smem {
   int done;
 };
 static_assert(sizeof(Smem) <= SMEM_LIMIT, "shared memory of one block: the build's layout");
-// split, stream and lean: where the ring starts in Lsub, the first 16-byte
+// split, stream, lean and far: where the ring starts in Lsub, the first 16-byte
 // boundary of the block's shared memory after the resident distance-1 blocks
 constexpr int LSUB_AT = (int)offsetof(Smem, Lsub) / 4;
 constexpr int RING_AT = (LSUB_AT + D1_FLOATS + 3) / 4 * 4 - LSUB_AT;
@@ -361,8 +384,8 @@ __device__ __forceinline__ float soft_update(float za, float y, float r, float l
 // ---- the owner-only vectors ----
 
 // The launch's constants of a z element (with its soft box lo, hi, th) and
-// of a constraint row. The lean layout reads them from device memory through
-// the read-only path (L2), the others from shared memory. An element-wise
+// of a constraint row. The lean and far layouts read them from device memory
+// through the read-only path (L2), the others from shared memory. An element-wise
 // phase takes those of all its elements at its start, so that the loads go
 // off together and their latency is paid once; a field it does not use is
 // not loaded.
@@ -375,7 +398,7 @@ struct MConst {
 
 // the thread's z element e, at j = zo + its index in the z-layout
 __device__ __forceinline__ ZConst z_const(const Smem& sm, const Ptrs& g, int e, size_t j) {
-  if constexpr (LAYOUT == LEAN)
+  if constexpr (OWNERS_OUT)
     return {__ldg(g.qs + j), __ldg(g.Ps + j), __ldg(g.rx + j),
             __ldg(g.lxs + j), __ldg(g.uxs + j), __ldg(g.thx + j)};
   else
@@ -384,23 +407,23 @@ __device__ __forceinline__ ZConst z_const(const Smem& sm, const Ptrs& g, int e, 
 
 // the thread's row i, at j = mo + i
 __device__ __forceinline__ MConst m_const(const Smem& sm, const Ptrs& g, int i, size_t j) {
-  if constexpr (LAYOUT == LEAN)
+  if constexpr (OWNERS_OUT)
     return {__ldg(g.E + j), __ldg(g.rc + j), __ldg(g.lcs + j), __ldg(g.ucs + j), __ldg(g.thr + j)};
   else
     return {sm.E[i], sm.rc[i], sm.lcs[i], sm.ucs[i], sm.thr[i]};
 }
 
 // An iterate of the thread's q-th element or row e: in shared memory, or
-// (lean) in the owner's registers, r[q] (q unrolled).
+// (lean and far) in the owner's registers, r[q] (q unrolled).
 __device__ __forceinline__ float& own_iter(float* s, float (&r)[EPT], int q, int e) {
-  if constexpr (LAYOUT == LEAN) return r[q];
+  if constexpr (OWNERS_OUT) return r[q];
   else return s[e];
 }
 
 // a u + b v as the other layouts' builds contract it, fma(a, u, b v). Where v
-// is a register (the lean layout's iterates) nvcc contracts the other
-// product, fma(b, v, a u), so the lean build spells the FMA out and gives
-// the stream build's results bitwise.
+// is a register (the lean and far layouts' iterates) nvcc contracts the other
+// product, fma(b, v, a u), so those builds spell the FMA out and give the
+// stream build's results bitwise.
 __device__ __forceinline__ float fma_first(float a, float u, float b, float v) {
   return __fmaf_rn(a, u, __fmul_rn(b, v));
 }
@@ -444,6 +467,15 @@ __device__ __forceinline__ float dot_row(const float (&M)[BLK], const float (&v)
 
 // ---- A and A' on node-major vectors, places computed once per thread ----
 
+// Entry idx of the problem's node constraint Jacobians J (N, NG, BLK): from
+// shared memory, or (far) from the problem's J in device memory, Jg, through
+// the read-only path (L2; 51 KB a problem at 76 nodes). A product takes the
+// entries it needs one load each, all independent, so their latency overlaps.
+__device__ __forceinline__ float jac(const Smem& sm, const float* Jg, int idx) {
+  if constexpr (LAYOUT == FAR) return __ldg(Jg + idx);
+  else return sm.J[idx];
+}
+
 // One z element's place in A': its component c, its index z in the
 // z-layout, the covering (segment, local node) pairs as (56 s, l), and its
 // node's J and g offsets.
@@ -473,7 +505,8 @@ __device__ __forceinline__ ZElem make_zelem(int e) {
 }
 
 // (A' w)[e] for e < NB
-__device__ __forceinline__ float at_elem(const Smem& sm, const float* w, const ZElem& z) {
+__device__ __forceinline__ float at_elem(const Smem& sm, const float* Jg, const float* w,
+                                         const ZElem& z) {
   float val = 0.f;
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
@@ -490,7 +523,7 @@ __device__ __forceinline__ float at_elem(const Smem& sm, const float* w, const Z
   }
   float acc = 0.f;
 #pragma unroll
-  for (int r = 0; r < NG; ++r) acc += sm.J[z.jb + r * BLK] * w[z.gb + r];
+  for (int r = 0; r < NG; ++r) acc += jac(sm, Jg, z.jb + r * BLK) * w[z.gb + r];
   return val + acc;
 }
 
@@ -515,21 +548,21 @@ __device__ __forceinline__ MRow make_mrow(int i) {
 }
 
 // (A v)[i] for a node-major v, i < NM
-__device__ __forceinline__ float a_row(const Smem& sm, const float* v, int i, const MRow& r) {
+__device__ __forceinline__ float a_row(const Smem& sm, const float* Jg, const float* v, int i,
+                                       const MRow& r) {
   if (i < NEQ) {
     float dxv = 0.f;
 #pragma unroll
     for (int j = 0; j < KL; ++j) dxv += sm.Dm[r.k * KL + j] * v[r.base + j * BLK];
     return dxv - sm.p * v[r.base + r.k * BLK + NQ] - sm.fseg[i] * v[NB];
   }
-  const float* Jr = sm.J + r.base;
   const float* vn = v + r.k;
   float s0 = 0.f, s1 = 0.f, s2 = 0.f;
 #pragma unroll
   for (int c = 0; c < BLK; c += 3) {
-    s0 += Jr[c] * vn[c];
-    s1 += Jr[c + 1] * vn[c + 1];
-    s2 += Jr[c + 2] * vn[c + 2];
+    s0 += jac(sm, Jg, r.base + c) * vn[c];
+    s1 += jac(sm, Jg, r.base + c + 1) * vn[c + 1];
+    s2 += jac(sm, Jg, r.base + c + 2) * vn[c + 2];
   }
   return (s0 + s1) + s2;
 }
@@ -1000,16 +1033,17 @@ structured_admm_kernel(Params P, Ptrs g) {
     copy<LSUB_FLOATS>(sm.Lsub, ring.lsub);
   }
   copy<NB>(sm.u, g.u + (size_t)b * NB);
-  copy<N * NG * BLK>(sm.J, g.J + (size_t)b * N * NG * BLK);
+  const float* Jg = g.J + (size_t)b * N * NG * BLK;  // the problem's J in device memory
+  if constexpr (LAYOUT != FAR) copy<N * NG * BLK>(sm.J, Jg);
   copy<NEQ>(sm.fseg, g.f_rows + (size_t)b * NEQ);
-  // the lean layout's iterates, in their owner's registers (own_iter)
+  // the lean and far layouts' iterates, in their owner's registers (own_iter)
   float X[EPT], ZX[EPT], YX[EPT], ZC[EPT], YC[EPT];
 #pragma unroll
   for (int q = 0; q < EPT; ++q) {
     const int e = tid + q * NT;
     if (e < NV) {
       const size_t j = zo + ze[q].z;
-      if constexpr (LAYOUT != LEAN) {
+      if constexpr (!OWNERS_OUT) {
         sm.qs[e] = g.qs[j];
         sm.Ps[e] = g.Ps[j];
         sm.rx[e] = g.rx[j];
@@ -1026,7 +1060,7 @@ structured_admm_kernel(Params P, Ptrs g) {
       own_iter(sm.yx, YX, q, e) = g.yx0[j];
     }
   }
-  if constexpr (LAYOUT != LEAN) {
+  if constexpr (!OWNERS_OUT) {
     copy<NM>(sm.rc, g.rc + mo);
     copy<NM>(sm.lcs, g.lcs + mo);
     copy<NM>(sm.ucs, g.ucs + mo);
@@ -1075,7 +1109,7 @@ structured_admm_kernel(Params P, Ptrs g) {
 #pragma unroll
     for (int q = 0; q < EPT; ++q) {
       const int e = tid + q * NT;
-      if (e < NB) sm.rhs[e] = sm.t0[e] + sm.D[e] * at_elem(sm, sm.wa, ze[q]);
+      if (e < NB) sm.rhs[e] = sm.t0[e] + sm.D[e] * at_elem(sm, Jg, sm.wa, ze[q]);
     }
     __syncthreads();
 
@@ -1091,7 +1125,7 @@ structured_admm_kernel(Params P, Ptrs g) {
           const int e = tid + q * NT;
           if (e < NM) {
             const MConst c = m_const(sm, g, e, mo + e);
-            sm.wb[e] = c.E * (c.rc * (c.E * a_row(sm, sm.dx, e, mr[q])));
+            sm.wb[e] = c.E * (c.rc * (c.E * a_row(sm, Jg, sm.dx, e, mr[q])));
           }
           if (r == 0 && e < NB) sm.wc[e] = sm.rhs[e];
         }
@@ -1102,7 +1136,7 @@ structured_admm_kernel(Params P, Ptrs g) {
           if (e < NB) {
             const ZConst c = z_const(sm, g, e, zo + ze[q].z);
             sm.rhs[e] = sm.wc[e] - ((c.Ps + sigma + c.rx) * sm.xt[e] +
-                                    sm.D[e] * at_elem(sm, sm.wb, ze[q]));
+                                    sm.D[e] * at_elem(sm, Jg, sm.wb, ze[q]));
           }
         }
         __syncthreads();
@@ -1120,10 +1154,10 @@ structured_admm_kernel(Params P, Ptrs g) {
         float& zc = own_iter(sm.zc, ZC, q, i);
         float& yc = own_iter(sm.yc, YC, q, i);
         float za;
-        if constexpr (LAYOUT == LEAN)
-          za = fma_first(alpha * c.E, a_row(sm, sm.dx, i, mr[q]), 1.f - alpha, zc);
+        if constexpr (OWNERS_OUT)
+          za = fma_first(alpha * c.E, a_row(sm, Jg, sm.dx, i, mr[q]), 1.f - alpha, zc);
         else
-          za = alpha * c.E * a_row(sm, sm.dx, i, mr[q]) + (1.f - alpha) * zc;
+          za = alpha * c.E * a_row(sm, Jg, sm.dx, i, mr[q]) + (1.f - alpha) * zc;
         float zn = soft_update(za, yc, c.rc, c.lo, c.hi, c.th);
         float yn = ftz(yc + c.rc * (za - zn));
         yc = yn;
@@ -1141,7 +1175,7 @@ structured_admm_kernel(Params P, Ptrs g) {
         float& yx = own_iter(sm.yx, YX, q, e);
         float xt = sm.xt[e];
         float xn, za;
-        if constexpr (LAYOUT == LEAN) {
+        if constexpr (OWNERS_OUT) {
           xn = ftz(fma_first(alpha, xt, 1.f - alpha, x));
           za = fma_first(alpha, xt, 1.f - alpha, zx);
         } else {
@@ -1183,8 +1217,8 @@ structured_admm_kernel(Params P, Ptrs g) {
 #pragma unroll
       for (int q = 0; q < EPT; ++q) {
         const int e = tid + q * NT;
-        if (e < NM) sm.wc[e] = a_row(sm, sm.dx, e, mr[q]);  // A D x
-        if (e < NB) sm.xt[e] = at_elem(sm, sm.wb, ze[q]);   // A' E yc
+        if (e < NM) sm.wc[e] = a_row(sm, Jg, sm.dx, e, mr[q]);  // A D x
+        if (e < NB) sm.xt[e] = at_elem(sm, Jg, sm.wb, ze[q]);   // A' E yc
         else if (e == NB) sm.xt[e] = -tot;
       }
       __syncthreads();

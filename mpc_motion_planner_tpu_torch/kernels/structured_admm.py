@@ -14,17 +14,17 @@ un-scaling.
 The library is built per transcription (``build.Geometry`` of the OCP:
 nodes, spline order and the robot's joint count): :func:`ept_of` z
 elements and as many constraint rows per thread (:func:`threads`: one of
-each up to 1024 threads, two past them), node vectors padded
-to :func:`vpad` floats, one helper warp and one look-ahead vector per
-distance 2..bw of the band (bw = the spline order), and the first of five
-shared-memory layouts (:func:`choose_layout`, :func:`smem_bytes`) that fits a
-block: full; compact where the full one does not fit (Ldi packed lower
-triangular, Lsub without its unread tail: 232,176 B at 25 nodes of the
-Panda, where full takes 262,000 B; 19 nodes of an 8-joint robot; order 4 at
-21 nodes); split where neither fits (compact's Ldi, only the chain's
-distance-1 blocks of Lsub, and a ring of the helper warps' blocks, a node's
-at a time, that a copier warp fills by TMA bulk copies from the Lsub in
-device memory: order 4 at 25 nodes, 9 and 10 joints at 19 nodes, 28 nodes
+each up to 1024 threads, two past them, three past 2048 elements), node
+vectors padded to :func:`vpad` floats, one helper warp and one look-ahead
+vector per distance 2..bw of the band (bw = the spline order), and the first
+of six shared-memory layouts (:func:`choose_layout`, :func:`smem_bytes`)
+that fits a block: full; compact where the full one does not fit (Ldi
+packed lower triangular, Lsub without its unread tail: 232,176 B at 25 nodes
+of the Panda, where full takes 262,000 B; 19 nodes of an 8-joint robot;
+order 4 at 21 nodes); split where neither fits (compact's Ldi, only the
+chain's distance-1 blocks of Lsub, and a ring of the helper warps' blocks, a
+node's at a time, that a copier warp fills by TMA bulk copies from the Lsub
+in device memory: order 4 at 25 nodes, 9 and 10 joints at 19 nodes, 28 nodes
 of order 3); stream where the split does not fit (no block of Lsub in
 shared memory: the chain's distance-1 blocks go through the same ring, a
 node's run one block longer: 37 nodes of order 3 or 4, 9 and 10 joints at
@@ -33,13 +33,18 @@ stream layout without the 16 vectors that only the thread owning an element
 or row reads: the launch's constants are read from device memory where they
 are used, the iterates live in the owner's registers; 49 to 73 nodes of
 order 3, 195,824 B at 61; order 4 x 11 to x 16, 9 joints at 34 to 46
-nodes, 10 joints at 28 to 37). :func:`ring_schedule` models the ring's
-copies and reads step by step. Two elements a thread take 40 to 73 nodes of
-order 3 (608 threads at 46, 832 at 61), order 4 x 10 to x 16 and 9 joints
-from 31 nodes. A geometry that fits no layout (76 nodes of order 3: 238,736
-B in the lean layout; order 4 x 17; 10 joints at 40 nodes) raises a
-ValueError that names the bytes; nothing solves it another way. The
-figures below are the 19-node Panda transcription's.
+nodes, 10 joints at 28 to 37); far where the lean does not fit (the lean
+layout without the node constraint Jacobians J, which only the products of
+A and A' read, from device memory where they use them: 76 to 94 nodes of
+order 3, 187,664 B at 76, where lean takes 238,736 B; order 4 x 17 to x 21,
+9 joints at 49 to 61 nodes, 10 joints at 40 to 49). :func:`ring_schedule`
+models the ring's copies and reads step by step. Two elements a thread take
+40 to 76 nodes of order 3 (608 threads at 46, 832 at 61, 1024 at 76), order
+4 x 10 to x 17 and 9 joints from 31 nodes; three take 79 nodes of order 3
+and more. A geometry that fits no layout (97 nodes of order 3: 233,424 B in
+the far layout; order 4 x 22; 10 joints at 52 nodes) raises a ValueError
+that names the bytes; nothing solves it another way. The figures below are
+the 19-node Panda transcription's.
 
 What bounds it on this card: latency. Each iteration is ~157k flops per
 problem, 85% of them in the two banded triangular sweeps, and the factors
@@ -97,24 +102,26 @@ KERNEL = CudaKernel(
     resolve=lambda g: built_geometry(g),
 )
 
-# the layouts whose Lsub goes through the copier's ring, and those of them
-# whose chain reads its blocks from the ring too
-RINGED = ("split", "stream", "lean")
-STREAMED = ("stream", "lean")
+# the layouts whose Lsub goes through the copier's ring, those of them whose
+# chain reads its blocks from the ring too, and those that keep the vectors
+# only their owner reads out of shared memory
+RINGED = ("split", "stream", "lean", "far")
+STREAMED = ("stream", "lean", "far")
+OWNERS_OUT = ("lean", "far")
 
 
 def ring_runs(g: Geometry, layout: str = "split") -> int:
-    """Slots of the ring (RING) of the split, stream or lean layout: a slot
-    holds a node's run, copied 2 steps ahead of its first use; bw runs
-    (split) or bw + 1 (stream and lean, whose chain reads a run one step
-    after the helpers in the backward sweep) are the fewest for which no copy
+    """Slots of the ring (RING) of the split, stream, lean or far layout: a
+    slot holds a node's run, copied 2 steps ahead of its first use; bw runs
+    (split) or bw + 1 (the others, whose chain reads a run one step after the
+    helpers in the backward sweep) are the fewest for which no copy
     overwrites a run still to be read (:func:`ring_schedule`)."""
     return g.order + (layout in STREAMED)
 
 
 def ring_slot(g: Geometry, layout: str = "split") -> int:
     """Floats of a ring slot (SLOT): a node's run of bw - 1 helper blocks
-    (split) or of all its bw blocks (stream and lean), copied from the
+    (split) or of all its bw blocks (stream, lean and far), copied from the
     16-byte boundary at or before its start to the one at or after its
     end."""
     return ((g.order - (layout not in STREAMED)) * g.blk ** 2 + 6) // 4 * 4
@@ -124,7 +131,7 @@ LEAD = 2  # steps between a run's copy and the step it is first read in
 
 
 def ring_schedule(g: Geometry, layout: str = "split", iterations: int = 2):
-    """A model of the ring of the split, stream or lean layout (csrc/
+    """A model of the ring of the split, stream, lean or far layout (csrc/
     structured_admm.cu ``ring_start`` and ``ring_step``) through
     ``iterations`` pairs of sweeps, forward then backward, step by step.
     Time is counted in steps of the whole run, n = N x sweep + step: the
@@ -132,8 +139,8 @@ def ring_schedule(g: Geometry, layout: str = "split", iterations: int = 2):
     that of step n, and the copies issued after step n come after its
     barrier. Returns ``(copies, reads)``: ``copies`` a list of (n, node,
     slot), n = None for those of ``ring_start``; ``reads`` a list of (n,
-    node, slot, block, who) with ``who`` "chain" (``chain_fetch``, stream
-    and lean only) or the helper's distance (``ring_take``)."""
+    node, slot, block, who) with ``who`` "chain" (``chain_fetch``, all but
+    the split) or the helper's distance (``ring_take``)."""
     N, bw = g.nodes, g.order
     run0 = 0 if layout in STREAMED else 1
     ring, last = ring_runs(g, layout), N - 2 - run0
@@ -166,7 +173,7 @@ def ring_copy_count(g: Geometry, layout: str, m: int, pairs: int, fwd: bool) -> 
     """The copies into node m's slot up to the one that holds node m's run
     when a sweep (forward if ``fwd``) reads it after ``pairs`` pairs of
     sweeps (csrc/structured_admm.cu ``ring_copy_count``, from which the
-    chain of the stream and lean layouts takes the parity of the barrier
+    chain of the stream, lean and far layouts takes the parity of the barrier
     phase it waits for): every pair copies the same runs, forward the nodes
     ring .. last, backward the ``ncopy`` nodes below those the forward
     leaves."""
@@ -226,9 +233,11 @@ def smem_bytes(g: Geometry, layout: str = None) -> int:
         lsub = d1 + 3 + ring_runs(g, layout) * (ring_slot(g, layout) + 2) + 1
     else:  # compact: the blocks up to L[N-1,N-2]
         lsub = (N * bw if layout == "full" else (N - 2) * bw + 1) * blk2
-    # the owner-only vectors (OWN_V, OWN_M): lean keeps one float of each
-    ov, om = (1, 1) if layout == "lean" else (nv, nm)
-    fields = ([(ldi, 4), (lsub, 4), (nb, 4), (N * g.ng * blk, 4), (neq, 4)]
+    # the owner-only vectors (OWN_V, OWN_M): lean and far keep one float of
+    # each; J (J_FLOATS): far keeps one float
+    ov, om = (1, 1) if layout in OWNERS_OUT else (nv, nm)
+    jf = 1 if layout == "far" else N * g.ng * blk
+    fields = ([(ldi, 4), (lsub, 4), (nb, 4), (jf, 4), (neq, 4)]
               + [(ov, 4)] * 6 + [(nv, 4)]  # qs, Ps, rx, lxs, uxs, thx; D
               + [(om, 4)] * 5 + [(ov, 4)] * 3 + [(om, 4)] * 2
               + [(nv, 4), (nm, 4), (nv, 4)]  # t0, wa, rhs
@@ -252,9 +261,9 @@ def built_geometry(g: Geometry) -> Geometry:
 
 def choose_layout(g: Geometry) -> str:
     """The shared-memory layout kernel 3 is built in for ``g``: the first of
-    full, compact, split, stream and lean (``LAYOUTS``) whose block fits,
-    else lean, which :func:`check_fits` then refuses."""
-    return next((name for name in LAYOUTS if smem_bytes(g, name) <= SMEM_LIMIT), "lean")
+    full, compact, split, stream, lean and far (``LAYOUTS``) whose block
+    fits, else far, which :func:`check_fits` then refuses."""
+    return next((name for name in LAYOUTS if smem_bytes(g, name) <= SMEM_LIMIT), "far")
 
 
 def sweep_warps(g: Geometry) -> int:
@@ -266,12 +275,12 @@ def sweep_warps(g: Geometry) -> int:
 def check_fits(g: Geometry) -> None:
     """Raise ValueError unless kernel 3 is written for ``g`` (a band of at
     least one sub-diagonal block, a row of a block per lane) and its block
-    fits the card in the layout ``g`` names, or else in one of the five:
+    fits the card in the layout ``g`` names, or else in one of the six:
     232,448 B of shared memory, at most 1024 threads (which only an ept
     that ``g`` names can pass), and warps enough for the sweeps (and the
-    copier of the split, stream and lean layouts, whose ring is paced by the
-    helper of distance 2); the error of a block too large names the bytes of
-    every layout."""
+    copier of the split, stream, lean and far layouts, whose ring is paced by
+    the helper of distance 2); the error of a block too large names the
+    bytes of every layout."""
     if g.order < 1:
         raise ValueError(f"kernel 3 solves with a band of at least one sub-diagonal block; "
                          f"got band width {g.order}")

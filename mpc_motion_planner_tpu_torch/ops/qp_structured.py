@@ -779,18 +779,40 @@ def admm_plain(ocp, sa, qp: ScaledQP, fac, settings: QPSettings, state=None,
     at its last. A problem whose ``done`` is set on entry is left as it is;
     ``iters`` adds the dispatch's active iterations, and ``rp``/``rd`` change
     only for problems active in it. Takes and returns the scaled (x, zc, zx,
-    yc, yx, done (int32), iters (int32), rp, rd)."""
+    yc, yx, done (int32), iters (int32), rp, rd). The dispatch runs in check
+    windows (:func:`admm_window`), and it ends early once every problem is
+    done."""
+    cap = settings.max_iter + settings.rescue_iters if chunk_iters is None else chunk_iters
+    state = initial_state(qp) if state is None else state
+    for first, last in check_windows(settings, cap):
+        if bool((state[5] != 0).all()):
+            break
+        state = admm_window(ocp, sa, qp, fac, settings, state, first, last, cap)
+    return state
+
+
+def check_windows(settings: QPSettings, cap: int):
+    """The check windows of a dispatch of ``cap`` iterations: (first, last)
+    iteration of each, the last one checked (every ``check_every`` and the
+    dispatch's last)."""
+    ce = settings.check_every
+    return [(k, min(k + ce - 1, cap)) for k in range(1, cap + 1, ce)]
+
+
+def admm_window(ocp, sa, qp: ScaledQP, fac, settings: QPSettings, state, first: int, last: int,
+                cap: int):
+    """Iterations ``first`` to ``last`` of a dispatch of ``cap`` (see
+    :func:`admm_plain`), with no host synchronisation, so that a window can
+    be captured into a CUDA graph: the residual check runs at each of them
+    that is a multiple of ``check_every`` or the dispatch's last."""
     D, E = qp.D, qp.E
     alpha, sigma = settings.alpha, settings.sigma
-    cap = settings.max_iter + settings.rescue_iters if chunk_iters is None else chunk_iters
-    x, zc, zx, yc, yx, done, iters, rp, rd = initial_state(qp) if state is None else state
+    x, zc, zx, yc, yx, done, iters, rp, rd = state
     matA = lambda v: E * apply_A(ocp, sa, D * v)
     matAT = lambda w: D * apply_AT(ocp, sa, E * w)
     sig = qp.Ps + sigma + qp.rx
 
-    if bool((done != 0).all()):
-        return x, zc, zx, yc, yx, done, iters, rp, rd
-    for k in range(1, cap + 1):
+    for k in range(first, last + 1):
         rhs = sigma * x - qp.qs + qp.rx * zx - yx + matAT(qp.rc * zc - yc)
         xt = solve_arrow_banded(ocp, fac, rhs)
         for _ in range(settings.kkt_refine):
@@ -827,8 +849,6 @@ def admm_plain(ocp, sa, qp: ScaledQP, fac, settings: QPSettings, state=None,
                 active & big, torch.full_like(done, 2),
                 torch.where(active & conv, torch.ones_like(done), done),
             )
-            if bool((done != 0).all()):
-                break
     return x, zc, zx, yc, yx, done, iters, rp, rd
 
 

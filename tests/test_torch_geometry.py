@@ -3,14 +3,14 @@ structured QP at 8, 4, 12, 15 and 20 spline segments against the JAX
 ``structured`` backend (float64); the geometry of a kernel library (its
 ``-D`` flags, one library per geometry, per kernel-3 layout and per count
 of elements a thread, kernel 3's shared memory reckoned member by member in
-its full, compact, split, stream and lean layouts and at two elements a
-thread, the layout each geometry takes, the ring of the split, stream and
-lean layouts modelled step by step, a geometry past the limits raising);
-the shipping QP settings of each node count, ``bench/convergence.py`` and
-``bench/agreement.py``'s count;
+its full, compact, split, stream, lean and far layouts and at two and three
+elements a thread, the layout each geometry takes, the ring of the split,
+stream, lean and far layouts modelled step by step, a geometry past the
+limits raising); the shipping QP settings of each node count,
+``bench/convergence.py`` and ``bench/agreement.py``'s count;
 the compiled solve's key after the planner's OCP is swapped; and the 8-,
-12-, 15- and 20-segment JAX fixtures that ``chip_smoke.py`` phases 19, 23,
-24 and 25 hold the card against."""
+12-, 15-, 20- and 25-segment JAX fixtures that ``chip_smoke.py`` phases 19,
+23, 24, 25 and 26 hold the card against."""
 
 import dataclasses
 import json
@@ -47,7 +47,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADLINE_STATES = os.path.join(ROOT, "tests", "fixtures", "headline_states_b2048.npz")
 SEG_FIXTURES = {s: os.path.join(ROOT, "tests", "fixtures", f"torch_port_seg{s}_b64.npz")
-                for s in (8, 12, 15, 20)}
+                for s in (8, 12, 15, 20, 25)}
 MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
 B = 2
 
@@ -132,6 +132,24 @@ def test_convergence_sweep_prints_one_line_per_run(capsys):
         assert ln["states"] == 2 and ln["dtype"] == "float32" and ln["qp_conv_rate"] == 1.0
         assert len(ln["converged_per_step"]) == 2
         assert all(0 < i <= 700 for i in ln["iterations_max_per_step"])
+
+
+def test_convergence_sweep_plans_a_seeded_chain_at_another_order(capsys):
+    """``bench/convergence.py --chain 9 --order 4``: the seeded 9-joint chain
+    of ``chip_smoke.py`` (its states the first of those the chain's seed
+    draws there) at a spline order of 4, one JSON line naming the order and
+    the joints."""
+    from mpc_motion_planner_tpu_torch.bench import convergence
+
+    assert convergence.main(["--device", "cpu", "--n", "2", "--segments", "2", "--order", "4",
+                             "--chain", "9", "--kkt-refine", "0", "--threads", "1"]) == 0
+    torch.set_num_threads(1)
+    (line,) = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert (line["order"], line["joints"], line["nodes"], line["states"]) == (4, 9, 9, 2)
+    assert len(line["converged_per_step"]) == 2 and 0 <= line["qp_conv_rate"] <= 1
+    model, limits, tool, cur, tgt = convergence.chain(9, 3, torch.float32, torch.device("cpu"))
+    assert model.nq == 9 and limits.max_torque.shape == (9,) and tool == "tool"
+    assert cur.shape == tgt.shape == (3, 18) and not bool((cur[:, 9:] != 0).any())
 
 
 def test_agreement_counts_iterations_off_float64():
@@ -224,13 +242,16 @@ def test_unfit_geometry_raises_naming_the_bytes():
     B), and 15 (46 nodes) at 608 threads (221,456 B). 16 segments (49
     nodes, 234,560 B stream) fit in the lean layout (161,488 B), and so do
     up to 24 (73 nodes, 992 threads, 230,160 B). 25 segments (76 nodes,
-    1024 threads) need 238,736 B even in the lean layout: the fit check and
-    the card's QP solve raise and name the bytes of every layout, before any
+    1024 threads, 238,736 B lean) fit in the far layout (187,664 B), and so
+    do up to 31 (94 nodes, three elements a thread, 226,864 B). 32 segments
+    (97 nodes) need 233,424 B even in the far layout: the fit check and the
+    card's QP solve raise and name the bytes of every layout, before any
     build or launch and whatever the data, so nothing falls back to the
     plain loop."""
     g28, g37, g40 = Geometry(segments=9), Geometry(segments=12), Geometry(segments=13)
     g46, g49 = Geometry(segments=15), Geometry(segments=16)
     g73, g76 = Geometry(segments=24), Geometry(segments=25)
+    g94, g97 = Geometry(segments=31), Geometry(segments=32)
     assert k3.smem_bytes(g28, "compact") == 261152 > SMEM_LIMIT
     assert k3.choose_layout(g28) == "split" and k3.smem_bytes(g28) == 180128
     k3.check_fits(g28)
@@ -250,19 +271,29 @@ def test_unfit_geometry_raises_naming_the_bytes():
     with pytest.raises(ValueError, match=r"49 nodes, order 3 and 7 joints .* needs 234560 B of "
                                          r"shared memory per block in its stream layout"):
         k3.check_fits(dataclasses.replace(g49, layout="stream"))
-    assert (k3.threads(g76), k3.smem_bytes(g76)) == (1024, 238736)
+    assert (k3.threads(g76), k3.smem_bytes(g76, "lean"), k3.smem_bytes(g76)) == (
+        1024, 238736, 187664)
+    assert (k3.ept_of(g94), k3.threads(g94), k3.smem_bytes(g94)) == (3, 832, 226864)
+    for g in (g76, g94):
+        assert k3.choose_layout(g) == "far"
+        k3.check_fits(g)
     with pytest.raises(ValueError, match=r"76 nodes, order 3 and 7 joints .* needs 238736 B of "
-                                         r"shared memory per block in its lean layout \(full: "
-                                         r"\d+ B, compact: \d+ B, split: \d+ B, stream: 352384 B\)"):
-        k3.check_fits(g76)
-    planner = _planner(25)
+                                         r"shared memory per block in its lean layout"):
+        k3.check_fits(dataclasses.replace(g76, layout="lean"))
+    assert (k3.threads(g97), k3.smem_bytes(g97)) == (864, 233424)
+    with pytest.raises(ValueError, match=r"97 nodes, order 3 and 7 joints .* needs 233424 B of "
+                                         r"shared memory per block in its far layout \(full: "
+                                         r"\d+ B, compact: \d+ B, split: \d+ B, stream: \d+ B, "
+                                         r"lean: 298608 B\)"):
+        k3.check_fits(g97)
+    planner = _planner(32)
     cur, tgt = _states(1)
     z0 = planner.warm_start_vector(planner.plan_warm_start(cur, tgt))
     _, _, sa, args = qp_subproblem(planner.ocp, planner.nlp_bounds(cur, tgt), z0)
     P = hessian_regularization_diag(planner.ocp, 1, torch.float64, "cpu", 0.01)
-    with pytest.raises(ValueError, match="238736 B"):
+    with pytest.raises(ValueError, match="233424 B"):
         k3.solve_box_qp_structured_cuda(planner.ocp, sa, P, *args, config.SHIPPING_QP_SETTINGS)
-    for g in (g40, g46, g49, g73, g76):
+    for g in (g40, g46, g49, g73, g76, g94, g97):
         k2.check_fits(g)  # kernel 2's working set is per node
 
 
@@ -312,26 +343,26 @@ def test_two_elements_a_thread_reckoning():
 
 
 # (segments, order, joints): kernel 3's threads and its bytes in the full,
-# compact, split, stream and lean layouts. The split's bytes are the
+# compact, split, stream, lean and far layouts. The split's bytes are the
 # compact's less the Lsub blocks of distances 2..bw and plus a ring of bw
 # nodes' helper blocks; the stream's keep no Lsub block and a ring of bw + 1
 # nodes' runs of bw blocks; the lean's are the stream's less the 16
-# owner-only vectors but a float of each. The first four take the split
-# layout, the rest the stream.
+# owner-only vectors but a float of each; the far's are the lean's less J
+# but a float. The first four take the split layout, the rest the stream.
 RING_GEOMETRIES = {
-    (6, 4, 7): (640, 306976, 273632, 173200, 144992, 108752),
-    (6, 3, 9): (640, 308464, 267216, 185680, 150704, 114848),
-    (6, 3, 10): (704, 372400, 321344, 220640, 177456, 137680),
-    (9, 3, 7): (736, 293488, 261152, 180128, 143088, 101568),
-    (12, 3, 7): (992, 388032, 348128, 235344, 182432, 127392),
-    (9, 4, 7): (928, 454544, 411120, 247200, 197808, 143936),
-    (8, 3, 9): (832, 406128, 356448, 239920, 187440, 140048),
-    (8, 3, 10): (928, 490288, 428800, 284880, 220112, 167520),
+    (6, 4, 7): (640, 306976, 273632, 173200, 144992, 108752, 91968),
+    (6, 3, 9): (640, 308464, 267216, 185680, 150704, 114848, 94320),
+    (6, 3, 10): (704, 372400, 321344, 220640, 177456, 137680, 112592),
+    (9, 3, 7): (736, 293488, 261152, 180128, 143088, 101568, 82752),
+    (12, 3, 7): (992, 388032, 348128, 235344, 182432, 127392, 102528),
+    (9, 4, 7): (928, 454544, 411120, 247200, 197808, 143936, 119088),
+    (8, 3, 9): (832, 406128, 356448, 239920, 187440, 140048, 113040),
+    (8, 3, 10): (928, 490288, 428800, 284880, 220112, 167520, 134512),
     # two z elements and rows a thread
-    (13, 3, 7): (544, 419264, 376848, 253488, 195280, 135728),
-    (10, 4, 7): (544, 503504, 456720, 271616, 215184, 155424),
-    (15, 3, 7): (608, 482240, 434784, 290240, 221456, 152896),
-    (10, 3, 9): (544, 503536, 445440, 293920, 223952, 165008),
+    (13, 3, 7): (544, 419264, 376848, 253488, 195280, 135728, 108848),
+    (10, 4, 7): (544, 503504, 456720, 271616, 215184, 155424, 127888),
+    (15, 3, 7): (608, 482240, 434784, 290240, 221456, 152896, 121984),
+    (10, 3, 9): (544, 503536, 445440, 293920, 223952, 165008, 131520),
 }
 
 
@@ -349,11 +380,11 @@ def test_split_layout_reckoning(segments, order, nq):
     compact layout does not fit, the split is the layout the geometry takes,
     and where the split does not, the stream; the fit check passes."""
     g = Geometry(segments=segments, order=order, nq=nq)
-    threads, full, compact, split, stream, lean = RING_GEOMETRIES[segments, order, nq]
+    threads, full, compact, split, stream, lean, far = RING_GEOMETRIES[segments, order, nq]
     layout = "split" if split <= SMEM_LIMIT else "stream"
     assert k3.threads(g) == threads <= 1024
     assert tuple(k3.smem_bytes(g, name) for name in LAYOUTS) == (
-        full, compact, split, stream, lean)
+        full, compact, split, stream, lean, far)
     assert compact > SMEM_LIMIT >= k3.smem_bytes(g, layout) == k3.smem_bytes(g)
     assert k3.choose_layout(g) == layout and stream < split
     blk2, N, bw = g.blk ** 2, g.nodes, g.order
@@ -369,6 +400,8 @@ def test_split_layout_reckoning(segments, order, nq):
     assert abs((compact - stream) - 4 * (lsub - kept["stream"])) < 16
     # the lean layout: the stream's less 16 owner-only vectors but a float of each
     assert abs((stream - lean) - 4 * (9 * (g.num_var - 1) + 7 * (g.num_rows - 1))) < 16
+    # the far layout: the lean's less J, N ng blk floats, but one
+    assert abs((lean - far) - 4 * (N * g.ng * g.blk - 1)) < 16
     k3.check_fits(g)
     k3.check_fits(dataclasses.replace(g, layout="stream"))
     for name in LAYOUTS[:LAYOUTS.index(layout)]:
@@ -377,16 +410,16 @@ def test_split_layout_reckoning(segments, order, nq):
             k3.check_fits(dataclasses.replace(g, layout=name))
 
 
-@pytest.mark.parametrize("layout", ["split", "stream", "lean"])
+@pytest.mark.parametrize("layout", ["split", "stream", "lean", "far"])
 def test_ring_schedule_serves_every_read(layout):
-    """The ring of the split, stream and lean layouts, modelled step by step
-    as csrc/structured_admm.cu ring_step runs it (``ring_schedule``), at
-    every geometry of orders 2-5 and 6-10 joints whose stream block (lean:
-    whose lean block) fits, through two iterations: every read, by the
-    chain's fetch (stream and lean) or by a helper, finds its node's run in
-    its slot, copied at least LEAD steps before, and the copies into that
-    slot so far are ``ring_copy_count``'s (the closed form from which the
-    chain of the stream and lean layouts takes the parity it waits for); no
+    """The ring of the split, stream, lean and far layouts, modelled step by
+    step as csrc/structured_admm.cu ring_step runs it (``ring_schedule``),
+    at every geometry of orders 2-5 and 6-10 joints whose stream block (lean
+    and far: whose block in that layout) fits, through two iterations: every
+    read, by the chain's fetch (all but the split) or by a helper, finds its
+    node's run in its slot, copied at least LEAD steps before, and the copies
+    into that slot so far are ``ring_copy_count``'s (the closed form from
+    which the chain of those layouts takes the parity it waits for); no
     copy overwrites a run before it is read (so each slot's barrier phase is
     waited on before the next copy into it); an iteration copies 2 (N - 2 -
     bw) runs, as the source's header says; and a ring of one run fewer fails
@@ -426,9 +459,9 @@ def test_ring_schedule_serves_every_read(layout):
     checked = 0
     for order in (2, 3, 4, 5):
         for nq in range(6, 11):
-            for segments in range(1, 60):
+            for segments in range(1, 70):
                 g = Geometry(segments=segments, order=order, nq=nq)
-                if k3.smem_bytes(g, "lean" if layout == "lean" else "stream") > SMEM_LIMIT:
+                if k3.smem_bytes(g, layout if layout in ("lean", "far") else "stream") > SMEM_LIMIT:
                     break
                 assert faults(g, k3.ring_runs(g, layout)) == [], (g, layout)
                 checked += 1
@@ -449,14 +482,19 @@ def test_ring_schedule_serves_every_read(layout):
     # the geometries that take the lean layout in chip_smoke.py phase 25
     (16, 3, 7, "lean"), (20, 3, 7, "lean"), (24, 3, 7, "lean"), (11, 4, 7, "lean"),
     (16, 4, 7, "lean"), (9, 3, 10, "lean"), (12, 3, 10, "lean"), (15, 3, 9, "lean"),
+    # and the far layout in phase 26, with the last of each that fits
+    (25, 3, 7, "far"), (28, 3, 7, "far"), (31, 3, 7, "far"), (17, 4, 7, "far"),
+    (21, 4, 7, "far"), (16, 3, 9, "far"), (20, 3, 9, "far"), (13, 3, 10, "far"),
+    (16, 3, 10, "far"),
 ])
 def test_layout_of_each_geometry(segments, order, nq, layout):
-    """Each geometry takes the first of full, compact, split, stream and lean
-    whose block fits, so the geometries that fit before the stream layout
-    keep the layouts they had (full at 19 and 13 nodes, compact at 25, split
-    at order 4 x 6 and 34 nodes), and only a geometry that fits none of the
-    first three takes the stream, and only one that fits none of the first
-    four the lean."""
+    """Each geometry takes the first of full, compact, split, stream, lean
+    and far whose block fits, so the geometries that fit before the stream
+    layout keep the layouts they had (full at 19 and 13 nodes, compact at
+    25, split at order 4 x 6 and 34 nodes), and only a geometry that fits
+    none of the first three takes the stream, only one that fits none of the
+    first four the lean, and only one that fits none of the first five the
+    far."""
     g = Geometry(segments=segments, order=order, nq=nq)
     assert k3.choose_layout(g) == layout
     fits = [k3.smem_bytes(g, name) <= SMEM_LIMIT for name in LAYOUTS]
@@ -464,24 +502,53 @@ def test_layout_of_each_geometry(segments, order, nq, layout):
     assert k3.KERNEL.geometry(g) == dataclasses.replace(g, layout=layout, ept=k3.ept_of(g))
 
 
-def test_lean_layout_is_taken_last_everywhere():
-    """At every geometry of orders 2-5 and 6-10 joints up to the first that
-    fits no layout, the layout taken is the first that fits, so the lean
-    layout only where the stream does not fit, and a geometry whose stream
-    block fits keeps the layout it had before the lean layout existed."""
-    taken = {name: 0 for name in LAYOUTS}
+def _layouts_taken():
+    """The layout of every geometry of orders 2-5 and 6-10 joints up to the
+    first that fits no layout, with the layouts whose block fits there."""
     for order in (2, 3, 4, 5):
         for nq in range(6, 11):
-            for segments in range(1, 60):
+            for segments in range(1, 70):
                 g = Geometry(segments=segments, order=order, nq=nq)
                 fits = [k3.smem_bytes(g, name) <= SMEM_LIMIT for name in LAYOUTS]
                 if not any(fits):
                     break
-                layout = k3.choose_layout(g)
-                assert layout == LAYOUTS[fits.index(True)]
-                assert (layout == "lean") == (k3.smem_bytes(g, "stream") > SMEM_LIMIT)
-                taken[layout] += 1
+                yield g, k3.choose_layout(g), fits
+
+
+def test_lean_layout_is_taken_last_everywhere():
+    """At every geometry of orders 2-5 and 6-10 joints up to the first that
+    fits no layout, the layout taken is the first that fits, so the lean
+    layout only where the stream does not fit and the lean does, and a
+    geometry whose stream block fits keeps the layout it had before the lean
+    layout existed."""
+    taken = {name: 0 for name in LAYOUTS}
+    for g, layout, fits in _layouts_taken():
+        assert layout == LAYOUTS[fits.index(True)]
+        assert (layout == "lean") == (k3.smem_bytes(g, "stream") > SMEM_LIMIT
+                                      and k3.smem_bytes(g, "lean") <= SMEM_LIMIT)
+        taken[layout] += 1
     assert all(taken.values()) and taken["lean"] > 80
+
+
+def test_far_layout_is_taken_only_where_lean_does_not_fit():
+    """At every geometry of orders 2-5 and 6-10 joints up to the first that
+    fits no layout, the far layout is taken exactly where the lean block
+    does not fit, so every geometry that fitted before the far layout keeps
+    the layout and the library it had; past the far layout nothing fits,
+    and the geometry a planner gives then takes the far layout, which the
+    fit check refuses."""
+    far = 0
+    for g, layout, fits in _layouts_taken():
+        assert (layout == "far") == (not any(fits[:-1]))
+        assert k3.KERNEL.geometry(g).layout == layout
+        far += layout == "far"
+    assert far > 120
+    for g in (Geometry(segments=32), Geometry(segments=22, order=4),
+              Geometry(segments=17, nq=10), Geometry(segments=21, nq=9)):
+        assert k3.smem_bytes(g, "far") > SMEM_LIMIT and k3.choose_layout(g) == "far"
+        with pytest.raises(ValueError, match=rf"needs {k3.smem_bytes(g)} B of shared memory "
+                                             rf"per block in its far layout"):
+            k3.check_fits(g)
 
 
 @pytest.mark.parametrize("segments", [16, 20, 24], ids=["49_nodes", "61_nodes", "73_nodes"])
@@ -517,6 +584,41 @@ def test_lean_layout_reckoning(segments):
     assert k3.choose_layout(g) == "lean" and lean <= SMEM_LIMIT
 
 
+@pytest.mark.parametrize("segments", [25, 28, 31], ids=["76_nodes", "85_nodes", "94_nodes"])
+def test_far_layout_reckoning(segments):
+    """Kernel 3's far block of the Panda at 25, 28 and 31 segments of order
+    3, member by member: the lean layout's, with one float of J (the node
+    constraint Jacobians), at two z elements and rows a thread at 76 nodes
+    (1024 threads) and three at 85 and 94."""
+    g = Geometry(segments=segments)
+    N, blk, nv, neq, nm = g.nodes, 21, g.num_var, g.num_eq, g.num_rows
+    ept, threads = {25: (2, 1024), 28: (3, 768), 31: (3, 832)}[segments]
+    assert (N, nv, nm) == {25: (76, 1597, 2008), 28: (85, 1786, 2248),
+                           31: (94, 1975, 2488)}[segments]
+    assert (k3.ept_of(g), k3.threads(g)) == (ept, threads)
+    slot = -(-(3 * blk * blk + 3) // 4) * 4
+    members = [
+        (N * blk * (blk + 1) // 2, 4),  # Ldi, packed
+        (3 + 4 * (slot + 2) + 1, 4),  # Lsub: the ring of 4 runs, barriers, progress
+        (N * blk, 4), (1, 4), (neq, 4),  # u, J, fseg
+        *[(1, 4)] * 6, (nv, 4), *[(1, 4)] * 5,  # qs .. thx, D, rc .. thr
+        *[(1, 4)] * 5,  # x, zx, yx, zc, yc
+        (nv, 4), (nm, 4), (nv, 4),  # t0, wa, rhs
+        (N * 24, 16), (N * 24, 16), (24, 16),  # ys, xs, tb
+        (2 * N * blk, 4),  # ahead
+        (nv, 4), (nv, 4), (nm, 4), (nm, 4),  # xt, dx, wb, wc
+        (threads // 32 * 4, 4), (16, 4), (1, 4), (1, 4), (1, 4),  # red, Dm, p, s, done
+    ]
+    off = 0
+    for floats, align in members:
+        off = -(-off // align) * align + 4 * floats
+    far = {25: 187664, 28: 207184, 31: 226864}[segments]
+    assert -(-off // 16) * 16 == k3.smem_bytes(g) == k3.smem_bytes(g, "far") == far
+    assert k3.smem_bytes(g, "lean") > SMEM_LIMIT >= far and k3.choose_layout(g) == "far"
+    # J alone, N ng blk floats, but one: 51,072 B at 76 nodes
+    assert abs(k3.smem_bytes(g, "lean") - far - 4 * (N * 8 * blk - 1)) < 16
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_flags_and_library_per_layout(layout):
     """A layout is one -D flag into common.cuh (its index in LAYOUTS) and a
@@ -533,7 +635,7 @@ def test_flags_and_library_per_layout(layout):
     name = k3.KERNEL.library_path(g).name
     assert name.startswith(f"structured_admm_n25_o3_q7_{layout}_e1_")
     others = {k3.KERNEL.library_path(dataclasses.replace(g25, layout=o)) for o in LAYOUTS}
-    assert len(others) == len(LAYOUTS) == 5
+    assert len(others) == len(LAYOUTS) == 6
     assert (k3.KERNEL.library_path(g25) == k3.KERNEL.library_path(g)) == (layout == "compact")
     assert k2.KERNEL.geometry(g) == g25 and k2.KERNEL.library_path(g) == k2.KERNEL.library_path(g25)
     assert k3.smem_bytes(g) == k3.smem_bytes(g25, layout)
@@ -565,10 +667,10 @@ def test_flags_and_library_per_ept(ept):
         Geometry(ept=-1)
 
 
-@pytest.fixture(scope="module", params=[8, 12, 15, 20],
-                ids=["25_nodes", "37_nodes", "46_nodes", "61_nodes"])
+@pytest.fixture(scope="module", params=[8, 12, 15, 20, 25],
+                ids=["25_nodes", "37_nodes", "46_nodes", "61_nodes", "76_nodes"])
 def seg8_solve(request):
-    """The port's planner with its OCP swapped for 8 (or 12, 15, 20) segments,
+    """The port's planner with its OCP swapped for 8 (or 12, 15, 20, 25) segments,
     solved on the CPU at float64 on the first two states of that segment
     count's JAX fixture, and the capture key before and after the swap."""
     segments = request.param
@@ -596,13 +698,14 @@ def test_capture_key_follows_the_ocp(seg8_solve):
     assert key19 != key_new and key19[:-1] == key_new[:-1]
     assert key_new[-1] == g != Geometry() and key19[-1] == Geometry()
     assert sol.z.shape == (B, g.num_var) and sol.lam_c.shape == (B, g.num_rows)
-    assert (g.num_var, g.num_rows) in ((526, 648), (778, 968), (967, 1208), (1282, 1608))
+    assert (g.num_var, g.num_rows) in ((526, 648), (778, 968), (967, 1208), (1282, 1608),
+                                       (1597, 2008))
     assert set(counts.values()) == {0}
 
 
 def test_seg8_fixture_is_the_jax_solve_of_the_headline_states(seg8_solve):
     """The fixture holds the first 64 headline states and the JAX solve of
-    them at 8 (or 12, 15, 20) segments (``make_torch_seg8_fixture.py``); the port's
+    them at 8 (or 12, 15, 20, 25) segments (``make_torch_seg8_fixture.py``); the port's
     plain solve of its first states matches its final times and iterates to
     the fixture's float32 rounding, and lands in the target box."""
     fx, planner, sol, *_ = seg8_solve

@@ -401,6 +401,26 @@ def test_chunked_dispatch_equals_one_dispatch(qp_data, port_ocp, kkt_refine):
         assert torch.equal(a, b)
 
 
+def test_plain_admm_is_its_check_windows_in_turn(qp_data, port_ocp):
+    """A dispatch runs in check windows, each ending at a check (every
+    ``check_every`` iterations and the dispatch's last): the windows of 95
+    iterations at 25 are 1-25, 26-50, 51-75, 76-95, and running them by
+    ``admm_window`` one after another, from the same state, gives the
+    dispatch's outputs bitwise (the exit test between windows only skips
+    windows of problems all done)."""
+    settings = QPSettings(backend="structured", max_iter=95, rho_update_every=0)
+    assert tqs.check_windows(settings, 95) == [(1, 25), (26, 50), (51, 75), (76, 95)]
+    assert len(tqs.check_windows(dataclasses.replace(settings, max_iter=700), 700)) == 28
+    sa_t, qp = _scaled(qp_data, port_ocp, settings)
+    fac = tqs.factor_banded(qp.Mband, qp.p_col, qp.m_pp, port_ocp.coll.order)
+    one = tqs.admm_plain(port_ocp, sa_t, qp, fac, settings)
+    state = tqs.initial_state(qp)
+    for first, last in tqs.check_windows(settings, 95):
+        state = tqs.admm_window(port_ocp, sa_t, qp, fac, settings, state, first, last, 95)
+    for a, b in zip(state, one):
+        assert torch.equal(a, b)
+
+
 def test_chunked_loop_without_rho_change_equals_fixed_rho(qp_data, port_ocp):
     """admm_chunked's chunk sizes, and its whole loop when no rho can change:
     with rho_min = rho_max = rho every update rebuilds the same system, and

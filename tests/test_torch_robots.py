@@ -6,8 +6,8 @@ port's plain 6-joint solve against the JAX fixture
 ``torch_port_panda6_b64.npz``; the kernels' geometry at 6 to 10 joints (9
 and 10 take kernel 3's split layout at 19 nodes and its stream layout at
 25, 9 joints at 31 nodes at two elements a thread, 10 joints at 28 and 37
-nodes its lean layout; 10 joints at 40 nodes fit no layout and raise,
-naming the bytes); and the ``fused_constraints`` routing of the constraint
+nodes its lean layout, 10 joints at 40 and 49 nodes its far layout; 10
+joints at 52 nodes fit no layout and raise, naming the bytes); and the ``fused_constraints`` routing of the constraint
 rows on the CPU."""
 
 import dataclasses
@@ -207,8 +207,10 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
     take it at two z elements and rows a thread, 544 threads, 223,952 B; 10
     joints at 28 nodes (241,184 B stream) take the lean layout, 182,192 B,
     and so do 10 joints at 37 nodes (704 threads, 226,864 B); 10 joints at
-    40 nodes need 241,760 B even in the lean layout and raise naming them
-    before any build; a library kind that is none of the three raises."""
+    40 nodes (241,760 B lean) take the far layout, 188,960 B, and so do 10
+    joints at 49 nodes (928 threads, 221,744 B); 10 joints at 52 nodes need
+    232,688 B even in the far layout and raise naming them before any build;
+    a library kind that is none of the three raises."""
     k1.check_fits(10)
     with pytest.raises(ValueError, match=r"11 joints needs 57216 B of static shared memory"):
         k1.check_fits(11)
@@ -245,10 +247,20 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
         assert k3.choose_layout(g) == "lean"
         k3.check_fits(g)
         k2.check_fits(g)
-    g = Geometry(segments=13, nq=10)
-    assert (k3.threads(g), k3.smem_bytes(g)) == (768, 241760)
+    g, g49 = Geometry(segments=13, nq=10), Geometry(segments=16, nq=10)
+    assert (k3.threads(g), k3.smem_bytes(g, "lean"), k3.smem_bytes(g)) == (768, 241760, 188960)
+    assert (k3.threads(g49), k3.smem_bytes(g49)) == (928, 221744)
     with pytest.raises(ValueError, match=r"40 nodes, order 3 and 10 joints .* needs 241760 B "
                                          r"of shared memory per block in its lean layout"):
+        k3.check_fits(dataclasses.replace(g, layout="lean"))
+    for g in (g, g49):
+        assert k3.choose_layout(g) == "far"
+        k3.check_fits(g)
+        k2.check_fits(g)
+    g = Geometry(segments=17, nq=10)
+    assert (k3.threads(g), k3.smem_bytes(g)) == (992, 232688)
+    with pytest.raises(ValueError, match=r"52 nodes, order 3 and 10 joints .* needs 232688 B "
+                                         r"of shared memory per block in its far layout"):
         k3.check_fits(g)
     k2.check_fits(g)
     with pytest.raises(ValueError, match="per_geometry"):
