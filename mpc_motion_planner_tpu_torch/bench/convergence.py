@@ -51,13 +51,21 @@ MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
 CHAIN_STATES = 2048  # states drawn for a chain, of which the first --n are solved
 
 
-def chain(nq: int, n: int, dtype, dev):
-    """The seeded serial chain of ``nq`` joints (its model, limits and tool
-    frame) and the first ``n`` of its (current, target) states."""
+def robots():
+    """``tests/fixtures/make_panda6_fixture.py``, the URDF writers of the
+    robots other than the Panda (numpy only; its JAX part runs in its
+    ``main`` alone)."""
     spec = importlib.util.spec_from_file_location(
         "make_panda6_fixture", os.path.join(ROOT, "tests", "fixtures", "make_panda6_fixture.py"))
     fx = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(fx)
+    return fx
+
+
+def chain(nq: int, n: int, dtype, dev):
+    """The seeded serial chain of ``nq`` joints (its model, limits and tool
+    frame) and the first ``n`` of its (current, target) states."""
+    fx = robots()
     panda = make_panda_limits()
     limits = dataclasses.replace(panda, **{
         k: torch.cat([getattr(panda, k), getattr(panda, k)[-1:].repeat(nq - 7)])

@@ -40,7 +40,8 @@ another robot, a Panda with its last joints locked (for example
 entries of its joints and the Panda's limits of them, as
 ``profile_solve.py`` takes it), and kernels 1-3 are built for its joint
 count. ``--layout`` (kernel 3) adds the package's source built in that
-shared-memory layout (``full``, ``compact``, ``split``, ``stream``, ``lean`` or ``far``) as the
+shared-memory layout (``full``, ``compact``, ``split``, ``stream``, ``lean``, ``far`` or
+``deep``) as the
 variant ``layout_<name>``, beside the package build in the layout its
 geometry takes: ``--segments 8 --layout split`` (or ``stream``) holds the
 split (or stream) layout against the compact one where both fit (their
@@ -51,7 +52,8 @@ that takes the stream layout (37 nodes, 992 threads; ``--layout lean`` there
 holds the lean layout against it), ``--segments 20`` one that takes the lean
 layout (61 nodes, 832 threads; ``--layout far`` there holds the far layout
 against it), ``--segments 25`` one that takes the far layout (76 nodes, 1024
-threads). ``--ept`` (kernel 3)
+threads; ``--layout deep`` there holds the deep layout against it), ``--segments
+32`` one that takes the deep layout (97 nodes, 864 threads). ``--ept`` (kernel 3)
 adds the package's source built with that many z elements and rows per
 thread as the variant ``ept_<n>``: ``--segments 12 --ept 2`` holds two
 elements a thread (512 threads) against one (992) where both fit; at
@@ -417,7 +419,11 @@ def main(argv=None) -> int:
         results = ab_factor(kernels, planner, cur, tgt, a.reps)
         shape = {}
     elif a.kernel == 3:
-        at = lambda n: dataclasses.replace(shipping, max_iter=n)
+        # the budget with the rescue iterations of the shipping settings, a
+        # window without them
+        at = lambda n: dataclasses.replace(
+            shipping, max_iter=n,
+            rescue_iters=shipping.rescue_iters if n == shipping.max_iter else 0)
         pick = lambda out: (out[0], out[5], out[6])
         ocp64 = make_ocp(planner.model.to(dtype=torch.float64), planner.tool_frame,
                          order=a.order, num_segments=a.segments)

@@ -15,7 +15,8 @@ each hand-written kernel by name. Wall times are taken before the profiler
 starts, which slows later solves.
 
     python -m mpc_motion_planner_tpu_torch.bench.profile_solve [--dense | --default | --xla]
-        [--warm 5] [--segments 6] [--order 3] [--urdf tests/fixtures/panda_joint7_fixed.urdf]
+        [--warm 5] [--segments 6] [--order 3]
+        [--urdf tests/fixtures/panda_joint7_fixed.urdf | --hand]
 
 ``--segments`` and ``--order`` set the transcription as a user sets it
 (``planner.ocp = make_ocp(model, tool_frame, order=3, num_segments=8)``: 25
@@ -23,15 +24,23 @@ nodes; ``order=4, num_segments=4``: 17 nodes; ``order=4, num_segments=6``:
 25 nodes, kernel 3 in its split layout; ``num_segments=12``: 37 nodes,
 kernel 3 in its stream layout; ``num_segments=15``: 46 nodes, the stream
 layout with two elements a thread; ``num_segments=20``: 61 nodes, the lean
-layout; ``num_segments=25``: 76 nodes, the far layout; default 6 segments
-of order 3, 19 nodes),
+layout; ``num_segments=25``: 76 nodes, the far layout; ``num_segments=32``:
+97 nodes, the deep layout; default 6 segments of order 3, 19 nodes),
 the shipping path with the QP settings of its node count
 (``config.shipping_qp_settings``: one KKT refinement step from 43 nodes),
 and kernels 2 and 3 are built for it. ``--urdf`` plans another
 robot: a Panda with its last joints locked (for example
 ``tests/fixtures/panda_joint7_fixed.urdf``, 6 joints), with the Panda's
 limits of its first nq joints and the headline states' entries of those
-joints; kernels 1-3 are built for its joint count.
+joints; kernels 1-3 are built for its joint count. ``--hand`` plans the
+Panda with its hand (``tests/fixtures/make_panda6_fixture.py``
+``panda_urdf(lock_joint7=False, hand=True)``: 9 joints, a branched tree
+with two prismatic fingers) with the Panda's limits and the fingers'
+(``FINGER_LIMITS``) under ``make_ocp(model, "panda_tool",
+fused_constraints="off")`` (kernel 1 takes no branched tree: the plain
+constraint path runs in its place), on the headline states with the
+fingers at 0.01 m and 0.03 m (``hand_states``); kernels 2 and 3 are built
+for 9 joints.
 
 Prints one JSON object, then the card's name and power limit. Needs one
 CUDA GPU and ``nvcc``.
@@ -60,6 +69,7 @@ from ..ops.qp import QPSettings
 from ..ops.sqp import SQPSettings
 from ..planner import Margins, MotionPlanner
 from ..utils.capture import capture_solve
+from .convergence import robots
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 STATES = os.path.join(ROOT, "tests", "fixtures", "headline_states_b2048.npz")
@@ -106,12 +116,26 @@ def locked_panda(urdf: str, dtype, device):
     return model, limits, list(range(nq)) + [7 + i for i in range(nq)]
 
 
+def hand_panda(dtype, device):
+    """The Panda with its hand, 9 joints (:func:`robots` ``panda_urdf``),
+    and the Panda's limits with the fingers'."""
+    fx = robots()
+    model = parse_urdf(fx.panda_urdf(lock_joint7=False, hand=True), dtype=dtype, device=device)
+    lim = make_panda_limits(dtype, device)
+    limits = dataclasses.replace(lim, **{
+        k: torch.cat([getattr(lim, k), torch.tensor(fx.FINGER_LIMITS[k], dtype=dtype,
+                                                     device=device)])
+        for k in _LIMIT_TENSORS})
+    return model, limits
+
+
 def make_planner(which: str, dev, segments: int = 6, urdf: str = None,
-                 order: int = 3) -> MotionPlanner:
+                 order: int = 3, hand: bool = False) -> MotionPlanner:
     """The planner of a path: "structured" (shipping), "dense",
     "structured_default" or "xla" (``MotionPlanner()``'s settings), on
-    ``segments`` spline segments of ``order``, for the Panda or the robot of
-    ``urdf`` (:func:`locked_panda`)."""
+    ``segments`` spline segments of ``order``, for the Panda, the robot of
+    ``urdf`` (:func:`locked_panda`) or, with ``hand``, the Panda with its
+    hand under fused_constraints "off" (:func:`hand_panda`)."""
     if which == "xla":
         qp, sqp = QPSettings(), SQPSettings()
     elif which == "dense":
@@ -123,12 +147,14 @@ def make_planner(which: str, dev, segments: int = 6, urdf: str = None,
     else:
         qp = config.SHIPPING_QP_SETTINGS
         sqp = SQPSettings(qp_step_schedules=config.shipping_sqp_schedules(qp.backend))
-    model, limits, _ = (locked_panda(urdf, torch.float32, dev) if urdf else (None, None, None))
+    model, limits = (hand_panda(torch.float32, dev) if hand
+                     else locked_panda(urdf, torch.float32, dev)[:2] if urdf else (None, None))
     planner = MotionPlanner(model=model, limits=limits, margins=Margins(*MARGINS),
                             dtype=torch.float32, device=dev, qp_settings=qp, sqp_settings=sqp)
-    if (segments, order) != (6, 3):
+    fused = "off" if hand else planner.ocp.fused_constraints
+    if (segments, order) != (6, 3) or hand:
         planner.ocp = make_ocp(planner.model, planner.tool_frame, order=order,
-                               num_segments=segments)
+                               num_segments=segments, fused_constraints=fused)
         if which == "structured":
             planner.qp_settings = config.shipping_qp_settings(planner.ocp.num_nodes)
     return planner
@@ -180,7 +206,10 @@ def main(argv=None) -> int:
                     help="spline segments (6 of order 3: 19 nodes; 8: 25 nodes; 20: 61 nodes)")
     ap.add_argument("--order", type=int, default=3,
                     help="spline order (4 x 4 segments: 17 nodes; 4 x 6: 25 nodes)")
-    ap.add_argument("--urdf", help="a Panda with its last joints locked (default: the Panda)")
+    robot = ap.add_mutually_exclusive_group()
+    robot.add_argument("--urdf", help="a Panda with its last joints locked (default: the Panda)")
+    robot.add_argument("--hand", action="store_true",
+                       help="the Panda with its hand (9 joints), fused_constraints 'off'")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_solve: needs a CUDA GPU", file=sys.stderr)
@@ -193,11 +222,16 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     which = ("dense" if a.dense else "structured_default" if a.default
              else "xla" if a.xla else "structured")
-    planner = make_planner(which, dev, a.segments, a.urdf, a.order)
-    cols = list(range(planner.ocp.nq)) + [7 + i for i in range(planner.ocp.nq)]
+    planner = make_planner(which, dev, a.segments, a.urdf, a.order, a.hand)
     states = np.load(STATES)
-    cur = torch.as_tensor(states["current"][:, cols], device=dev)
-    tgt = torch.as_tensor(states["target"][:, cols], device=dev)
+    if a.hand:
+        fx = robots()
+        cur, tgt = (torch.as_tensor(fx.hand_states(states[k], w), dtype=torch.float32, device=dev)
+                    for k, w in (("current", fx.FINGERS_CURRENT), ("target", fx.FINGERS_TARGET)))
+    else:
+        cols = list(range(planner.ocp.nq)) + [7 + i for i in range(planner.ocp.nq)]
+        cur = torch.as_tensor(states["current"][:, cols], device=dev)
+        tgt = torch.as_tensor(states["target"][:, cols], device=dev)
     B = int(cur.shape[0])
 
     t0 = time.perf_counter()
@@ -218,7 +252,8 @@ def main(argv=None) -> int:
         for m, fn in modes.items():
             warm[m].append(solve(fn))
     out = {"path": which, "batch": B, "nodes": planner.ocp.num_nodes,
-           "order": planner.ocp.coll.order, "joints": planner.ocp.nq, "capture_s": capture_s,
+           "order": planner.ocp.coll.order, "joints": planner.ocp.nq,
+           "fused_constraints": planner.ocp.fused_constraints, "capture_s": capture_s,
            "eager_resolves": captured.eager_resolves,
            "k3_layout": kernels.structured_admm.choose_layout(Geometry.of_ocp(planner.ocp))}
     for m, fn in modes.items():

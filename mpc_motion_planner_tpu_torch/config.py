@@ -47,14 +47,28 @@ SHIPPING_QP_SETTINGS = QPSettings(
 # refinement step, all at 46 and 49 nodes).
 KKT_REFINE_FROM_NODES = 43
 
+# Nodes from which the shipping configuration gives a QP that has not
+# converged within its step's budget RESCUE_ITERS more iterations
+# (QPSettings.rescue_iters, the JAX package's opt-in straggler budget):
+# from there the shipping budgets leave a growing share of the QPs
+# unconverged, at float64 too (the Panda on the 2048 headline states, one
+# refinement step: 76 nodes 0.995 converge, 85 nodes 0.987, 97 nodes 0.970,
+# 121 nodes 0.882; with 300 more, 0.996 at 97 and 0.982 at 121). A block of
+# kernel 3 stops at its own convergence, so only the stragglers run longer.
+RESCUE_FROM_NODES = 85
+RESCUE_ITERS = 300
+
 
 def shipping_qp_settings(num_nodes: int) -> QPSettings:
     """The shipping QP settings for a transcription of ``num_nodes`` nodes:
     ``SHIPPING_QP_SETTINGS`` with one refinement step on every KKT solve
-    from ``KKT_REFINE_FROM_NODES`` up."""
+    from ``KKT_REFINE_FROM_NODES`` up, and ``RESCUE_ITERS`` more iterations
+    for the QPs that have not converged within their budget from
+    ``RESCUE_FROM_NODES`` up."""
     if num_nodes < KKT_REFINE_FROM_NODES:
         return SHIPPING_QP_SETTINGS
-    return dataclasses.replace(SHIPPING_QP_SETTINGS, kkt_refine=1)
+    rescue = RESCUE_ITERS if num_nodes >= RESCUE_FROM_NODES else 0
+    return dataclasses.replace(SHIPPING_QP_SETTINGS, kkt_refine=1, rescue_iters=rescue)
 
 
 def shipping_backend(device_type: str) -> str:

@@ -87,16 +87,17 @@
 // at order 4 x 4, 640 at order 4 x 6, 928 at order 4 x 9, 384 at order 5 x
 // 3. EPT = 2 past it: 544 at 40 nodes (1,048 rows), 608 at 46, 544 at order
 // 4 x 10 and at 31 nodes and 9 joints, 832 at 61 nodes, 992 at 73, 1024 at
-// 76; EPT = 3 past 2048 (768 threads at 85 nodes). A build
+// 76; EPT = 3 past 2048 (768 threads at 85 nodes, 864 at 97), EPT = 4 past
+// 3072 (832 at 121 nodes, 1024 at 154). A build
 // may name another EPT (for holding and timing one against another), and the
 // only operation it changes is the order of the sum of the p row's defect
 // part in the check (block_sum of part), which follows the threads' rows.
-// Then the block's shared memory bounds the geometry (97 nodes of order 3
-// take 233,424 B in the far layout);
+// Then the block's shared memory bounds the geometry (157 nodes of order 3
+// take 233,520 B in the deep layout);
 // everything else follows the geometry: a band width of BW takes BW - 1
 // helper warps and BW - 1 look-ahead vectors (the sweeps need 2 + BW warps).
 //
-// Shared memory: the build picks one of six layouts from the geometry
+// Shared memory: the build picks one of seven layouts from the geometry
 // (MPC_SMEM_LAYOUT, kernels/structured_admm.py choose_layout), the first
 // that fits a block (232,448 B). The bytes below are sizeof(Smem), which the Python
 // reckoning (smem_bytes) equals and the library reports
@@ -202,8 +203,22 @@
 //   joints at 49 to 61 nodes, 10 joints at 40 to 49. The products are the
 //   lean build's, term by term and in its order, so where both fit the two
 //   give the same results, bitwise.
-// What does not fit even far could go two ways: Ldi through the copier's
-// ring (70,224 B at 76 nodes), or a cluster of two blocks holding the
+// * Deep is the far layout without Ldi (packed, N TRI floats: 89,628 B at 97
+//   nodes, the largest member left): node k's Ldi block travels through the
+//   copier's ring with node k's run, a second bulk copy from its own 16-byte
+//   boundary onto the slot's barrier (a block of BLK2 floats is no multiple
+//   of 4), whose expected bytes count both; node N - 1, whose run no sweep
+//   reads, is copied for its Ldi alone. The chain fetches Ldi_k a step
+//   before step k (chain_fetch), so a forward sweep copies a node one step
+//   earlier (AHEAD) and the ring holds BW + 2 slots (ring_step); the chain
+//   finds the slot and the parity as for its distance-1 block (ldi_take).
+//   It reads the block's full rows (columns) and puts the zeros above the
+//   diagonal back, as the packed layouts do, so the products keep their
+//   terms and order and where both fit deep gives far's results, bitwise.
+//   32 to 51 segments of order 3 (97 to 154 nodes: 233,424 B far, 158,000 B
+//   deep at 97; 229,824 B at 154), order 4 x 22 to x 33, 9 joints at 64 to
+//   109 nodes, 10 joints at 52 to 88.
+// What does not fit even deep could take a cluster of two blocks holding the
 // factors in distributed shared memory, which would put a remote round trip
 // into every block step of the chain (or, with only the helpers' blocks in
 // the partner, take two SMs per problem: 66 problems in flight instead of
@@ -261,57 +276,73 @@ constexpr int NAHEAD = BW - 1;             // look-ahead distances 2..BW
 constexpr int NAHEAD_BUF = NAHEAD > 0 ? NAHEAD : 1;
 
 // the shared-memory layouts (the header says which geometry takes which)
-enum Layout { FULL = 0, COMPACT = 1, SPLIT = 2, STREAM = 3, LEAN = 4, FAR = 5 };
+enum Layout { FULL = 0, COMPACT = 1, SPLIT = 2, STREAM = 3, LEAN = 4, FAR = 5, DEEP = 6 };
 constexpr int LAYOUT = MPC_SMEM_LAYOUT;
-static_assert(LAYOUT >= FULL && LAYOUT <= FAR, "a layout of common.cuh");
+static_assert(LAYOUT >= FULL && LAYOUT <= DEEP, "a layout of common.cuh");
 constexpr bool PACKED_LDI = LAYOUT != FULL;
-// lean and far: the owner-only vectors out of shared memory
-constexpr bool OWNERS_OUT = LAYOUT == LEAN || LAYOUT == FAR;
-// stream, lean and far: the chain's distance-1 blocks go through the ring too
+// deep: Ldi goes through the ring with Lsub, a node's block with its run
+constexpr bool LDI_RINGED = LAYOUT == DEEP;
+// far and deep: J out of shared memory
+constexpr bool J_OUT = LAYOUT == FAR || LDI_RINGED;
+// lean, far and deep: the owner-only vectors out of shared memory
+constexpr bool OWNERS_OUT = LAYOUT == LEAN || J_OUT;
+// stream, lean, far and deep: the chain's distance-1 blocks go through the ring too
 constexpr bool STREAMED = LAYOUT == STREAM || OWNERS_OUT;
-// split, stream, lean and far: Lsub goes through a ring of node runs. Node
-// m's blocks L[m+1,m] .. L[m+BW,m] lie side by side in Lsub; its run is the
-// last BW - 1 of them (split: the helpers' blocks) or all BW (the others: the
-// chain's block L[m+1,m] too). A ring of RING runs holds node m's in slot m % RING, copied
-// from the 16-byte boundary at or before the run, so up to 3 floats more.
-// The ring is filled LEAD steps ahead of a run's first use, and RING is the
-// fewest runs for which no copy overwrites a run still to be read: BW + LEAD
-// - 2 in the split, one more in the stream, whose chain reads a run one step
+// split, stream, lean, far and deep: Lsub goes through a ring of node runs.
+// Node m's blocks L[m+1,m] .. L[m+BW,m] lie side by side in Lsub; its run is
+// the last BW - 1 of them (split: the helpers' blocks) or all BW (the others:
+// the chain's block L[m+1,m] too). A ring of RING runs holds node m's in slot
+// m % RING, copied from the 16-byte boundary at or before the run, so up to 3
+// floats more; in the deep layout the slot holds Ldi_m after the run, copied
+// the same way. A forward sweep copies node m's run after step m - AHEAD,
+// LEAD steps before its first read: AHEAD = LEAD, or LEAD + 1 in the deep
+// layout, whose chain fetches Ldi_m a step before step m. RING is the fewest
+// runs for which no copy overwrites a run still to be read: BW + AHEAD - 2
+// in the split, one more in the others, whose chain reads a run one step
 // after the helper of distance 2 in the backward sweep (ring_step).
 constexpr bool RINGED = LAYOUT == SPLIT || STREAMED;
 static_assert(!RINGED || BW >= 2, "the helper of distance 2 paces the ring's copier");
 constexpr int RUN0 = STREAMED ? 0 : 1;  // a run starts at L[m+1+RUN0,m]
 constexpr int LEAD = 2;
-constexpr int RING = BW + LEAD - 1 - RUN0;
+constexpr int AHEAD = LEAD + LDI_RINGED;
+constexpr int RING = BW + AHEAD - 1 - RUN0;
 constexpr int RUN = (BW - RUN0) * BLK2;
 constexpr int SLOT = (RUN + 6) / 4 * 4;
+// a slot's floats: the run, and (deep) Ldi from its 16-byte boundary
+constexpr int LDI_SLOT = LDI_RINGED ? (BLK2 + 6) / 4 * 4 : 0;
+constexpr int STRIDE = SLOT + LDI_SLOT;
 constexpr int LAST_RUN = N - 2 - RUN0;  // the last node whose run a sweep reads
-constexpr int RING0 = RING < LAST_RUN + 1 ? RING : LAST_RUN + 1;  // runs copied at the start
-// runs copied in each forward sweep (nodes RING .. LAST_RUN) and in each backward one
-constexpr int NCOPY = LAST_RUN + 1 - RING > 0 ? LAST_RUN + 1 - RING : 0;
+// the last node copied: the last whose run a sweep reads, or (deep) N - 1,
+// whose Ldi the chain reads (its copy brings no run)
+constexpr int LAST_COPY = LDI_RINGED ? N - 1 : LAST_RUN;
+constexpr int RING0 = RING < LAST_COPY + 1 ? RING : LAST_COPY + 1;  // runs copied at the start
+// runs copied in each forward sweep (nodes RING .. LAST_COPY) and in each backward one
+constexpr int NCOPY = LAST_COPY + 1 - RING > 0 ? LAST_COPY + 1 - RING : 0;
 // the distance-1 blocks L[k,k-1] that stay in shared memory (the split's)
 constexpr int D1_FLOATS = LAYOUT == SPLIT ? (N - 1) * BLK2 : 0;
 // floats of Lsub in shared memory: all blocks; those up to L[N-1,N-2]; or
-// (split, stream, lean, far) the resident distance-1 blocks, up to 3 floats to a
-// 16-byte boundary, the ring, its barriers (8 bytes each) and the copier's
-// progress count
+// (split, stream, lean, far, deep) the resident distance-1 blocks, up to 3
+// floats to a 16-byte boundary, the ring, its barriers (8 bytes each) and the
+// copier's progress count
 constexpr int LSUB_FLOATS = LAYOUT == FULL      ? N * BW * BLK2
                             : LAYOUT == COMPACT ? LSUB_USED * BLK2
-                                                : D1_FLOATS + 3 + RING * (SLOT + 2) + 1;
+                                                : D1_FLOATS + 3 + RING * (STRIDE + 2) + 1;
 // The owner-only vectors: 16 z and m vectors are read and written only by
 // the thread that owns the element or row, the launch's constants qs, Ps,
 // rx, lxs, uxs, thx (z) and rc, lcs, ucs, E, thr (m) and the iterates x, zx,
 // yx (z) and zc, yc (m); only the finishing warp reads two of them across
-// threads, the arrow element's Ps and rx. The lean and far layouts keep one
-// float of each in shared memory, so that every member stays: the arrow
+// threads, the arrow element's Ps and rx. The lean, far and deep layouts keep
+// one float of each in shared memory, so that every member stays: the arrow
 // element's Ps and rx (at P_AT), the others unused (z_const, m_const,
 // own_iter).
 constexpr int OWN_V = OWNERS_OUT ? 1 : NV, OWN_M = OWNERS_OUT ? 1 : NM;
 constexpr int P_AT = OWNERS_OUT ? 0 : NB;  // the arrow element's Ps and rx
 // The node constraint Jacobians J, read only by the products of A and A'
-// (a_row, at_elem): the far layout keeps one float of them in shared memory
-// and reads them from device memory where they are used (jac).
-constexpr int J_FLOATS = LAYOUT == FAR ? 1 : N * NG * BLK;
+// (a_row, at_elem): the far and deep layouts keep one float of them in
+// shared memory and read them from device memory where they are used (jac).
+constexpr int J_FLOATS = J_OUT ? 1 : N * NG * BLK;
+// Ldi: full, packed lower triangular, or (deep: in the ring) one float
+constexpr int LDI_FLOATS = LDI_RINGED ? 1 : N * (PACKED_LDI ? TRI : BLK2);
 
 struct Params {
   float Dm[KL * KL];  // Dm[k*KL + j]
@@ -338,7 +369,7 @@ static_assert(sizeof(Ptrs) == NPTRS * sizeof(void*), "pointer block layout");
 
 // z vectors are node-major here: element e = n*21 + c for e < NB, then p.
 struct Smem {
-  float Ldi[N * (PACKED_LDI ? TRI : BLK2)];
+  float Ldi[LDI_FLOATS];
   float Lsub[LSUB_FLOATS];
   float u[NB];
   float J[J_FLOATS];
@@ -365,7 +396,7 @@ struct Smem {
   int done;
 };
 static_assert(sizeof(Smem) <= SMEM_LIMIT, "shared memory of one block: the build's layout");
-// split, stream, lean and far: where the ring starts in Lsub, the first 16-byte
+// split, stream, lean, far and deep: where the ring starts in Lsub, the first 16-byte
 // boundary of the block's shared memory after the resident distance-1 blocks
 constexpr int LSUB_AT = (int)offsetof(Smem, Lsub) / 4;
 constexpr int RING_AT = (LSUB_AT + D1_FLOATS + 3) / 4 * 4 - LSUB_AT;
@@ -468,11 +499,11 @@ __device__ __forceinline__ float dot_row(const float (&M)[BLK], const float (&v)
 // ---- A and A' on node-major vectors, places computed once per thread ----
 
 // Entry idx of the problem's node constraint Jacobians J (N, NG, BLK): from
-// shared memory, or (far) from the problem's J in device memory, Jg, through
+// shared memory, or (far, deep) from the problem's J in device memory, Jg, through
 // the read-only path (L2; 51 KB a problem at 76 nodes). A product takes the
 // entries it needs one load each, all independent, so their latency overlaps.
 __device__ __forceinline__ float jac(const Smem& sm, const float* Jg, int idx) {
-  if constexpr (LAYOUT == FAR) return __ldg(Jg + idx);
+  if constexpr (J_OUT) return __ldg(Jg + idx);
   else return sm.J[idx];
 }
 
@@ -621,6 +652,7 @@ __device__ __forceinline__ void load_ldi(float (&M)[BLK], const Smem& sm, int k,
 // of the sweep.
 struct Ring {
   const float* lsub;  // the problem's Lsub in device memory (B, N, BW, BLK, BLK)
+  const float* ldi;   // the problem's Ldi in device memory (B, N, BLK, BLK): deep
   float* slots;       // slot 0
   unsigned bar;       // the shared address of slot 0's barrier
   unsigned progress;  // the shared address of the steps the helper of distance 2 finished
@@ -637,11 +669,25 @@ struct Ring {
 constexpr int COPIER = SWEEP_WARPS;
 static_assert(!RINGED || NWARP > COPIER, "a warp for the copier");
 
+// One bulk copy of the tensor memory accelerator into shared address dst,
+// completing on the barrier at shared address bar.
+__device__ __forceinline__ void bulk_copy(unsigned dst, const float* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(dst),
+      "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // Copy node m's run into slot m % RING: the copier issues one bulk copy of
 // the tensor memory accelerator, from the 16-byte boundary at or before the
 // run to the one at or after its end (the up to 3 floats past it belong to
 // the next node's first block), which completes on the slot's barrier;
-// every thread that keeps the state updates it.
+// every thread that keeps the state updates it. The deep layout's copy of a
+// node brings its Ldi block too, a second bulk copy from its own 16-byte
+// boundary onto the same barrier (a block is 441 floats at 7 joints, no
+// multiple of 4), and node N - 1's brings its Ldi alone.
 __device__ __forceinline__ void ring_copy(Ring& r, int warp, int lane, int m) {
   const int s = m % RING;
   const float* src = r.lsub + (m * BW + RUN0) * BLK2;
@@ -650,13 +696,24 @@ __device__ __forceinline__ void ring_copy(Ring& r, int warp, int lane, int m) {
     const unsigned bytes = 16 * ((RUN + phase + 3) / 4), bar = r.bar + 8 * s;
     // the slot's earlier contents were read by ordinary loads before a barrier
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-                 : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-        "[%3];" ::"r"((unsigned)__cvta_generic_to_shared(r.slots + s * SLOT)),
-        "l"(__cvta_generic_to_global(src - phase)), "r"(bytes), "r"(bar)
-        : "memory");
+    if constexpr (LDI_RINGED) {
+      const float* ldi = r.ldi + m * BLK2;
+      const unsigned lphase = (unsigned)(__cvta_generic_to_global(ldi) >> 2) & 3u;
+      const unsigned lbytes = 16 * ((BLK2 + lphase + 3) / 4);
+      const bool run = m <= LAST_RUN;
+      const unsigned slot = (unsigned)__cvta_generic_to_shared(r.slots + s * STRIDE);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                   "r"((run ? bytes : 0u) + lbytes)
+                   : "memory");
+      if (run) bulk_copy(slot, src - phase, bytes, bar);
+      bulk_copy(slot + 4 * SLOT, ldi - lphase, lbytes, bar);
+    } else {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                   "r"(bytes)
+                   : "memory");
+      bulk_copy((unsigned)__cvta_generic_to_shared(r.slots + s * STRIDE), src - phase, bytes,
+                bar);
+    }
   }
   r.parity ^= 1u << s;
   r.phases = (r.phases & ~(3u << 2 * s)) | (phase << 2 * s);
@@ -682,7 +739,7 @@ __device__ __forceinline__ void ring_wait(const Ring& r, int s) {
 __device__ __forceinline__ const float* ring_block(const Ring& r, int m, int b) {
   const int s = m % RING;
   ring_wait(r, s);
-  return r.slots + s * SLOT + ((r.phases >> 2 * s) & 3u) + b * BLK2;
+  return r.slots + s * STRIDE + ((r.phases >> 2 * s) & 3u) + b * BLK2;
 }
 
 // Once at the start of a launch, by the warps that keep the ring's state
@@ -691,7 +748,7 @@ __device__ __forceinline__ const float* ring_block(const Ring& r, int m, int b) 
 __device__ __forceinline__ void ring_start(Smem& sm, Ring& r, int warp, int lane) {
   if ((warp < CHAIN_WARPS || warp >= CHAIN_WARPS + NAHEAD) && warp != COPIER) return;
   r.slots = sm.Lsub + RING_AT;
-  r.bar = (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT + RING * SLOT);
+  r.bar = (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT + RING * STRIDE);
   r.progress = r.bar + 8 * RING;
   r.lo = 0;
   r.hi = RING0 - 1;
@@ -721,21 +778,26 @@ __device__ __forceinline__ void ring_end(const Ring& r, int warp) {
 // (ring_take); the stream layout's chain reads L[m+1,m] for its step m + 1
 // (forward) or N-1-m (backward) in the step before, as it fetches ahead
 // (chain_fetch): forward at step m, with the helpers, backward at step
-// N-2-m, one after the helper of distance 2. Forward, node t + LEAD's copy
-// evicts node t + LEAD - RING's, read at step t + LEAD - RING <= t.
+// N-2-m, one after the helper of distance 2. Forward, node t + AHEAD's copy
+// evicts node t + AHEAD - RING's, read at step t + AHEAD - RING <= t.
 // Backward, node N-1-t-LEAD-BW's (helper BW reads it first) evicts node
 // N-1-t-LEAD-BW+RING's, last read (split: by helper 2) at step t + LEAD + BW
 // - 2 - RING = t, or (stream: by the chain) at step t + LEAD + BW - 1 - RING
-// = t. The copier issues the copy once the helper of distance 2 has
-// published that it finished step t, after the sweep's barrier of step t,
-// before which every read of the evicted run came. An iteration copies 2 (N
-// - 2 - BW) runs in either layout (40 at 25 nodes of order 3), as RING - 1 -
-// RUN0 = BW - 1 holds. kernels/structured_admm.py ring_schedule models this
-// schedule step by step and tests/test_torch_geometry.py holds it.
+// = t (deep: at step t - 1). The deep layout's chain reads Ldi_m for its
+// step m (forward) or N-1-m (backward) in the step before: forward at step
+// m - 1, a step before the run, so node m is copied after step m - AHEAD =
+// m - 3, and backward at step N-2-m, with the run's last read. The copier
+// issues the copy once the helper of distance 2 has published that it
+// finished step t, after the sweep's barrier of step t, before which every
+// read of the evicted run came. An iteration copies 2 (N - 2 - BW) runs in
+// every layout (40 at 25 nodes of order 3), as RING - 1 - RUN0 = BW - 1
+// holds (deep: RING = BW + 2 with LAST_COPY = N - 1). kernels/
+// structured_admm.py ring_schedule models this schedule step by step and
+// tests/test_torch_geometry.py holds it.
 template <bool FWD>
 __device__ __forceinline__ void ring_step(Ring& r, int warp, int lane, int t) {
-  const int m = FWD ? t + LEAD : N - 1 - t - LEAD - BW;
-  const bool copy = FWD ? m <= LAST_RUN && m > r.hi : m >= 0 && m < r.lo;
+  const int m = FWD ? t + AHEAD : N - 1 - t - LEAD - BW;
+  const bool copy = FWD ? m <= LAST_COPY && m > r.hi : m >= 0 && m < r.lo;
   ++r.steps;
   if (warp == CHAIN_WARPS && lane == 0)
     asm volatile("st.release.cta.shared.u32 [%0], %1;" ::"r"(r.progress), "r"(r.steps)
@@ -781,18 +843,18 @@ template <bool FWD>
 __device__ __forceinline__ int node_of(int t) { return FWD ? t : N - 1 - t; }
 
 // Every pair of sweeps copies the same runs: forward the nodes RING ..
-// LAST_RUN, backward the NCOPY nodes below those the forward leaves in the
+// LAST_COPY, backward the NCOPY nodes below those the forward leaves in the
 // ring, after ring_start's nodes 0 .. RING0-1. So the copies into slot s up
 // to the one that holds node m (s = m % RING) at a read follow from m, the
 // sweep and the pairs of sweeps done before it: the slot's first copy, one
 // pair's copies into it (forward nodes s + RING, s + 2 RING, ... <=
-// LAST_RUN; backward nodes s, s + RING, ... < NCOPY) per pair done, and this
+// LAST_COPY; backward nodes s, s + RING, ... < NCOPY) per pair done, and this
 // pair's up to node m's. kernels/structured_admm.py ring_copy_count is the
 // same count, held against ring_schedule.
 template <bool FWD>
 __device__ __forceinline__ int ring_copy_count(int m, int pairs) {
   const int s = m % RING;
-  const int fwd = LAST_RUN >= s ? (LAST_RUN - s) / RING : 0;
+  const int fwd = LAST_COPY >= s ? (LAST_COPY - s) / RING : 0;
   const int bwd = s < NCOPY ? (NCOPY - 1 - s) / RING + 1 : 0;
   const int now = FWD || m >= NCOPY ? m / RING : fwd + (NCOPY - 1 - m) / RING + 1;
   return (s < RING0) + pairs * (fwd + bwd) + now;
@@ -809,21 +871,44 @@ template <bool FWD>
 __device__ __forceinline__ const float* lsub_d1(const Smem& sm, const Ring& r, int j) {
   if constexpr (STREAMED) {
     const int s = j % RING;
-    const unsigned bar = (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT + RING * SLOT);
+    const unsigned bar = (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT + RING * STRIDE);
     barrier_wait(bar + 8 * s, (unsigned)(ring_copy_count<FWD>(j, r.pairs) - 1) & 1u);
     const float* src = r.lsub + j * BW * BLK2;
-    return sm.Lsub + RING_AT + s * SLOT + ((unsigned)(__cvta_generic_to_global(src) >> 2) & 3u);
+    return sm.Lsub + RING_AT + s * STRIDE + ((unsigned)(__cvta_generic_to_global(src) >> 2) & 3u);
   }
   return sm.Lsub + (LAYOUT == SPLIT ? j : j * BW) * BLK2;
 }
 
+// Row rr (forward) or column rr (backward) of Ldi_k in the deep layout: the
+// block after node k's run in its slot, once its copy has landed (the slot
+// and the parity of its barrier phase found as lsub_d1 finds them), stored
+// whole; the zeros above the diagonal are put back as load_ldi puts them
+// back, so the products are those of the other layouts.
+template <bool FWD>
+__device__ __forceinline__ void ldi_take(float (&M)[BLK], const Smem& sm, const Ring& r, int k,
+                                         int rr) {
+  const int s = k % RING;
+  const unsigned bar = (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT + RING * STRIDE);
+  barrier_wait(bar + 8 * s, (unsigned)(ring_copy_count<FWD>(k, r.pairs) - 1) & 1u);
+  const float* src = r.ldi + k * BLK2;
+  const float* blk = sm.Lsub + RING_AT + s * STRIDE + SLOT +
+                     ((unsigned)(__cvta_generic_to_global(src) >> 2) & 3u);
+#pragma unroll
+  for (int i = 0; i < BLK; ++i) {
+    if (FWD) M[i] = i <= rr ? blk[rr * BLK + i] : 0.f;
+    else M[i] = i >= rr ? blk[i * BLK + rr] : 0.f;
+  }
+}
+
 // The chain's blocks and right-hand side of step t, into registers (its
-// block of Lsub last: in the stream layout it may wait for it).
+// block of Lsub last: in the stream layout it may wait for it; the deep
+// layout's Ldi_k comes from the ring too).
 template <bool FWD>
 __device__ __forceinline__ void chain_fetch(const Smem& sm, const Ring& r, int t, int rr,
                                             float (&L)[BLK], float (&Dg)[BLK], float& v) {
   const int k = node_of<FWD>(t);
-  load_ldi<FWD>(Dg, sm, k, rr);
+  if constexpr (LDI_RINGED) ldi_take<FWD>(Dg, sm, r, k, rr);
+  else load_ldi<FWD>(Dg, sm, k, rr);
   v = FWD ? sm.rhs[k * BLK + rr] : sm.ys[k * VPAD + rr];
   if (t >= 1) load_block<FWD>(L, lsub_d1<FWD>(sm, r, FWD ? k - 1 : k), rr);
 }
@@ -1014,9 +1099,11 @@ structured_admm_kernel(Params P, Ptrs g) {
     mr[q] = make_mrow(tid + q * NT);
   }
 
-  Ring ring{g.Lsub + (size_t)b * N * BW * BLK2};
+  Ring ring{g.Lsub + (size_t)b * N * BW * BLK2, g.Ldi + (size_t)b * N * BLK2};
   if constexpr (RINGED) ring_start(sm, ring, warp, lane);
-  if constexpr (PACKED_LDI) {
+  if constexpr (LDI_RINGED) {
+    // the deep layout's Ldi comes through the ring (ring_copy)
+  } else if constexpr (PACKED_LDI) {
     const float* src = g.Ldi + (size_t)b * N * BLK2;
     for (int e = tid; e < N * BLK2; e += NT) {
       const int k = e / BLK2, i = (e % BLK2) / BLK, j = e % BLK;
@@ -1034,7 +1121,7 @@ structured_admm_kernel(Params P, Ptrs g) {
   }
   copy<NB>(sm.u, g.u + (size_t)b * NB);
   const float* Jg = g.J + (size_t)b * N * NG * BLK;  // the problem's J in device memory
-  if constexpr (LAYOUT != FAR) copy<N * NG * BLK>(sm.J, Jg);
+  if constexpr (!J_OUT) copy<N * NG * BLK>(sm.J, Jg);
   copy<NEQ>(sm.fseg, g.f_rows + (size_t)b * NEQ);
   // the lean and far layouts' iterates, in their owner's registers (own_iter)
   float X[EPT], ZX[EPT], YX[EPT], ZC[EPT], YC[EPT];

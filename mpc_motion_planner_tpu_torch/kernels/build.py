@@ -50,7 +50,7 @@ SMEM_LIMIT = 232448
 
 # kernel 3's shared-memory layouts, in the order of their -DMPC_SMEM_LAYOUT
 # values (csrc/common.cuh)
-LAYOUTS = ("full", "compact", "split", "stream", "lean", "far")
+LAYOUTS = ("full", "compact", "split", "stream", "lean", "far", "deep")
 
 
 @dataclasses.dataclass(frozen=True)

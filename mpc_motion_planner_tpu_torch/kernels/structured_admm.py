@@ -17,7 +17,7 @@ elements and as many constraint rows per thread (:func:`threads`: one of
 each up to 1024 threads, two past them, three past 2048 elements), node
 vectors padded to :func:`vpad` floats, one helper warp and one look-ahead
 vector per distance 2..bw of the band (bw = the spline order), and the first
-of six shared-memory layouts (:func:`choose_layout`, :func:`smem_bytes`)
+of seven shared-memory layouts (:func:`choose_layout`, :func:`smem_bytes`)
 that fits a block: full; compact where the full one does not fit (Ldi
 packed lower triangular, Lsub without its unread tail: 232,176 B at 25 nodes
 of the Panda, where full takes 262,000 B; 19 nodes of an 8-joint robot;
@@ -37,14 +37,19 @@ nodes, 10 joints at 28 to 37); far where the lean does not fit (the lean
 layout without the node constraint Jacobians J, which only the products of
 A and A' read, from device memory where they use them: 76 to 94 nodes of
 order 3, 187,664 B at 76, where lean takes 238,736 B; order 4 x 17 to x 21,
-9 joints at 49 to 61 nodes, 10 joints at 40 to 49). :func:`ring_schedule`
-models the ring's copies and reads step by step. Two elements a thread take
-40 to 76 nodes of order 3 (608 threads at 46, 832 at 61, 1024 at 76), order
-4 x 10 to x 17 and 9 joints from 31 nodes; three take 79 nodes of order 3
-and more. A geometry that fits no layout (97 nodes of order 3: 233,424 B in
-the far layout; order 4 x 22; 10 joints at 52 nodes) raises a ValueError
-that names the bytes; nothing solves it another way. The figures below are
-the 19-node Panda transcription's.
+9 joints at 49 to 61 nodes, 10 joints at 40 to 49); deep where the far does
+not fit (the far layout without Ldi, each node's block of which travels
+through the copier's ring with the node's run: 97 to 154 nodes of order 3,
+158,000 B at 97, where far takes 233,424 B; order 4 x 22 to x 33, 9 joints
+at 64 to 109 nodes, 10 joints at 52 to 88). :func:`ring_schedule` models
+the ring's copies and reads step by step. Two elements a thread take 40 to
+76 nodes of order 3 (608 threads at 46, 832 at 61, 1024 at 76), order 4 x
+10 to x 17 and 9 joints from 31 nodes; three take 79 to 115 nodes of order
+3 (864 threads at 97), four 118 to 154. A geometry that fits no layout (157
+nodes of order 3: 233,520 B in the deep layout; order 4 x 34; 9 joints at
+112 nodes; 10 joints at 91) raises a ValueError that names the bytes;
+nothing solves it another way. The figures below are the 19-node Panda
+transcription's.
 
 What bounds it on this card: latency. Each iteration is ~157k flops per
 problem, 85% of them in the two banded triangular sweeps, and the factors
@@ -103,36 +108,47 @@ KERNEL = CudaKernel(
 )
 
 # the layouts whose Lsub goes through the copier's ring, those of them whose
-# chain reads its blocks from the ring too, and those that keep the vectors
-# only their owner reads out of shared memory
-RINGED = ("split", "stream", "lean", "far")
-STREAMED = ("stream", "lean", "far")
-OWNERS_OUT = ("lean", "far")
+# chain reads its blocks from the ring too, those that keep the vectors only
+# their owner reads out of shared memory, those that read J from device
+# memory, and those whose Ldi goes through the ring with Lsub
+RINGED = ("split", "stream", "lean", "far", "deep")
+STREAMED = ("stream", "lean", "far", "deep")
+OWNERS_OUT = ("lean", "far", "deep")
+J_OUT = ("far", "deep")
+LDI_RINGED = ("deep",)
+
+LEAD = 2  # steps between a copy and the step what it brings is first read in
 
 
 def ring_runs(g: Geometry, layout: str = "split") -> int:
-    """Slots of the ring (RING) of the split, stream, lean or far layout: a
-    slot holds a node's run, copied 2 steps ahead of its first use; bw runs
-    (split) or bw + 1 (the others, whose chain reads a run one step after the
-    helpers in the backward sweep) are the fewest for which no copy
+    """Slots of the ring (RING) of the split, stream, lean, far or deep
+    layout: a slot holds a node's run, copied 2 steps ahead of its first use;
+    bw runs (split), bw + 1 (stream, lean and far, whose chain reads a run
+    one step after the helpers in the backward sweep) or bw + 2 (deep, whose
+    forward sweep copies a step earlier) are the fewest for which no copy
     overwrites a run still to be read (:func:`ring_schedule`)."""
-    return g.order + (layout in STREAMED)
+    return g.order + (layout in STREAMED) + (layout in LDI_RINGED)
 
 
 def ring_slot(g: Geometry, layout: str = "split") -> int:
-    """Floats of a ring slot (SLOT): a node's run of bw - 1 helper blocks
-    (split) or of all its bw blocks (stream, lean and far), copied from the
-    16-byte boundary at or before its start to the one at or after its
-    end."""
-    return ((g.order - (layout not in STREAMED)) * g.blk ** 2 + 6) // 4 * 4
+    """Floats of a ring slot (STRIDE): a node's run of bw - 1 helper blocks
+    (split) or of all its bw blocks (stream, lean, far and deep), copied from
+    the 16-byte boundary at or before its start to the one at or after its
+    end; in the deep layout then the node's Ldi block, copied the same
+    way."""
+    run = ((g.order - (layout not in STREAMED)) * g.blk ** 2 + 6) // 4 * 4
+    return run + ((g.blk ** 2 + 6) // 4 * 4 if layout in LDI_RINGED else 0)
 
 
-LEAD = 2  # steps between a run's copy and the step it is first read in
+def ring_last(g: Geometry, layout: str = "split") -> int:
+    """LAST_COPY: the last node whose run a sweep reads (N - 3 split, N - 2
+    the others), or (deep) N - 1, whose Ldi the chain reads."""
+    return g.nodes - 1 if layout in LDI_RINGED else g.nodes - 2 - (layout not in STREAMED)
 
 
 def ring_schedule(g: Geometry, layout: str = "split", iterations: int = 2):
-    """A model of the ring of the split, stream, lean or far layout (csrc/
-    structured_admm.cu ``ring_start`` and ``ring_step``) through
+    """A model of the ring of the split, stream, lean, far or deep layout
+    (csrc/structured_admm.cu ``ring_start`` and ``ring_step``) through
     ``iterations`` pairs of sweeps, forward then backward, step by step.
     Time is counted in steps of the whole run, n = N x sweep + step: the
     reads of step n come after the sweeps' barrier of step n - 1 and before
@@ -140,10 +156,15 @@ def ring_schedule(g: Geometry, layout: str = "split", iterations: int = 2):
     barrier. Returns ``(copies, reads)``: ``copies`` a list of (n, node,
     slot), n = None for those of ``ring_start``; ``reads`` a list of (n,
     node, slot, block, who) with ``who`` "chain" (``chain_fetch``, all but
-    the split) or the helper's distance (``ring_take``)."""
+    the split: block 0 of the run, or in the deep layout also "ldi", the
+    node's Ldi) or the helper's distance (``ring_take``)."""
     N, bw = g.nodes, g.order
     run0 = 0 if layout in STREAMED else 1
-    ring, last = ring_runs(g, layout), N - 2 - run0
+    ring, last = ring_runs(g, layout), ring_last(g, layout)
+    # AHEAD: a forward sweep copies node m after step m - LEAD, or a step
+    # earlier where the run carries Ldi_m, which the chain fetches a step
+    # before step m
+    ahead = LEAD + (layout in LDI_RINGED)
     lo, hi = 0, min(ring, last + 1) - 1
     copies = [(None, m, m % ring) for m in range(hi + 1)]
     reads = []
@@ -159,7 +180,14 @@ def ring_schedule(g: Geometry, layout: str = "split", iterations: int = 2):
                 # L[t+1,t] of node t (forward), L[k+1,k] of node k = N-2-t
                 m = t if fwd else N - 2 - t
                 reads.append((base + t, m, m % ring, 0, "chain"))
-            m = t + LEAD if fwd else N - 1 - t - LEAD - bw  # ring_step
+            if layout in LDI_RINGED:
+                # and Ldi_k of node k = s (forward) or N-1-s (backward) of step
+                # s = t + 1, steps 0 and 1 before the sweep's first barrier
+                for s in ((0, 1) if t == 0 else (t + 1,)):
+                    if s < N:
+                        m = s if fwd else N - 1 - s
+                        reads.append((base + t, m, m % ring, "ldi", "chain"))
+            m = t + ahead if fwd else N - 1 - t - LEAD - bw  # ring_step
             if (m <= last and m > hi) if fwd else (0 <= m < lo):
                 copies.append((base + t, m, m % ring))
                 if fwd:
@@ -173,11 +201,11 @@ def ring_copy_count(g: Geometry, layout: str, m: int, pairs: int, fwd: bool) -> 
     """The copies into node m's slot up to the one that holds node m's run
     when a sweep (forward if ``fwd``) reads it after ``pairs`` pairs of
     sweeps (csrc/structured_admm.cu ``ring_copy_count``, from which the
-    chain of the stream, lean and far layouts takes the parity of the barrier
-    phase it waits for): every pair copies the same runs, forward the nodes
-    ring .. last, backward the ``ncopy`` nodes below those the forward
+    chain of the stream, lean, far and deep layouts takes the parity of the
+    barrier phase it waits for): every pair copies the same runs, forward the
+    nodes ring .. last, backward the ``ncopy`` nodes below those the forward
     leaves."""
-    ring, last = ring_runs(g, layout), g.nodes - 2 - (layout not in STREAMED)
+    ring, last = ring_runs(g, layout), ring_last(g, layout)
     ring0, ncopy, s = min(ring, last + 1), max(last + 1 - ring, 0), m % ring
     fwd_copies = (last - s) // ring if last >= s else 0
     bwd_copies = (ncopy - 1 - s) // ring + 1 if s < ncopy else 0
@@ -225,7 +253,8 @@ def smem_bytes(g: Geometry, layout: str = None) -> int:
     layout = layout or g.layout or choose_layout(g)
     N, blk, nv, neq, nm, pad = g.nodes, g.blk, g.num_var, g.num_eq, g.num_rows, vpad(g)
     nb, blk2, bw, kl = N * blk, blk * blk, g.order, g.order + 1
-    ldi = N * (blk2 if layout == "full" else blk * (blk + 1) // 2)  # else packed
+    # Ldi: full, packed, or (deep, in the ring) one float
+    ldi = 1 if layout in LDI_RINGED else N * (blk2 if layout == "full" else blk * (blk + 1) // 2)
     if layout in RINGED:  # the resident distance-1 blocks (split), 3 floats to
         # a 16-byte boundary, the ring, its barriers (8 bytes each) and the
         # copier's progress count
@@ -233,10 +262,10 @@ def smem_bytes(g: Geometry, layout: str = None) -> int:
         lsub = d1 + 3 + ring_runs(g, layout) * (ring_slot(g, layout) + 2) + 1
     else:  # compact: the blocks up to L[N-1,N-2]
         lsub = (N * bw if layout == "full" else (N - 2) * bw + 1) * blk2
-    # the owner-only vectors (OWN_V, OWN_M): lean and far keep one float of
-    # each; J (J_FLOATS): far keeps one float
+    # the owner-only vectors (OWN_V, OWN_M): lean, far and deep keep one
+    # float of each; J (J_FLOATS): far and deep keep one float
     ov, om = (1, 1) if layout in OWNERS_OUT else (nv, nm)
-    jf = 1 if layout == "far" else N * g.ng * blk
+    jf = 1 if layout in J_OUT else N * g.ng * blk
     fields = ([(ldi, 4), (lsub, 4), (nb, 4), (jf, 4), (neq, 4)]
               + [(ov, 4)] * 6 + [(nv, 4)]  # qs, Ps, rx, lxs, uxs, thx; D
               + [(om, 4)] * 5 + [(ov, 4)] * 3 + [(om, 4)] * 2
@@ -261,9 +290,9 @@ def built_geometry(g: Geometry) -> Geometry:
 
 def choose_layout(g: Geometry) -> str:
     """The shared-memory layout kernel 3 is built in for ``g``: the first of
-    full, compact, split, stream, lean and far (``LAYOUTS``) whose block
-    fits, else far, which :func:`check_fits` then refuses."""
-    return next((name for name in LAYOUTS if smem_bytes(g, name) <= SMEM_LIMIT), "far")
+    full, compact, split, stream, lean, far and deep (``LAYOUTS``) whose
+    block fits, else deep, which :func:`check_fits` then refuses."""
+    return next((name for name in LAYOUTS if smem_bytes(g, name) <= SMEM_LIMIT), "deep")
 
 
 def sweep_warps(g: Geometry) -> int:
@@ -275,12 +304,12 @@ def sweep_warps(g: Geometry) -> int:
 def check_fits(g: Geometry) -> None:
     """Raise ValueError unless kernel 3 is written for ``g`` (a band of at
     least one sub-diagonal block, a row of a block per lane) and its block
-    fits the card in the layout ``g`` names, or else in one of the six:
+    fits the card in the layout ``g`` names, or else in one of the seven:
     232,448 B of shared memory, at most 1024 threads (which only an ept
     that ``g`` names can pass), and warps enough for the sweeps (and the
-    copier of the split, stream, lean and far layouts, whose ring is paced by
-    the helper of distance 2); the error of a block too large names the
-    bytes of every layout."""
+    copier of the split, stream, lean, far and deep layouts, whose ring is
+    paced by the helper of distance 2); the error of a block too large names
+    the bytes of every layout."""
     if g.order < 1:
         raise ValueError(f"kernel 3 solves with a band of at least one sub-diagonal block; "
                          f"got band width {g.order}")
@@ -343,10 +372,20 @@ def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings:
     inputs = {k: v.contiguous() for d in (data, zdata, mdata, sdata) for k, v in d.items()}
     for k, v in inputs.items():
         check_cuda_tensor(k, v, shapes[k], torch.int32 if k in ("done0", "iters0") else f32)
-    if KERNEL.geometry(g).layout in RINGED and inputs["Lsub"].data_ptr() % 16:
+    layout = KERNEL.geometry(g).layout
+    if layout in RINGED and inputs["Lsub"].data_ptr() % 16:
         # the ring's bulk copies start at the 16-byte boundary at or before
         # a block, which must lie inside the tensor
         inputs["Lsub"] = inputs["Lsub"].clone()
+    if layout in LDI_RINGED:
+        # so do those of Ldi, and they end at the 16-byte boundary at or after
+        # a block, which for the last block must lie inside the storage too
+        ldi = inputs["Ldi"]
+        end = -(-(ldi.data_ptr() + 4 * ldi.numel()) // 16) * 16
+        storage = ldi.untyped_storage()
+        if ldi.data_ptr() % 16 or end > storage.data_ptr() + storage.nbytes():
+            padded = torch.empty(ldi.numel() + 3, dtype=f32, device=ldi.device)
+            inputs["Ldi"] = padded[:ldi.numel()].view(ldi.shape).copy_(ldi)
 
     new = lambda n, dtype=f32: torch.empty(B, n, dtype=dtype, device=qp.x.device)
     x, zx, yx = new(NV), new(NV), new(NV)

@@ -25,7 +25,17 @@ budgets 700/500), on the CPU at float64, kept at float64. ``chip_smoke.py``
 phase 20 holds the port's 6-joint kernel path against it on the GPU, which
 has no JAX, and ``tests/test_torch_robots.py`` the port's plain solve.
 
-    JAX_PLATFORMS=cpu python tests/fixtures/make_panda6_fixture.py
+With ``--hand`` it writes ``torch_port_hand9_b64.npz`` instead (and no
+URDF): the Panda with its hand, ``panda_urdf(lock_joint7=False,
+hand=True)`` (9 joints: the arm's 7 and two prismatic fingers, a branched
+tree), with the Panda's limits and the fingers' (``FINGER_LIMITS``), planned
+with ``make_ocp(model, "panda_tool", fused_constraints="off")`` (kernel 1
+takes no branched tree, so the constraint rows take the XLA path), on the
+first 64 headline states with the fingers at 0.01 m (current) and 0.03 m
+(target) and at rest (``hand_states``), in the same configuration.
+``chip_smoke.py`` phase 27 holds the port's kernel path against it.
+
+    JAX_PLATFORMS=cpu python tests/fixtures/make_panda6_fixture.py [--hand]
 """
 
 from __future__ import annotations
@@ -45,6 +55,22 @@ BATCH = 64
 KEEP6 = (0, 1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 12)
 LIMIT_ARRAYS = ("min_position", "max_position", "max_velocity", "max_acceleration",
                 "max_jerk", "max_torque")
+HAND_OUT = os.path.join(HERE, "torch_port_hand9_b64.npz")
+# the two fingers' limits, per field of LIMIT_ARRAYS: 0-0.04 m, 0.2 m/s, 1 m/s^2,
+# 50 m/s^3, 20 N
+FINGER_LIMITS = {"min_position": [0.0, 0.0], "max_position": [0.04, 0.04],
+                 "max_velocity": [0.2, 0.2], "max_acceleration": [1.0, 1.0],
+                 "max_jerk": [50.0, 50.0], "max_torque": [20.0, 20.0]}
+# the fingers' positions in the current and the target states
+FINGERS_CURRENT, FINGERS_TARGET = 0.01, 0.03
+
+
+def hand_states(states, width, arm: int = 7):
+    """States (q, qdot) of an arm of ``arm`` joints as states of the arm with
+    its two fingers: both at ``width`` and at rest."""
+    states = np.asarray(states)
+    w = np.full((states.shape[0], 2), width, dtype=states.dtype)
+    return np.concatenate([states[:, :arm], w, states[:, arm:2 * arm], 0 * w], 1)
 
 
 def _num(v) -> str:
@@ -130,10 +156,17 @@ def chain_urdf(nq: int, seed: int) -> str:
 
 
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--hand", action="store_true",
+                    help="write the 9-joint hand's fixture, torch_port_hand9_b64.npz")
+    hand = ap.parse_args().hand
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
-    with open(URDF, "w") as f:
-        f.write(panda_urdf(lock_joint7=True))
+    if not hand:
+        with open(URDF, "w") as f:
+            f.write(panda_urdf(lock_joint7=True))
 
     import dataclasses
 
@@ -144,15 +177,23 @@ def main():
 
     from mpc_motion_planner_tpu.models.panda import make_panda_limits
     from mpc_motion_planner_tpu.models.urdf import parse_urdf
+    from mpc_motion_planner_tpu.ocp import make_ocp
     from mpc_motion_planner_tpu.ops.qp import QPSettings
     from mpc_motion_planner_tpu.ops.sqp import SQPSettings
     from mpc_motion_planner_tpu.planner import Margins, MotionPlanner
 
     lim = make_panda_limits()
-    limits6 = dataclasses.replace(lim, **{k: np.asarray(getattr(lim, k))[:6]
-                                          for k in LIMIT_ARRAYS})
+    if hand:
+        model = parse_urdf(panda_urdf(lock_joint7=False, hand=True))
+        limits = dataclasses.replace(lim, **{
+            k: np.concatenate([np.asarray(getattr(lim, k)), FINGER_LIMITS[k]])
+            for k in LIMIT_ARRAYS})
+    else:
+        model = parse_urdf(URDF)
+        limits = dataclasses.replace(lim, **{k: np.asarray(getattr(lim, k))[:6]
+                                             for k in LIMIT_ARRAYS})
     planner = MotionPlanner(
-        model=parse_urdf(URDF), limits=limits6,
+        model=model, limits=limits,
         margins=Margins(0.8, 0.8, 0.6, 0.9, 0.1),
         qp_settings=QPSettings(
             backend="structured", kkt_refine=0, rho_update_every=0,
@@ -161,10 +202,18 @@ def main():
         sqp_settings=SQPSettings(qp_step_schedules="200,500;150,350"),
         dtype=jnp.float64,
     )
-    assert planner.ocp.nq == 6 and planner.ocp.num_var == 343
     states = np.load(STATES)
-    current = states["current"][:BATCH][:, KEEP6]
-    target = states["target"][:BATCH][:, KEEP6]
+    if hand:
+        planner.ocp = make_ocp(planner.model, "panda_tool", fused_constraints="off",
+                               dtype=jnp.float64)
+        assert planner.ocp.nq == 9 and planner.ocp.num_var == 514
+        current = hand_states(states["current"][:BATCH], FINGERS_CURRENT)
+        target = hand_states(states["target"][:BATCH], FINGERS_TARGET)
+    else:
+        assert planner.ocp.nq == 6 and planner.ocp.num_var == 343
+        current = states["current"][:BATCH][:, KEEP6]
+        target = states["target"][:BATCH][:, KEEP6]
+    out = HAND_OUT if hand else OUT
 
     @jax.jit
     def run(cur, tgt):
@@ -177,7 +226,7 @@ def main():
     z, viol, iters, conv, tf, err = jax.block_until_ready(
         run(jnp.asarray(current, jnp.float64), jnp.asarray(target, jnp.float64)))
     np.savez_compressed(
-        OUT,
+        out,
         current=current,
         target=target,
         z=np.asarray(z, np.float64),
@@ -187,7 +236,7 @@ def main():
         final_time=np.asarray(tf, np.float64),
         terminal_err=np.asarray(err, np.float64),
     )
-    print(f"wrote {URDF} and {OUT}: z {np.asarray(z).shape}, qp_conv "
+    print(f"wrote {out if hand else URDF + ' and ' + out}: z {np.asarray(z).shape}, qp_conv "
           f"{np.asarray(conv).mean():.4f}, median violation {np.median(np.asarray(viol)):.4f}, "
           f"terminal err max {np.asarray(err).max():.5f}")
 

@@ -6,17 +6,25 @@ headline states (``headline_states_b2048.npz``) and what the JAX planner
 made of them with its OCP swapped for ``--segments`` spline segments of
 order 3 (8 by default: 25 nodes, 526 variables, 648 constraint rows; 12: 37
 nodes, 778 variables, 968 rows; 15: 46 nodes; 20: 61 nodes, 1282 variables,
-1608 rows; 25: 76 nodes, 1597 variables, 2008 rows),
+1608 rows; 25: 76 nodes, 1597 variables, 2008 rows; 32: 97 nodes, 2038
+variables, 2568 rows),
 
     planner.ocp = make_ocp(planner.model, "panda_tool", order=3, num_segments=8)
 
 in the headline slice configuration (structured QP, fixed rho, no KKT
 refinement, per-step ADMM budgets 700/500), solved on the CPU at float64 as
 ``make_torch_port_fixture.py`` solves the 19-node fixture. ``chip_smoke.py``
-phases 19 (8 segments), 23 (12), 24 (15), 25 (20) and 26 (25 segments) hold
-the port's kernel path against it on the GPU, which has no JAX.
+phases 19 (8 segments), 23 (12), 24 (15), 25 (20), 26 (25) and 28 (32
+segments) hold the port's kernel path against it on the GPU, which has no
+JAX.
 
-    JAX_PLATFORMS=cpu python tests/fixtures/make_torch_seg8_fixture.py [--segments 25]
+With ``--float32`` the fixture also holds ``final_time_float32``: the final
+times of the JAX package's own float32 solve of the same states in the same
+configuration with one KKT refinement step (float32 ADMM needs it from 43
+nodes), the JAX figure that ``chip_smoke.py`` phase 28 holds the port's
+float32 final times to where a float32 solve misses 1e-3 relative.
+
+    JAX_PLATFORMS=cpu python tests/fixtures/make_torch_seg8_fixture.py [--segments 25] [--float32]
 """
 
 from __future__ import annotations
@@ -35,7 +43,10 @@ BATCH = 64
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--segments", type=int, default=8, help="spline segments of order 3")
-    segments = ap.parse_args().segments
+    ap.add_argument("--float32", action="store_true",
+                    help="also store the final times of the JAX float32 solve")
+    args = ap.parse_args()
+    segments = args.segments
     out = os.path.join(HERE, f"torch_port_seg{segments}_b64.npz")
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
@@ -74,8 +85,22 @@ def main():
 
     z, viol, iters, conv, tf, err = jax.block_until_ready(
         run(jnp.asarray(current, jnp.float64), jnp.asarray(target, jnp.float64)))
+    extra = {}
+    if args.float32:
+        import dataclasses
+
+        planner32 = MotionPlanner(
+            margins=planner.margins, sqp_settings=planner.sqp_settings,
+            qp_settings=dataclasses.replace(planner.qp_settings, kkt_refine=1),
+            dtype=jnp.float32)
+        planner32.ocp = make_ocp(planner32.model, "panda_tool", order=3, num_segments=segments,
+                                 dtype=jnp.float32)
+        sol32 = jax.jit(planner32.solve)(jnp.asarray(current, jnp.float32),
+                                         jnp.asarray(target, jnp.float32))
+        extra["final_time_float32"] = np.asarray(sol32.final_time, np.float32)
     np.savez_compressed(
         out,
+        **extra,
         current=current,
         target=target,
         z=np.asarray(z, np.float32),

@@ -3,14 +3,14 @@ structured QP at 8, 4, 12, 15 and 20 spline segments against the JAX
 ``structured`` backend (float64); the geometry of a kernel library (its
 ``-D`` flags, one library per geometry, per kernel-3 layout and per count
 of elements a thread, kernel 3's shared memory reckoned member by member in
-its full, compact, split, stream, lean and far layouts and at two and three
-elements a thread, the layout each geometry takes, the ring of the split,
-stream, lean and far layouts modelled step by step, a geometry past the
-limits raising); the shipping QP settings of each node count,
-``bench/convergence.py`` and ``bench/agreement.py``'s count;
+its full, compact, split, stream, lean, far and deep layouts and at two,
+three and four elements a thread, the layout each geometry takes, the ring
+of the split, stream, lean, far and deep layouts modelled step by step, a
+geometry past the limits raising); the shipping QP settings of each node
+count, ``bench/convergence.py`` and ``bench/agreement.py``'s count;
 the compiled solve's key after the planner's OCP is swapped; and the 8-,
-12-, 15-, 20- and 25-segment JAX fixtures that ``chip_smoke.py`` phases 19,
-23, 24, 25 and 26 hold the card against."""
+12-, 15-, 20-, 25- and 32-segment JAX fixtures that ``chip_smoke.py``
+phases 19, 23, 24, 25, 26 and 28 hold the card against."""
 
 import dataclasses
 import json
@@ -47,7 +47,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADLINE_STATES = os.path.join(ROOT, "tests", "fixtures", "headline_states_b2048.npz")
 SEG_FIXTURES = {s: os.path.join(ROOT, "tests", "fixtures", f"torch_port_seg{s}_b64.npz")
-                for s in (8, 12, 15, 20, 25)}
+                for s in (8, 12, 15, 20, 25, 32)}
 MARGINS = (0.8, 0.8, 0.6, 0.9, 0.1)
 B = 2
 
@@ -115,6 +115,19 @@ def test_shipping_settings_refine_from_43_nodes(order, segments, refine):
     s = config.shipping_qp_settings(nodes)
     assert s.kkt_refine == refine and (nodes >= config.KKT_REFINE_FROM_NODES) == bool(refine)
     assert dataclasses.replace(s, kkt_refine=0) == config.SHIPPING_QP_SETTINGS
+
+
+@pytest.mark.parametrize("order,segments,rescue", [(3, 25, 0), (3, 27, 0), (3, 28, 300),
+                                                  (3, 32, 300), (3, 40, 300), (4, 21, 300)])
+def test_shipping_settings_rescue_from_85_nodes(order, segments, rescue):
+    """From 85 nodes the shipping QP settings give a QP that has not
+    converged within its budget 300 more iterations (the JAX package's
+    rescue budget), beside the refinement step; below they give none."""
+    nodes = make_ocp(_planner().model, order=order, num_segments=segments).num_nodes
+    s = config.shipping_qp_settings(nodes)
+    assert s.rescue_iters == rescue and (nodes >= config.RESCUE_FROM_NODES) == bool(rescue)
+    assert s.kkt_refine == 1
+    assert dataclasses.replace(s, kkt_refine=0, rescue_iters=0) == config.SHIPPING_QP_SETTINGS
 
 
 def test_convergence_sweep_prints_one_line_per_run(capsys):
@@ -244,14 +257,17 @@ def test_unfit_geometry_raises_naming_the_bytes():
     up to 24 (73 nodes, 992 threads, 230,160 B). 25 segments (76 nodes,
     1024 threads, 238,736 B lean) fit in the far layout (187,664 B), and so
     do up to 31 (94 nodes, three elements a thread, 226,864 B). 32 segments
-    (97 nodes) need 233,424 B even in the far layout: the fit check and the
-    card's QP solve raise and name the bytes of every layout, before any
-    build or launch and whatever the data, so nothing falls back to the
-    plain loop."""
+    (97 nodes, 233,424 B far) fit in the deep layout (158,000 B), and so do
+    up to 51 (154 nodes, four elements a thread, 1024 threads, 229,824 B).
+    52 segments (157 nodes, five elements a thread) need 233,520 B even in
+    the deep layout: the fit check and the card's QP solve raise and name
+    the bytes of every layout, before any build or launch and whatever the
+    data, so nothing falls back to the plain loop."""
     g28, g37, g40 = Geometry(segments=9), Geometry(segments=12), Geometry(segments=13)
     g46, g49 = Geometry(segments=15), Geometry(segments=16)
     g73, g76 = Geometry(segments=24), Geometry(segments=25)
     g94, g97 = Geometry(segments=31), Geometry(segments=32)
+    g154, g157 = Geometry(segments=51), Geometry(segments=52)
     assert k3.smem_bytes(g28, "compact") == 261152 > SMEM_LIMIT
     assert k3.choose_layout(g28) == "split" and k3.smem_bytes(g28) == 180128
     k3.check_fits(g28)
@@ -280,20 +296,29 @@ def test_unfit_geometry_raises_naming_the_bytes():
     with pytest.raises(ValueError, match=r"76 nodes, order 3 and 7 joints .* needs 238736 B of "
                                          r"shared memory per block in its lean layout"):
         k3.check_fits(dataclasses.replace(g76, layout="lean"))
-    assert (k3.threads(g97), k3.smem_bytes(g97)) == (864, 233424)
+    assert (k3.threads(g97), k3.smem_bytes(g97, "far"), k3.smem_bytes(g97)) == (
+        864, 233424, 158000)
+    assert (k3.ept_of(g154), k3.threads(g154), k3.smem_bytes(g154)) == (4, 1024, 229824)
+    for g in (g97, g154):
+        assert k3.choose_layout(g) == "deep"
+        k3.check_fits(g)
     with pytest.raises(ValueError, match=r"97 nodes, order 3 and 7 joints .* needs 233424 B of "
-                                         r"shared memory per block in its far layout \(full: "
+                                         r"shared memory per block in its far layout"):
+        k3.check_fits(dataclasses.replace(g97, layout="far"))
+    assert (k3.ept_of(g157), k3.threads(g157), k3.smem_bytes(g157)) == (5, 864, 233520)
+    with pytest.raises(ValueError, match=r"157 nodes, order 3 and 7 joints .* needs 233520 B of "
+                                         r"shared memory per block in its deep layout \(full: "
                                          r"\d+ B, compact: \d+ B, split: \d+ B, stream: \d+ B, "
-                                         r"lean: 298608 B\)"):
-        k3.check_fits(g97)
-    planner = _planner(32)
+                                         r"lean: 469888 B, far: 364384 B\)"):
+        k3.check_fits(g157)
+    planner = _planner(52)
     cur, tgt = _states(1)
     z0 = planner.warm_start_vector(planner.plan_warm_start(cur, tgt))
     _, _, sa, args = qp_subproblem(planner.ocp, planner.nlp_bounds(cur, tgt), z0)
     P = hessian_regularization_diag(planner.ocp, 1, torch.float64, "cpu", 0.01)
-    with pytest.raises(ValueError, match="233424 B"):
+    with pytest.raises(ValueError, match="233520 B"):
         k3.solve_box_qp_structured_cuda(planner.ocp, sa, P, *args, config.SHIPPING_QP_SETTINGS)
-    for g in (g40, g46, g49, g73, g76, g94, g97):
+    for g in (g40, g46, g49, g73, g76, g94, g97, g154, g157):
         k2.check_fits(g)  # kernel 2's working set is per node
 
 
@@ -343,26 +368,28 @@ def test_two_elements_a_thread_reckoning():
 
 
 # (segments, order, joints): kernel 3's threads and its bytes in the full,
-# compact, split, stream, lean and far layouts. The split's bytes are the
-# compact's less the Lsub blocks of distances 2..bw and plus a ring of bw
-# nodes' helper blocks; the stream's keep no Lsub block and a ring of bw + 1
-# nodes' runs of bw blocks; the lean's are the stream's less the 16
+# compact, split, stream, lean, far and deep layouts. The split's bytes are
+# the compact's less the Lsub blocks of distances 2..bw and plus a ring of
+# bw nodes' helper blocks; the stream's keep no Lsub block and a ring of bw
+# + 1 nodes' runs of bw blocks; the lean's are the stream's less the 16
 # owner-only vectors but a float of each; the far's are the lean's less J
-# but a float. The first four take the split layout, the rest the stream.
+# but a float; the deep's are the far's less the packed Ldi but a float and
+# with a ring of bw + 2 slots, each a run and an Ldi block. The first four
+# take the split layout, the rest the stream.
 RING_GEOMETRIES = {
-    (6, 4, 7): (640, 306976, 273632, 173200, 144992, 108752, 91968),
-    (6, 3, 9): (640, 308464, 267216, 185680, 150704, 114848, 94320),
-    (6, 3, 10): (704, 372400, 321344, 220640, 177456, 137680, 112592),
-    (9, 3, 7): (736, 293488, 261152, 180128, 143088, 101568, 82752),
-    (12, 3, 7): (992, 388032, 348128, 235344, 182432, 127392, 102528),
-    (9, 4, 7): (928, 454544, 411120, 247200, 197808, 143936, 119088),
-    (8, 3, 9): (832, 406128, 356448, 239920, 187440, 140048, 113040),
-    (8, 3, 10): (928, 490288, 428800, 284880, 220112, 167520, 134512),
+    (6, 4, 7): (640, 306976, 273632, 173200, 144992, 108752, 91968, 86608),
+    (6, 3, 9): (640, 308464, 267216, 185680, 150704, 114848, 94320, 89024),
+    (6, 3, 10): (704, 372400, 321344, 220640, 177456, 137680, 112592, 106160),
+    (9, 3, 7): (736, 293488, 261152, 180128, 143088, 101568, 82752, 71088),
+    (12, 3, 7): (992, 388032, 348128, 235344, 182432, 127392, 102528, 82544),
+    (9, 4, 7): (928, 454544, 411120, 247200, 197808, 143936, 119088, 102640),
+    (8, 3, 9): (832, 406128, 356448, 239920, 187440, 140048, 113040, 98672),
+    (8, 3, 10): (928, 490288, 428800, 284880, 220112, 167520, 134512, 116928),
     # two z elements and rows a thread
-    (13, 3, 7): (544, 419264, 376848, 253488, 195280, 135728, 108848),
-    (10, 4, 7): (544, 503504, 456720, 271616, 215184, 155424, 127888),
-    (15, 3, 7): (608, 482240, 434784, 290240, 221456, 152896, 121984),
-    (10, 3, 9): (544, 503536, 445440, 293920, 223952, 165008, 131520),
+    (13, 3, 7): (544, 419264, 376848, 253488, 195280, 135728, 108848, 86096),
+    (10, 4, 7): (544, 503504, 456720, 271616, 215184, 155424, 127888, 107744),
+    (15, 3, 7): (608, 482240, 434784, 290240, 221456, 152896, 121984, 93680),
+    (10, 3, 9): (544, 503536, 445440, 293920, 223952, 165008, 131520, 108080),
 }
 
 
@@ -380,11 +407,11 @@ def test_split_layout_reckoning(segments, order, nq):
     compact layout does not fit, the split is the layout the geometry takes,
     and where the split does not, the stream; the fit check passes."""
     g = Geometry(segments=segments, order=order, nq=nq)
-    threads, full, compact, split, stream, lean, far = RING_GEOMETRIES[segments, order, nq]
+    threads, full, compact, split, stream, lean, far, deep = RING_GEOMETRIES[segments, order, nq]
     layout = "split" if split <= SMEM_LIMIT else "stream"
     assert k3.threads(g) == threads <= 1024
     assert tuple(k3.smem_bytes(g, name) for name in LAYOUTS) == (
-        full, compact, split, stream, lean, far)
+        full, compact, split, stream, lean, far, deep)
     assert compact > SMEM_LIMIT >= k3.smem_bytes(g, layout) == k3.smem_bytes(g)
     assert k3.choose_layout(g) == layout and stream < split
     blk2, N, bw = g.blk ** 2, g.nodes, g.order
@@ -402,6 +429,13 @@ def test_split_layout_reckoning(segments, order, nq):
     assert abs((stream - lean) - 4 * (9 * (g.num_var - 1) + 7 * (g.num_rows - 1))) < 16
     # the far layout: the lean's less J, N ng blk floats, but one
     assert abs((lean - far) - 4 * (N * g.ng * g.blk - 1)) < 16
+    # the deep layout: the far's less the packed Ldi but a float, and a ring
+    # of bw + 2 slots of a run and an Ldi block (from their 16-byte boundaries)
+    assert k3.ring_runs(g, "deep") == bw + 2
+    assert k3.ring_slot(g, "deep") == k3.ring_slot(g, "stream") + -(-(blk2 + 3) // 4) * 4
+    ring = {name: k3.ring_runs(g, name) * (k3.ring_slot(g, name) + 2) for name in ("far", "deep")}
+    assert abs((far - deep) - 4 * (N * g.blk * (g.blk + 1) // 2 - 1 - ring["deep"] + ring["far"])
+               ) < 16
     k3.check_fits(g)
     k3.check_fits(dataclasses.replace(g, layout="stream"))
     for name in LAYOUTS[:LAYOUTS.index(layout)]:
@@ -410,26 +444,28 @@ def test_split_layout_reckoning(segments, order, nq):
             k3.check_fits(dataclasses.replace(g, layout=name))
 
 
-@pytest.mark.parametrize("layout", ["split", "stream", "lean", "far"])
+@pytest.mark.parametrize("layout", ["split", "stream", "lean", "far", "deep"])
 def test_ring_schedule_serves_every_read(layout):
-    """The ring of the split, stream, lean and far layouts, modelled step by
-    step as csrc/structured_admm.cu ring_step runs it (``ring_schedule``),
-    at every geometry of orders 2-5 and 6-10 joints whose stream block (lean
-    and far: whose block in that layout) fits, through two iterations: every
-    read, by the chain's fetch (all but the split) or by a helper, finds its
-    node's run in its slot, copied at least LEAD steps before, and the copies
-    into that slot so far are ``ring_copy_count``'s (the closed form from
-    which the chain of those layouts takes the parity it waits for); no
-    copy overwrites a run before it is read (so each slot's barrier phase is
-    waited on before the next copy into it); an iteration copies 2 (N - 2 -
-    bw) runs, as the source's header says; and a ring of one run fewer fails
-    at 37 nodes."""
+    """The ring of the split, stream, lean, far and deep layouts, modelled
+    step by step as csrc/structured_admm.cu ring_step runs it
+    (``ring_schedule``), at every geometry of orders 2-5 and 6-10 joints
+    whose stream block (lean, far and deep: whose block in that layout)
+    fits, through three pairs of sweeps (an iteration with its refinement
+    step takes two): every read, by the chain's fetch (all but the split;
+    in the deep layout its Ldi too, a step before the node's run) or by a
+    helper, finds its node's run in its slot, copied at least LEAD steps
+    before, and the copies into that slot so far are ``ring_copy_count``'s
+    (the closed form from which the chain of those layouts takes the parity
+    it waits for); no copy overwrites a run before it is read (so each
+    slot's barrier phase is waited on before the next copy into it); an
+    iteration copies 2 (N - 2 - bw) runs, as the source's header says; and
+    a ring of one run fewer fails at 37 nodes."""
     text = " ".join(ln.strip().lstrip("/ ") for ln in
                     (CSRC / "structured_admm.cu").read_text().splitlines())
     assert "An iteration copies 2 (N - 2 - BW) runs" in text and "ring_schedule" in text
 
     def faults(g, ring):
-        copies, reads = k3.ring_schedule(g, layout)
+        copies, reads = k3.ring_schedule(g, layout, iterations=3)
         events = sorted([(-1 if n is None else n, 1, m, s, None) for n, m, s in copies]
                         + [(n, 0, m, s, who) for n, m, s, _, who in reads],
                         key=lambda e: e[:2])  # a step's reads come before its copies
@@ -461,7 +497,7 @@ def test_ring_schedule_serves_every_read(layout):
         for nq in range(6, 11):
             for segments in range(1, 70):
                 g = Geometry(segments=segments, order=order, nq=nq)
-                if k3.smem_bytes(g, layout if layout in ("lean", "far") else "stream") > SMEM_LIMIT:
+                if k3.smem_bytes(g, layout if layout in k3.OWNERS_OUT else "stream") > SMEM_LIMIT:
                     break
                 assert faults(g, k3.ring_runs(g, layout)) == [], (g, layout)
                 checked += 1
@@ -486,15 +522,19 @@ def test_ring_schedule_serves_every_read(layout):
     (25, 3, 7, "far"), (28, 3, 7, "far"), (31, 3, 7, "far"), (17, 4, 7, "far"),
     (21, 4, 7, "far"), (16, 3, 9, "far"), (20, 3, 9, "far"), (13, 3, 10, "far"),
     (16, 3, 10, "far"),
+    # and the deep layout in phase 28, with the last of each that fits
+    (32, 3, 7, "deep"), (40, 3, 7, "deep"), (51, 3, 7, "deep"), (22, 4, 7, "deep"),
+    (33, 4, 7, "deep"), (21, 3, 9, "deep"), (36, 3, 9, "deep"), (17, 3, 10, "deep"),
+    (29, 3, 10, "deep"),
 ])
 def test_layout_of_each_geometry(segments, order, nq, layout):
-    """Each geometry takes the first of full, compact, split, stream, lean
-    and far whose block fits, so the geometries that fit before the stream
-    layout keep the layouts they had (full at 19 and 13 nodes, compact at
-    25, split at order 4 x 6 and 34 nodes), and only a geometry that fits
-    none of the first three takes the stream, only one that fits none of the
-    first four the lean, and only one that fits none of the first five the
-    far."""
+    """Each geometry takes the first of full, compact, split, stream, lean,
+    far and deep whose block fits, so the geometries that fit before the
+    stream layout keep the layouts they had (full at 19 and 13 nodes,
+    compact at 25, split at order 4 x 6 and 34 nodes), and only a geometry
+    that fits none of the first three takes the stream, only one that fits
+    none of the first four the lean, only one that fits none of the first
+    five the far, and only one that fits none of the first six the deep."""
     g = Geometry(segments=segments, order=order, nq=nq)
     assert k3.choose_layout(g) == layout
     fits = [k3.smem_bytes(g, name) <= SMEM_LIMIT for name in LAYOUTS]
@@ -533,21 +573,50 @@ def test_lean_layout_is_taken_last_everywhere():
 def test_far_layout_is_taken_only_where_lean_does_not_fit():
     """At every geometry of orders 2-5 and 6-10 joints up to the first that
     fits no layout, the far layout is taken exactly where the lean block
-    does not fit, so every geometry that fitted before the far layout keeps
-    the layout and the library it had; past the far layout nothing fits,
-    and the geometry a planner gives then takes the far layout, which the
-    fit check refuses."""
+    does not fit and the far one does, so every geometry that fitted before
+    the far layout keeps the layout and the library it had; the first
+    geometries past the far layout (32 x 3, order 4 x 22, 10 joints x 17,
+    9 joints x 21) take the deep one, and the far layout named there raises
+    naming its bytes."""
     far = 0
     for g, layout, fits in _layouts_taken():
-        assert (layout == "far") == (not any(fits[:-1]))
+        assert (layout == "far") == (not any(fits[:5]) and fits[5])
         assert k3.KERNEL.geometry(g).layout == layout
         far += layout == "far"
     assert far > 120
     for g in (Geometry(segments=32), Geometry(segments=22, order=4),
               Geometry(segments=17, nq=10), Geometry(segments=21, nq=9)):
-        assert k3.smem_bytes(g, "far") > SMEM_LIMIT and k3.choose_layout(g) == "far"
+        assert k3.smem_bytes(g, "far") > SMEM_LIMIT and k3.choose_layout(g) == "deep"
+        k3.check_fits(g)
+        with pytest.raises(ValueError, match=rf"needs {k3.smem_bytes(g, 'far')} B of shared "
+                                             rf"memory per block in its far layout"):
+            k3.check_fits(dataclasses.replace(g, layout="far"))
+
+
+def test_deep_layout_is_taken_only_where_far_does_not_fit():
+    """At every geometry of orders 2-5 and 6-10 joints up to the first that
+    fits no layout, the deep layout is taken exactly where no other block
+    fits, so every geometry that fitted before the deep layout keeps the
+    layout and the library it had; past the deep layout nothing fits, and
+    the geometry a planner gives then takes the deep layout, which the fit
+    check refuses naming the bytes: the first past it are 52 segments of
+    order 3 (157 nodes), order 4 x 34 (137), 9 joints x 37 (112) and 10
+    joints x 30 (91)."""
+    deep = 0
+    last = {}
+    for g, layout, fits in _layouts_taken():
+        assert (layout == "deep") == (not any(fits[:-1]))
+        assert k3.KERNEL.geometry(g).layout == layout
+        deep += layout == "deep"
+        last[g.order, g.nq] = g.segments
+    assert deep > 250
+    assert (last[3, 7], last[4, 7], last[3, 9], last[3, 10]) == (51, 33, 36, 29)
+    for g in (Geometry(segments=52), Geometry(segments=34, order=4),
+              Geometry(segments=37, nq=9), Geometry(segments=30, nq=10)):
+        assert k3.smem_bytes(g, "deep") > SMEM_LIMIT and k3.choose_layout(g) == "deep"
+        assert k3.threads(g) <= 1024
         with pytest.raises(ValueError, match=rf"needs {k3.smem_bytes(g)} B of shared memory "
-                                             rf"per block in its far layout"):
+                                             rf"per block in its deep layout"):
             k3.check_fits(g)
 
 
@@ -619,6 +688,42 @@ def test_far_layout_reckoning(segments):
     assert abs(k3.smem_bytes(g, "lean") - far - 4 * (N * 8 * blk - 1)) < 16
 
 
+@pytest.mark.parametrize("segments", [32, 40, 51], ids=["97_nodes", "121_nodes", "154_nodes"])
+def test_deep_layout_reckoning(segments):
+    """Kernel 3's deep block of the Panda at 32, 40 and 51 segments of order
+    3, member by member: the far layout's, with one float of Ldi and a ring
+    of five slots (bw + 2), each a node's run of three blocks and its Ldi
+    block, each from a 16-byte boundary, at three elements a thread at 97
+    nodes (864 threads) and four at 121 and 154 (832 and 1024)."""
+    g = Geometry(segments=segments)
+    N, blk, nv, neq, nm = g.nodes, 21, g.num_var, g.num_eq, g.num_rows
+    ept, threads = {32: (3, 864), 40: (4, 832), 51: (4, 1024)}[segments]
+    assert (N, nv, nm) == {32: (97, 2038, 2568), 40: (121, 2542, 3208),
+                           51: (154, 3235, 4088)}[segments]
+    assert (k3.ept_of(g), k3.threads(g)) == (ept, threads)
+    slot = -(-(3 * blk * blk + 3) // 4) * 4 + -(-(blk * blk + 3) // 4) * 4
+    members = [
+        (1, 4),  # Ldi: in the ring
+        (3 + 5 * (slot + 2) + 1, 4),  # Lsub: the ring of 5 runs and Ldi blocks, barriers, progress
+        (N * blk, 4), (1, 4), (neq, 4),  # u, J, fseg
+        *[(1, 4)] * 6, (nv, 4), *[(1, 4)] * 5,  # qs .. thx, D, rc .. thr
+        *[(1, 4)] * 5,  # x, zx, yx, zc, yc
+        (nv, 4), (nm, 4), (nv, 4),  # t0, wa, rhs
+        (N * 24, 16), (N * 24, 16), (24, 16),  # ys, xs, tb
+        (2 * N * blk, 4),  # ahead
+        (nv, 4), (nv, 4), (nm, 4), (nm, 4),  # xt, dx, wb, wc
+        (threads // 32 * 4, 4), (16, 4), (1, 4), (1, 4), (1, 4),  # red, Dm, p, s, done
+    ]
+    off = 0
+    for floats, align in members:
+        off = -(-off // align) * align + 4 * floats
+    deep = {32: 158000, 40: 188192, 51: 229824}[segments]
+    assert -(-off // 16) * 16 == k3.smem_bytes(g) == k3.smem_bytes(g, "deep") == deep
+    assert k3.smem_bytes(g, "far") > SMEM_LIMIT >= deep and k3.choose_layout(g) == "deep"
+    # the packed Ldi, 89,628 B at 97 nodes, leaves shared memory
+    assert (N * blk * (blk + 1) // 2) * 4 == {32: 89628, 40: 111804, 51: 142296}[segments]
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_flags_and_library_per_layout(layout):
     """A layout is one -D flag into common.cuh (its index in LAYOUTS) and a
@@ -635,7 +740,7 @@ def test_flags_and_library_per_layout(layout):
     name = k3.KERNEL.library_path(g).name
     assert name.startswith(f"structured_admm_n25_o3_q7_{layout}_e1_")
     others = {k3.KERNEL.library_path(dataclasses.replace(g25, layout=o)) for o in LAYOUTS}
-    assert len(others) == len(LAYOUTS) == 6
+    assert len(others) == len(LAYOUTS) == 7
     assert (k3.KERNEL.library_path(g25) == k3.KERNEL.library_path(g)) == (layout == "compact")
     assert k2.KERNEL.geometry(g) == g25 and k2.KERNEL.library_path(g) == k2.KERNEL.library_path(g25)
     assert k3.smem_bytes(g) == k3.smem_bytes(g25, layout)
@@ -667,16 +772,18 @@ def test_flags_and_library_per_ept(ept):
         Geometry(ept=-1)
 
 
-@pytest.fixture(scope="module", params=[8, 12, 15, 20, 25],
-                ids=["25_nodes", "37_nodes", "46_nodes", "61_nodes", "76_nodes"])
+@pytest.fixture(scope="module", params=[8, 12, 15, 20, 25, 32],
+                ids=["25_nodes", "37_nodes", "46_nodes", "61_nodes", "76_nodes", "97_nodes"])
 def seg8_solve(request):
-    """The port's planner with its OCP swapped for 8 (or 12, 15, 20, 25) segments,
+    """The port's planner with its OCP swapped for 8 (or 12, 15, 20, 25, 32) segments,
     solved on the CPU at float64 on the first two states of that segment
-    count's JAX fixture, and the capture key before and after the swap."""
+    count's JAX fixture (the first one at 32 segments, whose solve of two
+    takes ~30 s), and the capture key before and after the swap."""
     segments = request.param
     fx = np.load(SEG_FIXTURES[segments])
-    cur = torch.as_tensor(fx["current"][:B].astype(np.float64))
-    tgt = torch.as_tensor(fx["target"][:B].astype(np.float64))
+    n = 1 if segments == 32 else B
+    cur = torch.as_tensor(fx["current"][:n].astype(np.float64))
+    tgt = torch.as_tensor(fx["target"][:n].astype(np.float64))
     planner = _planner()
     solve = capture_solve(planner, cur, tgt)
     args = {"current_state": cur, "target_state": tgt}
@@ -697,15 +804,16 @@ def test_capture_key_follows_the_ocp(seg8_solve):
     g = Geometry.of_ocp(planner.ocp)
     assert key19 != key_new and key19[:-1] == key_new[:-1]
     assert key_new[-1] == g != Geometry() and key19[-1] == Geometry()
-    assert sol.z.shape == (B, g.num_var) and sol.lam_c.shape == (B, g.num_rows)
+    n = sol.z.shape[0]
+    assert sol.z.shape == (n, g.num_var) and sol.lam_c.shape == (n, g.num_rows)
     assert (g.num_var, g.num_rows) in ((526, 648), (778, 968), (967, 1208), (1282, 1608),
-                                       (1597, 2008))
+                                       (1597, 2008), (2038, 2568))
     assert set(counts.values()) == {0}
 
 
 def test_seg8_fixture_is_the_jax_solve_of_the_headline_states(seg8_solve):
     """The fixture holds the first 64 headline states and the JAX solve of
-    them at 8 (or 12, 15, 20, 25) segments (``make_torch_seg8_fixture.py``); the port's
+    them at 8 (or 12, 15, 20, 25, 32) segments (``make_torch_seg8_fixture.py``); the port's
     plain solve of its first states matches its final times and iterates to
     the fixture's float32 rounding, and lands in the target box."""
     fx, planner, sol, *_ = seg8_solve
@@ -713,10 +821,11 @@ def test_seg8_fixture_is_the_jax_solve_of_the_headline_states(seg8_solve):
     for k in ("current", "target"):
         np.testing.assert_array_equal(fx[k], hs[k][:64])
     assert fx["z"].shape == (64, planner.ocp.num_var) and fx["qp_converged"].shape == (64, 2)
-    np.testing.assert_allclose(sol.final_time.numpy(), fx["final_time"][:B], rtol=1e-6)
-    np.testing.assert_allclose(sol.z.numpy(), fx["z"][:B], rtol=1e-6, atol=1e-6)
-    assert sol.qp_converged.tolist() == fx["qp_converged"][:B].tolist()
-    np.testing.assert_array_equal(sol.qp_iterations.numpy(), fx["qp_iterations"][:B])
-    tgt = torch.as_tensor(fx["target"][:B].astype(np.float64))
+    n = sol.z.shape[0]
+    np.testing.assert_allclose(sol.final_time.numpy(), fx["final_time"][:n], rtol=1e-6)
+    np.testing.assert_allclose(sol.z.numpy(), fx["z"][:n], rtol=1e-6, atol=1e-6)
+    assert sol.qp_converged.tolist() == fx["qp_converged"][:n].tolist()
+    np.testing.assert_array_equal(sol.qp_iterations.numpy(), fx["qp_iterations"][:n])
+    tgt = torch.as_tensor(fx["target"][:n].astype(np.float64))
     err = (sol.x_at(1.0) - tgt).abs().amax(-1)
     assert bool((err <= planner.target_eps + planner.qp_settings.eps_abs).all())

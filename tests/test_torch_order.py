@@ -2,8 +2,8 @@
 in kernels 2 and 3): the geometry of their libraries (kernel 3's block
 reckoned member by member, kernel 2's working set, order 4 at 6 segments in
 kernel 3's split layout, at 9 and 10 in its stream layout, at 11 to 16 in
-its lean layout and at 17 to 21 in its far layout, the refusal of a block
-past the limit), the
+its lean layout, at 17 to 21 in its far layout and at 22 to 33 in its deep
+layout, the refusal of a block past the limit), the
 plain versions of kernels 2 and 3 at band widths 2, 4 and 5 against the JAX
 package's factor (node-level, and its Pallas kernel in interpret mode) and
 against the plain banded solve, the plain structured QP at 4 and 6
@@ -121,12 +121,16 @@ def test_order4_beyond_one_block_raises_naming_the_bytes():
     order 4 at 16 (65 nodes, 832 threads, 225,648 B). Order 4 at 17
     segments (69 nodes, 237,360 B lean) takes the far layout, 191,008 B, and
     so does order 4 at 21 (85 nodes, three z elements and rows a thread, 736
-    threads, 226,896 B). Order 4 at 22 segments (89 nodes) needs 235,904 B
-    even in the far layout: its fit check and the card's QP solve raise and
-    name the bytes before any build or launch. Kernel 2 takes all nine."""
+    threads, 226,896 B). Order 4 at 22 segments (89 nodes, 235,904 B far)
+    takes the deep layout, 171,408 B, and so does order 4 at 33 (133 nodes,
+    four z elements and rows a thread, 864 threads, 229,712 B). Order 4 at
+    34 segments (137 nodes) needs 235,024 B even in the deep layout: its fit
+    check and the card's QP solve raise and name the bytes before any build
+    or launch. Kernel 2 takes all eleven."""
     g46, g45, g49, g4a, g4b = (Geometry(segments=s, order=4) for s in (6, 5, 9, 10, 11))
     g65, g69 = Geometry(segments=16, order=4), Geometry(segments=17, order=4)
     g85, g89 = Geometry(segments=21, order=4), Geometry(segments=22, order=4)
+    g133, g137 = Geometry(segments=33, order=4), Geometry(segments=34, order=4)
     assert (k3.smem_bytes(g45), k3.smem_bytes(g45, "full")) == (227792, 257776)
     assert k3.choose_layout(g45) == "compact"
     assert (k3.threads(g46), k3.smem_bytes(g46, "compact")) == (640, 273632)
@@ -155,15 +159,24 @@ def test_order4_beyond_one_block_raises_naming_the_bytes():
     with pytest.raises(ValueError, match=r"69 nodes, order 4 .* needs 237360 B of shared memory "
                                          r"per block in its lean layout"):
         k3.check_fits(dataclasses.replace(g69, layout="lean"))
-    assert (k3.threads(g89), k3.smem_bytes(g89)) == (768, 235904)
+    assert (k3.threads(g89), k3.smem_bytes(g89, "far"), k3.smem_bytes(g89)) == (
+        768, 235904, 171408)
+    assert (k3.ept_of(g133), k3.threads(g133), k3.smem_bytes(g133)) == (4, 864, 229712)
+    for g in (g89, g133):
+        assert k3.choose_layout(g) == "deep"
+        k3.check_fits(g)
     with pytest.raises(ValueError, match=r"89 nodes, order 4 .* needs 235904 B of shared memory "
                                          r"per block in its far layout"):
-        k3.check_fits(g89)
-    planner = _planner(4, 22)
+        k3.check_fits(dataclasses.replace(g89, layout="far"))
+    assert (k3.threads(g137), k3.smem_bytes(g137)) == (896, 235024)
+    with pytest.raises(ValueError, match=r"137 nodes, order 4 .* needs 235024 B of shared memory "
+                                         r"per block in its deep layout"):
+        k3.check_fits(g137)
+    planner = _planner(4, 34)
     sa, args, _, _ = _step0(planner, 1)
-    with pytest.raises(ValueError, match="235904 B"):
+    with pytest.raises(ValueError, match="235024 B"):
         k3.solve_box_qp_structured_cuda(planner.ocp, sa, *args, config.SHIPPING_QP_SETTINGS)
-    for g in (g45, g46, g49, g4a, g4b, g65, g69, g85, g89):
+    for g in (g45, g46, g49, g4a, g4b, g65, g69, g85, g89, g133, g137):
         k2.check_fits(g)
 
 

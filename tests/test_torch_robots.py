@@ -6,9 +6,13 @@ port's plain 6-joint solve against the JAX fixture
 ``torch_port_panda6_b64.npz``; the kernels' geometry at 6 to 10 joints (9
 and 10 take kernel 3's split layout at 19 nodes and its stream layout at
 25, 9 joints at 31 nodes at two elements a thread, 10 joints at 28 and 37
-nodes its lean layout, 10 joints at 40 and 49 nodes its far layout; 10
-joints at 52 nodes fit no layout and raise, naming the bytes); and the ``fused_constraints`` routing of the constraint
-rows on the CPU."""
+nodes its lean layout, 10 joints at 40 and 49 nodes its far layout, 10
+joints at 52 and 88 nodes its deep layout; 10 joints at 91 nodes fit no
+layout and raise, naming the bytes); the ``fused_constraints`` routing of
+the constraint rows on the CPU; and the Panda with its hand (9 joints, a
+branched tree with two prismatic fingers): the port's plain solve against
+the JAX fixture ``torch_port_hand9_b64.npz`` and its compiled solve on the
+CPU."""
 
 import dataclasses
 import os
@@ -24,7 +28,7 @@ from mpc_motion_planner_tpu.models.panda import make_panda_model as jmake_panda_
 from mpc_motion_planner_tpu.models.urdf import parse_urdf as jparse_urdf
 from mpc_motion_planner_tpu.ocp import make_ocp as jmake_ocp
 from mpc_motion_planner_tpu.ops.pallas.constraints_kernel import bake_model as jbake_model
-from mpc_motion_planner_tpu_torch import config
+from mpc_motion_planner_tpu_torch import config, kernels
 from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
 from mpc_motion_planner_tpu_torch.kernels import constraints as k1
 from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
@@ -38,12 +42,14 @@ from mpc_motion_planner_tpu_torch.ops import kinematics
 from mpc_motion_planner_tpu_torch.ops.qp import QPSettings
 from mpc_motion_planner_tpu_torch.ops.sqp import SQPSettings
 from mpc_motion_planner_tpu_torch.planner import Margins, MotionPlanner
+from mpc_motion_planner_tpu_torch.utils.capture import capture_solve
 
 torch.set_num_threads(1)
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 URDF6 = os.path.join(FIXTURES, "panda_joint7_fixed.urdf")
 PANDA6_FIXTURE = os.path.join(FIXTURES, "torch_port_panda6_b64.npz")
+HAND9_FIXTURE = os.path.join(FIXTURES, "torch_port_hand9_b64.npz")
 sys.path.insert(0, FIXTURES)
 import make_panda6_fixture as robots  # noqa: E402
 
@@ -208,9 +214,12 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
     joints at 28 nodes (241,184 B stream) take the lean layout, 182,192 B,
     and so do 10 joints at 37 nodes (704 threads, 226,864 B); 10 joints at
     40 nodes (241,760 B lean) take the far layout, 188,960 B, and so do 10
-    joints at 49 nodes (928 threads, 221,744 B); 10 joints at 52 nodes need
-    232,688 B even in the far layout and raise naming them before any build;
-    a library kind that is none of the three raises."""
+    joints at 49 nodes (928 threads, 221,744 B); 10 joints at 52 nodes
+    (232,688 B far) take the deep layout, 164,880 B, and so do 10 joints at
+    88 nodes (four z elements and rows a thread, 832 threads, 228,688 B); 10
+    joints at 91 nodes need 234,016 B even in the deep layout and raise
+    naming them before any build; a library kind that is none of the three
+    raises."""
     k1.check_fits(10)
     with pytest.raises(ValueError, match=r"11 joints needs 57216 B of static shared memory"):
         k1.check_fits(11)
@@ -257,10 +266,20 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
         assert k3.choose_layout(g) == "far"
         k3.check_fits(g)
         k2.check_fits(g)
-    g = Geometry(segments=17, nq=10)
-    assert (k3.threads(g), k3.smem_bytes(g)) == (992, 232688)
+    g, g88 = Geometry(segments=17, nq=10), Geometry(segments=29, nq=10)
+    assert (k3.threads(g), k3.smem_bytes(g, "far"), k3.smem_bytes(g)) == (992, 232688, 164880)
+    assert (k3.ept_of(g88), k3.threads(g88), k3.smem_bytes(g88)) == (4, 832, 228688)
     with pytest.raises(ValueError, match=r"52 nodes, order 3 and 10 joints .* needs 232688 B "
                                          r"of shared memory per block in its far layout"):
+        k3.check_fits(dataclasses.replace(g, layout="far"))
+    for g in (g, g88):
+        assert k3.choose_layout(g) == "deep"
+        k3.check_fits(g)
+        k2.check_fits(g)
+    g = Geometry(segments=30, nq=10)
+    assert (k3.threads(g), k3.smem_bytes(g)) == (864, 234016)
+    with pytest.raises(ValueError, match=r"91 nodes, order 3 and 10 joints .* needs 234016 B "
+                                         r"of shared memory per block in its deep layout"):
         k3.check_fits(g)
     k2.check_fits(g)
     with pytest.raises(ValueError, match="per_geometry"):
@@ -337,3 +356,69 @@ def test_fused_constraints_routes_the_constraint_rows(monkeypatch):
                         torch.as_tensor(tgt, dtype=torch.float64))
     assert sol.z.shape == (1, 457) and bool(torch.isfinite(sol.z).all())
     assert planner.ocp.uses_kernel("cuda") is False
+
+
+def _hand_planner(qp_settings, sqp_settings):
+    """The Panda with its hand (9 joints) with the Panda's limits and the
+    fingers', planned under fused_constraints "off" as a user plans it, on
+    the CPU at float64."""
+    hand = parse_urdf(robots.panda_urdf(lock_joint7=False, hand=True))
+    lim = make_panda_limits()
+    limits = dataclasses.replace(lim, **{
+        k: torch.cat([getattr(lim, k), torch.tensor(robots.FINGER_LIMITS[k], dtype=torch.float64)])
+        for k in _LIMIT_TENSORS})
+    planner = MotionPlanner(model=hand, limits=limits, margins=Margins(0.8, 0.8, 0.6, 0.9, 0.1),
+                            qp_settings=qp_settings, sqp_settings=sqp_settings, device="cpu")
+    planner.ocp = make_ocp(hand, "panda_tool", fused_constraints="off")
+    return planner
+
+
+@pytest.fixture(scope="module")
+def hand_solve():
+    """The hand's JAX fixture, and the port's planner in the fixture's
+    configuration (structured QP, fixed rho, no KKT refinement, budgets
+    700/500) with its compiled solve (on the CPU, the eager one) and eager
+    solve of the first two fixture states."""
+    fx = np.load(HAND9_FIXTURE)
+    planner = _hand_planner(
+        QPSettings(backend="structured", kkt_refine=0, rho_update_every=0, ruiz_iters=2,
+                   rho=0.1, alpha=1.6, check_every=25, max_iter=700),
+        SQPSettings(qp_step_schedules="200,500;150,350"))
+    n = 2
+    cur, tgt = (torch.as_tensor(fx[k][:n].astype(np.float64)) for k in ("current", "target"))
+    solve = capture_solve(planner, cur, tgt)
+    return fx, planner, solve, solve(cur, tgt), planner.solve(cur, tgt), tgt
+
+
+def test_hand_fixture_is_the_jax_solve(hand_solve):
+    """The fixture holds the first 64 headline states with the fingers at
+    0.01 m and 0.03 m and at rest, and the JAX ``structured`` solve of them
+    for the 9-joint hand under fused_constraints "off"
+    (``make_panda6_fixture.py --hand``); the port's plain solve of the first
+    two at float64 matches its final times and iterates to rtol 1e-6, with
+    the same qp_converged and qp_iterations, and lands in the target box."""
+    fx, planner, _, _, sol, tgt = hand_solve
+    hs = np.load(os.path.join(FIXTURES, "headline_states_b2048.npz"))
+    for k, width in (("current", robots.FINGERS_CURRENT), ("target", robots.FINGERS_TARGET)):
+        np.testing.assert_array_equal(fx[k], robots.hand_states(hs[k][:64], width))
+    ocp = planner.ocp
+    assert (ocp.nq, ocp.num_var, ocp.num_eq + ocp.num_ineq) == (9, 514, 622)
+    assert not planner.model.is_serial and not ocp.uses_kernel("cuda")
+    assert fx["z"].shape == (64, 514) and fx["qp_converged"].shape == (64, 2)
+    n = sol.z.shape[0]
+    np.testing.assert_allclose(sol.final_time.numpy(), fx["final_time"][:n], rtol=1e-6)
+    np.testing.assert_allclose(sol.z.numpy(), fx["z"][:n], rtol=1e-6, atol=1e-6)
+    assert sol.qp_converged.tolist() == fx["qp_converged"][:n].tolist()
+    np.testing.assert_array_equal(sol.qp_iterations.numpy(), fx["qp_iterations"][:n])
+    err = (sol.x_at(1.0) - tgt).abs().amax(-1)
+    assert bool((err <= planner.target_eps + planner.qp_settings.eps_abs).all())
+
+
+def test_hand_capture_solve_on_cpu_is_the_eager_solve(hand_solve):
+    """``capture_solve`` of a CPU hand planner is its eager solve: nothing
+    captured, the Solution bitwise the eager one, no kernel launched."""
+    _, _, solve, got, ref, _ = hand_solve
+    assert solve.captured is False and not solve.graphs and solve.eager_resolves == 0
+    for f in ("z", "lam_c", "lam_x", "violation", "qp_iterations", "qp_converged", "step_sizes"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    assert set(kernels.launch_counts().values()) == {0}
