@@ -148,9 +148,24 @@ at 21 segments and the Panda at 40 segments (89, 52, 64, 121 nodes),
 kernels 2 and 3 held and an eager shipping solve each; and the first
 geometries that fit no layout (52 segments of order 3, order 4 at 34, 9
 joints at 37 segments, 10 joints at 30) refused naming their bytes, before
-any build. The plain kernel-3 loop of phases 19-28 replays each check
-window from a CUDA graph (``PlainWindows``), which phase 10 holds bitwise
-against the eager loop.
+any build. Past 10 joints (blocks of 33 x 33 and more) a lane of kernels 2
+and 3 owns two rows of a block, kernel 3's sweeps read their blocks where
+they lie, and kernel 1's Jacobian tiles lie in dynamic shared memory; phase
+29 holds it: (a) up to 10 joints the builds are bitwise those of the
+sources as they were with one row a lane (``csrc/one_row/``), kernel 3 at
+its eight layouts' geometries at B=512 and the full budget with ptxas's
+registers and spill stores, kernel 2 at 7 and 10 joints, kernel 1 at 7 and
+10; (b) kernels 1 and 2 at 11, 12 and 14 joints and kernel 3 at 12 joints
+in each of its seven layouts and at 11 joints in the stream layout against
+their plain versions, their blocks against the Python reckoning; (c) the
+seeded 12-joint chain at 19 nodes (685 variables, 823 rows, kernel 3 in its
+lean layout): kernels 2 and 3 timed against their plain versions, the
+captured shipping solve of its 2048 seeded states (5/2/2/0, bitwise its
+eager solve, times in turns; its quality read, not held) and the JAX
+fixture ``torch_port_chain12_b64.npz``; 11 and 14 joints solved eagerly; 11
+joints x 25, 12 x 20 and 14 x 12 refused naming their bytes. The plain
+kernel-3 loop of phases 19-29 replays each check window from a CUDA graph
+(``PlainWindows``), which phase 10 holds bitwise against the eager loop.
 Needs one CUDA GPU and ``nvcc``; imports no JAX.
 
     python3 chip_smoke.py
@@ -523,11 +538,13 @@ def json_after(text: str, marker: str):
     return json.JSONDecoder().raw_decode(text, text.index("{", text.index(marker)))[0]
 
 
-def fixture_agreement(planner, path, dev):
+def fixture_agreement(planner, path, dev, counts=None):
     """Solve a JAX fixture's states; count the problems whose final time is
     within 1e-3 relative, whose qp_converged is the same and whose terminal
     error is within the target box. Returns (count, count of final times
-    within 1e-3 relative alone, batch, summary)."""
+    within 1e-3 relative alone, batch, summary); ``counts``, a dict where
+    given, receives the count of the same qp_converged alone as
+    ``"qp_converged"``."""
     fx = np.load(path)
     cur = torch.as_tensor(fx["current"], device=dev)
     tgt = torch.as_tensor(fx["target"], device=dev)
@@ -539,6 +556,8 @@ def fixture_agreement(planner, path, dev):
     err = (sol.x_at(1.0) - tgt).abs().amax(-1)
     n_good = int(((tf_rel <= 1e-3) & conv_same & (err <= tol)).sum())
     n_tf = int((tf_rel <= 1e-3).sum())
+    if counts is not None:
+        counts["qp_converged"] = int(conv_same.sum())
     zgap = (sol.z - torch.as_tensor(fx["z"], device=dev)).abs().amax(-1)
     vgap = (sol.violation - torch.as_tensor(fx["violation"], device=dev)).abs()
     return n_good, n_tf, cur.shape[0], (
@@ -949,6 +968,30 @@ def library_factor(qp, entry, phase, batch=None) -> None:
     torch.cuda.empty_cache()
 
 
+def factor_check(planner, first_qp, tag, states=None):
+    """Kernel 2 built for ``planner``'s transcription against its plain
+    version on the step-0 QPs of B_FACTOR states (``states``: another
+    robot's; default the headline's), with phase 3's bars: identical ok
+    flags, max-norm relative error <= 1e-3. Returns the step-0 QPs' parts
+    (sa, args, soft_c, soft_x) and a summary."""
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.ops import qp_structured
+
+    ocp, shipping = planner.ocp, planner.qp_settings
+    _, sa, args, sc, sx = first_qp(B_FACTOR, pl=planner, states=states)
+    qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
+    fk = k2.factor_banded_kernel(qp.Mband, qp.p_col, qp.m_pp)
+    fp = qp_structured.factor_banded(qp.Mband, qp.p_col, qp.m_pp, ocp.coll.order)
+    torch.cuda.synchronize()
+    check(torch.equal(fk["ok"], fp["ok"]), f"{tag}: kernel 2 ok flags differ from the plain version")
+    errs = {k: rel_err(fk[k], fp[k]) for k in ("Ldi", "Lsub", "u", "s")}
+    check(max(errs.values()) <= 1e-3, f"{tag}: kernel 2 differs from the plain version: {errs}")
+    return (sa, args, sc, sx), (
+        f"kernel 2 B={B_FACTOR}: ok flags identical ({int(fk['ok'].sum())}/{B_FACTOR} ok), "
+        f"max-norm relative error " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+        + " (tol 1e-3)")
+
+
 def kernel_checks(planner, first_qp, tag, states=None, hold_counts=True) -> str:
     """Kernels 2 and 3 built for ``planner``'s transcription against their
     plain versions on its step-0 QPs of the headline states, with phase 3's
@@ -973,14 +1016,7 @@ def kernel_checks(planner, first_qp, tag, states=None, hold_counts=True) -> str:
     from mpc_motion_planner_tpu_torch.ops.structure import apply_A
 
     ocp, shipping = planner.ocp, planner.qp_settings
-    _, sa, args, sc, sx = first_qp(B_FACTOR, pl=planner, states=states)
-    qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
-    fk = k2.factor_banded_kernel(qp.Mband, qp.p_col, qp.m_pp)
-    fp = qp_structured.factor_banded(qp.Mband, qp.p_col, qp.m_pp, ocp.coll.order)
-    torch.cuda.synchronize()
-    check(torch.equal(fk["ok"], fp["ok"]), f"{tag}: kernel 2 ok flags differ from the plain version")
-    errs = {k: rel_err(fk[k], fp[k]) for k in ("Ldi", "Lsub", "u", "s")}
-    check(max(errs.values()) <= 1e-3, f"{tag}: kernel 2 differs from the plain version: {errs}")
+    (sa, args, sc, sx), factor_summary = factor_check(planner, first_qp, tag, states)
     B4 = B_ADMM
     sa4 = qp_structured.StructuredA(sa.p[:B4], sa.f_rows[:B4], sa.J[:B4])
     args4 = tuple(a[:B4] for a in args)
@@ -1040,9 +1076,7 @@ def kernel_checks(planner, first_qp, tag, states=None, hold_counts=True) -> str:
     check(hard_ratio <= 1.01, f"{tag}: kernel 3 converged problems violate hard rows by "
           f"{hard_ratio:.3f}x the tolerance")
     summary = (
-        f"kernel 2 B={B_FACTOR}: ok flags identical ({int(fk['ok'].sum())}/{B_FACTOR} ok), "
-        f"max-norm relative error " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
-        + f" (tol 1e-3); kernel 3 B={B4}: after {s_win.max_iter} iterations max |x - "
+        f"{factor_summary}; kernel 3 B={B4}: after {s_win.max_iter} iterations max |x - "
         f"x_float64| kernel {e_k:.3e}, plain {e_p:.3e} (bar: kernel <= 2x plain), max "
         f"|x_kernel - x_plain| {max_abs(x_k, x_p):.3e}; sweeps' order {e_order:.2e} "
         f"relative (tol 1e-4); full solve: {agreement}, hard box-row violation "
@@ -1249,14 +1283,16 @@ def launches_of(counts) -> dict:
 
 
 def captured_shipping(pl, cur, tgt, tag, suffix, phase, note, results, names, smi,
-                      launches=SHIPPING_LAUNCHES) -> None:
+                      launches=SHIPPING_LAUNCHES, hold_quality=True) -> None:
     """A phase's main path: ``pl``'s shipping solve of (cur, tgt) captured
     at B=2048, with the launches of one replay (``launches``: 5/2/2/0, or
     0/2/2/0 under fused_constraints="off"; set as the
     ``launches`` of the ``results`` entries ``<name>_<suffix>`` of ``names``),
     finite outputs of the OCP's shape, bitwise its eager solve on the seven
     fields, no eager re-solve, the quality bars (``qp_conv_rate`` >= 0.98,
-    ``tol_hit_rate`` >= 0.99, terminal error <= 0.011), and replay and eager
+    ``tol_hit_rate`` >= 0.99, terminal error <= 0.011; read and reported,
+    not held, where ``hold_quality`` is False: the seeded chains' QPs do not
+    converge within the budgets, at float64 either), and replay and eager
     times, median of 3 in turns."""
     from mpc_motion_planner_tpu_torch import kernels
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
@@ -1283,8 +1319,8 @@ def captured_shipping(pl, cur, tgt, tag, suffix, phase, note, results, names, sm
     held = hold_captured(got, ref, ref2, tag)
     check(solve.eager_resolves == 0, f"{tag}: {solve.eager_resolves} eager re-solves")
     q = quality(pl, got, tgt)
-    check(q["qp_conv_rate"] >= 0.98 and q["tol_hit_rate"] >= 0.99
-          and q["terminal_err_inf_max"] <= 0.011, f"{tag}: quality {q}")
+    check(not hold_quality or (q["qp_conv_rate"] >= 0.98 and q["tol_hit_rate"] >= 0.99
+                               and q["terminal_err_inf_max"] <= 0.011), f"{tag}: quality {q}")
     times = {"replay": [], "eager": []}
     for mode in ("replay", "eager", "eager", "replay", "replay", "eager"):
         fn = solve if mode == "replay" else pl.solve
@@ -1296,7 +1332,8 @@ def captured_shipping(pl, cur, tgt, tag, suffix, phase, note, results, names, sm
     med = {k: float(np.median(v)) for k, v in times.items()}
     log(f"{phase} captured shipping solve at {tag}, B={B_MAIN} ({note}): capture "
         f"{t_capture:.2f} s; launches per replay {counts}, kernel-2 flags {repairs}; {held} "
-        f"against the eager solve (7 fields); quality {json.dumps(q)}")
+        f"against the eager solve (7 fields); quality {json.dumps(q)}"
+        + ("" if hold_quality else " (read, not held)"))
     log(f"{phase} timing at {tag}, median of 3 in turns: replay {med['replay']:.2f} ms = "
         f"{B_MAIN / med['replay'] * 1e3:.1f} solves/s, eager {med['eager']:.2f} ms = "
         f"{B_MAIN / med['eager'] * 1e3:.1f} solves/s (replays "
@@ -1665,7 +1702,7 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     for g in (g6, g8):
         log(f"phase 20 libraries at {g.nq} joints, 19 nodes ({g.num_var} variables, "
             f"{g.num_rows} rows): {block_summary(g)} ({sms} SMs); kernel 1 "
-            f"{k1.smem_bytes(g.nq)} B of static shared memory")
+            f"{k1.smem_bytes(g.nq)} B of shared memory for its Jacobian tiles")
 
     # ---- the robots ----
     model6 = parse_urdf(os.path.join(FIXTURES, "panda_joint7_fixed.urdf"), dtype=f32, device=dev)
@@ -1943,8 +1980,9 @@ def hold_layouts(pl, first_qp, base, other, entry, phase, smi) -> None:
     the geometry; planners never do) against the build in ``base``, on the
     step-0 QPs of the headline states at B=2048, at the full budget and at
     one check window: all nine outputs bitwise equal, times in turns (base,
-    other, other, base), into ``entry`` as ``<other>_<label>_ms``,
-    ``<base>_<label>_ms`` and ``<other>_<label>_bitwise_<base>``."""
+    other, other, base; one call each at the full budget, three at one
+    window), into ``entry`` as ``<other>_<label>_ms``, ``<base>_<label>_ms``
+    and ``<other>_<label>_bitwise_<base>``."""
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.ops import qp_structured
@@ -1961,7 +1999,7 @@ def hold_layouts(pl, first_qp, base, other, entry, phase, smi) -> None:
         for lay in (base, other, other, base):
             def call(lay=lay):
                 out[lay] = k3.admm_kernel(ocp, sa, qp, fac, settings, layout=lay)
-            times[lay].append(time_kernel(call, reps=3))
+            times[lay].append(time_kernel(call, reps=1 if label == "budget" else 3))
         differ = [n for n, a, b in zip(names, out[base], out[other]) if not torch.equal(a, b)]
         check(not differ, f"{tag}, {label}: the {other} layout differs from the {base} one "
               f"in {differ}")
@@ -2826,6 +2864,260 @@ def deep_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     torch.cuda.empty_cache()
 
 
+# the sources of kernels 1-3 as they were while a lane owned one row of a
+# block (csrc/one_row/), which phase 29 holds the package's builds against
+ONE_ROW = os.path.join(ROOT, "mpc_motion_planner_tpu_torch", "csrc", "one_row")
+# the JAX structured solve of the seeded 12-joint chain's first 64 states at
+# 19 nodes, with the JAX float32 solve's final times (make_chain12_fixture.py)
+CHAIN12_FIXTURE = os.path.join(FIXTURES, "torch_port_chain12_b64.npz")
+# kernel 3's bitwise hold against the one-row source: four waves of the card,
+# a quarter of the headline batch, to keep the script inside its time
+B_ONE_ROW = 512
+_ONE_ROW_KERNELS = {}
+
+
+def one_row_kernels():
+    """Kernels 1, 2 and 3 built from ``ONE_ROW`` (``bench/kernel_ab.py``
+    ``variant_kernel``: the package's interfaces, flags and geometries), by
+    kernel number."""
+    from mpc_motion_planner_tpu_torch.bench.kernel_ab import variant_kernel
+
+    if not _ONE_ROW_KERNELS:
+        for n, src in ((1, "constraints.cu"), (2, "banded_factor.cu"), (3, "structured_admm.cu")):
+            _ONE_ROW_KERNELS[n] = variant_kernel(n, "one_row", os.path.join(ONE_ROW, src))
+    return _ONE_ROW_KERNELS
+
+
+def joints_geometries():
+    """Phase 29's geometries. (a) Kernel 3 in each of its layouts up to 10
+    joints, where ``ONE_ROW``'s build takes it too: 19 nodes (full), 25
+    (compact), order 4 x 6 (split), 12 x 3 (stream), 15 x 3 (two elements a
+    thread), 20 x 3 (lean), 25 x 3 (far), 32 x 3 (deep). (b) Kernel 3 at 12
+    joints in each layout, at the first grid that takes it: 2 segments
+    (full), 3 (compact), 4 (split), 5 (stream), 6 (lean: 19 nodes, the main
+    path), 9 (far), 12 (deep); and 11 joints at 6 segments (stream, blk 33)
+    and 14 at 6 (far). (c) The first refused grids of 11, 12 and 14
+    joints."""
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    held = {"19 nodes (full)": Geometry(), "25 nodes (compact)": Geometry(8),
+            "order 4 x 6 (split)": Geometry(6, 4), "12 x 3 (stream)": Geometry(12),
+            "15 x 3 (two elements a thread)": Geometry(15), "20 x 3 (lean)": Geometry(20),
+            "25 x 3 (far)": Geometry(25), "32 x 3 (deep)": Geometry(32)}
+    twelve = {"full": Geometry(2, 3, 12), "compact": Geometry(3, 3, 12),
+              "split": Geometry(4, 3, 12), "stream": Geometry(5, 3, 12),
+              "lean": Geometry(6, 3, 12), "far": Geometry(9, 3, 12), "deep": Geometry(12, 3, 12)}
+    others = {"11_joints": Geometry(6, 3, 11), "14_joints": Geometry(6, 3, 14)}
+    refused = (Geometry(25, 3, 11), Geometry(20, 3, 12), Geometry(12, 3, 14))
+    return held, twelve, others, refused
+
+
+def joints_builds():
+    """Phase 29's libraries: ``ONE_ROW``'s kernel 3 at each held geometry,
+    its kernel 2 at 7 and 10 joints and its kernel 1 at 7 and 10; kernels 2
+    and 3 at 12 joints in each layout and at 11 and 14 joints; kernel 1 at 11,
+    12 and 14 joints."""
+    from mpc_motion_planner_tpu_torch import kernels
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    one = one_row_kernels()
+    held, twelve, others, _ = joints_geometries()
+    return ([("structured_admm", kernels.KERNELS["structured_admm"], g)
+             for g in (twelve["lean"], others["11_joints"])]
+            + [("constraints", kernels.KERNELS["constraints"], Geometry(nq=nq))
+               for nq in (11, 12, 14)]
+            + [("banded_factor", kernels.KERNELS["banded_factor"], g)
+               for g in (twelve["lean"], *others.values())]
+            + [(name, kernels.KERNELS[name], g) for g in (*twelve.values(), others["14_joints"])
+               if g != twelve["lean"] for name in ("banded_factor", "structured_admm")]
+            + [("structured_admm one row", one[3], g) for g in held.values()]
+            + [("banded_factor one row", one[2], Geometry(nq=nq)) for nq in (7, 10)]
+            + [("constraints one row", one[1], Geometry(nq=nq)) for nq in (7, 10)])
+
+
+def one_row_holds(planner, first_qp, smi) -> None:
+    """Phase 29 (a): up to 10 joints the package's builds of kernels 1-3
+    are ``ONE_ROW``'s, bitwise. Kernel 3 at each layout's geometry
+    (``joints_geometries``), on the step-0 QPs of the first B_ONE_ROW headline
+    states at the full budget: all nine outputs equal, and ptxas's registers
+    and spill stores of both instantiations equal; kernel 2 at 19 nodes of
+    the Panda and of the 10-joint chain: all five outputs equal; kernel 1 at
+    7 and 10 joints on seeded iterates: values and Jacobians equal."""
+    from mpc_motion_planner_tpu_torch.bench.kernel_ab import run_with
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.kernels import constraints as k1
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.ops import qp_structured
+
+    one = one_row_kernels()
+    held, _, _, _ = joints_geometries()
+    names = ("x", "zc", "zx", "yc", "yx", "done", "iters", "rp", "rd")
+    for tag, g in held.items():
+        pl = transcription_planner(planner, g.order, g.segments)
+        ocp, shipping = pl.ocp, pl.qp_settings
+        _, sa, args, sc, sx = first_qp(B_ONE_ROW, pl=pl)
+        qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
+        fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, ocp.coll.order)
+        out, ms = {}, {}
+        for name, k in (("package", k3.KERNEL), ("one_row", one[3]), ("package", k3.KERNEL)):
+            ms[name] = time_kernel(lambda k=k, name=name: out.__setitem__(
+                name, run_with(k3, k, k3.admm_kernel, ocp, sa, qp, fac, shipping)), reps=1)
+        differ = [n for n, a, b in zip(names, out["package"], out["one_row"])
+                  if not torch.equal(a, b)]
+        regs = {name: ptxas_report(k, g) for name, k in (("package", k3.KERNEL),
+                                                          ("one_row", one[3]))}
+        check(not differ, f"{tag}: kernel 3 differs from the one-row build in {differ}")
+        check(regs["package"] == regs["one_row"] and regs["package"],
+              f"{tag}: kernel 3's registers and spills {regs}")
+        log(f"phase 29 (a) kernel 3 at {tag}, B={B_ONE_ROW}, budget {shipping.max_iter} + "
+            f"{shipping.rescue_iters}: all nine outputs bitwise the one-row source's "
+            f"({int(out['package'][6].sum())} problem-iterations; {ms['package']:.3f} against "
+            f"{ms['one_row']:.3f} ms); ptxas {regs['package']} in both")
+        del pl, sa, args, qp, fac, out
+    # kernel 2 at 19 nodes of the Panda and of the 10-joint chain
+    pl10, cur10, tgt10 = chain_planner(planner, 10)
+    for tag, pl, states in (("7 joints", planner, None), ("10 joints", pl10, (cur10, tgt10))):
+        _, sa, args, sc, sx = first_qp(B_MAIN, pl=pl, states=states)
+        qp = qp_structured.scale_qp(pl.ocp, sa, *args, pl.qp_settings, soft_c=sc, soft_x=sx)
+        got = k2.factor_banded_kernel(qp.Mband, qp.p_col, qp.m_pp)
+        ref = run_with(k2, one[2], k2.factor_banded_kernel, qp.Mband, qp.p_col, qp.m_pp)
+        differ = [n for n in got if not torch.equal(got[n], ref[n])]
+        check(not differ, f"kernel 2 at {tag}: differs from the one-row build in {differ}")
+        log(f"phase 29 (a) kernel 2 at {tag}, 19 nodes, B={B_MAIN}: Ldi, Lsub, u, s and ok "
+            f"bitwise the one-row source's ({int(got['ok'].sum())}/{B_MAIN} ok)")
+    # kernel 1 at 7 and 10 joints
+    gen = torch.Generator().manual_seed(29)
+    for pl in (planner, pl10):
+        nq = pl.ocp.nq
+        lo = torch.tensor([-2.5] * nq + [-2.0] * nq + [-10.0] * nq)
+        xu = (lo - 2 * lo * torch.rand(B_MAIN, 19, 3 * nq, generator=gen)).to(pl.device)
+        X, U = xu[..., :2 * nq].contiguous(), xu[..., 2 * nq:].contiguous()
+        got = (*k1.node_constraints_kernel(pl.ocp, X, U, True),
+               k1.node_constraints_kernel(pl.ocp, X, U, False))
+        ref = (*run_with(k1, one[1], k1.node_constraints_kernel, pl.ocp, X, U, True),
+               run_with(k1, one[1], k1.node_constraints_kernel, pl.ocp, X, U, False))
+        same = [torch.equal(a, b) for a, b in zip(got, ref)]
+        check(all(same), f"kernel 1 at {nq} joints: g, J, values bitwise the one-row "
+              f"source's: {same}")
+        log(f"phase 29 (a) kernel 1 at {nq} joints, F={B_MAIN * 19}: values and Jacobian of "
+            f"the Jacobian launch and the value launch bitwise the one-row source's")
+    del pl10, cur10, tgt10
+
+
+def joints_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
+    """Phase 29: kernels 1-3 past 10 joints, a lane of a warp owning two rows
+    of a block (blk 33 to 63). (a) Up to 10 joints the builds are those of
+    the one-row sources (``one_row_holds``). (b) Each kernel past 10 joints
+    against its plain version, with its block against the Python
+    reckoning: kernel 1 at 11, 12 and 14 joints (phase 2's bars or, where
+    the plain float32 values miss them, twice its distance from float64,
+    timed), kernel 2 at 11, 12 and 14 joints (phase 3's bars) and kernel 3
+    at 12 joints in each of its seven layouts and at 11 joints in the
+    stream layout (phase 4's bars, ``iteration_agreement`` with its float64
+    rule), with ptxas's registers and spill stores. (c) The main path: the
+    seeded 12-joint chain (``bench/convergence.py`` ``chain(12, ...)``) at
+    19 nodes, 685 variables, 823 rows, kernel 3 in its lean layout: kernels
+    2 and 3 timed at B=2048 against their plain versions with their bounds
+    and kernel 2's library call, the captured shipping solve of the chain's
+    2048 states (5/2/2/0, bitwise its eager solve, times in turns; its
+    quality read, not held: the seeded chains' QPs do not converge within
+    the budgets, at float64 either) and the JAX fixture
+    ``torch_port_chain12_b64.npz``: final times within 1e-3 relative on no
+    fewer states than the JAX package's own float32 solve, ``qp_converged``
+    the same on all but 64/32; eager solves of 11 joints and 14 joints at 6
+    segments; the first refused grids of 11, 12 and 14 joints raising before
+    any build, naming their bytes."""
+    from mpc_motion_planner_tpu_torch import config
+    from mpc_motion_planner_tpu_torch.kernels import constraints as k1
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    dev = cur_all.device
+    held, twelve, others, refused = joints_geometries()
+    build_libraries(joints_builds(), "phase 29")
+    one_row_holds(planner, first_qp, smi)
+
+    # ---- (b) kernel 1 at 11, 12 and 14 joints ----
+    big = torch.ones(8192, 8192, device=dev)
+    chains = {}
+    for nq in (11, 12, 14):
+        pl, cur, tgt = chain_planner(planner, nq)
+        chains[nq] = (pl, cur, tgt)
+        lay = k1.block_layout(nq)
+        want = {"smem_bytes": k1.smem_bytes(nq), "blocks_bound": k1.blocks_bound(nq)}
+        check(lay == want, f"kernel 1 at {nq} joints: the library's block {lay}, the reckoning "
+              f"{want}")
+        log(f"phase 29 (b) kernel 1 at {nq} joints: the Jacobian launch's tiles "
+            f"{lay['smem_bytes']} B of dynamic shared memory, registers capped for "
+            f"{lay['blocks_bound']} blocks an SM, {k1.param_bytes(nq)} B of parameters; the "
+            f"reckoning agrees; {ptxas_report(k1.KERNEL, Geometry(nq=nq))}")
+        kernel1_check(pl, results, "phase 29 (b)", lambda: big @ big)
+    del big
+
+    # ---- (b) kernel 2 at 11 and 14 joints, kernels 2 and 3 at 11 joints in
+    # the stream layout and at 12 joints in each layout ----
+    for nq in (11, 14):
+        pl, cur, tgt = chains[nq]
+        g = Geometry(nq=nq)
+        log(f"phase 29 (b) at {nq} joints, 19 nodes: {block_summary(g, kernel2=False)}; "
+            f"{ptxas_report(k3.KERNEL, g)}; kernel 2: "
+            f"{factor_check(pl, first_qp, f'{nq} joints', (cur, tgt))[1]}")
+    for tag, g in [(f"12 joints, {g.nodes} nodes ({name})", g) for name, g in twelve.items()] \
+            + [("11 joints, 19 nodes (stream)", others["11_joints"])]:
+        pl, cur, tgt = chain_planner(planner, g.nq, segments=g.segments)
+        pl.qp_settings = config.shipping_qp_settings(pl.ocp.num_nodes)
+        built = k3.KERNEL.geometry(g)
+        want = tag.split("(")[1].rstrip(")")
+        check(Geometry.of_ocp(pl.ocp) == g and built.layout == want,
+              f"{tag}: kernel 3 built as {built}")
+        log(f"phase 29 (b) libraries at {tag}, {built.ept} element(s) a thread, "
+            f"{k3.rows(g)} rows a lane: {block_summary(g)}; {ptxas_report(k3.KERNEL, g)}")
+        summary, window_err = kernel_checks(pl, first_qp, tag, (cur, tgt))
+        log(f"phase 29 (b) at {tag}, {summary}")
+        if g == twelve["lean"]:
+            lean_err = window_err
+        del pl, cur, tgt
+
+    # ---- (c) the main path: the 12-joint chain at 19 nodes ----
+    pl12, cur12, tgt12 = chains[12]
+    ocp = pl12.ocp
+    g12 = twelve["lean"]
+    check((ocp.nq, ocp.num_var, ocp.num_eq + ocp.num_ineq) == (12, 685, 823)
+          and Geometry.of_ocp(ocp) == g12 and k3.KERNEL.geometry(g12).layout == "lean"
+          and ocp.uses_kernel(dev), f"the 12-joint chain: {ocp.nq} joints, {ocp.num_var} "
+          f"variables, {k3.KERNEL.geometry(g12)}")
+    time_structured_kernels(pl12, first_qp, results, "12_joints", "phase 29 (c)", lean_err,
+                            (cur12, tgt12))
+    captured_shipping(pl12, cur12, tgt12, "the 12-joint chain", "12_joints", "phase 29 (c)",
+                      "the chain's seeded states, 19 nodes", results,
+                      ("constraints", "banded_factor", "structured_admm"), smi,
+                      hold_quality=False)
+    counts = {}
+    n_good, n_tf, n_fx, summary = fixture_agreement(pl12, CHAIN12_FIXTURE, dev, counts)
+    n_tf32 = jax_float32_final_times(CHAIN12_FIXTURE)
+    check(n_tf >= n_tf32 and counts["qp_converged"] >= n_fx - n_fx // 32,
+          f"the 12-joint chain: {n_tf} final times within 1e-3 (the JAX float32 solve "
+          f"{n_tf32}), qp_converged the same on {counts['qp_converged']}/{n_fx}")
+    log(f"phase 29 (c) JAX fixture of the 12-joint chain: {summary}; final times within 1e-3 "
+        f"relative {n_tf}/{n_fx} (bar: the JAX package's own float32 solve of these states, "
+        f"{n_tf32}/{n_fx}), qp_converged the same {counts['qp_converged']}/{n_fx} (bar "
+        f"{n_fx - n_fx // 32}), all three {n_good}/{n_fx} (read)")
+    del pl12, cur12, tgt12, ocp
+    for nq in (11, 14):
+        pl, cur, tgt = chains.pop(nq)
+        eager_shipping(pl, cur, tgt, f"the {nq}-joint chain, 19 nodes (seeded states)",
+                       f"{nq}_joints", "phase 29 (c)", results)
+        del pl, cur, tgt
+    chains.clear()
+
+    # ---- (c) the first refused grids: raising before any build ----
+    for g in refused:
+        pl, cur, tgt = chain_planner(planner, g.nq, fused="off", segments=g.segments)
+        refusal(pl, cur[:4], tgt[:4], f"{g.nq} joints, {g.nodes} nodes", "phase 29 (c)")
+        del pl, cur, tgt
+    torch.cuda.empty_cache()
+
+
 def run(dev: torch.device) -> None:
     """All phases on ``dev``; raises on the first failed check."""
     from mpc_motion_planner_tpu_torch import config, kernels
@@ -3637,11 +3929,12 @@ def run(dev: torch.device) -> None:
                      "structured": default_planner, "xla": xla_planner},
                     cur_all, tgt_all, first_qp, results, smi)
 
-    # phases 20-28's libraries build in the background meanwhile, each phase
+    # phases 20-29's libraries build in the background meanwhile, each phase
     # waiting for its own
     prebuild([job for builds in (robot_builds, order_builds, split_builds, stream_builds,
                                  ept_builds, lambda: layout_builds(lean_geometries),
-                                 lambda: layout_builds(far_geometries), deep_builds)
+                                 lambda: layout_builds(far_geometries), deep_builds,
+                                 joints_builds)
               for job in builds()])
     transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi)
@@ -3653,6 +3946,7 @@ def run(dev: torch.device) -> None:
     far_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     hand_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     deep_phases(planner, cur_all, tgt_all, first_qp, results, smi)
+    joints_phases(planner, cur_all, tgt_all, first_qp, results, smi)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

@@ -58,10 +58,14 @@ adds the package's source built with that many z elements and rows per
 thread as the variant ``ept_<n>``: ``--segments 12 --ept 2`` holds two
 elements a thread (512 threads) against one (992) where both fit; at
 ``--segments 15`` (46 nodes, 608 threads) the geometry's own count is 2.
+``--chain NQ`` plans the seeded serial chain of NQ joints and its states
+(``bench/convergence.py`` ``chain``, as ``chip_smoke.py`` plans it, no floor
+for its tool) in place of the Panda: ``--chain 12`` times kernels 1-3 with
+blocks of 36 x 36, two rows a lane.
 
     python -m mpc_motion_planner_tpu_torch.bench.kernel_ab --kernel 4 \\
         [--batch 2048] [--reps 3] [--segments 6] [--order 3] [--urdf path.urdf] \\
-        [--layout lean] [--ept 2] [name=path.cu ...]
+        [--layout lean] [--ept 2] [--chain 12] [name=path.cu ...]
 
 A variant's headers are looked up beside its source. To compare with an
 earlier commit:
@@ -103,6 +107,7 @@ from ..ops import qp as dense_qp
 from ..ops import qp_structured
 from ..ops.sqp import SQPSettings, hessian_regularization_diag, qp_subproblem, soft_weights
 from ..planner import Margins, MotionPlanner
+from .convergence import chain
 from .profile_solve import locked_panda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -351,6 +356,7 @@ def main(argv=None) -> int:
                     help="spline order, the band width of kernels 2 and 3 (4 x 4 segments: "
                          "17 nodes)")
     ap.add_argument("--urdf", help="a Panda with its last joints locked (default: the Panda)")
+    ap.add_argument("--chain", type=int, help="plan the seeded serial chain of this many joints")
     ap.add_argument("--layout", choices=build.LAYOUTS,
                     help="kernel 3: add the package's source built in this shared-memory layout")
     ap.add_argument("--ept", type=int,
@@ -386,6 +392,11 @@ def main(argv=None) -> int:
             resolve=lambda g, named=named: k3.built_geometry(dataclasses.replace(g, **named)))
     model, limits, cols = (locked_panda(a.urdf, torch.float32, dev) if a.urdf
                            else (None, None, list(range(14))))
+    tool, states = "panda_tool", np.load(STATES)
+    if a.chain:
+        model, limits, tool, cur, tgt = chain(a.chain, a.batch, torch.float32, dev)
+        cols = list(range(2 * a.chain))
+        states = {"current": cur.cpu().numpy(), "target": tgt.cpu().numpy()}
     geometry = build.Geometry(segments=a.segments, order=a.order, nq=len(cols) // 2)
     for name, k in kernels.items():
         k.function(geometry)
@@ -398,16 +409,17 @@ def main(argv=None) -> int:
 
     shipping = config.SHIPPING_QP_SETTINGS
     planner = MotionPlanner(
-        model=model, limits=limits, margins=Margins(*MARGINS), dtype=torch.float32, device=dev,
-        qp_settings=shipping,
+        model=model, limits=limits, tool_frame=tool, margins=Margins(*MARGINS),
+        dtype=torch.float32, device=dev, qp_settings=shipping,
         sqp_settings=SQPSettings(qp_step_schedules=config.shipping_sqp_schedules(shipping.backend)),
     )
+    if a.chain:
+        planner.set_min_height(-10.0)  # a random chain: no floor for its tool
     if (a.segments, a.order) != (6, 3):
         planner.ocp = make_ocp(planner.model, planner.tool_frame, order=a.order,
                                num_segments=a.segments)
         shipping = planner.qp_settings = config.shipping_qp_settings(planner.ocp.num_nodes)
     ocp = planner.ocp
-    states = np.load(STATES)
     cur = torch.as_tensor(states["current"][: a.batch][:, cols], device=dev)
     tgt = torch.as_tensor(states["target"][: a.batch][:, cols], device=dev)
     to64 = lambda d: {k: (v.double() if v.is_floating_point() else v) for k, v in d.items()}

@@ -16,7 +16,7 @@ starts, which slows later solves.
 
     python -m mpc_motion_planner_tpu_torch.bench.profile_solve [--dense | --default | --xla]
         [--warm 5] [--segments 6] [--order 3]
-        [--urdf tests/fixtures/panda_joint7_fixed.urdf | --hand]
+        [--urdf tests/fixtures/panda_joint7_fixed.urdf | --hand | --chain 12]
 
 ``--segments`` and ``--order`` set the transcription as a user sets it
 (``planner.ocp = make_ocp(model, tool_frame, order=3, num_segments=8)``: 25
@@ -40,7 +40,10 @@ with two prismatic fingers) with the Panda's limits and the fingers'
 fused_constraints="off")`` (kernel 1 takes no branched tree: the plain
 constraint path runs in its place), on the headline states with the
 fingers at 0.01 m and 0.03 m (``hand_states``); kernels 2 and 3 are built
-for 9 joints.
+for 9 joints. ``--chain NQ`` plans the seeded serial chain of NQ joints on
+its 2048 seeded states (``bench/convergence.py`` ``chain``, no floor for
+its tool, as ``chip_smoke.py`` plans it): ``--chain 12`` at 19 nodes takes
+kernel 3's lean layout with blocks of 36 x 36, two rows a lane.
 
 Prints one JSON object, then the card's name and power limit. Needs one
 CUDA GPU and ``nvcc``.
@@ -69,7 +72,7 @@ from ..ops.qp import QPSettings
 from ..ops.sqp import SQPSettings
 from ..planner import Margins, MotionPlanner
 from ..utils.capture import capture_solve
-from .convergence import robots
+from .convergence import chain, robots
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 STATES = os.path.join(ROOT, "tests", "fixtures", "headline_states_b2048.npz")
@@ -130,12 +133,13 @@ def hand_panda(dtype, device):
 
 
 def make_planner(which: str, dev, segments: int = 6, urdf: str = None,
-                 order: int = 3, hand: bool = False) -> MotionPlanner:
+                 order: int = 3, hand: bool = False, chain_nq: int = None) -> MotionPlanner:
     """The planner of a path: "structured" (shipping), "dense",
     "structured_default" or "xla" (``MotionPlanner()``'s settings), on
     ``segments`` spline segments of ``order``, for the Panda, the robot of
-    ``urdf`` (:func:`locked_panda`) or, with ``hand``, the Panda with its
-    hand under fused_constraints "off" (:func:`hand_panda`)."""
+    ``urdf`` (:func:`locked_panda`), with ``hand``, the Panda with its
+    hand under fused_constraints "off" (:func:`hand_panda`), or with
+    ``chain_nq``, the seeded chain of that many joints (``chain``)."""
     if which == "xla":
         qp, sqp = QPSettings(), SQPSettings()
     elif which == "dense":
@@ -149,8 +153,14 @@ def make_planner(which: str, dev, segments: int = 6, urdf: str = None,
         sqp = SQPSettings(qp_step_schedules=config.shipping_sqp_schedules(qp.backend))
     model, limits = (hand_panda(torch.float32, dev) if hand
                      else locked_panda(urdf, torch.float32, dev)[:2] if urdf else (None, None))
-    planner = MotionPlanner(model=model, limits=limits, margins=Margins(*MARGINS),
-                            dtype=torch.float32, device=dev, qp_settings=qp, sqp_settings=sqp)
+    tool = "panda_tool"
+    if chain_nq:
+        model, limits, tool, _, _ = chain(chain_nq, 1, torch.float32, dev)
+    planner = MotionPlanner(model=model, limits=limits, tool_frame=tool,
+                            margins=Margins(*MARGINS), dtype=torch.float32, device=dev,
+                            qp_settings=qp, sqp_settings=sqp)
+    if chain_nq:
+        planner.set_min_height(-10.0)  # a random chain: no floor for its tool
     fused = "off" if hand else planner.ocp.fused_constraints
     if (segments, order) != (6, 3) or hand:
         planner.ocp = make_ocp(planner.model, planner.tool_frame, order=order,
@@ -210,6 +220,7 @@ def main(argv=None) -> int:
     robot.add_argument("--urdf", help="a Panda with its last joints locked (default: the Panda)")
     robot.add_argument("--hand", action="store_true",
                        help="the Panda with its hand (9 joints), fused_constraints 'off'")
+    robot.add_argument("--chain", type=int, help="the seeded serial chain of this many joints")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_solve: needs a CUDA GPU", file=sys.stderr)
@@ -222,9 +233,11 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     which = ("dense" if a.dense else "structured_default" if a.default
              else "xla" if a.xla else "structured")
-    planner = make_planner(which, dev, a.segments, a.urdf, a.order, a.hand)
+    planner = make_planner(which, dev, a.segments, a.urdf, a.order, a.hand, a.chain)
     states = np.load(STATES)
-    if a.hand:
+    if a.chain:
+        _, _, _, cur, tgt = chain(a.chain, len(states["current"]), torch.float32, dev)
+    elif a.hand:
         fx = robots()
         cur, tgt = (torch.as_tensor(fx.hand_states(states[k], w), dtype=torch.float32, device=dev)
                     for k, w in (("current", fx.FINGERS_CURRENT), ("target", fx.FINGERS_TARGET)))

@@ -12,8 +12,9 @@ only loop bounds and strides, and the working set per problem
 problems on an SM up to 44 nodes. The joint count sets the block size blk,
 the column stride (blk rounded up to 4) and the working set (25,060 B at 6
 joints, 42,964 B at 8, 19 nodes), and with them :func:`per_sm`, the
-problems per SM the registers are capped for; one warp holds a row of a
-block per lane, so blk <= 30 (10 joints). The band width (the spline order)
+problems per SM the registers are capped for; one warp holds :func:`rows`
+rows of a block per lane (one up to 10 joints, two past them: 93,876 B and
+two problems per SM at 12 joints). The band width (the spline order)
 sets the ring and the pending blocks: bw + 4 blocks of the forward loop
 beside the ring's bw^2 (24,508 B at bw = 2 and 19 nodes, 47,356 B at bw = 4
 and 17 nodes, 4 problems per SM; 64,828 B at bw = 5 and 16 nodes, 3).
@@ -62,7 +63,7 @@ import torch
 
 from ..ops.qp_structured import factor_banded
 from .build import (
-    SMEM_LIMIT, CudaKernel, DeviceCount, Geometry, capturing, check_cuda_tensor, ptr,
+    SM_SMEM, SMEM_LIMIT, CudaKernel, DeviceCount, Geometry, capturing, check_cuda_tensor, ptr,
 )
 
 KERNEL = CudaKernel(
@@ -71,7 +72,6 @@ KERNEL = CudaKernel(
     init="mpc_banded_factor_init", per_geometry="transcription",
 )
 NT, CH = 128, 4  # threads, staged nodes (csrc/banded_factor.cu)
-SM_SMEM = 233472  # an SM's shared memory, 228 KB (1 KB of it reserved per block)
 
 
 # problems that kernel 2 flagged, each refactored by the plain version
@@ -95,6 +95,13 @@ def column_stride(g: Geometry) -> int:
     return -(-g.blk // 4) * 4
 
 
+def rows(g: Geometry) -> int:
+    """ROWS: rows (columns) of a blk x blk block a lane of the Cholesky
+    warp owns, lane r rows r, r + 32, ... (one up to 10 joints, two up to
+    21)."""
+    return -(-g.blk // 32)
+
+
 def smem_bytes(g: Geometry) -> int:
     """Shared memory of one block of kernel 2 built for ``g``: the larger
     of the forward loop's blocks and the backward sweep's staged nodes, then
@@ -105,28 +112,24 @@ def smem_bytes(g: Geometry) -> int:
     # C[d] for d = 2..bw), Linv
     forward = blk * column_stride(g) + bw * bw * blk2 + (bw + 4) * blk2
     backward = CH * (bw + 1) * blk2
-    return 4 * (max(forward, backward) + 2 * g.nodes * blk + 32 + NT // 32) + 4
+    return 4 * (max(forward, backward) + 2 * g.nodes * blk + 32 * rows(g) + NT // 32) + 4
 
 
 def per_sm(g: Geometry) -> int:
     """PER_SM of csrc/banded_factor.cu: the problems per SM its registers
     are capped for, as many as the SM's shared memory holds and no more than
-    leave a thread 2 LKS + blk + 11 registers (in units of 8)."""
-    regs = -(-(2 * column_stride(g) + g.blk + 11) // 8) * 8
+    leave a thread 2 LKS + rows x blk + 11 registers (in units of 8)."""
+    regs = -(-(2 * column_stride(g) + rows(g) * g.blk + 11) // 8) * 8
     return min(SM_SMEM // (smem_bytes(g) + 1024), 65536 // (NT * regs))
 
 
 def check_fits(g: Geometry) -> None:
     """Raise ValueError unless kernel 2 is written for ``g`` (a band of at
-    least one sub-diagonal block, a row of a block per lane: blk <= 30) and
-    a block of it fits the card's shared memory, which leaves at least one
-    problem per SM."""
+    least one sub-diagonal block) and a block of it fits the card's shared
+    memory, which leaves at least one problem per SM."""
     if g.order < 1:
         raise ValueError(f"kernel 2 factors a band of at least one sub-diagonal block; got "
                          f"band width {g.order}")
-    if g.blk > 30:
-        raise ValueError(f"kernel 2 holds a row of a {g.blk} x {g.blk} block per lane of a "
-                         f"warp, which takes blocks up to 30 x 30 (10 joints); got {g.nq} joints")
     if smem_bytes(g) > SMEM_LIMIT:
         raise ValueError(f"kernel 2 at {g.nodes} nodes, band width {g.order} and {g.nq} joints "
                          f"needs {smem_bytes(g)} B of shared memory per block; a block may "

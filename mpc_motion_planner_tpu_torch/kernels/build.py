@@ -47,6 +47,8 @@ NVCC_FLAGS = (
 
 # dynamic shared memory one block may take on an H100 (227 KB)
 SMEM_LIMIT = 232448
+# an H100 SM's shared memory, 228 KB, of which 1 KB is reserved per block
+SM_SMEM = 233472
 
 # kernel 3's shared-memory layouts, in the order of their -DMPC_SMEM_LAYOUT
 # values (csrc/common.cuh)

@@ -19,8 +19,11 @@ rotation has a tangent, and every later rotation multiplies tangents as a
 float matrix. :func:`node_jacobians_by_joint` states this split in plain
 PyTorch. The figures here are the 7-joint Panda's: the library is built for
 the model's joint count (``-DMPC_NQ``, one library per joint count, a block
-of nq warps), for any serial chain of revolute joints whose Jacobian tiles
-fit 48 KB of static shared memory (:func:`check_fits`: up to 10 joints). The value launch runs one thread per evaluation. Both read ``q,
+of nq warps), for any serial chain of revolute joints whose robot fits a
+launch's 4 KB of parameters and whose Jacobian tiles fit a block's dynamic
+shared memory (:func:`check_fits`: up to 21 joints; the tiles take 66,816 B
+at 12 joints, where two blocks still share an SM). The value launch runs
+one thread per evaluation. Both read ``q,
 qdot`` and ``u`` where they lie (``X`` and ``U`` may be views of the NLP
 iterate ``z``: a batch stride and node-major rows, no ``cat`` copy). The
 Jacobian launch stages them with coalesced loads into shared memory and
@@ -43,17 +46,17 @@ import numpy as np
 import torch
 
 from ..models.robot import PRISMATIC, Frame, RobotModel
-from .build import CudaKernel, Geometry, HostConstants, ptr
+from .build import SM_SMEM, CudaKernel, Geometry, HostConstants, ptr
 
 JOINT_FLOATS = 46  # R0 9, t 3, axis 3, K 9, K2 9, mass 1, mc 3, Io 9
-STATIC_SMEM_LIMIT = 49152  # static shared memory of one block (48 KB)
+PARAM_LIMIT = 4096  # bytes of a launch's parameters
 
 KERNEL = CudaKernel(
     "constraints", "constraints.cu", "mpc_constraints",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
      ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_void_p],
-    per_geometry="joints",
+    init="mpc_constraints_init", per_geometry="joints",
 )
 
 # bake_model results per (model, frame, device)
@@ -61,20 +64,49 @@ BAKED = HostConstants()
 
 
 def smem_bytes(nq: int) -> int:
-    """Static shared memory of one block of the Jacobian launch built for
-    ``nq`` joints (csrc/constraints.cu): the inputs of 32 evaluations, their
-    offsets, and the J and g tiles at their padded strides."""
+    """Dynamic shared memory of one block of the Jacobian launch built for
+    ``nq`` joints (csrc/constraints.cu JSMEM): the offsets and inputs of 32
+    evaluations, and the J and g tiles at their padded strides."""
     nin, ng = 3 * nq, nq + 1
-    return 4 * 32 * nin + 8 * 64 + 4 * 32 * (ng * nin + 1) + 4 * 32 * (ng | 1)
+    return 8 * 64 + 4 * 32 * nin + 4 * 32 * (ng * nin + 1) + 4 * 32 * (ng | 1)
+
+
+def param_bytes(nq: int) -> int:
+    """Bytes of the Jacobian launch's parameters at ``nq`` joints (the
+    larger of the two launches'): the robot by value (struct Robot: 46
+    floats per joint, gravity, the tool translation and its parent), where
+    the inputs lie (struct Inputs), the two output pointers and F."""
+    return 4 * (nq * JOINT_FLOATS + 6) + 4 + 40 + 16 + 4
+
+
+def blocks_bound(nq: int) -> int:
+    """JB of csrc/constraints.cu: the blocks of the Jacobian launch an SM
+    holds by their tiles, for which its registers are capped: two while two
+    fit the SM (up to 16 joints), else one."""
+    return 2 if 2 * (smem_bytes(nq) + 1024) <= SM_SMEM else 1
 
 
 def check_fits(nq: int) -> None:
-    """Raise ValueError unless the Jacobian launch built for ``nq`` joints
-    fits a block: its tiles in 48 KB of static shared memory (10 joints at
-    most)."""
-    if smem_bytes(nq) > STATIC_SMEM_LIMIT:
-        raise ValueError(f"kernel 1 at {nq} joints needs {smem_bytes(nq)} B of static shared "
-                         f"memory per block; a block may have {STATIC_SMEM_LIMIT} B")
+    """Raise ValueError unless kernel 1 built for ``nq`` joints fits a
+    launch: the robot in a launch's 4 KB of parameters, 21 joints at most
+    (the Jacobian launch's tiles fit a block's shared memory up to 23)."""
+    if param_bytes(nq) > PARAM_LIMIT:
+        raise ValueError(f"kernel 1 at {nq} joints needs {param_bytes(nq)} B of launch "
+                         f"parameters (the robot travels by value); a launch may have "
+                         f"{PARAM_LIMIT} B")
+
+
+def block_layout(nq: int) -> dict:
+    """What the library built for ``nq`` joints says of the Jacobian
+    launch's block: its dynamic shared memory and the blocks an SM holds
+    its registers are capped for."""
+    lib = KERNEL.library(Geometry(nq=nq))
+    out = {}
+    for key in ("smem_bytes", "blocks_bound"):
+        fn = getattr(lib, f"mpc_constraints_{key}")
+        fn.restype = ctypes.c_int
+        out[key] = fn()
+    return out
 
 
 def bake_model(model: RobotModel, frame: Frame):

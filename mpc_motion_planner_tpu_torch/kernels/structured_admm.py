@@ -48,8 +48,13 @@ the ring's copies and reads step by step. Two elements a thread take 40 to
 3 (864 threads at 97), four 118 to 154. A geometry that fits no layout (157
 nodes of order 3: 233,520 B in the deep layout; order 4 x 34; 9 joints at
 112 nodes; 10 joints at 91) raises a ValueError that names the bytes;
-nothing solves it another way. The figures below are the 19-node Panda
-transcription's.
+nothing solves it another way. Past 10 joints (blk 33 and more) a lane of
+a sweep warp owns :func:`rows` rows of a block, two up to 21 joints, and
+the sweeps read each block where it lies as its product uses it, a step
+later than they would fetch it ahead, the ring's copies a step later too
+(:func:`ring_schedule`): 12 joints take the lean layout at 19 nodes
+(188,768 B, 832 threads); 11 joints at 76 nodes, 12 at 61 and 14 at 37
+fit no layout. The figures below are the 19-node Panda transcription's.
 
 What bounds it on this card: latency. Each iteration is ~157k flops per
 problem, 85% of them in the two banded triangular sweeps, and the factors
@@ -157,7 +162,11 @@ def ring_schedule(g: Geometry, layout: str = "split", iterations: int = 2):
     slot), n = None for those of ``ring_start``; ``reads`` a list of (n,
     node, slot, block, who) with ``who`` "chain" (``chain_fetch``, all but
     the split: block 0 of the run, or in the deep layout also "ldi", the
-    node's Ldi) or the helper's distance (``ring_take``)."""
+    node's Ldi) or the helper's distance (``ring_take``). Past one row a
+    lane (:func:`rows` > 1) every read comes a step later, where the block's
+    product uses it (``chain_sweep_late``, ``helper_sweep_late``: the
+    chain's at its turn, a helper's after the barrier of its step), and so
+    does every copy after ``ring_start`` (``LATE``)."""
     N, bw = g.nodes, g.order
     run0 = 0 if layout in STREAMED else 1
     ring, last = ring_runs(g, layout), ring_last(g, layout)
@@ -165,6 +174,7 @@ def ring_schedule(g: Geometry, layout: str = "split", iterations: int = 2):
     # earlier where the run carries Ldi_m, which the chain fetches a step
     # before step m
     ahead = LEAD + (layout in LDI_RINGED)
+    late = int(rows(g) > 1)
     lo, hi = 0, min(ring, last + 1) - 1
     copies = [(None, m, m % ring) for m in range(hi + 1)]
     reads = []
@@ -174,22 +184,23 @@ def ring_schedule(g: Geometry, layout: str = "split", iterations: int = 2):
             for d in range(2, bw + 1):  # ring_take: L[m+d,m] at step t
                 if t + d < N:
                     m = t if fwd else N - 1 - t - d
-                    reads.append((base + t, m, m % ring, d - 1 - run0, d))
+                    reads.append((base + t + late, m, m % ring, d - 1 - run0, d))
             if layout in STREAMED and t + 1 < N:
                 # chain_fetch of step t + 1 (after the barrier of step t - 1):
                 # L[t+1,t] of node t (forward), L[k+1,k] of node k = N-2-t
                 m = t if fwd else N - 2 - t
-                reads.append((base + t, m, m % ring, 0, "chain"))
+                reads.append((base + t + late, m, m % ring, 0, "chain"))
             if layout in LDI_RINGED:
                 # and Ldi_k of node k = s (forward) or N-1-s (backward) of step
                 # s = t + 1, steps 0 and 1 before the sweep's first barrier
                 for s in ((0, 1) if t == 0 else (t + 1,)):
                     if s < N:
                         m = s if fwd else N - 1 - s
-                        reads.append((base + t, m, m % ring, "ldi", "chain"))
+                        reads.append((base + (s if late else t), m, m % ring, "ldi",
+                                      "chain"))
             m = t + ahead if fwd else N - 1 - t - LEAD - bw  # ring_step
             if (m <= last and m > hi) if fwd else (0 <= m < lo):
-                copies.append((base + t, m, m % ring))
+                copies.append((base + t + late, m, m % ring))
                 if fwd:
                     hi, lo = m, max(lo, m - ring + 1)
                 else:
@@ -226,6 +237,12 @@ def vpad(g: Geometry) -> int:
     """VPAD: a node's blk values in a 16-byte aligned row, blk rounded up
     to 4 (24 for the Panda)."""
     return -(-g.blk // 4) * 4
+
+
+def rows(g: Geometry) -> int:
+    """ROWS: rows of a block a lane of a sweep warp owns, lane r rows r, r +
+    32, ... (one up to 10 joints, two up to 21)."""
+    return -(-g.blk // 32)
 
 
 MAX_THREADS = 1024  # threads of one block
@@ -303,7 +320,7 @@ def sweep_warps(g: Geometry) -> int:
 
 def check_fits(g: Geometry) -> None:
     """Raise ValueError unless kernel 3 is written for ``g`` (a band of at
-    least one sub-diagonal block, a row of a block per lane) and its block
+    least one sub-diagonal block) and its block
     fits the card in the layout ``g`` names, or else in one of the seven:
     232,448 B of shared memory, at most 1024 threads (which only an ept
     that ``g`` names can pass), and warps enough for the sweeps (and the
@@ -313,9 +330,6 @@ def check_fits(g: Geometry) -> None:
     if g.order < 1:
         raise ValueError(f"kernel 3 solves with a band of at least one sub-diagonal block; "
                          f"got band width {g.order}")
-    if vpad(g) > 32:
-        raise ValueError(f"kernel 3 holds a row of a block per lane of a warp, which takes "
-                         f"blocks up to 30 x 30 (10 joints); got {g.nq} joints")
     what = (f"kernel 3 at {g.nodes} nodes, order {g.order} and {g.nq} joints ({g.num_var} "
             f"variables, {g.num_rows} rows)")
     if threads(g) > MAX_THREADS:

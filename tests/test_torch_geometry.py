@@ -444,6 +444,41 @@ def test_split_layout_reckoning(segments, order, nq):
             k3.check_fits(dataclasses.replace(g, layout=name))
 
 
+def _ring_faults(g, layout, ring):
+    """Every fault of the ring of ``layout`` at ``g`` with ``ring`` slots,
+    modelled through three pairs of sweeps (``ring_schedule``): a read that
+    does not find its node's run in its slot, copied at least LEAD steps
+    before after as many copies into that slot as ``ring_copy_count`` says;
+    a copy that overwrites a run before it is read; an iteration that does
+    not copy 2 (N - 2 - bw) runs."""
+    copies, reads = k3.ring_schedule(g, layout, iterations=3)
+    events = sorted([(-1 if n is None else n, 1, m, s, None) for n, m, s in copies]
+                    + [(n, 0, m, s, who) for n, m, s, _, who in reads],
+                    key=lambda e: e[:2])  # a step's reads come before its copies
+    slots, copied, bad, N = {}, {}, [], g.nodes
+    for n, is_copy, m, s, who in events:
+        assert s == m % ring
+        held = slots.get(s)
+        if is_copy:
+            if held is not None and held[2] == 0:
+                bad.append(f"step {n}: node {m}'s copy overwrites node {held[0]}, unread")
+            slots[s] = [m, n, 0]
+            copied[s] = copied.get(s, 0) + 1
+        elif held is None or held[0] != m:
+            bad.append(f"step {n}: {who} reads node {m}, slot {s} holds {held}")
+        elif held[1] >= 0 and n - held[1] < k3.LEAD:
+            bad.append(f"step {n}: {who} reads node {m}, copied at step {held[1]}")
+        elif copied[s] != k3.ring_copy_count(g, layout, m, n // N // 2, n // N % 2 == 0):
+            bad.append(f"step {n}: {who} reads node {m} after {copied[s]} copies into "
+                       f"its slot")
+        else:
+            held[2] += 1
+    per_iteration = sum(1 for n, _, _ in copies if n is not None and 2 * N <= n < 4 * N)
+    if per_iteration != 2 * max(N - 2 - g.order, 0):
+        bad.append(f"{per_iteration} copies an iteration")
+    return bad
+
+
 @pytest.mark.parametrize("layout", ["split", "stream", "lean", "far", "deep"])
 def test_ring_schedule_serves_every_read(layout):
     """The ring of the split, stream, lean, far and deep layouts, modelled
@@ -463,35 +498,6 @@ def test_ring_schedule_serves_every_read(layout):
     text = " ".join(ln.strip().lstrip("/ ") for ln in
                     (CSRC / "structured_admm.cu").read_text().splitlines())
     assert "An iteration copies 2 (N - 2 - BW) runs" in text and "ring_schedule" in text
-
-    def faults(g, ring):
-        copies, reads = k3.ring_schedule(g, layout, iterations=3)
-        events = sorted([(-1 if n is None else n, 1, m, s, None) for n, m, s in copies]
-                        + [(n, 0, m, s, who) for n, m, s, _, who in reads],
-                        key=lambda e: e[:2])  # a step's reads come before its copies
-        slots, copied, bad, N = {}, {}, [], g.nodes
-        for n, is_copy, m, s, who in events:
-            assert s == m % ring
-            held = slots.get(s)
-            if is_copy:
-                if held is not None and held[2] == 0:
-                    bad.append(f"step {n}: node {m}'s copy overwrites node {held[0]}, unread")
-                slots[s] = [m, n, 0]
-                copied[s] = copied.get(s, 0) + 1
-            elif held is None or held[0] != m:
-                bad.append(f"step {n}: {who} reads node {m}, slot {s} holds {held}")
-            elif held[1] >= 0 and n - held[1] < k3.LEAD:
-                bad.append(f"step {n}: {who} reads node {m}, copied at step {held[1]}")
-            elif copied[s] != k3.ring_copy_count(g, layout, m, n // N // 2, n // N % 2 == 0):
-                bad.append(f"step {n}: {who} reads node {m} after {copied[s]} copies into "
-                           f"its slot")
-            else:
-                held[2] += 1
-        per_iteration = sum(1 for n, _, _ in copies if n is not None and 2 * N <= n < 4 * N)
-        if per_iteration != 2 * max(N - 2 - g.order, 0):
-            bad.append(f"{per_iteration} copies an iteration")
-        return bad
-
     checked = 0
     for order in (2, 3, 4, 5):
         for nq in range(6, 11):
@@ -499,14 +505,52 @@ def test_ring_schedule_serves_every_read(layout):
                 g = Geometry(segments=segments, order=order, nq=nq)
                 if k3.smem_bytes(g, layout if layout in k3.OWNERS_OUT else "stream") > SMEM_LIMIT:
                     break
-                assert faults(g, k3.ring_runs(g, layout)) == [], (g, layout)
+                assert _ring_faults(g, layout, k3.ring_runs(g, layout)) == [], (g, layout)
                 checked += 1
     assert checked > 150
     g37 = Geometry(segments=12)
     shorter = k3.ring_runs(g37, layout) - 1
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(k3, "ring_runs", lambda g, lay="split": shorter)
-        assert faults(g37, shorter)
+        assert _ring_faults(g37, layout, shorter)
+
+
+@pytest.mark.parametrize("layout", ["split", "stream", "lean", "far", "deep"])
+def test_ring_schedule_past_ten_joints(layout):
+    """Past 10 joints (two rows a lane) the sweeps read each block a step
+    later, where its product uses it, and the copier issues each copy a step
+    later too (csrc/structured_admm.cu ``LATE``): modelled so
+    (``ring_schedule``), the ring of each layout at 11, 12 and 14 joints, at
+    every geometry of orders 3 and 4 whose block in that layout (split: the
+    stream's) fits, through three pairs of sweeps, serves every read with
+    the same slots and copy count as one row a lane; reads a step later with
+    the copies where one row a lane issues them would find runs overwritten
+    at 12 joints and 19 nodes (but in the deep layout, whose ring has a step
+    to spare)."""
+    text = " ".join(ln.strip().lstrip("/ ") for ln in
+                    (CSRC / "structured_admm.cu").read_text().splitlines())
+    assert "done >= r.steps + LATE" in text and "LATE = ROWS > 1 ? 1 : 0" in text
+    checked = 0
+    for order in (3, 4):
+        for nq in (11, 12, 14):
+            for segments in range(1, 70):
+                g = Geometry(segments=segments, order=order, nq=nq)
+                if k3.smem_bytes(g, layout if layout in k3.OWNERS_OUT else "stream") > SMEM_LIMIT:
+                    break
+                assert k3.rows(g) == 2
+                assert _ring_faults(g, layout, k3.ring_runs(g, layout)) == [], (g, layout)
+                checked += 1
+    assert checked >= {"split": 10, "stream": 10}.get(layout, 20)
+    g = Geometry(nq=12)
+    schedule = k3.ring_schedule
+
+    def early_copies(g, lay, iterations=2):
+        copies, reads = schedule(g, lay, iterations)
+        return [(None if n is None else n - 1, m, s) for n, m, s in copies], reads
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(k3, "ring_schedule", early_copies)
+        assert bool(_ring_faults(g, layout, k3.ring_runs(g, layout))) == (layout != "deep")
 
 
 @pytest.mark.parametrize("segments, order, nq, layout", [
