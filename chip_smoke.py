@@ -145,11 +145,9 @@ shipping solve of the headline states (5/2/2/0, bitwise its eager solve,
 quality, times in turns) and the JAX fixture ``torch_port_seg32_b64.npz``;
 order 4 at 22 segments, a seeded 10-joint chain at 17 segments, the hand
 at 21 segments and the Panda at 40 segments (89, 52, 64, 121 nodes),
-kernels 2 and 3 held and an eager shipping solve each; and the first
-geometries that fit no layout (52 segments of order 3, order 4 at 34, 9
-joints at 37 segments, 10 joints at 30) refused naming their bytes, before
-any build. Past 10 joints (blocks of 33 x 33 and more) a lane of kernels 2
-and 3 owns two rows of a block, kernel 3's sweeps read their blocks where
+kernels 2 and 3 held and an eager shipping solve each. Past 10 joints
+(blocks of 33 x 33 and more) a lane of kernels 2 and 3 owns two rows of a
+block, kernel 3's sweeps read their blocks where
 they lie, and kernel 1's Jacobian tiles lie in dynamic shared memory; phase
 29 holds it: (a) up to 10 joints the builds are bitwise those of the
 sources as they were with one row a lane (``csrc/one_row/``), kernel 3 at
@@ -162,10 +160,25 @@ seeded 12-joint chain at 19 nodes (685 variables, 823 rows, kernel 3 in its
 lean layout): kernels 2 and 3 timed against their plain versions, the
 captured shipping solve of its 2048 seeded states (5/2/2/0, bitwise its
 eager solve, times in turns; its quality read, not held) and the JAX
-fixture ``torch_port_chain12_b64.npz``; 11 and 14 joints solved eagerly; 11
-joints x 25, 12 x 20 and 14 x 12 refused naming their bytes. The plain
-kernel-3 loop of phases 19-29 replays each check window from a CUDA graph
-(``PlainWindows``), which phase 10 holds bitwise against the eager loop.
+fixture ``torch_port_chain12_b64.npz``; 11 and 14 joints solved eagerly.
+Where the deep block does not fit one SM, kernel 3 runs a problem on a
+cluster of two blocks (the pair layout: rank 1 holds the copier's ring, and
+rank 0 reads its blocks from rank 1's shared memory), and phase 30 holds it:
+(a) built so at 32 and 51 segments of order 3 and at 12 joints x 12, where
+the deep layout fits, it gives every output of the deep layout bitwise at
+B=2048 (times in turns, ptxas's registers and spills of both); (b) the
+seven geometries the deep layout refused (52 x 3, order 4 x 34, seeded
+chains of 9 joints x 37, 10 x 30, 11 x 25, 12 x 20 and 14 x 12): their
+blocks against the reckoning, kernels 2 and 3 against their plain
+versions, kernel 3 timed and an eager shipping solve each; (c) the Panda at
+52 segments of order 3 (157 nodes, 3298 variables, 4168 rows, five
+elements a thread) as a user sets it: kernels 2 and 3 timed, the captured
+shipping solve of the headline states (5/2/2/0, bitwise its eager solve,
+quality) and the JAX fixture ``torch_port_seg52_b64.npz``; (d) the first
+geometries past the pair layout refused naming the bytes of both its
+blocks, before any build. The plain kernel-3 loop of phases 19-30 replays
+each check window from a CUDA graph (``PlainWindows``), which phase 10
+holds bitwise against the eager loop.
 Needs one CUDA GPU and ``nvcc``; imports no JAX.
 
     python3 chip_smoke.py
@@ -220,6 +233,8 @@ SEG20_FIXTURE = os.path.join(FIXTURES, "torch_port_seg20_b64.npz")
 SEG25_FIXTURE = os.path.join(FIXTURES, "torch_port_seg25_b64.npz")
 # and at 32 segments (97 nodes, kernel 3 in its deep layout)
 SEG32_FIXTURE = os.path.join(FIXTURES, "torch_port_seg32_b64.npz")
+# and at 52 segments (157 nodes), with the JAX float32 solve's final times
+SEG52_FIXTURE = os.path.join(FIXTURES, "torch_port_seg52_b64.npz")
 # the JAX structured solve of the Panda with its hand (9 joints) on the
 # first 64 headline states with the fingers added (make_panda6_fixture.py --hand)
 HAND9_FIXTURE = os.path.join(FIXTURES, "torch_port_hand9_b64.npz")
@@ -228,6 +243,7 @@ B_MAIN = 2048  # the headline batch
 B_FACTOR = 256  # kernel-2 comparison batch
 B_ADMM = 64  # kernel-3 and kernel-4 comparison batch
 B_ODD = 61  # a batch that is no round number
+B_XLA = 128  # phase 14's batch of the dense "xla" path
 N_ACCEPT, B_ACCEPT = 1000, 250  # the acceptance's states and batch (phase 12)
 # the JAX package's record on these states (BENCH_r05.json, structured_pallas)
 JAX_RECORD = {"qp_conv_rate": 0.9978, "tol_hit_rate": 1.0, "median_violation": 0.487,
@@ -544,7 +560,9 @@ def fixture_agreement(planner, path, dev, counts=None):
     error is within the target box. Returns (count, count of final times
     within 1e-3 relative alone, batch, summary); ``counts``, a dict where
     given, receives the count of the same qp_converged alone as
-    ``"qp_converged"``."""
+    ``"qp_converged"``, of the states with a QP the JAX solve converged and
+    this one did not as ``"converged_lost"``, and of the states whose
+    terminal error is within the target box as ``"in_box"``."""
     fx = np.load(path)
     cur = torch.as_tensor(fx["current"], device=dev)
     tgt = torch.as_tensor(fx["target"], device=dev)
@@ -557,7 +575,10 @@ def fixture_agreement(planner, path, dev, counts=None):
     n_good = int(((tf_rel <= 1e-3) & conv_same & (err <= tol)).sum())
     n_tf = int((tf_rel <= 1e-3).sum())
     if counts is not None:
+        conv_ref = torch.as_tensor(fx["qp_converged"], device=dev)
         counts["qp_converged"] = int(conv_same.sum())
+        counts["converged_lost"] = int((conv_ref & ~sol.qp_converged).any(-1).sum())
+        counts["in_box"] = int((err <= tol).sum())
     zgap = (sol.z - torch.as_tensor(fx["z"], device=dev)).abs().amax(-1)
     vgap = (sol.violation - torch.as_tensor(fx["violation"], device=dev)).abs()
     return n_good, n_tf, cur.shape[0], (
@@ -727,11 +748,18 @@ SOLUTION_FIELDS = ("z", "violation", "lam_c", "lam_x", "qp_iterations", "qp_conv
 
 def hold_captured(got, ref, ref2, what):
     """A captured solve against the eager one: each field bitwise, or, where
-    two eager solves in a row already differ, within their gap. Returns a
+    two eager solves in a row already differ, within their gap. ``ref2``:
+    the second eager solve, or a function that makes it, called only where
+    a field is not bitwise (a solve takes 24 s at 157 nodes). Returns a
     summary."""
     held = []
     for f in SOLUTION_FIELDS:
-        a, b, c = (getattr(s_, f) for s_ in (got, ref, ref2))
+        a, b = getattr(got, f), getattr(ref, f)
+        if torch.equal(a, b):
+            continue
+        if callable(ref2):
+            ref2 = ref2()
+        c = getattr(ref2, f)
         if torch.equal(b, c):
             check(torch.equal(a, b), f"{what}: captured {f} differs from the eager solve's by "
                   f"{max_abs(a, b):.3e}")
@@ -755,7 +783,8 @@ def replay_idle_share(fn, cur, tgt):
 
 def captured_phases(paths, cur_all, tgt_all, first_qp, results, smi) -> None:
     """Phases 14-18: the compiled solve (``utils/capture.py``). Each path's
-    captured solve against its eager solve at B=2048 with the launch counts
+    captured solve against its eager solve at B=2048 (the dense "xla" path at
+    B_XLA, timed in one turn) with the launch counts
     of one replay; kernel 2's ok-flag repair inside a graph against the eager
     repair; the one-card mesh; the stage timings; kernel 2's library call."""
     from mpc_motion_planner_tpu_torch import kernels
@@ -770,50 +799,60 @@ def captured_phases(paths, cur_all, tgt_all, first_qp, results, smi) -> None:
     shipping_replay = None
     # ---- phase 14: each path captured, against its eager solve ----
     for name, planner in paths.items():
+        # the dense "xla" path (a PyTorch loop, 4 s a solve at B=2048) at
+        # B_XLA and one timing turn, to keep the script inside its time
+        B = B_XLA if name == "xla" else B_MAIN
+        turns = 1 if name == "xla" else 3
+        cur, tgt = cur_all[:B], tgt_all[:B]
         t0 = time.perf_counter()
-        solve = capture_solve(planner, cur_all, tgt_all)
+        solve = capture_solve(planner, cur, tgt)
         torch.cuda.synchronize()
         t_capture = time.perf_counter() - t0
         check(solve.captured, f"{name}: the solve was not captured")
         kernels.reset_launch_counts()
-        got = solve(cur_all, tgt_all)
+        got = solve(cur, tgt)
         torch.cuda.synchronize()
         counts_r = kernels.launch_counts()
         kernels.reset_launch_counts()
-        ref = planner.solve(cur_all, tgt_all)
+        ref = planner.solve(cur, tgt)
         torch.cuda.synchronize()
         counts_e = kernels.launch_counts()
-        ref2 = planner.solve(cur_all, tgt_all)
         check(counts_r == counts_e and counts_r["constraints"] == 5,
               f"{name}: launches per replay {counts_r}, per eager solve {counts_e}")
-        held = hold_captured(got, ref, ref2, name)
+        held = hold_captured(got, ref, lambda: planner.solve(cur, tgt), name)
         check(solve.eager_resolves == 0, f"{name}: {solve.eager_resolves} eager re-solves")
         times = {"replay": [], "eager": []}
-        for mode in ("replay", "eager", "eager", "replay", "replay", "eager"):
+        for mode in ("replay", "eager", "eager", "replay", "replay", "eager")[:2 * turns]:
             fn = solve if mode == "replay" else planner.solve
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            fn(cur_all, tgt_all)
+            fn(cur, tgt)
             torch.cuda.synchronize()
             times[mode].append(1e3 * (time.perf_counter() - t0))
         med = {k: float(np.median(v)) for k, v in times.items()}
-        r_ms, r_busy, r_idle, r_events = replay_idle_share(solve, cur_all, tgt_all)
-        e_ms, e_busy, e_idle, _ = replay_idle_share(planner.solve, cur_all, tgt_all)
-        q = quality(planner, got, tgt_all)
-        log(f"phase 14 captured {name} B={B_MAIN}: capture {t_capture:.2f} s; {held} against "
+        # (the xla path's 86k device operations are not traced: its
+        # profiler run took ~20 s of the script)
+        traced = "not traced"
+        if name != "xla":
+            r_ms, r_busy, r_idle, r_events = replay_idle_share(solve, cur, tgt)
+            e_ms, e_busy, e_idle, _ = replay_idle_share(planner.solve, cur, tgt)
+            traced = (f"one traced replay {r_ms:.2f} ms, device busy {r_busy:.2f} ms ({r_events} "
+                      f"device events), idle share {r_idle:.3f}; one traced eager solve "
+                      f"{e_ms:.2f} ms, busy {e_busy:.2f} ms, idle share {e_idle:.3f}")
+        q = quality(planner, got, tgt)
+        log(f"phase 14 captured {name} B={B}: capture {t_capture:.2f} s; {held} against "
             f"the eager solve (7 fields); launches per replay {counts_r} (eager {counts_e}); "
-            f"median of 3 in turns: replay {med['replay']:.2f} ms = {B_MAIN / med['replay'] * 1e3:.1f} "
-            f"solves/s, eager {med['eager']:.2f} ms = {B_MAIN / med['eager'] * 1e3:.1f} solves/s "
+            f"median of {turns} in turns: replay {med['replay']:.2f} ms = "
+            f"{B / med['replay'] * 1e3:.1f} "
+            f"solves/s, eager {med['eager']:.2f} ms = {B / med['eager'] * 1e3:.1f} solves/s "
             f"(replays {[round(t, 2) for t in times['replay']]}, eager "
-            f"{[round(t, 2) for t in times['eager']]}); one traced replay {r_ms:.2f} ms, device "
-            f"busy {r_busy:.2f} ms ({r_events} device events), idle share {r_idle:.3f}; one "
-            f"traced eager solve {e_ms:.2f} ms, busy {e_busy:.2f} ms, idle share {e_idle:.3f}; "
+            f"{[round(t, 2) for t in times['eager']]}); {traced}; "
             f"{solve.eager_resolves} eager re-solves after a repair overflow; qp_conv_rate "
             f"{q['qp_conv_rate']}, tol_hit_rate {q['tol_hit_rate']}, median violation "
             f"{q['median_violation']} on {smi}")
         if name == "structured_pallas":
             shipping_replay = (planner, got)
-        del solve, got, ref, ref2
+        del solve, got, ref
         torch.cuda.empty_cache()
 
     # ---- phase 15: kernel 2's ok-flag repair inside a graph ----
@@ -992,7 +1031,8 @@ def factor_check(planner, first_qp, tag, states=None):
         + " (tol 1e-3)")
 
 
-def kernel_checks(planner, first_qp, tag, states=None, hold_counts=True) -> str:
+def kernel_checks(planner, first_qp, tag, states=None, hold_counts=True,
+                  read_float64=True) -> str:
     """Kernels 2 and 3 built for ``planner``'s transcription against their
     plain versions on its step-0 QPs of the headline states, with phase 3's
     bars (B_FACTOR problems: identical ok flags, max-norm relative error <=
@@ -1006,9 +1046,10 @@ def kernel_checks(planner, first_qp, tag, states=None, hold_counts=True) -> str:
     check window (phase 4's ``max_abs_err`` of kernel 3). ``states``: the
     (current, target) states of another robot (default: the headline's).
     ``hold_counts`` False: the full solve's iteration counts are read against
-    the plain float32 and float64 solves and reported, not held (where no
-    float32 loop meets ``iteration_agreement``'s bars, PERF.md §7 question 10); its
-    converged flags and hard rows are held as everywhere."""
+    the plain float32 and (``read_float64``) float64 solves and reported,
+    not held (where no float32 loop meets ``iteration_agreement``'s bars,
+    PERF.md §7 question 10); its converged flags and hard rows are held as
+    everywhere."""
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.ocp import make_ocp
@@ -1053,10 +1094,12 @@ def kernel_checks(planner, first_qp, tag, states=None, hold_counts=True) -> str:
     else:
         agree = int((got.converged == ref.converged).sum())
         check(agree >= B4 - max(2, B4 // 32), f"{tag}: convergence agrees on only {agree}/{B4}")
-        sol64 = ref64()
-        gaps = {name: iteration_gaps(a, b) for name, (a, b) in (
-            ("kernel against plain", (got, ref)), ("kernel against float64", (got, sol64)),
-            ("plain against float64", (ref, sol64)))}
+        pairs = [("kernel against plain", (got, ref))]
+        if read_float64:
+            sol64 = ref64()
+            pairs += [("kernel against float64", (got, sol64)),
+                      ("plain against float64", (ref, sol64))]
+        gaps = {name: iteration_gaps(a, b) for name, (a, b) in pairs}
         agreement = (f"converged agree {agree}/{B4} (kernel {int(got.converged.sum())}, plain "
                      f"{int(ref.converged.sum())}); iteration counts read, not held: " + "; ".join(
                          f"{name} within 25 on {w}/{n}, median gap {m}, max {x}"
@@ -1166,16 +1209,101 @@ def plain_structured_solve(ocp, sa, args, settings, soft_c, soft_x):
     return qp_structured.unscale_solution(qp, *state)
 
 
+def time_factor(qp, g, e2, tag, phase, library_batch=None) -> None:
+    """Kernel 2 built for ``g`` on the bands of the scaled QPs ``qp`` against
+    its plain version, timed in turns with phase 3's bars, its bound, then
+    its library call (``library_factor``, on the first ``library_batch``
+    problems where given); into the entry ``e2``."""
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.ops import qp_structured
+
+    B = qp.Mband.shape[0]
+    out = {}
+
+    def keep(key, fn):
+        def call():
+            out[key] = fn()
+        return call
+
+    p_ms, k_ms, raw = time_pair(
+        keep("plain", lambda: qp_structured.factor_banded(qp.Mband, qp.p_col, qp.m_pp, g.order)),
+        keep("kernel", lambda: k2.factor_banded_kernel(qp.Mband, qp.p_col, qp.m_pp)),
+    )
+    fk, fp = out.pop("kernel"), out.pop("plain")
+    check(torch.equal(fk["ok"], fp["ok"]), f"{tag}: kernel 2 ok flags differ at B={B}")
+    errs = {k: rel_err(fk[k], fp[k]) for k in ("Ldi", "Lsub", "u", "s")}
+    check(max(errs.values()) <= 1e-3, f"{tag}: kernel 2 differs at B={B}: {errs}")
+    e2.update(ms=k_ms, plain_ms=p_ms, max_abs_err=max(max_abs(fk[k], fp[k]) for k in errs))
+    text = report_bound(
+        e2, B * banded_factor_flops(nodes=g.nodes, bw=g.order, blk=g.blk),
+        tensor_bytes(qp.Mband, qp.p_col, qp.m_pp, *fk.values()), "band in, factors out",
+        library="torch.linalg.cholesky_ex of the dense M, below")
+    log(f"{phase} kernel 2 B={B}, {tag}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
+        f"(runs {raw}); {text}; ok flags identical ({int(fk['ok'].sum())}/{B} ok), max-norm "
+        f"relative error " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()) + " (tol 1e-3)")
+    del fk, fp
+    library_factor(qp, e2, f"{phase} at {tag}:", library_batch)
+
+
+def kernel3_timing(pl, first_qp, states, tag, phase, batch=B_MAIN, plain=True) -> None:
+    """Kernel 3 built for ``pl``'s geometry on the step-0 QPs of the first
+    ``batch`` of ``states`` (default the headline's): one launch at the full
+    budget against its bound (``k3_iter_flops`` of the problem-iterations it
+    ran, and the bytes of its inputs and outputs) and, with ``plain``, its
+    plain loop's time (check windows replayed from a CUDA graph,
+    :class:`PlainWindows`; ``kernel_checks`` holds the kernel to that loop);
+    then three launches of exactly one check window, µs per iteration per
+    block, or per cluster of two blocks, over the waves the card runs."""
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+    from mpc_motion_planner_tpu_torch.ops import qp_structured
+
+    ocp, shipping = pl.ocp, pl.qp_settings
+    g = Geometry.of_ocp(ocp)
+    _, sa, args, sc, sx = first_qp(batch, pl=pl, states=states)
+    qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
+    fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, g.order)
+    out = {}
+    k_ms = time_kernel(lambda: out.__setitem__(
+        "k", k3.admm_kernel(ocp, sa, qp, fac, shipping)), reps=1, warm=False)
+    iters = int(out["k"][6].sum())
+    flops = k3_iter_flops(g.segments, g.nq, g.order, shipping.kkt_refine)
+    nbytes = tensor_bytes(
+        fac["Ldi"], fac["Lsub"], fac["u"], fac["s"], sa.J, sa.f_rows, sa.p,
+        qp.qs, qp.Ps, qp.rx, qp.lxs, qp.uxs, qp.thx, qp.D, qp.x, qp.zx, qp.yx,
+        qp.rc, qp.lcs, qp.ucs, qp.E, qp.thr, qp.zc, qp.yc, *out["k"])
+    b_ms, b_by = bound(iters * flops, nbytes)
+    del out
+    p_text = ""
+    if plain:
+        p_ms = time_kernel(PlainWindows(ocp, sa, qp, fac, shipping), reps=1, warm=False)
+        p_text = f", plain {p_ms:.3f} ms"
+    s_win = dataclasses.replace(shipping, max_iter=shipping.check_every, rescue_iters=0)
+    w_ms = time_kernel(lambda: k3.admm_kernel(ocp, sa, qp, fac, s_win), reps=3)
+    at_once, unit = problems_at_once(g)
+    waves = -(-batch // at_once)
+    log(f"{phase} kernel 3 B={batch}, {tag}, step-0 QP, budget {shipping.max_iter} + "
+        f"{shipping.rescue_iters}: kernel {k_ms:.3f} ms{p_text}; bound {b_ms:.4f} ms by {b_by} "
+        f"({iters} problem-iterations of {flops / 1e3:.1f} kflop, {nbytes / 1e6:.1f} MB), share "
+        f"reached {100 * b_ms / k_ms:.1f}%; exactly {s_win.max_iter} iterations {w_ms:.3f} ms = "
+        f"{1e3 * w_ms / s_win.max_iter / waves:.2f} us per iteration per {unit} ({waves} waves "
+        f"of {at_once} {unit}s)")
+
+
 def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, states=None,
-                            library_batch=None):
-    """Kernels 2 and 3 built for ``pl``'s geometry, timed at B=2048 on its
-    step-0 QPs (of ``states``, default the headline's) against their plain
-    versions (kernel 2 in turns with phase 3's bars, then its library call;
-    kernel 3's plain loop, its check windows replayed from a CUDA graph
-    (:class:`PlainWindows`), runs once between two kernel runs, held by
-    ``iteration_agreement`` and the hard-row bar), with their
-    bounds, and kernel 3 at exactly one check window; into the ``results``
-    entries ``banded_factor_<suffix>`` and ``structured_admm_<suffix>``
+                            library_batch=None, batch=B_MAIN, hold_counts=True):
+    """Kernels 2 and 3 built for ``pl``'s geometry, timed at B=``batch``
+    (2048 but where a phase names less) on its step-0 QPs (of ``states``,
+    default the headline's) against their plain versions (kernel 2 in turns
+    with phase 3's bars, then its library call; kernel 3's plain loop, its
+    check windows replayed from a CUDA graph (:class:`PlainWindows`), runs
+    once after the kernel's run, held by
+    ``iteration_agreement`` and the hard-row bar; ``hold_counts`` False:
+    converged flags held, iteration counts read against the plain float32
+    loop, as ``kernel_checks`` reads them), with their bounds, and kernel 3
+    at exactly one check window; into the ``results`` entries
+    ``banded_factor_<suffix>`` and ``structured_admm_<suffix>``
     (``window_err``: kernel 3's ``max_abs_err`` from ``kernel_checks``;
     ``library_batch``: the batch of kernel 2's library call where B=2048 does
     not fit)."""
@@ -1189,7 +1317,6 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
     ocp, shipping = pl.ocp, pl.qp_settings
     g = Geometry.of_ocp(ocp)
     tag = suffix.replace("_", " ")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name in ("banded_factor", "structured_admm"):
         k = kernels.KERNELS[name]
         results[f"{name}_{suffix}"] = {
@@ -1202,33 +1329,15 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
             out[key] = fn()
         return call
 
-    _, sa, args, sc, sx = first_qp(B_MAIN, pl=pl, states=states)
+    _, sa, args, sc, sx = first_qp(batch, pl=pl, states=states)
     qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
-    p_ms, k_ms, raw = time_pair(
-        keep("plain", lambda: qp_structured.factor_banded(qp.Mband, qp.p_col, qp.m_pp, g.order)),
-        keep("kernel", lambda: k2.factor_banded_kernel(qp.Mband, qp.p_col, qp.m_pp)),
-    )
-    fk, fp = out.pop("kernel"), out.pop("plain")
-    check(torch.equal(fk["ok"], fp["ok"]), f"{tag}: kernel 2 ok flags differ at B={B_MAIN}")
-    errs = {k: rel_err(fk[k], fp[k]) for k in ("Ldi", "Lsub", "u", "s")}
-    check(max(errs.values()) <= 1e-3, f"{tag}: kernel 2 differs at B={B_MAIN}: {errs}")
-    e2 = results[f"banded_factor_{suffix}"]
-    e2.update(ms=k_ms, plain_ms=p_ms, max_abs_err=max(max_abs(fk[k], fp[k]) for k in errs))
-    text = report_bound(
-        e2, B_MAIN * banded_factor_flops(nodes=g.nodes, bw=g.order, blk=g.blk),
-        tensor_bytes(qp.Mband, qp.p_col, qp.m_pp, *fk.values()), "band in, factors out",
-        library="torch.linalg.cholesky_ex of the dense M, below")
-    log(f"{phase} kernel 2 B={B_MAIN}, {tag}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-        f"(runs {raw}); {text}; ok flags identical ({int(fk['ok'].sum())}/{B_MAIN} ok), max-norm "
-        f"relative error " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()) + " (tol 1e-3)")
-    del fk, fp
-    library_factor(qp, e2, f"{phase} at {tag}:", library_batch)
+    time_factor(qp, g, results[f"banded_factor_{suffix}"], tag, phase, library_batch)
     fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, g.order)
-    # the plain loop takes seconds, so it runs once: the kernel, the plain
-    # loop and the kernel again, timed, and the outputs of those calls held
+    # the plain loop takes seconds, so it runs once: the kernel and the plain
+    # loop, timed, and the outputs of those calls held
     plain = PlainWindows(ocp, sa, qp, fac, shipping)
     raw = {"kernel": [], "plain": []}
-    for name in ("kernel", "plain", "kernel"):
+    for name in ("kernel", "plain"):
         fn = keep(name, (lambda: k3.admm_kernel(ocp, sa, qp, fac, shipping)) if name == "kernel"
                   else plain)
         raw[name].append(time_kernel(fn, reps=1, warm=False))
@@ -1243,12 +1352,21 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
     k3_iters = int(out["kernel"][6].sum())
     out.clear()
 
-    agreement = iteration_agreement(got, ref, B_MAIN, f"{tag}: kernel 3 B={B_MAIN}",
-                                    lambda: plain_float64(pl, sa, qp, fac, shipping))
+    if hold_counts:
+        agreement = iteration_agreement(got, ref, batch, f"{tag}: kernel 3 B={batch}",
+                                        lambda: plain_float64(pl, sa, qp, fac, shipping))
+    else:
+        agree = int((got.converged == ref.converged).sum())
+        check(agree >= batch - max(2, batch // 32),
+              f"{tag}: kernel 3 B={batch}: convergence agrees on only {agree}/{batch}")
+        w, n, m, x = iteration_gaps(got, ref)
+        agreement = (f"converged agree {agree}/{batch} (kernel {int(got.converged.sum())}, plain "
+                     f"{int(ref.converged.sum())}); iteration counts read, not held: within 25 "
+                     f"of the plain float32 loop's on {w}/{n}, median gap {m}, max {x}")
     _, lc, uc, lx, ux = args[1:]
     ratios = [hard_row_ratio(s_.x, apply_A(ocp, sa, s_.x), lc, uc, lx, ux, sc, sx, shipping,
                              s_.converged) for s_ in (got, ref)]
-    check(ratios[0][1] <= 1.01, f"{tag}: kernel 3 B={B_MAIN}: hard rows at "
+    check(ratios[0][1] <= 1.01, f"{tag}: kernel 3 B={batch}: hard rows at "
           f"{ratios[0][1]:.3f}x the tolerance")
     e3 = results[f"structured_admm_{suffix}"]
     e3.update(ms=k_ms, plain_ms=p_ms, max_abs_err=window_err)
@@ -1256,7 +1374,7 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
     text = report_bound(e3, k3_iters * flops, k3_bytes,
                         f"{k3_iters} problem-iterations of {flops / 1e3:.1f} kflop as the kernel "
                         f"counted them")
-    log(f"{phase} kernel 3 B={B_MAIN}, {tag}, step-0 QP, budget {shipping.max_iter}: kernel "
+    log(f"{phase} kernel 3 B={batch}, {tag}, step-0 QP, budget {shipping.max_iter}: kernel "
         f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (check windows replayed from a CUDA graph, "
         f"captured in {capture_s:.2f} s; runs {raw}); {text}; {agreement}; hard-row "
         f"violation {ratios[0][1]:.3f}x the primal tolerance (bar 1.01; plain "
@@ -1264,13 +1382,24 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
     del got, ref
     s_win = dataclasses.replace(shipping, max_iter=shipping.check_every, rescue_iters=0)
     w_ms = time_kernel(lambda: k3.admm_kernel(ocp, sa, qp, fac, s_win), reps=3)
-    per_sm = k3.blocks_per_sm(g)
-    waves = -(-B_MAIN // (sms * per_sm))
-    b_ms, b_by = bound(B_MAIN * s_win.max_iter * flops, k3_bytes)
-    log(f"{phase} kernel 3 B={B_MAIN}, {tag}, exactly {s_win.max_iter} iterations: kernel "
-        f"{w_ms:.3f} ms = {1e3 * w_ms / s_win.max_iter / waves:.2f} us per iteration per block "
-        f"({waves} waves of {sms} x {per_sm} blocks); bound {b_ms:.4f} ms by {b_by}, share "
+    at_once, unit = problems_at_once(g)
+    waves = -(-batch // at_once)
+    b_ms, b_by = bound(batch * s_win.max_iter * flops, k3_bytes)
+    log(f"{phase} kernel 3 B={batch}, {tag}, exactly {s_win.max_iter} iterations: kernel "
+        f"{w_ms:.3f} ms = {1e3 * w_ms / s_win.max_iter / waves:.2f} us per iteration per {unit} "
+        f"({waves} waves of {at_once} {unit}s); bound {b_ms:.4f} ms by {b_by}, share "
         f"reached {100 * b_ms / w_ms:.1f}%")
+
+
+def problems_at_once(g):
+    """How many problems kernel 3 built for ``g`` runs at a time on this card
+    and what runs one: the SMs times its blocks per SM, a block each, or (the
+    pair layout) the clusters of two blocks the card places at a time."""
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    paired = k3.KERNEL.geometry(g).layout in k3.PAIRED
+    return k3.problems_at_once(g, sms), "cluster" if paired else "block"
 
 
 SHIPPING_LAUNCHES = (5, 2, 2, 0)  # kernels 1-4 per shipping solve
@@ -1283,7 +1412,7 @@ def launches_of(counts) -> dict:
 
 
 def captured_shipping(pl, cur, tgt, tag, suffix, phase, note, results, names, smi,
-                      launches=SHIPPING_LAUNCHES, hold_quality=True) -> None:
+                      launches=SHIPPING_LAUNCHES, hold_quality=True, turns=3) -> None:
     """A phase's main path: ``pl``'s shipping solve of (cur, tgt) captured
     at B=2048, with the launches of one replay (``launches``: 5/2/2/0, or
     0/2/2/0 under fused_constraints="off"; set as the
@@ -1293,7 +1422,8 @@ def captured_shipping(pl, cur, tgt, tag, suffix, phase, note, results, names, sm
     ``tol_hit_rate`` >= 0.99, terminal error <= 0.011; read and reported,
     not held, where ``hold_quality`` is False: the seeded chains' QPs do not
     converge within the budgets, at float64 either), and replay and eager
-    times, median of 3 in turns."""
+    times, median of ``turns`` in turns (0: the times of the checked replay
+    and of the first eager solve, where a solve takes tens of seconds)."""
     from mpc_motion_planner_tpu_torch import kernels
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.utils.capture import capture_solve
@@ -1304,8 +1434,10 @@ def captured_shipping(pl, cur, tgt, tag, suffix, phase, note, results, names, sm
     t_capture = time.perf_counter() - t0
     check(solve.captured, f"{tag}: the solve was not captured")
     kernels.reset_launch_counts()
+    t0 = time.perf_counter()
     got = solve(cur, tgt)
     torch.cuda.synchronize()
+    times = {"replay": [1e3 * (time.perf_counter() - t0)], "eager": []}
     counts = kernels.launch_counts()
     repairs = k2.REPAIRS.count
     check(counts == launches_of(launches), f"{tag}: launches per replay {counts}")
@@ -1314,15 +1446,18 @@ def captured_shipping(pl, cur, tgt, tag, suffix, phase, note, results, names, sm
     finite = all(bool(torch.isfinite(t).all()) for t in (got.z, got.violation, got.lam_c, got.lam_x))
     check(finite and got.z.shape == (B_MAIN, pl.ocp.num_var),
           f"{tag}: non-finite or misshapen outputs")
+    t0 = time.perf_counter()
     ref = pl.solve(cur, tgt)
-    ref2 = pl.solve(cur, tgt)
-    held = hold_captured(got, ref, ref2, tag)
+    torch.cuda.synchronize()
+    times["eager"].append(1e3 * (time.perf_counter() - t0))
+    held = hold_captured(got, ref, lambda: pl.solve(cur, tgt), tag)
     check(solve.eager_resolves == 0, f"{tag}: {solve.eager_resolves} eager re-solves")
     q = quality(pl, got, tgt)
     check(not hold_quality or (q["qp_conv_rate"] >= 0.98 and q["tol_hit_rate"] >= 0.99
                                and q["terminal_err_inf_max"] <= 0.011), f"{tag}: quality {q}")
-    times = {"replay": [], "eager": []}
-    for mode in ("replay", "eager", "eager", "replay", "replay", "eager"):
+    if turns:
+        times = {"replay": [], "eager": []}
+    for mode in ("replay", "eager", "eager", "replay", "replay", "eager")[:2 * turns]:
         fn = solve if mode == "replay" else pl.solve
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1334,12 +1469,13 @@ def captured_shipping(pl, cur, tgt, tag, suffix, phase, note, results, names, sm
         f"{t_capture:.2f} s; launches per replay {counts}, kernel-2 flags {repairs}; {held} "
         f"against the eager solve (7 fields); quality {json.dumps(q)}"
         + ("" if hold_quality else " (read, not held)"))
-    log(f"{phase} timing at {tag}, median of 3 in turns: replay {med['replay']:.2f} ms = "
+    log(f"{phase} timing at {tag}, median of {max(turns, 1)} in turns: replay "
+        f"{med['replay']:.2f} ms = "
         f"{B_MAIN / med['replay'] * 1e3:.1f} solves/s, eager {med['eager']:.2f} ms = "
         f"{B_MAIN / med['eager'] * 1e3:.1f} solves/s (replays "
         f"{[round(t, 2) for t in times['replay']]}, eager {[round(t, 2) for t in times['eager']]}) "
         f"on {smi}")
-    del solve, got, ref, ref2
+    del solve, got, ref
     torch.cuda.empty_cache()
 
 
@@ -1394,13 +1530,18 @@ def block_summary(g, kernel2=True) -> str:
 
     lay3 = k3.block_layout(g)
     built = k3.KERNEL.geometry(g)
-    want3 = {"threads": k3.threads(g), "smem_bytes": k3.smem_bytes(built)}
-    check({k: lay3[k] for k in want3} == want3,
+    paired = built.layout in k3.PAIRED
+    want3 = {"threads": k3.threads(g), "smem_bytes": k3.smem_bytes(built),
+             "rank_bytes": k3.rank_bytes(built) if paired else (0, 0)}
+    check({k: lay3[k] for k in want3} == want3 and (lay3["active_clusters"] > 0) == paired,
           f"kernel 3 at {built}: the library's block {lay3}, the reckoning {want3}")
     text = (f"kernel 3 {lay3['threads']} threads ({k3.sweep_warps(g)} sweep warps), "
             f"{lay3['smem_bytes']} B in the {built.layout} layout ("
             + ", ".join(f"{name} {k3.smem_bytes(g, name)}" for name in LAYOUTS)
-            + f" B), {lay3['blocks_per_sm']} block per SM")
+            + f" B), {lay3['blocks_per_sm']} block per SM"
+            + (f"; a cluster of two blocks a problem, rank 0 {lay3['rank_bytes'][0]} B, rank 1 "
+               f"{lay3['rank_bytes'][1]} B, {lay3['active_clusters']} clusters at a time "
+               f"(cudaOccupancyMaxActiveClusters)" if paired else ""))
     if not kernel2:
         return text + "; the reckoning agrees"
     lay2 = k2.block_layout(g)
@@ -1465,7 +1606,8 @@ def transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> N
 
     # ---- the main path at 25 nodes: the captured shipping solve ----
     captured_shipping(pl25, cur_all, tgt_all, "25 nodes", "25_nodes", "phase 19",
-                      "headline states", results, ("banded_factor", "structured_admm"), smi)
+                      "headline states", results, ("banded_factor", "structured_admm"), smi,
+                      turns=1)
 
     # ---- the JAX fixture at 8 segments, through the kernels ----
     n_good, n_tf, n_fx, summary = fixture_agreement(pl25, SEG8_FIXTURE, dev)
@@ -1730,7 +1872,7 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     # ---- (b) the 6-joint planner: the captured shipping solve ----
     captured_shipping(pl6, cur6, tgt6, "6 joints", "6_joints", "phase 20",
                       "headline states, joint 7 dropped", results,
-                      ("constraints", "banded_factor", "structured_admm"), smi)
+                      ("constraints", "banded_factor", "structured_admm"), smi, turns=1)
     eager_shipping(pl8, cur8, tgt8, "the 8-joint chain (seeded states)", "8_joints", "phase 20",
                    results)
 
@@ -1914,7 +2056,7 @@ def order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     pl4 = with_order(4, 4)
     captured_shipping(pl4, cur_all, tgt_all, "order 4", "order4", "phase 21",
                       "headline states, 4 segments of order 4, 17 nodes", results,
-                      ("banded_factor", "structured_admm"), smi)
+                      ("banded_factor", "structured_admm"), smi, turns=1)
 
     # ---- (d) the JAX fixture at order 4, through the kernels ----
     n_good, n_tf, n_fx, summary = fixture_agreement(pl4, ORDER4_FIXTURE, dev)
@@ -1975,45 +2117,53 @@ def transcription_planner(planner, order, segments):
     return pl
 
 
-def hold_layouts(pl, first_qp, base, other, entry, phase, smi) -> None:
+def hold_layouts(pl, first_qp, base, other, entry, phase, smi, states=None,
+                 turns=2) -> None:
     """Kernel 3 at ``pl``'s geometry built in the layout ``other`` (named in
     the geometry; planners never do) against the build in ``base``, on the
-    step-0 QPs of the headline states at B=2048, at the full budget and at
-    one check window: all nine outputs bitwise equal, times in turns (base,
-    other, other, base; one call each at the full budget, three at one
-    window), into ``entry`` as ``<other>_<label>_ms``, ``<base>_<label>_ms``
-    and ``<other>_<label>_bitwise_<base>``."""
+    step-0 QPs of the headline states (``states``: another robot's) at
+    B=2048, at the full budget and at one check window: all nine outputs
+    bitwise equal, times in turns (base, other, other, base, or with
+    ``turns`` 1 base, other; one call each at the full budget, with no
+    warm-up call before it where ``turns`` is 1, three at one window, one
+    where ``turns`` is 1), into ``entry`` as
+    ``<other>_<label>_ms``, ``<base>_<label>_ms`` and
+    ``<other>_<label>_bitwise_<base>``."""
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
     from mpc_motion_planner_tpu_torch.ops import qp_structured
 
     shipping, ocp = pl.qp_settings, pl.ocp
-    tag = f"{ocp.num_nodes} nodes of order {ocp.coll.order}"
-    _, sa, args, sc, sx = first_qp(B_MAIN, pl=pl)
+    tag = f"{ocp.num_nodes} nodes of order {ocp.coll.order}" + (
+        f" and {ocp.nq} joints" if ocp.nq != 7 else "")
+    _, sa, args, sc, sx = first_qp(B_MAIN, pl=pl, states=states)
     qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
     fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, ocp.coll.order)
     s_win = dataclasses.replace(shipping, max_iter=shipping.check_every, rescue_iters=0)
     names = ("x", "zc", "zx", "yc", "yx", "done", "iters", "rp", "rd")
     for label, settings in (("budget", shipping), ("window", s_win)):
         out, times = {}, {base: [], other: []}
-        for lay in (base, other, other, base):
+        for lay in (base, other, other, base)[:2 * turns]:
             def call(lay=lay):
                 out[lay] = k3.admm_kernel(ocp, sa, qp, fac, settings, layout=lay)
-            times[lay].append(time_kernel(call, reps=1 if label == "budget" else 3))
+            times[lay].append(time_kernel(call, reps=1 if label == "budget" or turns == 1 else 3,
+                                          warm=label != "budget" or turns > 1))
         differ = [n for n, a, b in zip(names, out[base], out[other]) if not torch.equal(a, b)]
         check(not differ, f"{tag}, {label}: the {other} layout differs from the {base} one "
               f"in {differ}")
         ms = {k: float(np.mean(v)) for k, v in times.items()}
-        waves = -(-B_MAIN // torch.cuda.get_device_properties(0).multi_processor_count)
-        us = {k: 1e3 * v / settings.max_iter / waves for k, v in ms.items()}
+        at_once = {lay: problems_at_once(dataclasses.replace(Geometry.of_ocp(ocp), layout=lay))
+                   for lay in (base, other)}
+        us = {k: 1e3 * v / settings.max_iter / -(-B_MAIN // at_once[k][0]) for k, v in ms.items()}
         entry.update({f"{other}_{label}_ms": ms[other], f"{base}_{label}_ms": ms[base],
                       f"{other}_{label}_bitwise_{base}": True})
         log(f"{phase} {other} against {base} at {tag}, B={B_MAIN}, {settings.max_iter} "
             f"iterations: all {len(names)} outputs bitwise equal "
             f"({int(out[other][6].sum())} problem-iterations); {base} {ms[base]:.3f} ms, "
             f"{other} {ms[other]:.3f} ms ({100 * (ms[other] / ms[base] - 1):+.2f}%; "
-            f"{us[base]:.2f} against {us[other]:.2f} us per iteration per block; runs "
-            f"{times}) on {smi}")
+            f"{us[base]:.2f} us per iteration per {at_once[base][1]} against {us[other]:.2f} per "
+            f"{at_once[other][1]}; runs {times}) on {smi}")
     del sa, args, sc, sx, qp, fac, out
 
 
@@ -2068,7 +2218,7 @@ def split_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     # ---- (b) split against compact at 25 nodes of order 3, bitwise ----
     pl25 = with_transcription(3, 8)
     hold_layouts(pl25, first_qp, "compact", "split", results["structured_admm_25_nodes"],
-                 "phase 22", smi)
+                 "phase 22", smi, turns=1)
     del pl25
 
     # ---- (c) the main path: order 4 x 6 segments ----
@@ -2082,7 +2232,7 @@ def split_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     time_structured_kernels(pl46, first_qp, results, "order4x6", "phase 22", window_err)
     captured_shipping(pl46, cur_all, tgt_all, "order 4 x 6", "order4x6", "phase 22",
                       "headline states, 6 segments of order 4, 25 nodes", results,
-                      ("banded_factor", "structured_admm"), smi)
+                      ("banded_factor", "structured_admm"), smi, turns=1)
     n_good, n_tf, n_fx, summary = fixture_agreement(pl46, ORDER4S6_FIXTURE, dev)
     check(n_good == n_fx, f"order 4 x 6: {n_good}/{n_fx} fixture problems agree")
     log(f"phase 22 JAX fixture at order 4 x 6: {summary}")
@@ -2164,7 +2314,7 @@ def stream_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
         pl = transcription_planner(planner, order, segments)
         check(k3.choose_layout(Geometry.of_ocp(pl.ocp)) == base,
               f"order {order} x {segments} takes the {base} layout")
-        hold_layouts(pl, first_qp, base, "stream", results[entry], "phase 23", smi)
+        hold_layouts(pl, first_qp, base, "stream", results[entry], "phase 23", smi, turns=1)
         del pl
 
     # ---- (b) the main path: 12 segments of order 3 ----
@@ -2180,7 +2330,7 @@ def stream_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     time_structured_kernels(pl12, first_qp, results, "seg12", "phase 23", window_err)
     captured_shipping(pl12, cur_all, tgt_all, "12 segments", "seg12", "phase 23",
                       "headline states, 12 segments of order 3, 37 nodes", results,
-                      ("banded_factor", "structured_admm"), smi)
+                      ("banded_factor", "structured_admm"), smi, turns=1)
     # every final time within 1e-3; the whole agreement (qp_converged too) by
     # phase 19's bar for float32 against a float64 fixture: at 37 nodes the
     # port's plain float32 path also leaves one QP unconverged that the JAX
@@ -2370,7 +2520,7 @@ def ept_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     time_structured_kernels(pl15, first_qp, results, "seg15", "phase 24", window_err)
     captured_shipping(pl15, cur_all, tgt_all, "15 segments", "seg15", "phase 24",
                       "headline states, 15 segments of order 3, 46 nodes", results,
-                      ("banded_factor", "structured_admm"), smi)
+                      ("banded_factor", "structured_admm"), smi, turns=1)
     # phase 23's rule
     n_good, n_tf, n_fx, summary = fixture_agreement(pl15, SEG15_FIXTURE, dev)
     check(n_good >= n_fx - 4 and n_tf == n_fx,
@@ -2472,7 +2622,7 @@ def lean_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
         log(f"phase 25 libraries at {g.nodes} nodes in the lean layout: "
             f"{block_summary(g, kernel2=False)}; {ptxas_report(k3.KERNEL, g)}")
         hold_layouts(pl, first_qp, "stream", "lean", results[f"structured_admm_{suffix}"],
-                     "phase 25", smi)
+                     "phase 25", smi, turns=1)
         del pl
 
     # ---- (b) the main path: 20 segments of order 3 ----
@@ -2493,7 +2643,7 @@ def lean_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     time_structured_kernels(pl20, first_qp, results, "seg20", "phase 25", window_err)
     captured_shipping(pl20, cur_all, tgt_all, "20 segments", "seg20", "phase 25",
                       "headline states, 20 segments of order 3, 61 nodes", results,
-                      ("banded_factor", "structured_admm"), smi)
+                      ("banded_factor", "structured_admm"), smi, turns=1)
     # phase 23's rule
     n_good, n_tf, n_fx, summary = fixture_agreement(pl20, SEG20_FIXTURE, dev)
     check(n_good >= n_fx - 4 and n_tf == n_fx,
@@ -2579,7 +2729,7 @@ def far_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
         # 24 x 3 has no entry of its own in the kernels line (phase 25 (c)
         # holds it without timing it): its times are in the log
         hold_layouts(pl, first_qp, "lean", "far", results.get(f"structured_admm_{suffix}", {}),
-                     "phase 26", smi)
+                     "phase 26", smi, turns=1)
         del pl
 
     # ---- (b) the main path: 25 segments of order 3 ----
@@ -2600,7 +2750,7 @@ def far_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     time_structured_kernels(pl25, first_qp, results, "seg25", "phase 26", window_err)
     captured_shipping(pl25, cur_all, tgt_all, "25 segments", "seg25", "phase 26",
                       "headline states, 25 segments of order 3, 76 nodes", results,
-                      ("banded_factor", "structured_admm"), smi)
+                      ("banded_factor", "structured_admm"), smi, turns=0)
     # phase 23's rule
     n_good, n_tf, n_fx, summary = fixture_agreement(pl25, SEG25_FIXTURE, dev)
     check(n_good >= n_fx - 4 and n_tf == n_fx,
@@ -2704,7 +2854,8 @@ def hand_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     # ---- (b) the main path: the captured shipping solve ----
     captured_shipping(pl, cur, tgt, "the hand", "hand", "phase 27",
                       "headline states, fingers 0.01 -> 0.03 m", results,
-                      ("banded_factor", "structured_admm"), smi, launches=UNFUSED_LAUNCHES)
+                      ("banded_factor", "structured_admm"), smi, launches=UNFUSED_LAUNCHES,
+                      turns=1)
 
     # ---- (c) the JAX fixture, phase 23's rule ----
     n_good, n_tf, n_fx, summary = fixture_agreement(pl, HAND9_FIXTURE, dev)
@@ -2764,10 +2915,10 @@ def deep_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     kernels 2 and 3 against their plain versions (at 121 nodes the full
     solve's iteration counts read, not held: no float32 loop meets the bar
     there) and an eager shipping solve each (5/2/2/0; the hand 0/2/2/0),
-    with ptxas's registers and spill stores. (d) The first
-    geometries past the deep layout, 52 segments of order 3 (157 nodes),
-    order 4 x 34 (137), 9 joints at 37 segments (112) and 10 joints at 30
-    (91): refused naming their bytes, before any build."""
+    with ptxas's registers and spill stores. The first geometries past the
+    deep layout, 52 segments of order 3 (157 nodes), order 4 x 34 (137), 9
+    joints at 37 segments (112) and 10 joints at 30 (91), take the pair
+    layout: phase 30."""
     from mpc_motion_planner_tpu_torch import config
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
@@ -2787,7 +2938,7 @@ def deep_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
         # 31 x 3 has no entry of its own in the kernels line: its times are
         # in the log
         hold_layouts(pl, first_qp, "far", "deep", results.get(f"structured_admm_{suffix}", {}),
-                     "phase 28", smi)
+                     "phase 28", smi, turns=1)
         del pl
 
     # ---- (b) the main path: 32 segments of order 3 ----
@@ -2809,7 +2960,7 @@ def deep_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
                             library_batch=B_MAIN // 2)
     captured_shipping(pl32, cur_all, tgt_all, "32 segments", "seg32", "phase 28",
                       "headline states, 32 segments of order 3, 97 nodes", results,
-                      ("banded_factor", "structured_admm"), smi)
+                      ("banded_factor", "structured_admm"), smi, turns=0)
     # phase 23's rule; where the JAX package's own float32 solve of the
     # fixture's states misses 1e-3 on final times, the port is held to its
     # figure, never below it
@@ -2847,20 +2998,14 @@ def deep_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
         # the plain float32 loop is within 25 iterations of float64 on about
         # half the QPs, median gap 25 (PERF.md §7 question 10), so the counts are
         # read and reported there
-        summary, _ = kernel_checks(pl, first_qp, tag, states, hold_counts=g.nodes < 121)
+        # (the float64 solve's counts, ~20 s at 121 nodes, are not read)
+        summary, _ = kernel_checks(pl, first_qp, tag, states, hold_counts=g.nodes < 121,
+                                   read_float64=False)
         log(f"phase 28 at {tag} (deep layout), {summary}")
         eager_shipping(pl, cur, tgt, f"{tag} ({'headline' if states is None else 'seeded'} "
                        f"states)", suffix, "phase 28", results, launches)
         del pl, cur, tgt, states
 
-    # ---- (d) past every layout: refused naming the bytes ----
-    for order, segments in ((3, 52), (4, 34)):
-        refusal(transcription_planner(planner, order, segments), cur_all[:4], tgt_all[:4],
-                f"order {order} x {segments} segments ({order * segments + 1} nodes)", "phase 28")
-    for nq, segments in ((9, 37), (10, 30)):
-        pl, cur, tgt = chain_planner(planner, nq, fused="off", segments=segments)
-        refusal(pl, cur[:4], tgt[:4], f"{nq} joints, {3 * segments + 1} nodes", "phase 28")
-        del pl, cur, tgt
     torch.cuda.empty_cache()
 
 
@@ -2896,8 +3041,8 @@ def joints_geometries():
     joints in each layout, at the first grid that takes it: 2 segments
     (full), 3 (compact), 4 (split), 5 (stream), 6 (lean: 19 nodes, the main
     path), 9 (far), 12 (deep); and 11 joints at 6 segments (stream, blk 33)
-    and 14 at 6 (far). (c) The first refused grids of 11, 12 and 14
-    joints."""
+    and 14 at 6 (far). The first grids past the deep layout of 11, 12 and
+    14 joints take the pair layout: phase 30."""
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
 
     held = {"19 nodes (full)": Geometry(), "25 nodes (compact)": Geometry(8),
@@ -2908,8 +3053,7 @@ def joints_geometries():
               "split": Geometry(4, 3, 12), "stream": Geometry(5, 3, 12),
               "lean": Geometry(6, 3, 12), "far": Geometry(9, 3, 12), "deep": Geometry(12, 3, 12)}
     others = {"11_joints": Geometry(6, 3, 11), "14_joints": Geometry(6, 3, 14)}
-    refused = (Geometry(25, 3, 11), Geometry(20, 3, 12), Geometry(12, 3, 14))
-    return held, twelve, others, refused
+    return held, twelve, others
 
 
 def joints_builds():
@@ -2921,7 +3065,7 @@ def joints_builds():
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
 
     one = one_row_kernels()
-    held, twelve, others, _ = joints_geometries()
+    held, twelve, others = joints_geometries()
     return ([("structured_admm", kernels.KERNELS["structured_admm"], g)
              for g in (twelve["lean"], others["11_joints"])]
             + [("constraints", kernels.KERNELS["constraints"], Geometry(nq=nq))
@@ -2950,7 +3094,7 @@ def one_row_holds(planner, first_qp, smi) -> None:
     from mpc_motion_planner_tpu_torch.ops import qp_structured
 
     one = one_row_kernels()
-    held, _, _, _ = joints_geometries()
+    held, _, _ = joints_geometries()
     names = ("x", "zc", "zx", "yc", "yx", "done", "iters", "rp", "rd")
     for tag, g in held.items():
         pl = transcription_planner(planner, g.order, g.segments)
@@ -3025,15 +3169,16 @@ def joints_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     ``torch_port_chain12_b64.npz``: final times within 1e-3 relative on no
     fewer states than the JAX package's own float32 solve, ``qp_converged``
     the same on all but 64/32; eager solves of 11 joints and 14 joints at 6
-    segments; the first refused grids of 11, 12 and 14 joints raising before
-    any build, naming their bytes."""
+    segments. (The first grids past the deep layout take the pair layout:
+    phase 30.)"""
     from mpc_motion_planner_tpu_torch import config
     from mpc_motion_planner_tpu_torch.kernels import constraints as k1
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+    from mpc_motion_planner_tpu_torch.ops import qp_structured
 
     dev = cur_all.device
-    held, twelve, others, refused = joints_geometries()
+    held, twelve, others = joints_geometries()
     build_libraries(joints_builds(), "phase 29")
     one_row_holds(planner, first_qp, smi)
 
@@ -3062,6 +3207,14 @@ def joints_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
         log(f"phase 29 (b) at {nq} joints, 19 nodes: {block_summary(g, kernel2=False)}; "
             f"{ptxas_report(k3.KERNEL, g)}; kernel 2: "
             f"{factor_check(pl, first_qp, f'{nq} joints', (cur, tgt))[1]}")
+        # kernel 2 timed with its bound and its library call at B=2048, and
+        # kernel 3's bound at 14 joints (11 joints' with the 12-joint layouts)
+        _, sa, args, sc, sx = first_qp(B_MAIN, pl=pl, states=(cur, tgt))
+        qp = qp_structured.scale_qp(pl.ocp, sa, *args, pl.qp_settings, soft_c=sc, soft_x=sx)
+        time_factor(qp, g, {}, f"{nq} joints, 19 nodes", "phase 29 (b)")
+        if nq == 14:
+            kernel3_timing(pl, first_qp, (cur, tgt), "14 joints, 19 nodes (far)", "phase 29 (b)")
+        del sa, args, sc, sx, qp
     for tag, g in [(f"12 joints, {g.nodes} nodes ({name})", g) for name, g in twelve.items()] \
             + [("11 joints, 19 nodes (stream)", others["11_joints"])]:
         pl, cur, tgt = chain_planner(planner, g.nq, segments=g.segments)
@@ -3076,6 +3229,8 @@ def joints_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
         log(f"phase 29 (b) at {tag}, {summary}")
         if g == twelve["lean"]:
             lean_err = window_err
+        else:  # the main path's bound is time_structured_kernels', (c)
+            kernel3_timing(pl, first_qp, (cur, tgt), tag, "phase 29 (b)")
         del pl, cur, tgt
 
     # ---- (c) the main path: the 12-joint chain at 19 nodes ----
@@ -3091,7 +3246,7 @@ def joints_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     captured_shipping(pl12, cur12, tgt12, "the 12-joint chain", "12_joints", "phase 29 (c)",
                       "the chain's seeded states, 19 nodes", results,
                       ("constraints", "banded_factor", "structured_admm"), smi,
-                      hold_quality=False)
+                      hold_quality=False, turns=1)
     counts = {}
     n_good, n_tf, n_fx, summary = fixture_agreement(pl12, CHAIN12_FIXTURE, dev, counts)
     n_tf32 = jax_float32_final_times(CHAIN12_FIXTURE)
@@ -3109,11 +3264,185 @@ def joints_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
                        f"{nq}_joints", "phase 29 (c)", results)
         del pl, cur, tgt
     chains.clear()
+    torch.cuda.empty_cache()
 
-    # ---- (c) the first refused grids: raising before any build ----
+
+# the eager solves and the kernel-3 timing of phase 30's geometries other
+# than its main path: two waves of the card's 66 clusters of two blocks
+B_PAIR = 132
+
+
+def pair_geometries():
+    """Phase 30's geometries: (a) the pair builds held against the deep ones
+    (32 x 3, 51 x 3 at four elements a thread, 12 joints x 12, two rows a
+    lane), by the suffix of their ``kernels`` entries; (b) the seven that
+    take the pair layout, the main path (52 x 3) first; (d) the first of the
+    Panda's at orders 3 and 4 and of 9, 10, 11, 12 and 14 joints past it."""
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    held = {"seg32": Geometry(32, 3, layout="pair"), "seg51": Geometry(51, 3, layout="pair"),
+            "12_joints_37_nodes": Geometry(12, 3, 12, layout="pair")}
+    takes = {"seg52": Geometry(52, 3), "order4x34": Geometry(34, 4),
+             "9_joints_112_nodes": Geometry(37, 3, 9), "10_joints_91_nodes": Geometry(30, 3, 10),
+             "11_joints_76_nodes": Geometry(25, 3, 11), "12_joints_61_nodes": Geometry(20, 3, 12),
+             "14_joints_37_nodes": Geometry(12, 3, 14)}
+    refused = (Geometry(59, 3), Geometry(42, 4), Geometry(45, 3, 9), Geometry(40, 3, 10),
+               Geometry(35, 3, 11), Geometry(32, 3, 12), Geometry(26, 3, 14))
+    return held, takes, refused
+
+
+def pair_builds():
+    """Phase 30's libraries: kernel 3 in the pair layout where the deep one
+    fits, with the deep builds and kernel 2 at 51 x 3 and 12 joints x 12
+    (32 x 3's are phase 28's), and kernels 2 and 3 at the seven geometries
+    that take it."""
+    from mpc_motion_planner_tpu_torch import kernels
+
+    held, takes, _ = pair_geometries()
+    k2, k3 = kernels.KERNELS["banded_factor"], kernels.KERNELS["structured_admm"]
+    deep = [dataclasses.replace(held[s], layout=None) for s in ("seg51", "12_joints_37_nodes")]
+    return ([("structured_admm", k3, g) for g in held.values()]
+            + [(name, k, g) for g in deep for name, k in (("structured_admm", k3),
+                                                        ("banded_factor", k2))]
+            + [(name, kernels.KERNELS[name], g) for g in takes.values()
+               for name in ("banded_factor", "structured_admm")])
+
+
+def pair_planner(planner, g):
+    """A planner of ``g`` (Geometry of order 3 or 4) as a user sets it, with
+    the shipping QP settings of its node count: the Panda, or the seeded
+    chain of ``g.nq`` joints; and its states (None: the headline's)."""
+    from mpc_motion_planner_tpu_torch import config
+
+    if g.nq == 7:
+        return transcription_planner(planner, g.order, g.segments), None
+    pl, cur, tgt = chain_planner(planner, g.nq, segments=g.segments)
+    pl.qp_settings = config.shipping_qp_settings(pl.ocp.num_nodes)
+    return pl, (cur, tgt)
+
+
+def pair_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
+    """Phase 30: kernel 3's pair layout, the deep layout in a cluster of two
+    blocks a problem (rank 0 all the deep layout holds but the copier's ring,
+    rank 1 the ring and its copier; rank 0 reads the ring's blocks from rank
+    1's shared memory), taken where the deep block does not fit one SM.
+    (a) Built in the pair layout at 32 and 51 segments of order 3 and at 12
+    joints x 12 (where the deep layout fits) against the deep build at
+    B=2048: all nine outputs bitwise at the full budget and at one window,
+    times in turns, with ptxas's registers and spill stores of both. (b) The
+    seven geometries the deep layout refused: 52 x 3 (157 nodes, five
+    elements a thread), order 4 x 34 (137), seeded chains of 9 joints x 37
+    (112), 10 x 30 (91), 11 x 25 (76), 12 x 20 (61) and 14 x 12 (37), with
+    the shipping QP settings of their node counts: their blocks against the
+    Python reckoning (each rank's bytes, the clusters at a time), kernels 2
+    and 3 against their plain versions (``kernel_checks``; at 121 nodes and
+    more the full solve's iteration counts read against the plain float32
+    loop, not held, as phase 28 does), and, but the main path, kernel 3
+    timed and an eager shipping solve of the first B_PAIR states
+    (5/2/2/0). (c) The main path: the Panda at 52 segments of order 3 (157
+    nodes, 3298 variables, 4168 rows) set as a user sets it: kernels 2 and
+    3 timed at B=512 with their bounds and kernel 2's library call (the full
+    solve's iteration counts read against the plain float32 loop, not
+    held), the captured shipping solve of the headline
+    states (5/2/2/0, bitwise its eager solve, quality: from 122 nodes the
+    shipping settings give 900 rescue iterations), and the JAX fixture
+    ``torch_port_seg52_b64.npz`` in the configuration of the JAX float32
+    solve (one refinement step, no rescue iterations): final times within
+    1e-3 relative on no fewer states than that solve, every state in the
+    target box (qp_converged read beside them). (d) The first geometries past the
+    pair layout refused naming each rank's bytes, before any build."""
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    dev = cur_all.device
+    held, takes, refused = pair_geometries()
+    build_libraries(pair_builds(), "phase 30")
+
+    # ---- (a) the pair layout against the deep one, bitwise ----
+    for suffix, g in held.items():
+        pl, states = pair_planner(planner, g)
+        tag = f"{g.nodes} nodes" + (f", {g.nq} joints" if g.nq != 7 else "")
+        check(k3.KERNEL.geometry(Geometry.of_ocp(pl.ocp)).layout == "deep",
+              f"{tag} takes the deep layout")
+        log(f"phase 30 (a) libraries at {tag} in the pair layout: "
+            f"{block_summary(g, kernel2=False)}; {ptxas_report(k3.KERNEL, g)}; the deep build: "
+            f"{ptxas_report(k3.KERNEL, dataclasses.replace(g, layout=None))}")
+        # only 32 x 3 has an entry of its own in the kernels line (phase 28's)
+        hold_layouts(pl, first_qp, "deep", "pair", results.get(f"structured_admm_{suffix}", {}),
+                     "phase 30 (a)", smi, states, turns=1)
+        del pl, states
+
+    # ---- (b) the seven geometries that take the pair layout ----
+    window_err = {}
+    for suffix, g in takes.items():
+        pl, states = pair_planner(planner, g)
+        tag = (f"order {g.order} x {g.segments} segments ({g.nodes} nodes)" if g.nq == 7
+               else f"{g.nq} joints, {g.nodes} nodes")
+        built = k3.KERNEL.geometry(g)
+        check(Geometry.of_ocp(pl.ocp) == g and built.layout == "pair"
+              and built.ept == k3.ept_of(g), f"{tag}: kernel 3 built as {built}")
+        log(f"phase 30 (b) libraries at {tag}, {built.ept} elements a thread, {k3.rows(g)} "
+            f"row(s) a lane, kkt_refine {pl.qp_settings.kkt_refine}, rescue "
+            f"{pl.qp_settings.rescue_iters}: {block_summary(g)}; {ptxas_report(k3.KERNEL, g)}")
+        summary, window_err[suffix] = kernel_checks(pl, first_qp, tag, states,
+                                                     hold_counts=g.nodes < 121,
+                                                     read_float64=False)
+        log(f"phase 30 (b) at {tag} (pair layout), {summary}")
+        if suffix != "seg52":
+            kernel3_timing(pl, first_qp, states, tag, "phase 30 (b)", B_PAIR, plain=False)
+            cur, tgt = states if states is not None else (cur_all, tgt_all)
+            eager_shipping(pl, cur[:B_PAIR], tgt[:B_PAIR],
+                           f"{tag} ({'headline' if states is None else 'seeded'} states)",
+                           suffix, "phase 30 (b)", results)
+            del cur, tgt
+        del pl, states
+
+    # ---- (c) the main path: 52 segments of order 3 ----
+    g52 = takes["seg52"]
+    pl52, _ = pair_planner(planner, g52)
+    ocp = pl52.ocp
+    built = k3.KERNEL.geometry(g52)
+    check((ocp.num_nodes, ocp.num_var, ocp.num_eq + ocp.num_ineq) == (157, 3298, 4168)
+          and (built.layout, built.ept) == ("pair", 5) and k3.threads(g52) == 864
+          and pl52.qp_settings.kkt_refine == 1,
+          f"52 segments: {ocp.num_nodes} nodes, {ocp.num_var} variables, {built}, "
+          f"kkt_refine {pl52.qp_settings.kkt_refine}")
+    # at B=512 (the plain loop takes 43 s at B=2048 on an H100); its
+    # iteration counts read, not held, as at 121 nodes in phase 28
+    time_structured_kernels(pl52, first_qp, results, "seg52", "phase 30 (c)",
+                            window_err["seg52"], batch=B_MAIN // 4, hold_counts=False)
+    captured_shipping(pl52, cur_all, tgt_all, "52 segments", "seg52", "phase 30 (c)",
+                      "headline states, 52 segments of order 3, 157 nodes", results,
+                      ("banded_factor", "structured_admm"), smi, turns=0)
+    # the fixture in the configuration of the JAX float32 solve it holds the
+    # card to: one refinement step and no rescue iterations (as the JAX
+    # float64 solve has none), where the shipping settings give 900
+    pl52.qp_settings = dataclasses.replace(pl52.qp_settings, rescue_iters=0)
+    counts = {}
+    n_good, n_tf, n_fx, summary = fixture_agreement(pl52, SEG52_FIXTURE, dev, counts)
+    n_tf32 = jax_float32_final_times(SEG52_FIXTURE)
+    check(n_tf >= n_tf32 and counts["in_box"] == n_fx,
+          f"52 segments: {n_tf} final times within 1e-3 (the JAX float32 solve {n_tf32}), "
+          f"{counts['in_box']}/{n_fx} in the target box")
+    log(f"phase 30 (c) JAX fixture at 52 segments (kkt_refine 1, no rescue iterations, as the "
+        f"JAX float32 solve): {summary}; final times within 1e-3 relative {n_tf}/{n_fx} (bar: "
+        f"the JAX package's own float32 solve of these states, {n_tf32}/{n_fx}), in the target "
+        f"box {counts['in_box']}/{n_fx} (bar {n_fx}); qp_converged the same "
+        f"{counts['qp_converged']}/{n_fx}, states with a QP the JAX float64 solve converged "
+        f"unconverged here {counts['converged_lost']}, all three {n_good}/{n_fx} (read: float32 "
+        f"against float64 within the 700 / 500 budgets, where a quarter of these QPs stop "
+        f"unconverged)")
+    del pl52, ocp
+
+    # ---- (d) past the pair layout: refused naming the bytes ----
     for g in refused:
-        pl, cur, tgt = chain_planner(planner, g.nq, fused="off", segments=g.segments)
-        refusal(pl, cur[:4], tgt[:4], f"{g.nq} joints, {g.nodes} nodes", "phase 29 (c)")
+        if g.nq == 7:
+            pl, cur, tgt = transcription_planner(planner, g.order, g.segments), cur_all, tgt_all
+            tag = f"order {g.order} x {g.segments} segments ({g.nodes} nodes)"
+        else:
+            pl, cur, tgt = chain_planner(planner, g.nq, fused="off", segments=g.segments)
+            tag = f"{g.nq} joints, {g.nodes} nodes"
+        refusal(pl, cur[:4], tgt[:4], tag, "phase 30 (d)")
         del pl, cur, tgt
     torch.cuda.empty_cache()
 
@@ -3924,18 +4253,17 @@ def run(dev: torch.device) -> None:
 
     del ops, st, D10
     entry_points(planner)
+    # phases 20-30's libraries build in the background from here on, each
+    # phase waiting for its own
+    prebuild([job for builds in (robot_builds, order_builds, split_builds, stream_builds,
+                                 ept_builds, lambda: layout_builds(lean_geometries),
+                                 lambda: layout_builds(far_geometries), deep_builds,
+                                 joints_builds, pair_builds)
+              for job in builds()])
     xla_planner = MotionPlanner(margins=Margins(*MARGINS), dtype=f32, device=dev)
     captured_phases({"structured_pallas": planner, "pallas": dense_planner,
                      "structured": default_planner, "xla": xla_planner},
                     cur_all, tgt_all, first_qp, results, smi)
-
-    # phases 20-29's libraries build in the background meanwhile, each phase
-    # waiting for its own
-    prebuild([job for builds in (robot_builds, order_builds, split_builds, stream_builds,
-                                 ept_builds, lambda: layout_builds(lean_geometries),
-                                 lambda: layout_builds(far_geometries), deep_builds,
-                                 joints_builds)
-              for job in builds()])
     transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi)
     order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi)
@@ -3947,6 +4275,7 @@ def run(dev: torch.device) -> None:
     hand_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     deep_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     joints_phases(planner, cur_all, tgt_all, first_qp, results, smi)
+    pair_phases(planner, cur_all, tgt_all, first_qp, results, smi)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

@@ -40,8 +40,8 @@ another robot, a Panda with its last joints locked (for example
 entries of its joints and the Panda's limits of them, as
 ``profile_solve.py`` takes it), and kernels 1-3 are built for its joint
 count. ``--layout`` (kernel 3) adds the package's source built in that
-shared-memory layout (``full``, ``compact``, ``split``, ``stream``, ``lean``, ``far`` or
-``deep``) as the
+shared-memory layout (``full``, ``compact``, ``split``, ``stream``, ``lean``, ``far``,
+``deep`` or ``pair``) as the
 variant ``layout_<name>``, beside the package build in the layout its
 geometry takes: ``--segments 8 --layout split`` (or ``stream``) holds the
 split (or stream) layout against the compact one where both fit (their
@@ -53,7 +53,12 @@ holds the lean layout against it), ``--segments 20`` one that takes the lean
 layout (61 nodes, 832 threads; ``--layout far`` there holds the far layout
 against it), ``--segments 25`` one that takes the far layout (76 nodes, 1024
 threads; ``--layout deep`` there holds the deep layout against it), ``--segments
-32`` one that takes the deep layout (97 nodes, 864 threads). ``--ept`` (kernel 3)
+32`` one that takes the deep layout (97 nodes, 864 threads; ``--layout pair``
+there holds the pair layout, a cluster of two blocks a problem, against it),
+``--segments 52`` one that takes the pair layout (157 nodes). Kernel 3's
+lines carry a window's µs per iteration per block, or per cluster of two
+blocks in the pair layout, over the waves of problems the card runs at a
+time (``problems_at_once``). ``--ept`` (kernel 3)
 adds the package's source built with that many z elements and rows per
 thread as the variant ``ept_<n>``: ``--segments 12 --ept 2`` holds two
 elements a thread (512 threads) against one (992) where both fit; at
@@ -475,9 +480,17 @@ def main(argv=None) -> int:
             budget=DENSE.max_iter, window=DENSE.check_every, reps=a.reps, batch=a.batch)
         shape = {"budget": DENSE.max_iter, "window": DENSE.check_every}
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, r in results.items():
         built = kernels[name].geometry(geometry)
         layout = {"layout": built.layout, "ept": built.ept} if a.kernel == 3 else {}
+        if a.kernel == 3:
+            # a window's µs per iteration per block, or per cluster of two
+            # blocks (the pair layout), over the waves of problems the card runs
+            at_once = run_with(k3, kernels[name], k3.problems_at_once, built, sms)
+            unit = "cluster" if built.layout in k3.PAIRED else "block"
+            layout.update({"problems_at_once": at_once, f"window_us_per_iteration_per_{unit}":
+                           1e3 * r["window_ms"] / shipping.check_every / -(-a.batch // at_once)})
         print(json.dumps({"kernel": a.kernel, "variant": name, "batch": a.batch,
                           "nodes": ocp.num_nodes, "order": ocp.coll.order, "joints": ocp.nq,
                           **layout, **shape, **r}), flush=True)

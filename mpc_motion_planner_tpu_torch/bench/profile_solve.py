@@ -25,9 +25,11 @@ nodes; ``order=4, num_segments=4``: 17 nodes; ``order=4, num_segments=6``:
 kernel 3 in its stream layout; ``num_segments=15``: 46 nodes, the stream
 layout with two elements a thread; ``num_segments=20``: 61 nodes, the lean
 layout; ``num_segments=25``: 76 nodes, the far layout; ``num_segments=32``:
-97 nodes, the deep layout; default 6 segments of order 3, 19 nodes),
-the shipping path with the QP settings of its node count
-(``config.shipping_qp_settings``: one KKT refinement step from 43 nodes),
+97 nodes, the deep layout; ``num_segments=52``: 157 nodes, the pair layout,
+a cluster of two blocks a problem; default 6 segments of order 3, 19
+nodes), the shipping path with the QP settings of its node count
+(``config.shipping_qp_settings``: one KKT refinement step from 43 nodes,
+rescue iterations from 85),
 and kernels 2 and 3 are built for it. ``--urdf`` plans another
 robot: a Panda with its last joints locked (for example
 ``tests/fixtures/panda_joint7_fixed.urdf``, 6 joints), with the Panda's

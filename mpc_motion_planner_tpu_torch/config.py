@@ -58,16 +58,28 @@ KKT_REFINE_FROM_NODES = 43
 RESCUE_FROM_NODES = 85
 RESCUE_ITERS = 300
 
+# Nodes from which the rescue budget is LONG_RESCUE_ITERS: past 121 nodes,
+# the largest transcription 300 more iterations were measured to carry past
+# 0.98 (the Panda at 157 nodes on the 2048 headline states, one refinement
+# step, float32 on the card: 0.917 converge with 300 more, 0.972 with 600,
+# 0.988 with 900, 0.995 with 1500, at about the same solve time; a second
+# refinement step with 600 more, 0.973; the float64 plain solve of the
+# first 64 states 0.977 with 300 more, 1.0 with 600).
+LONG_RESCUE_FROM_NODES = 122
+LONG_RESCUE_ITERS = 900
+
 
 def shipping_qp_settings(num_nodes: int) -> QPSettings:
     """The shipping QP settings for a transcription of ``num_nodes`` nodes:
     ``SHIPPING_QP_SETTINGS`` with one refinement step on every KKT solve
     from ``KKT_REFINE_FROM_NODES`` up, and ``RESCUE_ITERS`` more iterations
     for the QPs that have not converged within their budget from
-    ``RESCUE_FROM_NODES`` up."""
+    ``RESCUE_FROM_NODES`` up (``LONG_RESCUE_ITERS`` from
+    ``LONG_RESCUE_FROM_NODES``)."""
     if num_nodes < KKT_REFINE_FROM_NODES:
         return SHIPPING_QP_SETTINGS
-    rescue = RESCUE_ITERS if num_nodes >= RESCUE_FROM_NODES else 0
+    rescue = (LONG_RESCUE_ITERS if num_nodes >= LONG_RESCUE_FROM_NODES
+              else RESCUE_ITERS if num_nodes >= RESCUE_FROM_NODES else 0)
     return dataclasses.replace(SHIPPING_QP_SETTINGS, kkt_refine=1, rescue_iters=rescue)
 
 

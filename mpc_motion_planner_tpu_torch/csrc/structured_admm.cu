@@ -91,16 +91,18 @@
 // 3. EPT = 2 past it: 544 at 40 nodes (1,048 rows), 608 at 46, 544 at order
 // 4 x 10 and at 31 nodes and 9 joints, 832 at 61 nodes, 992 at 73, 1024 at
 // 76; EPT = 3 past 2048 (768 threads at 85 nodes, 864 at 97), EPT = 4 past
-// 3072 (832 at 121 nodes, 1024 at 154). A build
+// 3072 (832 at 121 nodes, 1024 at 154), EPT = 5 past 4096 (864 at 157,
+// the pair layout). A build
 // may name another EPT (for holding and timing one against another), and the
 // only operation it changes is the order of the sum of the p row's defect
 // part in the check (block_sum of part), which follows the threads' rows.
 // Then the block's shared memory bounds the geometry (157 nodes of order 3
-// take 233,520 B in the deep layout);
+// take 233,520 B in the deep layout, and 178 nodes 235,232 B in rank 0 of
+// the pair layout);
 // everything else follows the geometry: a band width of BW takes BW - 1
 // helper warps and BW - 1 look-ahead vectors (the sweeps need 2 + BW warps).
 //
-// Shared memory: the build picks one of seven layouts from the geometry
+// Shared memory: the build picks one of eight layouts from the geometry
 // (MPC_SMEM_LAYOUT, kernels/structured_admm.py choose_layout), the first
 // that fits a block (232,448 B). The bytes below are sizeof(Smem), which the Python
 // reckoning (smem_bytes) equals and the library reports
@@ -221,11 +223,44 @@
 //   32 to 51 segments of order 3 (97 to 154 nodes: 233,424 B far, 158,000 B
 //   deep at 97; 229,824 B at 154), order 4 x 22 to x 33, 9 joints at 64 to
 //   109 nodes, 10 joints at 52 to 88.
-// What does not fit even deep could take a cluster of two blocks holding the
-// factors in distributed shared memory, which would put a remote round trip
-// into every block step of the chain (or, with only the helpers' blocks in
-// the partner, take two SMs per problem: 66 problems in flight instead of
-// 132). Registers: 672 threads are 21 warps,
+// * Pair is the deep layout in a cluster of two blocks, one problem a
+//   cluster: rank 0 holds everything deep holds but the copier's ring and
+//   runs every warp deep runs but the copier; rank 1 holds the ring (its
+//   slots and the barriers its bulk copies complete on, struct Peer) and
+//   runs the copier. Rank 0's chain and helpers read each ring block they
+//   need from rank 1's shared memory (distributed shared memory, through the
+//   mapped generic address, pair_slots) where and when deep reads it: the
+//   warp copies it with 16-byte loads into a staging buffer of its own
+//   (stage_block; a row a lane read from the peer would touch 21 places of
+//   it) and reads it there as deep reads its ring, so the products keep
+//   their terms and order and where both fit pair gives deep's results,
+//   bitwise. A block waits only on barriers in its own shared memory, so a
+//   relay (lane 0 of the warp after rank 1's copier) waits on each copy's
+//   barrier in copy order and then arrives, with release at cluster scope,
+//   on a barrier of the same slot in rank 0 (pair_bars), on which rank 0's
+//   readers wait with acquire at cluster scope; the parity they wait for is
+//   deep's (ring_copy_count). The helper of distance 2 publishes its steps
+//   in rank 0 as in deep, and rank 0's otherwise idle copier warp forwards
+//   them into rank 1's progress count (forward_progress), which the copier
+//   and the relay follow as deep's copier does; the copies go LEAD = 4 steps
+//   ahead, two more than deep's, for the two hops. Where rank 0's loop ends
+//   (its problem done, frozen, or the dispatch's iterations run) it sets
+//   rank 1's stop flag, and the copier and the relay leave at the first copy
+//   whose step never comes. Both ranks leave a launch through one cluster
+//   barrier, and rank 0 reads rank 1 only after a first one that follows
+//   both ranks' barrier initialisation; a problem done on entry leaves both
+//   blocks at once, neither touching the other. Every block of a launch has
+//   the larger rank's shared memory (SMEM_BYTES). 52 to 58 segments of order
+//   3 (157 to 175 nodes, five elements a thread: 233,520 B deep, rank 0
+//   208,752 B, rank 1 49,680 B at 157), order 4 x 34 to x 41, 9 joints at
+//   112 to 133 nodes, 10 at 91 to 118, 11 at 76 to 103, 12 at 61 to 94 and
+//   14 at 37 to 76 (rank 1 197,856 B, the larger). Order 4 at 14 joints
+//   takes it nowhere: its ring of eight slots of four blocks fits no block.
+//   The launch names the cluster (cudaLaunchKernelEx): a cluster the card
+//   cannot place is refused and runs nothing. Measured (chip_smoke.py phase
+//   30, B=2048, NVIDIA H100 80GB HBM3 at 700 W), where deep also fits: all
+//   nine outputs bitwise deep's, 66 clusters at a time against 132 blocks.
+// Registers: 672 threads are 21 warps,
 // six of them on one of the SM's four schedulers, whose quarter of the
 // register file (16K) then allows 80 registers per thread; ptxas -v reports
 // 72 B of spill stores for the 25-node build, none at 19 nodes (99
@@ -254,8 +289,11 @@
 // 1,064 and 908 B; 9 joints at 49 nodes (832) 72 and 32, 1,860 and 3,056 B;
 // 10 joints at 40 nodes (768) 80 and 40, 1,868 and 2,988 B (phase 26).
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
 using namespace mpc;
 
 namespace {
@@ -284,12 +322,14 @@ constexpr int NAHEAD = BW - 1;             // look-ahead distances 2..BW
 constexpr int NAHEAD_BUF = NAHEAD > 0 ? NAHEAD : 1;
 
 // the shared-memory layouts (the header says which geometry takes which)
-enum Layout { FULL = 0, COMPACT = 1, SPLIT = 2, STREAM = 3, LEAN = 4, FAR = 5, DEEP = 6 };
+enum Layout { FULL = 0, COMPACT = 1, SPLIT = 2, STREAM = 3, LEAN = 4, FAR = 5, DEEP = 6, PAIR = 7 };
 constexpr int LAYOUT = MPC_SMEM_LAYOUT;
-static_assert(LAYOUT >= FULL && LAYOUT <= DEEP, "a layout of common.cuh");
+static_assert(LAYOUT >= FULL && LAYOUT <= PAIR, "a layout of common.cuh");
 constexpr bool PACKED_LDI = LAYOUT != FULL;
-// deep: Ldi goes through the ring with Lsub, a node's block with its run
-constexpr bool LDI_RINGED = LAYOUT == DEEP;
+// pair: the deep layout in a cluster of two blocks, the ring in rank 1
+constexpr bool PAIRED = LAYOUT == PAIR;
+// deep and pair: Ldi goes through the ring with Lsub, a node's block with its run
+constexpr bool LDI_RINGED = LAYOUT == DEEP || PAIRED;
 // far and deep: J out of shared memory
 constexpr bool J_OUT = LAYOUT == FAR || LDI_RINGED;
 // lean, far and deep: the owner-only vectors out of shared memory
@@ -307,11 +347,17 @@ constexpr bool STREAMED = LAYOUT == STREAM || OWNERS_OUT;
 // layout, whose chain fetches Ldi_m a step before step m. RING is the fewest
 // runs for which no copy overwrites a run still to be read: BW + AHEAD - 2
 // in the split, one more in the others, whose chain reads a run one step
-// after the helper of distance 2 in the backward sweep (ring_step).
+// after the helper of distance 2 in the backward sweep (ring_step). The pair
+// layout copies LEAD = 4 steps ahead (two slots more, in rank 1): a copy
+// there reaches rank 0's readers through the progress forwarder and the
+// relay, two hops more than in the deep layout, and at a lead of 2 its
+// readers waited for it (kernel 3 at 32 x 3 and 25 iterations, B=2048,
+// NVIDIA H100 80GB HBM3 at 700 W: 398 ms at a lead of 2, 322 ms at 4, 305
+// ms with no wait at all).
 constexpr bool RINGED = LAYOUT == SPLIT || STREAMED;
 static_assert(!RINGED || BW >= 2, "the helper of distance 2 paces the ring's copier");
 constexpr int RUN0 = STREAMED ? 0 : 1;  // a run starts at L[m+1+RUN0,m]
-constexpr int LEAD = 2;
+constexpr int LEAD = PAIRED ? 4 : 2;
 constexpr int AHEAD = LEAD + LDI_RINGED;
 constexpr int RING = BW + AHEAD - 1 - RUN0;
 constexpr int RUN = (BW - RUN0) * BLK2;
@@ -328,12 +374,26 @@ constexpr int RING0 = RING < LAST_COPY + 1 ? RING : LAST_COPY + 1;  // runs copi
 constexpr int NCOPY = LAST_COPY + 1 - RING > 0 ? LAST_COPY + 1 - RING : 0;
 // the distance-1 blocks L[k,k-1] that stay in shared memory (the split's)
 constexpr int D1_FLOATS = LAYOUT == SPLIT ? (N - 1) * BLK2 : 0;
+// The pair layout's rank 0 reads each ring block it needs from rank 1 into a
+// staging buffer of its own warp (stage_block: 16-byte loads that a warp
+// issues together, where the sweeps' own loads, a row of a block a lane,
+// would each touch 21 places of the peer's memory), and the sweeps read it
+// there as the other layouts read their ring: a buffer of STAGE floats (a
+// block from its 16-byte boundary) for each chain warp's Ldi and L blocks and
+// for each helper's block. PAIR_HEAD: the barriers of the ring's slots (2
+// floats each) and the progress count, to a 16-byte boundary.
+constexpr int STAGE = (BLK2 + 6) / 4 * 4;
+constexpr int STAGE_BUFS = 4 + NAHEAD;
+constexpr int PAIR_HEAD = (RING * 2 + 1 + 3) / 4 * 4;
 // floats of Lsub in shared memory: all blocks; those up to L[N-1,N-2]; or
 // (split, stream, lean, far, deep) the resident distance-1 blocks, up to 3
 // floats to a 16-byte boundary, the ring, its barriers (8 bytes each) and the
-// copier's progress count
+// copier's progress count; or (pair, rank 0) up to 3 floats to a 16-byte
+// boundary, a barrier per slot, which rank 1's relay arrives on, the progress
+// count and the staging buffers
 constexpr int LSUB_FLOATS = LAYOUT == FULL      ? N * BW * BLK2
                             : LAYOUT == COMPACT ? LSUB_USED * BLK2
+                            : PAIRED            ? 3 + PAIR_HEAD + STAGE_BUFS * STAGE
                                                 : D1_FLOATS + 3 + RING * (STRIDE + 2) + 1;
 // The owner-only vectors: 16 z and m vectors are read and written only by
 // the thread that owns the element or row, the launch's constants qs, Ps,
@@ -403,9 +463,22 @@ struct Smem {
   float p, s;
   int done;
 };
-static_assert(sizeof(Smem) <= SMEM_LIMIT, "shared memory of one block: the build's layout");
-// split, stream, lean, far and deep: where the ring starts in Lsub, the first 16-byte
-// boundary of the block's shared memory after the resident distance-1 blocks
+// The pair layout's rank 1: the ring's slots (each 16-byte aligned), the
+// barriers its copies complete on, the steps the helper of distance 2 in rank
+// 0 has finished and rank 0's stop flag.
+struct Peer {
+  float slots[RING * STRIDE];
+  unsigned long long bar[RING];
+  unsigned progress, stop;
+};
+static_assert(offsetof(Peer, stop) == offsetof(Peer, progress) + 4, "the stop flag follows");
+// dynamic shared memory of every block of a launch: the larger rank's (pair)
+constexpr int SMEM_BYTES =
+    PAIRED && sizeof(Peer) > sizeof(Smem) ? (int)sizeof(Peer) : (int)sizeof(Smem);
+static_assert(SMEM_BYTES <= SMEM_LIMIT, "shared memory of one block: the build's layout");
+// split, stream, lean, far, deep and pair: where the ring (pair: rank 0's
+// barriers) starts in Lsub, the first 16-byte boundary of the block's shared
+// memory after the resident distance-1 blocks
 constexpr int LSUB_AT = (int)offsetof(Smem, Lsub) / 4;
 constexpr int RING_AT = (LSUB_AT + D1_FLOATS + 3) / 4 * 4 - LSUB_AT;
 
@@ -661,9 +734,10 @@ __device__ __forceinline__ void load_ldi(float (&M)[BLK], const Smem& sm, int k,
 struct Ring {
   const float* lsub;  // the problem's Lsub in device memory (B, N, BW, BLK, BLK)
   const float* ldi;   // the problem's Ldi in device memory (B, N, BLK, BLK): deep
-  float* slots;       // slot 0
-  unsigned bar;       // the shared address of slot 0's barrier
+  float* slots;       // slot 0 (pair, rank 0: in rank 1, a generic address)
+  unsigned bar;       // the shared address of slot 0's barrier (pair: in this block)
   unsigned progress;  // the shared address of the steps the helper of distance 2 finished
+                      // (pair, rank 0: in rank 1, a shared::cluster address)
   int lo, hi;         // the nodes whose runs the ring holds
   unsigned parity;    // bit s: the phase parity of slot s's last copy
   unsigned phases;    // bits 2s, 2s+1: where slot s's run starts after its boundary
@@ -676,6 +750,46 @@ struct Ring {
 // that issues it for hundreds of cycles, which no sweep warp can spare.
 constexpr int COPIER = SWEEP_WARPS;
 static_assert(!RINGED || NWARP > COPIER, "a warp for the copier");
+// The pair layout's relay: lane 0 of the warp after the copier, in rank 1.
+constexpr int RELAY = COPIER + 1;
+static_assert(!PAIRED || NWARP > RELAY, "a warp for the relay");
+
+// ---- the pair layout: a cluster of two blocks ----
+
+// This block's rank in its cluster.
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// Every thread of both blocks arrives, and waits for all the others: what
+// each wrote before it is seen after it (threads need not be converged).
+__device__ __forceinline__ void pair_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The shared::cluster address in block `rank` of the byte at offset `at` of
+// the dynamic shared memory (the same offset in both blocks of a pair).
+__device__ __forceinline__ unsigned peer_address(const void* base, unsigned at, unsigned rank) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(a)
+               : "r"((unsigned)__cvta_generic_to_shared(base) + at), "r"(rank));
+  return a;
+}
+
+// A 32-bit word of the peer's shared memory, written with release at cluster
+// scope, and one of this block's, read with acquire at cluster scope.
+__device__ __forceinline__ void store_release_cluster(unsigned a, unsigned v) {
+  asm volatile("st.release.cluster.shared::cluster.u32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+}
+__device__ __forceinline__ unsigned load_acquire_cluster(unsigned a) {
+  unsigned v;
+  asm volatile("ld.acquire.cluster.shared::cta.u32 %0, [%1];" : "=r"(v) : "r"(a) : "memory");
+  return v;
+}
 
 // One bulk copy of the tensor memory accelerator into shared address dst,
 // completing on the barrier at shared address bar.
@@ -728,14 +842,67 @@ __device__ __forceinline__ void ring_copy(Ring& r, int warp, int lane, int m) {
 }
 
 // Wait until the phase of the barrier at shared address bar whose parity is
-// given has completed.
+// given has completed (pair: with acquire at cluster scope, since rank 0's
+// barriers complete on the arrivals of rank 1's relay).
 __device__ __forceinline__ void barrier_wait(unsigned bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}" ::"r"(bar),
-      "r"(parity)
-      : "memory");
+  if constexpr (PAIRED)
+    asm volatile(
+        "{\n.reg .pred p;\nWAIT:\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+        "@!p bra WAIT;\n}" ::"r"(bar),
+        "r"(parity)
+        : "memory");
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nWAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+        "@!p bra WAIT;\n}" ::"r"(bar),
+        "r"(parity)
+        : "memory");
+}
+
+// The pair layout's rank 0: the ring's slots in rank 1's shared memory (the
+// generic address of the same offset there), and the barriers in this block's
+// that rank 1's relay arrives on.
+__device__ __forceinline__ const float* pair_slots(const Smem& sm) {
+  return cg::this_cluster().map_shared_rank(reinterpret_cast<const Peer*>(&sm)->slots, 1);
+}
+
+__device__ __forceinline__ unsigned pair_bars(const Smem& sm) {
+  return (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT);
+}
+
+// Pair, rank 0: the block at blk (in rank 1) into staging buffer j of this
+// block: the calling warp copies it from its 16-byte boundary in 16-byte
+// loads, four a lane at a time so that their round trips overlap, and
+// returns where it lies in the buffer. Buffer 2w is chain warp w's block of
+// Lsub, 2w + 1 its Ldi block, 4 + d - 2 the helper of distance d's block.
+constexpr int STAGE_PER_LANE = (STAGE / 4 + 31) / 32;
+__device__ __forceinline__ const float* stage_block(unsigned bars, int j, const float* blk) {
+  // the buffers follow the barriers and the progress count (PAIR_HEAD floats)
+  float4* buf = reinterpret_cast<float4*>(
+      __cvta_shared_to_generic(bars + 4 * (PAIR_HEAD + j * STAGE)));
+  const int lane = threadIdx.x & 31;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(blk);
+  const float4* src = reinterpret_cast<const float4*>(a & ~uintptr_t(15));
+  const int off = (int)(a & 15) / 4, n = (off + BLK2 + 3) / 4;
+  __syncwarp();  // every lane has read the buffer's last block
+#pragma unroll
+  for (int c = 0; c < STAGE_PER_LANE; c += 4) {
+    float4 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q = lane + 32 * (c + i);
+      if (c + i < STAGE_PER_LANE && q < n) v[i] = src[q];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q = lane + 32 * (c + i);
+      if (c + i < STAGE_PER_LANE && q < n) buf[q] = v[i];
+    }
+  }
+  __syncwarp();
+  return reinterpret_cast<const float*>(buf) + off;
 }
 
 // Wait until slot s's last copy has landed.
@@ -747,16 +914,38 @@ __device__ __forceinline__ void ring_wait(const Ring& r, int s) {
 __device__ __forceinline__ const float* ring_block(const Ring& r, int m, int b) {
   const int s = m % RING;
   ring_wait(r, s);
-  return r.slots + s * STRIDE + ((r.phases >> 2 * s) & 3u) + b * BLK2;
+  const float* blk = r.slots + s * STRIDE + ((r.phases >> 2 * s) & 3u) + b * BLK2;
+  if constexpr (PAIRED) return stage_block(r.bar, 4 + (int)(threadIdx.x >> 5) - CHAIN_WARPS, blk);
+  return blk;
+}
+
+// Pair, rank 1's relay: once slot s's last copy has landed on this block's
+// barrier, arrive on rank 0's barrier of the slot (at the offset of rank 0's
+// pair_bars; rank 1's slots start its shared memory), with release at
+// cluster scope, so that rank 0's readers may read the slot.
+__device__ __forceinline__ void relay_signal(const Ring& r, int s) {
+  ring_wait(r, s);
+  const unsigned full = peer_address(r.slots, offsetof(Smem, Lsub) + 4 * RING_AT, 0);
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(full + 8 * s)
+               : "memory");
 }
 
 // Once at the start of a launch, by the warps that keep the ring's state
 // (the helpers and the copier): the state, the barriers, and the runs of
 // nodes 0..RING-1 (those a sweep reads).
+// In the pair layout this is rank 0's: its helpers keep the state, with the
+// slots in rank 1; its copier warp initialises the barriers rank 1's relay
+// arrives on and the progress count, which it forwards to rank 1
+// (forward_progress), and copies nothing (peer_block).
 __device__ __forceinline__ void ring_start(Smem& sm, Ring& r, int warp, int lane) {
   if ((warp < CHAIN_WARPS || warp >= CHAIN_WARPS + NAHEAD) && warp != COPIER) return;
-  r.slots = sm.Lsub + RING_AT;
-  r.bar = (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT + RING * STRIDE);
+  if constexpr (PAIRED) {
+    r.slots = const_cast<float*>(pair_slots(sm));
+    r.bar = pair_bars(sm);
+  } else {
+    r.slots = sm.Lsub + RING_AT;
+    r.bar = (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT + RING * STRIDE);
+  }
   r.progress = r.bar + 8 * RING;
   r.lo = 0;
   r.hi = RING0 - 1;
@@ -769,6 +958,7 @@ __device__ __forceinline__ void ring_start(Smem& sm, Ring& r, int warp, int lane
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncwarp();
+  if (PAIRED && warp == COPIER) return;
   for (int m = 0; m <= r.hi; ++m) ring_copy(r, warp, lane, m);
 }
 
@@ -799,20 +989,39 @@ __device__ __forceinline__ void ring_end(const Ring& r, int warp) {
 // finished step t, after the sweep's barrier of step t, before which every
 // read of the evicted run came; past one row a lane, where every read comes
 // a step later (chain_sweep_late), once it finished step t + 1 (LATE). An iteration copies 2 (N - 2 - BW) runs in
-// every layout (40 at 25 nodes of order 3), as RING - 1 - RUN0 = BW - 1
-// holds (deep: RING = BW + 2 with LAST_COPY = N - 1). kernels/
+// every layout but the pair (40 at 25 nodes of order 3), as RING - 1 - RUN0 = BW - 1
+// holds (deep: RING = BW + 2 with LAST_COPY = N - 1); the pair layout, 2 (N -
+// LEAD - BW) with RING = BW + LEAD. kernels/
 // structured_admm.py ring_schedule models this schedule step by step and
 // tests/test_torch_geometry.py holds it.
+//
+// The pair layout keeps this schedule: the helper of distance 2 publishes
+// its steps in rank 0 as here, rank 0's copier warp forwards them into rank
+// 1 (forward_progress), where the copier waits for them, and so does the
+// relay, which then waits for the copy to land and arrives on rank 0's
+// barrier of its slot; each waits until the step comes or rank 0 has stopped
+// (ring_step returns false: the copy is never needed).
 template <bool FWD>
-__device__ __forceinline__ void ring_step(Ring& r, int warp, int lane, int t) {
+__device__ __forceinline__ bool ring_step(Ring& r, int warp, int lane, int t) {
   const int m = FWD ? t + AHEAD : N - 1 - t - LEAD - BW;
   const bool copy = FWD ? m <= LAST_COPY && m > r.hi : m >= 0 && m < r.lo;
   ++r.steps;
   if (warp == CHAIN_WARPS && lane == 0)
     asm volatile("st.release.cta.shared.u32 [%0], %1;" ::"r"(r.progress), "r"(r.steps)
                  : "memory");
-  if (!copy) return;
-  if (warp == COPIER && lane == 0) {
+  if (!copy) return true;
+  if constexpr (PAIRED) {
+    if ((warp == COPIER || warp == RELAY) && lane == 0) {
+      for (;;) {
+        // the stop flag (the word after the progress count, struct Peer)
+        // first: once it is set, the progress count is final
+        const unsigned stop = load_acquire_cluster(r.progress + 4);
+        if ((int)load_acquire_cluster(r.progress) >= r.steps + LATE) break;
+        if (stop) return false;
+        __nanosleep(64);
+      }
+    }
+  } else if (warp == COPIER && lane == 0) {
     unsigned done;
     for (;;) {
       asm volatile("ld.acquire.cta.shared.u32 %0, [%1];"
@@ -824,6 +1033,7 @@ __device__ __forceinline__ void ring_step(Ring& r, int warp, int lane, int t) {
     }
   }
   ring_copy(r, warp, lane, m);
+  if (PAIRED && warp == RELAY && lane == 0) relay_signal(r, m % RING);
   if (FWD) {
     r.hi = m;
     r.lo = max(r.lo, m - RING + 1);
@@ -831,13 +1041,17 @@ __device__ __forceinline__ void ring_step(Ring& r, int warp, int lane, int t) {
     r.lo = m;
     r.hi = min(r.hi, m + RING - 1);
   }
+  return true;
 }
 
 // The copier's part of a sweep: the ring's state, step by step, with the
-// copies.
+// copies (pair, rank 1: the copier's or the relay's; false once rank 0 has
+// stopped).
 template <bool FWD>
-__device__ __forceinline__ void copier_sweep(Ring& r, int warp, int lane) {
-  for (int t = 0; t < N; ++t) ring_step<FWD>(r, warp, lane, t);
+__device__ __forceinline__ bool copier_sweep(Ring& r, int warp, int lane) {
+  for (int t = 0; t < N; ++t)
+    if (!ring_step<FWD>(r, warp, lane, t)) return false;
+  return true;
 }
 
 // The helper of distance DIST's block at step t: row or column rr of
@@ -878,7 +1092,14 @@ __device__ __forceinline__ int ring_copy_count(int m, int pairs) {
 // pairs of sweeps done.
 template <bool FWD>
 __device__ __forceinline__ const float* lsub_d1(const Smem& sm, const Ring& r, int j) {
-  if constexpr (STREAMED) {
+  if constexpr (PAIRED) {
+    const int s = j % RING;
+    barrier_wait(pair_bars(sm) + 8 * s, (unsigned)(ring_copy_count<FWD>(j, r.pairs) - 1) & 1u);
+    const float* src = r.lsub + j * BW * BLK2;
+    return stage_block(pair_bars(sm), 2 * (int)(threadIdx.x >> 5),
+                       pair_slots(sm) + s * STRIDE +
+                           ((unsigned)(__cvta_generic_to_global(src) >> 2) & 3u));
+  } else if constexpr (STREAMED) {
     const int s = j % RING;
     const unsigned bar = (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT + RING * STRIDE);
     barrier_wait(bar + 8 * s, (unsigned)(ring_copy_count<FWD>(j, r.pairs) - 1) & 1u);
@@ -897,11 +1118,20 @@ template <bool FWD>
 __device__ __forceinline__ void ldi_take(float (&M)[BLK], const Smem& sm, const Ring& r, int k,
                                          int rr) {
   const int s = k % RING;
-  const unsigned bar = (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT + RING * STRIDE);
-  barrier_wait(bar + 8 * s, (unsigned)(ring_copy_count<FWD>(k, r.pairs) - 1) & 1u);
-  const float* src = r.ldi + k * BLK2;
-  const float* blk = sm.Lsub + RING_AT + s * STRIDE + SLOT +
-                     ((unsigned)(__cvta_generic_to_global(src) >> 2) & 3u);
+  const float* blk;
+  if constexpr (PAIRED) {
+    barrier_wait(pair_bars(sm) + 8 * s, (unsigned)(ring_copy_count<FWD>(k, r.pairs) - 1) & 1u);
+    const float* src = r.ldi + k * BLK2;
+    blk = stage_block(pair_bars(sm), 2 * (int)(threadIdx.x >> 5) + 1,
+                      pair_slots(sm) + s * STRIDE + SLOT +
+                          ((unsigned)(__cvta_generic_to_global(src) >> 2) & 3u));
+  } else {
+    const unsigned bar = (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT + RING * STRIDE);
+    barrier_wait(bar + 8 * s, (unsigned)(ring_copy_count<FWD>(k, r.pairs) - 1) & 1u);
+    const float* src = r.ldi + k * BLK2;
+    blk = sm.Lsub + RING_AT + s * STRIDE + SLOT +
+          ((unsigned)(__cvta_generic_to_global(src) >> 2) & 3u);
+  }
 #pragma unroll
   for (int i = 0; i < BLK; ++i) {
     if (FWD) M[i] = i <= rr ? blk[rr * BLK + i] : 0.f;
@@ -1051,7 +1281,14 @@ __device__ __forceinline__ float dot_block(const float* blk, int rr, const float
 // ring once its copy has landed (found as ldi_take finds it).
 template <bool FWD>
 __device__ __forceinline__ const float* ldi_block(const Smem& sm, const Ring& r, int k) {
-  if constexpr (LDI_RINGED) {
+  if constexpr (PAIRED) {
+    const int s = k % RING;
+    barrier_wait(pair_bars(sm) + 8 * s, (unsigned)(ring_copy_count<FWD>(k, r.pairs) - 1) & 1u);
+    const float* src = r.ldi + k * BLK2;
+    return stage_block(pair_bars(sm), 2 * (int)(threadIdx.x >> 5) + 1,
+                       pair_slots(sm) + s * STRIDE + SLOT +
+                           ((unsigned)(__cvta_generic_to_global(src) >> 2) & 3u));
+  } else if constexpr (LDI_RINGED) {
     const int s = k % RING;
     const unsigned bar = (unsigned)__cvta_generic_to_shared(sm.Lsub + RING_AT + RING * STRIDE);
     barrier_wait(bar + 8 * s, (unsigned)(ring_copy_count<FWD>(k, r.pairs) - 1) & 1u);
@@ -1219,6 +1456,24 @@ __device__ __forceinline__ void helper_or_finish(Smem& sm, Ring& r, int warp, in
   }
 }
 
+// Pair, rank 0's copier warp (lane 0) through a pair of sweeps: the steps the
+// helper of distance 2 publishes in this block (ring_step), forwarded into
+// rank 1's progress count with release at cluster scope, until both sweeps'
+// steps are there. So no sweep warp pays for a release at cluster scope.
+__device__ __forceinline__ void forward_progress(const Smem& sm, Ring& r, int lane) {
+  r.steps += 2 * N;
+  if (lane != 0) return;
+  const unsigned to = peer_address(&sm, offsetof(Peer, progress), 1);
+  unsigned sent = ~0u;
+  for (;;) {
+    unsigned done;
+    asm volatile("ld.acquire.cta.shared.u32 %0, [%1];" : "=r"(done) : "r"(r.progress) : "memory");
+    if (done != sent) store_release_cluster(to, sent = done);
+    if ((int)done >= r.steps) return;
+    __nanosleep(32);
+  }
+}
+
 // xt = M^-1 rhs and dx = D xt (CORRECTION: xt += M^-1 rhs), by the sweep warps
 template <bool REFINE, bool CORRECTION>
 __device__ __forceinline__ void solve_sweeps(Smem& sm, Ring& r, int warp, int lane,
@@ -1232,8 +1487,12 @@ __device__ __forceinline__ void solve_sweeps(Smem& sm, Ring& r, int warp, int la
       chain_sweep<false>(sm, r, lane, warp);
     }
   } else if (RINGED && warp == COPIER) {
-    copier_sweep<true>(r, warp, lane);
-    copier_sweep<false>(r, warp, lane);
+    if constexpr (PAIRED) {
+      forward_progress(sm, r, lane);  // rank 1 copies (peer_block)
+    } else {
+      copier_sweep<true>(r, warp, lane);
+      copier_sweep<false>(r, warp, lane);
+    }
   } else {
     helper_or_finish<REFINE, CORRECTION, 2>(sm, r, warp, lane, sigma);
   }
@@ -1244,18 +1503,56 @@ __device__ __forceinline__ void copy(float* dst, const float* src) {
   for (int e = threadIdx.x; e < LEN; e += NT) dst[e] = src[e];
 }
 
+// The pair layout's rank 1 (struct Peer): the copier (lane 0 of warp
+// COPIER) and the relay (lane 0 of warp RELAY), each with its own copy of the
+// ring's state, run rank 0's sweeps until rank 0 stops; every other thread
+// waits at the closing cluster barrier.
+__device__ __forceinline__ void peer_block(Peer& pr, const Ptrs& g, int b, int warp, int lane) {
+  Ring r{g.Lsub + (size_t)b * N * BW * BLK2, g.Ldi + (size_t)b * N * BLK2};
+  r.slots = pr.slots;
+  r.bar = (unsigned)__cvta_generic_to_shared(pr.bar);
+  r.progress = (unsigned)__cvta_generic_to_shared(&pr.progress);
+  r.lo = 0;
+  r.hi = RING0 - 1;
+  r.parity = r.phases = 0;
+  r.steps = 0;
+  const bool copier = warp == COPIER && lane == 0, relay = warp == RELAY && lane == 0;
+  if (copier) {
+    asm volatile("st.shared.u32 [%0], 0;" ::"r"(r.progress) : "memory");
+    asm volatile("st.shared.u32 [%0], 0;" ::"r"(r.progress + 4) : "memory");
+    for (int s = 0; s < RING; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(r.bar + 8 * s) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  pair_sync();  // both blocks' barriers and counts are initialised
+  if (copier || relay) {
+    // ring_start's copies, then rank 0's pairs of sweeps
+    for (int m = 0; m <= r.hi; ++m) {
+      ring_copy(r, warp, lane, m);
+      if (relay) relay_signal(r, m % RING);
+    }
+    while (copier_sweep<true>(r, warp, lane) && copier_sweep<false>(r, warp, lane)) {
+    }
+    if (copier) ring_end(r, warp);
+  }
+  pair_sync();  // rank 0 reads nothing here any more, and nothing here signals it
+}
+
 template <bool REFINE>
 __global__ void __launch_bounds__(NT)
 structured_admm_kernel(Params P, Ptrs g) {
   extern __shared__ float4 smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int b = blockIdx.x;
+  // the problem: the block's, or (pair) its cluster's
+  const int b = PAIRED ? blockIdx.x / 2 : blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t zo = (size_t)b * NV, mo = (size_t)b * NM;
   // this thread's z elements and constraint rows, tid + q NT for q < EPT,
   // for the whole launch (an element past NV, or a row past NM, is none)
   if (g.done0[b] != 0) {
-    // done on entry: the state passes through
+    // done on entry: the state passes through (pair: rank 0's work; neither
+    // block touches the other's shared memory)
+    if (PAIRED && cluster_rank() != 0) return;
 #pragma unroll
     for (int q = 0; q < EPT; ++q) {
       const int e = tid + q * NT;
@@ -1277,6 +1574,12 @@ structured_admm_kernel(Params P, Ptrs g) {
     }
     return;
   }
+  if constexpr (PAIRED) {
+    if (cluster_rank() != 0) {
+      peer_block(*reinterpret_cast<Peer*>(smem_raw), g, b, warp, lane);
+      return;
+    }
+  }
   ZElem ze[EPT];
   MRow mr[EPT];
 #pragma unroll
@@ -1287,8 +1590,9 @@ structured_admm_kernel(Params P, Ptrs g) {
 
   Ring ring{g.Lsub + (size_t)b * N * BW * BLK2, g.Ldi + (size_t)b * N * BLK2};
   if constexpr (RINGED) ring_start(sm, ring, warp, lane);
+  if constexpr (PAIRED) pair_sync();  // both blocks' barriers and counts are initialised
   if constexpr (LDI_RINGED) {
-    // the deep layout's Ldi comes through the ring (ring_copy)
+    // the deep and pair layouts' Ldi comes through the ring (ring_copy)
   } else if constexpr (PACKED_LDI) {
     const float* src = g.Ldi + (size_t)b * N * BLK2;
     for (int e = tid; e < N * BLK2; e += NT) {
@@ -1541,7 +1845,12 @@ structured_admm_kernel(Params P, Ptrs g) {
     }
   }
 
-  if constexpr (RINGED) ring_end(ring, warp);
+  if constexpr (PAIRED) {
+    // rank 1's copier and relay leave at the first copy whose step never comes
+    if (tid == 0) store_release_cluster(peer_address(&sm, offsetof(Peer, stop), 1), 1u);
+  } else if constexpr (RINGED) {
+    ring_end(ring, warp);
+  }
 #pragma unroll
   for (int q = 0; q < EPT; ++q) {
     const int e = tid + q * NT;
@@ -1562,19 +1871,27 @@ structured_admm_kernel(Params P, Ptrs g) {
     g.rp[b] = rp;
     g.rd[b] = rd;
   }
+  if constexpr (PAIRED) pair_sync();  // rank 1 reads and signals nothing here any more
 }
 
 }  // namespace
 
-// Bytes of shared memory a block takes (in the layout of the build).
-extern "C" int mpc_structured_admm_smem_bytes() { return (int)sizeof(Smem); }
+// Bytes of shared memory a block takes (in the layout of the build; pair:
+// every block of the launch, the larger rank's).
+extern "C" int mpc_structured_admm_smem_bytes() { return SMEM_BYTES; }
+
+// Bytes of shared memory of the pair layout's rank 0 (struct Smem) and rank 1
+// (struct Peer); 0 and 0 in the other layouts.
+extern "C" int mpc_structured_admm_rank_bytes(int rank) {
+  return !PAIRED ? 0 : rank == 0 ? (int)sizeof(Smem) : (int)sizeof(Peer);
+}
 
 // Threads per block.
 extern "C" int mpc_structured_admm_threads() { return NT; }
 
 // Blocks of the kernel that one SM holds at a time (negative: a CUDA error).
 extern "C" int mpc_structured_admm_blocks_per_sm() {
-  const int smem = (int)sizeof(Smem);
+  const int smem = SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(structured_admm_kernel<false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int blocks = 0;
@@ -1584,8 +1901,45 @@ extern "C" int mpc_structured_admm_blocks_per_sm() {
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
+namespace {
+
+// The pair layout's launch: 2 B blocks, clusters of two (cudaLaunchKernelEx,
+// cudaLaunchAttributeClusterDimension), each block with SMEM_BYTES.
+void pair_config(int B, cudaStream_t stream, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(2u * (unsigned)B);
+  cfg->blockDim = dim3(NT);
+  cfg->dynamicSmemBytes = SMEM_BYTES;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 2;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+}  // namespace
+
+// Clusters of the pair layout the card runs at a time
+// (cudaOccupancyMaxActiveClusters; 0 in the other layouts, negative: a CUDA
+// error).
+extern "C" int mpc_structured_admm_active_clusters() {
+  if (!PAIRED) return 0;
+  cudaError_t err = cudaFuncSetAttribute(structured_admm_kernel<false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  pair_config(1, nullptr, &cfg, &attr);
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, structured_admm_kernel<false>, &cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
+}
+
 // ptrs: the NPTRS pointers of struct Ptrs, in its order; Dm: KL x KL floats; cap:
-// the iterations of this dispatch.
+// the iterations of this dispatch. A launch the card refuses (pair: a cluster
+// it cannot place) runs nothing and returns its CUDA error.
 extern "C" int mpc_structured_admm(void* const* ptrs, const float* Dm, float sigma, float alpha,
                                    float eps_abs, float eps_rel, int cap, int check_every,
                                    int kkt_refine, int B, void* stream) {
@@ -1602,7 +1956,15 @@ extern "C" int mpc_structured_admm(void* const* ptrs, const float* Dm, float sig
   Ptrs g;
   memcpy(&g, ptrs, sizeof(Ptrs));
   auto kernel = kkt_refine > 0 ? structured_admm_kernel<true> : structured_admm_kernel<false>;
-  kernel<<<B, NT, (int)sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(P, g);
+  if constexpr (PAIRED) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    pair_config(B, static_cast<cudaStream_t>(stream), &cfg, &attr);
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, P, g);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    kernel<<<B, NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(P, g);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1610,7 +1972,7 @@ extern "C" int mpc_structured_admm(void* const* ptrs, const float* Dm, float sig
 // block's shared memory (a launch sets nothing, so it can be captured into a
 // CUDA graph as it is).
 extern "C" int mpc_structured_admm_init() {
-  const int smem = (int)sizeof(Smem);
+  const int smem = SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(structured_admm_kernel<false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)

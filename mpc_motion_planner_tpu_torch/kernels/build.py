@@ -52,7 +52,7 @@ SM_SMEM = 233472
 
 # kernel 3's shared-memory layouts, in the order of their -DMPC_SMEM_LAYOUT
 # values (csrc/common.cuh)
-LAYOUTS = ("full", "compact", "split", "stream", "lean", "far", "deep")
+LAYOUTS = ("full", "compact", "split", "stream", "lean", "far", "deep", "pair")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,7 +17,7 @@ elements and as many constraint rows per thread (:func:`threads`: one of
 each up to 1024 threads, two past them, three past 2048 elements), node
 vectors padded to :func:`vpad` floats, one helper warp and one look-ahead
 vector per distance 2..bw of the band (bw = the spline order), and the first
-of seven shared-memory layouts (:func:`choose_layout`, :func:`smem_bytes`)
+of eight shared-memory layouts (:func:`choose_layout`, :func:`smem_bytes`)
 that fits a block: full; compact where the full one does not fit (Ldi
 packed lower triangular, Lsub without its unread tail: 232,176 B at 25 nodes
 of the Panda, where full takes 262,000 B; 19 nodes of an 8-joint robot;
@@ -41,20 +41,28 @@ order 3, 187,664 B at 76, where lean takes 238,736 B; order 4 x 17 to x 21,
 not fit (the far layout without Ldi, each node's block of which travels
 through the copier's ring with the node's run: 97 to 154 nodes of order 3,
 158,000 B at 97, where far takes 233,424 B; order 4 x 22 to x 33, 9 joints
-at 64 to 109 nodes, 10 joints at 52 to 88). :func:`ring_schedule` models
-the ring's copies and reads step by step. Two elements a thread take 40 to
-76 nodes of order 3 (608 threads at 46, 832 at 61, 1024 at 76), order 4 x
-10 to x 17 and 9 joints from 31 nodes; three take 79 to 115 nodes of order
-3 (864 threads at 97), four 118 to 154. A geometry that fits no layout (157
-nodes of order 3: 233,520 B in the deep layout; order 4 x 34; 9 joints at
-112 nodes; 10 joints at 91) raises a ValueError that names the bytes;
-nothing solves it another way. Past 10 joints (blk 33 and more) a lane of
-a sweep warp owns :func:`rows` rows of a block, two up to 21 joints, and
-the sweeps read each block where it lies as its product uses it, a step
-later than they would fetch it ahead, the ring's copies a step later too
-(:func:`ring_schedule`): 12 joints take the lean layout at 19 nodes
-(188,768 B, 832 threads); 11 joints at 76 nodes, 12 at 61 and 14 at 37
-fit no layout. The figures below are the 19-node Panda transcription's.
+at 64 to 109 nodes, 10 joints at 52 to 88); pair where the deep does not
+fit (the deep layout in a cluster of two blocks, one problem a cluster:
+rank 0 holds all the deep layout holds but the copier's ring, rank 1 the
+ring, whose blocks rank 0's warps read into staging buffers of their own,
+:func:`rank_bytes`; the copies go :func:`lead` = 4 steps ahead: 157 to 175
+nodes of order 3, rank 0 208,752 B at 157, where deep takes 233,520 B;
+order 4 x 34 to x 41, 9 joints at 112 to 133 nodes, 10 joints at 91 to
+118, 11 at 76 to 103, 12 at 61 to 94, 14 at 37 to 76). :func:`ring_schedule`
+models the ring's copies and reads step by step. Two elements a thread take
+40 to 76 nodes of order 3 (608 threads at 46, 832 at 61, 1024 at 76),
+order 4 x 10 to x 17 and 9 joints from 31 nodes; three take 79 to 115
+nodes of order 3 (864 threads at 97), four 118 to 154, five 157 to 175. A
+geometry that fits no layout (178 nodes of order 3: 235,232 B in rank 0 of
+the pair layout; order 4 x 42; 9 joints at 136 nodes; 10 joints at 121)
+raises a ValueError that names the bytes; nothing solves it another way.
+Past 10 joints (blk 33 and more) a lane of a sweep warp owns :func:`rows`
+rows of a block, two up to 21 joints, and the sweeps read each block where
+it lies as its product uses it, a step later than they would fetch it
+ahead, the ring's copies a step later too (:func:`ring_schedule`): 12
+joints take the lean layout at 19 nodes (188,768 B, 832 threads); 11
+joints at 106 nodes, 12 at 97 and 14 at 79 fit no layout. The figures
+below are the 19-node Panda transcription's.
 
 What bounds it on this card: latency. Each iteration is ~157k flops per
 problem, 85% of them in the two banded triangular sweeps, and the factors
@@ -115,24 +123,34 @@ KERNEL = CudaKernel(
 # the layouts whose Lsub goes through the copier's ring, those of them whose
 # chain reads its blocks from the ring too, those that keep the vectors only
 # their owner reads out of shared memory, those that read J from device
-# memory, and those whose Ldi goes through the ring with Lsub
-RINGED = ("split", "stream", "lean", "far", "deep")
-STREAMED = ("stream", "lean", "far", "deep")
-OWNERS_OUT = ("lean", "far", "deep")
-J_OUT = ("far", "deep")
-LDI_RINGED = ("deep",)
+# memory, those whose Ldi goes through the ring with Lsub, and those that take
+# a cluster of two blocks a problem (the ring in rank 1)
+RINGED = ("split", "stream", "lean", "far", "deep", "pair")
+STREAMED = ("stream", "lean", "far", "deep", "pair")
+OWNERS_OUT = ("lean", "far", "deep", "pair")
+J_OUT = ("far", "deep", "pair")
+LDI_RINGED = ("deep", "pair")
+PAIRED = ("pair",)
 
 LEAD = 2  # steps between a copy and the step what it brings is first read in
 
 
+def lead(layout: str) -> int:
+    """LEAD of ``layout``'s ring: 4 in the pair layout, whose copies reach
+    rank 0's readers through two hops more (the progress forwarder and the
+    relay), else :data:`LEAD`."""
+    return 4 if layout in PAIRED else LEAD
+
+
 def ring_runs(g: Geometry, layout: str = "split") -> int:
-    """Slots of the ring (RING) of the split, stream, lean, far or deep
-    layout: a slot holds a node's run, copied 2 steps ahead of its first use;
-    bw runs (split), bw + 1 (stream, lean and far, whose chain reads a run
-    one step after the helpers in the backward sweep) or bw + 2 (deep, whose
-    forward sweep copies a step earlier) are the fewest for which no copy
-    overwrites a run still to be read (:func:`ring_schedule`)."""
-    return g.order + (layout in STREAMED) + (layout in LDI_RINGED)
+    """Slots of the ring (RING) of the split, stream, lean, far, deep or
+    pair layout: a slot holds a node's run, copied :func:`lead` steps ahead
+    of its first use; bw runs (split), bw + 1 (stream, lean and far, whose
+    chain reads a run one step after the helpers in the backward sweep), bw
+    + 2 (deep, whose forward sweep copies a step earlier) or bw + 4 (pair,
+    two steps earlier still) are the fewest for which no copy overwrites a
+    run still to be read (:func:`ring_schedule`)."""
+    return g.order + lead(layout) - LEAD + (layout in STREAMED) + (layout in LDI_RINGED)
 
 
 def ring_slot(g: Geometry, layout: str = "split") -> int:
@@ -152,8 +170,13 @@ def ring_last(g: Geometry, layout: str = "split") -> int:
 
 
 def ring_schedule(g: Geometry, layout: str = "split", iterations: int = 2):
-    """A model of the ring of the split, stream, lean, far or deep layout
-    (csrc/structured_admm.cu ``ring_start`` and ``ring_step``) through
+    """A model of the ring of the split, stream, lean, far, deep or pair
+    layout (csrc/structured_admm.cu ``ring_start`` and ``ring_step``; the
+    pair layout's is the deep layout's at its own :func:`lead`: rank 1's
+    copier issues each copy when the progress count the helper of distance
+    2 publishes, forwarded into rank 1, says the step has come, as the deep
+    layout's copier does, and its relay signals the copy in rank 0 once it
+    has landed, one phase of rank 0's barrier of the slot a copy) through
     ``iterations`` pairs of sweeps, forward then backward, step by step.
     Time is counted in steps of the whole run, n = N x sweep + step: the
     reads of step n come after the sweeps' barrier of step n - 1 and before
@@ -173,7 +196,7 @@ def ring_schedule(g: Geometry, layout: str = "split", iterations: int = 2):
     # AHEAD: a forward sweep copies node m after step m - LEAD, or a step
     # earlier where the run carries Ldi_m, which the chain fetches a step
     # before step m
-    ahead = LEAD + (layout in LDI_RINGED)
+    ahead = lead(layout) + (layout in LDI_RINGED)
     late = int(rows(g) > 1)
     lo, hi = 0, min(ring, last + 1) - 1
     copies = [(None, m, m % ring) for m in range(hi + 1)]
@@ -198,7 +221,7 @@ def ring_schedule(g: Geometry, layout: str = "split", iterations: int = 2):
                         m = s if fwd else N - 1 - s
                         reads.append((base + (s if late else t), m, m % ring, "ldi",
                                       "chain"))
-            m = t + ahead if fwd else N - 1 - t - LEAD - bw  # ring_step
+            m = t + ahead if fwd else N - 1 - t - lead(layout) - bw  # ring_step
             if (m <= last and m > hi) if fwd else (0 <= m < lo):
                 copies.append((base + t + late, m, m % ring))
                 if fwd:
@@ -266,14 +289,43 @@ def smem_bytes(g: Geometry, layout: str = None) -> int:
     """Shared memory of one block of kernel 3 built for ``g``: the size of
     struct Smem of csrc/structured_admm.cu, member by member with its
     alignment, in ``layout`` (default: the one ``g`` names, else the one it
-    takes, :func:`choose_layout`)."""
+    takes, :func:`choose_layout`); in the pair layout the larger of its two
+    blocks' (:func:`rank_bytes`), which every block of the launch takes."""
     layout = layout or g.layout or choose_layout(g)
+    if layout in PAIRED:
+        return max(rank_bytes(g))
+    return _struct_bytes(g, layout)
+
+
+def rank_bytes(g: Geometry) -> tuple:
+    """Shared memory of the pair layout's two blocks, (rank 0, rank 1): rank
+    0's struct Smem (the deep layout's but the ring's slots: up to 3 floats to
+    a 16-byte boundary, a barrier per slot, which rank 1's relay arrives on,
+    the progress count, and a staging buffer of a block for each chain warp's
+    two blocks and for each helper's) and rank 1's struct Peer (the ring's
+    slots, the barriers its copies complete on, the progress count and rank
+    0's stop flag). Every block of the launch takes the larger
+    (:func:`smem_bytes`)."""
+    ring = ring_runs(g, "pair")
+    return _struct_bytes(g, "pair"), 4 * ring * ring_slot(g, "pair") + 8 * ring + 8
+
+
+def _struct_bytes(g: Geometry, layout: str) -> int:
+    """The size of struct Smem of csrc/structured_admm.cu in ``layout`` (the
+    pair layout: rank 0's)."""
     N, blk, nv, neq, nm, pad = g.nodes, g.blk, g.num_var, g.num_eq, g.num_rows, vpad(g)
     nb, blk2, bw, kl = N * blk, blk * blk, g.order, g.order + 1
     # Ldi: full, packed, or (deep, in the ring) one float
     ldi = 1 if layout in LDI_RINGED else N * (blk2 if layout == "full" else blk * (blk + 1) // 2)
-    if layout in RINGED:  # the resident distance-1 blocks (split), 3 floats to
-        # a 16-byte boundary, the ring, its barriers (8 bytes each) and the
+    if layout in PAIRED:  # rank 0: 3 floats to a 16-byte boundary, the
+        # barriers (8 bytes each) of the ring in rank 1 and the progress count
+        # to a 16-byte boundary, and the staging buffers (STAGE floats: a block
+        # from its 16-byte boundary) of the chain warps' two blocks each and
+        # of each helper's block
+        head = -(-(2 * ring_runs(g, layout) + 1) // 4) * 4
+        lsub = 3 + head + (4 + bw - 1) * ((blk2 + 6) // 4 * 4)
+    elif layout in RINGED:  # the resident distance-1 blocks (split), 3 floats
+        # to a 16-byte boundary, the ring, its barriers (8 bytes each) and the
         # copier's progress count
         d1 = (N - 1) * blk2 if layout == "split" else 0
         lsub = d1 + 3 + ring_runs(g, layout) * (ring_slot(g, layout) + 2) + 1
@@ -307,9 +359,10 @@ def built_geometry(g: Geometry) -> Geometry:
 
 def choose_layout(g: Geometry) -> str:
     """The shared-memory layout kernel 3 is built in for ``g``: the first of
-    full, compact, split, stream, lean, far and deep (``LAYOUTS``) whose
-    block fits, else deep, which :func:`check_fits` then refuses."""
-    return next((name for name in LAYOUTS if smem_bytes(g, name) <= SMEM_LIMIT), "deep")
+    full, compact, split, stream, lean, far, deep and pair (``LAYOUTS``)
+    whose block fits (pair: both its blocks), else pair, which
+    :func:`check_fits` then refuses."""
+    return next((name for name in LAYOUTS if smem_bytes(g, name) <= SMEM_LIMIT), "pair")
 
 
 def sweep_warps(g: Geometry) -> int:
@@ -321,12 +374,13 @@ def sweep_warps(g: Geometry) -> int:
 def check_fits(g: Geometry) -> None:
     """Raise ValueError unless kernel 3 is written for ``g`` (a band of at
     least one sub-diagonal block) and its block
-    fits the card in the layout ``g`` names, or else in one of the seven:
-    232,448 B of shared memory, at most 1024 threads (which only an ept
-    that ``g`` names can pass), and warps enough for the sweeps (and the
-    copier of the split, stream, lean, far and deep layouts, whose ring is
-    paced by the helper of distance 2); the error of a block too large names
-    the bytes of every layout."""
+    fits the card in the layout ``g`` names, or else in one of the eight:
+    232,448 B of shared memory (the pair layout: each of its two blocks), at
+    most 1024 threads (which only an ept that ``g`` names can pass), and
+    warps enough for the sweeps (and the copier of the split, stream, lean,
+    far, deep and pair layouts, whose ring is paced by the helper of
+    distance 2, and the pair layout's relay); the error of a block too large
+    names the bytes of every layout and of each of the pair's blocks."""
     if g.order < 1:
         raise ValueError(f"kernel 3 solves with a band of at least one sub-diagonal block; "
                          f"got band width {g.order}")
@@ -337,25 +391,31 @@ def check_fits(g: Geometry) -> None:
                          f"and rows a thread; a block may have {MAX_THREADS}")
     name = g.layout or choose_layout(g)
     if smem_bytes(g, name) > SMEM_LIMIT:
-        others = ", ".join(f"{other}: {smem_bytes(g, other)} B" for other in LAYOUTS
-                           if other != name)
+        bytes_of = lambda lay: (f"{smem_bytes(g, lay)} B" if lay not in PAIRED else
+                                "rank 0 {} B, rank 1 {} B".format(*rank_bytes(g)))
+        others = ", ".join(f"{other}: {bytes_of(other)}" for other in LAYOUTS if other != name)
         raise ValueError(
             f"{what} needs {smem_bytes(g, name)} B of shared memory per block in its {name} "
-            f"layout ({others}); a block may have {SMEM_LIMIT} B")
+            f"layout ({'' if name not in PAIRED else bytes_of(name) + '; '}{others}); a block "
+            f"may have {SMEM_LIMIT} B")
     copier = name in RINGED  # the warp after the sweep warps copies the runs
+    relay = name in PAIRED  # and in rank 1 the warp after it relays them
     if copier and g.order < 2:
         raise ValueError(f"kernel 3's {name} layout takes a band of at least two sub-diagonal "
                          f"blocks (the helper of distance 2 paces its copier); got {g.order}")
-    if threads(g) // 32 < sweep_warps(g) + copier:
+    if threads(g) // 32 < sweep_warps(g) + copier + relay:
         raise ValueError(
             f"kernel 3 at {g.nodes} nodes and order {g.order} has {threads(g) // 32} warps; its "
             f"sweeps take {sweep_warps(g)} (two chain warps, {g.order - 1} helpers and the "
-            f"finishing warp)" + (f" and the {name} layout's copier one more" if copier else ""))
+            f"finishing warp)" + (f" and the {name} layout's copier one more" if copier else "")
+            + (" and its relay one more" if relay else ""))
 
 
 def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings: QPSettings,
                 state=None, chunk_iters=None, layout=None, ept=None):
-    """Launch kernel 3 on scaled float32 CUDA data: one dispatch of
+    """Launch kernel 3 on scaled float32 CUDA data (the pair layout: a
+    cluster of two blocks a problem, a launch the card cannot place raising
+    RuntimeError): one dispatch of
     ``chunk_iters`` iterations (default: the whole budget) from ``state``
     (default: the initial state of ``qp``), with the library of the OCP's
     transcription in its own shared-memory layout and elements per thread,
@@ -426,8 +486,11 @@ def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings:
 def block_layout(geometry: Geometry = None) -> dict:
     """What the library built for ``geometry`` (default: 19 nodes; in the
     layout and at the ept it names, else its own) says of its block: threads,
-    shared-memory bytes, and how many blocks one SM holds at a time from the
-    CUDA occupancy calculator (1: the block's shared memory takes the SM)."""
+    shared-memory bytes, how many blocks one SM holds at a time from the
+    CUDA occupancy calculator (1: the block's shared memory takes the SM),
+    and in the pair layout each rank's bytes (``rank_bytes``; else (0, 0))
+    and how many clusters of two the card runs at a time
+    (``active_clusters``, cudaOccupancyMaxActiveClusters; else 0)."""
     lib = KERNEL.library(geometry)
     out = {}
     for key, name in (("threads", "mpc_structured_admm_threads"),
@@ -438,12 +501,31 @@ def block_layout(geometry: Geometry = None) -> dict:
         out[key] = fn()
     if out["blocks_per_sm"] <= 0:
         raise RuntimeError(f"kernel 3 occupancy query failed: CUDA error {-out['blocks_per_sm']}")
+    # the pair layout's (a build of a source from before it has neither)
+    clusters = getattr(lib, "mpc_structured_admm_active_clusters", None)
+    out["active_clusters"], out["rank_bytes"] = 0, (0, 0)
+    if clusters is not None:
+        rank = lib.mpc_structured_admm_rank_bytes
+        clusters.restype, rank.argtypes, rank.restype = ctypes.c_int, [ctypes.c_int], ctypes.c_int
+        out["active_clusters"], out["rank_bytes"] = clusters(), (rank(0), rank(1))
+        if out["active_clusters"] < 0:
+            raise RuntimeError(f"kernel 3 cluster occupancy query failed: CUDA error "
+                               f"{-out['active_clusters']}")
     return out
 
 
 def blocks_per_sm(geometry: Geometry = None) -> int:
     """How many blocks of kernel 3 one SM holds at a time."""
     return block_layout(geometry)["blocks_per_sm"]
+
+
+def problems_at_once(geometry: Geometry, sms: int) -> int:
+    """How many problems kernel 3 built for ``geometry`` runs at a time on a
+    card of ``sms`` SMs: its blocks per SM on each, or in the pair layout one
+    per cluster of two the card places at a time."""
+    lay = block_layout(geometry)
+    return lay["active_clusters"] if KERNEL.geometry(geometry).layout in PAIRED \
+        else sms * lay["blocks_per_sm"]
 
 
 def solve_box_qp_structured_cuda(

@@ -3,10 +3,10 @@ structured QP at 8, 4, 12, 15 and 20 spline segments against the JAX
 ``structured`` backend (float64); the geometry of a kernel library (its
 ``-D`` flags, one library per geometry, per kernel-3 layout and per count
 of elements a thread, kernel 3's shared memory reckoned member by member in
-its full, compact, split, stream, lean, far and deep layouts and at two,
-three and four elements a thread, the layout each geometry takes, the ring
-of the split, stream, lean, far and deep layouts modelled step by step, a
-geometry past the limits raising); the shipping QP settings of each node
+its full, compact, split, stream, lean, far, deep and pair layouts and at
+two, three and four elements a thread, the layout each geometry takes, the
+ring of the split, stream, lean, far, deep and pair layouts modelled step
+by step, a geometry past the limits raising); the shipping QP settings of each node
 count, ``bench/convergence.py`` and ``bench/agreement.py``'s count;
 the compiled solve's key after the planner's OCP is swapped; and the 8-,
 12-, 15-, 20-, 25- and 32-segment JAX fixtures that ``chip_smoke.py``
@@ -118,14 +118,18 @@ def test_shipping_settings_refine_from_43_nodes(order, segments, refine):
 
 
 @pytest.mark.parametrize("order,segments,rescue", [(3, 25, 0), (3, 27, 0), (3, 28, 300),
-                                                  (3, 32, 300), (3, 40, 300), (4, 21, 300)])
+                                                  (3, 32, 300), (3, 40, 300), (4, 21, 300),
+                                                  (3, 41, 900), (3, 52, 900), (4, 34, 900)])
 def test_shipping_settings_rescue_from_85_nodes(order, segments, rescue):
     """From 85 nodes the shipping QP settings give a QP that has not
     converged within its budget 300 more iterations (the JAX package's
-    rescue budget), beside the refinement step; below they give none."""
+    rescue budget), and from 122 nodes 900 (124 nodes at 41 segments, 157
+    at 52, order 4 x 34 at 137), beside the refinement step; below they give
+    none."""
     nodes = make_ocp(_planner().model, order=order, num_segments=segments).num_nodes
     s = config.shipping_qp_settings(nodes)
     assert s.rescue_iters == rescue and (nodes >= config.RESCUE_FROM_NODES) == bool(rescue)
+    assert (nodes >= config.LONG_RESCUE_FROM_NODES) == (rescue == config.LONG_RESCUE_ITERS)
     assert s.kkt_refine == 1
     assert dataclasses.replace(s, kkt_refine=0, rescue_iters=0) == config.SHIPPING_QP_SETTINGS
 
@@ -259,15 +263,19 @@ def test_unfit_geometry_raises_naming_the_bytes():
     do up to 31 (94 nodes, three elements a thread, 226,864 B). 32 segments
     (97 nodes, 233,424 B far) fit in the deep layout (158,000 B), and so do
     up to 51 (154 nodes, four elements a thread, 1024 threads, 229,824 B).
-    52 segments (157 nodes, five elements a thread) need 233,520 B even in
-    the deep layout: the fit check and the card's QP solve raise and name
-    the bytes of every layout, before any build or launch and whatever the
-    data, so nothing falls back to the plain loop."""
+    52 segments (157 nodes, five elements a thread, 233,520 B deep) fit in
+    the pair layout (rank 0 208,752 B, rank 1 49,680 B), and so do up to 58
+    (175 nodes, 960 threads, 231,456 B). 59 segments (178 nodes) need
+    235,232 B even in rank 0 of the pair layout: the fit check and the
+    card's QP solve raise and name the bytes of every layout and of both
+    ranks, before any build or launch and whatever the data, so nothing
+    falls back to the plain loop."""
     g28, g37, g40 = Geometry(segments=9), Geometry(segments=12), Geometry(segments=13)
     g46, g49 = Geometry(segments=15), Geometry(segments=16)
     g73, g76 = Geometry(segments=24), Geometry(segments=25)
     g94, g97 = Geometry(segments=31), Geometry(segments=32)
     g154, g157 = Geometry(segments=51), Geometry(segments=52)
+    g175, g178 = Geometry(segments=58), Geometry(segments=59)
     assert k3.smem_bytes(g28, "compact") == 261152 > SMEM_LIMIT
     assert k3.choose_layout(g28) == "split" and k3.smem_bytes(g28) == 180128
     k3.check_fits(g28)
@@ -305,20 +313,30 @@ def test_unfit_geometry_raises_naming_the_bytes():
     with pytest.raises(ValueError, match=r"97 nodes, order 3 and 7 joints .* needs 233424 B of "
                                          r"shared memory per block in its far layout"):
         k3.check_fits(dataclasses.replace(g97, layout="far"))
-    assert (k3.ept_of(g157), k3.threads(g157), k3.smem_bytes(g157)) == (5, 864, 233520)
+    assert (k3.ept_of(g157), k3.threads(g157), k3.smem_bytes(g157, "deep")) == (5, 864, 233520)
+    assert (k3.smem_bytes(g157), k3.rank_bytes(g157)) == (208752, (208752, 49680))
+    assert (k3.ept_of(g175), k3.threads(g175), k3.smem_bytes(g175)) == (5, 960, 231456)
+    for g in (g157, g175):
+        assert k3.choose_layout(g) == "pair"
+        k3.check_fits(g)
     with pytest.raises(ValueError, match=r"157 nodes, order 3 and 7 joints .* needs 233520 B of "
-                                         r"shared memory per block in its deep layout \(full: "
-                                         r"\d+ B, compact: \d+ B, split: \d+ B, stream: \d+ B, "
-                                         r"lean: 469888 B, far: 364384 B\)"):
-        k3.check_fits(g157)
-    planner = _planner(52)
+                                         r"shared memory per block in its deep layout"):
+        k3.check_fits(dataclasses.replace(g157, layout="deep"))
+    assert (k3.ept_of(g178), k3.threads(g178), k3.smem_bytes(g178)) == (5, 960, 235232)
+    with pytest.raises(ValueError, match=r"178 nodes, order 3 and 7 joints .* needs 235232 B of "
+                                         r"shared memory per block in its pair layout \(rank 0 "
+                                         r"235232 B, rank 1 49680 B; full: \d+ B, compact: \d+ "
+                                         r"B, split: \d+ B, stream: \d+ B, lean: 529888 B, far: "
+                                         r"410272 B, deep: 260000 B\)"):
+        k3.check_fits(g178)
+    planner = _planner(59)
     cur, tgt = _states(1)
     z0 = planner.warm_start_vector(planner.plan_warm_start(cur, tgt))
     _, _, sa, args = qp_subproblem(planner.ocp, planner.nlp_bounds(cur, tgt), z0)
     P = hessian_regularization_diag(planner.ocp, 1, torch.float64, "cpu", 0.01)
-    with pytest.raises(ValueError, match="233520 B"):
+    with pytest.raises(ValueError, match="235232 B"):
         k3.solve_box_qp_structured_cuda(planner.ocp, sa, P, *args, config.SHIPPING_QP_SETTINGS)
-    for g in (g40, g46, g49, g73, g76, g94, g97, g154, g157):
+    for g in (g40, g46, g49, g73, g76, g94, g97, g154, g157, g175, g178):
         k2.check_fits(g)  # kernel 2's working set is per node
 
 
@@ -368,28 +386,32 @@ def test_two_elements_a_thread_reckoning():
 
 
 # (segments, order, joints): kernel 3's threads and its bytes in the full,
-# compact, split, stream, lean, far and deep layouts. The split's bytes are
+# compact, split, stream, lean, far, deep and pair layouts. The split's bytes are
 # the compact's less the Lsub blocks of distances 2..bw and plus a ring of
 # bw nodes' helper blocks; the stream's keep no Lsub block and a ring of bw
 # + 1 nodes' runs of bw blocks; the lean's are the stream's less the 16
 # owner-only vectors but a float of each; the far's are the lean's less J
 # but a float; the deep's are the far's less the packed Ldi but a float and
-# with a ring of bw + 2 slots, each a run and an Ldi block. The first four
-# take the split layout, the rest the stream.
+# with a ring of bw + 2 slots, each a run and an Ldi block; the pair's are
+# the larger of its two blocks': the deep's less the ring's slots, with a
+# staging buffer of a block for each chain warp's two blocks and for each
+# helper's (rank 0), and the slots, two more than the deep's (a lead of 4),
+# their barriers, the progress count and the stop flag (rank 1). The first four take the split layout, the rest the
+# stream.
 RING_GEOMETRIES = {
-    (6, 4, 7): (640, 306976, 273632, 173200, 144992, 108752, 91968, 86608),
-    (6, 3, 9): (640, 308464, 267216, 185680, 150704, 114848, 94320, 89024),
-    (6, 3, 10): (704, 372400, 321344, 220640, 177456, 137680, 112592, 106160),
-    (9, 3, 7): (736, 293488, 261152, 180128, 143088, 101568, 82752, 71088),
-    (12, 3, 7): (992, 388032, 348128, 235344, 182432, 127392, 102528, 82544),
-    (9, 4, 7): (928, 454544, 411120, 247200, 197808, 143936, 119088, 102640),
-    (8, 3, 9): (832, 406128, 356448, 239920, 187440, 140048, 113040, 98672),
-    (8, 3, 10): (928, 490288, 428800, 284880, 220112, 167520, 134512, 116928),
+    (6, 4, 7): (640, 306976, 273632, 173200, 144992, 108752, 91968, 86608, 70856),
+    (6, 3, 9): (640, 308464, 267216, 185680, 150704, 114848, 94320, 89024, 81936),
+    (6, 3, 10): (704, 372400, 321344, 220640, 177456, 137680, 112592, 106160, 101088),
+    (9, 3, 7): (736, 293488, 261152, 180128, 143088, 101568, 82752, 71088, 49680),
+    (12, 3, 7): (992, 388032, 348128, 235344, 182432, 127392, 102528, 82544, 57776),
+    (9, 4, 7): (928, 454544, 411120, 247200, 197808, 143936, 119088, 102640, 70856),
+    (8, 3, 9): (832, 406128, 356448, 239920, 187440, 140048, 113040, 98672, 81936),
+    (8, 3, 10): (928, 490288, 428800, 284880, 220112, 167520, 134512, 116928, 101088),
     # two z elements and rows a thread
-    (13, 3, 7): (544, 419264, 376848, 253488, 195280, 135728, 108848, 86096),
-    (10, 4, 7): (544, 503504, 456720, 271616, 215184, 155424, 127888, 107744),
-    (15, 3, 7): (608, 482240, 434784, 290240, 221456, 152896, 121984, 93680),
-    (10, 3, 9): (544, 503536, 445440, 293920, 223952, 165008, 131520, 108080),
+    (13, 3, 7): (544, 419264, 376848, 253488, 195280, 135728, 108848, 86096, 61328),
+    (10, 4, 7): (544, 503504, 456720, 271616, 215184, 155424, 127888, 107744, 70856),
+    (15, 3, 7): (608, 482240, 434784, 290240, 221456, 152896, 121984, 93680, 68912),
+    (10, 3, 9): (544, 503536, 445440, 293920, 223952, 165008, 131520, 108080, 81936),
 }
 
 
@@ -407,11 +429,12 @@ def test_split_layout_reckoning(segments, order, nq):
     compact layout does not fit, the split is the layout the geometry takes,
     and where the split does not, the stream; the fit check passes."""
     g = Geometry(segments=segments, order=order, nq=nq)
-    threads, full, compact, split, stream, lean, far, deep = RING_GEOMETRIES[segments, order, nq]
+    threads, full, compact, split, stream, lean, far, deep, pair = RING_GEOMETRIES[
+        segments, order, nq]
     layout = "split" if split <= SMEM_LIMIT else "stream"
     assert k3.threads(g) == threads <= 1024
     assert tuple(k3.smem_bytes(g, name) for name in LAYOUTS) == (
-        full, compact, split, stream, lean, far, deep)
+        full, compact, split, stream, lean, far, deep, pair)
     assert compact > SMEM_LIMIT >= k3.smem_bytes(g, layout) == k3.smem_bytes(g)
     assert k3.choose_layout(g) == layout and stream < split
     blk2, N, bw = g.blk ** 2, g.nodes, g.order
@@ -436,6 +459,19 @@ def test_split_layout_reckoning(segments, order, nq):
     ring = {name: k3.ring_runs(g, name) * (k3.ring_slot(g, name) + 2) for name in ("far", "deep")}
     assert abs((far - deep) - 4 * (N * g.blk * (g.blk + 1) // 2 - 1 - ring["deep"] + ring["far"])
                ) < 16
+    # the pair layout: rank 0 the deep's less the ring's slots, with bw + 3
+    # staging buffers of a block from its 16-byte boundary (the chain warps'
+    # two blocks each, a helper's one), the barriers of bw + 4 slots and the
+    # progress count to a 16-byte boundary; rank 1 the bw + 4 slots, their
+    # barriers, the progress count and the stop flag
+    rank0, rank1 = k3.rank_bytes(g)
+    slots = k3.ring_runs(g, "pair") * k3.ring_slot(g, "pair")
+    assert k3.ring_runs(g, "pair") == bw + 4 and k3.ring_slot(g, "pair") == k3.ring_slot(g, "deep")
+    stage = (bw + 3) * ((blk2 + 6) // 4 * 4)
+    head = -(-(2 * (bw + 4) + 1) // 4) * 4
+    deep_ring = k3.ring_runs(g, "deep") * (k3.ring_slot(g, "deep") + 2) + 1
+    assert abs((deep - rank0) - 4 * (deep_ring - head - stage)) < 16
+    assert rank1 == 4 * slots + 8 * (bw + 4) + 8 and pair == max(rank0, rank1)
     k3.check_fits(g)
     k3.check_fits(dataclasses.replace(g, layout="stream"))
     for name in LAYOUTS[:LAYOUTS.index(layout)]:
@@ -466,7 +502,7 @@ def _ring_faults(g, layout, ring):
             copied[s] = copied.get(s, 0) + 1
         elif held is None or held[0] != m:
             bad.append(f"step {n}: {who} reads node {m}, slot {s} holds {held}")
-        elif held[1] >= 0 and n - held[1] < k3.LEAD:
+        elif held[1] >= 0 and n - held[1] < k3.lead(layout):
             bad.append(f"step {n}: {who} reads node {m}, copied at step {held[1]}")
         elif copied[s] != k3.ring_copy_count(g, layout, m, n // N // 2, n // N % 2 == 0):
             bad.append(f"step {n}: {who} reads node {m} after {copied[s]} copies into "
@@ -474,20 +510,22 @@ def _ring_faults(g, layout, ring):
         else:
             held[2] += 1
     per_iteration = sum(1 for n, _, _ in copies if n is not None and 2 * N <= n < 4 * N)
-    if per_iteration != 2 * max(N - 2 - g.order, 0):
+    if per_iteration != 2 * max(N - k3.lead(layout) - g.order, 0):
         bad.append(f"{per_iteration} copies an iteration")
     return bad
 
 
-@pytest.mark.parametrize("layout", ["split", "stream", "lean", "far", "deep"])
+@pytest.mark.parametrize("layout", ["split", "stream", "lean", "far", "deep", "pair"])
 def test_ring_schedule_serves_every_read(layout):
-    """The ring of the split, stream, lean, far and deep layouts, modelled
-    step by step as csrc/structured_admm.cu ring_step runs it
-    (``ring_schedule``), at every geometry of orders 2-5 and 6-10 joints
-    whose stream block (lean, far and deep: whose block in that layout)
-    fits, through three pairs of sweeps (an iteration with its refinement
-    step takes two): every read, by the chain's fetch (all but the split;
-    in the deep layout its Ldi too, a step before the node's run) or by a
+    """The ring of the split, stream, lean, far, deep and pair layouts,
+    modelled step by step as csrc/structured_admm.cu ring_step runs it
+    (``ring_schedule``; the pair layout's is the deep's, its copier and relay
+    in rank 1 following the progress count as the deep's copier does), at
+    every geometry of orders 2-5 and 6-10 joints whose stream block (lean,
+    far, deep and pair: whose block in that layout) fits, through three
+    pairs of sweeps (an iteration with its refinement step takes two):
+    every read, by the chain's fetch (all but the split; in the deep and
+    pair layouts its Ldi too, a step before the node's run) or by a
     helper, finds its node's run in its slot, copied at least LEAD steps
     before, and the copies into that slot so far are ``ring_copy_count``'s
     (the closed form from which the chain of those layouts takes the parity
@@ -515,7 +553,7 @@ def test_ring_schedule_serves_every_read(layout):
         assert _ring_faults(g37, layout, shorter)
 
 
-@pytest.mark.parametrize("layout", ["split", "stream", "lean", "far", "deep"])
+@pytest.mark.parametrize("layout", ["split", "stream", "lean", "far", "deep", "pair"])
 def test_ring_schedule_past_ten_joints(layout):
     """Past 10 joints (two rows a lane) the sweeps read each block a step
     later, where its product uses it, and the copier issues each copy a step
@@ -525,8 +563,8 @@ def test_ring_schedule_past_ten_joints(layout):
     stream's) fits, through three pairs of sweeps, serves every read with
     the same slots and copy count as one row a lane; reads a step later with
     the copies where one row a lane issues them would find runs overwritten
-    at 12 joints and 19 nodes (but in the deep layout, whose ring has a step
-    to spare)."""
+    at 12 joints and 19 nodes (but in the deep and pair layouts, whose ring
+    has a step to spare)."""
     text = " ".join(ln.strip().lstrip("/ ") for ln in
                     (CSRC / "structured_admm.cu").read_text().splitlines())
     assert "done >= r.steps + LATE" in text and "LATE = ROWS > 1 ? 1 : 0" in text
@@ -550,7 +588,8 @@ def test_ring_schedule_past_ten_joints(layout):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(k3, "ring_schedule", early_copies)
-        assert bool(_ring_faults(g, layout, k3.ring_runs(g, layout))) == (layout != "deep")
+        assert bool(_ring_faults(g, layout, k3.ring_runs(g, layout))) == (
+            layout not in k3.LDI_RINGED)
 
 
 @pytest.mark.parametrize("segments, order, nq, layout", [
@@ -570,15 +609,20 @@ def test_ring_schedule_past_ten_joints(layout):
     (32, 3, 7, "deep"), (40, 3, 7, "deep"), (51, 3, 7, "deep"), (22, 4, 7, "deep"),
     (33, 4, 7, "deep"), (21, 3, 9, "deep"), (36, 3, 9, "deep"), (17, 3, 10, "deep"),
     (29, 3, 10, "deep"),
+    # and the pair layout in phase 30: the seven geometries refused past the
+    # deep one, with the last of the Panda's that fits
+    (52, 3, 7, "pair"), (58, 3, 7, "pair"), (34, 4, 7, "pair"), (37, 3, 9, "pair"),
+    (30, 3, 10, "pair"), (25, 3, 11, "pair"), (20, 3, 12, "pair"), (12, 3, 14, "pair"),
 ])
 def test_layout_of_each_geometry(segments, order, nq, layout):
     """Each geometry takes the first of full, compact, split, stream, lean,
-    far and deep whose block fits, so the geometries that fit before the
-    stream layout keep the layouts they had (full at 19 and 13 nodes,
+    far, deep and pair whose block fits, so the geometries that fit before
+    the stream layout keep the layouts they had (full at 19 and 13 nodes,
     compact at 25, split at order 4 x 6 and 34 nodes), and only a geometry
     that fits none of the first three takes the stream, only one that fits
     none of the first four the lean, only one that fits none of the first
-    five the far, and only one that fits none of the first six the deep."""
+    five the far, only one that fits none of the first six the deep, and
+    only one that fits none of the first seven the pair."""
     g = Geometry(segments=segments, order=order, nq=nq)
     assert k3.choose_layout(g) == layout
     fits = [k3.smem_bytes(g, name) <= SMEM_LIMIT for name in LAYOUTS]
@@ -639,29 +683,31 @@ def test_far_layout_is_taken_only_where_lean_does_not_fit():
 
 def test_deep_layout_is_taken_only_where_far_does_not_fit():
     """At every geometry of orders 2-5 and 6-10 joints up to the first that
-    fits no layout, the deep layout is taken exactly where no other block
-    fits, so every geometry that fitted before the deep layout keeps the
-    layout and the library it had; past the deep layout nothing fits, and
-    the geometry a planner gives then takes the deep layout, which the fit
-    check refuses naming the bytes: the first past it are 52 segments of
-    order 3 (157 nodes), order 4 x 34 (137), 9 joints x 37 (112) and 10
-    joints x 30 (91)."""
+    fits no layout, the deep layout is taken exactly where no block of the
+    first six layouts fits and the deep one does, so every geometry that
+    fitted before the deep layout keeps the layout and the library it had;
+    the first geometries past the deep layout, 52 segments of order 3 (157
+    nodes), order 4 x 34 (137), 9 joints x 37 (112) and 10 joints x 30
+    (91), take the pair layout, and the deep layout named there raises
+    naming its bytes."""
     deep = 0
     last = {}
     for g, layout, fits in _layouts_taken():
-        assert (layout == "deep") == (not any(fits[:-1]))
+        assert (layout == "deep") == (not any(fits[:6]) and fits[6])
         assert k3.KERNEL.geometry(g).layout == layout
         deep += layout == "deep"
-        last[g.order, g.nq] = g.segments
+        if layout == "deep":
+            last[g.order, g.nq] = g.segments
     assert deep > 250
     assert (last[3, 7], last[4, 7], last[3, 9], last[3, 10]) == (51, 33, 36, 29)
     for g in (Geometry(segments=52), Geometry(segments=34, order=4),
               Geometry(segments=37, nq=9), Geometry(segments=30, nq=10)):
-        assert k3.smem_bytes(g, "deep") > SMEM_LIMIT and k3.choose_layout(g) == "deep"
+        assert k3.smem_bytes(g, "deep") > SMEM_LIMIT and k3.choose_layout(g) == "pair"
         assert k3.threads(g) <= 1024
-        with pytest.raises(ValueError, match=rf"needs {k3.smem_bytes(g)} B of shared memory "
-                                             rf"per block in its deep layout"):
-            k3.check_fits(g)
+        k3.check_fits(g)
+        with pytest.raises(ValueError, match=rf"needs {k3.smem_bytes(g, 'deep')} B of shared "
+                                             rf"memory per block in its deep layout"):
+            k3.check_fits(dataclasses.replace(g, layout="deep"))
 
 
 @pytest.mark.parametrize("segments", [16, 20, 24], ids=["49_nodes", "61_nodes", "73_nodes"])
@@ -784,7 +830,7 @@ def test_flags_and_library_per_layout(layout):
     name = k3.KERNEL.library_path(g).name
     assert name.startswith(f"structured_admm_n25_o3_q7_{layout}_e1_")
     others = {k3.KERNEL.library_path(dataclasses.replace(g25, layout=o)) for o in LAYOUTS}
-    assert len(others) == len(LAYOUTS) == 7
+    assert len(others) == len(LAYOUTS) == 8
     assert (k3.KERNEL.library_path(g25) == k3.KERNEL.library_path(g)) == (layout == "compact")
     assert k2.KERNEL.geometry(g) == g25 and k2.KERNEL.library_path(g) == k2.KERNEL.library_path(g25)
     assert k3.smem_bytes(g) == k3.smem_bytes(g25, layout)

@@ -164,7 +164,8 @@ def test_factor_banded_blk36_matches_pallas_interpret():
 
 # kernel 3 by joint count: per segment count of order 3, (layout, bytes in
 # it, threads, z elements and rows a thread), up to the first grid that fits
-# no layout (its bytes in the deep layout, threads, ept)
+# no layout (its bytes in rank 0 of the pair layout, the larger block,
+# threads, ept)
 K3_GRIDS = {
     11: ({2: ("full", 162320, 288, 1), 3: ("full", 232304, 384, 1),
           4: ("split", 183472, 512, 1), 5: ("split", 221008, 640, 1),
@@ -172,20 +173,23 @@ K3_GRIDS = {
           8: ("lean", 197392, 1024, 1), 9: ("lean", 214528, 576, 2),
           10: ("lean", 231920, 640, 2), 11: ("far", 195456, 704, 2),
           13: ("far", 220720, 832, 2), 14: ("deep", 171808, 896, 2),
-          17: ("deep", 189344, 736, 3), 24: ("deep", 230592, 1024, 3)},
-         (25, 236352, 800, 4)),
+          17: ("deep", 189344, 736, 3), 24: ("deep", 230592, 1024, 3),
+          25: ("pair", 175296, 800, 4), 34: ("pair", 228176, 864, 5)},
+         (35, 234064, 896, 5)),
     12: ({2: ("full", 189920, 288, 1), 3: ("compact", 220704, 448, 1),
           4: ("split", 212160, 576, 1), 5: ("stream", 208752, 704, 1),
           6: ("lean", 188768, 832, 1), 7: ("lean", 208784, 960, 1),
           8: ("lean", 228512, 576, 2), 9: ("far", 196064, 640, 2),
           11: ("far", 224768, 768, 2), 12: ("deep", 182112, 832, 2),
-          16: ("deep", 207360, 736, 3), 19: ("deep", 226416, 864, 3)},
-         (20, 232752, 928, 3)),
+          16: ("deep", 207360, 736, 3), 19: ("deep", 226416, 864, 3),
+          20: ("pair", 160144, 928, 3), 31: ("pair", 229680, 864, 5)},
+         (32, 236016, 896, 5)),
     14: ({2: ("compact", 192832, 352, 1), 3: ("split", 220688, 512, 1),
           4: ("lean", 196736, 672, 1), 5: ("lean", 222624, 800, 1),
           6: ("far", 200640, 960, 1), 7: ("far", 218704, 576, 2),
-          8: ("deep", 203248, 640, 2), 11: ("deep", 225648, 896, 2)},
-         (12, 233088, 960, 2)),
+          8: ("deep", 203248, 640, 2), 11: ("deep", 225648, 896, 2),
+          12: ("pair", 197856, 960, 2), 25: ("pair", 230736, 992, 4)},
+         (26, 238080, 832, 5)),
 }
 
 
@@ -193,11 +197,12 @@ K3_GRIDS = {
 def test_kernel3_layouts_past_ten_joints(nq):
     """Kernel 3 at 11, 12 and 14 joints over every grid of order 3 from 2
     segments: each takes the first layout whose block fits (so past 10
-    joints every one of the seven is taken somewhere), two rows a lane, the
+    joints every one of the eight is taken somewhere), two rows a lane, the
     bytes, threads and z elements a thread of the reckoning at the grids
-    listed, and the first grid that fits no layout raises before any build,
-    naming every layout's bytes."""
-    grids, (first, deep, threads, ept) = K3_GRIDS[nq]
+    listed (the pair layout's: its larger block, rank 0's but at 14 joints x
+    12), and the first grid that fits no layout raises before any build,
+    naming each rank's bytes and every other layout's."""
+    grids, (first, rank0, threads, ept) = K3_GRIDS[nq]
     seen = set()
     for segments in range(2, first):
         g = Geometry(segments=segments, nq=nq)
@@ -212,12 +217,13 @@ def test_kernel3_layouts_past_ten_joints(nq):
     assert seen == set(LAYOUTS) - ({"compact"} if nq == 11 else {"full", "stream"}
                                    if nq == 14 else set())
     g = Geometry(segments=first, nq=nq)
-    assert (k3.smem_bytes(g), k3.threads(g), k3.ept_of(g)) == (deep, threads, ept)
+    assert (k3.smem_bytes(g), k3.threads(g), k3.ept_of(g)) == (rank0, threads, ept)
+    assert k3.rank_bytes(g)[0] == rank0
     others = ", ".join(f"{name}: {k3.smem_bytes(g, name)} B" for name in LAYOUTS[:-1])
     with pytest.raises(ValueError) as err:
         k3.check_fits(g)
-    assert f"needs {deep} B of shared memory per block in its deep layout ({others})" in str(
-        err.value)
+    assert (f"needs {rank0} B of shared memory per block in its pair layout (rank 0 {rank0} B, "
+            f"rank 1 {k3.rank_bytes(g)[1]} B; {others})" in str(err.value))
 
 
 def test_kernel3_lean_block_at_12_joints_member_by_member():

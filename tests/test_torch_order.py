@@ -2,8 +2,9 @@
 in kernels 2 and 3): the geometry of their libraries (kernel 3's block
 reckoned member by member, kernel 2's working set, order 4 at 6 segments in
 kernel 3's split layout, at 9 and 10 in its stream layout, at 11 to 16 in
-its lean layout, at 17 to 21 in its far layout and at 22 to 33 in its deep
-layout, the refusal of a block past the limit), the
+its lean layout, at 17 to 21 in its far layout, at 22 to 33 in its deep
+layout and at 34 to 41 in its pair layout, the refusal of a block past the
+limit), the
 plain versions of kernels 2 and 3 at band widths 2, 4 and 5 against the JAX
 package's factor (node-level, and its Pallas kernel in interpret mode) and
 against the plain banded solve, the plain structured QP at 4 and 6
@@ -124,13 +125,17 @@ def test_order4_beyond_one_block_raises_naming_the_bytes():
     threads, 226,896 B). Order 4 at 22 segments (89 nodes, 235,904 B far)
     takes the deep layout, 171,408 B, and so does order 4 at 33 (133 nodes,
     four z elements and rows a thread, 864 threads, 229,712 B). Order 4 at
-    34 segments (137 nodes) needs 235,024 B even in the deep layout: its fit
-    check and the card's QP solve raise and name the bytes before any build
-    or launch. Kernel 2 takes all eleven."""
+    34 segments (137 nodes, 235,024 B deep) takes the pair layout, rank 0
+    194,384 B and rank 1 70,856 B, and so does order 4 at 41 (165 nodes,
+    five z elements and rows a thread, rank 0 231,440 B). Order 4 at 42
+    segments (169 nodes) needs 236,736 B even in rank 0 of the pair layout:
+    its fit check and the card's QP solve raise and name the bytes before
+    any build or launch. Kernel 2 takes all thirteen."""
     g46, g45, g49, g4a, g4b = (Geometry(segments=s, order=4) for s in (6, 5, 9, 10, 11))
     g65, g69 = Geometry(segments=16, order=4), Geometry(segments=17, order=4)
     g85, g89 = Geometry(segments=21, order=4), Geometry(segments=22, order=4)
     g133, g137 = Geometry(segments=33, order=4), Geometry(segments=34, order=4)
+    g165, g169 = Geometry(segments=41, order=4), Geometry(segments=42, order=4)
     assert (k3.smem_bytes(g45), k3.smem_bytes(g45, "full")) == (227792, 257776)
     assert k3.choose_layout(g45) == "compact"
     assert (k3.threads(g46), k3.smem_bytes(g46, "compact")) == (640, 273632)
@@ -168,15 +173,25 @@ def test_order4_beyond_one_block_raises_naming_the_bytes():
     with pytest.raises(ValueError, match=r"89 nodes, order 4 .* needs 235904 B of shared memory "
                                          r"per block in its far layout"):
         k3.check_fits(dataclasses.replace(g89, layout="far"))
-    assert (k3.threads(g137), k3.smem_bytes(g137)) == (896, 235024)
+    assert (k3.threads(g137), k3.smem_bytes(g137, "deep"), k3.rank_bytes(g137)) == (
+        896, 235024, (194384, 70856))
+    assert (k3.ept_of(g165), k3.threads(g165), k3.rank_bytes(g165)) == (5, 864, (231440, 70856))
+    for g in (g137, g165):
+        assert k3.choose_layout(g) == "pair" and k3.smem_bytes(g) == k3.rank_bytes(g)[0]
+        k3.check_fits(g)
     with pytest.raises(ValueError, match=r"137 nodes, order 4 .* needs 235024 B of shared memory "
                                          r"per block in its deep layout"):
-        k3.check_fits(g137)
-    planner = _planner(4, 34)
+        k3.check_fits(dataclasses.replace(g137, layout="deep"))
+    assert (k3.threads(g169), k3.smem_bytes(g169)) == (864, 236736)
+    with pytest.raises(ValueError, match=r"169 nodes, order 4 .* needs 236736 B of shared memory "
+                                         r"per block in its pair layout \(rank 0 236736 B, rank 1 "
+                                         r"70856 B;"):
+        k3.check_fits(g169)
+    planner = _planner(4, 42)
     sa, args, _, _ = _step0(planner, 1)
-    with pytest.raises(ValueError, match="235024 B"):
+    with pytest.raises(ValueError, match="236736 B"):
         k3.solve_box_qp_structured_cuda(planner.ocp, sa, *args, config.SHIPPING_QP_SETTINGS)
-    for g in (g45, g46, g49, g4a, g4b, g65, g69, g85, g89, g133, g137):
+    for g in (g45, g46, g49, g4a, g4b, g65, g69, g85, g89, g133, g137, g165, g169):
         k2.check_fits(g)
 
 

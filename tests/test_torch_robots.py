@@ -7,8 +7,9 @@ port's plain 6-joint solve against the JAX fixture
 and 10 take kernel 3's split layout at 19 nodes and its stream layout at
 25, 9 joints at 31 nodes at two elements a thread, 10 joints at 28 and 37
 nodes its lean layout, 10 joints at 40 and 49 nodes its far layout, 10
-joints at 52 and 88 nodes its deep layout; 10 joints at 91 nodes fit no
-layout and raise, naming the bytes); the ``fused_constraints`` routing of
+joints at 52 and 88 nodes its deep layout, 10 joints at 91 and 118 nodes
+its pair layout; 10 joints at 121 nodes fit no layout and raise, naming
+the bytes); the ``fused_constraints`` routing of
 the constraint rows on the CPU; and the Panda with its hand (9 joints, a
 branched tree with two prismatic fingers): the port's plain solve against
 the JAX fixture ``torch_port_hand9_b64.npz`` and its compiled solve on the
@@ -218,8 +219,11 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
     joints at 49 nodes (928 threads, 221,744 B); 10 joints at 52 nodes
     (232,688 B far) take the deep layout, 164,880 B, and so do 10 joints at
     88 nodes (four z elements and rows a thread, 832 threads, 228,688 B); 10
-    joints at 91 nodes need 234,016 B even in the deep layout and raise
-    naming them before any build; a library kind that is none of the three
+    joints at 91 nodes (234,016 B deep) take the pair layout, rank 0 183,584
+    B and rank 1 101,088 B, and so do 10 joints at 118 nodes (five z elements
+    and rows a thread, 896 threads, rank 0 231,520 B); 10 joints at 121
+    nodes need 236,848 B even in rank 0 of the pair layout and raise naming
+    them before any build; a library kind that is none of the three
     raises."""
     k1.check_fits(21)
     with pytest.raises(ValueError, match=r"22 joints needs 4136 B of launch parameters"):
@@ -278,10 +282,22 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
         assert k3.choose_layout(g) == "deep"
         k3.check_fits(g)
         k2.check_fits(g)
-    g = Geometry(segments=30, nq=10)
-    assert (k3.threads(g), k3.smem_bytes(g)) == (864, 234016)
+    g, g118 = Geometry(segments=30, nq=10), Geometry(segments=39, nq=10)
+    assert (k3.threads(g), k3.smem_bytes(g, "deep"), k3.rank_bytes(g)) == (
+        864, 234016, (183584, 101088))
+    assert (k3.ept_of(g118), k3.threads(g118), k3.rank_bytes(g118)) == (5, 896, (231520, 101088))
     with pytest.raises(ValueError, match=r"91 nodes, order 3 and 10 joints .* needs 234016 B "
                                          r"of shared memory per block in its deep layout"):
+        k3.check_fits(dataclasses.replace(g, layout="deep"))
+    for g in (g, g118):
+        assert k3.choose_layout(g) == "pair" and k3.smem_bytes(g) == k3.rank_bytes(g)[0]
+        k3.check_fits(g)
+        k2.check_fits(g)
+    g = Geometry(segments=40, nq=10)
+    assert (k3.threads(g), k3.smem_bytes(g)) == (928, 236848)
+    with pytest.raises(ValueError, match=r"121 nodes, order 3 and 10 joints .* needs 236848 B "
+                                         r"of shared memory per block in its pair layout \(rank "
+                                         r"0 236848 B, rank 1 101088 B;"):
         k3.check_fits(g)
     k2.check_fits(g)
     with pytest.raises(ValueError, match="per_geometry"):

@@ -292,21 +292,23 @@ def test_kernels_refuse_other_transcriptions():
     to 16 (45 to 65 nodes) its lean layout, order 3 at 25 to 31 segments (76
     to 94 nodes) and order 4 at 17 to 21 (69 to 85 nodes) its far layout,
     order 3 at 32 to 51 segments (97 to 154 nodes) and order 4 at 22 to 33
-    (89 to 133 nodes) its deep layout; a transcription whose block fits no
-    layout raises naming its bytes: order 3 at 52 segments (157 nodes) and
-    order 4 at 34 (137 nodes)."""
+    (89 to 133 nodes) its deep layout, order 3 at 52 to 58 segments (157 to
+    175 nodes) and order 4 at 34 to 41 (137 to 165 nodes) its pair layout (a
+    cluster of two blocks); a transcription whose block fits no layout raises
+    naming its bytes: order 3 at 59 segments (178 nodes) and order 4 at 42
+    (169 nodes)."""
     model = make_panda_model()
-    fits = ([(3, s) for s in (4, 5, 6, 8, 9, 12, 13, 15, 16, 20, 24, 25, 31, 32, 51)]
+    fits = ([(3, s) for s in (4, 5, 6, 8, 9, 12, 13, 15, 16, 20, 24, 25, 31, 32, 51, 52, 58)]
             + [(2, 9), (4, 4), (4, 6), (4, 9), (4, 10), (4, 11), (4, 16), (4, 17), (4, 21),
-               (4, 22), (4, 33), (5, 3)])
+               (4, 22), (4, 33), (4, 34), (4, 41), (5, 3)])
     for order, segments in fits:
         g = Geometry.of_ocp(make_ocp(model, order=order, num_segments=segments))
         k2.check_fits(g)
         k3.check_fits(g)
-    for order, segments in ((3, 52), (4, 34)):
+    for order, segments in ((3, 59), (4, 42)):
         g = Geometry.of_ocp(make_ocp(model, order=order, num_segments=segments))
         with pytest.raises(ValueError, match=f"needs {k3.smem_bytes(g)} B of shared memory per "
-                                             f"block in its deep layout"):
+                                             f"block in its pair layout"):
             k3.check_fits(g)
         k2.check_fits(g)
 
