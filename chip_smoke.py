@@ -32,9 +32,10 @@ re-integration check (phase 13). The headline and the acceptance solve
 through the compiled solve (``utils/capture.py``: the solve captured into a
 CUDA graph, the port's ``jax.jit``). Phases 14-18 hold it: each QP path
 captured at B=2048 against its eager solve, bitwise, with the launch counts
-of a replay, the replay's time beside the eager solve's in turns and one
-replay's device idle share (14); kernel 2's ok-flag repair inside a graph
-against the eager repair, within the repair capacity and beyond it (15);
+of a replay, the replay's time beside the eager solve's in turns and, on
+the shipping path, one replay's device idle share (14); kernel 2's ok-flag
+repair inside a graph against the eager repair, within the repair capacity
+and beyond it (15);
 the one-card mesh's ``sharded_solve_fn`` against the captured solve (16);
 ``stage_timings_structured`` on the card (17); and kernel 2 against its
 library call, ``torch.linalg.cholesky_ex`` of the dense KKT matrix (18).
@@ -176,9 +177,23 @@ elements a thread) as a user sets it: kernels 2 and 3 timed, the captured
 shipping solve of the headline states (5/2/2/0, bitwise its eager solve,
 quality) and the JAX fixture ``torch_port_seg52_b64.npz``; (d) the first
 geometries past the pair layout refused naming the bytes of both its
-blocks, before any build. The plain kernel-3 loop of phases 19-30 replays
-each check window from a CUDA graph (``PlainWindows``), which phase 10
-holds bitwise against the eager loop.
+blocks, before any build. Every joint count kernel 1 takes (1 to 21) plans
+at 19 nodes: where one rank 1 cannot hold the pair layout's ring (16 to 21
+joints) the ring is spread over two or three ring ranks, a cluster of three
+or four blocks; where kernel 2's ring of the last bw nodes does not fit its
+block (20 and 21 joints) it is read back from device memory; at one joint
+kernel 3's block takes the warps its sweeps need. Phase 31 holds them: (a)
+the ring spread over two ranks at 14 joints x 12 bitwise its one-rank
+build, kernel 2's device ring bitwise its shared ring at 14 and 19 joints;
+(b) kernels 1-3 at 1, 16, 19, 20 and 21 joints against their plain
+versions, their blocks against the reckoning; (c) the seeded 21-joint chain
+(1198 variables, 1426 rows): kernel 3 timed, the captured shipping solve of
+its first B_SPREAD states (5/2/2/0, bitwise its eager solve) and the JAX
+fixture ``torch_port_chain21_b64.npz``; 1, 16, 19 and 20 joints solved
+eagerly; (d) the first grids past the spread ring at 16 and 21 joints
+refused. The plain kernel-3 loop of phases 19-31 replays each check window
+from a CUDA graph (``PlainWindows``), which phase 10 holds bitwise against
+the eager loop.
 Needs one CUDA GPU and ``nvcc``; imports no JAX.
 
     python3 chip_smoke.py
@@ -800,9 +815,10 @@ def captured_phases(paths, cur_all, tgt_all, first_qp, results, smi) -> None:
     # ---- phase 14: each path captured, against its eager solve ----
     for name, planner in paths.items():
         # the dense "xla" path (a PyTorch loop, 4 s a solve at B=2048) at
-        # B_XLA and one timing turn, to keep the script inside its time
+        # B_XLA, and every path but the shipping one in one timing turn, to
+        # keep the script inside its time
         B = B_XLA if name == "xla" else B_MAIN
-        turns = 1 if name == "xla" else 3
+        turns = 3 if name == "structured_pallas" else 1
         cur, tgt = cur_all[:B], tgt_all[:B]
         t0 = time.perf_counter()
         solve = capture_solve(planner, cur, tgt)
@@ -830,10 +846,10 @@ def captured_phases(paths, cur_all, tgt_all, first_qp, results, smi) -> None:
             torch.cuda.synchronize()
             times[mode].append(1e3 * (time.perf_counter() - t0))
         med = {k: float(np.median(v)) for k, v in times.items()}
-        # (the xla path's 86k device operations are not traced: its
-        # profiler run took ~20 s of the script)
+        # (only the shipping path is traced: the xla path's 86k device
+        # operations took ~20 s of the script under the profiler)
         traced = "not traced"
-        if name != "xla":
+        if name == "structured_pallas":
             r_ms, r_busy, r_idle, r_events = replay_idle_share(solve, cur, tgt)
             e_ms, e_busy, e_idle, _ = replay_idle_share(planner.solve, cur, tgt)
             traced = (f"one traced replay {r_ms:.2f} ms, device busy {r_busy:.2f} ms ({r_events} "
@@ -1086,9 +1102,15 @@ def kernel_checks(planner, first_qp, tag, states=None, hold_counts=True,
     ref = plain_structured_solve(ocp, sa4, args4, shipping, **kw)
     got = k3.solve_box_qp_structured_cuda(ocp, sa4, *args4, shipping, **kw)
     torch.cuda.synchronize()
-    ref64 = lambda: plain_structured_solve(
-        ocp64, sa4.to(dtype=torch.float64), [a.double() for a in args4], shipping,
-        **{k: v.double() for k, v in kw.items()})
+    solved64 = {}
+
+    def ref64():
+        if "sol" not in solved64:
+            solved64["sol"] = plain_structured_solve(
+                ocp64, sa4.to(dtype=torch.float64), [a.double() for a in args4], shipping,
+                **{k: v.double() for k, v in kw.items()})
+        return solved64["sol"]
+
     if hold_counts:
         agreement = iteration_agreement(got, ref, B4, f"{tag}: kernel 3", ref64)
     else:
@@ -1112,10 +1134,23 @@ def kernel_checks(planner, first_qp, tag, states=None, hold_counts=True,
     # transcription's QPs the plain float32 loop itself converges past it
     # (5.22e-3 on the same problem, well inside the primal tolerance that
     # convergence implies): where it does, the kernel is held to the plain
-    # loop's figure within 1%
-    check(box_viol < 5e-3 or box_viol <= 1.01 * box_p,
+    # loop's figure within 1%. Where iteration_agreement held the kernel's
+    # counts to the float64 solve's (the plain float32 loop stopping a check
+    # window away from float64 on these problems, so that its figure is
+    # another iterate's), the kernel is held to the float64 solve's figure
+    # within 1% instead (16 joints: the kernel and float64 stop at 375
+    # iterations, 7.18e-3 and 7.17e-3, the plain float32 loop at 400, 6.94e-3)
+    box_64 = None
+    if hold_counts and "sol" in solved64:
+        sol64 = solved64["sol"]
+        x64 = sol64.x.float()
+        box_64 = hard_row_ratio(x64, apply_A(ocp, sa4, x64), lc, uc, lx, ux, kw["soft_c"],
+                                kw["soft_x"], shipping, sol64.converged)[0]
+    box_bar = box_p if box_64 is None else box_64
+    check(box_viol < 5e-3 or box_viol <= 1.01 * box_bar,
           f"{tag}: kernel 3 converged problems violate hard box rows by {box_viol}, the "
-          f"plain loop by {box_p}")
+          f"plain loop by {box_p}" + ("" if box_64 is None else f", the float64 solve by "
+                                      f"{box_64}"))
     check(hard_ratio <= 1.01, f"{tag}: kernel 3 converged problems violate hard rows by "
           f"{hard_ratio:.3f}x the tolerance")
     summary = (
@@ -1123,9 +1158,10 @@ def kernel_checks(planner, first_qp, tag, states=None, hold_counts=True,
         f"x_float64| kernel {e_k:.3e}, plain {e_p:.3e} (bar: kernel <= 2x plain), max "
         f"|x_kernel - x_plain| {max_abs(x_k, x_p):.3e}; sweeps' order {e_order:.2e} "
         f"relative (tol 1e-4); full solve: {agreement}, hard box-row violation "
-        f"{box_viol:.2e} (tol 5e-3, or the plain loop's within 1% where it misses 5e-3; "
-        f"plain {box_p:.2e}), hard-row violation {hard_ratio:.3f}x the primal tolerance "
-        f"(bar 1.01; plain {hard_p:.3f}x)")
+        f"{box_viol:.2e} (tol 5e-3, or the plain loop's within 1% where it misses 5e-3, "
+        f"float64's where the counts are held to float64; plain {box_p:.2e}"
+        + ("" if box_64 is None else f", float64 {box_64:.2e}") + f"), hard-row violation "
+        f"{hard_ratio:.3f}x the primal tolerance (bar 1.01; plain {hard_p:.3f}x)")
     return summary, max_abs(x_k, x_p)
 
 
@@ -1245,7 +1281,8 @@ def time_factor(qp, g, e2, tag, phase, library_batch=None) -> None:
     library_factor(qp, e2, f"{phase} at {tag}:", library_batch)
 
 
-def kernel3_timing(pl, first_qp, states, tag, phase, batch=B_MAIN, plain=True) -> None:
+def kernel3_timing(pl, first_qp, states, tag, phase, batch=B_MAIN, plain=True,
+                   entry=None) -> None:
     """Kernel 3 built for ``pl``'s geometry on the step-0 QPs of the first
     ``batch`` of ``states`` (default the headline's): one launch at the full
     budget against its bound (``k3_iter_flops`` of the problem-iterations it
@@ -1253,7 +1290,8 @@ def kernel3_timing(pl, first_qp, states, tag, phase, batch=B_MAIN, plain=True) -
     plain loop's time (check windows replayed from a CUDA graph,
     :class:`PlainWindows`; ``kernel_checks`` holds the kernel to that loop);
     then three launches of exactly one check window, µs per iteration per
-    block, or per cluster of two blocks, over the waves the card runs."""
+    block, or per cluster, over the waves the card runs. ``entry``: a
+    ``results`` entry that takes the times and the bound."""
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
@@ -1281,6 +1319,12 @@ def kernel3_timing(pl, first_qp, states, tag, phase, batch=B_MAIN, plain=True) -
         p_text = f", plain {p_ms:.3f} ms"
     s_win = dataclasses.replace(shipping, max_iter=shipping.check_every, rescue_iters=0)
     w_ms = time_kernel(lambda: k3.admm_kernel(ocp, sa, qp, fac, s_win), reps=3)
+    if entry is not None:  # max_abs_err as phase 4's: one check window against the plain loop
+        entry.update(ms=k_ms, plain_ms=p_ms if plain else None, batch=batch, max_abs_err=max_abs(
+            k3.admm_kernel(ocp, sa, qp, fac, s_win)[0],
+            qp_structured.admm_plain(ocp, sa, qp, fac, s_win)[0]))
+        report_bound(entry, iters * flops, nbytes, "")
+        p_text += f", one window's max |x_kernel - x_plain| {entry['max_abs_err']:.3e}"
     at_once, unit = problems_at_once(g)
     waves = -(-batch // at_once)
     log(f"{phase} kernel 3 B={batch}, {tag}, step-0 QP, budget {shipping.max_iter} + "
@@ -1292,7 +1336,7 @@ def kernel3_timing(pl, first_qp, states, tag, phase, batch=B_MAIN, plain=True) -
 
 
 def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, states=None,
-                            library_batch=None, batch=B_MAIN, hold_counts=True):
+                            library_batch=None, batch=B_MAIN, hold_counts=True, factor=True):
     """Kernels 2 and 3 built for ``pl``'s geometry, timed at B=``batch``
     (2048 but where a phase names less) on its step-0 QPs (of ``states``,
     default the headline's) against their plain versions (kernel 2 in turns
@@ -1306,7 +1350,8 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
     ``banded_factor_<suffix>`` and ``structured_admm_<suffix>``
     (``window_err``: kernel 3's ``max_abs_err`` from ``kernel_checks``;
     ``library_batch``: the batch of kernel 2's library call where B=2048 does
-    not fit)."""
+    not fit; ``factor`` False: kernel 2 is not timed here, its entry is
+    another call's)."""
     from mpc_motion_planner_tpu_torch import kernels
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
@@ -1317,7 +1362,7 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
     ocp, shipping = pl.ocp, pl.qp_settings
     g = Geometry.of_ocp(ocp)
     tag = suffix.replace("_", " ")
-    for name in ("banded_factor", "structured_admm"):
+    for name in ("banded_factor", "structured_admm")[not factor:]:
         k = kernels.KERNELS[name]
         results[f"{name}_{suffix}"] = {
             "name": f"{name}_{suffix}", "route": "cuda",
@@ -1331,7 +1376,8 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
 
     _, sa, args, sc, sx = first_qp(batch, pl=pl, states=states)
     qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
-    time_factor(qp, g, results[f"banded_factor_{suffix}"], tag, phase, library_batch)
+    if factor:
+        time_factor(qp, g, results[f"banded_factor_{suffix}"], tag, phase, library_batch)
     fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, g.order)
     # the plain loop takes seconds, so it runs once: the kernel and the plain
     # loop, timed, and the outputs of those calls held
@@ -1394,7 +1440,7 @@ def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, st
 def problems_at_once(g):
     """How many problems kernel 3 built for ``g`` runs at a time on this card
     and what runs one: the SMs times its blocks per SM, a block each, or (the
-    pair layout) the clusters of two blocks the card places at a time."""
+    pair layout) the clusters the card places at a time."""
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1414,8 +1460,8 @@ def launches_of(counts) -> dict:
 def captured_shipping(pl, cur, tgt, tag, suffix, phase, note, results, names, smi,
                       launches=SHIPPING_LAUNCHES, hold_quality=True, turns=3) -> None:
     """A phase's main path: ``pl``'s shipping solve of (cur, tgt) captured
-    at B=2048, with the launches of one replay (``launches``: 5/2/2/0, or
-    0/2/2/0 under fused_constraints="off"; set as the
+    at their batch (2048 but in phase 31), with the launches of one replay
+    (``launches``: 5/2/2/0, or 0/2/2/0 under fused_constraints="off"; set as the
     ``launches`` of the ``results`` entries ``<name>_<suffix>`` of ``names``),
     finite outputs of the OCP's shape, bitwise its eager solve on the seven
     fields, no eager re-solve, the quality bars (``qp_conv_rate`` >= 0.98,
@@ -1444,7 +1490,8 @@ def captured_shipping(pl, cur, tgt, tag, suffix, phase, note, results, names, sm
     for name in names:
         results[f"{name}_{suffix}"]["launches"] = counts[name]
     finite = all(bool(torch.isfinite(t).all()) for t in (got.z, got.violation, got.lam_c, got.lam_x))
-    check(finite and got.z.shape == (B_MAIN, pl.ocp.num_var),
+    B = cur.shape[0]
+    check(finite and got.z.shape == (B, pl.ocp.num_var),
           f"{tag}: non-finite or misshapen outputs")
     t0 = time.perf_counter()
     ref = pl.solve(cur, tgt)
@@ -1465,14 +1512,14 @@ def captured_shipping(pl, cur, tgt, tag, suffix, phase, note, results, names, sm
         torch.cuda.synchronize()
         times[mode].append(1e3 * (time.perf_counter() - t0))
     med = {k: float(np.median(v)) for k, v in times.items()}
-    log(f"{phase} captured shipping solve at {tag}, B={B_MAIN} ({note}): capture "
+    log(f"{phase} captured shipping solve at {tag}, B={B} ({note}): capture "
         f"{t_capture:.2f} s; launches per replay {counts}, kernel-2 flags {repairs}; {held} "
         f"against the eager solve (7 fields); quality {json.dumps(q)}"
         + ("" if hold_quality else " (read, not held)"))
     log(f"{phase} timing at {tag}, median of {max(turns, 1)} in turns: replay "
         f"{med['replay']:.2f} ms = "
-        f"{B_MAIN / med['replay'] * 1e3:.1f} solves/s, eager {med['eager']:.2f} ms = "
-        f"{B_MAIN / med['eager'] * 1e3:.1f} solves/s (replays "
+        f"{B / med['replay'] * 1e3:.1f} solves/s, eager {med['eager']:.2f} ms = "
+        f"{B / med['eager'] * 1e3:.1f} solves/s (replays "
         f"{[round(t, 2) for t in times['replay']]}, eager {[round(t, 2) for t in times['eager']]}) "
         f"on {smi}")
     del solve, got, ref
@@ -1535,20 +1582,24 @@ def block_summary(g, kernel2=True) -> str:
              "rank_bytes": k3.rank_bytes(built) if paired else (0, 0)}
     check({k: lay3[k] for k in want3} == want3 and (lay3["active_clusters"] > 0) == paired,
           f"kernel 3 at {built}: the library's block {lay3}, the reckoning {want3}")
+    ranks = lay3["rank_bytes"]
     text = (f"kernel 3 {lay3['threads']} threads ({k3.sweep_warps(g)} sweep warps), "
             f"{lay3['smem_bytes']} B in the {built.layout} layout ("
             + ", ".join(f"{name} {k3.smem_bytes(g, name)}" for name in LAYOUTS)
             + f" B), {lay3['blocks_per_sm']} block per SM"
-            + (f"; a cluster of two blocks a problem, rank 0 {lay3['rank_bytes'][0]} B, rank 1 "
-               f"{lay3['rank_bytes'][1]} B, {lay3['active_clusters']} clusters at a time "
+            + (f"; a cluster of {len(ranks)} blocks a problem, "
+               + ", ".join(f"rank {i} {b} B" for i, b in enumerate(ranks))
+               + f", {lay3['active_clusters']} clusters at a time "
                f"(cudaOccupancyMaxActiveClusters)" if paired else ""))
     if not kernel2:
         return text + "; the reckoning agrees"
     lay2 = k2.block_layout(g)
-    want2 = {"smem_bytes": k2.smem_bytes(g), "per_sm": k2.per_sm(g)}
+    want2 = {"smem_bytes": k2.smem_bytes(g), "per_sm": k2.per_sm(g),
+             "staged": k2.staged_nodes(g)}
     check({k: lay2[k] for k in want2} == want2 and lay2["blocks_per_sm"] >= lay2["per_sm"],
           f"kernel 2 at {g}: the library's block {lay2}, the reckoning {want2}")
-    return (text + f"; kernel 2 {lay2['smem_bytes']} B, registers capped for "
+    return (text + f"; kernel 2 {lay2['smem_bytes']} B with its {k2.choose_ring(g)} ring, "
+            f"{lay2['staged']} nodes staged, registers capped for "
             f"{lay2['per_sm']} problems per SM, {lay2['blocks_per_sm']} per SM by the occupancy "
             f"calculator; the reckoning agrees")
 
@@ -1607,7 +1658,7 @@ def transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> N
     # ---- the main path at 25 nodes: the captured shipping solve ----
     captured_shipping(pl25, cur_all, tgt_all, "25 nodes", "25_nodes", "phase 19",
                       "headline states", results, ("banded_factor", "structured_admm"), smi,
-                      turns=1)
+                      turns=0)
 
     # ---- the JAX fixture at 8 segments, through the kernels ----
     n_good, n_tf, n_fx, summary = fixture_agreement(pl25, SEG8_FIXTURE, dev)
@@ -1682,7 +1733,7 @@ def chain_planner(planner, nq: int, fused=None, segments=None):
     return pl, cur, tgt
 
 
-def kernel1_check(pl, results, phase, busy) -> None:
+def kernel1_check(pl, results, phase, busy, reps=3) -> None:
     """Kernel 1 built for ``pl``'s joint count against its plain version on
     seeded iterates of B_MAIN x 19 nodes, timed in turns and on the device's
     clock (queued behind ``busy``), into the ``results`` entry
@@ -1691,7 +1742,8 @@ def kernel1_check(pl, results, phase, busy) -> None:
     within those tolerances of a float64 run (10 joints: torques up to 162
     on these iterates), the kernel is held to float64 instead, no further
     from it than twice the plain float32 values (kernel 3's one-window
-    rule)."""
+    rule). ``reps``: calls of each in a turn of the timing (0: the kernel in
+    one turn of three calls, the plain version once, unwarmed)."""
     from mpc_motion_planner_tpu_torch.kernels import constraints as k1
     from mpc_motion_planner_tpu_torch.ocp import make_ocp
 
@@ -1701,9 +1753,13 @@ def kernel1_check(pl, results, phase, busy) -> None:
     xu = (lo_xu + 2 * (-lo_xu) * torch.rand(B_MAIN, 19, 3 * nq, generator=gen)).to(dev)
     X, U = xu[..., :2 * nq].contiguous(), xu[..., 2 * nq:].contiguous()
     out = {}
-    p_ms, k_ms, raw = time_pair(
-        lambda: out.__setitem__("plain", k1.node_constraints_plain(pl.ocp, X, U, True)),
-        lambda: out.__setitem__("kernel", k1.node_constraints_kernel(pl.ocp, X, U, True)))
+    plain = lambda: out.__setitem__("plain", k1.node_constraints_plain(pl.ocp, X, U, True))
+    kernel = lambda: out.__setitem__("kernel", k1.node_constraints_kernel(pl.ocp, X, U, True))
+    if reps:
+        p_ms, k_ms, raw = time_pair(plain, kernel, reps)
+    else:
+        k_ms, p_ms = time_kernel(kernel), time_kernel(plain, reps=1, warm=False)
+        raw = {"plain": [p_ms], "kernel": [k_ms]}
     (g_k, J_k), (g_p, J_p) = out["kernel"], out["plain"]
     gv_k = k1.node_constraints_kernel(pl.ocp, X, U, False)
     ocp64 = make_ocp(pl.model.to(dtype=torch.float64), pl.tool_frame)
@@ -1872,7 +1928,7 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     # ---- (b) the 6-joint planner: the captured shipping solve ----
     captured_shipping(pl6, cur6, tgt6, "6 joints", "6_joints", "phase 20",
                       "headline states, joint 7 dropped", results,
-                      ("constraints", "banded_factor", "structured_admm"), smi, turns=1)
+                      ("constraints", "banded_factor", "structured_admm"), smi, turns=0)
     eager_shipping(pl8, cur8, tgt8, "the 8-joint chain (seeded states)", "8_joints", "phase 20",
                    results)
 
@@ -2056,7 +2112,7 @@ def order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     pl4 = with_order(4, 4)
     captured_shipping(pl4, cur_all, tgt_all, "order 4", "order4", "phase 21",
                       "headline states, 4 segments of order 4, 17 nodes", results,
-                      ("banded_factor", "structured_admm"), smi, turns=1)
+                      ("banded_factor", "structured_admm"), smi, turns=0)
 
     # ---- (d) the JAX fixture at order 4, through the kernels ----
     n_good, n_tf, n_fx, summary = fixture_agreement(pl4, ORDER4_FIXTURE, dev)
@@ -2118,17 +2174,20 @@ def transcription_planner(planner, order, segments):
 
 
 def hold_layouts(pl, first_qp, base, other, entry, phase, smi, states=None,
-                 turns=2) -> None:
+                 turns=2, batch=B_MAIN, ranks=None) -> None:
     """Kernel 3 at ``pl``'s geometry built in the layout ``other`` (named in
     the geometry; planners never do) against the build in ``base``, on the
     step-0 QPs of the headline states (``states``: another robot's) at
-    B=2048, at the full budget and at one check window: all nine outputs
+    B=``batch`` (2048 but where a phase names less), at the full budget and
+    at one check window: all nine outputs
     bitwise equal, times in turns (base, other, other, base, or with
     ``turns`` 1 base, other; one call each at the full budget, with no
     warm-up call before it where ``turns`` is 1, three at one window, one
     where ``turns`` is 1), into ``entry`` as
     ``<other>_<label>_ms``, ``<base>_<label>_ms`` and
-    ``<other>_<label>_bitwise_<base>``."""
+    ``<other>_<label>_bitwise_<base>``. ``ranks``: ``other`` (the pair
+    layout) with its ring spread over that many ranks, named
+    ``<other>_<ranks>_ranks``."""
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
@@ -2137,28 +2196,34 @@ def hold_layouts(pl, first_qp, base, other, entry, phase, smi, states=None,
     shipping, ocp = pl.qp_settings, pl.ocp
     tag = f"{ocp.num_nodes} nodes of order {ocp.coll.order}" + (
         f" and {ocp.nq} joints" if ocp.nq != 7 else "")
-    _, sa, args, sc, sx = first_qp(B_MAIN, pl=pl, states=states)
+    _, sa, args, sc, sx = first_qp(batch, pl=pl, states=states)
     qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
     fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, ocp.coll.order)
     s_win = dataclasses.replace(shipping, max_iter=shipping.check_every, rescue_iters=0)
     names = ("x", "zc", "zx", "yc", "yx", "done", "iters", "rp", "rd")
+    builds = {base: {"layout": base}}
+    if ranks is None:
+        builds[other] = {"layout": other}
+    else:
+        builds[f"{other}_{ranks}_ranks"] = {"layout": other, "ranks": ranks}
+        other = f"{other}_{ranks}_ranks"
     for label, settings in (("budget", shipping), ("window", s_win)):
         out, times = {}, {base: [], other: []}
         for lay in (base, other, other, base)[:2 * turns]:
             def call(lay=lay):
-                out[lay] = k3.admm_kernel(ocp, sa, qp, fac, settings, layout=lay)
+                out[lay] = k3.admm_kernel(ocp, sa, qp, fac, settings, **builds[lay])
             times[lay].append(time_kernel(call, reps=1 if label == "budget" or turns == 1 else 3,
                                           warm=label != "budget" or turns > 1))
         differ = [n for n, a, b in zip(names, out[base], out[other]) if not torch.equal(a, b)]
         check(not differ, f"{tag}, {label}: the {other} layout differs from the {base} one "
               f"in {differ}")
         ms = {k: float(np.mean(v)) for k, v in times.items()}
-        at_once = {lay: problems_at_once(dataclasses.replace(Geometry.of_ocp(ocp), layout=lay))
+        at_once = {lay: problems_at_once(dataclasses.replace(Geometry.of_ocp(ocp), **builds[lay]))
                    for lay in (base, other)}
-        us = {k: 1e3 * v / settings.max_iter / -(-B_MAIN // at_once[k][0]) for k, v in ms.items()}
+        us = {k: 1e3 * v / settings.max_iter / -(-batch // at_once[k][0]) for k, v in ms.items()}
         entry.update({f"{other}_{label}_ms": ms[other], f"{base}_{label}_ms": ms[base],
                       f"{other}_{label}_bitwise_{base}": True})
-        log(f"{phase} {other} against {base} at {tag}, B={B_MAIN}, {settings.max_iter} "
+        log(f"{phase} {other} against {base} at {tag}, B={batch}, {settings.max_iter} "
             f"iterations: all {len(names)} outputs bitwise equal "
             f"({int(out[other][6].sum())} problem-iterations); {base} {ms[base]:.3f} ms, "
             f"{other} {ms[other]:.3f} ms ({100 * (ms[other] / ms[base] - 1):+.2f}%; "
@@ -2232,7 +2297,7 @@ def split_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     time_structured_kernels(pl46, first_qp, results, "order4x6", "phase 22", window_err)
     captured_shipping(pl46, cur_all, tgt_all, "order 4 x 6", "order4x6", "phase 22",
                       "headline states, 6 segments of order 4, 25 nodes", results,
-                      ("banded_factor", "structured_admm"), smi, turns=1)
+                      ("banded_factor", "structured_admm"), smi, turns=0)
     n_good, n_tf, n_fx, summary = fixture_agreement(pl46, ORDER4S6_FIXTURE, dev)
     check(n_good == n_fx, f"order 4 x 6: {n_good}/{n_fx} fixture problems agree")
     log(f"phase 22 JAX fixture at order 4 x 6: {summary}")
@@ -2330,7 +2395,7 @@ def stream_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     time_structured_kernels(pl12, first_qp, results, "seg12", "phase 23", window_err)
     captured_shipping(pl12, cur_all, tgt_all, "12 segments", "seg12", "phase 23",
                       "headline states, 12 segments of order 3, 37 nodes", results,
-                      ("banded_factor", "structured_admm"), smi, turns=1)
+                      ("banded_factor", "structured_admm"), smi, turns=0)
     # every final time within 1e-3; the whole agreement (qp_converged too) by
     # phase 19's bar for float32 against a float64 fixture: at 37 nodes the
     # port's plain float32 path also leaves one QP unconverged that the JAX
@@ -2520,7 +2585,7 @@ def ept_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     time_structured_kernels(pl15, first_qp, results, "seg15", "phase 24", window_err)
     captured_shipping(pl15, cur_all, tgt_all, "15 segments", "seg15", "phase 24",
                       "headline states, 15 segments of order 3, 46 nodes", results,
-                      ("banded_factor", "structured_admm"), smi, turns=1)
+                      ("banded_factor", "structured_admm"), smi, turns=0)
     # phase 23's rule
     n_good, n_tf, n_fx, summary = fixture_agreement(pl15, SEG15_FIXTURE, dev)
     check(n_good >= n_fx - 4 and n_tf == n_fx,
@@ -2643,7 +2708,7 @@ def lean_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     time_structured_kernels(pl20, first_qp, results, "seg20", "phase 25", window_err)
     captured_shipping(pl20, cur_all, tgt_all, "20 segments", "seg20", "phase 25",
                       "headline states, 20 segments of order 3, 61 nodes", results,
-                      ("banded_factor", "structured_admm"), smi, turns=1)
+                      ("banded_factor", "structured_admm"), smi, turns=0)
     # phase 23's rule
     n_good, n_tf, n_fx, summary = fixture_agreement(pl20, SEG20_FIXTURE, dev)
     check(n_good >= n_fx - 4 and n_tf == n_fx,
@@ -2855,7 +2920,7 @@ def hand_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     captured_shipping(pl, cur, tgt, "the hand", "hand", "phase 27",
                       "headline states, fingers 0.01 -> 0.03 m", results,
                       ("banded_factor", "structured_admm"), smi, launches=UNFUSED_LAUNCHES,
-                      turns=1)
+                      turns=0)
 
     # ---- (c) the JAX fixture, phase 23's rule ----
     n_good, n_tf, n_fx, summary = fixture_agreement(pl, HAND9_FIXTURE, dev)
@@ -3213,7 +3278,8 @@ def joints_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
         qp = qp_structured.scale_qp(pl.ocp, sa, *args, pl.qp_settings, soft_c=sc, soft_x=sx)
         time_factor(qp, g, {}, f"{nq} joints, 19 nodes", "phase 29 (b)")
         if nq == 14:
-            kernel3_timing(pl, first_qp, (cur, tgt), "14 joints, 19 nodes (far)", "phase 29 (b)")
+            kernel3_timing(pl, first_qp, (cur, tgt), "14 joints, 19 nodes (far)", "phase 29 (b)",
+                           plain=False)
         del sa, args, sc, sx, qp
     for tag, g in [(f"12 joints, {g.nodes} nodes ({name})", g) for name, g in twelve.items()] \
             + [("11 joints, 19 nodes (stream)", others["11_joints"])]:
@@ -3230,7 +3296,7 @@ def joints_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
         if g == twelve["lean"]:
             lean_err = window_err
         else:  # the main path's bound is time_structured_kernels', (c)
-            kernel3_timing(pl, first_qp, (cur, tgt), tag, "phase 29 (b)")
+            kernel3_timing(pl, first_qp, (cur, tgt), tag, "phase 29 (b)", plain=False)
         del pl, cur, tgt
 
     # ---- (c) the main path: the 12-joint chain at 19 nodes ----
@@ -3246,7 +3312,7 @@ def joints_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     captured_shipping(pl12, cur12, tgt12, "the 12-joint chain", "12_joints", "phase 29 (c)",
                       "the chain's seeded states, 19 nodes", results,
                       ("constraints", "banded_factor", "structured_admm"), smi,
-                      hold_quality=False, turns=1)
+                      hold_quality=False, turns=0)
     counts = {}
     n_good, n_tf, n_fx, summary = fixture_agreement(pl12, CHAIN12_FIXTURE, dev, counts)
     n_tf32 = jax_float32_final_times(CHAIN12_FIXTURE)
@@ -3267,8 +3333,8 @@ def joints_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     torch.cuda.empty_cache()
 
 
-# the eager solves and the kernel-3 timing of phase 30's geometries other
-# than its main path: two waves of the card's 66 clusters of two blocks
+# the eager solves of phase 30's geometries other than its main path: two
+# waves of the card's 66 clusters of two blocks
 B_PAIR = 132
 
 
@@ -3328,7 +3394,8 @@ def pair_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     1's shared memory), taken where the deep block does not fit one SM.
     (a) Built in the pair layout at 32 and 51 segments of order 3 and at 12
     joints x 12 (where the deep layout fits) against the deep build at
-    B=2048: all nine outputs bitwise at the full budget and at one window,
+    B=2048 (51 x 3 at B_ONE_ROW): all nine outputs bitwise at the full
+    budget and at one window,
     times in turns, with ptxas's registers and spill stores of both. (b) The
     seven geometries the deep layout refused: 52 x 3 (157 nodes, five
     elements a thread), order 4 x 34 (137), seeded chains of 9 joints x 37
@@ -3337,11 +3404,11 @@ def pair_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     Python reckoning (each rank's bytes, the clusters at a time), kernels 2
     and 3 against their plain versions (``kernel_checks``; at 121 nodes and
     more the full solve's iteration counts read against the plain float32
-    loop, not held, as phase 28 does), and, but the main path, kernel 3
-    timed and an eager shipping solve of the first B_PAIR states
-    (5/2/2/0). (c) The main path: the Panda at 52 segments of order 3 (157
-    nodes, 3298 variables, 4168 rows) set as a user sets it: kernels 2 and
-    3 timed at B=512 with their bounds and kernel 2's library call (the full
+    loop, not held, as phase 28 does), and, but the main path, an eager
+    shipping solve of the first B_PAIR states (5/2/2/0). (c) The main path:
+    the Panda at 52 segments of order 3 (157 nodes, 3298 variables, 4168
+    rows) set as a user sets it: kernels 2 and
+    3 timed at B=256 with their bounds and kernel 2's library call (the full
     solve's iteration counts read against the plain float32 loop, not
     held), the captured shipping solve of the headline
     states (5/2/2/0, bitwise its eager solve, quality: from 122 nodes the
@@ -3367,9 +3434,12 @@ def pair_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
         log(f"phase 30 (a) libraries at {tag} in the pair layout: "
             f"{block_summary(g, kernel2=False)}; {ptxas_report(k3.KERNEL, g)}; the deep build: "
             f"{ptxas_report(k3.KERNEL, dataclasses.replace(g, layout=None))}")
-        # only 32 x 3 has an entry of its own in the kernels line (phase 28's)
+        # only 32 x 3 has an entry of its own in the kernels line (phase 28's);
+        # 51 x 3 at B_ONE_ROW (four waves of the card), to keep the script
+        # inside its time
         hold_layouts(pl, first_qp, "deep", "pair", results.get(f"structured_admm_{suffix}", {}),
-                     "phase 30 (a)", smi, states, turns=1)
+                     "phase 30 (a)", smi, states, turns=1,
+                     batch=B_ONE_ROW if suffix == "seg51" else B_MAIN)
         del pl, states
 
     # ---- (b) the seven geometries that take the pair layout ----
@@ -3389,7 +3459,6 @@ def pair_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
                                                      read_float64=False)
         log(f"phase 30 (b) at {tag} (pair layout), {summary}")
         if suffix != "seg52":
-            kernel3_timing(pl, first_qp, states, tag, "phase 30 (b)", B_PAIR, plain=False)
             cur, tgt = states if states is not None else (cur_all, tgt_all)
             eager_shipping(pl, cur[:B_PAIR], tgt[:B_PAIR],
                            f"{tag} ({'headline' if states is None else 'seeded'} states)",
@@ -3407,10 +3476,11 @@ def pair_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
           and pl52.qp_settings.kkt_refine == 1,
           f"52 segments: {ocp.num_nodes} nodes, {ocp.num_var} variables, {built}, "
           f"kkt_refine {pl52.qp_settings.kkt_refine}")
-    # at B=512 (the plain loop takes 43 s at B=2048 on an H100); its
-    # iteration counts read, not held, as at 121 nodes in phase 28
+    # at B=256, four waves of the card's 66 clusters (the plain loop takes
+    # 43 s at B=2048 on an H100, 22 s at 512); its iteration counts read,
+    # not held, as at 121 nodes in phase 28
     time_structured_kernels(pl52, first_qp, results, "seg52", "phase 30 (c)",
-                            window_err["seg52"], batch=B_MAIN // 4, hold_counts=False)
+                            window_err["seg52"], batch=B_MAIN // 8, hold_counts=False)
     captured_shipping(pl52, cur_all, tgt_all, "52 segments", "seg52", "phase 30 (c)",
                       "headline states, 52 segments of order 3, 157 nodes", results,
                       ("banded_factor", "structured_admm"), smi, turns=0)
@@ -3443,6 +3513,248 @@ def pair_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
             pl, cur, tgt = chain_planner(planner, g.nq, fused="off", segments=g.segments)
             tag = f"{g.nq} joints, {g.nodes} nodes"
         refusal(pl, cur[:4], tgt[:4], tag, "phase 30 (d)")
+        del pl, cur, tgt
+    torch.cuda.empty_cache()
+
+
+# phase 31's batch of the 21-joint chain's captured solve and fixture-free
+# timing, and of the eager solves at 16, 19 and 20 joints: four waves of the
+# 33 clusters of four blocks the card places at 21 joints
+B_SPREAD = 132
+# the JAX structured solve of the seeded 21-joint chain's first 64 states at
+# 19 nodes, with the JAX float32 solve's final times
+# (make_chain12_fixture.py --joints 21)
+CHAIN21_FIXTURE = os.path.join(FIXTURES, "torch_port_chain21_b64.npz")
+
+
+def spread_geometries():
+    """Phase 31's geometries: (a) kernel 3's pair layout forced to spread
+    its ring over two ranks where one holds it (14 joints x 12, 37 nodes)
+    and kernel 2 forced to read its ring back from device memory where the
+    shared ring fits (14 and 19 joints at 19 nodes); (b) the seeded chains
+    that take the new builds at 19 nodes, by joint count: one joint (kernel
+    3's block takes more warps than its elements fill), kernel 3's pair
+    layout with its ring spread from 16 joints, kernel 2's device ring from
+    20; (d) the first grids past the pair layout at 16 and 21 joints."""
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    held = Geometry(12, 3, 14, layout="pair", ranks=2)
+    rings = (Geometry(nq=14, ring="device"), Geometry(nq=19, ring="device"))
+    chains = (1, 16, 19, 20, 21)
+    refused = (Geometry(21, 3, 16), Geometry(13, 3, 21))
+    return held, rings, chains, refused
+
+
+def spread_builds():
+    """Phase 31's libraries: kernel 3's ring spread over two ranks at 14
+    joints x 12 (the one-rank build there is phase 30's), kernel 2 with the
+    device ring at 14
+    and 19 joints (the shared ones are phase 29's and the chains'), and
+    kernels 1-3 at 19 nodes of the chains of 1, 16, 19, 20 and 21 joints."""
+    from mpc_motion_planner_tpu_torch import kernels
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    held, rings, chains, _ = spread_geometries()
+    k2, k3 = kernels.KERNELS["banded_factor"], kernels.KERNELS["structured_admm"]
+    return ([("structured_admm", k3, held)] + [("banded_factor", k2, g) for g in rings]
+            + [(name, kernels.KERNELS[name], Geometry(nq=nq)) for nq in chains
+               for name in ("constraints", "banded_factor", "structured_admm")])
+
+
+def hold_rings(pl, first_qp, states, entry, phase, smi, batch=4 * B_SPREAD) -> None:
+    """Kernel 2 at ``pl``'s geometry built with the device ring against its
+    build with the shared ring, on the step-0 QPs of the first ``batch`` of
+    ``states`` (four waves of the card at one problem an SM):
+    all five outputs bitwise equal, times in turns (shared, device, device,
+    shared), into ``entry`` as ``shared_ms``, ``device_ms`` and
+    ``device_bitwise_shared``."""
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+    from mpc_motion_planner_tpu_torch.ops import qp_structured
+
+    ocp = pl.ocp
+    _, sa, args, sc, sx = first_qp(batch, pl=pl, states=states)
+    qp = qp_structured.scale_qp(ocp, sa, *args, pl.qp_settings, soft_c=sc, soft_x=sx)
+    out, times = {}, {"shared": [], "device": []}
+    for ring in ("shared", "device", "device", "shared"):
+        def call(ring=ring):
+            out[ring] = k2.factor_banded_kernel(qp.Mband, qp.p_col, qp.m_pp, ring=ring)
+        times[ring].append(time_kernel(call, reps=3))
+    differ = [k for k in out["shared"] if not torch.equal(out["shared"][k], out["device"][k])]
+    check(not differ, f"{ocp.nq} joints: kernel 2's device ring differs from the shared one "
+          f"in {differ}")
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    entry.update(shared_ms=ms["shared"], device_ms=ms["device"], device_bitwise_shared=True)
+    g = Geometry.of_ocp(ocp)
+    log(f"{phase} kernel 2 at {ocp.nq} joints, 19 nodes, B={batch}: the device ring "
+        f"({k2.smem_bytes(g, 'device')} B, {k2.staged_nodes(g, 'device')} nodes staged) against "
+        f"the shared one ({k2.smem_bytes(g, 'shared')} B): Ldi, Lsub, u, s and ok bitwise equal "
+        f"({int(out['shared']['ok'].sum())}/{batch} ok); shared {ms['shared']:.3f} ms, device "
+        f"{ms['device']:.3f} ms ({100 * (ms['device'] / ms['shared'] - 1):+.2f}%; runs "
+        f"{times}); {ptxas_report(k2.KERNEL, dataclasses.replace(g, ring='device'))} against "
+        f"{ptxas_report(k2.KERNEL, g)} on {smi}")
+    del sa, args, sc, sx, qp, out
+
+
+def spread_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
+    """Phase 31: every joint count kernel 1 takes (up to 21) at the
+    headline's 19 nodes. Kernel 3's pair layout with its ring spread over
+    ranks 1..R of a cluster of 1 + R blocks, whole slots a rank (R = 2 at 16
+    to 20 joints, 3 at 21), where one rank 1 cannot hold the ring; kernel
+    2's device ring: the sub-diagonal blocks of the last bw nodes read back
+    from device memory where the block wrote them, taken where the shared
+    ring does not fit (20 and 21 joints). (a) Kernel 3's ring spread over
+    two ranks at 14 joints x 12 against its one-rank build at B=264, all
+    nine outputs bitwise at the full budget and at one window (ptxas of
+    both); kernel 2 with the device ring against the shared one at 14 and
+    19 joints, B=528, all five outputs bitwise. (b)
+    Each new build against its plain version, with its block against the
+    Python reckoning (each rank's bytes, the clusters at a time) and ptxas's
+    registers and spills, at 1, 16, 19, 20 and 21 joints: kernel 1 (phase
+    2's bars or the float64 rule), kernel 2 (phase 3's bars, timed with its
+    bound and its library call, the device ring at 20 and 21 joints at
+    B=2048, the others at B_SPREAD), kernel 3 at 1, 16 and 21 joints
+    (``kernel_checks``: phase 4's bars, ``iteration_agreement`` with its
+    float64 rule) and timed at 1, 16, 19 and 20 joints at B_SPREAD.
+    (c) The main path: the seeded 21-joint chain (``bench/convergence.py``
+    ``chain(21, ...)``, 1198 variables, 1426 rows) at B_SPREAD: kernel 3
+    timed against its plain loop with its bound, the captured shipping
+    solve (5/2/2/0, bitwise its eager solve; quality read, not held: the
+    seeded chains' QPs do not converge within the budgets, at float64
+    either), and the JAX fixture ``torch_port_chain21_b64.npz``: final
+    times within 1e-3 relative on no fewer states than the JAX float32
+    solve, ``qp_converged`` the same on all but 64/32; eager solves of the
+    1-joint chain, the 16-joint chain (a cluster of three), the 19- and the
+    20-joint chain (kernel 2's device ring). (d) The first grids past the pair layout at
+    16 and 21 joints refused naming each rank's bytes, before any build."""
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.kernels import constraints as k1
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+    from mpc_motion_planner_tpu_torch.ops import qp_structured
+
+    dev = cur_all.device
+    held, rings, chains, refused = spread_geometries()
+    build_libraries(spread_builds(), "phase 31")
+    for name, k in (("constraints", k1.KERNEL), ("banded_factor", k2.KERNEL),
+                    ("structured_admm", k3.KERNEL)):
+        for nq in chains:
+            results[f"{name}_{nq}_joints"] = {
+                "name": f"{name}_{nq}_joints", "route": "cuda",
+                "source": f"mpc_motion_planner_tpu_torch/csrc/{k.source}",
+                "replaces": REPLACES[name]}
+
+    # ---- (a) the ring spread against one ring rank, the device ring
+    # against the shared one, bitwise ----
+    pl14, states14 = pair_planner(planner, held)
+    own = k3.KERNEL.geometry(Geometry.of_ocp(pl14.ocp))
+    check(own.layout == "pair" and own.ranks is None,
+          f"14 joints x 12 takes the pair layout, its ring in rank 1: {own}")
+    log(f"phase 31 (a) libraries at 37 nodes, 14 joints in the pair layout with its ring "
+        f"spread over {held.ranks} ranks: {block_summary(held, kernel2=False)}; "
+        f"{ptxas_report(k3.KERNEL, held)}; the pair build with one ring rank: "
+        f"{ptxas_report(k3.KERNEL, own)}")
+    hold_layouts(pl14, first_qp, "pair", "pair",
+                 results["structured_admm_16_joints"].setdefault("held_14_joints_37_nodes", {}),
+                 "phase 31 (a)", smi, states14, turns=1, batch=2 * B_SPREAD, ranks=held.ranks)
+    del pl14, states14
+    pls = {}
+    for g in rings:
+        pl, cur, tgt = chain_planner(planner, g.nq)
+        pls[g.nq] = (pl, cur, tgt)
+        check(k2.choose_ring(Geometry(nq=g.nq)) == "shared", f"{g.nq} joints: the shared ring")
+        hold_rings(pl, first_qp, (cur, tgt),
+                   results["banded_factor_20_joints"].setdefault(f"held_{g.nq}_joints", {}),
+                   "phase 31 (a)", smi)
+    pls.pop(14)
+
+    # ---- (b) kernel 1 at 1, 16, 19, 20 and 21 joints ----
+    big = torch.ones(8192, 8192, device=dev)
+    for nq in chains:
+        if nq not in pls:
+            pls[nq] = chain_planner(planner, nq)
+        pl = pls[nq][0]
+        lay = k1.block_layout(nq)
+        want = {"smem_bytes": k1.smem_bytes(nq), "blocks_bound": k1.blocks_bound(nq)}
+        check(lay == want, f"kernel 1 at {nq} joints: the library's block {lay}, the reckoning "
+              f"{want}")
+        log(f"phase 31 (b) kernel 1 at {nq} joints: the Jacobian launch's tiles "
+            f"{lay['smem_bytes']} B of dynamic shared memory, registers capped for "
+            f"{lay['blocks_bound']} block(s) an SM, {k1.param_bytes(nq)} B of parameters; the "
+            f"reckoning agrees; {ptxas_report(k1.KERNEL, Geometry(nq=nq))}")
+        kernel1_check(pl, results, "phase 31 (b)", lambda: big @ big, reps=0)
+    del big
+
+    # ---- (b) kernels 2 and 3 at 1, 16, 19, 20 and 21 joints ----
+    window_err = {}
+    for nq in chains:
+        pl, cur, tgt = pls[nq]
+        g = Geometry(nq=nq)
+        built = k3.KERNEL.geometry(g)
+        check(Geometry.of_ocp(pl.ocp) == g
+              and (built.layout, built.ranks) == (("full", None) if nq == 1 else
+                                                  ("pair", 3 if nq == 21 else 2))
+              and k2.choose_ring(g) == ("device" if nq >= 20 else "shared"),
+              f"{nq} joints: kernel 3 built as {built}, kernel 2's ring {k2.choose_ring(g)}")
+        ranks = (f", {k3.ring_ranks(g)} ring ranks of {k3.slots_per_rank(g)} slots"
+                 if built.layout == "pair" else "")
+        tag = f"{nq} joint(s), 19 nodes ({built.layout} layout{ranks})"
+        log(f"phase 31 (b) libraries at {tag}, {built.ept} element(s) a thread, {k3.rows(g)} "
+            f"row(s) a lane: {block_summary(g)}; kernel 3 {ptxas_report(k3.KERNEL, g)}; kernel 2 "
+            f"{ptxas_report(k2.KERNEL, g)}")
+        # kernel 2 timed with its bound and library call: the device ring at
+        # B=2048, the shared ring's new builds at B_SPREAD
+        _, sa, args, sc, sx = first_qp(B_MAIN if nq >= 20 else B_SPREAD, pl=pl,
+                                       states=(cur, tgt))
+        qp = qp_structured.scale_qp(pl.ocp, sa, *args, pl.qp_settings, soft_c=sc, soft_x=sx)
+        time_factor(qp, g, results[f"banded_factor_{nq}_joints"],
+                    f"{nq} joints, 19 nodes ({k2.choose_ring(g)} ring)", "phase 31 (b)")
+        del sa, args, sc, sx, qp
+        if nq in (1, 16, 21):
+            summary, window_err[nq] = kernel_checks(pl, first_qp, tag, (cur, tgt))
+            log(f"phase 31 (b) at {tag}, {summary}")
+        if nq != 21:
+            kernel3_timing(pl, first_qp, (cur, tgt), tag,
+                           "phase 31 (b)", B_SPREAD, entry=results[f"structured_admm_{nq}_joints"])
+
+    # ---- (c) the main path: the 21-joint chain at 19 nodes ----
+    pl21, cur21, tgt21 = pls.pop(21)
+    ocp = pl21.ocp
+    g21 = Geometry(nq=21)
+    check((ocp.nq, ocp.num_var, ocp.num_eq + ocp.num_ineq) == (21, 1198, 1426)
+          and Geometry.of_ocp(ocp) == g21 and k3.KERNEL.geometry(g21).layout == "pair"
+          and k3.ring_ranks(g21) == 3 and ocp.uses_kernel(dev),
+          f"the 21-joint chain: {ocp.nq} joints, {ocp.num_var} variables, "
+          f"{k3.KERNEL.geometry(g21)}")
+    time_structured_kernels(pl21, first_qp, results, "21_joints", "phase 31 (c)",
+                            window_err[21], (cur21, tgt21), batch=B_SPREAD, factor=False)
+    captured_shipping(pl21, cur21[:B_SPREAD], tgt21[:B_SPREAD], "the 21-joint chain",
+                      "21_joints", "phase 31 (c)", "the chain's seeded states, 19 nodes", results,
+                      ("constraints", "banded_factor", "structured_admm"), smi,
+                      hold_quality=False, turns=0)
+    counts = {}
+    n_good, n_tf, n_fx, summary = fixture_agreement(pl21, CHAIN21_FIXTURE, dev, counts)
+    n_tf32 = jax_float32_final_times(CHAIN21_FIXTURE)
+    check(n_tf >= n_tf32 and counts["qp_converged"] >= n_fx - n_fx // 32,
+          f"the 21-joint chain: {n_tf} final times within 1e-3 (the JAX float32 solve "
+          f"{n_tf32}), qp_converged the same on {counts['qp_converged']}/{n_fx}")
+    log(f"phase 31 (c) JAX fixture of the 21-joint chain: {summary}; final times within 1e-3 "
+        f"relative {n_tf}/{n_fx} (bar: the JAX package's own float32 solve of these states, "
+        f"{n_tf32}/{n_fx}), qp_converged the same {counts['qp_converged']}/{n_fx} (bar "
+        f"{n_fx - n_fx // 32}), in the target box {counts['in_box']}/{n_fx}, all three "
+        f"{n_good}/{n_fx} (read)")
+    del pl21, cur21, tgt21, ocp
+    for nq in (1, 16, 19, 20):
+        pl, cur, tgt = pls.pop(nq)
+        eager_shipping(pl, cur[:B_SPREAD], tgt[:B_SPREAD],
+                       f"the {nq}-joint chain, 19 nodes (seeded states)", f"{nq}_joints",
+                       "phase 31 (c)", results)
+        del pl, cur, tgt
+
+    # ---- (d) past the pair layout: refused naming the bytes ----
+    for g in refused:
+        pl, cur, tgt = chain_planner(planner, g.nq, fused="off", segments=g.segments)
+        refusal(pl, cur[:4], tgt[:4], f"{g.nq} joints, {g.nodes} nodes", "phase 31 (d)")
         del pl, cur, tgt
     torch.cuda.empty_cache()
 
@@ -4109,11 +4421,11 @@ def run(dev: torch.device) -> None:
     del fk, fp
     out.clear()
     fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, 3)
-    p_ms, k_ms, raw = time_pair(
-        keep("plain", lambda: qp_structured.admm_plain(ocp, sa, qp, fac, shipping)),
-        keep("kernel", lambda: k3.admm_kernel(ocp, sa, qp, fac, shipping)),
-        reps=1,
-    )
+    # the eager plain loop (5-6 s) runs once, timed without a warm-up call
+    k_ms = time_kernel(keep("kernel", lambda: k3.admm_kernel(ocp, sa, qp, fac, shipping)), reps=1)
+    p_ms = time_kernel(keep("plain", lambda: qp_structured.admm_plain(ocp, sa, qp, fac, shipping)),
+                       reps=1, warm=False)
+    raw = {"plain": [p_ms], "kernel": [k_ms]}
     got, ref = (qp_structured.unscale_solution(qp, *out[k]) for k in ("kernel", "plain"))
     k3_bytes = tensor_bytes(
         fac["Ldi"], fac["Lsub"], fac["u"], fac["s"], sa.J, sa.f_rows, sa.p,
@@ -4188,13 +4500,12 @@ def run(dev: torch.device) -> None:
     st = dense_qp.pallas_state(dq)
     D10 = dq.D
     del dq
-    p_ms, k_ms, raw = time_pair(
-        keep("plain", lambda: k4.admm_dense_plain(
-            ops, st, chunk_iters=dense_cfg.max_iter, **ckw)),
-        keep("kernel", lambda: k4.admm_dense_kernel(
-            ops, st, chunk_iters=dense_cfg.max_iter, **ckw)),
-        reps=1,
-    )
+    # the plain chunk (1.7 s) runs once, timed without a warm-up call
+    k_ms = time_kernel(keep("kernel", lambda: k4.admm_dense_kernel(
+        ops, st, chunk_iters=dense_cfg.max_iter, **ckw)), reps=1)
+    p_ms = time_kernel(keep("plain", lambda: k4.admm_dense_plain(
+        ops, st, chunk_iters=dense_cfg.max_iter, **ckw)), reps=1, warm=False)
+    raw = {"plain": [p_ms], "kernel": [k_ms]}
     # the chunk's done codes and counts as a solution: 1 converged, 2 frozen
     got, ref = (dense_qp.QPSolution(
         x=D10 * s["x"], y_constraints=s["yc"], y_box=s["yx"], converged=s["done"] == 1,
@@ -4258,7 +4569,7 @@ def run(dev: torch.device) -> None:
     prebuild([job for builds in (robot_builds, order_builds, split_builds, stream_builds,
                                  ept_builds, lambda: layout_builds(lean_geometries),
                                  lambda: layout_builds(far_geometries), deep_builds,
-                                 joints_builds, pair_builds)
+                                 joints_builds, pair_builds, spread_builds)
               for job in builds()])
     xla_planner = MotionPlanner(margins=Margins(*MARGINS), dtype=f32, device=dev)
     captured_phases({"structured_pallas": planner, "pallas": dense_planner,
@@ -4276,6 +4587,7 @@ def run(dev: torch.device) -> None:
     deep_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     joints_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     pair_phases(planner, cur_all, tgt_all, first_qp, results, smi)
+    spread_phases(planner, cur_all, tgt_all, first_qp, results, smi)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

@@ -64,11 +64,13 @@ def robots():
 
 def chain(nq: int, n: int, dtype, dev):
     """The seeded serial chain of ``nq`` joints (its model, limits and tool
-    frame) and the first ``n`` of its (current, target) states."""
+    frame: the Panda's limits, cut to the first ``nq`` or with its last
+    joint's repeated past 7) and the first ``n`` of its (current, target)
+    states."""
     fx = robots()
     panda = make_panda_limits()
     limits = dataclasses.replace(panda, **{
-        k: torch.cat([getattr(panda, k), getattr(panda, k)[-1:].repeat(nq - 7)])
+        k: torch.cat([getattr(panda, k), getattr(panda, k)[-1:].repeat(max(nq - 7, 0))])[:nq]
         for k in _LIMIT_TENSORS})
     model = parse_urdf(fx.chain_urdf(nq, seed=nq), dtype=dtype, device=dev)
     pl = MotionPlanner(model=model, limits=limits, tool_frame="tool", margins=Margins(*MARGINS),

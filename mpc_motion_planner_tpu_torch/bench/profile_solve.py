@@ -16,7 +16,7 @@ starts, which slows later solves.
 
     python -m mpc_motion_planner_tpu_torch.bench.profile_solve [--dense | --default | --xla]
         [--warm 5] [--segments 6] [--order 3]
-        [--urdf tests/fixtures/panda_joint7_fixed.urdf | --hand | --chain 12]
+        [--urdf tests/fixtures/panda_joint7_fixed.urdf | --hand | --chain 12 | --chain 21]
 
 ``--segments`` and ``--order`` set the transcription as a user sets it
 (``planner.ocp = make_ocp(model, tool_frame, order=3, num_segments=8)``: 25
@@ -44,8 +44,11 @@ constraint path runs in its place), on the headline states with the
 fingers at 0.01 m and 0.03 m (``hand_states``); kernels 2 and 3 are built
 for 9 joints. ``--chain NQ`` plans the seeded serial chain of NQ joints on
 its 2048 seeded states (``bench/convergence.py`` ``chain``, no floor for
-its tool, as ``chip_smoke.py`` plans it): ``--chain 12`` at 19 nodes takes
-kernel 3's lean layout with blocks of 36 x 36, two rows a lane.
+its tool, as ``chip_smoke.py`` plans it), any count kernel 1 takes (1 to
+21): ``--chain 12`` at 19 nodes takes kernel 3's lean layout with blocks of
+36 x 36, two rows a lane; ``--chain 21`` its pair layout with the ring
+spread over three ranks, a cluster of four blocks a problem, and kernel 2
+with its ring read back from device memory.
 
 Prints one JSON object, then the card's name and power limit. Needs one
 CUDA GPU and ``nvcc``.

@@ -18,6 +18,13 @@ two problems per SM at 12 joints). The band width (the spline order)
 sets the ring and the pending blocks: bw + 4 blocks of the forward loop
 beside the ring's bw^2 (24,508 B at bw = 2 and 19 nodes, 47,356 B at bw = 4
 and 17 nodes, 4 problems per SM; 64,828 B at bw = 5 and 16 nodes, 3).
+Where that block does not fit (20 and 21 joints at 19 nodes: 254,196 and
+279,996 B), the ring's blocks are read back from device memory, where the
+block has already written them, and the backward sweep stages as many nodes
+as the forward loop's blocks leave room for (:func:`choose_ring`,
+:func:`staged_nodes`: two at 20 and 21 joints, 124,596 and 137,112 B, one
+problem per SM); the arithmetic and its order are the shared ring's, so the
+factors are too, bitwise.
 
 What bounds it on this card: the latency of the sequential node recursion.
 Per problem the 19-node recursion does ~2 MFLOP (Schur updates, a 21-column
@@ -62,16 +69,20 @@ import ctypes
 import torch
 
 from ..ops.qp_structured import factor_banded
+import dataclasses
+
 from .build import (
-    SM_SMEM, SMEM_LIMIT, CudaKernel, DeviceCount, Geometry, capturing, check_cuda_tensor, ptr,
+    RINGS, SM_SMEM, SMEM_LIMIT, CudaKernel, DeviceCount, Geometry, capturing, check_cuda_tensor,
+    ptr,
 )
 
 KERNEL = CudaKernel(
     "banded_factor", "banded_factor.cu", "mpc_banded_factor",
     [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p],
     init="mpc_banded_factor_init", per_geometry="transcription",
+    resolve=lambda g: built_geometry(g),
 )
-NT, CH = 128, 4  # threads, staged nodes (csrc/banded_factor.cu)
+NT, CH = 128, 4  # threads, staged nodes of the shared ring (csrc/banded_factor.cu)
 
 
 # problems that kernel 2 flagged, each refactored by the plain version
@@ -102,47 +113,88 @@ def rows(g: Geometry) -> int:
     return -(-g.blk // 32)
 
 
-def smem_bytes(g: Geometry) -> int:
-    """Shared memory of one block of kernel 2 built for ``g``: the larger
-    of the forward loop's blocks and the backward sweep's staged nodes, then
-    ys, us, scratch and the flag (struct Smem of csrc/banded_factor.cu)."""
-    blk, bw = g.blk, g.order
-    blk2 = blk * blk
-    # LkT, the ring, then bw + 4 blocks: S[2], C[bw + 1] (C[0], C[1] for d = 1,
-    # C[d] for d = 2..bw), Linv
-    forward = blk * column_stride(g) + bw * bw * blk2 + (bw + 4) * blk2
-    backward = CH * (bw + 1) * blk2
-    return 4 * (max(forward, backward) + 2 * g.nodes * blk + 32 * rows(g) + NT // 32) + 4
+def forward_floats(g: Geometry, ring: str) -> int:
+    """Floats of the forward loop's blocks (struct Forward): LkT, the ring
+    of the last bw nodes' bw blocks (the shared ring only), then bw + 4
+    blocks: S[2], C[bw + 1] (C[0], C[1] for d = 1, C[d] for d = 2..bw),
+    Linv."""
+    blk2, bw = g.blk * g.blk, g.order
+    return g.blk * column_stride(g) + (bw * bw * blk2 if ring == "shared" else 0) + (bw + 4) * blk2
+
+
+def staged_nodes(g: Geometry, ring: str = None) -> int:
+    """CH: the nodes the backward sweep stages at a time, each its Ldi and
+    its bw Lsub blocks: 4 with the shared ring; with the device ring as
+    many as the forward loop's blocks leave room for, from 1 to 4 (2 at 20
+    and 21 joints at 19 nodes)."""
+    ring = ring or g.ring or choose_ring(g)
+    if ring == "shared":
+        return CH
+    return min(CH, max(1, forward_floats(g, ring) // ((g.order + 1) * g.blk * g.blk)))
+
+
+def smem_bytes(g: Geometry, ring: str = None) -> int:
+    """Shared memory of one block of kernel 2 built for ``g`` with ``ring``
+    (default: the one ``g`` names, else the one it takes, :func:`choose_ring`):
+    the larger of the forward loop's blocks and the backward sweep's staged
+    nodes, then ys, us, scratch and the flag (struct Smem of
+    csrc/banded_factor.cu)."""
+    ring = ring or g.ring or choose_ring(g)
+    backward = staged_nodes(g, ring) * (g.order + 1) * g.blk * g.blk
+    return 4 * (max(forward_floats(g, ring), backward) + 2 * g.nodes * g.blk + 32 * rows(g)
+                + NT // 32) + 4
+
+
+def choose_ring(g: Geometry) -> str:
+    """The ring kernel 2 is built with for ``g``: the shared one where its
+    block fits, else the device one (which :func:`check_fits` refuses where
+    that does not fit either)."""
+    return "shared" if smem_bytes(g, "shared") <= SMEM_LIMIT else "device"
+
+
+def built_geometry(g: Geometry) -> Geometry:
+    """The geometry kernel 2's library is built for: ``g`` with the ring it
+    names, or else its own (None: the shared ring, as before the device
+    ring existed), and none of kernel 3's layout, ept and ranks."""
+    ring = g.ring or choose_ring(g)
+    return dataclasses.replace(g, layout=None, ept=None, ranks=None,
+                               ring=None if ring == "shared" else ring)
 
 
 def per_sm(g: Geometry) -> int:
     """PER_SM of csrc/banded_factor.cu: the problems per SM its registers
-    are capped for, as many as the SM's shared memory holds and no more than
-    leave a thread 2 LKS + rows x blk + 11 registers (in units of 8)."""
+    are capped for, as many as the SM's shared memory and its 2048 threads
+    hold and no more than leave a thread 2 LKS + rows x blk + 11 registers
+    (in units of 8)."""
     regs = -(-(2 * column_stride(g) + rows(g) * g.blk + 11) // 8) * 8
-    return min(SM_SMEM // (smem_bytes(g) + 1024), 65536 // (NT * regs))
+    return min(SM_SMEM // (smem_bytes(g) + 1024), 65536 // (NT * regs), 2048 // NT)
 
 
 def check_fits(g: Geometry) -> None:
     """Raise ValueError unless kernel 2 is written for ``g`` (a band of at
     least one sub-diagonal block) and a block of it fits the card's shared
-    memory, which leaves at least one problem per SM."""
+    memory, which leaves at least one problem per SM, with the ring ``g``
+    names or else either; the error names the bytes of both rings."""
     if g.order < 1:
         raise ValueError(f"kernel 2 factors a band of at least one sub-diagonal block; got "
                          f"band width {g.order}")
-    if smem_bytes(g) > SMEM_LIMIT:
+    ring = g.ring or choose_ring(g)
+    if smem_bytes(g, ring) > SMEM_LIMIT:
+        other = next(r for r in RINGS if r != ring)
         raise ValueError(f"kernel 2 at {g.nodes} nodes, band width {g.order} and {g.nq} joints "
-                         f"needs {smem_bytes(g)} B of shared memory per block; a block may "
+                         f"needs {smem_bytes(g, ring)} B of shared memory per block with its "
+                         f"{ring} ring ({other} ring: {smem_bytes(g, other)} B); a block may "
                          f"have {SMEM_LIMIT} B")
 
 
-def factor_banded_kernel(Mband, p_col, m_pp):
+def factor_banded_kernel(Mband, p_col, m_pp, ring=None):
     """Launch kernel 2 on CUDA float32 tensors Mband (B, nodes, bw + 1, blk, blk),
     p_col (B, nodes, blk), m_pp (B,), with the library of the transcription
-    the band's shape gives. Returns {"Ldi", "Lsub", "u", "s", "ok"} in the
-    layouts of :func:`factor_banded`."""
+    the band's shape gives, with its own ring or ``ring`` (one of ``RINGS``,
+    for holding one build against the other where both fit). Returns {"Ldi",
+    "Lsub", "u", "s", "ok"} in the layouts of :func:`factor_banded`."""
     B = Mband.shape[0]
-    g = Geometry.of_band(Mband)
+    g = dataclasses.replace(Geometry.of_band(Mband), ring=ring)
     check_fits(g)
     N, BW, BLK = g.nodes, g.order, g.blk
     check_cuda_tensor("Mband", Mband, (B, N, BW + 1, BLK, BLK))
@@ -160,15 +212,22 @@ def factor_banded_kernel(Mband, p_col, m_pp):
 
 def block_layout(geometry: Geometry = None) -> dict:
     """What the library built for ``geometry`` (default: 19 nodes, 7
-    joints) says of its block: shared-memory bytes, the problems per SM its
-    registers are capped for (``per_sm``) and how many one SM holds at a
-    time from the CUDA occupancy calculator (``blocks_per_sm``)."""
+    joints; its own ring or the one it names) says of its block:
+    shared-memory bytes, the problems per SM its registers are capped for
+    (``per_sm``), how many one SM holds at a time from the CUDA occupancy
+    calculator (``blocks_per_sm``) and the nodes its backward sweep stages
+    (``staged``; a source from before the device ring has no such query,
+    and 4)."""
     lib = KERNEL.library(geometry)
     out = {}
     for key in ("smem_bytes", "per_sm", "blocks_per_sm"):
         fn = getattr(lib, f"mpc_banded_factor_{key}")
         fn.restype = ctypes.c_int
         out[key] = fn()
+    staged = getattr(lib, "mpc_banded_factor_staged", None)
+    if staged is not None:
+        staged.restype = ctypes.c_int
+    out["staged"] = staged() if staged is not None else CH
     if out["blocks_per_sm"] <= 0:
         raise RuntimeError(f"kernel 2 occupancy query failed: CUDA error {-out['blocks_per_sm']}")
     return out

@@ -53,6 +53,10 @@ SM_SMEM = 233472
 # kernel 3's shared-memory layouts, in the order of their -DMPC_SMEM_LAYOUT
 # values (csrc/common.cuh)
 LAYOUTS = ("full", "compact", "split", "stream", "lean", "far", "deep", "pair")
+# kernel 2's rings of the last bw nodes' sub-diagonal blocks: in shared memory,
+# or read back from device memory where the block has written them
+# (-DMPC_FACTOR_RING=1, csrc/banded_factor.cu)
+RINGS = ("shared", "device")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,21 +69,31 @@ class Geometry:
     defaults. Kernel 1's library depends on ``nq`` alone.
 
     ``layout`` is kernel 3's shared-memory layout, one of :data:`LAYOUTS`,
-    and ``ept`` the z elements and constraint rows each of its threads owns;
-    None (the default, and what an OCP gives) stands for the geometry's own
-    (``kernels/structured_admm.py`` ``choose_layout`` and ``ept_of``).
-    Naming another is for holding and timing one build against another;
-    kernels 1 and 2 ignore both."""
+    ``ept`` the z elements and constraint rows each of its threads owns and
+    ``ranks`` the blocks its pair layout spreads the ring over (ranks 1 ..
+    ranks of a cluster of 1 + ranks); ``ring`` is kernel 2's ring, one of
+    :data:`RINGS`. None (the default, and what an OCP gives) stands for the
+    geometry's own (``kernels/structured_admm.py`` ``choose_layout``,
+    ``ept_of`` and ``ring_ranks``, ``kernels/banded_factor.py``
+    ``choose_ring``). Naming another is for holding and timing one build
+    against another; kernel 1 ignores all four, kernel 2 the first three,
+    kernel 3 the ring."""
 
     segments: int = 6
     order: int = 3
     nq: int = 7
     layout: str = None
     ept: int = None
+    ring: str = None
+    ranks: int = None
 
     def __post_init__(self):
         if self.layout not in (None, *LAYOUTS):
             raise ValueError(f"layout {self.layout!r}: expected one of {LAYOUTS} or None")
+        if self.ring not in (None, *RINGS):
+            raise ValueError(f"ring {self.ring!r}: expected one of {RINGS} or None")
+        if self.ranks is not None and (not isinstance(self.ranks, int) or self.ranks < 1):
+            raise ValueError(f"ranks {self.ranks!r}: expected a positive int or None")
         if self.ept is not None and (not isinstance(self.ept, int) or self.ept < 1):
             raise ValueError(f"ept {self.ept!r}: expected a positive int or None")
 
@@ -130,13 +144,18 @@ class Geometry:
 
     def flags(self) -> tuple:
         """The nvcc flags that set this geometry in ``csrc/common.cuh``
-        (the layout's and ept's only where they are set)."""
+        (the layout's, ept's and ranks' only where they are set, the ring's
+        only where it is the device one)."""
         flags = (f"-DMPC_SEGMENTS={self.segments}", f"-DMPC_ORDER={self.order}",
                  f"-DMPC_NQ={self.nq}")
         if self.layout is not None:
             flags += (f"-DMPC_SMEM_LAYOUT={LAYOUTS.index(self.layout)}",)
         if self.ept is not None:
             flags += (f"-DMPC_EPT={self.ept}",)
+        if self.ranks is not None:
+            flags += (f"-DMPC_RING_RANKS={self.ranks}",)
+        if self.ring == "device":
+            flags += ("-DMPC_FACTOR_RING=1",)
         return flags
 
 
@@ -164,9 +183,11 @@ class CudaKernel:
     ``build_log`` holds nvcc's report (registers, shared memory, spills) of
     each build, by geometry.
 
-    ``resolve`` (kernel 3): the geometry a library is built for, a function
-    of the geometry that fills in the layout and ept it does not name;
-    without it a library ignores the geometry's layout and ept."""
+    ``resolve`` (kernels 2 and 3): the geometry a library is built for, a
+    function of the geometry that fills in what it does not name (kernel
+    3's layout, ept and ring ranks, kernel 2's ring) and drops what the
+    kernel ignores; without it a library ignores the geometry's layout,
+    ept, ranks and ring."""
 
     def __init__(self, name: str, source: str, entry: str, argtypes, init: str = None,
                  per_geometry: str = None, resolve=None):
@@ -190,15 +211,15 @@ class CudaKernel:
         """The geometry a library is built for: None for a kernel that does
         not depend on it; for a kernel built per joint count the default
         transcription with ``geometry``'s joint count; else ``geometry`` or
-        the default one, as ``resolve`` completes it (with no layout and no
-        ept for a kernel without ``resolve``)."""
+        the default one, as ``resolve`` completes it (with no layout, no ept,
+        no ranks and no ring for a kernel without ``resolve``)."""
         if self.per_geometry is None:
             return None
         g = geometry or Geometry()
         if self.per_geometry == "joints":
             return Geometry(nq=g.nq)
         if self.resolve is None:
-            return dataclasses.replace(g, layout=None, ept=None)
+            return dataclasses.replace(g, layout=None, ept=None, ring=None, ranks=None)
         return self.resolve(g)
 
     def flags(self, geometry=None) -> tuple:
@@ -216,7 +237,8 @@ class CudaKernel:
         g = self.geometry(geometry)
         tag = ("" if g is None else f"_q{g.nq}" if self.per_geometry == "joints"
                else f"_n{g.nodes}_o{g.order}_q{g.nq}" + (f"_{g.layout}" if g.layout else "")
-               + (f"_e{g.ept}" if g.ept else ""))
+               + (f"_e{g.ept}" if g.ept else "") + (f"_r{g.ranks}" if g.ranks else "")
+               + ("_dring" if g.ring == "device" else ""))
         return BUILD_DIR / f"{self.name}{tag}_{h.hexdigest()[:16]}.so"
 
     def build(self, geometry=None) -> Path:

@@ -48,14 +48,20 @@ ring, whose blocks rank 0's warps read into staging buffers of their own,
 :func:`rank_bytes`; the copies go :func:`lead` = 4 steps ahead: 157 to 175
 nodes of order 3, rank 0 208,752 B at 157, where deep takes 233,520 B;
 order 4 x 34 to x 41, 9 joints at 112 to 133 nodes, 10 joints at 91 to
-118, 11 at 76 to 103, 12 at 61 to 94, 14 at 37 to 76). :func:`ring_schedule`
-models the ring's copies and reads step by step. Two elements a thread take
-40 to 76 nodes of order 3 (608 threads at 46, 832 at 61, 1024 at 76),
-order 4 x 10 to x 17 and 9 joints from 31 nodes; three take 79 to 115
-nodes of order 3 (864 threads at 97), four 118 to 154, five 157 to 175. A
+118, 11 at 76 to 103, 12 at 61 to 94, 14 at 37 to 76); where rank 1 cannot
+hold the pair's whole ring, the ring is spread over :func:`ring_ranks`
+blocks, whole slots a rank, a cluster of 1 + that many (16 to 20 joints at
+19 nodes in clusters of three, 208,104 B in each ring rank at 19 joints; 21
+joints in clusters of four, 190,640 B, where one rank 1 would take 444,816
+B; rank 0 165,392 B). :func:`ring_schedule` models the ring's copies and
+reads step by step. Two elements a thread take 40 to 76 nodes of order 3
+(608 threads at 46, 832 at 61, 1024 at 76), order 4 x 10 to x 17 and 9
+joints from 31 nodes; three take 79 to 115 nodes of order 3 (864 threads
+at 97), four 118 to 154, five 157 to 175. A
 geometry that fits no layout (178 nodes of order 3: 235,232 B in rank 0 of
-the pair layout; order 4 x 42; 9 joints at 136 nodes; 10 joints at 121)
-raises a ValueError that names the bytes; nothing solves it another way.
+the pair layout; order 4 x 42; 9 joints at 136 nodes; 10 joints at 121;
+21 joints at 40 nodes) raises a ValueError that names the bytes; nothing
+solves it another way.
 Past 10 joints (blk 33 and more) a lane of a sweep warp owns :func:`rows`
 rows of a block, two up to 21 joints, and the sweeps read each block where
 it lies as its product uses it, a step later than they would fetch it
@@ -124,7 +130,7 @@ KERNEL = CudaKernel(
 # chain reads its blocks from the ring too, those that keep the vectors only
 # their owner reads out of shared memory, those that read J from device
 # memory, those whose Ldi goes through the ring with Lsub, and those that take
-# a cluster of two blocks a problem (the ring in rank 1)
+# a cluster of blocks a problem (the ring in ranks 1 .. :func:`ring_ranks`)
 RINGED = ("split", "stream", "lean", "far", "deep", "pair")
 STREAMED = ("stream", "lean", "far", "deep", "pair")
 OWNERS_OUT = ("lean", "far", "deep", "pair")
@@ -133,12 +139,13 @@ LDI_RINGED = ("deep", "pair")
 PAIRED = ("pair",)
 
 LEAD = 2  # steps between a copy and the step what it brings is first read in
+MAX_CLUSTER = 8  # blocks of a cluster the card places (the portable limit)
 
 
 def lead(layout: str) -> int:
     """LEAD of ``layout``'s ring: 4 in the pair layout, whose copies reach
     rank 0's readers through two hops more (the progress forwarder and the
-    relay), else :data:`LEAD`."""
+    relay, in every ring rank alike), else :data:`LEAD`."""
     return 4 if layout in PAIRED else LEAD
 
 
@@ -278,18 +285,24 @@ def ept_of(g: Geometry) -> int:
     return -(-max(g.num_var, g.num_rows) // MAX_THREADS)
 
 
-def threads(g: Geometry) -> int:
+def threads(g: Geometry, layout: str = None) -> int:
     """Threads of one block: ept z elements and ept constraint rows each
-    (``g.ept`` or else :func:`ept_of`), in whole warps."""
+    (``g.ept`` or else :func:`ept_of`), in whole warps, and no fewer than
+    the warps the sweeps take (:func:`sweep_warps`) with the copier of
+    ``layout``'s ring and the pair layout's relay (default: the layout ``g``
+    names, else the one it takes); only a robot of one joint has fewer
+    elements."""
     ept = g.ept or ept_of(g)
-    return -(-max(g.num_var, g.num_rows) // ept // 32) * 32
+    elems = -(-max(g.num_var, g.num_rows) // ept // 32) * 32
+    layout = layout or g.layout or choose_layout(g)
+    return max(elems, 32 * (sweep_warps(g) + (layout in RINGED) + (layout in PAIRED)))
 
 
 def smem_bytes(g: Geometry, layout: str = None) -> int:
     """Shared memory of one block of kernel 3 built for ``g``: the size of
     struct Smem of csrc/structured_admm.cu, member by member with its
     alignment, in ``layout`` (default: the one ``g`` names, else the one it
-    takes, :func:`choose_layout`); in the pair layout the larger of its two
+    takes, :func:`choose_layout`); in the pair layout the largest of its
     blocks' (:func:`rank_bytes`), which every block of the launch takes."""
     layout = layout or g.layout or choose_layout(g)
     if layout in PAIRED:
@@ -297,17 +310,44 @@ def smem_bytes(g: Geometry, layout: str = None) -> int:
     return _struct_bytes(g, layout)
 
 
-def rank_bytes(g: Geometry) -> tuple:
-    """Shared memory of the pair layout's two blocks, (rank 0, rank 1): rank
-    0's struct Smem (the deep layout's but the ring's slots: up to 3 floats to
-    a 16-byte boundary, a barrier per slot, which rank 1's relay arrives on,
-    the progress count, and a staging buffer of a block for each chain warp's
-    two blocks and for each helper's) and rank 1's struct Peer (the ring's
+def _peer_bytes(g: Geometry, slots: int) -> int:
+    """struct Peer of a ring rank holding ``slots`` of the ring's slots: the
     slots, the barriers its copies complete on, the progress count and rank
-    0's stop flag). Every block of the launch takes the larger
-    (:func:`smem_bytes`)."""
+    0's stop flag."""
+    return 4 * slots * ring_slot(g, "pair") + 8 * slots + 8
+
+
+def ring_ranks(g: Geometry) -> int:
+    """RANKS of the pair layout: the blocks of its cluster that hold the
+    ring, ranks 1 .. RANKS, whole slots a rank (:func:`slots_per_rank`):
+    ``g.ranks`` where it names them, else the fewest whose share fits a
+    block, and at most 7 (a cluster of 8, the portable limit). One wherever
+    the pair layout took a geometry before the ring was spread; at 19 nodes
+    2 at 16 to 20 joints, 3 at 21."""
+    if g.ranks is not None:
+        return g.ranks
     ring = ring_runs(g, "pair")
-    return _struct_bytes(g, "pair"), 4 * ring * ring_slot(g, "pair") + 8 * ring + 8
+    return next((r for r in range(1, MAX_CLUSTER)
+                 if _peer_bytes(g, -(-ring // r)) <= SMEM_LIMIT), MAX_CLUSTER - 1)
+
+
+def slots_per_rank(g: Geometry) -> int:
+    """SLOTS_PER_RANK: the ring's slots a ring rank of the pair layout holds
+    at most; slot s lies in rank 1 + s % RANKS at index s / RANKS there
+    (csrc/structured_admm.cu ``spread_owns``, ``cluster_slot``)."""
+    return -(-ring_runs(g, "pair") // ring_ranks(g))
+
+
+def rank_bytes(g: Geometry) -> tuple:
+    """Shared memory of each block of the pair layout's cluster, (rank 0,
+    rank 1, ..): rank 0's struct Smem (the deep layout's but the ring's
+    slots: up to 3 floats to a 16-byte boundary, a barrier per slot, which
+    the relays arrive on, the progress count, and a staging buffer of a block
+    for each chain warp's two blocks and for each helper's) and each ring
+    rank's struct Peer (its slots, :func:`slots_per_rank`, the barriers its
+    copies complete on, the progress count and rank 0's stop flag). Every
+    block of the launch takes the largest (:func:`smem_bytes`)."""
+    return (_struct_bytes(g, "pair"), *[_peer_bytes(g, slots_per_rank(g))] * ring_ranks(g))
 
 
 def _struct_bytes(g: Geometry, layout: str) -> int:
@@ -342,7 +382,7 @@ def _struct_bytes(g: Geometry, layout: str) -> int:
               + [(N * pad, 16), (N * pad, 16), (pad, 16)]  # ys, xs, tb
               + [(max(bw - 1, 1) * nb, 4)]  # ahead: distances 2..bw
               + [(nv, 4)] * 2 + [(nm, 4)] * 2  # xt, dx, wb, wc
-              + [(threads(g) // 32 * 4, 4), (kl * kl, 4), (1, 4), (1, 4), (1, 4)])
+              + [(threads(g, layout) // 32 * 4, 4), (kl * kl, 4), (1, 4), (1, 4), (1, 4)])
     off = 0
     for floats, align in fields:
         off = -(-off // align) * align + 4 * floats
@@ -350,17 +390,22 @@ def _struct_bytes(g: Geometry, layout: str) -> int:
 
 
 def built_geometry(g: Geometry) -> Geometry:
-    """The geometry kernel 3's library is built for: ``g`` with the ept
-    and the layout it names, or else its own (:func:`ept_of`,
-    :func:`choose_layout`)."""
+    """The geometry kernel 3's library is built for: ``g`` with the ept,
+    the layout and the ring ranks it names, or else its own
+    (:func:`ept_of`, :func:`choose_layout`, :func:`ring_ranks`; one ring
+    rank, the pair layout as it was, stands as None), and not kernel 2's
+    ring."""
+    g = dataclasses.replace(g, ring=None)
     g = g if g.ept is not None else dataclasses.replace(g, ept=ept_of(g))
-    return g if g.layout is not None else dataclasses.replace(g, layout=choose_layout(g))
+    g = g if g.layout is not None else dataclasses.replace(g, layout=choose_layout(g))
+    ranks = ring_ranks(g) if g.layout in PAIRED else None
+    return dataclasses.replace(g, ranks=ranks if ranks != 1 else None)
 
 
 def choose_layout(g: Geometry) -> str:
     """The shared-memory layout kernel 3 is built in for ``g``: the first of
     full, compact, split, stream, lean, far, deep and pair (``LAYOUTS``)
-    whose block fits (pair: both its blocks), else pair, which
+    whose block fits (pair: each block of its cluster), else pair, which
     :func:`check_fits` then refuses."""
     return next((name for name in LAYOUTS if smem_bytes(g, name) <= SMEM_LIMIT), "pair")
 
@@ -375,12 +420,15 @@ def check_fits(g: Geometry) -> None:
     """Raise ValueError unless kernel 3 is written for ``g`` (a band of at
     least one sub-diagonal block) and its block
     fits the card in the layout ``g`` names, or else in one of the eight:
-    232,448 B of shared memory (the pair layout: each of its two blocks), at
-    most 1024 threads (which only an ept that ``g`` names can pass), and
-    warps enough for the sweeps (and the copier of the split, stream, lean,
-    far, deep and pair layouts, whose ring is paced by the helper of
-    distance 2, and the pair layout's relay); the error of a block too large
-    names the bytes of every layout and of each of the pair's blocks."""
+    232,448 B of shared memory (the pair layout: each block of its cluster,
+    the ring spread over the ranks ``g`` names or else the fewest whose share
+    fits), at most 1024 threads (which only an ept that ``g`` names can
+    pass), and a band of two sub-diagonal blocks at least where a copier
+    fills the ring (the split, stream, lean, far, deep and pair layouts),
+    paced by the helper of distance 2; the error of a block too large names
+    the bytes of every layout and of each rank of the pair's cluster. A
+    block always has the warps its sweeps, copier and relay take
+    (:func:`threads`)."""
     if g.order < 1:
         raise ValueError(f"kernel 3 solves with a band of at least one sub-diagonal block; "
                          f"got band width {g.order}")
@@ -392,39 +440,32 @@ def check_fits(g: Geometry) -> None:
     name = g.layout or choose_layout(g)
     if smem_bytes(g, name) > SMEM_LIMIT:
         bytes_of = lambda lay: (f"{smem_bytes(g, lay)} B" if lay not in PAIRED else
-                                "rank 0 {} B, rank 1 {} B".format(*rank_bytes(g)))
+                                ", ".join(f"rank {i} {b} B" for i, b in enumerate(rank_bytes(g))))
         others = ", ".join(f"{other}: {bytes_of(other)}" for other in LAYOUTS if other != name)
         raise ValueError(
             f"{what} needs {smem_bytes(g, name)} B of shared memory per block in its {name} "
             f"layout ({'' if name not in PAIRED else bytes_of(name) + '; '}{others}); a block "
             f"may have {SMEM_LIMIT} B")
-    copier = name in RINGED  # the warp after the sweep warps copies the runs
-    relay = name in PAIRED  # and in rank 1 the warp after it relays them
-    if copier and g.order < 2:
+    if name in RINGED and g.order < 2:
         raise ValueError(f"kernel 3's {name} layout takes a band of at least two sub-diagonal "
                          f"blocks (the helper of distance 2 paces its copier); got {g.order}")
-    if threads(g) // 32 < sweep_warps(g) + copier + relay:
-        raise ValueError(
-            f"kernel 3 at {g.nodes} nodes and order {g.order} has {threads(g) // 32} warps; its "
-            f"sweeps take {sweep_warps(g)} (two chain warps, {g.order - 1} helpers and the "
-            f"finishing warp)" + (f" and the {name} layout's copier one more" if copier else "")
-            + (" and its relay one more" if relay else ""))
 
 
 def admm_kernel(ocp, sa: StructuredA, qp: qp_structured.ScaledQP, fac, settings: QPSettings,
-                state=None, chunk_iters=None, layout=None, ept=None):
+                state=None, chunk_iters=None, layout=None, ept=None, ranks=None):
     """Launch kernel 3 on scaled float32 CUDA data (the pair layout: a
-    cluster of two blocks a problem, a launch the card cannot place raising
+    cluster of blocks a problem, a launch the card cannot place raising
     RuntimeError): one dispatch of
     ``chunk_iters`` iterations (default: the whole budget) from ``state``
     (default: the initial state of ``qp``), with the library of the OCP's
     transcription in its own shared-memory layout and elements per thread,
-    or in ``layout`` (one of ``LAYOUTS``) and at ``ept``, for holding and
-    timing one build against another where both fit. Takes and returns the
+    or in ``layout`` (one of ``LAYOUTS``), at ``ept`` and (pair) with its
+    ring over ``ranks`` ranks, for holding and timing one build against
+    another where both fit. Takes and returns the
     scaled (x, zc, zx, yc, yx, done, iters, rp, rd) like ``admm_plain``."""
     B = qp.x.shape[0]
     f32 = torch.float32
-    g = dataclasses.replace(Geometry.of_ocp(ocp), layout=layout, ept=ept)
+    g = dataclasses.replace(Geometry.of_ocp(ocp), layout=layout, ept=ept, ranks=ranks)
     check_fits(g)
     N, NG, BLK, BW, NV, NEQ, NM = g.nodes, g.ng, g.blk, g.order, g.num_var, g.num_eq, g.num_rows
     x0, zc0, zx0, yc0, yx0, done0, iters0, rp0, rd0 = (
@@ -488,9 +529,9 @@ def block_layout(geometry: Geometry = None) -> dict:
     layout and at the ept it names, else its own) says of its block: threads,
     shared-memory bytes, how many blocks one SM holds at a time from the
     CUDA occupancy calculator (1: the block's shared memory takes the SM),
-    and in the pair layout each rank's bytes (``rank_bytes``; else (0, 0))
-    and how many clusters of two the card runs at a time
-    (``active_clusters``, cudaOccupancyMaxActiveClusters; else 0)."""
+    and in the pair layout each rank's bytes (``rank_bytes``: rank 0's, then
+    each ring rank's; else (0, 0)) and how many clusters the card runs at a
+    time (``active_clusters``, cudaOccupancyMaxActiveClusters; else 0)."""
     lib = KERNEL.library(geometry)
     out = {}
     for key, name in (("threads", "mpc_structured_admm_threads"),
@@ -507,7 +548,13 @@ def block_layout(geometry: Geometry = None) -> dict:
     if clusters is not None:
         rank = lib.mpc_structured_admm_rank_bytes
         clusters.restype, rank.argtypes, rank.restype = ctypes.c_int, [ctypes.c_int], ctypes.c_int
-        out["active_clusters"], out["rank_bytes"] = clusters(), (rank(0), rank(1))
+        # the blocks of a cluster (a source from before the ring was spread: two)
+        size = getattr(lib, "mpc_structured_admm_cluster_size", None)
+        if size is not None:
+            size.restype = ctypes.c_int
+        ranks = size() if size is not None else 2
+        out["active_clusters"] = clusters()
+        out["rank_bytes"] = tuple(rank(i) for i in range(max(ranks, 2)))
         if out["active_clusters"] < 0:
             raise RuntimeError(f"kernel 3 cluster occupancy query failed: CUDA error "
                                f"{-out['active_clusters']}")
@@ -522,7 +569,7 @@ def blocks_per_sm(geometry: Geometry = None) -> int:
 def problems_at_once(geometry: Geometry, sms: int) -> int:
     """How many problems kernel 3 built for ``geometry`` runs at a time on a
     card of ``sms`` SMs: its blocks per SM on each, or in the pair layout one
-    per cluster of two the card places at a time."""
+    per cluster the card places at a time."""
     lay = block_layout(geometry)
     return lay["active_clusters"] if KERNEL.geometry(geometry).layout in PAIRED \
         else sms * lay["blocks_per_sm"]

@@ -376,21 +376,29 @@ def factor_banded(Mband, p_col, m_pp, bw: int):
     return fac
 
 
-def factor_banded_ring(Mband, p_col, m_pp, bw: int):
+def factor_banded_ring(Mband, p_col, m_pp, bw: int, ring: str = "shared", staged: int = 4):
     """:func:`factor_banded` without the jitter retry, in kernel 2's
     schedule, for tests: a ring that holds the sub-diagonal blocks of the
-    last ``bw`` nodes only; per node (A) the Cholesky and inverse of S while
-    node k+1's products with nodes before k and the arrow column's
-    forward-substitution sum are formed, (B) the products with ``Ldi[k]'``
-    and ``ys[k]``, each block written out and scanned for saturation as it
-    becomes final, (C) node k+1's products with node k; then the backward
-    sweep from the written factors. Every block subtracts its products in
-    :func:`banded_cholesky`'s order."""
+    last ``bw`` nodes only (``ring="device"``: no ring, each block read back
+    where node j's step wrote it out); per node (A) the Cholesky and inverse
+    of S while node k+1's products with nodes before k and the arrow
+    column's forward-substitution sum are formed, (B) the products with
+    ``Ldi[k]'`` and ``ys[k]``, each block written out and scanned for
+    saturation as it becomes final, (C) node k+1's products with node k;
+    then the backward sweep from the written factors, ``staged`` nodes
+    staged at a time (kernel 2's CH). Every block subtracts its products in
+    :func:`banded_cholesky`'s order, so both rings and every ``staged``
+    give the same factors."""
+    if ring not in ("shared", "device") or staged < 1:
+        raise ValueError(f"ring {ring!r}, staged {staged}: expected 'shared' or 'device', >= 1")
     B, N, _, blk, _ = Mband.shape
     T = lambda M: M.transpose(-1, -2)
     eye = torch.eye(blk, dtype=Mband.dtype, device=Mband.device).expand(B, blk, blk)
-    ring = {}  # (j % bw, d - 1) -> L[j+d, j] of the last bw nodes j
-    L = lambda i, j: ring[j % bw, i - j - 1]
+    shared = {}  # (j % bw, d - 1) -> L[j+d, j] of the last bw nodes j
+    if ring == "shared":
+        L = lambda i, j: shared[j % bw, i - j - 1]
+    else:
+        L = lambda i, j: Lsub_out[j][:, i - j - 1]
     Ldi_out, Lsub_out, ys = [], [], []
     chol_ok = torch.ones(B, dtype=torch.bool, device=Mband.device)
     sat = Mband.new_zeros(B)
@@ -414,9 +422,11 @@ def factor_banded_ring(Mband, p_col, m_pp, bw: int):
                 for j in range(max(0, k + 1 + d - bw), k):
                     nxt[d] = nxt[d] - L(k + 1 + d, j) @ T(L(k + 1, j))
         # (B) the node's blocks become final and leave
-        for d in range(1, bw + 1):
-            ring[k % bw, d - 1] = C[d] @ T(Linv) if k + d < N else torch.zeros_like(Linv)
-        written = torch.stack([ring[k % bw, d] for d in range(bw)], dim=1)
+        final = [C[d] @ T(Linv) if k + d < N else torch.zeros_like(Linv)
+                 for d in range(1, bw + 1)]
+        if ring == "shared":
+            shared.update({(k % bw, d): final[d] for d in range(bw)})
+        written = torch.stack(final, dim=1)
         Ldi_out.append(Linv)
         Lsub_out.append(written)
         sat = torch.maximum(sat, torch.maximum(Linv.abs().amax(dim=(1, 2)),
@@ -428,11 +438,13 @@ def factor_banded_ring(Mband, p_col, m_pp, bw: int):
             C = {d: nxt[d] - L(k + 1 + d, k) @ T(L(k + 1, k)) if d < bw else nxt[d] for d in nxt}
     Ldi, Lsub = torch.stack(Ldi_out, dim=1), torch.stack(Lsub_out, dim=1)
     xs = [None] * N
-    for k in range(N - 1, -1, -1):  # from the written factors, newest first
-        acc = ys[k]
-        for d in range(1, min(bw, N - 1 - k) + 1):
-            acc = acc - _mtv(Lsub[:, k, d - 1], xs[k + d])
-        xs[k] = _mtv(Ldi[:, k], acc)
+    for top in range(N - 1, -1, -staged):  # from the written factors, newest first
+        stage = {k: (Ldi[:, k], Lsub[:, k]) for k in range(top, max(top - staged, -1), -1)}
+        for k, (ldi, lsub) in stage.items():
+            acc = ys[k]
+            for d in range(1, min(bw, N - 1 - k) + 1):
+                acc = acc - _mtv(lsub[:, d - 1], xs[k + d])
+            xs[k] = _mtv(ldi, acc)
     u = torch.stack(xs, dim=1)
     s = m_pp - (u * p_col).sum(dim=(1, 2))
     sat = torch.maximum(sat, torch.maximum(u.abs().amax(dim=(1, 2)), s.abs()))

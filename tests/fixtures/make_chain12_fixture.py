@@ -1,13 +1,15 @@
-"""Write the JAX reference fixture of the seeded 12-joint chain.
+"""Write the JAX reference fixture of a seeded serial chain (12 joints
+unless ``--joints`` names another count).
 
-``torch_port_chain12_b64.npz`` beside this script: the first 64 (current,
-target) states of the seeded serial revolute chain of 12 joints, as
-``mpc_motion_planner_tpu_torch.bench.convergence`` ``chain(12, ...)``
+``torch_port_chain<NQ>_b64.npz`` beside this script: the first 64 (current,
+target) states of the seeded serial revolute chain of NQ joints, as
+``mpc_motion_planner_tpu_torch.bench.convergence`` ``chain(NQ, ...)``
 draws them at float32 (the URDF of ``make_panda6_fixture.py``
-``chain_urdf(12, seed=12)``, the Panda's limits with its last joint's
-repeated past 7, states at rest drawn from the seed 12), and what the JAX
-planner made of them at 19 nodes (6 spline segments of order 3, 685
-variables, 823 constraint rows), with no floor for the chain's tool
+``chain_urdf(NQ, seed=NQ)``, the Panda's limits with its last joint's
+repeated past 7, states at rest drawn from the seed NQ), and what the JAX
+planner made of them at 19 nodes (6 spline segments of order 3: 685
+variables and 823 constraint rows at 12 joints, 1,198 and 1,426 at 21),
+with no floor for the chain's tool
 (``set_min_height(-10.0)``), in the headline slice configuration
 (structured QP, fixed rho, no KKT refinement, per-step ADMM budgets
 700/500), solved on the CPU at float64 as ``make_torch_port_fixture.py``
@@ -15,16 +17,19 @@ solves the 19-node fixture.
 
 It also holds ``final_time_float32``: the final times of the JAX package's
 own float32 solve of the same states in the same configuration, the figure
-that ``chip_smoke.py`` phase 29 holds the port's float32 final times to
+that ``chip_smoke.py`` phases 29 (12 joints) and 31 (21 joints) hold the
+port's float32 final times to
 (the seeded chains' QPs do not converge within these budgets, at float64
 either, so a float32 solve parts from float64 on more states than the
 Panda's).
 
     JAX_PLATFORMS=cpu python tests/fixtures/make_chain12_fixture.py
+    JAX_PLATFORMS=cpu python tests/fixtures/make_chain12_fixture.py --joints 21
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 import sys
@@ -33,29 +38,37 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
-OUT = os.path.join(HERE, "torch_port_chain12_b64.npz")
-NQ, BATCH = 12, 64
+BATCH = 64
 LIMIT_ARRAYS = ("min_position", "max_position", "max_velocity", "max_acceleration",
                 "max_jerk", "max_torque")
 
 
-def chain_states(n: int = BATCH):
-    """The first ``n`` (current, target) states of the port's seeded
-    12-joint chain at float32, as numpy arrays."""
+def fixture_path(nq: int) -> str:
+    """The fixture of the seeded chain of ``nq`` joints."""
+    return os.path.join(HERE, f"torch_port_chain{nq}_b64.npz")
+
+
+def chain_states(nq: int = 12, n: int = BATCH):
+    """The first ``n`` (current, target) states of the port's seeded chain
+    of ``nq`` joints at float32, as numpy arrays."""
     import torch
 
     sys.path.insert(0, ROOT)
     from mpc_motion_planner_tpu_torch.bench.convergence import chain
 
-    _, _, _, cur, tgt = chain(NQ, n, torch.float32, torch.device("cpu"))
+    _, _, _, cur, tgt = chain(nq, n, torch.float32, torch.device("cpu"))
     return cur.numpy(), tgt.numpy()
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--joints", type=int, default=12, help="joints of the seeded chain")
+    NQ = ap.parse_args(argv).joints
+    OUT = fixture_path(NQ)
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, HERE)
     sys.path.insert(0, ROOT)
-    current, target = chain_states()
+    current, target = chain_states(NQ)
 
     import jax
 
@@ -91,7 +104,7 @@ def main():
         return pl
 
     planner = planner_of(jnp.float64)
-    assert planner.ocp.nq == NQ and planner.ocp.num_var == 685
+    assert planner.ocp.nq == NQ and planner.ocp.num_var == 19 * 3 * NQ + 1
 
     @jax.jit
     def run(cur, tgt):

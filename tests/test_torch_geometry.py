@@ -346,8 +346,9 @@ def test_two_elements_a_thread_reckoning():
     holding one build against another), which changes the threads and, by
     the warps' reduction slots (four floats a warp), the shared memory and
     nothing else. The stream block at 46 nodes, member by member: 221,456 B.
-    A named count that leaves more than 1024 threads or too few warps for
-    the sweeps raises naming them."""
+    A named count that leaves more than 1024 threads raises naming them; one
+    whose elements fill fewer warps than the sweeps take gets those warps
+    (four elements a thread at 19 nodes: four warps of elements, five)."""
     g37, g46 = Geometry(segments=12), Geometry(segments=15)
     assert (k3.ept_of(g37), k3.ept_of(g46)) == (1, 2)
     g37e2 = dataclasses.replace(g37, ept=2)
@@ -379,8 +380,9 @@ def test_two_elements_a_thread_reckoning():
     assert -(-off // 16) * 16 == k3.smem_bytes(g46) == 221456
     with pytest.raises(ValueError, match=r"needs 1056 threads per block at 1 z elements"):
         k3.check_fits(Geometry(segments=13, ept=1))
-    with pytest.raises(ValueError, match=r"has 4 warps; its sweeps take 5"):
-        k3.check_fits(Geometry(ept=4))
+    g19e4 = Geometry(ept=4)
+    assert (k3.threads(g19e4), k3.sweep_warps(g19e4)) == (160, 5)
+    k3.check_fits(g19e4)
     with pytest.raises(ValueError, match="ept 0"):
         Geometry(ept=0)
 

@@ -91,12 +91,21 @@ def test_kernel2_past_ten_joints(nq, smem, per_sm):
 
 
 def test_kernel2_first_refused_joint_count_names_its_bytes():
-    """At 19 nodes kernel 2 takes up to 19 joints (230,556 B) and refuses 20
-    before any build, naming the 254,196 B a block would need."""
+    """At 19 nodes kernel 2 takes up to 19 joints with its ring in shared
+    memory (230,556 B), 20 to 27 with the ring read back from device memory
+    (20 joints: 254,196 B with the shared ring, 124,596 B with the device
+    one), and refuses 28 before any build, naming the 238,964 B a block would
+    need with the device ring and the 492,980 B with the shared one."""
     k2.check_fits(Geometry(nq=19))
-    assert k2.smem_bytes(Geometry(nq=19)) == 230556
-    with pytest.raises(ValueError, match=r"20 joints needs 254196 B of shared memory"):
-        k2.check_fits(Geometry(nq=20))
+    assert k2.smem_bytes(Geometry(nq=19)) == 230556 and k2.choose_ring(Geometry(nq=19)) == "shared"
+    g20 = Geometry(nq=20)
+    assert (k2.smem_bytes(g20, "shared"), k2.smem_bytes(g20)) == (254196, 124596)
+    for nq in range(20, 28):
+        assert k2.choose_ring(Geometry(nq=nq)) == "device"
+        k2.check_fits(Geometry(nq=nq))
+    with pytest.raises(ValueError, match=r"28 joints needs 238964 B of shared memory per block "
+                                         r"with its device ring \(shared ring: 492980 B\)"):
+        k2.check_fits(Geometry(nq=28))
 
 
 def _band(N, bw, blk, n, seed):

@@ -124,9 +124,11 @@ def test_pair_layout_is_taken_only_where_deep_does_not_fit():
     did before the pair layout existed (so its library is the one it had),
     and the pair layout is taken exactly where none of them fits and both
     its blocks do; the first geometry past it raises naming each rank's
-    bytes. The pair layout adds geometries at every order and joint count
-    but order 4 at 14 joints, where rank 1's ring of eight slots of four
-    blocks of 42 x 42 (282,568 B) fits no block."""
+    bytes. The pair layout adds geometries at every order and joint count,
+    its ring in rank 1 but at order 4 and 14 joints, where one rank 1 would
+    hold a ring of eight slots of four blocks of 42 x 42 (282,568 B), which
+    fits no block: there the ring is spread over ranks 1 and 2 (141,288 B
+    each), whole slots a rank."""
     paired, refused = {}, []
     for g in _geometries():
         fits = [k3.smem_bytes(g, name) <= SMEM_LIMIT for name in LAYOUTS]
@@ -136,11 +138,14 @@ def test_pair_layout_is_taken_only_where_deep_does_not_fit():
         elif fits[7]:
             assert layout == "pair" and max(k3.rank_bytes(g)) <= SMEM_LIMIT, g
             assert k3.KERNEL.geometry(g).layout == "pair"
+            assert k3.ring_ranks(g) == (2 if (g.order, g.nq) == (4, 14) else 1), g
             paired[g.order, g.nq] = paired.get((g.order, g.nq), 0) + 1
         else:
             refused.append(g)
-    assert len(paired) == 25 and (4, 14) not in paired and sum(paired.values()) > 200
-    assert k3.rank_bytes(Geometry(segments=1, order=4, nq=14))[1] == 282568
+    assert len(paired) == 26 and (4, 14) in paired and sum(paired.values()) > 200
+    g = Geometry(segments=1, order=4, nq=14)
+    assert k3.rank_bytes(dataclasses.replace(g, ranks=1))[1] == 282568
+    assert k3.rank_bytes(g)[1:] == (141288, 141288)
     past = {(g.segments, g.order, g.nq) for g in refused if g.order in (3, 4)}
     assert set(PAST_PAIR) <= past
 
@@ -169,8 +174,9 @@ def test_first_geometries_past_the_pair_layout_raise(segments, order, nq):
 
 def test_pair_layout_needs_a_relay_warp():
     """Rank 1 runs the copier and, in the warp after it, the relay: the pair
-    layout needs one warp more than the deep one, and a block without it
-    raises naming it. The pair's ring is the deep's (slots, last copy) with
+    layout needs one warp more than the deep one, and a block whose elements
+    fill fewer warps takes that warp all the same (at 7 nodes six warps, the
+    pair block seven). The pair's ring is the deep's (slots, last copy) with
     a lead of 4 steps and two slots more; at a lead of 2 it is the deep's
     schedule, copy by copy and read by read."""
     g = Geometry(segments=52)
@@ -182,12 +188,12 @@ def test_pair_layout_needs_a_relay_warp():
         mp.setattr(k3, "lead", lambda layout: k3.LEAD)
         assert k3.ring_schedule(g, "pair") == k3.ring_schedule(g, "deep")
     small = Geometry(segments=2, layout="pair")  # 7 nodes, 192 threads: six warps
-    assert (k3.threads(small) // 32, k3.sweep_warps(small)) == (6, 5)
-    k3.check_fits(dataclasses.replace(small, layout="deep"))  # the sweeps and the copier
-    with pytest.raises(ValueError, match=r"has 6 warps; its sweeps take 5 .* pair layout's "
-                                         r"copier one more and its relay one more"):
-        k3.check_fits(small)
-    k3.check_fits(dataclasses.replace(small, segments=3))  # 10 nodes, 256 threads
+    deep = dataclasses.replace(small, layout="deep")  # the sweeps and the copier
+    assert (k3.threads(deep) // 32, k3.threads(small) // 32, k3.sweep_warps(small)) == (6, 7, 5)
+    assert k3.smem_bytes(small) == max(k3.rank_bytes(small))
+    for g in (deep, small, dataclasses.replace(small, segments=3)):  # 10 nodes, 256 threads
+        k3.check_fits(g)
+    assert k3.threads(dataclasses.replace(small, segments=3)) == 256
 
 
 def _planner(segments=52):

@@ -206,8 +206,9 @@ def test_geometry_at_other_joint_counts(nq):
 
 def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
     """Kernel 1 takes up to 21 joints (its robot in a launch's 4 KB of
-    parameters; 22 joints need 4,136 B), kernel 2 at 19 nodes up to 19
-    (two rows of a block a lane past 10; 20 joints need 254,196 B of shared
+    parameters; 22 joints need 4,136 B), kernel 2 at 19 nodes up to 27
+    (two rows of a block a lane past 10, three past 21; from 20 joints its
+    ring read back from device memory; 28 joints need 238,964 B of shared
     memory); kernels 2 and 3 take splines of orders 2, 4 and 5 at 6 joints and order
     4 at 5 segments and 8 joints (kernel 3 in its split layout, 183,232 B);
     9 and 10 joints at 25 nodes (284,880 B split for 10) take kernel 3's
@@ -228,10 +229,10 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
     k1.check_fits(21)
     with pytest.raises(ValueError, match=r"22 joints needs 4136 B of launch parameters"):
         k1.check_fits(22)
-    k2.check_fits(Geometry(nq=19))
-    with pytest.raises(ValueError, match=r"19 nodes, band width 3 and 20 joints needs 254196 B "
+    k2.check_fits(Geometry(nq=27))
+    with pytest.raises(ValueError, match=r"19 nodes, band width 3 and 28 joints needs 238964 B "
                                          r"of shared memory per block"):
-        k2.check_fits(Geometry(nq=20))
+        k2.check_fits(Geometry(nq=28))
     for order, segments in ((2, 9), (4, 4), (5, 3)):
         for check in (k2.check_fits, k3.check_fits):
             check(Geometry(order=order, segments=segments, nq=6))
