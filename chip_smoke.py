@@ -51,7 +51,8 @@ nvcc at once, the seconds printed) and plans the Panda with ``panda_joint7``
 fixed (6 joints, ``tests/fixtures/panda_joint7_fixed.urdf``, the Panda's
 first six limits, the headline states without joint 7): the libraries'
 blocks against the Python reckoning, kernels 1-3 at 6 joints and on a
-seeded 8-joint chain against their plain versions and timed at B=2048, the
+seeded 8-joint chain against their plain versions and timed (kernel 1 at
+B=2048, kernels 2 and 3 at B=1024), the
 6-joint captured shipping solve (5/2/2/0 launches, bitwise its eager solve,
 quality, times in turns) and the 8-joint chain's eager solve, the JAX
 fixture ``torch_port_panda6_b64.npz`` (64/64), the dense ``pallas`` path at
@@ -187,11 +188,23 @@ the ring spread over two ranks at 14 joints x 12 bitwise its one-rank
 build, kernel 2's device ring bitwise its shared ring at 14 and 19 joints;
 (b) kernels 1-3 at 1, 16, 19, 20 and 21 joints against their plain
 versions, their blocks against the reckoning; (c) the seeded 21-joint chain
-(1198 variables, 1426 rows): kernel 3 timed, the captured shipping solve of
-its first B_SPREAD states (5/2/2/0, bitwise its eager solve) and the JAX
-fixture ``torch_port_chain21_b64.npz``; 1, 16, 19 and 20 joints solved
-eagerly; (d) the first grids past the spread ring at 16 and 21 joints
-refused. The plain kernel-3 loop of phases 19-31 replays each check window
+(1198 variables, 1426 rows): kernel 3 timed, the eager shipping solve of
+its first B_SPREAD states (5/2/2/0) and the JAX fixture
+``torch_port_chain21_b64.npz``; 1, 16, 19 and 20 joints solved eagerly; (d)
+the first grids past the spread ring at 16 and 21 joints refused. Past 21
+joints kernel 1 reads its robot from device memory (past 23 joints each
+thread writes its columns of J to device memory itself), a lane of kernels
+2 and 3 holds three rows of a block, and kernel 3's ring spreads over three
+ranks (22, 23 joints) or four (24, 25 joints: a cluster of five); phase 32
+holds them: (a) kernel 1 at 22, 24, 25, 28 and 32 joints against its plain
+version, its block against the reckoning; (b) kernels 2 and 3 at 22, 24 and
+25 joints at 19 nodes and 28 joints at 7 nodes against their plain
+versions, their blocks against the reckoning, timed; (c) the main path: the
+seeded 25-joint chain (1426 variables, 1694 rows), the captured shipping
+solve of its first B_WIDE states (5/2/2/0, bitwise its eager solve) and the
+JAX fixture ``torch_port_chain25_b64.npz``; 22 and 24 joints at 19 nodes
+and 28 at 7 solved eagerly; (d) 26 joints at 19 nodes and 29 at 7 refused
+naming their bytes. The plain kernel-3 loop of phases 19-32 replays each check window
 from a CUDA graph (``PlainWindows``), which phase 10 holds bitwise against
 the eager loop.
 Needs one CUDA GPU and ``nvcc``; imports no JAX.
@@ -259,6 +272,10 @@ B_FACTOR = 256  # kernel-2 comparison batch
 B_ADMM = 64  # kernel-3 and kernel-4 comparison batch
 B_ODD = 61  # a batch that is no round number
 B_XLA = 128  # phase 14's batch of the dense "xla" path
+# phases 19-29's batch of kernels 2 and 3 timed against their plain versions
+# (time_structured_kernels), half the headline's: the plain kernel-3 loop
+# takes seconds there
+B_TIME = 1024
 N_ACCEPT, B_ACCEPT = 1000, 250  # the acceptance's states and batch (phase 12)
 # the JAX package's record on these states (BENCH_r05.json, structured_pallas)
 JAX_RECORD = {"qp_conv_rate": 0.9978, "tol_hit_rate": 1.0, "median_violation": 0.487,
@@ -979,6 +996,7 @@ def library_factor(qp, entry, phase, batch=None) -> None:
     gives back afterwards."""
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
 
+    timed_at = qp.Mband.shape[0]  # the batch of kernel 2's time in the entry
     if batch is not None:
         qp = types.SimpleNamespace(Mband=qp.Mband[:batch], p_col=qp.p_col[:batch],
                                    m_pp=qp.m_pp[:batch])
@@ -1015,7 +1033,7 @@ def library_factor(qp, entry, phase, batch=None) -> None:
     entry["library_ms"] = lib_ms
     log(f"{phase} kernel 2's library call, torch.linalg.cholesky_ex of the dense {n} x {n} M "
         f"at B={B}, {N} nodes, float32: {lib_ms:.3f} ms against kernel 2's {entry['ms']:.3f} ms "
-        f"at B={B_MAIN} ({'slower' if lib_ms > entry['ms'] else 'faster'} than the kernel); "
+        f"at B={timed_at} ({'slower' if lib_ms > entry['ms'] else 'faster'} than the kernel); "
         f"its factor "
         f"against kernel 2's on {int(use.sum())}/{B} problems (both factored): max-norm "
         f"relative error " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()) + " (tol 1e-3)")
@@ -1282,7 +1300,7 @@ def time_factor(qp, g, e2, tag, phase, library_batch=None) -> None:
 
 
 def kernel3_timing(pl, first_qp, states, tag, phase, batch=B_MAIN, plain=True,
-                   entry=None) -> None:
+                   entry=None, budget=True) -> None:
     """Kernel 3 built for ``pl``'s geometry on the step-0 QPs of the first
     ``batch`` of ``states`` (default the headline's): one launch at the full
     budget against its bound (``k3_iter_flops`` of the problem-iterations it
@@ -1291,7 +1309,9 @@ def kernel3_timing(pl, first_qp, states, tag, phase, batch=B_MAIN, plain=True,
     :class:`PlainWindows`; ``kernel_checks`` holds the kernel to that loop);
     then three launches of exactly one check window, µs per iteration per
     block, or per cluster, over the waves the card runs. ``entry``: a
-    ``results`` entry that takes the times and the bound."""
+    ``results`` entry that takes the times and the bound. ``budget`` False:
+    one check window alone, the kernel's against its plain loop's, where a
+    launch at the full budget takes seconds."""
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
@@ -1302,9 +1322,11 @@ def kernel3_timing(pl, first_qp, states, tag, phase, batch=B_MAIN, plain=True,
     _, sa, args, sc, sx = first_qp(batch, pl=pl, states=states)
     qp = qp_structured.scale_qp(ocp, sa, *args, shipping, soft_c=sc, soft_x=sx)
     fac = k2.factor(qp.Mband, qp.p_col, qp.m_pp, g.order)
+    s_win = dataclasses.replace(shipping, max_iter=shipping.check_every, rescue_iters=0)
+    run = shipping if budget else s_win
     out = {}
     k_ms = time_kernel(lambda: out.__setitem__(
-        "k", k3.admm_kernel(ocp, sa, qp, fac, shipping)), reps=1, warm=False)
+        "k", k3.admm_kernel(ocp, sa, qp, fac, run)), reps=1, warm=False)
     iters = int(out["k"][6].sum())
     flops = k3_iter_flops(g.segments, g.nq, g.order, shipping.kkt_refine)
     nbytes = tensor_bytes(
@@ -1315,10 +1337,11 @@ def kernel3_timing(pl, first_qp, states, tag, phase, batch=B_MAIN, plain=True,
     del out
     p_text = ""
     if plain:
-        p_ms = time_kernel(PlainWindows(ocp, sa, qp, fac, shipping), reps=1, warm=False)
+        p_ms = time_kernel(PlainWindows(ocp, sa, qp, fac, run), reps=1, warm=False)
         p_text = f", plain {p_ms:.3f} ms"
-    s_win = dataclasses.replace(shipping, max_iter=shipping.check_every, rescue_iters=0)
     w_ms = time_kernel(lambda: k3.admm_kernel(ocp, sa, qp, fac, s_win), reps=3)
+    if not budget:  # the window's time, warm, three launches
+        k_ms = w_ms
     if entry is not None:  # max_abs_err as phase 4's: one check window against the plain loop
         entry.update(ms=k_ms, plain_ms=p_ms if plain else None, batch=batch, max_abs_err=max_abs(
             k3.admm_kernel(ocp, sa, qp, fac, s_win)[0],
@@ -1327,8 +1350,10 @@ def kernel3_timing(pl, first_qp, states, tag, phase, batch=B_MAIN, plain=True,
         p_text += f", one window's max |x_kernel - x_plain| {entry['max_abs_err']:.3e}"
     at_once, unit = problems_at_once(g)
     waves = -(-batch // at_once)
-    log(f"{phase} kernel 3 B={batch}, {tag}, step-0 QP, budget {shipping.max_iter} + "
-        f"{shipping.rescue_iters}: kernel {k_ms:.3f} ms{p_text}; bound {b_ms:.4f} ms by {b_by} "
+    log(f"{phase} kernel 3 B={batch}, {tag}, step-0 QP, "
+        + (f"budget {shipping.max_iter} + {shipping.rescue_iters}" if budget else
+           f"one check window ({s_win.max_iter} iterations)")
+        + f": kernel {k_ms:.3f} ms{p_text}; bound {b_ms:.4f} ms by {b_by} "
         f"({iters} problem-iterations of {flops / 1e3:.1f} kflop, {nbytes / 1e6:.1f} MB), share "
         f"reached {100 * b_ms / k_ms:.1f}%; exactly {s_win.max_iter} iterations {w_ms:.3f} ms = "
         f"{1e3 * w_ms / s_win.max_iter / waves:.2f} us per iteration per {unit} ({waves} waves "
@@ -1336,9 +1361,9 @@ def kernel3_timing(pl, first_qp, states, tag, phase, batch=B_MAIN, plain=True,
 
 
 def time_structured_kernels(pl, first_qp, results, suffix, phase, window_err, states=None,
-                            library_batch=None, batch=B_MAIN, hold_counts=True, factor=True):
+                            library_batch=None, batch=B_TIME, hold_counts=True, factor=True):
     """Kernels 2 and 3 built for ``pl``'s geometry, timed at B=``batch``
-    (2048 but where a phase names less) on its step-0 QPs (of ``states``,
+    (B_TIME but where a phase names another) on its step-0 QPs (of ``states``,
     default the headline's) against their plain versions (kernel 2 in turns
     with phase 3's bars, then its library call; kernel 3's plain loop, its
     check windows replayed from a CUDA graph (:class:`PlainWindows`), runs
@@ -1610,7 +1635,7 @@ def transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> N
     make_ocp(planner.model, planner.tool_frame, order=3, num_segments=8)``),
     with kernels 2 and 3 built for it: the libraries' blocks against the
     Python reckoning; kernels 2 and 3 against their plain versions
-    (``kernel_checks``) and timed at B=2048 with their bounds and kernel 2's
+    (``kernel_checks``) and timed at B_TIME with their bounds and kernel 2's
     library call; the captured shipping solve of the headline states (the
     phase's main path: launches per solve, quality, replay and eager times in
     turns, bitwise the eager solve); the JAX fixture at 8 segments. Then
@@ -1652,7 +1677,7 @@ def transcription_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> N
     summary, window_err = kernel_checks(pl25, first_qp, "25 nodes")
     log(f"phase 19 at 25 nodes, {summary}")
 
-    # ---- kernels 2 and 3 at B=2048, timed, with their bounds ----
+    # ---- kernels 2 and 3 at B_TIME, timed, with their bounds ----
     time_structured_kernels(pl25, first_qp, results, "25_nodes", "phase 19", window_err)
 
     # ---- the main path at 25 nodes: the captured shipping solve ----
@@ -1733,9 +1758,9 @@ def chain_planner(planner, nq: int, fused=None, segments=None):
     return pl, cur, tgt
 
 
-def kernel1_check(pl, results, phase, busy, reps=3) -> None:
+def kernel1_check(pl, results, phase, busy, reps=3, key=None, batch=B_MAIN) -> None:
     """Kernel 1 built for ``pl``'s joint count against its plain version on
-    seeded iterates of B_MAIN x 19 nodes, timed in turns and on the device's
+    seeded iterates of ``batch`` (default B_MAIN) x 19 nodes, timed in turns and on the device's
     clock (queued behind ``busy``), into the ``results`` entry
     ``constraints_<nq>_joints``. The bar is phase 2's tolerances against the
     plain float32 values; where the plain float32 values themselves are not
@@ -1743,14 +1768,15 @@ def kernel1_check(pl, results, phase, busy, reps=3) -> None:
     on these iterates), the kernel is held to float64 instead, no further
     from it than twice the plain float32 values (kernel 3's one-window
     rule). ``reps``: calls of each in a turn of the timing (0: the kernel in
-    one turn of three calls, the plain version once, unwarmed)."""
+    one turn of three calls, the plain version once, unwarmed). ``key``: the
+    entry's name in ``results``, where not ``constraints_<nq>_joints``."""
     from mpc_motion_planner_tpu_torch.kernels import constraints as k1
     from mpc_motion_planner_tpu_torch.ocp import make_ocp
 
     nq, dev = pl.ocp.nq, pl.device
     gen = torch.Generator().manual_seed(20)
     lo_xu = torch.tensor([-2.5] * nq + [-2.0] * nq + [-10.0] * nq)
-    xu = (lo_xu + 2 * (-lo_xu) * torch.rand(B_MAIN, 19, 3 * nq, generator=gen)).to(dev)
+    xu = (lo_xu + 2 * (-lo_xu) * torch.rand(batch, 19, 3 * nq, generator=gen)).to(dev)
     X, U = xu[..., :2 * nq].contiguous(), xu[..., 2 * nq:].contiguous()
     out = {}
     plain = lambda: out.__setitem__("plain", k1.node_constraints_plain(pl.ocp, X, U, True))
@@ -1786,12 +1812,13 @@ def kernel1_check(pl, results, phase, busy, reps=3) -> None:
                          f"2's tolerances of float64)")
     d_ms = time_kernel(lambda: k1.node_constraints_kernel(pl.ocp, X, U, True), reps=20,
                        behind=busy)
-    e = results[f"constraints_{nq}_joints"] = {
-        "name": f"constraints_{nq}_joints", "route": "cuda",
+    key = key or f"constraints_{nq}_joints"
+    e = results[key] = {
+        "name": key, "route": "cuda",
         "source": "mpc_motion_planner_tpu_torch/csrc/constraints.cu",
         "replaces": REPLACES["constraints"], "ms": d_ms, "plain_ms": p_ms,
         "max_abs_err": max(max_abs(g_k, g_p), max_abs(gv_k, g_p), max_abs(J_k, J_p))}
-    F = B_MAIN * 19
+    F = batch * 19
     text = report_bound(e, F * k1_flops(nq, True), tensor_bytes(X, U, g_k, J_k),
                         f"value pass and {3 * nq} tangents, {k1_flops(nq, False):.0f} flop "
                         f"a value pass")
@@ -1826,23 +1853,28 @@ def eager_shipping(pl, cur, tgt, tag, suffix, phase, results,
         f"{float(sol.violation.median()):.4f}")
 
 
-def refusal(pl, cur, tgt, tag, phase) -> None:
-    """``pl``'s geometry is past kernel 3's limits (a block that fits no
-    layout, at the elements a thread it takes): its fit check and the
-    planner's solve on the card raise a ValueError naming the bytes, and its
-    library is never built."""
+def refusal(pl, cur, tgt, tag, phase, module=None) -> None:
+    """``pl``'s geometry is past the limits of kernel 3 (a block that fits
+    no layout, at the elements a thread it takes), or of ``module``'s kernel
+    where given (``kernels.banded_factor``: a block too large with either
+    ring): its fit check and the planner's solve on the card raise a
+    ValueError naming the bytes, and neither kernel 2's nor kernel 3's
+    library is built for it."""
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
 
+    module = module or k3
     g = Geometry.of_ocp(pl.ocp)
-    names = f"{k3.smem_bytes(g)} B"
+    names = f"{module.smem_bytes(g)} B"
+    which = "kernel 2" if module is k2 else "kernel 3"
     try:
-        k3.check_fits(g)
+        module.check_fits(g)
         refused = None
     except ValueError as err:
         refused = str(err)
     check(refused is not None and names in refused,
-          f"{tag}: kernel 3's fit check says {refused}")
+          f"{tag}: {which}'s fit check says {refused}")
     try:
         pl.solve(cur, tgt)
         solved = "solved"
@@ -1850,8 +1882,10 @@ def refusal(pl, cur, tgt, tag, phase) -> None:
         solved = str(err)
     check(names in solved, f"{tag} on the card: {solved}")
     check(not k3.KERNEL.library_path(g).exists(), f"{tag}: a kernel-3 library was built")
+    check(module is k3 or not k2.KERNEL.library_path(g).exists(),
+          f"{tag}: a kernel-2 library was built")
     log(f"{phase} refusal at {tag}: {refused}; the planner's solve on the card raises the "
-        f"same, and no kernel-3 library was built for it")
+        f"same, and no {which} library was built for it")
 
 
 def robot_builds():
@@ -1871,7 +1905,7 @@ def robot_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     for their joint count. (a) Kernels 1-3 at 6 joints (the Panda with
     ``panda_joint7`` fixed, ``tests/fixtures/panda_joint7_fixed.urdf``) and at
     8 (a serial revolute chain drawn from a seed) against their plain
-    versions, with phase 2's, 3's and 4's bars, timed at B=2048 with their
+    versions, with phase 2's, 3's and 4's bars, timed at B_TIME with their
     bounds. (b) The 6-joint planner's captured shipping solve of the headline
     states with joint 7's entries dropped (the phase's main path: launches,
     bitwise its eager solve, quality, replay and eager times in turns), and
@@ -2046,7 +2080,7 @@ def order_phases(planner, dense_cfg, cur_all, tgt_all, first_qp, results, smi) -
     nvcc at once) against the Python reckoning of their blocks. (b) At each
     order, kernels 2 and 3 against their plain versions on the step-0 QPs
     of the headline states (``kernel_checks``: phase 3's and 4's bars) and
-    timed at B=2048 with their bounds and kernel 2's library call; at orders
+    timed at B_TIME with their bounds and kernel 2's library call; at orders
     2 and 5 an eager shipping solve of the headline states gives their
     launches. (c) The main path: the Panda at 4 segments of order 4 (17
     nodes, 358 variables, 416 rows), set as a user sets it (``planner.ocp =
@@ -2254,7 +2288,7 @@ def split_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     segments of order 4 (25 nodes, 526 variables, 620 rows), set as a user
     sets it (``planner.ocp = make_ocp(planner.model, planner.tool_frame,
     order=4, num_segments=6)``): kernels 2 and 3 against their plain
-    versions (phase 3's and 4's bars), timed at B=2048 with their bounds and
+    versions (phase 3's and 4's bars), timed at B_TIME with their bounds and
     kernel 2's library call, the captured shipping solve of the headline
     states (5/2/2/0, bitwise its eager solve, quality, times in turns), the
     JAX fixture ``torch_port_order4s6_b64.npz`` (64/64); the dense
@@ -2353,7 +2387,7 @@ def stream_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     nodes, 778 variables, 968 rows, 992 threads), set as a user sets it
     (``planner.ocp = make_ocp(planner.model, planner.tool_frame, order=3,
     num_segments=12)``): kernels 2 and 3 against their plain versions
-    (phase 3's and 4's bars), timed at B=2048 with their bounds and kernel
+    (phase 3's and 4's bars), timed at B_TIME with their bounds and kernel
     2's library call, the captured shipping solve of the headline states
     (5/2/2/0, bitwise its eager solve, quality, times in turns), the JAX
     fixture ``torch_port_seg12_b64.npz`` (64/64); the dense ``pallas`` path
@@ -2544,7 +2578,7 @@ def ept_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     make_ocp(planner.model, planner.tool_frame, order=3,
     num_segments=15)``, its QP settings ``config.shipping_qp_settings(46)``:
     one refinement step on every KKT solve): kernels 2 and 3 against their
-    plain versions (phase 3's and 4's bars), timed at B=2048 with their
+    plain versions (phase 3's and 4's bars), timed at B_TIME with their
     bounds and kernel 2's library call, the captured shipping solve of the
     headline states (5/2/2/0, bitwise its eager solve, quality, times in
     turns) and the JAX fixture ``torch_port_seg15_b64.npz`` by phase 23's
@@ -2659,7 +2693,7 @@ def lean_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     (``planner.ocp = make_ocp(planner.model, planner.tool_frame, order=3,
     num_segments=20)``, its QP settings ``config.shipping_qp_settings(61)``:
     one refinement step on every KKT solve): kernels 2 and 3 against their
-    plain versions (phase 3's and 4's bars), timed at B=2048 with their
+    plain versions (phase 3's and 4's bars), timed at B_TIME with their
     bounds and kernel 2's library call, the captured shipping solve of the
     headline states (5/2/2/0, bitwise its eager solve, quality, times in
     turns) and the JAX fixture ``torch_port_seg20_b64.npz`` by phase 23's
@@ -2763,7 +2797,7 @@ def far_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     (``planner.ocp = make_ocp(planner.model, planner.tool_frame, order=3,
     num_segments=25)``, its QP settings ``config.shipping_qp_settings(76)``:
     one refinement step on every KKT solve): kernels 2 and 3 against their
-    plain versions (phase 3's and 4's bars), timed at B=2048 with their
+    plain versions (phase 3's and 4's bars), timed at B_TIME with their
     bounds and kernel 2's library call, the captured shipping solve of the
     headline states (5/2/2/0, bitwise its eager solve, quality, times in
     turns) and the JAX fixture ``torch_port_seg25_b64.npz`` by phase 23's
@@ -2889,7 +2923,7 @@ def hand_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     candidates), and kernels 2 and 3 (9 joints, kernel 3 in its split
     layout, libraries built in phase 20) the QPs. (a) Kernels 2 and 3
     against their plain versions on the hand's step-0 QPs (phase 3's and
-    4's bars), timed at B=2048 with their bounds and kernel 2's library
+    4's bars), timed at B_TIME with their bounds and kernel 2's library
     call. (b) The main path: the captured shipping solve of the 2048
     headline states with the fingers at 0.01 m (current) and 0.03 m
     (target): 0/2/2/0 launches, bitwise its eager solve, phase 11's quality
@@ -2966,7 +3000,7 @@ def deep_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     ``config.shipping_qp_settings(97)``: one refinement step on every KKT
     solve and 300 more iterations for a QP unconverged within its budget):
     kernels 2 and 3 against their plain versions (phase 3's and 4's
-    bars), timed at B=2048 with their bounds and kernel 2's library call (at
+    bars), timed at B_TIME with their bounds and kernel 2's library call (at
     B=1024: the dense M and its factor take 68 GB at B=2048), the captured
     shipping solve of the headline states (5/2/2/0, bitwise its eager solve,
     quality, times in turns) and the JAX fixture ``torch_port_seg32_b64.npz``
@@ -3151,7 +3185,9 @@ def one_row_holds(planner, first_qp, smi) -> None:
     states at the full budget: all nine outputs equal, and ptxas's registers
     and spill stores of both instantiations equal; kernel 2 at 19 nodes of
     the Panda and of the 10-joint chain: all five outputs equal; kernel 1 at
-    7 and 10 joints on seeded iterates: values and Jacobians equal."""
+    7 and 10 joints on seeded iterates (the one-row source with the robot
+    by value in its launch's parameters, the package's reading it from
+    device memory): values and Jacobians equal."""
     from mpc_motion_planner_tpu_torch.bench.kernel_ab import run_with
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import constraints as k1
@@ -3201,6 +3237,8 @@ def one_row_holds(planner, first_qp, smi) -> None:
         lo = torch.tensor([-2.5] * nq + [-2.0] * nq + [-10.0] * nq)
         xu = (lo - 2 * lo * torch.rand(B_MAIN, 19, 3 * nq, generator=gen)).to(pl.device)
         X, U = xu[..., :2 * nq].contiguous(), xu[..., 2 * nq:].contiguous()
+        # the one-row source takes the robot by value: its host constants
+        one[1].consts = k1.bake_model(pl.ocp.model, pl.ocp.tool_frame)[0]
         got = (*k1.node_constraints_kernel(pl.ocp, X, U, True),
                k1.node_constraints_kernel(pl.ocp, X, U, False))
         ref = (*run_with(k1, one[1], k1.node_constraints_kernel, pl.ocp, X, U, True),
@@ -3226,7 +3264,7 @@ def joints_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     rule), with ptxas's registers and spill stores. (c) The main path: the
     seeded 12-joint chain (``bench/convergence.py`` ``chain(12, ...)``) at
     19 nodes, 685 variables, 823 rows, kernel 3 in its lean layout: kernels
-    2 and 3 timed at B=2048 against their plain versions with their bounds
+    2 and 3 timed at B_TIME against their plain versions with their bounds
     and kernel 2's library call, the captured shipping solve of the chain's
     2048 states (5/2/2/0, bitwise its eager solve, times in turns; its
     quality read, not held: the seeded chains' QPs do not converge within
@@ -3254,7 +3292,7 @@ def joints_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
         pl, cur, tgt = chain_planner(planner, nq)
         chains[nq] = (pl, cur, tgt)
         lay = k1.block_layout(nq)
-        want = {"smem_bytes": k1.smem_bytes(nq), "blocks_bound": k1.blocks_bound(nq)}
+        want = k1.reckoning(nq)
         check(lay == want, f"kernel 1 at {nq} joints: the library's block {lay}, the reckoning "
               f"{want}")
         log(f"phase 29 (b) kernel 1 at {nq} joints: the Jacobian launch's tiles "
@@ -3408,7 +3446,7 @@ def pair_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     shipping solve of the first B_PAIR states (5/2/2/0). (c) The main path:
     the Panda at 52 segments of order 3 (157 nodes, 3298 variables, 4168
     rows) set as a user sets it: kernels 2 and
-    3 timed at B=256 with their bounds and kernel 2's library call (the full
+    3 timed at B=128 with their bounds and kernel 2's library call (the full
     solve's iteration counts read against the plain float32 loop, not
     held), the captured shipping solve of the headline
     states (5/2/2/0, bitwise its eager solve, quality: from 122 nodes the
@@ -3476,11 +3514,11 @@ def pair_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
           and pl52.qp_settings.kkt_refine == 1,
           f"52 segments: {ocp.num_nodes} nodes, {ocp.num_var} variables, {built}, "
           f"kkt_refine {pl52.qp_settings.kkt_refine}")
-    # at B=256, four waves of the card's 66 clusters (the plain loop takes
-    # 43 s at B=2048 on an H100, 22 s at 512); its iteration counts read,
+    # at B=128, two waves of the card's 66 clusters (the plain loop takes
+    # 43 s at B=2048 on an H100, 21 s at 256); its iteration counts read,
     # not held, as at 121 nodes in phase 28
     time_structured_kernels(pl52, first_qp, results, "seg52", "phase 30 (c)",
-                            window_err["seg52"], batch=B_MAIN // 8, hold_counts=False)
+                            window_err["seg52"], batch=B_MAIN // 16, hold_counts=False)
     captured_shipping(pl52, cur_all, tgt_all, "52 segments", "seg52", "phase 30 (c)",
                       "headline states, 52 segments of order 3, 157 nodes", results,
                       ("banded_factor", "structured_admm"), smi, turns=0)
@@ -3517,10 +3555,14 @@ def pair_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     torch.cuda.empty_cache()
 
 
-# phase 31's batch of the 21-joint chain's captured solve and fixture-free
-# timing, and of the eager solves at 16, 19 and 20 joints: four waves of the
-# 33 clusters of four blocks the card places at 21 joints
+# phase 31's batch of the 21-joint chain's eager solve and fixture-free
+# timing, and of the eager solves at 1, 16, 19 and 20 joints: 4.4 waves of
+# the 30 clusters of four blocks the card places at 21 joints
 B_SPREAD = 132
+# phases 31 and 32's batch of kernel 1's checks (x 19 nodes: 9,728
+# evaluations, about the line-search launch of phase 32's main path, 10
+# B_WIDE x 19)
+B_K1 = 512
 # the JAX structured solve of the seeded 21-joint chain's first 64 states at
 # 19 nodes, with the JAX float32 solve's final times
 # (make_chain12_fixture.py --joints 21)
@@ -3611,15 +3653,16 @@ def spread_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     Each new build against its plain version, with its block against the
     Python reckoning (each rank's bytes, the clusters at a time) and ptxas's
     registers and spills, at 1, 16, 19, 20 and 21 joints: kernel 1 (phase
-    2's bars or the float64 rule), kernel 2 (phase 3's bars, timed with its
-    bound and its library call, the device ring at 20 and 21 joints at
-    B=2048, the others at B_SPREAD), kernel 3 at 1, 16 and 21 joints
+    2's bars or the float64 rule, on B_K1 x 19 evaluations), kernel 2
+    (phase 3's bars, timed with its bound and its library call at
+    B_SPREAD), kernel 3 at 1, 16 and 21 joints
     (``kernel_checks``: phase 4's bars, ``iteration_agreement`` with its
-    float64 rule) and timed at 1, 16, 19 and 20 joints at B_SPREAD.
-    (c) The main path: the seeded 21-joint chain (``bench/convergence.py``
-    ``chain(21, ...)``, 1198 variables, 1426 rows) at B_SPREAD: kernel 3
-    timed against its plain loop with its bound, the captured shipping
-    solve (5/2/2/0, bitwise its eager solve; quality read, not held: the
+    float64 rule) and its check window timed at 1, 16, 19 and 20 joints at
+    B_SPREAD against its plain loop's.
+    (c) The seeded 21-joint chain (``bench/convergence.py`` ``chain(21,
+    ...)``, 1198 variables, 1426 rows) at B_SPREAD: kernel 3 timed against
+    its plain loop with its bound, the eager shipping solve (5/2/2/0; its
+    captured solve is phase 32's at 25 joints; quality read, not held: the
     seeded chains' QPs do not converge within the budgets, at float64
     either), and the JAX fixture ``torch_port_chain21_b64.npz``: final
     times within 1e-3 relative on no fewer states than the JAX float32
@@ -3675,14 +3718,14 @@ def spread_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
             pls[nq] = chain_planner(planner, nq)
         pl = pls[nq][0]
         lay = k1.block_layout(nq)
-        want = {"smem_bytes": k1.smem_bytes(nq), "blocks_bound": k1.blocks_bound(nq)}
+        want = k1.reckoning(nq)
         check(lay == want, f"kernel 1 at {nq} joints: the library's block {lay}, the reckoning "
               f"{want}")
         log(f"phase 31 (b) kernel 1 at {nq} joints: the Jacobian launch's tiles "
             f"{lay['smem_bytes']} B of dynamic shared memory, registers capped for "
             f"{lay['blocks_bound']} block(s) an SM, {k1.param_bytes(nq)} B of parameters; the "
             f"reckoning agrees; {ptxas_report(k1.KERNEL, Geometry(nq=nq))}")
-        kernel1_check(pl, results, "phase 31 (b)", lambda: big @ big, reps=0)
+        kernel1_check(pl, results, "phase 31 (b)", lambda: big @ big, reps=0, batch=B_K1)
     del big
 
     # ---- (b) kernels 2 and 3 at 1, 16, 19, 20 and 21 joints ----
@@ -3702,10 +3745,8 @@ def spread_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
         log(f"phase 31 (b) libraries at {tag}, {built.ept} element(s) a thread, {k3.rows(g)} "
             f"row(s) a lane: {block_summary(g)}; kernel 3 {ptxas_report(k3.KERNEL, g)}; kernel 2 "
             f"{ptxas_report(k2.KERNEL, g)}")
-        # kernel 2 timed with its bound and library call: the device ring at
-        # B=2048, the shared ring's new builds at B_SPREAD
-        _, sa, args, sc, sx = first_qp(B_MAIN if nq >= 20 else B_SPREAD, pl=pl,
-                                       states=(cur, tgt))
+        # kernel 2 timed with its bound and library call at B_SPREAD
+        _, sa, args, sc, sx = first_qp(B_SPREAD, pl=pl, states=(cur, tgt))
         qp = qp_structured.scale_qp(pl.ocp, sa, *args, pl.qp_settings, soft_c=sc, soft_x=sx)
         time_factor(qp, g, results[f"banded_factor_{nq}_joints"],
                     f"{nq} joints, 19 nodes ({k2.choose_ring(g)} ring)", "phase 31 (b)")
@@ -3714,8 +3755,8 @@ def spread_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
             summary, window_err[nq] = kernel_checks(pl, first_qp, tag, (cur, tgt))
             log(f"phase 31 (b) at {tag}, {summary}")
         if nq != 21:
-            kernel3_timing(pl, first_qp, (cur, tgt), tag,
-                           "phase 31 (b)", B_SPREAD, entry=results[f"structured_admm_{nq}_joints"])
+            kernel3_timing(pl, first_qp, (cur, tgt), tag, "phase 31 (b)", B_SPREAD,
+                           entry=results[f"structured_admm_{nq}_joints"], budget=False)
 
     # ---- (c) the main path: the 21-joint chain at 19 nodes ----
     pl21, cur21, tgt21 = pls.pop(21)
@@ -3728,10 +3769,11 @@ def spread_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
           f"{k3.KERNEL.geometry(g21)}")
     time_structured_kernels(pl21, first_qp, results, "21_joints", "phase 31 (c)",
                             window_err[21], (cur21, tgt21), batch=B_SPREAD, factor=False)
-    captured_shipping(pl21, cur21[:B_SPREAD], tgt21[:B_SPREAD], "the 21-joint chain",
-                      "21_joints", "phase 31 (c)", "the chain's seeded states, 19 nodes", results,
-                      ("constraints", "banded_factor", "structured_admm"), smi,
-                      hold_quality=False, turns=0)
+    # the captured solve of the widest chain is phase 32's (25 joints): here
+    # the eager solve
+    eager_shipping(pl21, cur21[:B_SPREAD], tgt21[:B_SPREAD],
+                   "the 21-joint chain, 19 nodes (seeded states)", "21_joints", "phase 31 (c)",
+                   results)
     counts = {}
     n_good, n_tf, n_fx, summary = fixture_agreement(pl21, CHAIN21_FIXTURE, dev, counts)
     n_tf32 = jax_float32_final_times(CHAIN21_FIXTURE)
@@ -3755,6 +3797,192 @@ def spread_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     for g in refused:
         pl, cur, tgt = chain_planner(planner, g.nq, fused="off", segments=g.segments)
         refusal(pl, cur[:4], tgt[:4], f"{g.nq} joints, {g.nodes} nodes", "phase 31 (d)")
+        del pl, cur, tgt
+    torch.cuda.empty_cache()
+
+
+# phase 32's batch of the 25-joint chain's captured solve and of its kernel
+# timings, and of the eager solves at 22, 24 and 28 joints: two waves of the
+# 22 clusters of five blocks the card places at 24 and 25 joints
+B_WIDE = 44
+# the JAX structured solve of the seeded 25-joint chain's first 64 states at
+# 19 nodes, with the JAX float32 solve's final times
+# (make_chain12_fixture.py --joints 25)
+CHAIN25_FIXTURE = os.path.join(FIXTURES, "torch_port_chain25_b64.npz")
+
+
+def wide_geometries():
+    """Phase 32's geometries: (a) the joint counts kernel 1 takes past 21
+    (the J tile in shared memory up to 23 joints, each thread's columns of
+    J to device memory past it, 32 joints at most); (b) the seeded chains
+    past 21 joints that kernels 2 and 3 take, three rows of a block a lane:
+    22, 24 and 25 joints at 19 nodes (kernel 3's ring over three ranks at
+    22, four at 24 and 25, a cluster of five) and 28 joints at 7 nodes, the
+    widest robot that plans anywhere; (d) the first geometries past them:
+    26 joints at 19 nodes (kernel 3's rank 0) and 29 joints at 7 (kernel
+    2)."""
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    kernel1 = (22, 24, 25, 28, 32)
+    chains = (Geometry(nq=22), Geometry(nq=24), Geometry(nq=25), Geometry(2, 3, 28))
+    refused = (Geometry(6, 3, 26), Geometry(2, 3, 29))
+    return kernel1, chains, refused
+
+
+def wide_builds():
+    """Phase 32's libraries: kernel 1 at 22, 24, 25, 28 and 32 joints,
+    kernels 2 and 3 at the chains' geometries."""
+    from mpc_motion_planner_tpu_torch import kernels
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    kernel1, chains, _ = wide_geometries()
+    k1, k2, k3 = (kernels.KERNELS[n] for n in ("constraints", "banded_factor", "structured_admm"))
+    return ([("structured_admm", k3, g) for g in chains]
+            + [("banded_factor", k2, g) for g in chains]
+            + [("constraints", k1, Geometry(nq=nq)) for nq in kernel1])
+
+
+def wide_planner(planner, g):
+    """The seeded chain of ``g.nq`` joints at ``g``'s grid, with the
+    shipping QP settings of its node count, and its states."""
+    from mpc_motion_planner_tpu_torch import config
+
+    pl, cur, tgt = chain_planner(planner, g.nq, segments=g.segments if g.segments != 6 else None)
+    pl.qp_settings = config.shipping_qp_settings(pl.ocp.num_nodes)
+    return pl, cur, tgt
+
+
+def wide_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
+    """Phase 32: kernels 1-3 past 21 joints. Kernel 1 reads its robot from
+    device memory (a pointer in its launch's parameters, 72 B at any joint
+    count) and past 23 joints writes each thread's columns of J to device
+    memory, its J tile no longer fitting; kernels 2 and 3 hold three rows
+    of a block a lane (blocks of 66 to 84 rows), kernel 3's ring over three
+    ranks at 22 and 23 joints and four (a cluster of five) from 24.
+    (a) Kernel 1 at 22, 24, 25, 28 and 32 joints against its plain version
+    on B_K1 x 19 evaluations (``kernel1_check``: phase 2's bars or the
+    float64 rule), its block against the reckoning (``k1.reckoning``) and
+    ptxas's registers and spills. (b) Kernels 2 and 3 at 22, 24 and 25 joints at 19 nodes and
+    28 joints at 7 nodes against their plain versions (``kernel_checks``:
+    phase 3's and 4's bars, ``iteration_agreement`` with its float64 rule),
+    each rank's bytes and the clusters at a time against the reckoning
+    (``block_summary``), ptxas; kernel 2 timed with its bound and
+    ``cholesky_ex`` of the dense M, kernel 3's check window timed at B_WIDE
+    against its plain loop's. (c) The main
+    path: the seeded 25-joint chain (``bench/convergence.py`` ``chain(25,
+    ...)``, 1426 variables, 1694 rows): the captured shipping solve of its
+    first B_WIDE states (5/2/2/0, bitwise its eager solve; quality read, not
+    held), the JAX fixture ``torch_port_chain25_b64.npz`` (final times
+    within 1e-3 relative on no fewer states than the JAX float32 solve,
+    ``qp_converged`` the same on all but 64/32); eager solves of the 22- and
+    24-joint chains at 19 nodes and the 28-joint chain at 7. (d) 26 joints
+    at 19 nodes (kernel 3) and 29 at 7 (kernel 2) refused naming their
+    bytes, before any build."""
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.kernels import constraints as k1
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+    from mpc_motion_planner_tpu_torch.ops import qp_structured
+
+    dev = cur_all.device
+    kernel1, chains, refused = wide_geometries()
+    build_libraries(wide_builds(), "phase 32")
+    suffix = lambda g: f"{g.nq}_joints" + ("" if g.segments == 6 else f"_{g.nodes}_nodes")
+    for name, k in (("constraints", k1.KERNEL), ("banded_factor", k2.KERNEL),
+                    ("structured_admm", k3.KERNEL)):
+        for g in chains:
+            results[f"{name}_{suffix(g)}"] = {
+                "name": f"{name}_{suffix(g)}", "route": "cuda",
+                "source": f"mpc_motion_planner_tpu_torch/csrc/{k.source}",
+                "replaces": REPLACES[name]}
+
+    # ---- (a) kernel 1 at 22, 24, 25, 28 and 32 joints ----
+    big = torch.ones(8192, 8192, device=dev)
+    for nq in kernel1:
+        pl = chain_planner(planner, nq)[0]
+        lay = k1.block_layout(nq)
+        check(lay == k1.reckoning(nq), f"kernel 1 at {nq} joints: the library's block {lay}, "
+              f"the reckoning {k1.reckoning(nq)}")
+        log(f"phase 32 (a) kernel 1 at {nq} joints: the Jacobian launch {lay['threads']} "
+            f"threads, {lay['smem_bytes']} B of dynamic shared memory (J "
+            f"{'in a tile' if lay['j_tiled'] else 'from each thread to device memory'}), "
+            f"registers capped for {lay['blocks_bound']} block(s) an SM, {lay['param_bytes']} B "
+            f"of parameters, the robot {lay['robot_bytes']} B in device memory; the reckoning "
+            f"agrees; {ptxas_report(k1.KERNEL, Geometry(nq=nq))}")
+        # 32 joints plans nowhere (kernel 2 refuses past 28): its hold is
+        # kept in the 28-joint entry
+        if nq < 28:
+            kernel1_check(pl, results, "phase 32 (a)", lambda: big @ big, reps=0,
+                          batch=B_K1)
+        else:
+            sink, key = ((results, "constraints_28_joints_7_nodes") if nq == 28 else
+                         (results["constraints_28_joints_7_nodes"], "held_32_joints"))
+            kernel1_check(pl, sink, "phase 32 (a)", lambda: big @ big, reps=0, key=key,
+                          batch=B_K1)
+        del pl
+    del big
+
+    # ---- (b) kernels 2 and 3 at 22, 24, 25 joints x 6 and 28 x 2 ----
+    pls, window_err = {}, {}
+    for g in chains:
+        pl, cur, tgt = pls[g.nq] = wide_planner(planner, g)
+        built = k3.KERNEL.geometry(g)
+        ranks = 3 if g.nq < 24 else 4
+        check(Geometry.of_ocp(pl.ocp) == g and (built.layout, built.ranks) == ("pair", ranks)
+              and k3.rows(g) == 3 and k2.rows(g) == 3 and k2.choose_ring(g) == "device",
+              f"{g.nq} joints x {g.segments}: kernel 3 built as {built}, kernel 2's ring "
+              f"{k2.choose_ring(g)}")
+        tag = (f"{g.nq} joints, {g.nodes} nodes (pair layout, {ranks} ring ranks of "
+               f"{k3.slots_per_rank(g)} slots, 3 rows a lane)")
+        log(f"phase 32 (b) libraries at {tag}, {built.ept} element(s) a thread: "
+            f"{block_summary(g)}; kernel 3 {ptxas_report(k3.KERNEL, g)}; kernel 2 "
+            f"{ptxas_report(k2.KERNEL, g)}")
+        _, sa, args, sc, sx = first_qp(B_WIDE, pl=pl, states=(cur, tgt))
+        qp = qp_structured.scale_qp(pl.ocp, sa, *args, pl.qp_settings, soft_c=sc, soft_x=sx)
+        time_factor(qp, g, results[f"banded_factor_{suffix(g)}"], tag, "phase 32 (b)")
+        del sa, args, sc, sx, qp
+        summary, window_err[g.nq] = kernel_checks(pl, first_qp, tag, (cur, tgt))
+        log(f"phase 32 (b) at {tag}, {summary}")
+        if g.nq != 25:  # one check window: at the full budget a launch takes seconds
+            kernel3_timing(pl, first_qp, (cur, tgt), tag, "phase 32 (b)", B_WIDE,
+                           entry=results[f"structured_admm_{suffix(g)}"], budget=False)
+
+    # ---- (c) the main path: the 25-joint chain at 19 nodes ----
+    pl25, cur25, tgt25 = pls.pop(25)
+    ocp = pl25.ocp
+    check((ocp.nq, ocp.num_var, ocp.num_eq + ocp.num_ineq) == (25, 1426, 1694)
+          and ocp.uses_kernel(dev), f"the 25-joint chain: {ocp.nq} joints, {ocp.num_var} "
+          f"variables, {k3.KERNEL.geometry(Geometry.of_ocp(ocp))}")
+    time_structured_kernels(pl25, first_qp, results, "25_joints", "phase 32 (c)",
+                            window_err[25], (cur25, tgt25), batch=B_WIDE, factor=False)
+    captured_shipping(pl25, cur25[:B_WIDE], tgt25[:B_WIDE], "the 25-joint chain",
+                      "25_joints", "phase 32 (c)", "the chain's seeded states, 19 nodes", results,
+                      ("constraints", "banded_factor", "structured_admm"), smi,
+                      hold_quality=False, turns=0)
+    counts = {}
+    n_good, n_tf, n_fx, summary = fixture_agreement(pl25, CHAIN25_FIXTURE, dev, counts)
+    n_tf32 = jax_float32_final_times(CHAIN25_FIXTURE)
+    check(n_tf >= n_tf32 and counts["qp_converged"] >= n_fx - n_fx // 32,
+          f"the 25-joint chain: {n_tf} final times within 1e-3 (the JAX float32 solve "
+          f"{n_tf32}), qp_converged the same on {counts['qp_converged']}/{n_fx}")
+    log(f"phase 32 (c) JAX fixture of the 25-joint chain: {summary}; final times within 1e-3 "
+        f"relative {n_tf}/{n_fx} (bar: the JAX package's own float32 solve of these states, "
+        f"{n_tf32}/{n_fx}), qp_converged the same {counts['qp_converged']}/{n_fx} (bar "
+        f"{n_fx - n_fx // 32}), in the target box {counts['in_box']}/{n_fx}, all three "
+        f"{n_good}/{n_fx} (read)")
+    del pl25, cur25, tgt25, ocp
+    for g in chains:
+        if g.nq in pls:
+            pl, cur, tgt = pls.pop(g.nq)
+            eager_shipping(pl, cur[:B_WIDE], tgt[:B_WIDE],
+                           f"the {g.nq}-joint chain, {g.nodes} nodes (seeded states)", suffix(g),
+                           "phase 32 (c)", results)
+            del pl, cur, tgt
+
+    # ---- (d) past them: refused naming the bytes, before any build ----
+    for g, module in zip(refused, (k3, k2)):
+        pl, cur, tgt = chain_planner(planner, g.nq, fused="off", segments=g.segments)
+        refusal(pl, cur[:4], tgt[:4], f"{g.nq} joints, {g.nodes} nodes", "phase 32 (d)", module)
         del pl, cur, tgt
     torch.cuda.empty_cache()
 
@@ -4564,12 +4792,12 @@ def run(dev: torch.device) -> None:
 
     del ops, st, D10
     entry_points(planner)
-    # phases 20-30's libraries build in the background from here on, each
+    # phases 20-32's libraries build in the background from here on, each
     # phase waiting for its own
     prebuild([job for builds in (robot_builds, order_builds, split_builds, stream_builds,
                                  ept_builds, lambda: layout_builds(lean_geometries),
                                  lambda: layout_builds(far_geometries), deep_builds,
-                                 joints_builds, pair_builds, spread_builds)
+                                 joints_builds, pair_builds, spread_builds, wide_builds)
               for job in builds()])
     xla_planner = MotionPlanner(margins=Margins(*MARGINS), dtype=f32, device=dev)
     captured_phases({"structured_pallas": planner, "pallas": dense_planner,
@@ -4588,6 +4816,7 @@ def run(dev: torch.device) -> None:
     joints_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     pair_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     spread_phases(planner, cur_all, tgt_all, first_qp, results, smi)
+    wide_phases(planner, cur_all, tgt_all, first_qp, results, smi)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

@@ -78,12 +78,14 @@ earlier commit:
     git show <commit>:mpc_motion_planner_tpu_torch/csrc/admm_dense.cu > build/variants/old.cu
     git show <commit>:mpc_motion_planner_tpu_torch/csrc/common.cuh > build/variants/common.cuh
 
-Two C interfaces have changed since the kernels were first written, and a
+Three C interfaces have changed since the kernels were first written, and a
 variant that still has the earlier one is recognised by its source and
 called through it: kernel 1 before it read its inputs in place (one
 concatenated ``xu`` array; the earlier wrapper's ``torch.cat`` copy is then
-part of the wrapper's time), and kernel 3 before it took the ADMM state and
-``kkt_refine`` (it starts from the initial state, as every call here does).
+part of the wrapper's time), kernel 1 before it read the robot from device
+memory (the robot's host constants, which the launch copies into its
+parameters), and kernel 3 before it took the ADMM state and ``kkt_refine``
+(it starts from the initial state, as every call here does).
 
 Needs one CUDA GPU and ``nvcc``.
 """
@@ -199,12 +201,28 @@ class EarlierConstraintsKernel(build.CudaKernel):
                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
+class ByValueConstraintsKernel(build.CudaKernel):
+    """A build of kernel 1 with the interface it had while the robot
+    travelled by value: the package's arguments, but the robot's host
+    constants where the package passes its device pointer (``consts``, set
+    per model by :func:`ab_constraints`)."""
+
+    consts = None
+
+    def __init__(self, name, source, init):
+        k = k1.KERNEL
+        super().__init__(name, source, k.entry, k.argtypes, init=init,
+                         per_geometry=k.per_geometry)
+
+    def launch(self, robot, *args, geometry=None):
+        super().launch(self.consts.ctypes.data_as(ctypes.c_void_p), *args, geometry=geometry)
+
+
 def earlier_constraints(kernel, ocp, X, U, with_jac, xu=None):
     """Kernel 1's wrapper as it was with that interface: ``torch.cat`` of X
     and U into ``xu`` (skipped if ``xu`` is given: the launch alone)."""
     B, nodes = X.shape[0], X.shape[1]
-    consts, tool_parent = k1.BAKED.get(
-        (ocp.model, ocp.tool_frame), X.device, lambda: k1.bake_model(ocp.model, ocp.tool_frame))
+    consts, tool_parent = k1.bake_model(ocp.model, ocp.tool_frame)
     if xu is None:
         xu = torch.cat([X, U], dim=-1).reshape(B * nodes, 21).to(torch.float32).contiguous()
     F = xu.shape[0]
@@ -220,13 +238,15 @@ def variant_kernel(number, name, path):
     """The build of a variant source, through the interface its source has."""
     text = open(path).read()
     label = f"{MODULES[number].KERNEL.name}_{name}"
-    if number == 1 and "x_stride" not in text:
-        return EarlierConstraintsKernel(label, path)
-    if number == 3 and "kkt_refine" not in text:
-        return EarlierAdmmKernel(label, path)
     k = MODULES[number].KERNEL
     # sources from before the init entry point set the attributes in every launch
     init = k.init if k.init is not None and k.init in text else None
+    if number == 1 and "x_stride" not in text:
+        return EarlierConstraintsKernel(label, path)
+    if number == 1 and "robot_bytes" not in text:
+        return ByValueConstraintsKernel(label, path, init)
+    if number == 3 and "kkt_refine" not in text:
+        return EarlierAdmmKernel(label, path)
     return build.CudaKernel(label, path, k.entry, k.argtypes, init=init,
                             per_geometry=k.per_geometry, resolve=k.resolve)
 
@@ -258,6 +278,9 @@ def ab_constraints(kernels, planner, cur, tgt, reps):
     """Kernel 1 on the step-0 iterates: with the Jacobian (the linearization's
     launch) and values only on ten copies (the line search's launch)."""
     ocp = planner.ocp
+    for k in kernels.values():
+        if isinstance(k, ByValueConstraintsKernel):
+            k.consts = k1.bake_model(ocp.model, ocp.tool_frame)[0]
     z0 = planner.warm_start_vector(planner.plan_warm_start(cur, tgt))
     zl = z0.repeat(10, 1)
     results = {name: {} for name in kernels}

@@ -15,7 +15,7 @@ each hand-written kernel by name. Wall times are taken before the profiler
 starts, which slows later solves.
 
     python -m mpc_motion_planner_tpu_torch.bench.profile_solve [--dense | --default | --xla]
-        [--warm 5] [--segments 6] [--order 3]
+        [--warm 5] [--segments 6] [--order 3] [--batch 2048]
         [--urdf tests/fixtures/panda_joint7_fixed.urdf | --hand | --chain 12 | --chain 21]
 
 ``--segments`` and ``--order`` set the transcription as a user sets it
@@ -44,11 +44,13 @@ constraint path runs in its place), on the headline states with the
 fingers at 0.01 m and 0.03 m (``hand_states``); kernels 2 and 3 are built
 for 9 joints. ``--chain NQ`` plans the seeded serial chain of NQ joints on
 its 2048 seeded states (``bench/convergence.py`` ``chain``, no floor for
-its tool, as ``chip_smoke.py`` plans it), any count kernel 1 takes (1 to
-21): ``--chain 12`` at 19 nodes takes kernel 3's lean layout with blocks of
-36 x 36, two rows a lane; ``--chain 21`` its pair layout with the ring
-spread over three ranks, a cluster of four blocks a problem, and kernel 2
-with its ring read back from device memory.
+its tool, as ``chip_smoke.py`` plans it), any count kernels 1-3 take (1 to
+25 at 19 nodes): ``--chain 12`` at 19 nodes takes kernel 3's lean layout
+with blocks of 36 x 36, two rows a lane; ``--chain 21`` its pair layout
+with the ring spread over three ranks, a cluster of four blocks a problem,
+and kernel 2 with its ring read back from device memory; ``--chain 25``
+blocks of 75 x 75, three rows a lane, the ring over four ranks, a cluster
+of five. ``--batch`` solves the first B states (default all 2048).
 
 Prints one JSON object, then the card's name and power limit. Needs one
 CUDA GPU and ``nvcc``.
@@ -226,6 +228,7 @@ def main(argv=None) -> int:
     robot.add_argument("--hand", action="store_true",
                        help="the Panda with its hand (9 joints), fused_constraints 'off'")
     robot.add_argument("--chain", type=int, help="the seeded serial chain of this many joints")
+    ap.add_argument("--batch", type=int, default=2048, help="solve the first B states")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_solve: needs a CUDA GPU", file=sys.stderr)
@@ -250,6 +253,7 @@ def main(argv=None) -> int:
         cols = list(range(planner.ocp.nq)) + [7 + i for i in range(planner.ocp.nq)]
         cur = torch.as_tensor(states["current"][:, cols], device=dev)
         tgt = torch.as_tensor(states["target"][:, cols], device=dev)
+    cur, tgt = cur[:a.batch], tgt[:a.batch]
     B = int(cur.shape[0])
 
     t0 = time.perf_counter()

@@ -1628,12 +1628,18 @@ __device__ __forceinline__ void peer_block(Peer& pr, const Ptrs& g, int b, int w
   }
   pair_sync();  // both blocks' barriers and counts are initialised
   if (copier || relay) {
-    // ring_start's copies, then rank 0's pairs of sweeps
+    // ring_start's copies, then rank 0's pairs of sweeps; where the ring
+    // holds every node from the start (N <= RING: 7 nodes at order 3) the
+    // sweeps copy nothing, and a copier that waited for their steps would
+    // never see rank 0 stop (ring_step reads the stop flag only before a
+    // copy)
     for (int m = 0; m <= r.hi; ++m) {
       ring_copy(r, warp, lane, m);
       if (relay) relay_signal(r, m % RING);
     }
-    while (copier_sweep<true>(r, warp, lane) && copier_sweep<false>(r, warp, lane)) {
+    if constexpr (LAST_COPY >= RING) {
+      while (copier_sweep<true>(r, warp, lane) && copier_sweep<false>(r, warp, lane)) {
+      }
     }
     if constexpr (SPREAD_RING) {
       // each of this rank's slots' last copy lands before its memory is gone

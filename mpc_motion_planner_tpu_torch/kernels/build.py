@@ -363,10 +363,9 @@ class DeviceCount:
 class HostConstants:
     """Constants derived from objects (a robot model and frame, a
     collocation), made once per (objects, device) and reused while those
-    objects live: host arrays that a launch passes by value, so it does not
-    copy them back from the card, and device tensors that the solve would
-    otherwise copy from host memory at every call (which a CUDA graph
-    capture refuses).
+    objects live: device tensors that a launch points to (kernel 1's robot)
+    or that the solve would otherwise copy from host memory at every call
+    (which a CUDA graph capture refuses).
 
     Keyed by object identity: the port's models and collocations are frozen
     dataclasses whose tensors it never changes in place."""

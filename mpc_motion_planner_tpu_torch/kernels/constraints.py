@@ -19,19 +19,20 @@ rotation has a tangent, and every later rotation multiplies tangents as a
 float matrix. :func:`node_jacobians_by_joint` states this split in plain
 PyTorch. The figures here are the 7-joint Panda's: the library is built for
 the model's joint count (``-DMPC_NQ``, one library per joint count, a block
-of nq warps), for any serial chain of revolute joints whose robot fits a
-launch's 4 KB of parameters and whose Jacobian tiles fit a block's dynamic
-shared memory (:func:`check_fits`: up to 21 joints; the tiles take 66,816 B
-at 12 joints, where two blocks still share an SM). The value launch runs
-one thread per evaluation. Both read ``q,
-qdot`` and ``u`` where they lie (``X`` and ``U`` may be views of the NLP
+of nq warps), for any serial chain of revolute joints whose block fits
+(:func:`check_fits`: up to 32 joints, 1,024 threads; the tiles take
+66,816 B at 12 joints, where two blocks still share an SM, and past 23
+joints the J tile is left out: each thread writes its columns of J to
+device memory itself). The value launch runs one thread per evaluation.
+Both read ``q, qdot`` and ``u`` where they lie (``X`` and ``U`` may be views of the NLP
 iterate ``z``: a batch stride and node-major rows, no ``cat`` copy). The
 Jacobian launch stages them with coalesced loads into shared memory and
 writes ``g`` and ``J`` through shared-memory tiles in 16-byte stores; the
 value launch, bound by its instructions, loads and stores per thread. The
-robot constants travel by value in the kernel's parameter struct (1.3 KB
-at 7 joints, 46 floats per joint), so another model of the same joint count
-needs no rebuild.
+robot constants (1.3 KB at 7 joints, 46 floats per joint) lie in device
+memory, baked once per model and device (:data:`BAKED`), and the launches
+take a pointer to them: their parameters are 72 B at any joint count, and
+another model of the same joint count needs no rebuild.
 
 The plain version is ``TranscribedOCP.node_constraints`` with
 ``torch.func.jacfwd`` (:func:`node_constraints_plain`); the wrapper takes it
@@ -46,10 +47,12 @@ import numpy as np
 import torch
 
 from ..models.robot import PRISMATIC, Frame, RobotModel
-from .build import SM_SMEM, CudaKernel, Geometry, HostConstants, ptr
+from .build import SM_SMEM, SMEM_LIMIT, CudaKernel, Geometry, HostConstants, ptr
 
 JOINT_FLOATS = 46  # R0 9, t 3, axis 3, K 9, K2 9, mass 1, mc 3, Io 9
 PARAM_LIMIT = 4096  # bytes of a launch's parameters
+JE = 32  # evaluations a block of the Jacobian launch: one a lane
+THREAD_LIMIT = 1024  # threads a block may have
 
 KERNEL = CudaKernel(
     "constraints", "constraints.cu", "mpc_constraints",
@@ -59,50 +62,85 @@ KERNEL = CudaKernel(
     init="mpc_constraints_init", per_geometry="joints",
 )
 
-# bake_model results per (model, frame, device)
+# the baked robot in device memory and its tool's parent joint, per (model,
+# frame, device)
 BAKED = HostConstants()
+
+
+def threads(nq: int) -> int:
+    """JT of csrc/constraints.cu: the Jacobian launch's threads a block,
+    one per (evaluation, joint) of its 32 evaluations."""
+    return JE * nq
+
+
+def j_tiled(nq: int) -> bool:
+    """JTILE: whether the Jacobian launch stages J in a shared-memory tile
+    (up to 23 joints); past that each thread writes its columns of J to
+    device memory itself."""
+    nin, ng = 3 * nq, nq + 1
+    return 8 * 2 * JE + 4 * JE * (nin + ng * nin + 1 + (ng | 1)) <= SMEM_LIMIT
 
 
 def smem_bytes(nq: int) -> int:
     """Dynamic shared memory of one block of the Jacobian launch built for
     ``nq`` joints (csrc/constraints.cu JSMEM): the offsets and inputs of 32
-    evaluations, and the J and g tiles at their padded strides."""
+    evaluations, the J tile where it fits (:func:`j_tiled`) and the g tile,
+    at their padded strides."""
     nin, ng = 3 * nq, nq + 1
-    return 8 * 64 + 4 * 32 * nin + 4 * 32 * (ng * nin + 1) + 4 * 32 * (ng | 1)
+    tile = 4 * JE * (ng * nin + 1) if j_tiled(nq) else 0
+    return 8 * 2 * JE + 4 * JE * nin + tile + 4 * JE * (ng | 1)
+
+
+def robot_bytes(nq: int) -> int:
+    """The baked robot in device memory (struct Robot): 46 floats per
+    joint, gravity and the tool translation."""
+    return 4 * (nq * JOINT_FLOATS + 6)
 
 
 def param_bytes(nq: int) -> int:
-    """Bytes of the Jacobian launch's parameters at ``nq`` joints (the
-    larger of the two launches'): the robot by value (struct Robot: 46
-    floats per joint, gravity, the tool translation and its parent), where
-    the inputs lie (struct Inputs), the two output pointers and F."""
-    return 4 * (nq * JOINT_FLOATS + 6) + 4 + 40 + 16 + 4
+    """Bytes of the Jacobian launch's parameters (the larger of the two
+    launches'), at any joint count: the robot's pointer and its tool's
+    parent, where the inputs lie (struct Inputs), the two output pointers
+    and F."""
+    return 8 + 4 + 40 + 16 + 4
 
 
 def blocks_bound(nq: int) -> int:
     """JB of csrc/constraints.cu: the blocks of the Jacobian launch an SM
     holds by their tiles, for which its registers are capped: two while two
-    fit the SM (up to 16 joints), else one."""
-    return 2 if 2 * (smem_bytes(nq) + 1024) <= SM_SMEM else 1
+    fit the SM and leave a thread 64 registers or more (up to 16 joints),
+    else one."""
+    return 2 if 2 * (smem_bytes(nq) + 1024) <= SM_SMEM and 2 * threads(nq) <= 1024 else 1
+
+
+def reckoning(nq: int) -> dict:
+    """The Jacobian launch's block at ``nq`` joints as this module reckons
+    it, in the keys of :func:`block_layout`."""
+    return {"smem_bytes": smem_bytes(nq), "blocks_bound": blocks_bound(nq),
+            "threads": threads(nq), "j_tiled": int(j_tiled(nq)),
+            "param_bytes": param_bytes(nq), "robot_bytes": robot_bytes(nq)}
 
 
 def check_fits(nq: int) -> None:
     """Raise ValueError unless kernel 1 built for ``nq`` joints fits a
-    launch: the robot in a launch's 4 KB of parameters, 21 joints at most
-    (the Jacobian launch's tiles fit a block's shared memory up to 23)."""
-    if param_bytes(nq) > PARAM_LIMIT:
-        raise ValueError(f"kernel 1 at {nq} joints needs {param_bytes(nq)} B of launch "
-                         f"parameters (the robot travels by value); a launch may have "
-                         f"{PARAM_LIMIT} B")
+    launch: a thread per (evaluation, joint) of 32 evaluations in one block,
+    32 joints at most (its shared memory, the J tile left out past 23
+    joints, and its 72 B of parameters fit at every count that does)."""
+    if threads(nq) > THREAD_LIMIT:
+        raise ValueError(f"kernel 1 at {nq} joints needs {threads(nq)} threads a block (one "
+                         f"per evaluation and joint, {JE} evaluations); a block may have "
+                         f"{THREAD_LIMIT}")
 
 
 def block_layout(nq: int) -> dict:
     """What the library built for ``nq`` joints says of the Jacobian
-    launch's block: its dynamic shared memory and the blocks an SM holds
-    its registers are capped for."""
+    launch's block: its dynamic shared memory, the blocks an SM holds its
+    registers are capped for, its threads, whether it stages J in a tile,
+    and the bytes of its parameters and of the robot."""
     lib = KERNEL.library(Geometry(nq=nq))
     out = {}
-    for key in ("smem_bytes", "blocks_bound"):
+    for key in ("smem_bytes", "blocks_bound", "threads", "j_tiled", "param_bytes",
+                "robot_bytes"):
         fn = getattr(lib, f"mpc_constraints_{key}")
         fn.restype = ctypes.c_int
         out[key] = fn()
@@ -147,6 +185,13 @@ def bake_model(model: RobotModel, frame: Frame):
     ).astype(np.float32)
     assert consts.size == nj * JOINT_FLOATS + 6
     return consts, int(frame.parent_joint)
+
+
+def baked_robot(model: RobotModel, frame: Frame, device):
+    """:func:`bake_model` on ``device``: ``(robot, tool_parent)`` with the
+    constants as a float32 tensor there, which the launches point to."""
+    consts, tool_parent = bake_model(model, frame)
+    return torch.from_numpy(consts).to(device), tool_parent
 
 
 def node_constraints_plain(ocp, X, U, with_jac: bool):
@@ -203,19 +248,19 @@ def node_constraints_kernel(ocp, X, U, with_jac: bool):
         raise ValueError(f"kernel 1 takes X (B, nodes, {2 * nq}) and U (B, nodes, {nq}), got "
                          f"{tuple(X.shape)} and {tuple(U.shape)}")
     check_fits(nq)
-    consts, tool_parent = BAKED.get(
-        (ocp.model, ocp.tool_frame), X.device, lambda: bake_model(ocp.model, ocp.tool_frame)
-    )
     for name, t in (("X", X), ("U", U)):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    robot, tool_parent = BAKED.get(
+        (ocp.model, ocp.tool_frame), X.device, lambda: baked_robot(ocp.model, ocp.tool_frame,
+                                                                   X.device))
     x, u = _rows_in_place(X, 2 * nq), _rows_in_place(U, nq)
     F = B * nodes
     g = torch.empty(F, ng, dtype=torch.float32, device=x.device)
     J = (torch.empty(F, ng, n_in, dtype=torch.float32, device=x.device)
          if with_jac else None)
     KERNEL.launch(
-        consts.ctypes.data_as(ctypes.c_void_p), tool_parent, ptr(x), ptr(u),
+        ptr(robot), tool_parent, ptr(x), ptr(u),
         x.stride(0) if B > 1 else 0, u.stride(0) if B > 1 else 0, nodes, ptr(g),
         ptr(J) if with_jac else None, F, int(with_jac), geometry=Geometry(nq=nq),
     )

@@ -17,14 +17,15 @@ solves the 19-node fixture.
 
 It also holds ``final_time_float32``: the final times of the JAX package's
 own float32 solve of the same states in the same configuration, the figure
-that ``chip_smoke.py`` phases 29 (12 joints) and 31 (21 joints) hold the
-port's float32 final times to
+that ``chip_smoke.py`` phases 29 (12 joints), 31 (21 joints) and 32 (25
+joints) hold the port's float32 final times to
 (the seeded chains' QPs do not converge within these budgets, at float64
 either, so a float32 solve parts from float64 on more states than the
 Panda's).
 
     JAX_PLATFORMS=cpu python tests/fixtures/make_chain12_fixture.py
     JAX_PLATFORMS=cpu python tests/fixtures/make_chain12_fixture.py --joints 21
+    JAX_PLATFORMS=cpu python tests/fixtures/make_chain12_fixture.py --joints 25
 """
 
 from __future__ import annotations

@@ -54,11 +54,13 @@ def test_kernel1_fits_past_ten_joints(nq):
     """Kernel 1's Jacobian launch keeps its tiles in dynamic shared memory,
     which the library's init lets it take: 48,128 B at 10 joints (all a
     block's static shared memory could hold), 57,216 B at 11 and 66,816 B at
-    12; two blocks share an SM at each of 7 to 14 joints, and the robot's
-    parameters stay inside a launch's 4 KB; every count plans."""
-    assert k1.smem_bytes(nq) == K1_TILES[nq]
+    12; two blocks share an SM at each of 7 to 14 joints; the robot lies in
+    device memory (46 floats a joint and 6 more) and the launch's
+    parameters are 72 B, its pointer among them; every count plans."""
+    assert k1.smem_bytes(nq) == K1_TILES[nq] and k1.j_tiled(nq)
     assert k1.blocks_bound(nq) == 2
-    assert k1.param_bytes(nq) == 184 * nq + 88 <= k1.PARAM_LIMIT
+    assert k1.robot_bytes(nq) == 184 * nq + 24
+    assert k1.param_bytes(nq) == 72 <= k1.PARAM_LIMIT
     k1.check_fits(nq)
     assert k1.KERNEL.init == "mpc_constraints_init"
     assert f"-DMPC_NQ={nq}" in k1.KERNEL.flags(Geometry(nq=nq))
@@ -66,15 +68,20 @@ def test_kernel1_fits_past_ten_joints(nq):
 
 def test_kernel1_first_refused_joint_count_names_its_bytes():
     """Two blocks of the Jacobian launch share an SM up to 16 joints
-    (113,408 B of tiles), one from 17; 21 joints fit (3,952 B of
-    parameters, 189,056 B of tiles) and 22 joints raise before any build,
-    naming the 4,136 B of parameters a launch would need (the robot travels
-    by value, 46 floats a joint)."""
+    (113,408 B of tiles), one from 17; 21 joints fit (189,056 B of tiles),
+    and so does every count up to 32 (the J tile in shared memory up to 23
+    joints, 224,640 B; past it each thread writes its columns of J to
+    device memory); 33 joints raise before any build, naming the 1,056
+    threads a block would need (one per evaluation and joint of 32
+    evaluations)."""
     assert (k1.blocks_bound(16), k1.blocks_bound(17)) == (2, 1)
-    assert (k1.smem_bytes(16), k1.smem_bytes(21), k1.param_bytes(21)) == (113408, 189056, 3952)
-    k1.check_fits(21)
-    with pytest.raises(ValueError, match=r"22 joints needs 4136 B of launch parameters"):
-        k1.check_fits(22)
+    assert (k1.smem_bytes(16), k1.smem_bytes(21), k1.param_bytes(21)) == (113408, 189056, 72)
+    assert (k1.smem_bytes(23), k1.j_tiled(23), k1.j_tiled(24)) == (224640, True, False)
+    for nq in (21, 22, 23, 24, 32):
+        k1.check_fits(nq)
+    with pytest.raises(ValueError, match=r"33 joints needs 1056 threads a block .*; a block may "
+                                         r"have 1024"):
+        k1.check_fits(33)
 
 
 @pytest.mark.parametrize("nq, smem, per_sm", [(11, 79740, 2), (12, 93876, 2), (14, 126948, 1)])

@@ -1,5 +1,6 @@
-"""PyTorch port, every joint count kernel 1 takes (up to 21) at the
-headline's 19 nodes: kernel 3's pair layout with its ring spread over ranks
+"""PyTorch port, every joint count up to 21 at the headline's 19 nodes
+(the sweep of joint counts runs on to 25, test_torch_joints25.py the
+rest): kernel 3's pair layout with its ring spread over ranks
 1..R of a cluster of 1 + R blocks, whole slots a rank, where one rank 1
 cannot hold the ring (16 to 21 joints); kernel 2's ring of the last bw
 nodes' blocks read back from device memory where its shared ring does not
@@ -50,14 +51,16 @@ def _struct(members):
     return off
 
 
-@pytest.mark.parametrize("nq", range(1, 22))
+@pytest.mark.parametrize("nq", range(1, 26))
 def test_every_joint_count_plans_at_19_nodes(nq):
-    """Kernels 1, 2 and 3 take every joint count from 1 to 21 at the
+    """Kernels 1, 2 and 3 take every joint count from 1 to 25 at the
     headline's 19 nodes: kernel 3 in the first layout whose block fits, its
-    pair ring spread over two ranks from 16 joints and three at 21; kernel 2
-    with its ring in shared memory up to 19 joints and read back from device
-    memory at 20 and 21; at one joint kernel 3's elements fill three warps
-    and its block takes the five its sweeps need."""
+    pair ring spread over two ranks from 16 joints, three at 21 to 23 and
+    four (a cluster of five) at 24 and 25; kernel 2 with its ring in shared
+    memory up to 19 joints and read back from device memory from 20; at one
+    joint kernel 3's elements fill three warps and its block takes the five
+    its sweeps need; past 21 joints a lane of kernels 2 and 3 holds three
+    rows of a block."""
     g = Geometry(nq=nq)
     k1.check_fits(nq)
     k2.check_fits(g)
@@ -66,9 +69,11 @@ def test_every_joint_count_plans_at_19_nodes(nq):
     layout = ("full" if nq <= 7 else "compact" if nq == 8 else "split" if nq <= 10
               else "stream" if nq == 11 else "lean" if nq <= 13 else "far" if nq <= 15
               else "pair")
+    ranks = 1 if nq < 16 else 2 if nq <= 20 else 3 if nq <= 23 else 4
     assert built.layout == layout == k3.choose_layout(g)
-    assert built.ranks == (None if nq < 16 else 3 if nq == 21 else 2)
-    assert k3.ring_ranks(g) == (1 if nq < 16 else 3 if nq == 21 else 2)
+    assert built.ranks == (None if nq < 16 else ranks)
+    assert k3.ring_ranks(g) == ranks
+    assert k3.rows(g) == k2.rows(g) == (1 if nq <= 10 else 2 if nq <= 21 else 3)
     assert k2.choose_ring(g) == ("device" if nq >= 20 else "shared")
     assert max(k3.rank_bytes(g) if layout == "pair" else (k3.smem_bytes(g),)) <= SMEM_LIMIT
     assert k3.threads(g) == (160 if nq == 1 else -(-max(g.num_var, g.num_rows)
@@ -309,7 +314,13 @@ def test_factor_banded_blk63_matches_jax():
     (``factor_banded_ring``): the JAX node-level factor's Ldi, Lsub, u and s
     to 1e-9; the two schedules give the same factors, bitwise (float32 too);
     a problem with an indefinite first block is flagged alone."""
-    Mband, pc, mpp = _band(7, 3, 63, 3, seed=63)
+    factor_matches_jax(63, seed=63)
+
+
+def factor_matches_jax(blk, seed):
+    """The check of ``test_factor_banded_blk63_matches_jax`` at block size
+    ``blk`` on a band drawn from ``seed``."""
+    Mband, pc, mpp = _band(7, 3, blk, 3, seed=seed)
     Mband[1, 0, 0, 0, 0] = -1.0
     ref = {k: np.asarray(v) for k, v in
            jqs.factor_banded(*(jnp.asarray(a) for a in (Mband, pc, mpp)), 3).items()}

@@ -205,8 +205,8 @@ def test_geometry_at_other_joint_counts(nq):
 
 
 def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
-    """Kernel 1 takes up to 21 joints (its robot in a launch's 4 KB of
-    parameters; 22 joints need 4,136 B), kernel 2 at 19 nodes up to 27
+    """Kernel 1 takes up to 32 joints (a thread per evaluation and joint of
+    32 evaluations; 33 joints need 1,056 threads), kernel 2 at 19 nodes up to 27
     (two rows of a block a lane past 10, three past 21; from 20 joints its
     ring read back from device memory; 28 joints need 238,964 B of shared
     memory); kernels 2 and 3 take splines of orders 2, 4 and 5 at 6 joints and order
@@ -226,9 +226,9 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
     nodes need 236,848 B even in rank 0 of the pair layout and raise naming
     them before any build; a library kind that is none of the three
     raises."""
-    k1.check_fits(21)
-    with pytest.raises(ValueError, match=r"22 joints needs 4136 B of launch parameters"):
-        k1.check_fits(22)
+    k1.check_fits(32)
+    with pytest.raises(ValueError, match=r"33 joints needs 1056 threads a block"):
+        k1.check_fits(33)
     k2.check_fits(Geometry(nq=27))
     with pytest.raises(ValueError, match=r"19 nodes, band width 3 and 28 joints needs 238964 B "
                                          r"of shared memory per block"):
