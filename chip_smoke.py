@@ -177,13 +177,14 @@ versions, kernel 3 timed and an eager shipping solve each; (c) the Panda at
 elements a thread) as a user sets it: kernels 2 and 3 timed, the captured
 shipping solve of the headline states (5/2/2/0, bitwise its eager solve,
 quality) and the JAX fixture ``torch_port_seg52_b64.npz``; (d) the first
-geometries past the pair layout refused naming the bytes of both its
-blocks, before any build. Every joint count kernel 1 takes (1 to 21) plans
-at 19 nodes: where one rank 1 cannot hold the pair layout's ring (16 to 21
-joints) the ring is spread over two or three ring ranks, a cluster of three
-or four blocks; where kernel 2's ring of the last bw nodes does not fit its
-block (20 and 21 joints) it is read back from device memory; at one joint
-kernel 3's block takes the warps its sweeps need. Phase 31 holds them: (a)
+geometries past the pair layout and the slim one (phase 33) refused naming
+the bytes of both their clusters' blocks, before any build. Every joint
+count kernel 1 takes (1 to 21) plans at 19 nodes: where one rank 1 cannot
+hold the pair layout's ring (16 to 21 joints) the ring is spread over two
+or three ring ranks, a cluster of three or four blocks; where kernel 2's
+ring of the last bw nodes does not fit its block (20 and 21 joints) it is
+read back from device memory; at one joint kernel 3's block takes the
+warps its sweeps need. Phase 31 holds them: (a)
 the ring spread over two ranks at 14 joints x 12 bitwise its one-rank
 build, kernel 2's device ring bitwise its shared ring at 14 and 19 joints;
 (b) kernels 1-3 at 1, 16, 19, 20 and 21 joints against their plain
@@ -191,7 +192,8 @@ versions, their blocks against the reckoning; (c) the seeded 21-joint chain
 (1198 variables, 1426 rows): kernel 3 timed, the eager shipping solve of
 its first B_SPREAD states (5/2/2/0) and the JAX fixture
 ``torch_port_chain21_b64.npz``; 1, 16, 19 and 20 joints solved eagerly; (d)
-the first grids past the spread ring at 16 and 21 joints refused. Past 21
+the first grids past the spread ring (and the slim layout) at 16 and 21
+joints refused. Past 21
 joints kernel 1 reads its robot from device memory (past 23 joints each
 thread writes its columns of J to device memory itself), a lane of kernels
 2 and 3 holds three rows of a block, and kernel 3's ring spreads over three
@@ -203,10 +205,24 @@ versions, their blocks against the reckoning, timed; (c) the main path: the
 seeded 25-joint chain (1426 variables, 1694 rows), the captured shipping
 solve of its first B_WIDE states (5/2/2/0, bitwise its eager solve) and the
 JAX fixture ``torch_port_chain25_b64.npz``; 22 and 24 joints at 19 nodes
-and 28 at 7 solved eagerly; (d) 26 joints at 19 nodes and 29 at 7 refused
-naming their bytes. The plain kernel-3 loop of phases 19-32 replays each check window
-from a CUDA graph (``PlainWindows``), which phase 10 holds bitwise against
-the eager loop.
+and 28 at 7 solved eagerly; (d) the first grids past the slim layout at 22
+and 25 joints refused naming their bytes. Past 25 joints at 19 nodes the
+pair layout's rank 0 does not fit for its staging buffers, and kernel 3
+takes the slim layout (the pair's with rank 0's staging buffers cut to
+those in use at one time; the ring over seven ranks, a cluster of eight,
+from 29 joints), and past 27 kernel 2 takes its scratch build (the inverse
+and the far sums of its forward loop in Ldi); phase 33 holds them: (a) slim
+bitwise pair at 25 joints; (b) the scratch build bitwise the device ring
+at 25 joints; (c) kernels 2 and 3 at 26, 28, 30 and 32 joints against
+their plain versions, their blocks against the reckoning, timed, solved
+eagerly but at 32; (d) 14 joints x 26 (79 nodes), slim with one ring rank;
+(e) the main path: the seeded 32-joint chain (1825 variables, 2163 rows),
+its captured shipping solve (5/2/2/0, bitwise its eager solve) and the JAX
+fixture ``torch_port_chain32_b64.npz``; (f) kernel 1 at 33 joints, 32
+joints at 22 nodes and the Panda at 181 nodes refused naming their bytes.
+The plain kernel-3 loop of phases 19-33 replays each check window from a
+CUDA graph (``PlainWindows``), which phase 10 holds bitwise against the
+eager loop.
 Needs one CUDA GPU and ``nvcc``; imports no JAX.
 
     python3 chip_smoke.py
@@ -273,9 +289,9 @@ B_ADMM = 64  # kernel-3 and kernel-4 comparison batch
 B_ODD = 61  # a batch that is no round number
 B_XLA = 128  # phase 14's batch of the dense "xla" path
 # phases 19-29's batch of kernels 2 and 3 timed against their plain versions
-# (time_structured_kernels), half the headline's: the plain kernel-3 loop
-# takes seconds there
-B_TIME = 1024
+# (time_structured_kernels), a quarter of the headline's: the plain kernel-3
+# loop takes seconds there
+B_TIME = 512
 N_ACCEPT, B_ACCEPT = 1000, 250  # the acceptance's states and batch (phase 12)
 # the JAX package's record on these states (BENCH_r05.json, structured_pallas)
 JAX_RECORD = {"qp_conv_rate": 0.9978, "tol_hit_rate": 1.0, "median_violation": 0.487,
@@ -3035,9 +3051,9 @@ def deep_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
             f"{block_summary(g, kernel2=False)}; {ptxas_report(k3.KERNEL, g)}; the far build: "
             f"{ptxas_report(k3.KERNEL, dataclasses.replace(g, layout=None))}")
         # 31 x 3 has no entry of its own in the kernels line: its times are
-        # in the log
+        # in the log; both at B_ONE_ROW, to keep the script inside its time
         hold_layouts(pl, first_qp, "far", "deep", results.get(f"structured_admm_{suffix}", {}),
-                     "phase 28", smi, turns=1)
+                     "phase 28", smi, turns=1, batch=B_ONE_ROW)
         del pl
 
     # ---- (b) the main path: 32 segments of order 3 ----
@@ -3381,7 +3397,8 @@ def pair_geometries():
     (32 x 3, 51 x 3 at four elements a thread, 12 joints x 12, two rows a
     lane), by the suffix of their ``kernels`` entries; (b) the seven that
     take the pair layout, the main path (52 x 3) first; (d) the first of the
-    Panda's at orders 3 and 4 and of 9, 10, 11, 12 and 14 joints past it."""
+    Panda's at order 4 and of 9, 10, 11, 12 and 14 joints past it and past
+    the slim layout (the Panda's at order 3 is phase 33's)."""
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
 
     held = {"seg32": Geometry(32, 3, layout="pair"), "seg51": Geometry(51, 3, layout="pair"),
@@ -3390,8 +3407,8 @@ def pair_geometries():
              "9_joints_112_nodes": Geometry(37, 3, 9), "10_joints_91_nodes": Geometry(30, 3, 10),
              "11_joints_76_nodes": Geometry(25, 3, 11), "12_joints_61_nodes": Geometry(20, 3, 12),
              "14_joints_37_nodes": Geometry(12, 3, 14)}
-    refused = (Geometry(59, 3), Geometry(42, 4), Geometry(45, 3, 9), Geometry(40, 3, 10),
-               Geometry(35, 3, 11), Geometry(32, 3, 12), Geometry(26, 3, 14))
+    refused = (Geometry(42, 4), Geometry(46, 3, 9), Geometry(41, 3, 10), Geometry(37, 3, 11),
+               Geometry(34, 3, 12), Geometry(29, 3, 14))
     return held, takes, refused
 
 
@@ -3455,7 +3472,7 @@ def pair_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     solve (one refinement step, no rescue iterations): final times within
     1e-3 relative on no fewer states than that solve, every state in the
     target box (qp_converged read beside them). (d) The first geometries past the
-    pair layout refused naming each rank's bytes, before any build."""
+    pair layout and the slim one refused naming each rank's bytes, before any build."""
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
 
@@ -3473,11 +3490,10 @@ def pair_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
             f"{block_summary(g, kernel2=False)}; {ptxas_report(k3.KERNEL, g)}; the deep build: "
             f"{ptxas_report(k3.KERNEL, dataclasses.replace(g, layout=None))}")
         # only 32 x 3 has an entry of its own in the kernels line (phase 28's);
-        # 51 x 3 at B_ONE_ROW (four waves of the card), to keep the script
+        # each at B_ONE_ROW (four waves of the card), to keep the script
         # inside its time
         hold_layouts(pl, first_qp, "deep", "pair", results.get(f"structured_admm_{suffix}", {}),
-                     "phase 30 (a)", smi, states, turns=1,
-                     batch=B_ONE_ROW if suffix == "seg51" else B_MAIN)
+                     "phase 30 (a)", smi, states, turns=1, batch=B_ONE_ROW)
         del pl, states
 
     # ---- (b) the seven geometries that take the pair layout ----
@@ -3514,11 +3530,11 @@ def pair_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
           and pl52.qp_settings.kkt_refine == 1,
           f"52 segments: {ocp.num_nodes} nodes, {ocp.num_var} variables, {built}, "
           f"kkt_refine {pl52.qp_settings.kkt_refine}")
-    # at B=128, two waves of the card's 66 clusters (the plain loop takes
-    # 43 s at B=2048 on an H100, 21 s at 256); its iteration counts read,
-    # not held, as at 121 nodes in phase 28
+    # at B=64, one wave of the card's 66 clusters (the plain loop takes 43 s
+    # at B=2048 on an H100, 21 s at 256, 18.6 s at 128); its iteration counts
+    # read, not held, as at 121 nodes in phase 28
     time_structured_kernels(pl52, first_qp, results, "seg52", "phase 30 (c)",
-                            window_err["seg52"], batch=B_MAIN // 16, hold_counts=False)
+                            window_err["seg52"], batch=B_MAIN // 32, hold_counts=False)
     captured_shipping(pl52, cur_all, tgt_all, "52 segments", "seg52", "phase 30 (c)",
                       "headline states, 52 segments of order 3, 157 nodes", results,
                       ("banded_factor", "structured_admm"), smi, turns=0)
@@ -3542,7 +3558,7 @@ def pair_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
         f"unconverged)")
     del pl52, ocp
 
-    # ---- (d) past the pair layout: refused naming the bytes ----
+    # ---- (d) past the pair and slim layouts: refused naming the bytes ----
     for g in refused:
         if g.nq == 7:
             pl, cur, tgt = transcription_planner(planner, g.order, g.segments), cur_all, tgt_all
@@ -3577,13 +3593,14 @@ def spread_geometries():
     that take the new builds at 19 nodes, by joint count: one joint (kernel
     3's block takes more warps than its elements fill), kernel 3's pair
     layout with its ring spread from 16 joints, kernel 2's device ring from
-    20; (d) the first grids past the pair layout at 16 and 21 joints."""
+    20; (d) the first grids past the pair and slim layouts at 16 and 21
+    joints."""
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
 
     held = Geometry(12, 3, 14, layout="pair", ranks=2)
     rings = (Geometry(nq=14, ring="device"), Geometry(nq=19, ring="device"))
     chains = (1, 16, 19, 20, 21)
-    refused = (Geometry(21, 3, 16), Geometry(13, 3, 21))
+    refused = (Geometry(24, 3, 16), Geometry(17, 3, 21))
     return held, rings, chains, refused
 
 
@@ -3603,13 +3620,14 @@ def spread_builds():
                for name in ("constraints", "banded_factor", "structured_admm")])
 
 
-def hold_rings(pl, first_qp, states, entry, phase, smi, batch=4 * B_SPREAD) -> None:
-    """Kernel 2 at ``pl``'s geometry built with the device ring against its
-    build with the shared ring, on the step-0 QPs of the first ``batch`` of
-    ``states`` (four waves of the card at one problem an SM):
-    all five outputs bitwise equal, times in turns (shared, device, device,
-    shared), into ``entry`` as ``shared_ms``, ``device_ms`` and
-    ``device_bitwise_shared``."""
+def hold_rings(pl, first_qp, states, entry, phase, smi, batch=4 * B_SPREAD, base="shared",
+               other="device") -> None:
+    """Kernel 2 at ``pl``'s geometry built with the ``other`` ring (device,
+    or the scratch build) against its build with the ``base`` one (shared,
+    or device), on the step-0 QPs of the first ``batch`` of ``states`` (four
+    waves of the card at one problem an SM): all five outputs bitwise equal,
+    times in turns (base, other, other, base), into ``entry`` as
+    ``<base>_ms``, ``<other>_ms`` and ``<other>_bitwise_<base>``."""
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
     from mpc_motion_planner_tpu_torch.ops import qp_structured
@@ -3617,24 +3635,25 @@ def hold_rings(pl, first_qp, states, entry, phase, smi, batch=4 * B_SPREAD) -> N
     ocp = pl.ocp
     _, sa, args, sc, sx = first_qp(batch, pl=pl, states=states)
     qp = qp_structured.scale_qp(ocp, sa, *args, pl.qp_settings, soft_c=sc, soft_x=sx)
-    out, times = {}, {"shared": [], "device": []}
-    for ring in ("shared", "device", "device", "shared"):
+    out, times = {}, {base: [], other: []}
+    for ring in (base, other, other, base):
         def call(ring=ring):
             out[ring] = k2.factor_banded_kernel(qp.Mband, qp.p_col, qp.m_pp, ring=ring)
         times[ring].append(time_kernel(call, reps=3))
-    differ = [k for k in out["shared"] if not torch.equal(out["shared"][k], out["device"][k])]
-    check(not differ, f"{ocp.nq} joints: kernel 2's device ring differs from the shared one "
+    differ = [k for k in out[base] if not torch.equal(out[base][k], out[other][k])]
+    check(not differ, f"{ocp.nq} joints: kernel 2's {other} ring differs from the {base} one "
           f"in {differ}")
     ms = {k: float(np.mean(v)) for k, v in times.items()}
-    entry.update(shared_ms=ms["shared"], device_ms=ms["device"], device_bitwise_shared=True)
+    entry.update({f"{base}_ms": ms[base], f"{other}_ms": ms[other],
+                  f"{other}_bitwise_{base}": True})
     g = Geometry.of_ocp(ocp)
-    log(f"{phase} kernel 2 at {ocp.nq} joints, 19 nodes, B={batch}: the device ring "
-        f"({k2.smem_bytes(g, 'device')} B, {k2.staged_nodes(g, 'device')} nodes staged) against "
-        f"the shared one ({k2.smem_bytes(g, 'shared')} B): Ldi, Lsub, u, s and ok bitwise equal "
-        f"({int(out['shared']['ok'].sum())}/{batch} ok); shared {ms['shared']:.3f} ms, device "
-        f"{ms['device']:.3f} ms ({100 * (ms['device'] / ms['shared'] - 1):+.2f}%; runs "
-        f"{times}); {ptxas_report(k2.KERNEL, dataclasses.replace(g, ring='device'))} against "
-        f"{ptxas_report(k2.KERNEL, g)} on {smi}")
+    log(f"{phase} kernel 2 at {ocp.nq} joints, 19 nodes, B={batch}: the {other} ring "
+        f"({k2.smem_bytes(g, other)} B, {k2.staged_nodes(g, other)} nodes staged) against "
+        f"the {base} one ({k2.smem_bytes(g, base)} B): Ldi, Lsub, u, s and ok bitwise equal "
+        f"({int(out[base]['ok'].sum())}/{batch} ok); {base} {ms[base]:.3f} ms, {other} "
+        f"{ms[other]:.3f} ms ({100 * (ms[other] / ms[base] - 1):+.2f}%; runs "
+        f"{times}); {ptxas_report(k2.KERNEL, dataclasses.replace(g, ring=other))} against "
+        f"{ptxas_report(k2.KERNEL, dataclasses.replace(g, ring=base))} on {smi}")
     del sa, args, sc, sx, qp, out
 
 
@@ -3668,8 +3687,8 @@ def spread_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     times within 1e-3 relative on no fewer states than the JAX float32
     solve, ``qp_converged`` the same on all but 64/32; eager solves of the
     1-joint chain, the 16-joint chain (a cluster of three), the 19- and the
-    20-joint chain (kernel 2's device ring). (d) The first grids past the pair layout at
-    16 and 21 joints refused naming each rank's bytes, before any build."""
+    20-joint chain (kernel 2's device ring). (d) The first grids past the pair and slim
+    layouts at 16 and 21 joints refused naming each rank's bytes, before any build."""
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import constraints as k1
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
@@ -3793,7 +3812,7 @@ def spread_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
                        "phase 31 (c)", results)
         del pl, cur, tgt
 
-    # ---- (d) past the pair layout: refused naming the bytes ----
+    # ---- (d) past the pair and slim layouts: refused naming the bytes ----
     for g in refused:
         pl, cur, tgt = chain_planner(planner, g.nq, fused="off", segments=g.segments)
         refusal(pl, cur[:4], tgt[:4], f"{g.nq} joints, {g.nodes} nodes", "phase 31 (d)")
@@ -3817,15 +3836,15 @@ def wide_geometries():
     J to device memory past it, 32 joints at most); (b) the seeded chains
     past 21 joints that kernels 2 and 3 take, three rows of a block a lane:
     22, 24 and 25 joints at 19 nodes (kernel 3's ring over three ranks at
-    22, four at 24 and 25, a cluster of five) and 28 joints at 7 nodes, the
-    widest robot that plans anywhere; (d) the first geometries past them:
-    26 joints at 19 nodes (kernel 3's rank 0) and 29 joints at 7 (kernel
-    2)."""
+    22, four at 24 and 25, a cluster of five) and 28 joints at 7 nodes; (d)
+    the first grids past the slim layout at 22 and 25 joints (26 joints at
+    19 nodes and 29 at 7, which phase 32 refused before the slim layout and
+    kernel 2's scratch build, plan: phase 33)."""
     from mpc_motion_planner_tpu_torch.kernels.build import Geometry
 
     kernel1 = (22, 24, 25, 28, 32)
     chains = (Geometry(nq=22), Geometry(nq=24), Geometry(nq=25), Geometry(2, 3, 28))
-    refused = (Geometry(6, 3, 26), Geometry(2, 3, 29))
+    refused = (Geometry(16, 3, 22), Geometry(13, 3, 25))
     return kernel1, chains, refused
 
 
@@ -3875,9 +3894,9 @@ def wide_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
     held), the JAX fixture ``torch_port_chain25_b64.npz`` (final times
     within 1e-3 relative on no fewer states than the JAX float32 solve,
     ``qp_converged`` the same on all but 64/32); eager solves of the 22- and
-    24-joint chains at 19 nodes and the 28-joint chain at 7. (d) 26 joints
-    at 19 nodes (kernel 3) and 29 at 7 (kernel 2) refused naming their
-    bytes, before any build."""
+    24-joint chains at 19 nodes and the 28-joint chain at 7. (d) 22 joints
+    at 49 nodes and 25 at 40, the first grids past the slim layout there,
+    refused naming their bytes, before any build."""
     from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
     from mpc_motion_planner_tpu_torch.kernels import constraints as k1
     from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
@@ -3909,16 +3928,10 @@ def wide_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
             f"registers capped for {lay['blocks_bound']} block(s) an SM, {lay['param_bytes']} B "
             f"of parameters, the robot {lay['robot_bytes']} B in device memory; the reckoning "
             f"agrees; {ptxas_report(k1.KERNEL, Geometry(nq=nq))}")
-        # 32 joints plans nowhere (kernel 2 refuses past 28): its hold is
-        # kept in the 28-joint entry
-        if nq < 28:
-            kernel1_check(pl, results, "phase 32 (a)", lambda: big @ big, reps=0,
-                          batch=B_K1)
-        else:
-            sink, key = ((results, "constraints_28_joints_7_nodes") if nq == 28 else
-                         (results["constraints_28_joints_7_nodes"], "held_32_joints"))
-            kernel1_check(pl, sink, "phase 32 (a)", lambda: big @ big, reps=0, key=key,
-                          batch=B_K1)
+        # the 28-joint chain plans at 7 nodes; 32 joints' entry takes the
+        # launches of phase 33's main path
+        kernel1_check(pl, results, "phase 32 (a)", lambda: big @ big, reps=0,
+                      key="constraints_28_joints_7_nodes" if nq == 28 else None, batch=B_K1)
         del pl
     del big
 
@@ -3979,13 +3992,234 @@ def wide_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
                            "phase 32 (c)", results)
             del pl, cur, tgt
 
-    # ---- (d) past them: refused naming the bytes, before any build ----
-    for g, module in zip(refused, (k3, k2)):
+    # ---- (d) past the slim layout: refused naming the bytes, before any build ----
+    for g in refused:
         pl, cur, tgt = chain_planner(planner, g.nq, fused="off", segments=g.segments)
-        refusal(pl, cur[:4], tgt[:4], f"{g.nq} joints, {g.nodes} nodes", "phase 32 (d)", module)
+        refusal(pl, cur[:4], tgt[:4], f"{g.nq} joints, {g.nodes} nodes", "phase 32 (d)")
         del pl, cur, tgt
     torch.cuda.empty_cache()
 
+
+
+# the JAX structured solve of the seeded 32-joint chain's first 64 states at
+# 19 nodes, with the JAX float32 solve's final times
+# (make_chain12_fixture.py --joints 32)
+CHAIN32_FIXTURE = os.path.join(FIXTURES, "torch_port_chain32_b64.npz")
+
+
+def slim_geometries():
+    """Phase 33's geometries: (a) kernel 3 built in the slim layout where
+    the pair layout fits, at 25 joints x 6 (one chain buffer for both chain
+    warps: three rows a lane) and at 32 x 3 of the Panda (97 nodes: a chain
+    buffer each, one row a lane); (b) kernel 2 at 25 joints
+    built in its scratch build, where its device ring fits; (c) the seeded
+    chains of 26, 28, 30 and 32 joints at 19 nodes (kernel 3's slim layout,
+    the ring over four ranks at 26 and 28 and over seven, a cluster of
+    eight, at 30 and 32; kernel 2's device ring at 26, its scratch build
+    from 28); (d) 14 joints x 26 (79 nodes), a geometry the slim layout opens
+    with one ring rank; (f) past them: 32 joints x 7 (22 nodes) and the
+    Panda at 60 segments (181 nodes), kernel 1 at 33 joints."""
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    held3 = (Geometry(nq=25, layout="slim"), Geometry(32, 3, layout="slim"))
+    held2 = Geometry(nq=25, ring="scratch")
+    chains = tuple(Geometry(nq=nq) for nq in (26, 28, 30, 32))
+    return held3, held2, chains, Geometry(26, 3, 14), (Geometry(7, 3, 32), Geometry(60, 3))
+
+
+def slim_builds():
+    """Phase 33's libraries: kernel 3 in the slim layout at 25 joints and at
+    32 x 3 and kernel 2's scratch build at 25 joints (the pair and device
+    builds there are phases 28, 30 and 32's), kernels 1-3 at the chains'
+    geometries and kernels 2 and 3 at 14 joints x 26."""
+    from mpc_motion_planner_tpu_torch import kernels
+    from mpc_motion_planner_tpu_torch.kernels.build import Geometry
+
+    held3, held2, chains, opened, _ = slim_geometries()
+    k1, k2, k3 = (kernels.KERNELS[n] for n in ("constraints", "banded_factor", "structured_admm"))
+    return ([("structured_admm", k3, g) for g in (*held3, *chains, opened)]
+            + [("banded_factor", k2, g) for g in (held2, *chains, opened)]
+            + [("constraints", k1, Geometry(nq=g.nq)) for g in chains])
+
+
+def slim_phases(planner, cur_all, tgt_all, first_qp, results, smi) -> None:
+    """Phase 33: every joint count kernel 1 takes (1 to 32) at the
+    headline's 19 nodes. Past 25 joints the pair layout's rank 0 does not
+    fit, most of it its six staging buffers of a block: kernel 3 takes the
+    slim layout, the pair's with those buffers cut to the ones in use at one
+    time (a chain warp's two blocks in one buffer, past one row a lane one
+    for both chain warps); past 27 joints kernel 2's device ring does not fit
+    and it takes its scratch build (the inverse and C[d >= 2] of its forward
+    loop in Ldi in device memory, one staged node). (a) Slim beside pair at
+    25 joints x 6 on phase 32's states, B_WIDE, and at 32 x 3 on the
+    headline states (one row a lane: a chain buffer each), two waves of its
+    clusters, the full budget and one check window: all nine outputs
+    bitwise, µs per iteration per cluster of both (``hold_layouts``). (b) The scratch build beside the device ring at
+    25 joints: all five outputs bitwise, timed (``hold_rings``). (c) Kernels
+    2 and 3 at 26, 28, 30 and 32 joints x 6, at two waves of the clusters
+    the card places at a time (``cudaOccupancyMaxActiveClusters``): each
+    rank's bytes and kernel 2's block against the reckoning
+    (``block_summary``), kernel 2 against its plain version and
+    ``cholesky_ex`` of the dense M (``time_factor``), both against their
+    plain versions (``kernel_checks``), kernel 3's check window timed against
+    its plain loop's. (d) 14 joints x 26: its blocks, ``kernel_checks`` (B=64
+    for kernel 3). (e) The main path: the seeded 32-joint chain
+    (``bench/convergence.py`` ``chain(32, ...)``, 1825 variables, 2163 rows)
+    at 19 nodes, the captured shipping solve of its first two waves of
+    clusters (5/2/2/0, bitwise its eager solve; quality read, not held), the
+    JAX fixture ``torch_port_chain32_b64.npz`` (final times within 1e-3 on
+    no fewer states than the JAX float32 solve, ``qp_converged`` the same on
+    all but 64/32); eager solves at 26, 28 and 30 joints. (f) Kernel 1 at 33
+    joints, 32 joints x 7 and the Panda at 60 x 3 refused naming their
+    bytes (kernel 1: its threads), before any build."""
+    from mpc_motion_planner_tpu_torch.kernels import banded_factor as k2
+    from mpc_motion_planner_tpu_torch.kernels import constraints as k1
+    from mpc_motion_planner_tpu_torch.kernels import structured_admm as k3
+    from mpc_motion_planner_tpu_torch.kernels.build import SMEM_LIMIT, Geometry
+    from mpc_motion_planner_tpu_torch.ops import qp_structured
+
+    dev = cur_all.device
+    held3, held2, chains, opened, refused = slim_geometries()
+    build_libraries(slim_builds(), "phase 33")
+    suffix = lambda g: f"{g.nq}_joints"
+    for name, k in (("banded_factor", k2.KERNEL), ("structured_admm", k3.KERNEL)):
+        for g in chains:
+            results[f"{name}_{suffix(g)}"] = {
+                "name": f"{name}_{suffix(g)}", "route": "cuda",
+                "source": f"mpc_motion_planner_tpu_torch/csrc/{k.source}",
+                "replaces": REPLACES[name]}
+
+    # ---- (a), (b) the new builds beside the old ones where both fit ----
+    g25, g32 = (dataclasses.replace(g, layout=None) for g in held3)
+    pl25, cur25, tgt25 = wide_planner(planner, g25)
+    pl32 = transcription_planner(planner, 3, 32)
+    check(k3.choose_layout(g25) == "pair" and k3.choose_layout(g32) == "deep"
+          and k2.choose_ring(g25) == "device"
+          and all(k3.KERNEL.geometry(g).layout == "slim" for g in held3)
+          and k2.KERNEL.geometry(held2).ring == "scratch",
+          f"kernel 3 {[k3.KERNEL.geometry(g) for g in held3]}, kernel 2 "
+          f"{k2.KERNEL.geometry(held2)}")
+    for g, pl, states, batch, entry in (
+            (held3[0], pl25, (cur25, tgt25), B_WIDE, results["structured_admm_25_joints"]),
+            (held3[1], pl32, None,
+             2 * problems_at_once(dataclasses.replace(g32, layout="pair"))[0],
+             results["structured_admm_seg32"].setdefault("slim_beside_pair", {}))):
+        pair = dataclasses.replace(g, layout="pair")
+        log(f"phase 33 (a) kernel 3 at {g.nodes} nodes and {g.nq} joints in the slim layout: "
+            f"{block_summary(g, kernel2=False)} (the pair build: {k3.rank_bytes(pair)} B); "
+            f"{ptxas_report(k3.KERNEL, g)} against the pair's {ptxas_report(k3.KERNEL, pair)}")
+        hold_layouts(pl, first_qp, "pair", "slim", entry, "phase 33 (a)", smi, states, turns=1,
+                     batch=batch)
+    del pl32
+    lay2 = k2.block_layout(held2)
+    want2 = {"smem_bytes": k2.smem_bytes(held2), "per_sm": k2.per_sm(held2),
+             "staged": k2.staged_nodes(held2)}
+    check({k: lay2[k] for k in want2} == want2,
+          f"kernel 2's scratch build at 25 joints: the library's block {lay2}, the reckoning "
+          f"{want2}")
+    hold_rings(pl25, first_qp, (cur25, tgt25), results["banded_factor_25_joints"],
+               "phase 33 (b)", smi, batch=4 * B_WIDE, base="device", other="scratch")
+    del pl25, cur25, tgt25
+
+    # ---- (c) kernels 2 and 3 at 26, 28, 30 and 32 joints x 6 ----
+    pls = {}
+    for g in chains:
+        pl, cur, tgt = wide_planner(planner, g)
+        built = k3.KERNEL.geometry(g)
+        ranks, ring = (4 if g.nq <= 28 else 7), ("device" if g.nq < 28 else "scratch")
+        check(Geometry.of_ocp(pl.ocp) == g and (built.layout, built.ranks) == ("slim", ranks)
+              and k3.rows(g) == 3 and k2.rows(g) == 3 and k2.choose_ring(g) == ring,
+              f"{g.nq} joints x {g.segments}: kernel 3 built as {built}, kernel 2's ring "
+              f"{k2.choose_ring(g)}")
+        batch = 2 * problems_at_once(g)[0]
+        tag = (f"{g.nq} joints, {g.nodes} nodes (slim layout, {ranks} ring ranks of "
+               f"{k3.slots_per_rank(g)} slots, 3 rows a lane; kernel 2's {ring} ring)")
+        log(f"phase 33 (c) libraries at {tag}, {built.ept} element(s) a thread: "
+            f"{block_summary(g)}; kernel 3 {ptxas_report(k3.KERNEL, g)}; kernel 2 "
+            f"{ptxas_report(k2.KERNEL, g)}; two waves: B={batch}")
+        _, sa, args, sc, sx = first_qp(batch, pl=pl, states=(cur, tgt))
+        qp = qp_structured.scale_qp(pl.ocp, sa, *args, pl.qp_settings, soft_c=sc, soft_x=sx)
+        time_factor(qp, g, results[f"banded_factor_{suffix(g)}"], tag, "phase 33 (c)")
+        del sa, args, sc, sx, qp
+        summary, _ = kernel_checks(pl, first_qp, tag, (cur, tgt))
+        log(f"phase 33 (c) at {tag}, {summary}")
+        kernel3_timing(pl, first_qp, (cur, tgt), tag, "phase 33 (c)", batch,
+                       entry=results[f"structured_admm_{suffix(g)}"], budget=False)
+        pls[g.nq] = (pl, cur, tgt, batch)
+
+    # ---- (d) 14 joints x 26: the slim layout with one ring rank ----
+    pl14, cur14, tgt14 = wide_planner(planner, opened)
+    built = k3.KERNEL.geometry(opened)
+    check(Geometry.of_ocp(pl14.ocp) == opened and (built.layout, built.ranks) == ("slim", None)
+          and k3.smem_bytes(opened, "pair") > SMEM_LIMIT,
+          f"14 joints x 26: kernel 3 built as {built}")
+    tag = f"14 joints, {opened.nodes} nodes (slim layout, one ring rank, 2 rows a lane)"
+    log(f"phase 33 (d) libraries at {tag}, {built.ept} element(s) a thread: "
+        f"{block_summary(opened)} (the pair's rank 0 {k3.rank_bytes(opened)[0]} B); kernel 3 "
+        f"{ptxas_report(k3.KERNEL, opened)}")
+    summary, _ = kernel_checks(pl14, first_qp, tag, (cur14, tgt14))
+    log(f"phase 33 (d) at {tag}, {summary}")
+    del pl14, cur14, tgt14
+
+    # ---- (e) the main path: the 32-joint chain at 19 nodes ----
+    pl32, cur32, tgt32, b32 = pls.pop(32)
+    ocp = pl32.ocp
+    check((ocp.nq, ocp.num_var, ocp.num_eq + ocp.num_ineq) == (32, 1825, 2163)
+          and ocp.uses_kernel(dev), f"the 32-joint chain: {ocp.nq} joints, {ocp.num_var} "
+          f"variables, {k3.KERNEL.geometry(Geometry.of_ocp(ocp))}")
+    captured_shipping(pl32, cur32[:b32], tgt32[:b32], "the 32-joint chain",
+                      "32_joints", "phase 33 (e)", "the chain's seeded states, 19 nodes", results,
+                      ("constraints", "banded_factor", "structured_admm"), smi,
+                      hold_quality=False, turns=0)
+    counts = {}
+    n_good, n_tf, n_fx, summary = fixture_agreement(pl32, CHAIN32_FIXTURE, dev, counts)
+    n_tf32 = jax_float32_final_times(CHAIN32_FIXTURE)
+    check(n_tf >= n_tf32 and counts["qp_converged"] >= n_fx - n_fx // 32,
+          f"the 32-joint chain: {n_tf} final times within 1e-3 (the JAX float32 solve "
+          f"{n_tf32}), qp_converged the same on {counts['qp_converged']}/{n_fx}")
+    log(f"phase 33 (e) JAX fixture of the 32-joint chain: {summary}; final times within 1e-3 "
+        f"relative {n_tf}/{n_fx} (bar: the JAX package's own float32 solve of these states, "
+        f"{n_tf32}/{n_fx}), qp_converged the same {counts['qp_converged']}/{n_fx} (bar "
+        f"{n_fx - n_fx // 32}), in the target box {counts['in_box']}/{n_fx}, all three "
+        f"{n_good}/{n_fx} (read)")
+    del pl32, cur32, tgt32, ocp
+    for nq in sorted(pls):
+        pl, cur, tgt, batch = pls.pop(nq)
+        eager_shipping(pl, cur[:batch], tgt[:batch], f"the {nq}-joint chain, 19 nodes (seeded "
+                       f"states)", f"{nq}_joints", "phase 33 (e)", results)
+        del pl, cur, tgt
+
+    # ---- (f) past them: refused naming the bytes, before any build ----
+    pl, cur, tgt = chain_planner(planner, 33)
+    try:
+        k1.check_fits(33)
+        refused1 = None
+    except ValueError as err:
+        refused1 = str(err)
+    names = f"{k1.threads(33)} threads"
+    check(refused1 is not None and names in refused1,
+          f"33 joints: kernel 1's fit check says {refused1}")
+    try:
+        pl.solve(cur[:4], tgt[:4])
+        solved = "solved"
+    except ValueError as err:
+        solved = str(err)
+    check(names in solved, f"33 joints on the card: {solved}")
+    check(not k1.KERNEL.library_path(Geometry(nq=33)).exists(),
+          "33 joints: a kernel-1 library was built")
+    log(f"phase 33 (f) refusal at 33 joints: {refused1}; the planner's solve on the card raises "
+        f"the same, and no kernel 1 library was built for it")
+    del pl, cur, tgt
+    for g in refused:
+        if g.nq == 7:
+            pl, cur, tgt = transcription_planner(planner, g.order, g.segments), cur_all, tgt_all
+            tag = f"order {g.order} x {g.segments} segments ({g.nodes} nodes)"
+        else:
+            pl, cur, tgt = chain_planner(planner, g.nq, fused="off", segments=g.segments)
+            tag = f"{g.nq} joints, {g.nodes} nodes"
+        refusal(pl, cur[:4], tgt[:4], tag, "phase 33 (f)")
+        del pl, cur, tgt
+    torch.cuda.empty_cache()
 
 def run(dev: torch.device) -> None:
     """All phases on ``dev``; raises on the first failed check."""
@@ -4792,12 +5026,13 @@ def run(dev: torch.device) -> None:
 
     del ops, st, D10
     entry_points(planner)
-    # phases 20-32's libraries build in the background from here on, each
+    # phases 20-33's libraries build in the background from here on, each
     # phase waiting for its own
     prebuild([job for builds in (robot_builds, order_builds, split_builds, stream_builds,
                                  ept_builds, lambda: layout_builds(lean_geometries),
                                  lambda: layout_builds(far_geometries), deep_builds,
-                                 joints_builds, pair_builds, spread_builds, wide_builds)
+                                 joints_builds, pair_builds, spread_builds, wide_builds,
+                                 slim_builds)
               for job in builds()])
     xla_planner = MotionPlanner(margins=Margins(*MARGINS), dtype=f32, device=dev)
     captured_phases({"structured_pallas": planner, "pallas": dense_planner,
@@ -4817,6 +5052,7 @@ def run(dev: torch.device) -> None:
     pair_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     spread_phases(planner, cur_all, tgt_all, first_qp, results, smi)
     wide_phases(planner, cur_all, tgt_all, first_qp, results, smi)
+    slim_phases(planner, cur_all, tgt_all, first_qp, results, smi)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

@@ -71,6 +71,21 @@
 // room for (two at 20 and 21 joints: 124,596 and 137,112 B). Each entry is
 // formed by the same operations in the same order from the same values, so
 // both builds give the same factors, bitwise, where both fit.
+//
+// Past 28 joints the device ring's block does not fit either (238,964 B at
+// 28 joints and 19 nodes, 309,908 B at 32): its forward loop keeps LkT and
+// seven blocks (S[2], C[BW + 1], Linv), 36,864 B each at 32 joints. The
+// scratch build (-DMPC_FACTOR_RING=2) keeps LkT, S[2] and the two C[d = 1]
+// alone: warp 0 writes the inverse of L[k,k] straight to its place in Ldi,
+// and C[d] of node k for d >= 2 (M[k+d,k] less its band products, formed in
+// phase C of node k - 1 and read in phase B of node k) lies in Ldi's block
+// of node k + d, which node k + d's inverse overwrites only in its own phase
+// A, after every C that lies there has been read: at most one C lives in a
+// block at a time (those of node k and k' > k in the same block are apart
+// by phase B of node k). Both are read back by ordinary loads after the
+// block-wide barriers, as the device ring's blocks are; the backward sweep
+// stages one node (199,316 B at 32 joints). Same operations, order and
+// values: the device ring's factors, bitwise, where both fit.
 
 #include <type_traits>
 
@@ -88,8 +103,10 @@ constexpr int NWARP = NT / 32;
 constexpr int LKS = (BLK + 3) / 4 * 4;  // stride of a column of L[k,k] (16-byte loads)
 constexpr int ROWS = (BLK + 31) / 32;   // rows (columns) of a block a lane owns
 // the ring of the last BW nodes' blocks: in shared memory, or (1) read back
-// from device memory where the block wrote them
-constexpr bool DEVICE_RING = MPC_FACTOR_RING == 1;
+// from device memory where the block wrote them; (2) so too, with the
+// inverse of L[k,k] and C[d] for d >= 2 in Ldi (the scratch build)
+constexpr bool DEVICE_RING = MPC_FACTOR_RING >= 1;
+constexpr bool SCRATCH = MPC_FACTOR_RING == 2;
 constexpr float MAG = 1e8f;
 constexpr float SAT = 0.99f * MAG;
 constexpr float PIV_FLOOR = 1e-20f;
@@ -114,11 +131,19 @@ struct DeviceRing {
   float C[BW + 1][BLK2];
   float Linv[BLK2];
 };
-using Forward = std::conditional_t<DEVICE_RING, DeviceRing, SharedRing>;
+// the scratch build's: LkT, S and C for d = 1 (C[d] for d >= 2 and the
+// inverse lie in Ldi in device memory)
+struct ScratchRing {
+  float LkT[BLK * LKS];
+  float S[2][BLK2];
+  float C[2][BLK2];
+};
+using Forward = std::conditional_t<SCRATCH, ScratchRing,
+                                   std::conditional_t<DEVICE_RING, DeviceRing, SharedRing>>;
 
 // nodes staged per step of the backward sweep: 4, or (device ring) as many
 // as the forward loop's blocks leave room for, 1 to 4
-constexpr int STAGED = (int)(sizeof(DeviceRing) / 4) / ((BW + 1) * BLK2);
+constexpr int STAGED = (int)(sizeof(Forward) / 4) / ((BW + 1) * BLK2);
 constexpr int CH = !DEVICE_RING ? 4 : STAGED < 1 ? 1 : STAGED > 4 ? 4 : STAGED;
 
 struct Backward {
@@ -256,6 +281,21 @@ __device__ __forceinline__ float* ring_block(F& f, float* Lsub_b, int i, int j) 
   else return f.ring[j % BW][i - j - 1];
 }
 
+// C[d] of node k for d >= 2: in shared memory, or (scratch) in Ldi's block
+// of node k + d.
+template <class F>
+__device__ __forceinline__ float* c_far(F& f, float* Ldi_b, int d, int k) {
+  if constexpr (SCRATCH) return Ldi_b + (k + d) * BLK2;
+  else return f.C[d];
+}
+
+// The inverse of L[k,k]: in shared memory, or (scratch) in its place in Ldi.
+template <class F>
+__device__ __forceinline__ float* linv_of(F& f, float* Ldi_b, int k) {
+  if constexpr (SCRATCH) return Ldi_b + k * BLK2;
+  else return f.Linv;
+}
+
 // Ldi, Lsub and the pointers that the block writes and later reads back are
 // not __restrict__: the backward sweep must see the forward loop's stores.
 __global__ void __launch_bounds__(NT, PER_SM)
@@ -276,13 +316,15 @@ banded_factor_kernel(const float* __restrict__ Mband, const float* __restrict__ 
   // ring: where phase B of node j wrote it)
   auto Mblk = [&](int i, int j) { return Mb + (j * (BW + 1) + (i - j)) * BLK2; };
   auto L = [&](int i, int j) { return ring_block(f, Lsub_b, i, j); };
+  auto Cfar = [&](int d, int k) { return c_far(f, Ldi_b, d, k); };
+  auto Linv = [&](int k) { return linv_of(f, Ldi_b, k); };
   bool sat = false;
 
   if (tid == 0) sm.ok = 1;
   for (int e = tid; e < BLK2; e += NT) {
     f.S[0][e] = Mblk(0, 0)[e];
     f.C[0][e] = Mblk(1, 0)[e];
-    for (int d = 2; d <= BW; ++d) f.C[d][e] = Mblk(d, 0)[e];
+    for (int d = 2; d <= BW; ++d) Cfar(d, 0)[e] = Mblk(d, 0)[e];
   }
   __syncthreads();
 
@@ -292,7 +334,7 @@ banded_factor_kernel(const float* __restrict__ Mband, const float* __restrict__ 
     // what needs no L[., k]: the arrow column's sum and node k + 1's older
     // products ----
     if (warp == 0) {
-      if (!chol_inverse(f.S[cur], f.LkT, f.Linv, lane) && lane == 0) sm.ok = 0;
+      if (!chol_inverse(f.S[cur], f.LkT, Linv(k), lane) && lane == 0) sm.ok = 0;
     } else {
       if (warp == 1) {
 #pragma unroll
@@ -330,13 +372,14 @@ banded_factor_kernel(const float* __restrict__ Mband, const float* __restrict__ 
 
     // ---- phase B: L[k+d,k] = C_d Ldi[k]' into the ring and out, Ldi[k]
     // out, ys[k] = Ldi[k] (p[k] - sum) ----
+    const float* Li = Linv(k);
     if (warp == NWARP - 1) {
 #pragma unroll
       for (int j = 0; j < ROWS; ++j) {
         const int r = lane + 32 * j;
         if (r < BLK) {
           float s = 0.f;
-          for (int c = 0; c < BLK; ++c) s += f.Linv[r * BLK + c] * sm.tmp[c];
+          for (int c = 0; c < BLK; ++c) s += Li[r * BLK + c] * sm.tmp[c];
           sm.ys[k * BLK + r] = fz(s);
         }
       }
@@ -344,14 +387,14 @@ banded_factor_kernel(const float* __restrict__ Mband, const float* __restrict__ 
     for (int d = 1; d <= BW; ++d) {
       float* gout = Lsub_b + (k * BW + d - 1) * BLK2;
       float* out = L(k + d, k);  // the ring's place of the block (device ring: gout)
-      const float* C = f.C[d == 1 ? cur : d];
+      const float* C = d == 1 ? f.C[cur] : Cfar(d, k);
       for (int e = tid; e < BLK2; e += NT) {
         float v = 0.f;
         if (k + d < N) {
           const int a = e / BLK, c = e % BLK;
           float acc = 0.f;
 #pragma unroll (NQ)
-          for (int q = 0; q < BLK; ++q) acc += C[a * BLK + q] * f.Linv[c * BLK + q];
+          for (int q = 0; q < BLK; ++q) acc += C[a * BLK + q] * Li[c * BLK + q];
           v = fz(acc);
         }
         if constexpr (!DEVICE_RING) out[e] = v;
@@ -360,8 +403,8 @@ banded_factor_kernel(const float* __restrict__ Mband, const float* __restrict__ 
       }
     }
     for (int e = tid; e < BLK2; e += NT) {
-      const float v = f.Linv[e];
-      Ldi_b[k * BLK2 + e] = v;
+      const float v = Li[e];
+      if constexpr (!SCRATCH) Ldi_b[k * BLK2 + e] = v;
       sat |= !(fabsf(v) < SAT);
     }
     __syncthreads();
@@ -379,7 +422,7 @@ banded_factor_kernel(const float* __restrict__ Mband, const float* __restrict__ 
           float v = Mblk(k + 1 + d, k + 1)[e];
           for (int j = max(0, k + 1 + d - BW); j <= k; ++j)
             v = sub_nt(v, L(k + 1 + d, j), L(k + 1, j), a, c);
-          f.C[d][e] = v;
+          Cfar(d, k + 1)[e] = v;
         }
       }
     }

@@ -26,7 +26,8 @@ namespace mpc {
 #endif
 // Kernel 3's shared-memory layout, which the build picks from the geometry
 // (kernels/structured_admm.py choose_layout): 0 full, 1 compact, 2 split,
-// 3 stream, 4 lean, 5 far, 6 deep, 7 pair (a cluster of two blocks).
+// 3 stream, 4 lean, 5 far, 6 deep, 7 pair (a cluster of blocks), 8 slim (the
+// pair layout with fewer staging buffers).
 #ifndef MPC_SMEM_LAYOUT
 #define MPC_SMEM_LAYOUT 0
 #endif

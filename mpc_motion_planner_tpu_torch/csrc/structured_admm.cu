@@ -97,12 +97,12 @@
 // only operation it changes is the order of the sum of the p row's defect
 // part in the check (block_sum of part), which follows the threads' rows.
 // Then the block's shared memory bounds the geometry (157 nodes of order 3
-// take 233,520 B in the deep layout, and 178 nodes 235,232 B in rank 0 of
-// the pair layout);
+// take 233,520 B in the deep layout, 178 nodes 235,232 B in rank 0 of the
+// pair layout, and 181 nodes 235,472 B in rank 0 of the slim layout);
 // everything else follows the geometry: a band width of BW takes BW - 1
 // helper warps and BW - 1 look-ahead vectors (the sweeps need 2 + BW warps).
 //
-// Shared memory: the build picks one of eight layouts from the geometry
+// Shared memory: the build picks one of nine layouts from the geometry
 // (MPC_SMEM_LAYOUT, kernels/structured_admm.py choose_layout), the first
 // that fits a block (232,448 B). The bytes below are sizeof(Smem), which the Python
 // reckoning (smem_bytes) equals and the library reports
@@ -275,6 +275,17 @@
 //   in its rank, the rest is the pair's, so where one ring rank holds the
 //   ring a spread build gives its results, bitwise. With RANKS = 1 the code
 //   is the pair layout's as it was.
+// * Slim is the pair layout (its ring over as many ranks as it needs) with
+//   rank 0's staging buffers cut to those in use at one time (CHAIN_BUFS):
+//   where pair's rank 0 does not fit, its six buffers of a whole block (4 +
+//   BW - 1) are most of it (146,112 of 232,848 B at 26 joints and 19
+//   nodes). A chain warp stages its two blocks one after the other into one
+//   buffer, and past one row a lane both chain warps share one, their turns
+//   apart by the sweeps' barrier; each helper keeps its own. 26 to 32 joints
+//   at 19 nodes (rank 0 159,792 to 216,704 B; at 29 to 32 the ring over 7
+//   ranks, a cluster of 8), 59 segments of the Panda, 14 joints x 26. The
+//   products read the pair layout's values in its order, so where both fit
+//   slim gives pair's results, bitwise.
 // Registers: 672 threads are 21 warps,
 // six of them on one of the SM's four schedulers, whose quarter of the
 // register file (16K) then allows 80 registers per thread; ptxas -v reports
@@ -320,7 +331,7 @@ namespace {
 // has fewer elements
 constexpr int EPT = MPC_EPT;
 constexpr int NT_ELEMS = (((NM > NV ? NM : NV) + EPT - 1) / EPT + 31) / 32 * 32;
-constexpr int NT_WARPS = 32 * (BW + 2 + (MPC_SMEM_LAYOUT >= 2) + (MPC_SMEM_LAYOUT == 7));
+constexpr int NT_WARPS = 32 * (BW + 2 + (MPC_SMEM_LAYOUT >= 2) + (MPC_SMEM_LAYOUT >= 7));
 constexpr int NT = NT_ELEMS > NT_WARPS ? NT_ELEMS : NT_WARPS;
 constexpr int NWARP = NT / 32;
 constexpr int NB = N * BLK;              // 399 banded variables; element NB is p
@@ -342,13 +353,17 @@ constexpr int NAHEAD = BW - 1;             // look-ahead distances 2..BW
 constexpr int NAHEAD_BUF = NAHEAD > 0 ? NAHEAD : 1;
 
 // the shared-memory layouts (the header says which geometry takes which)
-enum Layout { FULL = 0, COMPACT = 1, SPLIT = 2, STREAM = 3, LEAN = 4, FAR = 5, DEEP = 6, PAIR = 7 };
+enum Layout {
+  FULL = 0, COMPACT = 1, SPLIT = 2, STREAM = 3, LEAN = 4, FAR = 5, DEEP = 6, PAIR = 7, SLIM = 8
+};
 constexpr int LAYOUT = MPC_SMEM_LAYOUT;
-static_assert(LAYOUT >= FULL && LAYOUT <= PAIR, "a layout of common.cuh");
+static_assert(LAYOUT >= FULL && LAYOUT <= SLIM, "a layout of common.cuh");
 constexpr bool PACKED_LDI = LAYOUT != FULL;
 // pair: the deep layout in a cluster of 1 + RANKS blocks, the ring in ranks
-// 1..RANKS (one unless the build names more: the ring spread)
-constexpr bool PAIRED = LAYOUT == PAIR;
+// 1..RANKS (one unless the build names more: the ring spread); slim: the
+// pair layout with fewer staging buffers in rank 0 (STAGE_BUFS)
+constexpr bool SLIMMED = LAYOUT == SLIM;
+constexpr bool PAIRED = LAYOUT == PAIR || SLIMMED;
 #ifndef MPC_RING_RANKS
 #define MPC_RING_RANKS 1
 #endif
@@ -410,8 +425,19 @@ constexpr int D1_FLOATS = LAYOUT == SPLIT ? (N - 1) * BLK2 : 0;
 // block from its 16-byte boundary) for each chain warp's Ldi and L blocks and
 // for each helper's block. PAIR_HEAD: the barriers of the ring's slots (2
 // floats each) and the progress count, to a 16-byte boundary.
+// The slim layout keeps only the buffers that are in use at one time
+// (CHAIN_BUFS for the chain): a chain warp stages its Ldi block and its L
+// block one after the other, and reads each before it stages the next, so
+// one buffer takes both; past one row a lane, where a chain warp stages its
+// blocks at its turn only (chain_sweep_late), the two chain warps' turns are
+// apart by the sweeps' barrier, so one buffer serves both warps. The values
+// read are the pair layout's, so where both fit the two give the same
+// results, bitwise. It takes the geometries whose rank 0 the pair layout's
+// six buffers do not fit (26 to 32 joints at 19 nodes: 159,792 to 216,704 B
+// in rank 0, where pair takes 232,848 to 327,344 B).
 constexpr int STAGE = (BLK2 + 6) / 4 * 4;
-constexpr int STAGE_BUFS = 4 + NAHEAD;
+constexpr int CHAIN_BUFS = !SLIMMED ? 4 : ROWS > 1 ? 1 : 2;
+constexpr int STAGE_BUFS = CHAIN_BUFS + NAHEAD;
 constexpr int PAIR_HEAD = (RING * 2 + 1 + 3) / 4 * 4;
 // floats of Lsub in shared memory: all blocks; those up to L[N-1,N-2]; or
 // (split, stream, lean, far, deep) the resident distance-1 blocks, up to 3
@@ -957,7 +983,16 @@ __device__ __forceinline__ const float* ring_slot_at(const Smem& sm, int s) {
 // block: the calling warp copies it from its 16-byte boundary in 16-byte
 // loads, four a lane at a time so that their round trips overlap, and
 // returns where it lies in the buffer. Buffer 2w is chain warp w's block of
-// Lsub, 2w + 1 its Ldi block, 4 + d - 2 the helper of distance d's block.
+// Lsub, 2w + 1 its Ldi block (chain_buf), CHAIN_BUFS + d - 2 the helper of
+// distance d's block (helper_buf).
+__device__ __forceinline__ int chain_buf(bool ldi) {
+  const int w = (int)(threadIdx.x >> 5);
+  if constexpr (SLIMMED) return ROWS > 1 ? 0 : w;
+  return 2 * w + (ldi ? 1 : 0);
+}
+__device__ __forceinline__ int helper_buf() {
+  return CHAIN_BUFS + (int)(threadIdx.x >> 5) - CHAIN_WARPS;
+}
 constexpr int STAGE_PER_LANE = (STAGE / 4 + 31) / 32;
 __device__ __forceinline__ const float* stage_block(unsigned bars, int j, const float* blk) {
   // the buffers follow the barriers and the progress count (PAIR_HEAD floats)
@@ -997,10 +1032,10 @@ __device__ __forceinline__ const float* ring_block(const Ring& r, int m, int b) 
   ring_wait(r, s);
   if constexpr (SPREAD_RING) {
     const float* blk = cluster_slot(r.slots, s) + ((r.phases >> 2 * s) & 3u) + b * BLK2;
-    return stage_block(r.bar, 4 + (int)(threadIdx.x >> 5) - CHAIN_WARPS, blk);
+    return stage_block(r.bar, helper_buf(), blk);
   }
   const float* blk = r.slots + s * STRIDE + ((r.phases >> 2 * s) & 3u) + b * BLK2;
-  if constexpr (PAIRED) return stage_block(r.bar, 4 + (int)(threadIdx.x >> 5) - CHAIN_WARPS, blk);
+  if constexpr (PAIRED) return stage_block(r.bar, helper_buf(), blk);
   return blk;
 }
 
@@ -1190,7 +1225,7 @@ __device__ __forceinline__ const float* lsub_d1(const Smem& sm, const Ring& r, i
     const int s = j % RING;
     barrier_wait(pair_bars(sm) + 8 * s, (unsigned)(ring_copy_count<FWD>(j, r.pairs) - 1) & 1u);
     const float* src = r.lsub + j * BW * BLK2;
-    return stage_block(pair_bars(sm), 2 * (int)(threadIdx.x >> 5),
+    return stage_block(pair_bars(sm), chain_buf(false),
                        ring_slot_at(sm, s) +
                            ((unsigned)(__cvta_generic_to_global(src) >> 2) & 3u));
   } else if constexpr (STREAMED) {
@@ -1216,7 +1251,7 @@ __device__ __forceinline__ void ldi_take(float (&M)[BLK], const Smem& sm, const 
   if constexpr (PAIRED) {
     barrier_wait(pair_bars(sm) + 8 * s, (unsigned)(ring_copy_count<FWD>(k, r.pairs) - 1) & 1u);
     const float* src = r.ldi + k * BLK2;
-    blk = stage_block(pair_bars(sm), 2 * (int)(threadIdx.x >> 5) + 1,
+    blk = stage_block(pair_bars(sm), chain_buf(true),
                       ring_slot_at(sm, s) + SLOT +
                           ((unsigned)(__cvta_generic_to_global(src) >> 2) & 3u));
   } else {
@@ -1379,7 +1414,7 @@ __device__ __forceinline__ const float* ldi_block(const Smem& sm, const Ring& r,
     const int s = k % RING;
     barrier_wait(pair_bars(sm) + 8 * s, (unsigned)(ring_copy_count<FWD>(k, r.pairs) - 1) & 1u);
     const float* src = r.ldi + k * BLK2;
-    return stage_block(pair_bars(sm), 2 * (int)(threadIdx.x >> 5) + 1,
+    return stage_block(pair_bars(sm), chain_buf(true),
                        ring_slot_at(sm, s) + SLOT +
                            ((unsigned)(__cvta_generic_to_global(src) >> 2) & 3u));
   } else if constexpr (LDI_RINGED) {

@@ -24,7 +24,13 @@ block has already written them, and the backward sweep stages as many nodes
 as the forward loop's blocks leave room for (:func:`choose_ring`,
 :func:`staged_nodes`: two at 20 and 21 joints, 124,596 and 137,112 B, one
 problem per SM); the arithmetic and its order are the shared ring's, so the
-factors are too, bitwise.
+factors are too, bitwise. Where the device ring's block does not fit
+either (28 joints at 19 nodes: 238,964 B; 32 joints: 309,908 B), the scratch
+build keeps only LkT, S and C for d = 1 of the forward loop in shared memory:
+the inverse of L[k,k] goes straight to its place in Ldi and C[d] for d >= 2
+lies in Ldi's block of node k + d until node k + d's own inverse takes it
+(one staged node, 154,292 B at 28 joints, 199,316 B at 32), and its factors
+are the device ring's, bitwise.
 
 What bounds it on this card: the latency of the sequential node recursion.
 Per problem the 19-node recursion does ~2 MFLOP (Schur updates, a 21-column
@@ -117,16 +123,19 @@ def forward_floats(g: Geometry, ring: str) -> int:
     """Floats of the forward loop's blocks (struct Forward): LkT, the ring
     of the last bw nodes' bw blocks (the shared ring only), then bw + 4
     blocks: S[2], C[bw + 1] (C[0], C[1] for d = 1, C[d] for d = 2..bw),
-    Linv."""
+    Linv; the scratch build's S[2] and C[0], C[1] alone."""
     blk2, bw = g.blk * g.blk, g.order
+    if ring == "scratch":
+        return g.blk * column_stride(g) + 4 * blk2
     return g.blk * column_stride(g) + (bw * bw * blk2 if ring == "shared" else 0) + (bw + 4) * blk2
 
 
 def staged_nodes(g: Geometry, ring: str = None) -> int:
     """CH: the nodes the backward sweep stages at a time, each its Ldi and
-    its bw Lsub blocks: 4 with the shared ring; with the device ring as
-    many as the forward loop's blocks leave room for, from 1 to 4 (2 at 20
-    and 21 joints at 19 nodes)."""
+    its bw Lsub blocks: 4 with the shared ring; with the device ring or the
+    scratch build as many as the forward loop's blocks leave room for, from
+    1 to 4 (2 at 20 and 21 joints at 19 nodes with the device ring, 1 with
+    the scratch build)."""
     ring = ring or g.ring or choose_ring(g)
     if ring == "shared":
         return CH
@@ -146,10 +155,10 @@ def smem_bytes(g: Geometry, ring: str = None) -> int:
 
 
 def choose_ring(g: Geometry) -> str:
-    """The ring kernel 2 is built with for ``g``: the shared one where its
-    block fits, else the device one (which :func:`check_fits` refuses where
-    that does not fit either)."""
-    return "shared" if smem_bytes(g, "shared") <= SMEM_LIMIT else "device"
+    """The ring kernel 2 is built with for ``g``: the first of ``RINGS``
+    (shared, device, scratch) whose block fits, else the scratch build (which
+    :func:`check_fits` then refuses)."""
+    return next((r for r in RINGS if smem_bytes(g, r) <= SMEM_LIMIT), RINGS[-1])
 
 
 def built_geometry(g: Geometry) -> Geometry:
@@ -174,17 +183,16 @@ def check_fits(g: Geometry) -> None:
     """Raise ValueError unless kernel 2 is written for ``g`` (a band of at
     least one sub-diagonal block) and a block of it fits the card's shared
     memory, which leaves at least one problem per SM, with the ring ``g``
-    names or else either; the error names the bytes of both rings."""
+    names or else any; the error names the bytes of every ring."""
     if g.order < 1:
         raise ValueError(f"kernel 2 factors a band of at least one sub-diagonal block; got "
                          f"band width {g.order}")
     ring = g.ring or choose_ring(g)
     if smem_bytes(g, ring) > SMEM_LIMIT:
-        other = next(r for r in RINGS if r != ring)
+        others = ", ".join(f"{r} ring: {smem_bytes(g, r)} B" for r in RINGS if r != ring)
         raise ValueError(f"kernel 2 at {g.nodes} nodes, band width {g.order} and {g.nq} joints "
                          f"needs {smem_bytes(g, ring)} B of shared memory per block with its "
-                         f"{ring} ring ({other} ring: {smem_bytes(g, other)} B); a block may "
-                         f"have {SMEM_LIMIT} B")
+                         f"{ring} ring ({others}); a block may have {SMEM_LIMIT} B")
 
 
 def factor_banded_kernel(Mband, p_col, m_pp, ring=None):

@@ -52,11 +52,12 @@ SM_SMEM = 233472
 
 # kernel 3's shared-memory layouts, in the order of their -DMPC_SMEM_LAYOUT
 # values (csrc/common.cuh)
-LAYOUTS = ("full", "compact", "split", "stream", "lean", "far", "deep", "pair")
+LAYOUTS = ("full", "compact", "split", "stream", "lean", "far", "deep", "pair", "slim")
 # kernel 2's rings of the last bw nodes' sub-diagonal blocks: in shared memory,
 # or read back from device memory where the block has written them
-# (-DMPC_FACTOR_RING=1, csrc/banded_factor.cu)
-RINGS = ("shared", "device")
+# (-DMPC_FACTOR_RING=1, csrc/banded_factor.cu), or so too with the inverse and
+# the far sums of the forward loop in Ldi (scratch, -DMPC_FACTOR_RING=2)
+RINGS = ("shared", "device", "scratch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,7 +146,7 @@ class Geometry:
     def flags(self) -> tuple:
         """The nvcc flags that set this geometry in ``csrc/common.cuh``
         (the layout's, ept's and ranks' only where they are set, the ring's
-        only where it is the device one)."""
+        only where it is not the shared one)."""
         flags = (f"-DMPC_SEGMENTS={self.segments}", f"-DMPC_ORDER={self.order}",
                  f"-DMPC_NQ={self.nq}")
         if self.layout is not None:
@@ -154,8 +155,8 @@ class Geometry:
             flags += (f"-DMPC_EPT={self.ept}",)
         if self.ranks is not None:
             flags += (f"-DMPC_RING_RANKS={self.ranks}",)
-        if self.ring == "device":
-            flags += ("-DMPC_FACTOR_RING=1",)
+        if self.ring not in (None, "shared"):
+            flags += (f"-DMPC_FACTOR_RING={RINGS.index(self.ring)}",)
         return flags
 
 
@@ -238,7 +239,7 @@ class CudaKernel:
         tag = ("" if g is None else f"_q{g.nq}" if self.per_geometry == "joints"
                else f"_n{g.nodes}_o{g.order}_q{g.nq}" + (f"_{g.layout}" if g.layout else "")
                + (f"_e{g.ept}" if g.ept else "") + (f"_r{g.ranks}" if g.ranks else "")
-               + ("_dring" if g.ring == "device" else ""))
+               + ({"device": "_dring", "scratch": "_sring"}.get(g.ring, "")))
         return BUILD_DIR / f"{self.name}{tag}_{h.hexdigest()[:16]}.so"
 
     def build(self, geometry=None) -> Path:

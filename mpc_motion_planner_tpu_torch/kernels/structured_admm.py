@@ -17,7 +17,7 @@ elements and as many constraint rows per thread (:func:`threads`: one of
 each up to 1024 threads, two past them, three past 2048 elements), node
 vectors padded to :func:`vpad` floats, one helper warp and one look-ahead
 vector per distance 2..bw of the band (bw = the spline order), and the first
-of eight shared-memory layouts (:func:`choose_layout`, :func:`smem_bytes`)
+of nine shared-memory layouts (:func:`choose_layout`, :func:`smem_bytes`)
 that fits a block: full; compact where the full one does not fit (Ldi
 packed lower triangular, Lsub without its unread tail: 232,176 B at 25 nodes
 of the Panda, where full takes 262,000 B; 19 nodes of an 8-joint robot;
@@ -53,21 +53,26 @@ hold the pair's whole ring, the ring is spread over :func:`ring_ranks`
 blocks, whole slots a rank, a cluster of 1 + that many (16 to 20 joints at
 19 nodes in clusters of three, 208,104 B in each ring rank at 19 joints; 21
 joints in clusters of four, 190,640 B, where one rank 1 would take 444,816
-B; rank 0 165,392 B). :func:`ring_schedule` models the ring's copies and
+B; rank 0 165,392 B); slim where the pair's rank 0 does not fit (the pair
+layout with rank 0's staging buffers cut to those in use at one time,
+:func:`stage_buffers`: 26 to 32 joints at 19 nodes, rank 0 159,792 to
+216,704 B where pair's takes 232,848 to 327,344 B, the ring over 7 ranks
+from 29 joints; 178 nodes of order 3, 231,680 B; 14 joints at 79 nodes).
+:func:`ring_schedule` models the ring's copies and
 reads step by step. Two elements a thread take 40 to 76 nodes of order 3
 (608 threads at 46, 832 at 61, 1024 at 76), order 4 x 10 to x 17 and 9
 joints from 31 nodes; three take 79 to 115 nodes of order 3 (864 threads
-at 97), four 118 to 154, five 157 to 175. A
-geometry that fits no layout (178 nodes of order 3: 235,232 B in rank 0 of
-the pair layout; order 4 x 42; 9 joints at 136 nodes; 10 joints at 121;
-21 joints at 40 nodes) raises a ValueError that names the bytes; nothing
-solves it another way.
+at 97), four 118 to 154, five 157 to 178. A
+geometry that fits no layout (181 nodes of order 3: 235,472 B in rank 0 of
+the slim layout; order 4 x 42; 9 joints at 139 nodes; 14 joints at 88; 32
+joints at 22) raises a ValueError that names the bytes; nothing solves it
+another way.
 Past 10 joints (blk 33 and more) a lane of a sweep warp owns :func:`rows`
 rows of a block, two up to 21 joints, and the sweeps read each block where
 it lies as its product uses it, a step later than they would fetch it
 ahead, the ring's copies a step later too (:func:`ring_schedule`): 12
 joints take the lean layout at 19 nodes (188,768 B, 832 threads); 11
-joints at 106 nodes, 12 at 97 and 14 at 79 fit no layout. The figures
+joints at 112 nodes, 12 at 103 and 14 at 88 fit no layout. The figures
 below are the 19-node Panda transcription's.
 
 What bounds it on this card: latency. Each iteration is ~157k flops per
@@ -131,12 +136,12 @@ KERNEL = CudaKernel(
 # their owner reads out of shared memory, those that read J from device
 # memory, those whose Ldi goes through the ring with Lsub, and those that take
 # a cluster of blocks a problem (the ring in ranks 1 .. :func:`ring_ranks`)
-RINGED = ("split", "stream", "lean", "far", "deep", "pair")
-STREAMED = ("stream", "lean", "far", "deep", "pair")
-OWNERS_OUT = ("lean", "far", "deep", "pair")
-J_OUT = ("far", "deep", "pair")
-LDI_RINGED = ("deep", "pair")
-PAIRED = ("pair",)
+RINGED = ("split", "stream", "lean", "far", "deep", "pair", "slim")
+STREAMED = ("stream", "lean", "far", "deep", "pair", "slim")
+OWNERS_OUT = ("lean", "far", "deep", "pair", "slim")
+J_OUT = ("far", "deep", "pair", "slim")
+LDI_RINGED = ("deep", "pair", "slim")
+PAIRED = ("pair", "slim")
 
 LEAD = 2  # steps between a copy and the step what it brings is first read in
 MAX_CLUSTER = 8  # blocks of a cluster the card places (the portable limit)
@@ -306,7 +311,7 @@ def smem_bytes(g: Geometry, layout: str = None) -> int:
     blocks' (:func:`rank_bytes`), which every block of the launch takes."""
     layout = layout or g.layout or choose_layout(g)
     if layout in PAIRED:
-        return max(rank_bytes(g))
+        return max(rank_bytes(g, layout))
     return _struct_bytes(g, layout)
 
 
@@ -338,16 +343,30 @@ def slots_per_rank(g: Geometry) -> int:
     return -(-ring_runs(g, "pair") // ring_ranks(g))
 
 
-def rank_bytes(g: Geometry) -> tuple:
-    """Shared memory of each block of the pair layout's cluster, (rank 0,
-    rank 1, ..): rank 0's struct Smem (the deep layout's but the ring's
-    slots: up to 3 floats to a 16-byte boundary, a barrier per slot, which
-    the relays arrive on, the progress count, and a staging buffer of a block
-    for each chain warp's two blocks and for each helper's) and each ring
-    rank's struct Peer (its slots, :func:`slots_per_rank`, the barriers its
-    copies complete on, the progress count and rank 0's stop flag). Every
-    block of the launch takes the largest (:func:`smem_bytes`)."""
-    return (_struct_bytes(g, "pair"), *[_peer_bytes(g, slots_per_rank(g))] * ring_ranks(g))
+def stage_buffers(g: Geometry, layout: str = "pair") -> int:
+    """STAGE_BUFS of the pair or slim layout's rank 0: a staging buffer of a
+    block for each helper's block, and for the chain (CHAIN_BUFS) one for
+    each chain warp's two blocks (pair: 4), or those in use at one time
+    (slim: one a chain warp, whose two blocks take it in turn, and past one
+    row a lane one for both chain warps, whose turns the sweeps' barrier
+    keeps apart)."""
+    chain = 4 if layout == "pair" else 1 if rows(g) > 1 else 2
+    return chain + g.order - 1
+
+
+def rank_bytes(g: Geometry, layout: str = None) -> tuple:
+    """Shared memory of each block of the pair or slim layout's cluster
+    (``layout``, default: the one ``g`` names where that is one of them,
+    else pair), (rank 0, rank 1, ..): rank 0's struct Smem (the deep
+    layout's but the ring's slots: up to 3 floats to a 16-byte boundary, a
+    barrier per slot, which the relays arrive on, the progress count, and
+    :func:`stage_buffers` staging buffers of a block) and each ring rank's
+    struct Peer (its slots, :func:`slots_per_rank`, the barriers its copies
+    complete on, the progress count and rank 0's stop flag). Every block of
+    the launch takes the largest (:func:`smem_bytes`)."""
+    layout = layout or g.layout
+    layout = layout if layout in PAIRED else "pair"
+    return (_struct_bytes(g, layout), *[_peer_bytes(g, slots_per_rank(g))] * ring_ranks(g))
 
 
 def _struct_bytes(g: Geometry, layout: str) -> int:
@@ -360,10 +379,9 @@ def _struct_bytes(g: Geometry, layout: str) -> int:
     if layout in PAIRED:  # rank 0: 3 floats to a 16-byte boundary, the
         # barriers (8 bytes each) of the ring in rank 1 and the progress count
         # to a 16-byte boundary, and the staging buffers (STAGE floats: a block
-        # from its 16-byte boundary) of the chain warps' two blocks each and
-        # of each helper's block
+        # from its 16-byte boundary, stage_buffers)
         head = -(-(2 * ring_runs(g, layout) + 1) // 4) * 4
-        lsub = 3 + head + (4 + bw - 1) * ((blk2 + 6) // 4 * 4)
+        lsub = 3 + head + stage_buffers(g, layout) * ((blk2 + 6) // 4 * 4)
     elif layout in RINGED:  # the resident distance-1 blocks (split), 3 floats
         # to a 16-byte boundary, the ring, its barriers (8 bytes each) and the
         # copier's progress count
@@ -404,10 +422,10 @@ def built_geometry(g: Geometry) -> Geometry:
 
 def choose_layout(g: Geometry) -> str:
     """The shared-memory layout kernel 3 is built in for ``g``: the first of
-    full, compact, split, stream, lean, far, deep and pair (``LAYOUTS``)
-    whose block fits (pair: each block of its cluster), else pair, which
-    :func:`check_fits` then refuses."""
-    return next((name for name in LAYOUTS if smem_bytes(g, name) <= SMEM_LIMIT), "pair")
+    full, compact, split, stream, lean, far, deep, pair and slim
+    (``LAYOUTS``) whose block fits (pair and slim: each block of its
+    cluster), else slim, which :func:`check_fits` then refuses."""
+    return next((name for name in LAYOUTS if smem_bytes(g, name) <= SMEM_LIMIT), LAYOUTS[-1])
 
 
 def sweep_warps(g: Geometry) -> int:
@@ -419,14 +437,15 @@ def sweep_warps(g: Geometry) -> int:
 def check_fits(g: Geometry) -> None:
     """Raise ValueError unless kernel 3 is written for ``g`` (a band of at
     least one sub-diagonal block) and its block
-    fits the card in the layout ``g`` names, or else in one of the eight:
-    232,448 B of shared memory (the pair layout: each block of its cluster,
+    fits the card in the layout ``g`` names, or else in one of the nine:
+    232,448 B of shared memory (the pair and slim layouts: each block of its cluster,
     the ring spread over the ranks ``g`` names or else the fewest whose share
     fits), at most 1024 threads (which only an ept that ``g`` names can
     pass), and a band of two sub-diagonal blocks at least where a copier
     fills the ring (the split, stream, lean, far, deep and pair layouts),
     paced by the helper of distance 2; the error of a block too large names
-    the bytes of every layout and of each rank of the pair's cluster. A
+    the bytes of every layout and of each rank of the pair's and the slim's
+    clusters. A
     block always has the warps its sweeps, copier and relay take
     (:func:`threads`)."""
     if g.order < 1:
@@ -439,8 +458,8 @@ def check_fits(g: Geometry) -> None:
                          f"and rows a thread; a block may have {MAX_THREADS}")
     name = g.layout or choose_layout(g)
     if smem_bytes(g, name) > SMEM_LIMIT:
-        bytes_of = lambda lay: (f"{smem_bytes(g, lay)} B" if lay not in PAIRED else
-                                ", ".join(f"rank {i} {b} B" for i, b in enumerate(rank_bytes(g))))
+        bytes_of = lambda lay: (f"{smem_bytes(g, lay)} B" if lay not in PAIRED else ", ".join(
+            f"rank {i} {b} B" for i, b in enumerate(rank_bytes(g, lay))))
         others = ", ".join(f"{other}: {bytes_of(other)}" for other in LAYOUTS if other != name)
         raise ValueError(
             f"{what} needs {smem_bytes(g, name)} B of shared memory per block in its {name} "

@@ -3,7 +3,7 @@ structured QP at 8, 4, 12, 15 and 20 spline segments against the JAX
 ``structured`` backend (float64); the geometry of a kernel library (its
 ``-D`` flags, one library per geometry, per kernel-3 layout and per count
 of elements a thread, kernel 3's shared memory reckoned member by member in
-its full, compact, split, stream, lean, far, deep and pair layouts and at
+its full, compact, split, stream, lean, far, deep, pair and slim layouts and at
 two, three and four elements a thread, the layout each geometry takes, the
 ring of the split, stream, lean, far, deep and pair layouts modelled step
 by step, a geometry past the limits raising); the shipping QP settings of each node
@@ -265,17 +265,20 @@ def test_unfit_geometry_raises_naming_the_bytes():
     up to 51 (154 nodes, four elements a thread, 1024 threads, 229,824 B).
     52 segments (157 nodes, five elements a thread, 233,520 B deep) fit in
     the pair layout (rank 0 208,752 B, rank 1 49,680 B), and so do up to 58
-    (175 nodes, 960 threads, 231,456 B). 59 segments (178 nodes) need
-    235,232 B even in rank 0 of the pair layout: the fit check and the
-    card's QP solve raise and name the bytes of every layout and of both
-    ranks, before any build or launch and whatever the data, so nothing
-    falls back to the plain loop."""
+    (175 nodes, 960 threads, 231,456 B). 59 segments (178 nodes, 235,232 B
+    in rank 0 of the pair layout) fit in the slim layout (rank 0 231,680 B).
+    60 segments (181 nodes) need 235,472 B even in rank 0 of the slim
+    layout: the fit check and the card's QP solve raise and name the bytes
+    of every layout and of both ranks of each cluster, before any build or
+    launch and whatever the data, so nothing falls back to the plain
+    loop."""
     g28, g37, g40 = Geometry(segments=9), Geometry(segments=12), Geometry(segments=13)
     g46, g49 = Geometry(segments=15), Geometry(segments=16)
     g73, g76 = Geometry(segments=24), Geometry(segments=25)
     g94, g97 = Geometry(segments=31), Geometry(segments=32)
     g154, g157 = Geometry(segments=51), Geometry(segments=52)
     g175, g178 = Geometry(segments=58), Geometry(segments=59)
+    g181 = Geometry(segments=60)
     assert k3.smem_bytes(g28, "compact") == 261152 > SMEM_LIMIT
     assert k3.choose_layout(g28) == "split" and k3.smem_bytes(g28) == 180128
     k3.check_fits(g28)
@@ -322,21 +325,28 @@ def test_unfit_geometry_raises_naming_the_bytes():
     with pytest.raises(ValueError, match=r"157 nodes, order 3 and 7 joints .* needs 233520 B of "
                                          r"shared memory per block in its deep layout"):
         k3.check_fits(dataclasses.replace(g157, layout="deep"))
-    assert (k3.ept_of(g178), k3.threads(g178), k3.smem_bytes(g178)) == (5, 960, 235232)
+    assert (k3.ept_of(g178), k3.threads(g178), k3.smem_bytes(g178, "pair")) == (5, 960, 235232)
+    assert (k3.choose_layout(g178), k3.rank_bytes(g178, "slim")) == ("slim", (231680, 49680))
+    k3.check_fits(g178)
     with pytest.raises(ValueError, match=r"178 nodes, order 3 and 7 joints .* needs 235232 B of "
-                                         r"shared memory per block in its pair layout \(rank 0 "
-                                         r"235232 B, rank 1 49680 B; full: \d+ B, compact: \d+ "
-                                         r"B, split: \d+ B, stream: \d+ B, lean: 529888 B, far: "
-                                         r"410272 B, deep: 260000 B\)"):
-        k3.check_fits(g178)
-    planner = _planner(59)
+                                         r"shared memory per block in its pair layout"):
+        k3.check_fits(dataclasses.replace(g178, layout="pair"))
+    assert (k3.ept_of(g181), k3.threads(g181), k3.smem_bytes(g181)) == (5, 992, 235472)
+    with pytest.raises(ValueError, match=r"181 nodes, order 3 and 7 joints .* needs 235472 B of "
+                                         r"shared memory per block in its slim layout \(rank 0 "
+                                         r"235472 B, rank 1 49680 B; full: \d+ B, compact: \d+ "
+                                         r"B, split: \d+ B, stream: \d+ B, lean: 538464 B, far: "
+                                         r"416832 B, deep: 263792 B, pair: rank 0 239024 B, rank "
+                                         r"1 49680 B\)"):
+        k3.check_fits(g181)
+    planner = _planner(60)
     cur, tgt = _states(1)
     z0 = planner.warm_start_vector(planner.plan_warm_start(cur, tgt))
     _, _, sa, args = qp_subproblem(planner.ocp, planner.nlp_bounds(cur, tgt), z0)
     P = hessian_regularization_diag(planner.ocp, 1, torch.float64, "cpu", 0.01)
-    with pytest.raises(ValueError, match="235232 B"):
+    with pytest.raises(ValueError, match="235472 B"):
         k3.solve_box_qp_structured_cuda(planner.ocp, sa, P, *args, config.SHIPPING_QP_SETTINGS)
-    for g in (g40, g46, g49, g73, g76, g94, g97, g154, g157, g175, g178):
+    for g in (g40, g46, g49, g73, g76, g94, g97, g154, g157, g175, g178, g181):
         k2.check_fits(g)  # kernel 2's working set is per node
 
 
@@ -388,7 +398,7 @@ def test_two_elements_a_thread_reckoning():
 
 
 # (segments, order, joints): kernel 3's threads and its bytes in the full,
-# compact, split, stream, lean, far, deep and pair layouts. The split's bytes are
+# compact, split, stream, lean, far, deep, pair and slim layouts. The split's bytes are
 # the compact's less the Lsub blocks of distances 2..bw and plus a ring of
 # bw nodes' helper blocks; the stream's keep no Lsub block and a ring of bw
 # + 1 nodes' runs of bw blocks; the lean's are the stream's less the 16
@@ -398,22 +408,24 @@ def test_two_elements_a_thread_reckoning():
 # the larger of its two blocks': the deep's less the ring's slots, with a
 # staging buffer of a block for each chain warp's two blocks and for each
 # helper's (rank 0), and the slots, two more than the deep's (a lead of 4),
-# their barriers, the progress count and the stop flag (rank 1). The first four take the split layout, the rest the
-# stream.
+# their barriers, the progress count and the stop flag (rank 1); the slim's
+# the pair's with two staging buffers of the chain in rank 0 (a chain
+# warp's two blocks in one) in place of four. The first four take the split
+# layout, the rest the stream.
 RING_GEOMETRIES = {
-    (6, 4, 7): (640, 306976, 273632, 173200, 144992, 108752, 91968, 86608, 70856),
-    (6, 3, 9): (640, 308464, 267216, 185680, 150704, 114848, 94320, 89024, 81936),
-    (6, 3, 10): (704, 372400, 321344, 220640, 177456, 137680, 112592, 106160, 101088),
-    (9, 3, 7): (736, 293488, 261152, 180128, 143088, 101568, 82752, 71088, 49680),
-    (12, 3, 7): (992, 388032, 348128, 235344, 182432, 127392, 102528, 82544, 57776),
-    (9, 4, 7): (928, 454544, 411120, 247200, 197808, 143936, 119088, 102640, 70856),
-    (8, 3, 9): (832, 406128, 356448, 239920, 187440, 140048, 113040, 98672, 81936),
-    (8, 3, 10): (928, 490288, 428800, 284880, 220112, 167520, 134512, 116928, 101088),
+    (6, 4, 7): (640, 306976, 273632, 173200, 144992, 108752, 91968, 86608, 70856, 70856),
+    (6, 3, 9): (640, 308464, 267216, 185680, 150704, 114848, 94320, 89024, 81936, 81936),
+    (6, 3, 10): (704, 372400, 321344, 220640, 177456, 137680, 112592, 106160, 101088, 101088),
+    (9, 3, 7): (736, 293488, 261152, 180128, 143088, 101568, 82752, 71088, 49680, 49680),
+    (12, 3, 7): (992, 388032, 348128, 235344, 182432, 127392, 102528, 82544, 57776, 54224),
+    (9, 4, 7): (928, 454544, 411120, 247200, 197808, 143936, 119088, 102640, 70856, 70856),
+    (8, 3, 9): (832, 406128, 356448, 239920, 187440, 140048, 113040, 98672, 81936, 81936),
+    (8, 3, 10): (928, 490288, 428800, 284880, 220112, 167520, 134512, 116928, 101088, 101088),
     # two z elements and rows a thread
-    (13, 3, 7): (544, 419264, 376848, 253488, 195280, 135728, 108848, 86096, 61328),
-    (10, 4, 7): (544, 503504, 456720, 271616, 215184, 155424, 127888, 107744, 70856),
-    (15, 3, 7): (608, 482240, 434784, 290240, 221456, 152896, 121984, 93680, 68912),
-    (10, 3, 9): (544, 503536, 445440, 293920, 223952, 165008, 131520, 108080, 81936),
+    (13, 3, 7): (544, 419264, 376848, 253488, 195280, 135728, 108848, 86096, 61328, 57776),
+    (10, 4, 7): (544, 503504, 456720, 271616, 215184, 155424, 127888, 107744, 70856, 70856),
+    (15, 3, 7): (608, 482240, 434784, 290240, 221456, 152896, 121984, 93680, 68912, 65360),
+    (10, 3, 9): (544, 503536, 445440, 293920, 223952, 165008, 131520, 108080, 81936, 81936),
 }
 
 
@@ -431,12 +443,12 @@ def test_split_layout_reckoning(segments, order, nq):
     compact layout does not fit, the split is the layout the geometry takes,
     and where the split does not, the stream; the fit check passes."""
     g = Geometry(segments=segments, order=order, nq=nq)
-    threads, full, compact, split, stream, lean, far, deep, pair = RING_GEOMETRIES[
+    threads, full, compact, split, stream, lean, far, deep, pair, slim = RING_GEOMETRIES[
         segments, order, nq]
     layout = "split" if split <= SMEM_LIMIT else "stream"
     assert k3.threads(g) == threads <= 1024
     assert tuple(k3.smem_bytes(g, name) for name in LAYOUTS) == (
-        full, compact, split, stream, lean, far, deep, pair)
+        full, compact, split, stream, lean, far, deep, pair, slim)
     assert compact > SMEM_LIMIT >= k3.smem_bytes(g, layout) == k3.smem_bytes(g)
     assert k3.choose_layout(g) == layout and stream < split
     blk2, N, bw = g.blk ** 2, g.nodes, g.order
@@ -474,6 +486,11 @@ def test_split_layout_reckoning(segments, order, nq):
     deep_ring = k3.ring_runs(g, "deep") * (k3.ring_slot(g, "deep") + 2) + 1
     assert abs((deep - rank0) - 4 * (deep_ring - head - stage)) < 16
     assert rank1 == 4 * slots + 8 * (bw + 4) + 8 and pair == max(rank0, rank1)
+    # the slim layout: rank 0 the pair's with two chain buffers in place of
+    # four (one row a lane), rank 1 the pair's
+    assert k3.stage_buffers(g, "slim") == k3.stage_buffers(g) - 2 == bw + 1
+    assert k3.rank_bytes(g, "slim") == (rank0 - 8 * ((blk2 + 6) // 4 * 4), rank1)
+    assert slim == max(k3.rank_bytes(g, "slim"))
     k3.check_fits(g)
     k3.check_fits(dataclasses.replace(g, layout="stream"))
     for name in LAYOUTS[:LAYOUTS.index(layout)]:
@@ -832,7 +849,7 @@ def test_flags_and_library_per_layout(layout):
     name = k3.KERNEL.library_path(g).name
     assert name.startswith(f"structured_admm_n25_o3_q7_{layout}_e1_")
     others = {k3.KERNEL.library_path(dataclasses.replace(g25, layout=o)) for o in LAYOUTS}
-    assert len(others) == len(LAYOUTS) == 8
+    assert len(others) == len(LAYOUTS) == 9
     assert (k3.KERNEL.library_path(g25) == k3.KERNEL.library_path(g)) == (layout == "compact")
     assert k2.KERNEL.geometry(g) == g25 and k2.KERNEL.library_path(g) == k2.KERNEL.library_path(g25)
     assert k3.smem_bytes(g) == k3.smem_bytes(g25, layout)

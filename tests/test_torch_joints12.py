@@ -101,8 +101,11 @@ def test_kernel2_first_refused_joint_count_names_its_bytes():
     """At 19 nodes kernel 2 takes up to 19 joints with its ring in shared
     memory (230,556 B), 20 to 27 with the ring read back from device memory
     (20 joints: 254,196 B with the shared ring, 124,596 B with the device
-    one), and refuses 28 before any build, naming the 238,964 B a block would
-    need with the device ring and the 492,980 B with the shared one."""
+    one), 28 to 34 in its scratch build (28 joints: 238,964 B with the device
+    ring, 154,292 B scratch), and refuses 35 before any build, naming the
+    238,252 B a block would need in the scratch build, the 767,452 B with the
+    shared ring and the 370,552 B with the device one (kernel 1 refuses 33
+    joints first)."""
     k2.check_fits(Geometry(nq=19))
     assert k2.smem_bytes(Geometry(nq=19)) == 230556 and k2.choose_ring(Geometry(nq=19)) == "shared"
     g20 = Geometry(nq=20)
@@ -110,9 +113,15 @@ def test_kernel2_first_refused_joint_count_names_its_bytes():
     for nq in range(20, 28):
         assert k2.choose_ring(Geometry(nq=nq)) == "device"
         k2.check_fits(Geometry(nq=nq))
-    with pytest.raises(ValueError, match=r"28 joints needs 238964 B of shared memory per block "
-                                         r"with its device ring \(shared ring: 492980 B\)"):
-        k2.check_fits(Geometry(nq=28))
+    g28 = Geometry(nq=28)
+    assert (k2.smem_bytes(g28, "device"), k2.smem_bytes(g28)) == (238964, 154292)
+    for nq in range(28, 35):
+        assert k2.choose_ring(Geometry(nq=nq)) == "scratch"
+        k2.check_fits(Geometry(nq=nq))
+    with pytest.raises(ValueError, match=r"35 joints needs 238252 B of shared memory per block "
+                                         r"with its scratch ring \(shared ring: 767452 B, device "
+                                         r"ring: 370552 B\)"):
+        k2.check_fits(Geometry(nq=35))
 
 
 def _band(N, bw, blk, n, seed):
@@ -180,7 +189,7 @@ def test_factor_banded_blk36_matches_pallas_interpret():
 
 # kernel 3 by joint count: per segment count of order 3, (layout, bytes in
 # it, threads, z elements and rows a thread), up to the first grid that fits
-# no layout (its bytes in rank 0 of the pair layout, the larger block,
+# no layout (its bytes in rank 0 of the slim layout, the larger block,
 # threads, ept)
 K3_GRIDS = {
     11: ({2: ("full", 162320, 288, 1), 3: ("full", 232304, 384, 1),
@@ -190,22 +199,25 @@ K3_GRIDS = {
           10: ("lean", 231920, 640, 2), 11: ("far", 195456, 704, 2),
           13: ("far", 220720, 832, 2), 14: ("deep", 171808, 896, 2),
           17: ("deep", 189344, 736, 3), 24: ("deep", 230592, 1024, 3),
-          25: ("pair", 175296, 800, 4), 34: ("pair", 228176, 864, 5)},
-         (35, 234064, 896, 5)),
+          25: ("pair", 175296, 800, 4), 34: ("pair", 228176, 864, 5),
+          35: ("slim", 220960, 896, 5), 36: ("slim", 226832, 896, 5)},
+         (37, 232720, 928, 5)),
     12: ({2: ("full", 189920, 288, 1), 3: ("compact", 220704, 448, 1),
           4: ("split", 212160, 576, 1), 5: ("stream", 208752, 704, 1),
           6: ("lean", 188768, 832, 1), 7: ("lean", 208784, 960, 1),
           8: ("lean", 228512, 576, 2), 9: ("far", 196064, 640, 2),
           11: ("far", 224768, 768, 2), 12: ("deep", 182112, 832, 2),
           16: ("deep", 207360, 736, 3), 19: ("deep", 226416, 864, 3),
-          20: ("pair", 160144, 928, 3), 31: ("pair", 229680, 864, 5)},
-         (32, 236016, 896, 5)),
+          20: ("pair", 160144, 928, 3), 31: ("pair", 229680, 864, 5),
+          32: ("slim", 220416, 896, 5), 33: ("slim", 226736, 896, 5)},
+         (34, 233072, 928, 5)),
     14: ({2: ("compact", 192832, 352, 1), 3: ("split", 220688, 512, 1),
           4: ("lean", 196736, 672, 1), 5: ("lean", 222624, 800, 1),
           6: ("far", 200640, 960, 1), 7: ("far", 218704, 576, 2),
           8: ("deep", 203248, 640, 2), 11: ("deep", 225648, 896, 2),
-          12: ("pair", 197856, 960, 2), 25: ("pair", 230736, 992, 4)},
-         (26, 238080, 832, 5)),
+          12: ("pair", 197856, 960, 2), 25: ("pair", 230736, 992, 4),
+          26: ("slim", 216864, 832, 5), 28: ("slim", 231728, 896, 5)},
+         (29, 239168, 928, 5)),
 }
 
 
@@ -213,11 +225,12 @@ K3_GRIDS = {
 def test_kernel3_layouts_past_ten_joints(nq):
     """Kernel 3 at 11, 12 and 14 joints over every grid of order 3 from 2
     segments: each takes the first layout whose block fits (so past 10
-    joints every one of the eight is taken somewhere), two rows a lane, the
+    joints every one of the nine is taken somewhere), two rows a lane, the
     bytes, threads and z elements a thread of the reckoning at the grids
-    listed (the pair layout's: its larger block, rank 0's but at 14 joints x
-    12), and the first grid that fits no layout raises before any build,
-    naming each rank's bytes and every other layout's."""
+    listed (the pair and slim layouts': the larger block, rank 0's but at 14
+    joints x 12), and the first grid that fits no layout raises before any
+    build, naming each rank's bytes and every other layout's (the pair's
+    each rank's)."""
     grids, (first, rank0, threads, ept) = K3_GRIDS[nq]
     seen = set()
     for segments in range(2, first):
@@ -234,12 +247,13 @@ def test_kernel3_layouts_past_ten_joints(nq):
                                    if nq == 14 else set())
     g = Geometry(segments=first, nq=nq)
     assert (k3.smem_bytes(g), k3.threads(g), k3.ept_of(g)) == (rank0, threads, ept)
-    assert k3.rank_bytes(g)[0] == rank0
-    others = ", ".join(f"{name}: {k3.smem_bytes(g, name)} B" for name in LAYOUTS[:-1])
+    assert k3.rank_bytes(g, "slim")[0] == rank0 < k3.rank_bytes(g, "pair")[0]
+    pair = ", ".join(f"rank {i} {b} B" for i, b in enumerate(k3.rank_bytes(g, "pair")))
+    others = ", ".join(f"{name}: {k3.smem_bytes(g, name)} B" for name in LAYOUTS[:-2])
     with pytest.raises(ValueError) as err:
         k3.check_fits(g)
-    assert (f"needs {rank0} B of shared memory per block in its pair layout (rank 0 {rank0} B, "
-            f"rank 1 {k3.rank_bytes(g)[1]} B; {others})" in str(err.value))
+    assert (f"needs {rank0} B of shared memory per block in its slim layout (rank 0 {rank0} B, "
+            f"rank 1 {k3.rank_bytes(g, 'slim')[1]} B; {others}, pair: {pair})" in str(err.value))
 
 
 def test_kernel3_lean_block_at_12_joints_member_by_member():

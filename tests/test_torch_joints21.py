@@ -1,6 +1,6 @@
 """PyTorch port, every joint count up to 21 at the headline's 19 nodes
-(the sweep of joint counts runs on to 25, test_torch_joints25.py the
-rest): kernel 3's pair layout with its ring spread over ranks
+(the sweep of joint counts runs on to 32, test_torch_joints25.py and
+test_torch_joints32.py the rest): kernel 3's pair layout with its ring spread over ranks
 1..R of a cluster of 1 + R blocks, whole slots a rank, where one rank 1
 cannot hold the ring (16 to 21 joints); kernel 2's ring of the last bw
 nodes' blocks read back from device memory where its shared ring does not
@@ -51,16 +51,17 @@ def _struct(members):
     return off
 
 
-@pytest.mark.parametrize("nq", range(1, 26))
+@pytest.mark.parametrize("nq", range(1, 33))
 def test_every_joint_count_plans_at_19_nodes(nq):
-    """Kernels 1, 2 and 3 take every joint count from 1 to 25 at the
+    """Kernels 1, 2 and 3 take every joint count from 1 to 32 at the
     headline's 19 nodes: kernel 3 in the first layout whose block fits, its
     pair ring spread over two ranks from 16 joints, three at 21 to 23 and
-    four (a cluster of five) at 24 and 25; kernel 2 with its ring in shared
-    memory up to 19 joints and read back from device memory from 20; at one
-    joint kernel 3's elements fill three warps and its block takes the five
-    its sweeps need; past 21 joints a lane of kernels 2 and 3 holds three
-    rows of a block."""
+    four (a cluster of five) at 24 to 28, the slim layout from 26 and seven
+    ring ranks (a cluster of eight) from 29; kernel 2 with its ring in shared
+    memory up to 19 joints, read back from device memory from 20 and in its
+    scratch build from 28; at one joint kernel 3's elements fill three warps
+    and its block takes the five its sweeps need; past 21 joints a lane of
+    kernels 2 and 3 holds three rows of a block."""
     g = Geometry(nq=nq)
     k1.check_fits(nq)
     k2.check_fits(g)
@@ -68,14 +69,15 @@ def test_every_joint_count_plans_at_19_nodes(nq):
     built = k3.KERNEL.geometry(g)
     layout = ("full" if nq <= 7 else "compact" if nq == 8 else "split" if nq <= 10
               else "stream" if nq == 11 else "lean" if nq <= 13 else "far" if nq <= 15
-              else "pair")
-    ranks = 1 if nq < 16 else 2 if nq <= 20 else 3 if nq <= 23 else 4
+              else "pair" if nq <= 25 else "slim")
+    ranks = 1 if nq < 16 else 2 if nq <= 20 else 3 if nq <= 23 else 4 if nq <= 28 else 7
     assert built.layout == layout == k3.choose_layout(g)
     assert built.ranks == (None if nq < 16 else ranks)
     assert k3.ring_ranks(g) == ranks
     assert k3.rows(g) == k2.rows(g) == (1 if nq <= 10 else 2 if nq <= 21 else 3)
-    assert k2.choose_ring(g) == ("device" if nq >= 20 else "shared")
-    assert max(k3.rank_bytes(g) if layout == "pair" else (k3.smem_bytes(g),)) <= SMEM_LIMIT
+    assert k2.choose_ring(g) == ("scratch" if nq >= 28 else "device" if nq >= 20 else "shared")
+    assert max(k3.rank_bytes(g, layout) if layout in k3.PAIRED else (k3.smem_bytes(g),)) <= \
+        SMEM_LIMIT
     assert k3.threads(g) == (160 if nq == 1 else -(-max(g.num_var, g.num_rows)
                                                    // k3.ept_of(g) // 32) * 32)
 
@@ -224,31 +226,32 @@ def test_ring_schedule_spread_over_ranks(nq):
         assert any(n is not None and 2 * N <= n < 4 * N for n, _, _ in mine)
 
 
-# the first grids past the pair layout, its ring spread: (segments, joints)
+# the first grids past the slim layout, its ring spread: (segments, joints)
 # -> nodes, rank 0's bytes (the largest block), the ring ranks
-PAST_SPREAD = {(21, 16): (64, 235264, 2), (19, 17): (58, 236080, 2),
-               (17, 18): (52, 235168, 2), (16, 19): (49, 242544, 2),
-               (14, 20): (43, 237264, 2), (13, 21): (40, 242976, 3)}
+PAST_SPREAD = {(24, 16): (73, 232784, 2), (23, 17): (70, 240688, 2),
+               (21, 18): (64, 238192, 2), (19, 19): (58, 233792, 2),
+               (18, 20): (55, 236192, 2), (17, 21): (52, 239568, 3)}
 
 
 @pytest.mark.parametrize("segments, nq", list(PAST_SPREAD),
                          ids=[f"{q}_joints_{s}x3" for s, q in PAST_SPREAD])
 def test_first_grids_past_the_spread_ring_raise(segments, nq):
     """Past 15 joints the first grid of order 3 that fits no layout raises
-    before any build, naming the pair layout's rank 0 (the largest block)
-    and each ring rank; one segment fewer plans with the ring spread."""
+    before any build, naming the slim layout's rank 0 (the largest block)
+    and each ring rank; one segment fewer plans in the slim layout with the
+    ring spread."""
     g = Geometry(segments=segments, nq=nq)
     nodes, rank0, ranks = PAST_SPREAD[segments, nq]
-    assert g.nodes == nodes and k3.choose_layout(g) == "pair" and k3.ring_ranks(g) == ranks
-    assert k3.rank_bytes(g)[0] == rank0 == k3.smem_bytes(g) > SMEM_LIMIT
-    ring = ", ".join(f"rank {i} {b} B" for i, b in enumerate(k3.rank_bytes(g)))
+    assert g.nodes == nodes and k3.choose_layout(g) == "slim" and k3.ring_ranks(g) == ranks
+    assert k3.rank_bytes(g, "slim")[0] == rank0 == k3.smem_bytes(g) > SMEM_LIMIT
+    ring = ", ".join(f"rank {i} {b} B" for i, b in enumerate(k3.rank_bytes(g, "slim")))
     with pytest.raises(ValueError) as err:
         k3.check_fits(g)
     assert (f"{nq} joints ({g.num_var} variables, {g.num_rows} rows) needs {rank0} B of shared "
-            f"memory per block in its pair layout ({ring}; full: " in str(err.value))
+            f"memory per block in its slim layout ({ring}; full: " in str(err.value))
     fewer = dataclasses.replace(g, segments=segments - 1)
     k3.check_fits(fewer)
-    assert k3.KERNEL.geometry(fewer).ranks == ranks
+    assert (k3.KERNEL.geometry(fewer).layout, k3.KERNEL.geometry(fewer).ranks) == ("slim", ranks)
 
 
 def test_kernel2_device_ring_reckoning():
@@ -259,7 +262,8 @@ def test_kernel2_device_ring_reckoning():
     124,596 B at 20, one problem per SM; taken only where the shared ring
     does not fit; its flag and library name; a forced device ring where the
     shared one fits (14 and 19 joints, held bitwise on the card) and a
-    forced shared ring that does not fit raising with both rings' bytes."""
+    forced shared ring that does not fit raising with the other rings'
+    bytes."""
     for nq, (floats, smem, shared) in {20: (28800, 124596, 254196),
                                       21: (31815, 137112, 279996)}.items():
         g = Geometry(nq=nq)
@@ -275,7 +279,7 @@ def test_kernel2_device_ring_reckoning():
         assert "_dring_" in k2.KERNEL.library_path(g).name
         with pytest.raises(ValueError, match=rf"{nq} joints needs {shared} B of shared memory "
                                              rf"per block with its shared ring \(device ring: "
-                                             rf"{smem} B\)"):
+                                             rf"{smem} B, scratch ring: \d+ B\)"):
             k2.check_fits(dataclasses.replace(g, ring="shared"))
     for nq, smem in ((14, 63444), (19, 113592)):
         g = Geometry(nq=nq, ring="device")

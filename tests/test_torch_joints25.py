@@ -150,28 +150,29 @@ def test_pair_ring_at_seven_nodes_copies_only_at_its_start():
     assert any(n is not None for n, _, _ in copies10)
 
 
-# the first grids of order 3 past the pair layout at 22 to 25 joints:
+# the first grids of order 3 past the slim layout at 22 to 25 joints:
 # (segments, joints) -> nodes, rank 0's bytes (the largest block), ring ranks
-PAST_WIDE = {(11, 22): (34, 236304, 3), (10, 23): (31, 239984, 3),
-             (9, 24): (28, 242160, 4), (8, 25): (25, 244624, 4)}
+PAST_WIDE = {(16, 22): (49, 242064, 3), (15, 23): (46, 243680, 3),
+             (14, 24): (43, 243024, 4), (13, 25): (40, 242960, 4)}
 
 
 @pytest.mark.parametrize("segments, nq", list(PAST_WIDE),
                          ids=[f"{q}_joints_{s}x3" for s, q in PAST_WIDE])
 def test_first_grids_past_the_wide_builds_raise(segments, nq):
     """At 22 to 25 joints the first grid of order 3 that fits no layout
-    raises before any build, naming rank 0 of the pair layout and each ring
-    rank; one segment fewer plans with the ring spread, kernel 2's device
-    ring fitting at both."""
+    raises before any build, naming rank 0 of the slim layout and each ring
+    rank; one segment fewer plans in the slim layout with the ring spread,
+    kernel 2's device ring fitting at both."""
     g = Geometry(segments=segments, nq=nq)
     nodes, rank0, ranks = PAST_WIDE[segments, nq]
-    assert g.nodes == nodes and k3.choose_layout(g) == "pair" and k3.ring_ranks(g) == ranks
-    assert k3.rank_bytes(g)[0] == rank0 == k3.smem_bytes(g) > SMEM_LIMIT
-    ring = ", ".join(f"rank {i} {b} B" for i, b in enumerate(k3.rank_bytes(g)))
+    assert g.nodes == nodes and k3.choose_layout(g) == "slim" and k3.ring_ranks(g) == ranks
+    assert k3.rank_bytes(g, "slim")[0] == rank0 == k3.smem_bytes(g) > SMEM_LIMIT
+    ring = ", ".join(f"rank {i} {b} B" for i, b in enumerate(k3.rank_bytes(g, "slim")))
     with pytest.raises(ValueError) as err:
         k3.check_fits(g)
     assert (f"{nq} joints ({g.num_var} variables, {g.num_rows} rows) needs {rank0} B of shared "
-            f"memory per block in its pair layout ({ring}; full: " in str(err.value))
+            f"memory per block in its slim layout ({ring}; full: " in str(err.value))
+    assert k3.KERNEL.geometry(dataclasses.replace(g, segments=segments - 1)).layout == "slim"
     fewer = dataclasses.replace(g, segments=segments - 1)
     k3.check_fits(fewer)
     k2.check_fits(fewer)
@@ -181,38 +182,62 @@ def test_first_grids_past_the_wide_builds_raise(segments, nq):
 
 def test_widest_robots_and_their_refusals():
     """28 joints plan at 7 nodes (2 segments: kernel 3's pair layout, four
-    ring ranks, rank 0 203,488 B; kernel 2's device ring 230,900 B) and
-    nothing past 28 fits kernel 2 on any grid; 26 joints at 19 nodes raise
-    naming kernel 3's rank 0 (232,848 B) and each ring rank (194,776 B), 28
-    at 19 nodes naming kernel 2's 238,964 B and kernel 3's rank 0 262,464 B,
-    29 at 7 naming kernel 2's 247,832 B; 26 joints plan at 16 nodes and 27
-    at 13."""
+    ring ranks, rank 0 203,488 B; kernel 2's device ring 230,900 B), and so
+    do 29 (kernel 2's scratch build, 157,004 B, where the device ring needs
+    247,832 B); 26 joints at 19 nodes take kernel 3's slim layout (rank 0
+    159,792 B, where the pair's needs 232,848 B, which a build that names the
+    pair layout raises with, naming each ring rank's 194,776 B) and 28 there
+    kernel 2's scratch build (154,292 B; the device ring's 238,964 B raise
+    where named); 32 joints plan at 19 nodes (slim rank 0 216,704 B, seven
+    ring ranks of 147,504 B, kernel 2 199,316 B) and raise at 22 nodes
+    naming slim's rank 0, 233,584 B; kernel 2 takes up to 35 joints at one
+    segment (225,652 B) and nothing past it on any grid; 26 joints plan at
+    16 nodes and 27 at 13 in the pair layout, as before."""
     g28 = Geometry(2, 3, 28)
     k1.check_fits(28)
     k2.check_fits(g28)
     k3.check_fits(g28)
     assert (k2.smem_bytes(g28), k2.choose_ring(g28), k2.rows(g28)) == (230900, "device", 3)
-    assert k3.rank_bytes(g28) == (203488, *[225880] * 4)
+    assert k3.rank_bytes(g28) == (203488, *[225880] * 4) and k3.choose_layout(g28) == "pair"
+    g29 = Geometry(2, 3, 29)
+    k3.check_fits(g29)
+    assert (k2.smem_bytes(g29), k2.smem_bytes(g29, "device"), k2.choose_ring(g29)) == (
+        157004, 247832, "scratch")
+    with pytest.raises(ValueError, match=r"7 nodes, band width 3 and 29 joints needs 247832 B "
+                                         r"of shared memory per block with its device ring"):
+        k2.check_fits(dataclasses.replace(g29, ring="device"))
     for g in (Geometry(5, 3, 26), Geometry(4, 3, 27)):
         k2.check_fits(g)
         k3.check_fits(g)
+        assert k3.choose_layout(g) == "pair"
     g26 = Geometry(6, 3, 26)
     k2.check_fits(g26)
+    k3.check_fits(g26)
+    assert (k3.choose_layout(g26), k3.rank_bytes(g26, "slim")[0]) == ("slim", 159792)
     with pytest.raises(ValueError, match=r"26 joints \(1483 variables, 1761 rows\) needs 232848 "
                                          r"B of shared memory per block in its pair layout \(rank "
                                          r"0 232848 B, rank 1 194776 B, rank 2 194776 B, rank 3 "
                                          r"194776 B, rank 4 194776 B"):
-        k3.check_fits(g26)
+        k3.check_fits(dataclasses.replace(g26, layout="pair"))
     g28x6 = Geometry(6, 3, 28)
+    k2.check_fits(g28x6)
+    assert (k2.smem_bytes(g28x6), k2.choose_ring(g28x6)) == (154292, "scratch")
     with pytest.raises(ValueError, match=r"28 joints needs 238964 B of shared memory per block "
                                          r"with its device ring"):
-        k2.check_fits(g28x6)
+        k2.check_fits(dataclasses.replace(g28x6, ring="device"))
     with pytest.raises(ValueError, match=r"28 joints .* needs 262464 B"):
-        k3.check_fits(g28x6)
-    with pytest.raises(ValueError, match=r"7 nodes, band width 3 and 29 joints needs 247832 B "
-                                         r"of shared memory per block with its device ring"):
-        k2.check_fits(Geometry(2, 3, 29))
-    for nq in (29, 30, 32):
+        k3.check_fits(dataclasses.replace(g28x6, layout="pair"))
+    g32 = Geometry(6, 3, 32)
+    k1.check_fits(32)
+    k2.check_fits(g32)
+    k3.check_fits(g32)
+    assert (k2.smem_bytes(g32), k3.rank_bytes(g32, "slim")) == (199316, (216704, *[147504] * 7))
+    with pytest.raises(ValueError, match=r"22 nodes, order 3 and 32 joints .* needs 233584 B of "
+                                         r"shared memory per block in its slim layout"):
+        k3.check_fits(Geometry(7, 3, 32))
+    k2.check_fits(Geometry(1, 3, 35))
+    assert k2.smem_bytes(Geometry(1, 3, 35)) == 225652
+    for nq in (36, 37, 40):
         with pytest.raises(ValueError, match=rf"{nq} joints needs \d+ B"):
             k2.check_fits(Geometry(1, 3, nq))
 

@@ -128,9 +128,10 @@ def test_order4_beyond_one_block_raises_naming_the_bytes():
     34 segments (137 nodes, 235,024 B deep) takes the pair layout, rank 0
     194,384 B and rank 1 70,856 B, and so does order 4 at 41 (165 nodes,
     five z elements and rows a thread, rank 0 231,440 B). Order 4 at 42
-    segments (169 nodes) needs 236,736 B even in rank 0 of the pair layout:
-    its fit check and the card's QP solve raise and name the bytes before
-    any build or launch. Kernel 2 takes all thirteen."""
+    segments (169 nodes) needs 236,736 B in rank 0 of the pair layout and
+    233,184 B even in that of the slim layout: its fit check and the card's
+    QP solve raise and name the bytes before any build or launch. Kernel 2
+    takes all thirteen."""
     g46, g45, g49, g4a, g4b = (Geometry(segments=s, order=4) for s in (6, 5, 9, 10, 11))
     g65, g69 = Geometry(segments=16, order=4), Geometry(segments=17, order=4)
     g85, g89 = Geometry(segments=21, order=4), Geometry(segments=22, order=4)
@@ -182,14 +183,15 @@ def test_order4_beyond_one_block_raises_naming_the_bytes():
     with pytest.raises(ValueError, match=r"137 nodes, order 4 .* needs 235024 B of shared memory "
                                          r"per block in its deep layout"):
         k3.check_fits(dataclasses.replace(g137, layout="deep"))
-    assert (k3.threads(g169), k3.smem_bytes(g169)) == (864, 236736)
-    with pytest.raises(ValueError, match=r"169 nodes, order 4 .* needs 236736 B of shared memory "
-                                         r"per block in its pair layout \(rank 0 236736 B, rank 1 "
-                                         r"70856 B;"):
+    assert (k3.threads(g169), k3.smem_bytes(g169, "pair"), k3.smem_bytes(g169)) == (
+        864, 236736, 233184)
+    with pytest.raises(ValueError, match=r"169 nodes, order 4 .* needs 233184 B of shared memory "
+                                         r"per block in its slim layout \(rank 0 233184 B, rank 1 "
+                                         r"70856 B;.* pair: rank 0 236736 B, rank 1 70856 B\)"):
         k3.check_fits(g169)
     planner = _planner(4, 42)
     sa, args, _, _ = _step0(planner, 1)
-    with pytest.raises(ValueError, match="236736 B"):
+    with pytest.raises(ValueError, match="233184 B"):
         k3.solve_box_qp_structured_cuda(planner.ocp, sa, *args, config.SHIPPING_QP_SETTINGS)
     for g in (g45, g46, g49, g4a, g4b, g65, g69, g85, g89, g133, g137, g165, g169):
         k2.check_fits(g)

@@ -43,12 +43,14 @@ PAIR_GEOMETRIES = {
     (12, 3, 14): (37, 2, 960, 233088, (134256, 197856)),
 }
 
-# the first geometry of each that the pair layout refuses: (segments, order,
-# joints) -> nodes, rank 0's bytes (rank 0 is the larger block everywhere)
+# the first geometry of each that the pair layout and the slim one (the pair
+# layout with fewer staging buffers in rank 0) refuse: (segments, order,
+# joints) -> nodes, the slim layout's rank 0's bytes (rank 0 is the larger
+# block everywhere)
 PAST_PAIR = {
-    (59, 3, 7): (178, 235232), (42, 4, 7): (169, 236736), (45, 3, 9): (136, 234528),
-    (40, 3, 10): (121, 236848), (35, 3, 11): (106, 234064), (32, 3, 12): (97, 236016),
-    (26, 3, 14): (79, 238080),
+    (60, 3, 7): (181, 235472), (42, 4, 7): (169, 233184), (46, 3, 9): (139, 233472),
+    (41, 3, 10): (124, 234960), (37, 3, 11): (112, 232720), (34, 3, 12): (103, 233072),
+    (29, 3, 14): (88, 239168),
 }
 
 
@@ -153,22 +155,26 @@ def test_pair_layout_is_taken_only_where_deep_does_not_fit():
 @pytest.mark.parametrize("segments, order, nq", list(PAST_PAIR),
                          ids=[f"{q}_joints_{s}x{o}" for s, o, q in PAST_PAIR])
 def test_first_geometries_past_the_pair_layout_raise(segments, order, nq):
-    """Past the pair layout nothing fits: the first geometry of the Panda
-    at orders 3 and 4 and of 9, 10, 11, 12 and 14 joints raises before any
-    build, naming each rank's bytes and every other layout's; one segment
-    fewer takes the pair layout and passes the fit check."""
+    """Past the pair layout and its slim form nothing fits: the first
+    geometry of the Panda at orders 3 and 4 and of 9, 10, 11, 12 and 14
+    joints raises before any build, naming each rank's bytes of both
+    clusters and every other layout's; one segment fewer takes the slim
+    layout (order 4: the pair layout, the slim adding no grid there) and
+    passes the fit check."""
     g = Geometry(segments=segments, order=order, nq=nq)
     nodes, rank0 = PAST_PAIR[segments, order, nq]
-    assert g.nodes == nodes and k3.rank_bytes(g)[0] == rank0 == k3.smem_bytes(g)
-    assert k3.choose_layout(g) == "pair" and k3.threads(g) <= 1024
+    assert g.nodes == nodes and k3.rank_bytes(g, "slim")[0] == rank0 == k3.smem_bytes(g)
+    assert k3.choose_layout(g) == "slim" and k3.threads(g) <= 1024
+    assert k3.rank_bytes(g, "pair")[0] > rank0
     with pytest.raises(ValueError) as err:
         k3.check_fits(g)
-    others = ", ".join(f"{name}: {k3.smem_bytes(g, name)} B" for name in LAYOUTS[:-1])
-    assert (f"needs {rank0} B of shared memory per block in its pair layout (rank 0 {rank0} B, "
-            f"rank 1 {k3.rank_bytes(g)[1]} B; {others}); a block may have {SMEM_LIMIT} B"
-            in str(err.value))
+    others = ", ".join(f"{name}: {k3.smem_bytes(g, name)} B" for name in LAYOUTS[:-2])
+    pair = ", ".join(f"rank {i} {b} B" for i, b in enumerate(k3.rank_bytes(g, "pair")))
+    assert (f"needs {rank0} B of shared memory per block in its slim layout (rank 0 {rank0} B, "
+            f"rank 1 {k3.rank_bytes(g, 'slim')[1]} B; {others}, pair: {pair}); a block may "
+            f"have {SMEM_LIMIT} B" in str(err.value))
     fewer = dataclasses.replace(g, segments=segments - 1)
-    assert k3.choose_layout(fewer) == "pair"
+    assert k3.choose_layout(fewer) == ("pair" if order == 4 else "slim")
     k3.check_fits(fewer)
 
 

@@ -8,8 +8,8 @@ and 10 take kernel 3's split layout at 19 nodes and its stream layout at
 25, 9 joints at 31 nodes at two elements a thread, 10 joints at 28 and 37
 nodes its lean layout, 10 joints at 40 and 49 nodes its far layout, 10
 joints at 52 and 88 nodes its deep layout, 10 joints at 91 and 118 nodes
-its pair layout; 10 joints at 121 nodes fit no layout and raise, naming
-the bytes); the ``fused_constraints`` routing of
+its pair layout, 10 joints at 121 nodes its slim layout; 10 joints at 124
+nodes fit no layout and raise, naming the bytes); the ``fused_constraints`` routing of
 the constraint rows on the CPU; and the Panda with its hand (9 joints, a
 branched tree with two prismatic fingers): the port's plain solve against
 the JAX fixture ``torch_port_hand9_b64.npz`` and its compiled solve on the
@@ -206,10 +206,11 @@ def test_geometry_at_other_joint_counts(nq):
 
 def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
     """Kernel 1 takes up to 32 joints (a thread per evaluation and joint of
-    32 evaluations; 33 joints need 1,056 threads), kernel 2 at 19 nodes up to 27
+    32 evaluations; 33 joints need 1,056 threads), kernel 2 at 19 nodes up to 34
     (two rows of a block a lane past 10, three past 21; from 20 joints its
     ring read back from device memory; 28 joints need 238,964 B of shared
-    memory); kernels 2 and 3 take splines of orders 2, 4 and 5 at 6 joints and order
+    memory so, and take its scratch build, 154,292 B; 35 joints need
+    238,252 B in it); kernels 2 and 3 take splines of orders 2, 4 and 5 at 6 joints and order
     4 at 5 segments and 8 joints (kernel 3 in its split layout, 183,232 B);
     9 and 10 joints at 25 nodes (284,880 B split for 10) take kernel 3's
     stream layout, 187,440 and 220,112 B; 9 joints at 31 nodes (1030 rows)
@@ -223,16 +224,22 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
     joints at 91 nodes (234,016 B deep) take the pair layout, rank 0 183,584
     B and rank 1 101,088 B, and so do 10 joints at 118 nodes (five z elements
     and rows a thread, 896 threads, rank 0 231,520 B); 10 joints at 121
-    nodes need 236,848 B even in rank 0 of the pair layout and raise naming
-    them before any build; a library kind that is none of the three
-    raises."""
+    nodes (236,848 B in rank 0 of the pair layout) take the slim layout,
+    rank 0 229,616 B; 10 joints at 124 nodes need 234,960 B even in rank 0
+    of the slim layout and raise naming them before any build; a library
+    kind that is none of the three raises."""
     k1.check_fits(32)
     with pytest.raises(ValueError, match=r"33 joints needs 1056 threads a block"):
         k1.check_fits(33)
     k2.check_fits(Geometry(nq=27))
     with pytest.raises(ValueError, match=r"19 nodes, band width 3 and 28 joints needs 238964 B "
                                          r"of shared memory per block"):
-        k2.check_fits(Geometry(nq=28))
+        k2.check_fits(Geometry(nq=28, ring="device"))
+    assert (k2.choose_ring(Geometry(nq=28)), k2.smem_bytes(Geometry(nq=28))) == ("scratch", 154292)
+    k2.check_fits(Geometry(nq=34))
+    with pytest.raises(ValueError, match=r"19 nodes, band width 3 and 35 joints needs 238252 B "
+                                         r"of shared memory per block with its scratch ring"):
+        k2.check_fits(Geometry(nq=35))
     for order, segments in ((2, 9), (4, 4), (5, 3)):
         for check in (k2.check_fits, k3.check_fits):
             check(Geometry(order=order, segments=segments, nq=6))
@@ -295,10 +302,19 @@ def test_kernel_fit_checks_beyond_the_joint_counts_they_take():
         k3.check_fits(g)
         k2.check_fits(g)
     g = Geometry(segments=40, nq=10)
-    assert (k3.threads(g), k3.smem_bytes(g)) == (928, 236848)
+    assert (k3.threads(g), k3.smem_bytes(g, "pair"), k3.smem_bytes(g)) == (928, 236848, 229616)
+    assert k3.choose_layout(g) == "slim"
+    k3.check_fits(g)
     with pytest.raises(ValueError, match=r"121 nodes, order 3 and 10 joints .* needs 236848 B "
                                          r"of shared memory per block in its pair layout \(rank "
                                          r"0 236848 B, rank 1 101088 B;"):
+        k3.check_fits(dataclasses.replace(g, layout="pair"))
+    k2.check_fits(g)
+    g = Geometry(segments=41, nq=10)
+    assert (k3.threads(g), k3.smem_bytes(g)) == (960, 234960)
+    with pytest.raises(ValueError, match=r"124 nodes, order 3 and 10 joints .* needs 234960 B "
+                                         r"of shared memory per block in its slim layout \(rank "
+                                         r"0 234960 B, rank 1 101088 B;"):
         k3.check_fits(g)
     k2.check_fits(g)
     with pytest.raises(ValueError, match="per_geometry"):
